@@ -1,0 +1,29 @@
+"""Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
+
+The paper's own two targets, copied from ``repro/configs``.  Each module
+exposes ``config()`` (full published config) and ``smoke_config()``
+(reduced same-family config for CPU tests).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config import ModelConfig
+
+ARCH_IDS = ("gemma2-2b", "mistral-7b")
+
+_MODULES = {name: "repro_torch.configs." + name.replace("-", "_").replace(".", "_")
+            for name in ARCH_IDS}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_IDS}")
+    return importlib.import_module(_MODULES[name]).config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_IDS}")
+    return importlib.import_module(_MODULES[name]).smoke_config()

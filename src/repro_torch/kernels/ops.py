@@ -1,0 +1,126 @@
+"""Public kernel entry points with backend dispatch (``repro/kernels/ops.py``).
+
+Two implementations per op:
+
+* ``torch`` — the plain PyTorch versions in :mod:`.plain`;
+* ``cuda``  — the hand-written Hopper kernels (:mod:`.flash_attention`,
+  :mod:`.memcom_xattn`).
+
+``impl="auto"`` (the default) sends a CPU tensor to the plain version and a
+CUDA tensor to the kernel, always — there is no "small problem → dense"
+route, which would hide the kernel at decode shapes.
+``set_default_impl("torch")`` forces the plain versions everywhere (the
+kernel-vs-plain comparisons on the card use it).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import memcom_xattn as _mx
+from repro_torch.kernels import plain
+
+_FORCED_IMPL: Optional[str] = None
+
+
+def set_default_impl(impl: Optional[str]) -> None:
+    """Force an implementation globally ("torch" | "cuda"; None = auto)."""
+    global _FORCED_IMPL
+    if impl not in (None, "torch", "cuda"):
+        raise ValueError(f"impl must be None, 'torch' or 'cuda', got {impl!r}")
+    _FORCED_IMPL = impl
+
+
+def _plain(impl: str, x: torch.Tensor) -> bool:
+    """True when the plain version must run instead of the kernel wrapper
+    (which itself takes the plain version for a CPU tensor)."""
+    if impl == "auto":
+        impl = _FORCED_IMPL or "auto"
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    if impl not in ("auto", "torch", "cuda"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl == "torch"
+
+
+def _positions(offset, n: int, batch: int, device) -> torch.Tensor:
+    pos = offset + torch.arange(n, dtype=torch.int32, device=device)
+    return pos.expand(batch, n).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
+              scale=None, impl="auto", return_lse=False):
+    """General position-masked GQA attention (prefix / decode / cross)."""
+    fn = plain.attention_ref if _plain(impl, q) else _fa.flash_attention
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(),
+              q_pos=q_pos.to(torch.int32).contiguous(),
+              kv_pos=kv_pos.to(torch.int32).contiguous(), causal=causal,
+              softcap=softcap, scale=scale, return_lse=return_lse)
+
+
+def self_attention_causal(q, k, v, *, offset=0, softcap=0.0, scale=None,
+                          impl="auto", return_lse=False):
+    """Pure causal self-attention (q_pos = kv_pos = offset + arange(S))."""
+    B, S = q.shape[:2]
+    pos = _positions(offset, S, B, q.device)
+    return attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
+                     softcap=softcap, scale=scale, impl=impl,
+                     return_lse=return_lse)
+
+
+def decode_attention(q, k, v, *, lengths, softcap=0.0, scale=None,
+                     impl="auto"):
+    """Per-slot length-aware decode attention (continuous batching).
+
+    ``q`` (B, S, Hq, D) holds each slot's last S tokens; ``k``/``v``
+    (B, L, Hkv, D) are the full fixed-size caches; ``lengths`` (B,) int is
+    each slot's total valid length *including* the S new tokens.  Slot
+    ``b`` attends causally within cache positions ``[0, lengths[b])``."""
+    B, S = q.shape[:2]
+    L = k.shape[1]
+    kv_pos = _positions(0, L, B, q.device)
+    q_pos = (lengths.to(torch.int32)[:, None] - S
+             + torch.arange(S, dtype=torch.int32, device=q.device)[None, :])
+    return attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                     softcap=softcap, scale=scale, impl=impl)
+
+
+def attention_with_prefix(q, k_self, v_self, k_pre, v_pre, *, pre_pos=None,
+                          offset=None, softcap=0.0, scale=None, impl="auto"):
+    """Causal self-attention plus a fully-visible KV prefix (MemCom
+    memory), as two partials merged exactly through their log-sum-exp.
+    ``offset`` defaults to the prefix length."""
+    B, S = q.shape[:2]
+    m = k_pre.shape[1]
+    if offset is None:
+        offset = m
+    if pre_pos is None:
+        pre_pos = _positions(0, m, B, q.device)
+    o_self, l_self = self_attention_causal(
+        q, k_self, v_self, offset=offset, softcap=softcap, scale=scale,
+        impl=impl, return_lse=True)
+    q_pos = _positions(offset, S, B, q.device)
+    o_pre, l_pre = attention(
+        q, k_pre, v_pre, q_pos=q_pos, kv_pos=pre_pos, causal=False,
+        softcap=softcap, scale=scale, impl=impl, return_lse=True)
+    return plain.combine_attention_partials([(o_self, l_self),
+                                             (o_pre, l_pre)])
+
+
+# ---------------------------------------------------------------------------
+# MemCom layer-wise cross-attention (the paper's compressor hot spot)
+# ---------------------------------------------------------------------------
+
+
+def memcom_xattn(q, k, v, *, scale=None, impl="auto"):
+    """1-head cross-attention, head width = d_model: (B,M,D)x(B,T,D)->(B,M,D)."""
+    fn = plain.memcom_xattn_ref if _plain(impl, q) else _mx.memcom_xattn
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)

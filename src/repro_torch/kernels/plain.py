@@ -1,0 +1,95 @@
+"""Plain PyTorch versions of the port's kernels.
+
+They are the CPU path (a kernel wrapper given a CPU tensor calls them) and
+the yardstick the CUDA kernels are held against on the card.  Each mirrors
+an oracle of the JAX package (``repro/kernels/ref.py`` and
+``jnp_impl.combine_attention_partials``) and computes in float32
+internally, casting the result to the input's type at the end — the same
+arithmetic the kernels do, so a bf16 comparison measures the kernel and
+not a different rounding schedule.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
+                  scale=None, return_lse=False):
+    """Dense GQA attention with position-derived masking (``ref.py:14``).
+
+    q (B,Sq,Hq,Dk), k (B,Skv,Hkv,Dk), v (B,Skv,Hkv,Dv), q_pos (B,Sq),
+    kv_pos (B,Skv) (-1 marks an invalid slot) -> out (B,Sq,Hq,Dv) [, lse
+    (B,Sq,Hq) float32].  A query row that sees no valid key gets output 0
+    and lse -1e30."""
+    B, Sq, Hq, Dk = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    if scale is None:
+        scale = Dk ** -0.5
+    qh = q.float().reshape(B, Sq, Hkv, G, Dk)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qh, k.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    valid = (kv_pos[:, None, :] >= 0)  # (B, 1, Skv)
+    if causal:
+        valid = valid & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    else:
+        valid = valid.expand(B, Sq, Skv)
+    valid = valid[:, None, None]  # (B,1,1,Sq,Skv)
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m) * valid
+    s = e.sum(dim=-1, keepdim=True)
+    any_valid = s > 0
+    p = torch.where(any_valid, e / torch.clamp(s, min=1e-37),
+                    torch.zeros_like(e))
+    out = torch.einsum("bhgqs,bshd->bqhgd", p, v.float())
+    out = out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(any_valid, m + torch.log(torch.clamp(s, min=1e-37)),
+                      torch.full_like(m, NEG_INF))[..., 0]  # (B,Hkv,G,Sq)
+    return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, Hq)
+
+
+def memcom_xattn_ref(q, k, v, *, scale=None):
+    """The paper's 1-head cross-attention (``ref.py:50``): m memory queries
+    over t source tokens, head width = d_model, no mask."""
+    D = q.shape[-1]
+    if scale is None:
+        scale = D ** -0.5
+    logits = torch.einsum("bmd,btd->bmt", q.float(), k.float()) * scale
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bmt,btd->bmd", p, v.float()).to(q.dtype)
+
+
+def combine_attention_partials(parts):
+    """Exact merge of attention computed over disjoint KV sets
+    (``jnp_impl.py:353``): parts are (out (B,S,H,Dv), lse (B,S,H))."""
+    lses = torch.stack([p[1] for p in parts])
+    outs = torch.stack([p[0] for p in parts])
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m[None])
+    w = w / torch.clamp(w.sum(dim=0), min=1e-37)
+    out = (outs.float() * w[..., None]).sum(dim=0)
+    return out.to(parts[0][0].dtype)
+
+
+def scaled_err(out, ref) -> float:
+    """Largest ``|out - ref| / (|ref| + rms of ref's row)`` over the
+    elements, a row being the last axis: the error of a kernel's result
+    in units of the reference's own scale, so that a small output (a mean
+    of V over thousands of keys) is held as tightly as a large one.  A row
+    whose reference is all 0 (a query that sees no key) must be 0 exactly
+    (the result is inf otherwise)."""
+    ref = ref.float()
+    d = (out.float() - ref).abs()
+    scale = ref.abs() + ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    ratio = torch.where(scale > 0, d / scale.clamp(min=1e-37),
+                        torch.where(d > 0, torch.inf, 0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0

@@ -1,0 +1,191 @@
+"""GQA attention block (``repro/models/attention.py``): prefill, prefill
+continuation behind a seated cache, MemCom prefix, static and per-slot
+decode.
+
+MemCom integration: ``prefix`` carries the layer's compressed memory,
+either as hidden states ``{"h": (B, m, D)}`` (K/V derived through this
+layer's projections) or as a precomputed compressed KV cache ``{"k": (B,
+m, Hkv, hd), "v": ...}``.  Target tokens sit at positions ``m..m+S`` and
+see every memory slot (positions ``0..m-1``).
+
+Caches are updated in place (``cache["k"][...] = ...``): the serving engine
+keeps one (slots, max_len, Hkv, hd) tensor per layer and never copies it.
+Enc-dec cross-attention and the paged KV layout are not in this slice of
+the port and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.param import Init, make
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, num_heads: int | None = None, *,
+                 device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.hd
+        nh = num_heads or cfg.num_heads
+        nkv = num_heads or cfg.num_kv_heads
+        kw = dict(device=device, dtype=dtype)
+        make(self, "wq", (d, nh * hd), **kw)
+        make(self, "wk", (d, nkv * hd), **kw)
+        make(self, "wv", (d, nkv * hd), **kw)
+        make(self, "wo", (nh * hd, d), Init(fan_in=nh * hd), **kw)
+        self.has_bias = cfg.attn_qkv_bias
+        if self.has_bias:
+            make(self, "bq", (nh * hd,), Init("zeros"), **kw)
+            make(self, "bk", (nkv * hd,), Init("zeros"), **kw)
+            make(self, "bv", (nkv * hd,), Init("zeros"), **kw)
+
+    def forward(self, x, **kw):
+        return apply_attention(self, self.cfg, x, **kw)
+
+
+def _proj(x, w, b, hd):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y.reshape(*x.shape[:-1], -1, hd)
+
+
+def project_q(p: Attention, cfg: ModelConfig, x, positions):
+    q = _proj(x, p.wq, p.bq if p.has_bias else None, cfg.hd)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    return q
+
+
+def project_kv(p: Attention, cfg: ModelConfig, x, positions):
+    """Roped K and V from hidden states — also builds the MemCom compressed
+    cache from memory representations (positions 0..m-1)."""
+    k = _proj(x, p.wk, p.bk if p.has_bias else None, cfg.hd)
+    v = _proj(x, p.wv, p.bv if p.has_bias else None, cfg.hd)
+    if cfg.pos_embed == "rope":
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    return k, v
+
+
+def scatter_rows(cache, new, starts, valid=None):
+    """Write ``new[b]`` into ``cache[b]`` at per-slot offsets ``starts[b]``
+    along the sequence axis, in place; returns ``cache``.
+
+    Without ``valid`` each start is clamped so the whole window fits, as
+    ``jax.lax.dynamic_update_slice`` does, and the write needs no device
+    sync.  ``valid`` (B,) (optional): only lanes ``s < valid[b]`` are
+    written; the rest are dropped, as are rows that would land at or past
+    the cache end (the JAX version scatters them to an out-of-bounds row)."""
+    B, S = new.shape[:2]
+    L = cache.shape[1]
+    lane = torch.arange(S, device=new.device)
+    rows = torch.arange(B, device=new.device)[:, None].expand(B, S)
+    if valid is None:
+        start = starts.to(torch.long).clamp(0, L - S)
+        cache[rows, start[:, None] + lane[None, :]] = new.to(cache.dtype)
+        return cache
+    pos = starts.to(torch.long)[:, None] + lane[None, :]  # (B, S)
+    keep = (pos < L) & (lane[None, :] < valid.to(torch.long)[:, None])
+    cache[rows[keep], pos[keep]] = new[keep].to(cache.dtype)
+    return cache
+
+
+def _prefix_kv(p: Attention, cfg: ModelConfig, prefix: dict):
+    if "k" in prefix:
+        return prefix["k"], prefix["v"]
+    h = prefix["h"]
+    B, m = h.shape[0], h.shape[1]
+    pos = torch.arange(m, dtype=torch.int32, device=h.device).expand(B, m)
+    return project_kv(p, cfg, h, pos)
+
+
+def apply_attention(
+    p: Attention,
+    cfg: ModelConfig,
+    x,
+    *,
+    positions,
+    mask_offset=0,
+    prefix: Optional[dict] = None,
+    cache: Optional[dict] = None,
+    cache_index=None,
+    decode: bool = False,
+    kv_source=None,
+    block_tables=None,
+):
+    """Returns (out (B,S,D), cache_or_None).  ``cache_index`` is a python
+    int (static offset) or a (B,) tensor (per-slot lengths, decode)."""
+    if kv_source is not None:
+        raise NotImplementedError("enc-dec cross-attention is not ported yet")
+    if block_tables is not None:
+        raise NotImplementedError("the paged KV layout is not ported yet")
+    B, S, _ = x.shape
+    softcap = cfg.attn_logit_softcap
+    scale = cfg.hd ** -0.5
+    q = project_q(p, cfg, x, positions)
+
+    # ---------------- decode: read/write KV cache ----------------
+    if decode:
+        if cache is None or cache_index is None:
+            raise ValueError("decode needs a cache and a cache_index")
+        k_new, v_new = project_kv(p, cfg, x, positions)
+        if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+            # per-slot lengths (continuous batching): each slot writes at
+            # its own offset and is masked to its own seated region only
+            scatter_rows(cache["k"], k_new, cache_index)
+            scatter_rows(cache["v"], v_new, cache_index)
+            out = ops.decode_attention(
+                q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                lengths=cache_index + S, softcap=softcap, scale=scale)
+            return out.reshape(B, S, -1) @ p.wo, cache
+        start = int(cache_index)
+        cache["k"][:, start:start + S] = k_new.to(cache["k"].dtype)
+        cache["v"][:, start:start + S] = v_new.to(cache["v"].dtype)
+        max_len = cache["k"].shape[1]
+        slot = torch.arange(max_len, dtype=torch.int32, device=x.device)
+        kv_pos = torch.where(slot < start + S, slot, -1).expand(B, max_len)
+        q_pos = (start + torch.arange(S, dtype=torch.int32,
+                                      device=x.device)).expand(B, S)
+        out = ops.attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                            q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                            softcap=softcap, scale=scale)
+        return out.reshape(B, S, -1) @ p.wo, cache
+
+    # ---------------- train / prefill: full self-attention ----------------
+    k, v = project_kv(p, cfg, x, positions)
+    if (prefix is None and cache is not None
+            and isinstance(cache_index, int) and cache_index > 0):
+        # prefill continuation: slots [0, cache_index) are already seated
+        # (compressed memory or an earlier prefill segment) — attend to
+        # them as a fully-visible prefix.  Static start only.
+        prefix = {"k": cache["k"][:, :cache_index].to(x.dtype),
+                  "v": cache["v"][:, :cache_index].to(x.dtype)}
+    if prefix is not None:
+        k_pre, v_pre = _prefix_kv(p, cfg, prefix)
+        m = k_pre.shape[1]
+        out = ops.attention_with_prefix(
+            q, k, v, k_pre.to(q.dtype), v_pre.to(q.dtype),
+            offset=mask_offset if mask_offset else m,
+            softcap=softcap, scale=scale)
+    else:
+        out = ops.self_attention_causal(q, k, v, offset=mask_offset,
+                                        softcap=softcap, scale=scale)
+    if cache is not None:  # prefill writes the cache
+        start = cache_index if cache_index is not None else 0
+        cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
+        cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
+    return out.reshape(B, S, -1) @ p.wo, cache
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device) -> dict:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,108 @@
+"""Norms, RoPE and MLPs (``repro/models/layers.py``).
+
+Traps the JAX originals set, kept here on purpose:
+
+* RMSNorm multiplies by ``scale`` (initialised to ones), not ``1 + scale``.
+* RoPE rotates split halves ``[x1, x2]``, not interleaved pairs.
+* ``jax.nn.gelu`` is the tanh approximation, so the port uses
+  ``F.gelu(approximate="tanh")``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.param import Init, make
+
+
+class Norm(nn.Module):
+    def __init__(self, cfg: ModelConfig, dim: int | None = None, *, device,
+                 dtype):
+        super().__init__()
+        self.cfg = cfg
+        d = dim or cfg.d_model
+        make(self, "scale", (d,), Init("ones"), device=device, dtype=dtype)
+        if cfg.norm_type == "layernorm":
+            make(self, "bias", (d,), Init("zeros"), device=device, dtype=dtype)
+
+    def forward(self, x):
+        return apply_norm(self, self.cfg, x)
+
+
+def apply_norm(p: Norm, cfg: ModelConfig, x):
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p.scale.float() + p.bias.float()
+    else:  # rmsnorm
+        var = (xf ** 2).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + cfg.norm_eps) * p.scale.float()
+    return y.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float, mrope_sections=()):
+    """x (B, S, H, Dh); positions (B, S).  Qwen2-VL's 3-D M-RoPE positions
+    are not in this slice of the port."""
+    if positions.dim() != 2:
+        raise NotImplementedError(
+            "3-D (M-RoPE) positions are not ported yet; pass (B, S)")
+    Dh = x.shape[-1]
+    freqs = rope_freqs(Dh, theta, device=x.device)
+    angles = positions.float()[..., None] * freqs  # (B, S, Dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, d_ff: int | None = None,
+                 mlp_type: str | None = None, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.mlp_type = mlp_type or cfg.mlp_type
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        kw = dict(device=device, dtype=dtype)
+        if self.mlp_type == "gelu_mlp":
+            make(self, "wi", (d, f), **kw)
+            make(self, "bi", (f,), Init("zeros"), **kw)
+            make(self, "wo", (f, d), **kw)
+            make(self, "bo", (d,), Init("zeros"), **kw)
+        else:  # swiglu / geglu
+            make(self, "wg", (d, f), **kw)
+            make(self, "wi", (d, f), **kw)
+            make(self, "wo", (f, d), **kw)
+
+    def forward(self, x):
+        return apply_mlp(self, self.cfg, x, self.mlp_type)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(p: MLP, cfg: ModelConfig, x, mlp_type: str | None = None):
+    t = mlp_type or cfg.mlp_type
+    if t == "gelu_mlp":
+        h = _gelu(x @ p.wi + p.bi)
+        return h @ p.wo + p.bo
+    act = F.silu if t == "swiglu" else _gelu
+    return (act(x @ p.wg) * (x @ p.wi)) @ p.wo
+
+
+def softcap(x, cap: float):
+    if cap:
+        return cap * torch.tanh(x / cap)
+    return x

@@ -1,0 +1,156 @@
+"""The model: embedding → blocks → head (``repro/models/transformer.py``).
+
+One ``forward`` serves all three MemCom stacks:
+
+* Source-LLM — ``capture_hiddens=True`` → per-layer input reps H^i
+* Memory-LLM — ``memcom={"params": [MemXAttn...], "src": [H^i...]}`` → O^i
+* Target-LLM — ``prefix=[...]`` or a seated ``cache`` → attends to the
+  compressed per-layer context
+
+The JAX package stacks the ``period`` layers for ``lax.scan``; here the
+stack is a per-layer ``nn.ModuleList`` in layer order, and every
+layer-wise quantity (hiddens, O^i, prefixes, caches) is a Python list in
+the same order.  :mod:`repro_torch.bridge` converts between the two.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.models.attention import init_attn_cache
+from repro_torch.models.blocks import Block
+from repro_torch.models.layers import Norm, softcap
+from repro_torch.models.param import Init, initialize, make
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(cfg: ModelConfig, dtype=None) -> torch.dtype:
+    if dtype is not None:
+        return dtype
+    return DTYPES[cfg.dtype]
+
+
+class Embed(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        make(self, "tokens", (cfg.vocab_size, cfg.d_model),
+             Init("normal", scale=cfg.d_model ** -0.5), device=device,
+             dtype=dtype)
+
+
+class Transformer(nn.Module):
+    """Parameters are declared uninitialised; :func:`init_params` draws
+    them from a seed and :mod:`repro_torch.bridge` loads JAX ones."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        cfg.validate()
+        if cfg.pos_embed not in ("rope", "none") or cfg.encoder is not None \
+                or cfg.mrope_sections:
+            raise NotImplementedError(
+                f"{cfg.name}: learned positions, encoders and M-RoPE are not "
+                "ported yet")
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.embed = Embed(cfg, **kw)
+        self.layers = nn.ModuleList(
+            Block(cfg, desc, **kw) for desc in cfg.layout.descriptors())
+        self.final_norm = Norm(cfg, **kw)
+        if not cfg.tie_embeddings:
+            make(self, "lm_head", (cfg.d_model, cfg.vocab_size), **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.tokens.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.tokens.dtype
+
+    def forward(
+        self,
+        *,
+        tokens=None,
+        embeds=None,
+        positions=None,
+        mask_offset=0,
+        prefix: Optional[list] = None,  # per-layer compressed context
+        cache: Optional[list] = None,  # per-layer KV cache (updated in place)
+        cache_index=None,  # int (static offset) or (B,) tensor (per slot)
+        decode: bool = False,
+        capture_hiddens: bool = False,
+        memcom: Optional[dict] = None,  # {"params": [MemXAttn], "src": [H^i]}
+        logits: bool = True,
+    ):
+        """Returns (logits_or_hidden, aux) with aux keys "cache",
+        "hiddens" (layer inputs H^i) and "omega" (Memory-LLM O^i)."""
+        cfg = self.cfg
+        if embeds is None:
+            h = F.embedding(tokens, self.embed.tokens)
+        else:
+            h = embeds
+        B, S = h.shape[0], h.shape[1]
+        if cfg.embed_scale:
+            h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                                 device=h.device)
+        ar = torch.arange(S, dtype=torch.int32, device=h.device)
+        if positions is None:
+            if decode and torch.is_tensor(cache_index) and cache_index.dim() == 1:
+                # continuous batching: each slot decodes at its own length
+                positions = cache_index.to(torch.int32)[:, None] + ar[None, :]
+            else:
+                start = cache_index if (decode and cache_index is not None) \
+                    else mask_offset
+                positions = (int(start) + ar).expand(B, S)
+
+        hiddens, omegas = [], []
+        for i, block in enumerate(self.layers):
+            if capture_hiddens:
+                hiddens.append(h)
+            mem = None
+            if memcom is not None:
+                mem = (memcom["params"][i], memcom["src"][i])
+            h, _, omega = block(
+                h, positions=positions, mask_offset=mask_offset,
+                prefix=prefix[i] if prefix is not None else None,
+                cache=cache[i] if cache is not None else None,
+                cache_index=cache_index, decode=decode, memcom=mem)
+            if omega is not None:
+                omegas.append(omega)
+
+        out = self.final_norm(h)
+        if logits:
+            head = self.embed.tokens.t() if cfg.tie_embeddings else self.lm_head
+            out = softcap(out @ head, cfg.final_logit_softcap)
+        aux = {
+            "cache": cache,
+            "hiddens": hiddens if capture_hiddens else None,
+            "omega": omegas if memcom is not None else None,
+        }
+        return out, aux
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
+                dtype=None) -> Transformer:
+    """A Transformer with every parameter drawn from ``seed`` (shapes and
+    scales of ``repro/models/param.py``), on ``device`` (default: the
+    card)."""
+    device = resolve_device(device)
+    model = Transformer(cfg, device=device, dtype=torch_dtype(cfg, dtype))
+    return initialize(model, seed)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> list:
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg, dtype)
+    return [init_attn_cache(cfg, batch, max_len, dtype, device)
+            for _ in cfg.layout.descriptors()]

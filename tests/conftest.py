@@ -13,3 +13,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
