@@ -27,7 +27,7 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention", "memcom_xattn")
+SOURCES = ("flash_attention", "memcom_xattn", "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

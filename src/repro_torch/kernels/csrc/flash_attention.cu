@@ -45,7 +45,8 @@
 //   cannot fill the card (decode: B*Hkv = 16 blocks on 132 SMs), the KV
 //   axis is cut into `nsplit` chunks, one block each; every block writes
 //   its normalised partial output and lse to a float32 workspace and a
-//   second kernel merges the partials exactly through their lse.
+//   second kernel (split_kv.cuh) merges the partials exactly through
+//   their lse.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -53,6 +54,7 @@
 #include <cstdint>
 
 #include "mma_sm80.cuh"
+#include "split_kv.cuh"
 
 namespace {
 
@@ -62,25 +64,12 @@ constexpr int TPR = 4;    // threads per query row
 constexpr int DMAX = 256;
 constexpr int NJ = DMAX / (4 * TPR);  // float4 accumulator groups per thread
 constexpr int PS = BK + 4;            // padded row stride of the P tile
-constexpr float NEG = -1e30f;
+using split_kv::NEG;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
+using split_kv::combine_splits;
+using split_kv::load4;
+using split_kv::store4;
 
 // With nsplit > 1, block z = b * nsplit + split covers kv rows
 // [split * kv_chunk, (split + 1) * kv_chunk) and writes its partial to
@@ -255,40 +244,6 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       else lse_part[prow] = l;
     }
   }
-}
-
-// Merge the nsplit partials of one output row (one block per row, one
-// thread per 4 columns).  A partial that saw no key has lse -1e30 and
-// weighs nothing; a row no partial saw gets 0 and lse -1e30.
-template <typename T>
-__global__ void combine_splits(const float* __restrict__ o_part,
-                               const float* __restrict__ lse_part,
-                               T* __restrict__ out, float* __restrict__ lse,
-                               int rows, int D, int nsplit) {
-  const int row = blockIdx.x;
-  float m = NEG;
-  for (int i = 0; i < nsplit; ++i)
-    m = fmaxf(m, lse_part[static_cast<size_t>(i) * rows + row]);
-  float l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int d = threadIdx.x * 4;
-  for (int i = 0; i < nsplit; ++i) {
-    const size_t pr = static_cast<size_t>(i) * rows + row;
-    const float li = lse_part[pr];
-    if (li <= NEG * 0.5f) continue;
-    const float w = expf(li - m);
-    l += w;
-    if (d < D) {
-      const float4 o = load4(o_part + pr * D + d);
-      acc.x += w * o.x; acc.y += w * o.y; acc.z += w * o.z; acc.w += w * o.w;
-    }
-  }
-  if (d < D) {
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (l > 0.f) o = make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
-    store4(out + static_cast<size_t>(row) * D + d, o);
-  }
-  if (threadIdx.x == 0) lse[row] = l > 0.f ? m + logf(l) : NEG;
 }
 
 int kv_chunk_for(int Skv, int nsplit) {

@@ -4,7 +4,10 @@ Two implementations per op:
 
 * ``torch`` — the plain PyTorch versions in :mod:`.plain`;
 * ``cuda``  — the hand-written Hopper kernels (:mod:`.flash_attention`,
-  :mod:`.memcom_xattn`).
+  :mod:`.memcom_xattn`, :mod:`.paged_attention`).
+
+The paged-KV index ops ``paged_scatter``/``paged_gather`` are plain torch
+index operations on every device (they have no kernel).
 
 ``impl="auto"`` (the default) sends a CPU tensor to the plain version and a
 CUDA tensor to the kernel, always — there is no "small problem → dense"
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import memcom_xattn as _mx
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import plain
 
 _FORCED_IMPL: Optional[str] = None
@@ -113,6 +117,31 @@ def attention_with_prefix(q, k_self, v_self, k_pre, v_pre, *, pre_pos=None,
         softcap=softcap, scale=scale, impl=impl, return_lse=True)
     return plain.combine_attention_partials([(o_self, l_self),
                                              (o_pre, l_pre)])
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (block pool + per-slot block tables)
+# ---------------------------------------------------------------------------
+
+paged_scatter = plain.paged_scatter
+paged_gather = plain.paged_gather
+
+
+def paged_decode_attention(q, k_pool, v_pool, *, block_tables, lengths,
+                           softcap=0.0, scale=None, impl="auto"):
+    """Per-slot decode attention over a paged KV cache: ``q`` (B, S, Hq,
+    D) holds each slot's last S tokens, ``k_pool``/``v_pool`` (N, bs, Hkv,
+    D) are the shared pools, ``block_tables`` (B, nb) maps slot ``b``'s
+    logical block ``j`` to a pool block and ``lengths`` (B,) is each
+    slot's valid length *including* the S new tokens.  The semantics of
+    :func:`decode_attention` on each slot's materialized view, but a
+    prefix block shared by several slots is stored (and read) once."""
+    fn = (plain.paged_decode_attention_ref if _plain(impl, q)
+          else _pa.paged_flash_decode)
+    return fn(q.contiguous(), k_pool.contiguous(), v_pool.contiguous(),
+              block_tables=block_tables.to(torch.int32).contiguous(),
+              lengths=lengths.to(torch.int32).contiguous(), softcap=softcap,
+              scale=scale)
 
 
 # ---------------------------------------------------------------------------

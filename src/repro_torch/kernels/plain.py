@@ -7,6 +7,10 @@ an oracle of the JAX package (``repro/kernels/ref.py`` and
 internally, casting the result to the input's type at the end — the same
 arithmetic the kernels do, so a bf16 comparison measures the kernel and
 not a different rounding schedule.
+
+The paged-KV index ops (``paged_scatter``/``paged_gather``, after
+``jnp_impl.py:254-292``) have no kernel: every device runs them as
+written here.
 """
 
 from __future__ import annotations
@@ -66,6 +70,62 @@ def memcom_xattn_ref(q, k, v, *, scale=None):
     logits = torch.einsum("bmd,btd->bmt", q.float(), k.float()) * scale
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bmt,btd->bmd", p, v.float()).to(q.dtype)
+
+
+def paged_scatter(pool, new, block_tables, starts, valid=None):
+    """Write ``new[b, s]`` into the block pool at logical position
+    ``starts[b] + s`` of slot ``b``, in place; returns ``pool``.
+
+    pool (N, bs, ...), new (B, S, ...), block_tables (B, nb) int, starts
+    (B,) int.  Position ``p`` of slot ``b`` lives at ``(block_tables[b,
+    p // bs], p % bs)``, so one write may straddle blocks that are not
+    adjacent in the pool.  ``valid`` (B,) (optional): only lanes ``s <
+    valid[b]`` are real; the others are routed to block 0, the
+    allocator's trash block, and can never touch an allocated block.
+    The table column is clamped to the table's width (JAX's gather clamps
+    an out-of-range column the same way; torch would raise), so a lane
+    past the table end writes through the last column — with ``valid``
+    such a lane is a padding lane and lands in block 0.  Duplicate
+    writes to block 0 race harmlessly: nothing reads it."""
+    bs = pool.shape[1]
+    B, S = new.shape[:2]
+    lane = torch.arange(S, device=new.device)
+    pos = starts.to(torch.long)[:, None] + lane[None, :]  # (B, S)
+    col = pos.div(bs, rounding_mode="floor").clamp(0, block_tables.shape[1] - 1)
+    blk = torch.gather(block_tables.to(torch.long), 1, col)
+    if valid is not None:
+        blk = torch.where(lane[None, :] < valid.to(torch.long)[:, None], blk,
+                          torch.zeros_like(blk))
+    pool[blk, pos % bs] = new.to(pool.dtype)
+    return pool
+
+
+def paged_gather(pool, block_tables):
+    """Each slot's logical cache view: (N, bs, ...) x (B, nb) -> (B, nb*bs,
+    ...)."""
+    B, nb = block_tables.shape
+    view = pool[block_tables.to(torch.long)]  # (B, nb, bs, ...)
+    return view.reshape(B, nb * pool.shape[1], *pool.shape[2:])
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, *, block_tables, lengths,
+                               softcap=0.0, scale=None):
+    """Decode attention through block tables (``jnp_impl.py:295``
+    ``paged_decode_attention_lengths``): q (B,S,Hq,D) holds each slot's
+    last S query rows; pools (N,bs,Hkv,D); block_tables (B,nb); lengths
+    (B,) each slot's valid length including the S new rows.  Row ``r`` of
+    slot ``b`` sits at position ``lengths[b] - S + r`` and sees the
+    positions at or before it (logical block ``j`` is pool block
+    ``block_tables[b, j]``); a row that sees no key gives 0."""
+    B, S = q.shape[:2]
+    k = paged_gather(k_pool, block_tables)
+    v = paged_gather(v_pool, block_tables)
+    L = k.shape[1]
+    kv_pos = torch.arange(L, dtype=torch.int32, device=q.device).expand(B, L)
+    q_pos = (lengths.to(torch.int32)[:, None] - S
+             + torch.arange(S, dtype=torch.int32, device=q.device)[None, :])
+    return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                         softcap=softcap, scale=scale)
 
 
 def combine_attention_partials(parts):

@@ -19,6 +19,11 @@ KERNELS = {
         "replaces": "src/repro/kernels/memcom_xattn.py:96",
         "source": "src/repro_torch/kernels/csrc/memcom_xattn.cu",
     },
+    "paged_attention:paged_flash_decode": {
+        "plain": "paged_decode_attention_ref",
+        "replaces": "src/repro/kernels/paged_attention.py:117",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    },
 }
 
 

@@ -9,16 +9,24 @@ Stages:
      compress each ICL task's many-shot context once, materialize the
      per-layer compressed KV through the frozen target projections, and
      register it in the engine's PrefixStore.
-  2. "edge": the lock-step dense ServingEngine seats each request's task
-     memory in its own slot and serves ragged generate requests
-     (``--classify``: ICL label queries) in waves of ``--slots``; a short
-     last wave fills its idle slots with copies of its own requests and
-     drops their output.
+  2. "edge": the continuous-batching ServingEngine serves ragged
+     requests round-robin over the tasks (``--classify``: ICL label
+     queries): each seats its task memory in a free slot, and a finished
+     slot is refilled mid-decode.
+
+``--kv-layout paged`` swaps the per-slot dense cache for the block-pool
+cache: every slot seated on one task points its block table at one shared
+copy of the compressed prefix (copy-on-write of a partial tail block), so
+prefix memory is O(tasks) instead of O(slots).  ``--block-size`` /
+``--num-blocks`` size the pool; admission is gated on free blocks.
+``--prefix-capacity`` bounds the resident prefixes (LRU past it).
+``--priority-classes N`` puts request i in class i % N (a queued class
+preempts a running lower one); ``--priority-aging S`` lifts a queued
+request one class for every S seconds it waits.
 
 The device is the card unless ``--device cpu`` is given; without a card
-the launcher raises.  The scheduler with mid-decode refill, the paged
-layout, the online compiler, the tiers, the fused step, the traffic
-harness, meshes and telemetry are later slices of the port.
+the launcher raises.  The online compiler, the tiers, the fused step, the
+traffic harness, meshes and telemetry are later slices of the port.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from repro_torch.core import memcom
 from repro_torch.data import (ICLTaskSpec, SyntheticVocab,
                               build_manyshot_prompt, make_episode, make_query)
 from repro_torch.models import transformer as tfm
-from repro_torch.serving import ServingEngine, materialize_prefix
+from repro_torch.serving import Request, ServingEngine, materialize_prefix
 
 
 def _sync(device: torch.device) -> None:
@@ -56,14 +64,33 @@ def main(argv=None) -> dict:
     ap.add_argument("--context-tokens", type=int, default=96)
     ap.add_argument("--classify", action="store_true",
                     help="serve ICL label queries instead of generation")
+    ap.add_argument("--kv-layout", choices=("dense", "paged"), default="dense",
+                    help="dense: per-slot cache stripes; paged: block-pool "
+                         "cache where slots seated on the same compressed "
+                         "task share its prefix blocks (copy-on-write)")
+    ap.add_argument("--block-size", type=int, default=8,
+                    help="tokens per physical KV block (paged layout only)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="physical blocks in the paged pool (default: "
+                         "slots+4 worst-case windows)")
+    ap.add_argument("--prefix-capacity", type=int, default=None,
+                    help="max resident compressed prefixes (LRU past it; "
+                         "default unbounded)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="request i gets priority class i %% N (class 0 most "
+                         "urgent; >1 enables preemption)")
+    ap.add_argument("--priority-aging", type=float, default=None,
+                    help="seconds of queue wait per one-class priority "
+                         "boost (anti-starvation; default off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain PyTorch kernels)")
     ap.add_argument("--metrics", default=None,
                     help="write the run's numbers as JSON to this path")
     args = ap.parse_args(argv)
-    if args.tasks < 1 or args.slots < 1 or args.requests < 1:
-        ap.error("--tasks, --slots and --requests must all be >= 1")
+    if min(args.tasks, args.slots, args.requests, args.priority_classes) < 1:
+        ap.error("--tasks, --slots, --requests and --priority-classes must "
+                 "all be >= 1")
     device = resolve_device(args.device)
 
     vocab = SyntheticVocab()
@@ -76,7 +103,11 @@ def main(argv=None) -> dict:
     compressor = memcom.init_memcom(cfg, target, 1)
     rng = np.random.default_rng(0)
     engine = ServingEngine(cfg, target, slots=args.slots,
-                           max_len=m + 24 + args.max_new + 16, device=device)
+                           max_len=m + 24 + args.max_new + 16, device=device,
+                           kv_layout=args.kv_layout, block_size=args.block_size,
+                           num_blocks=args.num_blocks,
+                           prefix_capacity=args.prefix_capacity,
+                           priority_aging_s=args.priority_aging)
 
     tasks, payload = [], 0
     _sync(device)
@@ -100,6 +131,7 @@ def main(argv=None) -> dict:
           f"payload {payload/1e3:.1f} KB total")
     metrics = {"arch": cfg.name, "device": str(device), "m": m,
                "tasks": args.tasks, "slots": args.slots,
+               "kv_layout": args.kv_layout,
                "context_tokens": args.context_tokens,
                "compress_s": t_compress, "payload_bytes": payload}
 
@@ -118,26 +150,31 @@ def main(argv=None) -> dict:
               f"({hits}/{args.requests} correct — untrained compressor)")
         metrics.update(queries=args.requests, correct=hits, serve_s=dt)
     else:
-        reqs = [(rng.integers(4, vocab.size, int(rng.integers(4, 12))),
-                 tasks[i % len(tasks)][0]) for i in range(args.requests)]
-        generated = 0
+        # ragged prompts, round-robin over the tasks and priority classes
+        reqs = [Request(tokens=rng.integers(4, vocab.size,
+                                            int(rng.integers(4, 12))),
+                        max_new=args.max_new, prefix=tasks[i % len(tasks)][0],
+                        priority=i % args.priority_classes)
+                for i in range(args.requests)]
         _sync(device)
         t0 = time.perf_counter()
-        for w in range(0, len(reqs), args.slots):
-            wave = reqs[w:w + args.slots]
-            filled = [wave[i % len(wave)] for i in range(args.slots)]
-            engine.generate([p for p, _ in filled], args.max_new,
-                            prefixes=[name for _, name in filled])
-            generated += len(wave) * args.max_new
+        out = engine.serve(reqs)
         _sync(device)
         dt = time.perf_counter() - t0
+        generated = int(sum(len(v) for v in out.values()))
         tok_s = generated / dt
         print(f"[edge] served {args.requests} ragged requests "
               f"({args.tasks} compressed tasks, {args.slots} slots) in "
               f"{dt:.2f}s: {generated} tokens, {tok_s:.1f} tok/s, "
               f"attending to <= {m}+prompt slots/layer per request")
         metrics.update(requests=args.requests, generated=generated,
-                       serve_s=dt, tokens_per_s=tok_s)
+                       serve_s=dt, tokens_per_s=tok_s,
+                       preemptions=engine.counters["preemptions"])
+    if args.kv_layout == "paged":
+        pool = engine.stats()["pool"]
+        print(f"[edge] paged pool: {pool['blocks_used']}/"
+              f"{pool['num_blocks']} blocks of {pool['block_size']} in use")
+        metrics["pool"] = pool
     if args.metrics:
         with open(args.metrics, "w") as f:
             json.dump(metrics, f, indent=1)

@@ -9,9 +9,10 @@ m, Hkv, hd), "v": ...}``.  Target tokens sit at positions ``m..m+S`` and
 see every memory slot (positions ``0..m-1``).
 
 Caches are updated in place (``cache["k"][...] = ...``): the serving engine
-keeps one (slots, max_len, Hkv, hd) tensor per layer and never copies it.
-Enc-dec cross-attention and the paged KV layout are not in this slice of
-the port and raise.
+keeps one (slots, max_len, Hkv, hd) tensor per layer, or one (num_blocks,
+block_size, Hkv, hd) pool per layer addressed through per-slot block
+tables (the paged layout), and never copies it.  Enc-dec cross-attention
+is not in the port yet and raises.
 """
 
 from __future__ import annotations
@@ -119,13 +120,22 @@ def apply_attention(
     decode: bool = False,
     kv_source=None,
     block_tables=None,
+    lane_valid=None,
 ):
     """Returns (out (B,S,D), cache_or_None).  ``cache_index`` is a python
-    int (static offset) or a (B,) tensor (per-slot lengths, decode)."""
+    int (static offset) or a (B,) tensor (per-slot lengths, decode).
+
+    With ``block_tables`` (B, nb) int32 the cache is *paged*: ``k``/``v``
+    are shared (num_blocks, block_size, Hkv, hd) pools and slot ``b``'s
+    position ``p`` lives at ``(block_tables[b, p // bs], p % bs)``.  Decode
+    needs the per-slot length vector; prefill continues behind the seated
+    blocks (static ``cache_index`` base, as in the dense path).
+
+    ``lane_valid`` (B,) (per-slot decode only): lanes ``s >= lane_valid[b]``
+    are not written (dense) or are written to the trash block 0 (paged);
+    the serving engine passes 0 for its idle slots."""
     if kv_source is not None:
         raise NotImplementedError("enc-dec cross-attention is not ported yet")
-    if block_tables is not None:
-        raise NotImplementedError("the paged KV layout is not ported yet")
     B, S, _ = x.shape
     softcap = cfg.attn_logit_softcap
     scale = cfg.hd ** -0.5
@@ -136,11 +146,26 @@ def apply_attention(
         if cache is None or cache_index is None:
             raise ValueError("decode needs a cache and a cache_index")
         k_new, v_new = project_kv(p, cfg, x, positions)
+        if block_tables is not None:
+            # paged: scatter the new tokens into each slot's tail block,
+            # then walk the block tables (shared prefix blocks are read by
+            # every slot seated on the task but stored once)
+            if not (torch.is_tensor(cache_index) and cache_index.dim() == 1):
+                raise ValueError("paged decode needs (slots,) lengths")
+            ops.paged_scatter(cache["k"], k_new, block_tables, cache_index,
+                              valid=lane_valid)
+            ops.paged_scatter(cache["v"], v_new, block_tables, cache_index,
+                              valid=lane_valid)
+            out = ops.paged_decode_attention(
+                q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                block_tables=block_tables, lengths=cache_index + S,
+                softcap=softcap, scale=scale)
+            return out.reshape(B, S, -1) @ p.wo, cache
         if torch.is_tensor(cache_index) and cache_index.dim() == 1:
             # per-slot lengths (continuous batching): each slot writes at
             # its own offset and is masked to its own seated region only
-            scatter_rows(cache["k"], k_new, cache_index)
-            scatter_rows(cache["v"], v_new, cache_index)
+            scatter_rows(cache["k"], k_new, cache_index, valid=lane_valid)
+            scatter_rows(cache["v"], v_new, cache_index, valid=lane_valid)
             out = ops.decode_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 lengths=cache_index + S, softcap=softcap, scale=scale)
@@ -165,8 +190,14 @@ def apply_attention(
         # prefill continuation: slots [0, cache_index) are already seated
         # (compressed memory or an earlier prefill segment) — attend to
         # them as a fully-visible prefix.  Static start only.
-        prefix = {"k": cache["k"][:, :cache_index].to(x.dtype),
-                  "v": cache["v"][:, :cache_index].to(x.dtype)}
+        if block_tables is not None:
+            bs = cache["k"].shape[1]
+            blk = block_tables[:, :-(-cache_index // bs)]  # covers the base
+            prefix = {key: ops.paged_gather(cache[key], blk)[:, :cache_index]
+                      .to(x.dtype) for key in ("k", "v")}
+        else:
+            prefix = {"k": cache["k"][:, :cache_index].to(x.dtype),
+                      "v": cache["v"][:, :cache_index].to(x.dtype)}
     if prefix is not None:
         k_pre, v_pre = _prefix_kv(p, cfg, prefix)
         m = k_pre.shape[1]
@@ -179,13 +210,26 @@ def apply_attention(
                                         softcap=softcap, scale=scale)
     if cache is not None:  # prefill writes the cache
         start = cache_index if cache_index is not None else 0
-        cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
-        cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
+        if block_tables is not None:
+            starts = torch.full((B,), start, dtype=torch.int32,
+                                device=x.device)
+            ops.paged_scatter(cache["k"], k, block_tables, starts)
+            ops.paged_scatter(cache["v"], v, block_tables, starts)
+        else:
+            cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
+            cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
     return out.reshape(B, S, -1) @ p.wo, cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device) -> dict:
     shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_paged_attn_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                          dtype, device) -> dict:
+    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -33,13 +33,14 @@ class Block(nn.Module):
     def forward(self, h, *, positions, mask_offset=0,
                 prefix: Optional[dict] = None, cache: Optional[dict] = None,
                 cache_index=None, decode: bool = False,
-                memcom: Optional[tuple] = None):
+                memcom: Optional[tuple] = None, block_tables=None,
+                lane_valid=None):
         """Returns (h, cache_or_None, omega_or_None).  ``memcom`` is
         (MemXAttn module, source hiddens (B, T, D)) for this layer."""
         o, cache = self.attn(
             self.norm1(h), positions=positions, mask_offset=mask_offset,
             prefix=prefix, cache=cache, cache_index=cache_index,
-            decode=decode)
+            decode=decode, block_tables=block_tables, lane_valid=lane_valid)
         h = h + o
         omega = None
         if memcom is not None:

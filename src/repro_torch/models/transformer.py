@@ -24,7 +24,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import init_attn_cache
+from repro_torch.models.attention import (init_attn_cache,
+                                          init_paged_attn_cache)
 from repro_torch.models.blocks import Block
 from repro_torch.models.layers import Norm, softcap
 from repro_torch.models.param import Init, initialize, make
@@ -89,9 +90,12 @@ class Transformer(nn.Module):
         capture_hiddens: bool = False,
         memcom: Optional[dict] = None,  # {"params": [MemXAttn], "src": [H^i]}
         logits: bool = True,
+        block_tables=None,  # (B, nb) int32: the cache is a paged pool
+        lane_valid=None,  # (B,) lanes written per slot (per-slot decode)
     ):
         """Returns (logits_or_hidden, aux) with aux keys "cache",
-        "hiddens" (layer inputs H^i) and "omega" (Memory-LLM O^i)."""
+        "hiddens" (layer inputs H^i) and "omega" (Memory-LLM O^i).  One
+        block table resolves every layer's pool."""
         cfg = self.cfg
         if embeds is None:
             h = F.embedding(tokens, self.embed.tokens)
@@ -122,7 +126,8 @@ class Transformer(nn.Module):
                 h, positions=positions, mask_offset=mask_offset,
                 prefix=prefix[i] if prefix is not None else None,
                 cache=cache[i] if cache is not None else None,
-                cache_index=cache_index, decode=decode, memcom=mem)
+                cache_index=cache_index, decode=decode, memcom=mem,
+                block_tables=block_tables, lane_valid=lane_valid)
             if omega is not None:
                 omegas.append(omega)
 
@@ -153,4 +158,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     device = resolve_device(device)
     dtype = torch_dtype(cfg, dtype)
     return [init_attn_cache(cfg, batch, max_len, dtype, device)
+            for _ in cfg.layout.descriptors()]
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     slots: int, dtype=None, device=None) -> list:
+    """Block-pool KV cache: one (num_blocks, block_size, Hkv, hd) pool per
+    layer, addressed through per-slot block tables.  ``slots`` is part of
+    the reference's signature (its recurrent leaves stay per slot); the
+    attention-only layouts of the port keep nothing per slot."""
+    del slots
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg, dtype)
+    return [init_paged_attn_cache(cfg, num_blocks, block_size, dtype, device)
             for _ in cfg.layout.descriptors()]

@@ -27,6 +27,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import memcom_xattn as mx
 from repro_torch.kernels import ops, plain
+from repro_torch.kernels import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 
@@ -171,3 +172,76 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, rng):
     x = _rand(rng, 1, 4, 12, dtype="bfloat16")
     with pytest.raises(NotImplementedError):  # bf16 tensor cores: D % 8
         mx.memcom_xattn(x, x, x)
+
+
+# (B, S, Hq, Hkv, D, block_size, lengths, softcap)
+PAGED_CASES = [
+    (4, 1, 8, 4, 256, 16, [520, 523, 516, 524], 50.0),  # gemma2-2b decode
+    (4, 3, 8, 4, 256, 16, [520, 2, 516, 3], 50.0),   # S = 3, masked rows
+    (3, 1, 32, 8, 128, 8, [1, 64, 77], 0.0),  # mistral-7b, length 1, boundary
+    (2, 2, 4, 4, 64, 12, [24, 50], 0.0),      # block size 12, MHA
+    (2, 1, 8, 2, 256, 8, [40, 9], 50.0),      # G = 4, one split
+]
+
+
+def _paged_inputs(rng, case, dtype, device):
+    """Pools of shuffled blocks; slots 0 and 2 share their first blocks
+    (a task prefix); table entries past each length name block 0."""
+    B, S, Hq, Hkv, D, bs, lengths, _ = case
+    nb = -(-max(lengths) // bs) + 1
+    N = B * nb + 1
+    order = rng.permutation(N - 1) + 1
+    tables = np.zeros((B, nb), np.int32)
+    for b, n in enumerate(lengths):
+        used = -(-n // bs)
+        tables[b, :used] = order[b * nb:b * nb + used]
+    if B > 2:
+        shared = min(-(-lengths[0] // bs), -(-lengths[2] // bs)) - 1
+        tables[2, :shared] = tables[0, :shared]
+    q = _rand(rng, B, S, Hq, D, dtype=dtype, device=device)
+    k = _rand(rng, N, bs, Hkv, D, dtype=dtype, device=device)
+    v = _rand(rng, N, bs, Hkv, D, dtype=dtype, device=device)
+    return (q, k, v, torch.from_numpy(tables).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_flash_decode_matches_plain(cuda, rng, case, dtype):
+    q, k, v, tables, lengths = _paged_inputs(rng, case, dtype, cuda)
+    kw = dict(block_tables=tables, lengths=lengths, softcap=case[-1])
+    before = pa.launches
+    out = pa.paged_flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    ref = plain.paged_decode_attention_ref(q, k, v, **kw)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    _assert_close(out, ref, dtype)
+    S = q.shape[1]
+    dead = lengths[:, None] - S + torch.arange(S, device=cuda)[None] < 0
+    if bool(dead.any()):  # rows that see no key give 0
+        assert float(out[dead].float().abs().max()) == 0.0
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
+    case = (2, 1, 4, 2, 64, 8, [9, 3], 0.0)
+    q, k, v, tables, lengths = _paged_inputs(rng, case, "float32", cuda)
+    kw = dict(block_tables=tables, lengths=lengths)
+    with pytest.raises(NotImplementedError):  # Dv != D (MLA needs it later)
+        pa.paged_flash_decode(q, k, v[..., :32].contiguous(), **kw)
+    with pytest.raises(NotImplementedError):  # head dims 64/128/256 only
+        pa.paged_flash_decode(q[..., :32].contiguous(),
+                              k[..., :32].contiguous(),
+                              v[..., :32].contiguous(), **kw)
+    with pytest.raises(TypeError):
+        pa.paged_flash_decode(q.half(), k.half(), v.half(), **kw)
+    with pytest.raises(TypeError):  # int32 tables and lengths
+        pa.paged_flash_decode(q, k, v, block_tables=tables.long(),
+                              lengths=lengths)
+    with pytest.raises(ValueError):
+        pa.paged_flash_decode(q.transpose(1, 2), k, v, **kw)
+    with pytest.raises(ValueError):  # one length per slot
+        pa.paged_flash_decode(q, k, v, block_tables=tables,
+                              lengths=lengths[:1].contiguous())
+    with pytest.raises(ValueError):  # everything on one device
+        pa.paged_flash_decode(q, k.cpu(), v, **kw)

@@ -18,7 +18,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import memcom
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
-from repro_torch.serving import ServingEngine
+from repro_torch.serving import Request, ServingEngine
 
 torch.set_num_threads(1)  # smoke shapes: threads only contend with xdist
 ROOT = Path(__file__).resolve().parents[1]
@@ -91,8 +91,11 @@ def test_engine_validates_its_inputs():
         engine.generate([np.arange(4, 8)], 2)  # one prompt for two slots
     with pytest.raises(ValueError):
         engine.generate([np.arange(4, 20)] * 2, 2)  # does not fit max_len
+    with pytest.raises(KeyError):  # names a prefix nobody registered
+        engine.serve([Request(tokens=np.arange(4, 8), max_new=2, prefix="a")])
     with pytest.raises(ValueError):
-        engine.generate([np.arange(4, 8)] * 2, 2, prefixes=["a"])
+        ServingEngine(cfg, target, slots=2, max_len=12, device="cpu",
+                      kv_layout="ragged")
 
 
 @pytest.mark.parametrize("classify", [False, True])
@@ -119,3 +122,19 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          env=_env())
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_serve_cli_paged_layout_on_the_cpu(tmp_path):
+    out = tmp_path / "metrics.json"
+    metrics = serve.main(["--arch", "gemma2-2b", "--smoke", "--requests", "6",
+                          "--tasks", "2", "--slots", "4", "--max-new", "4",
+                          "--context-tokens", "48", "--device", "cpu",
+                          "--kv-layout", "paged", "--block-size", "3",
+                          "--priority-classes", "2", "--priority-aging",
+                          "0.01", "--metrics", str(out)])
+    # aging on the wall clock may reorder admissions (and then preempt),
+    # never change what a request generates
+    assert metrics["kv_layout"] == "paged" and metrics["generated"] == 6 * 4
+    pool = metrics["pool"]
+    # both prefixes stay resident: 2 x ceil(m / 3) shared blocks at least
+    assert pool["block_size"] == 3 and pool["blocks_used"] >= 2 * 3

@@ -3,10 +3,11 @@ package's on the smoke configs of the paper's two targets, parameters
 carried across by ``repro_torch.bridge``, inputs made with numpy.
 
 Every layer's O^i and the materialized K/V match within 1e-4 (float32 on
-the CPU).  The lock-step engine is held to the JAX ``ServingEngine``
+the CPU).  The engine is held to the JAX ``ServingEngine``
 (dense layout, greedy, no stop token) with two compressed tasks over four
-slots and ragged prompts: greedy tokens must be identical and label
-scoring must pick the same label.
+slots and ragged prompts, through ``serve`` with requests naming their
+task and through ``generate`` behind an engine-wide context: greedy
+tokens must be identical and label scoring must pick the same label.
 """
 
 import jax
@@ -25,6 +26,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_smoke_config as port_smoke_config
 from repro_torch.core import memcom
 from repro_torch.models import transformer as tfm
+from repro_torch.serving import Request as PortRequest
 from repro_torch.serving import (ServingEngine, materialize_prefix,
                                  write_prefix_to_cache)
 
@@ -113,18 +115,18 @@ def test_prefix_as_hiddens_equals_prefix_as_kv(engines):
 
 
 def test_generate_named_prefixes_token_identical(engines):
-    """Each slot seated on its task (the launcher's path): the JAX engine
-    serves Requests naming the prefix, the port generates with
-    ``prefixes=``."""
+    """Each slot seated on its task (the launcher's path): both engines
+    serve Requests naming the prefix, with equal uids."""
     names = [f"task{i % 2}" for i in range(SLOTS)]
-    reqs = [Request(tokens=p, max_new=MAX_NEW, prefix=n)
-            for p, n in zip(engines["prompts"], names)]
-    out = engines["jax"].serve(reqs)
-    want = np.stack([out[r.uid] for r in reqs])
-    got = engines["port"].generate(engines["prompts"], MAX_NEW,
-                                   prefixes=names)
-    assert got.shape == (SLOTS, MAX_NEW) and got.dtype == np.int32
-    np.testing.assert_array_equal(got, want)
+    reqs = [dict(tokens=p, max_new=MAX_NEW, prefix=n, uid=900 + i)
+            for i, (p, n) in enumerate(zip(engines["prompts"], names))]
+    want = engines["jax"].serve([Request(**r) for r in reqs])
+    got = engines["port"].serve([PortRequest(**r) for r in reqs])
+    assert sorted(got) == sorted(want)
+    for uid, toks in want.items():
+        assert got[uid].dtype == np.int32
+        np.testing.assert_array_equal(got[uid], toks)
+    assert engines["port"].trace == engines["jax"].trace
 
 
 def test_generate_behind_seat_compressed_token_identical(engines):
