@@ -6,41 +6,49 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. The card's name and power limit (``nvidia-smi``).
-2. Build every CUDA kernel of the main path from ``src/repro_torch/kernels/
+2. Build every CUDA kernel of the main paths from ``src/repro_torch/kernels/
    csrc`` (one ``nvcc`` per source, all started together) and print the
    build seconds and the ``-Xptxas -v`` register / shared-memory / spill
    lines.
-3. Kernel phases: each kernel at the shapes the full-width gemma2-2b main
-   path gives it, held against its plain PyTorch version on the card in
-   float32 (TF32 off) and bfloat16, fully-masked query rows included: the
-   max abs error is at most 1e-4 (float32) / 2e-2 (bfloat16), and every
-   element's error at most 1e-4 / 2e-2 of its scale ``|ref| + rms of ref's
-   row`` (``plain.scaled_err``; an output that averages V over thousands
-   of keys is ~0.01, so only the scaled rule holds it in bfloat16: a
-   dropped 32-key tile of the 3072-token prefill leaves the max abs error
-   under 2e-2 and gives a scaled error near 0.5).  Times
-   from CUDA events over warmed repeats: the kernel, its plain version,
-   and one PyTorch library call as a yardstick the port never calls
-   (``F.scaled_dot_product_attention``; it has no logit softcap, so at the
-   softcapped shapes it computes the function without the cap).  The
-   bound is max(operations / 989 TFLOP/s bf16, bytes / 3.35 TB/s) from
-   this run's inputs, counting only the K/V rows some query can see.
-4. ``paged_flash_decode`` (the paged decode attention) against
-   ``plain.paged_decode_attention_ref`` in float32 (TF32 off) and bfloat16
-   under the same rules: the main-path shape (q 4x1x8x256, pools of
-   16-position blocks, lengths 516-524, slots 0/2 and 1/3 sharing the
-   first 32 blocks of their task, shuffled tables), S = 3, block sizes 8
-   and 12, a length of 1, lengths on block boundaries, fully-masked rows
-   and the mistral-7b width (32/8 heads of 128).  Its bound counts each
-   distinct (pool block, offset) position below some slot's length once
-   (a prefix row two slots share is read once, a block's positions past
-   the length not at all) plus q, out, tables and lengths; no single
-   PyTorch call attends through a block table, so it has no library
-   time.
-5. The main path, end to end, at the full published width and depth of
-   gemma2-2b in bfloat16, weights drawn from seeds, in two runs, each
-   with every kernel's launch counter set to 0 just before and read just
-   after; each kernel of the run must have been launched:
+3. Kernel phases: each kernel at the shapes the full-width gemma2-2b and
+   granite-moe-3b-a800m main paths give it, held against its plain
+   PyTorch version on the card in float32 (TF32 off) and bfloat16,
+   fully-masked query rows included: the max abs error is at most 1e-4
+   (float32) / 2e-2 (bfloat16), and every element's error at most 1e-4 /
+   2e-2 of its scale ``|ref| + rms of ref's row`` (``plain.scaled_err``;
+   an output that averages V over thousands of keys is ~0.01, so only the
+   scaled rule holds it in bfloat16: a dropped 32-key tile of the
+   3072-token prefill leaves the max abs error under 2e-2 and gives a
+   scaled error near 0.5).  Times from CUDA events over warmed repeats:
+   the kernel, its plain version, and one PyTorch library call as a
+   yardstick the port never calls (``F.scaled_dot_product_attention``; it
+   has no logit softcap, so at gemma2's softcapped shapes it computes the
+   function without the cap; ``torch.bmm`` for ``gmm``).  The bound is
+   max(operations / 989 TFLOP/s bf16, bytes / 3.35 TB/s) from this run's
+   inputs, counting only the K/V rows some query can see.
+   a. ``flash_attention`` at gemma2-2b's 8/4 heads of 256 (softcap 50) and
+      granite's 24/8 heads of 64 (group 3, no softcap): the 3072-token
+      source prefill, the 512-token Memory-LLM, a prompt behind the 512
+      memory rows, decode, and masked rows;
+   b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536;
+   c. ``paged_flash_decode`` (the paged decode attention): the gemma2-2b
+      main-path shape (q 4x1x8x256, pools of 16-position blocks, lengths
+      516-524, slots 0/2 and 1/3 sharing the first 32 blocks of their
+      task, shuffled tables), S = 3, block sizes 8 and 12, a length of 1,
+      lengths on block boundaries, fully-masked rows, the mistral-7b width
+      (32/8 heads of 128) and granite's (24/8 heads of 64).  Its bound
+      counts each distinct (pool block, offset) position below some slot's
+      length once plus q, out, tables and lengths; no single PyTorch call
+      attends through a block table, so it has no library time;
+   d. ``gmm`` (the MoE grouped matmul) at granite's E = 40 experts, C =
+      768 / 128 / 8 rows (source prefill / Memory-LLM / prompt and decode)
+      in both orientations (1536 -> 512 and 512 -> 1536); bound
+      max(2·E·C·D·F / 989 TFLOP/s, bytes of x, w and out / 3.35 TB/s).
+4. The main path, end to end, at the full published width and depth of
+   gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
+   bfloat16, weights drawn from seeds, each in two runs with every
+   kernel's launch counter set to 0 just before and read just after; each
+   kernel of the run must have been launched (``gmm`` on granite's):
    a. dense: compress two 3072-token many-shot prompts to m = 512 memory
       tokens, materialize the prefixes, and serve 4 requests naming them
       (ragged 4-12-token prompts, 16 greedy tokens each) through
@@ -54,15 +62,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
       within its budget, a stopped one on its stop token, and some stop.
       Each request's first token equals the dense engine's for the same
       request (the prefill reads the same prefix rows either way).
-6. Kernels vs plain end to end: the pipeline at full width and depth 2,
-   once through the kernels and once forced to the plain versions
-   (``ops.set_default_impl("torch")``): O^i and the first-step logits
-   agree within 2e-2 of the reference's largest magnitude (bfloat16); then
-   a paged engine with block size 12 (512 % 12 != 0, so the shared tail
-   block is copied on write on the card) serves two 2-token requests on
-   one task, two prefills and one decode step through
-   ``paged_flash_decode``: the logits of every forward pass, read by a
-   forward hook on the target, agree within the same bound.
+   A profiled warm compress and 4-request serve on each layout give the
+   device busy time and idle share; peak device memory is printed.
+5. Kernels vs plain end to end, after each model: the pipeline at full
+   width and depth 2, once through the kernels and once forced to the
+   plain versions (``ops.set_default_impl("torch")``): O^i and the
+   first-step logits agree within 2e-2 of the reference's largest
+   magnitude (bfloat16); then a paged engine with block size 12 (512 % 12
+   != 0, so the shared tail block is copied on write on the card) serves
+   two 2-token requests on one task, two prefills and one decode step
+   through ``paged_flash_decode``: the logits of every forward pass, read
+   by a forward hook on the target, agree within the same bound.  For the
+   MoE model the plain run replays the kernel run's expert choices (top-k
+   ids) so that both take the same discrete routing: a router
+   probability that the two runs' bf16 roundings move across the top-k
+   boundary would change which experts a token reaches, which is no
+   kernel error.  The choices the plain run would have made on its own
+   are counted and printed.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
@@ -74,6 +90,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -114,7 +131,9 @@ def main() -> int:
     from repro_torch.kernels import build, ops, plain, registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import memcom_xattn as mx
+    from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import (Request, ServingEngine,
                                      materialize_prefix)
@@ -162,8 +181,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def rand(*shape, dtype):
-        x = torch.randn(shape, generator=gen, device=dev) * 0.5
+    def rand(*shape, dtype, scale=0.5):
+        x = torch.randn(shape, generator=gen, device=dev) * scale
         return x.to(dtype)
 
     def err(a, b):
@@ -174,48 +193,73 @@ def main() -> int:
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
-    m = 512            # gemma2-2b memory tokens
+    def check(kernel, name, dn, out, ref, extra_ok=True, extra=""):
+        e, se = err(out, ref), plain.scaled_err(out, ref)
+        log(f"{kernel} {name} {dn}: max_abs_err {e:.3e} (tol {TOL[dn]:g}), "
+            f"scaled err {se:.3e} (tol {REL_TOL[dn]:g}){extra}")
+        if not (e <= TOL[dn] and se <= REL_TOL[dn] and extra_ok):
+            raise AssertionError(f"{kernel} {name} {dn} disagrees with its "
+                                 "plain version")
+        return e, se
+
+    m = 512            # memory tokens of both models
     T = 3072           # many-shot source tokens
     prompt_len = 12    # the longest ragged prompt
     slots, max_new = 4, 16
     max_len = m + 24 + max_new + 16
-    Hq, Hkv, D = 8, 4, 256
 
     def arange(lo, n):
         return lo + torch.arange(n, dtype=torch.int32, device=dev)
 
     lengths = torch.tensor([m + 8, m + 11, m + 4, m + 12], dtype=torch.int32,
                            device=dev)
+    decode_kv = arange(0, max_len)[None].expand(slots, max_len).contiguous()
+    gemma_heads = (8, 4, 256, 50.0)    # Hq, Hkv, head dim, softcap
+    granite_heads = (24, 8, 64, 0.0)
+    granite_prompt = 16  # a MoE prompt prefills at its power-of-two bucket
     attn_cases = [
-        # name, B, Sq, Skv, q_pos, kv_pos, causal
+        # name, B, Sq, Skv, q_pos, kv_pos, causal, heads
         ("source_prefill", 1, T, T, arange(0, T)[None], arange(0, T)[None],
-         True),
-        ("memory_self", 1, m, m, arange(0, m)[None], arange(0, m)[None], True),
+         True, gemma_heads),
+        ("memory_self", 1, m, m, arange(0, m)[None], arange(0, m)[None], True,
+         gemma_heads),
         ("prompt_self", 1, prompt_len, prompt_len, arange(m, prompt_len)[None],
-         arange(m, prompt_len)[None], True),
+         arange(m, prompt_len)[None], True, gemma_heads),
         ("prompt_prefix", 1, prompt_len, m, arange(m, prompt_len)[None],
-         arange(0, m)[None], False),
-        ("decode", slots, 1, max_len, (lengths - 1)[:, None],
-         arange(0, max_len)[None].expand(slots, max_len).contiguous(), True),
+         arange(0, m)[None], False, gemma_heads),
+        ("decode", slots, 1, max_len, (lengths - 1)[:, None], decode_kv, True,
+         gemma_heads),
         ("masked_rows", 2, 3, 64,
          torch.tensor([[-2, -1, 0], [2, 3, 4]], dtype=torch.int32, device=dev),
-         arange(0, 64)[None].expand(2, 64).contiguous(), True),
+         arange(0, 64)[None].expand(2, 64).contiguous(), True, gemma_heads),
+        ("granite_source_prefill", 1, T, T, arange(0, T)[None],
+         arange(0, T)[None], True, granite_heads),
+        ("granite_memory_self", 1, m, m, arange(0, m)[None],
+         arange(0, m)[None], True, granite_heads),
+        ("granite_prompt_self", 1, granite_prompt, granite_prompt,
+         arange(m, granite_prompt)[None], arange(m, granite_prompt)[None],
+         True, granite_heads),
+        ("granite_prompt_prefix", 1, granite_prompt, m,
+         arange(m, granite_prompt)[None], arange(0, m)[None], False,
+         granite_heads),
+        ("granite_decode", slots, 1, max_len, (lengths - 1)[:, None],
+         decode_kv, True, granite_heads),
     ]
     flash_rows = []
-    for name, B, Sq, Skv, q_pos, kv_pos, causal in attn_cases:
+    for name, B, Sq, Skv, q_pos, kv_pos, causal, heads in attn_cases:
+        Hq, Hkv, D, cap = heads
         row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
-               "causal": causal, "softcap": 50.0}
+               "causal": causal, "softcap": cap}
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             q = rand(B, Sq, Hq, D, dtype=dtype)
             k = rand(B, Skv, Hkv, D, dtype=dtype)
             v = rand(B, Skv, Hkv, D, dtype=dtype)
             kw = dict(q_pos=q_pos.contiguous(), kv_pos=kv_pos, causal=causal,
-                      softcap=50.0, return_lse=True)
+                      softcap=cap, return_lse=True)
             out, lse = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             ref, ref_lse = plain.attention_ref(q, k, v, **kw)
-            e, se = err(out, ref), plain.scaled_err(out, ref)
             live = ref_lse > plain.NEG_INF / 2
             e_lse = err(lse[live], ref_lse[live]) if bool(live.any()) else 0.0
             lse_tol = 1e-4 * max(1.0, float(ref_lse[live].abs().max())) \
@@ -223,17 +267,13 @@ def main() -> int:
             dead = ~live  # rows that see no key: out 0, lse -1e30
             dead_ok = bool((lse[dead] == plain.NEG_INF).all()) and (
                 not bool(dead.any()) or float(out[dead].abs().max()) == 0.0)
+            e, se = check("flash_attention", name, dn, out, ref,
+                          e_lse <= lse_tol and dead_ok,
+                          f", lse err {e_lse:.3e}, masked rows "
+                          f"{int((~live).sum())} exact={dead_ok}")
             row[f"max_abs_err_{dn}"] = e
             row[f"scaled_err_{dn}"] = se
             row[f"lse_err_{dn}"] = e_lse
-            log(f"flash_attention {name} {dn}: max_abs_err {e:.3e} "
-                f"(tol {TOL[dn]:g}), scaled err {se:.3e} (tol "
-                f"{REL_TOL[dn]:g}), lse err {e_lse:.3e}, masked rows "
-                f"{int((~live).sum())} exact={dead_ok}")
-            if not (e <= TOL[dn] and se <= REL_TOL[dn] and e_lse <= lse_tol
-                    and dead_ok):
-                raise AssertionError(f"flash_attention {name} {dn} disagrees "
-                                     "with attention_ref")
             if dtype is torch.bfloat16 and name != "masked_rows":
                 row["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
                 row["plain_ms"] = cuda_ms(
@@ -245,7 +285,8 @@ def main() -> int:
                     mask = mask.expand(B, Sq, Skv)
                 pairs = int(mask.sum())
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                if name in ("source_prefill", "memory_self", "prompt_self"):
+                if name.endswith(("source_prefill", "memory_self",
+                                  "prompt_self")):
                     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                         qt, kt, vt, is_causal=True, enable_gqa=True)
                 else:
@@ -268,42 +309,38 @@ def main() -> int:
             del q, k, v, out, lse, ref, ref_lse
         flash_rows.append(row)
 
-    mx_row = {"shape": "memory_xattn", "q": [1, m, 2304],
-              "kv": [1, T, 2304]}
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        q = rand(1, m, 2304, dtype=dtype)
-        k = rand(1, T, 2304, dtype=dtype)
-        v = rand(1, T, 2304, dtype=dtype)
-        out = mx.memcom_xattn(q, k, v)
-        torch.cuda.synchronize()
-        ref = plain.memcom_xattn_ref(q, k, v)
-        e, se = err(out, ref), plain.scaled_err(out, ref)
-        mx_row[f"max_abs_err_{dn}"] = e
-        mx_row[f"scaled_err_{dn}"] = se
-        log(f"memcom_xattn {dn}: max_abs_err {e:.3e} (tol {TOL[dn]:g}), "
-            f"scaled err {se:.3e} (tol {REL_TOL[dn]:g})")
-        if not (e <= TOL[dn] and se <= REL_TOL[dn]):
-            raise AssertionError(f"memcom_xattn {dn} disagrees with "
-                                 "memcom_xattn_ref")
-        if dtype is torch.bfloat16:
-            mx_row["ms"] = cuda_ms(lambda: mx.memcom_xattn(q, k, v))
-            mx_row["plain_ms"] = cuda_ms(
-                lambda: plain.memcom_xattn_ref(q, k, v), reps=3)
-            mx_row["library_ms"] = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q[:, None], k[:, None],
-                                                       v[:, None]), reps=3)
-            flops = 4 * m * T * 2304
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-            mx_row["bound_ms"], mx_row["bound_by"] = bound(flops, nbytes)
-            mx_row["flops"], mx_row["bytes"] = flops, nbytes
-            mx_row["workspace_bytes"] = mx.workspace_bytes(1, m, T, dtype)
-            log(f"  memory_xattn bf16: kernel {mx_row['ms']:.4f} ms, plain "
-                f"{mx_row['plain_ms']:.4f} ms, sdpa {mx_row['library_ms']:.4f}"
-                f" ms, bound {mx_row['bound_ms']:.4f} ms "
-                f"({mx_row['bound_by']}), workspace "
-                f"{mx_row['workspace_bytes']} bytes")
-        del q, k, v, out, ref
+    mx_rows = []
+    for name, D in (("memory_xattn", 2304), ("granite_memory_xattn", 1536)):
+        row = {"shape": name, "q": [1, m, D], "kv": [1, T, D]}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            q = rand(1, m, D, dtype=dtype)
+            k = rand(1, T, D, dtype=dtype)
+            v = rand(1, T, D, dtype=dtype)
+            out = mx.memcom_xattn(q, k, v)
+            torch.cuda.synchronize()
+            ref = plain.memcom_xattn_ref(q, k, v)
+            row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = check(
+                "memcom_xattn", name, dn, out, ref)
+            if dtype is torch.bfloat16:
+                row["ms"] = cuda_ms(lambda: mx.memcom_xattn(q, k, v))
+                row["plain_ms"] = cuda_ms(
+                    lambda: plain.memcom_xattn_ref(q, k, v), reps=3)
+                row["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q[:, None], k[:, None], v[:, None]), reps=3)
+                flops = 4 * m * T * D
+                nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                row["flops"], row["bytes"] = flops, nbytes
+                row["workspace_bytes"] = mx.workspace_bytes(1, m, T, dtype)
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f}"
+                    f" ms, bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']}), workspace "
+                    f"{row['workspace_bytes']} bytes")
+            del q, k, v, out, ref
+        mx_rows.append(row)
 
     def paged_inputs(B, S, Hq, Hkv, Dh, bs, lengths, share, dtype):
         """Pools of shuffled blocks; slot b + 2 shares slot b's first
@@ -324,44 +361,36 @@ def main() -> int:
                 torch.tensor(lengths, dtype=torch.int32, device=dev))
 
     pm = m // 16  # prefix blocks of a task at block size 16
+    main_lens = [m + 8, m + 11, m + 4, m + 12]
     paged_cases = [
-        # name, B, S, Hq, Hkv, D, block size, lengths, shared blocks
-        ("decode", slots, 1, Hq, Hkv, D, 16, [m + 8, m + 11, m + 4, m + 12],
-         pm),
-        ("decode_s3", slots, 3, Hq, Hkv, D, 16, [m + 8, m + 11, m + 4,
-                                                 m + 12], pm),
-        ("block8_boundary", slots, 1, Hq, Hkv, D, 8, [m, m + 8, 8, 1], 0),
-        ("block12", slots, 1, Hq, Hkv, D, 12, [m + 8, m + 11, m + 4, m + 12],
-         m // 12),
-        ("masked_rows", 2, 3, Hq, Hkv, D, 16, [2, 40], 0),
-        ("mistral_width", slots, 1, 32, 8, 128, 16, [m + 8, m + 11, m + 4,
-                                                     m + 12], pm),
+        # name, B, S, Hq, Hkv, D, block size, lengths, shared blocks, softcap
+        ("decode", slots, 1, 8, 4, 256, 16, main_lens, pm, 50.0),
+        ("decode_s3", slots, 3, 8, 4, 256, 16, main_lens, pm, 50.0),
+        ("block8_boundary", slots, 1, 8, 4, 256, 8, [m, m + 8, 8, 1], 0, 50.0),
+        ("block12", slots, 1, 8, 4, 256, 12, main_lens, m // 12, 50.0),
+        ("masked_rows", 2, 3, 8, 4, 256, 16, [2, 40], 0, 50.0),
+        ("mistral_width", slots, 1, 32, 8, 128, 16, main_lens, pm, 50.0),
+        ("granite_decode", slots, 1, 24, 8, 64, 16, main_lens, pm, 0.0),
     ]
     paged_rows = []
-    for name, B, S, hq, hkv, Dh, bs, lens, share in paged_cases:
+    for name, B, S, hq, hkv, Dh, bs, lens, share, cap in paged_cases:
         row = {"shape": name, "q": [B, S, hq, Dh], "block_size": bs,
-               "lengths": lens, "shared_blocks": share, "softcap": 50.0}
+               "lengths": lens, "shared_blocks": share, "softcap": cap}
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             q, kp, vp, tables, lengths_t = paged_inputs(B, S, hq, hkv, Dh, bs,
                                                         lens, share, dtype)
-            kw = dict(block_tables=tables, lengths=lengths_t, softcap=50.0)
+            kw = dict(block_tables=tables, lengths=lengths_t, softcap=cap)
             out = pa.paged_flash_decode(q, kp, vp, **kw)
             torch.cuda.synchronize()
             ref = plain.paged_decode_attention_ref(q, kp, vp, **kw)
-            e, se = err(out, ref), plain.scaled_err(out, ref)
             dead = (lengths_t[:, None] - S + torch.arange(S, device=dev)[None]
                     < 0)
             dead_ok = not bool(dead.any()) or float(
                 out[dead].float().abs().max()) == 0.0
-            row[f"max_abs_err_{dn}"] = e
-            row[f"scaled_err_{dn}"] = se
-            log(f"paged_flash_decode {name} {dn}: max_abs_err {e:.3e} (tol "
-                f"{TOL[dn]:g}), scaled err {se:.3e} (tol {REL_TOL[dn]:g}), "
-                f"masked rows {int(dead.sum())} exact={dead_ok}")
-            if not (e <= TOL[dn] and se <= REL_TOL[dn] and dead_ok):
-                raise AssertionError(f"paged_flash_decode {name} {dn} "
-                                     "disagrees with paged_decode_attention_ref")
+            row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = check(
+                "paged_flash_decode", name, dn, out, ref, dead_ok,
+                f", masked rows {int(dead.sum())} exact={dead_ok}")
             if dtype is torch.bfloat16 and name != "masked_rows":
                 row["ms"] = cuda_ms(lambda: pa.paged_flash_decode(q, kp, vp,
                                                                   **kw))
@@ -392,37 +421,50 @@ def main() -> int:
                     f"{row['distinct_blocks']} blocks, {nbytes} bytes)")
             del q, kp, vp, out, ref
         paged_rows.append(row)
+
+    E_g = 40  # granite's experts
+    gmm_rows = []
+    for C in (768, 128, 8):
+        for D, Fd in ((1536, 512), (512, 1536)):
+            name = f"C{C}_{D}to{Fd}"
+            row = {"shape": name, "x": [E_g, C, D], "w": [E_g, D, Fd]}
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                x = rand(E_g, C, D, dtype=dtype)
+                w = rand(E_g, D, Fd, dtype=dtype, scale=D ** -0.5)
+                out = gm.gmm(x, w)
+                torch.cuda.synchronize()
+                ref = plain.gmm_ref(x, w)
+                row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = check(
+                    "gmm", name, dn, out, ref)
+                if dtype is torch.bfloat16:
+                    row["ms"] = cuda_ms(lambda: gm.gmm(x, w))
+                    row["plain_ms"] = cuda_ms(lambda: plain.gmm_ref(x, w),
+                                              reps=3)
+                    row["library_ms"] = cuda_ms(lambda: torch.bmm(x, w))
+                    flops = 2 * E_g * C * D * Fd
+                    nbytes = 2 * (x.numel() + w.numel() + E_g * C * Fd)
+                    row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                    row["flops"], row["bytes"] = flops, nbytes
+                    log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
+                        f"{row['plain_ms']:.4f} ms, bmm "
+                        f"{row['library_ms']:.4f} ms, bound "
+                        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                        f"{flops} flops, {nbytes} bytes)")
+                del x, w, out, ref
+            gmm_rows.append(row)
     torch.cuda.empty_cache()
 
-    # ---- 5. the main path at full width -------------------------------
-    cfg = get_config("gemma2-2b")
-    vocab = SyntheticVocab()
-    rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
-    target = tfm.init_params(cfg, 0)
-    compressor = memcom.init_memcom(cfg, target, 1)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in compressor.parameters()) \
-        + sum(p.numel() for p in target.parameters())
-    log(f"[init] {cfg.name}: {n_params / 1e9:.3f} B parameters over target, "
-        f"source, memory and memx in {time.perf_counter() - t0:.1f}s")
-    sources = []
-    for _ in range(2):
-        task = ICLTaskSpec(vocab, num_labels=8, keys_per_label=4)
-        sources.append(build_manyshot_prompt(task, make_episode(task, rng),
-                                             rng, budget=T))
-    prompts = [rng.integers(4, vocab.size, n).astype(np.int32)
-               for n in (4, 9, prompt_len, 7)]
-    engine = ServingEngine(cfg, target, slots=slots, max_len=max_len)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    # ---- 4. the main paths at full width ------------------------------
+    counters = {"flash_attention": fa, "memcom_xattn": mx,
+                "paged_flash_decode": pa, "gmm": gm}
 
     def set_counts():
-        fa.launches = mx.launches = pa.launches = 0
+        for mod in counters.values():
+            mod.launches = 0
 
     def counts():
-        return {"flash_attention": fa.launches, "memcom_xattn": mx.launches,
-                "paged_flash_decode": pa.launches}
+        return {key: mod.launches for key, mod in counters.items()}
 
     def serve_numbers(eng, reqs, out, wall, before):
         """Serve seconds, decode rate over the decode steps (each ends in
@@ -442,286 +484,447 @@ def main() -> int:
                 "ttft_mean_s": float(np.mean(ttft)),
                 "ttft_max_s": float(np.max(ttft))}
 
-    set_counts()
-    t0 = time.perf_counter()
-    prefixes, task_s = [], []
-    for t, src in enumerate(sources):
-        t1 = time.perf_counter()
-        prefix, _ = memcom.compress(compressor, cfg,
-                                    torch.as_tensor(src[None], device=dev))
-        kv = materialize_prefix(target, cfg, prefix)
-        engine.add_prefix(f"task{t}", kv)
-        prefixes.append((prefix, kv))
-        torch.cuda.synchronize()
-        task_s.append(time.perf_counter() - t1)
-    compress_s = time.perf_counter() - t0
-    after_compress = counts()
-    reqs = [Request(tokens=p_, max_new=max_new, prefix=f"task{i % 2}")
-            for i, p_ in enumerate(prompts)]
-    before = dict(engine.counters)
-    t0 = time.perf_counter()
-    out = engine.serve(reqs)
-    torch.cuda.synchronize()
-    dense = serve_numbers(engine, reqs, out, time.perf_counter() - t0,
-                          before)
-    launches = counts()
-    peak = torch.cuda.max_memory_allocated()
-    tokens = np.stack([out[r.uid] for r in reqs])
-    log(f"[main] {card}: compress 2x{T} tokens -> m={m}: {compress_s:.3f}s "
-        f"(per task {[round(x, 4) for x in task_s]}); dense serve "
-        f"{slots}x{max_new}: {dense['serve_s']:.3f}s, decode "
-        f"{dense['decode_tok_s']:.1f} tok/s ({dense['decode_step_ms']:.2f} ms "
-        f"a step), TTFT mean "
-        f"{dense['ttft_mean_s']:.4f}s max {dense['ttft_max_s']:.4f}s; peak "
-        f"memory {peak / 2**30:.2f} GiB")
-    log(f"[main] launches: compress {after_compress}, whole dense path "
-        f"{launches}")
-    log(f"[main] tokens {tokens.tolist()}")
-    if tokens.shape != (slots, max_new) or tokens.min() < 0 \
-            or tokens.max() >= cfg.vocab_size:
-        raise AssertionError(f"bad generated tokens {tokens.shape}")
-    for prefix, kv in prefixes:
-        if len(prefix) != cfg.num_layers or not all(
-                bool(torch.isfinite(e["h"]).all()) and
-                tuple(e["h"].shape) == (1, m, cfg.d_model) for e in prefix):
-            raise AssertionError("compressed prefix is not finite (1, m, D)")
-        if not all(bool(torch.isfinite(e["k"]).all() & torch.isfinite(
-                e["v"]).all()) for e in kv):
-            raise AssertionError("materialized prefix is not finite")
-    for key in ("flash_attention", "memcom_xattn"):
-        if launches[key] <= 0:
-            raise AssertionError(f"{key} was never launched on the dense path")
-    # -- 5b. the same tasks in a paged engine: 12 requests, refills --
-    bs = 16
-    pengine = ServingEngine(cfg, target, slots=slots, max_len=max_len,
-                            kv_layout="paged", block_size=bs,
-                            num_blocks=1 + 2 * (m // bs) + slots * 4)
-    for t, (_, kv) in enumerate(prefixes):
-        pengine.add_prefix(f"task{t}", kv)
-    if pengine.alloc.used_count != 2 * (m // bs):
-        raise AssertionError(f"{pengine.alloc.used_count} blocks in use after "
-                             f"registering two tasks, want {2 * (m // bs)}")
-    specs = []
-    for i in range(12):
-        n = int(rng.integers(4, 13))
-        specs.append(dict(
-            tokens=rng.integers(4, vocab.size, n).astype(np.int32),
-            max_new=int(rng.integers(4, 17)), prefix=f"task{i % 2}"))
-    # a free-running serve (it also warms the path) gives each request's
-    # greedy stream; every third request then stops at the second token
-    # of its own stream, so a stop fires and its slot refills early
-    free_reqs = [Request(**s) for s in specs]
-    free = pengine.serve(free_reqs)
-    # the dense engine on the same requests: the first token comes from
-    # the prefill over the same prefix rows, so it must be equal; the
-    # later ones go through different decode kernels (reported only)
-    dense_reqs = [Request(**s) for s in specs]
-    dense_out = engine.serve(dense_reqs)
-    first_diff = [i for i, (f, d) in enumerate(zip(free_reqs, dense_reqs))
-                  if int(free[f.uid][0]) != int(dense_out[d.uid][0])]
-    same_streams = sum(np.array_equal(free[f.uid], dense_out[d.uid])
-                       for f, d in zip(free_reqs, dense_reqs))
-    log(f"[paged] first tokens equal to the dense engine's: "
-        f"{len(specs) - len(first_diff)}/{len(specs)}; whole streams equal: "
-        f"{same_streams}/{len(specs)}")
-    if first_diff:
-        raise AssertionError(f"paged and dense first tokens differ for "
-                             f"requests {first_diff}")
-    preqs = [Request(**s, stop_token=int(free[f.uid][1]) if i % 3 == 0
-                     else None)
-             for i, (s, f) in enumerate(zip(specs, free_reqs))]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    set_counts()
-    before = dict(pengine.counters)
-    t0 = time.perf_counter()
-    pout = pengine.serve(preqs)
-    torch.cuda.synchronize()
-    paged = serve_numbers(pengine, preqs, pout, time.perf_counter() - t0,
-                          before)
-    paged_launches = counts()
-    paged["peak_bytes"] = torch.cuda.max_memory_allocated()
-    pool_bytes = sum(x.numel() * x.element_size() for c in pengine.cache
-                     for x in c.values())
-    dense_bytes = sum(x.numel() * x.element_size() for c in engine.cache
-                      for x in c.values())
-    stopped = 0
-    for r in preqs:
-        got = pout[r.uid]
-        early = len(got) < r.max_new
-        stopped += int(early)
-        if not 1 <= len(got) <= r.max_new or (
-                early and int(got[-1]) != r.stop_token) or \
-                got.min() < 0 or got.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {r.uid}: {len(got)} tokens for a "
-                                 f"budget of {r.max_new}, stop {r.stop_token}")
-    if not stopped:
-        raise AssertionError("no stop token fired in the paged serve")
-    paged.update(pool_bytes=pool_bytes, dense_cache_bytes=dense_bytes,
-                 requests=len(preqs), stopped_early=stopped,
-                 streams_equal_to_dense=int(same_streams),
-                 admissions=sum(1 for e in pengine.trace if e[0] == "admit"),
-                 pool=pengine.stats()["pool"], launches=paged_launches)
-    log(f"[paged] {card}: served {len(preqs)} requests ({paged['tokens']} "
-        f"tokens, {stopped} stopped early) in {paged['serve_s']:.3f}s, decode "
-        f"{paged['decode_tok_s']:.1f} tok/s over {paged['decode_steps']} "
-        f"steps ({paged['decode_step_ms']:.2f} ms each, "
-        f"{paged['slots_per_step']:.2f} slots a step), TTFT mean {paged['ttft_mean_s']:.4f}s max "
-        f"{paged['ttft_max_s']:.4f}s; pool {pool_bytes} bytes "
-        f"({pengine.alloc.num_blocks} blocks of {bs}) vs dense cache "
-        f"{dense_bytes} bytes; peak memory {paged['peak_bytes'] / 2**30:.2f} "
-        f"GiB")
-    log(f"[paged] launches {paged_launches}")
-    for key in ("flash_attention", "paged_flash_decode"):
-        if paged_launches[key] <= 0:
-            raise AssertionError(f"{key} was never launched on the paged path")
+    vocab = SyntheticVocab()
+    rng = np.random.default_rng(0)
+    sources = []
+    for _ in range(2):
+        task = ICLTaskSpec(vocab, num_labels=8, keys_per_label=4)
+        sources.append(build_manyshot_prompt(task, make_episode(task, rng),
+                                             rng, budget=T))
+    prompts = [rng.integers(4, vocab.size, n).astype(np.int32)
+               for n in (4, 9, prompt_len, 7)]
 
-    # where the time goes: one warm compress and one warm 4-token serve
-    # under the profiler.  Device busy is the union of the kernels' time
-    # intervals (kernel events only: an aten op's own entry repeats the
-    # device time of the kernels it launched).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    breakdown = {}
-    for phase, fn in (
-            ("compress", lambda: memcom.compress(
-                compressor, cfg, torch.as_tensor(sources[0][None],
-                                                 device=dev))),
-            ("serve", lambda: engine.serve(
-                [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
-                 for i, p_ in enumerate(prompts)])),
-            ("paged_serve", lambda: pengine.serve(
-                [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
-                 for i, p_ in enumerate(prompts)]))):
+    def main_path(arch, need):
+        """Compress -> dense serve, then a paged serve, of ``arch`` at full
+        width and depth; ``need`` names the kernels every path must
+        launch beside ``flash_attention``."""
+        cfg = get_config(arch)
+        tag = f"[{arch}]"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        target = tfm.init_params(cfg, 0)
+        compressor = memcom.init_memcom(cfg, target, 1)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
+        n_params = sum(p.numel() for p in compressor.parameters()) \
+            + sum(p.numel() for p in target.parameters())
+        log(f"{tag} init: {n_params / 1e9:.3f} B parameters over target, "
+            f"source, memory and memx in {time.perf_counter() - t0:.1f}s")
+        engine = ServingEngine(cfg, target, slots=slots, max_len=max_len)
+        torch.cuda.synchronize()
+
+        set_counts()
+        t0 = time.perf_counter()
+        prefixes, task_s = [], []
+        for t, src in enumerate(sources):
+            t1 = time.perf_counter()
+            prefix, _ = memcom.compress(compressor, cfg,
+                                        torch.as_tensor(src[None], device=dev))
+            kv = materialize_prefix(target, cfg, prefix)
+            engine.add_prefix(f"task{t}", kv)
+            prefixes.append((prefix, kv))
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_us, end = 0.0, float("-inf")
-        for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                             for e in kernels):
-            busy_us += max(0.0, hi - max(lo, end))
-            end = max(end, hi)
-        by_name = {}
-        for e in kernels:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-        busy = busy_us / 1e6
-        breakdown[phase] = {
-            "wall_s": wall, "device_busy_s": busy, "kernels": len(kernels),
-            "idle_share": max(0.0, 1 - busy / wall),
-            "top": [(name[:60], us / 1e3, n) for name, (us, n) in top]}
-        log(f"[profile] {phase}: wall {wall:.4f}s, device busy {busy:.4f}s "
-            f"over {len(kernels)} kernels, idle share "
-            f"{breakdown[phase]['idle_share']:.3f}")
-        for name, ms, n in breakdown[phase]["top"]:
-            log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
-    report["main"] = {
-        "task_compress_s": task_s, "breakdown": breakdown,
-        "compress_s": compress_s, "dense": dense, "paged": paged,
-        "peak_bytes": peak, "params": n_params,
-        "launches_after_compress": after_compress, "launches": launches}
-    del target, compressor, engine, pengine, prefixes, prefix, kv
-    torch.cuda.empty_cache()
+            task_s.append(time.perf_counter() - t1)
+        compress_s = time.perf_counter() - t0
+        after_compress = counts()
+        reqs = [Request(tokens=p_, max_new=max_new, prefix=f"task{i % 2}")
+                for i, p_ in enumerate(prompts)]
+        before = dict(engine.counters)
+        t0 = time.perf_counter()
+        out = engine.serve(reqs)
+        torch.cuda.synchronize()
+        dense = serve_numbers(engine, reqs, out, time.perf_counter() - t0,
+                              before)
+        launches = counts()
+        tokens = np.stack([out[r.uid] for r in reqs])
+        log(f"{tag} {card}: compress 2x{T} tokens -> m={m}: "
+            f"{compress_s:.3f}s (per task {[round(x, 4) for x in task_s]}); "
+            f"dense serve {slots}x{max_new}: {dense['serve_s']:.3f}s, decode "
+            f"{dense['decode_tok_s']:.1f} tok/s ({dense['decode_step_ms']:.2f}"
+            f" ms a step), TTFT mean {dense['ttft_mean_s']:.4f}s max "
+            f"{dense['ttft_max_s']:.4f}s")
+        log(f"{tag} launches: compress {after_compress}, whole dense path "
+            f"{launches}")
+        log(f"{tag} tokens {tokens.tolist()}")
+        if tokens.shape != (slots, max_new) or tokens.min() < 0 \
+                or tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad generated tokens {tokens.shape}")
+        for prefix, kv in prefixes:
+            if len(prefix) != cfg.num_layers or not all(
+                    bool(torch.isfinite(e["h"]).all()) and
+                    tuple(e["h"].shape) == (1, m, cfg.d_model)
+                    for e in prefix):
+                raise AssertionError("compressed prefix is not finite (1, m, D)")
+            if not all(bool(torch.isfinite(e["k"]).all() & torch.isfinite(
+                    e["v"]).all()) for e in kv):
+                raise AssertionError("materialized prefix is not finite")
+        for key in ("flash_attention", "memcom_xattn", *need):
+            if launches[key] <= 0:
+                raise AssertionError(f"{key} was never launched on {arch}'s "
+                                     "dense path")
+        # -- the same tasks in a paged engine: 12 requests, refills --
+        bs = 16
+        pengine = ServingEngine(cfg, target, slots=slots, max_len=max_len,
+                                kv_layout="paged", block_size=bs,
+                                num_blocks=1 + 2 * (m // bs) + slots * 4)
+        for t, (_, kv) in enumerate(prefixes):
+            pengine.add_prefix(f"task{t}", kv)
+        if pengine.alloc.used_count != 2 * (m // bs):
+            raise AssertionError(f"{pengine.alloc.used_count} blocks in use "
+                                 f"after registering two tasks, want "
+                                 f"{2 * (m // bs)}")
+        specs = []
+        for i in range(12):
+            n = int(rng.integers(4, 13))
+            specs.append(dict(
+                tokens=rng.integers(4, vocab.size, n).astype(np.int32),
+                max_new=int(rng.integers(4, 17)), prefix=f"task{i % 2}"))
+        # a free-running serve (it also warms the path) gives each
+        # request's greedy stream; every third request then stops at the
+        # second token of its own stream, so a stop fires and its slot
+        # refills early
+        free_reqs = [Request(**s) for s in specs]
+        free = pengine.serve(free_reqs)
+        # the dense engine on the same requests: the first token comes from
+        # the prefill over the same prefix rows, so it must be equal; the
+        # later ones go through different decode kernels (reported only)
+        dense_reqs = [Request(**s) for s in specs]
+        dense_out = engine.serve(dense_reqs)
+        first_diff = [i for i, (f, d) in enumerate(zip(free_reqs, dense_reqs))
+                      if int(free[f.uid][0]) != int(dense_out[d.uid][0])]
+        same_streams = sum(np.array_equal(free[f.uid], dense_out[d.uid])
+                           for f, d in zip(free_reqs, dense_reqs))
+        log(f"{tag} paged first tokens equal to the dense engine's: "
+            f"{len(specs) - len(first_diff)}/{len(specs)}; whole streams "
+            f"equal: {same_streams}/{len(specs)}")
+        if first_diff:
+            raise AssertionError(f"paged and dense first tokens differ for "
+                                 f"requests {first_diff}")
+        preqs = [Request(**s, stop_token=int(free[f.uid][1]) if i % 3 == 0
+                         else None)
+                 for i, (s, f) in enumerate(zip(specs, free_reqs))]
+        torch.cuda.synchronize()
+        peak_dense = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        set_counts()
+        before = dict(pengine.counters)
+        t0 = time.perf_counter()
+        pout = pengine.serve(preqs)
+        torch.cuda.synchronize()
+        paged = serve_numbers(pengine, preqs, pout, time.perf_counter() - t0,
+                              before)
+        paged_launches = counts()
+        paged["peak_bytes"] = torch.cuda.max_memory_allocated()
+        pool_bytes = sum(x.numel() * x.element_size() for c in pengine.cache
+                         for x in c.values())
+        dense_bytes = sum(x.numel() * x.element_size() for c in engine.cache
+                          for x in c.values())
+        stopped = 0
+        for r in preqs:
+            got = pout[r.uid]
+            early = len(got) < r.max_new
+            stopped += int(early)
+            if not 1 <= len(got) <= r.max_new or (
+                    early and int(got[-1]) != r.stop_token) or \
+                    got.min() < 0 or got.max() >= cfg.vocab_size:
+                raise AssertionError(f"request {r.uid}: {len(got)} tokens for "
+                                     f"a budget of {r.max_new}, stop "
+                                     f"{r.stop_token}")
+        if not stopped:
+            raise AssertionError("no stop token fired in the paged serve")
+        paged.update(pool_bytes=pool_bytes, dense_cache_bytes=dense_bytes,
+                     requests=len(preqs), stopped_early=stopped,
+                     streams_equal_to_dense=int(same_streams),
+                     admissions=sum(1 for e in pengine.trace
+                                    if e[0] == "admit"),
+                     pool=pengine.stats()["pool"], launches=paged_launches)
+        log(f"{tag} paged {card}: served {len(preqs)} requests "
+            f"({paged['tokens']} tokens, {stopped} stopped early) in "
+            f"{paged['serve_s']:.3f}s, decode {paged['decode_tok_s']:.1f} "
+            f"tok/s over {paged['decode_steps']} steps "
+            f"({paged['decode_step_ms']:.2f} ms each, "
+            f"{paged['slots_per_step']:.2f} slots a step), TTFT mean "
+            f"{paged['ttft_mean_s']:.4f}s max {paged['ttft_max_s']:.4f}s; "
+            f"pool {pool_bytes} bytes ({pengine.alloc.num_blocks} blocks of "
+            f"{bs}) vs dense cache {dense_bytes} bytes; peak memory "
+            f"{peak_dense} bytes through the dense path, "
+            f"{paged['peak_bytes']} during the paged serve")
+        log(f"{tag} paged launches {paged_launches}")
+        for key in ("flash_attention", "paged_flash_decode", *need):
+            if paged_launches[key] <= 0:
+                raise AssertionError(f"{key} was never launched on {arch}'s "
+                                     "paged path")
 
-    # ---- 6. kernels vs plain at full width, depth 2 --------------------
-    cfg2 = cfg.replace(name="gemma2-2b-depth2",
-                       layout=LayerLayout.uniform(LayerDesc("attn", "dense"),
-                                                  2))
-    target2 = tfm.init_params(cfg2, 0)
-    compressor2 = memcom.init_memcom(cfg2, target2, 1)
-    src = torch.as_tensor(sources[0][None], device=dev)
-    prompt = torch.as_tensor(prompts[2][None], dtype=torch.long, device=dev)
+        # where the time goes: one warm compress and one warm 4-token serve
+        # on each layout under the profiler.  Device busy is the union of
+        # the kernels' time intervals (kernel events only: an aten op's own
+        # entry repeats the device time of the kernels it launched).
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
 
-    def pipeline():
-        prefix, _ = memcom.compress(compressor2, cfg2, src)
-        kv = materialize_prefix(target2, cfg2, prefix)
-        with torch.no_grad():
-            logits, _ = target2(tokens=prompt, prefix=kv, mask_offset=m)
-        return [e["h"] for e in prefix], logits[0, -1]
+        breakdown = {}
+        for phase, fn in (
+                ("compress", lambda: memcom.compress(
+                    compressor, cfg, torch.as_tensor(sources[0][None],
+                                                     device=dev))),
+                ("serve", lambda: engine.serve(
+                    [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
+                     for i, p_ in enumerate(prompts)])),
+                ("paged_serve", lambda: pengine.serve(
+                    [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
+                     for i, p_ in enumerate(prompts)]))):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            busy_us, end = 0.0, float("-inf")
+            for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                                 for e in kernels):
+                busy_us += max(0.0, hi - max(lo, end))
+                end = max(end, hi)
+            by_name = {}
+            for e in kernels:
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+            busy = busy_us / 1e6
+            breakdown[phase] = {
+                "wall_s": wall, "device_busy_s": busy,
+                "kernels": len(kernels),
+                "idle_share": max(0.0, 1 - busy / wall),
+                "top": [(name[:60], us / 1e3, n) for name, (us, n) in top]}
+            log(f"{tag} profile {phase}: wall {wall:.4f}s, device busy "
+                f"{busy:.4f}s over {len(kernels)} kernels, idle share "
+                f"{breakdown[phase]['idle_share']:.3f}")
+            for name, ms, n in breakdown[phase]["top"]:
+                log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+        return {
+            "task_compress_s": task_s, "breakdown": breakdown,
+            "compress_s": compress_s, "dense": dense, "paged": paged,
+            "peak_bytes": peak_dense, "params": n_params,
+            "launches_after_compress": after_compress, "launches": launches}
 
-    omega_k, logits_k = pipeline()
-    ops.set_default_impl("torch")
-    omega_p, logits_p = pipeline()
-    ops.set_default_impl(None)
-
+    # ---- 5. kernels vs plain at full width, depth 2 --------------------
     def rel(a, b):
         return err(a, b) / max(float(b.float().abs().max()), 1e-30)
 
-    rel_omega = max(rel(a, b) for a, b in zip(omega_k, omega_p))
-    rel_logits = rel(logits_k, logits_p)
-    log(f"[kernel-vs-plain] depth 2, bf16: O^i rel err {rel_omega:.3e}, "
-        f"first-step logits rel err {rel_logits:.3e} (tol {E2E_REL_TOL:g}); "
-        f"greedy token kernel {int(logits_k.argmax())} plain "
-        f"{int(logits_p.argmax())}")
-    if not (rel_omega <= E2E_REL_TOL and rel_logits <= E2E_REL_TOL):
-        raise AssertionError("kernel path and plain path disagree end to end")
-    # a paged engine at block size 12: the shared tail block (512 % 12 =
-    # 8 positions) is copied on write by both prefills, then one decode
-    # step reads both slots through their tables
-    kv2 = materialize_prefix(target2, cfg2,
-                             memcom.compress(compressor2, cfg2, src)[0])
-    ptoks = [prompts[2], prompts[1]]
+    class Routing:
+        """Records the MoE layers' top-k ids of one run and replays them
+        in the next, counting the rows whose own choice would differ."""
 
-    def paged_first_step():
-        """Two 2-token requests through ``serve``: the last-position
-        logits of the two prefills and of the one decode step, and
-        whether both slots copied the shared tail block on write."""
-        eng = ServingEngine(cfg2, target2, slots=2, max_len=max_len,
-                            kv_layout="paged", block_size=12)
-        eng.add_prefix("task", kv2)
-        tail = eng.store.blocks("task")[-1]
-        rows = []
-        hook = target2.register_forward_hook(
-            lambda mod, args, out: rows.append(out[0][:, -1].float()))
-        try:
-            out = eng.serve([Request(tokens=t, max_new=2, prefix="task")
-                             for t in ptoks])
-        finally:
-            hook.remove()
-        if len(rows) != 3 or any(len(t) != 2 for t in out.values()):
-            raise AssertionError(f"{len(rows)} forward passes, want 2 "
-                                 "prefills and 1 decode step")
-        cow = all(int(eng.tables[s_, m // 12]) != tail for s_ in (0, 1))
-        return torch.cat(rows[:2]), rows[2], cow
+        def __init__(self):
+            self.ids, self.mode, self.i = [], None, 0
+            self.rows = self.flips = 0
 
-    set_counts()
-    pre_k, step_k, cow = paged_first_step()
-    torch.cuda.synchronize()
-    e2e_counts = counts()
-    ops.set_default_impl("torch")
-    pre_p, step_p, _ = paged_first_step()
-    ops.set_default_impl(None)
-    rel_pre, rel_step = rel(pre_k, pre_p), rel(step_k, step_p)
-    log(f"[kernel-vs-plain] paged, depth 2, block size 12 (tail copied on "
-        f"write: {cow}): prefill logits rel err {rel_pre:.3e}, first decode "
-        f"step logits rel err {rel_step:.3e} (tol {E2E_REL_TOL:g}); launches "
-        f"{e2e_counts}")
-    if not (cow and rel_pre <= E2E_REL_TOL and rel_step <= E2E_REL_TOL
-            and e2e_counts["paged_flash_decode"] > 0):
-        raise AssertionError("paged kernel path and plain path disagree")
-    report["kernel_vs_plain"] = {"omega_rel_err": rel_omega,
-                                 "logits_rel_err": rel_logits,
-                                 "paged_prefill_rel_err": rel_pre,
-                                 "paged_step_rel_err": rel_step}
+        def __call__(self, probs, k):
+            vals, ids = top_k(probs, k)
+            if self.mode == "record":
+                self.ids.append(ids)
+            elif self.mode == "replay":
+                want = self.ids[self.i]
+                self.i += 1
+                self.rows += ids.shape[0]
+                self.flips += int((ids.sort(-1)[0] != want.sort(-1)[0])
+                                  .any(-1).sum())
+                ids, vals = want, torch.gather(probs, 1, want)
+            return vals, ids
+
+        def run(self, mode, fn):
+            """``fn`` with the MoE layers' top-k going through this
+            object; the port's own function is back when it returns."""
+            self.mode, self.i = mode, 0
+            if mode == "record":
+                self.ids = []
+            moe._top_k = self
+            try:
+                return fn()
+            finally:
+                moe._top_k = top_k
+                self.mode = None
+
+    top_k = moe._top_k
+    routing = Routing()
+
+    def kernel_vs_plain(arch):
+        cfg = get_config(arch)
+        mlp = cfg.layout.period[0].mlp
+        cfg2 = cfg.replace(name=f"{arch}-depth2",
+                           layout=LayerLayout.uniform(LayerDesc("attn", mlp),
+                                                      2))
+        tag = f"[{arch} kernel-vs-plain]"
+        target2 = tfm.init_params(cfg2, 0)
+        compressor2 = memcom.init_memcom(cfg2, target2, 1)
+        src = torch.as_tensor(sources[0][None], device=dev)
+        prompt = torch.as_tensor(prompts[2][None], dtype=torch.long,
+                                 device=dev)
+
+        def pipeline():
+            prefix, _ = memcom.compress(compressor2, cfg2, src)
+            kv = materialize_prefix(target2, cfg2, prefix)
+            with torch.no_grad():
+                logits, _ = target2(tokens=prompt, prefix=kv, mask_offset=m)
+            return [e["h"] for e in prefix], logits[0, -1]
+
+        def plain_run(fn):
+            """``fn`` through the plain versions, on the kernel run's
+            expert choices; the count of the plain run's own differing
+            choices is printed."""
+            routing.rows = routing.flips = 0
+            ops.set_default_impl("torch")
+            try:
+                return routing.run("replay", fn)
+            finally:
+                ops.set_default_impl(None)
+
+        omega_k, logits_k = routing.run("record", pipeline)
+        omega_p, logits_p = plain_run(pipeline)
+        flips = (routing.flips, routing.rows)
+        rel_omega = max(rel(a, b) for a, b in zip(omega_k, omega_p))
+        rel_logits = rel(logits_k, logits_p)
+        log(f"{tag} depth 2, bf16: O^i rel err {rel_omega:.3e}, first-step "
+            f"logits rel err {rel_logits:.3e} (tol {E2E_REL_TOL:g}); greedy "
+            f"token kernel {int(logits_k.argmax())} plain "
+            f"{int(logits_p.argmax())}; MoE rows whose plain top-k differs "
+            f"(replayed): {flips[0]} of {flips[1]}")
+        if not (rel_omega <= E2E_REL_TOL and rel_logits <= E2E_REL_TOL):
+            raise AssertionError(f"{arch}: kernel path and plain path "
+                                 "disagree end to end")
+        # a paged engine at block size 12: the shared tail block (512 % 12
+        # = 8 positions) is copied on write by both prefills, then one
+        # decode step reads both slots through their tables
+        kv2 = materialize_prefix(target2, cfg2,
+                                 memcom.compress(compressor2, cfg2, src)[0])
+        ptoks = [prompts[2], prompts[1]]
+
+        def paged_first_step():
+            """Two 2-token requests through ``serve``: the last-position
+            logits of the two prefills and of the one decode step, and
+            whether both slots copied the shared tail block on write."""
+            eng = ServingEngine(cfg2, target2, slots=2, max_len=max_len,
+                                kv_layout="paged", block_size=12)
+            eng.add_prefix("task", kv2)
+            tail = eng.store.blocks("task")[-1]
+            rows = []
+            hook = target2.register_forward_hook(
+                lambda mod, args, out: rows.append(out[0][:, -1].float()))
+            try:
+                out = eng.serve([Request(tokens=t, max_new=2, prefix="task")
+                                 for t in ptoks])
+            finally:
+                hook.remove()
+            if len(rows) != 3 or any(len(t) != 2 for t in out.values()):
+                raise AssertionError(f"{len(rows)} forward passes, want 2 "
+                                     "prefills and 1 decode step")
+            cow = all(int(eng.tables[s_, m // 12]) != tail for s_ in (0, 1))
+            return torch.cat(rows[:2]), rows[2], cow
+
+        set_counts()
+        pre_k, step_k, cow = routing.run("record", paged_first_step)
+        torch.cuda.synchronize()
+        e2e_counts = counts()
+        pre_p, step_p, _ = plain_run(paged_first_step)
+        flips_paged = (routing.flips, routing.rows)
+        rel_pre, rel_step = rel(pre_k, pre_p), rel(step_k, step_p)
+        log(f"{tag} paged, depth 2, block size 12 (tail copied on write: "
+            f"{cow}): prefill logits rel err {rel_pre:.3e}, first decode "
+            f"step logits rel err {rel_step:.3e} (tol {E2E_REL_TOL:g}); "
+            f"launches {e2e_counts}; MoE rows whose plain top-k differs "
+            f"(replayed): {flips_paged[0]} of {flips_paged[1]}")
+        if not (cow and rel_pre <= E2E_REL_TOL and rel_step <= E2E_REL_TOL
+                and e2e_counts["paged_flash_decode"] > 0
+                and (mlp != "moe" or e2e_counts["gmm"] > 0)):
+            raise AssertionError(f"{arch}: paged kernel path and plain path "
+                                 "disagree")
+        out = {"omega_rel_err": rel_omega, "logits_rel_err": rel_logits,
+               "paged_prefill_rel_err": rel_pre,
+               "paged_step_rel_err": rel_step,
+               "moe_rows_replayed": [flips, flips_paged]}
+        if mlp == "moe":
+            out["reclaimed_lanes"] = reclaimed_lanes_twice(cfg2, target2,
+                                                           kv2, tag)
+        return out
+
+    def reclaimed_lanes_twice(cfg2, target2, kv2, tag):
+        """A 12-slot paged MoE serve whose last requests decode beside 8
+        reclaimed slots, run twice on fresh engines: the tokens and the
+        trace must be identical.  16 requests of 9 tokens and 4 new ones
+        over a pool that holds the prefix and the private blocks of 12
+        requests: the first 12 finish together and leave no free block,
+        so the engine reclaims every free slot and seats the last 4.
+        Each of their decode steps carries 12 lanes, 8 of them idle with
+        trash-only tables and one stale length, which write one row of
+        block 0 and read it back while their hidden states compete for
+        expert capacity."""
+        bs = 16
+        per_req = -(-(m + 16) // bs) - -(-m // bs)  # a 16-wide prefill
+        num_blocks = 1 + -(-m // bs) + 12 * per_req
+        rng_ = np.random.default_rng(7)
+        toks = [rng_.integers(4, cfg2.vocab_size, 9).astype(np.int32)
+                for _ in range(16)]
+        shared = []  # per decode step: lanes whose write row another names
+
+        def count_shared(mod, args, kwargs):
+            t, lens = kwargs.get("block_tables"), kwargs.get("cache_index")
+            if kwargs.get("decode") and t is not None:
+                rows = (t.gather(1, (lens // bs).long()[:, None])[:, 0] * bs
+                        + lens % bs)
+                shared.append(int(rows.numel() - rows.unique().numel()))
+
+        runs = []
+        for _ in range(2):
+            eng = ServingEngine(cfg2, target2, slots=12, max_len=max_len,
+                                kv_layout="paged", block_size=bs,
+                                num_blocks=num_blocks)
+            eng.add_prefix("task", kv2)
+            shared.clear()
+            hook = target2.register_forward_pre_hook(count_shared,
+                                                     with_kwargs=True)
+            try:
+                got = eng.serve([Request(tokens=t, max_new=4, prefix="task",
+                                         uid=i) for i, t in enumerate(toks)])
+            finally:
+                hook.remove()
+            runs.append(([got[i].tolist() for i in range(16)],
+                         list(eng.trace), max(shared)))
+        steps = [e[1] for e in runs[0][1] if e[0] == "decode"]
+        same = runs[0][:2] == runs[1][:2]
+        log(f"{tag} 12-slot paged serve beside reclaimed slots, twice: "
+            f"decode steps of {steps} active lanes, up to {runs[0][2]} "
+            f"lanes a step writing a row another lane writes; tokens and "
+            f"trace identical: {same}")
+        if not (same and runs[0][2] >= 7 and steps[-1] == 4):
+            raise AssertionError(f"{tag}: the reclaimed-slot serve is not "
+                                 "reproducible or did not reclaim")
+        return {"decode_lanes": steps, "shared_row_lanes": runs[0][2],
+                "identical": same}
+
+    paths = {}
+    for arch, need in (("gemma2-2b", ()), ("granite-moe-3b-a800m", ("gmm",))):
+        report[arch] = main_path(arch, need)
+        paths[f"{arch} dense"] = report[arch]["launches"]
+        paths[f"{arch} paged"] = report[arch]["paged"]["launches"]
+        gc.collect()  # the models go before the next ones are built
+        torch.cuda.empty_cache()
+        report[arch]["kernel_vs_plain"] = kernel_vs_plain(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # ---- result lines ----------------------------------------------------
     entries = []
     for key, rows, main in (
             ("flash_attention:flash_attention", flash_rows, None),
-            ("memcom_xattn:memcom_xattn", [mx_row], None),
-            ("paged_attention:paged_flash_decode", paged_rows, "decode")):
+            ("memcom_xattn:memcom_xattn", mx_rows, None),
+            ("paged_attention:paged_flash_decode", paged_rows, "decode"),
+            ("moe_gmm:gmm", gmm_rows, None)):
         timed = [r for r in rows if "ms" in r]
         head = (next(r for r in rows if r["shape"] == main) if main
                 else max(timed, key=lambda r: r["ms"]))
         name = key.split(":")[1]
-        by_path = {"dense": launches[name], "paged": paged_launches[name]}
+        by_path = {path: c[name] for path, c in paths.items()}
         entries.append({
             "name": name, "route": "cuda",
             "source": registry.KERNELS[key]["source"],

@@ -27,8 +27,8 @@
 //   fused or speculative step) take several row groups on grid x.
 // * No scalar prefetch: the block reads its own table entries and walks
 //   only positions below lengths[b] (at most the table's nb * bs), in
-//   tiles of TK = 32 positions that may straddle pool blocks.  Unused
-//   table entries (block 0) are never read.
+//   tiles of TK = 32 positions that may straddle pool blocks.  Table
+//   entries at or past lengths[b] are never read.
 // * Scores: warp w takes the tile's keys w, w + 4, ...; its 32 lanes
 //   split the head dim (lane + 32 i, coalesced in global memory and
 //   conflict-free against the query rows staged in shared memory as f32)

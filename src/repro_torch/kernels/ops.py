@@ -4,7 +4,7 @@ Two implementations per op:
 
 * ``torch`` — the plain PyTorch versions in :mod:`.plain`;
 * ``cuda``  — the hand-written Hopper kernels (:mod:`.flash_attention`,
-  :mod:`.memcom_xattn`, :mod:`.paged_attention`).
+  :mod:`.memcom_xattn`, :mod:`.paged_attention`, :mod:`.moe_gmm`).
 
 The paged-KV index ops ``paged_scatter``/``paged_gather`` are plain torch
 index operations on every device (they have no kernel).
@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import memcom_xattn as _mx
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import plain
 
@@ -153,3 +154,16 @@ def memcom_xattn(q, k, v, *, scale=None, impl="auto"):
     """1-head cross-attention, head width = d_model: (B,M,D)x(B,T,D)->(B,M,D)."""
     fn = plain.memcom_xattn_ref if _plain(impl, q) else _mx.memcom_xattn
     return fn(q.contiguous(), k.contiguous(), v.contiguous(), scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Grouped matmul (MoE expert compute)
+# ---------------------------------------------------------------------------
+
+
+def gmm(x, w, *, impl="auto"):
+    """(E,C,D) x (E,D,F) -> (E,C,F) per-expert matmul.  Unlike the JAX
+    dispatcher, a small problem (decode's C = 8) still goes to the
+    kernel on the card."""
+    fn = plain.gmm_ref if _plain(impl, x) else _gmm.gmm
+    return fn(x.contiguous(), w.contiguous())

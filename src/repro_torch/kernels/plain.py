@@ -72,32 +72,47 @@ def memcom_xattn_ref(q, k, v, *, scale=None):
     return torch.einsum("bmt,btd->bmd", p, v.float()).to(q.dtype)
 
 
-def paged_scatter(pool, new, block_tables, starts, valid=None):
-    """Write ``new[b, s]`` into the block pool at logical position
-    ``starts[b] + s`` of slot ``b``, in place; returns ``pool``.
+def gmm_ref(x, w):
+    """Grouped (per-expert) matmul (``ref.py:67``): (E, C, D) x (E, D, F)
+    -> (E, C, F), summed in float32 and returned in ``x``'s type."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
-    pool (N, bs, ...), new (B, S, ...), block_tables (B, nb) int, starts
-    (B,) int.  Position ``p`` of slot ``b`` lives at ``(block_tables[b,
-    p // bs], p % bs)``, so one write may straddle blocks that are not
-    adjacent in the pool.  ``valid`` (B,) (optional): only lanes ``s <
-    valid[b]`` are real; the others are routed to block 0, the
-    allocator's trash block, and can never touch an allocated block.
-    The table column is clamped to the table's width (JAX's gather clamps
-    an out-of-range column the same way; torch would raise), so a lane
-    past the table end writes through the last column — with ``valid``
-    such a lane is a padding lane and lands in block 0.  Duplicate
-    writes to block 0 race harmlessly: nothing reads it."""
-    bs = pool.shape[1]
-    B, S = new.shape[:2]
-    lane = torch.arange(S, device=new.device)
+
+def paged_scatter(pools, news, block_tables, starts):
+    """Write ``news[i][b, s]`` into ``pools[i]`` at logical position
+    ``starts[b] + s`` of slot ``b``, in place; returns ``pools``.  The
+    pools (K and V) share one table walk.
+
+    pools: sequence of (N, bs, ...), news: matching (B, S, ...),
+    block_tables (B, nb) int, starts (B,) int.  Position ``p`` of slot
+    ``b`` lives at ``(block_tables[b, p // bs], p % bs)``, so one write
+    may straddle blocks that are not adjacent in the pool.  The table
+    column is clamped to the table's width (JAX's gather clamps an
+    out-of-range column the same way; torch would raise), so a lane past
+    the table end writes through the last column.
+
+    Several lanes may name one pool row: idle decode slots whose tables
+    point at the trash block 0, or that sit on a shared prefix's tail
+    block, write at their stale lengths, and an idle slot reads those rows
+    back (with a MoE layer its hidden state then competes for expert
+    capacity).  The last lane in (slot, position) order wins, as in the
+    reference's sequential scatter: every lane that names a row writes
+    that lane's value, so the result does not depend on the order in
+    which the device runs the writes."""
+    bs = pools[0].shape[1]
+    B, S = news[0].shape[:2]
+    lane = torch.arange(S, device=news[0].device)
     pos = starts.to(torch.long)[:, None] + lane[None, :]  # (B, S)
     col = pos.div(bs, rounding_mode="floor").clamp(0, block_tables.shape[1] - 1)
     blk = torch.gather(block_tables.to(torch.long), 1, col)
-    if valid is not None:
-        blk = torch.where(lane[None, :] < valid.to(torch.long)[:, None], blk,
-                          torch.zeros_like(blk))
-    pool[blk, pos % bs] = new.to(pool.dtype)
-    return pool
+    rows = (blk * bs + pos % bs).reshape(B * S)
+    order = torch.argsort(rows, stable=True)
+    last = torch.searchsorted(rows[order], rows, right=True) - 1
+    src = order[last]  # the last lane that names each lane's row
+    for pool, new in zip(pools, news):
+        flat = new.reshape(B * S, *new.shape[2:])
+        pool.view(-1, *pool.shape[2:])[rows] = flat[src].to(pool.dtype)
+    return pools
 
 
 def paged_gather(pool, block_tables):

@@ -24,6 +24,11 @@ KERNELS = {
         "replaces": "src/repro/kernels/paged_attention.py:117",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
     },
+    "moe_gmm:gmm": {
+        "plain": "gmm_ref",
+        "replaces": "src/repro/kernels/moe_gmm.py:61",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    },
 }
 
 

@@ -75,26 +75,16 @@ def project_kv(p: Attention, cfg: ModelConfig, x, positions):
     return k, v
 
 
-def scatter_rows(cache, new, starts, valid=None):
+def scatter_rows(cache, new, starts):
     """Write ``new[b]`` into ``cache[b]`` at per-slot offsets ``starts[b]``
-    along the sequence axis, in place; returns ``cache``.
-
-    Without ``valid`` each start is clamped so the whole window fits, as
-    ``jax.lax.dynamic_update_slice`` does, and the write needs no device
-    sync.  ``valid`` (B,) (optional): only lanes ``s < valid[b]`` are
-    written; the rest are dropped, as are rows that would land at or past
-    the cache end (the JAX version scatters them to an out-of-bounds row)."""
+    along the sequence axis, in place; returns ``cache``.  Each start is
+    clamped so the whole window fits, as ``jax.lax.dynamic_update_slice``
+    does, and the write needs no device sync."""
     B, S = new.shape[:2]
-    L = cache.shape[1]
     lane = torch.arange(S, device=new.device)
     rows = torch.arange(B, device=new.device)[:, None].expand(B, S)
-    if valid is None:
-        start = starts.to(torch.long).clamp(0, L - S)
-        cache[rows, start[:, None] + lane[None, :]] = new.to(cache.dtype)
-        return cache
-    pos = starts.to(torch.long)[:, None] + lane[None, :]  # (B, S)
-    keep = (pos < L) & (lane[None, :] < valid.to(torch.long)[:, None])
-    cache[rows[keep], pos[keep]] = new[keep].to(cache.dtype)
+    start = starts.to(torch.long).clamp(0, cache.shape[1] - S)
+    cache[rows, start[:, None] + lane[None, :]] = new.to(cache.dtype)
     return cache
 
 
@@ -120,7 +110,6 @@ def apply_attention(
     decode: bool = False,
     kv_source=None,
     block_tables=None,
-    lane_valid=None,
 ):
     """Returns (out (B,S,D), cache_or_None).  ``cache_index`` is a python
     int (static offset) or a (B,) tensor (per-slot lengths, decode).
@@ -131,9 +120,9 @@ def apply_attention(
     needs the per-slot length vector; prefill continues behind the seated
     blocks (static ``cache_index`` base, as in the dense path).
 
-    ``lane_valid`` (B,) (per-slot decode only): lanes ``s >= lane_valid[b]``
-    are not written (dense) or are written to the trash block 0 (paged);
-    the serving engine passes 0 for its idle slots."""
+    Per-slot decode writes every lane, as the reference's classic step
+    does: slot ``b``'s rows land at ``cache_index[b]`` (dense: clamped into
+    the stripe; paged: through its block table, column clamped)."""
     if kv_source is not None:
         raise NotImplementedError("enc-dec cross-attention is not ported yet")
     B, S, _ = x.shape
@@ -152,10 +141,8 @@ def apply_attention(
             # every slot seated on the task but stored once)
             if not (torch.is_tensor(cache_index) and cache_index.dim() == 1):
                 raise ValueError("paged decode needs (slots,) lengths")
-            ops.paged_scatter(cache["k"], k_new, block_tables, cache_index,
-                              valid=lane_valid)
-            ops.paged_scatter(cache["v"], v_new, block_tables, cache_index,
-                              valid=lane_valid)
+            ops.paged_scatter((cache["k"], cache["v"]), (k_new, v_new),
+                              block_tables, cache_index)
             out = ops.paged_decode_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 block_tables=block_tables, lengths=cache_index + S,
@@ -164,8 +151,8 @@ def apply_attention(
         if torch.is_tensor(cache_index) and cache_index.dim() == 1:
             # per-slot lengths (continuous batching): each slot writes at
             # its own offset and is masked to its own seated region only
-            scatter_rows(cache["k"], k_new, cache_index, valid=lane_valid)
-            scatter_rows(cache["v"], v_new, cache_index, valid=lane_valid)
+            scatter_rows(cache["k"], k_new, cache_index)
+            scatter_rows(cache["v"], v_new, cache_index)
             out = ops.decode_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 lengths=cache_index + S, softcap=softcap, scale=scale)
@@ -213,8 +200,8 @@ def apply_attention(
         if block_tables is not None:
             starts = torch.full((B,), start, dtype=torch.int32,
                                 device=x.device)
-            ops.paged_scatter(cache["k"], k, block_tables, starts)
-            ops.paged_scatter(cache["v"], v, block_tables, starts)
+            ops.paged_scatter((cache["k"], cache["v"]), (k, v),
+                              block_tables, starts)
         else:
             cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
             cache["v"][:, start:start + S] = v.to(cache["v"].dtype)

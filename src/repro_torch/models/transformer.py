@@ -91,11 +91,12 @@ class Transformer(nn.Module):
         memcom: Optional[dict] = None,  # {"params": [MemXAttn], "src": [H^i]}
         logits: bool = True,
         block_tables=None,  # (B, nb) int32: the cache is a paged pool
-        lane_valid=None,  # (B,) lanes written per slot (per-slot decode)
     ):
         """Returns (logits_or_hidden, aux) with aux keys "cache",
-        "hiddens" (layer inputs H^i) and "omega" (Memory-LLM O^i).  One
-        block table resolves every layer's pool."""
+        "hiddens" (layer inputs H^i), "omega" (Memory-LLM O^i) and
+        "moe_loss" (the layers' load-balance losses summed, a float32
+        scalar; 0.0 without a MoE layer).  One block table resolves every
+        layer's pool."""
         cfg = self.cfg
         if embeds is None:
             h = F.embedding(tokens, self.embed.tokens)
@@ -116,20 +117,24 @@ class Transformer(nn.Module):
                 positions = (int(start) + ar).expand(B, S)
 
         hiddens, omegas = [], []
+        moe_loss = None
         for i, block in enumerate(self.layers):
             if capture_hiddens:
                 hiddens.append(h)
             mem = None
             if memcom is not None:
                 mem = (memcom["params"][i], memcom["src"][i])
-            h, _, omega = block(
+            h, _, a = block(
                 h, positions=positions, mask_offset=mask_offset,
                 prefix=prefix[i] if prefix is not None else None,
                 cache=cache[i] if cache is not None else None,
                 cache_index=cache_index, decode=decode, memcom=mem,
-                block_tables=block_tables, lane_valid=lane_valid)
-            if omega is not None:
-                omegas.append(omega)
+                block_tables=block_tables)
+            if a["moe_loss"] is not None:
+                moe_loss = (a["moe_loss"] if moe_loss is None
+                            else moe_loss + a["moe_loss"])
+            if a["omega"] is not None:
+                omegas.append(a["omega"])
 
         out = self.final_norm(h)
         if logits:
@@ -139,6 +144,7 @@ class Transformer(nn.Module):
             "cache": cache,
             "hiddens": hiddens if capture_hiddens else None,
             "omega": omegas if memcom is not None else None,
+            "moe_loss": 0.0 if moe_loss is None else moe_loss,
         }
         return out, aux
 

@@ -17,11 +17,15 @@ A block's contents are only trustworthy while it is referenced: a freed
 block may be re-allocated and re-written by the very next prefill.
 
 Block 0 is the **trash block**: it is never allocated, and every unused
-block-table entry points at it.  The batched decode step runs *every*
-slot — idle and finished slots included — and the engine routes the
-writes of the idle ones here (``paged_scatter(valid=)``), so it must be a
-physical block that is safe to clobber and is never read (reads are
-length-masked).
+block-table entry points at it.  The batched decode step writes each
+slot's incoming token at ``lengths[slot]`` for *every* slot — idle and
+finished slots included — so unused table positions must name a physical
+block that is safe to clobber.  Reads are length-masked, so no active
+slot reads it; an idle slot whose table points here reads it back, and
+with a MoE layer its hidden state competes with the active slots for
+expert capacity.  Several idle slots may write one row of it in a step:
+``kernels.plain.paged_scatter`` keeps the last slot's write, as the
+reference does, so what they read back is the same on every run.
 """
 
 from __future__ import annotations

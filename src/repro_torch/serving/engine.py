@@ -33,14 +33,26 @@ Two KV layouts (``kv_layout=``):
   admission gated on free blocks net of every admitted request's
   reservation.
 
-The port prefills the exact prompt, where the JAX engine pads it to a
-power-of-two bucket; reservations, allocations and the clock's charges
-still use the bucket, so the admission gate admits the same requests in
-the same order.  The cache is updated in place: a ``persist=False``
-prefill (label scoring) writes only into blocks it allocates itself and
-returns them, so no prefix or slot block changes.  In the batched decode
-step an idle slot's write goes to the trash block 0 (paged) or to its own
-stripe (dense).
+Prefill width.  The JAX engine pads a prompt of ``n`` tokens with token 0
+to ``_bucket(n, cap)``, a power of two.  The port prefills the exact
+prompt for attention-only configs: causal masking keeps pad tokens out of
+every real row, so the logits are the same.  A MoE layer derives its
+expert capacity from all N tokens of the forward pass, pad tokens
+included, so there the width changes which real tokens are dropped; for
+a config with a MoE layer the port prefills at the JAX width, padded with
+token 0, and returns row ``n - 1``.  Reservations, allocations and the
+clock's charges use the bucket either way, so the admission gate admits
+the same requests in the same order.
+
+The cache is updated in place: a ``persist=False`` prefill (label
+scoring) writes only into blocks it allocates itself and returns them, so
+no prefix or slot block changes.  The batched decode step runs every
+slot, as the JAX classic step does: an idle slot consumes its last token
+again at its last length and writes its K/V through its own stripe
+(dense) or block table (paged: its own stale blocks, the unused tail of a
+seated prefix's partial block, or the trash block 0).  Its hidden state
+then picks experts as the JAX one does, which matters once idle and
+active lanes compete for a MoE layer's capacity.
 
 The clock is injected (``clock=``, wall time by default): a
 :class:`~repro_torch.serving.clock.VirtualClock` makes every timing a
@@ -118,6 +130,10 @@ class ServingEngine:
         self.slots = slots
         self.max_len = max_len
         self.kv_layout = kv_layout
+        # MoE capacity counts every token of a prefill: pad as the JAX
+        # engine does (module docstring)
+        self._pad_prefill = any(d.mlp == "moe"
+                                for d in cfg.layout.descriptors())
         self.base = np.zeros((slots,), np.int64)  # per-slot seated memory
         self.base_len = 0  # the seat_compressed context's length
         self._seated: List[Optional[str]] = [None] * slots  # named prefix
@@ -370,7 +386,7 @@ class ServingEngine:
             if paged:
                 self._ensure_decode_blocks(active, lengths)
             t_start = self.clock()
-            out = self._decode_step(pending, lengths, active, greedy)
+            out = self._decode_step(pending, lengths, greedy)
             self._charge("decode_step", 1)
             c["decode_time_s"] += self.clock() - t_start
             if last_decode_done is not None:
@@ -486,8 +502,9 @@ class ServingEngine:
         self.counters["prefills"] += 1
         width = _bucket(n, cap)  # the reference's padded width
         self._charge("prefill_token", width)
-        toks = torch.as_tensor(np.asarray(tokens, np.int64)[None],
-                               device=self.device)
+        padded = np.zeros((1, width if self._pad_prefill else n), np.int64)
+        padded[0, :n] = tokens
+        toks = torch.as_tensor(padded, device=self.device)
         kw = dict(tokens=toks, cache_index=base, mask_offset=base)
         if not self.paged:
             row = [{key: x[slot:slot + 1] for key, x in c.items()}
@@ -511,7 +528,7 @@ class ServingEngine:
         return logits[0, n - 1]
 
     def _decode_step(self, pending: np.ndarray, lengths: np.ndarray,
-                     active: List[int], greedy: bool) -> np.ndarray:
+                     greedy: bool) -> np.ndarray:
         """One batched decode step: slot ``b`` consumes ``pending[b]`` at
         position ``lengths[b]``.  Returns the greedy ids (slots,) or the
         float32 logits (slots, vocab) on the host — the step's one sync."""
@@ -520,11 +537,8 @@ class ServingEngine:
         lens = torch.as_tensor(lengths.astype(np.int32), device=self.device)
         kw = {}
         if self.paged:
-            valid = np.zeros((self.slots,), np.int32)
-            valid[active] = 1  # idle slots write into the trash block
             kw = dict(block_tables=torch.as_tensor(self.tables,
-                                                   device=self.device),
-                      lane_valid=torch.as_tensor(valid, device=self.device))
+                                                   device=self.device))
         logits, _ = self.target(tokens=toks, cache=self.cache,
                                 cache_index=lens, decode=True, **kw)
         last = logits[:, -1]

@@ -152,8 +152,8 @@ def write_prefix_row_to_blocks(cache: list, row: list,
     ids = torch.as_tensor(block_ids, dtype=torch.int32, device=device)[None]
     zero = torch.zeros((1,), dtype=torch.int32, device=device)
     for c, p in zip(cache, row):
-        for key in ("k", "v"):
-            ops.paged_scatter(c[key], p[key][None], ids, zero)
+        ops.paged_scatter((c["k"], c["v"]), (p["k"][None], p["v"][None]),
+                          ids, zero)
     return cache
 
 

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import memcom_xattn as mx
+from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ops, plain
 from repro_torch.kernels import paged_attention as pa
 
@@ -245,3 +246,73 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
                               lengths=lengths[:1].contiguous())
     with pytest.raises(ValueError):  # everything on one device
         pa.paged_flash_decode(q, k.cpu(), v, **kw)
+
+
+def test_paged_scatter_keeps_the_last_lane_on_the_card(cuda, rng):
+    """A 12-lane decode write at granite's KV width: slots 0-3 write
+    their own blocks, slots 4-11 (reclaimed: trash-only tables, one stale
+    length) all name one row of block 0.  Every run on the card leaves
+    the pools as the CPU's sequential scatter does, the last lane's
+    values in the shared row."""
+    B, nb, bs, H, D = 12, 40, 16, 8, 64
+    N = 1 + 4 * nb
+    pools = [_rand(rng, N, bs, H, D, dtype="bfloat16", device="cpu")
+             for _ in range(2)]
+    news = [_rand(rng, B, 1, H, D, dtype="bfloat16", device="cpu")
+            for _ in range(2)]
+    tables = torch.zeros((B, nb), dtype=torch.int32)
+    tables[:4] = torch.arange(1, N, dtype=torch.int32).reshape(4, nb)
+    lens = torch.tensor([520, 533, 547, 600] + [525] * 8, dtype=torch.int32)
+    want = ops.paged_scatter([p.clone() for p in pools], news, tables, lens)
+    np.testing.assert_array_equal(want[0][0, 525 % bs].float().numpy(),
+                                  news[0][B - 1, 0].float().numpy())
+    for _ in range(20):
+        got = ops.paged_scatter([p.to(cuda) for p in pools],
+                                [x.to(cuda) for x in news], tables.to(cuda),
+                                lens.to(cuda))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+# (E, C, D, F): granite-moe-3b-a800m's expert products at the source
+# prefill (C = 768), the Memory-LLM (C = 128) and the prompt prefill /
+# decode (C = 8), in both orientations; then ragged sizes
+GMM_CASES = [
+    (40, 768, 1536, 512), (40, 128, 1536, 512), (40, 8, 1536, 512),
+    (40, 768, 512, 1536), (40, 128, 512, 1536), (40, 8, 512, 1536),
+    (5, 8, 96, 64),       # granite-moe-smoke
+    (3, 37, 40, 24),      # ragged C; D and F multiples of 8, not of tiles
+    (2, 13, 19, 7),       # D and F not multiples of 8: element-wise loads
+]
+
+
+@pytest.mark.parametrize("case", GMM_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_matches_plain(cuda, rng, case, dtype):
+    E, C, D, F = case
+    x = _rand(rng, E, C, D, dtype=dtype)
+    w = _rand(rng, E, D, F, dtype=dtype, scale=D ** -0.5)
+    before = moe_gmm.launches
+    out = ops.gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == before + 1
+    ref = plain.gmm_ref(x, w)
+    assert out.dtype == x.dtype and tuple(out.shape) == (E, C, F)
+    _assert_close(out, ref, dtype)
+
+
+def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
+    x = _rand(rng, 2, 8, 16)
+    w = _rand(rng, 2, 16, 8)
+    with pytest.raises(TypeError):
+        moe_gmm.gmm(x.half(), w.half())
+    with pytest.raises(TypeError):  # mixed types
+        moe_gmm.gmm(x, w.bfloat16())
+    with pytest.raises(ValueError):  # w's D differs from x's
+        moe_gmm.gmm(x, w[:, :8].contiguous())
+    with pytest.raises(ValueError):  # expert counts differ
+        moe_gmm.gmm(x, w[:1].contiguous())
+    with pytest.raises(ValueError):
+        moe_gmm.gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        moe_gmm.gmm(x, w.cpu())

@@ -138,3 +138,16 @@ def test_serve_cli_paged_layout_on_the_cpu(tmp_path):
     pool = metrics["pool"]
     # both prefixes stay resident: 2 x ceil(m / 3) shared blocks at least
     assert pool["block_size"] == 3 and pool["blocks_used"] >= 2 * 3
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_serve_cli_runs_granite_moe_on_the_cpu(layout):
+    """The MoE config through the launcher: compress, then serve ragged
+    requests (prefills at the padded width) on either KV layout."""
+    metrics = serve.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                          "--requests", "5", "--tasks", "2", "--slots", "3",
+                          "--max-new", "3", "--context-tokens", "48",
+                          "--device", "cpu", "--kv-layout", layout,
+                          "--block-size", "4"])
+    assert metrics["arch"] == "granite-moe-smoke" and metrics["m"] == 8
+    assert metrics["kv_layout"] == layout and metrics["generated"] == 5 * 3

@@ -105,32 +105,41 @@ def test_paged_decode_plain_matches_pallas_and_jnp(case):
         np.testing.assert_array_equal(out.numpy(), got)
 
 
-@pytest.mark.parametrize("valid", [None, [2, 0, 3]])
-def test_paged_scatter_and_gather_match_jnp(valid):
+@pytest.mark.parametrize("case", ["own_blocks", "shared_rows"])
+def test_paged_scatter_and_gather_match_jnp(case):
+    """K and V written through the tables in one call.  ``own_blocks``:
+    slot 1 straddles two blocks, slot 2 ends in its table's last column.
+    ``shared_rows``: slots 1 and 2 hold trash-only tables (released
+    slots) and slot 0 a shared block, so several lanes name one row and
+    the last lane in (slot, position) order must win, as in the
+    reference's sequential scatter."""
     rng = np.random.default_rng(5)
     B, S, bs, nb, H, D = 3, 3, 4, 3, 2, 8
-    k, _, tables = _pool(rng, B, nb, bs, H, D)
-    new = rng.standard_normal((B, S, H, D)).astype(np.float32)
-    starts = np.array([0, 5, 10], np.int32)  # slot 2 crosses into column 3
-    vj = None if valid is None else jnp.asarray(valid, jnp.int32)
-    vt = None if valid is None else torch.tensor(valid, dtype=torch.int32)
-    if valid is None:
-        starts[2] = 9  # without the mask every lane must fit the table
-    want = jnp_impl.paged_scatter(jnp.asarray(k), jnp.asarray(new),
-                                  jnp.asarray(tables), jnp.asarray(starts),
-                                  valid=vj)
-    pool = torch.from_numpy(k.copy())
-    got = ops.paged_scatter(pool, torch.from_numpy(new),
-                            torch.from_numpy(tables), torch.from_numpy(starts),
-                            valid=vt)
-    assert got is pool  # in place
-    if valid is not None:  # block 0 takes the invalid lanes: compare the rest
-        np.testing.assert_array_equal(got.numpy()[1:], np.asarray(want)[1:])
-    else:
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    k, v, tables = _pool(rng, B, nb, bs, H, D)
+    new_k = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    new_v = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    starts = np.array([0, 5, 9], np.int32)
+    if case == "shared_rows":
+        tables[1:] = 0
+        tables[0, 1] = 0
+        starts = np.array([2, 1, 5], np.int32)  # slot 0 crosses into block 0
+    pools = (torch.from_numpy(k.copy()), torch.from_numpy(v.copy()))
+    got = ops.paged_scatter(pools, (torch.from_numpy(new_k),
+                                    torch.from_numpy(new_v)),
+                            torch.from_numpy(tables), torch.from_numpy(starts))
+    assert got[0] is pools[0] and got[1] is pools[1]  # in place
+    for pool, pool_np, new in zip(got, (k, v), (new_k, new_v)):
+        want = jnp_impl.paged_scatter(jnp.asarray(pool_np), jnp.asarray(new),
+                                      jnp.asarray(tables), jnp.asarray(starts))
+        np.testing.assert_array_equal(pool.numpy(), np.asarray(want))
+    if case == "shared_rows":
+        # block 0 row 1: slot 1 lane 0 and slot 2 lane 0 (position 5)
+        # name it; slot 2 comes last
+        np.testing.assert_array_equal(got[0].numpy()[0, 1], new_k[2, 0])
+        np.testing.assert_array_equal(got[1].numpy()[0, 2], new_v[2, 1])
     np.testing.assert_array_equal(
-        ops.paged_gather(got, torch.from_numpy(tables)).numpy(),
-        np.asarray(jnp_impl.paged_gather(jnp.asarray(got.numpy()),
+        ops.paged_gather(got[0], torch.from_numpy(tables)).numpy(),
+        np.asarray(jnp_impl.paged_gather(jnp.asarray(got[0].numpy()),
                                          jnp.asarray(tables))))
 
 
