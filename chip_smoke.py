@@ -43,7 +43,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    d. ``gmm`` (the MoE grouped matmul) at granite's E = 40 experts, C =
       768 / 128 / 8 rows (source prefill / Memory-LLM / prompt and decode)
       in both orientations (1536 -> 512 and 512 -> 1536); bound
-      max(2·E·C·D·F / 989 TFLOP/s, bytes of x, w and out / 3.35 TB/s).
+      max(2·E·C·D·F / 989 TFLOP/s, bytes of x, w and out / 3.35 TB/s);
+   e. ``ssd`` (the Mamba2 SSD scan) at mamba2-370m's widths (32 heads of
+      64, N 128): its prefill of a 3072-token prompt and a 12-token query
+      with an initial state, a 12-token prompt, 1000 tokens (no multiple
+      of any chunk), two groups, and dt·|A| = 25 a token (the decay sums
+      past 100 within a chunk: the result must be finite).  y and the
+      final state are held to ``plain.ssd_ref`` on the same inputs, summed
+      in float64 for the float32 check as the kernel sums float32 inputs
+      (float32 sums stray up to ~5e-4 of a row's scale where the row is
+      the cancelled remainder of its terms; the float32 plain version's own
+      distance from it is printed beside); bound max(the scan's least
+      operations (2N + 2P + 4NP per token and head: the chunked form at
+      Q = 1) / 989 TFLOP/s, bytes of x, y, B, C, dt and the states / 3.35
+      TB/s).  No PyTorch call runs the scan, so it has no library time.
 4. The main path, end to end, at the full published width and depth of
    gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
    bfloat16, weights drawn from seeds, each in two runs with every
@@ -64,6 +77,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
       request (the prefill reads the same prefix rows either way).
    A profiled warm compress and 4-request serve on each layout give the
    device busy time and idle share; peak device memory is printed.
+   c. mamba2-370m (48 Mamba2 layers, no MemCom): 8 requests, each one of
+      the two 3072-token many-shot prompts plus a 4-12-token query, 16
+      greedy tokens each, over 4 slots (so slots refill), through a dense
+      and then a paged engine (block size 16): the tokens must be
+      identical, a request admitted into a refilled slot must give the
+      tokens of a fresh engine, and ``ssd`` must have been launched once
+      per layer and prefill.  Printed: the prefill seconds of one
+      ~3080-token prompt, decode tok/s, TTFT, the state bytes per slot
+      beside gemma2-2b's K/V bytes for 3072 tokens, peak memory, and a
+      profiled prefill and 4-request serve.
 5. Kernels vs plain end to end, after each model: the pipeline at full
    width and depth 2, once through the kernels and once forced to the
    plain versions (``ops.set_default_impl("torch")``): O^i and the
@@ -78,7 +101,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    probability that the two runs' bf16 roundings move across the top-k
    boundary would change which experts a token reaches, which is no
    kernel error.  The choices the plain run would have made on its own
-   are counted and printed.
+   are counted and printed.  mamba2-370m at depth 2: a many-shot
+   prompt's last-position logits and final SSM states through ``ssd``
+   and through the plain version agree within the same bound.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
@@ -133,6 +158,7 @@ def main() -> int:
     from repro_torch.kernels import memcom_xattn as mx
     from repro_torch.kernels import moe_gmm as gm
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import (Request, ServingEngine,
@@ -453,11 +479,95 @@ def main() -> int:
                         f"{flops} flops, {nbytes} bytes)")
                 del x, w, out, ref
             gmm_rows.append(row)
+
+    def ssd_inputs(B, S, H, P, G, N, dtype, init, big):
+        """dt and A as a seeded Mamba2 layer makes them (softplus of unit
+        normals; -exp of U(-1, 1)), or dt·|A| = 25 a token (``big``: the
+        decay sums past 100 within any chunk); B and C scaled so that C·B
+        is O(1)."""
+        x = rand(B, S, H, P, dtype=dtype)
+        Bm = rand(B, S, G, N, dtype=dtype, scale=0.5 * N ** -0.25)
+        Cm = rand(B, S, G, N, dtype=dtype, scale=0.5 * N ** -0.25)
+        if big:
+            dt = torch.full((B, S, H), 5.0, device=dev)
+            A = torch.full((H,), -5.0, device=dev)
+        else:
+            dt = F.softplus(rand(B, S, H, dtype=torch.float32, scale=1.0))
+            A = -torch.exp(torch.rand(H, generator=gen, device=dev) * 2 - 1)
+        h0 = rand(B, H, P, N, dtype=torch.float32) if init else None
+        return x, dt, A, Bm, Cm, h0
+
+    def ssd_work(B, S, H, P, G, N, init, elt):
+        """The scan's least operations and the bytes it must move: x and
+        y, B and C in their type, dt, the initial and final state in
+        float32.  The chunked form at Q tokens costs 2Q(N + P) + 4NP per
+        token and head (C·Bᵀ, its product with x, the state's update and
+        read), least at Q = 1."""
+        flops = B * S * H * (2 * N + 2 * P + 4 * N * P)
+        nbytes = (2 * B * S * H * P + 2 * B * S * G * N) * elt + 4 * (
+            B * S * H + H + (2 if init else 1) * B * H * P * N)
+        return flops, nbytes
+
+    mamba_S = T + prompt_len  # a many-shot prompt and a 12-token query
+    ssd_cases = [
+        # name, B, S, H, P, G, N, initial state, dt·|A| past 100 a chunk
+        ("prefill", 1, mamba_S, 32, 64, 1, 128, True, False),
+        ("prompt12", 1, prompt_len, 32, 64, 1, 128, False, False),
+        ("ragged_1000", 1, 1000, 32, 64, 1, 128, True, False),
+        ("groups2", 1, 512, 32, 64, 2, 128, True, False),
+        ("decay_past_100", 1, 512, 32, 64, 1, 128, True, True),
+    ]
+    ssd_rows = []
+    for name, B, S, H, P, G, N, init, big in ssd_cases:
+        row = {"shape": name, "x": [B, S, H, P], "bc": [B, S, G, N],
+               "init_state": init, "decay_past_100": big}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            x, dt, A, Bm, Cm, h0 = ssd_inputs(B, S, H, P, G, N, dtype, init,
+                                              big)
+            y, hf = ss.ssd(x, dt, A, Bm, Cm, init_state=h0)
+            torch.cuda.synchronize()
+            wide = [None if a is None
+                    else a.double() if dtype is torch.float32 else a
+                    for a in (x, dt, A, Bm, Cm, h0)]
+            y_ref, hf_ref = plain.ssd_ref(*wide[:5], init_state=wide[5])
+            finite = bool(torch.isfinite(y.float()).all()
+                          & torch.isfinite(hf).all())
+            e_h, se_h = err(hf, hf_ref), plain.scaled_err(hf, hf_ref)
+            extra = ""
+            if dtype is torch.float32:
+                y32, hf32 = plain.ssd_ref(x, dt, A, Bm, Cm, init_state=h0)
+                extra = (f"; float32 plain from float64: y scaled "
+                         f"{plain.scaled_err(y32, y_ref):.3e}, state scaled "
+                         f"{plain.scaled_err(hf32, hf_ref):.3e}")
+                del y32, hf32
+            e, se = check("ssd", name, dn, y, y_ref,
+                          finite and e_h <= TOL[dn] and se_h <= REL_TOL[dn],
+                          f", final state max abs err {e_h:.3e} scaled "
+                          f"{se_h:.3e}, finite {finite}{extra}")
+            row[f"max_abs_err_{dn}"] = max(e, e_h)
+            row[f"scaled_err_{dn}"] = max(se, se_h)
+            if dtype is torch.bfloat16:
+                row["ms"] = cuda_ms(lambda: ss.ssd(x, dt, A, Bm, Cm,
+                                                   init_state=h0))
+                row["plain_ms"] = cuda_ms(
+                    lambda: plain.ssd_ref(x, dt, A, Bm, Cm, init_state=h0),
+                    reps=3)
+                row["library_ms"] = None  # no PyTorch call runs the scan
+                flops, nbytes = ssd_work(B, S, H, P, G, N, init, 2)
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                row["flops"], row["bytes"] = flops, nbytes
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f} ms, no library call, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {flops} "
+                    f"flops, {nbytes} bytes)")
+            del x, dt, A, Bm, Cm, h0, y, hf, y_ref, hf_ref, wide
+        ssd_rows.append(row)
     torch.cuda.empty_cache()
 
     # ---- 4. the main paths at full width ------------------------------
     counters = {"flash_attention": fa, "memcom_xattn": mx,
-                "paged_flash_decode": pa, "gmm": gm}
+                "paged_flash_decode": pa, "gmm": gm, "ssd": ss}
 
     def set_counts():
         for mod in counters.values():
@@ -493,6 +603,44 @@ def main() -> int:
                                              rng, budget=T))
     prompts = [rng.integers(4, vocab.size, n).astype(np.int32)
                for n in (4, 9, prompt_len, 7)]
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(tag, phase, fn):
+        """Wall time, device busy time, idle share and the top kernels of
+        one warm call of ``fn`` under the profiler.  Device busy is the
+        union of the kernels' time intervals (kernel events only: an aten
+        op's own entry repeats the device time of the kernels it
+        launched)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us, end = 0.0, float("-inf")
+        for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                             for e in kernels):
+            busy_us += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        by_name = {}
+        for e in kernels:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        busy = busy_us / 1e6
+        out = {"wall_s": wall, "device_busy_s": busy, "kernels": len(kernels),
+               "idle_share": max(0.0, 1 - busy / wall),
+               "top": [(name[:60], us / 1e3, n) for name, (us, n) in top]}
+        log(f"{tag} profile {phase}: wall {wall:.4f}s, device busy "
+            f"{busy:.4f}s over {len(kernels)} kernels, idle share "
+            f"{out['idle_share']:.3f}")
+        for name, ms, n in out["top"]:
+            log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+        return out
 
     def main_path(arch, need):
         """Compress -> dense serve, then a paged serve, of ``arch`` at full
@@ -655,53 +803,17 @@ def main() -> int:
                                      "paged path")
 
         # where the time goes: one warm compress and one warm 4-token serve
-        # on each layout under the profiler.  Device busy is the union of
-        # the kernels' time intervals (kernel events only: an aten op's own
-        # entry repeats the device time of the kernels it launched).
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        breakdown = {}
-        for phase, fn in (
-                ("compress", lambda: memcom.compress(
-                    compressor, cfg, torch.as_tensor(sources[0][None],
-                                                     device=dev))),
-                ("serve", lambda: engine.serve(
-                    [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
-                     for i, p_ in enumerate(prompts)])),
-                ("paged_serve", lambda: pengine.serve(
-                    [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
-                     for i, p_ in enumerate(prompts)]))):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            kernels = [e for e in prof.events()
-                       if e.device_type == DeviceType.CUDA]
-            busy_us, end = 0.0, float("-inf")
-            for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                                 for e in kernels):
-                busy_us += max(0.0, hi - max(lo, end))
-                end = max(end, hi)
-            by_name = {}
-            for e in kernels:
-                us, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-            busy = busy_us / 1e6
-            breakdown[phase] = {
-                "wall_s": wall, "device_busy_s": busy,
-                "kernels": len(kernels),
-                "idle_share": max(0.0, 1 - busy / wall),
-                "top": [(name[:60], us / 1e3, n) for name, (us, n) in top]}
-            log(f"{tag} profile {phase}: wall {wall:.4f}s, device busy "
-                f"{busy:.4f}s over {len(kernels)} kernels, idle share "
-                f"{breakdown[phase]['idle_share']:.3f}")
-            for name, ms, n in breakdown[phase]["top"]:
-                log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
+        # on each layout under the profiler
+        breakdown = {phase: profiled(tag, phase, fn) for phase, fn in (
+            ("compress", lambda: memcom.compress(
+                compressor, cfg, torch.as_tensor(sources[0][None],
+                                                 device=dev))),
+            ("serve", lambda: engine.serve(
+                [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
+                 for i, p_ in enumerate(prompts)])),
+            ("paged_serve", lambda: pengine.serve(
+                [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
+                 for i, p_ in enumerate(prompts)])))}
         return {
             "task_compress_s": task_s, "breakdown": breakdown,
             "compress_s": compress_s, "dense": dense, "paged": paged,
@@ -902,6 +1014,168 @@ def main() -> int:
         return {"decode_lanes": steps, "shared_row_lanes": runs[0][2],
                 "identical": same}
 
+    # ---- mamba2-370m: many-shot prompts served in full, through ssd ----
+    q_rng = np.random.default_rng(14)
+    mamba_prompts = [np.concatenate([sources[i % 2], q_rng.integers(
+        4, vocab.size, int(q_rng.integers(4, 13))).astype(np.int32)])
+        for i in range(8)]
+
+    def mamba_path():
+        """8 requests over 4 slots, each a 3072-token many-shot prompt and
+        a 4-12-token query, 16 greedy tokens each, through a dense and a
+        paged engine: identical tokens; a request admitted into a refilled
+        slot gives the tokens of a fresh engine; every prefill launches
+        ``ssd`` once per layer."""
+        arch = "mamba2-370m"
+        cfg = get_config(arch)
+        tag = f"[{arch}]"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        target = tfm.init_params(cfg, 0)
+        torch.cuda.synchronize()
+        n_params = sum(p_.numel() for p_ in target.parameters())
+        log(f"{tag} init: {n_params / 1e9:.3f} B parameters in "
+            f"{time.perf_counter() - t0:.1f}s")
+        mlen = max(len(p_) for p_ in mamba_prompts) + max_new
+        specs = [dict(tokens=p_, max_new=max_new) for p_ in mamba_prompts]
+
+        def engine_for(layout):
+            kw = dict(kv_layout="paged", block_size=16) \
+                if layout == "paged" else {}
+            return ServingEngine(cfg, target, slots=slots, max_len=mlen, **kw)
+
+        def serve(eng, label):
+            set_counts()
+            reqs = [Request(**s_) for s_ in specs]
+            before = dict(eng.counters)
+            t0 = time.perf_counter()
+            out = eng.serve(reqs)
+            torch.cuda.synchronize()
+            numbers = serve_numbers(eng, reqs, out, time.perf_counter() - t0,
+                                    before)
+            numbers["launches"] = counts()
+            numbers["prefills"] = eng.counters["prefills"] - before["prefills"]
+            tokens = [out[r.uid] for r in reqs]
+            log(f"{tag} {label} {card}: served {len(reqs)} x ({len(specs[0]['tokens'])}"
+                f"-{max(len(s_['tokens']) for s_ in specs)}-token prompt, "
+                f"{max_new} tokens) over {slots} slots in "
+                f"{numbers['serve_s']:.3f}s, decode "
+                f"{numbers['decode_tok_s']:.1f} tok/s over "
+                f"{numbers['decode_steps']} steps "
+                f"({numbers['decode_step_ms']:.2f} ms each), TTFT mean "
+                f"{numbers['ttft_mean_s']:.4f}s max "
+                f"{numbers['ttft_max_s']:.4f}s; launches "
+                f"{numbers['launches']}")
+            if any(len(t_) != max_new or t_.min() < 0
+                   or t_.max() >= cfg.vocab_size for t_ in tokens):
+                raise AssertionError(f"{tag} {label}: bad generated tokens")
+            want = cfg.num_layers * numbers["prefills"]
+            if numbers["launches"]["ssd"] != want:
+                raise AssertionError(
+                    f"{tag} {label}: ssd launched "
+                    f"{numbers['launches']['ssd']} times, want {want} (one "
+                    "per layer and prefill)")
+            return reqs, tokens, numbers
+
+        engine = engine_for("dense")
+        engine.serve([Request(tokens=specs[0]["tokens"][:64], max_new=2)])
+        reqs, dense_tokens, dense = serve(engine, "dense")
+        log(f"{tag} tokens {[t_.tolist() for t_ in dense_tokens]}")
+        # the first request admitted into a slot another one used
+        seen, refilled = set(), None
+        for _, uid, slot in (e for e in engine.trace if e[0] == "admit"):
+            if slot in seen:
+                refilled = next(i for i, r in enumerate(reqs) if r.uid == uid)
+                break
+            seen.add(slot)
+        alone = next(iter(engine_for("dense").serve(
+            [Request(**specs[refilled])]).values()))
+        refill_ok = np.array_equal(alone, dense_tokens[refilled])
+        log(f"{tag} request {refilled} in a refilled slot equals a fresh "
+            f"engine's: {refill_ok}")
+        if not refill_ok:
+            raise AssertionError(f"{tag}: a refilled slot kept state")
+        peak_dense = torch.cuda.max_memory_allocated()
+        pengine = engine_for("paged")
+        _, paged_tokens, paged = serve(pengine, "paged")
+        same = [np.array_equal(a, b)
+                for a, b in zip(dense_tokens, paged_tokens)]
+        log(f"{tag} paged tokens equal to dense: {sum(same)}/{len(same)}")
+        if not all(same):
+            raise AssertionError(f"{tag}: paged and dense tokens differ")
+        state_bytes = sum(x.numel() * x.element_size() // slots
+                          for c in engine.cache for x in c.values())
+        g = get_config("gemma2-2b")
+        gemma_kv = g.num_layers * 2 * T * g.num_kv_heads * g.hd * 2
+        # one ~3080-token prefill on its own, warm, as the engine runs it
+        toks = torch.as_tensor(mamba_prompts[0][None], dtype=torch.long,
+                               device=dev)
+        prefill_s = []
+        for _ in range(3):
+            cache1 = tfm.init_cache(cfg, 1, toks.shape[1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                target(tokens=toks, cache=cache1, cache_index=0)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        log(f"{tag} {card}: prefill of one {toks.shape[1]}-token prompt "
+            f"{[round(x, 4) for x in prefill_s]} s; state per slot "
+            f"{state_bytes} bytes (gemma2-2b's K/V for {T} tokens: "
+            f"{gemma_kv} bytes); peak memory {peak_dense} bytes")
+        breakdown = {phase: profiled(tag, phase, fn) for phase, fn in (
+            ("prefill", lambda: target(tokens=toks, cache=tfm.init_cache(
+                cfg, 1, toks.shape[1]), cache_index=0)),
+            ("serve", lambda: engine.serve(
+                [Request(**s_) for s_ in specs[:4]])))}
+        return {"params": n_params, "dense": dense, "paged": paged,
+                "refilled_request": refilled, "prefill_s": prefill_s,
+                "state_bytes_per_slot": state_bytes,
+                "gemma2_kv_bytes_3072": gemma_kv, "peak_bytes": peak_dense,
+                "breakdown": breakdown,
+                "launches": dense["launches"]}
+
+    def mamba_kernel_vs_plain():
+        """Depth 2 at full width: a many-shot prompt's last-position logits
+        and the final SSM states through ``ssd`` and through the plain
+        version."""
+        cfg = get_config("mamba2-370m")
+        cfg2 = cfg.replace(name="mamba2-370m-depth2",
+                           layout=LayerLayout.uniform(
+                               LayerDesc("mamba", "none"), 2))
+        tag = "[mamba2-370m kernel-vs-plain]"
+        target2 = tfm.init_params(cfg2, 0)
+        toks = torch.as_tensor(mamba_prompts[0][None], dtype=torch.long,
+                               device=dev)
+
+        def run():
+            cache = tfm.init_cache(cfg2, 1, toks.shape[1])
+            with torch.no_grad():
+                logits, _ = target2(tokens=toks, cache=cache, cache_index=0)
+            return logits[0, -1], [c["ssm"] for c in cache]
+
+        set_counts()
+        logits_k, states_k = run()
+        torch.cuda.synchronize()
+        n = counts()["ssd"]
+        ops.set_default_impl("torch")
+        try:
+            logits_p, states_p = run()
+        finally:
+            ops.set_default_impl(None)
+        rel_logits = rel(logits_k, logits_p)
+        rel_state = max(rel(a, b) for a, b in zip(states_k, states_p))
+        log(f"{tag} depth 2, bf16, {toks.shape[1]} tokens: first-step "
+            f"logits rel err {rel_logits:.3e}, final states rel err "
+            f"{rel_state:.3e} (tol {E2E_REL_TOL:g}); ssd launches {n}; "
+            f"greedy token kernel {int(logits_k.argmax())} plain "
+            f"{int(logits_p.argmax())}")
+        if not (n == 2 and rel_logits <= E2E_REL_TOL
+                and rel_state <= E2E_REL_TOL):
+            raise AssertionError(f"{tag}: kernel path and plain path "
+                                 "disagree")
+        return {"logits_rel_err": rel_logits, "state_rel_err": rel_state}
+
     paths = {}
     for arch, need in (("gemma2-2b", ()), ("granite-moe-3b-a800m", ("gmm",))):
         report[arch] = main_path(arch, need)
@@ -912,6 +1186,12 @@ def main() -> int:
         report[arch]["kernel_vs_plain"] = kernel_vs_plain(arch)
         gc.collect()
         torch.cuda.empty_cache()
+    report["mamba2-370m"] = mamba_path()
+    paths["mamba2-370m dense"] = report["mamba2-370m"]["dense"]["launches"]
+    paths["mamba2-370m paged"] = report["mamba2-370m"]["paged"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["mamba2-370m"]["kernel_vs_plain"] = mamba_kernel_vs_plain()
 
     # ---- result lines ----------------------------------------------------
     entries = []
@@ -919,7 +1199,8 @@ def main() -> int:
             ("flash_attention:flash_attention", flash_rows, None),
             ("memcom_xattn:memcom_xattn", mx_rows, None),
             ("paged_attention:paged_flash_decode", paged_rows, "decode"),
-            ("moe_gmm:gmm", gmm_rows, None)):
+            ("moe_gmm:gmm", gmm_rows, None),
+            ("ssd_scan:ssd", ssd_rows, "prefill")):
         timed = [r for r in rows if "ms" in r]
         head = (next(r for r in rows if r["shape"] == main) if main
                 else max(timed, key=lambda r: r["ms"]))

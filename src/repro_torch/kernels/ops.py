@@ -4,14 +4,18 @@ Two implementations per op:
 
 * ``torch`` — the plain PyTorch versions in :mod:`.plain`;
 * ``cuda``  — the hand-written Hopper kernels (:mod:`.flash_attention`,
-  :mod:`.memcom_xattn`, :mod:`.paged_attention`, :mod:`.moe_gmm`).
+  :mod:`.memcom_xattn`, :mod:`.paged_attention`, :mod:`.moe_gmm`,
+  :mod:`.ssd_scan`).
 
-The paged-KV index ops ``paged_scatter``/``paged_gather`` are plain torch
-index operations on every device (they have no kernel).
+The paged-KV index ops ``paged_scatter``/``paged_gather`` and the Mamba2
+one-token update ``ssd_decode_step`` are plain torch operations on every
+device (they have no kernel).
 
 ``impl="auto"`` (the default) sends a CPU tensor to the plain version and a
 CUDA tensor to the kernel, always — there is no "small problem → dense"
-route, which would hide the kernel at decode shapes.
+route, which would hide the kernel at decode shapes (nor the JAX ``ssd``'s
+route of S <= 64 to the sequential oracle, which would hide it at short
+prompts).
 ``set_default_impl("torch")`` forces the plain versions everywhere (the
 kernel-vs-plain comparisons on the card use it).
 """
@@ -27,6 +31,7 @@ from repro_torch.kernels import memcom_xattn as _mx
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import plain
+from repro_torch.kernels import ssd_scan as _ssd
 
 _FORCED_IMPL: Optional[str] = None
 
@@ -167,3 +172,23 @@ def gmm(x, w, *, impl="auto"):
     kernel on the card."""
     fn = plain.gmm_ref if _plain(impl, x) else _gmm.gmm
     return fn(x.contiguous(), w.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+
+def ssd(x, dt, A, Bm, Cm, *, init_state=None, chunk=256, impl="auto"):
+    """Mamba2 SSD chunked scan: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32,
+    Bm/Cm (B,S,G,N), init_state (B,H,P,N) f32 or None -> (y, final state
+    f32).  Every CUDA tensor goes to the kernel, a 1-token prompt too;
+    ``chunk`` is the plain version's chunk length (the kernel has its own)."""
+    fn = plain.ssd_ref if _plain(impl, x) else _ssd.ssd
+    return fn(x.contiguous(), dt.contiguous(), A.contiguous(),
+              Bm.contiguous(), Cm.contiguous(),
+              init_state=(None if init_state is None
+                          else init_state.contiguous()), chunk=chunk)
+
+
+ssd_decode_step = plain.ssd_decode_step

@@ -2,15 +2,17 @@
 
 They are the CPU path (a kernel wrapper given a CPU tensor calls them) and
 the yardstick the CUDA kernels are held against on the card.  Each mirrors
-an oracle of the JAX package (``repro/kernels/ref.py`` and
-``jnp_impl.combine_attention_partials``) and computes in float32
+an oracle of the JAX package (``repro/kernels/ref.py``,
+``jnp_impl.combine_attention_partials`` and ``jnp_impl.ssd_chunked``) and
+computes in float32
 internally, casting the result to the input's type at the end — the same
 arithmetic the kernels do, so a bf16 comparison measures the kernel and
 not a different rounding schedule.
 
 The paged-KV index ops (``paged_scatter``/``paged_gather``, after
-``jnp_impl.py:254-292``) have no kernel: every device runs them as
-written here.
+``jnp_impl.py:254-292``) and the Mamba2 one-token update
+``ssd_decode_step`` (``jnp_impl.py:426-441``) have no kernel: every device
+runs them as written here.
 """
 
 from __future__ import annotations
@@ -153,6 +155,79 @@ def combine_attention_partials(parts):
     w = w / torch.clamp(w.sum(dim=0), min=1e-37)
     out = (outs.float() * w[..., None]).sum(dim=0)
     return out.to(parts[0][0].dtype)
+
+
+def ssd_ref(x, dt, A, Bm, Cm, *, init_state=None, chunk=256):
+    """Mamba2 SSD scan (``ref.py:75`` ``ssd_ref``) in the chunked form of
+    ``jnp_impl.ssd_chunked``: per chunk of Q tokens, ``cum = cumsum(dt·A)``,
+    ``y = (C Bᵀ ∘ L ∘ dt_j) x + (C ∘ e^cum) stateᵀ`` with ``L_ij =
+    e^(cum_i - cum_j)`` for j <= i, then ``state = state·e^cum_Q + xᵀ
+    (e^(cum_Q - cum) ∘ dt ∘ B)``.  The result does not depend on Q.
+
+    x (B,S,H,P), dt (B,S,H) float32, A (H,) float32, Bm/Cm (B,S,G,N) with
+    head h reading group ``h // (H // G)``, init_state (B,H,P,N) float32
+    or None (zeros) -> (y (B,S,H,P) in x's type, final state float32).
+    Rows past S are padded with dt = 0, an exact no-op.  L's entries above
+    the diagonal are never exponentiated (their exponent is positive and
+    overflows once dt·|A| sums past ~88 within a chunk).
+
+    Sums are taken in float32, as the JAX package takes them, and in
+    float64 for float64 inputs: the yardstick the Hopper kernel's float32
+    inputs (which it sums in float64) are held to, since a row of y can be
+    the cancelled remainder of its terms and float32 sums stray up to
+    ~5e-4 of such a row's scale."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if H % G:
+        raise ValueError(f"H={H} is not a multiple of G={G}")
+    rep = H // G
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+
+    def chunks(t, heads=False):
+        t = t.to(ft)
+        if heads:  # groups -> heads
+            t = t.repeat_interleave(rep, dim=2)
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape(Bsz, nc, Q, *t.shape[2:]).unbind(1)
+
+    h = (torch.zeros((Bsz, H, P, N), dtype=ft, device=x.device)
+         if init_state is None else init_state.to(ft))
+    upper = ~torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for xc, dtc, bc, cc in zip(chunks(x), chunks(dt), chunks(Bm, True),
+                               chunks(Cm, True)):
+        cum = torch.cumsum(dtc * A.to(ft), dim=1)  # (B,Q,H) inclusive
+        decay = cum[:, :, None, :] - cum[:, None, :, :]  # (B,Qi,Qj,H)
+        L = torch.exp(decay.masked_fill(upper[None, :, :, None], -torch.inf))
+        w = torch.einsum("bihn,bjhn->bijh", cc, bc) * L * dtc[:, None]
+        y = torch.einsum("bijh,bjhp->bihp", w, xc)
+        y = y + torch.einsum("bihn,bhpn->bihp", cc * torch.exp(cum)[..., None],
+                             h)
+        seg = torch.exp(cum[:, -1:] - cum) * dtc  # (B,Q,H)
+        h = h * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bjhp,bjhn->bhpn", xc * seg[..., None], bc)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y.to(x.dtype), h.float()
+
+
+def ssd_decode_step(state, x, dt, A, Bm, Cm):
+    """One token of the SSD recurrence (``jnp_impl.py:426``): state
+    (B,H,P,N) float32, x (B,H,P), dt (B,H), A (H,), Bm/Cm (B,G,N) ->
+    (y (B,H,P) in x's type, new state float32)."""
+    rep = x.shape[1] // Bm.shape[1]
+    Bh = Bm.repeat_interleave(rep, dim=1).float()
+    Ch = Cm.repeat_interleave(rep, dim=1).float()
+    dtf = dt.float()
+    dA = torch.exp(dtf * A.float()[None, :])
+    state = state * dA[..., None, None] \
+        + (dtf[..., None] * x.float())[..., None] * Bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return y.to(x.dtype), state
 
 
 def scaled_err(out, ref) -> float:

@@ -29,6 +29,11 @@ KERNELS = {
         "replaces": "src/repro/kernels/moe_gmm.py:61",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     },
+    "ssd_scan:ssd": {
+        "plain": "ssd_ref",
+        "replaces": "src/repro/kernels/ssd_scan.py:93",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    },
 }
 
 

@@ -25,7 +25,9 @@ preempts a running lower one); ``--priority-aging S`` lifts a queued
 request one class for every S seconds it waits.
 
 The device is the card unless ``--device cpu`` is given; without a card
-the launcher raises.  The online compiler, the tiers, the fused step, the
+the launcher raises.  A config without MemCom (the attention-free
+mamba2-370m) exits with a message before any model is built, as the JAX
+launcher does: its entry point is ``ServingEngine`` itself.  The online compiler, the tiers, the fused step, the
 traffic harness, meshes and telemetry are later slices of the port.
 """
 
@@ -96,6 +98,10 @@ def main(argv=None) -> dict:
     vocab = SyntheticVocab()
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch)).replace(vocab_size=vocab.size)
+    if cfg.memcom is None:
+        raise SystemExit(f"{args.arch}: attention-free, no MemCom config — "
+                         "serve its plain prompts through ServingEngine "
+                         "(each slot keeps the post-prompt SSM state)")
     m = cfg.memcom.num_memory_tokens
     print(f"[cloud] target {cfg.name} ({cfg.param_count()/1e6:.1f}M), "
           f"m={m} memory tokens, {args.tasks} task(s), device {device}")

@@ -7,8 +7,10 @@ own ``torch.Generator`` seeded from (seed, dotted parameter path), so a
 parameter's values do not depend on what else the tree holds.  Shapes,
 kinds and scales follow the JAX ``ParamBuilder``: ``fanin`` draws
 ``scale * fan_in**-0.5 * N(0, 1)`` with ``fan_in = shape[-2]`` unless
-given, ``normal`` draws ``scale * N(0, 1)``, ``ones``/``zeros`` are
-constant.  The two frameworks' generators differ, so the same seed gives
+given, ``normal`` draws ``scale * N(0, 1)``, ``uniform`` draws ``scale *
+U(-1, 1)``, ``ones``/``zeros`` are constant.  A parameter may keep its own
+type inside a model of another (``make(..., dtype=torch.float32)``, as
+Mamba2's ``A_log``/``dt_bias``/``D`` do in a bf16 model).  The two frameworks' generators differ, so the same seed gives
 other numbers than ``jax.random``; tests carry parameters across with
 :mod:`repro_torch.bridge` instead.
 
@@ -26,7 +28,7 @@ from torch import nn
 
 
 class Init(NamedTuple):
-    kind: str = "fanin"  # fanin | normal | ones | zeros
+    kind: str = "fanin"  # fanin | normal | uniform | ones | zeros
     scale: float = 1.0
     fan_in: Optional[int] = None
 
@@ -66,14 +68,15 @@ def initialize(root: nn.Module, seed: int,
             path = f"{mod_name}.{name}" if mod_name else name
             g = torch.Generator(device=p.device)
             g.manual_seed(_path_seed(seed, path))
-            x = torch.randn(p.shape, generator=g, device=p.device,
-                            dtype=torch.float32)
-            if init.kind == "normal":
-                x.mul_(init.scale)
+            kw = dict(generator=g, device=p.device, dtype=torch.float32)
+            if init.kind == "uniform":
+                x = (2 * torch.rand(p.shape, **kw) - 1).mul_(init.scale)
+            elif init.kind == "normal":
+                x = torch.randn(p.shape, **kw).mul_(init.scale)
             elif init.kind == "fanin":
                 fi = init.fan_in if init.fan_in is not None else (
                     p.shape[-2] if p.dim() >= 2 else p.shape[-1])
-                x.mul_(init.scale * fi ** -0.5)
+                x = torch.randn(p.shape, **kw).mul_(init.scale * fi ** -0.5)
             else:
                 raise ValueError(f"{path}: unknown init {init.kind!r}")
             p.copy_(x)

@@ -28,6 +28,7 @@ from repro_torch.models.attention import (init_attn_cache,
                                           init_paged_attn_cache)
 from repro_torch.models.blocks import Block
 from repro_torch.models.layers import Norm, softcap
+from repro_torch.models.mamba2 import init_mamba_cache
 from repro_torch.models.param import Init, initialize, make
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -84,7 +85,7 @@ class Transformer(nn.Module):
         positions=None,
         mask_offset=0,
         prefix: Optional[list] = None,  # per-layer compressed context
-        cache: Optional[list] = None,  # per-layer KV cache (updated in place)
+        cache: Optional[list] = None,  # per-layer cache (updated in place)
         cache_index=None,  # int (static offset) or (B,) tensor (per slot)
         decode: bool = False,
         capture_hiddens: bool = False,
@@ -161,20 +162,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> list:
+    """Per-layer dense caches: (batch, max_len, Hkv, hd) K/V stripes for
+    attention layers, per-slot conv/ssm state for Mamba2 layers."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg, dtype)
-    return [init_attn_cache(cfg, batch, max_len, dtype, device)
-            for _ in cfg.layout.descriptors()]
+    return [init_mamba_cache(cfg, batch, dtype, device)
+            if desc.mixer == "mamba"
+            else init_attn_cache(cfg, batch, max_len, dtype, device)
+            for desc in cfg.layout.descriptors()]
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      slots: int, dtype=None, device=None) -> list:
-    """Block-pool KV cache: one (num_blocks, block_size, Hkv, hd) pool per
-    layer, addressed through per-slot block tables.  ``slots`` is part of
-    the reference's signature (its recurrent leaves stay per slot); the
-    attention-only layouts of the port keep nothing per slot."""
-    del slots
+    """Block-pool cache: one (num_blocks, block_size, Hkv, hd) K/V pool per
+    attention layer, addressed through per-slot block tables; a Mamba2
+    layer's conv/ssm state stays per slot (``slots`` rows), a fixed size
+    that paging would not shrink."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg, dtype)
-    return [init_paged_attn_cache(cfg, num_blocks, block_size, dtype, device)
-            for _ in cfg.layout.descriptors()]
+    return [init_mamba_cache(cfg, slots, dtype, device)
+            if desc.mixer == "mamba"
+            else init_paged_attn_cache(cfg, num_blocks, block_size, dtype,
+                                       device)
+            for desc in cfg.layout.descriptors()]

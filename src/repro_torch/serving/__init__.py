@@ -1,6 +1,7 @@
 """Serving of the port (``repro/serving``): the compressed-prefix stores,
 the pure-Python control plane (scheduler, block allocator, clock) and the
-continuous-batching engine over a dense or a paged KV cache."""
+continuous-batching engine over a dense or a paged KV cache (Mamba2
+layers keep per-slot recurrent state on both)."""
 
 from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocationError,
                                             BlockAllocator, OutOfBlocksError)

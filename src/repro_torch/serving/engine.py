@@ -34,15 +34,26 @@ Two KV layouts (``kv_layout=``):
   reservation.
 
 Prefill width.  The JAX engine pads a prompt of ``n`` tokens with token 0
-to ``_bucket(n, cap)``, a power of two.  The port prefills the exact
-prompt for attention-only configs: causal masking keeps pad tokens out of
-every real row, so the logits are the same.  A MoE layer derives its
-expert capacity from all N tokens of the forward pass, pad tokens
-included, so there the width changes which real tokens are dropped; for
-a config with a MoE layer the port prefills at the JAX width, padded with
-token 0, and returns row ``n - 1``.  Reservations, allocations and the
-clock's charges use the bucket either way, so the admission gate admits
-the same requests in the same order.
+to ``_bucket(n, cap)``, a power of two, except for a recurrent config (a
+Mamba2 layer), whose state would advance over pad tokens: that one it
+prefills exactly.  The port prefills the exact prompt for attention-only
+configs too: causal masking keeps pad tokens out of every real row, so
+the logits are the same.  A MoE layer derives its expert capacity from
+all N tokens of the forward pass, pad tokens included, so there the width
+changes which real tokens are dropped; for a config with a MoE layer and
+no recurrent one the port prefills at the JAX width, padded with token 0,
+and returns row ``n - 1``.  Reservations, allocations and the clock's
+charges use the JAX width (:meth:`ServingEngine._width`) either way, so
+the admission gate admits the same requests in the same order.
+
+Recurrent state.  A Mamba2 layer keeps per-slot conv/ssm state on both
+layouts, and a prefill continues from it.  A slot is *dirty* once a
+prefill or a batched decode step (which advances every slot, idle ones
+included) has run on it since it was seated; a request that names no
+prefix zeroes a dirty slot's state first (``clear_slot_state``), a
+request naming a prefix always re-seats it, and ``score_labels``
+restores slot 0 before its one-shot prefill.  A preempted request
+resumes in a cleared slot by re-prefilling prompt + emitted tokens.
 
 The cache is updated in place: a ``persist=False`` prefill (label
 scoring) writes only into blocks it allocates itself and returns them, so
@@ -75,6 +86,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocator,
                                             OutOfBlocksError)
 from repro_torch.serving.prefix_store import (PagedPrefixStore, PrefixStore,
+                                              clear_slot_state,
                                               copy_paged_block,
                                               seat_prefix_row,
                                               write_prefix_to_cache)
@@ -130,13 +142,17 @@ class ServingEngine:
         self.slots = slots
         self.max_len = max_len
         self.kv_layout = kv_layout
+        descs = cfg.layout.descriptors()
+        # recurrent state would advance over pad tokens: exact prefill;
         # MoE capacity counts every token of a prefill: pad as the JAX
         # engine does (module docstring)
-        self._pad_prefill = any(d.mlp == "moe"
-                                for d in cfg.layout.descriptors())
+        self._recurrent = any(d.mixer == "mamba" for d in descs)
+        self._pad_prefill = (not self._recurrent
+                             and any(d.mlp == "moe" for d in descs))
         self.base = np.zeros((slots,), np.int64)  # per-slot seated memory
         self.base_len = 0  # the seat_compressed context's length
         self._seated: List[Optional[str]] = [None] * slots  # named prefix
+        self._dirty = np.zeros((slots,), bool)  # used since seating
         kw = dict(dtype=target.dtype, device=self.device)
         if kv_layout == "paged":
             if prefix_store is not None:
@@ -202,12 +218,14 @@ class ServingEngine:
 
     def seat_prefix(self, slot: int, name: str) -> None:
         """Install task ``name``'s compressed memory into one slot."""
+        clear_slot_state(self.cache, slot)
         if self.paged:
             self._seat_blocks(slot, name)
         else:
             seat_prefix_row(self.cache, self.store.get(name), slot)
         self.base[slot] = self.store.base_len(name)
         self._seated[slot] = name
+        self._dirty[slot] = False
 
     def seat_compressed(self, materialized: list) -> None:
         """Install a batch of compressed contexts engine-wide: row b of
@@ -230,20 +248,41 @@ class ServingEngine:
                 self.store.put(self._COMPAT + str(b), materialized,
                                batch_index=b)
         self._seated = [None] * self.slots
+        self._dirty[:] = False
 
     def _reset_slot(self, slot: int) -> None:
         """Prepare a slot for a request that names no prefix: restore the
-        engine-wide context if a named prefix displaced it, else serve
-        without context."""
-        if self._seated[slot] is None:
+        engine-wide context if the slot no longer holds it (a named prefix
+        displaced it, or a previous occupant advanced its recurrent
+        state), else serve without context."""
+        if self._seated[slot] is None and not (self._recurrent
+                                               and self._dirty[slot]):
             return  # the slot still holds the engine-wide context (or none)
         if self._COMPAT + str(slot) in self.store:
             self.seat_prefix(slot, self._COMPAT + str(slot))
         else:
+            clear_slot_state(self.cache, slot)
             if self.paged:
                 self._release_slot_blocks(slot)
             self.base[slot] = 0
+            self._dirty[slot] = False
         self._seated[slot] = None
+
+    def _restore_slot(self, slot: int) -> None:
+        """Refresh the context a slot holds (its named prefix or the
+        engine-wide one) when earlier generation may have advanced its
+        recurrent state; attention K/V at [0, base) is never overwritten,
+        so only recurrent configs need this."""
+        if not (self._recurrent and self._dirty[slot]):
+            return
+        if self._seated[slot] is not None:
+            self.seat_prefix(slot, self._seated[slot])
+        elif self._COMPAT + str(slot) in self.store:
+            self.seat_prefix(slot, self._COMPAT + str(slot))
+            self._seated[slot] = None
+        else:
+            clear_slot_state(self.cache, slot)
+            self._dirty[slot] = False
 
     # ------------------------------------------------------------------
     # Continuous-batching serve loop
@@ -342,7 +381,9 @@ class ServingEngine:
                     sched, can_seat, protected={s for s, _ in admitted})
             for slot, req in admitted:
                 if req.prefix is not None:
-                    if self._seated[slot] != req.prefix:
+                    # the slot's K/V at [0, base) still holds its prefix;
+                    # recurrent state may have advanced since
+                    if self._seated[slot] != req.prefix or self._recurrent:
                         self.seat_prefix(slot, req.prefix)
                 else:
                     self._reset_slot(slot)
@@ -363,7 +404,7 @@ class ServingEngine:
                         req, self._req_base(req), extra=resumed.size)
                     base = int(self.base[slot])
                     need = self._blocks_needed(req, base, extra=resumed.size)
-                    width = _bucket(len(toks), self.max_len - base)
+                    width = self._width(len(toks), self.max_len - base)
                     covered = (self.alloc.blocks_for(base + width)
                                - self.alloc.blocks_for(base)
                                + (1 if base % self.block_size else 0))
@@ -388,6 +429,8 @@ class ServingEngine:
             t_start = self.clock()
             out = self._decode_step(pending, lengths, greedy)
             self._charge("decode_step", 1)
+            # the step advanced every slot's recurrent state, idle ones too
+            self._dirty[:] = True
             c["decode_time_s"] += self.clock() - t_start
             if last_decode_done is not None:
                 # decode gap: the non-decode time since the previous step
@@ -488,11 +531,32 @@ class ServingEngine:
     # Steps
     # ------------------------------------------------------------------
 
+    def _width(self, n: int, cap: int) -> int:
+        """The JAX engine's prefill width for ``n`` tokens with ``cap``
+        positions left: exact for a recurrent config, else the bucket.
+        Charges and paged reservations use it."""
+        return n if self._recurrent else _bucket(n, cap)
+
+    def _slot_view(self, slot: int, persist: bool) -> list:
+        """The cache a one-slot prefill runs on: per-slot leaves (dense K/V
+        stripes, Mamba2 conv/ssm) cut to the slot's row — views, so the
+        forward's in-place writes land in the slot — and pooled K/V whole
+        (the block table scopes those writes).  ``persist=False`` clones
+        the per-slot rows instead, so the slot keeps its state."""
+        def leaf(key, x):
+            if self.paged and key in ("k", "v"):
+                return x
+            row = x[slot:slot + 1]
+            return row if persist else row.clone()
+        return [{key: leaf(key, x) for key, x in c.items()}
+                for c in self.cache]
+
     def _prefill_slot(self, slot: int, tokens: np.ndarray,
                       persist: bool = True) -> torch.Tensor:
         """Prefill one slot's prompt behind its seated prefix; returns the
         last token's logits row.  ``persist=False`` leaves every cache
-        stripe and pool block the engine holds untouched."""
+        stripe, pool block and recurrent state the engine holds
+        untouched."""
         n = len(tokens)
         base = int(self.base[slot])
         cap = self.max_len - base
@@ -500,28 +564,26 @@ class ServingEngine:
             raise ValueError(f"prompt of {n} tokens does not fit behind "
                              f"{base} seated slots in max_len {self.max_len}")
         self.counters["prefills"] += 1
-        width = _bucket(n, cap)  # the reference's padded width
+        width = self._width(n, cap)  # the reference's prefill width
         self._charge("prefill_token", width)
         padded = np.zeros((1, width if self._pad_prefill else n), np.int64)
         padded[0, :n] = tokens
-        toks = torch.as_tensor(padded, device=self.device)
-        kw = dict(tokens=toks, cache_index=base, mask_offset=base)
-        if not self.paged:
-            row = [{key: x[slot:slot + 1] for key, x in c.items()}
-                   for c in self.cache]
-            if not persist:
-                row = [{key: x.clone() for key, x in c.items()} for c in row]
-            logits, _ = self.target(cache=row, **kw)
-            return logits[0, n - 1]
+        kw = dict(tokens=torch.as_tensor(padded, device=self.device),
+                  cache=self._slot_view(slot, persist), cache_index=base,
+                  mask_offset=base)
+        if self.paged:
+            if persist:
+                self._prepare_prefill(slot, base, width)
+                table = self.tables[slot]
+            else:
+                snap = self.alloc.snapshot()
+                table = self._scratch_table(slot, base, width)
+            kw["block_tables"] = torch.as_tensor(table[None],
+                                                 device=self.device)
+        logits, _ = self.target(**kw)
         if persist:
-            self._prepare_prefill(slot, base, width)
-            table = self.tables[slot]
-        else:
-            snap = self.alloc.snapshot()
-            table = self._scratch_table(slot, base, width)
-        tables = torch.as_tensor(table[None], device=self.device)
-        logits, _ = self.target(cache=self.cache, block_tables=tables, **kw)
-        if not persist:
+            self._dirty[slot] = True
+        elif self.paged:
             # the scratch blocks go back to the pool; the queued forward
             # still reads them before any later work can reuse them
             self.alloc.restore(snap)
@@ -642,7 +704,7 @@ class ServingEngine:
         ``extra`` counts already-emitted tokens a preempted request
         re-prefills on resume."""
         n = len(req.tokens) + extra
-        width = _bucket(n, self.max_len - base)
+        width = self._width(n, self.max_len - base)
         total = base + max(width, len(req.tokens) + req.max_new)
         return (self.alloc.blocks_for(total) - self.alloc.blocks_for(base)
                 + (1 if base % self.block_size else 0))
@@ -693,9 +755,11 @@ class ServingEngine:
     def score_labels(self, context: np.ndarray, query: np.ndarray,
                      label_ids: np.ndarray) -> int:
         """Constrained classification: argmax over label token ids for the
-        next token after [slot 0's context; context; query].  Leaves the
-        engine's cache untouched."""
+        next token after [slot 0's context; context; query].  Restores a
+        dirty recurrent slot 0's context first; the one-shot prefill then
+        leaves the engine's cache untouched."""
         toks = np.concatenate([context, query]).astype(np.int32)
+        self._restore_slot(0)
         row = self._prefill_slot(0, toks, persist=False)
         scores = row.float().cpu().numpy()
         return int(label_ids[np.argmax(scores[label_ids])])

@@ -16,8 +16,14 @@ The compress → serve handoff in three steps:
    table at the prefix's blocks (the engine's ``_seat_blocks``).
 
 Caches are per-layer lists of ``{"k", "v"}`` tensors — (slots, max_len,
-Hkv, hd) stripes or (num_blocks, block_size, Hkv, hd) pools — written in
-place.
+Hkv, hd) stripes or (num_blocks, block_size, Hkv, hd) pools — or, for a
+Mamba2 layer, of per-slot ``{"conv", "ssm"}`` state on both layouts, all
+written in place.  :func:`clear_slot_state` zeroes one slot's recurrent
+state before a refill.  The hybrid MemCom's state handoff (a Mamba2
+layer's ``{"ssm"}`` prefix entry, which the reference's
+``materialize_prefix`` passes through and ``seat_prefix_row`` seats)
+waits for a hybrid config in the port: both functions here handle K/V
+entries only.
 """
 
 from __future__ import annotations
@@ -64,6 +70,18 @@ def seat_prefix_row(cache: list, row: list, slot: int) -> list:
         for key in ("k", "v"):
             m = p[key].shape[0]
             c[key][slot, :m] = p[key].to(c[key].dtype)
+    return cache
+
+
+def clear_slot_state(cache: list, slot: int) -> list:
+    """Zero one slot's recurrent state (Mamba2 conv window and SSM state)
+    ahead of a refill, in place.  K/V needs no clearing: positions past a
+    slot's length are masked.  A prefill continues from the cached state,
+    so a refilled slot must not inherit its previous occupant's."""
+    for c in cache:
+        for key in ("conv", "ssm"):
+            if key in c:
+                c[key][slot].zero_()
     return cache
 
 

@@ -29,6 +29,7 @@ from repro_torch.kernels import memcom_xattn as mx
 from repro_torch.kernels import moe_gmm
 from repro_torch.kernels import ops, plain
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -316,3 +317,86 @@ def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
         moe_gmm.gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w)
     with pytest.raises(ValueError):
         moe_gmm.gmm(x, w.cpu())
+
+
+SSD_CASES = [
+    # (B, S, H, P, G, N, initial state, dt·|A| past 100 in a chunk)
+    (1, 3084, 32, 64, 1, 128, True, False),  # mamba2-370m prefill + query
+    (1, 12, 32, 64, 1, 128, False, False),   # a 12-token prompt
+    (2, 300, 32, 64, 1, 128, True, False),   # S no multiple of any chunk
+    (1, 200, 32, 64, 2, 128, True, False),   # two groups
+    (3, 1, 4, 64, 1, 128, True, False),      # one token
+    (2, 70, 8, 16, 1, 16, True, False),      # mamba2-370m-smoke widths
+    (1, 50, 4, 40, 2, 8, True, False),       # P no multiple of the P tile
+    (1, 96, 4, 64, 1, 128, True, True),      # the NaN trap
+]
+
+
+# ssd: the kernel sums float32 inputs in float64 and is held to
+# plain.ssd_ref on the same inputs summed in float64 (a row of y can be
+# the cancelled remainder of its terms, and float32 sums stray up to ~5e-4
+# of such a row's scale); bf16 to the plain version's float32 sums.
+
+
+def _ssd_inputs(rng, case, dtype, device):
+    """dt and A as a seeded Mamba2 layer makes them (softplus of unit
+    normals; -exp of U(-1, 1)), B and C scaled so that C·B is O(1)."""
+    B, S, H, P, G, N, init, big = case
+    x = _rand(rng, B, S, H, P, dtype=dtype, device=device)
+    Bm = _rand(rng, B, S, G, N, dtype=dtype, scale=0.5 * N ** -0.25,
+               device=device)
+    Cm = _rand(rng, B, S, G, N, dtype=dtype, scale=0.5 * N ** -0.25,
+               device=device)
+    if big:
+        dt = torch.full((B, S, H), 5.0, device=device)
+        A = torch.full((H,), -5.0, device=device)
+    else:
+        dt = torch.nn.functional.softplus(_rand(rng, B, S, H, scale=1.0,
+                                                device=device))
+        A = -torch.exp(torch.from_numpy(
+            rng.uniform(-1, 1, H).astype(np.float32)).to(device))
+    h0 = _rand(rng, B, H, P, N, device=device) if init else None
+    return x, dt, A, Bm, Cm, h0
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_matches_plain(cuda, rng, case, dtype):
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, case, dtype, cuda)
+    before = ssd_scan.launches
+    y, hf = ops.ssd(x, dt, A, Bm, Cm, init_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    wide = [None if a is None else a.double() if dtype == "float32" else a
+            for a in (x, dt, A, Bm, Cm, h0)]
+    y_ref, hf_ref = plain.ssd_ref(*wide[:5], init_state=wide[5])
+    assert y.dtype == x.dtype and hf.dtype == torch.float32
+    assert y.shape == x.shape and hf.shape == hf_ref.shape
+    assert bool(torch.isfinite(y.float()).all() & torch.isfinite(hf).all())
+    _assert_close(y, y_ref, dtype)
+    _assert_close(hf, hf_ref, dtype)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
+    case = (1, 20, 4, 16, 2, 8, True, False)
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, case, "float32", cuda)
+    with pytest.raises(TypeError):  # x/B/C types differ
+        ssd_scan.ssd(x, dt, A, Bm.bfloat16(), Cm, init_state=h0)
+    with pytest.raises(TypeError):  # dt must be float32
+        ssd_scan.ssd(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd(x.half(), dt, A, Bm.half(), Cm.half())
+    with pytest.raises(ValueError):  # H = 4 is no multiple of G = 3
+        ssd_scan.ssd(x, dt, A, Bm[:, :, :1].expand(-1, -1, 3, -1)
+                     .contiguous(), Cm[:, :, :1].expand(-1, -1, 3, -1)
+                     .contiguous())
+    with pytest.raises(ValueError):
+        ssd_scan.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     Bm, Cm)
+    with pytest.raises(ValueError):
+        ssd_scan.ssd(x, dt, A, Bm, Cm, init_state=h0[..., :4].contiguous())
+    with pytest.raises(ValueError):
+        ssd_scan.ssd(x, dt, A.cpu(), Bm, Cm)
+    with pytest.raises(NotImplementedError):  # N no multiple of 4
+        ssd_scan.ssd(x, dt, A, Bm[..., :6].contiguous(),
+                     Cm[..., :6].contiguous())
