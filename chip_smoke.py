@@ -29,7 +29,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    a. ``flash_attention`` at gemma2-2b's 8/4 heads of 256 (softcap 50) and
       granite's 24/8 heads of 64 (group 3, no softcap): the 3072-token
       source prefill, the 512-token Memory-LLM, a prompt behind the 512
-      memory rows, decode, and masked rows;
+      memory rows, decode, and masked rows; and mistral-7b's 6144-token
+      source prefill (32/8 heads of 128, bf16 only); and probes (bf16
+      only): decode over caches of 2048 and 8192 positions and over 32 to
+      72 slots, a prompt of 64 (query, head) rows against a 2048-token
+      prefix, and causal self-attention short enough to split the KV
+      axis.  Every bf16 shape runs through both bf16 kernels, the wgmma variant and the
+      mma.sync one, each forced and each held to the plain version; ``ms``
+      is the time of the variant the wrapper picks (``variant``), beside
+      ``ms_wgmma`` and ``ms_mma_sync``, and ``device_ms_wgmma`` /
+      ``device_ms_mma_sync``: 20 calls captured into a CUDA graph and
+      replayed, the time between launches left out (CUDA events around
+      few-row calls time mostly the host; ``fa.variant_for``'s rule is
+      set from these device times);
    b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536;
    c. ``paged_flash_decode`` (the paged decode attention): the gemma2-2b
       main-path shape (q 4x1x8x256, pools of 16-position blocks, lengths
@@ -61,7 +73,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
    bfloat16, weights drawn from seeds, each in two runs with every
    kernel's launch counter set to 0 just before and read just after; each
-   kernel of the run must have been launched (``gmm`` on granite's):
+   kernel of the run must have been launched (``gmm`` on granite's), and
+   every flash call over the 3072-token source prompt must have gone
+   through the wgmma variant (its own counter, printed per path):
    a. dense: compress two 3072-token many-shot prompts to m = 512 memory
       tokens, materialize the prefixes, and serve 4 requests naming them
       (ragged 4-12-token prompts, 16 greedy tokens each) through
@@ -204,6 +218,28 @@ def main() -> int:
         e1.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def device_ms(fn, reps=20):
+        """Device time of one call of ``fn``: ``reps`` calls captured into
+        a CUDA graph, replayed and timed with CUDA events, so the host's
+        time between launches is left out and few-row calls compare on
+        the card's work alone."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        del graph
+        return e0.elapsed_time(e1) / reps
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -242,6 +278,7 @@ def main() -> int:
     decode_kv = arange(0, max_len)[None].expand(slots, max_len).contiguous()
     gemma_heads = (8, 4, 256, 50.0)    # Hq, Hkv, head dim, softcap
     granite_heads = (24, 8, 64, 0.0)
+    mistral_heads = (32, 8, 128, 0.0)
     granite_prompt = 16  # a MoE prompt prefills at its power-of-two bucket
     attn_cases = [
         # name, B, Sq, Skv, q_pos, kv_pos, causal, heads
@@ -270,38 +307,91 @@ def main() -> int:
          granite_heads),
         ("granite_decode", slots, 1, max_len, (lengths - 1)[:, None],
          decode_kv, True, granite_heads),
+        # mistral-7b's many-shot source prefill (32/8 heads of 128), bf16
+        # only: the kernel row of a model the main paths do not run yet
+        ("mistral_source_prefill", 1, 2 * T, 2 * T, arange(0, 2 * T)[None],
+         arange(0, 2 * T)[None], True, mistral_heads),
+        # probes beyond the main paths' shapes (bf16 only), which set
+        # fa.variant_for's rule: where the mma.sync variant's KV split
+        # pays against the wgmma variant's unsplit walk
+        *((f"probe_{tag}decode_{B_}x{L}", B_, 1, L, arange(L - 1, 1)[None]
+           .expand(B_, 1), arange(0, L)[None].expand(B_, L).contiguous(),
+           True, heads)
+          for tag, heads, shapes in (
+              ("", gemma_heads, ((slots, 2048), (slots, 8192), (32, max_len),
+                                 (72, max_len))),
+              ("granite_", granite_heads, ((slots, 2048), (slots, 8192),
+                                           (36, max_len))),
+              ("mistral_", mistral_heads, ((slots, max_len),)))
+          for B_, L in shapes),
+        # a prompt of 64 / 66 (query, head) rows against a long prefix
+        *((f"probe_{tag}prefix_2048", 1, n, 2048, arange(2048, n)[None],
+           arange(0, 2048)[None], False, heads)
+          for tag, n, heads in (("", 32, gemma_heads),
+                                ("granite_", 22, granite_heads))),
+        # causal self-attention short enough to split
+        *((f"probe_{tag}self_{L}", 1, L, L, arange(0, L)[None],
+           arange(0, L)[None], True, heads)
+          for tag, L, heads in (("", 2048, gemma_heads),
+                                ("mistral_", m, mistral_heads))),
     ]
     flash_rows = []
     for name, B, Sq, Skv, q_pos, kv_pos, causal, heads in attn_cases:
         Hq, Hkv, D, cap = heads
+        nsplit = fa._splits(B, Sq, Skv, Hq, Hkv, torch.cuda.current_device())
+        dispatched = fa.variant_for(torch.bfloat16, D, Skv, nsplit)
         row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
-               "causal": causal, "softcap": cap}
-        for dtype in (torch.float32, torch.bfloat16):
+               "causal": causal, "softcap": cap, "variant": dispatched,
+               "nsplit": nsplit}
+        dtypes = ((torch.bfloat16,) if name.startswith(("mistral", "probe_"))
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             q = rand(B, Sq, Hq, D, dtype=dtype)
             k = rand(B, Skv, Hkv, D, dtype=dtype)
             v = rand(B, Skv, Hkv, D, dtype=dtype)
             kw = dict(q_pos=q_pos.contiguous(), kv_pos=kv_pos, causal=causal,
                       softcap=cap, return_lse=True)
-            out, lse = fa.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
             ref, ref_lse = plain.attention_ref(q, k, v, **kw)
             live = ref_lse > plain.NEG_INF / 2
-            e_lse = err(lse[live], ref_lse[live]) if bool(live.any()) else 0.0
             lse_tol = 1e-4 * max(1.0, float(ref_lse[live].abs().max())) \
                 if bool(live.any()) else 0.0
             dead = ~live  # rows that see no key: out 0, lse -1e30
-            dead_ok = bool((lse[dead] == plain.NEG_INF).all()) and (
-                not bool(dead.any()) or float(out[dead].abs().max()) == 0.0)
-            e, se = check("flash_attention", name, dn, out, ref,
-                          e_lse <= lse_tol and dead_ok,
-                          f", lse err {e_lse:.3e}, masked rows "
-                          f"{int((~live).sum())} exact={dead_ok}")
-            row[f"max_abs_err_{dn}"] = e
-            row[f"scaled_err_{dn}"] = se
-            row[f"lse_err_{dn}"] = e_lse
+            # every bf16 shape goes through both bf16 kernels (the wgmma
+            # one takes all of them when forced), each held to the plain
+            # version; float32 through its one kernel
+            variants = ((None,) if dtype is torch.float32
+                        else ("wgmma", "mma_sync"))
+            for var in variants:
+                out, lse = fa.flash_attention(q, k, v, variant=var, **kw)
+                torch.cuda.synchronize()
+                e_lse = err(lse[live], ref_lse[live]) \
+                    if bool(live.any()) else 0.0
+                dead_ok = bool((lse[dead] == plain.NEG_INF).all()) and (
+                    not bool(dead.any())
+                    or float(out[dead].abs().max()) == 0.0)
+                tag = "" if var is None else f"_{var}"
+                e, se = check("flash_attention", name + tag, dn, out, ref,
+                              e_lse <= lse_tol and dead_ok,
+                              f", lse err {e_lse:.3e}, masked rows "
+                              f"{int((~live).sum())} exact={dead_ok}")
+                row[f"max_abs_err_{dn}{tag}"] = e
+                row[f"scaled_err_{dn}{tag}"] = se
+                row[f"lse_err_{dn}{tag}"] = e_lse
+                del out, lse
+            if dtype is torch.bfloat16:
+                # the kernels' entries read the worse of the two variants
+                for key in ("max_abs_err", "scaled_err", "lse_err"):
+                    row[f"{key}_{dn}"] = max(row[f"{key}_{dn}_wgmma"],
+                                             row[f"{key}_{dn}_mma_sync"])
             if dtype is torch.bfloat16 and name != "masked_rows":
                 row["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
+                for var in ("wgmma", "mma_sync"):
+                    row[f"ms_{var}"] = cuda_ms(lambda: fa.flash_attention(
+                        q, k, v, variant=var, **kw))
+                    # the kernels' own time (a split call: both kernels)
+                    row[f"device_ms_{var}"] = device_ms(
+                        lambda: fa.flash_attention(q, k, v, variant=var, **kw))
                 row["plain_ms"] = cuda_ms(
                     lambda: plain.attention_ref(q, k, v, **kw), reps=3)
                 mask = kv_pos[:, None, :] >= 0
@@ -329,10 +419,17 @@ def main() -> int:
                     + 4 * (q_pos.numel() + kv_pos.numel() + B * Sq * Hq)
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
-                log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
-                    f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} "
-                    f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-            del q, k, v, out, lse, ref, ref_lse
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms "
+                    f"({dispatched}, {nsplit} split; wgmma "
+                    f"{row['ms_wgmma']:.4f}, mma.sync "
+                    f"{row['ms_mma_sync']:.4f}; device wgmma "
+                    f"{row['device_ms_wgmma']:.4f}, mma.sync "
+                    f"{row['device_ms_mma_sync']:.4f}), plain "
+                    f"{row['plain_ms']:.4f} ms, sdpa "
+                    f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                    f" ms ({row['bound_by']})")
+            del q, k, v, ref, ref_lse
+        torch.cuda.empty_cache()
         flash_rows.append(row)
 
     mx_rows = []
@@ -572,9 +669,37 @@ def main() -> int:
     def set_counts():
         for mod in counters.values():
             mod.launches = 0
+        fa.wgmma_launches = 0
 
     def counts():
-        return {key: mod.launches for key, mod in counters.items()}
+        c = {key: mod.launches for key, mod in counters.items()}
+        c["flash_attention_wgmma"] = fa.wgmma_launches
+        return c
+
+    class SourcePrefills:
+        """Counts the flash calls of a run over the T-token source prompt
+        (the Source-LLM's prefill) and how many of them the wgmma variant
+        took: every one must."""
+
+        def __init__(self):
+            self.calls = self.wgmma = 0
+
+        def __enter__(self):
+            self.inner = fa.flash_attention
+
+            def spy(q, k, v, **kw):
+                before = fa.wgmma_launches
+                out = self.inner(q, k, v, **kw)
+                if q.shape[1] == T:
+                    self.calls += 1
+                    self.wgmma += fa.wgmma_launches - before
+                return out
+
+            fa.flash_attention = spy
+            return self
+
+        def __exit__(self, *exc):
+            fa.flash_attention = self.inner
 
     def serve_numbers(eng, reqs, out, wall, before):
         """Serve seconds, decode rate over the decode steps (each ends in
@@ -663,17 +788,25 @@ def main() -> int:
         set_counts()
         t0 = time.perf_counter()
         prefixes, task_s = [], []
-        for t, src in enumerate(sources):
-            t1 = time.perf_counter()
-            prefix, _ = memcom.compress(compressor, cfg,
-                                        torch.as_tensor(src[None], device=dev))
-            kv = materialize_prefix(target, cfg, prefix)
-            engine.add_prefix(f"task{t}", kv)
-            prefixes.append((prefix, kv))
-            torch.cuda.synchronize()
-            task_s.append(time.perf_counter() - t1)
+        source_prefills = SourcePrefills()
+        with source_prefills:
+            for t, src in enumerate(sources):
+                t1 = time.perf_counter()
+                prefix, _ = memcom.compress(
+                    compressor, cfg, torch.as_tensor(src[None], device=dev))
+                kv = materialize_prefix(target, cfg, prefix)
+                engine.add_prefix(f"task{t}", kv)
+                prefixes.append((prefix, kv))
+                torch.cuda.synchronize()
+                task_s.append(time.perf_counter() - t1)
         compress_s = time.perf_counter() - t0
         after_compress = counts()
+        log(f"{tag} source prefills: {source_prefills.calls} flash calls over "
+            f"{T} tokens, {source_prefills.wgmma} through the wgmma variant")
+        if not 0 < source_prefills.calls == source_prefills.wgmma:
+            raise AssertionError(f"{arch}: {source_prefills.calls} source "
+                                 f"prefills, {source_prefills.wgmma} through "
+                                 "the wgmma variant")
         reqs = [Request(tokens=p_, max_new=max_new, prefix=f"task{i % 2}")
                 for i, p_ in enumerate(prompts)]
         before = dict(engine.counters)
@@ -1196,7 +1329,7 @@ def main() -> int:
     # ---- result lines ----------------------------------------------------
     entries = []
     for key, rows, main in (
-            ("flash_attention:flash_attention", flash_rows, None),
+            ("flash_attention:flash_attention", flash_rows, "source_prefill"),
             ("memcom_xattn:memcom_xattn", mx_rows, None),
             ("paged_attention:paged_flash_decode", paged_rows, "decode"),
             ("moe_gmm:gmm", gmm_rows, None),
@@ -1211,13 +1344,18 @@ def main() -> int:
             "source": registry.KERNELS[key]["source"],
             "replaces": registry.KERNELS[key]["replaces"],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(max(r["max_abs_err_float32"],
-                                   r["max_abs_err_bfloat16"]) for r in rows),
+            "max_abs_err": max(r.get(f"max_abs_err_{dn}", 0.0) for r in rows
+                               for dn in ("float32", "bfloat16")),
             "scaled_err": max(r["scaled_err_bfloat16"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
+        if name == "flash_attention":  # the wgmma variant and the mma.sync one
+            entries[-1].update(
+                wgmma_launches=sum(c["flash_attention_wgmma"]
+                                   for c in paths.values()),
+                ms_wgmma=head["ms_wgmma"], ms_mma_sync=head["ms_mma_sync"])
     report["kernels"] = entries
     if args.json_out:
         out = Path(args.json_out)

@@ -12,14 +12,23 @@
 //
 // What bounds it on an H100: at prefill shapes (Sq = Skv = 3072, D = 256)
 // the two products do ~4*Sq*Skv/2*D*Hq flops against a few tens of MB, so
-// it is bound by operations (the tensor cores); at decode (Sq = 1) it
-// streams the KV cache once and is bound by bytes.  Two kernels share the
-// tiling below: bf16 runs the products on the tensor cores (flash_fwd_tc,
-// mma.sync, f32 accumulate) at head_dim 64/128/256, the widths of the
-// ported configs (other bf16 widths are refused); float32 runs them on the
-// CUDA cores (flash_fwd), whose ceiling is the 67 TFLOP/s f32 rate but
-// which matches the float32 reference to 1e-4.  wgmma/TMA and load
-// pipelining come later.
+// it is bound by operations (the tensor cores): 0.0391 ms at gemma2-2b's
+// source prefill, 0.0293 ms at granite's, 0.313 ms at mistral-7b's
+// 6144-token prompt; at decode (Sq = 1) it streams the KV cache once and
+// is bound by bytes.  Three kernels:
+// * flash_fwd_wgmma (bf16, D = 64/128/256, unsplit): wgmma on both
+//   products, K/V through a cp.async ring of 64-row tiles, tiles classified
+//   once (skipped / mask-free / masked), softmax in base 2 with
+//   tanh.approx under a cap, heaviest causal blocks first (its own note
+//   below).  The wrapper (kernels/flash_attention.py::variant_for) sends
+//   it every bf16 call that flash_fwd_tc would split at most 4 ways:
+//   prefills, the Memory-LLM, prompts, decode over many slots.
+// * flash_fwd_tc (bf16 calls split more ways: decode over few slots, a
+//   short prompt against a long prefix): mma.sync m16n8k16 with f32
+//   accumulate over 32-row tiles, synchronous loads, split KV.
+// * flash_fwd (float32): the CUDA cores, whose ceiling is the 67 TFLOP/s
+//   f32 rate but which matches the float32 reference to 1e-4 (full
+//   tanhf and expf).
 //
 // Design:
 // * The TPU grid walks KV blocks sequentially per (head, q-block).  Here
@@ -51,10 +60,12 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 #include "mma_sm80.cuh"
 #include "split_kv.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -266,6 +277,60 @@ int splits_for(int B, int Sq, int Skv, int Hq, int Hkv, int sms) {
 }
 
 
+// ---- tile classification, shared by flash_fwd_tc and flash_fwd_wgmma ----
+//
+// A KV tile is judged once against the block's query rows from four
+// numbers: the smallest and largest valid kv position in the tile (kv_pos
+// >= 0; rows past the end count as holes), its count of holes, and the
+// smallest and largest q position of the block's rows (rows past the end
+// of the problem are left out).  The tile is
+//   skipped    when it has no valid key, or, causal, its smallest valid
+//              key lies after the block's last query: no pair is visible;
+//   mask-free  when it has no hole and, causal, its largest key lies at or
+//              before the block's first query: every pair is visible;
+//   masked     otherwise (each pair is tested).
+// kernels/flash_attention.py::tile_class states the same rule for the
+// CPU tests.  The numbers come from warp reductions, not a serial scan.
+enum TileClass { kSkip = 0, kMasked = 1, kFree = 2 };
+struct Span { int lo, hi, holes; };
+struct QRange { int lo, hi; };
+
+__device__ __forceinline__ Span span_of(int p) {
+  return p >= 0 ? Span{p, p, 0} : Span{INT_MAX, INT_MIN, 1};
+}
+__device__ __forceinline__ Span merge(Span a, Span b) {
+  return Span{min(a.lo, b.lo), max(a.hi, b.hi), a.holes + b.holes};
+}
+__device__ __forceinline__ Span warp_span(Span s) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    s.lo = min(s.lo, __shfl_xor_sync(FULL, s.lo, off));
+    s.hi = max(s.hi, __shfl_xor_sync(FULL, s.hi, off));
+    s.holes += __shfl_xor_sync(FULL, s.holes, off);
+  }
+  return s;
+}
+__device__ __forceinline__ QRange qrange_of(int p, bool valid) {
+  return valid ? QRange{p, p} : QRange{INT_MAX, INT_MIN};
+}
+__device__ __forceinline__ QRange merge(QRange a, QRange b) {
+  return QRange{min(a.lo, b.lo), max(a.hi, b.hi)};
+}
+__device__ __forceinline__ QRange warp_qrange(QRange r) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    r.lo = min(r.lo, __shfl_xor_sync(FULL, r.lo, off));
+    r.hi = max(r.hi, __shfl_xor_sync(FULL, r.hi, off));
+  }
+  return r;
+}
+__device__ __forceinline__ int tile_class(Span s, QRange q, int causal) {
+  if (s.lo == INT_MAX || (causal && s.lo > q.hi)) return kSkip;
+  if (s.holes == 0 && (!causal || s.hi <= q.lo)) return kFree;
+  return kMasked;
+}
+
+
 // ---- bfloat16 on the tensor cores ---------------------------------------
 //
 // The same contract and tiling as flash_fwd (64 rows x one KV head per
@@ -286,6 +351,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              int Sq, int Skv, int Hq, int Hkv, float scale, float softcap,
              int causal, int nsplit, int kv_chunk) {
   using mma_sm80::bf16;
+  static_assert(BK == 32, "the tile verdict reads one kv position a lane");
   constexpr int SP = HD + 8;   // padded shared row, bf16 elements
   constexpr int V8 = HD / 8;   // 16-byte vectors per row
   constexpr int NO = HD / 8;   // n8 tiles of a row of O
@@ -323,8 +389,9 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     qps[tid] = rho < rows ? q_pos[static_cast<size_t>(b) * Sq + rho / G] : INT_MIN;
   }
   __syncthreads();
-  int q_hi = INT_MIN;
-  for (int i = 0; i < BQ; ++i) q_hi = max(q_hi, qps[i]);
+  const QRange qr = warp_qrange(merge(qrange_of(qps[lane], row0 + lane < rows),
+                                      qrange_of(qps[lane + 32],
+                                                row0 + lane + 32 < rows)));
   const int r_lo = warp * 16 + lane / 4;  // this lane's rows: r_lo, r_lo + 8
   const int qp[2] = {qps[r_lo], qps[r_lo + 8]};
 
@@ -342,12 +409,9 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       kvp[tid] = j < kv_end ? kv_pos[static_cast<size_t>(b) * Skv + j] : -1;
     }
     __syncthreads();
-    int kv_lo = INT_MAX;
-    for (int c = 0; c < BK; ++c) {
-      const int p = kvp[c];
-      if (p >= 0 && p < kv_lo) kv_lo = p;
-    }
-    if (kv_lo == INT_MAX || (causal && kv_lo > q_hi)) continue;
+    // BK == 32: one kv position a lane, the same verdict in every warp
+    if (tile_class(warp_span(span_of(kvp[lane])), qr, causal) == kSkip)
+      continue;
 
     for (int e = tid; e < BK * V8; e += 128) {
       const int c = e / V8, d = (e % V8) * 8;
@@ -507,6 +571,377 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
   return cudaGetLastError();
 }
 
+// ---- bfloat16 on wgmma --------------------------------------------------
+//
+// flash_fwd_wgmma<HD>: NWG consumer warpgroups (128 threads each)
+// own 64 (query, head-in-group) rows of one KV head apiece, so a block
+// holds 64 * NWG rows and every K/V tile it loads serves all of them; the
+// block walks 64-row KV tiles:
+// * S = Q K^T is wgmma m64n64k16 with Q and K in shared memory (both
+//   K-major: rows of D), HD/16 k-steps; O += P V takes P from the S
+//   accumulators in registers (bf16) and V rows as the MN-major B
+//   operand (transpose bit), HD/64 n64 products per k-step.  f32
+//   accumulators: O is HD/2 registers a thread.
+// * K, V and the tile's kv positions arrive through a ring of STAGES
+//   shared-memory stages filled by cp.async (128B-swizzled, zero-filled
+//   past Skv), one barrier a tile: the load of tile i + STAGES - 1 is in
+//   flight while tile i is computed.  Q is loaded once, by hand (64 rows
+//   are 64/G positions x G heads, which no rectangular box covers at
+//   G = 3).
+// * Every tile is classified once before the loop (tile_class, all warps
+//   in parallel) against the block's rows; skipped tiles are neither
+//   loaded nor computed, mask-free tiles read no positions.
+// * Softmax in base 2: log2(e) is folded into the scale, or, with a cap,
+//   into cap * tanh.approx(x / cap); lse is written in natural log.
+// * Row blocks run heaviest first: blockIdx.x is the KV head and the row
+//   block is reversed on blockIdx.y, so the causal blocks that see every
+//   KV tile start in the first wave.
+// Each warpgroup runs its tile serially (S, wait, softmax, P V, wait), so
+// an SM needs several in flight: at HD 256 shared memory holds one block
+// an SM, and NWG = 2 doubles the warps there; at HD 64 three one-group
+// blocks fit an SM and do better than one two-group block.  NWG is fixed
+// by HD (1 at HD 64, 2 at 128 and 256), from both counts timed on an
+// H100 (PERF.md section 6).
+constexpr int WBK = 64;      // kv rows of a tile, rows of a warpgroup
+constexpr int WMAXT = 1024;  // kv tiles a call may have: Skv <= 65536
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int HD>
+struct WCfg {
+  static constexpr int NWG = HD == 64 ? 1 : 2;   // consumer warpgroups
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr int NT = 128 * NWG;           // threads
+  static constexpr int BM = 64 * NWG;            // rows of a block
+  static constexpr int CH = HD / 64;             // 64-column chunks
+  static constexpr int QW_BYTES = 64 * HD * 2;   // Q of one warpgroup
+  static constexpr int KV_BYTES = WBK * HD * 2;  // K or V of one tile
+  static constexpr int STAGE = 2 * KV_BYTES + 1024;  // + kv positions
+  static constexpr size_t SMEM =
+      1024 + NWG * QW_BYTES + STAGES * STAGE + WMAXT;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(WCfg<HD>::NT, 1)
+flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int Sq, int Skv, int Hq, int Hkv, float scale_log2,
+                float cap_log2, float inv_cap, int capped, int causal) {
+  namespace wg = wgmma_sm90;
+  using C = WCfg<HD>;
+  constexpr int NWG = C::NWG, STAGES = C::STAGES, NT = C::NT, BM = C::BM;
+  constexpr int P8 = HD / 8;  // 16-byte pieces of a row
+  extern __shared__ unsigned char smem_wg[];
+  const uint32_t raw = wg::smem_addr(smem_wg);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* sm = smem_wg + (base - raw);
+  const uint32_t sRing = base + NWG * C::QW_BYTES;
+  unsigned char* cls = sm + NWG * C::QW_BYTES + STAGES * C::STAGE;
+
+  const int G = Hq / Hkv;
+  const int rows = Sq * G;
+  const int hk = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = tid / 128;                   // this thread's warpgroup
+  const uint32_t sQ = base + grp * C::QW_BYTES;  // ... and its 64 Q rows
+  const int nt = (Skv + WBK - 1) / WBK;
+  const int* kvb = kv_pos + static_cast<size_t>(b) * Skv;
+  const int* qpb = q_pos + static_cast<size_t>(b) * Sq;
+
+  auto qpos_of = [&](int r) {  // rows past the end sit below every key
+    const int rho = row0 + r;
+    return rho < rows ? qpb[rho / G] : INT_MIN;
+  };
+  QRange qr{INT_MAX, INT_MIN};
+#pragma unroll
+  for (int r = lane; r < BM; r += 32)
+    qr = merge(qr, qrange_of(qpos_of(r), row0 + r < rows));
+  qr = warp_qrange(qr);
+  const int r_lo = warp * 16 + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+  const int qrow[2] = {qpos_of(r_lo), qpos_of(r_lo + 8)};
+
+  // classify every tile: warp w takes tiles w, w + NT/32, ..., four loads
+  // in flight at a time
+  for (int t0 = warp; t0 < nt; t0 += NT / 8) {
+    int p[4][2];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = (t0 + u * NT / 32) * WBK + lane + 32 * h;
+        p[u][h] = j < Skv ? kvb[j] : -1;
+      }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = t0 + u * NT / 32;
+      const Span s = warp_span(merge(span_of(p[u][0]), span_of(p[u][1])));
+      if (lane == 0 && t < nt)
+        cls[t] = static_cast<unsigned char>(tile_class(s, qr, causal));
+    }
+  }
+
+  // Q, once (it joins the first tile's cp.async group): warpgroup i's 64
+  // rows in chunks of 64 rows x 64 columns
+#pragma unroll
+  for (int i = 0; i < BM * P8 / NT; ++i) {
+    const int e = tid + NT * i;
+    const int r = e / P8, pc = e % P8;
+    const int rho = row0 + r;
+    const bool ok = rho < rows;
+    const __nv_bfloat16* src =
+        ok ? q + ((static_cast<size_t>(b) * Sq + rho / G) * Hq + hk * G +
+                  rho % G) * HD + pc * 8
+           : q;
+    wg::cp_async16(base + (r / 64) * C::QW_BYTES + (pc / 8) * 8192 +
+                       wg::sw128(r % 64, pc % 8),
+                   src, ok);
+  }
+  __syncthreads();  // cls
+
+  auto next_tile = [&](int t) {
+    while (t < nt && cls[t] == kSkip) ++t;
+    return t;
+  };
+  auto issue = [&](int stage, int t) {
+    const uint32_t sK = sRing + stage * C::STAGE;
+    const uint32_t sV = sK + C::KV_BYTES;
+    const int kv0 = t * WBK;
+#pragma unroll
+    for (int i = 0; i < WBK * P8 / NT; ++i) {
+      const int e = tid + NT * i;
+      const int r = e / P8, pc = e % P8;
+      const int j = kv0 + r;
+      const bool ok = j < Skv;
+      const size_t off =
+          ok ? ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * HD + pc * 8 : 0;
+      const uint32_t o = (pc / 8) * (WBK * 128) + wg::sw128(r, pc % 8);
+      wg::cp_async16(sK + o, k + off, ok);
+      wg::cp_async16(sV + o, v + off, ok);
+    }
+    if (tid < WBK) {
+      const uint32_t dst = sV + C::KV_BYTES + 4 * tid;
+      if (kv0 + tid < Skv) wg::cp_async4(dst, kvb + kv0 + tid);
+      else *reinterpret_cast<int*>(sm + (dst - base)) = -1;
+    }
+  };
+
+  int nxt = next_tile(0);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (nxt < nt) {
+      issue(s, nxt);
+      nxt = next_tile(nxt + 1);
+    }
+    wg::cp_async_commit();
+  }
+
+  float o[C::CH][32];
+#pragma unroll
+  for (int c = 0; c < C::CH; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[c][j] = 0.f;
+  float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
+
+  int i = 0;
+  for (int cur = next_tile(0); cur < nt; cur = next_tile(cur + 1), ++i) {
+    wg::cp_async_wait<STAGES - 2>();  // tile cur has landed (this thread's part)
+    wg::fence_proxy_async();
+    // ... and every thread's; every warp is also done with tile i - 1,
+    // whose stage the next load overwrites
+    __syncthreads();
+    if (nxt < nt) {
+      issue((i + STAGES - 1) % STAGES, nxt);
+      nxt = next_tile(nxt + 1);
+    }
+    wg::cp_async_commit();
+    const uint32_t sK = sRing + (i % STAGES) * C::STAGE;
+    const uint32_t sV = sK + C::KV_BYTES;
+    const int* kvs = reinterpret_cast<const int*>(sm + (sV - base) + C::KV_BYTES);
+
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks)
+      wg::mma_ss<0>(s,
+                    wg::desc(sQ + (ks / 4) * 8192 + (ks % 4) * 32, 16, 1024),
+                    wg::desc(sK + (ks / 4) * (WBK * 128) + (ks % 4) * 32, 16, 1024),
+                    ks > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::reg_fence(s);
+
+    // scale (and cap) in base 2, mask, online softmax on the accumulators
+    const bool masked = cls[cur] == kMasked;
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      float x = capped ? cap_log2 * wg::tanh_approx(s[j] * inv_cap)
+                       : s[j] * scale_log2;
+      if (masked) {
+        const int p = kvs[8 * (j / 4) + 2 * (lane % 4) + (j % 2)];
+        if (p < 0 || (causal && p > qrow[(j / 2) % 2])) x = -INFINITY;
+      }
+      s[j] = x;
+      mt[(j / 2) % 2] = fmaxf(mt[(j / 2) % 2], x);
+    }
+    float corr[2], ps[2] = {0.f, 0.f};
+    bool moved = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(FULL, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(FULL, mt[h], 2));
+      const float m_new = fmaxf(m_run[h], mt[h]);  // finite: m_run >= NEG
+      moved |= m_new != m_run[h];
+      corr[h] = wg::ex2(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float p = wg::ex2(s[j] - m_run[(j / 2) % 2]);  // masked: 0
+      s[j] = p;
+      ps[(j / 2) % 2] += p;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ps[h] += __shfl_xor_sync(FULL, ps[h], 1);
+      ps[h] += __shfl_xor_sync(FULL, ps[h], 2);
+      l_run[h] = l_run[h] * corr[h] + ps[h];
+    }
+    if (__any_sync(FULL, moved))  // no row max of the warp moved: corr = 1
+#pragma unroll
+      for (int c = 0; c < C::CH; ++c)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) o[c][j] *= corr[(j / 2) % 2];
+
+    uint32_t a[WBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < WBK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[kk][r] = wg::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < WBK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < C::CH; ++c)
+        wg::mma_rs<1>(o[c], a[kk],
+                      wg::desc(sV + c * (WBK * 128) + kk * 2048, WBK * 128, 1024),
+                      1);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int c = 0; c < C::CH; ++c) wg::reg_fence(o[c]);
+#pragma unroll
+    for (int kk = 0; kk < WBK / 16; ++kk) wg::reg_fence(a[kk]);
+  }
+  wg::cp_async_wait<0>();  // no copy outlives the block
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rho = row0 + r_lo + 8 * h;
+    if (rho >= rows) continue;
+    const size_t row =
+        (static_cast<size_t>(b) * Sq + rho / G) * Hq + hk * G + rho % G;
+    const bool any = l_run[h] > 0.f;
+    const float inv = any ? 1.f / l_run[h] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C::CH; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int d = c * 64 + n * 8 + (lane % 4) * 2;
+        *reinterpret_cast<uint32_t*>(out + row * HD + d) = wg::pack_bf16(
+            o[c][4 * n + 2 * h] * inv, o[c][4 * n + 2 * h + 1] * inv);
+      }
+    if (lane % 4 == 0)
+      lse[row] = any ? (m_run[h] + log2f(l_run[h])) * LN2 : NEG;
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, const int* q_pos,
+                 const int* kv_pos, void* out, float* lse, int B, int Sq,
+                 int Skv, int Hq, int Hkv, float scale, float softcap,
+                 int causal, cudaStream_t stream) {
+  using C = WCfg<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::SMEM));
+  if (err != cudaSuccess) return err;
+  const int blocks = (Sq * (Hq / Hkv) + C::BM - 1) / C::BM;
+  if (blocks > 65535) return cudaErrorInvalidValue;
+  const bool capped = softcap != 0.f;
+  dim3 grid(Hkv, blocks, B);
+  flash_fwd_wgmma<HD><<<grid, C::NT, C::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), q_pos, kv_pos,
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, Hq, Hkv,
+      scale * LOG2E, capped ? softcap * LOG2E : 0.f,
+      capped ? scale / softcap : 0.f, capped, causal);
+  return cudaGetLastError();
+}
+
+// One 64 x 64 x 64 product through the helpers of wgmma_sm90.cuh: a (M x K)
+// row-major; b (N x K) row-major, read K-major with A from shared memory,
+// or (mn_major) b (K x N) row-major, read MN-major with A from registers.
+__global__ void __launch_bounds__(128)
+wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
+                 const __nv_bfloat16* __restrict__ b, float* __restrict__ c,
+                 int mn_major) {
+  namespace wg = wgmma_sm90;
+  __shared__ unsigned char raw[2 * 8192 + 1024];
+  const uint32_t raw_addr = wg::smem_addr(raw);
+  const uint32_t sA = (raw_addr + 1023u) & ~1023u, sB = sA + 8192;
+  unsigned char* sm = raw + (sA - raw_addr);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  for (int e = tid; e < 64 * 8; e += 128) {
+    const int r = e / 8, pc = e % 8;
+    *reinterpret_cast<uint4*>(sm + wg::sw128(r, pc)) =
+        *reinterpret_cast<const uint4*>(a + r * 64 + pc * 8);
+    *reinterpret_cast<uint4*>(sm + 8192 + wg::sw128(r, pc)) =
+        *reinterpret_cast<const uint4*>(b + r * 64 + pc * 8);
+  }
+  wg::fence_proxy_async();
+  __syncthreads();
+  float d[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) d[j] = 0.f;
+  const int g = warp * 16 + lane / 4, t2 = (lane % 4) * 2;
+  wg::fence();
+  if (!mn_major) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg::mma_ss<0>(d, wg::desc(sA + ks * 32, 16, 1024),
+                    wg::desc(sB + ks * 32, 16, 1024), ks > 0);
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t f[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = g + 8 * (r % 2), col = ks * 16 + 8 * (r / 2) + t2;
+        f[r] = wg::pack_bf16(__bfloat162float(a[row * 64 + col]),
+                             __bfloat162float(a[row * 64 + col + 1]));
+      }
+      wg::mma_rs<1>(d, f, wg::desc(sB + ks * 2048, 8192, 1024), ks > 0);
+    }
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::reg_fence(d);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[(g + 8 * (e / 2)) * 64 + n * 8 + t2 + e % 2] = d[4 * n + e];
+}
+
 size_t smem_bytes(int D) {
   return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (D + 4) + BQ * PS)
        + sizeof(int) * (BK + BQ);
@@ -575,4 +1010,38 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return launch_tc<256>(q, k, v, q_pos, kv_pos, out, lse, ws, B, Sq, Skv,
                           Hq, Hkv, scale, softcap, causal, nsplit, st);
   return cudaErrorInvalidValue;
+}
+
+// The wgmma variant (flash_fwd_wgmma): bfloat16, D = 64, 128 or 256,
+// Skv <= 65536, no KV split.  Returns a cudaError_t (0 = launched).
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
+                                         const void* v, const int* q_pos,
+                                         const int* kv_pos, void* out,
+                                         float* lse, int B, int Sq, int Skv,
+                                         int Hq, int Hkv, int D, float scale,
+                                         float softcap, int causal,
+                                         void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Skv < 0 || Skv > WMAXT * WBK)
+    return cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_wgmma<64>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, Hq,
+                            Hkv, scale, softcap, causal, st);
+  if (D == 128)
+    return launch_wgmma<128>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, Hq,
+                             Hkv, scale, softcap, causal, st);
+  if (D == 256)
+    return launch_wgmma<256>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, Hq,
+                             Hkv, scale, softcap, causal, st);
+  return cudaErrorInvalidValue;
+}
+
+// c (64 x 64 f32) = a b through one wgmma tile product (wgmma_tile_check).
+extern "C" int flash_wgmma_tile_check(const void* a, const void* b, float* c,
+                                      int mn_major, void* stream) {
+  wgmma_tile_check<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      c, mn_major);
+  return cudaGetLastError();
 }

@@ -1,0 +1,152 @@
+// Warpgroup tensor-core helpers for Hopper (sm_90a), shared by the kernels
+// under csrc/: shared-memory matrix descriptors for the 128-byte swizzle,
+// the bf16 wgmma.mma_async m64n64k16 with f32 accumulate (A from shared
+// memory or from registers), the fences and group waits around it, and
+// cp.async into the swizzled layout.
+//
+// Shared-memory layout (the one the descriptors below describe): a tile is
+// cut into 64-column chunks of bf16 (128 bytes a row); a chunk of R rows
+// holds row r at byte r*128, and its 16-byte piece j (columns 8j..8j+7) at
+// piece position j ^ (r % 8).  Chunks start 1024-byte aligned.  Read with
+// rows as M/N and columns as K this is the K-major operand; read with
+// rows as K and columns as N it is the MN-major operand (transpose bit
+// set), so a V tile stored row by row feeds O += P V unchanged.
+//
+// Accumulator fragment of m64nN (f32, thread t of the warpgroup, w = t/32,
+// g = (t%32)/4, q = t%4): d[4n+0..1] = (row 16w+g, cols 8n+2q, 8n+2q+1),
+// d[4n+2..3] = (row 16w+g+8, same cols).  The A fragment of the register
+// form (bf16, m64k16) is a0 = (16w+g, 2q..2q+1), a1 = (16w+g+8, 2q..),
+// a2 = (16w+g, 8+2q..), a3 = (16w+g+8, 8+2q..): the accumulator of a
+// product turns into the A operand of the next without moving between
+// threads (pack d[8k..8k+7] pairwise for k-step k).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cstdint>
+
+#include "mma_sm80.cuh"  // smem_addr, pack_bf16
+
+namespace wgmma_sm90 {
+
+using mma_sm80::pack_bf16;
+using mma_sm80::smem_addr;
+
+// Byte offset of 16-byte piece `piece` (0..7) of row `row` in a chunk.
+__device__ __forceinline__ uint32_t sw128(int row, int piece) {
+  return static_cast<uint32_t>(row * 128 + ((piece ^ (row & 7)) << 4));
+}
+
+// Descriptor of a 128B-swizzled operand at shared address `addr`:
+// lbo / sbo in bytes (the stride between 64-column chunks along MN for an
+// MN-major operand wider than 64; the stride between 8-row groups).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+       | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+       | static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// to wgmma's reads (the async proxy); call before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pins registers that an issued wgmma reads or writes: reads of an
+// accumulator stay after the wait, and an A operand's registers are not
+// reused before it.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+#define WGMMA_D32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WGMMA_OUT32(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+  "+f"(d[31])
+
+// d (+)= A B for a 64 x 64 x 16 tile, A and B in shared memory (A
+// K-major; B K-major, or MN-major with TB = 1).  accumulate = 0 ignores d.
+template <int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// The same with A (64 x 16 bf16) from registers, in the fragment above.
+template <int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TB));
+}
+
+#undef WGMMA_D32
+#undef WGMMA_OUT32
+
+// 16 bytes global -> shared, asynchronously; valid = false writes zeros
+// (src is not read, but must be a mapped address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace wgmma_sm90

@@ -3,10 +3,15 @@
 ``csrc/flash_attention.cu`` replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` and is held to
 ``plain.attention_ref``.  A CPU tensor goes to the plain version; a CUDA
-tensor launches the kernel (built on first use, see :mod:`.build`) or
-raises — there is no fallback.  ``launches`` counts wrapper calls that
-launched the kernel (a call that splits the KV axis also launches the
-merge of the partials).
+tensor launches a kernel (built on first use, see :mod:`.build`) or
+raises — there is no fallback.  The source holds three variants, and
+:func:`variant_for` picks one from the call's shape: ``"wgmma"``
+(``flash_fwd_wgmma``, bf16 on Hopper's wgmma), ``"mma_sync"``
+(``flash_fwd_tc``, bf16 calls that split the KV axis many ways) and
+``"float32"`` (``flash_fwd``).  ``launches`` counts wrapper calls that
+launched a kernel (a call that splits the KV axis also launches the
+merge of the partials); ``wgmma_launches`` counts those that went to the
+wgmma variant.
 """
 
 from __future__ import annotations
@@ -19,8 +24,58 @@ import torch
 from repro_torch.kernels import build, plain
 
 launches = 0
+wgmma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_MAX_SKV = 1024 * 64    # the kernel's table: 1024 tiles of 64 kv rows
+# Most KV splits for which the wgmma variant still takes a call.  The
+# split count says how far the (query, head) rows alone fall short of
+# filling the card; where the mma.sync variant would cut the KV walk into
+# more pieces, its split beats the wgmma variant's serial walk.  Set from
+# the kernels' device times that chip_smoke.py measures for both variants
+# on an H100 (PERF.md section 6): at every measured call of 1-4 splits the
+# wgmma variant is faster or within 0.5 us; at every call of 8 or more it
+# is slower or within 2 us.
+WGMMA_MAX_SPLITS = 4
+
+
+def wgmma_takes(dtype, head_dim, skv) -> bool:
+    """Whether ``flash_fwd_wgmma`` computes a call of this kind at all."""
+    return (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
+            and skv <= WGMMA_MAX_SKV)
+
+
+def variant_for(dtype, head_dim, skv, nsplit) -> str:
+    """The kernel a CUDA call goes to: ``nsplit`` is the KV split count
+    the mma.sync variant would take (``flash_attention_splits`` in the
+    source).  bf16 calls the wgmma variant takes go to it unless they
+    split into more than ``WGMMA_MAX_SPLITS`` (decode and a short prompt
+    against a long prefix: few rows over a long walk), which stay on
+    mma.sync; float32 runs on the CUDA cores."""
+    if dtype == torch.float32:
+        return "float32"
+    if wgmma_takes(dtype, head_dim, skv) and nsplit <= WGMMA_MAX_SPLITS:
+        return "wgmma"
+    return "mma_sync"
+
+
+def tile_class(kv_pos_tile, q_pos_rows, causal) -> str:
+    """The kernels' verdict on one KV tile against one block's rows
+    (``tile_class`` in ``csrc/flash_attention.cu``): ``kv_pos_tile`` the
+    tile's kv positions (negative: a hole, as are rows past the end),
+    ``q_pos_rows`` the q positions of the block's rows that exist.
+    ``"skipped"``: no pair is visible; ``"mask_free"``: every pair is;
+    ``"masked"``: each pair is tested."""
+    valid = [int(p) for p in kv_pos_tile if p >= 0]
+    holes = len(kv_pos_tile) - len(valid)
+    q_lo, q_hi = min(q_pos_rows), max(q_pos_rows)
+    if not valid or (causal and min(valid) > q_hi):
+        return "skipped"
+    if holes == 0 and (not causal or max(valid) <= q_lo):
+        return "mask_free"
+    return "masked"
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,7 +89,12 @@ def _kernel():
     splits = lib.flash_attention_splits
     splits.argtypes = [ctypes.c_int] * 6
     splits.restype = ctypes.c_int
-    return fn, splits
+    wg = lib.flash_attention_fwd_wgmma
+    wg.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    wg.restype = ctypes.c_int
+    return fn, splits, wg
 
 
 @functools.lru_cache(maxsize=256)
@@ -81,9 +141,14 @@ def _check(q, k, v, q_pos, kv_pos):
 
 
 def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
-                    scale=None, return_lse=False):
-    """(B,Sq,Hq,D) x (B,Skv,Hkv,D) -> (B,Sq,Hq,D) [, lse (B,Sq,Hq) f32]."""
-    global launches
+                    scale=None, return_lse=False, variant=None):
+    """(B,Sq,Hq,D) x (B,Skv,Hkv,D) -> (B,Sq,Hq,D) [, lse (B,Sq,Hq) f32].
+
+    ``variant`` (CUDA tensors only) forces ``"wgmma"`` or ``"mma_sync"``
+    instead of :func:`variant_for`'s choice, so that both bf16 kernels can
+    be held to the plain version at one shape; a variant that does not
+    take the call raises ``NotImplementedError``."""
+    global launches, wgmma_launches
     if not q.is_cuda:
         return plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                    causal=causal, softcap=softcap,
@@ -95,22 +160,69 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
         scale = D ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
-    fn = _kernel()[0]
+    fn, _, fn_wgmma = _kernel()
     nsplit = _splits(B, Sq, Skv, Hq, Hkv, q.device.index
                      if q.device.index is not None
                      else torch.cuda.current_device())
-    # split partials: nsplit x (B*Sq*Hq) rows of D outputs + 1 lse each
-    ws = (torch.empty(nsplit * B * Sq * Hq * (D + 1), dtype=torch.float32,
-                      device=q.device) if nsplit > 1 else None)
+    chosen = variant_for(q.dtype, D, Skv, nsplit)
+    if variant is not None:
+        if variant not in ("wgmma", "mma_sync"):
+            raise ValueError(f"unknown variant {variant!r}")
+        if variant == "wgmma" and not wgmma_takes(q.dtype, D, Skv):
+            raise NotImplementedError(
+                f"the wgmma variant takes bf16 at head dims "
+                f"{WGMMA_HEAD_DIMS} and Skv <= {WGMMA_MAX_SKV}, got "
+                f"{q.dtype}, D={D}, Skv={Skv}")
+        if variant == "mma_sync" and q.dtype != torch.bfloat16:
+            raise NotImplementedError("the mma.sync variant takes bf16")
+        chosen = variant
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-                 kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                 ws.data_ptr() if ws is not None else None, B, Sq, Skv, Hq,
-                 Hkv, D, float(scale), float(softcap or 0.0),
-                 int(bool(causal)), nsplit, _DTYPES[q.dtype], stream)
+        if chosen == "wgmma":
+            err = fn_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           q_pos.data_ptr(), kv_pos.data_ptr(),
+                           out.data_ptr(), lse.data_ptr(), B, Sq, Skv, Hq,
+                           Hkv, D, float(scale), float(softcap or 0.0),
+                           int(bool(causal)), stream)
+        else:
+            # split partials: nsplit x (B*Sq*Hq) rows of D outputs + 1 lse
+            ws = (torch.empty(nsplit * B * Sq * Hq * (D + 1),
+                              dtype=torch.float32, device=q.device)
+                  if nsplit > 1 else None)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), ws.data_ptr() if ws is not None else None,
+                     B, Sq, Skv, Hq, Hkv, D, float(scale),
+                     float(softcap or 0.0), int(bool(causal)), nsplit,
+                     _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"({chosen}): cudaError {err}")
     launches += 1
+    if chosen == "wgmma":
+        wgmma_launches += 1
     return (out, lse) if return_lse else out
+
+
+def wgmma_tile_check(a, b, *, b_mn_major):
+    """One 64 x 64 x 64 bf16 product through ``csrc/wgmma_sm90.cuh``'s
+    helpers on the card, f32 result: ``a`` (M, K); ``b`` (N, K) read
+    K-major with A from shared memory, or (``b_mn_major``) ``b`` (K, N)
+    read MN-major with A from registers.  A check of the helpers, held to
+    ``torch.matmul`` by the ``cuda`` tests."""
+    if not (a.is_cuda and b.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and a.shape == b.shape == (64, 64) and a.is_contiguous()
+            and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous (64, 64) bf16 on the "
+                         "card")
+    lib = build.load("flash_attention")
+    fn = lib.flash_wgmma_tile_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    c = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), int(b_mn_major),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma tile check launch failed: cudaError {err}")
+    return c

@@ -135,6 +135,128 @@ def test_flash_attention_fully_masked_rows(cuda, rng, dtype):
     assert bool((lse[0, :2] == plain.NEG_INF).all())
 
 
+@pytest.mark.parametrize("mn_major", [False, True])
+def test_wgmma_tile_product_matches_matmul(cuda, rng, mn_major):
+    """One 64 x 64 x 64 product through csrc/wgmma_sm90.cuh: B K-major
+    (A from shared memory) and B MN-major (A from registers), the two
+    forms flash_fwd_wgmma uses.  f32 sums of 64 bf16 products: 1e-4."""
+    a = _rand(rng, 64, 64, dtype="bfloat16")
+    b = _rand(rng, 64, 64, dtype="bfloat16")
+    c = fa.wgmma_tile_check(a, b, b_mn_major=mn_major)
+    torch.cuda.synchronize()
+    ref = a.float() @ (b.float() if mn_major else b.float().T)
+    assert _err(c, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def _wgmma_positions(kind, B, Sq, Skv, device):
+    q_pos = torch.arange(Sq, dtype=torch.int32, device=device).expand(B, Sq)
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=device).expand(B, Skv)
+    if kind == "offset":  # a prompt behind Skv - Sq earlier positions
+        q_pos = q_pos + (Skv - Sq)
+    elif kind == "holes":  # -1 inside tiles: the masked class
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        drop = (torch.rand(B, Skv, generator=gen) < 0.15).to(device)
+        kv_pos = torch.where(drop, -1, kv_pos)
+        q_pos = q_pos + (Skv - Sq)
+    return q_pos.contiguous(), kv_pos.contiguous()
+
+
+WGMMA_CASES = [c + ("arange",) for c in ATTN_CASES
+               if fa.wgmma_takes(torch.bfloat16, c[5], c[2])] + [
+    # (B, Sq, Skv, Hq, Hkv, D, causal, softcap, positions)
+    (1, 70, 70, 24, 8, 64, True, 0.0, "arange"),   # G = 3, Sq*G % 64 != 0
+    (1, 3072, 3072, 24, 8, 64, True, 0.0, "arange"),  # granite source prefill
+    (1, 100, 130, 8, 4, 256, True, 50.0, "arange"),  # Skv % 64 != 0
+    (2, 96, 200, 8, 4, 256, True, 50.0, "holes"),
+    (1, 90, 150, 24, 8, 64, False, 0.0, "holes"),
+    (1, 16, 528, 8, 4, 256, True, 50.0, "offset"),   # a prompt at offset 512
+    (1, 16, 528, 24, 8, 64, True, 0.0, "offset"),
+    (1, 6144, 6144, 32, 8, 128, True, 0.0, "arange"),  # mistral-7b prefill
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+@pytest.mark.parametrize("variant", ["wgmma", "mma_sync"])
+def test_flash_bf16_variants_match_plain(cuda, rng, case, variant):
+    """Both bf16 kernels, each launched through its entry point, at every
+    shape the wgmma variant takes."""
+    B, Sq, Skv, Hq, Hkv, D, causal, softcap, kind = case
+    q = _rand(rng, B, Sq, Hq, D, dtype="bfloat16")
+    k = _rand(rng, B, Skv, Hkv, D, dtype="bfloat16")
+    v = _rand(rng, B, Skv, Hkv, D, dtype="bfloat16")
+    if kind == "arange":
+        q_pos, kv_pos = _positions(case[:8], cuda)
+    else:
+        q_pos, kv_pos = _wgmma_positions(kind, B, Sq, Skv, cuda)
+    before = (fa.launches, fa.wgmma_launches)
+    out, lse = fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                  causal=causal, softcap=softcap,
+                                  return_lse=True, variant=variant)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.wgmma_launches) == (
+        before[0] + 1, before[1] + (variant == "wgmma"))
+    ref, ref_lse = plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                       causal=causal, softcap=softcap,
+                                       return_lse=True)
+    _assert_close(out, ref, "bfloat16")
+    live = ref_lse > plain.NEG_INF / 2
+    assert bool((lse[~live] == plain.NEG_INF).all())
+    assert _err(lse[live], ref_lse[live]) <= TOL["float32"] * max(
+        1.0, float(ref_lse[live].abs().max()))
+
+
+def test_flash_wgmma_fully_masked_rows(cuda, rng):
+    """Rows that see no key give 0 and lse -1e30 in the wgmma variant."""
+    B, S, L, Hq, Hkv, D = 2, 40, 64, 8, 4, 256
+    q = _rand(rng, B, S, Hq, D, dtype="bfloat16")
+    k = _rand(rng, B, L, Hkv, D, dtype="bfloat16")
+    v = _rand(rng, B, L, Hkv, D, dtype="bfloat16")
+    q_pos = (torch.arange(S, dtype=torch.int32, device=cuda) - 3).expand(B, S)
+    kv_pos = torch.arange(L, dtype=torch.int32, device=cuda).expand(B, L)
+    q_pos, kv_pos = q_pos.contiguous(), kv_pos.contiguous()
+    out, lse = fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                  softcap=50.0, return_lse=True,
+                                  variant="wgmma")
+    ref = plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                              softcap=50.0)
+    assert float(out[:, :3].float().abs().max()) == 0.0
+    assert bool((lse[:, :3] == plain.NEG_INF).all())
+    _assert_close(out, ref, "bfloat16")
+
+
+def test_flash_dispatch_sends_prefill_to_wgmma(cuda, rng):
+    """The unsplit bf16 prefill and the Memory-LLM's (4 KV splits) go to
+    the wgmma variant by default; decode over 4 slots (9 splits) does
+    not."""
+    for (B, Sq, Skv, Hq, Hkv, D), wgmma in (((1, 3072, 3072, 24, 8, 64), True),
+                                            ((1, 512, 512, 8, 4, 256), True),
+                                            ((4, 1, 568, 8, 4, 256), False)):
+        q = _rand(rng, B, Sq, Hq, D, dtype="bfloat16")
+        k = _rand(rng, B, Skv, Hkv, D, dtype="bfloat16")
+        pos = torch.arange(Skv, dtype=torch.int32, device=cuda).expand(B, Skv)
+        before = fa.wgmma_launches
+        fa.flash_attention(q, k, k, q_pos=pos[:, Skv - Sq:].contiguous(),
+                           kv_pos=pos.contiguous())
+        assert fa.wgmma_launches == before + wgmma
+
+
+def test_flash_wgmma_rejects_what_it_does_not_take(cuda, rng):
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    q = _rand(rng, 1, 8, 4, 64)
+    with pytest.raises(NotImplementedError):  # float32
+        fa.flash_attention(q, q, q, q_pos=pos, kv_pos=pos, variant="wgmma")
+    with pytest.raises(NotImplementedError):  # float32 has no mma.sync kernel
+        fa.flash_attention(q, q, q, q_pos=pos, kv_pos=pos, variant="mma_sync")
+    qb = _rand(rng, 1, 8, 4, 64, dtype="bfloat16")
+    kb = _rand(rng, 1, fa.WGMMA_MAX_SKV + 1, 4, 64, dtype="bfloat16")
+    long_pos = torch.arange(kb.shape[1], dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(NotImplementedError):  # Skv past the tile table
+        fa.flash_attention(qb, kb, kb, q_pos=pos, kv_pos=long_pos,
+                           variant="wgmma")
+    with pytest.raises(ValueError):
+        fa.flash_attention(qb, qb, qb, q_pos=pos, kv_pos=pos, variant="tma")
+
+
 @pytest.mark.parametrize("shape", [(1, 8, 40, 96), (2, 37, 129, 128),
                                    (3, 70, 200, 136), (1, 512, 3072, 2304)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
