@@ -54,8 +54,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
       attends through a block table, so it has no library time;
    d. ``gmm`` (the MoE grouped matmul) at granite's E = 40 experts, C =
       768 / 128 / 8 rows (source prefill / Memory-LLM / prompt and decode)
-      in both orientations (1536 -> 512 and 512 -> 1536); bound
-      max(2·E·C·D·F / 989 TFLOP/s, bytes of x, w and out / 3.35 TB/s);
+      in both orientations (1536 -> 512 and 512 -> 1536), and probes at C
+      = 64, 32 and 16 (bf16 only) that set ``gm.variant_for``'s rule.
+      Every bf16 shape runs through each bf16 kernel that takes it (wgmma,
+      rows, mma.sync), forced and held to the plain version; ``ms`` is
+      the picked variant's time (``variant``) beside ``ms_<variant>``,
+      and ``device_ms_<variant>`` / ``library_device_ms`` (``torch.bmm``)
+      replay 21 calls in a CUDA graph that rotate through three sets of x
+      and w (189 MB of weights), so that no call reads its weights from
+      the 50 MB L2.  The cuBLAS workspace that ``torch.bmm`` takes under
+      graph capture is freed after the phase, so that the main paths'
+      peak memory holds only their own.  Bound max(2·E·C·D·F / 989
+      TFLOP/s, bytes of x, w and out / 3.35 TB/s);
    e. ``ssd`` (the Mamba2 SSD scan) at mamba2-370m's widths (32 heads of
       64, N 128): its prefill of a 3072-token prompt and a 12-token query
       with an initial state, a 12-token prompt, 1000 tokens (no multiple
@@ -73,9 +83,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
    bfloat16, weights drawn from seeds, each in two runs with every
    kernel's launch counter set to 0 just before and read just after; each
-   kernel of the run must have been launched (``gmm`` on granite's), and
+   kernel of the run must have been launched (``gmm`` on granite's),
    every flash call over the 3072-token source prompt must have gone
-   through the wgmma variant (its own counter, printed per path):
+   through the wgmma variant (its own counter, printed per path), and on
+   granite's paths every ``gmm`` call at C = 768 through the wgmma kernel
+   and every one at C = 8 through the rows kernel (the calls by C and
+   kernel are printed per path):
    a. dense: compress two 3072-token many-shot prompts to m = 512 memory
       tokens, materialize the prefixes, and serve 4 requests naming them
       (ragged 4-12-token prompts, 16 greedy tokens each) through
@@ -218,17 +231,24 @@ def main() -> int:
         e1.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def device_ms(fn, reps=20):
+    def device_ms(fn, reps=20, bufs=((),)):
         """Device time of one call of ``fn``: ``reps`` calls captured into
         a CUDA graph, replayed and timed with CUDA events, so the host's
         time between launches is left out and few-row calls compare on
-        the card's work alone."""
-        fn()
+        the card's work alone.  Call i gets the arguments
+        ``bufs[i % len(bufs)]``: with several buffer sets, a call whose
+        inputs fit the 50 MB L2 still reads them from device memory."""
+        calls = iter(range(reps + 1))
+
+        def one():
+            return fn(*bufs[next(calls) % len(bufs)])
+
+        one()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             for _ in range(reps):
-                fn()
+                one()
         graph.replay()
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
@@ -546,36 +566,84 @@ def main() -> int:
         paged_rows.append(row)
 
     E_g = 40  # granite's experts
+    gmm_variants = ("wgmma", "rows", "mma_sync")
     gmm_rows = []
-    for C in (768, 128, 8):
+    torch.cuda.synchronize()
+    gmm_mem0 = torch.cuda.memory_allocated()
+    # the main paths' C (source prefill, Memory-LLM, prompt prefill and
+    # decode), then probes between them (bf16 only) that set variant_for's
+    # rule
+    for C in (768, 128, 8, 64, 32, 16):
         for D, Fd in ((1536, 512), (512, 1536)):
-            name = f"C{C}_{D}to{Fd}"
-            row = {"shape": name, "x": [E_g, C, D], "w": [E_g, D, Fd]}
-            for dtype in (torch.float32, torch.bfloat16):
+            probe = C not in (768, 128, 8)
+            name = f"{'probe_' if probe else ''}C{C}_{D}to{Fd}"
+            dispatched = gm.variant_for(torch.bfloat16, C, D, Fd, True)
+            row = {"shape": name, "x": [E_g, C, D], "w": [E_g, D, Fd],
+                   "variant": dispatched}
+            for dtype in ((torch.bfloat16,) if probe
+                          else (torch.float32, torch.bfloat16)):
                 dn = str(dtype).split(".")[1]
                 x = rand(E_g, C, D, dtype=dtype)
                 w = rand(E_g, D, Fd, dtype=dtype, scale=D ** -0.5)
-                out = gm.gmm(x, w)
-                torch.cuda.synchronize()
                 ref = plain.gmm_ref(x, w)
-                row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = check(
-                    "gmm", name, dn, out, ref)
-                if dtype is torch.bfloat16:
-                    row["ms"] = cuda_ms(lambda: gm.gmm(x, w))
-                    row["plain_ms"] = cuda_ms(lambda: plain.gmm_ref(x, w),
-                                              reps=3)
-                    row["library_ms"] = cuda_ms(lambda: torch.bmm(x, w))
-                    flops = 2 * E_g * C * D * Fd
-                    nbytes = 2 * (x.numel() + w.numel() + E_g * C * Fd)
-                    row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
-                    row["flops"], row["bytes"] = flops, nbytes
-                    log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
-                        f"{row['plain_ms']:.4f} ms, bmm "
-                        f"{row['library_ms']:.4f} ms, bound "
-                        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                        f"{flops} flops, {nbytes} bytes)")
-                del x, w, out, ref
+                if dtype is torch.float32:
+                    out = gm.gmm(x, w)
+                    torch.cuda.synchronize()
+                    row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = check(
+                        "gmm", name, dn, out, ref)
+                    del x, w, out, ref
+                    continue
+                # every bf16 kernel that takes the shape, forced, each
+                # held to the plain version
+                variants = [v for v in gmm_variants
+                            if gm.takes(v, dtype, E_g, C, D, Fd, True)]
+                for var in variants:
+                    out = gm.gmm(x, w, variant=var)
+                    torch.cuda.synchronize()
+                    e, se = check("gmm", f"{name}_{var}", dn, out, ref)
+                    row[f"max_abs_err_{dn}_{var}"] = e
+                    row[f"scaled_err_{dn}_{var}"] = se
+                    del out
+                for key in ("max_abs_err", "scaled_err"):
+                    row[f"{key}_{dn}"] = max(row[f"{key}_{dn}_{v}"]
+                                             for v in variants)
+                # three buffer sets (189 MB of weights) for the device times
+                bufs = [(x, w)] + [(rand(E_g, C, D, dtype=dtype),
+                                    rand(E_g, D, Fd, dtype=dtype,
+                                         scale=D ** -0.5)) for _ in range(2)]
+                flops = 2 * E_g * C * D * Fd
+                nbytes = 2 * (x.numel() + w.numel() + E_g * C * Fd)
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                row["flops"], row["bytes"] = flops, nbytes
+                row["ms"] = cuda_ms(lambda: gm.gmm(x, w))
+                for var in variants:
+                    row[f"ms_{var}"] = cuda_ms(
+                        lambda: gm.gmm(x, w, variant=var))
+                    row[f"device_ms_{var}"] = device_ms(
+                        lambda a, b: gm.gmm(a, b, variant=var), 21, bufs)
+                    row[f"tflops_{var}"] = flops / row[f"device_ms_{var}"] / 1e9
+                row["plain_ms"] = cuda_ms(lambda: plain.gmm_ref(x, w), reps=3)
+                row["library_ms"] = cuda_ms(lambda: torch.bmm(x, w))
+                row["library_device_ms"] = device_ms(torch.bmm, 21, bufs)
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms ({dispatched});"
+                    " device (3 buffer sets) "
+                    + ", ".join(f"{v} {row[f'device_ms_{v}']:.4f} "
+                                f"({row[f'tflops_{v}']:.0f} TFLOP/s)"
+                                for v in variants)
+                    + f"; bmm {row['library_device_ms']:.4f} (events "
+                    f"{row['library_ms']:.4f}); plain {row['plain_ms']:.4f}"
+                    f" ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}"
+                    f", {flops} flops, {nbytes} bytes)")
+                del x, w, ref, bufs
+            torch.cuda.empty_cache()
             gmm_rows.append(row)
+    # torch.bmm under graph capture leaves a cuBLAS workspace (32 MiB on
+    # Hopper) held for the capture stream
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    log(f"  gmm phase: {torch.cuda.memory_allocated() - gmm_mem0} bytes "
+        "left allocated after it")
 
     def ssd_inputs(B, S, H, P, G, N, dtype, init, big):
         """dt and A as a seeded Mamba2 layer makes them (softplus of unit
@@ -669,11 +737,13 @@ def main() -> int:
     def set_counts():
         for mod in counters.values():
             mod.launches = 0
-        fa.wgmma_launches = 0
+        fa.wgmma_launches = gm.wgmma_launches = gm.rows_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
         c["flash_attention_wgmma"] = fa.wgmma_launches
+        c["gmm_wgmma"] = gm.wgmma_launches
+        c["gmm_rows"] = gm.rows_launches
         return c
 
     class SourcePrefills:
@@ -700,6 +770,47 @@ def main() -> int:
 
         def __exit__(self, *exc):
             fa.flash_attention = self.inner
+
+    class GmmByRows:
+        """Counts a run's ``gmm`` calls by their rows C and by the kernel
+        that took each; ``check`` requires every C = 768 call (the source
+        prefill) to go through the wgmma kernel and every C = 8 call (the
+        prompt prefill and decode) through the rows kernel."""
+
+        def __init__(self):
+            self.by_c = {}
+
+        def __enter__(self):
+            self.inner = gm.gmm
+
+            def spy(x, w, **kw):
+                before = (gm.launches, gm.wgmma_launches, gm.rows_launches)
+                out = self.inner(x, w, **kw)
+                c = self.by_c.setdefault(int(x.shape[1]), {
+                    "calls": 0, "wgmma": 0, "rows": 0, "other": 0})
+                wgmma = gm.wgmma_launches - before[1]
+                rows = gm.rows_launches - before[2]
+                c["calls"] += 1
+                c["wgmma"] += wgmma
+                c["rows"] += rows
+                c["other"] += gm.launches - before[0] - wgmma - rows
+                return out
+
+            gm.gmm = spy
+            return self
+
+        def __exit__(self, *exc):
+            gm.gmm = self.inner
+
+        def check(self, tag, path):
+            log(f"{tag} gmm calls by rows C, {path}: {self.by_c}")
+            for C, want in ((768, "wgmma"), (8, "rows")):
+                c = self.by_c.get(C)
+                if c is not None and c[want] != c["calls"]:
+                    raise AssertionError(f"{tag} {path}: {c['calls']} gmm "
+                                         f"calls at C = {C}, {c[want]} "
+                                         f"through the {want} kernel")
+            return self.by_c
 
     def serve_numbers(eng, reqs, out, wall, before):
         """Serve seconds, decode rate over the decode steps (each ends in
@@ -789,7 +900,8 @@ def main() -> int:
         t0 = time.perf_counter()
         prefixes, task_s = [], []
         source_prefills = SourcePrefills()
-        with source_prefills:
+        gmm_dense, gmm_paged = GmmByRows(), GmmByRows()
+        with source_prefills, gmm_dense:
             for t, src in enumerate(sources):
                 t1 = time.perf_counter()
                 prefix, _ = memcom.compress(
@@ -811,7 +923,8 @@ def main() -> int:
                 for i, p_ in enumerate(prompts)]
         before = dict(engine.counters)
         t0 = time.perf_counter()
-        out = engine.serve(reqs)
+        with gmm_dense:
+            out = engine.serve(reqs)
         torch.cuda.synchronize()
         dense = serve_numbers(engine, reqs, out, time.perf_counter() - t0,
                               before)
@@ -889,7 +1002,8 @@ def main() -> int:
         set_counts()
         before = dict(pengine.counters)
         t0 = time.perf_counter()
-        pout = pengine.serve(preqs)
+        with gmm_paged:
+            pout = pengine.serve(preqs)
         torch.cuda.synchronize()
         paged = serve_numbers(pengine, preqs, pout, time.perf_counter() - t0,
                               before)
@@ -934,6 +1048,13 @@ def main() -> int:
             if paged_launches[key] <= 0:
                 raise AssertionError(f"{key} was never launched on {arch}'s "
                                      "paged path")
+        gmm_by_rows = {"dense": gmm_dense.check(tag, "dense path"),
+                       "paged": gmm_paged.check(tag, "paged path")}
+        if "gmm" in need and not (768 in gmm_by_rows["dense"]
+                                  and 8 in gmm_by_rows["dense"]
+                                  and 8 in gmm_by_rows["paged"]):
+            raise AssertionError(f"{tag}: no gmm call at C = 768 or C = 8 on "
+                                 f"a main path: {gmm_by_rows}")
 
         # where the time goes: one warm compress and one warm 4-token serve
         # on each layout under the profiler
@@ -951,7 +1072,8 @@ def main() -> int:
             "task_compress_s": task_s, "breakdown": breakdown,
             "compress_s": compress_s, "dense": dense, "paged": paged,
             "peak_bytes": peak_dense, "params": n_params,
-            "launches_after_compress": after_compress, "launches": launches}
+            "launches_after_compress": after_compress, "launches": launches,
+            "gmm_by_rows": gmm_by_rows}
 
     # ---- 5. kernels vs plain at full width, depth 2 --------------------
     def rel(a, b):
@@ -1356,6 +1478,14 @@ def main() -> int:
                 wgmma_launches=sum(c["flash_attention_wgmma"]
                                    for c in paths.values()),
                 ms_wgmma=head["ms_wgmma"], ms_mma_sync=head["ms_mma_sync"])
+        if name == "gmm":  # the wgmma, rows and mma.sync variants
+            entries[-1].update(
+                wgmma_launches=sum(c["gmm_wgmma"] for c in paths.values()),
+                rows_launches=sum(c["gmm_rows"] for c in paths.values()),
+                variant=head["variant"],
+                library_device_ms=head["library_device_ms"],
+                **{k: head[k] for k in head
+                   if k.startswith(("ms_", "device_ms_"))})
     report["kernels"] = entries
     if args.json_out:
         out = Path(args.json_out)

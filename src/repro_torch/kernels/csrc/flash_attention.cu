@@ -887,15 +887,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* q_pos,
   return cudaGetLastError();
 }
 
-// One 64 x 64 x 64 product through the helpers of wgmma_sm90.cuh: a (M x K)
-// row-major; b (N x K) row-major, read K-major with A from shared memory,
-// or (mn_major) b (K x N) row-major, read MN-major with A from registers.
+// One 64 x N x 64 product through the helpers of wgmma_sm90.cuh: a (M x K)
+// row-major.  N = 64: b (N x K) row-major, read K-major with A from shared
+// memory, or (mn_major) b (K x N) row-major, read MN-major with A from
+// registers: the two forms flash_fwd_wgmma uses.  N = 128 or 256: b (K x N)
+// row-major, read MN-major with A from shared memory (mma_ss_n, the form
+// moe_gmm.cu's gmm_wgmma uses).
+template <int N>
 __global__ void __launch_bounds__(128)
 wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
                  const __nv_bfloat16* __restrict__ b, float* __restrict__ c,
                  int mn_major) {
   namespace wg = wgmma_sm90;
-  __shared__ unsigned char raw[2 * 8192 + 1024];
+  __shared__ unsigned char raw[1024 + 8192 + (N / 64) * 8192];
   const uint32_t raw_addr = wg::smem_addr(raw);
   const uint32_t sA = (raw_addr + 1023u) & ~1023u, sB = sA + 8192;
   unsigned char* sm = raw + (sA - raw_addr);
@@ -904,17 +908,27 @@ wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
     const int r = e / 8, pc = e % 8;
     *reinterpret_cast<uint4*>(sm + wg::sw128(r, pc)) =
         *reinterpret_cast<const uint4*>(a + r * 64 + pc * 8);
-    *reinterpret_cast<uint4*>(sm + 8192 + wg::sw128(r, pc)) =
-        *reinterpret_cast<const uint4*>(b + r * 64 + pc * 8);
+  }
+  // b's 64 rows of N columns: 64-column chunks, 8192 bytes apart
+  for (int e = tid; e < 64 * (N / 8); e += 128) {
+    const int r = e / (N / 8), pc = e % (N / 8);
+    *reinterpret_cast<uint4*>(sm + 8192 + (pc / 8) * 8192 +
+                              wg::sw128(r, pc % 8)) =
+        *reinterpret_cast<const uint4*>(b + r * N + pc * 8);
   }
   wg::fence_proxy_async();
   __syncthreads();
-  float d[32];
+  float d[N / 2];
 #pragma unroll
-  for (int j = 0; j < 32; ++j) d[j] = 0.f;
+  for (int j = 0; j < N / 2; ++j) d[j] = 0.f;
   const int g = warp * 16 + lane / 4, t2 = (lane % 4) * 2;
   wg::fence();
-  if (!mn_major) {
+  if constexpr (N != 64) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg::mma_ss_n<N, 1>(d, wg::desc(sA + ks * 32, 16, 1024),
+                         wg::desc(sB + ks * 2048, 8192, 1024), ks > 0);
+  } else if (!mn_major) {
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
       wg::mma_ss<0>(d, wg::desc(sA + ks * 32, 16, 1024),
@@ -936,10 +950,10 @@ wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
   wg::wait<0>();
   wg::reg_fence(d);
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < N / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      c[(g + 8 * (e / 2)) * 64 + n * 8 + t2 + e % 2] = d[4 * n + e];
+      c[(g + 8 * (e / 2)) * N + n * 8 + t2 + e % 2] = d[4 * n + e];
 }
 
 size_t smem_bytes(int D) {
@@ -1037,11 +1051,18 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// c (64 x 64 f32) = a b through one wgmma tile product (wgmma_tile_check).
+// c (64 x n f32) = a b through one wgmma tile product (wgmma_tile_check):
+// n = 64 in either form, n = 128 or 256 with b MN-major.
 extern "C" int flash_wgmma_tile_check(const void* a, const void* b, float* c,
-                                      int mn_major, void* stream) {
-  wgmma_tile_check<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      c, mn_major);
+                                      int n, int mn_major, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto ab = static_cast<const __nv_bfloat16*>(a);
+  const auto bb = static_cast<const __nv_bfloat16*>(b);
+  if (n == 64) wgmma_tile_check<64><<<1, 128, 0, st>>>(ab, bb, c, mn_major);
+  else if (n == 128 && mn_major)
+    wgmma_tile_check<128><<<1, 128, 0, st>>>(ab, bb, c, 1);
+  else if (n == 256 && mn_major)
+    wgmma_tile_check<256><<<1, 128, 0, st>>>(ab, bb, c, 1);
+  else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -9,30 +9,59 @@
 // What bounds it on an H100: at granite-moe-3b-a800m's shapes (E = 40,
 // D = 1536 -> F = 512 and back) the weights are 62.9 MB per call.  At the
 // 3072-token source prefill (C = 768) the call moves ~189 MB for 48 GFLOP:
-// bytes and operations are within 15% of each other.  At the memory LLM
-// (C = 128) and at decode (C = 8) it is bound by reading the weights.
+// bytes and operations are within 15% of each other.  At the Memory-LLM
+// (C = 128) and at decode and the prompt prefill (C = 8) it is bound by
+// reading the weights.
 //
 // Design: the TPU kernel walks (E, C, F, D) in order, accumulating over D
-// in a VMEM scratch tile.  Here every (F tile, C tile, expert) is its own
-// thread block (grid (ceil(F/128), ceil(C/64), E)) that loops over D in
-// 32-deep slabs and keeps the sum in registers:
-//   * bfloat16: tensor cores (mma.sync m16n8k16, f32 accumulate), four
-//     warps of 32 x 64 outputs, ldmatrix from padded shared tiles, two
-//     shared-memory stages filled by cp.async so the next slab loads while
-//     this one multiplies.  A slab's rows and columns past C, D or F are
-//     zero-filled.  Operands are copied 8 elements (16 bytes) at a time
-//     when the row length is a multiple of 8 and the base 16-byte aligned,
-//     else element by element.
-//   * float32: CUDA cores (64 x 64 x 16 block tiles, 4 x 4 outputs per
-//     thread), so a float32 check on the card runs without TF32.
-// At decode (C = 8) a 64-row tile computes 56 rows of zeros; the call is
-// bound by the weights anyway.  A few-row variant is later work.
+// in a VMEM scratch tile.  Here each output tile of one expert is summed
+// over D in registers by one thread block; the tiles of one expert are
+// taken together, so its weights are shared in L2.  Four kernels:
+//   * gmm_wgmma ("wgmma", bf16): 64-row consumer warpgroups on wgmma
+//     m64nNk16 (N = 128 or 256) with x K-major and w MN-major in 128-byte
+//     swizzled shared memory; a persistent grid whose blocks stream the
+//     64-deep D slabs of their tiles through a 4-stage cp.async ring, one
+//     barrier a slab and one wgmma group in flight, so the next tile's
+//     first slabs load while this tile's last ones multiply and its
+//     outputs leave in 16-byte rows.  The tile (warpgroups x columns) is
+//     picked by C (launch_wgmma_for).
+//   * gmm_rows ("rows", bf16, C <= ROWS_MAX_C = 32): out^T = w^T x^T on
+//     mma.sync m16n8k16, so F fills the 16 MMA rows and C the 8-wide
+//     columns; four warps own 64 columns of F and stream all of D through
+//     a 4-6 stage cp.async ring.  No 64-row tile computes rows of zeros,
+//     and the weights are read once by enough blocks to keep the loads in
+//     flight that device memory's latency asks for.
+//   * gmm_bf16 ("mma_sync", bf16): four warps of 32 x 64 outputs on
+//     mma.sync m16n8k16, ldmatrix from padded shared tiles, two cp.async
+//     stages of 32-deep slabs; it copies element by element where a row
+//     is not a multiple of 8 or a base not 16-byte aligned, so it takes
+//     every shape.
+//   * gmm_f32 (float32): CUDA cores (64 x 64 x 16 block tiles, 4 x 4
+//     outputs per thread), so a float32 check on the card runs without
+//     TF32.
+// A slab's rows and columns past C, D or F are zero-filled; each output
+// is the sum of one block, taken in one order (no split of D, no atomics).
+//
+// Dispatch (kernels/moe_gmm.py::variant_for): bf16 calls with D and F
+// multiples of 8 and 16-byte aligned x and w go to "rows" for C <= 32
+// and to "wgmma" above; the others to "mma_sync".
+//
+// Measured: PERF.md section 6 holds the device times of every variant and
+// of torch.bmm at granite's shapes (E = 40, 1536 -> 512 and 512 -> 1536;
+// C = 768, 128 and 8, and probes at C = 16, 32 and 64), with the card,
+// its power limit and the chip_smoke.py run they come from (device time of
+// 21 graph-replayed calls over three sets of x and w, 189 MB of weights,
+// so that no call reads its weights from L2).  The cut at C = 32 is set
+// by the 1536 -> 512 orientation, two of a MoE layer's three products:
+// there rows is ahead of wgmma up to C = 32; in 512 -> 1536 the two are
+// within about 1 us of each other at C = 16 and 32, either ahead.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
 #include "mma_sm80.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -100,7 +129,7 @@ gmm_f32(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// ---- bfloat16: tensor cores ---------------------------------------------
+// ---- bfloat16 on mma.sync: the "mma_sync" variant ------------------------
 
 constexpr int MB = 64, NB = 128, KB = 32, MNT = 128;  // block tile, threads
 constexpr int SKP = KB + 8;  // padded row of the x tile (80 bytes)
@@ -222,34 +251,434 @@ gmm_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
 }
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device (*dev), once a device: bit d of `ready` records device d.
+template <typename Kernel>
+cudaError_t with_smem(Kernel kernel, size_t smem, unsigned& ready, int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = *dev < 32 ? 1u << *dev : 0u;
+  if (ready & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) ready |= bit;
+  return err;
+}
+
+// ---- bfloat16 on wgmma: the "wgmma" variant -------------------------------
+//
+// gmm_wgmma<NWG, BN>: NWG consumer warpgroups own 64 rows of x
+// each, so an output tile is (64 NWG) x BN of one expert.  The grid is
+// persistent (as many blocks as fit the card at once); block b takes
+// tiles b, b + grid, ... in the order (expert, row tile, column tile), so
+// the blocks in flight share one or two experts' weights in L2.  A block
+// walks the 64-deep D slabs of its tiles as one stream: both operands of
+// a slab arrive through a ring of STAGES shared-memory stages filled by
+// cp.async in the 128-byte swizzle (wgmma_sm90.cuh) — x rows as the
+// K-major A operand (one 64-column chunk a warpgroup), the slab's 64 rows
+// of w as the MN-major B operand (BN / 64 chunks of 64 columns),
+// zero-filled past C, D and F — so the next tile's first slabs load while
+// this tile's last ones multiply and its outputs are stored.  A slab is 4
+// k-steps of wgmma m64nBNk16 per warpgroup; one barrier a slab; one wgmma
+// group stays in flight across the barrier, so the load of slab i +
+// STAGES - 2 goes into the stage of slab i - 2.  Outputs leave in 16-byte
+// rows: a quad of threads trades its fragments so that each holds 8
+// neighbouring columns.
+
+template <int NWG, int BN>
+struct WgCfg {
+  static constexpr int STAGES = 4;                     // of the ring
+  static constexpr int NT = 128 * NWG;                 // threads
+  static constexpr int BM = 64 * NWG;                  // rows of a tile
+  static constexpr int A_BYTES = NWG * 8192;           // x: BM x 64
+  static constexpr int B_BYTES = (BN / 64) * 8192;     // w: 64 x BN
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE;  // + 1024-B align
+  static constexpr int MINB = 2 * SMEM <= 232448 - 2048 ? 2 : 1;  // an SM
+  static_assert(STAGES >= 3, "one wgmma group in flight needs 3 stages");
+  static_assert(64 * BN % (8 * NT) == 0, "whole w pieces a thread");
+};
+
+template <int NWG, int BN>
+__global__ void __launch_bounds__(WgCfg<NWG, BN>::NT, WgCfg<NWG, BN>::MINB)
+gmm_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
+          bf16* __restrict__ out, int C, int D, int F, int tiles_m,
+          int tiles_n, int tiles) {
+  namespace wg = wgmma_sm90;
+  using K = WgCfg<NWG, BN>;
+  constexpr int NT = K::NT, BM = K::BM, STAGES = K::STAGES;
+  extern __shared__ unsigned char smem_gmm[];
+  const uint32_t raw = wg::smem_addr(smem_gmm);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid % 128) / 32;
+  const int grp = tid / 128;  // this thread's warpgroup
+  const int nk = (D + 63) / 64;
+  const int mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1
+                                      : 0;
+  const int total = mine * nk;  // slabs of this block
+
+  struct Tile {
+    size_t e;
+    int m0, n0;
+  };
+  auto tile_of = [&](int t) {  // this block's t-th tile
+    const int T = blockIdx.x + t * gridDim.x;
+    const int r = T / tiles_n;
+    return Tile{static_cast<size_t>(r / tiles_m), (r % tiles_m) * BM,
+                (T % tiles_n) * BN};
+  };
+
+  // This thread's share of a slab: x rows rx + i NT/8 at 16-byte piece px
+  // of the slab's 64 columns; w rows rw + i WRS at piece pw of BN / 8.
+  constexpr int XI = BM * 8 / NT, WPR = BN / 8, WI = 64 * WPR / NT;
+  constexpr int WRS = NT / WPR;
+  const int px = tid % 8, rx = tid / 8, pw = tid % WPR, rw = tid / WPR;
+  const size_t x_step = static_cast<size_t>(NT / 8) * D;
+  const size_t w_step = static_cast<size_t>(WRS) * F;
+  // The load cursor: slab c_kt of this block's tile c_t, whose rows of x
+  // start at c_x and whose columns of w at c_w.
+  int c_t = 0, c_kt = 0;
+  const bf16* c_x = x;
+  const bf16* c_w = w;
+  uint32_t c_rows = 0;  // bit i: x row rx + i NT/8 is below C
+  bool c_cols = false;  // piece pw is left of F
+  auto enter = [&](int t) {
+    const Tile tl = tile_of(t);
+    c_x = x + (tl.e * C + tl.m0 + rx) * static_cast<size_t>(D) + px * 8;
+    c_w = w + (tl.e * D + rw) * static_cast<size_t>(F) + tl.n0 + pw * 8;
+    c_rows = 0;
+#pragma unroll
+    for (int i = 0; i < XI; ++i)
+      c_rows |= static_cast<uint32_t>(tl.m0 + rx + i * (NT / 8) < C) << i;
+    c_cols = tl.n0 + pw * 8 < F;
+  };
+  // stage s <- the cursor's slab; the cursor moves on
+  auto issue = [&](int s) {
+    const int k0 = c_kt * 64;
+    const uint32_t sA = base + s * K::STAGE, sB = sA + K::A_BYTES;
+#pragma unroll
+    for (int i = 0; i < XI; ++i) {
+      const int r = rx + i * (NT / 8);
+      const bool ok = (c_rows >> i & 1u) && k0 + px * 8 < D;
+      wg::cp_async16(sA + (r / 64) * 8192 + wg::sw128(r % 64, px),
+                     ok ? c_x + i * x_step + k0 : x, ok);
+    }
+    const bf16* wk = c_w + static_cast<size_t>(k0) * F;
+#pragma unroll
+    for (int i = 0; i < WI; ++i) {
+      const bool ok = c_cols && k0 + rw + i * WRS < D;
+      wg::cp_async16(sB + (pw / 8) * 8192 + wg::sw128(rw + i * WRS, pw % 8),
+                     ok ? wk + i * w_step : w, ok);
+    }
+    if (++c_kt == nk) {
+      c_kt = 0;
+      if (++c_t < mine) enter(c_t);
+    }
+  };
+
+  // accumulator fragment: acc[4n + 2h + {0,1}] = (row 16 warp + lane/4 +
+  // 8h, columns 8n + 2 (lane % 4) + {0,1}) of this warpgroup's 64 rows.
+  // Quad member q gathers columns 8 (4j + q) .. + 7 of its row from the
+  // four members' pairs for n = 4j + q, and stores them as one uint4.
+  float acc[BN / 2];
+  auto store = [&](const Tile& tl) {
+    const int q = lane % 4;
+    bf16* oe = out + tl.e * C * static_cast<size_t>(F);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = tl.m0 + grp * 64 + warp * 16 + lane / 4 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < BN / 32; ++j) {
+        uint32_t v[4], got[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = wg::pack_bf16(acc[4 * (4 * j + i) + 2 * h],
+                               acc[4 * (4 * j + i) + 2 * h + 1]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          // member q sends its pair for n = 4j + (q - r) and receives
+          // member (q + r)'s pair for n = 4j + q
+          const int to = (q - r) & 3, from = (q + r) & 3;
+          const uint32_t send = to == 0 ? v[0] : to == 1 ? v[1]
+                              : to == 2 ? v[2] : v[3];
+          const uint32_t recv =
+              __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (k == from) got[k] = recv;
+        }
+        const int gn = tl.n0 + 8 * (4 * j + q);
+        if (gm < C && gn < F)  // F % 8 == 0: the 8 columns are whole
+          *reinterpret_cast<uint4*>(oe + static_cast<size_t>(gm) * F + gn) =
+              make_uint4(got[0], got[1], got[2], got[3]);
+      }
+    }
+  };
+
+  constexpr int AHEAD = STAGES - 2;  // slabs loading beyond the current one
+  if (mine > 0) enter(0);
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < total) issue(s);
+    wg::cp_async_commit();
+  }
+  for (int t = 0, q = 0; t < mine; ++t) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++q) {
+      wg::cp_async_wait<AHEAD - 1>();  // slab q has landed (this thread's part)
+      wg::fence_proxy_async();
+      // ... and every thread's; every warpgroup has also retired slab
+      // q - 2, whose stage the next load overwrites (it may belong to the
+      // next tile)
+      __syncthreads();
+      if (q + AHEAD < total) issue((q + AHEAD) % STAGES);
+      wg::cp_async_commit();  // possibly empty: keeps the group count in step
+      const uint32_t sA = base + (q % STAGES) * K::STAGE + grp * 8192;
+      const uint32_t sB = base + (q % STAGES) * K::STAGE + K::A_BYTES;
+      wg::reg_fence(acc);
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wg::mma_ss_n<BN, 1>(acc, wg::desc(sA + ks * 32, 16, 1024),
+                            wg::desc(sB + ks * 2048, 8192, 1024), 1);
+      wg::commit();
+      wg::wait<1>();  // slab q - 1's products are done
+      wg::reg_fence(acc);
+    }
+    wg::wait<0>();
+    wg::reg_fence(acc);
+    store(tile_of(t));
+  }
+  wg::cp_async_wait<0>();  // no copy outlives the block
+}
+
+template <int NWG, int BN>
+int launch_wgmma(const bf16* x, const bf16* w, bf16* out, int E, int C,
+                 int D, int F, cudaStream_t st) {
+  using K = WgCfg<NWG, BN>;
+  const auto kernel = gmm_wgmma<NWG, BN>;
+  static unsigned ready = 0;
+  static int per_sm = 0;  // resident blocks an SM (one card type a process)
+  int dev = 0, sms = 0;
+  cudaError_t err = with_smem(kernel, K::SMEM, ready, &dev);
+  if (err != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (per_sm == 0 &&
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, K::NT, K::SMEM)) != cudaSuccess)
+    return err;
+  const long long tiles_m = (C + K::BM - 1) / K::BM;
+  const long long tiles_n = (F + BN - 1) / BN;
+  const long long tiles = tiles_m * tiles_n * E;
+  if (tiles > (1LL << 31) - 1 || per_sm < 1) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(
+      tiles < static_cast<long long>(sms) * per_sm ? tiles : sms * per_sm);
+  kernel<<<grid, K::NT, K::SMEM, st>>>(x, w, out, C, D, F,
+                                       static_cast<int>(tiles_m),
+                                       static_cast<int>(tiles_n),
+                                       static_cast<int>(tiles));
+  return cudaGetLastError();
+}
+
+// The wgmma variant's tile <consumer warpgroups, columns> for a
+// call, from the tiles' device times at granite's shapes on an H100
+// (PERF.md section 6): 256 x 128 at the 768-row source prefill, 128 x 256
+// at the 128-row Memory-LLM, 64 x 128 where a 128-row tile would be half
+// empty.
+int launch_wgmma_for(const bf16* x, const bf16* w, bf16* out, int E, int C,
+                     int D, int F, cudaStream_t st) {
+  if (C >= 256) return launch_wgmma<4, 128>(x, w, out, E, C, D, F, st);
+  if (C > 64) return launch_wgmma<2, 256>(x, w, out, E, C, D, F, st);
+  return launch_wgmma<1, 128>(x, w, out, E, C, D, F, st);
+}
+
+// ---- bfloat16, few rows: the "rows" variant -------------------------------
+//
+// gmm_rows<NT8>: out[e]^T = w[e]^T x[e]^T, so F fills the MMA's 16 rows
+// and C its 8-column tiles (NT8 of them: C <= 8 NT8).  A block of four
+// warps owns 64 columns of F (16 a warp) of one expert and walks all of
+// D in 64-deep slabs through a ring of 4-6 cp.async stages; the w
+// slab (64 x 64) and the x slab (8 NT8 rows x 64) sit in the 128-byte
+// swizzle, read by ldmatrix (w transposed) into mma.sync m16n8k16.  No
+// split of D: each output is one block's sum, in one order.
+
+constexpr int RWARPS = 4, RBF = 16 * RWARPS;  // F columns of a block
+// The rows kernel's widest call, and the cut of the dispatch rule
+// (kernels/moe_gmm.py::ROWS_MAX_C): 8 NT8, NT8 <= 4.
+constexpr int ROWS_MAX_C = 32;
+
+template <int NT8>
+struct RowsCfg {
+  static constexpr int STAGES = NT8 <= 2 ? 6 : 4;
+  static constexpr int W_BYTES = 64 * 128;        // 64 D rows x 64 columns
+  static constexpr int X_BYTES = NT8 * 8 * 128;   // 8 NT8 rows x 64 D
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE;
+};
+
+template <int NT8>
+__global__ void __launch_bounds__(32 * RWARPS)
+gmm_rows(const bf16* __restrict__ x, const bf16* __restrict__ w,
+         bf16* __restrict__ out, int C, int D, int F) {
+  namespace wg = wgmma_sm90;
+  using K = RowsCfg<NT8>;
+  constexpr int NT = 32 * RWARPS, STAGES = K::STAGES;
+  extern __shared__ unsigned char smem_rows[];
+  const uint32_t raw = wg::smem_addr(smem_rows);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* sm = smem_rows + (base - raw);
+  const size_t e = blockIdx.y;
+  const bf16* xe = x + e * C * static_cast<size_t>(D);
+  const bf16* we = w + e * D * static_cast<size_t>(F);
+  out += e * C * static_cast<size_t>(F);
+  const int f0 = blockIdx.x * RBF;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nk = (D + 63) / 64;
+
+  auto issue = [&](int s, int kt) {
+    const uint32_t sW = base + s * K::STAGE, sX = sW + K::W_BYTES;
+    const int k0 = kt * 64;
+#pragma unroll
+    for (int i = 0; i < 64 * 8 / NT; ++i) {
+      const int p = tid + NT * i;
+      const int r = p / 8, pc = p % 8;
+      const int gk = k0 + r, gf = f0 + pc * 8;
+      const bool ok = gk < D && gf < F;
+      wg::cp_async16(sW + wg::sw128(r, pc),
+                     ok ? we + static_cast<size_t>(gk) * F + gf : we, ok);
+    }
+#pragma unroll
+    for (int p = tid; p < NT8 * 64; p += NT) {
+      const int r = p / 8, pc = p % 8;
+      const int gk = k0 + pc * 8;
+      const bool ok = r < C && gk < D;
+      wg::cp_async16(sX + wg::sw128(r, pc),
+                     ok ? xe + static_cast<size_t>(r) * D + gk : xe, ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) issue(s, s);
+    wg::cp_async_commit();
+  }
+  float acc[NT8][4];
+#pragma unroll
+  for (int j = 0; j < NT8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  // ldmatrix rows of this lane: matrix i = lane / 8, row lane % 8
+  const int li = lane / 8, lr = lane % 8;
+  for (int kt = 0; kt < nk; ++kt) {
+    wg::cp_async_wait<STAGES - 2>();  // slab kt has landed (this thread's part)
+    __syncthreads();  // ... and every thread's; slab kt - 1 is read
+    if (kt + STAGES - 1 < nk) issue((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    wg::cp_async_commit();
+    const unsigned char* sW = sm + (kt % STAGES) * K::STAGE;
+    const unsigned char* sX = sW + K::W_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 64; kk += 32) {
+      // A = w^T (16 F x 16 D) for D rows kk and kk + 16: matrices (D rows
+      // +0/+8) x (F columns +0/+8), transposed on the way
+      uint32_t a[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ldsm_x4_t(a[h], reinterpret_cast<const bf16*>(
+                            sW + wg::sw128(kk + 16 * h + lr + (li / 2) * 8,
+                                           warp * 2 + li % 2)));
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        // B = x^T (16 D x 8 C): x rows 8j.., D columns kk + 8 li
+        uint32_t b[4];
+        ldsm_x4(b, reinterpret_cast<const bf16*>(
+                       sX + wg::sw128(8 * j + lr, kk / 8 + li)));
+        mma16816(acc[j], a[0], b[0], b[1]);
+        mma16816(acc[j], a[1], b[2], b[3]);
+      }
+    }
+  }
+  wg::cp_async_wait<0>();  // no copy outlives the block
+
+  // acc[j] = (F column g / g + 8, C rows 8j + 2t, 8j + 2t + 1) with
+  // g = lane / 4, t = lane % 4
+#pragma unroll
+  for (int j = 0; j < NT8; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 8 * j + 2 * (lane % 4) + q % 2;
+      const int f = f0 + warp * 16 + lane / 4 + 8 * (q / 2);
+      if (c < C && f < F)
+        out[static_cast<size_t>(c) * F + f] = __float2bfloat16_rn(acc[j][q]);
+    }
+}
+
+template <int NT8>
+int launch_rows(const bf16* x, const bf16* w, bf16* out, int E, int C, int D,
+                int F, cudaStream_t st) {
+  using K = RowsCfg<NT8>;
+  static unsigned ready = 0;
+  int dev = 0;
+  const cudaError_t err = with_smem(gmm_rows<NT8>, K::SMEM, ready, &dev);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + RBF - 1) / RBF, E);
+  gmm_rows<NT8><<<grid, 32 * RWARPS, K::SMEM, st>>>(x, w, out, C, D, F);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+int launch_rows_for(const bf16* x, const bf16* w, bf16* out, int E, int C,
+                    int D, int F, cudaStream_t st) {
+  if (C <= 8) return launch_rows<1>(x, w, out, E, C, D, F, st);
+  if (C <= 16) return launch_rows<2>(x, w, out, E, C, D, F, st);
+  return launch_rows<4>(x, w, out, E, C, D, F, st);
 }
 
 }  // namespace
 
 // out = per-expert x @ w: x (E,C,D), w (E,D,F), out (E,C,F), contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  variant (bfloat16): 0 = "mma_sync",
+// 1 = "wgmma", 2 = "rows"; float32 takes 0.  "wgmma" and "rows" take D
+// and F multiples of 8 and 16-byte aligned x, w and out, "rows" C <=
+// ROWS_MAX_C.  Returns a cudaError_t (0 = launched).
 extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out, int E,
-                           int C, int D, int F, int dtype, void* stream) {
+                           int C, int D, int F, int dtype, int variant,
+                           void* stream) {
   if (E < 0 || C < 0 || D <= 0 || F < 0) return cudaErrorInvalidValue;
   if (E == 0 || C == 0 || F == 0) return cudaSuccess;
-  if (E > 65535 || (C + TM - 1) / TM > 65535) return cudaErrorInvalidValue;
+  if (E > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (dtype == 0 && variant == 0) {
+    if ((C + TM - 1) / TM > 65535) return cudaErrorInvalidValue;
     const dim3 grid((F + TN - 1) / TN, (C + TM - 1) / TM, E);
     gmm_f32<<<grid, NT, 0, st>>>(static_cast<const float*>(x),
                                  static_cast<const float*>(w),
                                  static_cast<float*>(out), C, D, F);
     return cudaGetLastError();
   }
-  if (dtype == 1) {
+  if (dtype != 1) return cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  if (variant == 0) {
+    if ((C + MB - 1) / MB > 65535) return cudaErrorInvalidValue;
     const dim3 grid((F + NB - 1) / NB, (C + MB - 1) / MB, E);
-    gmm_bf16<<<grid, MNT, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<bf16*>(out), C, D, F, D % 8 == 0 && aligned16(x),
-        F % 8 == 0 && aligned16(w));
+    gmm_bf16<<<grid, MNT, 0, st>>>(xb, wb, ob, C, D, F,
+                                   D % 8 == 0 && aligned16(x),
+                                   F % 8 == 0 && aligned16(w));
     return cudaGetLastError();
   }
+  if (D % 8 || F % 8 || !aligned16(x) || !aligned16(w) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  if (variant == 1) return launch_wgmma_for(xb, wb, ob, E, C, D, F, st);
+  if (variant == 2 && C <= ROWS_MAX_C)
+    return launch_rows_for(xb, wb, ob, E, C, D, F, st);
   return cudaErrorInvalidValue;
 }

@@ -204,24 +204,31 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     return (out, lse) if return_lse else out
 
 
-def wgmma_tile_check(a, b, *, b_mn_major):
-    """One 64 x 64 x 64 bf16 product through ``csrc/wgmma_sm90.cuh``'s
-    helpers on the card, f32 result: ``a`` (M, K); ``b`` (N, K) read
-    K-major with A from shared memory, or (``b_mn_major``) ``b`` (K, N)
-    read MN-major with A from registers.  A check of the helpers, held to
-    ``torch.matmul`` by the ``cuda`` tests."""
+def wgmma_tile_check(a, b, *, b_mn_major, n=64):
+    """One 64 x ``n`` x 64 bf16 product through ``csrc/wgmma_sm90.cuh``'s
+    helpers on the card, f32 result: ``a`` (M, K).  ``n`` = 64: ``b``
+    (N, K) read K-major with A from shared memory, or (``b_mn_major``)
+    ``b`` (K, N) read MN-major with A from registers — the two forms the
+    flash kernel uses.  ``n`` = 128 or 256 (``b_mn_major`` only): ``b``
+    (K, N) read MN-major with A from shared memory, the wider forms the
+    gmm kernel uses.  A check of the helpers, held to ``torch.matmul`` by
+    the ``cuda`` tests."""
+    b_shape = (64, n) if b_mn_major else (n, 64)
     if not (a.is_cuda and b.is_cuda and a.dtype == b.dtype == torch.bfloat16
-            and a.shape == b.shape == (64, 64) and a.is_contiguous()
-            and b.is_contiguous()):
-        raise ValueError("a and b must be contiguous (64, 64) bf16 on the "
-                         "card")
+            and a.shape == (64, 64) and b.shape == b_shape
+            and (n == 64 or (n in (128, 256) and b_mn_major))
+            and a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a must be (64, 64) and b (64, n) MN-major or, at "
+                         "n = 64, (n, 64) K-major, contiguous bf16 on the "
+                         "card; n = 64, 128 or 256")
     lib = build.load("flash_attention")
     fn = lib.flash_wgmma_tile_check
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    c = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), int(b_mn_major),
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), n, int(b_mn_major),
                  torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wgmma tile check launch failed: cudaError {err}")

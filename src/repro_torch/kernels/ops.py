@@ -168,8 +168,10 @@ def memcom_xattn(q, k, v, *, scale=None, impl="auto"):
 
 def gmm(x, w, *, impl="auto"):
     """(E,C,D) x (E,D,F) -> (E,C,F) per-expert matmul.  Unlike the JAX
-    dispatcher, a small problem (decode's C = 8) still goes to the
-    kernel on the card."""
+    dispatcher, a small problem (decode's C = 8) still goes to a kernel
+    on the card: ``moe_gmm.variant_for`` sends few rows to the rows
+    kernel (F fills the MMA rows) and the prefill's and the Memory-LLM's
+    rows to the wgmma kernel."""
     fn = plain.gmm_ref if _plain(impl, x) else _gmm.gmm
     return fn(x.contiguous(), w.contiguous())
 

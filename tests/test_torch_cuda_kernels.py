@@ -135,14 +135,17 @@ def test_flash_attention_fully_masked_rows(cuda, rng, dtype):
     assert bool((lse[0, :2] == plain.NEG_INF).all())
 
 
-@pytest.mark.parametrize("mn_major", [False, True])
-def test_wgmma_tile_product_matches_matmul(cuda, rng, mn_major):
-    """One 64 x 64 x 64 product through csrc/wgmma_sm90.cuh: B K-major
-    (A from shared memory) and B MN-major (A from registers), the two
-    forms flash_fwd_wgmma uses.  f32 sums of 64 bf16 products: 1e-4."""
+@pytest.mark.parametrize("n,mn_major", [(64, False), (64, True),
+                                        (128, True), (256, True)])
+def test_wgmma_tile_product_matches_matmul(cuda, rng, n, mn_major):
+    """One 64 x n x 64 product through csrc/wgmma_sm90.cuh: at n = 64 B
+    K-major (A from shared memory) and B MN-major (A from registers), the
+    two forms flash_fwd_wgmma uses; at n = 128 and 256 B MN-major with A
+    from shared memory (mma_ss_n), the forms gmm_wgmma uses.  f32 sums of
+    64 bf16 products: 1e-4."""
     a = _rand(rng, 64, 64, dtype="bfloat16")
-    b = _rand(rng, 64, 64, dtype="bfloat16")
-    c = fa.wgmma_tile_check(a, b, b_mn_major=mn_major)
+    b = _rand(rng, *((64, n) if mn_major else (n, 64)), dtype="bfloat16")
+    c = fa.wgmma_tile_check(a, b, b_mn_major=mn_major, n=n)
     torch.cuda.synchronize()
     ref = a.float() @ (b.float() if mn_major else b.float().T)
     assert _err(c, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
@@ -406,6 +409,14 @@ GMM_CASES = [
     (5, 8, 96, 64),       # granite-moe-smoke
     (3, 37, 40, 24),      # ragged C; D and F multiples of 8, not of tiles
     (2, 13, 19, 7),       # D and F not multiples of 8: element-wise loads
+    # the variants' thresholds: the rows kernel's C tiles (8, 16, 32) and
+    # its widest call, the wgmma kernel's 64- and 128-row tiles
+    (4, 1, 512, 1536), (4, 9, 1536, 512), (4, 17, 512, 1536),
+    (4, 32, 1536, 512), (4, 33, 512, 1536), (4, 63, 1536, 512), (4, 65, 512, 1536), (4, 129, 1536, 512),
+    (3, 40, 1544, 520),   # D not a multiple of 64, F not one of a tile
+    (2, 24, 40, 520),     # D of one partial slab
+    (1, 300, 512, 1536),  # one expert
+    (1, 8, 1536, 520),
 ]
 
 
@@ -422,6 +433,85 @@ def test_gmm_matches_plain(cuda, rng, case, dtype):
     ref = plain.gmm_ref(x, w)
     assert out.dtype == x.dtype and tuple(out.shape) == (E, C, F)
     _assert_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("case", GMM_CASES)
+@pytest.mark.parametrize("variant", ["wgmma", "rows", "mma_sync"])
+def test_gmm_bf16_variants_match_plain(cuda, rng, case, variant):
+    """Every bf16 kernel, forced, at every shape it takes (the others
+    raise), counted by its own counter; the same inputs give the same
+    bits twice (each output is one block's sum in one order)."""
+    E, C, D, F = case
+    x = _rand(rng, E, C, D, dtype="bfloat16")
+    w = _rand(rng, E, D, F, dtype="bfloat16", scale=D ** -0.5)
+    if not moe_gmm.takes(variant, x.dtype, E, C, D, F, True):
+        with pytest.raises(NotImplementedError):
+            moe_gmm.gmm(x, w, variant=variant)
+        return
+    before = (moe_gmm.launches, moe_gmm.wgmma_launches, moe_gmm.rows_launches)
+    out = moe_gmm.gmm(x, w, variant=variant)
+    again = moe_gmm.gmm(x, w, variant=variant)
+    torch.cuda.synchronize()
+    assert (moe_gmm.launches, moe_gmm.wgmma_launches,
+            moe_gmm.rows_launches) == (before[0] + 2,
+                                       before[1] + 2 * (variant == "wgmma"),
+                                       before[2] + 2 * (variant == "rows"))
+    assert out.dtype == x.dtype and tuple(out.shape) == (E, C, F)
+    _assert_close(out, plain.gmm_ref(x, w), "bfloat16")
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("case", [(40, 768, 1536, 512), (3, 300, 1544, 520),
+                                  (40, 128, 512, 1536), (3, 200, 1544, 520),
+                                  (2, 65, 40, 24), (2, 40, 1544, 520)])
+def test_gmm_wgmma_tiles_match_plain(cuda, rng, case):
+    """Each tile of the wgmma kernel as the source picks it by C (256 x
+    128 from C = 256, 128 x 256 above 64, 64 x 128 below), ragged edges
+    included."""
+    E, C, D, F = case
+    x = _rand(rng, E, C, D, dtype="bfloat16")
+    w = _rand(rng, E, D, F, dtype="bfloat16", scale=D ** -0.5)
+    out = moe_gmm.gmm(x, w, variant="wgmma")
+    torch.cuda.synchronize()
+    _assert_close(out, plain.gmm_ref(x, w), "bfloat16")
+
+
+@pytest.mark.parametrize("C,want", [(8, "rows"), (32, "rows"), (33, "wgmma"),
+                                    (128, "wgmma"), (768, "wgmma")])
+def test_gmm_dispatch_by_rows(cuda, rng, C, want):
+    """Granite's decode and prompt prefill (C = 8) go to the rows kernel,
+    its Memory-LLM and source prefill to the wgmma kernel."""
+    x = _rand(rng, 40, C, 1536, dtype="bfloat16")
+    w = _rand(rng, 40, 1536, 512, dtype="bfloat16", scale=1536 ** -0.5)
+    before = (moe_gmm.wgmma_launches, moe_gmm.rows_launches)
+    ops.gmm(x, w)
+    assert (moe_gmm.wgmma_launches - before[0],
+            moe_gmm.rows_launches - before[1]) == (
+                int(want == "wgmma"), int(want == "rows"))
+
+
+def test_gmm_forced_variant_rejects_what_it_does_not_take(cuda, rng):
+    x = _rand(rng, 2, 8, 64, dtype="bfloat16")
+    w = _rand(rng, 2, 64, 64, dtype="bfloat16")
+    flat = _rand(rng, 2 * 8 * 64 + 1, dtype="bfloat16")
+    shifted = flat[1:].view(2, 8, 64)  # contiguous, 2 bytes off 16
+    for variant in ("wgmma", "rows"):
+        with pytest.raises(NotImplementedError):
+            moe_gmm.gmm(shifted, w, variant=variant)
+        with pytest.raises(NotImplementedError):
+            moe_gmm.gmm(x.float(), w.float(), variant=variant)
+        with pytest.raises(NotImplementedError):  # F not a multiple of 8
+            moe_gmm.gmm(x, w[..., :60].contiguous(), variant=variant)
+    with pytest.raises(NotImplementedError):
+        moe_gmm.gmm(_rand(rng, 2, moe_gmm.ROWS_MAX_C + 1, 64,
+                          dtype="bfloat16"), w, variant="rows")
+    with pytest.raises(NotImplementedError):
+        moe_gmm.gmm(x.float(), w.float(), variant="mma_sync")
+    with pytest.raises(ValueError):
+        moe_gmm.gmm(x, w, variant="tma")
+    assert moe_gmm.variant_for(shifted.dtype, 8, 64, 64, False) == "mma_sync"
+    _assert_close(moe_gmm.gmm(shifted, w), plain.gmm_ref(shifted, w),
+                  "bfloat16")
 
 
 def test_gmm_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
