@@ -71,14 +71,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
       with an initial state, a 12-token prompt, 1000 tokens (no multiple
       of any chunk), two groups, and dt·|A| = 25 a token (the decay sums
       past 100 within a chunk: the result must be finite).  y and the
-      final state are held to ``plain.ssd_ref`` on the same inputs, summed
-      in float64 for the float32 check as the kernel sums float32 inputs
-      (float32 sums stray up to ~5e-4 of a row's scale where the row is
-      the cancelled remainder of its terms; the float32 plain version's own
-      distance from it is printed beside); bound max(the scan's least
-      operations (2N + 2P + 4NP per token and head: the chunked form at
-      Q = 1) / 989 TFLOP/s, bytes of x, y, B, C, dt and the states / 3.35
-      TB/s).  No PyTorch call runs the scan, so it has no library time.
+      final state are held to ``plain.ssd_ref`` on the same inputs: bf16
+      through both kernels, the chunked variant and the sequential one,
+      each forced;
+      float32 through the sequential kernel alone, summed in float64 for
+      the check as the kernel sums float32 inputs (float32 sums stray up
+      to ~5e-4 of a row's scale where the row is the cancelled remainder
+      of its terms; the float32 plain version's own distance from it is
+      printed beside); and probes at 64, 128 and 256 tokens (bf16 only)
+      that set ``ss.variant_for``'s rule.  ``ms`` is the picked variant's
+      time by CUDA events (``variant``), beside ``ms_<variant>`` and
+      ``device_ms_<variant>``: 21 calls replayed in a CUDA graph that
+      rotate through three input sets, so that no call reads its 15 MB
+      of inputs from the 50 MB L2.  Bound max(the scan's least operations
+      (2N + 2P + 4NP per token and head: the chunked form at Q = 1) / 989
+      TFLOP/s, bytes of x, y, B, C, dt and the states / 3.35 TB/s),
+      printed beside the bytes the chunked design moves (its chunk states
+      cross device memory four times).  No PyTorch call runs the scan, so
+      it has no library time.
 4. The main path, end to end, at the full published width and depth of
    gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
    bfloat16, weights drawn from seeds, each in two runs with every
@@ -110,10 +120,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
       and then a paged engine (block size 16): the tokens must be
       identical, a request admitted into a refilled slot must give the
       tokens of a fresh engine, and ``ssd`` must have been launched once
-      per layer and prefill.  Printed: the prefill seconds of one
-      ~3080-token prompt, decode tok/s, TTFT, the state bytes per slot
-      beside gemma2-2b's K/V bytes for 3072 tokens, peak memory, and a
-      profiled prefill and 4-request serve.
+      per layer and prefill, every time through the chunked variant.
+      Printed: the prefill seconds of one ~3080-token prompt, decode
+      tok/s, TTFT, the state bytes per slot beside gemma2-2b's K/V bytes
+      for 3072 tokens, peak memory, and a profiled prefill (with the
+      device time of each ``ssd`` kernel by name: the chunked variant's
+      three phases) and 4-request serve.
 5. Kernels vs plain end to end, after each model: the pipeline at full
    width and depth 2, once through the kernels and once forced to the
    plain versions (``ops.set_default_impl("torch")``): O^i and the
@@ -130,7 +142,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel error.  The choices the plain run would have made on its own
    are counted and printed.  mamba2-370m at depth 2: a many-shot
    prompt's last-position logits and final SSM states through ``ssd``
-   and through the plain version agree within the same bound.
+   and through the plain version agree within the same bound (both
+   ``ssd`` calls through the chunked variant).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
@@ -662,6 +675,18 @@ def main() -> int:
         h0 = rand(B, H, P, N, dtype=torch.float32) if init else None
         return x, dt, A, Bm, Cm, h0
 
+    def ssd_design_bytes(B, S, H, P, G, N, init):
+        """The bytes the chunked variant moves: x, B and dt read by phases
+        1 and 3, C by phase 3, y written, the initial state read and the
+        final one written; per chunk of ss.CHUNK_Q tokens the states four
+        times (S_c written in float32 and read by phase 2, the entering
+        state written and read as a bf16 pair) and e^{cum_Q} twice."""
+        nc = -(-S // ss.CHUNK_Q)
+        x_b, bc_b, dt_b = B * S * H * P * 2, B * S * G * N * 2, B * S * H * 4
+        return (2 * (x_b + bc_b + dt_b) + bc_b + x_b
+                + 4 * B * H * P * N * (2 if init else 1)
+                + 16 * B * nc * H * P * N + 8 * B * nc * H)
+
     def ssd_work(B, S, H, P, G, N, init, elt):
         """The scan's least operations and the bytes it must move: x and
         y, B and C in their type, dt, the initial and final state in
@@ -681,52 +706,97 @@ def main() -> int:
         ("ragged_1000", 1, 1000, 32, 64, 1, 128, True, False),
         ("groups2", 1, 512, 32, 64, 2, 128, True, False),
         ("decay_past_100", 1, 512, 32, 64, 1, 128, True, True),
+        # probes (bf16 only) between the lengths above, that set
+        # ss.variant_for's rule
+        ("probe_S64", 1, 64, 32, 64, 1, 128, True, False),
+        ("probe_S128", 1, 128, 32, 64, 1, 128, True, False),
+        ("probe_S256", 1, 256, 32, 64, 1, 128, True, False),
     ]
+    ssd_variants = ("chunked", "sequential")
+
     ssd_rows = []
     for name, B, S, H, P, G, N, init, big in ssd_cases:
         row = {"shape": name, "x": [B, S, H, P], "bc": [B, S, G, N],
                "init_state": init, "decay_past_100": big}
-        for dtype in (torch.float32, torch.bfloat16):
+
+        def ssd_check(label, dn, y, hf, y_ref, hf_ref, extra=""):
+            finite = bool(torch.isfinite(y.float()).all()
+                          & torch.isfinite(hf).all())
+            e_h, se_h = err(hf, hf_ref), plain.scaled_err(hf, hf_ref)
+            e, se = check("ssd", label, dn, y, y_ref,
+                          finite and e_h <= TOL[dn] and se_h <= REL_TOL[dn],
+                          f", final state max abs err {e_h:.3e} scaled "
+                          f"{se_h:.3e}, finite {finite}{extra}")
+            return max(e, e_h), max(se, se_h)
+
+        for dtype in ((torch.bfloat16,) if name.startswith("probe")
+                      else (torch.float32, torch.bfloat16)):
             dn = str(dtype).split(".")[1]
             x, dt, A, Bm, Cm, h0 = ssd_inputs(B, S, H, P, G, N, dtype, init,
                                               big)
-            y, hf = ss.ssd(x, dt, A, Bm, Cm, init_state=h0)
-            torch.cuda.synchronize()
             wide = [None if a is None
                     else a.double() if dtype is torch.float32 else a
                     for a in (x, dt, A, Bm, Cm, h0)]
             y_ref, hf_ref = plain.ssd_ref(*wide[:5], init_state=wide[5])
-            finite = bool(torch.isfinite(y.float()).all()
-                          & torch.isfinite(hf).all())
-            e_h, se_h = err(hf, hf_ref), plain.scaled_err(hf, hf_ref)
-            extra = ""
-            if dtype is torch.float32:
+            if dtype is torch.float32:  # the sequential kernel's alone
+                y, hf = ss.ssd(x, dt, A, Bm, Cm, init_state=h0)
+                torch.cuda.synchronize()
                 y32, hf32 = plain.ssd_ref(x, dt, A, Bm, Cm, init_state=h0)
-                extra = (f"; float32 plain from float64: y scaled "
-                         f"{plain.scaled_err(y32, y_ref):.3e}, state scaled "
-                         f"{plain.scaled_err(hf32, hf_ref):.3e}")
-                del y32, hf32
-            e, se = check("ssd", name, dn, y, y_ref,
-                          finite and e_h <= TOL[dn] and se_h <= REL_TOL[dn],
-                          f", final state max abs err {e_h:.3e} scaled "
-                          f"{se_h:.3e}, finite {finite}{extra}")
-            row[f"max_abs_err_{dn}"] = max(e, e_h)
-            row[f"scaled_err_{dn}"] = max(se, se_h)
-            if dtype is torch.bfloat16:
-                row["ms"] = cuda_ms(lambda: ss.ssd(x, dt, A, Bm, Cm,
-                                                   init_state=h0))
-                row["plain_ms"] = cuda_ms(
-                    lambda: plain.ssd_ref(x, dt, A, Bm, Cm, init_state=h0),
-                    reps=3)
-                row["library_ms"] = None  # no PyTorch call runs the scan
-                flops, nbytes = ssd_work(B, S, H, P, G, N, init, 2)
-                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
-                row["flops"], row["bytes"] = flops, nbytes
-                log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
-                    f"{row['plain_ms']:.4f} ms, no library call, bound "
-                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {flops} "
-                    f"flops, {nbytes} bytes)")
-            del x, dt, A, Bm, Cm, h0, y, hf, y_ref, hf_ref, wide
+                row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = ssd_check(
+                    name, dn, y, hf, y_ref, hf_ref,
+                    f"; float32 plain from float64: y scaled "
+                    f"{plain.scaled_err(y32, y_ref):.3e}, state scaled "
+                    f"{plain.scaled_err(hf32, hf_ref):.3e}")
+                del x, dt, A, Bm, Cm, h0, y, hf, y_ref, hf_ref, wide, y32, hf32
+                continue
+            # every bf16 kernel that takes the shape, forced, each held to
+            # the plain version
+            variants = [v for v in ssd_variants
+                        if ss.takes(v, dtype, P, N, True)]
+            for var in variants:
+                y, hf = ss.ssd(x, dt, A, Bm, Cm, init_state=h0, variant=var)
+                torch.cuda.synchronize()
+                (row[f"max_abs_err_{dn}_{var}"],
+                 row[f"scaled_err_{dn}_{var}"]) = ssd_check(
+                    f"{name}_{var}", dn, y, hf, y_ref, hf_ref)
+                del y, hf
+            for k in ("max_abs_err", "scaled_err"):
+                row[f"{k}_{dn}"] = max(v for key, v in row.items()
+                                       if key.startswith(f"{k}_{dn}_"))
+            row["variant"] = ss.variant_for(dtype, S, P, N, True)
+            # three input sets (15 MB each at the prefill) for the device
+            # times, so that no call reads its inputs from the 50 MB L2
+            bufs = [(x, dt, A, Bm, Cm, h0)] + [
+                ssd_inputs(B, S, H, P, G, N, dtype, init, big)
+                for _ in range(2)]
+            row["ms"] = cuda_ms(lambda: ss.ssd(x, dt, A, Bm, Cm,
+                                               init_state=h0))
+            for var in variants:
+                row[f"ms_{var}"] = cuda_ms(lambda: ss.ssd(
+                    x, dt, A, Bm, Cm, init_state=h0, variant=var))
+                row[f"device_ms_{var}"] = device_ms(
+                    lambda *a: ss.ssd(*a[:5], init_state=a[5], variant=var),
+                    21, bufs)
+            row["plain_ms"] = cuda_ms(
+                lambda: plain.ssd_ref(x, dt, A, Bm, Cm, init_state=h0),
+                reps=3)
+            row["library_ms"] = None  # no PyTorch call runs the scan
+            flops, nbytes = ssd_work(B, S, H, P, G, N, init, 2)
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+            row["flops"], row["bytes"] = flops, nbytes
+            row["chunk_q"] = ss.CHUNK_Q
+            row["design_bytes"] = ssd_design_bytes(B, S, H, P, G, N, init)
+            row["design_bound_ms"] = row["design_bytes"] / PEAK_BYTES * 1e3
+            log(f"  {name} bf16: kernel {row['ms']:.4f} ms ({row['variant']}"
+                f", Q {ss.CHUNK_Q}); device (3 input sets) "
+                + ", ".join(f"{v} {row[f'device_ms_{v}']:.4f}"
+                            for v in variants)
+                + f"; plain {row['plain_ms']:.4f} ms, no library call; "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {flops}"
+                f" flops, {nbytes} bytes); the chunked design moves "
+                f"{row['design_bytes']} bytes, "
+                f"{row['design_bound_ms']:.4f} ms at 3.35 TB/s")
+            del x, dt, A, Bm, Cm, h0, y_ref, hf_ref, wide, bufs
         ssd_rows.append(row)
     torch.cuda.empty_cache()
 
@@ -738,12 +808,14 @@ def main() -> int:
         for mod in counters.values():
             mod.launches = 0
         fa.wgmma_launches = gm.wgmma_launches = gm.rows_launches = 0
+        ss.chunked_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
         c["flash_attention_wgmma"] = fa.wgmma_launches
         c["gmm_wgmma"] = gm.wgmma_launches
         c["gmm_rows"] = gm.rows_launches
+        c["ssd_chunked"] = ss.chunked_launches
         return c
 
     class SourcePrefills:
@@ -870,7 +942,9 @@ def main() -> int:
         busy = busy_us / 1e6
         out = {"wall_s": wall, "device_busy_s": busy, "kernels": len(kernels),
                "idle_share": max(0.0, 1 - busy / wall),
-               "top": [(name[:60], us / 1e3, n) for name, (us, n) in top]}
+               "top": [(name[:60], us / 1e3, n) for name, (us, n) in top],
+               "by_name": {name: (us / 1e3, n)
+                           for name, (us, n) in by_name.items()}}
         log(f"{tag} profile {phase}: wall {wall:.4f}s, device busy "
             f"{busy:.4f}s over {len(kernels)} kernels, idle share "
             f"{out['idle_share']:.3f}")
@@ -1325,11 +1399,13 @@ def main() -> int:
                    or t_.max() >= cfg.vocab_size for t_ in tokens):
                 raise AssertionError(f"{tag} {label}: bad generated tokens")
             want = cfg.num_layers * numbers["prefills"]
-            if numbers["launches"]["ssd"] != want:
+            if numbers["launches"]["ssd"] != want \
+                    or numbers["launches"]["ssd_chunked"] != want:
                 raise AssertionError(
                     f"{tag} {label}: ssd launched "
-                    f"{numbers['launches']['ssd']} times, want {want} (one "
-                    "per layer and prefill)")
+                    f"{numbers['launches']['ssd']} times, "
+                    f"{numbers['launches']['ssd_chunked']} of them chunked; "
+                    f"want {want} (one per layer and prefill), all chunked")
             return reqs, tokens, numbers
 
         engine = engine_for("dense")
@@ -1383,6 +1459,13 @@ def main() -> int:
                 cfg, 1, toks.shape[1]), cache_index=0)),
             ("serve", lambda: engine.serve(
                 [Request(**s_) for s_ in specs[:4]])))}
+        ssd_kernels = {k.split("::")[-1].split("(")[0]: v for k, v in
+                       breakdown["prefill"]["by_name"].items()
+                       if "ssd_" in k}
+        for k, (ms, n) in sorted(ssd_kernels.items(), key=lambda kv: -kv[1][0]):
+            log(f"{tag} {card}: profiled prefill, ssd kernel {k}: {ms:.4f} "
+                f"ms over {n} launches, {ms / n:.4f} ms each")
+        breakdown["prefill"]["ssd_kernels"] = ssd_kernels
         return {"params": n_params, "dense": dense, "paged": paged,
                 "refilled_request": refilled, "prefill_s": prefill_s,
                 "state_bytes_per_slot": state_bytes,
@@ -1412,7 +1495,7 @@ def main() -> int:
         set_counts()
         logits_k, states_k = run()
         torch.cuda.synchronize()
-        n = counts()["ssd"]
+        n, n_chunked = counts()["ssd"], counts()["ssd_chunked"]
         ops.set_default_impl("torch")
         try:
             logits_p, states_p = run()
@@ -1422,10 +1505,11 @@ def main() -> int:
         rel_state = max(rel(a, b) for a, b in zip(states_k, states_p))
         log(f"{tag} depth 2, bf16, {toks.shape[1]} tokens: first-step "
             f"logits rel err {rel_logits:.3e}, final states rel err "
-            f"{rel_state:.3e} (tol {E2E_REL_TOL:g}); ssd launches {n}; "
+            f"{rel_state:.3e} (tol {E2E_REL_TOL:g}); ssd launches {n} "
+            f"({n_chunked} chunked); "
             f"greedy token kernel {int(logits_k.argmax())} plain "
             f"{int(logits_p.argmax())}")
-        if not (n == 2 and rel_logits <= E2E_REL_TOL
+        if not (n == n_chunked == 2 and rel_logits <= E2E_REL_TOL
                 and rel_state <= E2E_REL_TOL):
             raise AssertionError(f"{tag}: kernel path and plain path "
                                  "disagree")
@@ -1484,6 +1568,15 @@ def main() -> int:
                 rows_launches=sum(c["gmm_rows"] for c in paths.values()),
                 variant=head["variant"],
                 library_device_ms=head["library_device_ms"],
+                **{k: head[k] for k in head
+                   if k.startswith(("ms_", "device_ms_"))})
+        if name == "ssd":  # the chunked variant and the sequential one
+            entries[-1].update(
+                chunked_launches=sum(c["ssd_chunked"]
+                                     for c in paths.values()),
+                variant=head["variant"], chunk_q=head["chunk_q"],
+                design_bytes=head["design_bytes"],
+                design_bound_ms=head["design_bound_ms"],
                 **{k: head[k] for k in head
                    if k.startswith(("ms_", "device_ms_"))})
     report["kernels"] = entries

@@ -1,15 +1,15 @@
-// Mamba2 SSD (state-space duality) chunked scan for Hopper (sm_90a), CUDA C++.
+// Mamba2 SSD (state-space duality) scan for Hopper (sm_90a), CUDA C++: two
+// variants behind two entry points.
 //
 // Replaces: src/repro/kernels/ssd_scan.py::ssd (the Pallas TPU kernel,
-// ssd_scan.py:93).  Contract: src/repro/kernels/ref.py::ssd_ref (plain
-// twin: plain.ssd_ref) —
+// ssd_scan.py:93, pallas_call at :115).  Contract:
+// src/repro/kernels/ref.py::ssd_ref (plain twin: plain.ssd_ref) —
 //   x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, Bm / Cm (B,S,G,N), h0
 //   (B,H,P,N) f32 or null (zeros)  ->  y (B,S,H,P) in x's type, hf
 //   (B,H,P,N) f32, with h_t = e^{dt_t A} h_{t-1} + dt_t x_t B_tᵀ and
 //   y_t = h_t C_t per head; head h reads group h / (H / G).
 //
-// Per chunk of Q tokens, in the accumulation type (float32 for bf16
-// inputs, float64 for float32 inputs):
+// Per chunk of Q tokens, in float32:
 //   cum   = cumsum(dt · A)                       inclusive
 //   W_ij  = (C_i · B_j) e^{cum_i - cum_j} dt_j   for j <= i, else 0
 //   y_i   = Σ_j W_ij x_j + e^{cum_i} (state C_i)
@@ -19,34 +19,80 @@
 // chunk, where a 0/1 mask would turn inf·0 into NaN.  Every exponent taken
 // is <= 0.  Rows past S load dt = 0, x = B = C = 0: an exact no-op.
 //
-// What bounds it on an H100: at mamba2-370m's prefill (B 1, S ~3080, H 32,
-// P 64, G 1, N 128) the scan must move 29.3 MB (x and y, B and C in bf16,
-// dt, the initial and final state in float32): 0.0088 ms at 3.35 TB/s.
-// Its operations are fewer at any chunk length Q (2Q(N + P) + 4NP per token
-// and head; 3.3 GFLOP at Q = 1, 4.4 at this kernel's Q = 32, 12.9 at the
-// TPU's 256): 0.0033-0.0130 ms at the 989 TFLOP/s bf16 tensor rate.  So
-// the bound is bytes.  This kernel runs on the CUDA cores in float32 (67
-// TFLOP/s), so it stays far from it; tensor cores for C·Bᵀ and W·x, TMA,
-// and a chunk-parallel two-pass state are later work.
+// What bounds it on an H100: at mamba2-370m's prefill (B 1, S 3084, H 32,
+// P 64, G 1, N 128) the contract moves 29,335,168 bytes (x and y, B and C
+// in bf16, dt, the initial and final state in float32): 0.0088 ms at 3.35
+// TB/s.  Its operations are fewer at any chunk length (2Q(N + P) + 4NP per
+// token and head: 3.3 GFLOP at Q = 1, 5 GFLOP at Q = 128 with C·Bᵀ shared
+// by a group's heads): ~0.005 ms at the 989 TFLOP/s bf16 tensor rate.  So
+// the bound is bytes.
 //
-// Design:
+// ---- "chunked" (ssd_scan_chunked_fwd): bf16, P 64, N 128 --------------
+// The variant of the main path: mamba2-370m's prefill.  Chunks of Q_ =
+// 128 tokens (Q 64 was slower on an H100, PERF.md section 6; the wrapper's
+// CHUNK_Q sizes the scratch), three kernels on the caller's stream:
+// 1. ssd_chunk_states, grid (chunk, head block, batch): cum by a warp scan,
+//    seg_j = e^{cum_Q - cum_j} dt_j, the chunk's own state S_c = (x∘seg)ᵀ B
+//    (P x Q times Q x N) on mma.sync m16n8k16, and e^{cum_Q}.  The block's
+//    heads (up to HB1_MAX = 4 of one group) share one load of B; S_c goes
+//    out through shared memory in rows of 512 bytes.
+// 2. ssd_state_pass, grid (P·N / 1024, head, batch), serial over chunks,
+//    float32 elementwise: writes the state entering chunk c, then h = h ·
+//    e^{cum_Q(c)} + S_c; the last h is the final state.
+// 3. ssd_chunk_outputs, grid (chunk, head block, batch): C·Bᵀ once per
+//    block in registers (each warp owns 16 rows i and the j-tiles at or
+//    below the diagonal), reused by the block's heads (up to HB3_MAX = 8):
+//    per head W from it in registers (e^{…} on the SFU's ex2), y = W x +
+//    e^{cum_i} (C h_inᵀ) on mma.sync, y in bf16.
+// Each block's tiles (B, C, and per head x and the entering state) come
+// by cp.async; the next head's tiles load while this head computes.
+// Bytes the design moves at the prefill, Q = 128 (25 chunks): x and B
+// twice (phases 1 and 3), C, dt twice, y, h0 and hf, and the chunk states
+// four times (phase 1 writes S_c in float32, phase 2 reads it and writes
+// the entering state as a bf16 pair, phase 3 reads the pair): 16 bytes x
+// 6,553,600 state elements = 104.9 MB of 148.0 MB: 0.044 ms at 3.35 TB/s.
+// The chunk states are the cost; chip_smoke.py prints this count beside
+// the contract's.
+// Rounding.  x, B and C arrive in bf16, so C·Bᵀ and every product with x
+// or B is exact on bf16 tensor cores.  The three float32 operands go to
+// the tensor cores as sums of bf16 terms, one product each into one
+// float32 sum: x∘seg (phase 1) and the entering state (phase 3) as a
+// hi/lo pair (hi = bf16(v), lo = bf16(v - hi): ~2^-17 of v), W (phase 3)
+// as hi/mid/lo (~2^-25).  One bf16 rounding (2^-9) of the entering state
+// misses the 2e-2 scaled gate at mamba2-370m's widths, and a hi/lo pair
+// of W the max abs gate at dt·|A| = 25 a token: y_i ≈ W_ii x_i there,
+// hundreds of elements of y exceed 4, where a bf16 ulp is 3.1e-2, and
+// 2^-17 of W moves some of them to the other bf16 neighbour.  W_ii x_i
+// stays out of the tensor cores: C_i·B_i is summed on the CUDA cores
+// with TwoSum, W_ii carried as a float32 pair, and diag_odd adds W_ii x_i
+// last and rounds to odd, so y's bf16 rounding follows the sum and not
+// its float32 rounding.  At dt·|A| = 25 an element of y past 4 lay
+// within float32 rounding of a bf16 tie on the card; summed on the
+// tensor cores (whose sums drop low bits), y rounded to the other
+// neighbour than the plain version's, 3.1e-2 away.
+// cum is summed in another order than torch.cumsum's: lane l sums tokens
+// l·Q/32 .. in token order, a Hillis-Steele scan adds the lanes' totals,
+// and each partial gets its lane's exclusive prefix.  plain.
+// ssd_chunk_parallel restates the three phases with this order and these
+// rounding points; tests/test_torch_ssd_chunked.py holds it to the JAX
+// package, dt·|A| = 25 included, and chip_smoke.py holds the kernel to
+// plain.ssd_ref under the unchanged gates.  Figures: PERF.md section 6.
+//
+// ---- "sequential" (ssd_scan_fwd): float32 and bf16, any P, N <= 256 ----
+// The port's first kernel, kept whole: float32 calls, bf16 calls shorter
+// than the wrapper's CHUNKED_MIN_S, and bf16 calls whose P or N the
+// chunked variant does not take.  Types: bf16 inputs accumulate
+// in float32, float32 inputs in float64, one step wider than the inputs
+// as bf16 is summed in float32 (where a row of y is the cancelled
+// remainder of its terms, C_i·B_i near 0 when the decay leaves only j = i,
+// float32 sums stray ~5e-4 of the row's scale from the exact scan, past
+// the 1e-4 rule that holds float32 results to their plain version).
 // * The Pallas grid (B, H, nc) walks the chunks in order with the (P, N)
 //   state in VMEM.  Here the chunk loop runs inside the block.  State row
 //   p only meets x[:, p] and y[:, p], so the P rows split into tiles of
-//   PT = 16: grid (P / PT, H, B) gives 4 · 32 = 128 blocks at the prefill
-//   shape (one block per (b, h) would fill 32 of the 132 SMs).  Each P tile
-//   recomputes the chunk's C·Bᵀ (2Q²N of its work), the price of the
-//   parallelism.
-// * The chunk is Q = 32 tokens, not the TPU's 256: per token the block
-//   pays 2QN for C·Bᵀ and 4N·PT for the state, so a short chunk does less
-//   work; a (256, 256) f32 decay tile alone (256 KB) would not fit a
-//   block's 227 KB of shared memory.  The function does not depend on Q.
-// * Types: bf16 inputs accumulate in float32 (the main path).  float32
-//   inputs accumulate in float64, one step wider than the inputs as bf16
-//   is summed in float32.  Where a row of y is the cancelled remainder of
-//   its terms (C_i·B_i near 0 when the decay leaves only j = i), float32
-//   sums stray ~5e-4 of the row's scale from the exact scan, past the
-//   1e-4 rule that holds float32 results to their plain version.
+//   PT = 16: grid (P / PT, H, B).  Each P tile recomputes the chunk's C·Bᵀ.
+// * The chunk is Q = 32 tokens; CUDA cores, no prefetch: 97 dependent
+//   chunk steps at the prefill (PERF.md section 6 has its times).
 // * Shared memory holds the chunk's B and C (Q x N, rows padded by 4 so
 //   that float4 reads of eight rows hit 32 distinct banks), the PT x N
 //   state, x's Q x PT tile and W (Q x Q+1): 49 KB at N = 128 in float32,
@@ -59,6 +105,9 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "mma_sm80.cuh"
+#include "wgmma_sm90.cuh"  // cp.async
 
 namespace {
 
@@ -317,4 +366,568 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
   if (dtype == 1)
     return launch<bf16>(x, dt, A, Bm, Cm, h0, y, hf, B, S, H, P, G, N, st);
   return cudaErrorInvalidValue;
+}
+
+// ---- the chunked variant --------------------------------------------------
+
+namespace {
+namespace chunked {
+
+using mma_sm80::ldsm_x4;
+using mma_sm80::ldsm_x4_t;
+using mma_sm80::mma16816;
+using mma_sm80::pack_bf16;
+using mma_sm80::smem_addr;
+
+constexpr int NT = 256;     // threads of a phase 1 or phase 3 block: 8 warps
+// heads of one group a block takes, at most: phase 1 (B shared), phase 3
+// (C·Bᵀ shared; more heads a block amortize its C, B loads and C·Bᵀ)
+constexpr int HB1_MAX = 4;
+constexpr int HB3_MAX = 8;
+constexpr int Q_ = 128;     // tokens a chunk
+constexpr int P_ = 64;      // the head dim the instance takes
+constexpr int N_ = 128;     // the d_state the instance takes
+constexpr int PASS_NT = 256;  // threads of a phase 2 block, 4 elements each
+constexpr int PASS_U = 8;     // chunk states phase 2 loads ahead
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int Q, int P, int N>
+struct Cfg {
+  static constexpr int NS = N + 8;  // padded bf16 row of B, C, state planes
+  static constexpr int PS = P + 8;  // padded bf16 row of x (16-byte shift
+                                    // a row: ldmatrix rows hit 8 bank sets)
+  static constexpr int KN = N / 16;  // k16 steps over N
+  // phase 1: P/16 m-tiles of the state; the warps of one m-tile split N
+  static constexpr int S_MT = P / 16;
+  static constexpr int S_NW = N / (8 / S_MT);  // state columns a warp
+  static constexpr int S_NT = S_NW / 8;
+  // phase 3: Q/16 m-tiles of rows i; the warps of one m-tile split P
+  static constexpr int MT = Q / 16;
+  static constexpr int WP = 8 / MT;
+  static constexpr int PW = P / WP;  // y columns a warp
+  static constexpr int NPT = PW / 8;
+  static_assert(Q % 32 == 0 && MT * WP == 8, "8 warps over Q / 16 m-tiles");
+  static_assert(8 % S_MT == 0 && S_NT % 2 == 0 && NPT % 2 == 0,
+                "n8 tiles go in pairs (ldmatrix x4)");
+  static constexpr int SS = N + 4;  // padded float32 row of a staged state
+  static constexpr size_t states_smem =  // B, x double-buffered, dt, seg,
+      (static_cast<size_t>(Q) * NS + 2 * Q * PS) * 2  // the staged state
+      + (2 * HB1_MAX * Q + P * SS) * 4;
+  static constexpr size_t outputs_smem =  // C, B; x and both planes x 2
+      (static_cast<size_t>(2) * Q * NS + 2 * (Q * PS + 2 * P * NS)) * 2
+      + 2 * HB3_MAX * Q * 4;
+};
+
+// Asynchronous copy of a ROWS x COLS bf16 tile (global row stride ld) into
+// shared memory (row stride sld); rows at or past `valid` are zeros.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(bf16* dst, int sld, const bf16* src,
+                                          size_t ld, int valid) {
+  constexpr int CH = COLS / 8;  // 16-byte pieces a row
+  for (int e = threadIdx.x; e < ROWS * CH; e += NT) {
+    const int r = e / CH, k = e % CH;
+    const bool ok = r < valid;
+    wgmma_sm90::cp_async16(smem_addr(dst + r * sld + k * 8),
+                           ok ? src + r * ld + k * 8 : src, ok);
+  }
+}
+
+// dt of the block's heads for the chunk, [hh][r], 0 past S.
+template <int Q>
+__device__ __forceinline__ void load_dt(float* sDt, const float* dt, int b,
+                                        int s0, int S, int H, int h0, int hb) {
+  for (int e = threadIdx.x; e < Q * hb; e += NT) {
+    const int r = e / hb, hh = e % hb, s = s0 + r;
+    sDt[hh * Q + r] =
+        s < S ? dt[(static_cast<size_t>(b) * S + s) * H + h0 + hh] : 0.f;
+  }
+}
+
+// One warp: cum = cumsum(dt · a) over the chunk, inclusive.  Lane l sums
+// tokens l·Q/32 .. in token order, a Hillis-Steele scan adds the lanes'
+// totals, and each partial gets its lane's exclusive prefix: another order
+// than torch.cumsum's (plain.ssd_chunk_parallel restates it).  Each product
+// and sum rounded apart, never fused.
+template <int Q>
+__device__ __forceinline__ void chunk_cumsum(const float* sdt, float a,
+                                             float* scum, int lane) {
+  constexpr int PER = Q / 32;
+  float part[PER];
+  float run = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    run = __fadd_rn(run, __fmul_rn(sdt[lane * PER + k], a));
+    part[k] = run;
+  }
+  float v = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v = __fadd_rn(v, o);
+  }
+  float excl = __shfl_up_sync(FULL, v, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) scum[lane * PER + k] = __fadd_rn(excl, part[k]);
+}
+
+// v (two floats) as a hi/lo pair of bf16x2: hi = bf16(v), lo = bf16(v - hi).
+__device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// v as three bf16x2 terms: hi = bf16(v), then the rest split as above.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  split(v0 - hf.x, v1 - hf.y, mid, lo);
+}
+
+// s + e = a + b exactly (TwoSum; additions only, so nothing is fused).
+__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// (wh + wl) x + rest rounded to float32, then to odd where that rounding
+// dropped something, so that y's rounding to bf16 is the rounding of the
+// sum itself and not of its float32 rounding (round to odd).  At dt·|A| =
+// 25 a token y_i is W_ii x_i plus ~1e-10 of it from the other tokens, and
+// an element of y can lie that close to a bf16 tie.
+__device__ __forceinline__ float diag_odd(float wh, float wl, float x,
+                                          float rest) {
+  const float p = __fmul_rn(wh, x);
+  const float pe = __fmaf_rn(wh, x, -p);  // wh x - p, exact
+  float s, e;
+  two_sum(p, rest, s, e);
+  const float err = __fadd_rn(__fadd_rn(e, pe), __fmul_rn(wl, x));
+  uint32_t u = __float_as_uint(s);
+  if (err != 0.f && !(u & 1u) && (u << 1) != 0u)
+    u = (err > 0.f) == (s > 0.f) ? u + 1u : u - 1u;  // away from / to 0
+  return __uint_as_float(u);
+}
+
+// x∘seg for an A fragment register of x (two tokens' values of one p).
+__device__ __forceinline__ void split_scaled(uint32_t xv, float s0, float s1,
+                                             uint32_t& hi, uint32_t& lo) {
+  const float2 f = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&xv));
+  split(f.x * s0, f.y * s1, hi, lo);
+}
+
+// ---- phase 1: each chunk's own state ----
+template <int Q, int P, int N>
+__global__ void __launch_bounds__(NT)
+ssd_chunk_states(const bf16* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const bf16* __restrict__ Bm,
+                 float* __restrict__ states, float* __restrict__ decay, int S,
+                 int H, int G, int hb) {
+  using C_ = Cfg<Q, P, N>;
+  constexpr int NS = C_::NS, PS = C_::PS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sB = reinterpret_cast<bf16*>(smem_raw);    // [Q][NS]
+  bf16* sX = sB + Q * NS;                          // [2][Q][PS]
+  float* sDt = reinterpret_cast<float*>(sX + 2 * Q * PS);  // [HB1_MAX][Q]
+  float* sSeg = sDt + HB1_MAX * Q;                 // [HB1_MAX][Q]
+  float* sS = sSeg + HB1_MAX * Q;                  // [P][SS] S_c, staged
+
+  const int c = blockIdx.x, h0 = blockIdx.y * hb, b = blockIdx.z;
+  const int nc = gridDim.x, g = h0 / (H / G), s0 = c * Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t tok0 = static_cast<size_t>(b) * S + s0;
+  auto load_x = [&](int hh) {
+    load_tile<Q, P>(sX + (hh & 1) * Q * PS, PS,
+                    x + (tok0 * H + h0 + hh) * P, static_cast<size_t>(H) * P,
+                    S - s0);
+  };
+
+  load_tile<Q, N>(sB, NS, Bm + (tok0 * G + g) * N,
+                  static_cast<size_t>(G) * N, S - s0);
+  load_x(0);
+  wgmma_sm90::cp_async_commit();
+  if (hb > 1) load_x(1);
+  wgmma_sm90::cp_async_commit();
+  load_dt<Q>(sDt, dt, b, s0, S, H, h0, hb);
+  __syncthreads();
+  if (warp < hb) {
+    float* cum = sSeg + warp * Q;  // cum first, then seg in place
+    chunk_cumsum<Q>(sDt + warp * Q, A[h0 + warp], cum, lane);
+    __syncwarp();
+    const float last = cum[Q - 1];
+    __syncwarp();  // every lane has read cum_Q before seg overwrites it
+#pragma unroll
+    for (int k = 0; k < Q / 32; ++k) {
+      const int j = lane + 32 * k;
+      cum[j] = expf(last - cum[j]) * sDt[warp * Q + j];
+    }
+    if (lane == 0)
+      decay[(static_cast<size_t>(b) * nc + c) * H + h0 + warp] = expf(last);
+  }
+
+  const int mt = warp % C_::S_MT, p0 = 16 * mt;
+  const int n0 = (warp / C_::S_MT) * C_::S_NW;
+  for (int hh = 0; hh < hb; ++hh) {
+    wgmma_sm90::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* X = sX + (hh & 1) * Q * PS;
+    const float* seg = sSeg + hh * Q;
+    float acc[C_::S_NT][4];
+#pragma unroll
+    for (int n = 0; n < C_::S_NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < Q / 16; ++ks) {
+      // A = (x∘seg)ᵀ: m = p, k = token, from x stored [token][p]
+      uint32_t a[4], ahi[4], alo[4];
+      ldsm_x4_t(a, X + (ks * 16 + lane % 8 + 8 * (lane / 16)) * PS + p0
+                       + 8 * ((lane / 8) % 2));
+      const float* sg = seg + ks * 16 + 2 * (lane % 4);
+      split_scaled(a[0], sg[0], sg[1], ahi[0], alo[0]);
+      split_scaled(a[1], sg[0], sg[1], ahi[1], alo[1]);
+      split_scaled(a[2], sg[8], sg[9], ahi[2], alo[2]);
+      split_scaled(a[3], sg[8], sg[9], ahi[3], alo[3]);
+#pragma unroll
+      for (int np = 0; np < C_::S_NT / 2; ++np) {
+        uint32_t bb[4];  // B: k = token, n, stored [token][n]
+        ldsm_x4_t(bb, sB + (ks * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * NS
+                          + n0 + np * 16 + 8 * (lane / 16));
+        mma16816(acc[2 * np], ahi, bb[0], bb[1]);
+        mma16816(acc[2 * np], alo, bb[0], bb[1]);
+        mma16816(acc[2 * np + 1], ahi, bb[2], bb[3]);
+        mma16816(acc[2 * np + 1], alo, bb[2], bb[3]);
+      }
+    }
+    // S_c through shared memory, so that a warp stores 512 bytes in a row
+    // (from the fragments it would store 32-byte pieces of 8 rows, which
+    // was slower on an H100)
+#pragma unroll
+    for (int n = 0; n < C_::S_NT; ++n) {
+      const int col = n0 + 8 * n + 2 * (lane % 4), row = p0 + lane / 4;
+      *reinterpret_cast<float2*>(sS + row * C_::SS + col) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(sS + (row + 8) * C_::SS + col) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+    __syncthreads();  // buffer hh & 1 is free again; S_c is staged
+    float* out = states
+        + ((static_cast<size_t>(b) * nc + c) * H + h0 + hh) * P * N;
+    for (int e = threadIdx.x; e < P * N / 4; e += NT) {
+      const int row = e / (N / 4), col = 4 * (e % (N / 4));
+      *reinterpret_cast<float4*>(out + row * N + col) =
+          *reinterpret_cast<const float4*>(sS + row * C_::SS + col);
+    }
+    if (hh + 2 < hb) load_x(hh + 2);
+    wgmma_sm90::cp_async_commit();
+  }
+}
+
+// ---- phase 2: the state entering each chunk, and the final state ----
+// Element e of head (b, h): h_e = h0_e (or 0); per chunk c, the entering
+// state goes out as a bf16 hi/lo pair (two planes of P·N), then h_e = h_e ·
+// e^{cum_Q(c)} + S_c,e.  Four elements a thread.
+__global__ void __launch_bounds__(PASS_NT)
+ssd_state_pass(const float* __restrict__ states,
+               const float* __restrict__ decay, const float* __restrict__ h0,
+               bf16* __restrict__ hin, float* __restrict__ hf, int nc, int H,
+               int PN) {
+  const int e = 4 * (blockIdx.x * PASS_NT + threadIdx.x);
+  if (e >= PN) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t head = static_cast<size_t>(b) * H + h;
+  float4 st = h0 != nullptr
+                  ? *reinterpret_cast<const float4*>(h0 + head * PN + e)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nc; c0 += PASS_U) {
+    float4 sc[PASS_U];
+    float d[PASS_U];
+#pragma unroll
+    for (int u = 0; u < PASS_U; ++u) {
+      if (c0 + u < nc) {
+        const size_t slot = (static_cast<size_t>(b) * nc + c0 + u) * H + h;
+        sc[u] = *reinterpret_cast<const float4*>(states + slot * PN + e);
+        d[u] = decay[slot];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PASS_U; ++u) {
+      if (c0 + u < nc) {
+        const size_t slot = (static_cast<size_t>(b) * nc + c0 + u) * H + h;
+        uint2 hi, lo;
+        split(st.x, st.y, hi.x, lo.x);
+        split(st.z, st.w, hi.y, lo.y);
+        *reinterpret_cast<uint2*>(hin + slot * 2 * PN + e) = hi;
+        *reinterpret_cast<uint2*>(hin + slot * 2 * PN + PN + e) = lo;
+        st.x = __fadd_rn(__fmul_rn(st.x, d[u]), sc[u].x);  // not fused, as
+        st.y = __fadd_rn(__fmul_rn(st.y, d[u]), sc[u].y);  // the restatement
+        st.z = __fadd_rn(__fmul_rn(st.z, d[u]), sc[u].z);
+        st.w = __fadd_rn(__fmul_rn(st.w, d[u]), sc[u].w);
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(hf + head * PN + e) = st;
+}
+
+// ---- phase 3: each chunk's outputs ----
+template <int Q, int P, int N>
+__global__ void __launch_bounds__(NT, 1)
+ssd_chunk_outputs(const bf16* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const bf16* __restrict__ Bm,
+                  const bf16* __restrict__ Cm, const bf16* __restrict__ hin,
+                  bf16* __restrict__ y, int S, int H, int G, int hb) {
+  using C_ = Cfg<Q, P, N>;
+  constexpr int NS = C_::NS, PS = C_::PS, MT = C_::MT, NPT = C_::NPT;
+  constexpr int HEAD = Q * PS + 2 * P * NS;  // one head's tiles (bf16)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw);  // [Q][NS]
+  bf16* sB = sC + Q * NS;                        // [Q][NS]
+  bf16* sHead = sB + Q * NS;  // [2] x {x [Q][PS], hi [P][NS], lo [P][NS]}
+  float* sDt = reinterpret_cast<float*>(sHead + 2 * HEAD);  // [HB3_MAX][Q]
+  float* sCum = sDt + HB3_MAX * Q;                           // [HB3_MAX][Q]
+
+  const int c = blockIdx.x, h0 = blockIdx.y * hb, b = blockIdx.z;
+  const int nc = gridDim.x, g = h0 / (H / G), s0 = c * Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t tok0 = static_cast<size_t>(b) * S + s0;
+  auto load_head = [&](int hh) {
+    bf16* d = sHead + (hh & 1) * HEAD;
+    load_tile<Q, P>(d, PS, x + (tok0 * H + h0 + hh) * P,
+                    static_cast<size_t>(H) * P, S - s0);
+    const bf16* planes =
+        hin + ((static_cast<size_t>(b) * nc + c) * H + h0 + hh) * 2 * P * N;
+    load_tile<2 * P, N>(d + Q * PS, NS, planes, N, 2 * P);
+  };
+
+  const size_t gb = (tok0 * G + g) * N;
+  load_tile<Q, N>(sC, NS, Cm + gb, static_cast<size_t>(G) * N, S - s0);
+  load_tile<Q, N>(sB, NS, Bm + gb, static_cast<size_t>(G) * N, S - s0);
+  load_head(0);
+  wgmma_sm90::cp_async_commit();
+  if (hb > 1) load_head(1);
+  wgmma_sm90::cp_async_commit();
+  load_dt<Q>(sDt, dt, b, s0, S, H, h0, hb);
+  __syncthreads();
+  if (warp < hb)
+    chunk_cumsum<Q>(sDt + warp * Q, A[h0 + warp], sCum + warp * Q, lane);
+  wgmma_sm90::cp_async_wait<1>();
+  __syncthreads();
+
+  // warp: rows i0 .. i0 + 16, y columns pw0 .. pw0 + PW
+  const int mt = warp % MT, i0 = 16 * mt, pw0 = (warp / MT) * C_::PW;
+  uint32_t cf[C_::KN][4];  // C's A fragments, rows i0.., all of N
+#pragma unroll
+  for (int ks = 0; ks < C_::KN; ++ks)
+    ldsm_x4(cf[ks], sC + (i0 + lane % 16) * NS + ks * 16 + 8 * (lane / 16));
+  // C·Bᵀ for j-tiles (of 8) at or below the diagonal; the rest stay 0
+  float cb[2 * MT][4];
+#pragma unroll
+  for (int jt = 0; jt < 2 * MT; ++jt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cb[jt][e] = 0.f;
+#pragma unroll
+  for (int jp = 0; jp < MT; ++jp) {
+    if (jp > mt) continue;
+#pragma unroll
+    for (int ks = 0; ks < C_::KN; ++ks) {
+      uint32_t bb[4];  // k = n, n = token j, stored [j][n]
+      ldsm_x4(bb, sB + (jp * 16 + lane % 8 + 8 * (lane / 16)) * NS + ks * 16
+                      + 8 * ((lane / 8) % 2));
+      mma16816(cb[2 * jp], cf[ks], bb[0], bb[1]);
+      mma16816(cb[2 * jp + 1], cf[ks], bb[2], bb[3]);
+    }
+  }
+
+  const int r0 = i0 + lane / 4, r1 = r0 + 8;  // this lane's rows
+  // C_i·B_i of rows r0 and r1 as ds + dc, summed on the CUDA cores from
+  // the exact bf16 products with TwoSum (the tensor cores drop the low
+  // bits of their sums); a quad of lanes shares a row, N / 4 products each
+  float ds[2], dc[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = half ? r1 : r0;
+    float sum = 0.f, comp = 0.f, e;
+    for (int n = lane % 4; n < N; n += 4) {
+      two_sum(sum, __fmul_rn(__bfloat162float(sC[i * NS + n]),
+                             __bfloat162float(sB[i * NS + n])), sum, e);
+      comp = __fadd_rn(comp, e);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float so = __shfl_xor_sync(FULL, sum, off);
+      const float co = __shfl_xor_sync(FULL, comp, off);
+      two_sum(sum, so, sum, e);
+      comp = __fadd_rn(comp, __fadd_rn(co, e));
+    }
+    ds[half] = sum;
+    dc[half] = comp;
+  }
+  for (int hh = 0; hh < hb; ++hh) {
+    if (hh > 0) {
+      wgmma_sm90::cp_async_wait<1>();
+      __syncthreads();
+    }
+    const bf16* X = sHead + (hh & 1) * HEAD;
+    const bf16* Hi = X + Q * PS;
+    const bf16* Lo = Hi + P * NS;
+    const float* cum = sCum + hh * Q;
+    const float* dtv = sDt + hh * Q;
+    float acc[NPT][4];
+#pragma unroll
+    for (int n = 0; n < NPT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    // C h_inᵀ: k = n, n = p, the state stored [p][n] as hi and lo planes
+#pragma unroll
+    for (int ks = 0; ks < C_::KN; ++ks)
+#pragma unroll
+      for (int pp = 0; pp < NPT / 2; ++pp) {
+        const int off = (pw0 + pp * 16 + lane % 8 + 8 * (lane / 16)) * NS
+                        + ks * 16 + 8 * ((lane / 8) % 2);
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, Hi + off);
+        ldsm_x4(bl, Lo + off);
+        mma16816(acc[2 * pp], cf[ks], bh[0], bh[1]);
+        mma16816(acc[2 * pp], cf[ks], bl[0], bl[1]);
+        mma16816(acc[2 * pp + 1], cf[ks], bh[2], bh[3]);
+        mma16816(acc[2 * pp + 1], cf[ks], bl[2], bl[3]);
+      }
+    const float c0 = cum[r0], c1 = cum[r1];
+    const float e0 = expf(c0), e1 = expf(c1);
+#pragma unroll
+    for (int n = 0; n < NPT; ++n) {
+      acc[n][0] *= e0; acc[n][1] *= e0;
+      acc[n][2] *= e1; acc[n][3] *= e1;
+    }
+    // + W x over the j-steps at or below the diagonal, W_ii x_i aside
+#pragma unroll
+    for (int kk = 0; kk < MT; ++kk) {
+      if (kk > mt) continue;
+      float w[2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = (2 * kk + half) * 8 + 2 * (lane % 4) + (e & 1);
+          const int i = e < 2 ? r0 : r1;
+          // the exponent is taken below the diagonal only.  2^{d log2 e}
+          // on the SFU (expf's range reduction was slower on an H100); the
+          // product d·log2 e adds |d|·2^-24 to the exponent, ~1e-6 of W
+          // at |d| <= 16
+          w[half][e] = j < i ? cb[2 * kk + half][e]
+                                    * wgmma_sm90::ex2(((e < 2 ? c0 : c1) - cum[j])
+                                                      * 1.4426950408889634f)
+                                    * dtv[j]
+                              : 0.f;
+        }
+      uint32_t aw[3][4];  // W as three bf16 terms
+      split3(w[0][0], w[0][1], aw[0][0], aw[1][0], aw[2][0]);
+      split3(w[0][2], w[0][3], aw[0][1], aw[1][1], aw[2][1]);
+      split3(w[1][0], w[1][1], aw[0][2], aw[1][2], aw[2][2]);
+      split3(w[1][2], w[1][3], aw[0][3], aw[1][3], aw[2][3]);
+#pragma unroll
+      for (int dp = 0; dp < NPT / 2; ++dp) {
+        uint32_t bb[4];  // k = token j, n = p, x stored [j][p]
+        ldsm_x4_t(bb, X + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * PS
+                          + pw0 + dp * 16 + 8 * (lane / 16));
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          mma16816(acc[2 * dp], aw[t], bb[0], bb[1]);
+          mma16816(acc[2 * dp + 1], aw[t], bb[2], bb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0, s = s0 + r;
+      if (s >= S) continue;
+      // W_ii = C_i·B_i e^0 dt_i as wh + wl
+      const float wh = __fmul_rn(ds[half], dtv[r]);
+      const float wl = __fadd_rn(__fmaf_rn(ds[half], dtv[r], -wh),
+                                 __fmul_rn(dc[half], dtv[r]));
+      bf16* row = y + ((static_cast<size_t>(b) * S + s) * H + h0 + hh) * P;
+#pragma unroll
+      for (int n = 0; n < NPT; ++n) {
+        const int p = pw0 + 8 * n + 2 * (lane % 4);
+        const float2 xi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(X + r * PS + p));
+        *reinterpret_cast<uint32_t*>(row + p) =
+            pack_bf16(diag_odd(wh, wl, xi.x, acc[n][2 * half]),
+                      diag_odd(wh, wl, xi.y, acc[n][2 * half + 1]));
+      }
+    }
+    __syncthreads();  // buffer hh & 1 is free again
+    if (hh + 2 < hb) load_head(hh + 2);
+    wgmma_sm90::cp_async_commit();
+  }
+}
+
+int launch(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* Cm, const void* h0, void* y, void* hf, void* states,
+           void* hin, void* decay, int B, int S, int H, int G,
+           cudaStream_t stream) {
+  constexpr int Q = Q_;
+  using C_ = Cfg<Q, P_, N_>;
+  const int rep = H / G;  // the largest power of 2 up to HB*_MAX dividing it
+  const int hb1 = rep % 4 == 0 ? 4 : rep % 2 == 0 ? 2 : 1;
+  const int hb3 = rep % 8 == 0 ? 8 : hb1;
+  const int nc = (S + Q - 1) / Q;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_states<Q, P_, N_>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C_::states_smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ssd_chunk_outputs<Q, P_, N_>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C_::outputs_smem));
+  if (err != cudaSuccess) return err;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const bf16* Bb = static_cast<const bf16*>(Bm);
+  float* st = static_cast<float*>(states);
+  float* dc = static_cast<float*>(decay);
+  bf16* hn = static_cast<bf16*>(hin);
+  ssd_chunk_states<Q, P_, N_><<<dim3(nc, H / hb1, B), NT, C_::states_smem,
+                                stream>>>(xb, dtf, Af, Bb, st, dc, S, H, G,
+                                          hb1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int PN = P_ * N_;
+  const dim3 pass_grid((PN / 4 + PASS_NT - 1) / PASS_NT, H, B);
+  ssd_state_pass<<<pass_grid, PASS_NT, 0, stream>>>(
+      st, dc, static_cast<const float*>(h0), hn, static_cast<float*>(hf), nc,
+      H, PN);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_chunk_outputs<Q, P_, N_><<<dim3(nc, H / hb3, B), NT, C_::outputs_smem,
+                                 stream>>>(xb, dtf, Af, Bb,
+                                           static_cast<const bf16*>(Cm), hn,
+                                           static_cast<bf16*>(y), S, H, G,
+                                           hb3);
+  return cudaGetLastError();
+}
+
+}  // namespace chunked
+}  // namespace
+
+// bf16 x, Bm, Cm and y, and h0 if given, 16-byte aligned; dt, A, h0 and
+// hf float32; h0 may be null.  P = 64, N = 128.  Scratch from the caller:
+// states float32 (B, nc, H, P, N), hin bf16 (B, nc, H, 2, P, N) and decay
+// float32 (B, nc, H), nc = ceil(S / Q_).  Three kernels on `stream`;
+// returns the first launch error, 0 if none.
+extern "C" int ssd_scan_chunked_fwd(const void* x, const void* dt,
+                                    const void* A, const void* Bm,
+                                    const void* Cm, const void* h0, void* y,
+                                    void* hf, void* states, void* hin,
+                                    void* decay, int B, int S, int H, int P,
+                                    int G, int N, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || G < 1 || H % G || P != chunked::P_
+      || N != chunked::N_ || B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  return chunked::launch(x, dt, A, Bm, Cm, h0, y, hf, states, hin, decay, B,
+                         S, H, G, static_cast<cudaStream_t>(stream));
 }

@@ -9,6 +9,10 @@ internally, casting the result to the input's type at the end — the same
 arithmetic the kernels do, so a bf16 comparison measures the kernel and
 not a different rounding schedule.
 
+``ssd_chunk_parallel`` is no kernel's CPU path: it restates the chunked
+Hopper ``ssd`` kernel's three phases, order and rounding points for the
+tests.
+
 The paged-KV index ops (``paged_scatter``/``paged_gather``, after
 ``jnp_impl.py:254-292``) and the Mamba2 one-token update
 ``ssd_decode_step`` (``jnp_impl.py:426-441``) have no kernel: every device
@@ -213,6 +217,122 @@ def ssd_ref(x, dt, A, Bm, Cm, *, init_state=None, chunk=256):
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y.to(x.dtype), h.float()
+
+
+def _chunk_cumsum(a):
+    """Inclusive cumsum over the last axis (Q, a multiple of 32) in the
+    chunked kernel's warp-scan order: lane l sums its Q/32 tokens in
+    order, a Hillis-Steele scan adds the lanes' totals, and each partial
+    gets its lane's exclusive prefix."""
+    part = a.reshape(*a.shape[:-1], 32, a.shape[-1] // 32)
+    sums = [part[..., 0]]
+    for k in range(1, part.shape[-1]):
+        sums.append(sums[-1] + part[..., k])
+    part = torch.stack(sums, dim=-1)
+    v = part[..., -1]
+    off = 1
+    while off < 32:
+        v = torch.cat([v[..., :off], v[..., off:] + v[..., :-off]], dim=-1)
+        off *= 2
+    excl = torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], dim=-1)
+    return (excl[..., None] + part).reshape(a.shape)
+
+
+def _terms(v, dtype, n):
+    """The value a float32 operand takes on the tensor cores as a sum of
+    ``n`` terms of ``dtype``, each the rest of the ones before rounded to
+    it (hi/lo at n = 2); float32 operands stay as they are."""
+    if dtype == torch.float32:
+        return v
+    out = torch.zeros_like(v)
+    for _ in range(n):
+        out = out + (v - out).to(dtype).float()
+    return out
+
+
+def _round_to_odd(v):
+    """v (float64) rounded to float32 to odd: where v lies strictly
+    between two float32 values, the one whose last bit is 1 (the chunked
+    kernel's ``diag_odd``).  A later rounding to bf16 is then the rounding
+    of v itself and not of its float32 rounding."""
+    r = v.float()
+    step = (r.double() != v) & (r.view(torch.int32) % 2 == 0) & (r != 0)
+    toward = torch.where(v > r.double(), torch.inf, -torch.inf).float()
+    return torch.where(step, torch.nextafter(r, toward), r)
+
+
+def ssd_chunk_parallel(x, dt, A, Bm, Cm, *, init_state=None):
+    """The chunked Hopper ``ssd`` kernel's three phases restated on the
+    CPU, for the tests only (no path runs it): the contract of
+    :func:`ssd_ref`, in ``csrc/ssd_scan.cu``'s order, at its chunk length
+    (``ssd_scan.CHUNK_Q``) and with its rounding points.
+
+    1. Chunk states, every chunk at once: ``cum`` by :func:`_chunk_cumsum`,
+       ``seg_j = e^(cum_Q - cum_j)·dt_j``, ``S_c = (x∘seg)ᵀ B`` and
+       ``e^cum_Q``.
+    2. The state pass, serial over chunks: the state entering chunk c,
+       then ``h = h·e^cum_Q(c) + S_c``.
+    3. Chunk outputs, every chunk at once: ``W = C Bᵀ ∘ e^(cum_i - cum_j)
+       ∘ dt_j`` for j < i (never exponentiated above the diagonal), ``y =
+       W x + e^cum_i (C h_inᵀ)``, then ``W_ii x_i`` added.
+
+    Sums in float32 (the tensor cores' float32 accumulation, in another
+    order).  The three float32 operands of the kernel's products take the
+    value of their terms in x's type (:func:`_terms`): x∘seg and the
+    entering state two (hi/lo), W below the diagonal three; x, B and C
+    enter as they are.  The diagonal term ``C_i·B_i dt_i x_i`` is added in
+    float64 (the kernel's TwoSum and float32 pairs) and y's sum rounded to
+    float32 to odd (:func:`_round_to_odd`) before its rounding to x's
+    type."""
+    from repro_torch.kernels.ssd_scan import CHUNK_Q as Q
+
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if H % G:
+        raise ValueError(f"H={H} is not a multiple of G={G}")
+    rep = H // G
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t):  # (B, S, ...) -> (B, nc, Q, ...) float32, zeros past S
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(Bm), chunks(Cm)
+    cum = _chunk_cumsum((dtc * A.float()).transpose(2, 3)).transpose(2, 3)
+    last = cum[:, :, -1:]  # (B, nc, 1, H)
+    # 1. chunk states
+    seg = torch.exp(last - cum) * dtc
+    xs = _terms(xc * seg[..., None], x.dtype, 2)
+    states = torch.einsum("bcjhp,bcjhn->bchpn", xs,
+                          bc.repeat_interleave(rep, dim=3))
+    decay = torch.exp(last[:, :, 0])  # (B, nc, H)
+    # 2. the state pass
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    h_in = _terms(torch.stack(entering, dim=1), x.dtype, 2)
+    # 3. chunk outputs: W below the diagonal, then the diagonal term
+    cb = torch.einsum("bcign,bcjgn->bcijg", cc, bc).repeat_interleave(
+        rep, dim=4)  # (B, nc, Qi, Qj, H)
+    on_or_above = ~torch.ones((Q, Q), dtype=torch.bool,
+                              device=x.device).tril(-1)
+    L = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(
+        on_or_above[None, None, :, :, None], -torch.inf))
+    w = _terms(cb * L * dtc[:, :, None], x.dtype, 3)
+    rest = torch.einsum("bcijh,bcjhp->bcihp", w, xc) + torch.exp(cum)[
+        ..., None] * torch.einsum("bcihn,bchpn->bcihp",
+                                  cc.repeat_interleave(rep, dim=3), h_in)
+    w_ii = (cc.double() * bc.double()).sum(-1).repeat_interleave(
+        rep, dim=3) * dtc.double()  # (B, nc, Q, H)
+    y = _round_to_odd(rest.double() + w_ii[..., None] * xc.double())
+    y = y.reshape(Bsz, nc * Q, H, P)[:, :S]
+    return y.to(x.dtype), h
 
 
 def ssd_decode_step(state, x, dt, A, Bm, Cm):

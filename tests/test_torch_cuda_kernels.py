@@ -571,22 +571,56 @@ def _ssd_inputs(rng, case, dtype, device):
     return x, dt, A, Bm, Cm, h0
 
 
-@pytest.mark.parametrize("case", SSD_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ssd_matches_plain(cuda, rng, case, dtype):
-    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, case, dtype, cuda)
-    before = ssd_scan.launches
-    y, hf = ops.ssd(x, dt, A, Bm, Cm, init_state=h0)
-    torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
-    wide = [None if a is None else a.double() if dtype == "float32" else a
-            for a in (x, dt, A, Bm, Cm, h0)]
-    y_ref, hf_ref = plain.ssd_ref(*wide[:5], init_state=wide[5])
+def _assert_ssd_close(y, hf, x, y_ref, hf_ref, dtype):
     assert y.dtype == x.dtype and hf.dtype == torch.float32
     assert y.shape == x.shape and hf.shape == hf_ref.shape
     assert bool(torch.isfinite(y.float()).all() & torch.isfinite(hf).all())
     _assert_close(y, y_ref, dtype)
     _assert_close(hf, hf_ref, dtype)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_matches_plain(cuda, rng, case, dtype):
+    """The dispatched kernel, and at bf16 each kernel that takes the shape
+    forced (the chunked variant at P 64, N 128; the sequential one at
+    every shape), against the plain version."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, case, dtype, cuda)
+    P, N = x.shape[-1], Bm.shape[-1]
+    want = ssd_scan.variant_for(x.dtype, x.shape[1], P, N, True)
+    before = (ssd_scan.launches, ssd_scan.chunked_launches)
+    y, hf = ops.ssd(x, dt, A, Bm, Cm, init_state=h0)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.chunked_launches) == (
+        before[0] + 1, before[1] + (want == "chunked"))
+    wide = [None if a is None else a.double() if dtype == "float32" else a
+            for a in (x, dt, A, Bm, Cm, h0)]
+    y_ref, hf_ref = plain.ssd_ref(*wide[:5], init_state=wide[5])
+    _assert_ssd_close(y, hf, x, y_ref, hf_ref, dtype)
+    if dtype == "bfloat16":
+        for variant in ("chunked", "sequential"):
+            if ssd_scan.takes(variant, x.dtype, P, N, True):
+                y, hf = ssd_scan.ssd(x, dt, A, Bm, Cm, init_state=h0,
+                                     variant=variant)
+                torch.cuda.synchronize()
+                _assert_ssd_close(y, hf, x, y_ref, hf_ref, dtype)
+
+
+@pytest.mark.parametrize("length", ["1", "q-1", "q", "q+1", "2q-1"])
+def test_ssd_chunked_at_ragged_lengths(cuda, rng, length):
+    """The chunked variant with S around one and two of its chunks,
+    against the plain version (bf16)."""
+    q = ssd_scan.CHUNK_Q
+    S = {"1": 1, "q-1": q - 1, "q": q, "q+1": q + 1, "2q-1": 2 * q - 1}[
+        length]
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(
+        rng, (2, S, 8, 64, 2, 128, True, False), "bfloat16", cuda)
+    before = ssd_scan.chunked_launches
+    y, hf = ssd_scan.ssd(x, dt, A, Bm, Cm, init_state=h0, variant="chunked")
+    torch.cuda.synchronize()
+    assert ssd_scan.chunked_launches == before + 1
+    y_ref, hf_ref = plain.ssd_ref(x, dt, A, Bm, Cm, init_state=h0)
+    _assert_ssd_close(y, hf, x, y_ref, hf_ref, "bfloat16")
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
