@@ -42,14 +42,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
       replayed, the time between launches left out (CUDA events around
       few-row calls time mostly the host; ``fa.variant_for``'s rule is
       set from these device times);
-   b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536;
+   b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536, with
+      ``device_ms``: 21 calls replayed in a CUDA graph that rotate through
+      three input sets (30 MB each at D = 2304);
    c. ``paged_flash_decode`` (the paged decode attention): the gemma2-2b
       main-path shape (q 4x1x8x256, pools of 16-position blocks, lengths
       516-524, slots 0/2 and 1/3 sharing the first 32 blocks of their
-      task, shuffled tables), S = 3, block sizes 8 and 12, a length of 1,
-      lengths on block boundaries, fully-masked rows, the mistral-7b width
-      (32/8 heads of 128) and granite's (24/8 heads of 64).  Its bound
-      counts each distinct (pool block, offset) position below some slot's
+      task, shuffled tables of max_len positions), S = 3, block sizes 8
+      and 12, a length of 1, lengths on block boundaries, fully-masked
+      rows, the mistral-7b width (32/8 heads of 128), granite's (24/8
+      heads of 64), and ``long_table``: the main-path shape in tables of
+      4096 positions.  ``device_ms``: CUDA-graph replay rotating through
+      input sets whose K/V rows read add up past 60 MB (14 at ``decode``),
+      so that no call finds its rows in the 50 MB L2.  Its bound counts
+      each distinct (pool block, offset) position below some slot's
       length once plus q, out, tables and lengths; no single PyTorch call
       attends through a block table, so it has no library time;
    d. ``gmm`` (the MoE grouped matmul) at granite's E = 40 experts, C =
@@ -98,7 +104,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through the wgmma variant (its own counter, printed per path), and on
    granite's paths every ``gmm`` call at C = 768 through the wgmma kernel
    and every one at C = 8 through the rows kernel (the calls by C and
-   kernel are printed per path):
+   kernel are printed per path); ``paged_flash_decode`` has one kernel,
+   so its counter counts every paged decode call of the paged paths:
    a. dense: compress two 3072-token many-shot prompts to m = 512 memory
       tokens, materialize the prefixes, and serve 4 requests naming them
       (ragged 4-12-token prompts, 16 greedy tokens each) through
@@ -113,7 +120,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
       Each request's first token equals the dense engine's for the same
       request (the prefill reads the same prefix rows either way).
    A profiled warm compress and 4-request serve on each layout give the
-   device busy time and idle share; peak device memory is printed.
+   device busy time and idle share (and the paged serve's
+   ``paged_decode`` device time); peak device memory is printed.
    c. mamba2-370m (48 Mamba2 layers, no MemCom): 8 requests, each one of
       the two 3072-token many-shot prompts plus a 4-12-token query, 16
       greedy tokens each, over 4 slots (so slots refill), through a dense
@@ -480,6 +488,12 @@ def main() -> int:
                 "memcom_xattn", name, dn, out, ref)
             if dtype is torch.bfloat16:
                 row["ms"] = cuda_ms(lambda: mx.memcom_xattn(q, k, v))
+                # three input sets (30 MB each at D 2304) past the 50 MB L2
+                bufs = [(q, k, v)] + [tuple(rand(*x.shape, dtype=dtype)
+                                            for x in (q, k, v))
+                                      for _ in range(2)]
+                row["device_ms"] = device_ms(mx.memcom_xattn, 21, bufs)
+                del bufs
                 row["plain_ms"] = cuda_ms(
                     lambda: plain.memcom_xattn_ref(q, k, v), reps=3)
                 row["library_ms"] = cuda_ms(
@@ -490,7 +504,8 @@ def main() -> int:
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
                 row["workspace_bytes"] = mx.workspace_bytes(1, m, T, dtype)
-                log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']:.4f}), plain "
                     f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f}"
                     f" ms, bound {row['bound_ms']:.4f} ms "
                     f"({row['bound_by']}), workspace "
@@ -498,11 +513,12 @@ def main() -> int:
             del q, k, v, out, ref
         mx_rows.append(row)
 
-    def paged_inputs(B, S, Hq, Hkv, Dh, bs, lengths, share, dtype):
+    def paged_inputs(B, S, Hq, Hkv, Dh, bs, lengths, share, dtype, table):
         """Pools of shuffled blocks; slot b + 2 shares slot b's first
         ``share`` table entries (a task prefix seated in two slots);
-        entries past a slot's length name block 0."""
-        nb = -(-max_len // bs)
+        entries past a slot's length name block 0.  The tables hold
+        ``table`` positions (an engine's max_len)."""
+        nb = -(-table // bs)
         N = 1 + B * nb
         order = torch.randperm(N - 1, generator=gen, device=dev) + 1
         tables = torch.zeros((B, nb), dtype=torch.int32, device=dev)
@@ -519,23 +535,33 @@ def main() -> int:
     pm = m // 16  # prefix blocks of a task at block size 16
     main_lens = [m + 8, m + 11, m + 4, m + 12]
     paged_cases = [
-        # name, B, S, Hq, Hkv, D, block size, lengths, shared blocks, softcap
-        ("decode", slots, 1, 8, 4, 256, 16, main_lens, pm, 50.0),
-        ("decode_s3", slots, 3, 8, 4, 256, 16, main_lens, pm, 50.0),
-        ("block8_boundary", slots, 1, 8, 4, 256, 8, [m, m + 8, 8, 1], 0, 50.0),
-        ("block12", slots, 1, 8, 4, 256, 12, main_lens, m // 12, 50.0),
-        ("masked_rows", 2, 3, 8, 4, 256, 16, [2, 40], 0, 50.0),
-        ("mistral_width", slots, 1, 32, 8, 128, 16, main_lens, pm, 50.0),
-        ("granite_decode", slots, 1, 24, 8, 64, 16, main_lens, pm, 0.0),
+        # name, B, S, Hq, Hkv, D, block size, lengths, shared blocks, softcap,
+        # table positions
+        ("decode", slots, 1, 8, 4, 256, 16, main_lens, pm, 50.0, max_len),
+        ("decode_s3", slots, 3, 8, 4, 256, 16, main_lens, pm, 50.0, max_len),
+        ("block8_boundary", slots, 1, 8, 4, 256, 8, [m, m + 8, 8, 1], 0, 50.0,
+         max_len),
+        ("block12", slots, 1, 8, 4, 256, 12, main_lens, m // 12, 50.0,
+         max_len),
+        ("masked_rows", 2, 3, 8, 4, 256, 16, [2, 40], 0, 50.0, max_len),
+        ("mistral_width", slots, 1, 32, 8, 128, 16, main_lens, pm, 50.0,
+         max_len),
+        ("granite_decode", slots, 1, 24, 8, 64, 16, main_lens, pm, 0.0,
+         max_len),
+        # an engine with max_len 4096 and young slots: splits follow the
+        # slots' lengths, not the table's width
+        ("long_table", slots, 1, 8, 4, 256, 16, main_lens, pm, 50.0, 4096),
     ]
     paged_rows = []
-    for name, B, S, hq, hkv, Dh, bs, lens, share, cap in paged_cases:
+    for name, B, S, hq, hkv, Dh, bs, lens, share, cap, table in paged_cases:
         row = {"shape": name, "q": [B, S, hq, Dh], "block_size": bs,
-               "lengths": lens, "shared_blocks": share, "softcap": cap}
+               "lengths": lens, "shared_blocks": share, "softcap": cap,
+               "table": table}
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
-            q, kp, vp, tables, lengths_t = paged_inputs(B, S, hq, hkv, Dh, bs,
-                                                        lens, share, dtype)
+            inputs = paged_inputs(B, S, hq, hkv, Dh, bs, lens, share, dtype,
+                                  table)
+            q, kp, vp, tables, lengths_t = inputs
             kw = dict(block_tables=tables, lengths=lengths_t, softcap=cap)
             out = pa.paged_flash_decode(q, kp, vp, **kw)
             torch.cuda.synchronize()
@@ -570,12 +596,30 @@ def main() -> int:
                 row["flops"], row["bytes"] = flops, nbytes
                 row["distinct_rows"] = len(visible)
                 row["distinct_blocks"] = len({blk for blk, _ in visible})
-                log(f"  {name} bf16: kernel {row['ms']:.4f} ms, plain "
+                # rotated input sets whose K/V rows read add up past the
+                # 50 MB L2, so that no call finds its rows there
+                sets = -(-60_000_000 // nbytes)
+                bufs = [inputs] + [paged_inputs(B, S, hq, hkv, Dh, bs, lens,
+                                                share, dtype, table)
+                                   for _ in range(sets - 1)]
+                row["device_ms"] = device_ms(
+                    lambda q_, k_, v_, t_, l_: pa.paged_flash_decode(
+                        q_, k_, v_, block_tables=t_, lengths=l_, softcap=cap),
+                    2 * sets, bufs)
+                row["device_sets"] = sets
+                row["nsplit"] = pa.num_splits(
+                    B, S, hq, hkv, tables.shape[1], bs,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+                del bufs
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']:.5f} over {sets} input sets, "
+                    f"{row['nsplit']} splits), plain "
                     f"{row['plain_ms']:.4f} ms, no library call, bound "
                     f"{row['bound_ms']:.5f} ms ({row['bound_by']}, "
                     f"{len(visible)} distinct K/V rows in "
                     f"{row['distinct_blocks']} blocks, {nbytes} bytes)")
-            del q, kp, vp, out, ref
+            del q, kp, vp, out, ref, inputs
+        torch.cuda.empty_cache()
         paged_rows.append(row)
 
     E_g = 40  # granite's experts
@@ -1142,6 +1186,12 @@ def main() -> int:
             ("paged_serve", lambda: pengine.serve(
                 [Request(tokens=p_, max_new=4, prefix=f"task{i % 2}")
                  for i, p_ in enumerate(prompts)])))}
+        decode = [v for k, v in breakdown["paged_serve"]["by_name"].items()
+                  if "paged_decode<" in k]
+        decode_ms = sum(ms for ms, _ in decode)
+        decode_n = sum(n for _, n in decode)
+        log(f"{tag} profile paged_serve: paged_decode {decode_ms:.3f} ms over "
+            f"{decode_n} calls")
         return {
             "task_compress_s": task_s, "breakdown": breakdown,
             "compress_s": compress_s, "dense": dense, "paged": paged,
@@ -1557,6 +1607,8 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
+        if name in ("memcom_xattn", "paged_flash_decode"):
+            entries[-1]["device_ms"] = head["device_ms"]
         if name == "flash_attention":  # the wgmma variant and the mma.sync one
             entries[-1].update(
                 wgmma_launches=sum(c["flash_attention_wgmma"]

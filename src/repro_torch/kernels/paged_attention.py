@@ -5,8 +5,13 @@
 ``plain.paged_decode_attention_ref``.  A CPU tensor goes to the plain
 version; a CUDA tensor launches the kernel (built on first use, see
 :mod:`.build`) or raises — there is no fallback.  ``launches`` counts
-wrapper calls that launched the kernel (a call that splits the table
-columns also launches the merge of the partials).
+wrapper calls that launched the kernel.
+
+The kernel's position plan is stated here once: :func:`num_splits` is the
+host's split count, from shapes alone, and :func:`split_plan` the
+positions each split of a slot walks, which the kernel derives from the
+slot's own length (``plain.paged_decode_split_ref`` computes by it on the
+CPU).  ``TK``, ``RMAX`` and ``MAX_SPLITS`` are the source's constants.
 """
 
 from __future__ import annotations
@@ -21,26 +26,55 @@ from repro_torch.kernels import build, plain
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TK = 32             # positions per tile (TK in the source)
+RMAX = 8            # query rows per block (RMAX in the source)
+MAX_SPLITS = 16     # one cluster of blocks merges a slot's splits
+
+
+def num_splits(B, S, Hq, Hkv, nb, bs, sms):
+    """How many chunks each slot's positions are cut into, on a card with
+    ``sms`` multiprocessors: split while the unsplit grid has fewer than
+    2 * sms blocks, aiming at about two waves of blocks, with at least two
+    tiles (2 * TK) of the table's nb * bs positions per chunk and at most
+    ``MAX_SPLITS`` (the splits of a slot merge within one cluster of
+    blocks).  A one-tile chunk half fills its block's ring and adds a
+    split to the merge for little work: at the main paths' tables of 576
+    positions this gives 9 splits, the fastest of 5-16 in device time at
+    every paged shape (PERF.md section 6).  Shapes alone: no length is
+    read from the device."""
+    blocks = -(-S * (Hq // Hkv) // RMAX) * Hkv * B
+    most = min(-(-nb * bs // (2 * TK)), MAX_SPLITS)
+    if blocks >= 2 * sms or most <= 1:
+        return 1
+    return min(-(-2 * sms // blocks), most)
+
+
+def split_plan(length, bs, nb, nsplit):
+    """The positions ``[lo, hi)`` each of the ``nsplit`` splits of a slot
+    of ``length`` walks: the slot's positions below min(length, nb * bs)
+    in chunks of ceil(length / nsplit) rounded up to whole tiles of TK, so
+    a short slot leaves its last splits empty and a wide table costs
+    nothing.  Positions at or past the length are never read."""
+    L = min(max(int(length), 0), nb * bs)
+    chunk = -(-L // nsplit)           # ceil(L / nsplit) ...
+    chunk = -(-chunk // TK) * TK      # ... in whole tiles
+    return [(min(L, i * chunk), min(L, (i + 1) * chunk))
+            for i in range(nsplit)]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    lib = build.load("paged_attention")
-    fn = lib.paged_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn = build.load("paged_attention").paged_decode_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    splits = lib.paged_decode_splits
-    splits.argtypes = [ctypes.c_int] * 7
-    splits.restype = ctypes.c_int
-    return fn, splits
+    return fn
 
 
-@functools.lru_cache(maxsize=256)
-def _splits(B, S, Hq, Hkv, nb, bs, device_index):
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return _kernel()[1](B, S, Hq, Hkv, nb, bs, sms)
+@functools.lru_cache(maxsize=None)
+def _sms(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check(q, k_pool, v_pool, block_tables, lengths):
@@ -100,20 +134,16 @@ def paged_flash_decode(q, k_pool, v_pool, *, block_tables, lengths,
     if scale is None:
         scale = D ** -0.5
     out = torch.empty_like(q)
-    fn = _kernel()[0]
-    nsplit = _splits(B, S, Hq, Hkv, nb, bs, q.device.index
-                     if q.device.index is not None
-                     else torch.cuda.current_device())
-    # split partials: nsplit x (B*S*Hq) rows of D outputs + 1 lse each
-    ws = (torch.empty(nsplit * B * S * Hq * (D + 1), dtype=torch.float32,
-                      device=q.device) if nsplit > 1 else None)
+    fn = _kernel()
+    nsplit = num_splits(B, S, Hq, Hkv, nb, bs, _sms(
+        q.device.index if q.device.index is not None
+        else torch.cuda.current_device()))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 ws.data_ptr() if ws is not None else None, B, S, Hq, Hkv, D,
-                 bs, nb, float(scale), float(softcap or 0.0), nsplit,
-                 _DTYPES[q.dtype], stream)
+                 B, S, Hq, Hkv, D, bs, nb, float(scale),
+                 float(softcap or 0.0), nsplit, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_decode kernel launch failed: "
                            f"cudaError {err}")

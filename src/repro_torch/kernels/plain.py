@@ -9,9 +9,10 @@ internally, casting the result to the input's type at the end — the same
 arithmetic the kernels do, so a bf16 comparison measures the kernel and
 not a different rounding schedule.
 
-``ssd_chunk_parallel`` is no kernel's CPU path: it restates the chunked
-Hopper ``ssd`` kernel's three phases, order and rounding points for the
-tests.
+``ssd_chunk_parallel`` and ``paged_decode_split_ref`` are no kernel's CPU
+path: they restate the chunked Hopper ``ssd`` kernel's three phases, order
+and rounding points, and the paged decode kernel's split of each slot's
+positions, for the tests.
 
 The paged-KV index ops (``paged_scatter``/``paged_gather``, after
 ``jnp_impl.py:254-292``) and the Mamba2 one-token update
@@ -147,6 +148,41 @@ def paged_decode_attention_ref(q, k_pool, v_pool, *, block_tables, lengths,
              + torch.arange(S, dtype=torch.int32, device=q.device)[None, :])
     return attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
                          softcap=softcap, scale=scale)
+
+
+def paged_decode_split_ref(q, k_pool, v_pool, *, block_tables, lengths,
+                           nsplit, softcap=0.0, scale=None):
+    """``paged_decode_attention_ref`` computed as the Hopper kernel cuts
+    it: split ``i`` of slot ``b`` attends over the positions
+    ``paged_attention.split_plan(lengths[b], bs, nb, nsplit)[i]`` alone,
+    reading only their table entries, and the float32 partials (out, lse)
+    merge through ``combine_attention_partials``."""
+    from repro_torch.kernels.paged_attention import split_plan
+
+    B, S, Hq, D = q.shape
+    _, bs, Hkv, Dv = v_pool.shape
+    nb = block_tables.shape[1]
+    k_rows = k_pool.reshape(-1, Hkv, D).float()
+    v_rows = v_pool.reshape(-1, Hkv, Dv).float()
+    q_pos = (lengths.to(torch.int32)[:, None] - S
+             + torch.arange(S, dtype=torch.int32, device=q.device)[None, :])
+    plans = [split_plan(int(n), bs, nb, nsplit) for n in lengths.tolist()]
+    parts = []
+    for i in range(nsplit):
+        out = torch.zeros(B, S, Hq, Dv, device=q.device)
+        lse = torch.full((B, S, Hq), NEG_INF, device=q.device)
+        for b in range(B):
+            lo, hi = plans[b][i]
+            if hi <= lo:
+                continue
+            pos = torch.arange(lo, hi, device=q.device)
+            rows = block_tables[b].long()[pos // bs] * bs + pos % bs
+            out[b], lse[b] = (x[0] for x in attention_ref(
+                q[b:b + 1].float(), k_rows[rows][None], v_rows[rows][None],
+                q_pos=q_pos[b:b + 1], kv_pos=pos[None].to(torch.int32),
+                causal=True, softcap=softcap, scale=scale, return_lse=True))
+        parts.append((out, lse))
+    return combine_attention_partials(parts).to(q.dtype)
 
 
 def combine_attention_partials(parts):

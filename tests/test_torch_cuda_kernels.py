@@ -301,21 +301,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, rng):
         mx.memcom_xattn(x, x, x)
 
 
-# (B, S, Hq, Hkv, D, block_size, lengths, softcap)
+# (B, S, Hq, Hkv, D, block_size, lengths, softcap, table positions or None
+# for one block past the longest slot)
 PAGED_CASES = [
-    (4, 1, 8, 4, 256, 16, [520, 523, 516, 524], 50.0),  # gemma2-2b decode
-    (4, 3, 8, 4, 256, 16, [520, 2, 516, 3], 50.0),   # S = 3, masked rows
-    (3, 1, 32, 8, 128, 8, [1, 64, 77], 0.0),  # mistral-7b, length 1, boundary
-    (2, 2, 4, 4, 64, 12, [24, 50], 0.0),      # block size 12, MHA
-    (2, 1, 8, 2, 256, 8, [40, 9], 50.0),      # G = 4, one split
+    (4, 1, 8, 4, 256, 16, [520, 523, 516, 524], 50.0, None),  # gemma2-2b
+    (4, 3, 8, 4, 256, 16, [520, 2, 516, 3], 50.0, None),  # S = 3, masked rows
+    (3, 1, 32, 8, 128, 8, [1, 64, 77], 0.0, None),  # mistral-7b, length 1
+    (2, 2, 4, 4, 64, 12, [24, 50], 0.0, None),      # block size 12, MHA
+    (2, 1, 8, 2, 256, 8, [40, 9], 50.0, None),      # G = 4
+    # gemma2-2b's decode in tables of an engine with max_len 4096
+    (4, 1, 8, 4, 256, 16, [520, 523, 516, 524], 50.0, 4096),
+    (4, 1, 8, 4, 256, 16, [520, 0, 516, 524], 50.0, None),  # an empty slot
+    (2, 3, 12, 3, 128, 16, [100, 2], 0.0, None),  # 12 rows: two row groups
 ]
 
 
 def _paged_inputs(rng, case, dtype, device):
     """Pools of shuffled blocks; slots 0 and 2 share their first blocks
     (a task prefix); table entries past each length name block 0."""
-    B, S, Hq, Hkv, D, bs, lengths, _ = case
-    nb = -(-max(lengths) // bs) + 1
+    B, S, Hq, Hkv, D, bs, lengths, _, table = case
+    nb = -(-(table or max(lengths) + bs) // bs)
     N = B * nb + 1
     order = rng.permutation(N - 1) + 1
     tables = np.zeros((B, nb), np.int32)
@@ -323,7 +328,7 @@ def _paged_inputs(rng, case, dtype, device):
         used = -(-n // bs)
         tables[b, :used] = order[b * nb:b * nb + used]
     if B > 2:
-        shared = min(-(-lengths[0] // bs), -(-lengths[2] // bs)) - 1
+        shared = max(min(-(-lengths[0] // bs), -(-lengths[2] // bs)) - 1, 0)
         tables[2, :shared] = tables[0, :shared]
     q = _rand(rng, B, S, Hq, D, dtype=dtype, device=device)
     k = _rand(rng, N, bs, Hkv, D, dtype=dtype, device=device)
@@ -336,7 +341,7 @@ def _paged_inputs(rng, case, dtype, device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_flash_decode_matches_plain(cuda, rng, case, dtype):
     q, k, v, tables, lengths = _paged_inputs(rng, case, dtype, cuda)
-    kw = dict(block_tables=tables, lengths=lengths, softcap=case[-1])
+    kw = dict(block_tables=tables, lengths=lengths, softcap=case[7])
     before = pa.launches
     out = pa.paged_flash_decode(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -350,8 +355,28 @@ def test_paged_flash_decode_matches_plain(cuda, rng, case, dtype):
         assert float(out[dead].float().abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("nsplit", [1, 2, 5, 8, 9, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_flash_decode_at_any_split_count(cuda, rng, monkeypatch,
+                                               nsplit, dtype):
+    """The kernel's split of each slot's positions (``pa.split_plan``) and
+    the merge within a cluster of ``nsplit`` blocks, at split counts the
+    host's rule does not pick for this shape: one split, a few, the
+    portable cluster size and past it, and more than a short slot has
+    tiles (empty splits)."""
+    case = (4, 3, 8, 4, 256, 16, [520, 2, 0, 70], 50.0, 4096)
+    q, k, v, tables, lengths = _paged_inputs(rng, case, dtype, cuda)
+    kw = dict(block_tables=tables, lengths=lengths, softcap=case[7])
+    monkeypatch.setattr(pa, "num_splits", lambda *shape: nsplit)
+    out = pa.paged_flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, plain.paged_decode_attention_ref(q, k, v, **kw), dtype)
+    dead = lengths[:, None] - 3 + torch.arange(3, device=cuda)[None] < 0
+    assert float(out[dead].float().abs().max()) == 0.0
+
+
 def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
-    case = (2, 1, 4, 2, 64, 8, [9, 3], 0.0)
+    case = (2, 1, 4, 2, 64, 8, [9, 3], 0.0, None)
     q, k, v, tables, lengths = _paged_inputs(rng, case, "float32", cuda)
     kw = dict(block_tables=tables, lengths=lengths)
     with pytest.raises(NotImplementedError):  # Dv != D (MLA needs it later)
@@ -372,6 +397,15 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
                               lengths=lengths[:1].contiguous())
     with pytest.raises(ValueError):  # everything on one device
         pa.paged_flash_decode(q, k.cpu(), v, **kw)
+
+
+def test_paged_kernel_rejects_more_splits_than_a_cluster_holds(cuda, rng,
+                                                               monkeypatch):
+    case = (2, 1, 4, 2, 64, 8, [90, 30], 0.0, None)
+    q, k, v, tables, lengths = _paged_inputs(rng, case, "float32", cuda)
+    monkeypatch.setattr(pa, "num_splits", lambda *shape: pa.MAX_SPLITS + 1)
+    with pytest.raises(RuntimeError):
+        pa.paged_flash_decode(q, k, v, block_tables=tables, lengths=lengths)
 
 
 def test_paged_scatter_keeps_the_last_lane_on_the_card(cuda, rng):
