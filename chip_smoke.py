@@ -42,9 +42,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
       replayed, the time between launches left out (CUDA events around
       few-row calls time mostly the host; ``fa.variant_for``'s rule is
       set from these device times);
-   b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536, with
-      ``device_ms``: 21 calls replayed in a CUDA graph that rotate through
-      three input sets (30 MB each at D = 2304);
+   b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536 (the
+      compress paths'), and mistral-7b's 1x768 x 6144 x 4096 (bf16 only, a
+      probe: no main path runs it).  Every bf16 shape runs through both
+      bf16 kernels, the wgmma variant (two launches) and the mma.sync one
+      (three), each forced and each held to the plain version; the wgmma
+      variant's distance from ``plain.memcom_xattn_tiled`` (its own
+      rounding points; also in bf16 steps from its float32 value, at most
+      0.5 for a kernel that rounds as it says) is printed beside.  ``ms`` / ``device_ms`` are the
+      picked variant's (``variant``), beside ``ms_<variant>`` and
+      ``device_ms_<variant>``: 21 calls replayed in a CUDA graph that
+      rotate through three input sets (30 MB each at D = 2304, 107 MB at
+      the probe), with each variant's workspace bytes;
    c. ``paged_flash_decode`` (the paged decode attention): the gemma2-2b
       main-path shape (q 4x1x8x256, pools of 16-position blocks, lengths
       516-524, slots 0/2 and 1/3 sharing the first 32 blocks of their
@@ -100,8 +109,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bfloat16, weights drawn from seeds, each in two runs with every
    kernel's launch counter set to 0 just before and read just after; each
    kernel of the run must have been launched (``gmm`` on granite's),
-   every flash call over the 3072-token source prompt must have gone
-   through the wgmma variant (its own counter, printed per path), and on
+   every flash call over the 3072-token source prompt and every
+   ``memcom_xattn`` call must have gone through the wgmma variant (their
+   own counters, printed per path), and on
    granite's paths every ``gmm`` call at C = 768 through the wgmma kernel
    and every one at C = 8 through the rows kernel (the calls by C and
    kernel are printed per path); ``paged_flash_decode`` has one kernel,
@@ -120,8 +130,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
       Each request's first token equals the dense engine's for the same
       request (the prefill reads the same prefix rows either way).
    A profiled warm compress and 4-request serve on each layout give the
-   device busy time and idle share (and the paged serve's
-   ``paged_decode`` device time); peak device memory is printed.
+   device busy time and idle share (and the compress's
+   ``xattn_logits_wgmma`` / ``xattn_out_wgmma`` and the paged serve's
+   ``paged_decode`` device times); peak device memory is printed.
    c. mamba2-370m (48 Mamba2 layers, no MemCom): 8 requests, each one of
       the two 3072-token many-shot prompts plus a 4-12-token query, 16
       greedy tokens each, over 4 slots (so slots refill), through a dense
@@ -474,43 +485,90 @@ def main() -> int:
         flash_rows.append(row)
 
     mx_rows = []
-    for name, D in (("memory_xattn", 2304), ("granite_memory_xattn", 1536)):
-        row = {"shape": name, "q": [1, m, D], "kv": [1, T, D]}
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, B, Mx, Tx, D in (("memory_xattn", 1, m, T, 2304),
+                               ("granite_memory_xattn", 1, m, T, 1536),
+                               ("mistral_memory_xattn", 1, 768, 2 * T, 4096)):
+        picked = mx.variant_for(torch.bfloat16, B, Mx, Tx, D, True)
+        row = {"shape": name, "q": [B, Mx, D], "kv": [B, Tx, D],
+               "variant": picked,
+               "nsplit": mx.num_splits(B, Mx, Tx, D)}
+        dtypes = ((torch.bfloat16,) if name.startswith("mistral")
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
             dn = str(dtype).split(".")[1]
-            q = rand(1, m, D, dtype=dtype)
-            k = rand(1, T, D, dtype=dtype)
-            v = rand(1, T, D, dtype=dtype)
-            out = mx.memcom_xattn(q, k, v)
-            torch.cuda.synchronize()
+            q = rand(B, Mx, D, dtype=dtype)
+            k = rand(B, Tx, D, dtype=dtype)
+            v = rand(B, Tx, D, dtype=dtype)
             ref = plain.memcom_xattn_ref(q, k, v)
-            row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = check(
-                "memcom_xattn", name, dn, out, ref)
-            if dtype is torch.bfloat16:
-                row["ms"] = cuda_ms(lambda: mx.memcom_xattn(q, k, v))
-                # three input sets (30 MB each at D 2304) past the 50 MB L2
-                bufs = [(q, k, v)] + [tuple(rand(*x.shape, dtype=dtype)
-                                            for x in (q, k, v))
-                                      for _ in range(2)]
-                row["device_ms"] = device_ms(mx.memcom_xattn, 21, bufs)
-                del bufs
-                row["plain_ms"] = cuda_ms(
-                    lambda: plain.memcom_xattn_ref(q, k, v), reps=3)
-                row["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q[:, None], k[:, None], v[:, None]), reps=3)
-                flops = 4 * m * T * D
-                nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
-                row["flops"], row["bytes"] = flops, nbytes
-                row["workspace_bytes"] = mx.workspace_bytes(1, m, T, dtype)
-                log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
-                    f"{row['device_ms']:.4f}), plain "
-                    f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f}"
-                    f" ms, bound {row['bound_ms']:.4f} ms "
-                    f"({row['bound_by']}), workspace "
-                    f"{row['workspace_bytes']} bytes")
-            del q, k, v, out, ref
+            if dtype is torch.float32:
+                out = mx.memcom_xattn(q, k, v)
+                torch.cuda.synchronize()
+                row[f"max_abs_err_{dn}"], row[f"scaled_err_{dn}"] = check(
+                    "memcom_xattn", name, dn, out, ref)
+                del q, k, v, out, ref
+                continue
+            # both bf16 kernels, each forced and held to the plain version
+            for var in ("wgmma", "mma_sync"):
+                out = mx.memcom_xattn(q, k, v, variant=var)
+                torch.cuda.synchronize()
+                extra = ""
+                if var == "wgmma":
+                    tiled = plain.memcom_xattn_tiled(q, k, v,
+                                                     splits=row["nsplit"])
+                    row["tiled_err"] = err(out, tiled)
+                    row["tiled_scaled_err"] = plain.scaled_err(out, tiled)
+                    tiled = plain.memcom_xattn_tiled(
+                        q.float(), k.float(), v.float(), splits=row["nsplit"])
+                    row["tiled_ulps"] = plain.bf16_ulps(out, tiled)
+                    extra = (f", vs memcom_xattn_tiled {row['tiled_err']:.3e}"
+                             f" / scaled {row['tiled_scaled_err']:.3e} / "
+                             f"{row['tiled_ulps']:.4f} bf16 steps from its "
+                             "float32 value")
+                    del tiled
+                e, se = check("memcom_xattn", f"{name}_{var}", dn, out, ref,
+                              extra=extra)
+                row[f"max_abs_err_{dn}_{var}"] = e
+                row[f"scaled_err_{dn}_{var}"] = se
+                del out
+            for key in ("max_abs_err", "scaled_err"):
+                row[f"{key}_{dn}"] = max(row[f"{key}_{dn}_wgmma"],
+                                         row[f"{key}_{dn}_mma_sync"])
+            # three input sets (30 MB each at D 2304) past the 50 MB L2
+            bufs = [(q, k, v)] + [tuple(rand(*x.shape, dtype=dtype)
+                                        for x in (q, k, v))
+                                  for _ in range(2)]
+            for var in ("wgmma", "mma_sync"):
+                def call(q_, k_, v_, var=var):
+                    return mx.memcom_xattn(q_, k_, v_, variant=var)
+                row[f"ms_{var}"] = cuda_ms(lambda: call(q, k, v))
+                row[f"device_ms_{var}"] = device_ms(call, 21, bufs)
+                row[f"workspace_bytes_{var}"] = mx.workspace_bytes(
+                    B, Mx, Tx, dtype, var)
+            del bufs
+            row["ms"] = row[f"ms_{picked}"]
+            row["device_ms"] = row[f"device_ms_{picked}"]
+            row["workspace_bytes"] = row[f"workspace_bytes_{picked}"]
+            row["plain_ms"] = cuda_ms(
+                lambda: plain.memcom_xattn_ref(q, k, v), reps=3)
+            row["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None]), reps=3)
+            flops = 4 * B * Mx * Tx * D
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+            row["flops"], row["bytes"] = flops, nbytes
+            log(f"  {name} bf16: kernel {row['ms']:.4f} ms ({picked}, "
+                f"{row['nsplit']} splits; wgmma {row['ms_wgmma']:.4f}, "
+                f"mma.sync {row['ms_mma_sync']:.4f}; device wgmma "
+                f"{row['device_ms_wgmma']:.4f}, mma.sync "
+                f"{row['device_ms_mma_sync']:.4f}), plain "
+                f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f}"
+                f" ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), workspace wgmma "
+                f"{row['workspace_bytes_wgmma']} / mma.sync "
+                f"{row['workspace_bytes_mma_sync']} bytes")
+            del q, k, v, ref
+        torch.cuda.empty_cache()
         mx_rows.append(row)
 
     def paged_inputs(B, S, Hq, Hkv, Dh, bs, lengths, share, dtype, table):
@@ -852,11 +910,12 @@ def main() -> int:
         for mod in counters.values():
             mod.launches = 0
         fa.wgmma_launches = gm.wgmma_launches = gm.rows_launches = 0
-        ss.chunked_launches = 0
+        mx.wgmma_launches = ss.chunked_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
         c["flash_attention_wgmma"] = fa.wgmma_launches
+        c["memcom_xattn_wgmma"] = mx.wgmma_launches
         c["gmm_wgmma"] = gm.wgmma_launches
         c["gmm_rows"] = gm.rows_launches
         c["ssd_chunked"] = ss.chunked_launches
@@ -1056,6 +1115,14 @@ def main() -> int:
             f"{dense['ttft_max_s']:.4f}s")
         log(f"{tag} launches: compress {after_compress}, whole dense path "
             f"{launches}")
+        log(f"{tag} memcom_xattn calls on the dense path: "
+            f"{launches['memcom_xattn']}, {launches['memcom_xattn_wgmma']} "
+            "through the wgmma variant")
+        if launches["memcom_xattn"] != launches["memcom_xattn_wgmma"]:
+            raise AssertionError(f"{arch}: {launches['memcom_xattn']} "
+                                 f"memcom_xattn calls, "
+                                 f"{launches['memcom_xattn_wgmma']} through "
+                                 "the wgmma variant")
         log(f"{tag} tokens {tokens.tolist()}")
         if tokens.shape != (slots, max_new) or tokens.min() < 0 \
                 or tokens.max() >= cfg.vocab_size:
@@ -1162,6 +1229,14 @@ def main() -> int:
             f"{peak_dense} bytes through the dense path, "
             f"{paged['peak_bytes']} during the paged serve")
         log(f"{tag} paged launches {paged_launches}")
+        log(f"{tag} memcom_xattn calls on the paged path: "
+            f"{paged_launches['memcom_xattn']}, "
+            f"{paged_launches['memcom_xattn_wgmma']} through the wgmma "
+            "variant")
+        if paged_launches["memcom_xattn"] \
+                != paged_launches["memcom_xattn_wgmma"]:
+            raise AssertionError(f"{arch}: memcom_xattn off the wgmma "
+                                 "variant on the paged path")
         for key in ("flash_attention", "paged_flash_decode", *need):
             if paged_launches[key] <= 0:
                 raise AssertionError(f"{key} was never launched on {arch}'s "
@@ -1192,6 +1267,12 @@ def main() -> int:
         decode_n = sum(n for _, n in decode)
         log(f"{tag} profile paged_serve: paged_decode {decode_ms:.3f} ms over "
             f"{decode_n} calls")
+        for kname in ("xattn_logits_wgmma", "xattn_out_wgmma"):
+            hits = [v for k, v in breakdown["compress"]["by_name"].items()
+                    if kname + "<" in k]
+            log(f"{tag} profile compress: {kname} "
+                f"{sum(ms for ms, _ in hits):.3f} ms over "
+                f"{sum(n for _, n in hits)} calls")
         return {
             "task_compress_s": task_s, "breakdown": breakdown,
             "compress_s": compress_s, "dense": dense, "paged": paged,
@@ -1586,7 +1667,7 @@ def main() -> int:
     entries = []
     for key, rows, main in (
             ("flash_attention:flash_attention", flash_rows, "source_prefill"),
-            ("memcom_xattn:memcom_xattn", mx_rows, None),
+            ("memcom_xattn:memcom_xattn", mx_rows, "memory_xattn"),
             ("paged_attention:paged_flash_decode", paged_rows, "decode"),
             ("moe_gmm:gmm", gmm_rows, None),
             ("ssd_scan:ssd", ssd_rows, "prefill")):
@@ -1609,6 +1690,14 @@ def main() -> int:
             "shapes": rows})
         if name in ("memcom_xattn", "paged_flash_decode"):
             entries[-1]["device_ms"] = head["device_ms"]
+        if name == "memcom_xattn":  # the wgmma variant and the mma.sync one
+            entries[-1].update(
+                wgmma_launches=sum(c["memcom_xattn_wgmma"]
+                                   for c in paths.values()),
+                variant=head["variant"], nsplit=head["nsplit"],
+                workspace_bytes=head["workspace_bytes"],
+                **{k: head[k] for k in head
+                   if k.startswith(("ms_", "device_ms_"))})
         if name == "flash_attention":  # the wgmma variant and the mma.sync one
             entries[-1].update(
                 wgmma_launches=sum(c["flash_attention_wgmma"]

@@ -888,11 +888,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* q_pos,
 }
 
 // One 64 x N x 64 product through the helpers of wgmma_sm90.cuh: a (M x K)
-// row-major.  N = 64: b (N x K) row-major, read K-major with A from shared
-// memory, or (mn_major) b (K x N) row-major, read MN-major with A from
-// registers: the two forms flash_fwd_wgmma uses.  N = 128 or 256: b (K x N)
-// row-major, read MN-major with A from shared memory (mma_ss_n, the form
-// moe_gmm.cu's gmm_wgmma uses).
+// row-major; b (N x K) row-major read K-major, or (mn_major) b (K x N)
+// row-major read MN-major (transpose bit set).  N = 64: A from shared
+// memory with b K-major, from registers with b MN-major, the two forms
+// flash_fwd_wgmma uses.  N = 128 or 256: A from shared memory (mma_ss_n),
+// b MN-major as gmm_wgmma and xattn_out_wgmma read it, or K-major as
+// xattn_logits_wgmma does.
 template <int N>
 __global__ void __launch_bounds__(128)
 wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
@@ -909,12 +910,19 @@ wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
     *reinterpret_cast<uint4*>(sm + wg::sw128(r, pc)) =
         *reinterpret_cast<const uint4*>(a + r * 64 + pc * 8);
   }
-  // b's 64 rows of N columns: 64-column chunks, 8192 bytes apart
-  for (int e = tid; e < 64 * (N / 8); e += 128) {
-    const int r = e / (N / 8), pc = e % (N / 8);
-    *reinterpret_cast<uint4*>(sm + 8192 + (pc / 8) * 8192 +
-                              wg::sw128(r, pc % 8)) =
-        *reinterpret_cast<const uint4*>(b + r * N + pc * 8);
+  if (mn_major) {  // b's 64 rows of N columns: 64-column chunks 8192 B apart
+    for (int e = tid; e < 64 * (N / 8); e += 128) {
+      const int r = e / (N / 8), pc = e % (N / 8);
+      *reinterpret_cast<uint4*>(sm + 8192 + (pc / 8) * 8192 +
+                                wg::sw128(r, pc % 8)) =
+          *reinterpret_cast<const uint4*>(b + r * N + pc * 8);
+    }
+  } else {  // b's N rows of 64 columns, 128 bytes a row
+    for (int e = tid; e < N * 8; e += 128) {
+      const int r = e / 8, pc = e % 8;
+      *reinterpret_cast<uint4*>(sm + 8192 + wg::sw128(r, pc)) =
+          *reinterpret_cast<const uint4*>(b + r * 64 + pc * 8);
+    }
   }
   wg::fence_proxy_async();
   __syncthreads();
@@ -922,20 +930,13 @@ wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
   for (int j = 0; j < N / 2; ++j) d[j] = 0.f;
   const int g = warp * 16 + lane / 4, t2 = (lane % 4) * 2;
+  const uint32_t lbo = mn_major ? 8192 : 16;
   wg::fence();
-  if constexpr (N != 64) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wg::mma_ss_n<N, 1>(d, wg::desc(sA + ks * 32, 16, 1024),
-                         wg::desc(sB + ks * 2048, 8192, 1024), ks > 0);
-  } else if (!mn_major) {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wg::mma_ss<0>(d, wg::desc(sA + ks * 32, 16, 1024),
-                    wg::desc(sB + ks * 32, 16, 1024), ks > 0);
-  } else {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t db = wg::desc(sB + (mn_major ? ks * 2048 : ks * 32), lbo,
+                                 1024);
+    if (N == 64 && mn_major) {
       uint32_t f[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -943,7 +944,15 @@ wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
         f[r] = wg::pack_bf16(__bfloat162float(a[row * 64 + col]),
                              __bfloat162float(a[row * 64 + col + 1]));
       }
-      wg::mma_rs<1>(d, f, wg::desc(sB + ks * 2048, 8192, 1024), ks > 0);
+      if constexpr (N == 64) wg::mma_rs<1>(d, f, db, ks > 0);
+    } else {
+      const uint64_t da = wg::desc(sA + ks * 32, 16, 1024);
+      if constexpr (N == 64) {
+        wg::mma_ss<0>(d, da, db, ks > 0);
+      } else {
+        if (mn_major) wg::mma_ss_n<N, 1>(d, da, db, ks > 0);
+        else wg::mma_ss_n<N, 0>(d, da, db, ks > 0);
+      }
     }
   }
   wg::commit();
@@ -1052,17 +1061,17 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
 }
 
 // c (64 x n f32) = a b through one wgmma tile product (wgmma_tile_check):
-// n = 64 in either form, n = 128 or 256 with b MN-major.
+// n = 64, 128 or 256; b K-major or MN-major.
 extern "C" int flash_wgmma_tile_check(const void* a, const void* b, float* c,
                                       int n, int mn_major, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto ab = static_cast<const __nv_bfloat16*>(a);
   const auto bb = static_cast<const __nv_bfloat16*>(b);
   if (n == 64) wgmma_tile_check<64><<<1, 128, 0, st>>>(ab, bb, c, mn_major);
-  else if (n == 128 && mn_major)
-    wgmma_tile_check<128><<<1, 128, 0, st>>>(ab, bb, c, 1);
-  else if (n == 256 && mn_major)
-    wgmma_tile_check<256><<<1, 128, 0, st>>>(ab, bb, c, 1);
+  else if (n == 128)
+    wgmma_tile_check<128><<<1, 128, 0, st>>>(ab, bb, c, mn_major);
+  else if (n == 256)
+    wgmma_tile_check<256><<<1, 128, 0, st>>>(ab, bb, c, mn_major);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -9,29 +9,77 @@
 // T = 3072, D = 2304) the two products are 2*2*M*T*D = 14.5 GFLOP against
 // ~33 MB of bf16 operands, so it is bound by operations (the tensor cores).
 //
-// Design: the TPU kernel keeps a (bm, D) f32 accumulator and the Q tile
-// resident across the T sweep.  At D = 2304 and bm = 64 that accumulator
-// alone is 590 KB, far above the 227 KB of shared memory one H100 block may
-// use, so D is tiled on both sides and the softmax is split out:
+// Why two products: the TPU kernel keeps a (bm, D) f32 accumulator and the
+// Q tile resident across the T sweep.  At D = 2304 and bm = 64 that
+// accumulator alone is 590 KB, more than the 256 KB register file of an
+// SM, so D is tiled on both sides and the softmax sits between a logits
+// product (contraction D) and an output product (contraction T).  Three
+// variants (kernels/memcom_xattn.py::variant_for picks one):
+//
+// * "wgmma" (bf16, D % 64 == 0, 16-byte aligned q/k/v; any T up to
+//   WGMMA_MAX_T): two kernels on wgmma, the softmax folded into them.
+//   1. xattn_logits_wgmma: S = scale Q K^T in (64 LG_NWG) x LG_BN tiles
+//      (128 x 128), Q and K both K-major (row-major in D) in the 128-byte
+//      swizzle, 64-deep D slabs through the slab ring of wgmma_sm90.cuh on
+//      a persistent grid.  Columns at or past T are -inf (the TPU kernel's
+//      col < t_total).  Its epilogue is the softmax's first half: for each
+//      row of the tile it writes m_j (the tile's row maximum), l_j = sum
+//      exp(S - m_j) in float32 from the unrounded values, and P~ =
+//      exp(S - m_j) rounded to bf16 (every value in (0, 1]).
+//   2. xattn_out_wgmma: O = sum_j diag(c_j) P~_j V_j with c_j =
+//      exp(m_j - m_row) / l_row, m_row = max_j m_j, l_row = sum_j
+//      exp(m_j - m_row) l_j, and c_j = 0 where m_j lies 100 or more below
+//      m_row (no ratio of two tiles' scales is formed: nothing overflows).
+//      A block owns a (64 OUT_NWG) x OUT_BN tile of O (128 x 256) and one
+//      of `nsplit` stretches of T: it reduces its rows' (m_j, l_j) to c_j
+//      in shared memory while its first slabs load, then walks its stretch
+//      in 64-deep slabs through the slab ring — P~ the K-major A operand,
+//      V the MN-major B operand (row by row, transpose bit set) — and
+//      scales each landed A slab in shared memory by its rows' c_j (each
+//      thread its own cp.async pieces, rounded to bf16 again) before the
+//      barrier that shows it to wgmma.  So P is rounded to bf16 twice: P~,
+//      then c_j P~.  (A from registers, ldmatrix and scaled there, with no
+//      group in flight, was 5-10% slower: PERF.md section 6.)
+//      The tile leaves through shared memory in short loops (the fully
+//      unrolled per-fragment epilogue cost microseconds a block): every
+//      block stores its partial tile into its idle ring; the nsplit blocks
+//      of a tile are one thread block cluster, and after a cluster barrier
+//      each adds the nsplit partials of its share of the rows, in split
+//      order, from its own and its peers' shared memory, and stores them:
+//      deterministic, no atomics, no workspace.
+//   Workspace: P~ (B,M,Tp) bf16, Tp = T rounded up to 8, zero in columns
+//   T..Tp, then the (m_j, l_j) pairs (B, ceil(T/LG_BN), M) float2: 3.2 MB
+//   at the shape above (9.4 MB for "mma_sync").
+//   Split rule (the wrapper's num_splits): as many splits as keep one wave
+//   of output blocks (one an SM) up to FILL_SPLITS, and at least as many
+//   as keep a split within SPLIT_SLABS_MAX slabs (its c_j fit the CT_MAX
+//   table); at most MAX_SPLITS (a portable cluster).  The tiles and the
+//   rule are set from device times (scripts/xattn_times.py, PERF.md
+//   section 6): gemma2-2b's 36 output tiles take 3 splits, granite's 24
+//   take 4, mistral-7b's 96 take the 2 its 6144 tokens need.
+// * "mma_sync" (bf16, D % 8 == 0): three launches through an f32
+//   workspace:
 //   1. logits: S = scale * Q K^T, a tiled (M x T, contraction D) product
 //      written to an f32 workspace (B,M,Tp), Tp = T rounded up to 8;
 //   2. rows:   one block per row turns S into P = softmax(S);
 //   3. output: O = P V, a tiled (M x D, contraction T) product.
-// bfloat16 runs both products on the tensor cores (mma.sync m16n8k16, f32
-// accumulate, ldmatrix from padded shared tiles; 64 x 128 x 32 block
-// tiles, four warps of 32 x 64), with P stored in bf16 for the second
-// product.  It takes D % 8 == 0.  Its workspace is 6*B*M*Tp bytes (9.4 MB
-// at the shape above): S written once and read once, P written once and
-// read once per 128-column tile of O.  float32 runs the same three passes
-// on the CUDA cores (one 64x64x16 shared-memory tiled kernel, 4x4 outputs
-// per thread) so that it matches the float32 reference to 1e-4; its
-// workspace is 4*B*M*T bytes, P overwriting S.
+//   Both products on mma.sync m16n8k16 (f32 accumulate, ldmatrix from
+//   padded shared tiles; 64 x 128 x 32 block tiles, four warps of 32 x
+//   64), P stored in bf16 for the second.  Workspace 6*B*M*Tp bytes: S
+//   written once and read once, P written once and read once per
+//   128-column tile of O.
+// * float32: the same three passes on the CUDA cores (one 64x64x16
+//   shared-memory tiled kernel, 4x4 outputs per thread) so that it
+//   matches the float32 reference to 1e-4; its workspace is 4*B*M*T
+//   bytes, P overwriting S.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cmath>
 #include <cstdint>
 
 #include "mma_sm80.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -298,31 +346,520 @@ int run_f32(const float* q, const float* k, const float* v, float* out,
   return cudaGetLastError();
 }
 
+// ---- bfloat16 on wgmma: the "wgmma" variant -------------------------------
+
+// The tiles: (64 LG_NWG) x LG_BN logits tiles through LG_STAGES ring
+// stages, (64 OUT_NWG) x OUT_BN output tiles through OUT_STAGES.
+constexpr int LG_BN = 128;      // columns of a logits tile: one (m_j, l_j)
+constexpr int LG_NWG = 2;
+constexpr int LG_STAGES = 4;
+constexpr int OUT_NWG = 2;
+constexpr int OUT_BN = 256;
+constexpr int OUT_STAGES = 4;
+constexpr int MAX_SPLITS = 8;   // splits of T a tile: a portable cluster
+constexpr int FILL_SPLITS = 4;  // splits that only fill the card, at most
+constexpr int CT_MAX = 32;      // c_j a block holds for each of its rows
+// The most 64-deep slabs of T one split walks: its slabs touch at most
+// ceil(slabs / (LG_BN / 64)) + 1 <= CT_MAX logits tiles.
+constexpr int SPLIT_SLABS_MAX = (CT_MAX - 1) * (LG_BN / 64);
+constexpr float C_CUT = 100.f;  // m_row - m_j at which c_j is 0
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+template <int NWG, int BN, bool OUT>
+struct XCfg {
+  static constexpr int STAGES = OUT ? OUT_STAGES : LG_STAGES;  // slab ring
+  static constexpr int NT = 128 * NWG, BM = 64 * NWG;
+  static constexpr int A_BYTES = NWG * 8192;        // BM rows x 64
+  static constexpr int B_BYTES = BN * 128;          // K: BN x 64; V: 64 x BN
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int C_BYTES = OUT ? BM * CT_MAX * 4 : 0;  // c_j table
+  static constexpr size_t SMEM = 1024 + RING + C_BYTES;  // + 1024-B align
+  static constexpr int MINB = 2 * SMEM <= 232448 - 2048 ? 2 : 1;  // an SM
+  static_assert(BN % 64 == 0 && BN <= 256, "wgmma N: 64-column chunks");
+  static_assert(!OUT || BM * (BN + 4) * 4 <= RING, "the tile leaves by the ring");
+};
+
+
+// S = scale Q K^T for the tiles (b, row tile, column tile) of a persistent
+// grid; epilogue: P~ and (m_j, l_j) as the note above says.
+template <int NWG, int BN>
+__global__ void __launch_bounds__(XCfg<NWG, BN, false>::NT,
+                                  XCfg<NWG, BN, false>::MINB)
+xattn_logits_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   bf16* __restrict__ P, float2* __restrict__ ml, int M,
+                   int Tn, int Tp, int D, float scale_log2, int tiles_m,
+                   int tiles_n, int tiles) {
+  namespace wg = wgmma_sm90;
+  using K = XCfg<NWG, BN, false>;
+  constexpr int NT = K::NT, BM = K::BM, STAGES = K::STAGES;
+  extern __shared__ unsigned char smem_lg[];
+  const uint32_t raw = wg::smem_addr(smem_lg);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid % 128) / 32;
+  const int grp = tid / 128;  // this thread's warpgroup
+  const int nk = D / 64;
+  const int mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1
+                                      : 0;
+
+  struct Tile {
+    int b, m0, nt;
+  };
+  auto tile_of = [&](int t) {  // this block's t-th tile
+    const int T_ = blockIdx.x + t * gridDim.x;
+    const int r = T_ / tiles_n;
+    return Tile{r / tiles_m, (r % tiles_m) * BM, T_ % tiles_n};
+  };
+
+  // This thread's share of a slab: Q rows rx + i NT/8 and K rows rx + i
+  // NT/8, 16-byte piece px of the slab's 64 columns.
+  constexpr int QI = BM * 8 / NT, KI = BN * 8 / NT;
+  const int px = tid % 8, rx = tid / 8;
+  const size_t step = static_cast<size_t>(NT / 8) * D;
+  int c_t = 0, c_kt = 0;  // the load cursor: slab c_kt of tile c_t
+  const bf16* c_q = q;
+  const bf16* c_k = k;
+  uint32_t c_qrows = 0, c_krows = 0;  // bit i: row i is below M / T
+  auto enter = [&](int t) {
+    const Tile tl = tile_of(t);
+    const int n0 = tl.nt * BN;
+    c_q = q + (static_cast<size_t>(tl.b) * M + tl.m0 + rx) * D + px * 8;
+    c_k = k + (static_cast<size_t>(tl.b) * Tn + n0 + rx) * D + px * 8;
+    c_qrows = c_krows = 0;
+#pragma unroll
+    for (int i = 0; i < QI; ++i)
+      c_qrows |= static_cast<uint32_t>(tl.m0 + rx + i * (NT / 8) < M) << i;
+#pragma unroll
+    for (int i = 0; i < KI; ++i)
+      c_krows |= static_cast<uint32_t>(n0 + rx + i * (NT / 8) < Tn) << i;
+  };
+  auto issue = [&](int s) {
+    const int k0 = c_kt * 64;
+    const uint32_t sA = base + s * K::STAGE, sB = sA + K::A_BYTES;
+#pragma unroll
+    for (int i = 0; i < QI; ++i) {
+      const int r = rx + i * (NT / 8);
+      const bool ok = c_qrows >> i & 1u;
+      wg::cp_async16(sA + (r / 64) * 8192 + wg::sw128(r % 64, px),
+                     ok ? c_q + i * step + k0 : q, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+      const bool ok = c_krows >> i & 1u;
+      wg::cp_async16(sB + wg::sw128(rx + i * (NT / 8), px),
+                     ok ? c_k + i * step + k0 : k, ok);
+    }
+    if (++c_kt == nk) {
+      c_kt = 0;
+      if (++c_t < mine) enter(c_t);
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  // the softmax's first half on the accumulators (fragment layout of
+  // wgmma_sm90.cuh), then P~ in 16-byte rows and (m_j, l_j)
+  auto finish = [&](int t) {
+    const Tile tl = tile_of(t);
+    const int n0 = tl.nt * BN, q4 = lane % 4;
+    float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = n0 + 8 * n + 2 * q4 + e % 2 < Tn;
+        const float x = ok ? acc[4 * n + e] * scale_log2 : -INFINITY;
+        acc[4 * n + e] = x;
+        mt[e / 2] = fmaxf(mt[e / 2], x);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // finite: column n0 < T is in every row
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(FULL, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(FULL, mt[h], 2));
+    }
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = wg::ex2(acc[4 * n + e] - mt[e / 2]);  // masked: 0
+        acc[4 * n + e] = p;
+        lt[e / 2] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lt[h] += __shfl_xor_sync(FULL, lt[h], 1);
+      lt[h] += __shfl_xor_sync(FULL, lt[h], 2);
+      const int gm = tl.m0 + grp * 64 + warp * 16 + lane / 4 + 8 * h;
+      bf16* prow = P + (static_cast<size_t>(tl.b) * M + gm) * Tp;
+#pragma unroll
+      for (int j = 0; j < BN / 32; ++j) {
+        const uint4 v = wg::row8_bf16(acc, h, j, lane);
+        const int gn = n0 + 8 * (4 * j + q4);
+        if (gm < M && gn < Tp)  // Tp % 8 == 0: the 8 columns are whole
+          *reinterpret_cast<uint4*>(prow + gn) = v;
+      }
+      if (gm < M && q4 == 0)
+        ml[(static_cast<size_t>(tl.b) * tiles_n + tl.nt) * M + gm] =
+            make_float2(mt[h] * LN2, lt[h]);
+    }
+  };
+
+  if (mine > 0) enter(0);
+  wg::ring_prime<STAGES>(mine * nk, issue);
+  wg::ring_walk<STAGES>(
+      mine, nk, issue, [](int, int) {},
+      [&](int stage, int kt) {
+        const uint32_t sA = base + stage * K::STAGE + grp * 8192;
+        const uint32_t sB = base + stage * K::STAGE + K::A_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wg::mma_ss_n<BN, 0>(acc, wg::desc(sA + ks * 32, 16, 1024),
+                              wg::desc(sB + ks * 32, 16, 1024),
+                              kt > 0 || ks > 0);
+      },
+      [&] { wg::reg_fence(acc); }, finish);
+}
+
+// The cluster barrier in two halves: arrive (release: this thread's earlier
+// shared-memory writes, its peers' included, become visible to the
+// waiters), then wait (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The generic address of `p` (this block's shared memory) in block `rank`
+// of the cluster.
+__device__ __forceinline__ const float* cluster_map(const float* p, int rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(r);
+}
+
+// Block (column tile, row tile, b * nsplit + split): O's 64 NWG x BN tile
+// over the split's stretch of T; the nsplit blocks of a tile are one
+// cluster and add their partials as the note above says.
+template <int NWG, int BN>
+__global__ void __launch_bounds__(XCfg<NWG, BN, true>::NT,
+                                  XCfg<NWG, BN, true>::MINB)
+xattn_out_wgmma(const bf16* __restrict__ P, const float2* __restrict__ ml,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int M,
+                int Tn, int Tp, int D, int ntl, int nsplit) {
+  namespace wg = wgmma_sm90;
+  using K = XCfg<NWG, BN, true>;
+  constexpr int NT = K::NT, BM = K::BM, STAGES = K::STAGES;
+  extern __shared__ unsigned char smem_out[];
+  const uint32_t raw = wg::smem_addr(smem_out);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_out + (base - raw);
+  float* cs = reinterpret_cast<float*>(sm + K::RING);  // [BM][CT_MAX]
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid % 128) / 32;
+  const int grp = tid / 128;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int b = blockIdx.z / nsplit, split = blockIdx.z % nsplit;
+  // this split's slabs [s_lo, s_lo + nk) and the logits tiles they touch
+  const int nk_all = (Tn + 63) / 64, per = (nk_all + nsplit - 1) / nsplit;
+  const int s_lo = min(nk_all, split * per);
+  const int nk = min(nk_all, s_lo + per) - s_lo;
+  const int j_lo = s_lo * 64 / LG_BN;
+
+  // This thread's share of a slab: P~ rows rx + i NT/8 at piece px; V rows
+  // rw + i WRS at piece pw of BN / 8.
+  constexpr int AI = BM * 8 / NT, WPR = BN / 8, VI = 64 * WPR / NT;
+  constexpr int WRS = NT / WPR;
+  const int px = tid % 8, rx = tid / 8, pw = tid % WPR, rw = tid / WPR;
+  const bf16* a_row = P + (static_cast<size_t>(b) * M + m0 + rx) * Tp + px * 8;
+  const size_t a_step = static_cast<size_t>(NT / 8) * Tp;
+  const bf16* v_row = v + (static_cast<size_t>(b) * Tn + rw) * D + n0 + pw * 8;
+  const size_t v_step = static_cast<size_t>(WRS) * D;
+  const bool v_col = n0 + pw * 8 < D;  // D % 64 == 0: pieces are whole
+  int c_kt = 0;
+  auto issue = [&](int s) {
+    const int k0 = (s_lo + c_kt++) * 64;
+    const uint32_t sA = base + s * K::STAGE, sB = sA + K::A_BYTES;
+#pragma unroll
+    for (int i = 0; i < AI; ++i) {
+      const int r = rx + i * (NT / 8);
+      const bool ok = m0 + r < M && k0 + px * 8 < Tp;
+      wg::cp_async16(sA + (r / 64) * 8192 + wg::sw128(r % 64, px),
+                     ok ? a_row + i * a_step + k0 : P, ok);
+    }
+    const bf16* vk = v_row + static_cast<size_t>(k0) * D;
+#pragma unroll
+    for (int i = 0; i < VI; ++i) {
+      const bool ok = v_col && k0 + rw + i * WRS < Tn;
+      wg::cp_async16(sB + (pw / 8) * 8192 + wg::sw128(rw + i * WRS, pw % 8),
+                     ok ? vk + i * v_step : v, ok);
+    }
+  };
+  wg::ring_prime<STAGES>(nk, issue);
+
+  // c_j of the block's rows for the split's logits tiles, while the first
+  // slabs load: two neighbouring lanes a row, each over every other tile
+  {
+    const int r = tid / 2, half = tid % 2, row = m0 + r;
+    const float2* mr = ml + static_cast<size_t>(b) * ntl * M + row;
+    float mx = -INFINITY, l = 0.f;
+    // eight loads in flight at a time, then their online sum
+    for (int j0 = half; row < M && j0 < ntl; j0 += 16) {
+      float2 e[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        e[u] = j0 + 2 * u < ntl ? mr[static_cast<size_t>(j0 + 2 * u) * M]
+                                : make_float2(-INFINITY, 0.f);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (e[u].y == 0.f) continue;  // past ntl
+        if (e[u].x > mx) {
+          l = l * expf(mx - e[u].x) + e[u].y;
+          mx = e[u].x;
+        } else {
+          l += e[u].y * expf(e[u].x - mx);
+        }
+      }
+    }
+    const float mo = __shfl_xor_sync(FULL, mx, 1);
+    const float lo = __shfl_xor_sync(FULL, l, 1);
+    const float mrow = fmaxf(mx, mo);
+    const float lrow = (l > 0.f ? l * expf(mx - mrow) : 0.f)
+                     + (lo > 0.f ? lo * expf(mo - mrow) : 0.f);
+    const int j_hi = nk > 0 ? ((s_lo + nk) * 64 - 1) / LG_BN : j_lo - 1;
+    float mj[CT_MAX / 2];
+#pragma unroll
+    for (int u = 0; u < CT_MAX / 2; ++u) {
+      const int j = j_lo + half + 2 * u;
+      mj[u] = row < M && j <= j_hi ? mr[static_cast<size_t>(j) * M].x
+                                   : -INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < CT_MAX / 2; ++u)
+      cs[r * CT_MAX + half + 2 * u] =
+          mrow - mj[u] < C_CUT ? expf(mj[u] - mrow) / lrow : 0.f;
+  }
+  __syncthreads();
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  // scale this thread's own landed pieces of the A slab by their rows' c_j
+  auto land = [&](int stage, int kt) {
+    const int jj = (s_lo + kt) * 64 / LG_BN - j_lo;
+#pragma unroll
+    for (int i = 0; i < AI; ++i) {
+      const int r = rx + i * (NT / 8);
+      const float c = cs[r * CT_MAX + jj];
+      uint4* p = reinterpret_cast<uint4*>(
+          sm + stage * K::STAGE + (r / 64) * 8192 + wg::sw128(r % 64, px));
+      uint4 x = *p;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+        w[e] = wg::pack_bf16(__low2float(h) * c, __high2float(h) * c);
+      }
+      *p = x;
+    }
+  };
+  // The tile leaves through shared memory (row-major floats, rows TS
+  // apart) in short loops: its fragments are stored once, then each block
+  // of the cluster adds the nsplit partials of its share of the rows, in
+  // split order, reading its peers' shared memory, and stores them as bf16.
+  constexpr int TS = BN + 4;
+  auto finish = [&](int) {
+    __syncthreads();  // every warpgroup's products are done: the ring is free
+    float* tile = reinterpret_cast<float*>(sm);
+    const int q4 = lane % 4, r0 = grp * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * TS + 8 * n + 2 * q4) =
+            make_float2(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+    if (nsplit > 1) cluster_sync();  // every block's tile is whole
+    else __syncthreads();
+    const float* src[MAX_SPLITS];
+#pragma unroll
+    for (int k = 0; k < MAX_SPLITS; ++k)
+      src[k] = k < nsplit && k != split ? cluster_map(tile, k) : tile;
+    const int rows = (BM + nsplit - 1) / nsplit, r_lo = split * rows;
+    const int items = (min(BM, r_lo + rows) - r_lo) * (BN / 8);
+    // a thread's items e and e + NT together: their 4 nsplit reads of 16
+    // bytes overlap (the peers' shared memory is a round trip away)
+    for (int e0 = tid; e0 < items; e0 += 2 * NT) {
+      float4 x[2][2][MAX_SPLITS];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = min(e0 + u * NT, items - 1);
+        const int at = (r_lo + e / (BN / 8)) * TS + (e % (BN / 8)) * 8;
+#pragma unroll
+        for (int k = 0; k < MAX_SPLITS; ++k)
+          if (k < nsplit) {
+            x[u][0][k] = *reinterpret_cast<const float4*>(src[k] + at);
+            x[u][1][k] = *reinterpret_cast<const float4*>(src[k] + at + 4);
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = e0 + u * NT;
+        float4 a = x[u][0][0], z = x[u][1][0];
+#pragma unroll
+        for (int k = 1; k < MAX_SPLITS; ++k)
+          if (k < nsplit) {
+            const float4 p = x[u][0][k], h = x[u][1][k];
+            a.x += p.x; a.y += p.y; a.z += p.z; a.w += p.w;
+            z.x += h.x; z.y += h.y; z.z += h.z; z.w += h.w;
+          }
+        const int gm = m0 + r_lo + e / (BN / 8), gn = n0 + (e % (BN / 8)) * 8;
+        if (e < items && gm < M && gn < D)
+          *reinterpret_cast<uint4*>(
+              out + (static_cast<size_t>(b) * M + gm) * D + gn) =
+              make_uint4(wg::pack_bf16(a.x, a.y), wg::pack_bf16(a.z, a.w),
+                         wg::pack_bf16(z.x, z.y), wg::pack_bf16(z.z, z.w));
+      }
+    }
+    if (nsplit > 1) cluster_sync();  // no block leaves while a peer reads it
+  };
+  wg::ring_walk<STAGES>(
+      1, nk, issue, land,
+      [&](int stage, int kt) {
+        const uint32_t sA = base + stage * K::STAGE + grp * 8192;
+        const uint32_t sB = base + stage * K::STAGE + K::A_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wg::mma_ss_n<BN, 1>(acc, wg::desc(sA + ks * 32, 16, 1024),
+                              wg::desc(sB + ks * 2048, 8192, 1024),
+                              kt > 0 || ks > 0);
+      },
+      [&] { wg::reg_fence(acc); }, finish);
+}
+
+template <int NWG, int BN>
+int launch_logits(const bf16* q, const bf16* k, bf16* P, float2* ml, int B,
+                  int M, int Tn, int Tp, int D, float scale,
+                  cudaStream_t st) {
+  using K = XCfg<NWG, BN, false>;
+  const auto kernel = xattn_logits_wgmma<NWG, BN>;
+  static unsigned ready = 0;
+  static int per_sm = 0;  // resident blocks an SM (one card type a process)
+  int dev = 0, sms = 0;
+  cudaError_t err = wgmma_sm90::with_smem(kernel, K::SMEM, ready, &dev);
+  if (err != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (per_sm == 0 &&
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, K::NT, K::SMEM)) != cudaSuccess)
+    return err;
+  const long long tiles_m = (M + K::BM - 1) / K::BM;
+  const long long tiles_n = (Tn + BN - 1) / BN;
+  const long long tiles = tiles_m * tiles_n * B;
+  if (tiles > (1LL << 31) - 1 || per_sm < 1) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(
+      tiles < static_cast<long long>(sms) * per_sm ? tiles : sms * per_sm);
+  kernel<<<grid, K::NT, K::SMEM, st>>>(
+      q, k, P, ml, M, Tn, Tp, D, scale * LOG2E, static_cast<int>(tiles_m),
+      static_cast<int>(tiles_n), static_cast<int>(tiles));
+  return cudaGetLastError();
+}
+
+template <int NWG, int BN>
+int launch_out(const bf16* P, const float2* ml, const bf16* v, bf16* out,
+               int B, int M, int Tn, int Tp, int D, int ntl, int nsplit,
+               cudaStream_t st) {
+  using K = XCfg<NWG, BN, true>;
+  const auto kernel = xattn_out_wgmma<NWG, BN>;
+  static unsigned ready = 0;
+  int dev = 0;
+  const int nk_all = (Tn + 63) / 64;
+  if (D % 64 || nsplit < 1 || nsplit > MAX_SPLITS ||
+      (nk_all + nsplit - 1) / nsplit > SPLIT_SLABS_MAX ||
+      static_cast<long long>(B) * nsplit > 65535 ||
+      (M + K::BM - 1) / K::BM > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = wgmma_sm90::with_smem(kernel, K::SMEM, ready, &dev);
+  if (err != cudaSuccess) return err;
+  if (nsplit == 1) {  // no cluster
+    kernel<<<dim3((D + BN - 1) / BN, (M + K::BM - 1) / K::BM, B), K::NT,
+             K::SMEM, st>>>(P, ml, v, out, M, Tn, Tp, D, ntl, 1);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + BN - 1) / BN, (M + K::BM - 1) / K::BM, B * nsplit);
+  cfg.blockDim = dim3(K::NT);
+  cfg.dynamicSmemBytes = K::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = nsplit;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, P, ml, v, out, M, Tn, Tp, D, ntl,
+                           nsplit);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+int run_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+              void* ws, int B, int M, int Tn, int D, float scale, int nsplit,
+              cudaStream_t st) {
+  const int Tp = (Tn + 7) / 8 * 8, ntl = (Tn + LG_BN - 1) / LG_BN;
+  bf16* P = static_cast<bf16*>(ws);
+  float2* ml = reinterpret_cast<float2*>(P + static_cast<size_t>(B) * M * Tp);
+  const int err = launch_logits<LG_NWG, LG_BN>(q, k, P, ml, B, M, Tn, Tp, D,
+                                               scale, st);
+  if (err != cudaSuccess) return err;
+  return launch_out<OUT_NWG, OUT_BN>(P, ml, v, out, B, M, Tn, Tp, D, ntl,
+                                     nsplit, st);
+}
+
 }  // namespace
 
+
 // Bytes of the workspace memcom_xattn_fwd needs (see the note above).
+// variant (bfloat16): 0 = "mma_sync", 1 = "wgmma"; float32 takes 0.
 extern "C" long long memcom_xattn_workspace_bytes(int B, int M, int T,
-                                                  int dtype) {
-  if (dtype == 1) return 6LL * B * M * ((T + 7) / 8 * 8);
+                                                  int dtype, int variant) {
+  const long long Tp = (T + 7) / 8 * 8;
+  if (dtype == 1 && variant == 1)
+    return 2LL * B * M * Tp + 8LL * B * M * ((T + LG_BN - 1) / LG_BN);
+  if (dtype == 1) return 6LL * B * M * Tp;
   return 4LL * B * M * T;
 }
 
-// ws: memcom_xattn_workspace_bytes(B, M, T, dtype) bytes, 16-byte aligned.
-// dtype: 0 = float32, 1 = bfloat16 (D % 8 == 0).  Returns a cudaError_t
-// (0 = launched).
+// ws: memcom_xattn_workspace_bytes(B, M, T, dtype, variant) bytes, 16-byte
+// aligned.  dtype: 0 = float32, 1 = bfloat16.  variant (bfloat16): 0 =
+// "mma_sync" (D % 8 == 0), 1 = "wgmma" (D % 64 == 0, 16-byte aligned q,
+// k, v, out and ws, and nsplit splits of T within MAX_SPLITS and
+// SPLIT_SLABS_MAX); float32 takes 0.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int memcom_xattn_fwd(const void* q, const void* k, const void* v,
-                                void* out, float* ws, int B, int M, int T,
-                                int D, float scale, int dtype, void* stream) {
+                                void* out, void* ws, int B, int M, int T,
+                                int D, float scale, int dtype, int variant,
+                                int nsplit, void* stream) {
   if (B < 0 || M < 0 || T <= 0 || D <= 0) return cudaErrorInvalidValue;
   if (B == 0 || M == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 && variant == 0)
     return run_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                   static_cast<const float*>(v), static_cast<float*>(out), ws,
-                   B, M, T, D, scale, st);
-  if (dtype == 1 && D % 8 == 0)
-    return run_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<bf16*>(out), ws,
-                    B, M, T, D, scale, st);
+                   static_cast<const float*>(v), static_cast<float*>(out),
+                   static_cast<float*>(ws), B, M, T, D, scale, st);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(out);
+  if (variant == 0 && D % 8 == 0)
+    return run_bf16(qb, kb, vb, ob, static_cast<float*>(ws), B, M, T, D,
+                    scale, st);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (variant == 1 && D % 64 == 0 && aligned(q) && aligned(k) &&
+      aligned(v) && aligned(out) && aligned(ws))
+    return run_wgmma(qb, kb, vb, ob, ws, B, M, T, D, scale, nsplit, st);
   return cudaErrorInvalidValue;
 }

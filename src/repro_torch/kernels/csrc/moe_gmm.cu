@@ -251,21 +251,6 @@ gmm_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
       }
 }
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
-// device (*dev), once a device: bit d of `ready` records device d.
-template <typename Kernel>
-cudaError_t with_smem(Kernel kernel, size_t smem, unsigned& ready, int* dev) {
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  const unsigned bit = *dev < 32 ? 1u << *dev : 0u;
-  if (ready & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess) ready |= bit;
-  return err;
-}
-
 // ---- bfloat16 on wgmma: the "wgmma" variant -------------------------------
 //
 // gmm_wgmma<NWG, BN>: NWG consumer warpgroups own 64 rows of x
@@ -273,18 +258,15 @@ cudaError_t with_smem(Kernel kernel, size_t smem, unsigned& ready, int* dev) {
 // persistent (as many blocks as fit the card at once); block b takes
 // tiles b, b + grid, ... in the order (expert, row tile, column tile), so
 // the blocks in flight share one or two experts' weights in L2.  A block
-// walks the 64-deep D slabs of its tiles as one stream: both operands of
-// a slab arrive through a ring of STAGES shared-memory stages filled by
-// cp.async in the 128-byte swizzle (wgmma_sm90.cuh) — x rows as the
-// K-major A operand (one 64-column chunk a warpgroup), the slab's 64 rows
-// of w as the MN-major B operand (BN / 64 chunks of 64 columns),
-// zero-filled past C, D and F — so the next tile's first slabs load while
-// this tile's last ones multiply and its outputs are stored.  A slab is 4
-// k-steps of wgmma m64nBNk16 per warpgroup; one barrier a slab; one wgmma
-// group stays in flight across the barrier, so the load of slab i +
-// STAGES - 2 goes into the stage of slab i - 2.  Outputs leave in 16-byte
-// rows: a quad of threads trades its fragments so that each holds 8
-// neighbouring columns.
+// walks the 64-deep D slabs of its tiles as one stream through the slab
+// ring of wgmma_sm90.cuh (ring_prime / ring_walk: STAGES cp.async stages
+// in the 128-byte swizzle, one barrier a slab, one wgmma group in flight)
+// — x rows as the K-major A operand (one 64-column chunk a warpgroup), the
+// slab's 64 rows of w as the MN-major B operand (BN / 64 chunks of 64
+// columns), zero-filled past C, D and F — so the next tile's first slabs
+// load while this tile's last ones multiply and its outputs are stored.
+// A slab is 4 k-steps of wgmma m64nBNk16 per warpgroup.  Outputs leave in
+// 16-byte rows (row8_bf16).
 
 template <int NWG, int BN>
 struct WgCfg {
@@ -296,7 +278,6 @@ struct WgCfg {
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr size_t SMEM = 1024 + STAGES * STAGE;  // + 1024-B align
   static constexpr int MINB = 2 * SMEM <= 232448 - 2048 ? 2 : 1;  // an SM
-  static_assert(STAGES >= 3, "one wgmma group in flight needs 3 stages");
   static_assert(64 * BN % (8 * NT) == 0, "whole w pieces a thread");
 };
 
@@ -378,80 +359,44 @@ gmm_wgmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
   };
 
   // accumulator fragment: acc[4n + 2h + {0,1}] = (row 16 warp + lane/4 +
-  // 8h, columns 8n + 2 (lane % 4) + {0,1}) of this warpgroup's 64 rows.
-  // Quad member q gathers columns 8 (4j + q) .. + 7 of its row from the
-  // four members' pairs for n = 4j + q, and stores them as one uint4.
+  // 8h, columns 8n + 2 (lane % 4) + {0,1}) of this warpgroup's 64 rows,
+  // stored 8 neighbouring columns (16 bytes) a thread
   float acc[BN / 2];
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
   auto store = [&](const Tile& tl) {
-    const int q = lane % 4;
     bf16* oe = out + tl.e * C * static_cast<size_t>(F);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gm = tl.m0 + grp * 64 + warp * 16 + lane / 4 + 8 * h;
 #pragma unroll
       for (int j = 0; j < BN / 32; ++j) {
-        uint32_t v[4], got[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[i] = wg::pack_bf16(acc[4 * (4 * j + i) + 2 * h],
-                               acc[4 * (4 * j + i) + 2 * h + 1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          // member q sends its pair for n = 4j + (q - r) and receives
-          // member (q + r)'s pair for n = 4j + q
-          const int to = (q - r) & 3, from = (q + r) & 3;
-          const uint32_t send = to == 0 ? v[0] : to == 1 ? v[1]
-                              : to == 2 ? v[2] : v[3];
-          const uint32_t recv =
-              __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if (k == from) got[k] = recv;
-        }
-        const int gn = tl.n0 + 8 * (4 * j + q);
+        const uint4 v = wg::row8_bf16(acc, h, j, lane);
+        const int gn = tl.n0 + 8 * (4 * j + lane % 4);
         if (gm < C && gn < F)  // F % 8 == 0: the 8 columns are whole
-          *reinterpret_cast<uint4*>(oe + static_cast<size_t>(gm) * F + gn) =
-              make_uint4(got[0], got[1], got[2], got[3]);
+          *reinterpret_cast<uint4*>(oe + static_cast<size_t>(gm) * F + gn) = v;
       }
     }
   };
 
-  constexpr int AHEAD = STAGES - 2;  // slabs loading beyond the current one
   if (mine > 0) enter(0);
+  wg::ring_prime<STAGES>(total, issue);
+  wg::ring_walk<STAGES>(
+      mine, nk, issue, [](int, int) {},
+      [&](int stage, int) {
+        const uint32_t sA = base + stage * K::STAGE + grp * 8192;
+        const uint32_t sB = base + stage * K::STAGE + K::A_BYTES;
 #pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
-    if (s < total) issue(s);
-    wg::cp_async_commit();
-  }
-  for (int t = 0, q = 0; t < mine; ++t) {
+        for (int ks = 0; ks < 4; ++ks)
+          wg::mma_ss_n<BN, 1>(acc, wg::desc(sA + ks * 32, 16, 1024),
+                              wg::desc(sB + ks * 2048, 8192, 1024), 1);
+      },
+      [&] { wg::reg_fence(acc); },
+      [&](int t) {
+        store(tile_of(t));
 #pragma unroll
-    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
-    for (int kt = 0; kt < nk; ++kt, ++q) {
-      wg::cp_async_wait<AHEAD - 1>();  // slab q has landed (this thread's part)
-      wg::fence_proxy_async();
-      // ... and every thread's; every warpgroup has also retired slab
-      // q - 2, whose stage the next load overwrites (it may belong to the
-      // next tile)
-      __syncthreads();
-      if (q + AHEAD < total) issue((q + AHEAD) % STAGES);
-      wg::cp_async_commit();  // possibly empty: keeps the group count in step
-      const uint32_t sA = base + (q % STAGES) * K::STAGE + grp * 8192;
-      const uint32_t sB = base + (q % STAGES) * K::STAGE + K::A_BYTES;
-      wg::reg_fence(acc);
-      wg::fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wg::mma_ss_n<BN, 1>(acc, wg::desc(sA + ks * 32, 16, 1024),
-                            wg::desc(sB + ks * 2048, 8192, 1024), 1);
-      wg::commit();
-      wg::wait<1>();  // slab q - 1's products are done
-      wg::reg_fence(acc);
-    }
-    wg::wait<0>();
-    wg::reg_fence(acc);
-    store(tile_of(t));
-  }
-  wg::cp_async_wait<0>();  // no copy outlives the block
+        for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;  // the next tile's
+      });
 }
 
 template <int NWG, int BN>
@@ -462,7 +407,7 @@ int launch_wgmma(const bf16* x, const bf16* w, bf16* out, int E, int C,
   static unsigned ready = 0;
   static int per_sm = 0;  // resident blocks an SM (one card type a process)
   int dev = 0, sms = 0;
-  cudaError_t err = with_smem(kernel, K::SMEM, ready, &dev);
+  cudaError_t err = wgmma_sm90::with_smem(kernel, K::SMEM, ready, &dev);
   if (err != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
@@ -623,7 +568,8 @@ int launch_rows(const bf16* x, const bf16* w, bf16* out, int E, int C, int D,
   using K = RowsCfg<NT8>;
   static unsigned ready = 0;
   int dev = 0;
-  const cudaError_t err = with_smem(gmm_rows<NT8>, K::SMEM, ready, &dev);
+  const cudaError_t err =
+      wgmma_sm90::with_smem(gmm_rows<NT8>, K::SMEM, ready, &dev);
   if (err != cudaSuccess) return err;
   const dim3 grid((F + RBF - 1) / RBF, E);
   gmm_rows<NT8><<<grid, 32 * RWARPS, K::SMEM, st>>>(x, w, out, C, D, F);

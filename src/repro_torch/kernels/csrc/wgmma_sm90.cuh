@@ -2,8 +2,10 @@
 // under csrc/: shared-memory matrix descriptors for the 128-byte swizzle,
 // the bf16 wgmma.mma_async m64n64k16 with f32 accumulate (A from shared
 // memory or from registers) and its m64n128k16 / m64n256k16 forms (A from
-// shared memory), the fences and group waits around them, and cp.async
-// into the swizzled layout.
+// shared memory), the fences and group waits around
+// them, cp.async into the swizzled layout, the slab ring of the persistent
+// wgmma kernels (slab_ring), an accumulator row's 16-byte bf16 pieces
+// (row8_bf16) and the once-a-device shared-memory attribute (with_smem).
 //
 // Shared-memory layout (the one the descriptors below describe): a tile is
 // cut into 64-column chunks of bf16 (128 bytes a row); a chunk of R rows
@@ -23,6 +25,7 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
@@ -238,6 +241,111 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The slab ring of the persistent wgmma kernels (moe_gmm.cu's gmm_wgmma,
+// memcom_xattn.cu's xattn_logits_wgmma and xattn_out_wgmma).  A block
+// walks the 64-deep contraction slabs of its `tiles` output tiles, `nk`
+// slabs a tile, as one stream through a ring of STAGES shared-memory
+// stages filled by cp.async: STAGES - 2 slabs load beyond the current one,
+// one barrier a slab, and one wgmma group stays in flight across the
+// barrier, so the load of slab i + STAGES - 2 goes into the stage of slab
+// i - 2, which every warpgroup has retired by then; the next tile's first
+// slabs load while this tile's last ones multiply and it is stored.
+// ring_prime issues the first STAGES - 2 slabs; ring_walk the rest.  The
+// caller's functions:
+//   issue(stage)    load the caller's cursor's slab into `stage`; the
+//                   cursor moves on (it runs over all tiles * nk slabs);
+//   land(stage, kt) this thread's copies of slab kt of the tile have
+//                   landed; runs before the barrier that shows every
+//                   thread's copies to the warpgroups' wgmma;
+//   mma(stage, kt)  issue the slab's products on the accumulators (kt == 0
+//                   starts a tile: its accumulators are zero, or its first
+//                   k-step does not accumulate);
+//   pin()           reg_fence on the accumulators;
+//   finish(t)       tile t's products are complete: store it.
+template <int STAGES, typename Issue>
+__device__ __forceinline__ void ring_prime(int total, Issue&& issue) {
+  static_assert(STAGES >= 3, "one wgmma group in flight needs 3 stages");
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();
+  }
+}
+template <int STAGES, typename Issue, typename Land, typename Mma,
+          typename Pin, typename Finish>
+__device__ __forceinline__ void ring_walk(int tiles, int nk, Issue&& issue,
+                                          Land&& land, Mma&& mma, Pin&& pin,
+                                          Finish&& finish) {
+  constexpr int AHEAD = STAGES - 2;
+  const int total = tiles * nk;
+  for (int t = 0, q = 0; t < tiles; ++t) {
+    for (int kt = 0; kt < nk; ++kt, ++q) {
+      const int stage = q % STAGES;
+      cp_async_wait<AHEAD - 1>();  // slab q has landed (this thread's part)
+      land(stage, kt);
+      fence_proxy_async();
+      // ... and every thread's; every warpgroup has also retired slab
+      // q - 2, whose stage the next load overwrites
+      __syncthreads();
+      if (q + AHEAD < total) issue((q + AHEAD) % STAGES);
+      cp_async_commit();  // possibly empty: keeps the group count in step
+      pin();
+      fence();
+      mma(stage, kt);
+      commit();
+      wait<1>();  // slab q - 1's products are done
+      pin();
+    }
+    wait<0>();
+    pin();
+    finish(t);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+// Row 16 warp + lane / 4 + 8h, columns 8 (4j + q) .. + 7 (q = lane % 4) of
+// an accumulator fragment (N / 2 floats a thread, the layout above),
+// rounded to bf16 as one 16-byte piece: the quad trades its pairs by
+// shuffles (member q sends its pair for n = 4j + (q - r) and receives
+// member (q + r)'s pair for n = 4j + q).  Every lane of the warp calls it,
+// with j known at compile time.
+template <int NF>
+__device__ __forceinline__ uint4 row8_bf16(const float (&d)[NF], int h,
+                                           int j, int lane) {
+  const int q = lane % 4;
+  uint32_t v[4], got[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = pack_bf16(d[4 * (4 * j + i) + 2 * h], d[4 * (4 * j + i) + 2 * h + 1]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int to = (q - r) & 3, from = (q + r) & 3;
+    const uint32_t send = to == 0 ? v[0] : to == 1 ? v[1]
+                        : to == 2 ? v[2] : v[3];
+    const uint32_t recv = __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k == from) got[k] = recv;
+  }
+  return make_uint4(got[0], got[1], got[2], got[3]);
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device (*dev), once a device and process: bit d of `ready` records
+// device d (the attribute call per launch is host time).
+template <typename Kernel>
+cudaError_t with_smem(Kernel kernel, size_t smem, unsigned& ready, int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = *dev < 32 ? 1u << *dev : 0u;
+  if (ready & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) ready |= bit;
+  return err;
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -206,21 +206,21 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
 
 def wgmma_tile_check(a, b, *, b_mn_major, n=64):
     """One 64 x ``n`` x 64 bf16 product through ``csrc/wgmma_sm90.cuh``'s
-    helpers on the card, f32 result: ``a`` (M, K).  ``n`` = 64: ``b``
-    (N, K) read K-major with A from shared memory, or (``b_mn_major``)
-    ``b`` (K, N) read MN-major with A from registers — the two forms the
-    flash kernel uses.  ``n`` = 128 or 256 (``b_mn_major`` only): ``b``
-    (K, N) read MN-major with A from shared memory, the wider forms the
-    gmm kernel uses.  A check of the helpers, held to ``torch.matmul`` by
-    the ``cuda`` tests."""
+    helpers on the card, f32 result: ``a`` (M, K); ``b`` (N, K) read
+    K-major or (``b_mn_major``) ``b`` (K, N) read MN-major.  ``n`` = 64: A
+    from shared memory with K-major ``b``, from registers with MN-major
+    ``b`` — the two forms the flash kernel uses.  ``n`` = 128 or 256: A
+    from shared memory, ``b`` MN-major (the gmm and memcom_xattn output
+    kernels) or K-major (the memcom_xattn logits kernel).  A check of the
+    helpers, held to ``torch.matmul`` by the ``cuda`` tests."""
     b_shape = (64, n) if b_mn_major else (n, 64)
     if not (a.is_cuda and b.is_cuda and a.dtype == b.dtype == torch.bfloat16
             and a.shape == (64, 64) and b.shape == b_shape
-            and (n == 64 or (n in (128, 256) and b_mn_major))
+            and n in (64, 128, 256)
             and a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("a must be (64, 64) and b (64, n) MN-major or, at "
-                         "n = 64, (n, 64) K-major, contiguous bf16 on the "
-                         "card; n = 64, 128 or 256")
+        raise ValueError("a must be (64, 64) and b (64, n) MN-major or (n, "
+                         "64) K-major, contiguous bf16 on the card; n = 64, "
+                         "128 or 256")
     lib = build.load("flash_attention")
     fn = lib.flash_wgmma_tile_check
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [

@@ -9,10 +9,11 @@ internally, casting the result to the input's type at the end — the same
 arithmetic the kernels do, so a bf16 comparison measures the kernel and
 not a different rounding schedule.
 
-``ssd_chunk_parallel`` and ``paged_decode_split_ref`` are no kernel's CPU
-path: they restate the chunked Hopper ``ssd`` kernel's three phases, order
-and rounding points, and the paged decode kernel's split of each slot's
-positions, for the tests.
+``ssd_chunk_parallel``, ``paged_decode_split_ref`` and
+``memcom_xattn_tiled`` are no kernel's CPU path: they restate the chunked
+Hopper ``ssd`` kernel's three phases, order and rounding points, the paged
+decode kernel's split of each slot's positions, and the wgmma
+``memcom_xattn`` variant's per-tile softmax, for the tests.
 
 The paged-KV index ops (``paged_scatter``/``paged_gather``, after
 ``jnp_impl.py:254-292``) and the Mamba2 one-token update
@@ -77,6 +78,77 @@ def memcom_xattn_ref(q, k, v, *, scale=None):
     logits = torch.einsum("bmd,btd->bmt", q.float(), k.float()) * scale
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bmt,btd->bmd", p, v.float()).to(q.dtype)
+
+
+def memcom_xattn_tiled(q, k, v, *, block_t=128, round_p=True, splits=1,
+                       scale=None, cut=100.0):
+    """The wgmma ``memcom_xattn`` variant's arithmetic (``csrc/
+    memcom_xattn.cu``), restated for the tests; no kernel's CPU path.
+
+    S = scale Q K^T in float32, cut into tiles of ``block_t`` columns (the
+    last one short: columns past T are -inf).  Per row and tile j: m_j =
+    the tile's maximum, l_j = sum exp(S - m_j) in float32 from the
+    unrounded values, P~_j = exp(S - m_j), rounded to bf16 when
+    ``round_p``.  Per row: m_row = max_j m_j, l_row = sum_j exp(m_j -
+    m_row) l_j, c_j = exp(m_j - m_row) / l_row, and c_j = 0 where m_row -
+    m_j >= ``cut``.  A = c_j P~_j, rounded to bf16 again when ``round_p``
+    (P is rounded twice: P~, then c_j P~).  O = A V in float32, summed as
+    ``splits`` stretches of whole 64-column slabs of T (the output
+    kernel's split: ceil(slabs / splits) slabs each), added in split
+    order; out in q's type."""
+    p, m, l_t = memcom_xattn_tiled_pieces(q, k, block_t=block_t,
+                                          round_p=round_p, scale=scale)
+    return memcom_xattn_tiled_out(p, m, l_t, v, round_p=round_p,
+                                  splits=splits, cut=cut).to(q.dtype)
+
+
+def memcom_xattn_tiled_pieces(q, k, *, block_t=128, round_p=True,
+                              scale=None):
+    """The first pass of :func:`memcom_xattn_tiled`: the P~ tiles (B, M,
+    nt, block_t) in float32 (0 past T; bf16 values when ``round_p``) and
+    each tile's row maximum m_j and sum l_j (B, M, nt)."""
+    B, M, D = q.shape
+    T = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    nt = -(-T // block_t)
+    s = torch.einsum("bmd,btd->bmt", q.float(), k.float()) * scale
+    s = torch.nn.functional.pad(s, (0, nt * block_t - T),
+                                value=float("-inf"))
+    s = s.reshape(B, M, nt, block_t)
+    m = s.amax(dim=-1)                                  # (B, M, nt)
+    e = torch.exp(s - m[..., None])                     # past T: 0
+    l_t = e.sum(dim=-1)
+    if round_p:
+        e = e.to(torch.bfloat16).float()
+    return e, m, l_t
+
+
+def memcom_xattn_tiled_out(p, m, l, v, *, round_p=True, splits=1,
+                           cut=100.0):
+    """The output pass of :func:`memcom_xattn_tiled` from the first pass's
+    pieces: ``p`` (B, M, nt, block_t) the P~ tiles (0 past T), ``m`` and
+    ``l`` (B, M, nt) each tile's row maximum and sum.  Returns O in
+    float32, so that a kernel's own pieces (read from its workspace) can
+    be taken through it."""
+    B, M, nt, block_t = p.shape
+    T, D = v.shape[1], v.shape[2]
+    m_row = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - m_row)
+    l_row = (w * l).sum(dim=-1, keepdim=True)
+    c = torch.where(m_row - m >= cut, torch.zeros_like(w), w / l_row)
+    a = p * c[..., None]
+    if round_p:
+        a = a.to(torch.bfloat16).float()
+    a = a.reshape(B, M, nt * block_t)[..., :T]
+    nk = -(-T // 64)
+    per = -(-nk // splits)
+    out = torch.zeros(B, M, D, dtype=torch.float32, device=v.device)
+    for i in range(splits):
+        lo, hi = min(T, i * per * 64), min(T, (i + 1) * per * 64)
+        out = out + torch.einsum("bmt,btd->bmd", a[..., lo:hi],
+                                 v[:, lo:hi].float())
+    return out
 
 
 def gmm_ref(x, w):
@@ -384,6 +456,22 @@ def ssd_decode_step(state, x, dt, A, Bm, Cm):
         + (dtf[..., None] * x.float())[..., None] * Bh[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", state, Ch)
     return y.to(x.dtype), state
+
+
+def bf16_ulps(out, ref) -> float:
+    """Largest ``|out - ref|`` over the elements in units of bf16's spacing
+    at ``|ref| + rms of ref's row`` (the scale of :func:`scaled_err`; a
+    row being the last axis): a bf16 ``out`` that is ``ref`` rounded to
+    the nearest bf16 is at most 0.5 from a float32 ``ref``, and one bf16
+    step off it at most 1."""
+    ref = ref.float()
+    d = (out.float() - ref).abs()
+    scale = ref.abs() + ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    _, e = torch.frexp(scale)                # scale in [2^(e-1), 2^e)
+    step = torch.ldexp(torch.ones_like(scale), e - 8)  # 8 bits of mantissa
+    ratio = torch.where(scale > 0, d / step, torch.where(d > 0, torch.inf,
+                                                         0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0
 
 
 def scaled_err(out, ref) -> float:

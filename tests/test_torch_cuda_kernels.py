@@ -151,6 +151,19 @@ def test_wgmma_tile_product_matches_matmul(cuda, rng, n, mn_major):
     assert _err(c, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("n", [128, 256])
+def test_wgmma_wide_forms_match_matmul(cuda, rng, n):
+    """The K-major form of csrc/wgmma_sm90.cuh's mma_ss_n: B K-major at n =
+    128 / 256 with A from shared memory (xattn_logits_wgmma's).  f32 sums
+    of 64 bf16 products: 1e-4."""
+    a = _rand(rng, 64, 64, dtype="bfloat16")
+    b = _rand(rng, n, 64, dtype="bfloat16")
+    c = fa.wgmma_tile_check(a, b, b_mn_major=False, n=n)
+    torch.cuda.synchronize()
+    ref = a.float() @ b.float().T
+    assert _err(c, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
 def _wgmma_positions(kind, B, Sq, Skv, device):
     q_pos = torch.arange(Sq, dtype=torch.int32, device=device).expand(B, Sq)
     kv_pos = torch.arange(Skv, dtype=torch.int32, device=device).expand(B, Skv)
@@ -260,21 +273,136 @@ def test_flash_wgmma_rejects_what_it_does_not_take(cuda, rng):
         fa.flash_attention(qb, qb, qb, q_pos=pos, kv_pos=pos, variant="tma")
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 40, 96), (2, 37, 129, 128),
-                                   (3, 70, 200, 136), (1, 512, 3072, 2304)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_memcom_xattn_matches_plain(cuda, rng, shape, dtype):
+XATTN_SHAPES = [(1, 8, 40, 96), (2, 37, 129, 128), (3, 70, 200, 136),
+                (1, 512, 3072, 2304),
+                (2, 512, 3077, 1536),   # B 2 at granite's width, ragged T
+                (1, 768, 6144, 4096)]   # mistral-7b's m = 768 (a probe)
+XATTN_CASES = [
+    *((shape, "float32", None) for shape in XATTN_SHAPES[:4]),
+    *((shape, "bfloat16", var) for shape in XATTN_SHAPES
+      for var in (None, "wgmma", "mma_sync")
+      if var is None or mx.takes(var, torch.bfloat16, *shape, True)),
+]
+
+
+def _xattn_inputs(rng, shape, dtype, spread=False):
+    """q, k, v drawn with std 0.5; ``spread``: every row's logits over the
+    first 128 keys sit ~150 above the rest, and rows 1, 3, ... also see
+    keys 300-427 that high (their tiles' maxima differ by more than 100,
+    so the wgmma kernel's scale of the low tiles is 0)."""
     B, M, T, D = shape
-    q = _rand(rng, B, M, D, dtype=dtype)
-    k = _rand(rng, B, T, D, dtype=dtype)
-    v = _rand(rng, B, T, D, dtype=dtype)
-    before = mx.launches
-    out = mx.memcom_xattn(q, k, v)
+    q = _rand(rng, B, M, D)
+    k = _rand(rng, B, T, D)
+    v = _rand(rng, B, T, D)
+    if spread:  # scale D**-0.5: q[...,0] k[...,0] / sqrt(D) = 150
+        q[..., 0] = 8.0
+        k[:, :128, 0] = 150.0 * D ** 0.5 / 8.0
+        q[:, 1::2, 1] = 8.0
+        k[:, 300:428, 1] = 150.0 * D ** 0.5 / 8.0
+    dt = getattr(torch, dtype)
+    return q.to(dt), k.to(dt), v.to(dt)
+
+
+# The wgmma kernel against its own arithmetic, plain.memcom_xattn_tiled in
+# float32, in bf16 steps (plain.bf16_ulps).  Its last rounding of O gives
+# up to 0.5; the logits' float32 sums, in another order than the
+# restatement's, move a few P~ and c_j P~ across a bf16 rounding boundary
+# (one step of one element of P each): up to 0.585 on the card.  Taken
+# without its two roundings of P the restatement lies 1.7-2.4 steps away,
+# and a kernel with every c_j 0.4% high or c_j P~ truncated 1.7-3.0 steps
+# (PERF.md section 6).
+TILED_ULPS = 1.0
+
+
+def _assert_as_tiled(out, q, k, v, nsplit):
+    tiled = plain.memcom_xattn_tiled(q.float(), k.float(), v.float(),
+                                     splits=nsplit)
+    u = plain.bf16_ulps(out, tiled)
+    assert u <= TILED_ULPS, (
+        f"{u:.4f} bf16 steps from plain.memcom_xattn_tiled (limit "
+        f"{TILED_ULPS})")
+
+
+@pytest.mark.parametrize("shape,dtype,variant", XATTN_CASES)
+def test_memcom_xattn_matches_plain(cuda, rng, shape, dtype, variant):
+    """Every shape through each kernel that takes it: the picked one
+    (``variant`` None) and each bf16 variant forced.  The wgmma variant is
+    held to ``plain.memcom_xattn_tiled`` (its own rounding points) as well,
+    by ``TILED_ULPS``."""
+    B, M, T, D = shape
+    q, k, v = _xattn_inputs(rng, shape, dtype)
+    before = (mx.launches, mx.wgmma_launches)
+    out = mx.memcom_xattn(q, k, v, variant=variant)
     torch.cuda.synchronize()
-    assert mx.launches == before + 1
+    chosen = variant or mx.variant_for(q.dtype, B, M, T, D, True)
+    assert (mx.launches, mx.wgmma_launches) == (
+        before[0] + 1, before[1] + (chosen == "wgmma"))
     ref = plain.memcom_xattn_ref(q, k, v)
     assert out.dtype == q.dtype and out.shape == (B, M, D)
     _assert_close(out, ref, dtype)
+    if chosen == "wgmma":
+        _assert_as_tiled(out, q, k, v, mx.num_splits(B, M, T, D))
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("shape", [(1, 64, 1000, 256), (2, 96, 700, 1536)])
+def test_memcom_xattn_tile_maxima_far_apart(cuda, rng, shape, variant):
+    """Rows whose logits tiles' maxima differ by more than 100: finite, and
+    as the plain version."""
+    q, k, v = _xattn_inputs(rng, shape, "bfloat16", spread=True)
+    out = mx.memcom_xattn(q, k, v, variant=variant)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    _assert_close(out, plain.memcom_xattn_ref(q, k, v), "bfloat16")
+
+
+@pytest.mark.parametrize("shape,spread", [
+    ((2, 37, 129, 128), False), ((1, 512, 3072, 2304), False),
+    ((2, 512, 3077, 1536), False), ((1, 64, 1000, 256), True),
+    ((2, 96, 700, 1536), True)])
+def test_memcom_xattn_wgmma_passes_match_their_restatement(cuda, rng, shape,
+                                                           spread):
+    """Each of the wgmma kernel's two passes against its restatement, from
+    the pieces the first leaves in the workspace.  First pass: m_j and l_j
+    as the restatement's up to float32 sums of D products in another order
+    (within 2^-15 of max(1, max |S|): the card reads at most 6.6e-6), and
+    P~ within one bf16 step, at most 2% of it off a step (the card: up to
+    0.94%, at logits of 150).  Output pass: the kernel's O is the
+    restatement's output pass on the kernel's own pieces, rounded once to
+    bf16 (0.5 steps), up to c_j summed in another order flipping a few
+    c_j P~ roundings (the card reads 0.4994-0.5290; a kernel with every
+    c_j 0.4% high or c_j P~ truncated 1.76-2.49)."""
+    B, M, T, D = shape
+    q, k, v = _xattn_inputs(rng, shape, "bfloat16", spread=spread)
+    out, p, m, l = mx.wgmma_pieces(q, k, v)
+    torch.cuda.synchronize()
+    pr, mr, lr = plain.memcom_xattn_tiled_pieces(q, k)
+    tol = 2.0 ** -15 * max(1.0, float(mr[torch.isfinite(mr)].abs().max()))
+    assert float((m - mr).abs().max()) <= tol
+    assert float(((l - lr) / lr).abs().max()) <= tol
+    _, e = torch.frexp(pr)
+    off = (p - pr).abs() / torch.ldexp(torch.ones_like(pr), e - 8)
+    assert float(off.max()) <= 1.0
+    assert float((p != pr).float().mean()) <= 0.02
+    own = plain.memcom_xattn_tiled_out(p, m, l, v,
+                                       splits=mx.num_splits(B, M, T, D))
+    assert plain.bf16_ulps(out, own) <= 0.625
+
+
+
+
+@pytest.mark.parametrize("nsplit", list(range(1, mx.MAX_SPLITS + 1)))
+def test_memcom_xattn_wgmma_at_any_split_count(cuda, rng, monkeypatch,
+                                               nsplit):
+    """The output kernel's cluster sum at every split count, some splits
+    empty (T = 300: 5 slabs)."""
+    shape = (1, 130, 300, 512)
+    q, k, v = _xattn_inputs(rng, shape, "bfloat16")
+    monkeypatch.setattr(mx, "num_splits", lambda *a, **kw: nsplit)
+    out = mx.memcom_xattn(q, k, v, variant="wgmma")
+    torch.cuda.synchronize()
+    _assert_close(out, plain.memcom_xattn_ref(q, k, v), "bfloat16")
+    _assert_as_tiled(out, q, k, v, nsplit)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda, rng):
@@ -299,6 +427,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, rng):
     x = _rand(rng, 1, 4, 12, dtype="bfloat16")
     with pytest.raises(NotImplementedError):  # bf16 tensor cores: D % 8
         mx.memcom_xattn(x, x, x)
+    for var in ("wgmma", "mma_sync"):
+        with pytest.raises(NotImplementedError):
+            mx.memcom_xattn(x, x, x, variant=var)
+        with pytest.raises(NotImplementedError):  # bf16 kernels
+            xf = _rand(rng, 1, 4, 64)
+            mx.memcom_xattn(xf, xf, xf, variant=var)
+    xb = _rand(rng, 1, 4, 96, dtype="bfloat16")
+    with pytest.raises(NotImplementedError):  # wgmma: D % 64
+        mx.memcom_xattn(xb, xb, xb, variant="wgmma")
+    flat = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    xs = flat[1:].view(1, 4, 64)  # contiguous, off a 16-byte boundary
+    for var in ("wgmma", "mma_sync"):
+        with pytest.raises(NotImplementedError):
+            mx.memcom_xattn(xs, xs, xs, variant=var)
+    qb = _rand(rng, 1, 4, 64, dtype="bfloat16")
+    kl = _rand(rng, 1, mx.WGMMA_MAX_T + 1, 64, dtype="bfloat16")
+    with pytest.raises(NotImplementedError):  # T past the splits' reach
+        mx.memcom_xattn(qb, kl, kl, variant="wgmma")
+    assert mx.variant_for(torch.bfloat16, 1, 4, kl.shape[1], 64, True) \
+        == "mma_sync"
+    with pytest.raises(ValueError):
+        mx.memcom_xattn(qb, qb, qb, variant="tma")
 
 
 # (B, S, Hq, Hkv, D, block_size, lengths, softcap, table positions or None
