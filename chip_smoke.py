@@ -104,6 +104,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
       printed beside the bytes the chunked design moves (its chunk states
       cross device memory four times).  No PyTorch call runs the scan, so
       it has no library time.
+   f. the backward kernels (``fa.flash_attention_bwd``,
+      ``mx.memcom_xattn_bwd``) against their plain backward
+      (``plain.attention_bwd_ref``, ``plain.memcom_xattn_bwd_ref``) on the
+      same inputs: float32 (TF32 off) max abs error at most 1e-4 of max(1,
+      the largest gradient), bf16 ``plain.grad_err`` at most 2e-2, per
+      gradient.  Flash at the training step's shapes (gemma2-2b, batch 2:
+      the Memory-LLM's 512 causal rows, the 512-token prompt at offset
+      512 and against the 512 prefix, both with an lse cotangent), the
+      3072-token source (Phase 2), fully-masked rows, granite's and
+      mistral-7b's widths and float32 at head dim 32; ``memcom_xattn`` at
+      2x512x3072x2304, 1x512x3072x1536 and mistral-7b's 1x768x6144x4096.
+      Rows that get no gradient by their positions (queries that see no
+      key, keys that no query sees) must be exactly 0.  ``ms`` by CUDA
+      events, ``device_ms`` by graph replay over three input sets; the
+      library time that of ``torch.autograd.grad`` through one
+      ``F.scaled_dot_product_attention`` call (no cap, ``enable_gqa``; one
+      head for ``memcom_xattn``) on the first backend that takes it,
+      printed, by CUDA events, and its device time by graph replay over
+      the same three sets (forward and backward less the forward alone).
+      Bound: five products against the forward's two.
 4. The main path, end to end, at the full published width and depth of
    gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
    bfloat16, weights drawn from seeds, each in two runs with every
@@ -145,6 +165,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
       for 3072 tokens, peak memory, and a profiled prefill (with the
       device time of each ``ssd`` kernel by name: the chunked variant's
       three phases) and 4-request serve.
+   d. training (after the three models): gemma2-2b Phase 1 at full width
+      and depth through ``launch/train.py``'s ``build`` (Trainer, AdamW
+      with warmup_cosine over 2 warmup steps, clip 1.0), batch 2 x 3584
+      tokens split at 3072, 4 steps with raw checkpoints after steps 2 and
+      4 (in the git-ignored ``.chip_smoke_ckpt/``, deleted after), under
+      ``torch.use_deterministic_algorithms(True, warn_only=True)``: the
+      losses finite, every trained tensor's float32 master moved, every
+      frozen tensor bit-identical to its start, each step 77 flash
+      backward calls (26 layers x Memory-LLM self, prompt vs prefix and
+      prompt self, less layer 0's prompt self, which reads only frozen
+      embeddings) and 26 ``memcom_xattn`` backward calls, every forward
+      ``memcom_xattn`` call through the wgmma variant; a second Trainer
+      restored from step 2 reproduces the losses of steps 3-4 and the
+      trained tensors exactly.  Printed: s/step, tokens/s, peak memory,
+      and one profiled step's device busy, idle share and the forward and
+      backward kernels' device times.
 5. Kernels vs plain end to end, after each model: the pipeline at full
    width and depth 2, once through the kernels and once forced to the
    plain versions (``ops.set_default_impl("torch")``): O^i and the
@@ -164,6 +200,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and through the plain version agree within the same bound (both
    ``ssd`` calls through the chunked variant).
 
+   After the training phase: one Phase-1 and one Phase-2 step's loss and
+   gradients of gemma2-2b at full width and depth 2, through the kernels
+   and forced to the plain versions: each gradient within 2e-2 of the
+   plain run's largest magnitude (Phase 2 adds the Source- and
+   Memory-LLM and the 3072-token source's flash backward).
+
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
 ``"shapes"``; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -176,6 +218,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -198,6 +241,9 @@ def main() -> int:
                     help="also write every measured number to this path")
     args = ap.parse_args()
 
+    # cuBLAS reproducible run to run (the training phase's restart check),
+    # set before torch creates its first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -902,6 +948,249 @@ def main() -> int:
         ssd_rows.append(row)
     torch.cuda.empty_cache()
 
+    # ---- 3f. backward kernels ------------------------------------------
+    # Each backward kernel against its plain backward (explicit formulas)
+    # on the same inputs: float32 (TF32 off) max abs error at most 1e-4 of
+    # max(1, the largest gradient), bf16 ``plain.grad_err`` at most 2e-2,
+    # per gradient.  Shapes of the training step (batch 2, the 512-token
+    # target segment behind m = 512 memory rows, the 3072-token source).
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    t_phase = time.perf_counter()
+
+    def grad_check(kernel, name, dn, got, want, zero_rows=None):
+        """``zero_rows``: {gradient: boolean mask of its rows} of rows that
+        get no gradient by their positions, which must be exactly 0."""
+        errs = {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            e, ge = err(g, w), plain.grad_err(g, w)
+            se = plain.scaled_err(g, w)
+            w32 = w.float()
+            row = w32.pow(2).mean(dim=-1).sqrt()
+            floored = int((row < plain.GRAD_NOISE_FLOOR
+                           * w32.pow(2).mean().sqrt()).sum())
+            scale_ = max(1.0, float(w32.abs().max()))
+            ok = (e <= 1e-4 * scale_) if dn == "float32" \
+                else (ge <= REL_TOL["bfloat16"])
+            zeros_ok = zero_rows is None or gname not in zero_rows or \
+                not bool(g[zero_rows[gname]].ne(0).any())
+            errs[gname] = (e, ge, se, floored)
+            if not (ok and zeros_ok):
+                raise AssertionError(
+                    f"{kernel} {name} {dn} {gname} disagrees with its plain "
+                    f"backward: max abs err {e:.3e} (largest |grad| "
+                    f"{scale_:.3e}), grad err {ge:.3e} (scaled err "
+                    f"{se:.3e}, {floored} rows at the noise floor), "
+                    f"rows with no gradient exactly 0: {zeros_ok}")
+            del w32, row
+        log(f"{kernel} {name} {dn}: " + ", ".join(
+            f"{k} max_abs_err {e:.3e} grad_err {ge:.3e} (scaled_err "
+            f"{se:.3e}, {fl} rows at the noise floor)"
+            for k, (e, ge, se, fl) in errs.items()))
+        return (max(v[0] for v in errs.values()),
+                max(v[1] for v in errs.values()))
+
+    def library_bwd(sets, **sdpa_kw):
+        """The backward of one ``F.scaled_dot_product_attention`` call on
+        the same (B, H, S, D) inputs ``sets`` (several sets of q, k, v,
+        dout), on the first backend that takes it; returns (ms of
+        ``torch.autograd.grad`` alone on the first set by CUDA events,
+        its device ms by graph replay over the sets: forward and backward
+        less the forward alone, backend)."""
+        leaves = [[x.detach().requires_grad_(True) for x in st[:3]]
+                  + [st[3]] for st in sets]
+        xs, dout_ = leaves[0][:3], leaves[0][3]
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel([backend]):
+                    o_ = F.scaled_dot_product_attention(*xs, **sdpa_kw)
+                    torch.autograd.grad(o_, xs, dout_, retain_graph=True)
+                    torch.cuda.synchronize()
+                    ms_ = cuda_ms(lambda: torch.autograd.grad(
+                        o_, xs, dout_, retain_graph=True), reps=5)
+                del o_
+                break
+            except RuntimeError:
+                continue
+        else:
+            return None, None, None
+
+        def fwd(q_, k_, v_, d_):
+            return F.scaled_dot_product_attention(q_, k_, v_, **sdpa_kw)
+
+        def fwd_bwd(q_, k_, v_, d_):
+            return torch.autograd.grad(fwd(q_, k_, v_, d_), (q_, k_, v_), d_)
+
+        try:
+            with sdpa_kernel([backend]):
+                dev_ = (device_ms(fwd_bwd, 21, leaves)
+                        - device_ms(fwd, 21, leaves))
+        except RuntimeError as exc:  # the call is timed by events alone
+            log(f"  sdpa {backend.name} backward not timed by graph "
+                f"replay: {str(exc).splitlines()[0]}")
+            dev_ = None
+        del leaves, xs
+        return ms_, dev_, backend.name
+
+    bwd_cases = [
+        # name, B, Sq, Skv, q_pos, kv_pos, causal, heads, dlse, dtypes
+        ("memory_self_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
+         arange(0, m)[None].expand(2, m), True, gemma_heads, False,
+         ("float32", "bfloat16")),
+        ("prompt_self_bwd", 2, m, m, arange(m, m)[None].expand(2, m),
+         arange(m, m)[None].expand(2, m), True, gemma_heads, True,
+         ("float32", "bfloat16")),
+        ("prompt_prefix_bwd", 2, m, m, arange(m, m)[None].expand(2, m),
+         arange(0, m)[None].expand(2, m), False, gemma_heads, True,
+         ("float32", "bfloat16")),
+        ("source_bwd", 1, T, T, arange(0, T)[None], arange(0, T)[None], True,
+         gemma_heads, False, ("bfloat16",)),
+        ("masked_rows_bwd", 2, 40, 70, arange(-8, 40)[None].expand(2, 40),
+         torch.where((arange(0, 70) >= 5) & (arange(0, 70) < 9), -1,
+                     arange(0, 70))[None].expand(2, 70), True, gemma_heads,
+         True, ("float32", "bfloat16")),
+        ("granite_memory_self_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
+         arange(0, m)[None].expand(2, m), True, granite_heads, False,
+         ("float32", "bfloat16")),
+        ("mistral_memory_self_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
+         arange(0, m)[None].expand(2, m), True, mistral_heads, False,
+         ("bfloat16",)),
+        ("float32_hd32_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
+         arange(0, m)[None].expand(2, m), True, (8, 4, 32, 0.0), True,
+         ("float32",)),
+    ]
+    flash_bwd_rows = []
+    for (name, B, Sq, Skv, q_pos, kv_pos, causal, heads, with_dlse,
+         dtypes) in bwd_cases:
+        Hq, Hkv, D, cap = heads
+        q_pos, kv_pos = q_pos.contiguous(), kv_pos.contiguous()
+        row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
+               "causal": causal, "softcap": cap, "dlse": with_dlse}
+        for dn in dtypes:
+            dtype = getattr(torch, dn)
+            q, dout = (rand(B, Sq, Hq, D, dtype=dtype) for _ in range(2))
+            k, v = (rand(B, Skv, Hkv, D, dtype=dtype) for _ in range(2))
+            kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            dlse = (rand(B, Sq, Hq, dtype=torch.float32) if with_dlse
+                    else None)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
+            torch.cuda.synchronize()
+            want = plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse, **kw)
+            # queries that see no key and keys that no query sees
+            seen = kv_pos[:, None, :] >= 0
+            if causal:
+                seen = seen & (kv_pos[:, None, :] <= q_pos[:, :, None])
+            seen = seen.expand(B, Sq, Skv)
+            zero_rows = {"dq": ~seen.any(dim=2), "dk": ~seen.any(dim=1),
+                         "dv": ~seen.any(dim=1)}
+            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = grad_check(
+                "flash_attention_bwd", name, dn, got, want, zero_rows)
+            pairs = int(seen.sum())
+            del seen, zero_rows, got, want
+            if dn == "bfloat16" and name != "masked_rows_bwd":
+                call = lambda: fa.flash_attention_bwd(  # noqa: E731
+                    q, k, v, out, lse, dout, dlse, **kw)
+                row["ms"] = cuda_ms(call)
+                # three input sets, so that no replayed call finds its
+                # inputs (25 MB at the Memory-LLM's shape) in the 50 MB L2
+                sets = [(q, k, v, dout)] + [
+                    tuple(rand(*x.shape, dtype=dtype) for x in (q, k, v, dout))
+                    for _ in range(2)]
+                bufs = [(q, k, v, dout, out, lse, dlse)] + [
+                    st + tuple(fa.flash_attention(*st[:3], return_lse=True,
+                                                  **kw))
+                    + ((rand(B, Sq, Hq, dtype=torch.float32)
+                        if with_dlse else None),) for st in sets[1:]]
+                row["device_ms"] = device_ms(
+                    lambda q_, k_, v_, d_, o_, l_, dl_: fa.flash_attention_bwd(
+                        q_, k_, v_, o_, l_, d_, dl_, **kw), 21, bufs)
+                del bufs
+                row["plain_ms"] = cuda_ms(lambda: plain.attention_bwd_ref(
+                    q, k, v, out, lse, dout, dlse, **kw), reps=3)
+                if causal and Sq == Skv:
+                    sdpa_kw = dict(is_causal=True, enable_gqa=True)
+                else:
+                    sdpa_kw = dict(enable_gqa=True)
+                (row["library_ms"], row["library_device_ms"],
+                 row["library_backend"]) = library_bwd(
+                    [tuple(x.transpose(1, 2) for x in st) for st in sets],
+                    **sdpa_kw)
+                del sets
+                # five products (S, dP, dV, dK, dQ) against the forward's
+                # two; q, k, v, out, dout read once, dq, dk, dv written once
+                flops = 10 * D * Hq * pairs
+                nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                              + q.numel()) + 4 * (2 * lse.numel()
+                                                  + q_pos.numel()
+                                                  + kv_pos.numel())
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                row["flops"], row["bytes"] = flops, nbytes
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
+                    f"ms, sdpa backward {row['library_ms']} ms (device "
+                    f"{row['library_device_ms']}; "
+                    f"{row['library_backend']}, no cap), bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            del q, k, v, dout, out, lse, dlse
+        torch.cuda.empty_cache()
+        flash_bwd_rows.append(row)
+    del bwd_cases
+
+    mx_bwd_rows = []
+    for name, B, Mx, Tx, D, dtypes in (
+            ("memory_xattn_bwd", 2, m, T, 2304, ("float32", "bfloat16")),
+            ("granite_memory_xattn_bwd", 1, m, T, 1536,
+             ("float32", "bfloat16")),
+            ("mistral_memory_xattn_bwd", 1, 768, 2 * T, 4096,
+             ("bfloat16",))):
+        row = {"shape": name, "q": [B, Mx, D], "kv": [B, Tx, D]}
+        for dn in dtypes:
+            dtype = getattr(torch, dn)
+            q, dout = (rand(B, Mx, D, dtype=dtype) for _ in range(2))
+            k, v = (rand(B, Tx, D, dtype=dtype) for _ in range(2))
+            got = mx.memcom_xattn_bwd(q, k, v, dout)
+            torch.cuda.synchronize()
+            want = plain.memcom_xattn_bwd_ref(q, k, v, dout)
+            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = grad_check(
+                "memcom_xattn_bwd", name, dn, got, want)
+            del got, want
+            if dn == "bfloat16":
+                # three input sets past the 50 MB L2 (62 MB each at D 2304)
+                bufs = [(q, k, v, dout)] + [
+                    tuple(rand(*x.shape, dtype=dtype)
+                          for x in (q, k, v, dout)) for _ in range(2)]
+                row["ms"] = cuda_ms(lambda: mx.memcom_xattn_bwd(q, k, v,
+                                                                dout))
+                row["device_ms"] = device_ms(
+                    lambda q_, k_, v_, d_: mx.memcom_xattn_bwd(q_, k_, v_,
+                                                               d_), 21, bufs)
+                row["workspace_bytes"] = mx.bwd_workspace_bytes(B, Mx, Tx,
+                                                                dtype)
+                row["plain_ms"] = cuda_ms(
+                    lambda: plain.memcom_xattn_bwd_ref(q, k, v, dout), reps=3)
+                (row["library_ms"], row["library_device_ms"],
+                 row["library_backend"]) = library_bwd(
+                    [tuple(x[:, None] for x in st) for st in bufs])
+                del bufs
+                flops = 10 * B * Mx * Tx * D
+                nbytes = 2 * (3 * q.numel() + 4 * k.numel())
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                row["flops"], row["bytes"] = flops, nbytes
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
+                    f"ms, sdpa backward {row['library_ms']} ms (device "
+                    f"{row['library_device_ms']}; "
+                    f"{row['library_backend']}), bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                    f"workspace {row['workspace_bytes']} bytes")
+            del q, k, v, dout
+        torch.cuda.empty_cache()
+        mx_bwd_rows.append(row)
+    log(f"backward kernel phase: {time.perf_counter() - t_phase:.1f}s")
+
     # ---- 4. the main paths at full width ------------------------------
     counters = {"flash_attention": fa, "memcom_xattn": mx,
                 "paged_flash_decode": pa, "gmm": gm, "ssd": ss}
@@ -911,6 +1200,7 @@ def main() -> int:
             mod.launches = 0
         fa.wgmma_launches = gm.wgmma_launches = gm.rows_launches = 0
         mx.wgmma_launches = ss.chunked_launches = 0
+        fa.bwd_launches = mx.bwd_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
@@ -919,6 +1209,8 @@ def main() -> int:
         c["gmm_wgmma"] = gm.wgmma_launches
         c["gmm_rows"] = gm.rows_launches
         c["ssd_chunked"] = ss.chunked_launches
+        c["flash_attention_bwd"] = fa.bwd_launches
+        c["memcom_xattn_bwd"] = mx.bwd_launches
         return c
 
     class SourcePrefills:
@@ -1646,6 +1938,267 @@ def main() -> int:
                                  "disagree")
         return {"logits_rel_err": rel_logits, "state_rel_err": rel_state}
 
+    # ---- 4d. MemCom Phase-1 training at full width ----------------------
+    def train_path():
+        """gemma2-2b Phase 1 at full width and depth through the port's
+        launcher path (``launch.train.build``: Trainer, AdamW with
+        warmup_cosine, clip 1.0): 4 steps of batch 2 x 3584 tokens split at
+        3072 (the source) with a checkpoint after step 2, then a second
+        Trainer restored from it that must reproduce steps 3-4 exactly."""
+        import shutil
+        import warnings
+
+        from repro_torch.launch import train as launch_train
+        from repro_torch.optim import warmup_cosine
+        from repro_torch.train import Trainer, TrainerConfig
+
+        cfg = get_config("gemma2-2b")
+        tag = "[gemma2-2b train]"
+        ckdir = Path(__file__).resolve().parent / ".chip_smoke_ckpt"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        steps, seq, split, batch = 4, T + m, T, 2
+        # warmup over 2 steps: the reference's 500 would keep a bf16
+        # parameter's first updates (lr ~ 4e-7) below its rounding step
+        lr = warmup_cosine(2e-4, 2, 20_000)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = launch_train.build(cfg, phase=1, batch=batch, seq=seq,
+                                 split=split, steps=steps, ckpt=str(ckdir),
+                                 ckpt_every=2, codec="raw", log_every=1,
+                                 lr=lr)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        trained = run.params
+        frozen = {n: p.detach().to("cpu", copy=True)
+                  for n, p in list(run.mc.named_parameters())
+                  + [("target." + n, p)
+                     for n, p in run.target.named_parameters()]
+                  if n not in trained}
+        start = {n: p.detach().float().clone() for n, p in trained.items()}
+        n_trained = sum(p.numel() for p in trained.values())
+        state_bytes = sum(t.numel() * t.element_size()
+                          for key in ("mu", "nu", "master")
+                          for t in run.trainer.opt_state[key].values())
+        log(f"{tag} init {init_s:.1f}s: {n_trained / 1e6:.1f}M trained "
+            f"parameters (memx, mem_tokens), {len(frozen)} frozen tensors, "
+            f"AdamW state {state_bytes} bytes")
+
+        per_step, step_s = [], []
+
+        def counted(inner):
+            def step(params, state, batch_):
+                before = counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = inner(params, state, batch_)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+                after = counts()
+                per_step.append({k: after[k] - before[k] for k in after})
+                return out
+            return step
+
+        run.trainer.train_step = counted(run.step)
+        set_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run.trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        nondet = sorted({str(w.message)[:120] for w in caught
+                         if "deterministic" in str(w.message)})
+        losses = dict(run.trainer.losses)
+        log(f"{tag} losses {losses}; per-step seconds "
+            f"{[round(x, 4) for x in step_s]}; whole run with 2 raw "
+            f"checkpoints {run_s:.2f}s; peak memory {peak} bytes")
+        log(f"{tag} launches per step {per_step}")
+        if nondet:
+            log(f"{tag} ops without a deterministic implementation: {nondet}")
+        L = cfg.num_layers
+        for i, c in enumerate(per_step):
+            # the Memory-LLM's self-attention and the prompt against the
+            # prefix in every layer, the prompt's self-attention in every
+            # layer but the first (whose q, k, v come from the frozen
+            # token embeddings alone, so autograd records no backward)
+            if c["flash_attention_bwd"] != 3 * L - 1 \
+                    or c["memcom_xattn_bwd"] != L:
+                raise AssertionError(
+                    f"{tag} step {i + 1}: {c['flash_attention_bwd']} flash "
+                    f"backward calls (want {3 * L - 1}), "
+                    f"{c['memcom_xattn_bwd']} memcom_xattn backward calls "
+                    f"(want {L})")
+            if c["memcom_xattn"] != c["memcom_xattn_wgmma"] or \
+                    c["memcom_xattn"] != L:
+                raise AssertionError(f"{tag} step {i + 1}: memcom_xattn "
+                                     f"forward off the wgmma variant: {c}")
+        if not all(np.isfinite(v) for v in losses.values()) \
+                or sorted(losses) != [1, 2, 3, 4]:
+            raise AssertionError(f"{tag} losses {losses}")
+        moved = {n: not torch.equal(
+            run.trainer.opt_state["master"].get(n, p.detach().float()),
+            start[n]) for n, p in trained.items()}
+        bf16_moved = sum(not torch.equal(p.detach().float(), start[n])
+                         for n, p in trained.items())
+        if not all(moved.values()):
+            raise AssertionError(f"{tag} trained tensors that did not move: "
+                                 f"{[n for n, v in moved.items() if not v]}")
+        named = dict(run.mc.named_parameters())
+        named.update(("target." + n, p)
+                     for n, p in run.target.named_parameters())
+        changed = [n for n, t in frozen.items()
+                   if not torch.equal(named[n].detach().cpu(), t)]
+        if changed:
+            raise AssertionError(f"{tag} frozen tensors changed: {changed[:5]}")
+        log(f"{tag} all {len(moved)} trained tensors moved (their float32 "
+            f"masters; {bf16_moved} also in their bf16 values); all "
+            f"{len(frozen)} frozen tensors bit-identical to their start")
+        del frozen
+        final = {n: p.detach().clone() for n, p in trained.items()}
+        # restart: a second Trainer on the same modules, its optimizer
+        # state fresh, restored from the step-2 checkpoint
+        t0 = time.perf_counter()
+        again = Trainer(
+            run.step, trained, run.opt.init(trained), run.batch_at,
+            str(ckdir), TrainerConfig(
+                num_steps=steps, ckpt_every=2, log_every=1, codec="raw"))
+        restored = again.restore_if_available(step=2)
+        restore_s = time.perf_counter() - t0
+        again.run()
+        torch.cuda.synchronize()
+        same_losses = all(again.losses[s] == losses[s] for s in (3, 4))
+        same_params = all(torch.equal(p, final[n]) for n, p in trained.items())
+        log(f"{tag} restart from step {restored} (restore {restore_s:.2f}s): "
+            f"losses of steps 3-4 {[again.losses[s] for s in (3, 4)]} vs "
+            f"{[losses[s] for s in (3, 4)]}: identical {same_losses}; "
+            f"trained tensors after step 4 identical {same_params}")
+        if not (restored == 2 and same_losses and same_params):
+            diffs = {s: again.losses[s] - losses[s] for s in (3, 4)}
+            raise AssertionError(f"{tag} the restart does not reproduce the "
+                                 f"run: loss differences {diffs}")
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in (ckdir / "step_00000002").iterdir())
+        del final, again
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        tokens = batch * seq
+        step_mean = float(np.mean(step_s[1:]))
+        out = {"losses": losses, "step_s": step_s,
+               "s_per_step": step_mean, "tokens_per_s": tokens / step_mean,
+               "target_tokens_per_s": batch * (seq - split) / step_mean,
+               "peak_bytes": peak, "launches_per_step": per_step,
+               "launches": launches, "trained_params": n_trained,
+               "adamw_state_bytes": state_bytes, "ckpt_bytes": ckpt_bytes,
+               "restart_identical": same_losses and same_params,
+               "nondeterministic_ops": nondet, "run_s": run_s}
+        log(f"{tag} {card}: {step_mean:.4f} s/step over steps 2-4, "
+            f"{out['tokens_per_s']:.1f} tokens/s ({tokens} a step, "
+            f"{out['target_tokens_per_s']:.1f} target tokens/s), peak memory "
+            f"{peak} bytes, checkpoint {ckpt_bytes} bytes")
+        # one profiled step, last: its device busy time, idle share and the
+        # kernels' device times
+        b = run.batch_at(steps)
+        prof = profiled(tag, "step", lambda: run.step(
+            trained, run.trainer.opt_state, b))
+        kern = {}
+        for key, pats in (("flash_fwd", ("flash_fwd",)),
+                          ("flash_bwd", ("flash_bwd_",)),
+                          ("xattn_fwd", ("xattn_logits_wgmma",
+                                         "xattn_out_wgmma")),
+                          ("xattn_bwd", ("gemm_tc<", "softmax_bwd_rows"))):
+            hits = [v for k_, v in prof["by_name"].items()
+                    if any(p_ in k_ for p_ in pats)]
+            kern[key] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+            log(f"{tag} profile step: {key} {kern[key][0]:.3f} ms over "
+                f"{kern[key][1]} kernels")
+        out.update(profile=prof, kernel_device_ms=kern)
+        for p in trained.values():
+            p.requires_grad_(False)
+        del run, trained, b
+        return out
+
+    def train_kernel_vs_plain():
+        """One Phase-1 and one Phase-2 step's loss and gradients at full
+        width and depth 2, through the kernels and forced to the plain
+        versions: each gradient within 2e-2 of the plain run's largest
+        magnitude (Phase 2 adds the Source- and Memory-LLM, and with them
+        the 3072-token source's flash backward, in every layer whose
+        output some H^i reads)."""
+        from repro_torch.data import PretrainStream
+
+        cfg = get_config("gemma2-2b")
+        cfg2 = cfg.replace(name="gemma2-2b-depth2",
+                           layout=LayerLayout.uniform(LayerDesc("attn",
+                                                                "dense"), 2))
+        tag = "[gemma2-2b train kernel-vs-plain]"
+        target2 = tfm.init_params(cfg2, 0)
+        mc2 = memcom.init_memcom(cfg2, target2, 1)
+        raw = PretrainStream(vocab, batch=2, seq_len=T + m,
+                             split_choices=(T,), seed=0).batch_at(0)
+        batch = {k: torch.as_tensor(raw[k], device=dev)
+                 for k in ("source", "target", "target_mask")}
+        source_bwd = []
+        inner_bwd = fa.flash_attention_bwd
+
+        def spy(q, *a, **kw):
+            source_bwd.append(int(q.shape[1]) == T)
+            return inner_bwd(q, *a, **kw)
+
+        out = {}
+        for phase in (1, 2):
+            trained = memcom.set_trainable(mc2, phase)
+
+            def grads():
+                loss, _ = memcom.memcom_loss(mc2, target2, cfg2, batch)
+                g = torch.autograd.grad(loss, list(trained.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+                return float(loss.detach()), g
+
+            set_counts()
+            source_bwd.clear()
+            fa.flash_attention_bwd = spy
+            try:
+                loss_k, g_k = grads()
+            finally:
+                fa.flash_attention_bwd = inner_bwd
+            torch.cuda.synchronize()
+            c = counts()
+            ops.set_default_impl("torch")
+            try:
+                loss_p, g_p = grads()
+            finally:
+                ops.set_default_impl(None)
+            rels = {n: rel(a, b) for n, a, b in zip(trained, g_k, g_p)}
+            worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+            nonzero = sum(float(g.float().abs().max()) > 0 for g in g_k)
+            log(f"{tag} phase {phase}, depth 2, bf16: loss kernel {loss_k:.6f}"
+                f" plain {loss_p:.6f}; {len(rels)} gradients ({nonzero} "
+                f"non-zero), worst rel err {worst} (tol {E2E_REL_TOL:g}); "
+                f"flash backward calls {c['flash_attention_bwd']} "
+                f"({sum(source_bwd)} over the {T}-token source), "
+                f"memcom_xattn backward calls {c['memcom_xattn_bwd']}")
+            # Phase 2: the source's flash backward in every layer but the
+            # last, whose attention feeds no captured hidden
+            want_src = cfg2.num_layers - 1 if phase == 2 else 0
+            if not (worst[0][1] <= E2E_REL_TOL
+                    and abs(loss_k - loss_p) <= E2E_REL_TOL * abs(loss_p)
+                    and sum(source_bwd) == want_src
+                    and c["memcom_xattn_bwd"] == 2):
+                raise AssertionError(f"{tag} phase {phase}: kernel path and "
+                                     "plain path disagree")
+            out[f"phase{phase}"] = {
+                "loss_kernel": loss_k, "loss_plain": loss_p,
+                "worst_rel_err": worst, "launches": c,
+                "source_flash_bwd": sum(source_bwd)}
+            del g_k, g_p
+        for p in mc2.parameters():
+            p.requires_grad_(False)
+        return out
+
     paths = {}
     for arch, need in (("gemma2-2b", ()), ("granite-moe-3b-a800m", ("gmm",))):
         report[arch] = main_path(arch, need)
@@ -1662,6 +2215,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["mamba2-370m"]["kernel_vs_plain"] = mamba_kernel_vs_plain()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    report["train"] = train_path()
+    paths["gemma2-2b train"] = report["train"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train"]["kernel_vs_plain"] = train_kernel_vs_plain()
+    report["train"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"[gemma2-2b train] phases 4d and 5b: "
+        f"{report['train']['phase_s']:.1f}s")
 
     # ---- result lines ----------------------------------------------------
     entries = []
@@ -1670,7 +2234,11 @@ def main() -> int:
             ("memcom_xattn:memcom_xattn", mx_rows, "memory_xattn"),
             ("paged_attention:paged_flash_decode", paged_rows, "decode"),
             ("moe_gmm:gmm", gmm_rows, None),
-            ("ssd_scan:ssd", ssd_rows, "prefill")):
+            ("ssd_scan:ssd", ssd_rows, "prefill"),
+            ("flash_attention:flash_attention_bwd", flash_bwd_rows,
+             "memory_self_bwd"),
+            ("memcom_xattn:memcom_xattn_bwd", mx_bwd_rows,
+             "memory_xattn_bwd")):
         timed = [r for r in rows if "ms" in r]
         head = (next(r for r in rows if r["shape"] == main) if main
                 else max(timed, key=lambda r: r["ms"]))
@@ -1683,13 +2251,20 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r.get(f"max_abs_err_{dn}", 0.0) for r in rows
                                for dn in ("float32", "bfloat16")),
-            "scaled_err": max(r["scaled_err_bfloat16"] for r in rows),
+            "scaled_err": max(r.get("scaled_err_bfloat16",
+                                    r.get("grad_err_bfloat16", 0.0))
+                              for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
-        if name in ("memcom_xattn", "paged_flash_decode"):
+        if name in ("memcom_xattn", "paged_flash_decode",
+                    "flash_attention_bwd", "memcom_xattn_bwd"):
             entries[-1]["device_ms"] = head["device_ms"]
+        if name.endswith("_bwd"):  # backward calls, the yardstick's backend
+            entries[-1].update(library_backend=head["library_backend"],
+                               library_device_ms=head["library_device_ms"],
+                               grad_err=entries[-1].pop("scaled_err"))
         if name == "memcom_xattn":  # the wgmma variant and the mma.sync one
             entries[-1].update(
                 wgmma_launches=sum(c["memcom_xattn_wgmma"]

@@ -98,6 +98,36 @@ def _memcom_names(cfg: ModelConfig, tree) -> Dict[str, np.ndarray]:
     return out
 
 
+def _layer_path(cfg: ModelConfig, li: int) -> Tuple[bool, str]:
+    """(in the prefix?, "prefix_{i}" / "period/l{j}") of port layer ``li``."""
+    n_pre = len(cfg.layout.prefix)
+    if li < n_pre:
+        return True, f"prefix_{li}"
+    return False, f"period/l{(li - n_pre) % len(cfg.layout.period)}"
+
+
+def jax_path(cfg: ModelConfig, kind: str, name: str) -> str:
+    """The JAX parameter path (``repro.utils.pytree.tree_flatten_with_names``
+    form) of port parameter ``name`` of a ``kind`` = "transformer" or
+    "memcom" module.  Layers of one ``period`` entry share a path (the JAX
+    tree stacks them)."""
+    if kind == "memcom":
+        head, _, rest = name.partition(".")
+        if head in ("source", "memory_llm"):
+            return f"{head}/{jax_path(cfg, 'transformer', rest)}"
+        if head == "memx":
+            li, _, rest = rest.partition(".")
+            in_prefix, where = _layer_path(cfg, int(li))
+            where = f"prefix/{li}" if in_prefix else where
+            return f"memx/{where}/memx/{rest.replace('.', '/')}"
+        return name.replace(".", "/")
+    head, _, rest = name.partition(".")
+    if head == "layers":
+        li, _, rest = rest.partition(".")
+        return f"{_layer_path(cfg, int(li))[1]}/{rest.replace('.', '/')}"
+    return name.replace(".", "/")
+
+
 @torch.no_grad()
 def _load(module: torch.nn.Module, names: Dict[str, np.ndarray]):
     params = dict(module.named_parameters())

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-The paper's own two targets, the MoE family's granite-moe-3b-a800m and
-the attention-free mamba2-370m, copied from ``repro/configs``.  Each module
+The paper's own two targets, the MoE family's granite-moe-3b-a800m, the
+attention-free mamba2-370m and smollm-135m (the reference's training
+tests run on its smoke config), copied from ``repro/configs``.  Each module
 exposes ``config()`` (full published config) and ``smoke_config()``
 (reduced same-family config for CPU tests).
 """
@@ -12,7 +13,8 @@ import importlib
 
 from repro_torch.config import ModelConfig
 
-ARCH_IDS = ("gemma2-2b", "mistral-7b", "granite-moe-3b-a800m", "mamba2-370m")
+ARCH_IDS = ("gemma2-2b", "mistral-7b", "granite-moe-3b-a800m", "mamba2-370m",
+            "smollm-135m")
 
 _MODULES = {name: "repro_torch.configs." + name.replace("-", "_").replace(".", "_")
             for name in ARCH_IDS}

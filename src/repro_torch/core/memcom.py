@@ -6,17 +6,28 @@ as copies of the target), the per-layer cross-attention ``memx`` and the
 ``m`` learnable memory-token embeddings.  :func:`compress` runs the
 Source-LLM with per-layer capture, then the Memory-LLM over the memory
 tokens with the compression cross-attention, and packages the per-layer
-O^i as the prefix the frozen target consumes.
+O^i as the prefix the frozen target consumes; it records no autograd
+graph (serving).  :func:`begin_compress` / :func:`compress_chunk` /
+:func:`finish_compress` (and :func:`compress_chunked`) compute the same
+prefix in fixed-width slices of the shot set, the Source-LLM's cache
+carried across slices by the engine's prefill continuation.
 
-``memcom_loss`` (training) and the chunked ``begin/compress_chunk/finish``
-compression are not in this slice of the port.
+Training (``memcom_loss``): Phase-1 trains only ``memx`` and
+``mem_tokens``; Phase-2 also the Source- and Memory-LLM; the target is
+frozen in both.  :func:`set_trainable` turns ``requires_grad`` on for the
+phase's parameters only (the counterpart of the JAX step's
+``stop_gradient`` on frozen leaves), so no weight gradient forms for the
+others and the Phase-1 source pass records nothing for the backward.
 """
 
 from __future__ import annotations
 
 import copy
+from dataclasses import dataclass, field, replace
+from typing import List
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
@@ -51,26 +62,110 @@ def init_memcom(cfg: ModelConfig, target: Transformer, seed: int = 0) -> MemCom:
     return initialize(mc, seed, skip=("source", "memory_llm"))
 
 
+def _as_tokens(mc: MemCom, tokens):
+    if tokens is not None and not torch.is_tensor(tokens):
+        tokens = torch.as_tensor(tokens, dtype=torch.long,
+                                 device=mc.mem_tokens.device)
+    return tokens
+
+
+def _memory(mc: MemCom, cfg: ModelConfig, hiddens: list, remat=False):
+    """The Memory-LLM over the m memory tokens with the per-layer
+    cross-attention into the source hiddens H^i; returns the prefix."""
+    B = hiddens[0].shape[0]
+    m = cfg.memcom.num_memory_tokens
+    mem_embeds = mc.mem_tokens[None].expand(B, m, cfg.d_model)
+    _, aux_m = mc.memory_llm(
+        embeds=mem_embeds, memcom={"params": list(mc.memx), "src": hiddens},
+        logits=False, remat=remat)
+    return build_prefix(cfg, aux_m["omega"])
+
+
+def compress_with_grad(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
+                       source_embeds=None, remat: bool = False):
+    """:func:`compress` with autograd on (training): the gradient reaches
+    whichever parameters require it."""
+    source_tokens = _as_tokens(mc, source_tokens)
+    _, aux_s = mc.source(tokens=source_tokens, embeds=source_embeds,
+                         capture_hiddens=True, logits=False, remat=remat)
+    return _memory(mc, cfg, aux_s["hiddens"], remat), {"encoder_out": None}
+
+
 @torch.no_grad()
 def compress(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
              source_embeds=None):
     """Many-shot tokens (B, T) -> per-layer compressed prefix for the target.
 
-    Returns (prefix, info): ``prefix[i] = {"h": O^i (B, m, D)}``."""
-    if source_tokens is not None and not torch.is_tensor(source_tokens):
-        source_tokens = torch.as_tensor(source_tokens, dtype=torch.long,
-                                        device=mc.mem_tokens.device)
-    _, aux_s = mc.source(tokens=source_tokens, embeds=source_embeds,
-                         capture_hiddens=True, logits=False)
-    src = source_tokens if source_tokens is not None else source_embeds
-    B = src.shape[0]
-    m = cfg.memcom.num_memory_tokens
-    mem_embeds = mc.mem_tokens[None].expand(B, m, cfg.d_model)
-    _, aux_m = mc.memory_llm(
-        embeds=mem_embeds,
-        memcom={"params": list(mc.memx), "src": aux_s["hiddens"]},
-        logits=False)
-    return build_prefix(cfg, aux_m["omega"]), {"encoder_out": None}
+    Returns (prefix, info): ``prefix[i] = {"h": O^i (B, m, D)}``.  Records
+    no autograd graph."""
+    return compress_with_grad(mc, cfg, source_tokens,
+                              source_embeds=source_embeds)
+
+
+# ---------------------------------------------------------------------------
+# Chunked compression (the online-serving variant)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CompressionState:
+    """Carry-over between :func:`compress_chunk` calls: the Source-LLM's
+    per-layer cache and the H^i captured so far (one list per chunk)."""
+
+    cache: list
+    offset: int = 0
+    hiddens: List[list] = field(default_factory=list)
+
+
+def begin_compress(cfg: ModelConfig, batch: int, total_len: int, *,
+                   mc: MemCom) -> CompressionState:
+    """Open a chunked compression over ``total_len`` source tokens: a full
+    Source-LLM cache (K/V of attention layers, recurrent state of Mamba2
+    ones) on ``mc``'s device, in its type."""
+    from repro_torch.models.transformer import init_cache
+
+    return CompressionState(cache=init_cache(
+        cfg, batch, total_len, dtype=mc.mem_tokens.dtype,
+        device=mc.mem_tokens.device))
+
+
+@torch.no_grad()
+def compress_chunk(mc: MemCom, cfg: ModelConfig, state: CompressionState,
+                   tokens) -> CompressionState:
+    """Run the Source-LLM over one chunk (B, w) of the shot set behind the
+    cached [0, offset) context (the engine's prefill continuation) and
+    fold it into ``state``."""
+    tokens = _as_tokens(mc, tokens)
+    offset = state.offset
+    _, aux = mc.source(tokens=tokens, capture_hiddens=True,
+                       cache=state.cache, cache_index=offset,
+                       mask_offset=offset, logits=False)
+    return replace(state, offset=offset + tokens.shape[1],
+                   hiddens=state.hiddens + [aux["hiddens"]])
+
+
+@torch.no_grad()
+def finish_compress(mc: MemCom, cfg: ModelConfig, state: CompressionState):
+    """Close a chunked compression: the captured H^i joined along the
+    source-time axis, the Memory-LLM run once.  Same return as
+    :func:`compress`."""
+    if not state.hiddens:
+        raise ValueError("no chunks were compressed")
+    hiddens = [torch.cat(xs, dim=1) for xs in zip(*state.hiddens)]
+    return _memory(mc, cfg, hiddens), {"encoder_out": None}
+
+
+def compress_chunked(mc: MemCom, cfg: ModelConfig, source_tokens, *,
+                     chunk_size: int):
+    """:func:`compress` computed in ``chunk_size``-token slices with the
+    Source-LLM cache carried across slices."""
+    source_tokens = _as_tokens(mc, source_tokens)
+    B, T = source_tokens.shape
+    state = begin_compress(cfg, B, T, mc=mc)
+    for lo in range(0, T, chunk_size):
+        state = compress_chunk(mc, cfg, state,
+                               source_tokens[:, lo:lo + chunk_size])
+    return finish_compress(mc, cfg, state)
 
 
 def build_prefix(cfg: ModelConfig, omega: list) -> list:
@@ -78,3 +173,68 @@ def build_prefix(cfg: ModelConfig, omega: list) -> list:
     if len(omega) != cfg.num_layers:
         raise ValueError(f"{len(omega)} O^i for {cfg.num_layers} layers")
     return [{"h": o} for o in omega]
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def memcom_loss(mc: MemCom, target: Transformer, cfg: ModelConfig, batch, *,
+                remat: bool = False):
+    """Next-token CE on the target segment (the paper's objective), with
+    the compressor run under autograd.
+
+    batch: {"source": (B,T), "target": (B,S), "target_mask": (B,S)}
+    tensors.  Returns (loss, {"ce": ..., "moe": ...})."""
+    prefix, _ = compress_with_grad(mc, cfg, batch.get("source"),
+                                   source_embeds=batch.get("source_embeds"),
+                                   remat=remat)
+    m = cfg.memcom.num_memory_tokens
+    logits, aux = target(tokens=batch["target"], prefix=prefix,
+                         mask_offset=m, remat=remat)
+    loss = next_token_loss(logits, batch["target"], batch.get("target_mask"))
+    return loss + aux["moe_loss"], {"ce": loss, "moe": aux["moe_loss"]}
+
+
+def next_token_loss(logits, tokens, mask=None):
+    """Mean negative log-likelihood of tokens[:, 1:] under logits[:, :-1]
+    in float32, weighted by ``mask[:, 1:]``.  The pick of each target's
+    log-probability is ``nll_loss`` (its backward writes one element a
+    row, deterministic on the card)."""
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = tokens[:, 1:].long()
+    ll = -F.nll_loss(lp.reshape(-1, lp.shape[-1]), tgt.reshape(-1),
+                     reduction="none").reshape(tgt.shape)
+    w = (mask[:, 1:].float() if mask is not None else torch.ones_like(ll))
+    return -(ll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _trainable_path(path: str, phase: int) -> bool:
+    return phase == 2 or path.startswith(("memx", "mem_tokens"))
+
+
+def trainable_mask(mc: MemCom, phase: int) -> dict:
+    """{JAX parameter path: bool}: which compressor parameters receive
+    gradients in ``phase``, keyed as ``repro.core.memcom.trainable_mask``'s
+    tree flattens (``bridge.jax_path``)."""
+    from repro_torch import bridge
+
+    return {bridge.jax_path(mc.cfg, "memcom", name):
+            _trainable_path(bridge.jax_path(mc.cfg, "memcom", name), phase)
+            for name, _ in mc.named_parameters()}
+
+
+def set_trainable(mc: MemCom, phase: int) -> dict:
+    """Turn ``requires_grad`` on for the phase's trainable parameters and
+    off for the others; returns {port name: parameter} of the trainable
+    ones, in ``named_parameters`` order."""
+    from repro_torch import bridge
+
+    out = {}
+    for name, p in mc.named_parameters():
+        on = _trainable_path(bridge.jax_path(mc.cfg, "memcom", name), phase)
+        p.requires_grad_(on)
+        if on:
+            out[name] = p
+    return out

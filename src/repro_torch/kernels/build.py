@@ -27,8 +27,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention", "memcom_xattn", "paged_attention", "moe_gmm",
-           "ssd_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "memcom_xattn",
+           "paged_attention", "moe_gmm", "ssd_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

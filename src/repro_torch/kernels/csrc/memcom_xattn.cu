@@ -94,11 +94,12 @@ constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int TM = 64, TN = 64, TK = 16;  // float32 GEMM block tile
 
-// C[m][n] = alpha * sum_k A[m][k] * B(k, n), per batch (blockIdx.z), in
-// float32 on the CUDA cores.  A is row-major M x K.  B(k, n) = Bm[n*K + k]
-// when BT (B stored N x K), else Bm[k*N + n] (B stored K x N).  C is
-// row-major M x N.
-template <bool BT>
+// C[m][n] = alpha * sum_k A(m, k) * B(k, n), per batch (blockIdx.z), in
+// float32 on the CUDA cores.  A(m, k) = A[k*M + m] when AT (A stored K x
+// M: the backward's dS^T and P^T), else A[m*K + k] (row-major M x K).
+// B(k, n) = Bm[n*K + k] when BT (B stored N x K), else Bm[k*N + n] (B
+// stored K x N).  C is row-major M x N.
+template <bool AT, bool BT>
 __global__ void __launch_bounds__(NT)
 gemm_f32(const float* __restrict__ A, const float* __restrict__ Bm,
          float* __restrict__ C, int M, int N, int K, float alpha,
@@ -117,7 +118,9 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ Bm,
     for (int e = threadIdx.x; e < TM * TK; e += NT) {
       const int mm = e / TK, kk = e % TK;
       const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? A[static_cast<size_t>(gm) * K + gk] : 0.f;
+      const size_t at = AT ? static_cast<size_t>(gk) * M + gm
+                           : static_cast<size_t>(gm) * K + gk;
+      As[kk][mm] = (gm < M && gk < K) ? A[at] : 0.f;
     }
 #pragma unroll 1
     for (int e = threadIdx.x; e < TN * TK; e += NT) {
@@ -186,22 +189,27 @@ __global__ void __launch_bounds__(NT) softmax_rows(float* __restrict__ S, int T)
 constexpr int MB = 64, NB = 128, KB = 32, MNT = 128;  // block tile, threads
 constexpr int SKP = KB + 8;   // padded row of a k-contiguous tile (80 bytes)
 constexpr int SNP = NB + 8;   // padded row of an n-contiguous tile (272 bytes)
+constexpr int SMP = MB + 8;   // padded row of an m-contiguous A tile (144 bytes)
 
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 __device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// C[m][n] = alpha * sum_k A[m][k] * B(k, n), per batch (blockIdx.z), bf16
-// in, f32 accumulate.  A is M x K row-major with row stride lda.  B(k, n)
-// = Bm[n*ldb + k] when BT (stored N x K), else Bm[k*ldb + n] (K x N).  C is
+// C[m][n] = alpha * sum_k A(m, k) * B(k, n), per batch (blockIdx.z), bf16
+// in, f32 accumulate.  A(m, k) = A[m*lda + k] (M x K row-major), or, when
+// AT, A[k*lda + m] (stored K x M: the backward's dS^T Q and P^T dO; the
+// tile is staged m-contiguous and ldmatrix transposes it).  B(k, n) =
+// Bm[n*ldb + k] when BT (stored N x K), else Bm[k*ldb + n] (K x N).  C is
 // M x N with row stride ldc.  Operands are read 8 elements at a time along
 // their contiguous axis: every stride is a multiple of 8, K is one too when
-// BT (else A's rows run on into zero padding up to lda) and N when not BT;
-// tiles past M, N or K are zero-filled.
-template <bool BT, typename TC>
+// BT (else A's rows run on into zero padding up to lda), M when AT (or the
+// rows of A run on into zero padding up to lda) and N when not BT; tiles
+// past M, N or K are zero-filled.
+template <bool AT, bool BT, typename TC>
 __global__ void __launch_bounds__(MNT)
 gemm_tc(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
         TC* __restrict__ C, int M, int N, int K, float alpha, int lda,
         int ldb, int ldc, long long sA, long long sB, long long sC) {
+  static_assert(KB * SMP <= MB * SKP, "the transposed A tile fits As");
   __shared__ __align__(16) bf16 As[MB * SKP];
   __shared__ __align__(16) bf16 Bs[BT ? NB * SKP : KB * SNP];
   A += blockIdx.z * sA;
@@ -220,13 +228,24 @@ gemm_tc(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += KB) {
-    for (int e = threadIdx.x; e < MB * KB / 8; e += MNT) {
-      const int r = e / (KB / 8), c = (e % (KB / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      *reinterpret_cast<uint4*>(&As[r * SKP + c]) =
-          (gm < M && gk < K)
-              ? *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gm) * lda + gk)
-              : zero;
+    if (AT) {
+      for (int e = threadIdx.x; e < KB * MB / 8; e += MNT) {
+        const int r = e / (MB / 8), c = (e % (MB / 8)) * 8;
+        const int gk = k0 + r, gm = m0 + c;
+        *reinterpret_cast<uint4*>(&As[r * SMP + c]) =
+            (gk < K && gm < M)
+                ? *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gk) * lda + gm)
+                : zero;
+      }
+    } else {
+      for (int e = threadIdx.x; e < MB * KB / 8; e += MNT) {
+        const int r = e / (KB / 8), c = (e % (KB / 8)) * 8;
+        const int gm = m0 + r, gk = k0 + c;
+        *reinterpret_cast<uint4*>(&As[r * SKP + c]) =
+            (gm < M && gk < K)
+                ? *reinterpret_cast<const uint4*>(A + static_cast<size_t>(gm) * lda + gk)
+                : zero;
+      }
     }
     if (BT) {
       for (int e = threadIdx.x; e < NB * KB / 8; e += MNT) {
@@ -252,8 +271,13 @@ gemm_tc(const bf16* __restrict__ A, const bf16* __restrict__ Bm,
     for (int kk = 0; kk < KB; kk += 16) {
       uint32_t af[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(af[mi], &As[(wm + mi * 16 + lane % 16) * SKP + kk + (lane / 16) * 8]);
+      for (int mi = 0; mi < 2; ++mi) {
+        if (AT)  // matrices (m 0-7 | 8-15) x (k 0-7 | 8-15), k-major rows
+          ldsm_x4_t(af[mi], &As[(kk + lane % 8 + (lane / 16) * 8) * SMP + wm
+                                + mi * 16 + ((lane / 8) % 2) * 8]);
+        else
+          ldsm_x4(af[mi], &As[(wm + mi * 16 + lane % 16) * SKP + kk + (lane / 16) * 8]);
+      }
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj) {
         uint32_t bfr[4];
@@ -310,7 +334,7 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   float* S = ws;
   bf16* P = reinterpret_cast<bf16*>(ws + static_cast<size_t>(B) * M * Tp);
   const dim3 g1((Tn + NB - 1) / NB, (M + MB - 1) / MB, B);
-  gemm_tc<true, float><<<g1, MNT, 0, stream>>>(
+  gemm_tc<false, true, float><<<g1, MNT, 0, stream>>>(
       q, k, S, M, Tn, D, scale, D, D, Tp, static_cast<long long>(M) * D,
       static_cast<long long>(Tn) * D, static_cast<long long>(M) * Tp);
   cudaError_t err = cudaGetLastError();
@@ -319,7 +343,7 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 g3((D + NB - 1) / NB, (M + MB - 1) / MB, B);
-  gemm_tc<false, bf16><<<g3, MNT, 0, stream>>>(
+  gemm_tc<false, false, bf16><<<g3, MNT, 0, stream>>>(
       P, v, out, M, D, Tn, 1.f, Tp, D, D, static_cast<long long>(M) * Tp,
       static_cast<long long>(Tn) * D, static_cast<long long>(M) * D);
   return cudaGetLastError();
@@ -329,7 +353,7 @@ int run_f32(const float* q, const float* k, const float* v, float* out,
             float* ws, int B, int M, int Tn, int D, float scale,
             cudaStream_t stream) {
   const dim3 g1((Tn + TN - 1) / TN, (M + TM - 1) / TM, B);
-  gemm_f32<true><<<g1, NT, 0, stream>>>(
+  gemm_f32<false, true><<<g1, NT, 0, stream>>>(
       q, k, ws, M, Tn, D, scale,
       static_cast<long long>(M) * D, static_cast<long long>(Tn) * D,
       static_cast<long long>(M) * Tn);
@@ -339,10 +363,135 @@ int run_f32(const float* q, const float* k, const float* v, float* out,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 g3((D + TN - 1) / TN, (M + TM - 1) / TM, B);
-  gemm_f32<false><<<g3, NT, 0, stream>>>(
+  gemm_f32<false, false><<<g3, NT, 0, stream>>>(
       ws, v, out, M, D, Tn, 1.f,
       static_cast<long long>(M) * Tn, static_cast<long long>(Tn) * D,
       static_cast<long long>(M) * D);
+  return cudaGetLastError();
+}
+
+// ---- backward: dq, dk, dv ---------------------------------------------------
+//
+// Contract: kernels/plain.py::memcom_xattn_bwd_ref — P = softmax(scale Q
+// K^T), dP = dO V^T, dS = P o (dP - rowsum(P o dP)), dQ = scale dS K, dK =
+// scale dS^T Q, dV = P^T dO.  Five products and a row pass, each product
+// one launch of the tiled kernels above (gemm_tc on mma.sync for bf16,
+// gemm_f32 on the CUDA cores for float32): S and dP (contraction D), then
+// dQ (contraction T) and dK, dV (contraction M, A transposed: the AT
+// case).  Workspace: S and dP in float32 and, for bf16, P and dS in bf16
+// ((B, M, Tp) each, zero in columns T..Tp): 12 B M Tp bytes (18.9 MB at
+// M = 512, T = 3072); float32 keeps P in S's place and dS in dP's (8 B M T
+// bytes).  What bounds it on an H100: 5 * 2 M T D flops against q, k, v,
+// dO and the three gradients once each: operations at the compress shapes.
+
+// float32: one block per row; S <- P = softmax(S), dP <- dS = P o (dP -
+// rowsum(P o dP)), in place.
+__global__ void __launch_bounds__(NT)
+softmax_bwd_rows(float* __restrict__ S, float* __restrict__ dP, int T) {
+  float* srow = S + static_cast<size_t>(blockIdx.x) * T;
+  float* drow = dP + static_cast<size_t>(blockIdx.x) * T;
+  float mx = -1e30f;
+  for (int t = threadIdx.x; t < T; t += NT) mx = fmaxf(mx, srow[t]);
+  mx = block_reduce(mx, true);
+  float sum = 0.f;
+  for (int t = threadIdx.x; t < T; t += NT) sum += expf(srow[t] - mx);
+  sum = block_reduce(sum, false);
+  float r = 0.f;
+  for (int t = threadIdx.x; t < T; t += NT) {
+    const float p = expf(srow[t] - mx) / sum;
+    srow[t] = p;
+    r += p * drow[t];
+  }
+  r = block_reduce(r, false);
+  for (int t = threadIdx.x; t < T; t += NT) drow[t] = srow[t] * (drow[t] - r);
+}
+
+// bf16: one block per row of S and dP (row stride Tp, float32); writes P
+// and dS in bf16 (row stride Tp, 0 in columns T..Tp).
+__global__ void __launch_bounds__(NT)
+softmax_bwd_rows_bf16(const float* __restrict__ S, const float* __restrict__ dP,
+                      bf16* __restrict__ P, bf16* __restrict__ dS, int T,
+                      int Tp) {
+  const size_t off = static_cast<size_t>(blockIdx.x) * Tp;
+  const float* srow = S + off;
+  const float* drow = dP + off;
+  float mx = -1e30f;
+  for (int t = threadIdx.x; t < T; t += NT) mx = fmaxf(mx, srow[t]);
+  mx = block_reduce(mx, true);
+  float sum = 0.f;
+  for (int t = threadIdx.x; t < T; t += NT) sum += expf(srow[t] - mx);
+  sum = block_reduce(sum, false);
+  const float inv = 1.f / sum;
+  float r = 0.f;
+  for (int t = threadIdx.x; t < T; t += NT) r += expf(srow[t] - mx) * inv * drow[t];
+  r = block_reduce(r, false);
+  for (int t = threadIdx.x; t < Tp; t += NT) {
+    const float p = t < T ? expf(srow[t] - mx) * inv : 0.f;
+    P[off + t] = __float2bfloat16_rn(p);
+    dS[off + t] = __float2bfloat16_rn(t < T ? p * (drow[t] - r) : 0.f);
+  }
+}
+
+int run_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                 bf16* dq, bf16* dk, bf16* dv, float* ws, int B, int M,
+                 int Tn, int D, float scale, cudaStream_t st) {
+  const int Tp = (Tn + 7) / 8 * 8;
+  const size_t n = static_cast<size_t>(B) * M * Tp;
+  float* S = ws;
+  float* dP = S + n;
+  bf16* P = reinterpret_cast<bf16*>(dP + n);
+  bf16* dS = P + n;
+  const long long sMD = static_cast<long long>(M) * D;
+  const long long sTD = static_cast<long long>(Tn) * D;
+  const long long sMT = static_cast<long long>(M) * Tp;
+  const dim3 gs((Tn + NB - 1) / NB, (M + MB - 1) / MB, B);
+  gemm_tc<false, true, float><<<gs, MNT, 0, st>>>(
+      q, k, S, M, Tn, D, scale, D, D, Tp, sMD, sTD, sMT);
+  gemm_tc<false, true, float><<<gs, MNT, 0, st>>>(
+      dout, v, dP, M, Tn, D, 1.f, D, D, Tp, sMD, sTD, sMT);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  softmax_bwd_rows_bf16<<<B * M, NT, 0, st>>>(S, dP, P, dS, Tn, Tp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gq((D + NB - 1) / NB, (M + MB - 1) / MB, B);
+  gemm_tc<false, false, bf16><<<gq, MNT, 0, st>>>(
+      dS, k, dq, M, D, Tn, scale, Tp, D, D, sMT, sTD, sMD);
+  const dim3 gk((D + NB - 1) / NB, (Tn + MB - 1) / MB, B);
+  gemm_tc<true, false, bf16><<<gk, MNT, 0, st>>>(
+      dS, q, dk, Tn, D, M, scale, Tp, D, D, sMT, sMD, sTD);
+  gemm_tc<true, false, bf16><<<gk, MNT, 0, st>>>(
+      P, dout, dv, Tn, D, M, 1.f, Tp, D, D, sMT, sMD, sTD);
+  return cudaGetLastError();
+}
+
+int run_bwd_f32(const float* q, const float* k, const float* v,
+                const float* dout, float* dq, float* dk, float* dv, float* ws,
+                int B, int M, int Tn, int D, float scale, cudaStream_t st) {
+  const size_t n = static_cast<size_t>(B) * M * Tn;
+  float* S = ws;
+  float* dP = S + n;
+  const long long sMD = static_cast<long long>(M) * D;
+  const long long sTD = static_cast<long long>(Tn) * D;
+  const long long sMT = static_cast<long long>(M) * Tn;
+  const dim3 gs((Tn + TN - 1) / TN, (M + TM - 1) / TM, B);
+  gemm_f32<false, true><<<gs, NT, 0, st>>>(q, k, S, M, Tn, D, scale, sMD,
+                                           sTD, sMT);
+  gemm_f32<false, true><<<gs, NT, 0, st>>>(dout, v, dP, M, Tn, D, 1.f, sMD,
+                                           sTD, sMT);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  softmax_bwd_rows<<<B * M, NT, 0, st>>>(S, dP, Tn);  // S <- P, dP <- dS
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gq((D + TN - 1) / TN, (M + TM - 1) / TM, B);
+  gemm_f32<false, false><<<gq, NT, 0, st>>>(dP, k, dq, M, D, Tn, scale, sMT,
+                                            sTD, sMD);
+  const dim3 gk((D + TN - 1) / TN, (Tn + TM - 1) / TM, B);
+  gemm_f32<true, false><<<gk, NT, 0, st>>>(dP, q, dk, Tn, D, M, scale, sMT,
+                                           sMD, sTD);
+  gemm_f32<true, false><<<gk, NT, 0, st>>>(S, dout, dv, Tn, D, M, 1.f, sMT,
+                                           sMD, sTD);
   return cudaGetLastError();
 }
 
@@ -862,4 +1011,42 @@ extern "C" int memcom_xattn_fwd(const void* q, const void* k, const void* v,
       aligned(v) && aligned(out) && aligned(ws))
     return run_wgmma(qb, kb, vb, ob, ws, B, M, T, D, scale, nsplit, st);
   return cudaErrorInvalidValue;
+}
+
+// Bytes of the workspace memcom_xattn_bwd needs (see the backward's note).
+extern "C" long long memcom_xattn_bwd_workspace_bytes(int B, int M, int T,
+                                                      int dtype) {
+  if (dtype == 1) return 12LL * B * M * ((T + 7) / 8 * 8);
+  return 8LL * B * M * T;
+}
+
+// dq (B,M,D), dk and dv (B,T,D) of O = softmax(scale Q K^T) V given dout
+// (B,M,D), all in one type (dtype 0 = float32, 1 = bfloat16 with D % 8 ==
+// 0 and 16-byte aligned q, k, v, dout and ws), contiguous; ws:
+// memcom_xattn_bwd_workspace_bytes(B, M, T, dtype) bytes.  Returns a
+// cudaError_t (0 = launched).
+extern "C" int memcom_xattn_bwd(const void* q, const void* k, const void* v,
+                                const void* dout, void* dq, void* dk,
+                                void* dv, void* ws, int B, int M, int T, int D,
+                                float scale, int dtype, void* stream) {
+  if (B < 0 || M < 0 || T <= 0 || D <= 0) return cudaErrorInvalidValue;
+  if (B == 0 || M == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run_bwd_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v),
+                       static_cast<const float*>(dout), static_cast<float*>(dq),
+                       static_cast<float*>(dk), static_cast<float*>(dv),
+                       static_cast<float*>(ws), B, M, T, D, scale, st);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (dtype != 1 || D % 8 || !(aligned(q) && aligned(k) && aligned(v) &&
+                               aligned(dout) && aligned(ws)))
+    return cudaErrorInvalidValue;
+  return run_bwd_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v),
+                      static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+                      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                      static_cast<float*>(ws), B, M, T, D, scale, st);
 }

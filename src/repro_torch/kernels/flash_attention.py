@@ -12,6 +12,16 @@ raises — there is no fallback.  The source holds three variants, and
 launched a kernel (a call that splits the KV axis also launches the
 merge of the partials); ``wgmma_launches`` counts those that went to the
 wgmma variant.
+
+A CUDA call is differentiable: when q, k or v needs a gradient the
+forward runs inside :class:`FlashAttention` (an ``autograd.Function``
+whose forward is the same kernel call), which saves q, k, v, out and lse,
+and its backward launches the hand-written backward kernel of
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`, held to
+``plain.attention_bwd_ref``; an ``lse`` cotangent enters it too).  There
+is no fallback to the plain backward: a backward kernel that does not
+build or launch raises.  ``bwd_launches`` counts backward calls.  With no
+gradient needed the call is the plain kernel call, as before.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from repro_torch.kernels import build, plain
 
 launches = 0
 wgmma_launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -147,12 +158,46 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     ``variant`` (CUDA tensors only) forces ``"wgmma"`` or ``"mma_sync"``
     instead of :func:`variant_for`'s choice, so that both bf16 kernels can
     be held to the plain version at one shape; a variant that does not
-    take the call raises ``NotImplementedError``."""
-    global launches, wgmma_launches
+    take the call raises ``NotImplementedError``.  A CUDA call whose q, k
+    or v needs a gradient is recorded for autograd (:class:`FlashAttention`)."""
     if not q.is_cuda:
         return plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                    causal=causal, softcap=softcap,
                                    scale=scale, return_lse=return_lse)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = FlashAttention.apply(q, k, v, q_pos, kv_pos, causal,
+                                        softcap, scale, variant)
+    else:
+        out, lse = _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale,
+                            variant)
+    return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The CUDA forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, softcap, scale,
+                variant):
+        out, lse = _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale,
+                            variant)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos)
+        ctx.opts = dict(causal=causal, softcap=softcap, scale=scale)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse, q_pos, kv_pos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout, dlse, q_pos=q_pos, kv_pos=kv_pos,
+            need_dq=ctx.needs_input_grad[0], **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
+    """Launches the forward kernel on CUDA tensors; returns (out, lse)."""
+    global launches, wgmma_launches
     _check(q, k, v, q_pos, kv_pos)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -201,7 +246,66 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     launches += 1
     if chosen == "wgmma":
         wgmma_launches += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
+                        causal=True, softcap=0.0, scale=None, need_dq=True):
+    """dq, dk, dv of :func:`flash_attention` given its out and lse and the
+    cotangents dout (and dlse, or None).  A CPU call goes to
+    ``plain.attention_bwd_ref``; a CUDA call launches the backward kernel
+    (dq is None when not ``need_dq``) or raises."""
+    global bwd_launches
+    if not q.is_cuda:
+        return plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse,
+                                       q_pos=q_pos, kv_pos=kv_pos,
+                                       causal=causal, softcap=softcap,
+                                       scale=scale)
+    _check(q, k, v, q_pos, kv_pos)
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if scale is None:
+        scale = D ** -0.5
+    out, dout, lse = (t.contiguous() if t.data_ptr() % 16 == 0
+                      else t.clone(memory_format=torch.contiguous_format)
+                      for t in (out, dout, lse))  # 16-byte rows for the kernel
+    if dout.shape != q.shape or dout.dtype != q.dtype or out.shape != q.shape \
+            or out.dtype != q.dtype or lse.shape != (B, Sq, Hq) \
+            or lse.dtype != torch.float32:
+        raise ValueError("out/dout must match q and lse be (B, Sq, Hq) "
+                         "float32")
+    if dlse is not None:
+        dlse = dlse.to(torch.float32).contiguous()
+    dq = torch.zeros_like(q) if need_dq else None
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    di = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), dlse.data_ptr() if dlse is not None else None,
+                 q_pos.data_ptr(), kv_pos.data_ptr(),
+                 dq.data_ptr() if dq is not None else None, dk.data_ptr(),
+                 dv.data_ptr(), di.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
+                 float(scale), float(softcap or 0.0), int(bool(causal)),
+                 _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 def wgmma_tile_check(a, b, *, b_mn_major, n=64):

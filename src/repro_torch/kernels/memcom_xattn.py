@@ -12,6 +12,15 @@ thread block cluster; two launches), ``"mma_sync"`` (bf16 at other
 widths: logits, softmax rows and output on mma.sync, three launches) and
 ``"float32"``.  ``launches`` counts wrapper calls that launched a kernel;
 ``wgmma_launches`` those that went to the wgmma variant.
+
+A CUDA call is differentiable: when q, k or v needs a gradient the
+forward runs inside :class:`MemcomXattn` (an ``autograd.Function`` whose
+forward is the same kernel call) and its backward launches the
+hand-written backward of ``csrc/memcom_xattn.cu`` (:func:`memcom_xattn_bwd`:
+five products on the source's own tiled kernels and a softmax row pass,
+held to ``plain.memcom_xattn_bwd_ref``).  There is no fallback to the
+plain backward.  ``bwd_launches`` counts backward calls.  With no
+gradient needed the call is the plain kernel call, as before.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from repro_torch.kernels import build, plain
 
 launches = 0
 wgmma_launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"float32": 0, "mma_sync": 0, "wgmma": 1}
@@ -99,7 +109,14 @@ def _kernel():
     ws = lib.memcom_xattn_workspace_bytes
     ws.argtypes = [ctypes.c_int] * 5
     ws.restype = ctypes.c_longlong
-    return fn, ws
+    bwd = lib.memcom_xattn_bwd
+    bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    bwd_ws = lib.memcom_xattn_bwd_workspace_bytes
+    bwd_ws.argtypes = [ctypes.c_int] * 4
+    bwd_ws.restype = ctypes.c_longlong
+    return fn, ws, bwd, bwd_ws
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,6 +176,31 @@ def memcom_xattn(q, k, v, *, scale=None, variant=None):
                 f"{WGMMA_MAX_T}")
     if not q.is_cuda:
         return plain.memcom_xattn_ref(q, k, v, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return MemcomXattn.apply(q, k, v, scale, variant)
+    return _forward(q, k, v, scale, variant)
+
+
+class MemcomXattn(torch.autograd.Function):
+    """The CUDA forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, variant):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale, variant)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*memcom_xattn_bwd(q, k, v, dout, scale=ctx.scale), None,
+                None)
+
+
+def _forward(q, k, v, scale, variant):
+    """Launches the forward kernel ``variant`` (None: :func:`variant_for`'s
+    choice) on CUDA tensors."""
     _check(q, k, v)
     B, M, D = q.shape
     T = k.shape[1]
@@ -224,3 +266,47 @@ def wgmma_pieces(q, k, v, *, scale=None):
     ml = raw[2 * B * M * Tp:2 * B * M * Tp + 8 * B * nt * M]
     ml = ml.view(torch.float32).view(B, nt, M, 2).transpose(1, 2)
     return out, p.view(B, M, nt, LG_BN), ml[..., 0], ml[..., 1]
+
+
+def bwd_workspace_bytes(B: int, M: int, T: int, dtype: torch.dtype) -> int:
+    """Bytes of the workspace one backward call allocates: S and dP in
+    float32, and P and dS in bf16 for bf16 inputs."""
+    return int(_kernel()[3](B, M, T, _DTYPES[dtype]))
+
+
+def memcom_xattn_bwd(q, k, v, dout, *, scale=None):
+    """dq (B,M,D), dk and dv (B,T,D) of :func:`memcom_xattn` given the
+    cotangent ``dout``.  A CPU call goes to ``plain.memcom_xattn_bwd_ref``;
+    a CUDA call launches the backward kernels (bf16 at D % 8 == 0 with
+    16-byte aligned inputs, or float32) or raises."""
+    global bwd_launches
+    if not q.is_cuda:
+        return plain.memcom_xattn_bwd_ref(q, k, v, dout, scale=scale)
+    dout = (dout.contiguous() if dout.data_ptr() % 16 == 0
+            else dout.clone(memory_format=torch.contiguous_format))
+    _check(q, k, v)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    B, M, D = q.shape
+    T = k.shape[1]
+    if q.dtype == torch.bfloat16 and (D % 8 or not _aligned(q, k, v)):
+        raise NotImplementedError(
+            f"the bf16 backward takes D % 8 == 0 and 16-byte aligned inputs,"
+            f" got D={D}")
+    if scale is None:
+        scale = D ** -0.5
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ws = torch.empty(_cdiv(bwd_workspace_bytes(B, M, T, q.dtype), 4),
+                     dtype=torch.float32, device=q.device)
+    fn = _kernel()[2]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+                 B, M, T, D, float(scale), _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"memcom_xattn backward kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    return dq, dk, dv

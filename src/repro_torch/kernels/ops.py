@@ -18,6 +18,15 @@ route of S <= 64 to the sequential oracle, which would hide it at short
 prompts).
 ``set_default_impl("torch")`` forces the plain versions everywhere (the
 kernel-vs-plain comparisons on the card use it).
+
+Gradients: a CPU call (or a forced plain one) is differentiated by the
+plain versions' own autograd; a CUDA call to ``attention`` (and the calls
+built on it) or ``memcom_xattn`` whose inputs need a gradient goes
+through the wrapper's ``autograd.Function``, whose backward is a
+hand-written kernel (``flash_attention_bwd``, ``memcom_xattn_bwd``) with
+no fallback.  With no gradient needed the CUDA call is the kernel call
+alone, as serving makes it.  The paged, MoE and SSD kernels have no
+backward yet.
 """
 
 from __future__ import annotations

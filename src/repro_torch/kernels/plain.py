@@ -69,6 +69,51 @@ def attention_ref(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     return out, lse.permute(0, 3, 1, 2).reshape(B, Sq, Hq)
 
 
+def attention_bwd_ref(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
+                      causal=True, softcap=0.0, scale=None):
+    """The gradient of :func:`attention_ref` (with its lse) by explicit
+    formulas, not autograd: the yardstick of the backward kernel.
+
+    q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), out/dout (B,Sq,Hq,D), lse/dlse
+    (B,Sq,Hq) float32 (``dlse`` None: no lse cotangent) -> dq, dk, dv in
+    the inputs' types.  With x = scale q.k and s = cap tanh(x / cap) (s =
+    x without a cap), P = exp(s - lse) on the visible pairs (0 elsewhere),
+    dP = dO V^T, D_i = rowsum(dO o O) - dlse_i, dS = P o (dP - D_i), dX =
+    dS o (1 - (s / cap)^2); dq = scale dX K, dk = scale dX^T Q and dv =
+    P^T dO, dk and dv summed over each group of G = Hq / Hkv query heads.
+    A row that sees no key (lse -1e30) has P = 0 and gets no gradient."""
+    B, Sq, Hq, Dk = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    if scale is None:
+        scale = Dk ** -0.5
+    qh = q.float().reshape(B, Sq, Hkv, G, Dk)
+    doh = dout.float().reshape(B, Sq, Hkv, G, -1)
+    x = torch.einsum("bqhgd,bshd->bhgqs", qh, k.float()) * scale
+    s = softcap * torch.tanh(x / softcap) if softcap else x
+    valid = kv_pos[:, None, :] >= 0
+    if causal:
+        valid = valid & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    else:
+        valid = valid.expand(B, Sq, Skv)
+    valid = valid[:, None, None]                       # (B,1,1,Sq,Skv)
+    lse_h = lse.float().reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)[..., None]
+    p = torch.where(valid, torch.exp(s - lse_h), torch.zeros_like(s))
+    dp = torch.einsum("bqhgd,bshd->bhgqs", doh, v.float())
+    d_i = (dout.float() * out.float()).sum(-1)        # (B,Sq,Hq)
+    if dlse is not None:
+        d_i = d_i - dlse.float()
+    d_i = d_i.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - d_i)
+    if softcap:
+        ds = ds * (1 - (s / softcap) ** 2)
+    dq = torch.einsum("bhgqs,bshd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqs,bqhgd->bshd", ds, qh) * scale
+    dv = torch.einsum("bhgqs,bqhgd->bshd", p, doh)
+    return (dq.reshape(B, Sq, Hq, Dk).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def memcom_xattn_ref(q, k, v, *, scale=None):
     """The paper's 1-head cross-attention (``ref.py:50``): m memory queries
     over t source tokens, head width = d_model, no mask."""
@@ -78,6 +123,24 @@ def memcom_xattn_ref(q, k, v, *, scale=None):
     logits = torch.einsum("bmd,btd->bmt", q.float(), k.float()) * scale
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bmt,btd->bmd", p, v.float()).to(q.dtype)
+
+
+def memcom_xattn_bwd_ref(q, k, v, dout, *, scale=None):
+    """The gradient of :func:`memcom_xattn_ref` by explicit formulas: P =
+    softmax(scale Q K^T), dP = dO V^T, dS = P o (dP - rowsum(P o dP)), dQ
+    = scale dS K, dK = scale dS^T Q, dV = P^T dO; float32 inside, the
+    inputs' types out.  The yardstick of the backward kernel."""
+    D = q.shape[-1]
+    if scale is None:
+        scale = D ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    p = torch.softmax(torch.einsum("bmd,btd->bmt", qf, kf) * scale, dim=-1)
+    dp = torch.einsum("bmd,btd->bmt", dof, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bmt,btd->bmd", ds, kf) * scale
+    dk = torch.einsum("bmt,bmd->btd", ds, qf) * scale
+    dv = torch.einsum("bmt,bmd->btd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def memcom_xattn_tiled(q, k, v, *, block_t=128, round_p=True, splits=1,
@@ -474,6 +537,11 @@ def bf16_ulps(out, ref) -> float:
     return float(ratio.max()) if ratio.numel() else 0.0
 
 
+# The rms, as a share of the whole gradient's rms, below which a row of a
+# gradient counts as float32 noise (:func:`grad_err`).
+GRAD_NOISE_FLOOR = 2.0 ** -7
+
+
 def scaled_err(out, ref) -> float:
     """Largest ``|out - ref| / (|ref| + rms of ref's row)`` over the
     elements, a row being the last axis: the error of a kernel's result
@@ -484,6 +552,31 @@ def scaled_err(out, ref) -> float:
     ref = ref.float()
     d = (out.float() - ref).abs()
     scale = ref.abs() + ref.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    ratio = torch.where(scale > 0, d / scale.clamp(min=1e-37),
+                        torch.where(d > 0, torch.inf, 0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
+def grad_err(out, ref) -> float:
+    """:func:`scaled_err` of a gradient, except that a row whose rms is
+    below ``GRAD_NOISE_FLOOR`` times the whole tensor's rms is held to
+    that instead: an absolute bound on the rows that hold only float32
+    noise.  The dq row of a query that sees one key (with no lse
+    cotangent) is scale (P (dP - D)) K with dP = D up to rounding, so both
+    versions hold only noise there (~1e-5 of the tensor's rms), which
+    :func:`scaled_err` would measure as a ratio of two noises.  Every row
+    above the floor is held as :func:`scaled_err` holds it; the smallest
+    true rows of the training shapes (dk/dv of the last keys of a causal
+    3072-token source, seen by a few queries) lie near the floor, so it
+    loosens them by at most about 2x.  A row whose reference is all 0 is
+    held to the floor too: rows known to get no gradient (keys no query
+    sees, queries that see no key) are checked to be exactly 0 by their
+    positions, not by this yardstick."""
+    ref = ref.float()
+    d = (out.float() - ref).abs()
+    row = torch.maximum(ref.pow(2).mean(dim=-1, keepdim=True).sqrt(),
+                        GRAD_NOISE_FLOOR * ref.pow(2).mean().sqrt())
+    scale = ref.abs() + row
     ratio = torch.where(scale > 0, d / scale.clamp(min=1e-37),
                         torch.where(d > 0, torch.inf, 0.0))
     return float(ratio.max()) if ratio.numel() else 0.0

@@ -3,7 +3,9 @@
 Keys are ``"<wrapper module>:<function>"`` under ``repro_torch.kernels``;
 ``plain`` names the function in :mod:`.plain` the kernel is held to on the
 card and that runs for CPU tensors; ``replaces`` is the Pallas entry point
-of the JAX package (by file and line); ``source`` is the CUDA file.
+of the JAX package (by file and line); ``source`` is the CUDA file.  A backward kernel replaces the gradient
+JAX forms for the Pallas entry point by differentiating its jnp path (the
+JAX package defines no ``custom_vjp``), so it names that entry point too.
 """
 
 from __future__ import annotations
@@ -14,8 +16,18 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:127",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
     },
+    "flash_attention:flash_attention_bwd": {
+        "plain": "attention_bwd_ref",
+        "replaces": "src/repro/kernels/flash_attention.py:127",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    },
     "memcom_xattn:memcom_xattn": {
         "plain": "memcom_xattn_ref",
+        "replaces": "src/repro/kernels/memcom_xattn.py:96",
+        "source": "src/repro_torch/kernels/csrc/memcom_xattn.cu",
+    },
+    "memcom_xattn:memcom_xattn_bwd": {
+        "plain": "memcom_xattn_bwd_ref",
         "replaces": "src/repro/kernels/memcom_xattn.py:96",
         "source": "src/repro_torch/kernels/csrc/memcom_xattn.cu",
     },

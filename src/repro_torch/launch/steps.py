@@ -1,0 +1,57 @@
+"""Step builders of the training path (``repro/launch/steps.py``'s
+``build_memcom_train_step`` and ``build_lm_train_step``; the dry-run's
+compile-only builders are not ported).
+
+Each returns ``(step, opt, params)``: ``params`` the flat dict of the
+tensors the step trains (leaves of the live modules, ``requires_grad``
+on), ``opt`` the AdamW whose ``init(params)`` makes the step's state, and
+``step(params, opt_state, batch) -> (params, opt_state, metrics)``, which
+updates both in place.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import memcom
+from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.train import build_train_step
+
+
+def build_memcom_train_step(cfg: ModelConfig, mc: memcom.MemCom, target, *,
+                            phase: int = 1, remat: bool = True,
+                            clip: float = 1.0, lr: Optional[Callable] = None):
+    """The phase's trainable parameters get ``requires_grad`` (the others
+    none: no weight gradient forms for them, as under the reference's
+    ``stop_gradient``; activation gradients still flow through every
+    stack).  ``lr`` defaults to the reference's schedule: warmup_cosine
+    from 2e-4 (Phase 1) or 2e-6 (Phase 2), 500 warmup steps of 20,000."""
+    params = memcom.set_trainable(mc, phase)
+    for p in target.parameters():
+        p.requires_grad_(False)
+    sched = lr or warmup_cosine(2e-4 if phase == 1 else 2e-6,
+                                warmup_steps=500, total_steps=20_000)
+    opt = AdamW(lr=sched)
+
+    def loss_fn(params, batch):
+        return memcom.memcom_loss(mc, target, cfg, batch, remat=remat)
+
+    return build_train_step(loss_fn, opt, clip=clip), opt, params
+
+
+def build_lm_train_step(cfg: ModelConfig, model, *, remat: bool = True,
+                        clip: float = 1.0, lr: Optional[Callable] = None):
+    """Plain next-token training of every parameter of ``model`` on
+    ``batch["tokens"]``."""
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    opt = AdamW(lr=lr or warmup_cosine(1e-4, warmup_steps=500,
+                                       total_steps=20_000))
+
+    def loss_fn(params, batch):
+        logits, aux = model(tokens=batch["tokens"], remat=remat)
+        loss = memcom.next_token_loss(logits, batch["tokens"])
+        return loss + aux["moe_loss"], {"ce": loss}
+
+    return build_train_step(loss_fn, opt, clip=clip), opt, params

@@ -14,8 +14,10 @@ Mamba2's ``A_log``/``dt_bias``/``D`` do in a bf16 model).  The two frameworks' g
 other numbers than ``jax.random``; tests carry parameters across with
 :mod:`repro_torch.bridge` instead.
 
-Parameters are created with ``requires_grad=False``: this slice of the
-port serves and compresses, it does not train.
+Parameters are created with ``requires_grad=False``, so that serving and
+compression record no autograd graph; training turns on the phase's
+trainable ones (:func:`repro_torch.core.memcom.set_trainable`, or
+``requires_grad_`` on a whole model for plain LM training).
 """
 
 from __future__ import annotations

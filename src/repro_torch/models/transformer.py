@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
@@ -92,12 +93,17 @@ class Transformer(nn.Module):
         memcom: Optional[dict] = None,  # {"params": [MemXAttn], "src": [H^i]}
         logits: bool = True,
         block_tables=None,  # (B, nb) int32: the cache is a paged pool
+        remat: bool = False,
     ):
         """Returns (logits_or_hidden, aux) with aux keys "cache",
         "hiddens" (layer inputs H^i), "omega" (Memory-LLM O^i) and
         "moe_loss" (the layers' load-balance losses summed, a float32
         scalar; 0.0 without a MoE layer).  One block table resolves every
-        layer's pool."""
+        layer's pool.  ``remat`` (training) wraps each block in
+        ``torch.utils.checkpoint`` when a graph is being recorded, as the
+        JAX package's ``remat`` does: its activations are recomputed in
+        the backward pass (so the kernels' forward counters count such a
+        block twice)."""
         cfg = self.cfg
         if embeds is None:
             h = F.embedding(tokens, self.embed.tokens)
@@ -125,12 +131,15 @@ class Transformer(nn.Module):
             mem = None
             if memcom is not None:
                 mem = (memcom["params"][i], memcom["src"][i])
-            h, _, a = block(
-                h, positions=positions, mask_offset=mask_offset,
-                prefix=prefix[i] if prefix is not None else None,
-                cache=cache[i] if cache is not None else None,
-                cache_index=cache_index, decode=decode, memcom=mem,
-                block_tables=block_tables)
+            kw = dict(positions=positions, mask_offset=mask_offset,
+                      prefix=prefix[i] if prefix is not None else None,
+                      cache=cache[i] if cache is not None else None,
+                      cache_index=cache_index, decode=decode, memcom=mem,
+                      block_tables=block_tables)
+            if remat and torch.is_grad_enabled():
+                h, _, a = checkpoint(block, h, use_reentrant=False, **kw)
+            else:
+                h, _, a = block(h, **kw)
             if a["moe_loss"] is not None:
                 moe_loss = (a["moe_loss"] if moe_loss is None
                             else moe_loss + a["moe_loss"])

@@ -830,3 +830,137 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
     with pytest.raises(NotImplementedError):  # N no multiple of 4
         ssd_scan.ssd(x, dt, A, Bm[..., :6].contiguous(),
                      Cm[..., :6].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels: flash_attention_bwd and memcom_xattn_bwd against the
+# plain backward (explicit formulas) on the same inputs.  float32: max abs
+# error at most 1e-4 of max(1, the largest gradient); bf16: at most 2e-2
+# by ``plain.grad_err`` (``plain.scaled_err``, with the rows below
+# 2^-7 of the tensor's rms held to that: a dq row of a query that sees one
+# key is float32 noise in both versions), per gradient.
+# ---------------------------------------------------------------------------
+
+def _assert_grad_close(got, want, dtype, name):
+    if dtype == "float32":
+        e = _err(got, want)
+        bound = 1e-4 * max(1.0, float(want.float().abs().max()))
+        assert e <= bound, f"{name}: max abs err {e:.3e} > {bound:.3e}"
+    else:
+        s = plain.grad_err(got, want)
+        assert s <= REL_TOL[dtype], f"{name}: grad err {s:.3e}"
+
+
+BWD_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, D, layout, softcap, dlse); layout: "causal"
+    # (q_pos = kv_pos = arange), "offset" (both from 512), "prefix" (q at
+    # 512.., kv 0..Skv-1, non-causal), "masked" (some q rows see no key)
+    (1, 512, 512, 8, 4, 256, "causal", 50.0, False),   # Memory-LLM self
+    (2, 64, 64, 8, 4, 256, "offset", 50.0, True),      # prompt self
+    (2, 64, 512, 8, 4, 256, "prefix", 50.0, True),     # prompt vs prefix
+    (1, 512, 512, 24, 8, 64, "causal", 0.0, False),    # granite
+    (1, 512, 512, 32, 8, 128, "causal", 0.0, False),   # mistral-7b
+    (1, 96, 96, 4, 2, 32, "causal", 0.0, True),        # head dim 32 (f32)
+    (1, 200, 130, 8, 4, 256, "prefix", 50.0, True),    # ragged 64-row tiles
+    (3, 70, 70, 12, 4, 64, "causal", 0.0, False),
+    (2, 37, 53, 4, 2, 64, "prefix", 0.0, False),       # ragged tiles
+    (2, 45, 45, 6, 2, 128, "offset", 30.0, False),
+    (2, 40, 70, 8, 4, 256, "masked", 50.0, True),      # rows with no key
+    # a cap near the logits' size, so that its factor 1 - (s / cap)^2 is
+    # far from 1 (at cap 50 random logits leave it within 1e-4 of 1)
+    (2, 64, 96, 8, 4, 256, "prefix", 0.5, True),
+    (1, 80, 80, 8, 2, 128, "causal", 0.5, False),
+]
+
+
+def _bwd_positions(B, Sq, Skv, layout, device):
+    ar = lambda lo, n: (lo + torch.arange(n, dtype=torch.int32)).expand(  # noqa: E731
+        B, n).contiguous().to(device)
+    if layout == "causal":
+        return ar(0, Sq), ar(0, Skv), True
+    if layout == "offset":
+        return ar(512, Sq), ar(512, Skv), True
+    if layout == "prefix":
+        return ar(512, Sq), ar(0, Skv), False
+    q_pos = ar(-8, Sq)          # the first rows sit before every key
+    kv_pos = ar(0, Skv).clone()
+    kv_pos[:, 5:9] = -1         # holes
+    return q_pos, kv_pos, True
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in BWD_CASES for d in ("float32", "bfloat16")
+    if d == "float32" or c[5] in (64, 128, 256)])  # bf16 forward head dims
+def test_flash_attention_bwd_matches_plain(cuda, rng, case, dtype):
+    B, Sq, Skv, Hq, Hkv, D, layout, cap, with_dlse = case
+    q, dout = (_rand(rng, B, Sq, Hq, D, dtype=dtype) for _ in range(2))
+    k, v = (_rand(rng, B, Skv, Hkv, D, dtype=dtype) for _ in range(2))
+    q_pos, kv_pos, causal = _bwd_positions(B, Sq, Skv, layout, cuda)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    dlse = (_rand(rng, B, Sq, Hq, dtype="float32") if with_dlse else None)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    want = plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_grad_close(g, w, dtype, name)
+    if layout == "masked":  # rows that see no key get exactly no gradient
+        dead = (q_pos < 0)
+        assert float(got[0][dead].abs().max()) == 0.0
+        holes = (kv_pos < 0)    # nor do keys that no query sees
+        assert float(got[1][holes].abs().max()) == 0.0
+        assert float(got[2][holes].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 3072, 2304), (1, 512, 3072, 1536),
+                                   (2, 40, 300, 256), (1, 17, 99, 72)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_memcom_xattn_bwd_matches_plain(cuda, rng, shape, dtype):
+    B, M, T, D = shape
+    q, dout = (_rand(rng, B, M, D, dtype=dtype) for _ in range(2))
+    k, v = (_rand(rng, B, T, D, dtype=dtype) for _ in range(2))
+    before = mx.bwd_launches
+    got = mx.memcom_xattn_bwd(q, k, v, dout)
+    torch.cuda.synchronize()
+    assert mx.bwd_launches == before + 1
+    want = plain.memcom_xattn_bwd_ref(q, k, v, dout)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_grad_close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gradients_through_ops_reach_the_inputs(cuda, rng, dtype):
+    """``loss.backward()`` through ``ops.attention_with_prefix`` (two flash
+    calls merged by their lse) and ``ops.memcom_xattn`` on the card gives
+    the inputs non-zero gradients equal to the plain path's (autograd of
+    the plain versions on the same inputs), through the backward kernels."""
+    B, S, m, Hq, Hkv, D = 2, 24, 40, 8, 4, 256
+    leaves = [_rand(rng, *s, dtype=dtype) for s in (
+        (B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, m, Hkv, D),
+        (B, m, Hkv, D), (B, m, 512), (B, 300, 512), (B, 300, 512))]
+    w_attn = _rand(rng, B, S, Hq, D, dtype="float32")
+    w_x = _rand(rng, B, m, 512, dtype="float32")
+
+    def grads(impl):
+        xs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        o = ops.attention_with_prefix(*xs[:5], softcap=50.0, impl=impl)
+        x = ops.memcom_xattn(*xs[5:], impl=impl)
+        loss = (o.float() * w_attn).sum() + (x.float() * w_x).sum()
+        return torch.autograd.grad(loss, xs)
+
+    before = (fa.bwd_launches, mx.bwd_launches)
+    got = grads("cuda")
+    torch.cuda.synchronize()
+    assert (fa.bwd_launches, mx.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    want = grads("torch")
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert float(g.float().abs().max()) > 0, i
+        if dtype == "float32":
+            _assert_grad_close(g, w, dtype, f"input {i}")
+        else:  # the two paths round their bf16 intermediates differently
+            assert _err(g, w) <= 2e-2 * float(w.float().abs().max()), i

@@ -39,16 +39,22 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 sys.path.insert(0, sys.argv[1])
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len([m for m in sys.modules if m.startswith("repro_torch.")]), bad)
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+mods = sorted(m for m in sys.modules if m.startswith("repro_torch."))
+print(len(mods), bad, " ".join(mods))
 assert not bad, bad
 """
     res = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                          capture_output=True, text=True, env=_env(),
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    n, _ = res.stdout.split(" ", 1)
-    assert int(n) >= 20  # every module was imported
+    n, _, mods = res.stdout.split(" ", 2)
+    assert int(n) >= 40  # every module was imported
+    for mod in ("optim.adamw", "optim.schedule", "optim.transforms",
+                "checkpoint.store", "checkpoint.manager", "data.pipeline",
+                "train.train_step", "train.trainer", "launch.steps",
+                "launch.train", "configs.smollm_135m"):
+        assert f"repro_torch.{mod}" in mods.split(), mod
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
