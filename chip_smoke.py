@@ -116,7 +116,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
       mistral-7b's widths and float32 at head dim 32; ``memcom_xattn`` at
       2x512x3072x2304, 1x512x3072x1536 and mistral-7b's 1x768x6144x4096.
       Rows that get no gradient by their positions (queries that see no
-      key, keys that no query sees) must be exactly 0.  ``ms`` by CUDA
+      key, keys that no query sees) must be exactly 0.  Every bf16 flash
+      shape runs through both bf16 kernels, each forced and each checked:
+      the wgmma variant (``flash_bwd_wgmma``) and the mma.sync one; the
+      wgmma variant's distance from its own arithmetic
+      (``plain.attention_bwd_tiled``) in bf16 steps (``plain.bf16_ulps``,
+      over the rows above ``plain.GRAD_NOISE_FLOOR``) is printed beside.
+      ``ms`` / ``device_ms`` are the picked variant's
+      (``fa.bwd_variant_for``), beside ``ms_<variant>`` and
+      ``device_ms_<variant>``.  ``ms`` by CUDA
       events, ``device_ms`` by graph replay over three input sets; the
       library time that of ``torch.autograd.grad`` through one
       ``F.scaled_dot_product_attention`` call (no cap, ``enable_gqa``; one
@@ -175,7 +183,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
       frozen tensor bit-identical to its start, each step 77 flash
       backward calls (26 layers x Memory-LLM self, prompt vs prefix and
       prompt self, less layer 0's prompt self, which reads only frozen
-      embeddings) and 26 ``memcom_xattn`` backward calls, every forward
+      embeddings), each through the kernel ``fa.bwd_variant_for`` picks
+      (the wgmma calls counted and printed), and 26 ``memcom_xattn``
+      backward calls, every forward
       ``memcom_xattn`` call through the wgmma variant; a second Trainer
       restored from step 2 reproduces the losses of steps 3-4 and the
       trained tensors exactly.  Printed: s/step, tokens/s, peak memory,
@@ -957,6 +967,7 @@ def main() -> int:
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def grad_check(kernel, name, dn, got, want, zero_rows=None):
         """``zero_rows``: {gradient: boolean mask of its rows} of rows that
@@ -989,6 +1000,15 @@ def main() -> int:
             for k, (e, ge, se, fl) in errs.items()))
         return (max(v[0] for v in errs.values()),
                 max(v[1] for v in errs.values()))
+
+    def tiled_ulps(got, tiled):
+        """``plain.bf16_ulps`` of a gradient from its tiled restatement
+        over the rows above ``plain.GRAD_NOISE_FLOOR`` (a one-key dq row
+        without an lse cotangent is float32 noise in both)."""
+        t32 = tiled.float()
+        row_rms = t32.pow(2).mean(dim=-1).sqrt()
+        keep = row_rms >= plain.GRAD_NOISE_FLOOR * t32.pow(2).mean().sqrt()
+        return plain.bf16_ulps(got[keep], tiled[keep])
 
     def library_bwd(sets, **sdpa_kw):
         """The backward of one ``F.scaled_dot_product_attention`` call on
@@ -1076,8 +1096,6 @@ def main() -> int:
             out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
             dlse = (rand(B, Sq, Hq, dtype=torch.float32) if with_dlse
                     else None)
-            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
-            torch.cuda.synchronize()
             want = plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse, **kw)
             # queries that see no key and keys that no query sees
             seen = kv_pos[:, None, :] >= 0
@@ -1086,14 +1104,41 @@ def main() -> int:
             seen = seen.expand(B, Sq, Skv)
             zero_rows = {"dq": ~seen.any(dim=2), "dk": ~seen.any(dim=1),
                          "dv": ~seen.any(dim=1)}
-            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = grad_check(
-                "flash_attention_bwd", name, dn, got, want, zero_rows)
+            # bf16: both kernels, each forced; the wgmma one also against
+            # its own arithmetic (plain.attention_bwd_tiled) in bf16 steps,
+            # over the rows grad_err holds by their own scale
+            variants = ("wgmma", "mma_sync") if dn == "bfloat16" else (None,)
+            errs = []
+            for vn in variants:
+                before = fa.bwd_wgmma_launches
+                got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse,
+                                             variant=vn, **kw)
+                torch.cuda.synchronize()
+                if fa.bwd_wgmma_launches - before != (vn == "wgmma"):
+                    raise AssertionError(f"flash_attention_bwd {name}: "
+                                         f"variant {vn} not counted")
+                errs.append(grad_check(
+                    "flash_attention_bwd" + (f"[{vn}]" if vn else ""), name,
+                    dn, got, want, zero_rows))
+                if vn == "wgmma":
+                    tiled = plain.attention_bwd_tiled(
+                        *(x.float() for x in (q, k, v, out)), lse,
+                        dout.float(), dlse, split_at=fa.bwd_split_at(
+                            B, Sq, Skv, Hq, Hkv, D, causal, sms), **kw)
+                    row["tiled_ulps"] = {
+                        g: tiled_ulps(a, b) for g, a, b in zip(
+                            ("dq", "dk", "dv"), got, tiled)}
+                    log(f"  {name} wgmma vs plain.attention_bwd_tiled, bf16 "
+                        f"steps: {row['tiled_ulps']}")
+                    del tiled
+                del got
+            row[f"max_abs_err_{dn}"] = max(e[0] for e in errs)
+            row[f"grad_err_{dn}"] = max(e[1] for e in errs)
             pairs = int(seen.sum())
-            del seen, zero_rows, got, want
+            del seen, zero_rows, want
             if dn == "bfloat16" and name != "masked_rows_bwd":
-                call = lambda: fa.flash_attention_bwd(  # noqa: E731
-                    q, k, v, out, lse, dout, dlse, **kw)
-                row["ms"] = cuda_ms(call)
+                row["variant"] = fa.bwd_variant_for(dtype, D, Sq * Hq // Hkv,
+                                                    Skv)
                 # three input sets, so that no replayed call finds its
                 # inputs (25 MB at the Memory-LLM's shape) in the 50 MB L2
                 sets = [(q, k, v, dout)] + [
@@ -1104,9 +1149,17 @@ def main() -> int:
                                                   **kw))
                     + ((rand(B, Sq, Hq, dtype=torch.float32)
                         if with_dlse else None),) for st in sets[1:]]
-                row["device_ms"] = device_ms(
-                    lambda q_, k_, v_, d_, o_, l_, dl_: fa.flash_attention_bwd(
-                        q_, k_, v_, o_, l_, d_, dl_, **kw), 21, bufs)
+                for vn in variants:
+                    row[f"ms_{vn}"] = cuda_ms(
+                        lambda: fa.flash_attention_bwd(
+                            q, k, v, out, lse, dout, dlse, variant=vn, **kw))
+                    row[f"device_ms_{vn}"] = device_ms(
+                        lambda q_, k_, v_, d_, o_, l_, dl_:
+                        fa.flash_attention_bwd(
+                            q_, k_, v_, o_, l_, d_, dl_, variant=vn, **kw),
+                        21, bufs)
+                row["ms"] = row[f"ms_{row['variant']}"]
+                row["device_ms"] = row[f"device_ms_{row['variant']}"]
                 del bufs
                 row["plain_ms"] = cuda_ms(lambda: plain.attention_bwd_ref(
                     q, k, v, out, lse, dout, dlse, **kw), reps=3)
@@ -1129,8 +1182,13 @@ def main() -> int:
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
                 log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
-                    f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
-                    f"ms, sdpa backward {row['library_ms']} ms (device "
+                    f"{row['device_ms']:.4f}; {row['variant']}; wgmma "
+                    f"{row['ms_wgmma']:.4f} ms, device "
+                    f"{row['device_ms_wgmma']:.4f}; mma.sync "
+                    f"{row['ms_mma_sync']:.4f} ms, device "
+                    f"{row['device_ms_mma_sync']:.4f}), plain "
+                    f"{row['plain_ms']:.4f} ms, sdpa backward "
+                    f"{row['library_ms']} ms (device "
                     f"{row['library_device_ms']}; "
                     f"{row['library_backend']}, no cap), bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -1200,7 +1258,7 @@ def main() -> int:
             mod.launches = 0
         fa.wgmma_launches = gm.wgmma_launches = gm.rows_launches = 0
         mx.wgmma_launches = ss.chunked_launches = 0
-        fa.bwd_launches = mx.bwd_launches = 0
+        fa.bwd_launches = fa.bwd_wgmma_launches = mx.bwd_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
@@ -1210,6 +1268,7 @@ def main() -> int:
         c["gmm_rows"] = gm.rows_launches
         c["ssd_chunked"] = ss.chunked_launches
         c["flash_attention_bwd"] = fa.bwd_launches
+        c["flash_attention_bwd_wgmma"] = fa.bwd_wgmma_launches
         c["memcom_xattn_bwd"] = mx.bwd_launches
         return c
 
@@ -2019,22 +2078,34 @@ def main() -> int:
         if nondet:
             log(f"{tag} ops without a deterministic implementation: {nondet}")
         L = cfg.num_layers
+        # every call of the step is bf16 at head dim 256 over m query rows
+        # of each head and m keys: all go where bwd_variant_for sends them
+        G = cfg.num_heads // cfg.num_kv_heads
+        want_wg = (3 * L - 1 if fa.bwd_variant_for(
+            torch.bfloat16, cfg.hd, m * G, m) == "wgmma" else 0)
         for i, c in enumerate(per_step):
             # the Memory-LLM's self-attention and the prompt against the
             # prefix in every layer, the prompt's self-attention in every
             # layer but the first (whose q, k, v come from the frozen
             # token embeddings alone, so autograd records no backward)
             if c["flash_attention_bwd"] != 3 * L - 1 \
+                    or c["flash_attention_bwd_wgmma"] != want_wg \
                     or c["memcom_xattn_bwd"] != L:
                 raise AssertionError(
                     f"{tag} step {i + 1}: {c['flash_attention_bwd']} flash "
                     f"backward calls (want {3 * L - 1}), "
+                    f"{c['flash_attention_bwd_wgmma']} through the wgmma "
+                    f"variant (want {want_wg}), "
                     f"{c['memcom_xattn_bwd']} memcom_xattn backward calls "
                     f"(want {L})")
             if c["memcom_xattn"] != c["memcom_xattn_wgmma"] or \
                     c["memcom_xattn"] != L:
                 raise AssertionError(f"{tag} step {i + 1}: memcom_xattn "
                                      f"forward off the wgmma variant: {c}")
+        log(f"{tag} flash backward calls a step: "
+            f"{[c['flash_attention_bwd'] for c in per_step]}, through the "
+            f"wgmma variant "
+            f"{[c['flash_attention_bwd_wgmma'] for c in per_step]}")
         if not all(np.isfinite(v) for v in losses.values()) \
                 or sorted(losses) != [1, 2, 3, 4]:
             raise AssertionError(f"{tag} losses {losses}")
@@ -2271,6 +2342,13 @@ def main() -> int:
                                    for c in paths.values()),
                 variant=head["variant"], nsplit=head["nsplit"],
                 workspace_bytes=head["workspace_bytes"],
+                **{k: head[k] for k in head
+                   if k.startswith(("ms_", "device_ms_"))})
+        if name == "flash_attention_bwd":  # the wgmma and mma.sync variants
+            entries[-1].update(
+                bwd_wgmma_launches=sum(c["flash_attention_bwd_wgmma"]
+                                       for c in paths.values()),
+                variant=head["variant"],
                 **{k: head[k] for k in head
                    if k.startswith(("ms_", "device_ms_"))})
         if name == "flash_attention":  # the wgmma variant and the mma.sync one

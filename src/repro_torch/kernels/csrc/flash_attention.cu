@@ -65,6 +65,7 @@
 
 #include "mma_sm80.cuh"
 #include "split_kv.cuh"
+#include "tile_class.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
@@ -277,58 +278,19 @@ int splits_for(int B, int Sq, int Skv, int Hq, int Hkv, int sms) {
 }
 
 
-// ---- tile classification, shared by flash_fwd_tc and flash_fwd_wgmma ----
-//
-// A KV tile is judged once against the block's query rows from four
-// numbers: the smallest and largest valid kv position in the tile (kv_pos
-// >= 0; rows past the end count as holes), its count of holes, and the
-// smallest and largest q position of the block's rows (rows past the end
-// of the problem are left out).  The tile is
-//   skipped    when it has no valid key, or, causal, its smallest valid
-//              key lies after the block's last query: no pair is visible;
-//   mask-free  when it has no hole and, causal, its largest key lies at or
-//              before the block's first query: every pair is visible;
-//   masked     otherwise (each pair is tested).
-// kernels/flash_attention.py::tile_class states the same rule for the
-// CPU tests.  The numbers come from warp reductions, not a serial scan.
-enum TileClass { kSkip = 0, kMasked = 1, kFree = 2 };
-struct Span { int lo, hi, holes; };
-struct QRange { int lo, hi; };
-
-__device__ __forceinline__ Span span_of(int p) {
-  return p >= 0 ? Span{p, p, 0} : Span{INT_MAX, INT_MIN, 1};
-}
-__device__ __forceinline__ Span merge(Span a, Span b) {
-  return Span{min(a.lo, b.lo), max(a.hi, b.hi), a.holes + b.holes};
-}
-__device__ __forceinline__ Span warp_span(Span s) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) {
-    s.lo = min(s.lo, __shfl_xor_sync(FULL, s.lo, off));
-    s.hi = max(s.hi, __shfl_xor_sync(FULL, s.hi, off));
-    s.holes += __shfl_xor_sync(FULL, s.holes, off);
-  }
-  return s;
-}
-__device__ __forceinline__ QRange qrange_of(int p, bool valid) {
-  return valid ? QRange{p, p} : QRange{INT_MAX, INT_MIN};
-}
-__device__ __forceinline__ QRange merge(QRange a, QRange b) {
-  return QRange{min(a.lo, b.lo), max(a.hi, b.hi)};
-}
-__device__ __forceinline__ QRange warp_qrange(QRange r) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) {
-    r.lo = min(r.lo, __shfl_xor_sync(FULL, r.lo, off));
-    r.hi = max(r.hi, __shfl_xor_sync(FULL, r.hi, off));
-  }
-  return r;
-}
-__device__ __forceinline__ int tile_class(Span s, QRange q, int causal) {
-  if (s.lo == INT_MAX || (causal && s.lo > q.hi)) return kSkip;
-  if (s.holes == 0 && (!causal || s.hi <= q.lo)) return kFree;
-  return kMasked;
-}
+// ---- tile classification (tile_class.cuh), shared by flash_fwd_tc and
+// flash_fwd_wgmma ----------------------------------------------------------
+using flash_tiles::kFree;
+using flash_tiles::kMasked;
+using flash_tiles::kSkip;
+using flash_tiles::merge;
+using flash_tiles::QRange;
+using flash_tiles::qrange_of;
+using flash_tiles::Span;
+using flash_tiles::span_of;
+using flash_tiles::tile_class;
+using flash_tiles::warp_qrange;
+using flash_tiles::warp_span;
 
 
 // ---- bfloat16 on the tensor cores ---------------------------------------

@@ -13,29 +13,31 @@
 // dk and dv summed over the G = Hq / Hkv query heads of each KV head.  A
 // row that sees no key (lse -1e30) has P = 0 and gets no gradient.
 //
-// What bounds it on an H100: the five products (S and dP, recomputed in
-// both passes below, dV, dK, dQ) do 2 * 5 * pairs * D flops against q, k,
-// v, out, dout and the three gradients once each; at the training shapes
-// (512 x 512 rows of 8 heads of 256) that is operations.
+// What bounds it on an H100: the five products (S and dP, recomputed for
+// dK/dV and for dQ below, dV, dK, dQ) do 2 * 5 * pairs * D flops against
+// q, k, v, out, dout and the three gradients once each; at the training
+// shapes (512 x 512 rows of 8 heads of 256) the bytes and the operations
+// bound it within a factor of 1.5 of each other.  The wgmma variant runs
+// ~9x that bound there: a tile's loads, products and exp run one after
+// another (PERF.md section 6).
 //
 // Design: deterministic, no float atomics, so that a restarted run on the
-// card reproduces its loss curve bit for bit.  Three launches:
-// * flash_bwd_dot: D_i, one warp a row.
-// * dK and dV: one block per (KV tile, KV head, batch) keeps its K and V
-//   tile in shared memory and walks the query rows of every head of its
-//   group (the forward's GQA fold: row rho = s * G + g is query s of head
-//   hk * G + g); per query tile it recomputes S, the cap and P from the
-//   saved lse, forms dP and dS, and adds P^T dO and dS^T Q into dV and dK
-//   held in registers.  Tiles with no visible pair (the causal upper
-//   triangle, holes) are skipped whole.
-// * dQ: one block per (tile of query rows, KV head, batch) keeps its Q and
-//   dO rows and walks the KV tiles, adding dS K into dQ.
-// Two variants of the two gradient kernels:
-// * bf16 at D = 64, 128, 256 (every bf16 call: the forward takes no other
-//   head dim): flash_bwd_dkdv_tc / flash_bwd_dq_tc, 64 x 64 tiles, all
-//   five products on mma.sync m16n8k16 with f32 accumulate (their own
-//   note below); P and dS rounded to bf16 for the second product, as the
-//   forward rounds P.
+// card reproduces its loss curve bit for bit.  D_i first (flash_bwd_dot,
+// one warp a row); then dK/dV from blocks that each own a KV tile and walk
+// the query rows of every head of its group (the forward's GQA fold: row
+// rho = s * G + g is query s of head hk * G + g), and dQ from blocks that
+// each own a tile of query rows and walk the KV tiles; tiles with no
+// visible pair (the causal upper triangle, holes) are skipped whole.
+// Three variants:
+// * flash_bwd_wgmma (bf16 at D = 64, 128, 256; kernels/flash_attention.py
+//   ::bwd_variant_for sends it the bf16 calls): all five products on
+//   wgmma, the streamed tiles through a cp.async ring, both kinds of block
+//   in one launch, heaviest first (its own note below).  Two launches.
+// * flash_bwd_dkdv_tc / flash_bwd_dq_tc (bf16 at D = 64, 128, 256):
+//   64 x 64 tiles, all five products on mma.sync m16n8k16 with f32
+//   accumulate (their own note below), synchronous loads.  Three launches.
+// Both round P and dS to bf16 for the second product, as the forward
+// rounds P.
 // * float32: flash_bwd_dkdv / flash_bwd_dq on the CUDA cores, 32 x 32 tiles staged in float32 shared memory (at D =
 //   256 the K, V, Q and dO tiles are 4 x 32 x 260 floats, 133 KB: dynamic
 //   shared memory); a thread owns one row and every eighth group of four
@@ -49,6 +51,8 @@
 #include <cstdint>
 
 #include "mma_sm80.cuh"
+#include "tile_class.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -74,11 +78,16 @@ __device__ __forceinline__ void fma4(float4& acc, float s, float4 x) {
 }
 
 // D_i = rowsum(dO o O) - dlse_i over rows (B*Sq*Hq) of D; dlse may be null.
+// Also zeroes the ncnt merge counters of flash_bwd_wgmma (cnt may be null).
 template <typename T>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dot(const T* __restrict__ out, const T* __restrict__ dout,
               const float* __restrict__ dlse, float* __restrict__ di,
-              long long rows, int D) {
+              long long rows, int D, int* __restrict__ cnt = nullptr,
+              int ncnt = 0) {
+  for (long long i = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
+       i < ncnt; i += static_cast<long long>(gridDim.x) * NT)
+    cnt[i] = 0;
   const long long row = static_cast<long long>(blockIdx.x) * (NT / 32)
                         + threadIdx.x / 32;
   if (row >= rows) return;  // the whole warp leaves together
@@ -701,6 +710,654 @@ int run_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
   return cudaGetLastError();
 }
 
+// ---- bf16 on wgmma: flash_bwd_wgmma ---------------------------------------
+//
+// One launch computes every gradient tile (after flash_bwd_dot's D_i): its
+// grid holds two kinds of block, each pinning one 64-row tile pair in
+// shared memory and streaming the other side's 64-row tiles through a
+// cp.async ring (STAGES stages, 128B-swizzled, zero-filled past the end;
+// the load of tile i + STAGES - 1 is in flight while tile i is
+// multiplied), one barrier a tile:
+// * a KV block (64 kv rows of one KV head) pins K and V and streams the
+//   group's Q and dO tiles (64 rows of the G-fold rho = s * G + g) with
+//   their q positions, lse and D_i.  Per tile: S^T = K Q^T and dP^T = V
+//   dO^T (wgmma, both operands K-major in shared memory, HD/16 k-steps),
+//   then on the accumulators P^T = exp(s - lse) (s capped) and dS^T =
+//   P^T o (dP^T - D) o (1 - (s/cap)^2), rounded to bf16 as the A operand
+//   of dV += P^T dO and dK += dS^T Q (the dO and Q tiles read MN-major:
+//   the forward's O += P V).
+// * a Q block (64 query rows of the G-fold) pins Q and dO and streams the
+//   K and V tiles with their kv positions: S = Q K^T, dP = dO V^T, dS in
+//   registers, dQ += dS K (K read MN-major).
+// Both kinds are the same code with the roles of rows and columns swapped
+// (bwd_walk<HD, KV>).  Every streamed tile is classified once before the
+// walk (tile_class.cuh: skipped tiles are neither loaded nor multiplied,
+// mask-free ones read no positions).  Accumulators stay in registers and
+// each block writes its own rows once: no atomics, deterministic.
+// At HD 64 and 128 one warpgroup owns the block: S and dP are m64n64k16,
+// and P and dS pass to the gradient products in registers.  At HD 256 a
+// warpgroup cannot hold dK and dV over 256 columns (256 floats a thread),
+// so two share a block's 64 pinned rows: each owns half the gradients'
+// columns and computes S and dP for half the tile's columns (m64n32k16),
+// the exp on its S while its dP runs, and the two hand their halves of P
+// and dS to each other in shared memory (a second barrier a tile).
+// Where the heaviest KV block would outlast the card's mean load (the
+// Memory-LLM's first KV tile walks all 16 query tiles, twice the mean),
+// each KV tile's walk over the query tiles is split between two blocks:
+// each sums its half into float32 registers and writes it to a
+// workspace; an integer counter (zeroed by flash_bwd_dot) tells the
+// second to finish, which adds the other's half to its own and stores the
+// tile.  Two float32 terms add the same either way round, so the result
+// does not depend on which finishes first.  Where the load is even (a
+// prompt against its prefix, the 3072-token source) the halves' merge
+// costs more than it saves (measured, PERF.md section 6), so the host
+// splits only when the heaviest KV block weighs more than 3/2 of the mean
+// load of a block slot (SMs x resident blocks).
+// The grid's blocks run heaviest first by a shape-only estimate (BwPlan,
+// restated by kernels/flash_attention.py::bwd_plan): KV_COST x (its share
+// of the visible query tiles, the larger half) for a KV block, Q_COST x
+// (visible KV tiles) for a Q block, as if q positions end-aligned with the
+// kv positions (q s at s + Skv - Sq); merged in descending weight (ties:
+// KV blocks first); within a slot, KV heads then batches.
+constexpr int WB = 64;          // rows of every tile
+constexpr int BW_MAXT = 1024;   // streamed tiles a block may walk
+constexpr int KV_COST = 4;      // products a KV block runs per tile
+constexpr int Q_COST = 3;       // ... and a Q block
+// split KV walks when the heaviest one weighs more than SPLIT_NUM /
+// SPLIT_DEN of a block slot's mean load
+constexpr int SPLIT_NUM = 3, SPLIT_DEN = 2;
+
+// blocks of flash_bwd_wgmma<D> resident on an SM (shared memory and
+// registers allow no more)
+__host__ __device__ constexpr int blocks_per_sm(int D) {
+  return D == 64 ? 3 : D == 128 ? 2 : 1;
+}
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct BwCfg {
+  static constexpr int NWG = HD == 256 ? 2 : 1;     // warpgroups a block
+  static constexpr int NT = 128 * NWG;
+  static constexpr int MINB = blocks_per_sm(HD);
+  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static constexpr int OWN = HD / 64 / NWG;   // 64-column gradient chunks
+  static constexpr int NS = WB / NWG;         // S / dP columns, a group's
+  static constexpr int TILE = WB * HD * 2;          // bytes of a 64-row tile
+  static constexpr int FACTS = 1024;                // a stage's row facts
+  static constexpr int STAGE = 2 * TILE + FACTS;
+  static constexpr int HAND = NWG > 1 ? 2 * WB * WB * 2 : 0;  // P and dS, bf16
+  static constexpr size_t SMEM =
+      1024 + 2 * TILE + STAGES * STAGE + HAND + BW_MAXT;
+};
+
+// S (S^T) or dP (dP^T) of a group's NS columns: m64n64k16 or m64n32k16
+template <int N>
+__device__ __forceinline__ void mma_first(float (&d)[N / 2], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  if constexpr (N == 64) wgmma_sm90::mma_ss<0>(d, da, db, accumulate);
+  else wgmma_sm90::mma_ss32<0>(d, da, db, accumulate);
+}
+
+// tanh from one ex2 and one division, within ~1e-7 of it (tanh.approx's
+// 2^-11 relative error would move the cap factor 1 - tanh^2 by 1e-3
+// where |tanh| is near 1)
+__device__ __forceinline__ float tanh_ex2(float x) {
+  const float e = wgmma_sm90::ex2(fminf(2.f * LOG2E * fabsf(x), 126.f));
+  return copysignf(1.f - __fdividef(2.f, e + 1.f), x);
+}
+
+// The launch order of the grid (see above); __host__ too, for the host's
+// block count.  A slot is one tile of either kind over all KV heads and
+// batches.
+struct BwPlan {
+  int nq, nkv, rows, G, off, causal, with_q, split;  // split: 1 or 2
+
+  // the last end-aligned position of q tile u
+  __host__ __device__ int p_hi(int u) const {
+    const int last = WB * u + WB - 1;
+    return (last < rows - 1 ? last : rows - 1) / G + off;
+  }
+  // the first q tile whose last position reaches x (nq: none)
+  __host__ __device__ int first_u(int x) const {
+    const long long need = static_cast<long long>(G) * (x - off);
+    if (need > rows - 1) return nq;
+    const long long a = need - (WB - 1);
+    return a <= 0 ? 0 : static_cast<int>((a + WB - 1) / WB);
+  }
+  __host__ __device__ int vis_kv(int t) const {
+    return causal ? nq - first_u(WB * t) : nq;
+  }
+  __host__ __device__ int vis_q(int u) const {
+    if (!causal) return nkv;
+    const int p = p_hi(u);
+    return p < 0 ? 0 : (p / WB + 1 < nkv ? p / WB + 1 : nkv);
+  }
+  // q tiles heavier than weight w
+  __host__ __device__ int q_above(int w) const {
+    const int v = w / Q_COST;  // Q_COST * vis_q(u) > w: vis_q(u) >= v + 1
+    if (v + 1 > nkv) return 0;
+    return causal ? nq - first_u(WB * v) : nq;
+  }
+  // KV block k is part k % split of KV tile k / split
+  __host__ __device__ int kv_blocks() const { return nkv * split; }
+  __host__ __device__ int kv_slot(int k) const {
+    const int vis = vis_kv(k / split);
+    return k + q_above(KV_COST * ((vis + split - 1) / split));
+  }
+  // the first query tile of part 1 of KV tile t: part 0 takes the larger
+  // half of the visible tiles
+  __host__ __device__ int mid(int t) const { return nq - vis_kv(t) / 2; }
+  __host__ __device__ int slots() const {
+    return kv_blocks() + (with_q ? nq : 0);
+  }
+  // slot i -> KV block (kv = true) or q tile
+  __host__ __device__ void slot(int i, bool& kv, int& tile) const {
+    if (!with_q) {
+      kv = true;
+      tile = i;
+      return;
+    }
+    int lo = 0, hi = kv_blocks();  // lo: the KV blocks in slots <= i
+    while (lo < hi) {
+      const int m = (lo + hi) / 2;
+      if (kv_slot(m) <= i) lo = m + 1;
+      else hi = m;
+    }
+    kv = lo > 0 && kv_slot(lo - 1) == i;
+    tile = kv ? lo - 1 : nq - 1 - (i - lo);
+  }
+};
+
+// The plan of a call on a card of `sms` SMs: split KV walks in two when
+// the heaviest KV block (KV tile 0's) weighs more than SPLIT_NUM /
+// SPLIT_DEN of the total weight over the block slots.
+BwPlan bw_plan(int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
+               bool with_q, int sms) {
+  const int G = Hq / Hkv, nq = (Sq * G + WB - 1) / WB;
+  BwPlan p{nq, (Skv + WB - 1) / WB, Sq * G, G, Skv - Sq, causal, with_q, 1};
+  long long total = 0;
+  for (int t = 0; t < p.nkv; ++t) total += KV_COST * p.vis_kv(t);
+  for (int u = 0; with_q && u < nq; ++u) total += Q_COST * p.vis_q(u);
+  const long long heavy = KV_COST * p.vis_kv(0);
+  const long long slots = static_cast<long long>(sms) * blocks_per_sm(D);
+  if (nq >= 2 && SPLIT_DEN * heavy * slots
+                     > SPLIT_NUM * total * Hkv * static_cast<long long>(B))
+    p.split = 2;
+  return p;
+}
+
+template <int HD, bool KV>
+__device__ __forceinline__ void bwd_walk(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int Sq, int Skv, int Hq, int Hkv, float scale, float softcap,
+    int causal, int tile, int lo, int hi, int hk, int b, float* __restrict__ ws,
+    int* __restrict__ cnt, int merge_id, int part, unsigned char* smem_raw) {
+  namespace wg = wgmma_sm90;
+  using namespace flash_tiles;
+  using C = BwCfg<HD>;
+  constexpr int NT = C::NT, STAGES = C::STAGES, OWN = C::OWN;
+  constexpr int P8 = HD / 8;  // 16-byte pieces of a row
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t sP0 = base, sP1 = base + C::TILE;  // the pinned pair
+  const uint32_t sRing = base + 2 * C::TILE;
+  // two groups: P (P^T) and dS (dS^T) handed over in the A layout
+  const uint32_t sPX = sRing + STAGES * C::STAGE, sDX = sPX + WB * WB * 2;
+  unsigned char* cls = sm + 2 * C::TILE + STAGES * C::STAGE + C::HAND;
+
+  const int G = Hq / Hkv, rows = Sq * G;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = tid / 128;                       // this thread's warpgroup
+  const int r_lo = (warp % 4) * 16 + lane / 4;     // its rows: r_lo, r_lo + 8
+  const int* kvb = kv_pos + static_cast<size_t>(b) * Skv;
+  const int* qpb = q_pos + static_cast<size_t>(b) * Sq;
+  const int row0 = tile * WB;                      // first pinned row
+  const int n_pin = KV ? Skv : rows, n_str = KV ? rows : Skv;
+  // streamed tiles [lo, hi) of the (n_str + WB - 1) / WB
+  // element row of folded q row rho, or of kv row j
+  const auto qrow = [&](int rho) {
+    return (static_cast<size_t>(b) * Sq + rho / G) * Hq + hk * G + rho % G;
+  };
+  const auto kvrow = [&](int j) {
+    return (static_cast<size_t>(b) * Skv + j) * Hkv + hk;
+  };
+  const auto row_of = [&](bool kv_side, int x) {
+    return kv_side ? kvrow(x) : qrow(x);
+  };
+
+  // the pinned pair (K, V) or (Q, dO); joins the first tile's group
+  {
+    const bf16* s0 = KV ? k : q;
+    const bf16* s1 = KV ? v : dout;
+#pragma unroll
+    for (int i = 0; i < WB * P8 / NT; ++i) {
+      const int e = tid + NT * i;
+      const int r = e / P8, pc = e % P8;
+      const bool ok = row0 + r < n_pin;
+      const size_t off = ok ? row_of(KV, row0 + r) * HD + pc * 8 : 0;
+      const uint32_t o = (pc / 8) * (WB * 128) + wg::sw128(r, pc % 8);
+      wg::cp_async16(sP0 + o, s0 + off, ok);
+      wg::cp_async16(sP1 + o, s1 + off, ok);
+    }
+  }
+
+  // classify every streamed tile against the pinned rows: warp w takes
+  // tiles w, w + NT/32, ..., four at a time
+  Span pin_span{INT_MAX, INT_MIN, 0};
+  QRange pin_q{INT_MAX, INT_MIN};
+  {
+    const int x0 = row0 + lane, x1 = x0 + 32;
+    if (KV)
+      pin_span = warp_span(merge(span_of(x0 < Skv ? kvb[x0] : -1),
+                                 span_of(x1 < Skv ? kvb[x1] : -1)));
+    else
+      pin_q = warp_qrange(merge(
+          qrange_of(x0 < rows ? qpb[x0 / G] : 0, x0 < rows),
+          qrange_of(x1 < rows ? qpb[x1 / G] : 0, x1 < rows)));
+  }
+  for (int t0 = lo + warp; t0 < hi; t0 += NT / 8) {
+    int p[4][2];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = (t0 + u * NT / 32) * WB + lane + 32 * h;
+        p[u][h] = x < n_str ? (KV ? qpb[x / G] : kvb[x]) : -1;
+      }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int t = t0 + u * NT / 32;
+      int c;
+      if (KV) {
+        const int x = t * WB + lane;
+        const QRange r = warp_qrange(merge(qrange_of(p[u][0], x < rows),
+                                           qrange_of(p[u][1], x + 32 < rows)));
+        c = tile_class(pin_span, r, causal);
+      } else {
+        c = tile_class(warp_span(merge(span_of(p[u][0]), span_of(p[u][1]))),
+                       pin_q, causal);
+      }
+      if (lane == 0 && t < hi) cls[t] = static_cast<unsigned char>(c);
+    }
+  }
+
+  // this thread's pinned rows: KV, their kv positions; Q, their q
+  // positions, lse in base 2 and D_i (rows past the end: no P)
+  int my_pos[2];
+  float my_l2[2] = {0.f, 0.f}, my_d[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int x = row0 + r_lo + 8 * h;
+    if (KV) {
+      my_pos[h] = x < Skv ? kvb[x] : -1;
+    } else if (x < rows) {
+      const size_t o = qrow(x);
+      my_pos[h] = qpb[x / G];
+      my_l2[h] = lse[o] * LOG2E;
+      my_d[h] = di[o];
+    } else {
+      my_pos[h] = INT_MIN;
+      my_l2[h] = NO_ROW * LOG2E;
+    }
+  }
+  __syncthreads();  // cls
+
+  const auto next_tile = [&](int t) {
+    while (t < hi && cls[t] == kSkip) ++t;
+    return t;
+  };
+  // streamed tile t into `stage`: (Q, dO) and per row q position, lse and
+  // D_i (KV blocks), or (K, V) and kv positions (Q blocks)
+  const auto issue = [&](int stage, int t) {
+    const uint32_t s0 = sRing + stage * C::STAGE, s1 = s0 + C::TILE;
+    const uint32_t sf = s1 + C::TILE;
+    const bf16* g0 = KV ? q : k;
+    const bf16* g1 = KV ? dout : v;
+    const int x0 = t * WB;
+#pragma unroll
+    for (int i = 0; i < WB * P8 / NT; ++i) {
+      const int e = tid + NT * i;
+      const int r = e / P8, pc = e % P8;
+      const bool ok = x0 + r < n_str;
+      const size_t off = ok ? row_of(!KV, x0 + r) * HD + pc * 8 : 0;
+      const uint32_t o = (pc / 8) * (WB * 128) + wg::sw128(r, pc % 8);
+      wg::cp_async16(s0 + o, g0 + off, ok);
+      wg::cp_async16(s1 + o, g1 + off, ok);
+    }
+    if (tid < WB) {
+      const int x = x0 + tid;
+      int* fp = reinterpret_cast<int*>(sm + (sf - base));
+      if (KV) {
+        float* fl = reinterpret_cast<float*>(fp + WB);
+        if (x < rows) {
+          const size_t o = qrow(x);
+          wg::cp_async4(sf + 4 * tid, qpb + x / G);
+          wg::cp_async4(sf + 4 * (WB + tid), lse + o);
+          wg::cp_async4(sf + 4 * (2 * WB + tid), di + o);
+        } else {
+          fp[tid] = INT_MIN;
+          fl[tid] = NO_ROW;
+          fl[WB + tid] = 0.f;
+        }
+      } else if (x < Skv) {
+        wg::cp_async4(sf + 4 * tid, kvb + x);
+      } else {
+        fp[tid] = -1;
+      }
+    }
+  };
+
+  int nxt = next_tile(lo);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (nxt < hi) {
+      issue(s, nxt);
+      nxt = next_tile(nxt + 1);
+    }
+    wg::cp_async_commit();
+  }
+
+  // dK (KV) or dQ; dV (KV only): this group's OWN 64-column chunks
+  float ga[OWN][32], gv[OWN][32];
+#pragma unroll
+  for (int c = 0; c < OWN; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) ga[c][j] = gv[c][j] = 0.f;
+  const bool capped = softcap != 0.f;
+  const float inv_cap = capped ? scale / softcap : 0.f;
+
+  int i = 0;
+  for (int cur = next_tile(lo); cur < hi; cur = next_tile(cur + 1), ++i) {
+    wg::cp_async_wait<STAGES - 2>();  // tile cur has landed (this thread's)
+    wg::fence_proxy_async();
+    // ... and every thread's; every group is also done with tile i - 1,
+    // whose stage the next load overwrites
+    __syncthreads();
+    if (nxt < hi) {
+      issue((i + STAGES - 1) % STAGES, nxt);
+      nxt = next_tile(nxt + 1);
+    }
+    wg::cp_async_commit();
+    const uint32_t s0 = sRing + (i % STAGES) * C::STAGE, s1 = s0 + C::TILE;
+    const int* fp = reinterpret_cast<const int*>(sm + (s1 + C::TILE - base));
+    const float* fl = reinterpret_cast<const float*>(fp + WB);
+    const float* fd = fl + WB;
+
+    // S (S^T) and dP (dP^T): the pinned rows against this group's NS
+    // rows of the streamed tile.  Two groups a block: S and dP as two
+    // groups of products, the exp on S while dP runs, P and dS handed over
+    // in shared memory.  One group: one group of products, P and dS into
+    // the A fragments in registers (the overlap measured no faster there,
+    // PERF.md section 6).
+    constexpr int NS = C::NS, NE = NS / 2;  // elements a thread holds
+    constexpr bool TWO = C::NWG > 1;
+    float x[NE], y[NE];
+#pragma unroll
+    for (int j = 0; j < NE; ++j) x[j] = y[j] = 0.f;
+    const uint32_t so = grp * NS * 128;
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      const uint32_t ko = (ks / 4) * (WB * 128) + (ks % 4) * 32;
+      mma_first<NS>(x, wg::desc(sP0 + ko, 16, 1024),
+                    wg::desc(s0 + ko + so, 16, 1024), ks > 0);
+      if constexpr (!TWO)
+        mma_first<NS>(y, wg::desc(sP1 + ko, 16, 1024),
+                      wg::desc(s1 + ko + so, 16, 1024), ks > 0);
+    }
+    if constexpr (TWO) {
+      wg::commit();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t ko = (ks / 4) * (WB * 128) + (ks % 4) * 32;
+        mma_first<NS>(y, wg::desc(sP1 + ko, 16, 1024),
+                      wg::desc(s1 + ko + so, 16, 1024), ks > 0);
+      }
+    }
+    wg::commit();
+
+    // element j is (row r_lo + 8 ((j/2) % 2), column grp NS + 8 (j/4) +
+    // 2 (lane % 4) + j % 2) of the tile; pairs (j, j + 1) are adjacent
+    // columns, one bf16x2 of the next product's A operand
+    const auto col = [&](int j) {
+      return grp * NS + 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
+    };
+    const auto hand = [&](uint32_t mat, int j) {  // shared address of pair j
+      const int r = r_lo + 8 * ((j / 2) % 2), c = col(j);
+      return mat + wg::sw128(r, c / 8) + (c % 8) * 2;
+    };
+    const bool masked = cls[cur] == kMasked;
+    // P of element j from S in x[j], and its cap factor f
+    const auto p_of = [&](int j, float& f) {
+      const int h = (j / 2) % 2, c = col(j);
+      const float l2 = KV ? fl[c] * LOG2E : my_l2[h];
+      float s = x[j] * scale;
+      f = 1.f;
+      if (capped) {
+        const float th = tanh_ex2(x[j] * inv_cap);
+        s = softcap * th;
+        f = 1.f - th * th;
+      }
+      float p = wg::ex2(fmaf(s, LOG2E, -l2));
+      if (masked) {
+        const int kp = KV ? my_pos[h] : fp[c];
+        const int qp = KV ? fp[c] : my_pos[h];
+        if (kp < 0 || (causal && kp > qp)) p = 0.f;
+      }
+      return p;
+    };
+    const auto d_of = [&](int j) {  // D_i of element j's query row
+      return KV ? fd[col(j)] : my_d[(j / 2) % 2];
+    };
+    uint32_t ap[WB / 16][4], as[WB / 16][4];  // one group: A from registers
+    if constexpr (TWO) {
+      wg::wait<1>();  // S has landed; dP is in flight
+      wg::reg_fence(x);
+#pragma unroll
+      for (int j = 0; j < NE; j += 2) {
+        float f0, f1;
+        const float p0 = p_of(j, f0), p1 = p_of(j + 1, f1);
+        if (KV)
+          *reinterpret_cast<uint32_t*>(sm + (hand(sPX, j) - base)) =
+              wg::pack_bf16(p0, p1);
+        x[j] = p0 * f0;  // dS = (P o f) o (dP - D)
+        x[j + 1] = p1 * f1;
+      }
+      wg::wait<0>();
+      wg::reg_fence(y);
+#pragma unroll
+      for (int j = 0; j < NE; j += 2)
+        *reinterpret_cast<uint32_t*>(sm + (hand(sDX, j) - base)) =
+            wg::pack_bf16(x[j] * (y[j] - d_of(j)),
+                          x[j + 1] * (y[j + 1] - d_of(j + 1)));
+      wg::fence_proxy_async();
+      __syncthreads();  // both groups' halves of P and dS
+    } else {
+      wg::wait<0>();
+      wg::reg_fence(x);
+      wg::reg_fence(y);
+#pragma unroll
+      for (int j = 0; j < NE; ++j) {
+        float f;
+        const float p = p_of(j, f);
+        x[j] = p;
+        y[j] = p * (y[j] - d_of(j)) * f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < WB / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ap[kk][r] = wg::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+          as[kk][r] = wg::pack_bf16(y[8 * kk + 2 * r], y[8 * kk + 2 * r + 1]);
+        }
+    }
+
+    // dK += dS^T Q and dV += P^T dO, or dQ += dS K: the streamed tile's
+    // rows are the contraction, read MN-major; A from registers (one
+    // group) or from the handed-over P and dS
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < WB / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < OWN; ++c) {
+        const uint32_t bo = (grp * OWN + c) * (WB * 128) + kk * 2048;
+        const uint64_t b0 = wg::desc(s0 + bo, WB * 128, 1024);
+        const uint64_t b1 = wg::desc(s1 + bo, WB * 128, 1024);
+        if constexpr (C::NWG == 1) {
+          wg::mma_rs<1>(ga[c], as[kk], b0, 1);
+          if (KV) wg::mma_rs<1>(gv[c], ap[kk], b1, 1);
+        } else {
+          wg::mma_ss<1>(ga[c], wg::desc(sDX + kk * 32, 16, 1024), b0, 1);
+          if (KV)
+            wg::mma_ss<1>(gv[c], wg::desc(sPX + kk * 32, 16, 1024), b1, 1);
+        }
+      }
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int c = 0; c < OWN; ++c) {
+      wg::reg_fence(ga[c]);
+      if (KV) wg::reg_fence(gv[c]);
+    }
+    if constexpr (C::NWG == 1)
+#pragma unroll
+      for (int kk = 0; kk < WB / 16; ++kk) {
+        wg::reg_fence(ap[kk]);
+        wg::reg_fence(as[kk]);
+      }
+  }
+  wg::cp_async_wait<0>();  // no copy outlives the block
+
+  if (KV && ws != nullptr) {  // one half of the tile's walk: merge
+    constexpr int NA = 2 * OWN * 32;  // accumulators a thread holds
+    float* mine = ws + static_cast<size_t>(2 * merge_id + part) * NA * NT;
+    const float* other =
+        ws + static_cast<size_t>(2 * merge_id + 1 - part) * NA * NT;
+#pragma unroll
+    for (int c = 0; c < OWN; ++c)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        mine[(c * 32 + j) * NT + tid] = ga[c][j];
+        mine[((OWN + c) * 32 + j) * NT + tid] = gv[c][j];
+      }
+    __threadfence();
+    __syncthreads();
+    __shared__ int first;
+    if (tid == 0) first = atomicAdd(cnt + merge_id, 1) == 0;
+    __syncthreads();
+    if (first) return;  // the other half stores the tile
+    __threadfence();
+#pragma unroll
+    for (int c = 0; c < OWN; ++c)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        ga[c][j] += __ldcg(other + (c * 32 + j) * NT + tid);
+        gv[c][j] += __ldcg(other + ((OWN + c) * 32 + j) * NT + tid);
+      }
+  }
+
+  // every pinned row is written, also one whose tiles were all skipped
+#pragma unroll
+  for (int c = 0; c < OWN; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) ga[c][j] *= scale;
+  bf16* out_a = KV ? dk : dq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int x = row0 + r_lo + 8 * h;
+    const bool ok = x < n_pin;
+    const size_t ro = ok ? row_of(KV, x) * HD : 0;
+#pragma unroll
+    for (int c = 0; c < OWN; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const size_t at = ro + (grp * OWN + c) * 64 + 8 * (4 * jj + lane % 4);
+        const uint4 pa = wg::row8_bf16(ga[c], h, jj, lane);  // every lane
+        if (ok) *reinterpret_cast<uint4*>(out_a + at) = pa;
+        if (KV) {
+          const uint4 pv = wg::row8_bf16(gv[c], h, jj, lane);
+          if (ok) *reinterpret_cast<uint4*>(dv + at) = pv;
+        }
+      }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BwCfg<HD>::NT, BwCfg<HD>::MINB)
+flash_bwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ di,
+                const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+                bf16* __restrict__ dq, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, float* __restrict__ ws,
+                int* __restrict__ cnt, int B, int Sq, int Skv, int Hq,
+                int Hkv, float scale, float softcap, int causal, BwPlan plan) {
+  extern __shared__ unsigned char smem_bw[];
+  const int per = Hkv * B;  // blocks of one slot
+  const int hk = static_cast<int>(blockIdx.x % per) % Hkv;
+  const int b = static_cast<int>(blockIdx.x % per) / Hkv;
+  bool kv;
+  int tile;
+  plan.slot(static_cast<int>(blockIdx.x / per), kv, tile);
+  if (kv) {
+    const int t = tile / plan.split, part = tile % plan.split;
+    const int m = plan.split > 1 ? plan.mid(t) : plan.nq;
+    bwd_walk<HD, true>(q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, Sq,
+                       Skv, Hq, Hkv, scale, softcap, causal, t,
+                       part ? m : 0, part ? plan.nq : m, hk, b,
+                       plan.split > 1 ? ws : nullptr, cnt,
+                       (b * Hkv + hk) * plan.nkv + t, part, smem_bw);
+  } else {
+    bwd_walk<HD, false>(q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, Sq,
+                        Skv, Hq, Hkv, scale, softcap, causal, tile, 0,
+                        plan.nkv, hk, b, nullptr, nullptr, 0, 0, smem_bw);
+  }
+}
+
+// flash_bwd_wgmma's workspace in bytes: each split KV tile's two float32
+// halves of dK and dV, then one int counter a KV tile.
+long long wgmma_workspace(const BwPlan& plan, int B, int Hkv, int D) {
+  const long long tiles = static_cast<long long>(plan.nkv) * Hkv * B;
+  return tiles * ((plan.split > 1 ? 2LL * 2 * WB * D * 4 : 0) + 4);
+}
+
+template <int HD>
+int run_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
+              const bf16* dout, const float* lse, const float* dlse,
+              const int* q_pos, const int* kv_pos, bf16* dq, bf16* dk,
+              bf16* dv, float* di, float* ws, int B, int Sq, int Skv, int Hq,
+              int Hkv, float scale, float softcap, int causal, int sms,
+              cudaStream_t st) {
+  using C = BwCfg<HD>;
+  const BwPlan plan =
+      bw_plan(B, Sq, Skv, Hq, Hkv, HD, causal, dq != nullptr, sms);
+  if (plan.nq > BW_MAXT || plan.nkv > BW_MAXT) return cudaErrorInvalidValue;
+  const long long blocks = static_cast<long long>(plan.slots()) * Hkv * B;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const long long rows = static_cast<long long>(B) * Sq * Hq;
+  const int ncnt = plan.nkv * Hkv * B;
+  int* cnt = reinterpret_cast<int*>(
+      reinterpret_cast<char*>(ws)
+      + wgmma_workspace(plan, B, Hkv, HD) - 4LL * ncnt);
+  flash_bwd_dot<bf16><<<static_cast<unsigned>((rows + NT / 32 - 1) / (NT / 32)),
+                        NT, 0, st>>>(out, dout, dlse, di, rows, HD, cnt, ncnt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  static unsigned ready = 0;
+  int dev;
+  err = wgmma_sm90::with_smem(flash_bwd_wgmma<HD>, C::SMEM, ready, &dev);
+  if (err != cudaSuccess) return err;
+  flash_bwd_wgmma<HD><<<static_cast<unsigned>(blocks), C::NT, C::SMEM, st>>>(
+      q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, ws, cnt, B, Sq, Skv,
+      Hq, Hkv, scale, softcap, causal, plan);
+  return cudaGetLastError();
+}
+
 template <int NC>
 int run(const float* q, const float* k, const float* v, const float* out,
         const float* dout, const float* lse, const float* dlse,
@@ -792,4 +1449,69 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
 #undef FLASH_BWD_TC
   }
   return cudaErrorInvalidValue;
+}
+
+// The bytes of the workspace flash_attention_bwd_wgmma takes for a call
+// (with_q: dq wanted) on a card of `sms` SMs.
+extern "C" long long flash_attention_bwd_wgmma_workspace(
+    int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int with_q,
+    int sms) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv || sms <= 0)
+    return 0;
+  return wgmma_workspace(
+      bw_plan(B, Sq, Skv, Hq, Hkv, D, causal, with_q, sms), B, Hkv, D);
+}
+
+// The wgmma variant (flash_bwd_wgmma): bfloat16 at D = 64, 128 or 256, at
+// most 1024 64-row tiles of folded query rows (Sq * Hq / Hkv) and of kv
+// rows; arguments as flash_attention_bwd's, sms the card's SM count and
+// ws a 16-byte aligned workspace of flash_attention_bwd_wgmma_workspace
+// bytes.  dq null: the KV blocks alone.  Returns a cudaError_t (0 =
+// launched).
+extern "C" int flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, const float* dlse, const int* q_pos,
+    const int* kv_pos, void* dq, void* dk, void* dv, float* di, void* ws,
+    int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+    float softcap, int causal, int sms, void* stream) {
+  if (B < 0 || Sq < 0 || Skv < 0 || Hkv <= 0 || Hq % Hkv || ws == nullptr
+      || sms <= 0)
+    return cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0 || Skv == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+  const auto m = [](void* p) { return static_cast<bf16*>(p); };
+#define FLASH_BWD_WG(HD)                                                      \
+  return run_wgmma<HD>(c(q), c(k), c(v), c(out), c(dout), lse, dlse, q_pos,  \
+                       kv_pos, m(dq), m(dk), m(dv), di,                      \
+                       static_cast<float*>(ws), B, Sq, Skv, Hq, Hkv, scale,  \
+                       softcap, causal, sms, st)
+  if (D == 64) FLASH_BWD_WG(64);
+  if (D == 128) FLASH_BWD_WG(128);
+  if (D == 256) FLASH_BWD_WG(256);
+#undef FLASH_BWD_WG
+  return cudaErrorInvalidValue;
+}
+
+// flash_bwd_wgmma's block order, from the host's copy of its plan for a
+// call on a card of `sms` SMs: for each slot (a block of either kind over
+// every KV head and batch) in launch order, kind (1: KV, 0: query), tile
+// and part (of a KV tile's walk; 0 for a query tile) into out[3 i],
+// out[3 i + 1], out[3 i + 2] (out holds 3 (2 nkv + nq) ints).  Returns the
+// slot count (0 for shapes the kernel does not take).
+extern "C" int flash_bwd_wgmma_slots(int B, int Sq, int Skv, int Hq, int Hkv,
+                                     int D, int causal, int with_q, int sms,
+                                     int* out) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv || sms <= 0)
+    return 0;
+  const BwPlan plan = bw_plan(B, Sq, Skv, Hq, Hkv, D, causal, with_q, sms);
+  for (int i = 0; i < plan.slots(); ++i) {
+    bool kv;
+    int k;
+    plan.slot(i, kv, k);
+    out[3 * i] = kv ? 1 : 0;
+    out[3 * i + 1] = kv ? k / plan.split : k;
+    out[3 * i + 2] = kv ? k % plan.split : 0;
+  }
+  return plan.slots();
 }

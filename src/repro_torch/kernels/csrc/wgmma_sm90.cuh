@@ -1,8 +1,8 @@
 // Warpgroup tensor-core helpers for Hopper (sm_90a), shared by the kernels
 // under csrc/: shared-memory matrix descriptors for the 128-byte swizzle,
 // the bf16 wgmma.mma_async m64n64k16 with f32 accumulate (A from shared
-// memory or from registers) and its m64n128k16 / m64n256k16 forms (A from
-// shared memory), the fences and group waits around
+// memory or from registers) and its m64n32k16 / m64n128k16 / m64n256k16
+// forms (A from shared memory), the fences and group waits around
 // them, cp.async into the swizzled layout, the slab ring of the persistent
 // wgmma kernels (slab_ring), an accumulator row's 16-byte bf16 pieces
 // (row8_bf16) and the once-a-device shared-memory attribute (with_smem).
@@ -118,6 +118,26 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
         "r"(accumulate), "n"(TB));
 }
 
+#define WGMMA_D16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WGMMA_OUT16(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// The narrow form of mma_ss: d (+)= A B for a 64 x 32 x 16 tile (d: 16
+// floats a thread, the accumulator fragment above with n = 0..3).
+template <int TB>
+__device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
+      ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : WGMMA_OUT16(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
 #define WGMMA_D64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
@@ -215,6 +235,8 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+#undef WGMMA_D16
+#undef WGMMA_OUT16
 #undef WGMMA_D32
 #undef WGMMA_OUT32
 #undef WGMMA_D64

@@ -18,10 +18,15 @@ forward runs inside :class:`FlashAttention` (an ``autograd.Function``
 whose forward is the same kernel call), which saves q, k, v, out and lse,
 and its backward launches the hand-written backward kernel of
 ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`, held to
-``plain.attention_bwd_ref``; an ``lse`` cotangent enters it too).  There
-is no fallback to the plain backward: a backward kernel that does not
-build or launch raises.  ``bwd_launches`` counts backward calls.  With no
-gradient needed the call is the plain kernel call, as before.
+``plain.attention_bwd_ref``; an ``lse`` cotangent enters it too).  Its
+variants: ``"wgmma"`` (``flash_bwd_wgmma``, bf16 on Hopper's wgmma, one
+launch for dK/dV and dQ after the D_i pass; :func:`bwd_plan` states its
+block order), ``"mma_sync"`` (bf16, three launches) and ``"float32"``;
+:func:`bwd_variant_for` picks one.  There is no fallback to the plain
+backward: a backward kernel that does not build or launch raises.
+``bwd_launches`` counts backward calls, ``bwd_wgmma_launches`` those that
+went to the wgmma variant.  With no gradient needed the call is the
+plain kernel call, as before.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from repro_torch.kernels import build, plain
 launches = 0
 wgmma_launches = 0
 bwd_launches = 0
+bwd_wgmma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,7 +80,7 @@ def variant_for(dtype, head_dim, skv, nsplit) -> str:
 
 def tile_class(kv_pos_tile, q_pos_rows, causal) -> str:
     """The kernels' verdict on one KV tile against one block's rows
-    (``tile_class`` in ``csrc/flash_attention.cu``): ``kv_pos_tile`` the
+    (``tile_class`` in ``csrc/tile_class.cuh``): ``kv_pos_tile`` the
     tile's kv positions (negative: a hole, as are rows past the end),
     ``q_pos_rows`` the q positions of the block's rows that exist.
     ``"skipped"``: no pair is visible; ``"mask_free"``: every pair is;
@@ -87,6 +93,147 @@ def tile_class(kv_pos_tile, q_pos_rows, causal) -> str:
     if holes == 0 and (not causal or max(valid) <= q_lo):
         return "mask_free"
     return "masked"
+
+
+BWD_TILE = 64             # rows of every tile of the wgmma backward
+BWD_WGMMA_MAX_TILES = 1024  # its table: 1024 tiles of each side
+BWD_KV_COST = 4           # products a KV block runs per tile (S, dP, dV, dK)
+BWD_Q_COST = 3            # ... and a Q block (S, dP, dQ)
+BWD_BLOCKS_PER_SM = {64: 3, 128: 2, 256: 1}  # resident blocks of each width
+# split KV walks when the heaviest weighs more than 3/2 of a block slot's
+# mean load
+BWD_SPLIT_NUM, BWD_SPLIT_DEN = 3, 2
+
+
+def bwd_wgmma_takes(dtype, head_dim, q_rows, skv) -> bool:
+    """Whether ``flash_bwd_wgmma`` computes a backward call at all:
+    ``q_rows`` the folded query rows Sq * Hq / Hkv."""
+    return (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
+            and -(-q_rows // BWD_TILE) <= BWD_WGMMA_MAX_TILES
+            and -(-skv // BWD_TILE) <= BWD_WGMMA_MAX_TILES)
+
+
+def bwd_variant_for(dtype, head_dim, q_rows, skv) -> str:
+    """The backward kernel a CUDA call goes to: every bf16 call the wgmma
+    variant takes (it is faster by CUDA-graph device time at every bf16
+    shape chip_smoke.py times on an H100, PERF.md section 6), the
+    mma.sync variant for the rest; float32 on the CUDA cores."""
+    if dtype == torch.float32:
+        return "float32"
+    if bwd_wgmma_takes(dtype, head_dim, q_rows, skv):
+        return "wgmma"
+    return "mma_sync"
+
+
+class _BwdShape:
+    """The shape model of ``BwPlan`` (``csrc/flash_attention_bwd.cu``):
+    query s at position s + Skv - Sq, kv row j at j, 64-row tiles of the
+    G-folded query rows and of the kv rows."""
+
+    def __init__(self, Sq, Skv, Hq, Hkv, causal):
+        self.G = Hq // Hkv
+        self.rows, T = Sq * self.G, BWD_TILE
+        self.nq, self.nkv = -(-self.rows // T), -(-Skv // T)
+        self.off, self.causal = Skv - Sq, causal
+
+    def first_u(self, x):
+        """The first query tile whose last position reaches x (nq: none)."""
+        need = self.G * (x - self.off)
+        if need > self.rows - 1:
+            return self.nq
+        a = need - (BWD_TILE - 1)
+        return 0 if a <= 0 else -(-a // BWD_TILE)
+
+    def vis_kv(self, t):  # query tiles KV tile t sees
+        return self.nq - self.first_u(BWD_TILE * t) if self.causal else self.nq
+
+    def vis_q(self, u):  # KV tiles query tile u sees
+        if not self.causal:
+            return self.nkv
+        p = min(BWD_TILE * u + BWD_TILE - 1, self.rows - 1) // self.G + self.off
+        return 0 if p < 0 else min(self.nkv, p // BWD_TILE + 1)
+
+    def q_above(self, w):  # query tiles heavier than w
+        v = w // BWD_Q_COST
+        if v + 1 > self.nkv:
+            return 0
+        return self.nq - self.first_u(BWD_TILE * v) if self.causal else self.nq
+
+
+def bwd_split(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms, with_dq=True):
+    """The blocks a KV tile's walk over the query tiles is split between
+    (``bw_plan``): two (each sums half; the second to finish adds the
+    other's float32 half and stores the tile) where the heaviest KV block
+    weighs more than 3/2 of a block slot's mean load (``sms`` times the
+    resident blocks of the width), else one."""
+    sh = _BwdShape(Sq, Skv, Hq, Hkv, causal)
+    total = sum(BWD_KV_COST * sh.vis_kv(t) for t in range(sh.nkv))
+    if with_dq:
+        total += sum(BWD_Q_COST * sh.vis_q(u) for u in range(sh.nq))
+    heavy = BWD_KV_COST * sh.vis_kv(0)
+    slots = sms * BWD_BLOCKS_PER_SM[head_dim]
+    return 2 if sh.nq >= 2 and (BWD_SPLIT_DEN * heavy * slots
+                                > BWD_SPLIT_NUM * total * Hkv * B) else 1
+
+
+def bwd_plan(Sq, Skv, Hq, Hkv, causal, split, with_dq=True):
+    """The slots of ``flash_bwd_wgmma``'s grid in launch order (``BwPlan``
+    in ``csrc/flash_attention_bwd.cu``, restated) for a given ``split``:
+    ``("kv", t, p)`` is part p of KV tile t's walk (64 kv rows: dK, dV;
+    with two parts, part 0 the query tiles below ``bwd_mid``, part 1 the
+    rest), ``("q", u, 0)`` the block of tile u of the G-folded query rows
+    (dQ); each slot is one block per KV head and batch, KV heads first.
+    Heaviest first: a KV part weighs ``BWD_KV_COST`` times its share (the
+    larger) of the query tiles its KV tile sees, a query block
+    ``BWD_Q_COST`` times the KV tiles it sees, as ``_BwdShape`` counts them
+    (every tile visible without ``causal``); equal weights put KV blocks
+    first, KV tiles ascending, query tiles descending.  The kernel finds
+    its slot by the same arithmetic (binary searches over the two monotone
+    weight lists)."""
+    sh = _BwdShape(Sq, Skv, Hq, Hkv, causal)
+    nq, nkv = sh.nq, sh.nkv
+    if not with_dq:
+        return [("kv", t, p) for t in range(nkv) for p in range(split)]
+
+    def kv_slot(k):  # KV block k: part k % split of KV tile k // split
+        return k + sh.q_above(BWD_KV_COST * -(-sh.vis_kv(k // split) // split))
+
+    slots = []
+    for i in range(nkv * split + nq):
+        lo, hi = 0, nkv * split
+        while lo < hi:
+            m = (lo + hi) // 2
+            lo, hi = (m + 1, hi) if kv_slot(m) <= i else (lo, m)
+        if lo > 0 and kv_slot(lo - 1) == i:
+            slots.append(("kv", (lo - 1) // split, (lo - 1) % split))
+        else:
+            slots.append(("q", nq - 1 - (i - lo), 0))
+    return slots
+
+
+def bwd_mid(Sq, Skv, Hq, Hkv, causal, t) -> int:
+    """The first query tile of part 1 of KV tile t's walk: part 0 takes
+    the larger half of the tiles it sees (``BwPlan::mid``)."""
+    sh = _BwdShape(Sq, Skv, Hq, Hkv, causal)
+    return sh.nq - sh.vis_kv(t) // 2
+
+
+def bwd_split_at(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms):
+    """Per KV tile, the first query tile of the second half of its walk
+    (``plain.attention_bwd_tiled``'s ``split_at``), or None unsplit."""
+    if bwd_split(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms) == 1:
+        return None
+    return [bwd_mid(Sq, Skv, Hq, Hkv, causal, t)
+            for t in range(-(-Skv // BWD_TILE))]
+
+
+def bwd_launch_plan(B, Sq, Skv, Hq, Hkv, causal, split, with_dq=True):
+    """``flash_bwd_wgmma``'s blocks in grid order: (kind, tile, part, KV
+    head, batch) for block index i = slot * Hkv * B + b * Hkv + hk."""
+    return [(kind, t, p, hk, b)
+            for kind, t, p in bwd_plan(Sq, Skv, Hq, Hkv, causal, split,
+                                       with_dq)
+            for b in range(B) for hk in range(Hkv)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,21 +398,56 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    fn = build.load("flash_attention_bwd").flash_attention_bwd
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    wg = lib.flash_attention_bwd_wgmma
+    wg.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    wg.restype = ctypes.c_int
+    ws = lib.flash_attention_bwd_wgmma_workspace
+    ws.argtypes = [ctypes.c_int] * 9
+    ws.restype = ctypes.c_longlong
+    return fn, wg, ws
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def bwd_kernel_slots(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms,
+                     with_dq=True):
+    """``flash_bwd_wgmma``'s slot order as the built library computes it
+    (``flash_bwd_wgmma_slots``, the host's copy of the kernel's plan) on a
+    card of ``sms`` SMs, in :func:`bwd_plan`'s form; the card tests hold it
+    to :func:`bwd_plan` at :func:`bwd_split`'s split."""
+    fn = build.load("flash_attention_bwd").flash_bwd_wgmma_slots
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = 2 * -(-Skv // BWD_TILE) + -(-Sq * (Hq // Hkv) // BWD_TILE)
+    buf = (ctypes.c_int * (3 * n))()
+    got = fn(B, Sq, Skv, Hq, Hkv, head_dim, int(bool(causal)),
+             int(bool(with_dq)), sms, buf)
+    return [("kv" if buf[3 * i] else "q", buf[3 * i + 1], buf[3 * i + 2])
+            for i in range(got)]
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
-                        causal=True, softcap=0.0, scale=None, need_dq=True):
+                        causal=True, softcap=0.0, scale=None, need_dq=True,
+                        variant=None):
     """dq, dk, dv of :func:`flash_attention` given its out and lse and the
     cotangents dout (and dlse, or None).  A CPU call goes to
     ``plain.attention_bwd_ref``; a CUDA call launches the backward kernel
-    (dq is None when not ``need_dq``) or raises."""
-    global bwd_launches
+    :func:`bwd_variant_for` picks (dq is None when not ``need_dq``) or
+    raises.  ``variant`` (CUDA tensors only) forces ``"wgmma"`` or
+    ``"mma_sync"``; a variant that does not take the call raises
+    ``NotImplementedError``."""
+    global bwd_launches, bwd_wgmma_launches
     if not q.is_cuda:
         return plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse,
                                        q_pos=q_pos, kv_pos=kv_pos,
@@ -286,25 +468,53 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
                          "float32")
     if dlse is not None:
         dlse = dlse.to(torch.float32).contiguous()
-    dq = torch.zeros_like(q) if need_dq else None
+    q_rows = Sq * (Hq // Hkv)
+    chosen = bwd_variant_for(q.dtype, D, q_rows, Skv)
+    if variant is not None:
+        if variant not in ("wgmma", "mma_sync"):
+            raise ValueError(f"unknown variant {variant!r}")
+        if variant == "wgmma" and not bwd_wgmma_takes(q.dtype, D, q_rows,
+                                                      Skv):
+            raise NotImplementedError(
+                f"the wgmma backward takes bf16 at head dims "
+                f"{WGMMA_HEAD_DIMS} and at most {BWD_WGMMA_MAX_TILES} tiles "
+                f"of {BWD_TILE} rows a side, got {q.dtype}, D={D}, "
+                f"{q_rows} query rows, Skv={Skv}")
+        if variant == "mma_sync" and q.dtype != torch.bfloat16:
+            raise NotImplementedError("the mma.sync variant takes bf16")
+        chosen = variant
+    # every kernel writes every row of its gradients: no zero fill
+    dq = torch.empty_like(q) if need_dq else None
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     di = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
-    fn = _bwd_kernel()
+    fn, fn_wgmma, fn_ws = _bwd_kernel()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            dlse.data_ptr() if dlse is not None else None,
+            q_pos.data_ptr(), kv_pos.data_ptr(),
+            dq.data_ptr() if dq is not None else None, dk.data_ptr(),
+            dv.data_ptr(), di.data_ptr())
+    rest = (B, Sq, Skv, Hq, Hkv, D, float(scale), float(softcap or 0.0),
+            int(bool(causal)))
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), dout.data_ptr(),
-                 lse.data_ptr(), dlse.data_ptr() if dlse is not None else None,
-                 q_pos.data_ptr(), kv_pos.data_ptr(),
-                 dq.data_ptr() if dq is not None else None, dk.data_ptr(),
-                 dv.data_ptr(), di.data_ptr(), B, Sq, Skv, Hq, Hkv, D,
-                 float(scale), float(softcap or 0.0), int(bool(causal)),
-                 _DTYPES[q.dtype],
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if chosen == "wgmma":
+            # the split KV tiles' float32 halves and their counters
+            sms = _sms(q.device.index if q.device.index is not None
+                       else torch.cuda.current_device())
+            ws = torch.empty(fn_ws(B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
+                                   int(bool(need_dq)), sms),
+                             dtype=torch.uint8, device=q.device)
+            err = fn_wgmma(*ptrs, ws.data_ptr(), *rest, sms, stream)
+        else:
+            err = fn(*ptrs, *rest, _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"flash_attention backward kernel launch failed "
+                           f"({chosen}): cudaError {err}")
     bwd_launches += 1
+    if chosen == "wgmma":
+        bwd_wgmma_launches += 1
     return dq, dk, dv
 
 

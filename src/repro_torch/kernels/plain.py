@@ -9,11 +9,12 @@ internally, casting the result to the input's type at the end — the same
 arithmetic the kernels do, so a bf16 comparison measures the kernel and
 not a different rounding schedule.
 
-``ssd_chunk_parallel``, ``paged_decode_split_ref`` and
-``memcom_xattn_tiled`` are no kernel's CPU path: they restate the chunked
-Hopper ``ssd`` kernel's three phases, order and rounding points, the paged
-decode kernel's split of each slot's positions, and the wgmma
-``memcom_xattn`` variant's per-tile softmax, for the tests.
+``ssd_chunk_parallel``, ``paged_decode_split_ref``,
+``memcom_xattn_tiled`` and ``attention_bwd_tiled`` are no kernel's CPU
+path: they restate the chunked Hopper ``ssd`` kernel's three phases, order
+and rounding points, the paged decode kernel's split of each slot's
+positions, the wgmma ``memcom_xattn`` variant's per-tile softmax and the
+wgmma flash backward's tiles and rounding points, for the tests.
 
 The paged-KV index ops (``paged_scatter``/``paged_gather``, after
 ``jnp_impl.py:254-292``) and the Mamba2 one-token update
@@ -112,6 +113,103 @@ def attention_bwd_ref(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
     dv = torch.einsum("bhgqs,bqhgd->bshd", p, doh)
     return (dq.reshape(B, Sq, Hq, Dk).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def attention_bwd_tiled(q, k, v, out, lse, dout, dlse=None, *, q_pos,
+                        kv_pos, causal=True, softcap=0.0, scale=None,
+                        round_p=True, split_at=None, tile=64):
+    """The wgmma flash backward's arithmetic (``flash_bwd_wgmma`` in
+    ``csrc/flash_attention_bwd.cu``), restated for the tests; no kernel's
+    CPU path.  Arguments and result as :func:`attention_bwd_ref`.
+
+    The query rows of each KV head are G-folded (row rho = s * G + g is
+    query s of head hk * G + g) and cut into ``tile``-row tiles, the kv
+    rows too (rows past the end are zero, and see nothing).  A tile pair
+    with no visible pair is skipped (the kernels' ``tile_class``): it adds
+    nothing.  dK and dV: for each KV tile, the query tiles in order, S^T
+    and dP^T in float32, P^T = exp(s - lse) on the visible pairs and dS^T
+    = P^T o (dP^T - D) o (1 - (s / cap)^2) from the unrounded P^T, both
+    rounded to bf16 when ``round_p`` before dV += P^T dO and dK += dS^T Q
+    (float32 sums, one tile after another).  ``split_at`` (one entry per
+    KV tile, or None) cuts a KV tile's walk in two: the query tiles below
+    its entry and the rest are summed apart, then added.  dQ: for each
+    query tile, the KV tiles in order, dS likewise, dQ += dS K.  dK and dQ
+    times scale at the end; out in the inputs' types."""
+    import torch.nn.functional as F
+
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    rows = Sq * G
+    if scale is None:
+        scale = D ** -0.5
+    nq, nkv = -(-rows // tile), -(-Skv // tile)
+    Rp, Kp = nq * tile, nkv * tile
+
+    def fold(x, value=0.0):  # (B, Sq, Hq[, D]) -> (B, Hkv, Rp[, D])
+        x = x.float().reshape(B, Sq, Hkv, G, -1).permute(0, 2, 1, 3, 4)
+        x = x.reshape(B, Hkv, rows, -1)
+        return F.pad(x, (0, 0, 0, Rp - rows), value=value)
+
+    def heads(x):  # (B, Skv, Hkv, D) -> (B, Hkv, Kp, D)
+        return F.pad(x.float().permute(0, 2, 1, 3), (0, 0, 0, Kp - Skv))
+
+    qf, dof, kf, vf = fold(q), fold(dout), heads(k), heads(v)
+    d_i = (dout.float() * out.float()).sum(-1)
+    if dlse is not None:
+        d_i = d_i - dlse.float()
+    lse_f = fold(lse[..., None], value=-NEG_INF)[..., 0]  # past the end: P 0
+    di_f = fold(d_i[..., None])[..., 0]
+    ar = torch.arange(Rp, device=q.device)
+    qp = q_pos[:, torch.clamp(ar, max=rows - 1) // G]       # (B, Rp)
+    kvp = F.pad(kv_pos, (0, Kp - Skv), value=-1)           # (B, Kp)
+    vis = (kvp[:, None, :] >= 0) & (ar < rows)[None, :, None]
+    if causal:
+        vis = vis & (kvp[:, None, :] <= qp[:, :, None])    # (B, Rp, Kp)
+    live = vis.reshape(B, nq, tile, nkv, tile).any(dim=4).any(dim=2)
+
+    def p_ds(s_raw, dp, l_rows, d_rows, seen):
+        x = s_raw * scale
+        f = 1.0
+        if softcap:
+            th = torch.tanh(x / softcap)
+            x, f = softcap * th, 1 - th * th
+        p = torch.where(seen, torch.exp(x - l_rows), torch.zeros_like(x))
+        ds = p * (dp - d_rows) * f
+        if round_p:
+            p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+        return p, ds
+
+    # the two halves of every KV tile's walk: [0, split_at) and the rest
+    half = torch.arange(nq)[:, None] < torch.tensor(
+        split_at if split_at is not None else [nq] * nkv)[None, :]
+    half = half.repeat_interleave(tile, dim=1).to(q.device)  # (nq, Kp)
+    dk = torch.zeros(2, B, Hkv, Kp, D, device=q.device)
+    dv = torch.zeros_like(dk)
+    for u in range(nq):  # KV blocks: this query tile against every KV tile
+        r = slice(u * tile, (u + 1) * tile)
+        p, ds = p_ds(kf @ qf[:, :, r].transpose(-1, -2),
+                     vf @ dof[:, :, r].transpose(-1, -2),
+                     lse_f[:, :, None, r], di_f[:, :, None, r],
+                     vis[:, None, r].transpose(-1, -2))
+        keep = live[:, u].repeat_interleave(tile, dim=1)[:, None, :, None]
+        h = torch.stack([half[u], ~half[u]])[:, None, None, :, None]
+        dv = torch.where(keep & h, dv + p @ dof[:, :, r], dv)
+        dk = torch.where(keep & h, dk + ds @ qf[:, :, r], dk)
+    dk, dv = dk[0] + dk[1], dv[0] + dv[1]
+    dq = torch.zeros(B, Hkv, Rp, D, device=q.device)
+    for t in range(nkv):  # Q blocks: this KV tile against every query tile
+        c = slice(t * tile, (t + 1) * tile)
+        _, ds = p_ds(qf @ kf[:, :, c].transpose(-1, -2),
+                     dof @ vf[:, :, c].transpose(-1, -2),
+                     lse_f[..., None], di_f[..., None], vis[:, None, :, c])
+        keep = live[:, :, t].repeat_interleave(tile, dim=1)[:, None, :, None]
+        dq = torch.where(keep, dq + ds @ kf[:, :, c], dq)
+    dq = (dq[:, :, :rows] * scale).reshape(B, Hkv, Sq, G, D)
+    dq = dq.permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, D)
+    dk = (dk[:, :, :Skv] * scale).permute(0, 2, 1, 3)
+    dv = dv[:, :, :Skv].permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def memcom_xattn_ref(q, k, v, *, scale=None):

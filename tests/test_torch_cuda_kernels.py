@@ -888,10 +888,14 @@ def _bwd_positions(B, Sq, Skv, layout, device):
     return q_pos, kv_pos, True
 
 
-@pytest.mark.parametrize("case,dtype", [
-    (c, d) for c in BWD_CASES for d in ("float32", "bfloat16")
+@pytest.mark.parametrize("case,dtype,variant", [
+    (c, d, vn) for c in BWD_CASES for d in ("float32", "bfloat16")
+    for vn in ((None,) if d == "float32" else ("wgmma", "mma_sync"))
     if d == "float32" or c[5] in (64, 128, 256)])  # bf16 forward head dims
-def test_flash_attention_bwd_matches_plain(cuda, rng, case, dtype):
+def test_flash_attention_bwd_matches_plain(cuda, rng, case, dtype, variant):
+    """Every case through the float32 kernel, and through each bf16
+    kernel forced (the dead-row check also shows that no kernel leaves a
+    row of the uninitialised gradients unwritten)."""
     B, Sq, Skv, Hq, Hkv, D, layout, cap, with_dlse = case
     q, dout = (_rand(rng, B, Sq, Hq, D, dtype=dtype) for _ in range(2))
     k, v = (_rand(rng, B, Skv, Hkv, D, dtype=dtype) for _ in range(2))
@@ -899,10 +903,12 @@ def test_flash_attention_bwd_matches_plain(cuda, rng, case, dtype):
     kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     dlse = (_rand(rng, B, Sq, Hq, dtype="float32") if with_dlse else None)
-    before = fa.bwd_launches
-    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
+    before = (fa.bwd_launches, fa.bwd_wgmma_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse,
+                                 variant=variant, **kw)
     torch.cuda.synchronize()
-    assert fa.bwd_launches == before + 1
+    assert (fa.bwd_launches, fa.bwd_wgmma_launches) == (
+        before[0] + 1, before[1] + (variant == "wgmma"))
     want = plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse, **kw)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
@@ -913,6 +919,97 @@ def test_flash_attention_bwd_matches_plain(cuda, rng, case, dtype):
         holes = (kv_pos < 0)    # nor do keys that no query sees
         assert float(got[1][holes].abs().max()) == 0.0
         assert float(got[2][holes].abs().max()) == 0.0
+
+
+# The wgmma backward against its own arithmetic, plain.attention_bwd_tiled
+# on the same bf16 inputs in float32, in bf16 steps (plain.bf16_ulps).  The
+# last rounding of each gradient gives up to 0.5; S and dP, summed in
+# another order than the restatement's, move a few P and dS values across
+# a bf16 rounding boundary, each moving its term of a gradient's sum by one
+# step of the term: up to 2 steps of the gradient's own scale where that
+# term dominates its row (the first queries of a causal call, a key seen
+# by one query).  On an H100 the kernel reads 0.50-1.43 (PERF.md section
+# 6); the bound is that one step of a dominant term, 2.5.  It does not
+# separate a kernel that skips the rounding of P and dS (the restatement
+# without it reads 1.37-2.22): the CPU tests hold those rounding points.
+# Cases with an lse cotangent, so that no gradient row is float32 noise (a
+# one-key dq row without one is P (dP - D) K with dP = D up to rounding).
+TILED_BWD_ULPS = 2.5
+TILED_BWD_CASES = [
+    (1, 512, 512, 8, 4, 256, "causal", 50.0),    # Memory-LLM self
+    (2, 64, 512, 8, 4, 256, "prefix", 50.0),     # prompt vs prefix
+    (1, 200, 130, 8, 4, 256, "prefix", 0.5),     # ragged tiles, cap 0.5
+    (2, 40, 70, 8, 4, 256, "masked", 50.0),      # dead rows and holes
+    (1, 170, 170, 24, 8, 64, "causal", 0.0),     # G 3, ragged last tile
+    (1, 300, 300, 32, 8, 128, "offset", 0.0),    # G 4
+]
+
+
+@pytest.mark.parametrize("case", TILED_BWD_CASES)
+def test_flash_bwd_wgmma_matches_its_tiled_restatement(cuda, rng, case):
+    B, Sq, Skv, Hq, Hkv, D, layout, cap = case
+    q, dout = (_rand(rng, B, Sq, Hq, D, dtype="bfloat16") for _ in range(2))
+    k, v = (_rand(rng, B, Skv, Hkv, D, dtype="bfloat16") for _ in range(2))
+    q_pos, kv_pos, causal = _bwd_positions(B, Sq, Skv, layout, cuda)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    live = (lse > plain.NEG_INF / 2).float()   # dead rows have no lse
+    dlse = _rand(rng, B, Sq, Hq, dtype="float32") * live
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse,
+                                 variant="wgmma", **kw)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiled = plain.attention_bwd_tiled(
+        *(x.float() for x in (q, k, v, out)), lse, dout.float(), dlse,
+        split_at=fa.bwd_split_at(B, Sq, Skv, Hq, Hkv, D, causal, sms), **kw)
+    for name, g, t in zip(("dq", "dk", "dv"), got, tiled):
+        u = plain.bf16_ulps(g, t)
+        assert u <= TILED_BWD_ULPS, (
+            f"{name}: {u:.4f} bf16 steps from plain.attention_bwd_tiled "
+            f"(limit {TILED_BWD_ULPS})")
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 512, 512, 8, 4, 256, True), (2, 512, 512, 8, 4, 256, False),
+    (1, 3072, 3072, 8, 4, 256, True), (2, 512, 512, 24, 8, 64, True),
+    (2, 512, 512, 32, 8, 128, True), (3, 70, 45, 6, 2, 64, True),
+    (2, 45, 70, 6, 2, 128, True), (2, 37, 53, 4, 2, 64, False),
+    (1, 1, 700, 8, 1, 256, True), (1, 700, 1, 8, 8, 128, True)])
+@pytest.mark.parametrize("with_dq", [True, False])
+@pytest.mark.parametrize("sms", [132, 16, 1000])
+def test_flash_bwd_wgmma_block_order_is_its_restatement(cuda, shape,
+                                                        with_dq, sms):
+    """The kernel's plan (the library's host copy of ``BwPlan``) splits
+    KV walks where ``fa.bwd_split`` does and gives the slot order
+    ``fa.bwd_plan`` states, on cards of several SM counts."""
+    B, Sq, Skv, Hq, Hkv, D, causal = shape
+    split = fa.bwd_split(B, Sq, Skv, Hq, Hkv, D, causal, sms, with_dq)
+    assert fa.bwd_kernel_slots(B, Sq, Skv, Hq, Hkv, D, causal, sms,
+                               with_dq) == \
+        fa.bwd_plan(Sq, Skv, Hq, Hkv, causal, split, with_dq)
+
+
+def test_flash_bwd_dispatch_and_forced_variants(cuda, rng):
+    """bf16 calls the wgmma backward takes go to it unforced; a forced
+    variant that does not take the call raises."""
+    B, S, Hq, Hkv, D = 1, 96, 4, 2, 128
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)[None]
+    kw = dict(q_pos=pos, kv_pos=pos, causal=True)
+    for dtype in ("bfloat16", "float32"):
+        q, dout = (_rand(rng, B, S, Hq, D, dtype=dtype) for _ in range(2))
+        k, v = (_rand(rng, B, S, Hkv, D, dtype=dtype) for _ in range(2))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        before = fa.bwd_wgmma_launches
+        fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        assert fa.bwd_wgmma_launches == before + (dtype == "bfloat16")
+    with pytest.raises(NotImplementedError):   # float32
+        fa.flash_attention_bwd(q, k, v, out, lse, dout, variant="wgmma", **kw)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_bwd(q, k, v, out, lse, dout, variant="mma_sync",
+                               **kw)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, out, lse, dout, variant="tc", **kw)
 
 
 @pytest.mark.parametrize("shape", [(1, 512, 3072, 2304), (1, 512, 3072, 1536),
