@@ -122,9 +122,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
       wgmma variant's distance from its own arithmetic
       (``plain.attention_bwd_tiled``) in bf16 steps (``plain.bf16_ulps``,
       over the rows above ``plain.GRAD_NOISE_FLOOR``) is printed beside.
+      ``memcom_xattn``'s backward takes the forward's out and lse; every
+      bf16 shape runs through both its bf16 kernels, forced and checked:
+      the wgmma variant (three launches: ``xattn_bwd_dot``,
+      ``xattn_bwd_sdp_wgmma``, ``xattn_bwd_grad_wgmma``) and the mma.sync
+      one (six), each with its workspace bytes.
       ``ms`` / ``device_ms`` are the picked variant's
-      (``fa.bwd_variant_for``), beside ``ms_<variant>`` and
-      ``device_ms_<variant>``.  ``ms`` by CUDA
+      (``fa.bwd_variant_for``, ``mx.bwd_variant_for``), beside
+      ``ms_<variant>`` and ``device_ms_<variant>``.  ``ms`` by CUDA
       events, ``device_ms`` by graph replay over three input sets; the
       library time that of ``torch.autograd.grad`` through one
       ``F.scaled_dot_product_attention`` call (no cap, ``enable_gqa``; one
@@ -185,7 +190,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
       prompt self, less layer 0's prompt self, which reads only frozen
       embeddings), each through the kernel ``fa.bwd_variant_for`` picks
       (the wgmma calls counted and printed), and 26 ``memcom_xattn``
-      backward calls, every forward
+      backward calls, each through the kernel ``mx.bwd_variant_for``
+      picks (the wgmma variant's three launches), every forward
       ``memcom_xattn`` call through the wgmma variant; a second Trainer
       restored from step 2 reproduces the losses of steps 3-4 and the
       trained tensors exactly.  Printed: s/step, tokens/s, peak memory,
@@ -1209,42 +1215,65 @@ def main() -> int:
             dtype = getattr(torch, dn)
             q, dout = (rand(B, Mx, D, dtype=dtype) for _ in range(2))
             k, v = (rand(B, Tx, D, dtype=dtype) for _ in range(2))
-            got = mx.memcom_xattn_bwd(q, k, v, dout)
-            torch.cuda.synchronize()
+            out, lse = mx.memcom_xattn(q, k, v, return_lse=True)
             want = plain.memcom_xattn_bwd_ref(q, k, v, dout)
-            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = grad_check(
-                "memcom_xattn_bwd", name, dn, got, want)
-            del got, want
+            variants = ("wgmma", "mma_sync") if dn == "bfloat16" else (None,)
+            errs = []
+            for vn in variants:
+                got = mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant=vn)
+                torch.cuda.synchronize()
+                errs.append(grad_check(f"memcom_xattn_bwd {vn or ''}".strip(),
+                                       name, dn, got, want))
+                del got
+            row[f"max_abs_err_{dn}"] = max(e for e, _ in errs)
+            row[f"grad_err_{dn}"] = max(g for _, g in errs)
+            del want
             if dn == "bfloat16":
                 # three input sets past the 50 MB L2 (62 MB each at D 2304)
-                bufs = [(q, k, v, dout)] + [
-                    tuple(rand(*x.shape, dtype=dtype)
-                          for x in (q, k, v, dout)) for _ in range(2)]
-                row["ms"] = cuda_ms(lambda: mx.memcom_xattn_bwd(q, k, v,
-                                                                dout))
-                row["device_ms"] = device_ms(
-                    lambda q_, k_, v_, d_: mx.memcom_xattn_bwd(q_, k_, v_,
-                                                               d_), 21, bufs)
-                row["workspace_bytes"] = mx.bwd_workspace_bytes(B, Mx, Tx,
-                                                                dtype)
+                bufs = [(q, k, v, dout, out, lse)]
+                for _ in range(2):
+                    st = tuple(rand(*x.shape, dtype=dtype)
+                               for x in (q, k, v, dout))
+                    bufs.append(st + mx.memcom_xattn(*st[:3],
+                                                     return_lse=True))
+                row["variant"] = mx.bwd_variant_for(dtype, B, Mx, Tx, D, True)
+                for vn in variants:
+                    row[f"ms_{vn}"] = cuda_ms(
+                        lambda: mx.memcom_xattn_bwd(q, k, v, out, lse, dout,
+                                                    variant=vn))
+                    row[f"device_ms_{vn}"] = device_ms(
+                        lambda q_, k_, v_, d_, o_, l_: mx.memcom_xattn_bwd(
+                            q_, k_, v_, o_, l_, d_, variant=vn), 21, bufs)
+                    row[f"workspace_bytes_{vn}"] = mx.bwd_workspace_bytes(
+                        B, Mx, Tx, dtype, vn)
+                for key in ("ms", "device_ms", "workspace_bytes"):
+                    row[key] = row[f"{key}_{row['variant']}"]
+                row["nsplit"] = mx.bwd_num_splits(B, Mx, Tx, D, sms)
                 row["plain_ms"] = cuda_ms(
                     lambda: plain.memcom_xattn_bwd_ref(q, k, v, dout), reps=3)
                 (row["library_ms"], row["library_device_ms"],
                  row["library_backend"]) = library_bwd(
-                    [tuple(x[:, None] for x in st) for st in bufs])
+                    [tuple(x[:, None] for x in st[:4]) for st in bufs])
                 del bufs
                 flops = 10 * B * Mx * Tx * D
                 nbytes = 2 * (3 * q.numel() + 4 * k.numel())
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
                 log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
-                    f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
-                    f"ms, sdpa backward {row['library_ms']} ms (device "
+                    f"{row['device_ms']:.4f}; {row['variant']}, "
+                    f"{row['nsplit']} dQ split(s); wgmma "
+                    f"{row['ms_wgmma']:.4f} ms, device "
+                    f"{row['device_ms_wgmma']:.4f}; mma.sync "
+                    f"{row['ms_mma_sync']:.4f} ms, device "
+                    f"{row['device_ms_mma_sync']:.4f}), plain "
+                    f"{row['plain_ms']:.4f} ms, sdpa backward "
+                    f"{row['library_ms']} ms (device "
                     f"{row['library_device_ms']}; "
                     f"{row['library_backend']}), bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                    f"workspace {row['workspace_bytes']} bytes")
-            del q, k, v, dout
+                    f"workspace {row['workspace_bytes_wgmma']} bytes "
+                    f"(mma.sync {row['workspace_bytes_mma_sync']})")
+            del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
         mx_bwd_rows.append(row)
     log(f"backward kernel phase: {time.perf_counter() - t_phase:.1f}s")
@@ -1259,6 +1288,7 @@ def main() -> int:
         fa.wgmma_launches = gm.wgmma_launches = gm.rows_launches = 0
         mx.wgmma_launches = ss.chunked_launches = 0
         fa.bwd_launches = fa.bwd_wgmma_launches = mx.bwd_launches = 0
+        mx.bwd_wgmma_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
@@ -1270,6 +1300,7 @@ def main() -> int:
         c["flash_attention_bwd"] = fa.bwd_launches
         c["flash_attention_bwd_wgmma"] = fa.bwd_wgmma_launches
         c["memcom_xattn_bwd"] = mx.bwd_launches
+        c["memcom_xattn_bwd_wgmma"] = mx.bwd_wgmma_launches
         return c
 
     class SourcePrefills:
@@ -2083,6 +2114,10 @@ def main() -> int:
         G = cfg.num_heads // cfg.num_kv_heads
         want_wg = (3 * L - 1 if fa.bwd_variant_for(
             torch.bfloat16, cfg.hd, m * G, m) == "wgmma" else 0)
+        # and each layer's memory cross-attention over the split's source
+        want_xwg = (L if mx.bwd_variant_for(
+            torch.bfloat16, batch, m, split, cfg.d_model, True) == "wgmma"
+            else 0)
         for i, c in enumerate(per_step):
             # the Memory-LLM's self-attention and the prompt against the
             # prefix in every layer, the prompt's self-attention in every
@@ -2090,14 +2125,16 @@ def main() -> int:
             # token embeddings alone, so autograd records no backward)
             if c["flash_attention_bwd"] != 3 * L - 1 \
                     or c["flash_attention_bwd_wgmma"] != want_wg \
-                    or c["memcom_xattn_bwd"] != L:
+                    or c["memcom_xattn_bwd"] != L \
+                    or c["memcom_xattn_bwd_wgmma"] != want_xwg:
                 raise AssertionError(
                     f"{tag} step {i + 1}: {c['flash_attention_bwd']} flash "
                     f"backward calls (want {3 * L - 1}), "
                     f"{c['flash_attention_bwd_wgmma']} through the wgmma "
                     f"variant (want {want_wg}), "
                     f"{c['memcom_xattn_bwd']} memcom_xattn backward calls "
-                    f"(want {L})")
+                    f"(want {L}), {c['memcom_xattn_bwd_wgmma']} through its "
+                    f"wgmma variant (want {want_xwg})")
             if c["memcom_xattn"] != c["memcom_xattn_wgmma"] or \
                     c["memcom_xattn"] != L:
                 raise AssertionError(f"{tag} step {i + 1}: memcom_xattn "
@@ -2105,7 +2142,9 @@ def main() -> int:
         log(f"{tag} flash backward calls a step: "
             f"{[c['flash_attention_bwd'] for c in per_step]}, through the "
             f"wgmma variant "
-            f"{[c['flash_attention_bwd_wgmma'] for c in per_step]}")
+            f"{[c['flash_attention_bwd_wgmma'] for c in per_step]}; "
+            f"memcom_xattn backward calls through its wgmma variant "
+            f"{[c['memcom_xattn_bwd_wgmma'] for c in per_step]}")
         if not all(np.isfinite(v) for v in losses.values()) \
                 or sorted(losses) != [1, 2, 3, 4]:
             raise AssertionError(f"{tag} losses {losses}")
@@ -2179,7 +2218,7 @@ def main() -> int:
                           ("flash_bwd", ("flash_bwd_",)),
                           ("xattn_fwd", ("xattn_logits_wgmma",
                                          "xattn_out_wgmma")),
-                          ("xattn_bwd", ("gemm_tc<", "softmax_bwd_rows"))):
+                          ("xattn_bwd", ("xattn_bwd_",))):
             hits = [v for k_, v in prof["by_name"].items()
                     if any(p_ in k_ for p_ in pats)]
             kern[key] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
@@ -2351,6 +2390,13 @@ def main() -> int:
                 variant=head["variant"],
                 **{k: head[k] for k in head
                    if k.startswith(("ms_", "device_ms_"))})
+        if name == "memcom_xattn_bwd":  # the wgmma and mma.sync variants
+            entries[-1].update(
+                bwd_wgmma_launches=sum(c["memcom_xattn_bwd_wgmma"]
+                                       for c in paths.values()),
+                variant=head["variant"], nsplit=head["nsplit"],
+                **{k: head[k] for k in head
+                   if k.startswith(("ms_", "device_ms_", "workspace_"))})
         if name == "flash_attention":  # the wgmma variant and the mma.sync one
             entries[-1].update(
                 wgmma_launches=sum(c["flash_attention_wgmma"]

@@ -850,19 +850,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* q_pos,
 }
 
 // One 64 x N x 64 product through the helpers of wgmma_sm90.cuh: a (M x K)
-// row-major; b (N x K) row-major read K-major, or (mn_major) b (K x N)
-// row-major read MN-major (transpose bit set).  N = 64: A from shared
-// memory with b K-major, from registers with b MN-major, the two forms
-// flash_fwd_wgmma uses.  N = 128 or 256: A from shared memory (mma_ss_n),
-// b MN-major as gmm_wgmma and xattn_out_wgmma read it, or K-major as
-// xattn_logits_wgmma does.
+// row-major read K-major, or (a_mn_major) a (K x M) row-major read MN-major
+// (transpose-A bit set); b (N x K) row-major read K-major, or (mn_major) b
+// (K x N) row-major read MN-major (transpose bit set).  N = 64: A from
+// shared memory with b K-major, from registers with b MN-major, the two
+// forms flash_fwd_wgmma uses.  N = 96, 128 or 256: A from shared memory
+// (mma_ss_n), b MN-major as gmm_wgmma and xattn_out_wgmma read it, or
+// K-major as xattn_logits_wgmma and xattn_bwd_sdp_wgmma do; A MN-major
+// with b MN-major as xattn_bwd_grad_wgmma reads dS^T and P^T.
 template <int N>
 __global__ void __launch_bounds__(128)
 wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
                  const __nv_bfloat16* __restrict__ b, float* __restrict__ c,
-                 int mn_major) {
+                 int mn_major, int a_mn_major) {
   namespace wg = wgmma_sm90;
-  __shared__ unsigned char raw[1024 + 8192 + (N / 64) * 8192];
+  __shared__ unsigned char raw[1024 + 8192 + N * 128];
   const uint32_t raw_addr = wg::smem_addr(raw);
   const uint32_t sA = (raw_addr + 1023u) & ~1023u, sB = sA + 8192;
   unsigned char* sm = raw + (sA - raw_addr);
@@ -908,11 +910,13 @@ wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
       }
       if constexpr (N == 64) wg::mma_rs<1>(d, f, db, ks > 0);
     } else {
-      const uint64_t da = wg::desc(sA + ks * 32, 16, 1024);
+      const uint64_t da = a_mn_major ? wg::desc(sA + ks * 2048, 8192, 1024)
+                                     : wg::desc(sA + ks * 32, 16, 1024);
       if constexpr (N == 64) {
         wg::mma_ss<0>(d, da, db, ks > 0);
       } else {
-        if (mn_major) wg::mma_ss_n<N, 1>(d, da, db, ks > 0);
+        if (a_mn_major) wg::mma_ss_n<N, 1, 1>(d, da, db, ks > 0);
+        else if (mn_major) wg::mma_ss_n<N, 1>(d, da, db, ks > 0);
         else wg::mma_ss_n<N, 0>(d, da, db, ks > 0);
       }
     }
@@ -1022,18 +1026,27 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// c (64 x n f32) = a b through one wgmma tile product (wgmma_tile_check):
-// n = 64, 128 or 256; b K-major or MN-major.
+// c (64 x n f32) = a b, or a^T b with a_mn_major, through one wgmma tile
+// product (wgmma_tile_check): n = 64, 128 or 256 with b K-major or
+// MN-major, n = 96 with b K-major; a MN-major at n = 128 or 256 with b
+// MN-major.
 extern "C" int flash_wgmma_tile_check(const void* a, const void* b, float* c,
-                                      int n, int mn_major, void* stream) {
+                                      int n, int mn_major, int a_mn_major,
+                                      void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto ab = static_cast<const __nv_bfloat16*>(a);
   const auto bb = static_cast<const __nv_bfloat16*>(b);
-  if (n == 64) wgmma_tile_check<64><<<1, 128, 0, st>>>(ab, bb, c, mn_major);
+  if ((a_mn_major && (n == 64 || n == 96 || !mn_major)) ||
+      (n == 96 && mn_major))
+    return cudaErrorInvalidValue;
+  if (n == 64)
+    wgmma_tile_check<64><<<1, 128, 0, st>>>(ab, bb, c, mn_major, a_mn_major);
+  else if (n == 96)
+    wgmma_tile_check<96><<<1, 128, 0, st>>>(ab, bb, c, mn_major, a_mn_major);
   else if (n == 128)
-    wgmma_tile_check<128><<<1, 128, 0, st>>>(ab, bb, c, mn_major);
+    wgmma_tile_check<128><<<1, 128, 0, st>>>(ab, bb, c, mn_major, a_mn_major);
   else if (n == 256)
-    wgmma_tile_check<256><<<1, 128, 0, st>>>(ab, bb, c, mn_major);
+    wgmma_tile_check<256><<<1, 128, 0, st>>>(ab, bb, c, mn_major, a_mn_major);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Warpgroup tensor-core helpers for Hopper (sm_90a), shared by the kernels
 // under csrc/: shared-memory matrix descriptors for the 128-byte swizzle,
 // the bf16 wgmma.mma_async m64n64k16 with f32 accumulate (A from shared
-// memory or from registers) and its m64n32k16 / m64n128k16 / m64n256k16
-// forms (A from shared memory), the fences and group waits around
+// memory or from registers) and its m64n32k16 / m64n96k16 / m64n128k16 /
+// m64n256k16 forms (A from shared memory, K-major or MN-major), the fences and group waits around
 // them, cp.async into the swizzled layout, the slab ring of the persistent
 // wgmma kernels (slab_ring), an accumulator row's 16-byte bf16 pieces
 // (row8_bf16) and the once-a-device shared-memory attribute (with_smem).
@@ -12,8 +12,10 @@
 // holds row r at byte r*128, and its 16-byte piece j (columns 8j..8j+7) at
 // piece position j ^ (r % 8).  Chunks start 1024-byte aligned.  Read with
 // rows as M/N and columns as K this is the K-major operand; read with
-// rows as K and columns as N it is the MN-major operand (transpose bit
-// set), so a V tile stored row by row feeds O += P V unchanged.
+// rows as K and columns as M/N it is the MN-major operand (transpose bit
+// set), so a V tile stored row by row feeds O += P V unchanged, and so
+// does a row-major (K, M) tile as A of A^T B (the MN-major A of the
+// memcom_xattn backward's dK = dS^T Q).
 //
 // Accumulator fragment of m64nN (f32, thread t of the warpgroup, w = t/32,
 // g = (t%32)/4, q = t%4): d[4n+0..1] = (row 16w+g, cols 8n+2q, 8n+2q+1),
@@ -93,16 +95,17 @@ __device__ __forceinline__ void reg_fence(uint32_t (&a)[4]) {
   "+f"(d[31])
 
 // d (+)= A B for a 64 x 64 x 16 tile, A and B in shared memory (A
-// K-major; B K-major, or MN-major with TB = 1).  accumulate = 0 ignores d.
-template <int TB>
+// K-major, or MN-major with TA = 1; B K-major, or MN-major with TB = 1).
+// accumulate = 0 ignores d.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
                                        uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      ", %32, %33, p, 1, 1, %36, %35;\n}\n"
       : WGMMA_OUT32(d)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
 // The same with A (64 x 16 bf16) from registers, in the fragment above.
@@ -127,17 +130,33 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 // The narrow form of mma_ss: d (+)= A B for a 64 x 32 x 16 tile (d: 16
 // floats a thread, the accumulator fragment above with n = 0..3).
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
-      ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+      ", %16, %17, p, 1, 1, %20, %19;\n}\n"
       : WGMMA_OUT16(d)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
+#define WGMMA_D48 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47}"
+#define WGMMA_OUT48(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+  "+f"(d[46]), "+f"(d[47])
 #define WGMMA_D64 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
@@ -197,37 +216,51 @@ __device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t da,
   "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
   "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
-// The wider forms of mma_ss: d (+)= A B for a 64 x 128 x 16 tile (d: 64
-// floats a thread) and a 64 x 256 x 16 tile (128 floats), in the
-// accumulator fragment above with n = 0..15 or 0..31.  An MN-major B
+// The wider forms of mma_ss: d (+)= A B for a 64 x 96 x 16 tile (d: 48
+// floats a thread), a 64 x 128 x 16 tile (64 floats) and a 64 x 256 x 16
+// tile (128 floats), in the accumulator fragment above with n = 0..11,
+// 0..15 or 0..31.  An MN-major B
 // wider than 64 columns is a row of 64-column chunks, lbo bytes apart.
-template <int TB>
+// An MN-major A (TA = 1: the 64 rows of M run along a chunk's columns, its
+// rows are K) is one such chunk.
+template <int TB, int TA = 0>
+__device__ __forceinline__ void mma_ss96(float (&d)[48], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 " WGMMA_D48
+      ", %48, %49, p, 1, 1, %52, %51;\n}\n"
+      : WGMMA_OUT48(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
+}
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss128(float (&d)[64], uint64_t da,
                                           uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64
-      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      ", %64, %65, p, 1, 1, %68, %67;\n}\n"
       : WGMMA_OUT64(d)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss256(float (&d)[128], uint64_t da,
                                           uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGMMA_D128
-      ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+      ", %128, %129, p, 1, 1, %132, %131;\n}\n"
       : WGMMA_OUT128(d)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
-// mma_ss at N = 128 or 256 columns.
-template <int N, int TB>
+// mma_ss at N = 96, 128 or 256 columns.
+template <int N, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(N == 128 || N == 256, "wgmma N: 128 or 256");
-  if constexpr (N == 128) mma_ss128<TB>(d, da, db, accumulate);
-  else mma_ss256<TB>(d, da, db, accumulate);
+  static_assert(N == 96 || N == 128 || N == 256, "wgmma N: 96, 128 or 256");
+  if constexpr (N == 96) mma_ss96<TB, TA>(d, da, db, accumulate);
+  else if constexpr (N == 128) mma_ss128<TB, TA>(d, da, db, accumulate);
+  else mma_ss256<TB, TA>(d, da, db, accumulate);
 }
 template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N]) {
@@ -239,6 +272,8 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #undef WGMMA_OUT16
 #undef WGMMA_D32
 #undef WGMMA_OUT32
+#undef WGMMA_D48
+#undef WGMMA_OUT48
 #undef WGMMA_D64
 #undef WGMMA_OUT64
 #undef WGMMA_D128

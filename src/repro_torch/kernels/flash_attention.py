@@ -518,32 +518,37 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
     return dq, dk, dv
 
 
-def wgmma_tile_check(a, b, *, b_mn_major, n=64):
+def wgmma_tile_check(a, b, *, b_mn_major, n=64, a_mn_major=False):
     """One 64 x ``n`` x 64 bf16 product through ``csrc/wgmma_sm90.cuh``'s
-    helpers on the card, f32 result: ``a`` (M, K); ``b`` (N, K) read
-    K-major or (``b_mn_major``) ``b`` (K, N) read MN-major.  ``n`` = 64: A
-    from shared memory with K-major ``b``, from registers with MN-major
-    ``b`` — the two forms the flash kernel uses.  ``n`` = 128 or 256: A
-    from shared memory, ``b`` MN-major (the gmm and memcom_xattn output
-    kernels) or K-major (the memcom_xattn logits kernel).  A check of the
-    helpers, held to ``torch.matmul`` by the ``cuda`` tests."""
+    helpers on the card, f32 result: ``a`` (M, K) read K-major, or
+    (``a_mn_major``) ``a`` (K, M) read MN-major, giving a^T b; ``b`` (N, K)
+    read K-major or (``b_mn_major``) ``b`` (K, N) read MN-major.  ``n`` =
+    64: A from shared memory with K-major ``b``, from registers with
+    MN-major ``b`` — the two forms the flash kernel uses.  ``n`` = 96, 128
+    or 256: A from shared memory, ``b`` MN-major (the gmm and memcom_xattn
+    output kernels; not at 96) or K-major (the memcom_xattn logits and
+    backward S / dP kernels); A MN-major with ``b`` MN-major at 128 and
+    256 (the memcom_xattn backward's dK and dV).  A check of the helpers,
+    held to ``torch.matmul`` by the ``cuda`` tests."""
     b_shape = (64, n) if b_mn_major else (n, 64)
     if not (a.is_cuda and b.is_cuda and a.dtype == b.dtype == torch.bfloat16
             and a.shape == (64, 64) and b.shape == b_shape
-            and n in (64, 128, 256)
+            and n in (64, 96, 128, 256) and not (n == 96 and b_mn_major)
+            and not (a_mn_major and (n < 128 or not b_mn_major))
             and a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a must be (64, 64) and b (64, n) MN-major or (n, "
                          "64) K-major, contiguous bf16 on the card; n = 64, "
-                         "128 or 256")
+                         "96 (b K-major), 128 or 256; a MN-major with b "
+                         "MN-major at n = 128 or 256")
     lib = build.load("flash_attention")
     fn = lib.flash_wgmma_tile_check
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     c = torch.empty((64, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), n, int(b_mn_major),
-                 torch.cuda.current_stream(a.device).cuda_stream)
+                 int(a_mn_major), torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wgmma tile check launch failed: cudaError {err}")
     return c

@@ -13,13 +13,20 @@ widths: logits, softmax rows and output on mma.sync, three launches) and
 ``"float32"``.  ``launches`` counts wrapper calls that launched a kernel;
 ``wgmma_launches`` those that went to the wgmma variant.
 
+Every kernel also gives each query row's logsumexp (``return_lse``).
+
 A CUDA call is differentiable: when q, k or v needs a gradient the
 forward runs inside :class:`MemcomXattn` (an ``autograd.Function`` whose
-forward is the same kernel call) and its backward launches the
-hand-written backward of ``csrc/memcom_xattn.cu`` (:func:`memcom_xattn_bwd`:
-five products on the source's own tiled kernels and a softmax row pass,
-held to ``plain.memcom_xattn_bwd_ref``).  There is no fallback to the
-plain backward.  ``bwd_launches`` counts backward calls.  With no
+forward is the same kernel call, keeping out and lse) and its backward
+launches the hand-written backward of ``csrc/memcom_xattn.cu``
+(:func:`memcom_xattn_bwd`, held to ``plain.memcom_xattn_bwd_ref``), whose
+variant :func:`bwd_variant_for` picks: ``"wgmma"`` (bf16 at D % 64 == 0:
+D_i from out, S and dP on wgmma with P and dS formed in their epilogue
+from lse, then dQ, dK and dV tiles in one launch; three launches),
+``"mma_sync"`` (the other bf16 widths: five products on mma.sync and a
+softmax row pass; six launches) and ``"float32"``.  There is no fallback
+to the plain backward.  ``bwd_launches`` counts backward calls,
+``bwd_wgmma_launches`` those that went to the wgmma variant.  With no
 gradient needed the call is the plain kernel call, as before.
 """
 
@@ -35,6 +42,7 @@ from repro_torch.kernels import build, plain
 launches = 0
 wgmma_launches = 0
 bwd_launches = 0
+bwd_wgmma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"float32": 0, "mma_sync": 0, "wgmma": 1}
@@ -51,6 +59,12 @@ FILL_SPLITS = 4
 SPLIT_SLABS_MAX = 62
 WGMMA_MAX_T = MAX_SPLITS * SPLIT_SLABS_MAX * 64
 _MAX_GRID = 65535
+# The wgmma backward's: its S / dP tile (SDP_BM x SDP_BN), its gradient
+# tile (OUT_BM x OUT_BN, the forward output kernel's) and the most splits
+# of T a dQ tile (a cluster).
+SDP_BM, SDP_BN = 128, 96
+GRAD_MAX_SPLITS = 4
+_MAX_BLOCKS = 2 ** 31 - 1
 
 
 def _cdiv(a, b):
@@ -98,11 +112,61 @@ def num_splits(B, M, T, D, sms=132) -> int:
     return max(least, min(FILL_SPLITS, sms // tiles), 1)
 
 
+def bwd_takes(variant, dtype, B, M, T, D, aligned) -> bool:
+    """Whether backward kernel ``variant`` computes a call of this shape
+    at all; ``aligned``: q, k, v, out and dout start on 16-byte
+    boundaries (the bf16 kernels read 16 bytes at a time)."""
+    if variant == "float32":
+        return dtype == torch.float32
+    if dtype != torch.bfloat16 or not aligned:
+        return False
+    if variant == "mma_sync":
+        return D % 8 == 0
+    if variant != "wgmma" or D % 64:
+        return False
+    s = bwd_num_splits(B, M, T, D)
+    sdp_tiles = B * _cdiv(M, SDP_BM) * _cdiv(T, SDP_BN)
+    grad_blocks = (B * _cdiv(M, OUT_BM) * _cdiv(D, OUT_BN) * s
+                   + _cdiv(2 * B * _cdiv(T, OUT_BM) * _cdiv(D, OUT_BN), s) * s)
+    return max(sdp_tiles, grad_blocks) <= _MAX_BLOCKS
+
+
+def bwd_variant_for(dtype, B, M, T, D, aligned) -> str:
+    """The backward kernel a CUDA call goes to: float32 on the CUDA cores;
+    a bf16 call the wgmma variant takes (D a multiple of 64, 16-byte
+    aligned inputs, its grids within their limits; any T) goes to it, the
+    other bf16 calls to mma.sync."""
+    if dtype == torch.float32:
+        return "float32"
+    if bwd_takes("wgmma", dtype, B, M, T, D, aligned):
+        return "wgmma"
+    return "mma_sync"
+
+
+def bwd_num_splits(B, M, T, D, sms=132) -> int:
+    """Splits of T for each dQ tile of the wgmma backward's gradient
+    kernel (the blocks of one thread block cluster): the fewest, at most
+    ``GRAD_MAX_SPLITS`` and at most T's 64-deep slabs, that keep a split's
+    slabs within the mean slabs a block walks with one block on each of
+    the ``sms`` multiprocessors, so that no dQ block outlasts the dK and
+    dV blocks beside it; then as few as cover T's slabs at that length
+    (no split is empty).  gemma2-2b's and mistral-7b's training shapes
+    take 1, granite's 2."""
+    nk_t, nk_m = _cdiv(T, 64), _cdiv(M, 64)
+    q_tiles = B * _cdiv(M, OUT_BM) * _cdiv(D, OUT_BN)
+    kv_tiles = 2 * B * _cdiv(T, OUT_BM) * _cdiv(D, OUT_BN)
+    mean = (q_tiles * nk_t + kv_tiles * nk_m) / sms
+    s = next((n for n in range(1, GRAD_MAX_SPLITS + 1)
+              if _cdiv(nk_t, n) <= mean), GRAD_MAX_SPLITS)
+    s = min(s, nk_t)
+    return _cdiv(nk_t, _cdiv(nk_t, s))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = build.load("memcom_xattn")
     fn = lib.memcom_xattn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -110,11 +174,12 @@ def _kernel():
     ws.argtypes = [ctypes.c_int] * 5
     ws.restype = ctypes.c_longlong
     bwd = lib.memcom_xattn_bwd
-    bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                    + [ctypes.c_float] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     bwd_ws = lib.memcom_xattn_bwd_workspace_bytes
-    bwd_ws.argtypes = [ctypes.c_int] * 4
+    bwd_ws.argtypes = [ctypes.c_int] * 5
     bwd_ws.restype = ctypes.c_longlong
     return fn, ws, bwd, bwd_ws
 
@@ -149,12 +214,14 @@ def _check(q, k, v):
         raise ValueError("memcom_xattn needs at least one source token")
 
 
-def _aligned(q, k, v):
-    return all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+def _aligned(*ts):
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def memcom_xattn(q, k, v, *, scale=None, variant=None):
-    """(B,M,D) x (B,T,D) x (B,T,D) -> (B,M,D), one head of width D.
+def memcom_xattn(q, k, v, *, scale=None, variant=None, return_lse=False):
+    """(B,M,D) x (B,T,D) x (B,T,D) -> (B,M,D) [, lse (B,M) f32], one head
+    of width D; lse is each row's logsumexp of the scaled logits (it takes
+    no gradient).
 
     ``variant`` forces ``"wgmma"`` or ``"mma_sync"`` instead of
     :func:`variant_for`'s choice, so that both bf16 kernels can be held to
@@ -175,32 +242,38 @@ def memcom_xattn(q, k, v, *, scale=None, variant=None):
                 "inputs, mma_sync D % 8 == 0, wgmma D % 64 == 0 and T <= "
                 f"{WGMMA_MAX_T}")
     if not q.is_cuda:
-        return plain.memcom_xattn_ref(q, k, v, scale=scale)
+        return plain.memcom_xattn_ref(q, k, v, scale=scale,
+                                      return_lse=return_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return MemcomXattn.apply(q, k, v, scale, variant)
-    return _forward(q, k, v, scale, variant)
+        out, lse = MemcomXattn.apply(q, k, v, scale, variant)
+    else:
+        out, lse = _forward(q, k, v, scale, variant)
+    return (out, lse) if return_lse else out
 
 
 class MemcomXattn(torch.autograd.Function):
-    """The CUDA forward kernel with the backward kernel as its gradient."""
+    """The CUDA forward kernel with the backward kernel as its gradient;
+    returns (out, lse), lse without a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, variant):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _forward(q, k, v, scale, variant)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.scale = scale
-        return _forward(q, k, v, scale, variant)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        return (*memcom_xattn_bwd(q, k, v, dout, scale=ctx.scale), None,
-                None)
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*memcom_xattn_bwd(q, k, v, out, lse, dout, scale=ctx.scale),
+                None, None)
 
 
 def _forward(q, k, v, scale, variant):
     """Launches the forward kernel ``variant`` (None: :func:`variant_for`'s
-    choice) on CUDA tensors."""
+    choice) on CUDA tensors; returns out and lse."""
     _check(q, k, v)
     B, M, D = q.shape
     T = k.shape[1]
@@ -214,12 +287,12 @@ def _forward(q, k, v, scale, variant):
                 f"width {D}: the bf16 kernels take D % 8 == 0")
         raise ValueError(f"B={B}, M={M}: the grid takes B <= {_MAX_GRID} "
                          f"and M <= 64 * {_MAX_GRID}")
-    return _launch(q, k, v, chosen, scale)[0]
+    return _launch(q, k, v, chosen, scale)[:2]
 
 
 def _launch(q, k, v, chosen, scale):
-    """Launches kernel ``chosen`` on a call it takes; returns the output
-    and the workspace."""
+    """Launches kernel ``chosen`` on a call it takes; returns the output,
+    lse and the workspace."""
     global launches, wgmma_launches
     B, M, D = q.shape
     T = k.shape[1]
@@ -228,20 +301,21 @@ def _launch(q, k, v, chosen, scale):
     nsplit = num_splits(B, M, T, D, _sms(q.device.index or 0)) \
         if chosen == "wgmma" else 1
     out = torch.empty_like(q)
+    lse = torch.empty((B, M), dtype=torch.float32, device=q.device)
     ws = torch.empty(_cdiv(workspace_bytes(B, M, T, q.dtype, chosen), 4),
                      dtype=torch.float32, device=q.device)
     fn = _kernel()[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 ws.data_ptr(), B, M, T, D, float(scale), _DTYPES[q.dtype],
-                 _VARIANTS[chosen], nsplit, stream)
+                 lse.data_ptr(), ws.data_ptr(), B, M, T, D, float(scale),
+                 _DTYPES[q.dtype], _VARIANTS[chosen], nsplit, stream)
     if err != 0:
         raise RuntimeError(f"memcom_xattn kernel launch failed ({chosen}): "
                            f"cudaError {err}")
     launches += 1
     wgmma_launches += chosen == "wgmma"
-    return out, ws
+    return out, lse, ws
 
 
 def wgmma_pieces(q, k, v, *, scale=None):
@@ -258,7 +332,7 @@ def wgmma_pieces(q, k, v, *, scale=None):
     if not (q.is_cuda and takes("wgmma", q.dtype, B, M, T, D,
                                 _aligned(q, k, v))):
         raise NotImplementedError("the wgmma kernel does not take this call")
-    out, ws = _launch(q, k, v, "wgmma", scale)
+    out, _, ws = _launch(q, k, v, "wgmma", scale)
     Tp, nt = _cdiv(T, 8) * 8, _cdiv(T, LG_BN)
     raw = ws.view(torch.uint8)
     p = raw[:2 * B * M * Tp].view(torch.bfloat16).view(B, M, Tp)[..., :T]
@@ -268,45 +342,104 @@ def wgmma_pieces(q, k, v, *, scale=None):
     return out, p.view(B, M, nt, LG_BN), ml[..., 0], ml[..., 1]
 
 
-def bwd_workspace_bytes(B: int, M: int, T: int, dtype: torch.dtype) -> int:
-    """Bytes of the workspace one backward call allocates: S and dP in
-    float32, and P and dS in bf16 for bf16 inputs."""
-    return int(_kernel()[3](B, M, T, _DTYPES[dtype]))
+def bwd_workspace_bytes(B: int, M: int, T: int, dtype: torch.dtype,
+                        variant: str) -> int:
+    """Bytes of the workspace one call to backward kernel ``variant``
+    allocates: P and dS in bf16 and D_i for ``"wgmma"``; S and dP in
+    float32, and P and dS in bf16, for ``"mma_sync"``; S and dP for
+    ``"float32"``."""
+    return int(_kernel()[3](B, M, T, _DTYPES[dtype], _VARIANTS[variant]))
 
 
-def memcom_xattn_bwd(q, k, v, dout, *, scale=None):
-    """dq (B,M,D), dk and dv (B,T,D) of :func:`memcom_xattn` given the
-    cotangent ``dout``.  A CPU call goes to ``plain.memcom_xattn_bwd_ref``;
-    a CUDA call launches the backward kernels (bf16 at D % 8 == 0 with
-    16-byte aligned inputs, or float32) or raises."""
-    global bwd_launches
-    if not q.is_cuda:
-        return plain.memcom_xattn_bwd_ref(q, k, v, dout, scale=scale)
-    dout = (dout.contiguous() if dout.data_ptr() % 16 == 0
-            else dout.clone(memory_format=torch.contiguous_format))
+def memcom_xattn_bwd(q, k, v, out, lse, dout, *, scale=None, variant=None):
+    """dq (B,M,D), dk and dv (B,T,D) of :func:`memcom_xattn` given its out
+    and lse and the cotangent ``dout``.  A CPU call goes to
+    ``plain.memcom_xattn_bwd_ref``; a CUDA call launches the backward
+    kernel :func:`bwd_variant_for` picks or raises.  ``variant`` forces
+    ``"wgmma"`` or ``"mma_sync"``; a variant that does not take the call
+    raises ``NotImplementedError`` (a CPU call too, which then goes to the
+    plain version)."""
     _check(q, k, v)
-    if dout.shape != q.shape or dout.dtype != q.dtype:
-        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
-                         f"match q {tuple(q.shape)} {q.dtype}")
     B, M, D = q.shape
     T = k.shape[1]
-    if q.dtype == torch.bfloat16 and (D % 8 or not _aligned(q, k, v)):
+    if variant is not None:
+        if variant not in ("wgmma", "mma_sync"):
+            raise ValueError(f"unknown variant {variant!r}")
+        aligned = _aligned(q, k, v, out, dout)
+        if not bwd_takes(variant, q.dtype, B, M, T, D, aligned):
+            raise NotImplementedError(
+                f"the {variant} backward does not take {q.dtype} q "
+                f"{tuple(q.shape)} k {tuple(k.shape)} (aligned: {aligned}):"
+                " both take bf16 with 16-byte aligned q, k, v, out and dout,"
+                " mma_sync D % 8 == 0, wgmma D % 64 == 0")
+    if not q.is_cuda:
+        return plain.memcom_xattn_bwd_ref(q, k, v, dout, scale=scale)
+    out, dout, lse = (t.contiguous() if t.data_ptr() % 16 == 0
+                      else t.clone(memory_format=torch.contiguous_format)
+                      for t in (out, dout, lse))  # 16-byte rows
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or out.shape != q.shape or out.dtype != q.dtype \
+            or lse.shape != (B, M) or lse.dtype != torch.float32:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}, lse be (B, M) float32")
+    aligned = _aligned(q, k, v, out, dout)
+    chosen = variant or bwd_variant_for(q.dtype, B, M, T, D, aligned)
+    if not bwd_takes(chosen, q.dtype, B, M, T, D, aligned):
         raise NotImplementedError(
             f"the bf16 backward takes D % 8 == 0 and 16-byte aligned inputs,"
-            f" got D={D}")
+            f" got D={D}, aligned {aligned}")
+    return _bwd_launch(q, k, v, out, lse, dout, chosen, scale)[:3]
+
+
+def _bwd_launch(q, k, v, out, lse, dout, chosen, scale):
+    """Launches backward kernel ``chosen`` on a call it takes; returns dq,
+    dk, dv and the workspace."""
+    global bwd_launches, bwd_wgmma_launches
+    B, M, D = q.shape
+    T = k.shape[1]
     if scale is None:
         scale = D ** -0.5
+    nsplit = (bwd_num_splits(B, M, T, D, _sms(q.device.index or 0))
+              if chosen == "wgmma" else 1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ws = torch.empty(_cdiv(bwd_workspace_bytes(B, M, T, q.dtype), 4),
+    ws = torch.empty(_cdiv(bwd_workspace_bytes(B, M, T, q.dtype, chosen), 4),
                      dtype=torch.float32, device=q.device)
     fn = _kernel()[2]
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
-                 B, M, T, D, float(scale), _DTYPES[q.dtype],
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, M, T, D,
+                 float(scale), _DTYPES[q.dtype], _VARIANTS[chosen], nsplit,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"memcom_xattn backward kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"memcom_xattn backward kernel launch failed "
+                           f"({chosen}): cudaError {err}")
     bwd_launches += 1
-    return dq, dk, dv
+    bwd_wgmma_launches += chosen == "wgmma"
+    return dq, dk, dv, ws
+
+
+def wgmma_bwd_pieces(q, k, v, out, lse, dout, *, scale=None):
+    """One call of the wgmma backward on the card, with what its first two
+    kernels leave in the workspace (the layout csrc/memcom_xattn.cu
+    states): dq, dk, dv, then P and dS (B, M, Tp) in float32 (bf16 values;
+    Tp = T rounded up to 8) and D_i (B, M).  For the card tests and
+    scripts/xattn_bwd_times.py, which set P and dS against
+    ``plain.memcom_xattn_bwd_tiled``'s."""
+    _check(q, k, v)
+    B, M, D = q.shape
+    T = k.shape[1]
+    if not (q.is_cuda and bwd_takes("wgmma", q.dtype, B, M, T, D,
+                                    _aligned(q, k, v, out, dout))):
+        raise NotImplementedError("the wgmma backward does not take this "
+                                  "call")
+    dq, dk, dv, ws = _bwd_launch(q, k, v, out.contiguous(),
+                                 lse.contiguous(), dout.contiguous(),
+                                 "wgmma", scale)
+    n = B * M * _cdiv(T, 8) * 8
+    raw = ws.view(torch.uint8)
+    p, ds = (raw[2 * i * n:2 * (i + 1) * n].view(torch.bfloat16)
+             .view(B, M, -1).float() for i in range(2))
+    di = raw[4 * n:4 * n + 4 * B * M].view(torch.float32).view(B, M)
+    return dq, dk, dv, p, ds, di

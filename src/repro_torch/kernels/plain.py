@@ -212,15 +212,17 @@ def attention_bwd_tiled(q, k, v, out, lse, dout, dlse=None, *, q_pos,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def memcom_xattn_ref(q, k, v, *, scale=None):
+def memcom_xattn_ref(q, k, v, *, scale=None, return_lse=False):
     """The paper's 1-head cross-attention (``ref.py:50``): m memory queries
-    over t source tokens, head width = d_model, no mask."""
+    over t source tokens, head width = d_model, no mask.  ``return_lse``:
+    also each row's logsumexp of the float32 logits, (B, M) float32."""
     D = q.shape[-1]
     if scale is None:
         scale = D ** -0.5
     logits = torch.einsum("bmd,btd->bmt", q.float(), k.float()) * scale
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bmt,btd->bmd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bmt,btd->bmd", p, v.float()).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
 
 
 def memcom_xattn_bwd_ref(q, k, v, dout, *, scale=None):
@@ -239,6 +241,43 @@ def memcom_xattn_bwd_ref(q, k, v, dout, *, scale=None):
     dk = torch.einsum("bmt,bmd->btd", ds, qf) * scale
     dv = torch.einsum("bmt,bmd->btd", p, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def memcom_xattn_bwd_tiled(q, k, v, out, lse, dout, *, round_p=True,
+                           splits=1, scale=None):
+    """The wgmma ``memcom_xattn`` backward's arithmetic (``csrc/
+    memcom_xattn.cu``), restated for the tests; no kernel's CPU path.
+
+    D_i = rowsum(dO o O) in float32 from the given ``out`` (the forward's
+    output).  S = scale Q K^T and dP = dO V^T in float32; P = exp(S -
+    lse) from the given ``lse`` and dS = P o (dP - D_i), both from the
+    unrounded float32 values, then rounded to bf16 when ``round_p`` (the
+    S / dP kernel stores them in bf16).  dQ = scale dS K summed in float32
+    as ``splits`` stretches of whole 64-column slabs of T (ceil(slabs /
+    splits) slabs each), added in split order; dK = scale dS^T Q and dV =
+    P^T dO summed over M in float32.  The tile width of S and dP does not
+    enter: every element of P comes from lse alone.  Gradients in q's
+    type."""
+    B, M, D = q.shape
+    T = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    di = (dof * out.float()).sum(dim=-1, keepdim=True)
+    s = torch.einsum("bmd,btd->bmt", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    ds = p * (torch.einsum("bmd,btd->bmt", dof, vf) - di)
+    if round_p:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    nk = -(-T // 64)
+    per = -(-nk // splits)
+    dq = torch.zeros(B, M, D, dtype=torch.float32, device=q.device)
+    for i in range(splits):
+        lo, hi = min(T, i * per * 64), min(T, (i + 1) * per * 64)
+        dq = dq + torch.einsum("bmt,btd->bmd", ds[..., lo:hi], kf[:, lo:hi])
+    dk = torch.einsum("bmt,bmd->btd", ds, qf) * scale
+    dv = torch.einsum("bmt,bmd->btd", p, dof)
+    return (dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def memcom_xattn_tiled(q, k, v, *, block_t=128, round_p=True, splits=1,

@@ -146,7 +146,8 @@ def test_memcom_xattn_bwd_ref_matches_jax_vjp_and_autograd(rng, shape):
             for _ in range(2))
     _, vjp = jax.vjp(jref.memcom_xattn_ref, q, k, v)
     want = vjp(jnp.asarray(do))
-    got = mx.memcom_xattn_bwd(_t(q), _t(k), _t(v), _t(do))
+    out, lse = mx.memcom_xattn(_t(q), _t(k), _t(v), return_lse=True)
+    got = mx.memcom_xattn_bwd(_t(q), _t(k), _t(v), out, lse, _t(do))
     for g, w in zip(got, want):
         _close(g, w)
     xs = [_t(x).requires_grad_(True) for x in (q, k, v)]
@@ -189,11 +190,11 @@ def test_autograd_functions_route_the_gradient_through_the_backward(
         return (dq if need_dq else None), dk, dv
 
     def xfwd(q, k, v, scale, variant):
-        return xattn_ref(q, k, v, scale=scale)
+        return xattn_ref(q, k, v, scale=scale, return_lse=True)
 
-    def xbwd(*a, **kw):
+    def xbwd(q, k, v, out, lse, dout, **kw):
         calls.append(("xattn", True))
-        return plain.memcom_xattn_bwd_ref(*a, **kw)
+        return plain.memcom_xattn_bwd_ref(q, k, v, dout, **kw)
 
     monkeypatch.setattr(fa, "_forward", fwd)
     monkeypatch.setattr(fa, "flash_attention_bwd", bwd)
@@ -220,7 +221,7 @@ def test_autograd_functions_route_the_gradient_through_the_backward(
                 mp.setattr(plain, "attention_ref", attention)
                 mp.setattr(plain, "memcom_xattn_ref",
                            lambda q, k, v, scale=None: mx.MemcomXattn.apply(
-                               q, k, v, scale, None))
+                               q, k, v, scale, None)[0])
             o = ops.attention_with_prefix(*xs[:5], softcap=3.0, impl="torch")
             x = ops.memcom_xattn(*xs[5:], impl="torch")
         loss = (o * w_o).sum() + (x * w_x).sum()

@@ -151,11 +151,11 @@ def test_wgmma_tile_product_matches_matmul(cuda, rng, n, mn_major):
     assert _err(c, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("n", [96, 128, 256])
 def test_wgmma_wide_forms_match_matmul(cuda, rng, n):
     """The K-major form of csrc/wgmma_sm90.cuh's mma_ss_n: B K-major at n =
-    128 / 256 with A from shared memory (xattn_logits_wgmma's).  f32 sums
-    of 64 bf16 products: 1e-4."""
+    96 / 128 / 256 with A from shared memory (xattn_bwd_sdp_wgmma's and
+    xattn_logits_wgmma's).  f32 sums of 64 bf16 products: 1e-4."""
     a = _rand(rng, 64, 64, dtype="bfloat16")
     b = _rand(rng, n, 64, dtype="bfloat16")
     c = fa.wgmma_tile_check(a, b, b_mn_major=False, n=n)
@@ -1012,21 +1012,198 @@ def test_flash_bwd_dispatch_and_forced_variants(cuda, rng):
         fa.flash_attention_bwd(q, k, v, out, lse, dout, variant="tc", **kw)
 
 
-@pytest.mark.parametrize("shape", [(1, 512, 3072, 2304), (1, 512, 3072, 1536),
-                                   (2, 40, 300, 256), (1, 17, 99, 72)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_memcom_xattn_bwd_matches_plain(cuda, rng, shape, dtype):
+XBWD_SHAPES = [(1, 512, 3072, 2304), (1, 512, 3072, 1536), (2, 40, 300, 256),
+               (1, 17, 99, 72), (1, 17, 99, 64)]
+XBWD_CASES = [
+    *((shape, "float32", None) for shape in XBWD_SHAPES[:4]),
+    *((shape, "bfloat16", var) for shape in XBWD_SHAPES
+      for var in ("wgmma", "mma_sync")
+      if mx.bwd_takes(var, torch.bfloat16, *shape, True)),
+]
+
+
+def _xbwd_inputs(rng, shape, dtype):
+    """q, k, v, dout with std 0.5 and the forward's out and lse."""
     B, M, T, D = shape
     q, dout = (_rand(rng, B, M, D, dtype=dtype) for _ in range(2))
     k, v = (_rand(rng, B, T, D, dtype=dtype) for _ in range(2))
-    before = mx.bwd_launches
-    got = mx.memcom_xattn_bwd(q, k, v, dout)
+    out, lse = mx.memcom_xattn(q, k, v, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("shape,dtype,variant", XBWD_CASES)
+def test_memcom_xattn_bwd_matches_plain(cuda, rng, shape, dtype, variant):
+    """Every shape through each backward kernel that takes it (float32;
+    bf16 through the wgmma and the mma.sync variant, each forced), given
+    the forward's out and lse."""
+    q, k, v, out, lse, dout = _xbwd_inputs(rng, shape, dtype)
+    before = (mx.bwd_launches, mx.bwd_wgmma_launches)
+    got = mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant=variant)
     torch.cuda.synchronize()
-    assert mx.bwd_launches == before + 1
+    assert (mx.bwd_launches, mx.bwd_wgmma_launches) == (
+        before[0] + 1, before[1] + (variant == "wgmma"))
     want = plain.memcom_xattn_bwd_ref(q, k, v, dout)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         _assert_grad_close(g, w, dtype, name)
+
+
+LSE_CASES = [
+    (shape, dtype, var)
+    for shape, dtype in (((2, 40, 300, 256), "bfloat16"),
+                         ((1, 512, 3072, 2304), "bfloat16"),
+                         ((1, 17, 99, 72), "bfloat16"),
+                         ((2, 40, 300, 256), "float32"))
+    for var in (None, "wgmma", "mma_sync")
+    if var is None or mx.takes(var, getattr(torch, dtype), *shape, True)]
+
+
+@pytest.mark.parametrize("shape,dtype,variant", LSE_CASES)
+def test_memcom_xattn_lse_matches_plain(cuda, rng, shape, dtype, variant):
+    """Each forward kernel's lse against the plain version's logsumexp of
+    the float32 logits: within 1e-4 of max(1, |lse|) (float32 sums of D
+    products in another order)."""
+    B, M, T, D = shape
+    q, k, v = _xattn_inputs(rng, shape, dtype)
+    out, lse = mx.memcom_xattn(q, k, v, variant=variant, return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = plain.memcom_xattn_ref(q, k, v, return_lse=True)
+    assert lse.shape == (B, M) and lse.dtype == torch.float32
+    assert torch.equal(out, mx.memcom_xattn(q, k, v, variant=variant))
+    bound = 1e-4 * max(1.0, float(want_lse.abs().max()))
+    assert _err(lse, want_lse) <= bound
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_wgmma_mn_major_a_form_matches_matmul(cuda, rng, n):
+    """The wgmma form of the memcom_xattn backward's dK / dV tiles (A read
+    MN-major through the transpose-A bit, B MN-major, 128-byte swizzle)
+    computes a^T b: f32 sums of 64 bf16 products, 1e-4."""
+    a = _rand(rng, 64, 64, dtype="bfloat16")
+    b = _rand(rng, 64, n, dtype="bfloat16")
+    c = fa.wgmma_tile_check(a, b, b_mn_major=True, n=n, a_mn_major=True)
+    torch.cuda.synchronize()
+    ref = a.float().T @ b.float()
+    assert _err(c, ref) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+# The wgmma backward against its own arithmetic, plain.memcom_xattn_bwd_tiled
+# on the same bf16 inputs, out and lse in float32, in bf16 steps
+# (plain.bf16_ulps).  The last rounding of each gradient gives up to 0.5;
+# S and dP, summed in another order than the restatement's, move a few P
+# and dS values across a bf16 rounding boundary, each moving its term of
+# a gradient's sum by one step of the term, a small share of sums over
+# hundreds or thousands of terms.  On an H100 the kernel reads 0.49-0.75
+# (scripts/xattn_bwd_times.py, PERF.md section 6); the restatement
+# without its rounding of P and dS lies 1.04-2.00 steps from the one with
+# it, so the bound also catches a kernel that skips that rounding.
+TILED_XBWD_ULPS = 1.0
+TILED_XBWD_SHAPES = [(1, 512, 3072, 2304), (1, 512, 3072, 1536),
+                     (2, 40, 300, 256), (1, 17, 99, 64), (2, 130, 700, 512)]
+
+
+def _assert_xbwd_as_tiled(got, q, k, v, out, lse, dout, nsplit):
+    tiled = plain.memcom_xattn_bwd_tiled(
+        *(x.float() for x in (q, k, v, out)), lse, dout.float(),
+        splits=nsplit)
+    for name, g, t in zip(("dq", "dk", "dv"), got, tiled):
+        u = plain.bf16_ulps(g, t)
+        assert u <= TILED_XBWD_ULPS, (
+            f"{name}: {u:.4f} bf16 steps from plain.memcom_xattn_bwd_tiled "
+            f"(limit {TILED_XBWD_ULPS})")
+
+
+@pytest.mark.parametrize("shape", TILED_XBWD_SHAPES)
+def test_memcom_xattn_bwd_wgmma_matches_its_tiled_restatement(cuda, rng,
+                                                              shape):
+    B, M, T, D = shape
+    q, k, v, out, lse, dout = _xbwd_inputs(rng, shape, "bfloat16")
+    got = mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant="wgmma")
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _assert_xbwd_as_tiled(got, q, k, v, out, lse, dout,
+                          mx.bwd_num_splits(B, M, T, D, sms))
+
+
+@pytest.mark.parametrize("nsplit", list(range(1, mx.GRAD_MAX_SPLITS + 1)))
+def test_memcom_xattn_bwd_wgmma_at_any_split_count(cuda, rng, monkeypatch,
+                                                   nsplit):
+    """The dQ tiles' cluster sum at every split count (T = 700: 11 slabs,
+    ragged splits)."""
+    shape = (2, 130, 700, 512)
+    q, k, v, out, lse, dout = _xbwd_inputs(rng, shape, "bfloat16")
+    monkeypatch.setattr(mx, "bwd_num_splits", lambda *a, **kw: nsplit)
+    got = mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant="wgmma")
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got,
+                          plain.memcom_xattn_bwd_ref(q, k, v, dout)):
+        _assert_grad_close(g, w, "bfloat16", name)
+    _assert_xbwd_as_tiled(got, q, k, v, out, lse, dout, nsplit)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 3072, 2304), (2, 40, 300, 256),
+                                   (1, 17, 99, 64)])
+def test_memcom_xattn_bwd_wgmma_pieces_match_their_restatement(cuda, rng,
+                                                               shape):
+    """What the first two kernels leave in the workspace: D_i as the
+    restatement's up to float32 sums of D products in another order
+    (2^-13 of the row's sum of |dO o O|), P and dS within one bf16 step of
+    the restatement's (float32 S and dP summed in another order flip a
+    few roundings), and exactly 0 in the columns T..Tp past the keys.  A
+    query row whose cotangent is 0 gets exactly no dq."""
+    B, M, T, D = shape
+    q, k, v, out, lse, dout = _xbwd_inputs(rng, shape, "bfloat16")
+    dout[:, 3] = 0
+    dq, dk, dv, p, ds, di = mx.wgmma_bwd_pieces(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert p.shape == ds.shape == (B, M, -(-T // 8) * 8)
+    assert not p[..., T:].any() and not ds[..., T:].any()
+    assert not dq[:, 3].any()
+    terms = dout.float() * out.float()
+    assert bool(((di - terms.sum(-1)).abs()
+                 <= 2.0 ** -13 * terms.abs().sum(-1)).all())
+    qf, kf, vf, of, gf = (x.float() for x in (q, k, v, out, dout))
+    s = torch.einsum("bmd,btd->bmt", qf, kf) * D ** -0.5
+    pr = torch.exp(s - lse[..., None])
+    dsr = pr * (torch.einsum("bmd,btd->bmt", gf, vf) - terms.sum(-1)[..., None])
+    pr, dsr = (x.to(torch.bfloat16).float() for x in (pr, dsr))
+    assert plain.bf16_ulps(p[..., :T], pr) <= 1.0
+    assert plain.bf16_ulps(ds[..., :T], dsr) <= 1.0
+
+
+@pytest.mark.parametrize("variant", ["wgmma", "mma_sync"])
+def test_memcom_xattn_bwd_is_deterministic(cuda, rng, variant):
+    """Two calls on the same inputs give the same bits (no atomics; the
+    dQ splits add in a fixed order), at a split count above 1."""
+    shape = (1, 512, 3072, 1536)
+    q, k, v, out, lse, dout = _xbwd_inputs(rng, shape, "bfloat16")
+    if variant == "wgmma":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert mx.bwd_num_splits(*shape, sms) > 1
+    a = mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant=variant)
+    b = mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant=variant)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_memcom_xattn_bwd_dispatch_and_forced_variants(cuda, rng):
+    """bf16 calls at D % 64 == 0 go to the wgmma backward unforced, other
+    bf16 widths to mma.sync; a forced variant that does not take the call
+    raises."""
+    for shape, want in (((1, 40, 300, 256), 1), ((1, 17, 99, 72), 0)):
+        q, k, v, out, lse, dout = _xbwd_inputs(rng, shape, "bfloat16")
+        before = mx.bwd_wgmma_launches
+        mx.memcom_xattn_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        assert mx.bwd_wgmma_launches == before + want
+    with pytest.raises(NotImplementedError):  # D % 64 != 0
+        mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant="wgmma")
+    q, k, v, out, lse, dout = _xbwd_inputs(rng, (1, 40, 300, 256), "float32")
+    for variant in ("wgmma", "mma_sync"):
+        with pytest.raises(NotImplementedError):
+            mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant=variant)
+    with pytest.raises(ValueError):
+        mx.memcom_xattn_bwd(q, k, v, out, lse, dout, variant="tc")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1049,11 +1226,11 @@ def test_gradients_through_ops_reach_the_inputs(cuda, rng, dtype):
         loss = (o.float() * w_attn).sum() + (x.float() * w_x).sum()
         return torch.autograd.grad(loss, xs)
 
-    before = (fa.bwd_launches, mx.bwd_launches)
+    before = (fa.bwd_launches, mx.bwd_launches, mx.bwd_wgmma_launches)
     got = grads("cuda")
     torch.cuda.synchronize()
-    assert (fa.bwd_launches, mx.bwd_launches) == (before[0] + 2,
-                                                  before[1] + 1)
+    assert (fa.bwd_launches, mx.bwd_launches, mx.bwd_wgmma_launches) == (
+        before[0] + 2, before[1] + 1, before[2] + (dtype == "bfloat16"))
     want = grads("torch")
     for i, (g, w) in enumerate(zip(got, want)):
         assert float(g.float().abs().max()) > 0, i
