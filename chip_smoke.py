@@ -30,8 +30,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
       granite's 24/8 heads of 64 (group 3, no softcap): the 3072-token
       source prefill, the 512-token Memory-LLM, a prompt behind the 512
       memory rows, decode, and masked rows; and mistral-7b's 6144-token
-      source prefill (32/8 heads of 128, bf16 only); and probes (bf16
-      only): decode over caches of 2048 and 8192 positions and over 32 to
+      source prefill (32/8 heads of 128, bf16 only) and the online
+      compiler's chunk of 512 source queries at offset 0, 3072 and 5632
+      (``mistral_chunk_<offset>``: one causal call over the offset cached
+      keys and its own, exactly o + 512 keys; the flash entry's
+      ``compile_chunk``); and probes (bf16 only): decode over caches of 2048 and 8192 positions and over 32 to
       72 slots, a prompt of 64 (query, head) rows against a 2048-token
       prefix, and causal self-attention short enough to split the KV
       axis.  Every bf16 shape runs through both bf16 kernels, the wgmma variant and the
@@ -197,12 +200,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
       trained tensors exactly.  Printed: s/step, tokens/s, peak memory,
       and one profiled step's device busy, idle share and the forward and
       backward kernels' device times.
+   e. mistral-7b (after the training phase, the other models freed; 32
+      layers, d_model 4096, 32/8 heads of 128, m = 768; 23.89 B
+      parameters over its three stacks and memx, initialised on the card):
+      as 4a-b on three 6144-token tasks' first two; then the online
+      compiler: O^i of a 512-token chunked compile within
+      ``plain.scaled_err`` 2e-2 of the offline compress and bitwise equal
+      on a second run; two requests on the third (resident) task decode
+      while the first two tasks arrive as raw shots and compile 512
+      source tokens behind each decode step (installed K/V within 2e-2 of
+      the offline prefix; a recompile behind the same steps bitwise equal;
+      printed: chunks interleaved, cold TTFT, the longest decode gap with
+      and without a compile and with a whole-task budget, host clock);
+      then the tiers: the three tasks served in turns through one HBM
+      prefix, one host row and a temporary disk tier (dense and paged,
+      the tokens of an all-HBM engine; demotes, spills, host promotes and
+      disk loads all non-zero; printed: ms of each demote, spill, shard
+      read and promotion from host and from disk, and the shard bytes);
+      last, ``eval_accuracy`` on the committed trained target
+      (``artifacts/bench/target``, dense ``score_labels``, the float32
+      flash kernel at head dim 32) on the card and on the CPU, with the
+      full budget and the fewer-shots protocol: the same labels.
 5. Kernels vs plain end to end, after each model: the pipeline at full
-   width and depth 2, once through the kernels and once forced to the
+   width and depth 2 (mistral-7b's over a 6144-token source into m =
+   768), once through the kernels and once forced to the
    plain versions (``ops.set_default_impl("torch")``): O^i and the
    first-step logits agree within 2e-2 of the reference's largest
-   magnitude (bfloat16); then a paged engine with block size 12 (512 % 12
-   != 0, so the shared tail block is copied on write on the card) serves
+   magnitude (bfloat16); then a paged engine with block size 12 (10 at
+   mistral-7b's m = 768; m is no multiple of it, so the shared tail block
+   is copied on write on the card) serves
    two 2-token requests on one task, two prefills and one decode step
    through ``paged_flash_decode``: the logits of every forward pass, read
    by a forward hook on the target, agree within the same bound.  For the
@@ -425,6 +451,11 @@ def main() -> int:
         # only: the kernel row of a model the main paths do not run yet
         ("mistral_source_prefill", 1, 2 * T, 2 * T, arange(0, 2 * T)[None],
          arange(0, 2 * T)[None], True, mistral_heads),
+        # the online compiler's chunk: 512 source queries at an offset,
+        # causal over the offset cached keys and their own (one call)
+        *((f"mistral_chunk_{off}", 1, 512, off + 512, arange(off, 512)[None],
+           arange(0, off + 512)[None], True, mistral_heads)
+          for off in (0, 3072, 5632)),
         # probes beyond the main paths' shapes (bf16 only), which set
         # fa.variant_for's rule: where the mma.sync variant's KV split
         # pays against the wgmma variant's unsplit walk
@@ -1304,11 +1335,12 @@ def main() -> int:
         return c
 
     class SourcePrefills:
-        """Counts the flash calls of a run over the T-token source prompt
-        (the Source-LLM's prefill) and how many of them the wgmma variant
-        took: every one must."""
+        """Counts the flash calls of a run over the ``T``-token source
+        prompt (the Source-LLM's prefill) and how many of them the wgmma
+        variant took: every one must."""
 
-        def __init__(self):
+        def __init__(self, T):
+            self.T = T
             self.calls = self.wgmma = 0
 
         def __enter__(self):
@@ -1317,7 +1349,7 @@ def main() -> int:
             def spy(q, k, v, **kw):
                 before = fa.wgmma_launches
                 out = self.inner(q, k, v, **kw)
-                if q.shape[1] == T:
+                if q.shape[1] == self.T:
                     self.calls += 1
                     self.wgmma += fa.wgmma_launches - before
                 return out
@@ -1437,10 +1469,14 @@ def main() -> int:
             log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
         return out
 
-    def main_path(arch, need):
+    def main_path(arch, need, geom, then=None):
         """Compress -> dense serve, then a paged serve, of ``arch`` at full
         width and depth; ``need`` names the kernels every path must
-        launch beside ``flash_attention``."""
+        launch beside ``flash_attention``; ``geom`` is (m, T, the task
+        sources, max_len).  ``then(cfg, target, compressor, prefixes,
+        engine, pengine)`` runs further phases on the same models before
+        the profiled runs; what it returns lands under "then"."""
+        m, T, sources, max_len = geom
         cfg = get_config(arch)
         tag = f"[{arch}]"
         torch.cuda.reset_peak_memory_stats()
@@ -1458,7 +1494,7 @@ def main() -> int:
         set_counts()
         t0 = time.perf_counter()
         prefixes, task_s = [], []
-        source_prefills = SourcePrefills()
+        source_prefills = SourcePrefills(T)
         gmm_dense, gmm_paged = GmmByRows(), GmmByRows()
         with source_prefills, gmm_dense:
             for t, src in enumerate(sources):
@@ -1631,6 +1667,8 @@ def main() -> int:
             raise AssertionError(f"{tag}: no gmm call at C = 768 or C = 8 on "
                                  f"a main path: {gmm_by_rows}")
 
+        after = (then(cfg, target, compressor, prefixes, engine, pengine)
+                 if then is not None else None)
         # where the time goes: one warm compress and one warm 4-token serve
         # on each layout under the profiler
         breakdown = {phase: profiled(tag, phase, fn) for phase, fn in (
@@ -1660,7 +1698,7 @@ def main() -> int:
             "compress_s": compress_s, "dense": dense, "paged": paged,
             "peak_bytes": peak_dense, "params": n_params,
             "launches_after_compress": after_compress, "launches": launches,
-            "gmm_by_rows": gmm_by_rows}
+            "gmm_by_rows": gmm_by_rows, "then": after}
 
     # ---- 5. kernels vs plain at full width, depth 2 --------------------
     def rel(a, b):
@@ -1703,7 +1741,8 @@ def main() -> int:
     top_k = moe._top_k
     routing = Routing()
 
-    def kernel_vs_plain(arch):
+    def kernel_vs_plain(arch, geom):
+        m, _, sources, max_len = geom
         cfg = get_config(arch)
         mlp = cfg.layout.period[0].mlp
         cfg2 = cfg.replace(name=f"{arch}-depth2",
@@ -1747,9 +1786,11 @@ def main() -> int:
         if not (rel_omega <= E2E_REL_TOL and rel_logits <= E2E_REL_TOL):
             raise AssertionError(f"{arch}: kernel path and plain path "
                                  "disagree end to end")
-        # a paged engine at block size 12: the shared tail block (512 % 12
-        # = 8 positions) is copied on write by both prefills, then one
-        # decode step reads both slots through their tables
+        # a paged engine at a block size that does not divide m (12 at m
+        # 512, 10 at 768: 8 positions either way): the shared tail block
+        # is copied on write by both prefills, then one decode step reads
+        # both slots through their tables
+        cow_bs = 12 if m % 12 else 10
         kv2 = materialize_prefix(target2, cfg2,
                                  memcom.compress(compressor2, cfg2, src)[0])
         ptoks = [prompts[2], prompts[1]]
@@ -1759,7 +1800,7 @@ def main() -> int:
             logits of the two prefills and of the one decode step, and
             whether both slots copied the shared tail block on write."""
             eng = ServingEngine(cfg2, target2, slots=2, max_len=max_len,
-                                kv_layout="paged", block_size=12)
+                                kv_layout="paged", block_size=cow_bs)
             eng.add_prefix("task", kv2)
             tail = eng.store.blocks("task")[-1]
             rows = []
@@ -1773,7 +1814,8 @@ def main() -> int:
             if len(rows) != 3 or any(len(t) != 2 for t in out.values()):
                 raise AssertionError(f"{len(rows)} forward passes, want 2 "
                                      "prefills and 1 decode step")
-            cow = all(int(eng.tables[s_, m // 12]) != tail for s_ in (0, 1))
+            cow = all(int(eng.tables[s_, m // cow_bs]) != tail
+                      for s_ in (0, 1))
             return torch.cat(rows[:2]), rows[2], cow
 
         set_counts()
@@ -1783,7 +1825,8 @@ def main() -> int:
         pre_p, step_p, _ = plain_run(paged_first_step)
         flips_paged = (routing.flips, routing.rows)
         rel_pre, rel_step = rel(pre_k, pre_p), rel(step_k, step_p)
-        log(f"{tag} paged, depth 2, block size 12 (tail copied on write: "
+        log(f"{tag} paged, depth 2, block size {cow_bs} (tail copied on "
+            f"write: "
             f"{cow}): prefill logits rel err {rel_pre:.3e}, first decode "
             f"step logits rel err {rel_step:.3e} (tol {E2E_REL_TOL:g}); "
             f"launches {e2e_counts}; MoE rows whose plain top-k differs "
@@ -2309,14 +2352,308 @@ def main() -> int:
             p.requires_grad_(False)
         return out
 
+    # ---- mistral-7b: offline, online compile, prefix tiers -------------
+    MT = 2 * T  # the paper's 6144-token many-shot tasks
+    m_rng = np.random.default_rng(24)
+    msources = []
+    for _ in range(3):
+        task = ICLTaskSpec(vocab, num_labels=8, keys_per_label=4)
+        msources.append(build_manyshot_prompt(task, make_episode(task, m_rng),
+                                              m_rng, budget=MT))
+    chunk_w = 512  # the online compile's token budget
+
+    def synced(fn, *a):
+        """``fn(*a)`` and its host seconds, the card drained on both
+        sides."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def gap_serve(eng, specs):
+        """Serve ``specs`` on ``eng`` with its gap counters zeroed: the
+        tokens, the serve seconds, the longest and the mean decode gap
+        (host clock), the compile chunks behind decode steps and each
+        request's TTFT."""
+        for key in ("decode_gap_max_s", "decode_gap_sum_s", "decode_gaps",
+                    "compile_chunks_interleaved",
+                    "decode_steps_during_compile"):
+            eng.counters[key] = type(eng.counters[key])(0)
+        reqs = [Request(**x) for x in specs]
+        out, serve_s = synced(eng.serve, reqs)
+        c_ = eng.counters
+        return out, {
+            "serve_s": serve_s, "decode_gap_max_s": c_["decode_gap_max_s"],
+            "decode_gap_mean_s": c_["decode_gap_sum_s"]
+            / max(1, c_["decode_gaps"]),
+            "compile_chunks_interleaved": c_["compile_chunks_interleaved"],
+            "decode_steps_during_compile": c_["decode_steps_during_compile"],
+            "ttft_s": [eng.request_log[r.uid]["first_token_s"]
+                       - eng.request_log[r.uid]["arrival_s"] for r in reqs],
+            "uids": [r.uid for r in reqs]}
+
+    def row_err(a, b):
+        """The worst ``plain.scaled_err`` over two per-layer K/V rows."""
+        return max(plain.scaled_err(x[key], y[key])
+                   for x, y in zip(a, b) for key in ("k", "v"))
+
+    def mistral_online(cfg, target, compressor, prefixes, resident):
+        """Two 6144-token tasks sent as raw shots, compiled 512 tokens
+        behind each decode step of two requests on a resident task;
+        against the offline compress, twice, and with a whole-task
+        budget."""
+        tag = "[mistral-7b online]"
+        mlen = cfg.memcom.num_memory_tokens + 24 + 2 * max_new + 16
+        out = {}
+        # O^i of the online compile's chunking against the offline one
+        src0 = torch.as_tensor(msources[0][None], device=dev)
+        on = [memcom.compress_chunked(compressor, cfg, src0,
+                                      chunk_size=chunk_w)[0]
+              for _ in range(2)]
+        se = max(plain.scaled_err(a["h"], b["h"])
+                 for a, b in zip(on[0], prefixes[0][0]))
+        bitwise = all(torch.equal(a["h"], b["h"])
+                      for a, b in zip(on[0], prefixes[0][0]))
+        same = all(torch.equal(a["h"], b["h"]) for a, b in zip(*on))
+        log(f"{tag} O^i of a {chunk_w}-token chunked compile vs the offline "
+            f"compress: scaled err {se:.3e} (tol {REL_TOL['bfloat16']:g}), "
+            f"bitwise equal {bitwise}; two chunked compiles bitwise equal: "
+            f"{same}")
+        if not (se <= REL_TOL["bfloat16"] and same):
+            raise AssertionError(f"{tag}: the chunked compile disagrees")
+        out.update(omega_scaled_err=se, omega_bitwise_offline=bitwise,
+                   omega_repeat_equal=same)
+        del on, src0
+
+        def engine(budget):
+            eng = ServingEngine(cfg, target, slots=slots, max_len=mlen,
+                                compressor=compressor,
+                                compile_token_budget=budget)
+            eng.add_prefix("resident", resident)
+            return eng
+
+        warm = [dict(tokens=prompts[i], max_new=2 * max_new,
+                     prefix="resident") for i in (0, 1)]
+        cold = [dict(tokens=prompts[2 + i], max_new=max_new,
+                     prefix=f"online{i}", raw_shots=msources[i])
+                for i in (0, 1)]
+        eng = engine(chunk_w)
+        gap_serve(eng, warm)  # warm-up
+        _, out["no_compile"] = gap_serve(eng, warm)
+        set_counts()
+        toks, out["budgeted"] = gap_serve(eng, warm + cold)
+        out["launches"] = counts()
+        rows = [[{k: v.clone() for k, v in e.items()}
+                 for e in eng.store.get(f"online{i}")] for i in (0, 1)]
+        errs = [row_err(rows[i], [{k: v[0] for k, v in e.items()}
+                                  for e in prefixes[i][1]]) for i in (0, 1)]
+        # the same task compiled again behind the same decode steps
+        eng.store.evict("online0")
+        gap_serve(eng, warm + cold[:1])
+        again = eng.store.get("online0")
+        repeat = all(torch.equal(a[k], b[k]) for a, b in zip(rows[0], again)
+                     for k in a)
+        c_ = eng.stats()["compiler"]
+        b_ = out["budgeted"]
+        log(f"{tag} {card}: 2 x {MT}-token raw-shot tasks compiled in "
+            f"{chunk_w}-token chunks behind the decode steps of 2 requests "
+            f"on a resident task: {b_['compile_chunks_interleaved']} chunks "
+            f"interleaved, cold TTFT {[round(x, 4) for x in b_['ttft_s'][2:]]}"
+            f" s, longest decode gap {b_['decode_gap_max_s']:.4f} s (mean "
+            f"{b_['decode_gap_mean_s']:.4f}); without a compile "
+            f"{out['no_compile']['decode_gap_max_s']:.4f} s (mean "
+            f"{out['no_compile']['decode_gap_mean_s']:.4f}); compiler {c_}")
+        log(f"{tag} installed K/V vs the offline prefix: scaled err "
+            f"{[f'{e:.3e}' for e in errs]}; a second online compile bitwise "
+            f"equal: {repeat}; launches {out['launches']}")
+        cold_toks = [toks[u] for u in b_["uids"][2:]]
+        if not (b_["compile_chunks_interleaved"] >= 2 * (MT // chunk_w) - 1
+                and max(errs) <= REL_TOL["bfloat16"] and repeat
+                and all(len(t_) == max_new and t_.min() >= 0
+                        and t_.max() < cfg.vocab_size for t_ in cold_toks)
+                and out["launches"]["memcom_xattn"] > 0):
+            raise AssertionError(f"{tag}: the online compile failed its "
+                                 "checks")
+        out.update(installed_scaled_err=errs, repeat_equal=repeat,
+                   compiler=c_)
+        del eng, rows, again
+        eng = engine(None)
+        gap_serve(eng, warm)  # warm-up
+        _, out["whole_task"] = gap_serve(eng, warm + cold)
+        w_ = out["whole_task"]
+        log(f"{tag} whole-task budget: longest decode gap "
+            f"{w_['decode_gap_max_s']:.4f} s, cold TTFT "
+            f"{[round(x, 4) for x in w_['ttft_s'][2:]]} s, serve "
+            f"{w_['serve_s']:.3f} s (budgeted {b_['serve_s']:.3f} s)")
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    def mistral_tiers(cfg, target, kvs):
+        """Three tasks served in turns through one HBM slot
+        (``prefix_capacity=1``), one host row and a disk tier: demoted,
+        spilled and promoted from both tiers; the tokens of an all-HBM
+        engine's, dense and paged."""
+        import tempfile
+
+        tag = "[mistral-7b tiers]"
+        mlen = cfg.memcom.num_memory_tokens + 24 + 2 * max_new + 16
+        # after the three adds: t2 in HBM, t1 on host, t0 on disk; t0 comes
+        # from disk, t2 from host, t1 from disk, each evicting the last
+        order = (0, 2, 1)
+        out = {}
+
+        def turns(eng):
+            got = []
+            for i, t in enumerate(order):
+                r = Request(tokens=prompts[i % 4], max_new=8, prefix=f"t{t}")
+                got.append(eng.serve([r])[r.uid].tolist())
+            return got
+
+        for layout in ("dense", "paged"):
+            kw = dict(slots=1, max_len=mlen, kv_layout=layout, block_size=16)
+            ref = ServingEngine(cfg, target, **kw)
+            for t, kv in enumerate(kvs):
+                ref.add_prefix(f"t{t}", kv)
+            want = turns(ref)
+            del ref
+            with tempfile.TemporaryDirectory() as shard_dir:
+                eng = ServingEngine(cfg, target, prefix_capacity=1,
+                                    host_capacity=1, disk_dir=shard_dir,
+                                    promote_layer_budget=4, **kw)
+                tiers = eng.tiers
+                times = {"gather": [], "to_host": [], "spill": [],
+                         "load": [], "promote_host": [], "promote_disk": [],
+                         "shard_bytes": []}
+
+                def timed(key, fn):
+                    def run(*a, **k):
+                        res, sec = synced(lambda: fn(*a, **k))
+                        times[key].append(1e3 * sec)
+                        return res
+                    return run
+
+                tiers._gather_paged = timed("gather", tiers._gather_paged)
+                tiers._to_host = timed("to_host", tiers._to_host)
+                spill_row = timed("spill", tiers.spill_row)
+
+                def spill(*a):
+                    path = spill_row(*a)
+                    times["shard_bytes"].append(os.path.getsize(path))
+                    return path
+
+                tiers.spill_row = spill
+                inner_submit = tiers.submit_promotion
+
+                def submit(name, priority=0):
+                    job, sec = synced(inner_submit, name, priority)
+                    if job.source == "disk":  # the shard's read
+                        times["load"].append(1e3 * sec)
+                    return job
+
+                tiers.submit_promotion = submit
+                inner = tiers.promote_step
+
+                def promote(budget):
+                    src = [j.source for j in tiers._jobs.values()
+                           if j.status == "promoting"][0]
+                    return timed(f"promote_{src}", inner)(budget)
+
+                tiers.promote_step = promote
+                for t, kv in enumerate(kvs):
+                    eng.add_prefix(f"t{t}", kv)
+                set_counts()
+                got = turns(eng)
+                launches = counts()
+                ts = eng.stats()["prefix_tiers"]
+                del eng, tiers
+            out[layout] = {"tiers": ts, "times_ms": times,
+                           "launches": launches, "identical": got == want}
+            log(f"{tag} {layout} {card}: tokens identical to an all-HBM "
+                f"engine: {got == want}; counters {ts}")
+            log(f"{tag} {layout}: ms of each demotion's pool gather "
+                f"{times['gather']} and device-to-host copy "
+                f"{times['to_host']}, spill "
+                f"{times['spill']} ({times['shard_bytes']} shard bytes), "
+                f"disk read {times['load']}, promote from host "
+                f"{times['promote_host']}, from disk {times['promote_disk']}")
+            if not (got == want and ts["demotes"] > 0 and ts["spills"] > 0
+                    and ts["host_promotes"] > 0 and ts["disk_loads"] > 0
+                    and times["promote_host"] and times["promote_disk"]):
+                raise AssertionError(f"{tag} {layout}: the tier round trip "
+                                     "failed its checks")
+        torch.cuda.empty_cache()
+        return out
+
+    def mistral_then(cfg, target, compressor, prefixes, engine, pengine):
+        resident = materialize_prefix(target, cfg, memcom.compress(
+            compressor, cfg, torch.as_tensor(msources[2][None],
+                                             device=dev))[0])
+        out = {"online": mistral_online(cfg, target, compressor, prefixes,
+                                        resident)}
+        out["tiers"] = mistral_tiers(
+            cfg, target, [prefixes[0][1], prefixes[1][1], resident])
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[mistral-7b] peak memory through the online and tier phases "
+            f"{out['peak_bytes']} bytes")
+        return out
+
+    def trained_target_eval():
+        """``eval_accuracy`` on the committed trained target through the
+        dense engine's ``score_labels``, on the CPU and on the card (head
+        dim 32: the float32 flash kernel): the same labels."""
+        from repro_torch import bridge
+        from repro_torch.configs import bench_target
+        from repro_torch.data import eval_accuracy
+
+        tag = "[bench-target eval]"
+        cfg = bench_target.config()
+        path = str(Path(__file__).resolve().parent / bench_target.CHECKPOINT)
+        task = bench_target.TASKS["hwu64-like"]
+        ids = bench_target.VOCAB.label_ids()
+        out = {}
+        for name, kw in (("full", dict(budget=bench_target.SOURCE_LEN)),
+                         ("fewer_shots", dict(
+                             budget=bench_target.SOURCE_LEN // 2,
+                             query_budget=bench_target.SOURCE_LEN))):
+            runs = {}
+            for where in ("cpu", "cuda"):
+                target, meta = bridge.load_params(cfg, path, device=where)
+                eng = ServingEngine(cfg, target, slots=1, max_len=128,
+                                    device=where)
+                labels = []
+
+                def predict(c_, q_, eng=eng, labels=labels):
+                    labels.append(int(eng.score_labels(c_, q_, ids))
+                                  - bench_target.VOCAB.label_base)
+                    return labels[-1]
+
+                set_counts()
+                acc = eval_accuracy(predict, task, n_episodes=4,
+                                    queries_per_episode=5, seed=0, **kw)
+                runs[where] = (acc, labels, counts())
+            same = runs["cpu"][:2] == runs["cuda"][:2]
+            out[name] = {"accuracy": runs["cuda"][0], "labels": runs["cuda"][1],
+                         "cpu_labels_equal": same,
+                         "launches": runs["cuda"][2], "steps": meta["steps"]}
+            log(f"{tag} {name} {kw}: accuracy card {runs['cuda'][0]:.3f} / "
+                f"cpu {runs['cpu'][0]:.3f}, labels equal {same}; flash "
+                f"launches {runs['cuda'][2]['flash_attention']}")
+            if not (same and runs["cuda"][2]["flash_attention"] > 0):
+                raise AssertionError(f"{tag} {name}: the card's labels are "
+                                     "not the CPU's")
+        return out
+
     paths = {}
+    base_geom = (m, T, sources, max_len)
     for arch, need in (("gemma2-2b", ()), ("granite-moe-3b-a800m", ("gmm",))):
-        report[arch] = main_path(arch, need)
+        report[arch] = main_path(arch, need, base_geom)
         paths[f"{arch} dense"] = report[arch]["launches"]
         paths[f"{arch} paged"] = report[arch]["paged"]["launches"]
         gc.collect()  # the models go before the next ones are built
         torch.cuda.empty_cache()
-        report[arch]["kernel_vs_plain"] = kernel_vs_plain(arch)
+        report[arch]["kernel_vs_plain"] = kernel_vs_plain(arch, base_geom)
         gc.collect()
         torch.cuda.empty_cache()
     report["mamba2-370m"] = mamba_path()
@@ -2336,8 +2673,47 @@ def main() -> int:
     report["train"]["phase_s"] = time.perf_counter() - t_phase
     log(f"[gemma2-2b train] phases 4d and 5b: "
         f"{report['train']['phase_s']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mgeom = (768, MT, msources[:2], 768 + 24 + max_new + 16)
+    report["mistral-7b"] = main_path("mistral-7b", (), mgeom,
+                                     then=mistral_then)
+    then = report["mistral-7b"]["then"]
+    paths["mistral-7b dense"] = report["mistral-7b"]["launches"]
+    paths["mistral-7b paged"] = report["mistral-7b"]["paged"]["launches"]
+    paths["mistral-7b online"] = then["online"]["launches"]
+    for layout in ("dense", "paged"):
+        paths[f"mistral-7b tiers {layout}"] = \
+            then["tiers"][layout]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["mistral-7b"]["kernel_vs_plain"] = kernel_vs_plain("mistral-7b",
+                                                              mgeom)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["bench-target"] = trained_target_eval()
+    for key, run in report["bench-target"].items():
+        paths[f"bench-target eval {key}"] = run["launches"]
+    report["mistral_phase_s"] = time.perf_counter() - t_phase
+    log(f"[mistral-7b] phases 4e, 5 and the trained target's eval: "
+        f"{report['mistral_phase_s']:.1f}s")
 
     # ---- result lines ----------------------------------------------------
+    def compile_chunk(rows):
+        """The online compiler's flash call at offsets 0, 3072 and 5632
+        (w = 512, mistral-7b); the last one's numbers in full."""
+        out = {}
+        for r in rows:
+            if r["shape"].startswith("mistral_chunk_"):
+                out[r["shape"]] = {
+                    "ms": r["ms"], "device_ms": r[f"device_ms_{r['variant']}"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                    "variant": r["variant"]}
+        return dict(out["mistral_chunk_5632"], shape="mistral_chunk_5632",
+                    by_offset=out)
+
     entries = []
     for key, rows, main in (
             ("flash_attention:flash_attention", flash_rows, "source_prefill"),
@@ -2401,7 +2777,8 @@ def main() -> int:
             entries[-1].update(
                 wgmma_launches=sum(c["flash_attention_wgmma"]
                                    for c in paths.values()),
-                ms_wgmma=head["ms_wgmma"], ms_mma_sync=head["ms_mma_sync"])
+                ms_wgmma=head["ms_wgmma"], ms_mma_sync=head["ms_mma_sync"],
+                compile_chunk=compile_chunk(rows))
         if name == "gmm":  # the wgmma, rows and mma.sync variants
             entries[-1].update(
                 wgmma_launches=sum(c["gmm_wgmma"] for c in paths.values()),

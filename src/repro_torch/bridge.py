@@ -11,7 +11,8 @@ entry) per layer, in layer order::
     layer index of period l{j}, repeat r   = len(prefix) + r * len(period) + j
 
 :func:`from_jax_params` / :func:`from_jax_memcom` build port modules from
-the JAX pytrees (numpy leaves, e.g. ``jax.tree.map(np.asarray, params)``);
+the JAX pytrees (numpy leaves, e.g. ``jax.tree.map(np.asarray, params)``),
+:func:`load_params` from a checkpoint of them in the JAX package's format;
 :func:`to_numpy` is their inverse, bit for bit.  :func:`layerwise_to_list`
 and :func:`list_to_layerwise` convert layer-wise values (hiddens, O^i,
 prefixes, caches).
@@ -160,6 +161,20 @@ def from_jax_memcom(cfg: ModelConfig, tree, *, device=None,
     kw = dict(device=device, dtype=torch_dtype(cfg, dtype))
     mc = MemCom(cfg, Transformer(cfg, **kw), Transformer(cfg, **kw))
     return _load(mc, _memcom_names(cfg, tree))
+
+
+def load_params(cfg: ModelConfig, path: str, *, device=None,
+                dtype=None) -> Tuple[Transformer, dict]:
+    """(a port Transformer, the checkpoint's meta) from a directory of
+    transformer params saved by either package's ``save_tree``."""
+    from repro_torch.checkpoint.store import load_tree
+
+    flat, meta = load_tree(path)
+    tree = {}
+    for name, t in flat.items():
+        _set_path(tree, name, (t.float() if t.dtype == torch.bfloat16
+                               else t).numpy())
+    return from_jax_params(cfg, tree, device=device, dtype=dtype), meta
 
 
 def _stack_layers(cfg: ModelConfig,

@@ -133,13 +133,21 @@ def begin_compress(cfg: ModelConfig, batch: int, total_len: int, *,
 def compress_chunk(mc: MemCom, cfg: ModelConfig, state: CompressionState,
                    tokens) -> CompressionState:
     """Run the Source-LLM over one chunk (B, w) of the shot set behind the
-    cached [0, offset) context (the engine's prefill continuation) and
-    fold it into ``state``."""
+    cached [0, offset) context and fold it into ``state``.
+
+    Each attention layer writes the chunk's K/V into the cache and makes
+    one causal call over the cached keys [0, offset + w), row for row the
+    call :func:`compress` makes over the whole shot set: on the card the
+    chunked O^i are then bitwise those of the one-shot compress.  (The
+    JAX package runs the chunk through the prefill continuation, two
+    partial calls merged by their log-sum-exp, which in bf16 rounds each
+    row twice; ``scripts/chunk_compile_rounding.py`` measures how far
+    that lands from the one-shot result.)"""
     tokens = _as_tokens(mc, tokens)
     offset = state.offset
     _, aux = mc.source(tokens=tokens, capture_hiddens=True,
-                       cache=state.cache, cache_index=offset,
-                       mask_offset=offset, logits=False)
+                       cache=state.cache, cache_index=offset, decode=True,
+                       logits=False)
     return replace(state, offset=offset + tokens.shape[1],
                    hiddens=state.hiddens + [aux["hiddens"]])
 

@@ -1,7 +1,8 @@
 from repro_torch.data.pipeline import Prefetcher, host_slice
 from repro_torch.data.synthetic import PretrainStream, SyntheticVocab
 from repro_torch.data.icl_tasks import (ICLTaskSpec, build_manyshot_prompt,
-                                        make_episode, make_query)
+                                        eval_accuracy, make_episode,
+                                        make_query)
 
 __all__ = [
     "SyntheticVocab",
@@ -12,4 +13,5 @@ __all__ = [
     "make_episode",
     "build_manyshot_prompt",
     "make_query",
+    "eval_accuracy",
 ]

@@ -9,6 +9,7 @@ the token budget is (nearly) filled, drop the overflowing shot.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -61,3 +62,30 @@ def make_query(task: ICLTaskSpec, episode: dict, prompt: np.ndarray,
     k = int(rng.choice(seen_keys))
     label = int(episode["labels"][np.where(episode["keys"] == k)[0][0]])
     return np.asarray([v.SEP, v.key(k), v.ARROW], np.int32), label
+
+
+def eval_accuracy(predict_label: Callable[[np.ndarray, np.ndarray], int],
+                  task: ICLTaskSpec, *, budget: int, n_episodes: int = 20,
+                  queries_per_episode: int = 20, seed: int = 0,
+                  query_budget: Optional[int] = None) -> float:
+    """predict_label(context_tokens, query_tokens) -> label index.
+
+    ``query_budget`` (when given) builds queries against the full-budget
+    prompt but shows the model a context truncated to ``budget``: the
+    fewer-shots baseline's protocol (a query may then be unanswerable from
+    what the model sees, which is the failure it measures)."""
+    rng = np.random.default_rng(seed)
+    full_budget = query_budget or budget
+    correct = total = 0
+    for _ in range(n_episodes):
+        episode = make_episode(task, rng)
+        full_prompt = build_manyshot_prompt(task, episode, rng, full_budget)
+        context = full_prompt[:budget] if budget < full_budget else full_prompt
+        # drop a trailing partial shot
+        context = context[: (len(context) // task.shot_tokens)
+                          * task.shot_tokens]
+        for _ in range(queries_per_episode):
+            q, label = make_query(task, episode, full_prompt, rng)
+            correct += int(predict_label(context, q) == label)
+            total += 1
+    return correct / max(total, 1)

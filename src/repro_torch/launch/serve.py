@@ -20,6 +20,16 @@ copy of the compressed prefix (copy-on-write of a partial tail block), so
 prefix memory is O(tasks) instead of O(slots).  ``--block-size`` /
 ``--num-blocks`` size the pool; admission is gated on free blocks.
 ``--prefix-capacity`` bounds the resident prefixes (LRU past it).
+
+``--raw-shots`` skips stage 1: each request carries its task's many-shot
+context and the engine compiles an unseen task online, at most
+``--compile-budget`` source tokens between decode steps (default: a whole
+task at once).  ``--host-capacity`` / ``--disk-dir`` put the tiers behind
+the store: an evicted prefix is demoted to (pinned) host memory, spilled
+to a disk shard past the host capacity, and promoted back at most
+``--promote-budget`` layers between decode steps; shards left in
+``--disk-dir`` by an earlier run are indexed and promoted, not
+recompiled.
 ``--priority-classes N`` puts request i in class i % N (a queued class
 preempts a running lower one); ``--priority-aging S`` lifts a queued
 request one class for every S seconds it waits.
@@ -27,8 +37,9 @@ request one class for every S seconds it waits.
 The device is the card unless ``--device cpu`` is given; without a card
 the launcher raises.  A config without MemCom (the attention-free
 mamba2-370m) exits with a message before any model is built, as the JAX
-launcher does: its entry point is ``ServingEngine`` itself.  The online compiler, the tiers, the fused step, the
-traffic harness, meshes and telemetry are later slices of the port.
+launcher does: its entry point is ``ServingEngine`` itself.  The fused
+step, the traffic harness, meshes and telemetry are later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -78,6 +89,29 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefix-capacity", type=int, default=None,
                     help="max resident compressed prefixes (LRU past it; "
                          "default unbounded)")
+    ap.add_argument("--host-capacity", type=int, default=None,
+                    help="enable the tiered prefix cache: HBM evictions "
+                         "demote to a pinned-host tier holding up to N "
+                         "prefixes (0 = demote straight to disk)")
+    ap.add_argument("--disk-dir", default=None,
+                    help="disk tier directory: host pressure spills "
+                         "codec-compressed prefix shards here, and shards "
+                         "from a previous run are promoted instead of "
+                         "recompiled")
+    ap.add_argument("--promote-budget", type=int, default=None,
+                    help="max per-layer host->HBM chunks copied per "
+                         "serve-loop iteration during a promotion "
+                         "(default: whole prefix at once — decode stalls "
+                         "for the full copy)")
+    ap.add_argument("--raw-shots", action="store_true",
+                    help="skip the offline compress stage: requests carry "
+                         "their raw many-shot context and the engine "
+                         "compiles each unseen task online, interleaved "
+                         "with decode")
+    ap.add_argument("--compile-budget", type=int, default=None,
+                    help="max source tokens compiled per serve-loop "
+                         "iteration (default: a whole task at once — "
+                         "decode stalls for the full compile)")
     ap.add_argument("--priority-classes", type=int, default=1,
                     help="request i gets priority class i %% N (class 0 most "
                          "urgent; >1 enables preemption)")
@@ -93,6 +127,15 @@ def main(argv=None) -> dict:
     if min(args.tasks, args.slots, args.requests, args.priority_classes) < 1:
         ap.error("--tasks, --slots, --requests and --priority-classes must "
                  "all be >= 1")
+    if args.compile_budget is not None and args.compile_budget < 1:
+        ap.error("--compile-budget must be >= 1")
+    if args.promote_budget is not None and args.promote_budget < 1:
+        ap.error("--promote-budget must be >= 1")
+    if args.host_capacity is not None and args.host_capacity < 0:
+        ap.error("--host-capacity must be >= 0")
+    if args.raw_shots and args.classify:
+        ap.error("--raw-shots serves generation traffic (classify goes "
+                 "through the offline seat path)")
     device = resolve_device(args.device)
 
     vocab = SyntheticVocab()
@@ -113,7 +156,19 @@ def main(argv=None) -> dict:
                            kv_layout=args.kv_layout, block_size=args.block_size,
                            num_blocks=args.num_blocks,
                            prefix_capacity=args.prefix_capacity,
+                           compressor=compressor if args.raw_shots else None,
+                           compile_token_budget=args.compile_budget,
+                           host_capacity=args.host_capacity,
+                           disk_dir=args.disk_dir,
+                           promote_layer_budget=args.promote_budget,
                            priority_aging_s=args.priority_aging)
+    if engine.tiers is not None:
+        preloaded = engine.tiers.disk_names()
+        print(f"[edge] tiered prefix cache: host capacity "
+              f"{'unbounded' if args.host_capacity is None else args.host_capacity}"
+              f", disk {args.disk_dir or '(none)'}"
+              + (f", {len(preloaded)} shard(s) indexed from a previous run"
+                 if preloaded else ""))
 
     tasks, payload = [], 0
     _sync(device)
@@ -123,23 +178,35 @@ def main(argv=None) -> dict:
         episode = make_episode(task, rng)
         prompt = build_manyshot_prompt(task, episode, rng,
                                        budget=args.context_tokens)
-        prefix, _ = memcom.compress(
-            compressor, cfg, torch.as_tensor(prompt[None], device=device))
-        kv = materialize_prefix(target, cfg, prefix)
-        engine.add_prefix(f"task{t}", kv)
-        payload += sum(x.numel() * x.element_size()
-                       for entry in kv for x in entry.values())
+        if not args.raw_shots:  # stage 1: compress offline, register
+            prefix, _ = memcom.compress(
+                compressor, cfg, torch.as_tensor(prompt[None], device=device))
+            kv = materialize_prefix(target, cfg, prefix)
+            engine.add_prefix(f"task{t}", kv)
+            payload += sum(x.numel() * x.element_size()
+                           for entry in kv for x in entry.values())
         tasks.append((f"task{t}", task, episode, prompt))
     _sync(device)
     t_compress = time.perf_counter() - t0
-    print(f"[cloud] compressed {args.tasks}x{args.context_tokens} tokens "
-          f"-> {m} slots/layer each in {t_compress:.2f}s; "
-          f"payload {payload/1e3:.1f} KB total")
+    if args.raw_shots:
+        budget = ("whole-task" if args.compile_budget is None
+                  else f"{args.compile_budget}-token")
+        print(f"[edge] no offline stage: {args.tasks} task(s) will compile "
+              f"online, {budget} chunks interleaved with decode")
+    else:
+        print(f"[cloud] compressed {args.tasks}x{args.context_tokens} tokens "
+              f"-> {m} slots/layer each in {t_compress:.2f}s; "
+              f"payload {payload/1e3:.1f} KB total")
     metrics = {"arch": cfg.name, "device": str(device), "m": m,
                "tasks": args.tasks, "slots": args.slots,
                "kv_layout": args.kv_layout,
                "context_tokens": args.context_tokens,
-               "compress_s": t_compress, "payload_bytes": payload}
+               "compress_s": t_compress, "payload_bytes": payload,
+               "raw_shots": args.raw_shots,
+               "compile_budget": args.compile_budget,
+               "host_capacity": args.host_capacity,
+               "disk_dir": args.disk_dir,
+               "promote_budget": args.promote_budget}
 
     if args.classify:
         hits = 0
@@ -157,9 +224,13 @@ def main(argv=None) -> dict:
         metrics.update(queries=args.requests, correct=hits, serve_s=dt)
     else:
         # ragged prompts, round-robin over the tasks and priority classes
+        # with --raw-shots each request carries its task's many-shot
+        # context; the first per task starts the (deduped) online compile
         reqs = [Request(tokens=rng.integers(4, vocab.size,
                                             int(rng.integers(4, 12))),
                         max_new=args.max_new, prefix=tasks[i % len(tasks)][0],
+                        raw_shots=(tasks[i % len(tasks)][3]
+                                   if args.raw_shots else None),
                         priority=i % args.priority_classes)
                 for i in range(args.requests)]
         _sync(device)
@@ -175,7 +246,22 @@ def main(argv=None) -> dict:
               f"attending to <= {m}+prompt slots/layer per request")
         metrics.update(requests=args.requests, generated=generated,
                        serve_s=dt, tokens_per_s=tok_s,
-                       preemptions=engine.counters["preemptions"])
+                       preemptions=engine.counters["preemptions"],
+                       tokens=[out[r.uid].tolist() for r in reqs])
+        if args.raw_shots:
+            cs = engine.stats()["compiler"]
+            print(f"[edge] online compile: {cs['jobs']} job(s), "
+                  f"{cs['deduped']} deduped submit(s), {cs['chunks']} "
+                  f"chunk(s) / {cs['tokens']} source tokens")
+            metrics["compiler"] = cs
+    if engine.tiers is not None:
+        ts = engine.stats()["prefix_tiers"]
+        print(f"[edge] prefix tiers: {ts['demotes']} demoted, "
+              f"{ts['spills']} spilled, {ts['host_promotes']} promoted "
+              f"({ts['disk_loads']} from disk), {ts['hbm_resident']} / "
+              f"{ts['host_resident']} / {ts['disk_resident']} resident in "
+              "HBM / host / disk")
+        metrics["prefix_tiers"] = ts
     if args.kv_layout == "paged":
         pool = engine.stats()["pool"]
         print(f"[edge] paged pool: {pool['blocks_used']}/"

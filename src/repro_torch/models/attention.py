@@ -157,17 +157,18 @@ def apply_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 lengths=cache_index + S, softcap=softcap, scale=scale)
             return out.reshape(B, S, -1) @ p.wo, cache
+        # static start (a chunk of a chunked compress): write the rows,
+        # then one causal call over the keys [0, start + S) they can see
         start = int(cache_index)
-        cache["k"][:, start:start + S] = k_new.to(cache["k"].dtype)
-        cache["v"][:, start:start + S] = v_new.to(cache["v"].dtype)
-        max_len = cache["k"].shape[1]
-        slot = torch.arange(max_len, dtype=torch.int32, device=x.device)
-        kv_pos = torch.where(slot < start + S, slot, -1).expand(B, max_len)
-        q_pos = (start + torch.arange(S, dtype=torch.int32,
-                                      device=x.device)).expand(B, S)
-        out = ops.attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                            q_pos=q_pos, kv_pos=kv_pos, causal=True,
-                            softcap=softcap, scale=scale)
+        end = start + S
+        cache["k"][:, start:end] = k_new.to(cache["k"].dtype)
+        cache["v"][:, start:end] = v_new.to(cache["v"].dtype)
+        kv_pos = torch.arange(end, dtype=torch.int32,
+                              device=x.device).expand(B, end)
+        out = ops.attention(q, cache["k"][:, :end].to(q.dtype),
+                            cache["v"][:, :end].to(q.dtype),
+                            q_pos=kv_pos[:, start:], kv_pos=kv_pos,
+                            causal=True, softcap=softcap, scale=scale)
         return out.reshape(B, S, -1) @ p.wo, cache
 
     # ---------------- train / prefill: full self-attention ----------------

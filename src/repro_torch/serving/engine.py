@@ -65,11 +65,28 @@ seated prefix's partial block, or the trash block 0).  Its hidden state
 then picks experts as the JAX one does, which matters once idle and
 active lanes compete for a MoE layer's capacity.
 
+Online compilation (``compressor=``).  A request that carries
+``raw_shots`` for a task no tier holds is parked (``waiting_on_prefix``)
+while the :class:`~repro_torch.serving.compiler.PrefixCompiler` compresses
+the shots: behind each decode step at most ``compile_token_budget``
+source tokens, or, when nothing decodes, the head job to completion.  A
+finished prefix is installed into the store (deferred while capacity is
+held by seated or queued prefixes) and its requests wake in arrival
+order.
+
+Prefix tiers (``host_capacity=`` / ``disk_dir=``).  The store is fronted
+by a :class:`~repro_torch.serving.tiers.TieredPrefixStore`: an evicted
+prefix is demoted to pinned host memory and, past ``host_capacity``,
+spilled to a disk shard; a request naming it parks while it is promoted
+back, ``promote_layer_budget`` layers behind each decode step.  Promotion
+is preferred to recompiling, also for a request that carries raw shots.
+
 The clock is injected (``clock=``, wall time by default): a
 :class:`~repro_torch.serving.clock.VirtualClock` makes every timing a
-function of the work performed.  The fused step, speculative decoding,
-the online compiler, the prefix tiers, telemetry, the watchdog, the
-budget autotuner and meshes are later slices of the port.
+function of the work performed; compile tokens and promoted layers are
+charged too.  The fused step (and its compile-chunk lane), speculative
+decoding, telemetry, the watchdog, the budget autotuner and meshes are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -85,18 +102,16 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocator,
                                             OutOfBlocksError)
-from repro_torch.serving.prefix_store import (PagedPrefixStore, PrefixStore,
+from repro_torch.serving.compiler import PrefixCompiler, pow2_bucket
+from repro_torch.serving.prefix_store import (PagedPrefixStore,
+                                              PrefixSeatedError, PrefixStore,
                                               clear_slot_state,
                                               copy_paged_block,
                                               seat_prefix_row,
+                                              take_prefix_row,
                                               write_prefix_to_cache)
 from repro_torch.serving.scheduler import Request, Scheduler
-
-
-def pow2_bucket(n: int, floor: int) -> int:
-    """``n`` snapped up to a power of two, at least ``floor``
-    (``repro/serving/compiler.py``)."""
-    return max(floor, 1 << (max(1, n) - 1).bit_length())
+from repro_torch.serving.tiers import TieredPrefixStore
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -114,10 +129,19 @@ class ServingEngine:
                  kv_layout: str = "dense", block_size: int = 8,
                  num_blocks: Optional[int] = None,
                  prefix_capacity: Optional[int] = None,
+                 compressor=None,
+                 compile_token_budget: Optional[int] = None,
+                 host_capacity: Optional[int] = None,
+                 disk_dir: Optional[str] = None,
+                 promote_layer_budget: Optional[int] = None,
                  clock=None, priority_aging_s: Optional[float] = None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be dense or paged, got "
                              f"{kv_layout!r}")
+        if compile_token_budget is not None and compile_token_budget < 1:
+            raise ValueError("compile_token_budget must be >= 1 (or None)")
+        if promote_layer_budget is not None and promote_layer_budget < 1:
+            raise ValueError("promote_layer_budget must be >= 1 (or None)")
         device = resolve_device(device)
         if target.device.type != device.type:
             raise ValueError(f"target lives on {target.device}, engine asked "
@@ -133,6 +157,8 @@ class ServingEngine:
         self.trace: List[tuple] = []  # per-serve event log
         self.counters = {
             "decode_steps": 0, "prefills": 0, "tokens_generated": 0,
+            "decode_steps_during_compile": 0, "compile_chunks_interleaved": 0,
+            "decode_steps_during_promote": 0, "promote_steps_interleaved": 0,
             "decode_gap_max_s": 0.0, "decode_gap_sum_s": 0.0,
             "decode_gaps": 0, "decode_time_s": 0.0,
             "preemptions": 0, "preempted_tokens_refilled": 0,
@@ -181,6 +207,19 @@ class ServingEngine:
             self.cache = tfm.init_cache(cfg, slots, max_len, **kw)
             self.store = (prefix_store if prefix_store is not None
                           else PrefixStore(cfg, capacity=prefix_capacity))
+        # online compiler: raw_shots requests compile on the serving path,
+        # at most compile_token_budget source tokens per loop iteration
+        self.compile_token_budget = compile_token_budget
+        self.compiler = (PrefixCompiler(compressor, cfg, target)
+                         if compressor is not None else None)
+        # tiered store: evictions demote down the hierarchy, cold prefixes
+        # promote back promote_layer_budget layers per loop iteration
+        self.promote_layer_budget = promote_layer_budget
+        self.tiers: Optional[TieredPrefixStore] = None
+        if host_capacity is not None or disk_dir is not None:
+            self.store = self.tiers = TieredPrefixStore(
+                self.store, host_capacity=host_capacity, disk_dir=disk_dir,
+                cache_ref=lambda: self.cache, device=self.device)
 
     @property
     def paged(self) -> bool:
@@ -314,9 +353,7 @@ class ServingEngine:
                 "first_token_s": None, "finish_s": None,
                 "tokens": 0, "preemptions": 0,
             }
-            if req.prefix is not None:
-                self.store.lookup(req.prefix)  # counts the hit
-            sched.submit(req)
+            self._submit(sched, req)
 
         future = sorted((r for r in requests if r.arrival_s is not None),
                         key=lambda r: (r.arrival_s, r.uid))
@@ -363,6 +400,10 @@ class ServingEngine:
             if not sched.has_work():
                 self._advance_to(epoch + future[0].arrival_s)
                 continue
+            if self.compiler is not None:
+                self._drain_compiler(sched)
+            if self.tiers is not None:
+                self._drain_promoter(sched)
             admitted = sched.admit(can_seat)
             if paged and not admitted and not sched.active_slots() \
                     and sched.pending:
@@ -421,7 +462,17 @@ class ServingEngine:
                 if sched.record_token(slot, tok):
                     _finish(slot)
             active = sched.active_slots()
+            compiling = (self.compiler is not None
+                         and self.compiler.has_compile_work())
+            promoting = (self.tiers is not None
+                         and self.tiers.has_promote_work())
             if not active:
+                # nothing decodes: a whole job stalls nobody; promotion is
+                # the cheaper way to an admissible request, so it goes first
+                if promoting:
+                    self._promote_step(None)
+                elif compiling:
+                    self._compile_step(None)
                 continue  # admit the next queued requests (or exit)
             greedy = all(sched.request_in(s).temperature <= 0 for s in active)
             if paged:
@@ -440,6 +491,8 @@ class ServingEngine:
                 c["decode_gaps"] += 1
             last_decode_done = self.clock()
             c["decode_steps"] += 1
+            c["decode_steps_during_compile"] += int(compiling)
+            c["decode_steps_during_promote"] += int(promoting)
             self.trace.append(("decode", len(active)))
             for slot in active:
                 lengths[slot] += 1  # the step consumed this slot's token
@@ -450,6 +503,12 @@ class ServingEngine:
                 c["tokens_generated"] += 1
                 if sched.record_token(slot, tok):
                     _finish(slot)
+            if compiling:  # a budgeted chunk behind this decode step
+                self._compile_step(self.compile_token_budget)
+                c["compile_chunks_interleaved"] += 1
+            if promoting:
+                self._promote_step(self.promote_layer_budget)
+                c["promote_steps_interleaved"] += 1
         return results
 
     def _preempt_for_priority(self, sched: Scheduler, can_seat,
@@ -494,30 +553,151 @@ class ServingEngine:
             time.sleep(min(dt, 0.02))
 
     def _check_request(self, req: Request) -> None:
-        """Side-effect-free validation of one request."""
+        """Side-effect-free validation of one request: the errors
+        :meth:`_submit` would raise."""
         if req.prefix is not None and req.prefix not in self.store:
-            if req.raw_shots is None:
+            if self.tiers is not None and self.tiers.cold_resident(req.prefix):
+                base = self.tiers.cold_base_len(req.prefix)  # promotable
+            elif req.raw_shots is None:
                 raise KeyError(
                     f"unknown prefix {req.prefix!r}; registered: "
                     f"{sorted(self.store.names()) or '(none)'}")
-            raise ValueError(
-                f"request {req.uid} carries raw_shots: online compilation "
-                "is not in the port yet — compress and add_prefix first")
-        # no-prefix requests land on the engine-wide base or a slot reset
-        # to 0: base_len is the worst case
-        base = (self.store.base_len(req.prefix) if req.prefix is not None
-                else self.base_len)
+            elif self.compiler is None:
+                raise ValueError(
+                    f"request {req.uid} carries raw_shots but the engine "
+                    "has no compressor — pass ServingEngine(compressor=...)")
+            else:
+                base = self.cfg.memcom.num_memory_tokens  # the seat to come
+        elif req.prefix is not None:
+            base = self.store.base_len(req.prefix)
+        else:
+            # no-prefix requests land on the engine-wide base or a slot
+            # reset to 0: base_len is the worst case
+            base = self.base_len
         need = base + len(req.tokens) + req.max_new
         if need > self.max_len:
             raise ValueError(
                 f"request {req.uid}: prefix+prompt+max_new={need} "
                 f"exceeds max_len={self.max_len}")
 
+    def _submit(self, sched: Scheduler, req: Request) -> None:
+        """Queue a validated request.  One whose prefix is not resident
+        parks ``waiting_on_prefix`` while the prefix is promoted from a
+        cold tier or, failing that, compiled from its raw shots (both
+        single-flight per name)."""
+        if req.prefix is not None and not self.store.lookup(req.prefix):
+            if self.tiers is not None and self.tiers.cold_resident(req.prefix):
+                self.tiers.submit_promotion(req.prefix, priority=req.priority)
+            else:
+                self.compiler.submit(req.prefix, req.raw_shots,
+                                     priority=req.priority)
+            sched.park(req)
+            self.trace.append(("park", req.uid, req.prefix))
+            return
+        sched.submit(req)
+
+    # ------------------------------------------------------------------
+    # Online compilation and tier promotion
+    # ------------------------------------------------------------------
+
+    def _compile_step(self, token_budget: Optional[int]) -> None:
+        before = self.compiler.stats["tokens"]
+        self.compiler.step(token_budget)
+        consumed = self.compiler.stats["tokens"] - before
+        if consumed:
+            self._charge("compile_token", consumed)
+            self.trace.append(("compile", consumed))
+
+    def _promote_step(self, chunk_budget: Optional[int]) -> None:
+        before = self.tiers.tier_stats["promote_chunks"]
+        self.tiers.promote_step(chunk_budget)
+        copied = self.tiers.tier_stats["promote_chunks"] - before
+        if copied:
+            self._charge("promote_chunk", copied)
+            self.trace.append(("promote", copied))
+
+    def _drain_promoter(self, sched: Scheduler) -> None:
+        """Install at most one finished promotion and wake its requests
+        (one per call, as :meth:`_drain_compiler`)."""
+        ready = self.tiers.ready_promotions()
+        if not ready:
+            return
+        name = ready[0]
+        if not self._install(name, self.tiers.promoted_row(name), sched):
+            return  # capacity held: retry on a later iteration
+        self.tiers.mark_promoted(name)
+        self.trace.append(("promoted", name))
+        self._wake(sched, name)
+
+    def _drain_compiler(self, sched: Scheduler) -> None:
+        """Install at most one finished compilation and wake its
+        requests.  One per call: the woken requests admit (and so seat
+        and pin the fresh prefix) before a later install's LRU could
+        reclaim it."""
+        ready = self.compiler.ready()
+        if not ready:
+            return
+        name = ready[0]
+        row = take_prefix_row(self.compiler.job(name).materialized)
+        if not self._install(name, row, sched):
+            return
+        self.compiler.mark_installed(name)
+        self.trace.append(("seat", name))
+        self._wake(sched, name)
+
+    def _wake(self, sched: Scheduler, name: str) -> None:
+        for req in sched.wake(name):
+            self.trace.append(("wake", req.uid, name))
+
+    def _install(self, name: str, row: list, sched: Scheduler) -> bool:
+        """Make a compiled or promoted prefix row store-resident under
+        capacity pressure.  A capped store whose every resident prefix is
+        seated or pinned raises
+        :class:`PrefixSeatedError`, an exhausted pool
+        :class:`OutOfBlocksError`: free slots' stale block references are
+        released and the put retried; still failing, the install is
+        deferred while anything runs or waits in the queue, and raised
+        only when nothing could ever free capacity."""
+        # the prefixes of queued and parked requests must survive this
+        # install's LRU; the pin lives only as long as the put
+        if self.paged:
+            def put():
+                self.store.put_row(name, row, self.cache)
+        else:
+            def put():
+                self.store.put_row(name, row)
+        self.store.pinned = sched.referenced_prefixes()
+        try:
+            try:
+                put()
+                return True
+            except (PrefixSeatedError, OutOfBlocksError):
+                if self.paged:
+                    self._reclaim_free_slots(sched)
+                    try:
+                        put()
+                        return True
+                    except (PrefixSeatedError, OutOfBlocksError):
+                        pass
+                if sched.active_slots() or sched.pending:
+                    return False
+                raise
+        finally:
+            self.store.pinned = set()
+
     def stats(self) -> dict:
         """Engine counters, the prefix store's hit/miss/put/eviction
-        counters, and (paged) pool occupancy."""
+        counters, the compiler's job/chunk counters, the tiers' counters
+        and (paged) pool occupancy, under the JAX engine's keys."""
         out = {"engine": dict(self.counters),
-               "prefix_store": dict(self.store.stats)}
+               "prefix_store": dict(self.store.stats),
+               "compiler": (dict(self.compiler.stats)
+                            if self.compiler is not None else None),
+               "budgets": {
+                   "compile_token_budget": self.compile_token_budget,
+                   "promote_layer_budget": self.promote_layer_budget}}
+        if self.tiers is not None:
+            out["prefix_tiers"] = self.tiers.tier_snapshot()
         if self.paged:
             out["pool"] = {
                 "num_blocks": self.alloc.num_blocks,

@@ -8,7 +8,10 @@ The compress → serve handoff in three steps:
    0..m-1), giving each layer's compressed KV cache ``{"k", "v"}``.
 2. :class:`PrefixStore` keeps one materialized prefix per ICL task (dense
    layout); :class:`PagedPrefixStore` writes it once into ref-counted
-   blocks of the engine's KV pool (paged layout).
+   blocks of the engine's KV pool (paged layout).  Both bound their
+   entries LRU-style (``capacity``), skip the names in ``pinned`` when
+   they evict for room, and hand an evicted entry to ``demote_hook``
+   first (the tiered store, ``serving/tiers.py``, demotes it to host).
 3. :func:`seat_prefix_row` copies a stored prefix into *one batch slot* of
    a dense engine cache (positions [0, m)), so different slots of one
    decode batch serve different tasks; :func:`write_prefix_to_cache` is
@@ -96,9 +99,11 @@ class PrefixStore:
     kept batch-free (a single task's per-layer cache rows).
 
     ``capacity`` (optional) bounds resident prefixes LRU-style: inserting
-    past capacity evicts the least-recently-used entry.  Dense seating
-    *copies* a prefix into the slot's cache stripe, so evicting a seated
-    entry is safe and never raises."""
+    past capacity evicts the least-recently-used entry not in
+    :attr:`pinned` (:class:`PrefixSeatedError` when every entry is
+    pinned).  Dense seating *copies* a prefix into the slot's cache
+    stripe, so evicting a seated entry is safe.  ``demote_hook(name,
+    row)`` runs just before an evicted entry is dropped."""
 
     def __init__(self, cfg: ModelConfig, capacity: Optional[int] = None):
         if capacity is not None and capacity < 1:
@@ -107,17 +112,33 @@ class PrefixStore:
         self.capacity = capacity
         self._entries: "OrderedDict[str, list]" = OrderedDict()
         self.stats = _new_store_stats()
+        self.pinned: set = set()  # names the LRU must skip (engine-kept)
+        self.demote_hook = None   # called (name, row) before an evict drops
 
     def put(self, name: str, materialized: list, batch_index: int = 0) -> str:
-        row = take_prefix_row(materialized, batch_index)
+        return self.put_row(name, take_prefix_row(materialized, batch_index))
+
+    def put_row(self, name: str, row: list) -> str:
+        """Make an already batch-free per-layer row resident (the tiers'
+        promotion lands here)."""
         if name not in self._entries:
             while self.capacity is not None and \
                     len(self._entries) >= self.capacity:
-                self.evict(next(iter(self._entries)))  # oldest first
+                self._evict_lru()
         self._entries[name] = row
         self._entries.move_to_end(name)
         self.stats["puts"] += 1
         return name
+
+    def _evict_lru(self) -> None:
+        for name in self._entries:  # oldest first
+            if name not in self.pinned:
+                self.evict(name)
+                return
+        raise PrefixSeatedError(
+            f"PrefixStore at capacity ({self.capacity}) and every resident "
+            "prefix is pinned by a queued or waiting request — grow the "
+            "capacity or finish requests")
 
     def lookup(self, name: str) -> bool:
         """Counted residency check — the serve-path ``hits``/``misses``."""
@@ -125,8 +146,15 @@ class PrefixStore:
         self.stats["hits" if hit else "misses"] += 1
         return hit
 
-    def evict(self, name: str) -> None:
+    def evict(self, name: str, demote: bool = True) -> None:
+        """``demote=False`` skips the hook (fresh content supersedes the
+        old copy)."""
         self._check(name)
+        if demote and self.demote_hook is not None:
+            # a dense entry owns its tensors (seating copies them), so no
+            # slot can be reading it: the seated guard is the paged store's
+            # reprolint: ignore[demote-guard] -- dense K/V is owned, not pooled
+            self.demote_hook(name, self._entries[name])
         del self._entries[name]
         self.stats["evictions"] += 1
 
@@ -184,6 +212,15 @@ def copy_paged_block(cache: list, src: int, dst: int) -> list:
     return cache
 
 
+def strip_kv_leaves(row: list) -> Optional[list]:
+    """A prefix row without its block-resident K/V leaves: the per-slot
+    state left to seat, or None when nothing remains (every port row:
+    the hybrid state handoff waits for a hybrid config)."""
+    stripped = [{k: v for k, v in e.items() if k not in ("k", "v")}
+                for e in row]
+    return stripped if any(stripped) else None
+
+
 class PrefixSeatedError(RuntimeError):
     """Refused to evict a prefix whose blocks are still seated in slots."""
 
@@ -199,9 +236,12 @@ class PagedPrefixStore:
     refcount therefore exceeds 1 exactly while some slot is seated on it.
 
     ``capacity`` bounds the number of resident prefixes LRU-style:
-    inserting past capacity evicts the least-recently-used *unseated*
-    entry; if there is none, :class:`PrefixSeatedError` is raised.
-    Explicitly evicting a seated prefix always raises."""
+    inserting past capacity evicts the least-recently-used entry that is
+    neither seated nor in :attr:`pinned`; if there is none,
+    :class:`PrefixSeatedError` is raised.  Explicitly evicting a seated
+    prefix always raises.  ``demote_hook(name, entry)`` runs after that
+    guard and before the blocks are released, so the pool still holds the
+    prefix's K/V while the hook reads it."""
 
     def __init__(self, cfg: ModelConfig, allocator: BlockAllocator,
                  capacity: Optional[int] = None):
@@ -212,6 +252,10 @@ class PagedPrefixStore:
         self.capacity = capacity
         self._entries: "OrderedDict[str, dict]" = OrderedDict()
         self.stats = _new_store_stats()
+        # the engine keeps this at the prefixes of queued and parked
+        # requests while it installs one: they must survive the LRU
+        self.pinned: set = set()
+        self.demote_hook = None
 
     def lookup(self, name: str) -> bool:
         """Counted residency check (see :meth:`PrefixStore.lookup`)."""
@@ -224,41 +268,52 @@ class PagedPrefixStore:
         """Make ``materialized`` row ``batch_index`` block-resident in
         ``cache``'s pools under ``name``.  Re-putting an existing name
         replaces it, which requires the old entry to be unseated."""
-        row = take_prefix_row(materialized, batch_index)
+        return self.put_row(name, take_prefix_row(materialized, batch_index),
+                            cache)
+
+    def put_row(self, name: str, row: list, cache: list) -> str:
+        """:meth:`put` for an already batch-free row (the tiers'
+        promotion path)."""
         if name in self._entries:
-            self.evict(name)  # raises PrefixSeatedError while seated
+            # replace: raises PrefixSeatedError while seated; the old copy
+            # is superseded, not demoted
+            self.evict(name, demote=False)
         while self.capacity is not None and len(self._entries) >= self.capacity:
             self._evict_lru()
         base_len = _row_base_len(row)
         blocks = self.alloc.alloc(self.alloc.blocks_for(base_len))
         if blocks:
             write_prefix_row_to_blocks(cache, row, blocks)
-        self._entries[name] = {"blocks": blocks, "base_len": base_len}
+        self._entries[name] = {"blocks": blocks, "base_len": base_len,
+                               "state": strip_kv_leaves(row)}
         self.stats["puts"] += 1
         return name
 
     def _evict_lru(self) -> None:
         for name, entry in self._entries.items():  # oldest first
-            if not self._seated(entry):
+            if name not in self.pinned and not self._seated(entry):
                 self.evict(name)
                 return
         raise PrefixSeatedError(
             f"PrefixStore at capacity ({self.capacity}) and every resident "
-            "prefix is seated in a slot — grow the capacity or finish "
-            "requests")
+            "prefix is seated in a slot or pinned by a waiting request — "
+            "grow the pool or finish requests")
 
     def _seated(self, entry) -> bool:
         return any(self.alloc.refcount(b) > 1 for b in entry["blocks"])
 
-    def evict(self, name: str) -> None:
+    def evict(self, name: str, demote: bool = True) -> None:
         """Release a prefix's blocks back to the pool.  Raises
         :class:`PrefixSeatedError` while any slot is still seated on it —
         freeing blocks under a live block table would let the allocator
-        hand them to another slot mid-decode."""
+        hand them to another slot mid-decode.  ``demote=False`` skips the
+        hook."""
         entry = self._get(name, touch=False)
         if self._seated(entry):
             raise PrefixSeatedError(
                 f"prefix {name!r} is seated in at least one slot")
+        if demote and self.demote_hook is not None:
+            self.demote_hook(name, entry)
         for b in entry["blocks"]:
             self.alloc.decref(b)
         del self._entries[name]

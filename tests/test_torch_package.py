@@ -39,7 +39,8 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 sys.path.insert(0, sys.argv[1])
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                    "ml_dtypes"))
 mods = sorted(m for m in sys.modules if m.startswith("repro_torch."))
 print(len(mods), bad, " ".join(mods))
 assert not bad, bad
@@ -53,7 +54,8 @@ assert not bad, bad
     for mod in ("optim.adamw", "optim.schedule", "optim.transforms",
                 "checkpoint.store", "checkpoint.manager", "data.pipeline",
                 "train.train_step", "train.trainer", "launch.steps",
-                "launch.train", "configs.smollm_135m"):
+                "launch.train", "configs.smollm_135m", "serving.compiler",
+                "serving.tiers", "data.icl_tasks", "configs.bench_target"):
         assert f"repro_torch.{mod}" in mods.split(), mod
 
 
