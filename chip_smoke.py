@@ -34,7 +34,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
       compiler's chunk of 512 source queries at offset 0, 3072 and 5632
       (``mistral_chunk_<offset>``: one causal call over the offset cached
       keys and its own, exactly o + 512 keys; the flash entry's
-      ``compile_chunk``); and probes (bf16 only): decode over caches of 2048 and 8192 positions and over 32 to
+      ``compile_chunk``); the fused step's dense decode over 4 slots with
+      W = 4 lanes a slot (the speculative verify lanes at k = 3) and W =
+      16 (a join chunk), behind lengths of 516-524 (``fused_decode_w4``,
+      ``fused_decode_w16``); and probes (bf16 only): decode over caches of 2048 and 8192 positions and over 32 to
       72 slots, a prompt of 64 (query, head) rows against a 2048-token
       prefix, and causal self-attention short enough to split the KV
       axis.  Every bf16 shape runs through both bf16 kernels, the wgmma variant and the
@@ -60,7 +63,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    c. ``paged_flash_decode`` (the paged decode attention): the gemma2-2b
       main-path shape (q 4x1x8x256, pools of 16-position blocks, lengths
       516-524, slots 0/2 and 1/3 sharing the first 32 blocks of their
-      task, shuffled tables of max_len positions), S = 3, block sizes 8
+      task, shuffled tables of max_len positions), S = 3, the fused
+      step's S = W = 4 and 16 (``fused_w4``, ``fused_w16``: the lengths
+      count the W new rows), block sizes 8
       and 12, a length of 1, lengths on block boundaries, fully-masked
       rows, the mistral-7b width (32/8 heads of 128), granite's (24/8
       heads of 64), and ``long_table``: the main-path shape in tables of
@@ -212,6 +217,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
       the offline prefix; a recompile behind the same steps bitwise equal;
       printed: chunks interleaved, cold TTFT, the longest decode gap with
       and without a compile and with a whole-task budget, host clock);
+      the same compile riding the fused steps (``fused_step=True``, 512
+      source tokens a step): the installed K/V within 2e-2 of the offline
+      prefix, the O^i bitwise equal to the classic chunked compile's
+      (printed: the longest gap and cold TTFT beside the classic loop's);
       then the tiers: the three tasks served in turns through one HBM
       prefix, one host row and a temporary disk tier (dense and paged,
       the tokens of an all-HBM engine; demotes, spills, host promotes and
@@ -221,6 +230,36 @@ Phases, each of which raises (and so exits non-zero) on failure:
       (``artifacts/bench/target``, dense ``score_labels``, the float32
       flash kernel at head dim 32) on the card and on the CPU, with the
       full budget and the fewer-shots protocol: the same labels.
+   f. the fused step and speculative decoding at gemma2-2b's full width
+      (in its path, on its models; bf16): 8 requests over 4 slots on the
+      two tasks (prompts of 4-33 tokens, budgets of 8-16, so slots free
+      at different steps and the later requests join while others
+      decode, streaming 16 prompt tokens a step), through the classic
+      engines of the path (the baseline), a fused engine
+      (chunks of 16), a self-speculative one (k = 3) and one drafted by
+      gemma2-2b at depth 2, full width, seed 5, each dense and paged
+      (blocks of 16), a shorter warm-up serve and a measured one.
+      Required: each
+      request emits its budget, ``tokens_generated`` is the output less
+      the first tokens, ``fused_prefill_tokens`` the sum of the join
+      lengths, ``draft_accepted <= draft_proposed``, and the kernels of
+      the path launched.  Printed: acceptance, the greedy streams equal to
+      the classic engine's (not required: a bf16 call of another width
+      rounds otherwise), tok/s, TTFT, the longest decode gap, the step
+      functions' geometry counts, and five profiled fused steps' (W = 4,
+      dense) device busy and idle share.
+   g. traffic at gemma2-2b's full width on a ``VirtualClock``: 24 requests
+      over 6 raw-shot tasks of 3072 tokens (Zipf, Poisson arrivals at 5 a
+      second, two classes), 2 HBM prefixes and 4 host rows, compiles of 512 tokens a
+      fused step; twice from one seed: every request completes, the same
+      tokens and ``request_log``.  Printed: ``slo_metrics`` (simulated
+      seconds) and the wall seconds.
+   h. the trained target (``artifacts/bench/target``, float32, head dim
+      32, dense) serves 8 ICL prompts (96-token context and a query,
+      budgets of 4-8) greedily over 4 slots, classic, fused (chunks of
+      16), self-speculative (k = 3) and drafted by the same config at seed
+      9: identical tokens (the top-2 margin printed at a divergence), a
+      self-draft accept rate of exactly 1.0.
 5. Kernels vs plain end to end, after each model: the pipeline at full
    width and depth 2 (mistral-7b's over a 6144-token source into m =
    768), once through the kernels and once forced to the
@@ -231,7 +270,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    is copied on write on the card) serves
    two 2-token requests on one task, two prefills and one decode step
    through ``paged_flash_decode``: the logits of every forward pass, read
-   by a forward hook on the target, agree within the same bound.  For the
+   by a forward hook on the target, agree within the same bound; for the
+   attention-only models, a self-speculative fused engine's first two
+   fused steps (W = 4 verify lanes; then a 16-token join beside them,
+   W = 16), dense and paged: the valid lanes' logits agree within the
+   same bound.  For the
    MoE model the plain run replays the kernel run's expert choices (top-k
    ids) so that both take the same discrete routing: a router
    probability that the two runs' bf16 roundings move across the top-k
@@ -282,6 +325,7 @@ def main() -> int:
     ap.add_argument("--json-out", default=None,
                     help="also write every measured number to this path")
     args = ap.parse_args()
+    t_main = time.perf_counter()
 
     # cuBLAS reproducible run to run (the training phase's restart check),
     # set before torch creates its first handle
@@ -299,7 +343,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import memcom
     from repro_torch.data import (ICLTaskSpec, SyntheticVocab,
-                                  build_manyshot_prompt, make_episode)
+                                  build_manyshot_prompt, make_episode,
+                                  make_query)
     from repro_torch.kernels import build, ops, plain, registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import memcom_xattn as mx
@@ -308,8 +353,9 @@ def main() -> int:
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving import (Request, ServingEngine,
-                                     materialize_prefix)
+    from repro_torch.serving import (Request, ServingEngine, TrafficConfig,
+                                     VirtualClock, generate_trace,
+                                     materialize_prefix, slo_metrics)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -432,6 +478,12 @@ def main() -> int:
          arange(0, m)[None], False, gemma_heads),
         ("decode", slots, 1, max_len, (lengths - 1)[:, None], decode_kv, True,
          gemma_heads),
+        # the fused step's dense decode: W lanes a slot behind the slot's
+        # length, the speculative verify lanes at k = 3 (W = 4) and a
+        # 16-token join chunk (W = 16)
+        *((f"fused_decode_w{W_}", slots, W_, max_len,
+           lengths[:, None] + arange(0, W_)[None], decode_kv, True,
+           gemma_heads) for W_ in (4, 16)),
         ("masked_rows", 2, 3, 64,
          torch.tensor([[-2, -1, 0], [2, 3, 4]], dtype=torch.int32, device=dev),
          arange(0, 64)[None].expand(2, 64).contiguous(), True, gemma_heads),
@@ -690,6 +742,10 @@ def main() -> int:
         # table positions
         ("decode", slots, 1, 8, 4, 256, 16, main_lens, pm, 50.0, max_len),
         ("decode_s3", slots, 3, 8, 4, 256, 16, main_lens, pm, 50.0, max_len),
+        # the fused paged step: W = 4 verify lanes and a 16-token join,
+        # the lengths counting the W new rows
+        *((f"fused_w{W_}", slots, W_, 8, 4, 256, 16,
+           [n + W_ for n in main_lens], pm, 50.0, max_len) for W_ in (4, 16)),
         ("block8_boundary", slots, 1, 8, 4, 256, 8, [m, m + 8, 8, 1], 0, 50.0,
          max_len),
         ("block12", slots, 1, 8, 4, 256, 12, main_lens, m // 12, 50.0,
@@ -1840,9 +1896,70 @@ def main() -> int:
                "paged_prefill_rel_err": rel_pre,
                "paged_step_rel_err": rel_step,
                "moe_rows_replayed": [flips, flips_paged]}
+        if mlp != "moe":
+            out["fused_steps"] = fused_steps_vs_plain(cfg2, target2, kv2, tag,
+                                                      max_len, plain_run)
         if mlp == "moe":
             out["reclaimed_lanes"] = reclaimed_lanes_twice(cfg2, target2,
                                                            kv2, tag)
+        return out
+
+    def fused_steps_vs_plain(cfg2, target2, kv2, tag, max_len, plain_run):
+        """Two requests on the task through a self-speculative fused engine
+        (k = 3) on a virtual clock, dense and paged (blocks of 16): the
+        first fused step carries 4 verify lanes (W = 4); the second
+        request arrives while the first decodes and joins as one 16-token
+        chunk (W = 16).  Each of those two steps' valid lanes' logits,
+        through the kernels and through the plain versions, agree within
+        the end-to-end bound."""
+        j_rng = np.random.default_rng(26)
+        join_toks = j_rng.integers(4, vocab.size, 16).astype(np.int32)
+        out = {}
+        for layout in ("dense", "paged"):
+            def run():
+                eng = ServingEngine(
+                    cfg2, target2, slots=2, max_len=max_len,
+                    kv_layout=layout, block_size=16, fused_step=True,
+                    fused_chunk_tokens=16, spec_draft="self", spec_k=3,
+                    clock=VirtualClock())
+                eng.add_prefix("task", kv2)
+                steps = []
+
+                def hook(mod, args, kwargs, res):
+                    lv, toks = kwargs.get("lane_valid"), kwargs["tokens"]
+                    if lv is not None and toks.shape[1] > 1:  # not a draft
+                        v = lv.tolist()
+                        steps.append((toks.shape[1], v, torch.cat(
+                            [res[0][b, :n].float() for b, n in enumerate(v)])))
+
+                h = target2.register_forward_hook(hook, with_kwargs=True)
+                try:
+                    eng.serve([Request(tokens=prompts[2], max_new=8,
+                                       prefix="task"),
+                               Request(tokens=join_toks, max_new=2,
+                                       prefix="task", arrival_s=0.0015)])
+                finally:
+                    h.remove()
+                return steps[:2]
+
+            set_counts()
+            got = run()
+            launches = counts()
+            want = plain_run(run)
+            shapes = [(w, v) for w, v, _ in got]
+            errs = [rel(g[2], w_[2]) for g, w_ in zip(got, want)]
+            log(f"{tag} fused steps {layout} (W, valid lanes) {shapes}: "
+                f"valid lanes' logits rel err {[f'{e:.3e}' for e in errs]} "
+                f"(tol {E2E_REL_TOL:g}); launches {launches}")
+            if not (shapes == [(w, v) for w, v, _ in want]
+                    and [w for w, _ in shapes] == [4, 16]
+                    and max(errs) <= E2E_REL_TOL
+                    and launches["flash_attention"] > 0
+                    and (layout == "dense"
+                         or launches["paged_flash_decode"] > 0)):
+                raise AssertionError(f"{tag}: the fused {layout} steps "
+                                     "disagree with the plain path")
+            out[layout] = {"shapes": shapes, "rel_err": errs}
         return out
 
     def reclaimed_lanes_twice(cfg2, target2, kv2, tag):
@@ -2411,6 +2528,7 @@ def main() -> int:
         on = [memcom.compress_chunked(compressor, cfg, src0,
                                       chunk_size=chunk_w)[0]
               for _ in range(2)]
+        chunked0 = on[0]  # the classic chunked compile's O^i of task 0
         se = max(plain.scaled_err(a["h"], b["h"])
                  for a, b in zip(on[0], prefixes[0][0]))
         bitwise = all(torch.equal(a["h"], b["h"])
@@ -2487,6 +2605,55 @@ def main() -> int:
             f"{[round(x, 4) for x in w_['ttft_s'][2:]]} s, serve "
             f"{w_['serve_s']:.3f} s (budgeted {b_['serve_s']:.3f} s)")
         del eng
+        # the fused compile lane: the same two tasks compile 512 tokens in
+        # each fused step of the two warm requests' decoding
+        eng = ServingEngine(cfg, target, slots=slots, max_len=mlen,
+                            compressor=compressor, compile_token_budget=chunk_w,
+                            fused_step=True, fused_chunk_tokens=16)
+        eng.add_prefix("resident", resident)
+        gap_serve(eng, warm)  # warm-up
+        omegas = []
+        finish = memcom.finish_compress
+
+        def spy(*a, **k):
+            res = finish(*a, **k)
+            omegas.append(res[0])
+            return res
+
+        memcom.finish_compress = spy
+        try:
+            set_counts()
+            toks, out["fused"] = gap_serve(eng, warm + cold)
+            out["fused_launches"] = counts()
+        finally:
+            memcom.finish_compress = finish
+        f_ = out["fused"]
+        f_["fused_compile_chunks"] = eng.counters["fused_compile_chunks"]
+        errs = [row_err([{k: v for k, v in e.items()}
+                         for e in eng.store.get(f"online{i}")],
+                        [{k: v[0] for k, v in e.items()}
+                         for e in prefixes[i][1]]) for i in (0, 1)]
+        bitwise = len(omegas) == 2 and all(
+            torch.equal(a["h"], b["h"]) for a, b in zip(omegas[0], chunked0))
+        cold_toks = [toks[u] for u in f_["uids"][2:]]
+        log(f"{tag} fused compile lane {card}: "
+            f"{f_['fused_compile_chunks']} compile chunks in fused steps, "
+            f"cold TTFT {[round(x, 4) for x in f_['ttft_s'][2:]]} s, longest "
+            f"decode gap {f_['decode_gap_max_s']:.4f} s (mean "
+            f"{f_['decode_gap_mean_s']:.4f}); the classic loop at the same "
+            f"budget: cold TTFT {[round(x, 4) for x in b_['ttft_s'][2:]]} s, "
+            f"longest gap {b_['decode_gap_max_s']:.4f} s; installed K/V vs "
+            f"the offline prefix: scaled err {[f'{e:.3e}' for e in errs]}; "
+            f"O^i bitwise equal to the classic chunked compile: {bitwise}; "
+            f"launches {out['fused_launches']}")
+        if not (f_["fused_compile_chunks"] > 0 and bitwise
+                and max(errs) <= REL_TOL["bfloat16"]
+                and all(len(t_) == max_new for t_ in cold_toks)):
+            raise AssertionError(f"{tag}: the fused compile lane failed its "
+                                 "checks")
+        out.update(fused_installed_scaled_err=errs,
+                   fused_omega_bitwise_classic=bitwise)
+        del eng, chunked0, omegas
         torch.cuda.empty_cache()
         return out
 
@@ -2645,10 +2812,272 @@ def main() -> int:
                                      "not the CPU's")
         return out
 
+    # ---- 4f-4h. the fused step, speculative decoding and traffic ----
+    def fused_serve(eng, specs):
+        """Serve ``specs`` on ``eng`` with its counters reset and every
+        kernel's launch count set to 0 just before and read just after.
+        Required: each request emits its budget (no stop tokens here), the
+        decode counter is the output less the first tokens, every joined
+        prompt token streamed once and no more drafts accepted than
+        proposed.  Returns (tokens by request, numbers)."""
+        eng.reset_stats()
+        reqs = [Request(**x) for x in specs]
+        set_counts()
+        out, wall = synced(eng.serve, reqs)
+        launches = counts()
+        es = eng.stats()["engine"]
+        toks = [out[r.uid] for r in reqs]
+        joined = sum(e[3] for e in eng.trace if e[0] == "join")
+        ttft = [eng.request_log[r.uid]["first_token_s"]
+                - eng.request_log[r.uid]["arrival_s"] for r in reqs]
+        n_tok = int(sum(len(t_) for t_ in toks))
+        ok = (all(len(t_) == r.max_new for t_, r in zip(toks, reqs))
+              and es["tokens_generated"] == n_tok - len(reqs)
+              and es["fused_prefill_tokens"] == joined
+              and es["draft_accepted"] <= es["draft_proposed"])
+        nums = {"serve_s": wall, "tokens": n_tok, "tok_s": n_tok / wall,
+                "decode_tok_s": es["tokens_generated"] / es["decode_time_s"],
+                "decode_steps": es["decode_steps"],
+                "fused_steps": es["fused_steps"],
+                "fused_prefill_tokens": es["fused_prefill_tokens"],
+                "joined_tokens": joined, "joins": sum(
+                    1 for e in eng.trace if e[0] == "join"),
+                "draft_proposed": es["draft_proposed"],
+                "draft_accepted": es["draft_accepted"],
+                "accept_rate": es["accept_rate"],
+                "decode_gap_max_s": es["decode_gap_max_s"],
+                "ttft_mean_s": float(np.mean(ttft)),
+                "ttft_max_s": float(np.max(ttft)),
+                "jit_compiles": es["jit_compiles"], "launches": launches,
+                "conserved": ok}
+        return toks, nums
+
+    def gemma_fused(cfg, target, compressor, prefixes, engine, pengine):
+        """gemma2-2b at full width: 8 requests over 4 slots (prompts of
+        4-33 tokens, budgets of 8-16, so slots free at different steps and
+        the later requests join while others decode), through the path's
+        classic engines (the baseline), then each through a fused engine
+        (chunks of 16), a self-speculative one (k = 3) and
+        one drafted by gemma2-2b at depth 2 (full width, seed 5), dense
+        and paged (blocks of 16); then the traffic harness."""
+        tag = "[gemma2-2b fused]"
+        out = {}
+        lens = (4, 9, 12, 7, 20, 33, 26, 17)
+        budgets = (16, 12, 8, 14, 16, 10, 16, 12)
+        f_rng = np.random.default_rng(25)
+        specs = [dict(tokens=f_rng.integers(4, vocab.size, n).astype(
+            np.int32), max_new=b_, prefix=f"task{i % 2}")
+            for i, (n, b_) in enumerate(zip(lens, budgets))]
+        # a shorter serve of the same prompts warms each engine's shapes
+        # (budgets still staggered, so requests join there too)
+        warm = [dict(x, max_new=x["max_new"] // 4 + 1) for x in specs]
+        classic = {}
+        for layout, eng in (("dense", engine), ("paged", pengine)):
+            eng.serve([Request(**x) for x in warm])
+            classic[layout], nums = fused_serve(eng, specs)
+            out[f"{layout} classic"] = nums
+            log(f"{tag} {layout} classic engine, the same requests {card}: "
+                f"{nums['tokens']} tokens in {nums['serve_s']:.3f}s "
+                f"({nums['tok_s']:.1f} tok/s, decode "
+                f"{nums['decode_tok_s']:.1f} tok/s over "
+                f"{nums['decode_steps']} steps), TTFT mean "
+                f"{nums['ttft_mean_s']:.4f}s max {nums['ttft_max_s']:.4f}s, "
+                f"longest decode gap {nums['decode_gap_max_s']:.4f}s")
+            if not nums["conserved"]:
+                raise AssertionError(f"{tag} {layout} classic: counters "
+                                     "not conserved")
+        cfg_d = cfg.replace(name="gemma2-2b-depth2", layout=LayerLayout.uniform(
+            LayerDesc("attn", "dense"), 2))
+        drafter = (cfg_d, tfm.init_params(cfg_d, 5))
+        bs = 16
+        for layout in ("dense", "paged"):
+            for mode, kw in (("fused", {}),
+                             ("spec_self", dict(spec_draft="self", spec_k=3)),
+                             ("spec_cross", dict(spec_draft=drafter,
+                                                 spec_k=3))):
+                eng = ServingEngine(
+                    cfg, target, slots=slots, max_len=max_len,
+                    kv_layout=layout, block_size=bs,
+                    num_blocks=1 + 2 * (m // bs) + slots * 4,
+                    fused_step=True, fused_chunk_tokens=16, **kw)
+                for t, (_, kv) in enumerate(prefixes):
+                    eng.add_prefix(f"task{t}", kv)
+                eng.serve([Request(**x) for x in warm])
+                toks, nums = fused_serve(eng, specs)
+                same = sum(np.array_equal(a, b_) for a, b_ in
+                           zip(toks, classic[layout]))
+                nums["streams_equal_to_classic"] = int(same)
+                key = f"{layout} {mode}"
+                out[key] = nums
+                paths[f"gemma2-2b {key}"] = nums["launches"]
+                need = ("flash_attention",) + (
+                    ("paged_flash_decode",) if layout == "paged" else ())
+                log(f"{tag} {key} {card}: {nums['tokens']} tokens in "
+                    f"{nums['serve_s']:.3f}s ({nums['tok_s']:.1f} tok/s, "
+                    f"decode {nums['decode_tok_s']:.1f} tok/s over "
+                    f"{nums['decode_steps']} steps, {nums['fused_steps']} "
+                    f"fused), {nums['joins']} joins streaming "
+                    f"{nums['fused_prefill_tokens']} prompt tokens, drafts "
+                    f"{nums['draft_accepted']}/{nums['draft_proposed']} "
+                    f"accepted ({nums['accept_rate']:.3f}), TTFT mean "
+                    f"{nums['ttft_mean_s']:.4f}s max {nums['ttft_max_s']:.4f}"
+                    f"s, longest decode gap {nums['decode_gap_max_s']:.4f}s;"
+                    f" greedy streams equal to the classic engine's: {same}/"
+                    f"{len(specs)}; step functions {nums['jit_compiles']}; "
+                    f"launches {nums['launches']}")
+                if not (nums["conserved"] and nums["joins"] > 0
+                        and all(nums["launches"][k_] > 0 for k_ in need)
+                        and (mode == "fused" or nums["draft_proposed"] > 0)):
+                    raise AssertionError(f"{tag} {key}: the fused serve "
+                                         "failed its checks")
+                if key == "dense fused":
+                    prof_eng = eng  # profiled last
+        out["traffic"] = gemma_traffic(cfg, target, compressor)
+        del drafter
+        # five fused steps of the dense engine profiled (W = 4, every lane
+        # valid, behind 516-524 positions): device busy and idle share a
+        # step (last: a profiler session slows the launches after it)
+        step = prof_eng._fused_program(4, True, None)
+        toks = f_rng.integers(4, vocab.size, (slots, 4)).astype(np.int64)
+        lens = np.asarray([m + 8, m + 11, m + 4, m + 12], np.int64)
+        valid = np.full((slots,), 4, np.int32)
+        step(toks, lens, valid, None)
+        prof = profiled(tag, "fused_step_w4", lambda: [
+            step(toks, lens, valid, None) for _ in range(5)])
+        prof["wall_per_step_s"] = prof["wall_s"] / 5
+        prof["kernels_per_step"] = prof["kernels"] / 5
+        out["profile_fused_step_w4"] = prof
+        log(f"{tag} profiled fused step (W = 4): "
+            f"{prof['wall_per_step_s'] * 1e3:.2f} ms a step, "
+            f"{prof['kernels_per_step']:.0f} kernels, device busy "
+            f"{prof['device_busy_s'] / 5 * 1e3:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}")
+        return out
+
+    def gemma_traffic(cfg, target, compressor):
+        """The traffic harness at gemma2-2b's full width on a virtual
+        clock: 24 requests over 6 raw-shot tasks of 3072 tokens (Zipf,
+        Poisson arrivals at 5 a second, two classes), 2 HBM prefixes and a
+        host tier,
+        compiles of 512 tokens riding the fused steps; twice from one
+        seed, which must give the same tokens and request_log."""
+        tag = "[gemma2-2b traffic]"
+        # 5 requests a simulated second: a task compiles in ~0.6 s of the
+        # clock's cost model, so evicted tasks are asked for again and
+        # come back from the host tier
+        RATE, SLO_TTFT = 5.0, 1.0
+        tcfg = TrafficConfig(num_tasks=6, context_tokens=T, num_requests=24,
+                             priority_classes=2, rate_rps=RATE)
+        runs = []
+        for _ in range(2):
+            trace = generate_trace(tcfg, 0, vocab=vocab)
+            eng = ServingEngine(cfg, target, slots=slots, max_len=max_len,
+                                compressor=compressor,
+                                compile_token_budget=512, prefix_capacity=2,
+                                host_capacity=4, fused_step=True,
+                                fused_chunk_tokens=16, clock=VirtualClock())
+            set_counts()
+            res, wall = synced(eng.serve, list(trace.requests))
+            launches = counts()
+            slo = slo_metrics(eng.request_log, slo_ttft_s=SLO_TTFT,
+                              gap_samples=eng.gap_samples)
+            runs.append(([res[r.uid].tolist() for r in trace.requests],
+                         [eng.request_log[r.uid] for r in trace.requests],
+                         slo, wall, eng.stats(), launches))
+            del eng
+        same = runs[0][:2] == runs[1][:2]
+        slo, wall, st, launches = runs[0][2:]
+        paths["gemma2-2b traffic"] = launches
+        log(f"{tag} {card}: {slo['completed']}/{slo['requests']} completed "
+            f"in {wall:.2f}s wall ({runs[1][3]:.2f}s the second run), "
+            f"simulated: TTFT p50 {slo['ttft_p50_s']:.4f} / p99 "
+            f"{slo['ttft_p99_s']:.4f} s, goodput {slo['goodput_rps']:.2f} "
+            f"r/s at {SLO_TTFT} s, decode-gap p99 {slo['decode_gap_p99_s']:.4f} s,"
+            f" {slo['preemptions']} preemptions; compiler {st['compiler']}; "
+            f"tiers {st['prefix_tiers']}; fused compile chunks "
+            f"{st['engine']['fused_compile_chunks']}; a second run's tokens "
+            f"and request_log identical: {same}; launches {launches}")
+        if not (same and slo["completed"] == slo["requests"]
+                and launches["flash_attention"] > 0
+                and launches["memcom_xattn"] > 0):
+            raise AssertionError(f"{tag}: the traffic run failed its checks")
+        return {"slo": slo, "wall_s": [r[3] for r in runs],
+                "identical": same, "stats": st, "launches": launches}
+
+    def bench_target_exact():
+        """The committed trained target (float32, head dim 32: the dense
+        layout) serves 8 ICL prompts (a 96-token many-shot context and a
+        query, budgets of 4-8 tokens, so that later requests join while
+        others decode) greedily over 4 slots four ways: classic, fused
+        (chunks of 16), self-speculative (k = 3) and drafted by the same
+        config at seed 9.  Required: identical tokens and a self-draft accept rate
+        of exactly 1.0."""
+        from repro_torch import bridge
+        from repro_torch.configs import bench_target
+
+        tag = "[bench-target exact]"
+        cfg = bench_target.config()
+        path = str(Path(__file__).resolve().parent / bench_target.CHECKPOINT)
+        target, _ = bridge.load_params(cfg, path, device="cuda")
+        task = bench_target.TASKS["hwu64-like"]
+        b_rng = np.random.default_rng(5)
+        specs = []
+        for _ in range(8):
+            episode = make_episode(task, b_rng)
+            ctx = build_manyshot_prompt(task, episode, b_rng,
+                                        bench_target.SOURCE_LEN)
+            q, _ = make_query(task, episode, ctx, b_rng)
+            specs.append(dict(tokens=np.concatenate([ctx, q]),
+                              max_new=int(b_rng.integers(4, 9))))
+        mlen = max(len(x["tokens"]) for x in specs) + 8
+        modes = {"classic": {}, "fused": dict(fused_step=True),
+                 "spec_self": dict(fused_step=True, spec_draft="self",
+                                   spec_k=3),
+                 "spec_cross": dict(fused_step=True, spec_k=3, spec_draft=(
+                     cfg, tfm.init_params(cfg, 9)))}
+        runs, out = {}, {}
+        for mode, kw in modes.items():
+            eng = ServingEngine(cfg, target, slots=slots, max_len=mlen,
+                                fused_chunk_tokens=16, **kw)
+            set_counts()
+            res = eng.serve([Request(**x) for x in specs])
+            paths[f"bench-target {mode}"] = counts()
+            runs[mode] = [res[u].tolist() for u in sorted(res)]
+            es = eng.stats()["engine"]
+            out[mode] = {k_: es[k_] for k_ in (
+                "fused_steps", "fused_prefill_tokens", "draft_proposed",
+                "draft_accepted", "accept_rate")}
+        same = {mode: runs[mode] == runs["classic"] for mode in runs}
+        log(f"{tag} {card}: tokens identical to the classic engine's "
+            f"{same}; counters {out}")
+        if not all(same.values()):
+            for mode, toks in runs.items():
+                for i, (a, b_) in enumerate(zip(toks, runs["classic"])):
+                    d = next((j for j, (x, y) in enumerate(zip(a, b_))
+                              if x != y), None)
+                    if d is None:
+                        continue
+                    seq = np.concatenate([specs[i]["tokens"], b_[:d]])
+                    with torch.no_grad():
+                        lg, _ = target(tokens=torch.as_tensor(
+                            seq[None], dtype=torch.long, device=dev))
+                    top = torch.topk(lg[0, -1].float(), 2).values
+                    log(f"{tag} {mode} request {i} diverges at token {d}: "
+                        f"top-2 margin {float(top[0] - top[1]):.3e}")
+                    break
+        if not (all(same.values()) and out["spec_self"]["accept_rate"] == 1.0
+                and out["fused"]["fused_prefill_tokens"] > 0
+                and out["spec_cross"]["draft_accepted"]
+                < out["spec_cross"]["draft_proposed"]):
+            raise AssertionError(f"{tag}: the four ways disagree")
+        return {"identical": same, "counters": out}
+
     paths = {}
     base_geom = (m, T, sources, max_len)
     for arch, need in (("gemma2-2b", ()), ("granite-moe-3b-a800m", ("gmm",))):
-        report[arch] = main_path(arch, need, base_geom)
+        report[arch] = main_path(
+            arch, need, base_geom,
+            then=gemma_fused if arch == "gemma2-2b" else None)
         paths[f"{arch} dense"] = report[arch]["launches"]
         paths[f"{arch} paged"] = report[arch]["paged"]["launches"]
         gc.collect()  # the models go before the next ones are built
@@ -2683,6 +3112,7 @@ def main() -> int:
     paths["mistral-7b dense"] = report["mistral-7b"]["launches"]
     paths["mistral-7b paged"] = report["mistral-7b"]["paged"]["launches"]
     paths["mistral-7b online"] = then["online"]["launches"]
+    paths["mistral-7b online fused"] = then["online"]["fused_launches"]
     for layout in ("dense", "paged"):
         paths[f"mistral-7b tiers {layout}"] = \
             then["tiers"][layout]["launches"]
@@ -2695,6 +3125,7 @@ def main() -> int:
     report["bench-target"] = trained_target_eval()
     for key, run in report["bench-target"].items():
         paths[f"bench-target eval {key}"] = run["launches"]
+    report["bench-target"]["exact"] = bench_target_exact()
     report["mistral_phase_s"] = time.perf_counter() - t_phase
     log(f"[mistral-7b] phases 4e, 5 and the trained target's eval: "
         f"{report['mistral_phase_s']:.1f}s")
@@ -2797,10 +3228,12 @@ def main() -> int:
                 **{k: head[k] for k in head
                    if k.startswith(("ms_", "device_ms_"))})
     report["kernels"] = entries
+    report["total_s"] = time.perf_counter() - t_main
     if args.json_out:
         out = Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(report, indent=1))
+    log(f"chip_smoke total {report['total_s']:.1f}s")
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}
                                 for e in entries]}))

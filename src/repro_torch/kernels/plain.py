@@ -357,7 +357,7 @@ def gmm_ref(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
-def paged_scatter(pools, news, block_tables, starts):
+def paged_scatter(pools, news, block_tables, starts, valid=None):
     """Write ``news[i][b, s]`` into ``pools[i]`` at logical position
     ``starts[b] + s`` of slot ``b``, in place; returns ``pools``.  The
     pools (K and V) share one table walk.
@@ -369,6 +369,12 @@ def paged_scatter(pools, news, block_tables, starts):
     column is clamped to the table's width (JAX's gather clamps an
     out-of-range column the same way; torch would raise), so a lane past
     the table end writes through the last column.
+
+    ``valid`` (B,) int (the fused step's ragged lanes): only lanes ``s <
+    valid[b]`` carry tokens; the others are routed to the trash block 0
+    (at offset ``p % bs``), so that an invalid lane past the table width
+    cannot land, through the clamped column, in the last column's real
+    block.
 
     Several lanes may name one pool row: idle decode slots whose tables
     point at the trash block 0, or that sit on a shared prefix's tail
@@ -384,6 +390,9 @@ def paged_scatter(pools, news, block_tables, starts):
     pos = starts.to(torch.long)[:, None] + lane[None, :]  # (B, S)
     col = pos.div(bs, rounding_mode="floor").clamp(0, block_tables.shape[1] - 1)
     blk = torch.gather(block_tables.to(torch.long), 1, col)
+    if valid is not None:
+        blk = torch.where(lane[None, :] < valid.to(torch.long)[:, None], blk,
+                          0)  # 0 is the trash block
     rows = (blk * bs + pos % bs).reshape(B * S)
     order = torch.argsort(rows, stable=True)
     last = torch.searchsorted(rows[order], rows, right=True) - 1

@@ -34,12 +34,27 @@ recompiled.
 preempts a running lower one); ``--priority-aging S`` lifts a queued
 request one class for every S seconds it waits.
 
+``--fused-step`` lets a request join while other slots decode: its prompt
+streams ``--fused-chunk-tokens`` at a time through the batched decode
+step, and a budgeted compile chunk rides the same step.
+``--spec-draft self|ARCH --spec-k K`` adds speculative decoding on the
+fused step (the target drafting for itself, or ARCH's config from seed
+1).  ``--traffic zipf|onoff`` serves a seeded synthetic workload instead
+of the fixed batch (``--traffic-requests``, ``--traffic-tasks``,
+``--traffic-rate``, ``--zipf-alpha``, ``--seed``): a Zipf catalog of
+raw-shot tasks under Poisson or ON-OFF arrivals on a virtual clock,
+reported as SLO metrics against ``--slo-ttft``.  ``--stats`` prints the
+engine's counters.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --smoke --fused-step --spec-draft self --spec-k 2 --device cpu
+
 The device is the card unless ``--device cpu`` is given; without a card
 the launcher raises.  A config without MemCom (the attention-free
 mamba2-370m) exits with a message before any model is built, as the JAX
-launcher does: its entry point is ``ServingEngine`` itself.  The fused
-step, the traffic harness, meshes and telemetry are later slices of the
-port.
+launcher does: its entry point is ``ServingEngine`` itself.  Meshes,
+telemetry (the tracer, the metrics registry, the SLO watchdog) and the
+budget autotuner are later slices of the port.
 """
 
 from __future__ import annotations
@@ -57,7 +72,9 @@ from repro_torch.core import memcom
 from repro_torch.data import (ICLTaskSpec, SyntheticVocab,
                               build_manyshot_prompt, make_episode, make_query)
 from repro_torch.models import transformer as tfm
-from repro_torch.serving import Request, ServingEngine, materialize_prefix
+from repro_torch.serving import (Request, ServingEngine, TrafficConfig,
+                                 VirtualClock, generate_trace,
+                                 materialize_prefix, slo_metrics)
 
 
 def _sync(device: torch.device) -> None:
@@ -118,6 +135,44 @@ def main(argv=None) -> dict:
     ap.add_argument("--priority-aging", type=float, default=None,
                     help="seconds of queue wait per one-class priority "
                          "boost (anti-starvation; default off)")
+    ap.add_argument("--stats", action="store_true",
+                    help="print engine cache/compile counters after serving")
+    ap.add_argument("--traffic", choices=("zipf", "onoff"), default=None,
+                    help="serve a seeded synthetic workload instead of the "
+                         "fixed batch: Zipf-popularity task catalog under "
+                         "Poisson (zipf) or bursty ON-OFF (onoff) arrivals "
+                         "on the engine's virtual clock")
+    ap.add_argument("--traffic-requests", type=int, default=32)
+    ap.add_argument("--traffic-tasks", type=int, default=8,
+                    help="catalog size; set above --prefix-capacity/"
+                         "--host-capacity to make the tiers churn")
+    ap.add_argument("--traffic-rate", type=float, default=200.0,
+                    help="arrival rate in requests per simulated second")
+    ap.add_argument("--zipf-alpha", type=float, default=1.1)
+    ap.add_argument("--slo-ttft", type=float, default=0.02,
+                    help="traffic mode: TTFT SLO in simulated seconds")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="traffic trace seed (same seed -> same workload "
+                         "and, on the virtual clock, same metrics)")
+    ap.add_argument("--fused-step", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="fuse admission prefill chunks / compile chunks "
+                         "into the batched decode step (attention-only "
+                         "archs): new requests join by streaming their "
+                         "prompt through the decode step instead of "
+                         "opening a prefill-sized decode gap")
+    ap.add_argument("--fused-chunk-tokens", type=int, default=16,
+                    help="prompt tokens a joining slot streams per fused "
+                         "step (--fused-step)")
+    ap.add_argument("--spec-draft", default=None, metavar="ARCH|self",
+                    help="speculative decoding drafter: an arch id (its "
+                         "config, smoke with --smoke, drafts for the "
+                         "target) or 'self' (the target drafts for "
+                         "itself — the acceptance upper bound).  Needs "
+                         "--fused-step and --spec-k")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="draft tokens proposed and verified per fused "
+                         "step and slot (0 = speculative decoding off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain PyTorch kernels)")
@@ -136,6 +191,18 @@ def main(argv=None) -> dict:
     if args.raw_shots and args.classify:
         ap.error("--raw-shots serves generation traffic (classify goes "
                  "through the offline seat path)")
+    if args.traffic and (args.classify or args.raw_shots):
+        ap.error("--traffic generates its own raw-shot requests (drop "
+                 "--classify/--raw-shots)")
+    if (args.spec_k > 0) != (args.spec_draft is not None):
+        ap.error("--spec-draft and --spec-k come together (both or neither)")
+    if args.spec_k and not args.fused_step:
+        ap.error("--spec-k rides the fused step: add --fused-step")
+    if args.fused_chunk_tokens < 1:
+        ap.error("--fused-chunk-tokens must be >= 1")
+    if args.spec_draft is not None and args.spec_draft != "self" \
+            and args.spec_draft not in ARCH_IDS:
+        ap.error(f"--spec-draft must be 'self' or one of {ARCH_IDS}")
     device = resolve_device(args.device)
 
     vocab = SyntheticVocab()
@@ -151,17 +218,38 @@ def main(argv=None) -> dict:
     target = tfm.init_params(cfg, 0, device=device)
     compressor = memcom.init_memcom(cfg, target, 1)
     rng = np.random.default_rng(0)
+    spec_draft = None
+    if args.spec_k:
+        if args.spec_draft == "self":
+            spec_draft = "self"
+            print(f"[edge] self-speculative decoding, k={args.spec_k}")
+        else:
+            dcfg = (get_smoke_config(args.spec_draft) if args.smoke
+                    else get_config(args.spec_draft)).replace(
+                        vocab_size=vocab.size)
+            spec_draft = (dcfg, tfm.init_params(dcfg, 1, device=device))
+            print(f"[edge] speculative decoding: drafter {dcfg.name} "
+                  f"({dcfg.param_count()/1e6:.1f}M), k={args.spec_k}")
+    # traffic replays timed arrivals against a virtual clock: time moves
+    # through the engine's work-cost model, so the SLO numbers are
+    # simulated seconds, reproducible for one seed
     engine = ServingEngine(cfg, target, slots=args.slots,
                            max_len=m + 24 + args.max_new + 16, device=device,
                            kv_layout=args.kv_layout, block_size=args.block_size,
                            num_blocks=args.num_blocks,
                            prefix_capacity=args.prefix_capacity,
-                           compressor=compressor if args.raw_shots else None,
+                           compressor=(compressor
+                                       if args.raw_shots or args.traffic
+                                       else None),
                            compile_token_budget=args.compile_budget,
                            host_capacity=args.host_capacity,
                            disk_dir=args.disk_dir,
                            promote_layer_budget=args.promote_budget,
-                           priority_aging_s=args.priority_aging)
+                           clock=VirtualClock() if args.traffic else None,
+                           priority_aging_s=args.priority_aging,
+                           fused_step=args.fused_step,
+                           fused_chunk_tokens=args.fused_chunk_tokens,
+                           spec_draft=spec_draft, spec_k=args.spec_k)
     if engine.tiers is not None:
         preloaded = engine.tiers.disk_names()
         print(f"[edge] tiered prefix cache: host capacity "
@@ -173,7 +261,7 @@ def main(argv=None) -> dict:
     tasks, payload = [], 0
     _sync(device)
     t0 = time.perf_counter()
-    for t in range(args.tasks):
+    for t in range(0 if args.traffic else args.tasks):
         task = ICLTaskSpec(vocab, num_labels=8, keys_per_label=4)
         episode = make_episode(task, rng)
         prompt = build_manyshot_prompt(task, episode, rng,
@@ -188,7 +276,9 @@ def main(argv=None) -> dict:
         tasks.append((f"task{t}", task, episode, prompt))
     _sync(device)
     t_compress = time.perf_counter() - t0
-    if args.raw_shots:
+    if args.traffic:
+        pass  # the trace carries its own raw shots; no offline stage
+    elif args.raw_shots:
         budget = ("whole-task" if args.compile_budget is None
                   else f"{args.compile_budget}-token")
         print(f"[edge] no offline stage: {args.tasks} task(s) will compile "
@@ -206,9 +296,55 @@ def main(argv=None) -> dict:
                "compile_budget": args.compile_budget,
                "host_capacity": args.host_capacity,
                "disk_dir": args.disk_dir,
-               "promote_budget": args.promote_budget}
+               "promote_budget": args.promote_budget,
+               "fused_step": args.fused_step,
+               "spec_draft": args.spec_draft, "spec_k": args.spec_k}
 
-    if args.classify:
+    if args.traffic:
+        tcfg = TrafficConfig(
+            num_tasks=args.traffic_tasks, zipf_alpha=args.zipf_alpha,
+            context_tokens=args.context_tokens,
+            num_requests=args.traffic_requests,
+            process="poisson" if args.traffic == "zipf" else "onoff",
+            rate_rps=args.traffic_rate,
+            priority_classes=args.priority_classes)
+        trace = generate_trace(tcfg, args.seed, vocab=vocab)
+        print(f"[edge] traffic: {tcfg.num_requests} requests over "
+              f"{tcfg.num_tasks} task(s), zipf {tcfg.zipf_alpha}, "
+              f"{tcfg.process} arrivals @ {tcfg.rate_rps:.0f} r/s "
+              f"(simulated), {tcfg.priority_classes} priority class(es), "
+              f"seed {args.seed}")
+        _sync(device)
+        t0 = time.perf_counter()
+        out = engine.serve(list(trace.requests))
+        _sync(device)
+        wall = time.perf_counter() - t0
+        slo = slo_metrics(engine.request_log, slo_ttft_s=args.slo_ttft,
+                          gap_samples=engine.gap_samples)
+        generated = int(sum(len(v) for v in out.values()))
+        print(f"[edge] {slo['completed']}/{slo['requests']} completed, "
+              f"{generated} tokens in {slo['duration_s']*1e3:.1f} ms "
+              f"simulated ({wall:.2f}s wall): TTFT p50 "
+              f"{slo['ttft_p50_s']*1e3:.2f} / p99 "
+              f"{slo['ttft_p99_s']*1e3:.2f} ms, goodput "
+              f"{slo['goodput_rps']:.1f} r/s @ SLO "
+              f"{args.slo_ttft*1e3:.0f} ms, "
+              f"{slo['tokens_per_s_per_device']:.0f} tok/s/device, "
+              f"decode-gap p99 {slo['decode_gap_p99_s']*1e3:.2f} ms, "
+              f"{slo['preemptions']} preemption(s)")
+        for cls, row in sorted(slo["per_class"].items()):
+            print(f"[edge]   class {cls}: "
+                  f"{row['completed']}/{row['requests']} done, TTFT p50 "
+                  f"{row['ttft_p50_s']*1e3:.2f} ms, {row['slo_attained']} "
+                  f"in SLO, {row['preemptions']} preempted")
+        metrics["traffic"] = {
+            "process": tcfg.process, "seed": args.seed,
+            "traffic_tasks": tcfg.num_tasks, "rate_rps": tcfg.rate_rps,
+            "zipf_alpha": tcfg.zipf_alpha,
+            "priority_classes": tcfg.priority_classes,
+            "wall_s": wall, "generated": generated,
+            "tokens": [out[r.uid].tolist() for r in trace.requests], **slo}
+    elif args.classify:
         hits = 0
         t0 = time.perf_counter()
         for i in range(args.requests):
@@ -254,6 +390,17 @@ def main(argv=None) -> dict:
                   f"{cs['deduped']} deduped submit(s), {cs['chunks']} "
                   f"chunk(s) / {cs['tokens']} source tokens")
             metrics["compiler"] = cs
+        if args.fused_step:
+            es = engine.stats()["engine"]
+            line = (f"[edge] fused: {es['fused_steps']} fused step(s), "
+                    f"{es['fused_prefill_tokens']} prompt tokens streamed "
+                    f"in {es['fused_prefill_chunks']} chunk(s), "
+                    f"{es['fused_compile_chunks']} compile chunk(s) fused")
+            if args.spec_k:
+                line += (f"; speculative: {es['draft_accepted']}/"
+                         f"{es['draft_proposed']} drafts accepted "
+                         f"({es['accept_rate']:.0%})")
+            print(line)
     if engine.tiers is not None:
         ts = engine.stats()["prefix_tiers"]
         print(f"[edge] prefix tiers: {ts['demotes']} demoted, "
@@ -267,6 +414,10 @@ def main(argv=None) -> dict:
         print(f"[edge] paged pool: {pool['blocks_used']}/"
               f"{pool['num_blocks']} blocks of {pool['block_size']} in use")
         metrics["pool"] = pool
+    if args.stats:
+        stats = engine.stats()
+        print("[stats]", json.dumps(stats, indent=1))
+        metrics["stats"] = stats
     if args.metrics:
         with open(args.metrics, "w") as f:
             json.dump(metrics, f, indent=1)

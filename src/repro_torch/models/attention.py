@@ -75,16 +75,39 @@ def project_kv(p: Attention, cfg: ModelConfig, x, positions):
     return k, v
 
 
-def scatter_rows(cache, new, starts):
+def scatter_rows(cache, new, starts, valid=None):
     """Write ``new[b]`` into ``cache[b]`` at per-slot offsets ``starts[b]``
-    along the sequence axis, in place; returns ``cache``.  Each start is
-    clamped so the whole window fits, as ``jax.lax.dynamic_update_slice``
-    does, and the write needs no device sync."""
+    along the sequence axis, in place; returns ``cache``.  The write needs
+    no device sync.
+
+    Without ``valid`` each start is clamped so that the whole window fits,
+    as ``jax.lax.dynamic_update_slice`` does.  ``valid`` (B,) int (the
+    fused step's ragged lanes) writes only lanes ``s < valid[b]`` whose
+    row is below the stripe's end, unclamped: the clamp would shift a
+    window whose padding lanes cross the end back over valid rows.  The
+    written lanes are a prefix of each slot's; every other lane writes
+    the last written lane's row again with the same value (or, in a slot
+    with none, one row's own value back), so the dropped lanes change
+    nothing whatever order the device runs the writes in."""
     B, S = new.shape[:2]
+    L = cache.shape[1]
     lane = torch.arange(S, device=new.device)
     rows = torch.arange(B, device=new.device)[:, None].expand(B, S)
-    start = starts.to(torch.long).clamp(0, cache.shape[1] - S)
-    cache[rows, start[:, None] + lane[None, :]] = new.to(cache.dtype)
+    if valid is None:
+        start = starts.to(torch.long).clamp(0, L - S)
+        cache[rows, start[:, None] + lane[None, :]] = new.to(cache.dtype)
+        return cache
+    start = starts.to(torch.long)
+    n_ok = torch.minimum(valid.to(torch.long), L - start).clamp(0, S)
+    src = torch.minimum(lane[None, :], (n_ok - 1)[:, None])  # (B, S)
+    dest = torch.where(n_ok[:, None] > 0, start[:, None] + src,
+                       start.clamp(0, L - 1)[:, None])
+    vals = torch.where(
+        (n_ok > 0).view(B, 1, *([1] * (new.dim() - 2))),
+        new.gather(1, src.clamp(min=0).view(B, S, *([1] * (new.dim() - 2)))
+                   .expand(new.shape)).to(cache.dtype),
+        cache[rows, dest])
+    cache[rows, dest] = vals
     return cache
 
 
@@ -110,6 +133,7 @@ def apply_attention(
     decode: bool = False,
     kv_source=None,
     block_tables=None,
+    lane_valid=None,
 ):
     """Returns (out (B,S,D), cache_or_None).  ``cache_index`` is a python
     int (static offset) or a (B,) tensor (per-slot lengths, decode).
@@ -122,7 +146,13 @@ def apply_attention(
 
     Per-slot decode writes every lane, as the reference's classic step
     does: slot ``b``'s rows land at ``cache_index[b]`` (dense: clamped into
-    the stripe; paged: through its block table, column clamped)."""
+    the stripe; paged: through its block table, column clamped).
+    ``lane_valid`` (B,) int (the fused serving step) marks how many of the
+    S lanes carry tokens in each slot: the other lanes' K/V writes are
+    dropped (dense) or routed to the trash block (paged).  The read needs
+    no mask: lane ``s`` of slot ``b`` queries position ``cache_index[b] +
+    s``, and causality hides every row an invalid lane could have
+    written."""
     if kv_source is not None:
         raise NotImplementedError("enc-dec cross-attention is not ported yet")
     B, S, _ = x.shape
@@ -142,7 +172,7 @@ def apply_attention(
             if not (torch.is_tensor(cache_index) and cache_index.dim() == 1):
                 raise ValueError("paged decode needs (slots,) lengths")
             ops.paged_scatter((cache["k"], cache["v"]), (k_new, v_new),
-                              block_tables, cache_index)
+                              block_tables, cache_index, valid=lane_valid)
             out = ops.paged_decode_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 block_tables=block_tables, lengths=cache_index + S,
@@ -151,8 +181,8 @@ def apply_attention(
         if torch.is_tensor(cache_index) and cache_index.dim() == 1:
             # per-slot lengths (continuous batching): each slot writes at
             # its own offset and is masked to its own seated region only
-            scatter_rows(cache["k"], k_new, cache_index)
-            scatter_rows(cache["v"], v_new, cache_index)
+            scatter_rows(cache["k"], k_new, cache_index, valid=lane_valid)
+            scatter_rows(cache["v"], v_new, cache_index, valid=lane_valid)
             out = ops.decode_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 lengths=cache_index + S, softcap=softcap, scale=scale)

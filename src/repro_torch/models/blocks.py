@@ -48,12 +48,17 @@ class Block(nn.Module):
     def forward(self, h, *, positions, mask_offset=0,
                 prefix: Optional[dict] = None, cache: Optional[dict] = None,
                 cache_index=None, decode: bool = False,
-                memcom: Optional[tuple] = None, block_tables=None):
+                memcom: Optional[tuple] = None, block_tables=None,
+                lane_valid=None):
         """Returns (h, cache_or_None, aux) with aux {"omega": O^i or None,
         "moe_loss": float32 scalar, None without a MoE layer}.  ``memcom``
         is (MemXAttn module, source hiddens (B, T, D)) for this layer.  A
         Mamba2 layer's cache stays per slot on both layouts (the block
-        tables address only attention K/V)."""
+        tables address only attention K/V).  ``lane_valid`` masks the
+        fused step's ragged lanes in the attention cache writes; a Mamba2
+        layer cannot honour it (its state would advance over the padding
+        lanes), which is why the engine keeps the fused step to
+        attention-only layouts."""
         hn = self.norm1(h)
         if hasattr(self, "mamba"):
             if prefix is not None and "ssm" in prefix:
@@ -64,7 +69,8 @@ class Block(nn.Module):
             o, cache = self.attn(
                 hn, positions=positions, mask_offset=mask_offset,
                 prefix=prefix, cache=cache, cache_index=cache_index,
-                decode=decode, block_tables=block_tables)
+                decode=decode, block_tables=block_tables,
+                lane_valid=lane_valid)
         h = h + o
         omega = None
         if memcom is not None:

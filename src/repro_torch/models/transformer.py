@@ -93,13 +93,16 @@ class Transformer(nn.Module):
         memcom: Optional[dict] = None,  # {"params": [MemXAttn], "src": [H^i]}
         logits: bool = True,
         block_tables=None,  # (B, nb) int32: the cache is a paged pool
+        lane_valid=None,  # (B,) int: the fused step's ragged-lane mask
         remat: bool = False,
     ):
         """Returns (logits_or_hidden, aux) with aux keys "cache",
         "hiddens" (layer inputs H^i), "omega" (Memory-LLM O^i) and
         "moe_loss" (the layers' load-balance losses summed, a float32
         scalar; 0.0 without a MoE layer).  One block table resolves every
-        layer's pool.  ``remat`` (training) wraps each block in
+        layer's pool; ``lane_valid`` (decode) marks how many of each
+        slot's S lanes carry tokens (the others write no cache row).
+        ``remat`` (training) wraps each block in
         ``torch.utils.checkpoint`` when a graph is being recorded, as the
         JAX package's ``remat`` does: its activations are recomputed in
         the backward pass (so the kernels' forward counters count such a
@@ -135,7 +138,7 @@ class Transformer(nn.Module):
                       prefix=prefix[i] if prefix is not None else None,
                       cache=cache[i] if cache is not None else None,
                       cache_index=cache_index, decode=decode, memcom=mem,
-                      block_tables=block_tables)
+                      block_tables=block_tables, lane_valid=lane_valid)
             if remat and torch.is_grad_enabled():
                 h, _, a = checkpoint(block, h, use_reentrant=False, **kw)
             else:

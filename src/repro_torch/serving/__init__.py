@@ -1,8 +1,10 @@
 """Serving of the port (``repro/serving``): the compressed-prefix stores
 and their host/disk tiers, the online prefix compiler, the pure-Python
-control plane (scheduler, block allocator, clock) and the
+control plane (scheduler, block allocator, clock), the
 continuous-batching engine over a dense or a paged KV cache (Mamba2
-layers keep per-slot recurrent state on both)."""
+layers keep per-slot recurrent state on both) with its fused step and
+speculative decoding, and the traffic harness (Zipf catalogs, timed
+arrivals, SLO metrics over a ``Histogram``)."""
 
 from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocationError,
                                             BlockAllocator, OutOfBlocksError)
@@ -16,7 +18,10 @@ from repro_torch.serving.prefix_store import (PagedPrefixStore,
                                               take_prefix_row,
                                               write_prefix_to_cache)
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.telemetry import Histogram
 from repro_torch.serving.tiers import PromotionJob, TieredPrefixStore
+from repro_torch.serving.traffic import (Trace, TrafficConfig, generate_trace,
+                                         slo_metrics)
 
 __all__ = [
     "ServingEngine",
@@ -34,6 +39,11 @@ __all__ = [
     "Request",
     "Scheduler",
     "VirtualClock",
+    "TrafficConfig",
+    "Trace",
+    "generate_trace",
+    "slo_metrics",
+    "Histogram",
     "materialize_prefix",
     "seat_prefix_row",
     "take_prefix_row",

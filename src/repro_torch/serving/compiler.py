@@ -1,5 +1,5 @@
 """Online prefix compiler: many-shot compression inside the serving loop
-(``repro/serving/compiler.py``, its classic-step part).
+(``repro/serving/compiler.py``).
 
 A :class:`~repro_torch.serving.scheduler.Request` may carry its raw shot
 tokens (``raw_shots``); the engine compiles an unseen task *on the
@@ -24,15 +24,20 @@ installs finished prefixes into its store and wakes the parked requests.
 Each chunk is an eager call of :func:`~repro_torch.core.memcom.
 compress_chunk` on a source cache of exactly the task's length: the JAX
 compiler's per-geometry program caches and power-of-two cache lengths
-exist to bound jit compilations, which eager PyTorch does not have.  The
-fused step's ``chunk_body`` is a later slice of the port.
+exist to bound jit compilations, which eager PyTorch does not have.
+:meth:`PrefixCompiler.chunk_body` is that chunk's computation without the
+bookkeeping: the engine's fused step runs it in its own window
+(:meth:`peek_chunk`, the chunk, :meth:`absorb_chunk`), and :meth:`step`
+runs it between decode steps.  Either way a chunk writes its K/V and makes
+one causal flash call over the cached keys, so the online O^i are the
+offline compress's bit for bit on the card.
 """
 
 from __future__ import annotations
 
 import itertools
 from collections import OrderedDict
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -159,6 +164,20 @@ class PrefixCompiler:
                    if queued else None)
         return job
 
+    def chunk_body(self, offset: int):
+        """One chunk's computation at source offset ``offset``:
+        ``(compressor, cache, tokens) -> (cache, hiddens)``, the cache
+        updated in place and ``hiddens`` the chunk's per-layer H^i."""
+        cfg = self.cfg
+
+        def run(compressor, cache, tokens):
+            state = memcom.compress_chunk(
+                compressor, cfg,
+                memcom.CompressionState(cache=cache, offset=offset), tokens)
+            return state.cache, state.hiddens[0]
+
+        return run
+
     def peek_chunk(self, token_budget: Optional[int] = None
                    ) -> Optional[Tuple[CompileJob, int, int, int]]:
         """The chunk the next :meth:`step` would run, ``(job, offset,
@@ -181,12 +200,15 @@ class PrefixCompiler:
             job.tokens[None, job.consumed:job.consumed + width],
             dtype=torch.long, device=self.compressor.mem_tokens.device)
 
-    def absorb_chunk(self, job: CompileJob, state: memcom.CompressionState,
+    def absorb_chunk(self, job: CompileJob, cache: list, hid: list,
                      width: int) -> List[str]:
-        """Fold one chunk's result into the job and, after the last
-        source token, run the Memory-LLM and materialize the prefix.
-        Returns ``[job.name]`` if the job just compiled, else ``[]``."""
-        job.state = state
+        """Fold one chunk's result (:meth:`chunk_body`'s) into the job and,
+        after the last source token, run the Memory-LLM and materialize
+        the prefix.  Returns ``[job.name]`` if the job just compiled, else
+        ``[]``."""
+        job.state = replace(job.state, cache=cache,
+                            offset=job.consumed + width,
+                            hiddens=job.state.hiddens + [hid])
         job.consumed += width
         job.widths.append(width)
         self.stats["chunks"] += 1
@@ -211,10 +233,10 @@ class PrefixCompiler:
             nxt = self.peek_chunk(budget)
             if nxt is None:
                 break
-            job, _, w, _ = nxt
-            state = memcom.compress_chunk(self.compressor, self.cfg,
-                                          job.state, self.chunk_tokens(job, w))
-            finished += self.absorb_chunk(job, state, w)
+            job, offset, w, _ = nxt
+            cache, hid = self.chunk_body(offset)(
+                self.compressor, job.state.cache, self.chunk_tokens(job, w))
+            finished += self.absorb_chunk(job, cache, hid, w)
             if budget is not None:
                 budget -= w
             elif finished:

@@ -81,17 +81,38 @@ spilled to a disk shard; a request naming it parks while it is promoted
 back, ``promote_layer_budget`` layers behind each decode step.  Promotion
 is preferred to recompiling, also for a request that carries raw shots.
 
+Fused step (``fused_step=True``, attention-only layouts).  One forward
+pass carries every seated slot's decode lane *plus* one bounded chunk: a
+joining request's prompt, streamed ``fused_chunk_tokens`` at a time while
+other slots decode, or a compile chunk of the
+:class:`~repro_torch.serving.compiler.PrefixCompiler` run in the same
+step's window, so admission and compile work open no decode gap.  The
+step's lane width W is a power of two; lanes past a slot's valid count
+write no cache row (``lane_valid``) and their outputs are ignored.  With
+``spec_draft=`` / ``spec_k=`` the same lanes verify speculative drafts: a
+greedy drafter (``"self"``, the target itself, or a ``(cfg, model)`` of
+the same vocabulary) proposes k tokens a slot from its own dense cache of
+the plain prompt, the fused step scores k + 1 positions at once, and
+acceptance (the longest greedy match, or Leviathan's residual sampling on
+the request's own stream) moves the slot's length forward: a rejection is
+an implicit rollback of the K/V in both layouts.  A Mamba2 layer's state
+would advance over the padding lanes, so the fused step and speculative
+decoding raise for a recurrent config.  The step functions are plain
+callables kept in a registry keyed by the JAX engine's geometry tuples,
+and ``stats()["engine"]["jit_compiles"]`` counts the keys per family as
+the JAX engine counts its compilations (no CUDA graph is captured).
+
 The clock is injected (``clock=``, wall time by default): a
 :class:`~repro_torch.serving.clock.VirtualClock` makes every timing a
-function of the work performed; compile tokens and promoted layers are
-charged too.  The fused step (and its compile-chunk lane), speculative
-decoding, telemetry, the watchdog, the budget autotuner and meshes are
-later slices of the port.
+function of the work performed; compile tokens, promoted layers and
+drafter steps are charged too.  Telemetry, the watchdog, the budget
+autotuner and meshes are later slices of the port.
 """
 
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
@@ -120,6 +141,21 @@ def _bucket(n: int, cap: int) -> int:
     return max(1, min(pow2_bucket(n, 8), cap))
 
 
+def _lane_capable(cfg: ModelConfig) -> bool:
+    """Can this config absorb padding lanes?  The fused step (and the
+    drafter's masked decode) pad every slot to one lane width and rely on
+    masked K/V writes and causal masking to hide the padding; a Mamba2
+    state advances over it, and cross-attention / encoder stacks read
+    non-causally."""
+    return (cfg.encoder is None
+            and all(d.mixer in ("attn", "mla") and not d.cross_attn
+                    for d in cfg.layout.descriptors()))
+
+
+def _has_moe(cfg: ModelConfig) -> bool:
+    return any(d.mlp == "moe" for d in cfg.layout.descriptors())
+
+
 class ServingEngine:
     _COMPAT = "__seated_"  # store names of the seat_compressed rows
 
@@ -134,7 +170,9 @@ class ServingEngine:
                  host_capacity: Optional[int] = None,
                  disk_dir: Optional[str] = None,
                  promote_layer_budget: Optional[int] = None,
-                 clock=None, priority_aging_s: Optional[float] = None):
+                 clock=None, priority_aging_s: Optional[float] = None,
+                 fused_step: bool = False, fused_chunk_tokens: int = 16,
+                 spec_draft=None, spec_k: int = 0):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be dense or paged, got "
                              f"{kv_layout!r}")
@@ -142,6 +180,21 @@ class ServingEngine:
             raise ValueError("compile_token_budget must be >= 1 (or None)")
         if promote_layer_budget is not None and promote_layer_budget < 1:
             raise ValueError("promote_layer_budget must be >= 1 (or None)")
+        if fused_chunk_tokens < 1:
+            raise ValueError("fused_chunk_tokens must be >= 1")
+        if spec_k < 0:
+            raise ValueError("spec_k must be >= 0")
+        if (spec_k > 0) != (spec_draft is not None):
+            raise ValueError("speculative decoding needs both spec_draft "
+                             "and spec_k >= 1 (or neither)")
+        if spec_k > 0 and not fused_step:
+            raise ValueError("speculative decoding rides the fused step — "
+                             "pass fused_step=True with spec_k")
+        if (fused_step or spec_k) and not _lane_capable(cfg):
+            raise ValueError(
+                f"{cfg.name}: fused_step/speculative decoding need a pure "
+                "attention/MLA layout — recurrent (mamba), cross-attention "
+                "and encoder stacks cannot absorb masked garbage lanes")
         device = resolve_device(device)
         if target.device.type != device.type:
             raise ValueError(f"target lives on {target.device}, engine asked "
@@ -162,7 +215,14 @@ class ServingEngine:
             "decode_gap_max_s": 0.0, "decode_gap_sum_s": 0.0,
             "decode_gaps": 0, "decode_time_s": 0.0,
             "preemptions": 0, "preempted_tokens_refilled": 0,
+            # fused step: decode + chunk work in one step
+            "fused_steps": 0, "fused_chunks": 0,
+            "fused_prefill_chunks": 0, "fused_prefill_tokens": 0,
+            "fused_compile_chunks": 0,
+            # speculative decoding
+            "spec_rounds": 0, "draft_proposed": 0, "draft_accepted": 0,
         }
+        self._gap_samples: List[float] = []  # every decode gap (p50/p99)
         self.cfg = cfg
         self.target = target
         self.slots = slots
@@ -220,6 +280,44 @@ class ServingEngine:
             self.store = self.tiers = TieredPrefixStore(
                 self.store, host_capacity=host_capacity, disk_dir=disk_dir,
                 cache_ref=lambda: self.cache, device=self.device)
+        # fused step and speculative decoding.  The step functions are
+        # kept by geometry key (the JAX engine's jit keys): the per-family
+        # count of keys seen is the reference's compile count, which lives
+        # as long as the engine (reset_stats leaves it alone)
+        self.fused = bool(fused_step)
+        self.fused_chunk_tokens = int(fused_chunk_tokens)
+        self._joining: "OrderedDict[int, dict]" = OrderedDict()
+        self._programs: "OrderedDict[tuple, object]" = OrderedDict()
+        self._program_cap = 128  # LRU, as the reference's registry
+        self._jit_compiles: Dict[str, int] = {}
+        self._geom_seen: set = set()
+        self.spec_k = int(spec_k)
+        self._draft_cfg = self._drafter = None
+        if self.spec_k:
+            if spec_draft == "self":
+                # self-speculation: the target drafts for itself from the
+                # plain prompt (no prefix): the acceptance upper bound
+                self._draft_cfg, self._drafter = cfg, target
+            else:
+                self._draft_cfg, self._drafter = spec_draft
+            dcfg = self._draft_cfg
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"drafter vocab {dcfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size} — drafts would be meaningless")
+            if not _lane_capable(dcfg):
+                raise ValueError(
+                    f"drafter {dcfg.name}: needs a pure attention/MLA "
+                    "layout (its cache rolls forward by accepted length)")
+            if self._drafter.device.type != self.device.type:
+                raise ValueError(f"drafter lives on {self._drafter.device}, "
+                                 f"engine on {self.device}")
+            # the drafter keeps its own dense per-slot cache in either
+            # layout: it drafts from the plain prompt and shares no blocks
+            self._draft_cache = tfm.init_cache(
+                dcfg, slots, max_len, dtype=self._drafter.dtype,
+                device=self.device)
+            self._draft_len = np.zeros((slots,), np.int64)
 
     @property
     def paged(self) -> bool:
@@ -324,6 +422,152 @@ class ServingEngine:
             self._dirty[slot] = False
 
     # ------------------------------------------------------------------
+    # Fused step + speculative decoding step functions
+    # ------------------------------------------------------------------
+
+    def _note_geometry(self, family: str, key: tuple) -> None:
+        """Count a step-function family's geometry the first time it is
+        seen (the reference's jit compilation of a classic step)."""
+        k = (family, key)
+        if k not in self._geom_seen:
+            self._geom_seen.add(k)
+            self._jit_compiles[family] = self._jit_compiles.get(family, 0) + 1
+
+    def _program(self, family: str, key: tuple, make):
+        """The geometry-keyed registry of step functions (LRU-bounded as
+        the reference's program cache: an evicted key counts again)."""
+        full = (family,) + key
+        fn = self._programs.get(full)
+        if fn is None:
+            fn = self._programs[full] = make()
+            self._jit_compiles[family] = self._jit_compiles.get(family, 0) + 1
+            while len(self._programs) > self._program_cap:
+                self._programs.popitem(last=False)
+        else:
+            self._programs.move_to_end(full)
+        return fn
+
+    def _fused_program(self, W: int, greedy: bool, comp_geom):
+        """The fused step at lane width ``W``: every slot's decode (and
+        speculative verify) lanes, a joining slot's chunk lanes and, when
+        ``comp_geom = (offset, width, cache bucket)``, a compile chunk, in
+        one step; one host sync reads the greedy ids (slots, W) or the
+        float32 logits (slots, W, vocab).  Lanes ``s >= valids[b]`` write
+        no cache row; lane ``s`` of slot ``b`` queries position
+        ``lengths[b] + s``, so causality hides whatever they touch."""
+        def make():
+            body = (self.compiler.chunk_body(comp_geom[0])
+                    if comp_geom is not None else None)
+
+            def run(tokens, lengths, valids, comp):
+                kw = {}
+                if self.paged:
+                    kw["block_tables"] = self._dev(self.tables)
+                logits, _ = self.target(
+                    tokens=self._dev(tokens), cache=self.cache,
+                    cache_index=self._dev(lengths.astype(np.int32)),
+                    decode=True, lane_valid=self._dev(valids), **kw)
+                out = logits.argmax(dim=-1) if greedy else logits.float()
+                comp_out = body(*comp) if body is not None else None
+                return out.cpu().numpy(), comp_out
+
+            return run
+
+        return self._program("fused", (W, bool(greedy), comp_geom), make)
+
+    def _draft_prog(self, k: int):
+        """k drafter proposals and one catch-up step (it writes the last
+        draft's K/V, so after a fully accepted round the drafter's cache
+        holds every token the target consumed), each a one-lane masked
+        decode over every slot of the drafter's cache; a write past the
+        stripe is dropped (``ln < max_len``).  Returns (slots, k) ids."""
+        drafter, max_len = self._drafter, self.max_len
+
+        def make():
+            def run(pending, lens):
+                tok = self._dev(pending.astype(np.int64))
+                ln = self._dev(lens.astype(np.int32))
+                drafts = []
+                for _ in range(k + 1):
+                    logits, _ = drafter(
+                        tokens=tok[:, None], cache=self._draft_cache,
+                        cache_index=ln, decode=True,
+                        lane_valid=(ln < max_len).to(torch.int32))
+                    tok = logits[:, -1].argmax(dim=-1)
+                    drafts.append(tok)
+                    ln = ln + 1
+                # steps 0..k-1 emit d1..dk; step k only rolls the cache
+                return torch.stack(drafts[:k], dim=1).cpu().numpy()
+
+            return run
+
+        return self._program("draft", (k,), make)
+
+    def _draft_prefill(self, slot: int, tokens: np.ndarray) -> None:
+        """(Re)build the drafter's stripe of one slot from position 0 with
+        the plain prompt (+ any resumed tokens), never the compressed
+        prefix: that lowers acceptance for prefixed tasks, never
+        correctness, since every draft is verified.  The registry keys it
+        by the reference's padded width; a MoE drafter is padded to it
+        (its capacity counts every token), another prefills exactly."""
+        n = len(tokens)
+        width = max(1, min(pow2_bucket(n, 8), self.max_len))
+        drafter = self._drafter
+
+        def make():
+            def run(toks, s):
+                drafter(tokens=self._dev(toks),
+                        cache=self._slot_view(self._draft_cache, s),
+                        cache_index=0, mask_offset=0, logits=False)
+
+            return run
+
+        prog = self._program("draft_prefill", (width,), make)
+        padded = np.zeros((1, width if _has_moe(self._draft_cfg) else n),
+                          np.int64)
+        padded[0, :n] = tokens
+        prog(padded, slot)
+        self._draft_len[slot] = n
+        self._charge("draft_step", 1)
+
+    @staticmethod
+    def _softmax_row(logits_row: np.ndarray, temperature: float) -> np.ndarray:
+        z = np.asarray(logits_row, np.float64) / temperature
+        z -= z.max()
+        p = np.exp(z)
+        return p / p.sum()
+
+    def _spec_sample(self, logits_rows: np.ndarray, drafts: np.ndarray,
+                     temperature: float, rng: np.random.Generator):
+        """Sampled (Leviathan) acceptance against a greedy drafter: its
+        distribution is a point mass at the draft d, so d is accepted with
+        probability p(d) and a rejection resamples from p with d zeroed;
+        the emitted stream is distributed as token-by-token sampling from
+        the target.  Returns (emitted tokens, accepted drafts); the draws
+        come from the request's own stream."""
+        emitted: List[int] = []
+        accepted = 0
+        for j, d in enumerate(np.asarray(drafts, np.int64)):
+            p = self._softmax_row(logits_rows[j], temperature)
+            if rng.uniform() < p[d]:
+                emitted.append(int(d))
+                accepted += 1
+                continue
+            q = p.copy()
+            q[d] = 0.0
+            tot = q.sum()
+            if tot <= 0.0:  # the target is a point mass at d too
+                emitted.append(int(d))
+                accepted += 1
+                continue
+            emitted.append(int(rng.choice(len(q), p=q / tot)))
+            return emitted, accepted
+        # every draft accepted: a bonus token from the last verify lane
+        p = self._softmax_row(logits_rows[len(drafts)], temperature)
+        emitted.append(int(rng.choice(len(p), p=p)))
+        return emitted, accepted
+
+    # ------------------------------------------------------------------
     # Continuous-batching serve loop
     # ------------------------------------------------------------------
 
@@ -393,6 +637,11 @@ class ServingEngine:
             log["finish_s"] = self.clock() - epoch
             log["tokens"] = int(len(toks))
 
+        def _first_token(req: Request) -> None:
+            log = self.request_log[req.uid]
+            if log["first_token_s"] is None:
+                log["first_token_s"] = self.clock() - epoch
+
         while sched.has_work() or future:
             now_s = self.clock() - epoch
             while future and future[0].arrival_s <= now_s:
@@ -419,7 +668,15 @@ class ServingEngine:
                         "num_blocks or evict resident prefixes")
             if sched.pending:
                 admitted += self._preempt_for_priority(
-                    sched, can_seat, protected={s for s, _ in admitted})
+                    sched, can_seat,
+                    protected={s for s, _ in admitted} | set(self._joining))
+            # fused chunked admission: while other slots decode (or a join
+            # is in flight), a new request joins and its prompt streams
+            # through the fused steps instead of one prefill-sized gap
+            admitted_slots = {s for s, _ in admitted}
+            busy_decode = any(s not in admitted_slots
+                              and s not in self._joining
+                              for s in sched.active_slots())
             for slot, req in admitted:
                 if req.prefix is not None:
                     # the slot's K/V at [0, base) still holds its prefix;
@@ -445,6 +702,18 @@ class ServingEngine:
                         req, self._req_base(req), extra=resumed.size)
                     base = int(self.base[slot])
                     need = self._blocks_needed(req, base, extra=resumed.size)
+                if self.fused and (busy_decode or self._joining):
+                    self._joining[slot] = {"req": req, "toks": toks,
+                                           "consumed": 0}
+                    lengths[slot] = self.base[slot]
+                    if paged:
+                        # the whole window stays reserved; chunk prefills
+                        # and decode steps draw it down as they allocate
+                        self._reserved[slot] = need
+                    self.trace.append(("admit", req.uid, slot))
+                    self.trace.append(("join", req.uid, slot, len(toks)))
+                    continue
+                if paged:
                     width = self._width(len(toks), self.max_len - base)
                     covered = (self.alloc.blocks_for(base + width)
                                - self.alloc.blocks_for(base)
@@ -452,13 +721,13 @@ class ServingEngine:
                     self._reserved[slot] = max(0, need - covered)
                 row_logits = self._prefill_slot(slot, toks)
                 lengths[slot] = self.base[slot] + len(toks)
+                if self.spec_k:
+                    self._draft_prefill(slot, toks)
                 tok = self._sample_row(row_logits, req.temperature,
                                        _stream(req))
                 pending[slot] = tok
                 self.trace.append(("admit", req.uid, slot))
-                log = self.request_log[req.uid]
-                if log["first_token_s"] is None:
-                    log["first_token_s"] = self.clock() - epoch
+                _first_token(req)
                 if sched.record_token(slot, tok):
                     _finish(slot)
             active = sched.active_slots()
@@ -474,42 +743,217 @@ class ServingEngine:
                 elif compiling:
                     self._compile_step(None)
                 continue  # admit the next queued requests (or exit)
-            greedy = all(sched.request_in(s).temperature <= 0 for s in active)
-            if paged:
-                self._ensure_decode_blocks(active, lengths)
+            decode_lanes = [s for s in active if s not in self._joining]
+            chunk_slot = next(iter(self._joining)) if self._joining else None
+            comp = None
+            if (self.fused and compiling and chunk_slot is None
+                    and self.compile_token_budget is not None):
+                # the chunk lane is free: a compile chunk rides the step
+                comp = self.compiler.peek_chunk(self.compile_token_budget)
+            spec = bool(self.spec_k and decode_lanes)
+            if not (self.fused and (spec or chunk_slot is not None
+                                    or comp is not None)):
+                # ---- classic single-token decode step ----
+                greedy = all(sched.request_in(s).temperature <= 0
+                             for s in active)
+                self._note_geometry("decode", (bool(greedy),))
+                if paged:
+                    self._ensure_decode_blocks(active, lengths)
+                t_start = self.clock()
+                out = self._decode_step(pending, lengths, greedy)
+                self._charge("decode_step", 1)
+                # the step advanced every slot's recurrent state, idle
+                # ones too
+                self._dirty[:] = True
+                c["decode_time_s"] += self.clock() - t_start
+                last_decode_done = self._step_done(t_start, last_decode_done,
+                                                   compiling, promoting)
+                self.trace.append(("decode", len(active)))
+                for slot in active:
+                    lengths[slot] += 1  # the step consumed this slot's token
+                    req = sched.request_in(slot)
+                    tok = int(out[slot]) if greedy else self._sample_row(
+                        out[slot], req.temperature, _stream(req))
+                    pending[slot] = tok
+                    c["tokens_generated"] += 1
+                    if self.spec_k:
+                        self._draft_len[slot] += 1
+                    if sched.record_token(slot, tok):
+                        _finish(slot)
+                if compiling:  # a budgeted chunk behind this decode step
+                    self._compile_step(self.compile_token_budget)
+                    c["compile_chunks_interleaved"] += 1
+                if promoting:
+                    self._promote_step(self.promote_layer_budget)
+                    c["promote_steps_interleaved"] += 1
+                continue
+            # ---- fused step: decode lanes + one chunk, one step ----
+            # everything up to the bookkeeping sits inside the step's
+            # timing window, so a join or compile chunk widens no gap
             t_start = self.clock()
-            out = self._decode_step(pending, lengths, greedy)
+            drafts = None
+            k_eff = np.zeros((self.slots,), np.int64)
+            if spec:
+                for s in decode_lanes:
+                    req = sched.request_in(s)
+                    left = req.max_new - len(sched.emitted_tokens(s))
+                    k_eff[s] = max(0, min(self.spec_k, left - 1,
+                                          self.max_len - int(lengths[s]) - 1))
+                drafts = self._draft_prog(self.spec_k)(pending,
+                                                       self._draft_len)
+                self._charge("draft_step", self.spec_k + 1)
+                c["spec_rounds"] += 1
+            chunk_n, jn = 0, None
+            if chunk_slot is not None:
+                jn = self._joining[chunk_slot]
+                chunk_n = min(len(jn["toks"]) - jn["consumed"],
+                              self.fused_chunk_tokens)
+            lanes = 1 + (self.spec_k if spec else 0)
+            W = pow2_bucket(max(lanes, chunk_n), 1)
+            tokens_in = np.zeros((self.slots, W), np.int64)
+            valids = np.zeros((self.slots,), np.int32)
+            for s in decode_lanes:
+                tokens_in[s, 0] = pending[s]
+                kk = int(k_eff[s])
+                if kk:
+                    tokens_in[s, 1:1 + kk] = drafts[s, :kk]
+                valids[s] = 1 + kk
+            completing = False
+            if chunk_slot is not None:
+                c0 = jn["consumed"]
+                tokens_in[chunk_slot, :chunk_n] = jn["toks"][c0:c0 + chunk_n]
+                valids[chunk_slot] = chunk_n
+                completing = c0 + chunk_n == len(jn["toks"])
+            greedy = all(sched.request_in(s).temperature <= 0
+                         for s in decode_lanes)
+            if completing and jn["req"].temperature > 0:
+                greedy = False  # the chunk's first token is sampled
+            if paged:
+                self._ensure_decode_blocks(decode_lanes, lengths,
+                                           widths=valids)
+                if chunk_slot is not None:
+                    got = self._prepare_prefill(
+                        chunk_slot, int(lengths[chunk_slot]), chunk_n)
+                    self._reserved[chunk_slot] = max(
+                        0, int(self._reserved[chunk_slot]) - got)
+            comp_geom = comp_args = None
+            cw = 0
+            if comp is not None:
+                job, offset, cw, clen = comp
+                # the reference keys its program on the power-of-two
+                # source-cache length its compiler allocates
+                comp_geom = (offset, cw, pow2_bucket(clen, 16))
+                comp_args = (self.compiler.compressor, job.state.cache,
+                             self.compiler.chunk_tokens(job, cw))
+            out, comp_out = self._fused_program(W, greedy, comp_geom)(
+                tokens_in, lengths, valids, comp_args)
             self._charge("decode_step", 1)
-            # the step advanced every slot's recurrent state, idle ones too
+            if chunk_n:
+                self._charge("prefill_token", chunk_n)
+            if comp is not None:
+                self._charge("compile_token", cw)
             self._dirty[:] = True
             c["decode_time_s"] += self.clock() - t_start
-            if last_decode_done is not None:
-                # decode gap: the non-decode time since the previous step
-                gap = t_start - last_decode_done
-                c["decode_gap_max_s"] = max(c["decode_gap_max_s"], gap)
-                c["decode_gap_sum_s"] += gap
-                c["decode_gaps"] += 1
-            last_decode_done = self.clock()
-            c["decode_steps"] += 1
-            c["decode_steps_during_compile"] += int(compiling)
-            c["decode_steps_during_promote"] += int(promoting)
-            self.trace.append(("decode", len(active)))
-            for slot in active:
-                lengths[slot] += 1  # the step consumed this slot's token
-                req = sched.request_in(slot)
-                tok = int(out[slot]) if greedy else self._sample_row(
-                    out[slot], req.temperature, _stream(req))
-                pending[slot] = tok
-                c["tokens_generated"] += 1
-                if sched.record_token(slot, tok):
-                    _finish(slot)
-            if compiling:  # a budgeted chunk behind this decode step
-                self._compile_step(self.compile_token_budget)
+            last_decode_done = self._step_done(t_start, last_decode_done,
+                                               compiling, promoting)
+            c["fused_steps"] += 1
+            if chunk_n or comp is not None:
+                c["fused_chunks"] += 1
+            self.trace.append(("fused", len(decode_lanes), int(chunk_n),
+                               int(cw)))
+            if chunk_slot is not None:
+                jn["consumed"] += chunk_n
+                lengths[chunk_slot] += chunk_n
+                c["fused_prefill_chunks"] += 1
+                c["fused_prefill_tokens"] += int(chunk_n)
+                if completing:
+                    del self._joining[chunk_slot]
+                    req = jn["req"]
+                    c["prefills"] += 1
+                    tok = (int(out[chunk_slot, chunk_n - 1]) if greedy
+                           else self._sample_row(
+                               out[chunk_slot, chunk_n - 1], req.temperature,
+                               _stream(req)))
+                    pending[chunk_slot] = tok
+                    if self.spec_k:
+                        self._draft_prefill(chunk_slot, jn["toks"])
+                    self.trace.append(("join_done", req.uid, chunk_slot))
+                    _first_token(req)
+                    if sched.record_token(chunk_slot, tok):
+                        _finish(chunk_slot)
+            for s in decode_lanes:
+                req = sched.request_in(s)
+                kk = int(k_eff[s])
+                if kk == 0:  # a plain decode lane (no drafts this round)
+                    lengths[s] += 1
+                    tok = (int(out[s, 0]) if greedy else self._sample_row(
+                        out[s, 0], req.temperature, _stream(req)))
+                    pending[s] = tok
+                    c["tokens_generated"] += 1
+                    if self.spec_k:
+                        self._draft_len[s] += 1
+                    if sched.record_token(s, tok):
+                        _finish(s)
+                    continue
+                c["draft_proposed"] += kk
+                dr = drafts[s, :kk]
+                if greedy or req.temperature <= 0:
+                    # greedy acceptance: the longest prefix where the
+                    # drafter matched the target's argmax; the emitted
+                    # tokens are exactly the non-speculative stream
+                    g = (out[s, :kk + 1] if greedy
+                         else np.argmax(out[s, :kk + 1], axis=-1))
+                    a = 0
+                    while a < kk and int(dr[a]) == int(g[a]):
+                        a += 1
+                    emitted = [int(t) for t in g[:a + 1]]
+                else:
+                    emitted, a = self._spec_sample(
+                        out[s, :kk + 1], dr, req.temperature, _stream(req))
+                c["draft_accepted"] += a
+                # implicit K/V rollback: only the accepted prefix counts;
+                # rejected lanes' rows sit past the new length (dense) or
+                # in private tail blocks (paged), unseen until overwritten
+                lengths[s] += len(emitted)
+                self._draft_len[s] += len(emitted)
+                pending[s] = emitted[-1]
+                for t in emitted:
+                    c["tokens_generated"] += 1
+                    if sched.record_token(s, t):
+                        _finish(s)
+                        break
+            if comp is not None:
+                self.compiler.absorb_chunk(job, comp_out[0], comp_out[1], cw)
+                c["fused_compile_chunks"] += 1
+                c["compile_chunks_interleaved"] += 1
+                self.trace.append(("compile", cw))
+            elif compiling and self.compile_token_budget is None:
+                # an unbudgeted compile cannot ride the chunk lane: the
+                # whole job behind this step (the stalled baseline)
+                self._compile_step(None)
                 c["compile_chunks_interleaved"] += 1
             if promoting:
                 self._promote_step(self.promote_layer_budget)
                 c["promote_steps_interleaved"] += 1
         return results
+
+    def _step_done(self, t_start: float, last_done: Optional[float],
+                   compiling: bool, promoting: bool) -> float:
+        """Close one decode step (classic or fused) that started at
+        ``t_start``: record the decode gap since ``last_done`` (the
+        non-decode time between steps) and count the step.  Returns the
+        step's end."""
+        c = self.counters
+        if last_done is not None:
+            gap = t_start - last_done
+            c["decode_gap_max_s"] = max(c["decode_gap_max_s"], gap)
+            c["decode_gap_sum_s"] += gap
+            c["decode_gaps"] += 1
+            self._gap_samples.append(gap)
+        c["decode_steps"] += 1
+        c["decode_steps_during_compile"] += int(compiling)
+        c["decode_steps_during_promote"] += int(promoting)
+        return self.clock()
 
     def _preempt_for_priority(self, sched: Scheduler, can_seat,
                               protected=frozenset()):
@@ -685,17 +1129,56 @@ class ServingEngine:
         finally:
             self.store.pinned = set()
 
+    def reset_stats(self) -> None:
+        """Zero every counter (engine, store, compiler, tiers) and the gap
+        samples; the step functions' geometry counts stay."""
+        for k in self.counters:
+            self.counters[k] = type(self.counters[k])(0)
+        self._gap_samples = []
+        for group in (self.store.stats,
+                      self.compiler.stats if self.compiler else {},
+                      self.tiers.tier_stats if self.tiers else {}):
+            for k in group:
+                group[k] = 0
+
+    @property
+    def gap_samples(self) -> List[float]:
+        """Every decode gap since the last :meth:`reset_stats` (the
+        traffic harness's decode-gap percentiles)."""
+        return list(self._gap_samples)
+
     def stats(self) -> dict:
-        """Engine counters, the prefix store's hit/miss/put/eviction
-        counters, the compiler's job/chunk counters, the tiers' counters
-        and (paged) pool occupancy, under the JAX engine's keys."""
-        out = {"engine": dict(self.counters),
+        """Engine counters (with the decode gaps' p50 / p99, the step
+        functions' geometry counts ``jit_compiles`` and the drafts'
+        ``accept_rate``), the prefix store's hit/miss/put/eviction
+        counters, the compiler's job/chunk counters, the tiers' counters,
+        the fused step's settings and (paged) pool occupancy, under the
+        JAX engine's keys."""
+        engine = dict(self.counters)
+        gaps = self._gap_samples
+        engine["decode_gap_p50_s"] = \
+            float(np.percentile(gaps, 50)) if gaps else 0.0
+        engine["decode_gap_p99_s"] = \
+            float(np.percentile(gaps, 99)) if gaps else 0.0
+        engine["jit_compiles"] = dict(self._jit_compiles)
+        prop = engine["draft_proposed"]
+        engine["accept_rate"] = (engine["draft_accepted"] / prop
+                                 if prop else 0.0)
+        out = {"engine": engine,
                "prefix_store": dict(self.store.stats),
                "compiler": (dict(self.compiler.stats)
                             if self.compiler is not None else None),
                "budgets": {
                    "compile_token_budget": self.compile_token_budget,
                    "promote_layer_budget": self.promote_layer_budget}}
+        if self.fused or self.spec_k:
+            out["fused"] = {
+                "enabled": self.fused,
+                "chunk_tokens": self.fused_chunk_tokens,
+                "spec_k": self.spec_k,
+                "draft": (self._draft_cfg.name
+                          if self._draft_cfg is not None else None),
+            }
         if self.tiers is not None:
             out["prefix_tiers"] = self.tiers.tier_snapshot()
         if self.paged:
@@ -717,19 +1200,24 @@ class ServingEngine:
         Charges and paged reservations use it."""
         return n if self._recurrent else _bucket(n, cap)
 
-    def _slot_view(self, slot: int, persist: bool) -> list:
+    def _dev(self, x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    @staticmethod
+    def _slot_view(cache: list, slot: int, persist: bool = True,
+                   pooled: bool = False) -> list:
         """The cache a one-slot prefill runs on: per-slot leaves (dense K/V
         stripes, Mamba2 conv/ssm) cut to the slot's row — views, so the
-        forward's in-place writes land in the slot — and pooled K/V whole
-        (the block table scopes those writes).  ``persist=False`` clones
-        the per-slot rows instead, so the slot keeps its state."""
+        forward's in-place writes land in the slot — and, with ``pooled``,
+        the K/V pools whole (the block table scopes those writes).
+        ``persist=False`` clones the per-slot rows instead, so the slot
+        keeps its state."""
         def leaf(key, x):
-            if self.paged and key in ("k", "v"):
+            if pooled and key in ("k", "v"):
                 return x
             row = x[slot:slot + 1]
             return row if persist else row.clone()
-        return [{key: leaf(key, x) for key, x in c.items()}
-                for c in self.cache]
+        return [{key: leaf(key, x) for key, x in c.items()} for c in cache]
 
     def _prefill_slot(self, slot: int, tokens: np.ndarray,
                       persist: bool = True) -> torch.Tensor:
@@ -745,11 +1233,14 @@ class ServingEngine:
                              f"{base} seated slots in max_len {self.max_len}")
         self.counters["prefills"] += 1
         width = self._width(n, cap)  # the reference's prefill width
+        self._note_geometry("prefill", (width, base))
         self._charge("prefill_token", width)
         padded = np.zeros((1, width if self._pad_prefill else n), np.int64)
         padded[0, :n] = tokens
         kw = dict(tokens=torch.as_tensor(padded, device=self.device),
-                  cache=self._slot_view(slot, persist), cache_index=base,
+                  cache=self._slot_view(self.cache, slot, persist,
+                                        pooled=self.paged),
+                  cache_index=base,
                   mask_offset=base)
         if self.paged:
             if persist:
@@ -825,22 +1316,28 @@ class ServingEngine:
         blocks[table_index] = new
         self.tables[slot, table_index] = new
 
-    def _prepare_prefill(self, slot: int, base: int, width: int) -> None:
+    def _prepare_prefill(self, slot: int, base: int, width: int) -> int:
         """Make the slot's table cover positions [0, base + width):
         copy-on-write a *shared* partial tail block (the prompt's first
         token lands inside it), then allocate fresh private blocks for
-        the rest of the window."""
+        the rest of the window.  Returns the blocks drawn from the pool
+        (the copy and the fresh ones), which a prompt streamed in fused
+        chunks draws down from the slot's reservation."""
         bs = self.block_size
         blocks = self._slot_blocks[slot]
+        got = 0
         if base % bs and blocks:
             ti = base // bs  # the partially filled tail block's index
             if self.alloc.refcount(blocks[ti]) > 1:  # shared: store/slots
                 self._cow_block(slot, ti)
+                got += 1
         need = self.alloc.blocks_for(base + width) - len(blocks)
         if need > 0:
             fresh = self.alloc.alloc(need)
             self.tables[slot, len(blocks):len(blocks) + need] = fresh
             blocks.extend(fresh)
+            got += need
+        return got
 
     def _scratch_table(self, slot: int, base: int, width: int) -> np.ndarray:
         """A block table for a prefill whose writes must touch no block
@@ -860,23 +1357,29 @@ class ServingEngine:
         table[:len(blocks)] = blocks
         return table
 
-    def _ensure_decode_blocks(self, active, lengths) -> None:
-        """Before a decode step, extend each active slot's table so its
-        incoming write position is block-backed; allocations draw down
+    def _ensure_decode_blocks(self, active, lengths, widths=None) -> None:
+        """Before a decode step, extend each active slot's table so that
+        its ``widths[slot]`` incoming write positions from
+        ``lengths[slot]`` on (one without ``widths``; the fused step's
+        verify lanes pass more) are block-backed; allocations draw down
         the slot's admission-time reservation."""
         bs = self.block_size
         for slot in active:
-            last = int(lengths[slot]) // bs
+            w = 1 if widths is None else max(1, int(widths[slot]))
+            first = int(lengths[slot]) // bs
+            last = (int(lengths[slot]) + w - 1) // bs
             blocks = self._slot_blocks[slot]
             while len(blocks) <= last:
                 fresh = self.alloc.alloc(1)[0]
                 self.tables[slot, len(blocks)] = fresh
                 blocks.append(fresh)
                 self._reserved[slot] = max(0, self._reserved[slot] - 1)
-            if self.alloc.refcount(blocks[last]) > 1:
-                # a decode write into a still-shared block cannot happen
-                # after a >= 1-token prefill; COW beats a corrupted prefix
-                self._cow_block(slot, last)
+            for bi in range(first, last + 1):
+                if self.alloc.refcount(blocks[bi]) > 1:
+                    # a decode write into a still-shared block cannot
+                    # happen after a >= 1-token prefill; COW beats a
+                    # corrupted prefix
+                    self._cow_block(slot, bi)
 
     def _blocks_needed(self, req: Request, base: int, extra: int = 0) -> int:
         """Worst-case private blocks for a request's whole window: the

@@ -55,7 +55,8 @@ assert not bad, bad
                 "checkpoint.store", "checkpoint.manager", "data.pipeline",
                 "train.train_step", "train.trainer", "launch.steps",
                 "launch.train", "configs.smollm_135m", "serving.compiler",
-                "serving.tiers", "data.icl_tasks", "configs.bench_target"):
+                "serving.tiers", "data.icl_tasks", "configs.bench_target",
+                "serving.traffic", "serving.telemetry"):
         assert f"repro_torch.{mod}" in mods.split(), mod
 
 
