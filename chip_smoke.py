@@ -251,15 +251,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
    g. traffic at gemma2-2b's full width on a ``VirtualClock``: 24 requests
       over 6 raw-shot tasks of 3072 tokens (Zipf, Poisson arrivals at 5 a
       second, two classes), 2 HBM prefixes and 4 host rows, compiles of 512 tokens a
-      fused step; twice from one seed: every request completes, the same
-      tokens and ``request_log``.  Printed: ``slo_metrics`` (simulated
-      seconds) and the wall seconds.
+      fused step, with a ``Tracer`` and an ``SLOWatchdog`` (the default
+      rules at the run's TTFT SLO, ``ShedDegrade``) as the launcher
+      attaches them; twice from one seed: every request completes, the
+      same tokens, ``request_log``, ``Tracer.dumps()`` bytes and
+      ``SLOWatchdog.dumps()`` bytes.  Printed: ``slo_metrics`` (simulated
+      seconds), the wall seconds, the alerts fired and cleared and the
+      admissions the shed floor refused.
    h. the trained target (``artifacts/bench/target``, float32, head dim
       32, dense) serves 8 ICL prompts (96-token context and a query,
       budgets of 4-8) greedily over 4 slots, classic, fused (chunks of
       16), self-speculative (k = 3) and drafted by the same config at seed
       9: identical tokens (the top-2 margin printed at a divergence), a
       self-draft accept rate of exactly 1.0.
+   i. observability at gemma2-2b's full width, on the 4f requests (before
+      4g): the classic dense engine and a fused paged one, each with the
+      tracer off and on: identical tokens and the same count of
+      synchronizing calls (torch's sync debug mode, its warnings
+      counted); the trace passes ``validate_chrome_trace`` and its
+      ``profile_spans`` report ``validate_profile_report``.  Then one serve
+      with a ``TelemetryServer`` on an ephemeral port, scraped on
+      ``/metrics``, ``/healthz``, ``/debug/state`` and ``/debug/trace``
+      from a second thread while it serves: every answer 200, the tokens
+      of the unscraped serve.  Then the budget autotuner: the two tasks
+      arrive as raw shots and compile 512 tokens behind the decode steps
+      of two requests on a resident task, ``target_decode_gap_s`` half the
+      fixed budget's mean gap (host clock): at least one shrink, the
+      installed K/V within 2e-2 of the offline prefix.  Printed: the
+      profile reports, the tracer's own host ms a step, the scrape
+      counts, the shrinks, grows and budget trail, the longest gap beside
+      the fixed budget's, and the O^i against the offline compress
+      (``plain.scaled_err``, bitwise or not).
 5. Kernels vs plain end to end, after each model: the pipeline at full
    width and depth 2 (mistral-7b's over a 6144-token source into m =
    768), once through the kernels and once forced to the
@@ -290,6 +312,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and forced to the plain versions: each gradient within 2e-2 of the
    plain run's largest magnitude (Phase 2 adds the Source- and
    Memory-LLM and the 3072-token source's flash backward).
+
+   After the kernel phases (3g): a ``gmm`` and an ``ssd`` call on CUDA
+   inputs one of which requires grad, with gradients enabled, raise
+   ``NotImplementedError`` (neither kernel has a backward yet) and launch
+   nothing; under ``torch.no_grad`` the same calls run the kernel.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
@@ -353,9 +380,16 @@ def main() -> int:
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving import (Request, ServingEngine, TrafficConfig,
-                                     VirtualClock, generate_trace,
-                                     materialize_prefix, slo_metrics)
+    from repro_torch.serving import (MetricsRegistry, Request,
+                                     ServingEngine, ShedDegrade, SLOWatchdog,
+                                     TelemetryServer, Tracer, TrafficConfig,
+                                     VirtualClock, default_rules,
+                                     generate_trace, materialize_prefix,
+                                     profile_spans, slo_metrics,
+                                     validate_alert_log,
+                                     validate_chrome_trace,
+                                     validate_profile_report)
+    from repro_torch.serving import engine as engine_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1364,6 +1398,46 @@ def main() -> int:
         torch.cuda.empty_cache()
         mx_bwd_rows.append(row)
     log(f"backward kernel phase: {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- 3g. gmm and ssd refuse a call autograd would record ---------
+    # neither has a backward kernel yet: a call with gradients enabled
+    # where an input requires grad raises; under no_grad the same call
+    # runs the kernel (granite's and mamba2's shapes)
+    f1 = {}
+    gx, gw = (rand(40, 8, 1536, dtype=torch.bfloat16),
+              rand(40, 1536, 512, dtype=torch.bfloat16))
+    sin = ssd_inputs(1, 300, 32, 64, 1, 128, torch.bfloat16, True, False)
+    for name, mod, call, needs in (
+            ("gmm", gm, lambda: gm.gmm(gx, gw), gw),
+            ("ssd", ss, lambda: ss.ssd(*sin[:5], init_state=sin[5]), sin[0])):
+        before = mod.launches
+        needs.requires_grad_(True)
+        try:
+            call()
+            raised = False
+        except NotImplementedError as e:
+            raised, msg = True, str(e)
+        needs.requires_grad_(False)
+        refused = mod.launches == before
+        with torch.no_grad():
+            needs.requires_grad_(True)
+            res = call()
+            needs.requires_grad_(False)
+        ran = mod.launches == before + 1
+        out0 = res[0] if isinstance(res, tuple) else res
+        finite = bool(torch.isfinite(out0).all())
+        f1[name] = {"raised": raised, "launched_under_no_grad": ran,
+                    "finite": finite}
+        log(f"F1 {name} on the card: with grad enabled and an input "
+            f"requiring grad raises NotImplementedError: {raised}"
+            + (f" ({msg[:60]}...)" if raised else "") + "; under no_grad "
+            f"the kernel launched: {ran}, output finite: {finite}")
+        if not (raised and refused and ran and finite
+                and out0.grad_fn is None):
+            raise AssertionError(f"F1 {name}: the wrapper did not refuse "
+                                 "the call autograd would record")
+    report["f1"] = f1
+    del gx, gw, sin
 
     # ---- 4. the main paths at full width ------------------------------
     counters = {"flash_attention": fa, "memcom_xattn": mx,
@@ -2932,6 +3006,8 @@ def main() -> int:
                                          "failed its checks")
                 if key == "dense fused":
                     prof_eng = eng  # profiled last
+        out["observability"] = gemma_observability(
+            cfg, target, compressor, prefixes, specs, warm)
         out["traffic"] = gemma_traffic(cfg, target, compressor)
         del drafter
         # five fused steps of the dense engine profiled (W = 4, every lane
@@ -2954,13 +3030,294 @@ def main() -> int:
             f"{prof['idle_share']:.3f}")
         return out
 
+    class TimedTracer(Tracer):
+        """A ``Tracer`` that sums the host seconds its recording calls
+        take: the tracer's own cost, apart from the serve around it."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.host_s = 0.0
+
+        def _timed(name):
+            def call(self, *a, **k):
+                t0 = time.perf_counter()
+                getattr(Tracer, name)(self, *a, **k)
+                self.host_s += time.perf_counter() - t0
+            return call
+
+        span = _timed("span")
+        instant = _timed("instant")
+        begin_async = _timed("begin_async")
+        end_async = _timed("end_async")
+        del _timed
+
+    def sync_counted(fn):
+        """``fn()``, its host seconds (the card drained on both sides) and
+        the synchronizing calls it made: torch's sync debug mode warns at
+        each one, and the warnings are counted."""
+        import warnings
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+        return res, wall, n
+
+    def http_get(port, path):
+        """GET from the telemetry server on this host (no proxy)."""
+        import urllib.error
+        import urllib.request
+
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        try:
+            with opener.open(f"http://127.0.0.1:{port}{path}",
+                             timeout=30) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def gemma_observability(cfg, target, compressor, prefixes, specs, warm):
+        """4i: the serving stack's observability at gemma2-2b's full width
+        on the 4f requests.  (a) A classic dense engine and a fused paged
+        one, each with the tracer off and on (each run a fresh engine with
+        the same history: the 4f warm-up serve, then the requests, since
+        the pool and seating a serve leaves change the next serve's copies):
+        identical tokens and the same count of synchronizing calls; the
+        trace validates, its profile report too.  (b) One serve of a fresh
+        classic dense engine with a ``TelemetryServer`` on an ephemeral
+        port, scraped on all four routes from a second thread while it
+        serves: every answer 200, the tokens of (a).  (c) The
+        budget autotuner: the two tasks arrive as raw shots and compile
+        512 tokens behind the decode steps of two requests on a resident
+        task, the target gap half the fixed budget's mean gap: at least
+        one shrink, the installed K/V within 2e-2 of the offline prefix,
+        the O^i against the offline compress."""
+        import threading
+
+        from repro_torch.serving.telemetry import NULL_TRACER
+
+        tag = "[gemma2-2b observability]"
+        out = {}
+        bs = 16
+        kinds = {"classic dense": {},
+                 "fused paged": dict(kv_layout="paged", block_size=bs,
+                                     num_blocks=1 + 2 * (m // bs) + slots * 4,
+                                     fused_step=True, fused_chunk_tokens=16)}
+
+        def fresh(key):
+            """A new engine of ``key`` after the 4f warm-up serve."""
+            eng = ServingEngine(cfg, target, slots=slots, max_len=max_len,
+                                **kinds[key])
+            for t, (_, kv) in enumerate(prefixes):
+                eng.add_prefix(f"task{t}", kv)
+            eng.serve([Request(**x) for x in warm])
+            return eng
+
+        tokens_on = None
+        for key, step in (("classic dense", "decode_step"),
+                          ("fused paged", "fused_step")):
+            runs = {}
+            for mode in ("off", "on"):
+                eng = fresh(key)
+                eng.tracer = (TimedTracer(clock=eng.clock) if mode == "on"
+                              else NULL_TRACER)
+                eng.reset_stats()
+                reqs = [Request(**x) for x in specs]
+                set_counts()
+                res, wall, syncs = sync_counted(lambda: eng.serve(reqs))
+                launches = counts()
+                paths[f"gemma2-2b observability {key} tracer {mode}"] = \
+                    launches
+                runs[mode] = {
+                    "tokens": [res[r.uid].tolist() for r in reqs],
+                    "syncs": syncs, "serve_s": wall, "launches": launches,
+                    "decode_steps": eng.stats()["engine"]["decode_steps"]}
+            tr = eng.tracer
+            del eng
+            trace = tr.chrome_trace()
+            terr = validate_chrome_trace(trace, require_spans=("admission",
+                                                               step))
+            prof = profile_spans(trace)
+            perr = validate_profile_report(prof)
+            on, off = runs["on"], runs["off"]
+            host_ms = 1e3 * tr.host_s / max(1, on["decode_steps"])
+            same = on["tokens"] == off["tokens"]
+            need = ("flash_attention",) + (
+                ("paged_flash_decode",) if "paged" in key else ())
+            out[key] = {"identical_tokens": same, "syncs_off": off["syncs"],
+                        "syncs_on": on["syncs"], "serve_s_off": off["serve_s"],
+                        "serve_s_on": on["serve_s"],
+                        "decode_steps": on["decode_steps"],
+                        "tracer_host_ms_per_step": host_ms,
+                        "events": len(tr.events()), "profile": prof,
+                        "trace_errors": terr, "profile_errors": perr}
+            log(f"{tag} {key} {card}: tracer off / on: tokens identical "
+                f"{same}, synchronizing calls {off['syncs']} / "
+                f"{on['syncs']}, serve {off['serve_s']:.3f} / "
+                f"{on['serve_s']:.3f} s over {on['decode_steps']} steps; the "
+                f"tracer's own host time {host_ms:.4f} ms a step "
+                f"({len(tr.events())} events); trace valid {not terr}, "
+                f"profile valid {not perr}")
+            log(f"{tag} {key} profile report {json.dumps(prof)}")
+            if not (same and on["syncs"] == off["syncs"] and not terr
+                    and not perr and all(on["launches"][k_] > 0
+                                         and off["launches"][k_] > 0
+                                         for k_ in need)):
+                raise AssertionError(f"{tag} {key}: the tracer changed the "
+                                     "serve or its trace is invalid")
+            if key == "classic dense":
+                tokens_on = on["tokens"]
+        # (b) a live scrape of every route from a second thread
+        routes = ("/metrics", "/healthz", "/debug/state", "/debug/trace")
+        engine = fresh("classic dense")
+        engine.tracer = Tracer(clock=engine.clock)
+        statuses, rounds = [], [0, 0]
+        reqs = [Request(**x) for x in specs]
+        with TelemetryServer(engine, port=0) as srv:
+            stop = threading.Event()
+            serving = threading.Event()
+
+            def scrape():
+                while not stop.is_set():
+                    rounds[0] += 1
+                    rounds[1] += serving.is_set()
+                    for path in routes:
+                        statuses.append((path, http_get(srv.bound_port,
+                                                        path)[0]))
+
+            th = threading.Thread(target=scrape, name="scraper")
+            set_counts()
+            serving.set()
+            th.start()
+            res, wall = synced(engine.serve, reqs)
+            serving.clear()
+            stop.set()
+            th.join(60)
+            launches = counts()
+            port = srv.bound_port
+            final = {path: http_get(port, path)[0] for path in routes}
+        del engine
+        paths["gemma2-2b observability scraped"] = launches
+        scraped = [res[r.uid].tolist() for r in reqs]
+        ok_http = (all(st == 200 for _, st in statuses)
+                   and all(st == 200 for st in final.values())
+                   and {p_ for p_, _ in statuses} == set(routes))
+        out["scrape"] = {"identical_tokens": scraped == tokens_on,
+                         "requests": len(statuses), "rounds": rounds[0],
+                         "rounds_started_while_serving": rounds[1],
+                         "statuses": sorted({st for _, st in statuses}),
+                         "final": final, "serve_s": wall}
+        log(f"{tag} live scrape {card}: {len(statuses)} GETs of "
+            f"{list(routes)} in {rounds[0]} rounds ({rounds[1]} started "
+            f"while serving), statuses {out['scrape']['statuses']}, after "
+            f"the serve {final}; tokens identical to the unscraped serve: "
+            f"{scraped == tokens_on}; serve {wall:.3f} s")
+        if not (ok_http and scraped == tokens_on and rounds[1] > 0
+                and launches["flash_attention"] > 0):
+            raise AssertionError(f"{tag}: the live scrape failed its checks")
+        # (c) the budget autotuner behind decode steps
+        mlen = m + 24 + 2 * max_new + 16
+        warm2 = [dict(tokens=prompts[i], max_new=2 * max_new,
+                      prefix="task0") for i in (0, 1)]
+        cold = [dict(tokens=prompts[2 + i], max_new=max_new,
+                     prefix=f"online{i}", raw_shots=sources[i])
+                for i in (0, 1)]
+
+        def tune_engine(**kw):
+            eng = ServingEngine(cfg, target, slots=slots, max_len=mlen,
+                                compressor=compressor,
+                                compile_token_budget=chunk_w, **kw)
+            eng.add_prefix("task0", prefixes[0][1])
+            return eng
+
+        eng = tune_engine()
+        gap_serve(eng, warm2)  # warm-up
+        _, fixed = gap_serve(eng, warm2 + cold)
+        del eng
+        target_gap = fixed["decode_gap_mean_s"] / 2
+        eng = tune_engine(autotune_budgets=True,
+                          target_decode_gap_s=target_gap, autotune_interval=2)
+        gap_serve(eng, warm2)  # warm-up: no compile, so it may grow
+        eng.compile_token_budget = chunk_w
+        eng.reset_stats()
+        eng.trace = []
+        omegas = []
+        finish = memcom.finish_compress
+
+        def spy(*a, **k):
+            res_ = finish(*a, **k)
+            omegas.append(res_[0])
+            return res_
+
+        memcom.finish_compress = spy
+        try:
+            set_counts()
+            toks, tuned = gap_serve(eng, warm2 + cold)
+            launches = counts()
+        finally:
+            memcom.finish_compress = finish
+        paths["gemma2-2b autotune"] = launches
+        es = eng.stats()["engine"]
+        trail = [chunk_w] + [e_[2] for e_ in eng.trace
+                             if e_[0] == "autotune"]
+        errs = [row_err([{k_: v for k_, v in e_.items()}
+                         for e_ in eng.store.get(f"online{i}")],
+                        [{k_: v[0] for k_, v in e_.items()}
+                         for e_ in prefixes[i][1]]) for i in (0, 1)]
+        om_err = [max(plain.scaled_err(a["h"], b["h"])
+                      for a, b in zip(omegas[i], prefixes[i][0]))
+                  for i in range(len(omegas))]
+        om_bitwise = [all(torch.equal(a["h"], b["h"])
+                          for a, b in zip(omegas[i], prefixes[i][0]))
+                      for i in range(len(omegas))]
+        cold_toks = [toks[u] for u in tuned["uids"][2:]]
+        out["autotune"] = {
+            "target_decode_gap_s": target_gap, "fixed": fixed,
+            "tuned": tuned, "shrinks": es["autotune_shrinks"],
+            "grows": es["autotune_grows"], "budget_trail": trail,
+            "installed_scaled_err": errs, "omega_scaled_err": om_err,
+            "omega_bitwise_offline": om_bitwise,
+            "jit_compiles": es["jit_compiles"], "launches": launches}
+        log(f"{tag} autotuner {card}: target gap {target_gap:.4f} s (half "
+            f"the fixed {chunk_w}-token budget's mean gap "
+            f"{fixed['decode_gap_mean_s']:.4f} s); {es['autotune_shrinks']}"
+            f" shrinks, {es['autotune_grows']} grows, compile budget trail "
+            f"{trail}; longest decode gap {tuned['decode_gap_max_s']:.4f} s "
+            f"(mean {tuned['decode_gap_mean_s']:.4f}) against the fixed "
+            f"budget's {fixed['decode_gap_max_s']:.4f} s; cold TTFT "
+            f"{[round(x, 4) for x in tuned['ttft_s'][2:]]} s (fixed "
+            f"{[round(x, 4) for x in fixed['ttft_s'][2:]]}); installed K/V "
+            f"vs the offline prefix: scaled err "
+            f"{[f'{e_:.3e}' for e_ in errs]}; O^i vs the offline compress: "
+            f"scaled err {[f'{e_:.3e}' for e_ in om_err]}, bitwise "
+            f"{om_bitwise}; launches {launches}")
+        if not (es["autotune_shrinks"] >= 1 and len(omegas) == 2
+                and max(errs) <= REL_TOL["bfloat16"]
+                and all(len(t_) == max_new for t_ in cold_toks)
+                and launches["memcom_xattn"] > 0
+                and launches["flash_attention"] > 0):
+            raise AssertionError(f"{tag}: the autotuner failed its checks")
+        del eng, omegas
+        torch.cuda.empty_cache()
+        return out
+
     def gemma_traffic(cfg, target, compressor):
         """The traffic harness at gemma2-2b's full width on a virtual
         clock: 24 requests over 6 raw-shot tasks of 3072 tokens (Zipf,
         Poisson arrivals at 5 a second, two classes), 2 HBM prefixes and a
         host tier,
         compiles of 512 tokens riding the fused steps; twice from one
-        seed, which must give the same tokens and request_log."""
+        seed, with the tracer on and the SLO watchdog and ``ShedDegrade``
+        attached as the launcher attaches them, which must give the same
+        tokens, request_log, trace bytes and alert-log bytes."""
         tag = "[gemma2-2b traffic]"
         # 5 requests a simulated second: a task compiles in ~0.6 s of the
         # clock's cost model, so evicted tasks are asked for again and
@@ -2969,27 +3326,66 @@ def main() -> int:
         tcfg = TrafficConfig(num_tasks=6, context_tokens=T, num_requests=24,
                              priority_classes=2, rate_rps=RATE)
         runs = []
+
+        class Shedding(engine_mod.Scheduler):
+            """Counts the admissions the watchdog's shed floor refused (a
+            dense engine's admission gate refuses nothing else)."""
+            refused = 0
+
+            def admit(self, can_seat=None):
+                if can_seat is None:
+                    return super().admit(None)
+
+                def gate(r):
+                    ok = can_seat(r)
+                    Shedding.refused += not ok
+                    return ok
+
+                return super().admit(gate)
+
         for _ in range(2):
             trace = generate_trace(tcfg, 0, vocab=vocab)
+            tracer, reg = Tracer(), MetricsRegistry()
+            wd = SLOWatchdog(default_rules(slo_ttft_s=SLO_TTFT),
+                             metrics=reg, tracer=tracer,
+                             degrade_hook=ShedDegrade())
             eng = ServingEngine(cfg, target, slots=slots, max_len=max_len,
                                 compressor=compressor,
                                 compile_token_budget=512, prefix_capacity=2,
                                 host_capacity=4, fused_step=True,
-                                fused_chunk_tokens=16, clock=VirtualClock())
-            set_counts()
-            res, wall = synced(eng.serve, list(trace.requests))
-            launches = counts()
+                                fused_chunk_tokens=16, clock=VirtualClock(),
+                                tracer=tracer, metrics=reg, watchdog=wd)
+            Shedding.refused = 0
+            engine_mod.Scheduler = Shedding
+            try:
+                set_counts()
+                res, wall = synced(eng.serve, list(trace.requests))
+                launches = counts()
+            finally:
+                engine_mod.Scheduler = Shedding.__mro__[1]
             slo = slo_metrics(eng.request_log, slo_ttft_s=SLO_TTFT,
                               gap_samples=eng.gap_samples)
+            fires = sum(e["kind"] == "fire" for e in wd.alert_log)
             runs.append(([res[r.uid].tolist() for r in trace.requests],
                          [eng.request_log[r.uid] for r in trace.requests],
-                         slo, wall, eng.stats(), launches))
-            del eng
+                         tracer.dumps(), wd.dumps(),
+                         slo, wall, eng.stats(), launches,
+                         {"fires": fires,
+                          "clears": len(wd.alert_log) - fires,
+                          "pages": sum(e["kind"] == "fire"
+                                       and e["severity"] == "page"
+                                       for e in wd.alert_log),
+                          "refused_admissions": Shedding.refused,
+                          "events": len(tracer.events()),
+                          "alert_log_valid": not validate_alert_log(
+                              wd.report())}))
+            del eng, tracer, wd
         same = runs[0][:2] == runs[1][:2]
-        slo, wall, st, launches = runs[0][2:]
+        same_bytes = runs[0][2:4] == runs[1][2:4]
+        slo, wall, st, launches, alerts = runs[0][4:]
         paths["gemma2-2b traffic"] = launches
         log(f"{tag} {card}: {slo['completed']}/{slo['requests']} completed "
-            f"in {wall:.2f}s wall ({runs[1][3]:.2f}s the second run), "
+            f"in {wall:.2f}s wall ({runs[1][5]:.2f}s the second run), "
             f"simulated: TTFT p50 {slo['ttft_p50_s']:.4f} / p99 "
             f"{slo['ttft_p99_s']:.4f} s, goodput {slo['goodput_rps']:.2f} "
             f"r/s at {SLO_TTFT} s, decode-gap p99 {slo['decode_gap_p99_s']:.4f} s,"
@@ -2997,12 +3393,20 @@ def main() -> int:
             f"tiers {st['prefix_tiers']}; fused compile chunks "
             f"{st['engine']['fused_compile_chunks']}; a second run's tokens "
             f"and request_log identical: {same}; launches {launches}")
-        if not (same and slo["completed"] == slo["requests"]
+        log(f"{tag} watchdog and tracer: {alerts['fires']} alerts fired "
+            f"({alerts['pages']} page), {alerts['clears']} cleared, "
+            f"{alerts['refused_admissions']} admissions refused by the shed "
+            f"floor, {alerts['events']} trace events; a second run's "
+            f"Tracer.dumps() and SLOWatchdog.dumps() bytes identical: "
+            f"{same_bytes} ({len(runs[0][2])} and {len(runs[0][3])} bytes)")
+        if not (same and same_bytes and alerts["alert_log_valid"]
+                and slo["completed"] == slo["requests"]
                 and launches["flash_attention"] > 0
                 and launches["memcom_xattn"] > 0):
             raise AssertionError(f"{tag}: the traffic run failed its checks")
-        return {"slo": slo, "wall_s": [r[3] for r in runs],
-                "identical": same, "stats": st, "launches": launches}
+        return {"slo": slo, "wall_s": [r[5] for r in runs],
+                "identical": same, "identical_bytes": same_bytes,
+                "alerts": alerts, "stats": st, "launches": launches}
 
     def bench_target_exact():
         """The committed trained target (float32, head dim 32: the dense

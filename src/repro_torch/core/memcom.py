@@ -9,8 +9,13 @@ tokens with the compression cross-attention, and packages the per-layer
 O^i as the prefix the frozen target consumes; it records no autograd
 graph (serving).  :func:`begin_compress` / :func:`compress_chunk` /
 :func:`finish_compress` (and :func:`compress_chunked`) compute the same
-prefix in fixed-width slices of the shot set, the Source-LLM's cache
-carried across slices by the engine's prefill continuation.
+prefix in slices of the shot set, the Source-LLM's cache carried across
+slices.  On the card a slice of any width gives the one-shot's O^i bit
+for bit (for the attention-only stacks): its flash call walks each row's
+keys unsplit, as the one-shot call does, and its rows are padded to a
+multiple of ``CHUNK_ROWS``, at which the card's matmuls compute each row
+as they do in the one-shot's (fewer rows take other GEMM kernels, whose
+sums round otherwise).
 
 Training (``memcom_loss``): Phase-1 trains only ``memx`` and
 ``mem_tokens``; Phase-2 also the Source- and Memory-LLM; the target is
@@ -34,6 +39,24 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.param import Init, initialize, make
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.xattn import MemXAttn
+
+
+#: On the card a compress slice of w tokens runs ceil(w / CHUNK_ROWS) *
+#: CHUNK_ROWS rows (the rest token 0, their K/V written past the slice
+#: and overwritten by the next one, their hidden states dropped): at 128
+#: rows and more the card's bf16 GEMMs give each row the one-shot's bits
+#: (``scripts/compile_width_drift.py``).
+CHUNK_ROWS = 128
+
+
+def _pads_chunks(cfg: ModelConfig, device: torch.device) -> bool:
+    """Whether a compress slice is padded to ``CHUNK_ROWS``: on the card,
+    for a Source-LLM of attention layers and dense MLPs.  A Mamba2 state
+    would advance over the padding and a MoE layer's capacity would count
+    it, so those stacks run their slices as they come."""
+    return device.type == "cuda" and cfg.encoder is None and all(
+        d.mixer == "attn" and d.mlp != "moe" and not d.cross_attn
+        for d in cfg.layout.descriptors())
 
 
 class MemCom(nn.Module):
@@ -121,12 +144,15 @@ def begin_compress(cfg: ModelConfig, batch: int, total_len: int, *,
                    mc: MemCom) -> CompressionState:
     """Open a chunked compression over ``total_len`` source tokens: a full
     Source-LLM cache (K/V of attention layers, recurrent state of Mamba2
-    ones) on ``mc``'s device, in its type."""
+    ones) on ``mc``'s device, in its type, with room for the last slice's
+    padding rows where slices are padded."""
     from repro_torch.models.transformer import init_cache
 
+    device = mc.mem_tokens.device
+    if _pads_chunks(cfg, device):
+        total_len += CHUNK_ROWS - 1
     return CompressionState(cache=init_cache(
-        cfg, batch, total_len, dtype=mc.mem_tokens.dtype,
-        device=mc.mem_tokens.device))
+        cfg, batch, total_len, dtype=mc.mem_tokens.dtype, device=device))
 
 
 @torch.no_grad()
@@ -136,20 +162,27 @@ def compress_chunk(mc: MemCom, cfg: ModelConfig, state: CompressionState,
     cached [0, offset) context and fold it into ``state``.
 
     Each attention layer writes the chunk's K/V into the cache and makes
-    one causal call over the cached keys [0, offset + w), row for row the
-    call :func:`compress` makes over the whole shot set: on the card the
-    chunked O^i are then bitwise those of the one-shot compress.  (The
-    JAX package runs the chunk through the prefill continuation, two
-    partial calls merged by their log-sum-exp, which in bf16 rounds each
-    row twice; ``scripts/chunk_compile_rounding.py`` measures how far
-    that lands from the one-shot result.)"""
+    one causal call over the cached keys [0, offset + w), unsplit, row for
+    row the call :func:`compress` makes over the whole shot set; on the
+    card the slice is padded to a multiple of ``CHUNK_ROWS`` rows (see
+    :func:`_pads_chunks`): the chunked O^i are then bitwise those of the
+    one-shot compress at any slice width.  (The JAX package runs the
+    chunk through the prefill continuation, two partial calls merged by
+    their log-sum-exp, which in bf16 rounds each row twice;
+    ``scripts/chunk_compile_rounding.py`` measures how far that lands
+    from the one-shot result.)"""
     tokens = _as_tokens(mc, tokens)
     offset = state.offset
+    w = tokens.shape[1]
+    if _pads_chunks(cfg, tokens.device):
+        tokens = F.pad(tokens, (0, -(-w // CHUNK_ROWS) * CHUNK_ROWS - w))
     _, aux = mc.source(tokens=tokens, capture_hiddens=True,
                        cache=state.cache, cache_index=offset, decode=True,
                        logits=False)
-    return replace(state, offset=offset + tokens.shape[1],
-                   hiddens=state.hiddens + [aux["hiddens"]])
+    hid = aux["hiddens"]
+    if tokens.shape[1] != w:
+        hid = [h[:, :w] for h in hid]
+    return replace(state, offset=offset + w, hiddens=state.hiddens + [hid])
 
 
 @torch.no_grad()

@@ -305,8 +305,12 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     ``variant`` (CUDA tensors only) forces ``"wgmma"`` or ``"mma_sync"``
     instead of :func:`variant_for`'s choice, so that both bf16 kernels can
     be held to the plain version at one shape; a variant that does not
-    take the call raises ``NotImplementedError``.  A CUDA call whose q, k
-    or v needs a gradient is recorded for autograd (:class:`FlashAttention`)."""
+    take the call raises ``NotImplementedError``.  ``"unsplit"`` keeps
+    :func:`variant_for`'s choice at one KV split: each query row walks
+    its keys in one pass and in order, as it does in a call over the
+    whole sequence, so that a chunk of a chunked compress gives the rows
+    of the one-shot call bit for bit.  A CUDA call whose q, k or v needs a
+    gradient is recorded for autograd (:class:`FlashAttention`)."""
     if not q.is_cuda:
         return plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                    causal=causal, softcap=softcap,
@@ -356,6 +360,8 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
     nsplit = _splits(B, Sq, Skv, Hq, Hkv, q.device.index
                      if q.device.index is not None
                      else torch.cuda.current_device())
+    if variant == "unsplit":
+        nsplit, variant = 1, None
     chosen = variant_for(q.dtype, D, Skv, nsplit)
     if variant is not None:
         if variant not in ("wgmma", "mma_sync"):

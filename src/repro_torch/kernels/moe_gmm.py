@@ -95,12 +95,28 @@ def gmm(x, w, *, variant=None):
     of :func:`variant_for`'s choice, so that every bf16 kernel can be held
     to the plain version at one shape; a variant that does not take the
     call raises ``NotImplementedError`` (a CPU call too, which then goes to
-    the plain version)."""
-    global launches, wgmma_launches, rows_launches
+    the plain version).  The kernel has no backward yet: a CUDA call made
+    with gradients enabled where x or w requires grad raises
+    ``NotImplementedError`` (a CPU call is differentiated by the plain
+    version's autograd)."""
     if variant is not None:
         _forced(variant, x, w)
     if not x.is_cuda:
         return plain.gmm_ref(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        # the output would carry no grad_fn: expert weights would get no
+        # gradient and nothing would say so
+        raise NotImplementedError(
+            "gmm has no backward kernel yet: a CUDA call whose x or w "
+            "requires grad would leave them without a gradient; call it "
+            "under torch.no_grad() or with inputs that need none")
+    return _launch(x, w, variant)
+
+
+def _launch(x, w, variant):
+    """Check a CUDA call and launch the kernel :func:`variant_for` (or
+    ``variant``) picks; returns the output."""
+    global launches, wgmma_launches, rows_launches
     if w.device != x.device:
         raise ValueError(f"w on {w.device}, x on {x.device}")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:

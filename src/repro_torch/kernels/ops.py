@@ -26,7 +26,11 @@ through the wrapper's ``autograd.Function``, whose backward is a
 hand-written kernel (``flash_attention_bwd``, ``memcom_xattn_bwd``) with
 no fallback.  With no gradient needed the CUDA call is the kernel call
 alone, as serving makes it.  The paged, MoE and SSD kernels have no
-backward yet.
+backward yet: a CUDA call to ``gmm`` or ``ssd`` made with gradients
+enabled where an input requires grad raises ``NotImplementedError``
+rather than return an output without a ``grad_fn`` (serving and
+compression run them under ``torch.no_grad``); a CPU call still goes to
+the plain version and its autograd.
 """
 
 from __future__ import annotations
@@ -76,13 +80,18 @@ def _positions(offset, n: int, batch: int, device) -> torch.Tensor:
 
 
 def attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
-              scale=None, impl="auto", return_lse=False):
-    """General position-masked GQA attention (prefix / decode / cross)."""
-    fn = plain.attention_ref if _plain(impl, q) else _fa.flash_attention
-    return fn(q.contiguous(), k.contiguous(), v.contiguous(),
-              q_pos=q_pos.to(torch.int32).contiguous(),
+              scale=None, impl="auto", return_lse=False, variant=None):
+    """General position-masked GQA attention (prefix / decode / cross).
+    ``variant`` goes to the flash kernel (``"unsplit"``: one KV split);
+    the plain version has none."""
+    kw = dict(q_pos=q_pos.to(torch.int32).contiguous(),
               kv_pos=kv_pos.to(torch.int32).contiguous(), causal=causal,
               softcap=softcap, scale=scale, return_lse=return_lse)
+    if _plain(impl, q):
+        return plain.attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+    return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), variant=variant, **kw)
 
 
 def self_attention_causal(q, k, v, *, offset=0, softcap=0.0, scale=None,

@@ -148,13 +148,32 @@ def ssd(x, dt, A, Bm, Cm, *, init_state=None, chunk=256, variant=None):
     ``"chunked"`` or ``"sequential"`` instead of :func:`variant_for`'s
     choice; a variant that does not take the call raises
     ``NotImplementedError`` (a CPU call too, which then goes to the plain
-    version)."""
-    global launches, chunked_launches
+    version).  The kernels have no backward yet: a CUDA call made with
+    gradients enabled where an input requires grad raises
+    ``NotImplementedError`` (a CPU call is differentiated by the plain
+    version's autograd)."""
     if variant is not None:
         _forced(variant, x, Bm, Cm, init_state)
     if not x.is_cuda:
         return plain.ssd_ref(x, dt, A, Bm, Cm, init_state=init_state,
                              chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, init_state)):
+        # y and the final state would carry no grad_fn: the inputs would
+        # get no gradient and nothing would say so
+        raise NotImplementedError(
+            "ssd has no backward kernel yet: a CUDA call whose x, dt, A, "
+            "Bm, Cm or init_state requires grad would leave them without a "
+            "gradient; call it under torch.no_grad() or with inputs that "
+            "need none")
+    return _launch(x, dt, A, Bm, Cm, init_state, variant)
+
+
+def _launch(x, dt, A, Bm, Cm, init_state, variant):
+    """Check a CUDA call and launch the variant :func:`variant_for` (or
+    ``variant``) picks; returns (y, final state)."""
+    global launches, chunked_launches
     _check(x, dt, A, Bm, Cm, init_state)
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]

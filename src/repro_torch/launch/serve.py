@@ -43,8 +43,19 @@ fused step (the target drafting for itself, or ARCH's config from seed
 of the fixed batch (``--traffic-requests``, ``--traffic-tasks``,
 ``--traffic-rate``, ``--zipf-alpha``, ``--seed``): a Zipf catalog of
 raw-shot tasks under Poisson or ON-OFF arrivals on a virtual clock,
-reported as SLO metrics against ``--slo-ttft``.  ``--stats`` prints the
+reported as SLO metrics against ``--slo-ttft``, with an SLO burn-rate
+watchdog that sheds lower-class admissions while a page alert holds.
+``--autotune-budgets`` halves and doubles ``--compile-budget`` /
+``--promote-budget`` against ``--target-gap``.  ``--stats`` prints the
 engine's counters.
+
+Observability: ``--trace-out PATH`` records the request lifecycle and
+writes it as Chrome-trace / Perfetto JSON (``--flight-recorder N`` keeps
+the last N events, dumped to PATH on a crash too); ``--metrics-out PATH``
+writes the metrics registry as Prometheus text; ``--http-port PORT``
+serves ``/metrics``, ``/healthz``, ``/debug/state`` and ``/debug/trace``
+on 127.0.0.1 while the engine runs (0 picks a free port), and
+``--http-linger S`` keeps it up S seconds after serving.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --smoke --fused-step --spec-draft self --spec-k 2 --device cpu
@@ -52,15 +63,15 @@ engine's counters.
 The device is the card unless ``--device cpu`` is given; without a card
 the launcher raises.  A config without MemCom (the attention-free
 mamba2-370m) exits with a message before any model is built, as the JAX
-launcher does: its entry point is ``ServingEngine`` itself.  Meshes,
-telemetry (the tracer, the metrics registry, the SLO watchdog) and the
-budget autotuner are later slices of the port.
+launcher does: its entry point is ``ServingEngine`` itself.  Meshes
+(``--mesh``, ``--rules``) are a later slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time  # reprolint: ignore-file[wall-clock] -- the launcher reports real compress/serve seconds to its operator; nothing replays them
 
 import numpy as np
@@ -72,8 +83,10 @@ from repro_torch.core import memcom
 from repro_torch.data import (ICLTaskSpec, SyntheticVocab,
                               build_manyshot_prompt, make_episode, make_query)
 from repro_torch.models import transformer as tfm
-from repro_torch.serving import (Request, ServingEngine, TrafficConfig,
-                                 VirtualClock, generate_trace,
+from repro_torch.serving import (MetricsRegistry, Request, ServingEngine,
+                                 ShedDegrade, SLOWatchdog, TelemetryServer,
+                                 Tracer, TrafficConfig, VirtualClock,
+                                 default_rules, generate_trace,
                                  materialize_prefix, slo_metrics)
 
 
@@ -151,6 +164,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--zipf-alpha", type=float, default=1.1)
     ap.add_argument("--slo-ttft", type=float, default=0.02,
                     help="traffic mode: TTFT SLO in simulated seconds")
+    ap.add_argument("--autotune-budgets", action="store_true",
+                    help="halve/double --compile-budget/--promote-budget "
+                         "against the observed decode gap")
+    ap.add_argument("--target-gap", type=float, default=2e-3,
+                    help="decode-gap target (simulated s) for "
+                         "--autotune-budgets")
     ap.add_argument("--seed", type=int, default=0,
                     help="traffic trace seed (same seed -> same workload "
                          "and, on the virtual clock, same metrics)")
@@ -176,8 +195,31 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "plain PyTorch kernels)")
+    ap.add_argument("--http-port", type=int, default=None, metavar="PORT",
+                    help="serve the telemetry plane over HTTP while the "
+                         "engine runs: GET /metrics (Prometheus text), "
+                         "/healthz, /debug/state, /debug/trace on "
+                         "127.0.0.1:PORT (0 = pick an ephemeral port, "
+                         "printed at startup)")
+    ap.add_argument("--http-linger", type=float, default=0.0, metavar="S",
+                    help="keep the process (and --http-port server) alive "
+                         "S seconds after serving finishes, so external "
+                         "scrapers can read the final state")
     ap.add_argument("--metrics", default=None,
                     help="write the run's numbers as JSON to this path")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record a full request-lifecycle trace and write "
+                         "it as Chrome-trace/Perfetto JSON; on the virtual "
+                         "clock the file is byte-identical for one "
+                         "(scenario, seed)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the engine's MetricsRegistry in Prometheus "
+                         "text exposition format after serving")
+    ap.add_argument("--flight-recorder", type=int, default=None,
+                    metavar="N",
+                    help="bound the tracer's ring buffer to the last N "
+                         "events (the flight recorder: dumped to "
+                         "--trace-out on a crash); default keeps all")
     args = ap.parse_args(argv)
     if min(args.tasks, args.slots, args.requests, args.priority_classes) < 1:
         ap.error("--tasks, --slots, --requests and --priority-classes must "
@@ -188,12 +230,18 @@ def main(argv=None) -> dict:
         ap.error("--promote-budget must be >= 1")
     if args.host_capacity is not None and args.host_capacity < 0:
         ap.error("--host-capacity must be >= 0")
+    if args.flight_recorder is not None and args.flight_recorder < 1:
+        ap.error("--flight-recorder must be >= 1")
     if args.raw_shots and args.classify:
         ap.error("--raw-shots serves generation traffic (classify goes "
                  "through the offline seat path)")
     if args.traffic and (args.classify or args.raw_shots):
         ap.error("--traffic generates its own raw-shot requests (drop "
                  "--classify/--raw-shots)")
+    if args.autotune_budgets and \
+            args.compile_budget is None and args.promote_budget is None:
+        ap.error("--autotune-budgets needs --compile-budget and/or "
+                 "--promote-budget to tune")
     if (args.spec_k > 0) != (args.spec_draft is not None):
         ap.error("--spec-draft and --spec-k come together (both or neither)")
     if args.spec_k and not args.fused_step:
@@ -203,6 +251,12 @@ def main(argv=None) -> dict:
     if args.spec_draft is not None and args.spec_draft != "self" \
             and args.spec_draft not in ARCH_IDS:
         ap.error(f"--spec-draft must be 'self' or one of {ARCH_IDS}")
+    if args.http_port is not None and args.http_port < 0:
+        ap.error("--http-port must be >= 0 (0 picks an ephemeral port)")
+    if args.http_linger < 0:
+        ap.error("--http-linger must be >= 0")
+    if args.http_linger and args.http_port is None:
+        ap.error("--http-linger needs --http-port")
     device = resolve_device(args.device)
 
     vocab = SyntheticVocab()
@@ -230,6 +284,27 @@ def main(argv=None) -> dict:
             spec_draft = (dcfg, tfm.init_params(dcfg, 1, device=device))
             print(f"[edge] speculative decoding: drafter {dcfg.name} "
                   f"({dcfg.param_count()/1e6:.1f}M), k={args.spec_k}")
+    tracer = None
+    if args.trace_out or args.flight_recorder or args.http_port is not None:
+        # the tracer takes the engine's clock, so on a --traffic run the
+        # spans sit on simulated time; --http-port implies one so that
+        # GET /debug/trace has a flight recorder to dump
+        tracer = Tracer(capacity=args.flight_recorder,
+                        dump_path=args.trace_out)
+        print(f"[edge] tracing: flight recorder "
+              f"{'unbounded' if args.flight_recorder is None else args.flight_recorder}"
+              f" event(s)"
+              + (f", dump -> {args.trace_out}" if args.trace_out else ""))
+    registry = watchdog = None
+    if args.traffic or args.http_port is not None:
+        registry = MetricsRegistry()
+    if args.traffic:
+        # SLO burn-rate watchdog over the virtual clock: alerts land as
+        # tracer instants and serving_alerts_total counters, and the
+        # page-severity hook sheds lower-class admissions while active
+        watchdog = SLOWatchdog(default_rules(slo_ttft_s=args.slo_ttft),
+                               metrics=registry, tracer=tracer,
+                               degrade_hook=ShedDegrade())
     # traffic replays timed arrivals against a virtual clock: time moves
     # through the engine's work-cost model, so the SLO numbers are
     # simulated seconds, reproducible for one seed
@@ -247,9 +322,21 @@ def main(argv=None) -> dict:
                            promote_layer_budget=args.promote_budget,
                            clock=VirtualClock() if args.traffic else None,
                            priority_aging_s=args.priority_aging,
+                           autotune_budgets=args.autotune_budgets,
+                           target_decode_gap_s=(args.target_gap
+                                                if args.autotune_budgets
+                                                else None),
                            fused_step=args.fused_step,
                            fused_chunk_tokens=args.fused_chunk_tokens,
-                           spec_draft=spec_draft, spec_k=args.spec_k)
+                           spec_draft=spec_draft, spec_k=args.spec_k,
+                           tracer=tracer, metrics=registry,
+                           watchdog=watchdog)
+    http_server = None
+    if args.http_port is not None:
+        http_server = TelemetryServer(engine, port=args.http_port)
+        port = http_server.start()
+        print(f"[edge] http telemetry on 127.0.0.1:{port} "
+              "(/metrics /healthz /debug/state /debug/trace)")
     if engine.tiers is not None:
         preloaded = engine.tiers.disk_names()
         print(f"[edge] tiered prefix cache: host capacity "
@@ -337,12 +424,17 @@ def main(argv=None) -> dict:
                   f"{row['completed']}/{row['requests']} done, TTFT p50 "
                   f"{row['ttft_p50_s']*1e3:.2f} ms, {row['slo_attained']} "
                   f"in SLO, {row['preemptions']} preempted")
+        fires = sum(1 for e in watchdog.alert_log if e["kind"] == "fire")
+        print(f"[edge] watchdog: {fires} alert fire(s), "
+              f"{len(watchdog.alert_log) - fires} clear(s) over "
+              f"{len(watchdog.rules)} burn-rate rule(s)")
         metrics["traffic"] = {
             "process": tcfg.process, "seed": args.seed,
             "traffic_tasks": tcfg.num_tasks, "rate_rps": tcfg.rate_rps,
             "zipf_alpha": tcfg.zipf_alpha,
             "priority_classes": tcfg.priority_classes,
             "wall_s": wall, "generated": generated,
+            "alerts": watchdog.report(),
             "tokens": [out[r.uid].tolist() for r in trace.requests], **slo}
     elif args.classify:
         hits = 0
@@ -382,7 +474,7 @@ def main(argv=None) -> dict:
               f"attending to <= {m}+prompt slots/layer per request")
         metrics.update(requests=args.requests, generated=generated,
                        serve_s=dt, tokens_per_s=tok_s,
-                       preemptions=engine.counters["preemptions"],
+                       preemptions=engine.stats()["engine"]["preemptions"],
                        tokens=[out[r.uid].tolist() for r in reqs])
         if args.raw_shots:
             cs = engine.stats()["compiler"]
@@ -418,10 +510,29 @@ def main(argv=None) -> dict:
         stats = engine.stats()
         print("[stats]", json.dumps(stats, indent=1))
         metrics["stats"] = stats
+    if args.trace_out:
+        path = tracer.dump(args.trace_out)
+        n = len(tracer.events())
+        print(f"[edge] trace -> {path} ({n} event(s)"
+              + (f", {tracer.dropped} dropped by the flight recorder"
+                 if tracer.dropped else "") + ")")
+    if args.metrics_out:
+        parent = os.path.dirname(args.metrics_out)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        with open(args.metrics_out, "w") as f:
+            f.write(engine.metrics.render_prometheus())
+        print(f"[edge] prometheus metrics -> {args.metrics_out}")
     if args.metrics:
         with open(args.metrics, "w") as f:
             json.dump(metrics, f, indent=1)
         print(f"metrics -> {args.metrics}")
+    if http_server is not None:
+        if args.http_linger:
+            print(f"[edge] http telemetry lingering {args.http_linger:g}s "
+                  f"on 127.0.0.1:{http_server.bound_port}", flush=True)
+            time.sleep(args.http_linger)
+        http_server.stop()
     return metrics
 
 

@@ -188,7 +188,8 @@ def apply_attention(
                 lengths=cache_index + S, softcap=softcap, scale=scale)
             return out.reshape(B, S, -1) @ p.wo, cache
         # static start (a chunk of a chunked compress): write the rows,
-        # then one causal call over the keys [0, start + S) they can see
+        # then one causal call over the keys [0, start + S) they can see,
+        # unsplit, so that each row walks its keys as in the one-shot call
         start = int(cache_index)
         end = start + S
         cache["k"][:, start:end] = k_new.to(cache["k"].dtype)
@@ -198,7 +199,8 @@ def apply_attention(
         out = ops.attention(q, cache["k"][:, :end].to(q.dtype),
                             cache["v"][:, :end].to(q.dtype),
                             q_pos=kv_pos[:, start:], kv_pos=kv_pos,
-                            causal=True, softcap=softcap, scale=scale)
+                            causal=True, softcap=softcap, scale=scale,
+                            variant="unsplit")
         return out.reshape(B, S, -1) @ p.wo, cache
 
     # ---------------- train / prefill: full self-attention ----------------

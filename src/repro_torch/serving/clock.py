@@ -59,6 +59,27 @@ class VirtualClock:
         self.costs = dict(DEFAULT_COSTS)
         if costs:
             self.costs.update(costs)
+        self._charged_seconds = None  # labeled counter, see attach_metrics
+        self._charged_units = None
+        self._attached: list = []
+
+    def attach_metrics(self, registry) -> None:
+        """Register charged-work counters into a MetricsRegistry (duck-
+        typed: anything with ``counter(name, help, labelnames)``): how
+        much simulated time and how many work units each ``kind`` has
+        consumed.  Idempotent per registry — the engine calls this from
+        its constructor, and one clock may drive several engines sharing
+        a registry."""
+        if any(r is registry for r in self._attached):
+            return
+        self._attached.append(registry)
+        self._charged_seconds = registry.counter(
+            "virtual_clock_charged_seconds_total",
+            "simulated seconds charged, by work kind",
+            labelnames=("kind",))
+        self._charged_units = registry.counter(
+            "virtual_clock_charged_units_total",
+            "work units charged, by work kind", labelnames=("kind",))
 
     def __call__(self) -> float:
         return self._t
@@ -80,6 +101,9 @@ class VirtualClock:
         """Advance by the modeled cost of ``units`` of work of ``kind``."""
         dt = self.costs.get(kind, 0.0) * float(units)
         self._t += dt
+        if self._charged_seconds is not None:
+            self._charged_seconds.inc(dt, kind=kind)
+            self._charged_units.inc(float(units), kind=kind)
 
     def __repr__(self):  # pragma: no cover - debug aid
         return f"VirtualClock(t={self._t:.6f})"

@@ -105,12 +105,32 @@ the JAX engine counts its compilations (no CUDA graph is captured).
 The clock is injected (``clock=``, wall time by default): a
 :class:`~repro_torch.serving.clock.VirtualClock` makes every timing a
 function of the work performed; compile tokens, promoted layers and
-drafter steps are charged too.  Telemetry, the watchdog, the budget
-autotuner and meshes are later slices of the port.
+drafter steps are charged too.
+
+Observability (``tracer=``, ``metrics=``, ``watchdog=``), as the
+reference wires it: a :class:`~repro_torch.serving.telemetry.Tracer`
+records the request lifecycle's spans and instants on the engine's clock
+(:data:`~repro_torch.serving.telemetry.NULL_TRACER`, a no-op, by
+default); the counters live in a
+:class:`~repro_torch.serving.telemetry.MetricsRegistry` (the engine's,
+the scheduler's, the store's, the compiler's, the tiers' and the
+clock's), so that ``stats()`` is a view over it and
+``render_prometheus()`` gives the reference's text; an
+:class:`~repro_torch.serving.slo_watchdog.SLOWatchdog` is fed TTFT, decode
+gaps and tokens per step and may shed admissions below a priority floor
+while a page alert holds (``shed_floor``).  Every recorded value is a
+host value, and a step's span closes after the step's token readback:
+tracing adds no device synchronization and changes no token.  With
+``autotune_budgets=True`` the compile and promote budgets are halved
+while the mean decode gap of the last ``autotune_interval`` gaps
+overshoots ``target_decode_gap_s`` (or a page alert hints so) and doubled
+back, up to 8x their configured values, while it undershoots half of it.
+Meshes are a later slice of the port.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional
@@ -132,6 +152,8 @@ from repro_torch.serving.prefix_store import (PagedPrefixStore,
                                               take_prefix_row,
                                               write_prefix_to_cache)
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.serving.telemetry import (NULL_TRACER, MetricGroup,
+                                           MetricsRegistry, Tracer)
 from repro_torch.serving.tiers import TieredPrefixStore
 
 
@@ -171,8 +193,14 @@ class ServingEngine:
                  disk_dir: Optional[str] = None,
                  promote_layer_budget: Optional[int] = None,
                  clock=None, priority_aging_s: Optional[float] = None,
+                 autotune_budgets: bool = False,
+                 target_decode_gap_s: Optional[float] = None,
+                 autotune_interval: int = 16,
                  fused_step: bool = False, fused_chunk_tokens: int = 16,
-                 spec_draft=None, spec_k: int = 0):
+                 spec_draft=None, spec_k: int = 0,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 watchdog=None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be dense or paged, got "
                              f"{kv_layout!r}")
@@ -180,6 +208,15 @@ class ServingEngine:
             raise ValueError("compile_token_budget must be >= 1 (or None)")
         if promote_layer_budget is not None and promote_layer_budget < 1:
             raise ValueError("promote_layer_budget must be >= 1 (or None)")
+        if autotune_budgets:
+            if target_decode_gap_s is None or target_decode_gap_s <= 0:
+                raise ValueError("autotune_budgets needs a positive "
+                                 "target_decode_gap_s")
+            if compile_token_budget is None and promote_layer_budget is None:
+                raise ValueError("autotune_budgets needs at least one of "
+                                 "compile_token_budget/promote_layer_budget")
+            if autotune_interval < 1:
+                raise ValueError("autotune_interval must be >= 1")
         if fused_chunk_tokens < 1:
             raise ValueError("fused_chunk_tokens must be >= 1")
         if spec_k < 0:
@@ -205,24 +242,67 @@ class ServingEngine:
         self.clock = clock if clock is not None else time.perf_counter
         charge = getattr(self.clock, "charge", None)
         self._charge = charge if charge is not None else (lambda *_: None)
+        # telemetry: a no-op tracer by default and a fresh registry unless
+        # the caller shares one; the tracer reads the engine's clock, so
+        # spans sit on request_log's timeline
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        if self.tracer.enabled and self.tracer.clock is None:
+            self.tracer.clock = self.clock
+        attach = getattr(self.clock, "attach_metrics", None)
+        if attach is not None:
+            attach(self.metrics)  # charged-seconds counters by work kind
+        # SLO burn-rate watchdog (opt-in): fed at the TTFT and gap sites,
+        # stepped once per loop iteration; its degradation hook may set
+        # shed_floor (admission shedding) and degrade_hint (autotuner
+        # pressure) while a page alert is active
+        self.watchdog = watchdog
+        self.shed_floor: Optional[int] = None
+        self.degrade_hint = False
+        self.last_step_t: Optional[float] = None  # /healthz liveness
+        if watchdog is not None:
+            if watchdog.clock is None:
+                watchdog.clock = self.clock
+            watchdog.attach_engine(self)
         self.priority_aging_s = priority_aging_s
+        self._autotune = autotune_budgets
+        self.target_decode_gap_s = target_decode_gap_s
+        self.autotune_interval = autotune_interval
+        self._budget_init = (compile_token_budget, promote_layer_budget)
         self.request_log: Dict[int, dict] = {}  # per-request timings
         self.trace: List[tuple] = []  # per-serve event log
-        self.counters = {
+        # a registry-backed MetricGroup: every `self._counters[k] += 1`
+        # lands in a `serving_engine_*` gauge
+        self._counters = self.metrics.group("serving_engine", {
             "decode_steps": 0, "prefills": 0, "tokens_generated": 0,
             "decode_steps_during_compile": 0, "compile_chunks_interleaved": 0,
             "decode_steps_during_promote": 0, "promote_steps_interleaved": 0,
             "decode_gap_max_s": 0.0, "decode_gap_sum_s": 0.0,
             "decode_gaps": 0, "decode_time_s": 0.0,
             "preemptions": 0, "preempted_tokens_refilled": 0,
+            "autotune_shrinks": 0, "autotune_grows": 0,
             # fused step: decode + chunk work in one step
             "fused_steps": 0, "fused_chunks": 0,
             "fused_prefill_chunks": 0, "fused_prefill_tokens": 0,
             "fused_compile_chunks": 0,
             # speculative decoding
             "spec_rounds": 0, "draft_proposed": 0, "draft_accepted": 0,
-        }
+        }, help="engine loop counter")
+        self._m_gap = self.metrics.histogram(
+            "serving_decode_gap_seconds",
+            "non-decode time between consecutive decode steps")
+        self._m_ttft = self.metrics.histogram(
+            "serving_ttft_seconds", "arrival to first token",
+            labelnames=("priority",))
+        self._m_latency = self.metrics.histogram(
+            "serving_request_latency_seconds", "arrival to finish",
+            labelnames=("priority",))
+        self._m_jit = self.metrics.counter(
+            "serving_jit_compiles_total",
+            "jitted-program builds by step-function family",
+            labelnames=("family",))
         self._gap_samples: List[float] = []  # every decode gap (p50/p99)
+        self._gap_window: List[float] = []   # gaps since the last autotune
         self.cfg = cfg
         self.target = target
         self.slots = slots
@@ -272,6 +352,16 @@ class ServingEngine:
         self.compile_token_budget = compile_token_budget
         self.compiler = (PrefixCompiler(compressor, cfg, target)
                          if compressor is not None else None)
+        if self.compiler is not None:
+            self.compiler.stats = self.metrics.group(
+                "serving_compiler", self.compiler.stats,
+                help="online prefix compiler counter")
+        # adopt the store's counters before the tiers front it (the tiered
+        # facade's `stats` delegates to this same group)
+        if not isinstance(self.store.stats, MetricGroup):
+            self.store.stats = self.metrics.group(
+                "serving_prefix_store", self.store.stats,
+                help="HBM prefix store counter")
         # tiered store: evictions demote down the hierarchy, cold prefixes
         # promote back promote_layer_budget layers per loop iteration
         self.promote_layer_budget = promote_layer_budget
@@ -280,6 +370,9 @@ class ServingEngine:
             self.store = self.tiers = TieredPrefixStore(
                 self.store, host_capacity=host_capacity, disk_dir=disk_dir,
                 cache_ref=lambda: self.cache, device=self.device)
+            self.tiers.tier_stats = self.metrics.group(
+                "serving_prefix_tiers", self.tiers.tier_stats,
+                help="tiered prefix cache counter")
         # fused step and speculative decoding.  The step functions are
         # kept by geometry key (the JAX engine's jit keys): the per-family
         # count of keys seen is the reference's compile count, which lives
@@ -322,6 +415,11 @@ class ServingEngine:
     @property
     def paged(self) -> bool:
         return self.kv_layout == "paged"
+
+    @property
+    def counters(self) -> MetricGroup:
+        """The engine's counters (``stats()["engine"]``'s own keys)."""
+        return self._counters
 
     # ------------------------------------------------------------------
     # Prefix seating
@@ -432,6 +530,7 @@ class ServingEngine:
         if k not in self._geom_seen:
             self._geom_seen.add(k)
             self._jit_compiles[family] = self._jit_compiles.get(family, 0) + 1
+            self._m_jit.inc(family=family)
 
     def _program(self, family: str, key: tuple, make):
         """The geometry-keyed registry of step functions (LRU-bounded as
@@ -441,6 +540,7 @@ class ServingEngine:
         if fn is None:
             fn = self._programs[full] = make()
             self._jit_compiles[family] = self._jit_compiles.get(family, 0) + 1
+            self._m_jit.inc(family=family)
             while len(self._programs) > self._program_cap:
                 self._programs.popitem(last=False)
         else:
@@ -579,17 +679,34 @@ class ServingEngine:
         fired.  More requests than slots is fine: finished slots are
         refilled mid-decode.  Requests with ``arrival_s`` are held until
         the clock reaches that offset from the start of the call; the
-        timings land in ``request_log``, the events in ``trace``."""
+        timings land in ``request_log``, the events in ``trace``.  If the
+        loop dies, the tracer's flight recorder is dumped (when it has a
+        dump path) before the exception propagates."""
+        try:
+            return self._serve_impl(requests, seed=seed)
+        except BaseException:
+            self.tracer.dump_on_error()
+            raise
+
+    def _serve_impl(self, requests: Iterable[Request], *,
+                    seed: int = 0) -> Dict[int, np.ndarray]:
         epoch = self.clock()  # request_log times are offsets from here
         sched = Scheduler(self.slots, clock=self.clock,
-                          aging_interval_s=self.priority_aging_s)
+                          aging_interval_s=self.priority_aging_s,
+                          metrics=self.metrics)
         self.trace = []
         self.request_log = {}
+        tr = self.tracer
+        # trace ids are serve-local arrival ordinals, not Request.uid (a
+        # process-global counter): the trace stays a function of (scenario,
+        # seed) across runs in one process
+        self._rids: Dict[int, int] = {}
         requests = list(requests)
         for req in requests:  # validate the whole batch first
             self._check_request(req)
 
         def _arrive(req: Request) -> None:
+            rid = self._rids[req.uid] = len(self._rids)
             self.request_log[req.uid] = {
                 "priority": int(req.priority),
                 "arrival_s": float(req.arrival_s if req.arrival_s is not None
@@ -597,6 +714,9 @@ class ServingEngine:
                 "first_token_s": None, "finish_s": None,
                 "tokens": 0, "preemptions": 0,
             }
+            if tr.enabled:
+                tr.instant("scheduler", "arrive", rid=rid,
+                           priority=int(req.priority))
             self._submit(sched, req)
 
         future = sorted((r for r in requests if r.arrival_s is not None),
@@ -624,8 +744,22 @@ class ServingEngine:
         # so the paged gate sizes its window on that longer prefill
         can_seat = ((lambda r: self._can_admit(r, sched.resume_len(r.uid)))
                     if paged else None)
+        wd = self.watchdog
+        if wd is not None:
+            base_seat = can_seat
+
+            def can_seat(r, _base=base_seat):
+                # degradation hook: while a page alert holds shed_floor,
+                # park lower-priority admissions, but only while some
+                # slot runs, so shedding an idle engine cannot deadlock
+                if (self.shed_floor is not None
+                        and int(r.priority) >= self.shed_floor
+                        and sched.active_slots()):
+                    return False
+                return True if _base is None else _base(r)
         last_decode_done: Optional[float] = None
-        c = self.counters
+        self.last_step_t = self.clock()
+        c = self._counters
 
         def _finish(slot):
             req, toks = sched.finish(slot)
@@ -636,13 +770,25 @@ class ServingEngine:
             log = self.request_log[req.uid]
             log["finish_s"] = self.clock() - epoch
             log["tokens"] = int(len(toks))
+            self._m_latency.observe(log["finish_s"] - log["arrival_s"],
+                                    priority=log["priority"])
+            if tr.enabled:
+                tr.instant(f"slot{slot}", "finish",
+                           rid=self._rids[req.uid], tokens=len(toks))
 
         def _first_token(req: Request) -> None:
             log = self.request_log[req.uid]
             if log["first_token_s"] is None:
                 log["first_token_s"] = self.clock() - epoch
+                ttft = log["first_token_s"] - log["arrival_s"]
+                self._m_ttft.observe(ttft, priority=log["priority"])
+                if wd is not None:
+                    wd.observe("ttft", ttft)
 
         while sched.has_work() or future:
+            if wd is not None:
+                wd_steps0 = c["decode_steps"]
+                wd_toks0 = c["tokens_generated"]
             now_s = self.clock() - epoch
             while future and future[0].arrival_s <= now_s:
                 _arrive(future.pop(0))
@@ -678,6 +824,7 @@ class ServingEngine:
                               and s not in self._joining
                               for s in sched.active_slots())
             for slot, req in admitted:
+                t_adm = self.clock() if tr.enabled else 0.0
                 if req.prefix is not None:
                     # the slot's K/V at [0, base) still holds its prefix;
                     # recurrent state may have advanced since
@@ -694,6 +841,10 @@ class ServingEngine:
                     c["preempted_tokens_refilled"] += int(resumed.size)
                     self.trace.append(("resume", req.uid, slot,
                                        int(resumed.size)))
+                    if tr.enabled:
+                        tr.instant(f"slot{slot}", "resume",
+                                   rid=self._rids[req.uid],
+                                   tokens=int(resumed.size))
                 if paged:
                     # the gate's pending reservation becomes this slot's:
                     # prefill allocates its share now, the rest stays
@@ -704,7 +855,7 @@ class ServingEngine:
                     need = self._blocks_needed(req, base, extra=resumed.size)
                 if self.fused and (busy_decode or self._joining):
                     self._joining[slot] = {"req": req, "toks": toks,
-                                           "consumed": 0}
+                                           "consumed": 0, "t0": t_adm}
                     lengths[slot] = self.base[slot]
                     if paged:
                         # the whole window stays reserved; chunk prefills
@@ -727,6 +878,11 @@ class ServingEngine:
                                        _stream(req))
                 pending[slot] = tok
                 self.trace.append(("admit", req.uid, slot))
+                if tr.enabled:
+                    tr.span(f"slot{slot}", "admission", t_adm,
+                            rid=self._rids[req.uid], prefix=req.prefix,
+                            prompt_tokens=len(toks),
+                            resumed=int(resumed.size))
                 _first_token(req)
                 if sched.record_token(slot, tok):
                     _finish(slot)
@@ -768,6 +924,9 @@ class ServingEngine:
                 c["decode_time_s"] += self.clock() - t_start
                 last_decode_done = self._step_done(t_start, last_decode_done,
                                                    compiling, promoting)
+                if tr.enabled:
+                    tr.span("engine", "decode_step", t_start,
+                            last_decode_done, active=len(active))
                 self.trace.append(("decode", len(active)))
                 for slot in active:
                     lengths[slot] += 1  # the step consumed this slot's token
@@ -786,6 +945,8 @@ class ServingEngine:
                 if promoting:
                     self._promote_step(self.promote_layer_budget)
                     c["promote_steps_interleaved"] += 1
+                self._end_iteration(wd, wd_steps0 if wd is not None else 0,
+                                    wd_toks0 if wd is not None else 0)
                 continue
             # ---- fused step: decode lanes + one chunk, one step ----
             # everything up to the bookkeeping sits inside the step's
@@ -856,6 +1017,10 @@ class ServingEngine:
             c["decode_time_s"] += self.clock() - t_start
             last_decode_done = self._step_done(t_start, last_decode_done,
                                                compiling, promoting)
+            if tr.enabled:
+                tr.span("engine", "fused_step", t_start, last_decode_done,
+                        lanes=len(decode_lanes), chunk_tokens=int(chunk_n),
+                        compile_tokens=int(cw))
             c["fused_steps"] += 1
             if chunk_n or comp is not None:
                 c["fused_chunks"] += 1
@@ -878,6 +1043,11 @@ class ServingEngine:
                     if self.spec_k:
                         self._draft_prefill(chunk_slot, jn["toks"])
                     self.trace.append(("join_done", req.uid, chunk_slot))
+                    if tr.enabled:
+                        tr.span(f"slot{chunk_slot}", "admission", jn["t0"],
+                                rid=self._rids[req.uid], prefix=req.prefix,
+                                prompt_tokens=len(jn["toks"]),
+                                fused_join=True)
                     _first_token(req)
                     if sched.record_token(chunk_slot, tok):
                         _finish(chunk_slot)
@@ -911,6 +1081,10 @@ class ServingEngine:
                     emitted, a = self._spec_sample(
                         out[s, :kk + 1], dr, req.temperature, _stream(req))
                 c["draft_accepted"] += a
+                if tr.enabled:
+                    tr.instant(f"slot{s}", "spec_accept",
+                               rid=self._rids[req.uid], proposed=kk,
+                               accepted=int(a))
                 # implicit K/V rollback: only the accepted prefix counts;
                 # rejected lanes' rows sit past the new length (dense) or
                 # in private tail blocks (paged), unseen until overwritten
@@ -927,6 +1101,11 @@ class ServingEngine:
                 c["fused_compile_chunks"] += 1
                 c["compile_chunks_interleaved"] += 1
                 self.trace.append(("compile", cw))
+                if tr.enabled:
+                    # the chunk rode the fused step: its span is the
+                    # step's own window on the compiler track
+                    tr.span("compiler", "compile_chunk", t_start,
+                            last_decode_done, tokens=int(cw), fused=True)
             elif compiling and self.compile_token_budget is None:
                 # an unbudgeted compile cannot ride the chunk lane: the
                 # whole job behind this step (the stalled baseline)
@@ -935,25 +1114,49 @@ class ServingEngine:
             if promoting:
                 self._promote_step(self.promote_layer_budget)
                 c["promote_steps_interleaved"] += 1
+            self._end_iteration(wd, wd_steps0 if wd is not None else 0,
+                                wd_toks0 if wd is not None else 0)
+        self._refresh_gauges()
         return results
+
+    def _end_iteration(self, wd, steps0: int, toks0: int) -> None:
+        """A loop iteration's close: the watchdog's tokens-per-step sample
+        and evaluation, and the autotuner once its window is full."""
+        if wd is not None:
+            # goodput proxy: tokens emitted per engine step this iteration
+            # (speculative acceptance lifts it above 1 a lane)
+            dsteps = self._counters["decode_steps"] - steps0
+            if dsteps:
+                wd.observe("tokens_per_step",
+                           (self._counters["tokens_generated"] - toks0)
+                           / dsteps)
+            wd.step()
+        if self._autotune and len(self._gap_window) >= self.autotune_interval:
+            self._autotune_step()
 
     def _step_done(self, t_start: float, last_done: Optional[float],
                    compiling: bool, promoting: bool) -> float:
         """Close one decode step (classic or fused) that started at
         ``t_start``: record the decode gap since ``last_done`` (the
-        non-decode time between steps) and count the step.  Returns the
-        step's end."""
-        c = self.counters
+        non-decode time between steps; the autotuner's window, the gap
+        histogram and the watchdog see it too) and count the step.
+        Returns the step's end, which is also ``last_step_t``."""
+        c = self._counters
         if last_done is not None:
             gap = t_start - last_done
             c["decode_gap_max_s"] = max(c["decode_gap_max_s"], gap)
             c["decode_gap_sum_s"] += gap
             c["decode_gaps"] += 1
             self._gap_samples.append(gap)
+            self._gap_window.append(gap)
+            self._m_gap.observe(gap)
+            if self.watchdog is not None:
+                self.watchdog.observe("decode_gap", gap)
         c["decode_steps"] += 1
         c["decode_steps_during_compile"] += int(compiling)
         c["decode_steps_during_promote"] += int(promoting)
-        return self.clock()
+        self.last_step_t = self.clock()
+        return self.last_step_t
 
     def _preempt_for_priority(self, sched: Scheduler, can_seat,
                               protected=frozenset()):
@@ -980,9 +1183,13 @@ class ServingEngine:
             self._reserved[victim] = 0
             self.base[victim] = 0
             self._seated[victim] = None
-        self.counters["preemptions"] += 1
+        self._counters["preemptions"] += 1
         self.request_log[req.uid]["preemptions"] += 1
         self.trace.append(("preempt", req.uid, victim))
+        if self.tracer.enabled:
+            self.tracer.instant(f"slot{victim}", "preempt",
+                                rid=self._rids[req.uid],
+                                by_priority=int(cand.priority))
         return sched.admit(can_seat)
 
     def _advance_to(self, t: float) -> None:
@@ -995,6 +1202,58 @@ class ServingEngine:
         dt = t - self.clock()
         if dt > 0:
             time.sleep(min(dt, 0.02))
+
+    def _autotune_step(self) -> None:
+        """Feedback on the compile and promote budgets: while the mean
+        decode gap of the last window overshoots the target (or a page
+        alert's degradation hint is set), halve them; while it undershoots
+        half the target, double them back, up to 8x their configured
+        values.  A new compile width is a new geometry key of the fused
+        step's registry."""
+        window = self._gap_window
+        mean_gap = sum(window) / len(window)
+        del window[:]
+        init_c, init_p = self._budget_init
+        if mean_gap > self.target_decode_gap_s or self.degrade_hint:
+            changed = False
+            if self.compile_token_budget is not None \
+                    and self.compile_token_budget > 1:
+                self.compile_token_budget = self.compile_token_budget // 2
+                changed = True
+            if self.promote_layer_budget is not None \
+                    and self.promote_layer_budget > 1:
+                self.promote_layer_budget = self.promote_layer_budget // 2
+                changed = True
+            if changed:
+                self._counters["autotune_shrinks"] += 1
+                self.trace.append(("autotune", "shrink",
+                                   self.compile_token_budget,
+                                   self.promote_layer_budget))
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "engine", "autotune", action="shrink",
+                        compile_budget=self.compile_token_budget,
+                        promote_budget=self.promote_layer_budget)
+        elif mean_gap < self.target_decode_gap_s / 2:
+            changed = False
+            if init_c is not None and self.compile_token_budget < init_c * 8:
+                self.compile_token_budget = min(
+                    self.compile_token_budget * 2, init_c * 8)
+                changed = True
+            if init_p is not None and self.promote_layer_budget < init_p * 8:
+                self.promote_layer_budget = min(
+                    self.promote_layer_budget * 2, init_p * 8)
+                changed = True
+            if changed:
+                self._counters["autotune_grows"] += 1
+                self.trace.append(("autotune", "grow",
+                                   self.compile_token_budget,
+                                   self.promote_layer_budget))
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "engine", "autotune", action="grow",
+                        compile_budget=self.compile_token_budget,
+                        promote_budget=self.promote_layer_budget)
 
     def _check_request(self, req: Request) -> None:
         """Side-effect-free validation of one request: the errors
@@ -1037,6 +1296,10 @@ class ServingEngine:
                                      priority=req.priority)
             sched.park(req)
             self.trace.append(("park", req.uid, req.prefix))
+            if self.tracer.enabled:
+                self.tracer.begin_async("scheduler", "waiting_on_prefix",
+                                        self._rids[req.uid],
+                                        prefix=req.prefix)
             return
         sched.submit(req)
 
@@ -1046,19 +1309,27 @@ class ServingEngine:
 
     def _compile_step(self, token_budget: Optional[int]) -> None:
         before = self.compiler.stats["tokens"]
+        t0 = self.clock()
         self.compiler.step(token_budget)
         consumed = self.compiler.stats["tokens"] - before
         if consumed:
             self._charge("compile_token", consumed)
             self.trace.append(("compile", consumed))
+            if self.tracer.enabled:
+                self.tracer.span("compiler", "compile_chunk", t0,
+                                 tokens=int(consumed))
 
     def _promote_step(self, chunk_budget: Optional[int]) -> None:
         before = self.tiers.tier_stats["promote_chunks"]
+        t0 = self.clock()
         self.tiers.promote_step(chunk_budget)
         copied = self.tiers.tier_stats["promote_chunks"] - before
         if copied:
             self._charge("promote_chunk", copied)
             self.trace.append(("promote", copied))
+            if self.tracer.enabled:
+                self.tracer.span("promoter", "promote_chunk", t0,
+                                 chunks=int(copied))
 
     def _drain_promoter(self, sched: Scheduler) -> None:
         """Install at most one finished promotion and wake its requests
@@ -1071,6 +1342,8 @@ class ServingEngine:
             return  # capacity held: retry on a later iteration
         self.tiers.mark_promoted(name)
         self.trace.append(("promoted", name))
+        if self.tracer.enabled:
+            self.tracer.instant("promoter", "promoted", prefix=name)
         self._wake(sched, name)
 
     def _drain_compiler(self, sched: Scheduler) -> None:
@@ -1087,11 +1360,16 @@ class ServingEngine:
             return
         self.compiler.mark_installed(name)
         self.trace.append(("seat", name))
+        if self.tracer.enabled:
+            self.tracer.instant("compiler", "prefix_installed", prefix=name)
         self._wake(sched, name)
 
     def _wake(self, sched: Scheduler, name: str) -> None:
         for req in sched.wake(name):
             self.trace.append(("wake", req.uid, name))
+            if self.tracer.enabled:
+                self.tracer.end_async("scheduler", "waiting_on_prefix",
+                                      self._rids[req.uid])
 
     def _install(self, name: str, row: list, sched: Scheduler) -> bool:
         """Make a compiled or promoted prefix row store-resident under
@@ -1130,11 +1408,13 @@ class ServingEngine:
             self.store.pinned = set()
 
     def reset_stats(self) -> None:
-        """Zero every counter (engine, store, compiler, tiers) and the gap
-        samples; the step functions' geometry counts stay."""
-        for k in self.counters:
-            self.counters[k] = type(self.counters[k])(0)
+        """Zero every counter (engine, store, compiler, tiers), the gap
+        samples and the autotuner's window; the step functions' geometry
+        counts and the live budgets stay."""
+        for k in self._counters:
+            self._counters[k] = type(self._counters[k])(0)
         self._gap_samples = []
+        self._gap_window = []
         for group in (self.store.stats,
                       self.compiler.stats if self.compiler else {},
                       self.tiers.tier_stats if self.tiers else {}):
@@ -1153,8 +1433,11 @@ class ServingEngine:
         ``accept_rate``), the prefix store's hit/miss/put/eviction
         counters, the compiler's job/chunk counters, the tiers' counters,
         the fused step's settings and (paged) pool occupancy, under the
-        JAX engine's keys."""
-        engine = dict(self.counters)
+        JAX engine's keys: a deep copy of host values (no tensor), read
+        from the registry, so that another thread may call it while the
+        engine serves."""
+        self._refresh_gauges()
+        engine = dict(self._counters)
         gaps = self._gap_samples
         engine["decode_gap_p50_s"] = \
             float(np.percentile(gaps, 50)) if gaps else 0.0
@@ -1168,9 +1451,12 @@ class ServingEngine:
                "prefix_store": dict(self.store.stats),
                "compiler": (dict(self.compiler.stats)
                             if self.compiler is not None else None),
+               # the live budgets sit outside _counters: the autotuner
+               # moves them and reset_stats leaves them
                "budgets": {
                    "compile_token_budget": self.compile_token_budget,
-                   "promote_layer_budget": self.promote_layer_budget}}
+                   "promote_layer_budget": self.promote_layer_budget,
+                   "autotune": bool(self._autotune)}}
         if self.fused or self.spec_k:
             out["fused"] = {
                 "enabled": self.fused,
@@ -1188,7 +1474,23 @@ class ServingEngine:
                 "blocks_used": self.alloc.used_count,
                 "blocks_free": self.alloc.free_count,
             }
-        return out
+        return copy.deepcopy(out)
+
+    def _refresh_gauges(self) -> None:
+        """Push point-in-time values (pool occupancy, live budgets) into
+        registry gauges, so that a scrape between serves is fresh."""
+        g = self.metrics.gauge
+        g("serving_budget_compile_tokens",
+          "live compile token budget (autotuned)").set(
+              self.compile_token_budget)
+        g("serving_budget_promote_layers",
+          "live promote layer-chunk budget (autotuned)").set(
+              self.promote_layer_budget)
+        if self.paged:
+            g("serving_pool_blocks_used",
+              "paged KV pool blocks in use").set(self.alloc.used_count)
+            g("serving_pool_blocks_free",
+              "paged KV pool blocks free").set(self.alloc.free_count)
 
     # ------------------------------------------------------------------
     # Steps
@@ -1231,7 +1533,7 @@ class ServingEngine:
         if not 0 < n <= cap:
             raise ValueError(f"prompt of {n} tokens does not fit behind "
                              f"{base} seated slots in max_len {self.max_len}")
-        self.counters["prefills"] += 1
+        self._counters["prefills"] += 1
         width = self._width(n, cap)  # the reference's prefill width
         self._note_geometry("prefill", (width, base))
         self._charge("prefill_token", width)

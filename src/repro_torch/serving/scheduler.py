@@ -155,7 +155,8 @@ class Scheduler:
 
     def __init__(self, num_slots: int, *,
                  clock: Optional[Callable[[], float]] = None,
-                 aging_interval_s: Optional[float] = None):
+                 aging_interval_s: Optional[float] = None,
+                 metrics=None):
         self.num_slots = num_slots
         self.clock = clock if clock is not None else time.perf_counter
         if aging_interval_s is not None and aging_interval_s <= 0:
@@ -178,6 +179,26 @@ class Scheduler:
         # LEGAL_TRANSITIONS as it happens (sampled once at construction)
         self._sanitize = sanitizer_enabled()
         self._stage: dict = {}      # uid -> current stage (sanitizer only)
+        # optional telemetry: a MetricsRegistry (duck-typed — anything
+        # with gauge()/counter()) receives queue-depth gauges and
+        # lifecycle counters; None keeps the scheduler dependency-free
+        self._m = None
+        if metrics is not None:
+            self._m = {
+                "queued": metrics.gauge(
+                    "serving_sched_queued", "requests in the FIFO queue"),
+                "waiting": metrics.gauge(
+                    "serving_sched_waiting_on_prefix",
+                    "requests parked until their prefix is resident"),
+                "running": metrics.gauge(
+                    "serving_sched_running", "slots mid-generation"),
+                "submitted": metrics.counter(
+                    "serving_sched_submitted_total",
+                    "requests entering the scheduler"),
+                "preempted": metrics.counter(
+                    "serving_sched_preemptions_total",
+                    "running slots evicted for a higher class"),
+            }
 
     # ---- stage machine ----
 
@@ -202,15 +223,26 @@ class Scheduler:
 
     # ---- queue side ----
 
+    def _update_gauges(self) -> None:
+        if self._m is None:
+            return
+        self._m["queued"].set(len(self._queue))
+        self._m["waiting"].set(self.num_waiting)
+        self._m["running"].set(
+            sum(1 for s in self._slots if s is not None))
+
     def _stamp(self, request: Request) -> None:
         if request.uid not in self._order:
             self._order[request.uid] = next(self._arrival)
             self._arrive_t[request.uid] = self.clock()
+            if self._m is not None:
+                self._m["submitted"].inc()
 
     def submit(self, request: Request) -> int:
         self._stamp(request)
         self._transition(request.uid, "new", "queued")
         self._queue.append(request)
+        self._update_gauges()
         return request.uid
 
     @property
@@ -266,6 +298,7 @@ class Scheduler:
         self._stamp(request)
         self._transition(request.uid, "new", "waiting_on_prefix")
         self._waiting.setdefault(request.prefix, []).append(request)
+        self._update_gauges()
         return request.uid
 
     @property
@@ -299,6 +332,8 @@ class Scheduler:
         for req in woken:
             self._transition(req.uid, "waiting_on_prefix", "queued")
             self._insert_by_arrival(req)
+        if woken:
+            self._update_gauges()
         return woken
 
     def referenced_prefixes(self) -> set:
@@ -350,6 +385,8 @@ class Scheduler:
             resumed = self._resume.pop(req.uid, None)
             self._slots[slot] = _SlotState(req, emitted=list(resumed or ()))
             seated.append((slot, req))
+        if seated:
+            self._update_gauges()
         return seated
 
     def emitted_tokens(self, slot: int) -> np.ndarray:
@@ -379,6 +416,9 @@ class Scheduler:
         self._resume[req.uid] = list(state.emitted)
         self._insert_by_arrival(req)
         self.preemptions += 1
+        if self._m is not None:
+            self._m["preempted"].inc()
+            self._update_gauges()
         return req
 
     def record_token(self, slot: int, token: int) -> bool:
@@ -399,4 +439,5 @@ class Scheduler:
         assert state is not None, f"slot {slot} is free"
         self._transition(state.request.uid, "running", "finished")
         self._slots[slot] = None
+        self._update_gauges()
         return state.request, np.asarray(state.emitted, np.int32)

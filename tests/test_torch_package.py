@@ -56,7 +56,8 @@ assert not bad, bad
                 "train.train_step", "train.trainer", "launch.steps",
                 "launch.train", "configs.smollm_135m", "serving.compiler",
                 "serving.tiers", "data.icl_tasks", "configs.bench_target",
-                "serving.traffic", "serving.telemetry"):
+                "serving.traffic", "serving.telemetry", "serving.slo_watchdog",
+                "serving.profiler", "serving.server"):
         assert f"repro_torch.{mod}" in mods.split(), mod
 
 

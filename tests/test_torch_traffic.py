@@ -7,7 +7,10 @@
 * ``slo_metrics`` and ``Histogram`` (its percentiles, snapshot and text
   exposition) give the same numbers on one log;
 * the launchers' ``--fused-step``, ``--spec-draft`` / ``--spec-k``,
-  ``--traffic`` and ``--stats`` flags and their checks;
+  ``--traffic`` and ``--stats`` flags and their checks, the traffic mode
+  with the SLO watchdog firing page alerts and shedding admissions (the
+  same alert log and byte-equal ``--trace-out`` / ``--metrics-out``
+  files), and the checks of the observability and autotuner flags;
 * the churn scenario of ``tests/test_traffic.py`` (5 tasks over 2 HBM
   prefixes, 2 host rows and a disk tier, online compiles of 8 tokens a
   step, two priority classes with aging) served by both engines on a
@@ -192,13 +195,14 @@ def test_churn_simulation_matches_jax(setup, tmp_path, fused):
 # ---------------------------------------------------------------------------
 
 
-def _launch_both(monkeypatch, argv):
+def _launch_both(monkeypatch, argv, port_argv=None):
     """Run the JAX launcher (which parses ``sys.argv`` and returns nothing)
     and the port's on the same seeded parameters: the port's models are
     the JAX ones carried across by ``bridge``, seed for seed (the drafter
-    of ``--spec-draft ARCH`` comes from seed 1).  Returns (the JAX
-    engine's tokens per request in order, the page alerts its SLO
-    watchdog fired, the port launcher's metrics)."""
+    of ``--spec-draft ARCH`` comes from seed 1).  ``port_argv`` replaces
+    ``argv`` for the port (other output paths).  Returns (the JAX
+    engine's tokens per request in order, its SLO watchdog or None, the
+    port launcher's metrics)."""
     from repro.data import SyntheticVocab as JVocab
     from repro.launch import serve as jserve
     from repro_torch.launch import serve
@@ -226,22 +230,22 @@ def _launch_both(monkeypatch, argv):
 
     monkeypatch.setattr(serve.tfm, "init_params", init_params)
     monkeypatch.setattr(serve.memcom, "init_memcom", init_memcom)
-    want, fires = [], []
+    want, watchdogs = [], []
     real_serve = JaxEngine.serve
 
     def spy(self, requests, **kw):
         requests = list(requests)
         out = real_serve(self, requests, **kw)
         want.extend(out[r.uid].tolist() for r in requests)
-        if self.watchdog is not None:
-            fires.extend(e for e in self.watchdog.alert_log
-                         if e["kind"] == "fire" and e["severity"] == "page")
+        watchdogs.append(self.watchdog)
         return out
 
     monkeypatch.setattr(JaxEngine, "serve", spy)
     monkeypatch.setattr(sys, "argv", ["serve"] + argv)
     jserve.main()
-    return want, fires, serve.main(argv + ["--device", "cpu"])
+    metrics = serve.main((argv if port_argv is None else port_argv)
+                         + ["--device", "cpu"])
+    return want, watchdogs[0], metrics
 
 
 @pytest.mark.parametrize("draft", ["self", "smollm-135m"])
@@ -266,23 +270,42 @@ def test_launcher_fused_speculative_matches_jax(monkeypatch, capsys, draft):
 
 
 @pytest.mark.parametrize("process", ["zipf", "onoff"])
-def test_launcher_traffic_matches_jax(monkeypatch, capsys, process):
-    """``--traffic`` on the virtual clock: the JAX launcher's tokens and
-    SLO numbers.  The JAX launcher's SLO watchdog (a later slice of the
-    port) sheds admissions only under a page alert; it fired none, so
-    both schedules are the same."""
+def test_launcher_traffic_matches_jax(monkeypatch, capsys, tmp_path,
+                                      process):
+    """``--traffic`` on the virtual clock, with both launchers' SLO
+    watchdogs firing page alerts (a TTFT SLO of 2 ms) and shedding
+    admissions while they hold: the JAX launcher's tokens, alert log and
+    SLO numbers, and byte-equal ``--trace-out`` and ``--metrics-out``
+    files."""
     argv = ["--arch", "smollm-135m", "--smoke", "--traffic", process,
             "--traffic-requests", "8", "--traffic-tasks", "3",
             "--traffic-rate", "100", "--context-tokens", "24",
-            "--slo-ttft", "0.5", "--fused-step", "--seed", "3"]
-    want, fires, metrics = _launch_both(monkeypatch, argv)
-    assert not fires
+            "--slo-ttft", "0.002", "--fused-step", "--seed", "3"]
+
+    def files(d):
+        return ["--trace-out", str(d / "trace.json"), "--metrics-out",
+                str(d / "metrics.prom")]
+
+    want, jwd, metrics = _launch_both(
+        monkeypatch, argv + files(tmp_path / "jax"),
+        argv + files(tmp_path / "port"))
+    pages = [e for e in jwd.alert_log
+             if e["kind"] == "fire" and e["severity"] == "page"]
+    assert pages
+    assert "serving_degradations_total" in jwd.engine.metrics.names()
     assert metrics["traffic"]["tokens"] == want
     assert metrics["traffic"]["completed"] == 8
+    assert json.dumps(metrics["traffic"]["alerts"], sort_keys=True,
+                      separators=(",", ":")) == jwd.dumps()
+    for name in ("trace.json", "metrics.prom"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes(), name
     out = capsys.readouterr().out
     jline = [ln for ln in out.splitlines() if "completed," in ln]
     assert len(jline) == 2 and jline[0].split("simulated")[0] \
         == jline[1].split("simulated")[0]
+    wline = [ln for ln in out.splitlines() if "[edge] watchdog:" in ln]
+    assert len(wline) == 2 and wline[0] == wline[1]
 
 
 def test_launcher_flag_checks_match_jax(monkeypatch, capsys):
@@ -296,8 +319,15 @@ def test_launcher_flag_checks_match_jax(monkeypatch, capsys):
                 ["--spec-draft", "self", "--spec-k", "2"],
                 ["--fused-step", "--fused-chunk-tokens", "0"],
                 ["--fused-step", "--spec-draft", "gpt9", "--spec-k", "1"],
-                ["--traffic", "zipf", "--raw-shots"],
-                ["--traffic", "onoff", "--classify"]):
+["--traffic", "zipf", "--raw-shots"],
+                ["--traffic", "onoff", "--classify"],
+                # the observability and autotuner flags
+                ["--flight-recorder", "0"],
+                ["--autotune-budgets"],
+                ["--autotune-budgets", "--target-gap", "0.01"],
+                ["--http-port", "-1"],
+                ["--http-linger", "-1"],
+                ["--http-linger", "2"]):
         monkeypatch.setattr(sys, "argv", ["serve"] + base + bad)
         with pytest.raises(SystemExit):
             jserve.main()
