@@ -145,6 +145,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
       printed, by CUDA events, and its device time by graph replay over
       the same three sets (forward and backward less the forward alone).
       Bound: five products against the forward's two.
+   g. the ``gmm`` and ``ssd`` backward kernels (``gm.gmm_bwd``,
+      ``ss.ssd_bwd``) against ``plain.gmm_bwd_ref`` / ``plain.ssd_bwd_ref``
+      on the same inputs, by 3f's rule (float32 ssd inputs widened to
+      float64 for the plain version, as the kernel sums them), each call
+      repeated and required bit-identical: gmm dX and dW at granite's C =
+      256 (Memory-LLM and prompt) and C = 1536 (the source), E = 40, D
+      1536 <-> F 512 both ways; ssd at mamba2-370m's training call (2 x
+      3072, 32 heads of 64, N 128, no initial state, no final-state
+      cotangent), and 1000 tokens in two groups with an initial state and
+      a final-state cotangent, at seeded decays and at dt·|A| = 25 a
+      token.  bf16 times: ``ms`` by CUDA events, ``device_ms`` by graph
+      replay over three input sets, the plain version's ms, gmm's
+      ``torch.bmm`` of each product (``library_ms``; ssd has none), and
+      the bound max(operations / 989 TFLOP/s, bytes / 3.35 TB/s); gmm's
+      head numbers are dX alone (Phase 1's call), with dW and both
+      beside.  Then, under ``torch.no_grad``, a call through each wrapper
+      on an input that requires grad launches the forward alone.
 4. The main path, end to end, at the full published width and depth of
    gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
    bfloat16, weights drawn from seeds, each in two runs with every
@@ -205,6 +222,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
       trained tensors exactly.  Printed: s/step, tokens/s, peak memory,
       and one profiled step's device busy, idle share and the forward and
       backward kernels' device times.
+   j. granite-moe-3b-a800m (after the mistral-7b phase and the trained
+      target's, so that the profiled steps follow every timed phase):
+      MemCom Phase 1 as 4d, at full width and depth (32 layers, 40
+      experts top-8), with the same checks, and on every step 3 x (32 +
+      31) dX-only ``gmm`` backward calls (each expert product of the
+      target's MoE layers and of the Memory-LLM's but its last, whose
+      output no loss term reads; the experts are frozen, so no dW) at C =
+      256 rows an expert; the 3072-token source's C = 1536 calls run the
+      forward alone (no input needs a gradient).
+   k. mamba2-370m next-token training at full width and depth (48 Mamba2
+      layers) through ``launch.steps.build_lm_train_step`` (every
+      parameter, remat) and the Trainer: batch 2 x 3072 tokens, 4 steps,
+      checkpoints, restart and profile as 4d; every step one ``ssd``
+      backward call a layer (48) and every forward ``ssd`` call through
+      the chunked variant.  4j and 4k print s/step, tokens/s, peak memory
+      and each phase's seconds.
    e. mistral-7b (after the training phase, the other models freed; 32
       layers, d_model 4096, 32/8 heads of 128, m = 768; 23.89 B
       parameters over its three stacks and memx, initialised on the card):
@@ -313,10 +346,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    plain run's largest magnitude (Phase 2 adds the Source- and
    Memory-LLM and the 3072-token source's flash backward).
 
-   After the kernel phases (3g): a ``gmm`` and an ``ssd`` call on CUDA
-   inputs one of which requires grad, with gradients enabled, raise
-   ``NotImplementedError`` (neither kernel has a backward yet) and launch
-   nothing; under ``torch.no_grad`` the same calls run the kernel.
+   After granite-moe-3b-a800m's and mamba2-370m's training phases (4j,
+   4k): their loss and every trained gradient at full width and depth 2
+   through the kernels and forced to the plain versions, each gradient
+   within 2e-2 of the plain run's largest magnitude: granite Phase 1
+   (dX-only gmm backward calls) and Phase 2 (the experts train: dW too),
+   the plain run replaying the kernel run's top-k ids; mamba2-370m's
+   next-token loss over 2 x 3072 tokens (two ``ssd`` backward calls).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
@@ -1399,45 +1435,200 @@ def main() -> int:
         mx_bwd_rows.append(row)
     log(f"backward kernel phase: {time.perf_counter() - t_phase:.1f}s")
 
-    # ---- 3g. gmm and ssd refuse a call autograd would record ---------
-    # neither has a backward kernel yet: a call with gradients enabled
-    # where an input requires grad raises; under no_grad the same call
-    # runs the kernel (granite's and mamba2's shapes)
-    f1 = {}
-    gx, gw = (rand(40, 8, 1536, dtype=torch.bfloat16),
-              rand(40, 1536, 512, dtype=torch.bfloat16))
+    # ---- 3g. the gmm and ssd backward kernels ---------------------------
+    # Each against its plain backward (explicit formulas) on the same
+    # inputs, by 3f's rule: float32 max abs error at most 1e-4 of max(1,
+    # the largest gradient), bf16 plain.grad_err at most 2e-2, per
+    # gradient; float32 ssd inputs widened to float64 for the plain version
+    # (the kernel sums them in float64).  A second call gives the same
+    # bits.  Under no_grad a call through the wrapper is the forward alone.
+    t_phase = time.perf_counter()
+
+    def bwd_check(kernel, name, dn, names, got, want, again):
+        errs = {}
+        for gname, g, w, a in zip(names, got, want, again):
+            if w is None:
+                continue
+            e, ge = err(g, w), plain.grad_err(g, w)
+            scale_ = max(1.0, float(w.float().abs().max()))
+            ok = (e <= 1e-4 * scale_) if dn == "float32" \
+                else (ge <= REL_TOL["bfloat16"])
+            same = torch.equal(g, a)
+            finite = bool(torch.isfinite(g.float()).all())
+            errs[gname] = (e, ge)
+            if not (ok and same and finite):
+                raise AssertionError(
+                    f"{kernel} {name} {dn} {gname} disagrees with its plain "
+                    f"backward: max abs err {e:.3e} (largest |grad| "
+                    f"{scale_:.3e}), grad err {ge:.3e}, finite {finite}, "
+                    f"bit-identical on a second call {same}")
+        log(f"{kernel} {name} {dn}: " + ", ".join(
+            f"{k} max_abs_err {e:.3e} grad_err {ge:.3e}"
+            for k, (e, ge) in errs.items()) + "; a second call bit-identical")
+        return (max(v[0] for v in errs.values()),
+                max(v[1] for v in errs.values()))
+
+    gmm_bwd_rows = []
+    for name, E_, C_, D_, F_ in (
+            # the Memory-LLM's and the prompt's products (Phase 1: dX) and
+            # the 3072-token source's (Phase 2), both orientations
+            ("memory_bwd_1536_512", 40, 256, 1536, 512),
+            ("memory_bwd_512_1536", 40, 256, 512, 1536),
+            ("source_bwd_1536_512", 40, 1536, 1536, 512),
+            ("source_bwd_512_1536", 40, 1536, 512, 1536)):
+        row = {"shape": name, "x": [E_, C_, D_], "w": [E_, D_, F_]}
+        for dn in ("float32", "bfloat16"):
+            dtype = getattr(torch, dn)
+            x = rand(E_, C_, D_, dtype=dtype)
+            w = rand(E_, D_, F_, dtype=dtype, scale=D_ ** -0.5)
+            dy = rand(E_, C_, F_, dtype=dtype)
+            got = gm.gmm_bwd(x, w, dy)
+            again = gm.gmm_bwd(x, w, dy)
+            torch.cuda.synchronize()
+            want = plain.gmm_bwd_ref(x, w, dy)
+            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = bwd_check(
+                "gmm_bwd", name, dn, ("dx", "dw"), got, want, again)
+            del got, again, want
+            if dn == "bfloat16":
+                # three sets of w, dy and x (63 MB of weights each), so no
+                # replayed call reads its operands from the 50 MB L2
+                bufs = [(x, w, dy)] + [
+                    (rand(E_, C_, D_, dtype=dtype),
+                     rand(E_, D_, F_, dtype=dtype, scale=D_ ** -0.5),
+                     rand(E_, C_, F_, dtype=dtype)) for _ in range(2)]
+                for part, kw, lib in (
+                        ("dx", dict(need_dw=False),
+                         lambda x_, w_, d_: torch.bmm(d_, w_.transpose(1, 2))),
+                        ("dw", dict(need_dx=False),
+                         lambda x_, w_, d_: torch.bmm(x_.transpose(1, 2), d_)),
+                        ("both", {}, lambda x_, w_, d_: (
+                            torch.bmm(d_, w_.transpose(1, 2)),
+                            torch.bmm(x_.transpose(1, 2), d_)))):
+                    sfx = "" if part == "dx" else f"_{part}"
+                    need = dict(need_dx=part != "dw", need_dw=part != "dx")
+                    row[f"ms{sfx}"] = cuda_ms(
+                        lambda: gm.gmm_bwd(x, w, dy, **kw))
+                    row[f"device_ms{sfx}"] = device_ms(
+                        lambda x_, w_, d_: gm.gmm_bwd(x_, w_, d_, **kw), 21,
+                        bufs)
+                    row[f"plain_ms{sfx}"] = cuda_ms(
+                        lambda: plain.gmm_bwd_ref(x, w, dy, **need), reps=3)
+                    row[f"library_ms{sfx}"] = cuda_ms(lambda: lib(x, w, dy))
+                    row[f"library_device_ms{sfx}"] = device_ms(lib, 21, bufs)
+                    n_prod = 2 if part == "both" else 1
+                    flops = 2 * E_ * C_ * D_ * F_ * n_prod
+                    elems = {"dx": E_ * C_ * F_ + E_ * D_ * F_
+                             + E_ * C_ * D_,
+                             "dw": E_ * C_ * D_ + E_ * C_ * F_ + E_ * D_ * F_,
+                             "both": 2 * E_ * C_ * D_ + E_ * C_ * F_
+                             + 2 * E_ * D_ * F_}[part]
+                    row[f"bound_ms{sfx}"], row[f"bound_by{sfx}"] = bound(
+                        flops, 2 * elems)
+                row["library_backend"] = "torch.bmm"
+                log(f"  {name} bf16: dX {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']:.4f}), dW {row['ms_dw']:.4f} ms "
+                    f"(device {row['device_ms_dw']:.4f}), both "
+                    f"{row['ms_both']:.4f} ms (device "
+                    f"{row['device_ms_both']:.4f}); plain dX "
+                    f"{row['plain_ms']:.4f} ms; torch.bmm dX "
+                    f"{row['library_ms']:.4f} ms (device "
+                    f"{row['library_device_ms']:.4f}), dW "
+                    f"{row['library_ms_dw']:.4f} ms (device "
+                    f"{row['library_device_ms_dw']:.4f}); bound dX "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}), dW "
+                    f"{row['bound_ms_dw']:.4f} ms ({row['bound_by_dw']})")
+                del bufs
+            del x, w, dy
+        torch.cuda.empty_cache()
+        gmm_bwd_rows.append(row)
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+    ssd_bwd_rows = []
+    ssd_names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    for name, shape_, with_dhf in (
+            # mamba2-370m's training call: no initial state, the final
+            # state unused (no cotangent)
+            ("train", (2, T, 32, 64, 1, 128, False, False), False),
+            ("h0_dhf_1000_g2", (1, 1000, 32, 64, 2, 128, True, False), True),
+            ("decay25_1000_g2", (1, 1000, 32, 64, 2, 128, True, True),
+             True)):
+        Bs, S_, H_, P_, G_, N_, init_, big_ = shape_
+        row = {"shape": name, "x": [Bs, S_, H_, P_], "G": G_, "N": N_,
+               "init_state": init_, "dhf": with_dhf,
+               "decay": "dt|A| = 25" if big_ else "seeded"}
+        for dn in ("float32", "bfloat16"):
+            dtype = getattr(torch, dn)
+            ins = ssd_inputs(Bs, S_, H_, P_, G_, N_, dtype, init_, big_)
+            dy = rand(Bs, S_, H_, P_, dtype=dtype)
+            dhf = rand(Bs, H_, P_, N_, dtype=torch.float32) \
+                if with_dhf else None
+            got = ss.ssd_bwd(*ins, dy, dhf)
+            again = ss.ssd_bwd(*ins, dy, dhf)
+            torch.cuda.synchronize()
+            wide = [None if a is None else
+                    a.double() if dn == "float32" else a
+                    for a in (*ins, dy, dhf)]
+            want = plain.ssd_bwd_ref(*wide)
+            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = bwd_check(
+                "ssd_bwd", name, dn, ssd_names, got, want, again)
+            del got, again, want, wide
+            if dn == "bfloat16" and name == "train":
+                bufs = [(*ins, dy, dhf)]
+                for _ in range(2):
+                    more = ssd_inputs(Bs, S_, H_, P_, G_, N_, dtype, init_,
+                                      big_)
+                    bufs.append((*more, rand(Bs, S_, H_, P_, dtype=dtype),
+                                 dhf))
+                row["ms"] = cuda_ms(lambda: ss.ssd_bwd(*ins, dy, dhf))
+                row["device_ms"] = device_ms(
+                    lambda *a: ss.ssd_bwd(*a), 21, bufs)
+                row["plain_ms"] = cuda_ms(
+                    lambda: plain.ssd_bwd_ref(*ins, dy, dhf), reps=1,
+                    warmup=1)
+                row["library_ms"] = row["library_device_ms"] = None
+                row["library_backend"] = None
+                # the per-token form's least work: 12 P N operations a token
+                # and head (the state's recompute, dh, dC, dh B, dhᵀ x and
+                # <dh, h>); bytes: x, dy, dx, B, C, dB, dC, dt and ddt once
+                flops = 12 * Bs * S_ * H_ * P_ * N_
+                nbytes = (3 * Bs * S_ * H_ * P_ * 2 + 4 * Bs * S_ * G_ * N_ * 2
+                          + 2 * Bs * S_ * H_ * 4 + 2 * H_ * 4)
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                row["flops"], row["bytes"] = flops, nbytes
+                row["workspace_bytes"] = ss.bwd_workspace_bytes(
+                    Bs, S_, H_, P_, N_, dtype)
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
+                    f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
+                    f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}),"
+                    f" workspace {row['workspace_bytes']} bytes")
+                del bufs
+            del ins, dy, dhf
+            torch.cuda.empty_cache()
+        ssd_bwd_rows.append(row)
+
+    # under no_grad, or with no input needing a gradient, the wrappers'
+    # CUDA call is the forward launch alone
+    gx = rand(40, 8, 1536, dtype=torch.bfloat16)
+    gw = rand(40, 1536, 512, dtype=torch.bfloat16).requires_grad_(True)
     sin = ssd_inputs(1, 300, 32, 64, 1, 128, torch.bfloat16, True, False)
-    for name, mod, call, needs in (
-            ("gmm", gm, lambda: gm.gmm(gx, gw), gw),
-            ("ssd", ss, lambda: ss.ssd(*sin[:5], init_state=sin[5]), sin[0])):
-        before = mod.launches
-        needs.requires_grad_(True)
-        try:
-            call()
-            raised = False
-        except NotImplementedError as e:
-            raised, msg = True, str(e)
-        needs.requires_grad_(False)
-        refused = mod.launches == before
-        with torch.no_grad():
-            needs.requires_grad_(True)
-            res = call()
-            needs.requires_grad_(False)
-        ran = mod.launches == before + 1
-        out0 = res[0] if isinstance(res, tuple) else res
-        finite = bool(torch.isfinite(out0).all())
-        f1[name] = {"raised": raised, "launched_under_no_grad": ran,
-                    "finite": finite}
-        log(f"F1 {name} on the card: with grad enabled and an input "
-            f"requiring grad raises NotImplementedError: {raised}"
-            + (f" ({msg[:60]}...)" if raised else "") + "; under no_grad "
-            f"the kernel launched: {ran}, output finite: {finite}")
-        if not (raised and refused and ran and finite
-                and out0.grad_fn is None):
-            raise AssertionError(f"F1 {name}: the wrapper did not refuse "
-                                 "the call autograd would record")
-    report["f1"] = f1
-    del gx, gw, sin
+    sin[0].requires_grad_(True)
+    before = (gm.launches, gm.bwd_launches, ss.launches, ss.bwd_launches)
+    with torch.no_grad():
+        g_out = gm.gmm(gx, gw)
+        s_out, _ = ss.ssd(*sin[:5], init_state=sin[5])
+    forward_only = (g_out.grad_fn is None and s_out.grad_fn is None
+                    and (gm.launches, gm.bwd_launches, ss.launches,
+                         ss.bwd_launches) == (before[0] + 1, before[1],
+                                              before[2] + 1, before[3]))
+    log(f"gmm and ssd under no_grad: the forward launch alone {forward_only}")
+    if not forward_only:
+        raise AssertionError("a no_grad call did not stay the forward launch")
+    del gx, gw, sin, g_out, s_out
+    torch.cuda.empty_cache()
+    report["bwd_3g_s"] = time.perf_counter() - t_phase
+    log(f"gmm / ssd backward kernel phase (3g): {report['bwd_3g_s']:.1f}s")
 
     # ---- 4. the main paths at full width ------------------------------
     counters = {"flash_attention": fa, "memcom_xattn": mx,
@@ -1450,6 +1641,8 @@ def main() -> int:
         mx.wgmma_launches = ss.chunked_launches = 0
         fa.bwd_launches = fa.bwd_wgmma_launches = mx.bwd_launches = 0
         mx.bwd_wgmma_launches = 0
+        gm.bwd_launches = gm.bwd_dx_launches = gm.bwd_dw_launches = 0
+        ss.bwd_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
@@ -1462,6 +1655,10 @@ def main() -> int:
         c["flash_attention_bwd_wgmma"] = fa.bwd_wgmma_launches
         c["memcom_xattn_bwd"] = mx.bwd_launches
         c["memcom_xattn_bwd_wgmma"] = mx.bwd_wgmma_launches
+        c["gmm_bwd"] = gm.bwd_launches
+        c["gmm_bwd_dx"] = gm.bwd_dx_launches
+        c["gmm_bwd_dw"] = gm.bwd_dw_launches
+        c["ssd_bwd"] = ss.bwd_launches
         return c
 
     class SourcePrefills:
@@ -2262,51 +2459,49 @@ def main() -> int:
                                  "disagree")
         return {"logits_rel_err": rel_logits, "state_rel_err": rel_state}
 
-    # ---- 4d. MemCom Phase-1 training at full width ----------------------
-    def train_path():
-        """gemma2-2b Phase 1 at full width and depth through the port's
-        launcher path (``launch.train.build``: Trainer, AdamW with
-        warmup_cosine, clip 1.0): 4 steps of batch 2 x 3584 tokens split at
-        3072 (the source) with a checkpoint after step 2, then a second
-        Trainer restored from it that must reproduce steps 3-4 exactly."""
+    # ---- 4d, 4j, 4k. training at full width ----------------------------
+    ckdir = Path(__file__).resolve().parent / ".chip_smoke_ckpt"
+
+    def start_training():
+        import shutil
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.cuda.reset_peak_memory_stats()
+
+    def train_and_restart(tag, run, named, steps, tokens, check_step,
+                          count_keys, kernel_pats, init_s):
+        """``steps`` steps of ``run`` (trainer, step, params, opt,
+        batch_at) with raw checkpoints every 2 steps in ``ckdir``, under
+        ``torch.use_deterministic_algorithms(True, warn_only=True)``
+        (``start_training``): finite losses, every trained tensor's float32
+        master moved, every other tensor of ``named`` bit-identical to its
+        start, ``check_step(i, counts)`` on each step's launch counts; then
+        a second Trainer restored from step 2 must reproduce the losses of
+        the later steps and the trained tensors exactly.  Last, one
+        profiled step: device busy, idle share and the device time of the
+        kernels named by ``kernel_pats``."""
         import shutil
         import warnings
 
-        from repro_torch.launch import train as launch_train
-        from repro_torch.optim import warmup_cosine
         from repro_torch.train import Trainer, TrainerConfig
 
-        cfg = get_config("gemma2-2b")
-        tag = "[gemma2-2b train]"
-        ckdir = Path(__file__).resolve().parent / ".chip_smoke_ckpt"
-        shutil.rmtree(ckdir, ignore_errors=True)
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        steps, seq, split, batch = 4, T + m, T, 2
-        # warmup over 2 steps: the reference's 500 would keep a bf16
-        # parameter's first updates (lr ~ 4e-7) below its rounding step
-        lr = warmup_cosine(2e-4, 2, 20_000)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        run = launch_train.build(cfg, phase=1, batch=batch, seq=seq,
-                                 split=split, steps=steps, ckpt=str(ckdir),
-                                 ckpt_every=2, codec="raw", log_every=1,
-                                 lr=lr)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
         trained = run.params
-        frozen = {n: p.detach().to("cpu", copy=True)
-                  for n, p in list(run.mc.named_parameters())
-                  + [("target." + n, p)
-                     for n, p in run.target.named_parameters()]
-                  if n not in trained}
+        # the frozen tensors' copy stays on the card (a round trip through
+        # the host took most of the phase at granite's 20 GB of frozen
+        # weights); it raises the peak by exactly its bytes, taken off the
+        # printed peak
+        frozen = {n: p.detach().clone()
+                  for n, p in named.items() if n not in trained}
+        frozen_bytes = sum(t.numel() * t.element_size()
+                           for t in frozen.values())
         start = {n: p.detach().float().clone() for n, p in trained.items()}
         n_trained = sum(p.numel() for p in trained.values())
         state_bytes = sum(t.numel() * t.element_size()
                           for key in ("mu", "nu", "master")
                           for t in run.trainer.opt_state[key].values())
         log(f"{tag} init {init_s:.1f}s: {n_trained / 1e6:.1f}M trained "
-            f"parameters (memx, mem_tokens), {len(frozen)} frozen tensors, "
-            f"AdamW state {state_bytes} bytes")
+            f"parameters, {len(frozen)} frozen tensors, AdamW state "
+            f"{state_bytes} bytes")
 
         per_step, step_s = [], []
 
@@ -2332,55 +2527,22 @@ def main() -> int:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = counts()
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() - frozen_bytes
         nondet = sorted({str(w.message)[:120] for w in caught
                          if "deterministic" in str(w.message)})
         losses = dict(run.trainer.losses)
         log(f"{tag} losses {losses}; per-step seconds "
-            f"{[round(x, 4) for x in step_s]}; whole run with 2 raw "
-            f"checkpoints {run_s:.2f}s; peak memory {peak} bytes")
-        log(f"{tag} launches per step {per_step}")
+            f"{[round(x, 4) for x in step_s]}; whole run with "
+            f"{steps // 2} raw checkpoints {run_s:.2f}s; peak memory "
+            f"{peak} bytes")
+        log(f"{tag} launches per step: " + ", ".join(
+            f"{k} {[c[k] for c in per_step]}" for k in count_keys))
         if nondet:
             log(f"{tag} ops without a deterministic implementation: {nondet}")
-        L = cfg.num_layers
-        # every call of the step is bf16 at head dim 256 over m query rows
-        # of each head and m keys: all go where bwd_variant_for sends them
-        G = cfg.num_heads // cfg.num_kv_heads
-        want_wg = (3 * L - 1 if fa.bwd_variant_for(
-            torch.bfloat16, cfg.hd, m * G, m) == "wgmma" else 0)
-        # and each layer's memory cross-attention over the split's source
-        want_xwg = (L if mx.bwd_variant_for(
-            torch.bfloat16, batch, m, split, cfg.d_model, True) == "wgmma"
-            else 0)
         for i, c in enumerate(per_step):
-            # the Memory-LLM's self-attention and the prompt against the
-            # prefix in every layer, the prompt's self-attention in every
-            # layer but the first (whose q, k, v come from the frozen
-            # token embeddings alone, so autograd records no backward)
-            if c["flash_attention_bwd"] != 3 * L - 1 \
-                    or c["flash_attention_bwd_wgmma"] != want_wg \
-                    or c["memcom_xattn_bwd"] != L \
-                    or c["memcom_xattn_bwd_wgmma"] != want_xwg:
-                raise AssertionError(
-                    f"{tag} step {i + 1}: {c['flash_attention_bwd']} flash "
-                    f"backward calls (want {3 * L - 1}), "
-                    f"{c['flash_attention_bwd_wgmma']} through the wgmma "
-                    f"variant (want {want_wg}), "
-                    f"{c['memcom_xattn_bwd']} memcom_xattn backward calls "
-                    f"(want {L}), {c['memcom_xattn_bwd_wgmma']} through its "
-                    f"wgmma variant (want {want_xwg})")
-            if c["memcom_xattn"] != c["memcom_xattn_wgmma"] or \
-                    c["memcom_xattn"] != L:
-                raise AssertionError(f"{tag} step {i + 1}: memcom_xattn "
-                                     f"forward off the wgmma variant: {c}")
-        log(f"{tag} flash backward calls a step: "
-            f"{[c['flash_attention_bwd'] for c in per_step]}, through the "
-            f"wgmma variant "
-            f"{[c['flash_attention_bwd_wgmma'] for c in per_step]}; "
-            f"memcom_xattn backward calls through its wgmma variant "
-            f"{[c['memcom_xattn_bwd_wgmma'] for c in per_step]}")
+            check_step(i, c)
         if not all(np.isfinite(v) for v in losses.values()) \
-                or sorted(losses) != [1, 2, 3, 4]:
+                or sorted(losses) != list(range(1, steps + 1)):
             raise AssertionError(f"{tag} losses {losses}")
         moved = {n: not torch.equal(
             run.trainer.opt_state["master"].get(n, p.detach().float()),
@@ -2390,17 +2552,15 @@ def main() -> int:
         if not all(moved.values()):
             raise AssertionError(f"{tag} trained tensors that did not move: "
                                  f"{[n for n, v in moved.items() if not v]}")
-        named = dict(run.mc.named_parameters())
-        named.update(("target." + n, p)
-                     for n, p in run.target.named_parameters())
         changed = [n for n, t in frozen.items()
-                   if not torch.equal(named[n].detach().cpu(), t)]
+                   if not torch.equal(named[n].detach(), t)]
         if changed:
             raise AssertionError(f"{tag} frozen tensors changed: {changed[:5]}")
         log(f"{tag} all {len(moved)} trained tensors moved (their float32 "
             f"masters; {bf16_moved} also in their bf16 values); all "
-            f"{len(frozen)} frozen tensors bit-identical to their start")
-        del frozen
+            f"{len(frozen)} frozen tensors bit-identical to their start "
+            f"({frozen_bytes} bytes, copied on the card)")
+        del frozen, start
         final = {n: p.detach().clone() for n, p in trained.items()}
         # restart: a second Trainer on the same modules, its optimizer
         # state fresh, restored from the step-2 checkpoint
@@ -2413,14 +2573,17 @@ def main() -> int:
         restore_s = time.perf_counter() - t0
         again.run()
         torch.cuda.synchronize()
-        same_losses = all(again.losses[s] == losses[s] for s in (3, 4))
+        restart_s = time.perf_counter() - t0
+        later = list(range(3, steps + 1))
+        same_losses = all(again.losses[s_] == losses[s_] for s_ in later)
         same_params = all(torch.equal(p, final[n]) for n, p in trained.items())
-        log(f"{tag} restart from step {restored} (restore {restore_s:.2f}s): "
-            f"losses of steps 3-4 {[again.losses[s] for s in (3, 4)]} vs "
-            f"{[losses[s] for s in (3, 4)]}: identical {same_losses}; "
-            f"trained tensors after step 4 identical {same_params}")
+        log(f"{tag} restart from step {restored} (restore {restore_s:.2f}s, "
+            f"with its steps {restart_s:.2f}s): "
+            f"losses of steps {later} {[again.losses[s_] for s_ in later]} vs "
+            f"{[losses[s_] for s_ in later]}: identical {same_losses}; "
+            f"trained tensors after step {steps} identical {same_params}")
         if not (restored == 2 and same_losses and same_params):
-            diffs = {s: again.losses[s] - losses[s] for s in (3, 4)}
+            diffs = {s_: again.losses[s_] - losses[s_] for s_ in later}
             raise AssertionError(f"{tag} the restart does not reproduce the "
                                  f"run: loss differences {diffs}")
         ckpt_bytes = sum(f.stat().st_size
@@ -2428,31 +2591,25 @@ def main() -> int:
         del final, again
         shutil.rmtree(ckdir, ignore_errors=True)
         torch.use_deterministic_algorithms(False)
-        tokens = batch * seq
         step_mean = float(np.mean(step_s[1:]))
         out = {"losses": losses, "step_s": step_s,
                "s_per_step": step_mean, "tokens_per_s": tokens / step_mean,
-               "target_tokens_per_s": batch * (seq - split) / step_mean,
                "peak_bytes": peak, "launches_per_step": per_step,
                "launches": launches, "trained_params": n_trained,
                "adamw_state_bytes": state_bytes, "ckpt_bytes": ckpt_bytes,
                "restart_identical": same_losses and same_params,
-               "nondeterministic_ops": nondet, "run_s": run_s}
-        log(f"{tag} {card}: {step_mean:.4f} s/step over steps 2-4, "
-            f"{out['tokens_per_s']:.1f} tokens/s ({tokens} a step, "
-            f"{out['target_tokens_per_s']:.1f} target tokens/s), peak memory "
-            f"{peak} bytes, checkpoint {ckpt_bytes} bytes")
+               "nondeterministic_ops": nondet, "run_s": run_s,
+               "init_s": init_s}
+        log(f"{tag} {card}: {step_mean:.4f} s/step over steps 2-{steps}, "
+            f"{out['tokens_per_s']:.1f} tokens/s ({tokens} a step), peak "
+            f"memory {peak} bytes, checkpoint {ckpt_bytes} bytes")
         # one profiled step, last: its device busy time, idle share and the
         # kernels' device times
         b = run.batch_at(steps)
         prof = profiled(tag, "step", lambda: run.step(
             trained, run.trainer.opt_state, b))
         kern = {}
-        for key, pats in (("flash_fwd", ("flash_fwd",)),
-                          ("flash_bwd", ("flash_bwd_",)),
-                          ("xattn_fwd", ("xattn_logits_wgmma",
-                                         "xattn_out_wgmma")),
-                          ("xattn_bwd", ("xattn_bwd_",))):
+        for key, pats in kernel_pats.items():
             hits = [v for k_, v in prof["by_name"].items()
                     if any(p_ in k_ for p_ in pats)]
             kern[key] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
@@ -2461,23 +2618,169 @@ def main() -> int:
         out.update(profile=prof, kernel_device_ms=kern)
         for p in trained.values():
             p.requires_grad_(False)
-        del run, trained, b
         return out
 
-    def train_kernel_vs_plain():
+    def memcom_train_path(arch):
+        """MemCom Phase 1 at full width and depth through the port's
+        launcher path (``launch.train.build``: Trainer, AdamW with
+        warmup_cosine, clip 1.0): 4 steps of batch 2 x 3584 tokens split at
+        3072 (the source) with a checkpoint after step 2, then a second
+        Trainer restored from it that must reproduce steps 3-4 exactly
+        (``train_and_restart``).  Every step: the flash and memcom_xattn
+        backward calls of the layers, each through the variant its rule
+        picks, and on a MoE model one dX-only gmm backward call for each
+        expert product of the target's MoE layers and of the Memory-LLM's
+        but its last (whose output no loss term reads)."""
+        from repro_torch.launch import train as launch_train
+        from repro_torch.optim import warmup_cosine
+
+        cfg = get_config(arch)
+        tag = f"[{arch} train]"
+        start_training()
+        steps, seq, split, batch = 4, T + m, T, 2
+        # warmup over 2 steps: the reference's 500 would keep a bf16
+        # parameter's first updates (lr ~ 4e-7) below its rounding step
+        lr = warmup_cosine(2e-4, 2, 20_000)
+        t0 = time.perf_counter()
+        run = launch_train.build(cfg, phase=1, batch=batch, seq=seq,
+                                 split=split, steps=steps, ckpt=str(ckdir),
+                                 ckpt_every=2, codec="raw", log_every=1,
+                                 lr=lr)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        named = dict(run.mc.named_parameters())
+        named.update(("target." + n, p)
+                     for n, p in run.target.named_parameters())
+        L = cfg.num_layers
+        # every call of the step is bf16 over m query rows of each head and
+        # m keys: all go where bwd_variant_for sends them
+        G = cfg.num_heads // cfg.num_kv_heads
+        want_wg = (3 * L - 1 if fa.bwd_variant_for(
+            torch.bfloat16, cfg.hd, m * G, m) == "wgmma" else 0)
+        # and each layer's memory cross-attention over the split's source
+        want_xwg = (L if mx.bwd_variant_for(
+            torch.bfloat16, batch, m, split, cfg.d_model, True) == "wgmma"
+            else 0)
+        moe_layers = [d.mlp == "moe" for d in cfg.layout.descriptors()]
+        want_gmm = 3 * (2 * sum(moe_layers) - int(moe_layers[-1])) \
+            if any(moe_layers) else 0
+
+        def check_step(i, c):
+            # the Memory-LLM's self-attention and the prompt against the
+            # prefix in every layer, the prompt's self-attention in every
+            # layer but the first (whose q, k, v come from the frozen
+            # token embeddings alone, so autograd records no backward)
+            if c["flash_attention_bwd"] != 3 * L - 1 \
+                    or c["flash_attention_bwd_wgmma"] != want_wg \
+                    or c["memcom_xattn_bwd"] != L \
+                    or c["memcom_xattn_bwd_wgmma"] != want_xwg \
+                    or c["gmm_bwd"] != want_gmm \
+                    or c["gmm_bwd_dx"] != want_gmm or c["gmm_bwd_dw"] != 0:
+                raise AssertionError(
+                    f"{tag} step {i + 1}: {c['flash_attention_bwd']} flash "
+                    f"backward calls (want {3 * L - 1}), "
+                    f"{c['flash_attention_bwd_wgmma']} through the wgmma "
+                    f"variant (want {want_wg}), "
+                    f"{c['memcom_xattn_bwd']} memcom_xattn backward calls "
+                    f"(want {L}), {c['memcom_xattn_bwd_wgmma']} through its "
+                    f"wgmma variant (want {want_xwg}), {c['gmm_bwd']} gmm "
+                    f"backward calls (want {want_gmm}: dX {c['gmm_bwd_dx']},"
+                    f" dW {c['gmm_bwd_dw']}, want dX alone)")
+            if c["memcom_xattn"] != c["memcom_xattn_wgmma"] or \
+                    c["memcom_xattn"] != L:
+                raise AssertionError(f"{tag} step {i + 1}: memcom_xattn "
+                                     f"forward off the wgmma variant: {c}")
+
+        pats = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_bwd_",),
+                "xattn_fwd": ("xattn_logits_wgmma", "xattn_out_wgmma"),
+                "xattn_bwd": ("xattn_bwd_",)}
+        keys = ["flash_attention_bwd", "flash_attention_bwd_wgmma",
+                "memcom_xattn_bwd_wgmma"]
+        if want_gmm:
+            pats.update(gmm_fwd=("gmm_wgmma", "gmm_rows", "gmm_bf16"),
+                        gmm_bwd=("gmm_bwd",))
+            keys += ["gmm", "gmm_bwd", "gmm_bwd_dx", "gmm_bwd_dw"]
+        out = train_and_restart(tag, run, named, steps, batch * seq,
+                                check_step, keys, pats, init_s)
+        out["target_tokens_per_s"] = batch * (seq - split) / out["s_per_step"]
+        out["want_gmm_bwd"] = want_gmm
+        del run, named
+        return out
+
+    def mamba_train_path():
+        """mamba2-370m next-token training at full width and depth through
+        ``launch.steps.build_lm_train_step`` (every parameter, AdamW with
+        warmup_cosine, clip 1.0, remat) and the Trainer: 4 steps of batch 2
+        x 3072 tokens, checkpoints and the exact restart as 4d; every step
+        one ``ssd`` backward call a Mamba2 layer and every forward call
+        through the chunked variant."""
+        from repro_torch.data import PretrainStream
+        from repro_torch.launch import steps as launch_steps
+        from repro_torch.optim import warmup_cosine
+        from repro_torch.train import Trainer, TrainerConfig
+
+        arch = "mamba2-370m"
+        cfg = get_config(arch)
+        tag = f"[{arch} train]"
+        start_training()
+        steps, seq, batch = 4, T, 2
+        t0 = time.perf_counter()
+        model = tfm.init_params(cfg, 0)
+        step, opt, params = launch_steps.build_lm_train_step(
+            cfg, model, lr=warmup_cosine(1e-4, 2, 20_000))
+        stream = PretrainStream(vocab, batch=batch, seq_len=seq,
+                                split_choices=(seq // 2,), seed=0)
+
+        def batch_at(i):
+            b = stream.batch_at(i)
+            return {"tokens": torch.as_tensor(np.concatenate(
+                [b["source"], b["target"]], axis=1), device=dev)}
+
+        trainer = Trainer(step, params, opt.init(params), batch_at,
+                          str(ckdir), TrainerConfig(
+                              num_steps=steps, ckpt_every=2, log_every=1,
+                              codec="raw"))
+        from types import SimpleNamespace
+        run = SimpleNamespace(trainer=trainer, step=step, params=params,
+                              opt=opt, batch_at=batch_at)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        L = sum(d.mixer == "mamba" for d in cfg.layout.descriptors())
+
+        def check_step(i, c):
+            if c["ssd_bwd"] != L or c["ssd"] != c["ssd_chunked"] \
+                    or c["ssd"] < L:
+                raise AssertionError(
+                    f"{tag} step {i + 1}: {c['ssd_bwd']} ssd backward calls "
+                    f"(want {L}), {c['ssd']} forward calls, "
+                    f"{c['ssd_chunked']} of them chunked (want all)")
+
+        out = train_and_restart(
+            tag, run, dict(model.named_parameters()), steps, batch * seq,
+            check_step, ["ssd", "ssd_chunked", "ssd_bwd"],
+            {"ssd_fwd": ("ssd_chunk_states", "ssd_state_pass",
+                         "ssd_chunk_outputs"),
+             "ssd_bwd": ("ssd_bwd",)}, init_s)
+        out["mamba_layers"] = L
+        del run, model, params, trainer
+        return out
+
+    def train_kernel_vs_plain(arch):
         """One Phase-1 and one Phase-2 step's loss and gradients at full
         width and depth 2, through the kernels and forced to the plain
         versions: each gradient within 2e-2 of the plain run's largest
         magnitude (Phase 2 adds the Source- and Memory-LLM, and with them
         the 3072-token source's flash backward, in every layer whose
-        output some H^i reads)."""
+        output some H^i reads).  On a MoE model the plain run replays the
+        kernel run's top-k choices, and the gmm backward must launch dX
+        alone in Phase 1 and dW too in Phase 2 (the experts train)."""
         from repro_torch.data import PretrainStream
 
-        cfg = get_config("gemma2-2b")
-        cfg2 = cfg.replace(name="gemma2-2b-depth2",
-                           layout=LayerLayout.uniform(LayerDesc("attn",
-                                                                "dense"), 2))
-        tag = "[gemma2-2b train kernel-vs-plain]"
+        cfg = get_config(arch)
+        is_moe = cfg.moe is not None
+        cfg2 = cfg.replace(name=f"{arch}-depth2", layout=LayerLayout.uniform(
+            LayerDesc("attn", "moe" if is_moe else "dense"), 2))
+        tag = f"[{arch} train kernel-vs-plain]"
         target2 = tfm.init_params(cfg2, 0)
         mc2 = memcom.init_memcom(cfg2, target2, 1)
         raw = PretrainStream(vocab, batch=2, seq_len=T + m,
@@ -2493,6 +2796,7 @@ def main() -> int:
 
         out = {}
         for phase in (1, 2):
+            t_ph = time.perf_counter()
             trained = memcom.set_trainable(mc2, phase)
 
             def grads():
@@ -2506,14 +2810,17 @@ def main() -> int:
             source_bwd.clear()
             fa.flash_attention_bwd = spy
             try:
-                loss_k, g_k = grads()
+                loss_k, g_k = (routing.run("record", grads) if is_moe
+                               else grads())
             finally:
                 fa.flash_attention_bwd = inner_bwd
             torch.cuda.synchronize()
             c = counts()
+            routing.rows = routing.flips = 0
             ops.set_default_impl("torch")
             try:
-                loss_p, g_p = grads()
+                loss_p, g_p = (routing.run("replay", grads) if is_moe
+                               else grads())
             finally:
                 ops.set_default_impl(None)
             rels = {n: rel(a, b) for n, a, b in zip(trained, g_k, g_p)}
@@ -2524,24 +2831,90 @@ def main() -> int:
                 f"non-zero), worst rel err {worst} (tol {E2E_REL_TOL:g}); "
                 f"flash backward calls {c['flash_attention_bwd']} "
                 f"({sum(source_bwd)} over the {T}-token source), "
-                f"memcom_xattn backward calls {c['memcom_xattn_bwd']}")
+                f"memcom_xattn backward calls {c['memcom_xattn_bwd']}"
+                + (f"; gmm backward calls {c['gmm_bwd']} (dX "
+                   f"{c['gmm_bwd_dx']}, dW {c['gmm_bwd_dw']}); top-k rows "
+                   f"the plain run would have routed otherwise "
+                   f"{routing.flips} of {routing.rows}" if is_moe else "")
+                + f"; {time.perf_counter() - t_ph:.1f}s")
             # Phase 2: the source's flash backward in every layer but the
             # last, whose attention feeds no captured hidden
             want_src = cfg2.num_layers - 1 if phase == 2 else 0
+            # Phase 1: dX of the target's 2 MoE layers and the Memory-LLM's
+            # first; Phase 2 trains the experts of both compressor stacks
+            gmm_ok = not is_moe or (
+                c["gmm_bwd_dx"] == c["gmm_bwd"] == 9 and c["gmm_bwd_dw"] == 0
+                if phase == 1 else c["gmm_bwd_dw"] > 0)
             if not (worst[0][1] <= E2E_REL_TOL
                     and abs(loss_k - loss_p) <= E2E_REL_TOL * abs(loss_p)
                     and sum(source_bwd) == want_src
-                    and c["memcom_xattn_bwd"] == 2):
+                    and c["memcom_xattn_bwd"] == 2 and gmm_ok):
                 raise AssertionError(f"{tag} phase {phase}: kernel path and "
                                      "plain path disagree")
             out[f"phase{phase}"] = {
                 "loss_kernel": loss_k, "loss_plain": loss_p,
                 "worst_rel_err": worst, "launches": c,
                 "source_flash_bwd": sum(source_bwd)}
+            if is_moe:
+                out[f"phase{phase}"]["topk_flips"] = [routing.flips,
+                                                      routing.rows]
             del g_k, g_p
         for p in mc2.parameters():
             p.requires_grad_(False)
         return out
+
+    def mamba_train_kernel_vs_plain():
+        """mamba2-370m at full width and depth 2: one next-token loss and
+        every parameter's gradient over batch 2 x 3072 through ``ssd`` and
+        its backward kernel and forced to the plain versions: each
+        gradient within 2e-2 of the plain run's largest magnitude."""
+        from repro_torch.core.memcom import next_token_loss
+        from repro_torch.data import PretrainStream
+
+        cfg = get_config("mamba2-370m")
+        cfg2 = cfg.replace(name="mamba2-370m-depth2",
+                           layout=LayerLayout.uniform(
+                               LayerDesc("mamba", "none"), 2))
+        tag = "[mamba2-370m train kernel-vs-plain]"
+        t_ph = time.perf_counter()
+        model = tfm.init_params(cfg2, 0)
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        raw = PretrainStream(vocab, batch=2, seq_len=T, split_choices=(
+            T // 2,), seed=0).batch_at(0)
+        toks = torch.as_tensor(np.concatenate([raw["source"], raw["target"]],
+                                              axis=1), device=dev)
+
+        def grads():
+            logits, aux = model(tokens=toks)
+            loss = next_token_loss(logits, toks) + aux["moe_loss"]
+            g = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
+            return float(loss.detach()), g
+
+        set_counts()
+        loss_k, g_k = grads()
+        torch.cuda.synchronize()
+        c = counts()
+        ops.set_default_impl("torch")
+        try:
+            loss_p, g_p = grads()
+        finally:
+            ops.set_default_impl(None)
+        rels = {n: rel(a, b) for n, a, b in zip(params, g_k, g_p)}
+        worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+        log(f"{tag} depth 2, bf16: loss kernel {loss_k:.6f} plain "
+            f"{loss_p:.6f}; {len(rels)} gradients, worst rel err {worst} "
+            f"(tol {E2E_REL_TOL:g}); ssd calls {c['ssd']} ({c['ssd_chunked']}"
+            f" chunked), ssd backward calls {c['ssd_bwd']}; "
+            f"{time.perf_counter() - t_ph:.1f}s")
+        model.requires_grad_(False)
+        if not (worst[0][1] <= E2E_REL_TOL and c["ssd_bwd"] == 2
+                and abs(loss_k - loss_p) <= E2E_REL_TOL * abs(loss_p)):
+            raise AssertionError(f"{tag}: kernel path and plain path "
+                                 "disagree")
+        return {"loss_kernel": loss_k, "loss_plain": loss_p,
+                "worst_rel_err": worst, "launches": c}
 
     # ---- mistral-7b: offline, online compile, prefix tiers -------------
     MT = 2 * T  # the paper's 6144-token many-shot tasks
@@ -3498,11 +3871,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    report["train"] = train_path()
+    report["train"] = memcom_train_path("gemma2-2b")
     paths["gemma2-2b train"] = report["train"]["launches"]
     gc.collect()
     torch.cuda.empty_cache()
-    report["train"]["kernel_vs_plain"] = train_kernel_vs_plain()
+    report["train"]["kernel_vs_plain"] = train_kernel_vs_plain("gemma2-2b")
     report["train"]["phase_s"] = time.perf_counter() - t_phase
     log(f"[gemma2-2b train] phases 4d and 5b: "
         f"{report['train']['phase_s']:.1f}s")
@@ -3533,6 +3906,31 @@ def main() -> int:
     report["mistral_phase_s"] = time.perf_counter() - t_phase
     log(f"[mistral-7b] phases 4e, 5 and the trained target's eval: "
         f"{report['mistral_phase_s']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # after mistral-7b, so that the profiled training steps come after its
+    # timed phases: granite-moe-3b-a800m Phase 1 (4j) and mamba2-370m LM
+    # training (4k) at full width, each with its depth-2 kernel-vs-plain
+    # gradients (phase 5)
+    for key, path, vs_plain in (
+            ("granite-moe-3b-a800m train",
+             lambda: memcom_train_path("granite-moe-3b-a800m"),
+             lambda: train_kernel_vs_plain("granite-moe-3b-a800m")),
+            ("mamba2-370m train", mamba_train_path,
+             mamba_train_kernel_vs_plain)):
+        t_phase = time.perf_counter()
+        report[key] = path()
+        paths[key] = report[key]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_s = time.perf_counter() - t_phase
+        report[key]["kernel_vs_plain"] = vs_plain()
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[key]["phase_s"] = time.perf_counter() - t_phase
+        log(f"[{key}] training and its depth-2 check: "
+            f"{report[key]['phase_s']:.1f}s (training {train_s:.1f}s)")
 
     # ---- result lines ----------------------------------------------------
     def compile_chunk(rows):
@@ -3559,7 +3957,9 @@ def main() -> int:
             ("flash_attention:flash_attention_bwd", flash_bwd_rows,
              "memory_self_bwd"),
             ("memcom_xattn:memcom_xattn_bwd", mx_bwd_rows,
-             "memory_xattn_bwd")):
+             "memory_xattn_bwd"),
+            ("moe_gmm:gmm_bwd", gmm_bwd_rows, "memory_bwd_1536_512"),
+            ("ssd_scan:ssd_bwd", ssd_bwd_rows, "train")):
         timed = [r for r in rows if "ms" in r]
         head = (next(r for r in rows if r["shape"] == main) if main
                 else max(timed, key=lambda r: r["ms"]))
@@ -3580,7 +3980,8 @@ def main() -> int:
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows})
         if name in ("memcom_xattn", "paged_flash_decode",
-                    "flash_attention_bwd", "memcom_xattn_bwd"):
+                    "flash_attention_bwd", "memcom_xattn_bwd", "gmm_bwd",
+                    "ssd_bwd"):
             entries[-1]["device_ms"] = head["device_ms"]
         if name.endswith("_bwd"):  # backward calls, the yardstick's backend
             entries[-1].update(library_backend=head["library_backend"],
@@ -3622,6 +4023,13 @@ def main() -> int:
                 library_device_ms=head["library_device_ms"],
                 **{k: head[k] for k in head
                    if k.startswith(("ms_", "device_ms_"))})
+        if name == "gmm_bwd":  # dX (the Phase-1 path's call) and dW
+            entries[-1].update(
+                dx_launches=sum(c["gmm_bwd_dx"] for c in paths.values()),
+                dw_launches=sum(c["gmm_bwd_dw"] for c in paths.values()),
+                **{k: head[k] for k in head if k.endswith(("_dw", "_both"))})
+        if name == "ssd_bwd":
+            entries[-1]["workspace_bytes"] = head["workspace_bytes"]
         if name == "ssd":  # the chunked variant and the sequential one
             entries[-1].update(
                 chunked_launches=sum(c["ssd_chunked"]

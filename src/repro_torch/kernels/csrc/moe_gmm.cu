@@ -628,3 +628,278 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out, int E,
     return launch_rows_for(xb, wb, ob, E, C, D, F, st);
   return cudaErrorInvalidValue;
 }
+
+// ---- the backward: dX = dY Wᵀ and dW = Xᵀ dY -------------------------------
+//
+// Replaces the gradient JAX forms for src/repro/kernels/moe_gmm.py::gmm by
+// differentiating its plain path (ref.py::gmm_ref; the JAX package defines
+// no custom_vjp).  Contract: plain.gmm_bwd_ref —
+//   dx[e] = dy[e] @ w[e]ᵀ   (E,C,F) x (E,D,F) -> (E,C,D), x's type
+//   dw[e] = x[e]ᵀ @ dy[e]   (E,C,D) x (E,C,F) -> (E,D,F), w's type
+// each summed in float32.  The wrapper launches each only for an input
+// that needs a gradient (MemCom Phase 1 freezes the experts: dX alone).
+//
+// What bounds it on an H100: at granite-moe-3b-a800m's training shapes (E
+// = 40, D 1536 <-> F 512, C = 256 rows an expert for the Memory-LLM and
+// the prompt) dX does 16.1 GFLOP and moves 104.9 MB (the weights, 62.9
+// MB, dY and dX once): 0.016 ms of tensor-core time against 0.031 ms of
+// bytes, so it is bound by bytes, as the forward at C = 128 is.
+//
+// Design: one mma.sync kernel template, gmm_bwd_tc<A_T, B_T>, the
+// forward's gmm_bf16 with each operand read in its storage order: A (M x
+// K) is stored row-major ([m][k], ldmatrix) or as its transpose ([k][m],
+// ldmatrix.trans), B (K x N) as [k][n] (ldmatrix.trans) or [n][k]
+// (ldmatrix).  dX is <false, true>: dy rows are A's, w's rows (D rows of F)
+// are B's columns, read in place; no transposed copy of w (63 MB a call at
+// granite's width) is made.  dW is <true, false>: x's rows (C rows of D)
+// are Aᵀ's rows, dy's are B's.  Four warps own 64 x 128 outputs of one
+// expert and stream K through two cp.async stages of 32-deep slabs; each
+// output is one block's sum in one order (no split of K, no atomics), so
+// two runs are bit-identical.  float32: gmm_bwd_f32<A_T, B_T>, the
+// forward's CUDA-core tile with the same two storage orders (no TF32).
+// A simple kernel first: the wgmma form (the forward's gmm_wgmma with a
+// K-major B for dX and an MN-major A for dW) is later work; PERF.md
+// section 6 has its times beside the forward's.
+
+namespace {
+
+// out[e] = A[e] B[e] for e = blockIdx.z, float32 on the CUDA cores.
+// A(m, k) = a[A_T ? k lda + m : m lda + k], B(k, n) = b[B_T ? n ldb + k :
+// k ldb + n]; out (M x N) row-major.
+template <bool A_T, bool B_T>
+__global__ void __launch_bounds__(NT)
+gmm_bwd_f32(const float* __restrict__ a, const float* __restrict__ b,
+            float* __restrict__ out, int M, int N, int K, int lda, int ldb,
+            size_t a_step, size_t b_step) {
+  __shared__ __align__(16) float As[TK][TM + 4];
+  __shared__ __align__(16) float Bs[TK][TN + 4];
+  const size_t e = blockIdx.z;
+  a += e * a_step;
+  b += e * b_step;
+  out += e * M * static_cast<size_t>(N);
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+
+  for (int k0 = 0; k0 < K; k0 += TK) {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < TM * TK; i += NT) {
+      // neighbouring threads on neighbouring addresses of the storage
+      const int mm = A_T ? i % TM : i / TK, kk = A_T ? i / TM : i % TK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      As[kk][mm] = (gm < M && gk < K)
+                       ? a[A_T ? static_cast<size_t>(gk) * lda + gm
+                               : static_cast<size_t>(gm) * lda + gk]
+                       : 0.f;
+    }
+#pragma unroll 1
+    for (int i = threadIdx.x; i < TN * TK; i += NT) {
+      const int nn = B_T ? i / TK : i % TN, kk = B_T ? i % TK : i / TN;
+      const int gn = n0 + nn, gk = k0 + kk;
+      Bs[kk][nn] = (gn < N && gk < K)
+                       ? b[B_T ? static_cast<size_t>(gn) * ldb + gk
+                               : static_cast<size_t>(gk) * ldb + gn]
+                       : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += ar[i] * br[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gn < N) out[static_cast<size_t>(gm) * N + gn] = acc[i][j];
+    }
+  }
+}
+
+constexpr int SMP = MB + 8;  // padded row of a [k][m] A tile (144 bytes)
+
+// out[e] = A[e] B[e] for e = blockIdx.z: bf16 in, float32 sums, bf16 out;
+// storage orders as gmm_bwd_f32's.  vec_a / vec_b: the rows of a / b are
+// whole 16-byte pieces (row length a multiple of 8, 16-byte aligned base),
+// so each piece is one cp.async.
+template <bool A_T, bool B_T>
+__global__ void __launch_bounds__(MNT)
+gmm_bwd_tc(const bf16* __restrict__ a, const bf16* __restrict__ b,
+           bf16* __restrict__ out, int M, int N, int K, int lda, int ldb,
+           size_t a_step, size_t b_step, bool vec_a, bool vec_b) {
+  constexpr int A_ELEMS = A_T ? KB * SMP : MB * SKP;
+  constexpr int B_ELEMS = B_T ? NB * SKP : KB * SNP;
+  __shared__ __align__(16) bf16 As[2][A_ELEMS];
+  __shared__ __align__(16) bf16 Bs[2][B_ELEMS];
+  const size_t e = blockIdx.z;
+  const bf16* ae = a + e * a_step;
+  const bf16* be = b + e * b_step;
+  out += e * M * static_cast<size_t>(N);
+  const int m0 = blockIdx.y * MB, n0 = blockIdx.x * NB;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 64;  // warp's 32 x 64
+  float acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  // stage s <- the K slab starting at k0
+  auto load_slab = [&](int s, int k0) {
+    if (A_T) {  // KB rows of k, MB columns of m
+      for (int i = threadIdx.x; i < KB * MB / 8; i += MNT) {
+        const int r = i / (MB / 8), c = (i % (MB / 8)) * 8;
+        const int gk = k0 + r;
+        load8(&As[s][r * SMP + c], ae, ae + static_cast<size_t>(gk) * lda,
+              gk < K, m0 + c, M, vec_a);
+      }
+    } else {  // MB rows of m, KB columns of k
+      for (int i = threadIdx.x; i < MB * KB / 8; i += MNT) {
+        const int r = i / (KB / 8), c = (i % (KB / 8)) * 8;
+        const int gm = m0 + r;
+        load8(&As[s][r * SKP + c], ae, ae + static_cast<size_t>(gm) * lda,
+              gm < M, k0 + c, K, vec_a);
+      }
+    }
+    if (B_T) {  // NB rows of n, KB columns of k
+      for (int i = threadIdx.x; i < NB * KB / 8; i += MNT) {
+        const int r = i / (KB / 8), c = (i % (KB / 8)) * 8;
+        const int gn = n0 + r;
+        load8(&Bs[s][r * SKP + c], be, be + static_cast<size_t>(gn) * ldb,
+              gn < N, k0 + c, K, vec_b);
+      }
+    } else {  // KB rows of k, NB columns of n
+      for (int i = threadIdx.x; i < KB * NB / 8; i += MNT) {
+        const int r = i / (NB / 8), c = (i % (NB / 8)) * 8;
+        const int gk = k0 + r;
+        load8(&Bs[s][r * SNP + c], be, be + static_cast<size_t>(gk) * ldb,
+              gk < K, n0 + c, N, vec_b);
+      }
+    }
+  };
+
+  const int nk = (K + KB - 1) / KB;
+  if (nk > 0) load_slab(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < nk) load_slab(s ^ 1, (kt + 1) * KB);
+    cp_async_commit();  // possibly empty: keeps the group count in step
+    cp_async_wait_one();  // slab kt has landed
+    __syncthreads();
+    const bf16* as = As[s];
+    const bf16* bs = Bs[s];
+#pragma unroll
+    for (int kk = 0; kk < KB; kk += 16) {
+      // A fragments: matrices (m +0/+8) x (k +0/+8) in the mma's order
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (A_T)
+          ldsm_x4_t(af[mi], &as[(kk + lane % 8 + (lane / 16) * 8) * SMP + wm
+                                + mi * 16 + ((lane / 8) % 2) * 8]);
+        else
+          ldsm_x4(af[mi], &as[(wm + mi * 16 + lane % 16) * SKP + kk
+                              + (lane / 16) * 8]);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        // B fragments: (k +0/+8) x (n +0/+8), n-tile pairs
+        uint32_t bfr[4];
+        if (B_T)
+          ldsm_x4(bfr, &bs[(wn + nj * 16 + (lane / 16) * 8 + lane % 8) * SKP
+                           + kk + ((lane / 8) % 2) * 8]);
+        else
+          ldsm_x4_t(bfr, &bs[(kk + lane % 8 + ((lane / 8) % 2) * 8) * SNP
+                             + wn + nj * 16 + (lane / 16) * 8]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma16816(acc[mi][2 * nj], af[mi], bfr[0], bfr[1]);
+          mma16816(acc[mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage s is refilled in the next iteration
+  }
+  cp_async_wait_one();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + wm + mi * 16 + lane / 4 + h * 8;
+        const int gn = n0 + wn + ni * 8 + (lane % 4) * 2;
+        if (gm >= M) continue;
+        bf16* row = out + static_cast<size_t>(gm) * N;
+        if (gn < N) row[gn] = __float2bfloat16_rn(acc[mi][ni][2 * h]);
+        if (gn + 1 < N) row[gn + 1] = __float2bfloat16_rn(acc[mi][ni][2 * h + 1]);
+      }
+}
+
+// One product of the backward: out (E, M, N) = A B per expert.
+template <bool A_T, bool B_T>
+int launch_bwd(const void* a, const void* b, void* out, int E, int M, int N,
+               int K, int lda, int ldb, size_t a_step, size_t b_step,
+               int dtype, cudaStream_t st) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (dtype == 0) {
+    if ((M + TM - 1) / TM > 65535) return cudaErrorInvalidValue;
+    const dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, E);
+    gmm_bwd_f32<A_T, B_T><<<grid, NT, 0, st>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<float*>(out), M, N, K, lda, ldb, a_step, b_step);
+    return cudaGetLastError();
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if ((M + MB - 1) / MB > 65535) return cudaErrorInvalidValue;
+  // a row of a holds lda elements, of b ldb; a step is a multiple of 8
+  // elements when the row is
+  const bool vec_a = lda % 8 == 0 && aligned16(a);
+  const bool vec_b = ldb % 8 == 0 && aligned16(b);
+  const dim3 grid((N + NB - 1) / NB, (M + MB - 1) / MB, E);
+  gmm_bwd_tc<A_T, B_T><<<grid, MNT, 0, st>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(out), M, N, K, lda, ldb, a_step, b_step, vec_a,
+      vec_b);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The gradient of moe_gmm_fwd: x (E,C,D), w (E,D,F), dy (E,C,F), all
+// contiguous, of one dtype (0 = float32, 1 = bfloat16).  dx (E,C,D) = dy
+// wᵀ is written when dx is not null, dw (E,D,F) = xᵀ dy when dw is not
+// null.  Returns a cudaError_t (0 = launched).
+extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, int E, int C, int D, int F,
+                           int dtype, void* stream) {
+  if (E < 0 || C < 0 || D < 0 || F < 0 || E > 65535)
+    return cudaErrorInvalidValue;
+  if (E == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t cd = static_cast<size_t>(C) * D, cf = static_cast<size_t>(C) * F;
+  const size_t df = static_cast<size_t>(D) * F;
+  if (dx != nullptr) {  // (C x F) (F x D): A = dy [c][f], B = w [d][f]
+    const int err = launch_bwd<false, true>(dy, w, dx, E, C, D, F, F, F, cf,
+                                            df, dtype, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (dw != nullptr)  // (D x C) (C x F): A = x [c][d], B = dy [c][f]
+    return launch_bwd<true, false>(x, dy, dw, E, D, F, C, D, F, cd, cf,
+                                   dtype, st);
+  return cudaSuccess;
+}

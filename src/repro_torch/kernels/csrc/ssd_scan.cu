@@ -931,3 +931,522 @@ extern "C" int ssd_scan_chunked_fwd(const void* x, const void* dt,
   return chunked::launch(x, dt, A, Bm, Cm, h0, y, hf, states, hin, decay, B,
                          S, H, G, static_cast<cudaStream_t>(stream));
 }
+
+// ---- the backward (ssd_scan_bwd): float32 and bf16, any P, N <= 128 ------
+//
+// Replaces the gradient JAX forms for src/repro/kernels/ssd_scan.py::ssd by
+// differentiating its plain path (ref.py::ssd_ref; the JAX package defines
+// no custom_vjp).  Contract: plain.ssd_bwd_ref — cotangents dy (B,S,H,P)
+// and dhf (B,H,P,N) float32 (null: zeros) in; dx in x's type, ddt
+// (B,S,H) and dA (H,) float32, dB / dC (B,S,G,N) in B's type, dh0 float32
+// (when there is an initial state) out.  With a_t = e^{dt_t A}:
+//   dh_t = a_{t+1} dh_{t+1} + dy_t C_tᵀ        dh_S = dhf + dy_S C_Sᵀ
+//   dC_t = h_tᵀ dy_t   dx_t = dt_t dh_t B_t   dB_t = dt_t dh_tᵀ x_t
+//   ddt_t = A a_t <dh_t, h_{t-1}> + <dh_t, x_t B_tᵀ>
+//   dA = Σ_t dt_t a_t <dh_t, h_{t-1}>          dh0 = a_1 dh_1
+//
+// One block per (P tile of PT rows, head, batch row), as the sequential
+// forward, in two walks over 32-token chunks:
+// 1. Forward: the states are recomputed from the initial state (the
+//    forward's step 5 alone) and the state entering every chunk, the
+//    walk's checkpoints, goes to a scratch in the accumulation type
+//    (B, nc, H, P, N).  No state is ever reversed: h_{t-1} = (h_t - …) /
+//    a_t overflows once dt·|A| is large.  The Function's forward keeps no
+//    state: this walk reads only x, B and dt and costs a fraction of the
+//    second.
+// 2. Backward, chunks last to first, carrying G = the gradient of the
+//    state leaving the chunk (dhf for the last).  Within a chunk, with
+//    cum_i = Σ_{j<=i} dt_j A, E_i = e^{cum_i}, D_i = e^{cum_Q - cum_i},
+//    L_ki = e^{cum_k - cum_i} (k >= i), M_ki = (C_k·B_i) L_ki, Z_ki = dy_k·
+//    x_i over the tile's rows, T_ki = Z_ki L_ki and h_in the checkpoint:
+//      u_i   = dh_i B_i = Σ_{k>=i} M_ki dy_k + D_i G B_i,  dx_i = dt_i u_i
+//      dB_i  = dt_i (D_i Gᵀ x_i + Σ_{k>=i} T_ki C_k)
+//      dC_i  = Σ_{j<=i} T_ij dt_j B_j + E_i h_inᵀ dy_i
+//      a_t <dh_t, h_{t-1}> = e^{cum_Q} <G, h_in> + Σ_{j<t} D_j dt_j x_j·
+//              (G B_j) + Σ_{k>=t} E_k dy_k·(h_in C_k) + Σ_{k>=t>j} M_kj
+//              dt_j Z_kj
+//      G     <- e^{cum_Q} G + Σ_k E_k dy_k C_kᵀ
+//    Every exponent is <= 0 and no two large terms cancel: the decay
+//    term is formed from products that carry their own e^{…}, so at dt·
+//    |A| = 25 a token it is as accurate, relative to its own (tiny) size,
+//    as at small decays.  (Forming it from the identity a_t <dh_t,
+//    h_{t-1}> = <dh_t, h_t> - dt_t <dh_t, x_t B_tᵀ> instead subtracts two
+//    terms of the size of dy·y: in float32 at dt·|A| = 25 that leaves dA
+//    wrong by far more than its own size.)
+// dx and dh0 are whole in one block.  dB, dC, ddt and dA are sums over the
+// P tiles (and dB / dC over the H / G heads of a group, dA over the batch
+// rows): each block writes its partial sums to a workspace in the
+// accumulation type, and ssd_bwd_reduce adds them in a fixed order — no
+// atomics, so two runs are bit-identical.  Types: bf16 inputs accumulate
+// in float32, float32 inputs in float64, as the sequential forward.
+// What bounds it: the contract moves x, dy and dx (P a token and head), B,
+// C, dB and dC (N a token and group), dt and ddt: 83 MB at mamba2-370m's
+// training shape (B 2, S 3072, H 32, P 64, G 1, N 128), 0.025 ms at 3.35
+// TB/s, above its least operations (12 P N a token and head: 0.020 ms at
+// 989 TFLOP/s); this design adds the
+// checkpoints (written and read once, 0.2 GB there) and the workspaces
+// (4 P tiles x dB and dC partials: 0.8 GB), and walks 2 x 96 dependent
+// chunk steps on the CUDA cores.  A simple kernel first: the chunked,
+// tensor-core form is later work.  PERF.md section 6 has its times.
+
+namespace {
+namespace bwd {
+
+constexpr int N_MAX = 128;  // d_state the backward takes
+
+constexpr size_t smem_elems(int N) {
+  return static_cast<size_t>(2 * Q + 2 * PT) * (N + 4) + 5 * Q * PT
+         + 3 * Q * (Q + 1) + 8 * Q + 1 + NT;
+}
+
+// The workspace, in Acc elements: checkpoints (B, nc, H, P, N), then the
+// partial sums of dB and dC (tiles, B, S, H, N) each, of ddt (tiles, B, S,
+// H) and of dA (tiles, B, H).
+struct Ws {
+  size_t hin, db, dc, dd, da, total;
+  __host__ __device__ Ws(int B, int S, int H, int P, int N) {
+    const size_t nc = (S + Q - 1) / Q, nt = (P + PT - 1) / PT;
+    hin = 0;
+    db = hin + static_cast<size_t>(B) * nc * H * P * N;
+    dc = db + nt * B * S * static_cast<size_t>(H) * N;
+    dd = dc + nt * B * S * static_cast<size_t>(H) * N;
+    da = dd + nt * B * S * static_cast<size_t>(H);
+    total = da + nt * B * static_cast<size_t>(H);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+ssd_bwd(const T* __restrict__ x, const float* __restrict__ dt,
+        const float* __restrict__ A, const T* __restrict__ Bm,
+        const T* __restrict__ Cm, const float* __restrict__ h0,
+        const T* __restrict__ dy, const float* __restrict__ dhf,
+        T* __restrict__ dx, float* __restrict__ dh0,
+        typename AccOf<T>::type* __restrict__ ws, int S, int H, int P,
+        int G, int N) {
+  using Acc = typename AccOf<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Acc* smem = reinterpret_cast<Acc*>(smem_raw);
+  const int NS = N + 4;
+  Acc* sB = smem;               // [Q][NS]
+  Acc* sC = sB + Q * NS;        // [Q][NS]
+  Acc* sH = sC + Q * NS;        // [PT][NS] state (walk 1), h_in (walk 2)
+  Acc* sG = sH + PT * NS;       // [PT][NS] the carried gradient G
+  Acc* sX = sG + PT * NS;       // [Q][PT]
+  Acc* sDY = sX + Q * PT;       // [Q][PT]
+  Acc* sU = sDY + Q * PT;       // [Q][PT] u_i
+  Acc* sWv = sU + Q * PT;       // [Q][PT] G B_i
+  Acc* sHC = sWv + Q * PT;      // [Q][PT] h_in C_i
+  Acc* sM = sHC + Q * PT;       // [Q][Q + 1] M_ij, j <= i
+  Acc* sZ = sM + Q * (Q + 1);   // [Q][Q + 1] Z_ij = dy_i·x_j, j <= i
+  Acc* sT = sZ + Q * (Q + 1);   // [Q][Q + 1] Z_ij L_ij
+  Acc* sDt = sT + Q * (Q + 1);  // [Q]
+  Acc* sE = sDt + Q;            // [Q] e^{cum_i}
+  Acc* sD = sE + Q;             // [Q] e^{cum_Q - cum_i}
+  Acc* sQv = sD + Q;            // [Q] q_i = x_i·u_i
+  Acc* sSig = sQv + Q;          // [Q] D_i dt_i x_i·(G B_i)
+  Acc* sTau = sSig + Q;         // [Q] E_i dy_i·(h_in C_i)
+  Acc* sDl = sTau + Q;          // [Q] a_t <dh_t, h_{t-1}> (the tile's part)
+  Acc* sCum = sDl + Q;          // [Q + 1] cum_i, then [Q] = e^{cum_Q}
+  Acc* sRed = sCum + Q + 1;     // [NT]
+
+  const int pt = blockIdx.x, p0 = pt * PT, h = blockIdx.y, b = blockIdx.z;
+  const int Bsz = gridDim.z;
+  const int g = h / (H / G);
+  const int t = threadIdx.x;
+  const Acc a_h = A[h];
+  const int nc = (S + Q - 1) / Q;
+  const size_t head_state = (static_cast<size_t>(b) * H + h) * P;
+  const Ws layout(Bsz, S, H, P, N);
+  Acc* hin = ws + layout.hin;
+  // partial sums of this tile: [b][s][h] (x N for dB and dC)
+  const size_t part = static_cast<size_t>(pt) * Bsz * S * H;
+  Acc* wsB = ws + layout.db + part * N;
+  Acc* wsC = ws + layout.dc + part * N;
+  Acc* wsD = ws + layout.dd + part;
+  auto ckpt = [&](int c, int p) {  // row p of chunk c's checkpoint
+    return hin + ((static_cast<size_t>(b) * nc + c) * H + h) * P * N
+           + static_cast<size_t>(p0 + p) * N;
+  };
+  auto tok = [&](int s) {  // (b, s, h)
+    return (static_cast<size_t>(b) * S + s) * H + h;
+  };
+
+  // chunk s0's B (and C), x (and dy) tiles and dt, widened; zeros past S
+  auto load = [&](int s0, bool grads) {
+    for (int e = t; e < Q * N; e += NT) {
+      const int r = e / N, n = e % N, s = s0 + r;
+      Acc bv = 0, cv = 0;
+      if (s < S) {
+        const size_t off = ((static_cast<size_t>(b) * S + s) * G + g) * N + n;
+        bv = widen(Bm[off]);
+        if (grads) cv = widen(Cm[off]);
+      }
+      sB[r * NS + n] = bv;
+      if (grads) sC[r * NS + n] = cv;
+    }
+    for (int e = t; e < Q * PT; e += NT) {
+      const int r = e / PT, p = e % PT, s = s0 + r;
+      const bool ok = s < S && p0 + p < P;
+      const size_t off = tok(s) * P + p0 + p;
+      sX[e] = ok ? widen(x[off]) : Acc(0);
+      if (grads) sDY[e] = ok ? widen(dy[off]) : Acc(0);
+    }
+    if (t < Q) {
+      const int s = s0 + t;
+      sDt[t] = s < S ? static_cast<Acc>(dt[tok(s)]) : Acc(0);
+    }
+  };
+  // cum over the chunk (one thread, token order, as the forward), then
+  // warp 0: sE, sD and sCum[Q] = e^{cum_Q}
+  auto decays = [&] {
+    if (t < 32) {
+      if (t == 0) {
+        Acc c = 0;
+        for (int i = 0; i < Q; ++i) {
+          c = mul_add_rn(c, sDt[i], a_h);
+          sCum[i] = c;
+        }
+      }
+      __syncwarp();
+      const Acc c = sCum[t], last = sCum[Q - 1];
+      sE[t] = exp_(c);
+      sD[t] = exp_(last - c);
+      __syncwarp();
+      if (t == 0) sCum[Q] = exp_(last);
+    }
+  };
+
+  // ---- walk 1: the checkpoints ----
+  for (int e = t; e < PT * N; e += NT) {
+    const int p = e / N, n = e % N;
+    sH[p * NS + n] = (h0 != nullptr && p0 + p < P)
+                         ? static_cast<Acc>(h0[(head_state + p0 + p) * N + n])
+                         : Acc(0);
+  }
+  __syncthreads();
+  for (int c = 0; c < nc; ++c) {
+    for (int e = t; e < PT * N; e += NT) {
+      const int p = e / N, n = e % N;
+      if (p0 + p < P) ckpt(c, p)[n] = sH[p * NS + n];
+    }
+    load(c * Q, false);
+    __syncthreads();
+    decays();
+    __syncthreads();
+    // state = state e^{cum_Q} + Σ_j x_j (D_j dt_j B_j)ᵀ (the forward's step 5)
+    {
+      const Acc dlast = sCum[Q];
+      for (int e = t; e < N * (PT / 8); e += NT) {
+        const int n = e % N, r0 = 8 * (e / N);
+        Acc acc[8] = {};
+        for (int j = 0; j < Q; ++j) {
+          const Acc bj = sB[j * NS + n] * (sD[j] * sDt[j]);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] += sX[j * PT + r0 + k] * bj;
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          Acc* st = &sH[(r0 + k) * NS + n];
+          *st = *st * dlast + acc[k];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- walk 2: the gradients, chunks last to first ----
+  for (int e = t; e < PT * N; e += NT) {
+    const int p = e / N, n = e % N;
+    sG[p * NS + n] = (dhf != nullptr && p0 + p < P)
+                         ? static_cast<Acc>(dhf[(head_state + p0 + p) * N + n])
+                         : Acc(0);
+  }
+  Acc dA_acc = 0;  // thread 0: Σ_t dt_t a_t <dh_t, h_{t-1}>, token order
+                   // within a chunk, chunks last to first
+  for (int c = nc - 1; c >= 0; --c) {
+    const int s0 = c * Q;
+    load(s0, true);
+    for (int e = t; e < PT * N; e += NT) {
+      const int p = e / N, n = e % N;
+      sH[p * NS + n] = p0 + p < P ? ckpt(c, p)[n] : Acc(0);
+    }
+    __syncthreads();
+    decays();
+    __syncthreads();
+
+    // M, Z and T at (i0, j0), (i1, j0), (i1, j1); (i0, j1) lies above the
+    // diagonal
+    {
+      const int i0 = t / 16, j0 = t % 16, i1 = i0 + 16, j1 = j0 + 16;
+      Acc m00 = 0, m10 = 0, m11 = 0;
+      for (int n = 0; n < N; n += 4) {
+        const Four<Acc> c0 = ld4(&sC[i0 * NS + n]);
+        const Four<Acc> c1 = ld4(&sC[i1 * NS + n]);
+        const Four<Acc> b0 = ld4(&sB[j0 * NS + n]);
+        const Four<Acc> b1 = ld4(&sB[j1 * NS + n]);
+        m00 += dot4(c0, b0);
+        m10 += dot4(c1, b0);
+        m11 += dot4(c1, b1);
+      }
+      Acc z00 = 0, z10 = 0, z11 = 0;
+      for (int p = 0; p < PT; ++p) {
+        const Acc y0 = sDY[i0 * PT + p], y1 = sDY[i1 * PT + p];
+        const Acc x0 = sX[j0 * PT + p], x1 = sX[j1 * PT + p];
+        z00 += y0 * x0;
+        z10 += y1 * x0;
+        z11 += y1 * x1;
+      }
+      const Acc l00 = j0 <= i0 ? exp_(sCum[i0] - sCum[j0]) : Acc(0);
+      const Acc l10 = exp_(sCum[i1] - sCum[j0]);
+      const Acc l11 = j1 <= i1 ? exp_(sCum[i1] - sCum[j1]) : Acc(0);
+      const int r0 = i0 * (Q + 1), r1 = i1 * (Q + 1);
+      sM[r0 + j0] = m00 * l00;
+      sM[r0 + j1] = 0;
+      sM[r1 + j0] = m10 * l10;
+      sM[r1 + j1] = m11 * l11;
+      sZ[r0 + j0] = j0 <= i0 ? z00 : Acc(0);
+      sZ[r0 + j1] = 0;
+      sZ[r1 + j0] = z10;
+      sZ[r1 + j1] = j1 <= i1 ? z11 : Acc(0);
+      sT[r0 + j0] = z00 * l00;
+      sT[r0 + j1] = 0;
+      sT[r1 + j0] = z10 * l10;
+      sT[r1 + j1] = z11 * l11;
+    }
+    // G B_i and h_in C_i, rows i0 and i0 + 16 of column p
+    {
+      const int p = t % PT, i0 = t / PT, i1 = i0 + 16;
+      Acc w0 = 0, w1 = 0, k0 = 0, k1 = 0;
+      for (int n = 0; n < N; n += 4) {
+        const Four<Acc> gv = ld4(&sG[p * NS + n]);
+        const Four<Acc> hv = ld4(&sH[p * NS + n]);
+        w0 += dot4(gv, ld4(&sB[i0 * NS + n]));
+        w1 += dot4(gv, ld4(&sB[i1 * NS + n]));
+        k0 += dot4(hv, ld4(&sC[i0 * NS + n]));
+        k1 += dot4(hv, ld4(&sC[i1 * NS + n]));
+      }
+      sWv[i0 * PT + p] = w0;
+      sWv[i1 * PT + p] = w1;
+      sHC[i0 * PT + p] = k0;
+      sHC[i1 * PT + p] = k1;
+    }
+    // <G, h_in> over the tile: each thread's part, then a tree in a fixed
+    // order
+    {
+      Acc s = 0;
+      for (int e = t; e < PT * N; e += NT) {
+        const int p = e / N, n = e % N;
+        s += sG[p * NS + n] * sH[p * NS + n];
+      }
+      sRed[t] = s;
+    }
+    __syncthreads();
+    for (int half = NT / 2; half > 0; half >>= 1) {
+      if (t < half) sRed[t] += sRed[t + half];
+      __syncthreads();
+    }
+
+    // u_i = Σ_{k>=i} M_ki dy_k + D_i G B_i; dx_i = dt_i u_i
+    {
+      const int p = t % PT, i0 = t / PT, i1 = i0 + 16;
+      Acc u0 = sD[i0] * sWv[i0 * PT + p], u1 = sD[i1] * sWv[i1 * PT + p];
+      for (int k = i0; k < Q; ++k) u0 += sM[k * (Q + 1) + i0] * sDY[k * PT + p];
+      for (int k = i1; k < Q; ++k) u1 += sM[k * (Q + 1) + i1] * sDY[k * PT + p];
+      sU[i0 * PT + p] = u0;
+      sU[i1 * PT + p] = u1;
+      if (p0 + p < P) {
+        if (s0 + i0 < S) store(&dx[tok(s0 + i0) * P + p0 + p], sDt[i0] * u0);
+        if (s0 + i1 < S) store(&dx[tok(s0 + i1) * P + p0 + p], sDt[i1] * u1);
+      }
+    }
+    __syncthreads();
+
+    // the token's scalars: q_i, σ_i, τ_i
+    if (t < Q) {
+      Acc q = 0, sg = 0, ta = 0;
+      for (int p = 0; p < PT; ++p) {
+        const Acc xv = sX[t * PT + p];
+        q += xv * sU[t * PT + p];
+        sg += xv * sWv[t * PT + p];
+        ta += sDY[t * PT + p] * sHC[t * PT + p];
+      }
+      sQv[t] = q;
+      sSig[t] = sD[t] * sDt[t] * sg;
+      sTau[t] = sE[t] * ta;
+    }
+    __syncthreads();
+
+    // a_t <dh_t, h_{t-1}> and the tile's part of ddt_t
+    if (t < Q) {
+      Acc dl = sCum[Q] * sRed[0];
+      for (int j = 0; j < t; ++j) dl += sSig[j];
+      for (int k = t; k < Q; ++k) dl += sTau[k];
+      for (int k = t; k < Q; ++k) {
+        const Acc* mk = &sM[k * (Q + 1)];
+        const Acc* zk = &sZ[k * (Q + 1)];
+        for (int j = 0; j < t; ++j) dl += mk[j] * sDt[j] * zk[j];
+      }
+      sDl[t] = dl;
+      if (s0 + t < S) wsD[tok(s0 + t)] = a_h * dl + sQv[t];
+    }
+    // dB_i and dC_i, the tile's parts
+    for (int e = t; e < Q * N; e += NT) {
+      const int i = e / N, n = e % N;
+      if (s0 + i >= S) continue;
+      Acc gx = 0, hy = 0;
+      for (int p = 0; p < PT; ++p) {
+        gx += sG[p * NS + n] * sX[i * PT + p];
+        hy += sH[p * NS + n] * sDY[i * PT + p];
+      }
+      Acc tb = 0, tc = 0;
+      for (int k = i; k < Q; ++k) tb += sT[k * (Q + 1) + i] * sC[k * NS + n];
+      for (int j = 0; j <= i; ++j)
+        tc += sT[i * (Q + 1) + j] * (sDt[j] * sB[j * NS + n]);
+      const size_t off = tok(s0 + i) * N + n;
+      wsB[off] = sDt[i] * (sD[i] * gx + tb);
+      wsC[off] = tc + sE[i] * hy;
+    }
+    __syncthreads();
+    if (t == 0)
+      for (int i = 0; i < Q; ++i) dA_acc += sDt[i] * sDl[i];
+
+    // G <- G e^{cum_Q} + Σ_k dy_k (E_k C_k)ᵀ
+    {
+      const Acc dlast = sCum[Q];
+      for (int e = t; e < N * (PT / 8); e += NT) {
+        const int n = e % N, r0 = 8 * (e / N);
+        Acc acc[8] = {};
+        for (int k = 0; k < Q; ++k) {
+          const Acc ck = sC[k * NS + n] * sE[k];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) acc[r] += sDY[k * PT + r0 + r] * ck;
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          Acc* st = &sG[(r0 + r) * NS + n];
+          *st = *st * dlast + acc[r];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (dh0 != nullptr)
+    for (int e = t; e < PT * N; e += NT) {
+      const int p = e / N, n = e % N;
+      if (p0 + p < P)
+        dh0[(head_state + p0 + p) * N + n] = static_cast<float>(sG[p * NS + n]);
+    }
+  if (t == 0)
+    ws[layout.da + (static_cast<size_t>(pt) * Bsz + b) * H + h] = dA_acc;
+}
+
+// The tiles' partial sums, added in a fixed order: dB / dC over the
+// group's heads (outer) and the tiles (inner), ddt over the tiles, dA over
+// the batch rows (outer) and the tiles (inner).
+template <typename T>
+__global__ void __launch_bounds__(NT)
+ssd_bwd_reduce(const typename AccOf<T>::type* __restrict__ ws,
+               T* __restrict__ dB, T* __restrict__ dC,
+               float* __restrict__ ddt, float* __restrict__ dA, int Bsz,
+               int S, int H, int P, int G, int N) {
+  using Acc = typename AccOf<T>::type;
+  const Ws layout(Bsz, S, H, P, N);
+  const int nt = (P + PT - 1) / PT, rep = H / G;
+  const size_t bs = static_cast<size_t>(Bsz) * S;
+  const size_t n1 = bs * G * N, n2 = n1 + bs * H, n3 = n2 + H;
+  for (size_t i = blockIdx.x * static_cast<size_t>(NT) + threadIdx.x; i < n3;
+       i += static_cast<size_t>(gridDim.x) * NT) {
+    if (i < n1) {
+      const size_t n = i % N, r = i / N, gg = r % G, row = r / G;
+      Acc sb = 0, sc = 0;
+      for (int hh = gg * rep; hh < (gg + 1) * rep; ++hh)
+        for (int p = 0; p < nt; ++p) {
+          const size_t off = ((p * bs + row) * H + hh) * N + n;
+          sb += ws[layout.db + off];
+          sc += ws[layout.dc + off];
+        }
+      store(&dB[i], sb);
+      store(&dC[i], sc);
+    } else if (i < n2) {
+      const size_t j = i - n1;
+      Acc s = 0;
+      for (int p = 0; p < nt; ++p) s += ws[layout.dd + p * bs * H + j];
+      ddt[j] = static_cast<float>(s);
+    } else {
+      const size_t hh = i - n2;
+      Acc s = 0;
+      for (int bb = 0; bb < Bsz; ++bb)
+        for (int p = 0; p < nt; ++p)
+          s += ws[layout.da + (static_cast<size_t>(p) * Bsz + bb) * H + hh];
+      dA[hh] = static_cast<float>(s);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* Cm, const void* h0, const void* dy, const void* dhf,
+           void* dx, void* ddt, void* dA, void* dB, void* dC, void* dh0,
+           void* ws, int B, int S, int H, int P, int G, int N,
+           cudaStream_t stream) {
+  using Acc = typename AccOf<T>::type;
+  const size_t smem = smem_elems(N) * sizeof(Acc);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P + PT - 1) / PT, H, B);
+  ssd_bwd<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const float*>(h0),
+      static_cast<const T*>(dy), static_cast<const float*>(dhf),
+      static_cast<T*>(dx), static_cast<float*>(dh0), static_cast<Acc*>(ws),
+      S, H, P, G, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t items = static_cast<size_t>(B) * S * (G * N + H) + H;
+  const size_t blocks = (items + NT - 1) / NT;
+  ssd_bwd_reduce<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                      NT, 0, stream>>>(
+      static_cast<const Acc*>(ws), static_cast<T*>(dB), static_cast<T*>(dC),
+      static_cast<float*>(ddt), static_cast<float*>(dA), B, S, H, P, G, N);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+}  // namespace
+
+// Bytes of the workspace ssd_scan_bwd takes (dtype 0 float32, 1 bfloat16).
+extern "C" long long ssd_scan_bwd_workspace(int B, int S, int H, int P,
+                                            int N, int dtype) {
+  const bwd::Ws layout(B, S, H, P, N);
+  return static_cast<long long>(layout.total)
+         * (dtype == 0 ? sizeof(double) : sizeof(float));
+}
+
+// The gradient of ssd_scan_fwd / ssd_scan_chunked_fwd.  x, Bm, Cm, dy and
+// the outputs dx, dB, dC in one dtype (0 float32, 1 bfloat16); dt, A, h0,
+// dhf and ddt, dA, dh0 float32; all contiguous.  h0 and dhf may be null
+// (zeros); dh0 is written when not null.  ws: ssd_scan_bwd_workspace
+// bytes.  N a multiple of 4 up to 128.  Two kernels on `stream`; returns
+// the first launch error, 0 if none.
+extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A,
+                            const void* Bm, const void* Cm, const void* h0,
+                            const void* dy, const void* dhf, void* dx,
+                            void* ddt, void* dA, void* dB, void* dC,
+                            void* dh0, void* ws, int B, int S, int H, int P,
+                            int G, int N, int dtype, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || P < 1 || G < 1 || N < 4 || N > bwd::N_MAX
+      || N % 4 || H % G || H > 65535 || B > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return bwd::launch<float>(x, dt, A, Bm, Cm, h0, dy, dhf, dx, ddt, dA, dB,
+                              dC, dh0, ws, B, S, H, P, G, N, st);
+  if (dtype == 1)
+    return bwd::launch<bf16>(x, dt, A, Bm, Cm, h0, dy, dhf, dx, ddt, dA, dB,
+                             dC, dh0, ws, B, S, H, P, G, N, st);
+  return cudaErrorInvalidValue;
+}

@@ -13,6 +13,14 @@ decode and the prompt prefill; F fills the MMA rows), ``"mma_sync"``
 ``launches`` counts wrapper calls that launched a kernel;
 ``wgmma_launches`` and ``rows_launches`` those that went to the two
 variants.
+
+The backward (``csrc/moe_gmm.cu``'s ``moe_gmm_bwd``: dX = dY Wᵀ reading W
+in place, dW = Xᵀ dY, each a hand-written kernel) is held to
+``plain.gmm_bwd_ref``.  A CUDA call that autograd records (gradients
+enabled, x or w requiring grad) goes through :class:`Gmm`, whose backward
+launches it for the inputs that need a gradient; any other CUDA call is
+the forward launch alone.  ``bwd_launches`` counts backward calls that
+launched, ``bwd_dx_launches`` and ``bwd_dw_launches`` the two products.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ from repro_torch.kernels import build, plain
 launches = 0
 wgmma_launches = 0
 rows_launches = 0
+bwd_launches = 0
+bwd_dx_launches = 0
+bwd_dw_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"float32": 0, "mma_sync": 0, "wgmma": 1, "rows": 2}
@@ -95,22 +106,33 @@ def gmm(x, w, *, variant=None):
     of :func:`variant_for`'s choice, so that every bf16 kernel can be held
     to the plain version at one shape; a variant that does not take the
     call raises ``NotImplementedError`` (a CPU call too, which then goes to
-    the plain version).  The kernel has no backward yet: a CUDA call made
-    with gradients enabled where x or w requires grad raises
-    ``NotImplementedError`` (a CPU call is differentiated by the plain
-    version's autograd)."""
+    the plain version).  A CUDA call whose x or w needs a gradient is
+    recorded for autograd (:class:`Gmm`); a CPU call is differentiated by
+    the plain version's autograd."""
     if variant is not None:
         _forced(variant, x, w)
     if not x.is_cuda:
         return plain.gmm_ref(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        # the output would carry no grad_fn: expert weights would get no
-        # gradient and nothing would say so
-        raise NotImplementedError(
-            "gmm has no backward kernel yet: a CUDA call whose x or w "
-            "requires grad would leave them without a gradient; call it "
-            "under torch.no_grad() or with inputs that need none")
+        return Gmm.apply(x, w, variant)
     return _launch(x, w, variant)
+
+
+class Gmm(torch.autograd.Function):
+    """The CUDA forward kernel with the backward kernels as its gradient:
+    dX only where x needs a gradient, dW only where w does."""
+
+    @staticmethod
+    def forward(ctx, x, w, variant):
+        ctx.save_for_backward(x, w)
+        return _launch(x, w, variant)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _bwd_launch(x, w, dy.contiguous(), ctx.needs_input_grad[0],
+                             ctx.needs_input_grad[1])
+        return dx, dw, None
 
 
 def _launch(x, w, variant):
@@ -151,3 +173,60 @@ def _launch(x, w, variant):
     rows_launches += chosen == "rows"
     return out
 
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = build.load("moe_gmm").moe_gmm_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gmm_bwd(x, w, dy, *, need_dx=True, need_dw=True):
+    """The gradient of :func:`gmm`: (dx = dy wᵀ or None, dw = xᵀ dy or
+    None).  A CPU tensor goes to ``plain.gmm_bwd_ref``; a CUDA call
+    launches the backward kernels for the products asked for."""
+    if not x.is_cuda:
+        return plain.gmm_bwd_ref(x, w, dy, need_dx, need_dw)
+    return _bwd_launch(x, w, dy.contiguous(), need_dx, need_dw)
+
+
+def _bwd_launch(x, w, dy, need_dx, need_dw):
+    """Check a CUDA backward call and launch the products asked for;
+    returns (dx or None, dw or None)."""
+    global bwd_launches, bwd_dx_launches, bwd_dw_launches
+    if not (need_dx or need_dw):
+        return None, None
+    if w.device != x.device or dy.device != x.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}, dy on "
+                         f"{dy.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype or dy.dtype != x.dtype:
+        raise TypeError(f"x/w/dy must share one of {list(_DTYPES)}, got "
+                        f"{x.dtype}/{w.dtype}/{dy.dtype}")
+    E, C, D = x.shape
+    F = w.shape[2]
+    if w.shape != (E, D, F) or dy.shape != (E, C, F):
+        raise ValueError(f"shapes x {tuple(x.shape)} w {tuple(w.shape)} dy "
+                         f"{tuple(dy.shape)}: want (E,C,D), (E,D,F), (E,C,F)")
+    for name, t in (("x", x), ("w", w), ("dy", dy)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if E > _MAX_GRID or -(-max(C, D) // 64) > _MAX_GRID:
+        raise ValueError(f"E={E}, C={C}, D={D}: the grid takes E <= "
+                         f"{_MAX_GRID} and C, D <= 64 * {_MAX_GRID}")
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _bwd_kernel()(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                            dx.data_ptr() if need_dx else None,
+                            dw.data_ptr() if need_dw else None, E, C, D, F,
+                            _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm backward kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    bwd_dx_launches += bool(need_dx)
+    bwd_dw_launches += bool(need_dw)
+    return dx, dw

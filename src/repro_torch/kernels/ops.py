@@ -21,16 +21,13 @@ kernel-vs-plain comparisons on the card use it).
 
 Gradients: a CPU call (or a forced plain one) is differentiated by the
 plain versions' own autograd; a CUDA call to ``attention`` (and the calls
-built on it) or ``memcom_xattn`` whose inputs need a gradient goes
-through the wrapper's ``autograd.Function``, whose backward is a
-hand-written kernel (``flash_attention_bwd``, ``memcom_xattn_bwd``) with
-no fallback.  With no gradient needed the CUDA call is the kernel call
-alone, as serving makes it.  The paged, MoE and SSD kernels have no
-backward yet: a CUDA call to ``gmm`` or ``ssd`` made with gradients
-enabled where an input requires grad raises ``NotImplementedError``
-rather than return an output without a ``grad_fn`` (serving and
-compression run them under ``torch.no_grad``); a CPU call still goes to
-the plain version and its autograd.
+built on it), ``memcom_xattn``, ``gmm`` or ``ssd`` whose inputs need a
+gradient goes through the wrapper's ``autograd.Function``
+(``FlashAttention``, ``MemcomXattn``, ``Gmm``, ``Ssd``), whose backward
+is a hand-written kernel (``flash_attention_bwd``, ``memcom_xattn_bwd``,
+``moe_gmm_bwd``, ``ssd_scan_bwd``) with no fallback.  With no gradient
+needed the CUDA call is the kernel call alone, as serving makes it.  The
+paged decode kernel only serves and has no backward.
 """
 
 from __future__ import annotations

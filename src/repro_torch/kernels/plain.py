@@ -9,12 +9,13 @@ internally, casting the result to the input's type at the end — the same
 arithmetic the kernels do, so a bf16 comparison measures the kernel and
 not a different rounding schedule.
 
-``ssd_chunk_parallel``, ``paged_decode_split_ref``,
+``ssd_chunk_parallel``, ``ssd_bwd_chunked``, ``paged_decode_split_ref``,
 ``memcom_xattn_tiled`` and ``attention_bwd_tiled`` are no kernel's CPU
 path: they restate the chunked Hopper ``ssd`` kernel's three phases, order
-and rounding points, the paged decode kernel's split of each slot's
-positions, the wgmma ``memcom_xattn`` variant's per-tile softmax and the
-wgmma flash backward's tiles and rounding points, for the tests.
+and rounding points, the ``ssd`` backward kernel's two walks and chunk
+products, the paged decode kernel's split of each slot's positions, the
+wgmma ``memcom_xattn`` variant's per-tile softmax and the wgmma flash
+backward's tiles and rounding points, for the tests.
 
 The paged-KV index ops (``paged_scatter``/``paged_gather``, after
 ``jnp_impl.py:254-292``) and the Mamba2 one-token update
@@ -357,6 +358,18 @@ def gmm_ref(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
+def gmm_bwd_ref(x, w, dy, need_dx=True, need_dw=True):
+    """The gradient of :func:`gmm_ref` by explicit formulas, not autograd:
+    the yardstick of the backward kernels.  x (E, C, D), w (E, D, F), dy
+    (E, C, F) -> (dx = dy wᵀ (E, C, D) in x's type or None, dw = xᵀ dy
+    (E, D, F) in w's type or None), each summed in float32."""
+    dx = (torch.einsum("ecf,edf->ecd", dy.float(), w.float()).to(x.dtype)
+          if need_dx else None)
+    dw = (torch.einsum("ecd,ecf->edf", x.float(), dy.float()).to(w.dtype)
+          if need_dw else None)
+    return dx, dw
+
+
 def paged_scatter(pools, news, block_tables, starts, valid=None):
     """Write ``news[i][b, s]`` into ``pools[i]`` at logical position
     ``starts[b] + s`` of slot ``b``, in place; returns ``pools``.  The
@@ -534,6 +547,157 @@ def ssd_ref(x, dt, A, Bm, Cm, *, init_state=None, chunk=256):
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y.to(x.dtype), h.float()
+
+
+def ssd_bwd_ref(x, dt, A, Bm, Cm, init_state, dy, dhf):
+    """The gradient of :func:`ssd_ref` by the recurrence written out, not
+    autograd: the yardstick of the backward kernel.
+
+    Inputs as :func:`ssd_ref`'s, with ``dy`` (B,S,H,P) the cotangent of y
+    and ``dhf`` (B,H,P,N) that of the final state (either may be None:
+    zeros) -> (dx in x's type, ddt float32, dA float32, dB and dC in Bm's
+    type, dh0 float32 or None without an initial state).  With a_t =
+    e^{dt_t A} and h_t = a_t h_{t-1} + dt_t x_t B_tᵀ, walking back from
+    dh_S = dhf + dy_S C_Sᵀ through dh_t = a_{t+1} dh_{t+1} + dy_t C_tᵀ:
+    dC_t = h_tᵀ dy_t, dx_t = dt_t dh_t B_t, dB_t = dt_t dh_tᵀ x_t, ddt_t
+    = A a_t <dh_t, h_{t-1}> + <dh_t, x_t B_tᵀ>, dA = Σ dt_t a_t <dh_t,
+    h_{t-1}>, dh0 = a_1 dh_1; dB and dC summed over each group's heads.
+    The states h_{t-1} are recomputed from the initial state in a first
+    walk and kept (S states of (B,H,P,N)); nothing divides by a_t.  Sums
+    in float32, in float64 for float64 inputs."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, dtf, Af = x.to(ft), dt.to(ft), A.to(ft)
+    Bh = Bm.to(ft).repeat_interleave(rep, dim=2)  # (B,S,H,N)
+    Ch = Cm.to(ft).repeat_interleave(rep, dim=2)
+    dyf = (torch.zeros_like(xf) if dy is None else dy.to(ft))
+    a = torch.exp(dtf * Af)  # (B,S,H)
+    h = (torch.zeros((Bsz, H, P, N), dtype=ft, device=x.device)
+         if init_state is None else init_state.to(ft))
+    states = [h]  # states[t] = h_{t-1} of token t (0-based); then h_S
+    for t in range(S):
+        h = (a[:, t, :, None, None] * h
+             + (dtf[:, t, :, None] * xf[:, t])[..., None]
+             * Bh[:, t, :, None, :])
+        states.append(h)
+    g = (torch.zeros_like(h) if dhf is None else dhf.to(ft))
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(dtf)
+    dBh = torch.empty_like(Bh)
+    dCh = torch.empty_like(Ch)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(S)):
+        dh = g + dyf[:, t, :, :, None] * Ch[:, t, :, None, :]  # (B,H,P,N)
+        dCh[:, t] = torch.einsum("bhpn,bhp->bhn", states[t + 1], dyf[:, t])
+        u = torch.einsum("bhpn,bhn->bhp", dh, Bh[:, t])
+        dx[:, t] = dtf[:, t, :, None] * u
+        dBh[:, t] = dtf[:, t, :, None] * torch.einsum("bhpn,bhp->bhn", dh,
+                                                      xf[:, t])
+        dl = a[:, t] * torch.einsum("bhpn,bhpn->bh", dh, states[t])
+        ddt[:, t] = Af * dl + torch.einsum("bhp,bhp->bh", xf[:, t], u)
+        dA = dA + (dtf[:, t] * dl).sum(dim=0)
+        g = a[:, t, :, None, None] * dh
+    dB = dBh.reshape(Bsz, S, G, rep, N).sum(dim=3)
+    dC = dCh.reshape(Bsz, S, G, rep, N).sum(dim=3)
+    dh0 = None if init_state is None else g.to(init_state.dtype)
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(Cm.dtype), dh0)
+
+
+def ssd_bwd_chunked(x, dt, A, Bm, Cm, init_state, dy, dhf, *, Q=32, PT=16):
+    """:func:`ssd_bwd_ref` as the backward kernel (``csrc/ssd_scan.cu``,
+    ``bwd::ssd_bwd``) computes it, for the tests: per tile of PT state
+    rows, a first walk over Q-token chunks keeps each chunk's entering
+    state (the checkpoints); a second walk, chunks last to first, carries
+    G, the gradient of the state leaving the chunk, and forms every
+    gradient from the chunk's own products (u_i = Σ_{k>=i} M_ki dy_k + D_i
+    G B_i, dB, dC and the decay term a_t <dh_t, h_{t-1}> as four sums,
+    none of which cancels another); the tiles' parts of dB, dC, ddt and
+    dA are added last.  Sums in float64 for float32 inputs, float32
+    otherwise, as the kernel's.  Same contract and results as
+    :func:`ssd_bwd_ref` (its sums in another order)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    f = torch.float64 if x.dtype in (torch.float32, torch.float64) \
+        else torch.float32
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+
+    def padded(t):
+        t = t.to(f)
+        return torch.cat([t, t.new_zeros((Bsz, pad) + t.shape[2:])], 1) \
+            if pad else t
+
+    xf, dtf = padded(x), padded(dt)
+    dyf = padded(torch.zeros_like(x) if dy is None else dy)
+    Bh = padded(Bm.repeat_interleave(rep, dim=2))
+    Ch = padded(Cm.repeat_interleave(rep, dim=2))
+    Af = A.to(f)
+    h0 = (torch.zeros((Bsz, H, P, N), dtype=f, device=x.device)
+          if init_state is None else init_state.to(f))
+    g0 = (torch.zeros_like(h0) if dhf is None else dhf.to(f))
+    upper = ~torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    dx = torch.zeros_like(xf)
+    dB = torch.zeros_like(Bh)
+    dC = torch.zeros_like(Ch)
+    ddt = torch.zeros_like(dtf)
+    dA = torch.zeros_like(Af)
+    dh0 = torch.zeros_like(h0)
+
+    def chunk(c):
+        sl = slice(c * Q, (c + 1) * Q)
+        cum = torch.cumsum(dtf[:, sl] * Af, dim=1)  # (B,Q,H) inclusive
+        L = torch.exp((cum[:, :, None] - cum[:, None, :])
+                      .masked_fill(upper[None, :, :, None], -torch.inf))
+        return sl, cum, cum[:, -1:], L  # L (B,i,j,H), 0 above the diagonal
+
+    for p0 in range(0, P, PT):
+        ps = slice(p0, p0 + PT)
+        h, hin = h0[:, :, ps], []
+        for c in range(nc):  # walk 1: the checkpoints
+            sl, cum, last, _ = chunk(c)
+            hin.append(h)
+            seg = torch.exp(last - cum) * dtf[:, sl]
+            h = h * torch.exp(last[:, 0])[..., None, None] + torch.einsum(
+                "bjh,bjhp,bjhn->bhpn", seg, xf[:, sl, :, ps], Bh[:, sl])
+        Gc = g0[:, :, ps]
+        for c in reversed(range(nc)):  # walk 2: the gradients
+            sl, cum, last, L = chunk(c)
+            X, DY, dtc = xf[:, sl, :, ps], dyf[:, sl, :, ps], dtf[:, sl]
+            Bc, Cc, hi = Bh[:, sl], Ch[:, sl], hin[c]
+            E, D = torch.exp(cum), torch.exp(last - cum)
+            M = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L
+            Z = torch.einsum("bihp,bjhp->bijh", DY, X)  # dy_i . x_j
+            T = Z * L
+            w = torch.einsum("bhpn,bihn->bihp", Gc, Bc)
+            u = torch.einsum("bkih,bkhp->bihp", M, DY) + D[..., None] * w
+            dx[:, sl, :, ps] = dtc[..., None] * u
+            dB[:, sl] += dtc[..., None] * (
+                D[..., None] * torch.einsum("bhpn,bihp->bihn", Gc, X)
+                + torch.einsum("bkih,bkhn->bihn", T, Cc))
+            dC[:, sl] += torch.einsum("bijh,bjhn->bihn",
+                                      T * dtc[:, None], Bc) \
+                + E[..., None] * torch.einsum("bhpn,bihp->bihn", hi, DY)
+            sig = D * dtc * (X * w).sum(-1)  # (B,Q,H)
+            tau = E * (DY * torch.einsum("bhpn,bkhn->bkhp", hi, Cc)).sum(-1)
+            Y = M * dtc[:, None] * Z  # (B,k,j,H), k > j counted below
+            c1 = torch.exp(last[:, 0]) * (Gc * hi).sum((-1, -2))
+            for t in range(Q):
+                dl = (c1 + sig[:, :t].sum(1) + tau[:, t:].sum(1)
+                      + Y[:, t:, :t].sum((1, 2)))
+                ddt[:, c * Q + t] += Af * dl + (X[:, t] * u[:, t]).sum(-1)
+                dA += (dtc[:, t] * dl).sum(0)
+            Gc = Gc * torch.exp(last[:, 0])[..., None, None] + torch.einsum(
+                "bkh,bkhp,bkhn->bhpn", E, DY, Cc)
+        dh0[:, :, ps] = Gc
+    dB = dB[:, :S].reshape(Bsz, S, G, rep, N).sum(3)
+    dC = dC[:, :S].reshape(Bsz, S, G, rep, N).sum(3)
+    return (dx[:, :S].to(x.dtype), ddt[:, :S].to(dt.dtype), dA.to(A.dtype),
+            dB.to(Bm.dtype), dC.to(Cm.dtype),
+            None if init_state is None else dh0.to(init_state.dtype))
 
 
 def _chunk_cumsum(a):

@@ -41,8 +41,18 @@ KERNELS = {
         "replaces": "src/repro/kernels/moe_gmm.py:61",
         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
     },
+    "moe_gmm:gmm_bwd": {
+        "plain": "gmm_bwd_ref",
+        "replaces": "src/repro/kernels/moe_gmm.py:61",
+        "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+    },
     "ssd_scan:ssd": {
         "plain": "ssd_ref",
+        "replaces": "src/repro/kernels/ssd_scan.py:93",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    },
+    "ssd_scan:ssd_bwd": {
+        "plain": "ssd_bwd_ref",
         "replaces": "src/repro/kernels/ssd_scan.py:93",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     },

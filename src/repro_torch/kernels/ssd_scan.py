@@ -13,6 +13,15 @@ order on the CUDA cores; float32, shorter calls and the bf16 calls the
 chunked variant does not take).  ``launches`` counts wrapper calls that
 launched a kernel, ``chunked_launches`` those that went to the chunked
 variant.
+
+The backward (``csrc/ssd_scan.cu``'s ``ssd_scan_bwd``: the states
+recomputed from the initial state in a first walk that keeps each
+32-token chunk's entering state, then the gradients in a second walk,
+chunks last to first, and a fixed-order pass that adds the P tiles'
+partial sums) is held to ``plain.ssd_bwd_ref``.  A CUDA call that
+autograd records goes through :class:`Ssd`; its forward keeps
+:func:`variant_for`'s choice, and any other CUDA call is the forward
+launch alone.  ``bwd_launches`` counts backward calls that launched.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from repro_torch.kernels import build, plain
 
 launches = 0
 chunked_launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_MAX = 256  # the sequential kernel's largest d_state (shared memory)
@@ -37,6 +47,7 @@ CHUNK_Q = 128
 # sequential kernel is ahead at 128 tokens and behind at 256 (device times
 # of both at 12-3084 tokens, PERF.md section 6).
 CHUNKED_MIN_S = 256
+BWD_N_MAX = 128  # the backward kernel's largest d_state (N_MAX in bwd::)
 _MAX_GRID = 65535
 
 
@@ -148,10 +159,9 @@ def ssd(x, dt, A, Bm, Cm, *, init_state=None, chunk=256, variant=None):
     ``"chunked"`` or ``"sequential"`` instead of :func:`variant_for`'s
     choice; a variant that does not take the call raises
     ``NotImplementedError`` (a CPU call too, which then goes to the plain
-    version).  The kernels have no backward yet: a CUDA call made with
-    gradients enabled where an input requires grad raises
-    ``NotImplementedError`` (a CPU call is differentiated by the plain
-    version's autograd)."""
+    version).  A CUDA call where an input needs a gradient is recorded for
+    autograd (:class:`Ssd`); a CPU call is differentiated by the plain
+    version's autograd."""
     if variant is not None:
         _forced(variant, x, Bm, Cm, init_state)
     if not x.is_cuda:
@@ -160,14 +170,30 @@ def ssd(x, dt, A, Bm, Cm, *, init_state=None, chunk=256, variant=None):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, A, Bm, Cm, init_state)):
-        # y and the final state would carry no grad_fn: the inputs would
-        # get no gradient and nothing would say so
-        raise NotImplementedError(
-            "ssd has no backward kernel yet: a CUDA call whose x, dt, A, "
-            "Bm, Cm or init_state requires grad would leave them without a "
-            "gradient; call it under torch.no_grad() or with inputs that "
-            "need none")
+        return Ssd.apply(x, dt, A, Bm, Cm, init_state, variant)
     return _launch(x, dt, A, Bm, Cm, init_state, variant)
+
+
+class Ssd(torch.autograd.Function):
+    """The CUDA forward kernels with the backward kernel as their
+    gradient.  The forward keeps only the inputs: the backward recomputes
+    the states.  An unused y or final state reaches the backward as None
+    and counts as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, variant):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        return _launch(x, dt, A, Bm, Cm, init_state, variant)
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, dt, A, Bm, Cm, init_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = _bwd_launch(x, dt, A, Bm, Cm, init_state, dy,
+                            None if dhf is None else dhf.contiguous(),
+                            ctx.needs_input_grad[5])
+        return (*grads, None)
 
 
 def _launch(x, dt, A, Bm, Cm, init_state, variant):
@@ -208,3 +234,83 @@ def _launch(x, dt, A, Bm, Cm, init_state, variant):
     launches += 1
     chunked_launches += chosen == "chunked"
     return y, hf
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ws = lib.ssd_scan_bwd_workspace
+    ws.argtypes = [ctypes.c_int] * 6
+    ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
+def bwd_workspace_bytes(B, S, H, P, N, dtype) -> int:
+    """Bytes of the backward's workspace (the chunks' entering states and
+    the P tiles' partial sums), as ``csrc/ssd_scan.cu`` lays it out."""
+    return int(_bwd_kernel()[1](B, S, H, P, N, _DTYPES[dtype]))
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, dhf):
+    """The gradient of :func:`ssd`, the contract of
+    :func:`plain.ssd_bwd_ref`: (dx, ddt, dA, dB, dC, dh0 or None).  A CPU
+    tensor goes to the plain version; a CUDA call launches the backward
+    kernel."""
+    if not x.is_cuda:
+        return plain.ssd_bwd_ref(x, dt, A, Bm, Cm, init_state, dy, dhf)
+    return _bwd_launch(x, dt, A, Bm, Cm, init_state, dy.contiguous(),
+                       None if dhf is None else dhf.contiguous(),
+                       init_state is not None)
+
+
+def _bwd_launch(x, dt, A, Bm, Cm, init_state, dy, dhf, need_dh0):
+    """Check a CUDA backward call and launch the kernel; returns (dx, ddt,
+    dA, dB, dC, dh0), dh0 None without an initial state or unless
+    ``need_dh0``."""
+    global bwd_launches
+    _check(x, dt, A, Bm, Cm, init_state)
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype}: want x's shape, "
+                         "type and device, contiguous")
+    if dhf is not None and (dhf.shape != (B, H, P, N)
+                            or dhf.dtype != torch.float32
+                            or dhf.device != x.device
+                            or not dhf.is_contiguous()):
+        raise ValueError(f"dhf {tuple(dhf.shape)} {dhf.dtype}: want float32 "
+                         f"{(B, H, P, N)} on x's device, contiguous")
+    if N > BWD_N_MAX:
+        raise NotImplementedError(f"d_state N={N}: the backward kernel "
+                                  f"takes N up to {BWD_N_MAX}")
+    fn, _ = _bwd_kernel()
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB = torch.empty_like(Bm)
+    dC = torch.empty_like(Cm)
+    dh0 = (torch.empty_like(init_state)
+           if init_state is not None and need_dh0 else None)
+    ws = torch.empty(bwd_workspace_bytes(B, S, H, P, N, x.dtype),
+                     dtype=torch.uint8, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                 Cm.data_ptr(), ptr(init_state), dy.data_ptr(), ptr(dhf),
+                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                 dC.data_ptr(), ptr(dh0), ws.data_ptr(), B, S, H, P, G, N,
+                 _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC, dh0

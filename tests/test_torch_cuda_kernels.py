@@ -1238,3 +1238,137 @@ def test_gradients_through_ops_reach_the_inputs(cuda, rng, dtype):
             _assert_grad_close(g, w, dtype, f"input {i}")
         else:  # the two paths round their bf16 intermediates differently
             assert _err(g, w) <= 2e-2 * float(w.float().abs().max()), i
+
+
+# ---- gmm and ssd backward kernels ------------------------------------------
+
+GMM_BWD_CASES = [
+    (40, 256, 1536, 512), (40, 256, 512, 1536),   # granite training, C 256
+    (5, 8, 96, 64),                               # granite-moe-smoke
+    (3, 37, 40, 24),      # ragged C; D and F multiples of 8, not of tiles
+    (2, 13, 19, 7),       # D and F not multiples of 8: element-wise loads
+    (1, 1, 8, 8), (2, 0, 16, 24),                 # one row, no rows
+]
+
+
+@pytest.mark.parametrize("case", GMM_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_bwd_matches_plain(cuda, rng, case, dtype):
+    """dX and dW, each alone and together, against ``plain.gmm_bwd_ref``;
+    a second call gives the same bits (no atomics)."""
+    E, C, D, F = case
+    x = _rand(rng, E, C, D, dtype=dtype)
+    w = _rand(rng, E, D, F, dtype=dtype, scale=D ** -0.5)
+    dy = _rand(rng, E, C, F, dtype=dtype)
+    want = plain.gmm_bwd_ref(x, w, dy)
+    for need in ((True, False), (False, True), (True, True)):
+        before = (moe_gmm.bwd_launches, moe_gmm.bwd_dx_launches,
+                  moe_gmm.bwd_dw_launches)
+        got = moe_gmm.gmm_bwd(x, w, dy, need_dx=need[0], need_dw=need[1])
+        torch.cuda.synchronize()
+        assert (moe_gmm.bwd_launches, moe_gmm.bwd_dx_launches,
+                moe_gmm.bwd_dw_launches) == (before[0] + 1,
+                                             before[1] + need[0],
+                                             before[2] + need[1])
+        again = moe_gmm.gmm_bwd(x, w, dy, need_dx=need[0], need_dw=need[1])
+        for name, g, a, wn, n in zip(("dx", "dw"), got, again, want, need):
+            if not n:
+                assert g is None
+                continue
+            assert g.dtype == x.dtype and g.shape == wn.shape
+            assert torch.equal(g, a), name
+            if wn.numel():  # no rows: dx is empty, dw all 0
+                _assert_grad_close(g, wn, dtype, name)
+            assert not bool(wn.any()) or bool(g.any()), name
+
+
+def test_gmm_backward_through_autograd_launches_the_products_needed(cuda,
+                                                                    rng):
+    """``ops.gmm`` on inputs that need a gradient goes through ``Gmm``:
+    its backward launches dX alone for x, dW alone for w; under no_grad
+    the forward alone."""
+    x = _rand(rng, 4, 40, 64, dtype="bfloat16")
+    w = _rand(rng, 4, 64, 32, dtype="bfloat16", scale=0.125)
+    dy = _rand(rng, 4, 40, 32, dtype="bfloat16")
+    want = plain.gmm_bwd_ref(x, w, dy)
+    for which in (0, 1):
+        leaves = [x.clone(), w.clone()]
+        leaves[which].requires_grad_(True)
+        before = (moe_gmm.launches, moe_gmm.bwd_dx_launches,
+                  moe_gmm.bwd_dw_launches)
+        out = ops.gmm(*leaves)
+        (g,) = torch.autograd.grad(out, [leaves[which]], dy)
+        torch.cuda.synchronize()
+        assert (moe_gmm.launches, moe_gmm.bwd_dx_launches,
+                moe_gmm.bwd_dw_launches) == (before[0] + 1,
+                                             before[1] + (which == 0),
+                                             before[2] + (which == 1))
+        _assert_grad_close(g, want[which], "bfloat16", "dx dw"[which])
+    before = (moe_gmm.launches, moe_gmm.bwd_launches)
+    with torch.no_grad():
+        out = ops.gmm(x, w.clone().requires_grad_(True))
+    assert out.grad_fn is None
+    assert (moe_gmm.launches, moe_gmm.bwd_launches) == (before[0] + 1,
+                                                        before[1])
+
+
+SSD_BWD_CASES = [
+    # (B, S, H, P, G, N, initial state, dt·|A| past 100 in a chunk, dhf)
+    (2, 3072, 32, 64, 1, 128, False, False, False),  # mamba2-370m training
+    (1, 1000, 32, 64, 2, 128, True, False, True),    # two groups, h0, dhf
+    (1, 1000, 32, 64, 2, 128, True, True, True),     # dt·|A| = 25 a token
+    (2, 70, 8, 16, 1, 16, True, False, True),        # smoke widths
+    (1, 50, 4, 40, 2, 8, True, False, True),         # P no multiple of 16
+    (3, 1, 4, 64, 1, 128, True, False, True),        # one token
+]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_matches_plain(cuda, rng, case, dtype):
+    """``ssd_scan.ssd_bwd`` against ``plain.ssd_bwd_ref`` (float32 inputs
+    widened to float64 for the plain version, as the kernel sums them);
+    a second call gives the same bits (no atomics)."""
+    *shape, with_dhf = case
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, tuple(shape), dtype, cuda)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    dy = _rand(rng, B, S, H, P, dtype=dtype)
+    dhf = _rand(rng, B, H, P, N) if with_dhf else None
+    before = ssd_scan.bwd_launches
+    got = ssd_scan.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhf)
+    torch.cuda.synchronize()
+    assert ssd_scan.bwd_launches == before + 1
+    again = ssd_scan.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhf)
+    wide = [None if a is None else a.double() if dtype == "float32" else a
+            for a in (x, dt, A, Bm, Cm, h0, dy, dhf)]
+    want = plain.ssd_bwd_ref(*wide)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    for name, g, a, wn in zip(names, got, again, want):
+        if wn is None:
+            assert g is None
+            continue
+        assert g.shape == wn.shape and bool(torch.isfinite(g.float()).all())
+        assert torch.equal(g, a), name
+        _assert_grad_close(g, wn, dtype, name)
+
+
+def test_ssd_backward_through_autograd(cuda, rng):
+    """``ops.ssd`` on inputs that need a gradient goes through ``Ssd``:
+    one backward launch, the gradients of the plain backward, an unused
+    final state a zero cotangent."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(
+        rng, (1, 300, 8, 64, 1, 128, True, False), "bfloat16", cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm, h0)]
+    dy = _rand(rng, *x.shape, dtype="bfloat16")
+    before = (ssd_scan.launches, ssd_scan.chunked_launches,
+              ssd_scan.bwd_launches)
+    y, _ = ops.ssd(*leaves[:5], init_state=leaves[5])
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.chunked_launches,
+            ssd_scan.bwd_launches) == (before[0] + 1, before[1] + 1,
+                                       before[2] + 1)
+    want = plain.ssd_bwd_ref(x, dt, A, Bm, Cm, h0, dy, None)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_grad_close(g, w, "bfloat16", f"input {i}")

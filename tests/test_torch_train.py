@@ -43,7 +43,7 @@ from repro_torch.train import build_train_step
 torch.set_num_threads(1)  # smoke shapes: threads only contend with xdist
 TOL = 1e-4
 OPT_TOL = 1e-6
-ARCHS = ["smollm-135m", "gemma2-2b"]
+ARCHS = ["smollm-135m", "gemma2-2b", "granite-moe-3b-a800m"]
 
 
 def _setup(arch):
@@ -109,7 +109,7 @@ def test_memcom_loss_and_grads_match_jax(rng, arch, phase):
                              allow_unused=True, materialize_grads=True)
     np.testing.assert_allclose(float(ploss.detach()), float(loss), rtol=TOL,
                                atol=TOL)
-    assert float(aux["ce"].detach()) == float(ploss.detach())
+    assert float((aux["ce"] + aux["moe"]).detach()) == float(ploss.detach())
     per = _by_jax_path(pcfg, dict(zip(trained, pg)))
     want_paths = {p for p, m in tree_flatten_with_names(
         jmc.trainable_mask(mc, phase)) if m}
@@ -383,6 +383,61 @@ def test_lm_train_step_builder_runs_and_learns():
     losses = [float(step(params, state, {"tokens": toks})[2]["loss"])
               for _ in range(5)]
     assert losses[-1] < losses[0], losses
+
+
+def test_mamba2_lm_loss_and_grads_match_jax(rng):
+    """mamba2-370m (smoke), attention-free: the loss of the port's
+    ``build_lm_train_step`` (next-token CE + MoE aux) and its gradients
+    against the JAX package's ``build_lm_train_step`` (its step's loss and
+    grad norm; the gradients by ``jax.grad`` of the same loss), every
+    parameter trained."""
+    from repro.launch import steps as jsteps
+    from repro_torch.models import transformer as tfm
+    arch = "mamba2-370m"
+    cfg = get_smoke_config(arch)
+    params = jtfm.init_params(cfg, 0)
+    pcfg = port_smoke_config(arch)
+    model = bridge.from_jax_params(pcfg, jax.tree.map(np.asarray, params),
+                                   device="cpu")
+    toks = rng.integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+
+    def jloss(p):
+        logits, aux = jtfm.forward(p, cfg, tokens=jnp.asarray(toks))
+        return jmc.next_token_loss(logits, jnp.asarray(toks)) \
+            + aux["moe_loss"]
+
+    jl, jg = jax.value_and_grad(jloss)(params)
+    jstep, jopt = jsteps.build_lm_train_step(cfg, remat=False)
+    _, _, jm = jstep(params, jopt.init(params), {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(float(jm["loss"]), float(jl), rtol=1e-6)
+
+    step, opt, pparams = port_steps.build_lm_train_step(pcfg, model,
+                                                        remat=False)
+    assert all(p.requires_grad for p in pparams.values())
+    ttoks = torch.from_numpy(toks.astype(np.int64))
+    logits, aux = model(tokens=ttoks)
+    ploss = memcom.next_token_loss(logits, ttoks) + aux["moe_loss"]
+    pg = torch.autograd.grad(ploss, list(pparams.values()),
+                             allow_unused=True, materialize_grads=True)
+    np.testing.assert_allclose(float(ploss.detach()), float(jl), rtol=TOL,
+                               atol=TOL)
+    want = dict(tree_flatten_with_names(jg))
+    per = {}
+    for n, g in zip(pparams, pg):
+        per.setdefault(bridge.jax_path(pcfg, "transformer", n), []).append(
+            g.detach().numpy())
+    assert set(per) == set(want)
+    for path, lst in per.items():
+        w = np.asarray(want[path])
+        got = np.stack(lst) if w.ndim == lst[0].ndim + 1 else lst[0]
+        big = float(np.abs(w).max())
+        np.testing.assert_allclose(got, w, rtol=0, atol=TOL * max(big, 1e-3),
+                                   err_msg=path)
+    _, _, pm = step(pparams, opt.init(pparams), {"tokens": ttoks})
+    np.testing.assert_allclose(float(pm["loss"]), float(jm["loss"]),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(float(pm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=TOL)
 
 
 def test_train_launcher_on_the_cpu(tmp_path, capsys):
