@@ -155,12 +155,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
       3072, 32 heads of 64, N 128, no initial state, no final-state
       cotangent), and 1000 tokens in two groups with an initial state and
       a final-state cotangent, at seeded decays and at dt·|A| = 25 a
-      token.  bf16 times: ``ms`` by CUDA events, ``device_ms`` by graph
-      replay over three input sets, the plain version's ms, gmm's
-      ``torch.bmm`` of each product (``library_ms``; ssd has none), and
-      the bound max(operations / 989 TFLOP/s, bytes / 3.35 TB/s); gmm's
-      head numbers are dX alone (Phase 1's call), with dW and both
-      beside.  Then, under ``torch.no_grad``, a call through each wrapper
+      token.  Every kernel of a dtype runs, forced and checked: bf16 gmm
+      through its wgmma and mma.sync variants, bf16 ssd through its
+      chunked and sequential ones (float32: one kernel each).  bf16
+      times of both variants side by side (``ms_<variant>``,
+      ``device_ms_<variant>``; ``ms`` / ``device_ms`` the picked one's,
+      ``gm.bwd_variant_for`` / ``ss.bwd_variant_for``): ``ms`` by CUDA
+      events, ``device_ms`` by graph replay over three input sets, the
+      plain version's ms, gmm's ``torch.bmm`` of each product
+      (``library_ms``; ssd has none), and the bound max(operations / 989
+      TFLOP/s, bytes / 3.35 TB/s); gmm's head numbers are dX alone
+      (Phase 1's call), with dW and both beside; ssd's workspace bytes
+      of both variants.  Then, under ``torch.no_grad``, a call through each wrapper
       on an input that requires grad launches the forward alone.
 4. The main path, end to end, at the full published width and depth of
    gemma2-2b, then (its models freed) of granite-moe-3b-a800m, in
@@ -229,14 +235,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
       31) dX-only ``gmm`` backward calls (each expert product of the
       target's MoE layers and of the Memory-LLM's but its last, whose
       output no loss term reads; the experts are frozen, so no dW) at C =
-      256 rows an expert; the 3072-token source's C = 1536 calls run the
+      256 rows an expert, every one through the wgmma variant; the
+      3072-token source's C = 1536 calls run the
       forward alone (no input needs a gradient).
    k. mamba2-370m next-token training at full width and depth (48 Mamba2
       layers) through ``launch.steps.build_lm_train_step`` (every
       parameter, remat) and the Trainer: batch 2 x 3072 tokens, 4 steps,
       checkpoints, restart and profile as 4d; every step one ``ssd``
-      backward call a layer (48) and every forward ``ssd`` call through
-      the chunked variant.  4j and 4k print s/step, tokens/s, peak memory
+      backward call a layer (48), every one through the chunked variant,
+      and every forward ``ssd`` call through the chunked variant.  4j and 4k print s/step, tokens/s, peak memory
       and each phase's seconds.
    e. mistral-7b (after the training phase, the other models freed; 32
       layers, d_model 4096, 32/8 heads of 128, m = 768; 23.89 B
@@ -1444,6 +1451,9 @@ def main() -> int:
     # bits.  Under no_grad a call through the wrapper is the forward alone.
     t_phase = time.perf_counter()
 
+    GMM_BWD_VARIANTS = ("wgmma", "mma_sync")
+    SSD_BWD_VARIANTS = ("chunked", "sequential")
+
     def bwd_check(kernel, name, dn, names, got, want, again):
         errs = {}
         for gname, g, w, a in zip(names, got, want, again):
@@ -1476,19 +1486,29 @@ def main() -> int:
             ("memory_bwd_512_1536", 40, 256, 512, 1536),
             ("source_bwd_1536_512", 40, 1536, 1536, 512),
             ("source_bwd_512_1536", 40, 1536, 512, 1536)):
-        row = {"shape": name, "x": [E_, C_, D_], "w": [E_, D_, F_]}
+        row = {"shape": name, "x": [E_, C_, D_], "w": [E_, D_, F_],
+               "variant": gm.bwd_variant_for(torch.bfloat16, C_, D_, F_,
+                                             True)}
         for dn in ("float32", "bfloat16"):
             dtype = getattr(torch, dn)
             x = rand(E_, C_, D_, dtype=dtype)
             w = rand(E_, D_, F_, dtype=dtype, scale=D_ ** -0.5)
             dy = rand(E_, C_, F_, dtype=dtype)
-            got = gm.gmm_bwd(x, w, dy)
-            again = gm.gmm_bwd(x, w, dy)
-            torch.cuda.synchronize()
             want = plain.gmm_bwd_ref(x, w, dy)
-            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = bwd_check(
-                "gmm_bwd", name, dn, ("dx", "dw"), got, want, again)
-            del got, again, want
+            # every kernel of the dtype, each forced, against the plain
+            # backward; float32 has one
+            errs = []
+            for var in ((None,) if dn == "float32" else GMM_BWD_VARIANTS):
+                kw = {} if var is None else {"variant": var}
+                got = gm.gmm_bwd(x, w, dy, **kw)
+                again = gm.gmm_bwd(x, w, dy, **kw)
+                torch.cuda.synchronize()
+                errs.append(bwd_check("gmm_bwd", f"{name} {var or dn}", dn,
+                                      ("dx", "dw"), got, want, again))
+                del got, again
+            row[f"max_abs_err_{dn}"] = max(e[0] for e in errs)
+            row[f"grad_err_{dn}"] = max(e[1] for e in errs)
+            del want
             if dn == "bfloat16":
                 # three sets of w, dy and x (63 MB of weights each), so no
                 # replayed call reads its operands from the 50 MB L2
@@ -1506,11 +1526,15 @@ def main() -> int:
                             torch.bmm(x_.transpose(1, 2), d_)))):
                     sfx = "" if part == "dx" else f"_{part}"
                     need = dict(need_dx=part != "dw", need_dw=part != "dx")
-                    row[f"ms{sfx}"] = cuda_ms(
-                        lambda: gm.gmm_bwd(x, w, dy, **kw))
-                    row[f"device_ms{sfx}"] = device_ms(
-                        lambda x_, w_, d_: gm.gmm_bwd(x_, w_, d_, **kw), 21,
-                        bufs)
+                    for var in GMM_BWD_VARIANTS:
+                        row[f"ms{sfx}_{var}"] = cuda_ms(
+                            lambda: gm.gmm_bwd(x, w, dy, variant=var, **kw))
+                        row[f"device_ms{sfx}_{var}"] = device_ms(
+                            lambda x_, w_, d_: gm.gmm_bwd(
+                                x_, w_, d_, variant=var, **kw), 21, bufs)
+                    row[f"ms{sfx}"] = row[f"ms{sfx}_{row['variant']}"]
+                    row[f"device_ms{sfx}"] = \
+                        row[f"device_ms{sfx}_{row['variant']}"]
                     row[f"plain_ms{sfx}"] = cuda_ms(
                         lambda: plain.gmm_bwd_ref(x, w, dy, **need), reps=3)
                     row[f"library_ms{sfx}"] = cuda_ms(lambda: lib(x, w, dy))
@@ -1525,18 +1549,21 @@ def main() -> int:
                     row[f"bound_ms{sfx}"], row[f"bound_by{sfx}"] = bound(
                         flops, 2 * elems)
                 row["library_backend"] = "torch.bmm"
-                log(f"  {name} bf16: dX {row['ms']:.4f} ms (device "
-                    f"{row['device_ms']:.4f}), dW {row['ms_dw']:.4f} ms "
-                    f"(device {row['device_ms_dw']:.4f}), both "
-                    f"{row['ms_both']:.4f} ms (device "
-                    f"{row['device_ms_both']:.4f}); plain dX "
-                    f"{row['plain_ms']:.4f} ms; torch.bmm dX "
-                    f"{row['library_ms']:.4f} ms (device "
-                    f"{row['library_device_ms']:.4f}), dW "
-                    f"{row['library_ms_dw']:.4f} ms (device "
-                    f"{row['library_device_ms_dw']:.4f}); bound dX "
-                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}), dW "
-                    f"{row['bound_ms_dw']:.4f} ms ({row['bound_by_dw']})")
+                for part, sfx in (("dX", ""), ("dW", "_dw"),
+                                  ("both", "_both")):
+                    ratio = row[f"device_ms{sfx}_wgmma"] \
+                        / row[f"library_device_ms{sfx}"]
+                    log(f"  {name} bf16 {part}: device ms wgmma "
+                        f"{row[f'device_ms{sfx}_wgmma']:.4f} (events "
+                        f"{row[f'ms{sfx}_wgmma']:.4f}), mma.sync "
+                        f"{row[f'device_ms{sfx}_mma_sync']:.4f} (events "
+                        f"{row[f'ms{sfx}_mma_sync']:.4f}), torch.bmm "
+                        f"{row[f'library_device_ms{sfx}']:.4f} (events "
+                        f"{row[f'library_ms{sfx}']:.4f}), wgmma / torch.bmm "
+                        f"{ratio:.3f}; plain {row[f'plain_ms{sfx}']:.4f} ms;"
+                        " bound "
+                        f"{row[f'bound_ms{sfx}']:.4f} ms "
+                        f"({row[f'bound_by{sfx}']})")
                 del bufs
             del x, w, dy
         torch.cuda.empty_cache()
@@ -1557,23 +1584,32 @@ def main() -> int:
         Bs, S_, H_, P_, G_, N_, init_, big_ = shape_
         row = {"shape": name, "x": [Bs, S_, H_, P_], "G": G_, "N": N_,
                "init_state": init_, "dhf": with_dhf,
-               "decay": "dt|A| = 25" if big_ else "seeded"}
+               "decay": "dt|A| = 25" if big_ else "seeded",
+               "variant": ss.bwd_variant_for(torch.bfloat16, S_, P_, N_,
+                                             True)}
         for dn in ("float32", "bfloat16"):
             dtype = getattr(torch, dn)
             ins = ssd_inputs(Bs, S_, H_, P_, G_, N_, dtype, init_, big_)
             dy = rand(Bs, S_, H_, P_, dtype=dtype)
             dhf = rand(Bs, H_, P_, N_, dtype=torch.float32) \
                 if with_dhf else None
-            got = ss.ssd_bwd(*ins, dy, dhf)
-            again = ss.ssd_bwd(*ins, dy, dhf)
-            torch.cuda.synchronize()
             wide = [None if a is None else
                     a.double() if dn == "float32" else a
                     for a in (*ins, dy, dhf)]
             want = plain.ssd_bwd_ref(*wide)
-            row[f"max_abs_err_{dn}"], row[f"grad_err_{dn}"] = bwd_check(
-                "ssd_bwd", name, dn, ssd_names, got, want, again)
-            del got, again, want, wide
+            del wide
+            errs = []
+            for var in (("sequential",) if dn == "float32"
+                        else SSD_BWD_VARIANTS):
+                got = ss.ssd_bwd(*ins, dy, dhf, variant=var)
+                again = ss.ssd_bwd(*ins, dy, dhf, variant=var)
+                torch.cuda.synchronize()
+                errs.append(bwd_check("ssd_bwd", f"{name} {var}", dn,
+                                      ssd_names, got, want, again))
+                del got, again
+            row[f"max_abs_err_{dn}"] = max(e[0] for e in errs)
+            row[f"grad_err_{dn}"] = max(e[1] for e in errs)
+            del want
             if dn == "bfloat16" and name == "train":
                 bufs = [(*ins, dy, dhf)]
                 for _ in range(2):
@@ -1581,9 +1617,17 @@ def main() -> int:
                                       big_)
                     bufs.append((*more, rand(Bs, S_, H_, P_, dtype=dtype),
                                  dhf))
-                row["ms"] = cuda_ms(lambda: ss.ssd_bwd(*ins, dy, dhf))
-                row["device_ms"] = device_ms(
-                    lambda *a: ss.ssd_bwd(*a), 21, bufs)
+                for var in SSD_BWD_VARIANTS:
+                    row[f"ms_{var}"] = cuda_ms(
+                        lambda: ss.ssd_bwd(*ins, dy, dhf, variant=var))
+                    row[f"device_ms_{var}"] = device_ms(
+                        lambda *a: ss.ssd_bwd(*a, variant=var), 21, bufs)
+                    row[f"workspace_bytes_{var}"] = ss.bwd_workspace_bytes(
+                        Bs, S_, H_, P_, N_, dtype, G_, var)
+                row["ms"] = row[f"ms_{row['variant']}"]
+                row["device_ms"] = row[f"device_ms_{row['variant']}"]
+                row["workspace_bytes"] = \
+                    row[f"workspace_bytes_{row['variant']}"]
                 row["plain_ms"] = cuda_ms(
                     lambda: plain.ssd_bwd_ref(*ins, dy, dhf), reps=1,
                     warmup=1)
@@ -1597,12 +1641,15 @@ def main() -> int:
                           + 2 * Bs * S_ * H_ * 4 + 2 * H_ * 4)
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
-                row["workspace_bytes"] = ss.bwd_workspace_bytes(
-                    Bs, S_, H_, P_, N_, dtype)
-                log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
-                    f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
-                    f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}),"
-                    f" workspace {row['workspace_bytes']} bytes")
+                log(f"  {name} bf16: device ms chunked "
+                    f"{row['device_ms_chunked']:.4f} (events "
+                    f"{row['ms_chunked']:.4f}), sequential "
+                    f"{row['device_ms_sequential']:.4f} (events "
+                    f"{row['ms_sequential']:.4f}); plain "
+                    f"{row['plain_ms']:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                    f"workspace chunked {row['workspace_bytes_chunked']} "
+                    f"bytes (sequential {row['workspace_bytes_sequential']})")
                 del bufs
             del ins, dy, dhf
             torch.cuda.empty_cache()
@@ -1642,7 +1689,7 @@ def main() -> int:
         fa.bwd_launches = fa.bwd_wgmma_launches = mx.bwd_launches = 0
         mx.bwd_wgmma_launches = 0
         gm.bwd_launches = gm.bwd_dx_launches = gm.bwd_dw_launches = 0
-        ss.bwd_launches = 0
+        gm.bwd_wgmma_launches = ss.bwd_launches = ss.bwd_chunked_launches = 0
 
     def counts():
         c = {key: mod.launches for key, mod in counters.items()}
@@ -1658,7 +1705,9 @@ def main() -> int:
         c["gmm_bwd"] = gm.bwd_launches
         c["gmm_bwd_dx"] = gm.bwd_dx_launches
         c["gmm_bwd_dw"] = gm.bwd_dw_launches
+        c["gmm_bwd_wgmma"] = gm.bwd_wgmma_launches
         c["ssd_bwd"] = ss.bwd_launches
+        c["ssd_bwd_chunked"] = ss.bwd_chunked_launches
         return c
 
     class SourcePrefills:
@@ -2675,7 +2724,8 @@ def main() -> int:
                     or c["memcom_xattn_bwd"] != L \
                     or c["memcom_xattn_bwd_wgmma"] != want_xwg \
                     or c["gmm_bwd"] != want_gmm \
-                    or c["gmm_bwd_dx"] != want_gmm or c["gmm_bwd_dw"] != 0:
+                    or c["gmm_bwd_dx"] != want_gmm or c["gmm_bwd_dw"] != 0 \
+                    or c["gmm_bwd_wgmma"] != want_gmm:
                 raise AssertionError(
                     f"{tag} step {i + 1}: {c['flash_attention_bwd']} flash "
                     f"backward calls (want {3 * L - 1}), "
@@ -2685,7 +2735,9 @@ def main() -> int:
                     f"(want {L}), {c['memcom_xattn_bwd_wgmma']} through its "
                     f"wgmma variant (want {want_xwg}), {c['gmm_bwd']} gmm "
                     f"backward calls (want {want_gmm}: dX {c['gmm_bwd_dx']},"
-                    f" dW {c['gmm_bwd_dw']}, want dX alone)")
+                    f" dW {c['gmm_bwd_dw']}, want dX alone; "
+                    f"{c['gmm_bwd_wgmma']} through its wgmma variant, want "
+                    "all)")
             if c["memcom_xattn"] != c["memcom_xattn_wgmma"] or \
                     c["memcom_xattn"] != L:
                 raise AssertionError(f"{tag} step {i + 1}: memcom_xattn "
@@ -2699,7 +2751,8 @@ def main() -> int:
         if want_gmm:
             pats.update(gmm_fwd=("gmm_wgmma", "gmm_rows", "gmm_bf16"),
                         gmm_bwd=("gmm_bwd",))
-            keys += ["gmm", "gmm_bwd", "gmm_bwd_dx", "gmm_bwd_dw"]
+            keys += ["gmm", "gmm_bwd", "gmm_bwd_dx", "gmm_bwd_dw",
+                     "gmm_bwd_wgmma"]
         out = train_and_restart(tag, run, named, steps, batch * seq,
                                 check_step, keys, pats, init_s)
         out["target_tokens_per_s"] = batch * (seq - split) / out["s_per_step"]
@@ -2748,19 +2801,24 @@ def main() -> int:
         L = sum(d.mixer == "mamba" for d in cfg.layout.descriptors())
 
         def check_step(i, c):
-            if c["ssd_bwd"] != L or c["ssd"] != c["ssd_chunked"] \
-                    or c["ssd"] < L:
+            if c["ssd_bwd"] != L or c["ssd_bwd_chunked"] != L \
+                    or c["ssd"] != c["ssd_chunked"] or c["ssd"] < L:
                 raise AssertionError(
                     f"{tag} step {i + 1}: {c['ssd_bwd']} ssd backward calls "
-                    f"(want {L}), {c['ssd']} forward calls, "
+                    f"(want {L}), {c['ssd_bwd_chunked']} of them chunked "
+                    f"(want all), {c['ssd']} forward calls, "
                     f"{c['ssd_chunked']} of them chunked (want all)")
 
+        # the chunked backward reruns the forward's first two phases (their
+        # time counts under ssd_fwd) and then its own four kernels
         out = train_and_restart(
             tag, run, dict(model.named_parameters()), steps, batch * seq,
-            check_step, ["ssd", "ssd_chunked", "ssd_bwd"],
-            {"ssd_fwd": ("ssd_chunk_states", "ssd_state_pass",
-                         "ssd_chunk_outputs"),
-             "ssd_bwd": ("ssd_bwd",)}, init_s)
+            check_step, ["ssd", "ssd_chunked", "ssd_bwd", "ssd_bwd_chunked"],
+            {"ssd_fwd": ("ssd_chunk_states<128, 64, 128, false>",
+                         "ssd_state_pass<false>", "ssd_chunk_outputs"),
+             "ssd_bwd": ("ssd_chunk_states<128, 64, 128, true>",
+                         "ssd_state_pass<true>", "ssd_chunk_grads",
+                         "ssd_grad_reduce", "ssd_bwd")}, init_s)
         out["mamba_layers"] = L
         del run, model, params, trainer
         return out
@@ -2833,7 +2891,8 @@ def main() -> int:
                 f"({sum(source_bwd)} over the {T}-token source), "
                 f"memcom_xattn backward calls {c['memcom_xattn_bwd']}"
                 + (f"; gmm backward calls {c['gmm_bwd']} (dX "
-                   f"{c['gmm_bwd_dx']}, dW {c['gmm_bwd_dw']}); top-k rows "
+                   f"{c['gmm_bwd_dx']}, dW {c['gmm_bwd_dw']}, wgmma "
+                   f"{c['gmm_bwd_wgmma']}); top-k rows "
                    f"the plain run would have routed otherwise "
                    f"{routing.flips} of {routing.rows}" if is_moe else "")
                 + f"; {time.perf_counter() - t_ph:.1f}s")
@@ -2906,7 +2965,8 @@ def main() -> int:
         log(f"{tag} depth 2, bf16: loss kernel {loss_k:.6f} plain "
             f"{loss_p:.6f}; {len(rels)} gradients, worst rel err {worst} "
             f"(tol {E2E_REL_TOL:g}); ssd calls {c['ssd']} ({c['ssd_chunked']}"
-            f" chunked), ssd backward calls {c['ssd_bwd']}; "
+            f" chunked), ssd backward calls {c['ssd_bwd']} "
+            f"({c['ssd_bwd_chunked']} chunked); "
             f"{time.perf_counter() - t_ph:.1f}s")
         model.requires_grad_(False)
         if not (worst[0][1] <= E2E_REL_TOL and c["ssd_bwd"] == 2
@@ -4023,13 +4083,23 @@ def main() -> int:
                 library_device_ms=head["library_device_ms"],
                 **{k: head[k] for k in head
                    if k.startswith(("ms_", "device_ms_"))})
-        if name == "gmm_bwd":  # dX (the Phase-1 path's call) and dW
+        if name == "gmm_bwd":  # dX (the Phase-1 path's call) and dW; the
+            # wgmma and mma.sync variants
             entries[-1].update(
                 dx_launches=sum(c["gmm_bwd_dx"] for c in paths.values()),
                 dw_launches=sum(c["gmm_bwd_dw"] for c in paths.values()),
-                **{k: head[k] for k in head if k.endswith(("_dw", "_both"))})
-        if name == "ssd_bwd":
-            entries[-1]["workspace_bytes"] = head["workspace_bytes"]
+                bwd_wgmma_launches=sum(c["gmm_bwd_wgmma"]
+                                       for c in paths.values()),
+                variant=head["variant"],
+                **{k: head[k] for k in head
+                   if k.endswith(("_dw", "_both", "_wgmma", "_mma_sync"))})
+        if name == "ssd_bwd":  # the chunked and sequential variants
+            entries[-1].update(
+                bwd_chunked_launches=sum(c["ssd_bwd_chunked"]
+                                         for c in paths.values()),
+                variant=head["variant"],
+                **{k: head[k] for k in head
+                   if k.startswith(("ms_", "device_ms_", "workspace_"))})
         if name == "ssd":  # the chunked variant and the sequential one
             entries[-1].update(
                 chunked_launches=sum(c["ssd_chunked"]

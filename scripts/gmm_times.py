@@ -4,6 +4,7 @@ granite-moe-3b-a800m's shapes, for one tree of the port, on one NVIDIA
 card.
 
     python3 scripts/gmm_times.py [--tree DIR] [--json-out PATH] [--time-only]
+                                 [--variant NAME]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout) and
 builds its kernels there, so that one machine can time two trees, for
@@ -13,7 +14,10 @@ D 1536 <-> F 512 in both orientations): the forward at C = 768 (the
 source prefill), 256 (training's Memory-LLM and prompt), 128 (the
 Memory-LLM at serving) and 8 (decode), and, where the tree has
 ``moe_gmm.gmm_bwd``, the backward's two products (dX = dY Wᵀ, dW = Xᵀ dY)
-at C = 256 and 1536 (the training source).  Each call is first held to
+at C = 256 and 1536 (the training source), with each backward kernel the
+tree has (``moe_gmm.bwd_variant_for``'s ``"wgmma"`` and ``"mma_sync"``;
+a tree without it has one, reported as ``"mma_sync"``), or only the one
+``--variant`` names.  Each call is first held to
 the plain version (``plain.scaled_err`` / ``plain.grad_err`` at most
 2e-2), then timed by CUDA-graph replay: 21 calls rotating through three
 input sets (63 MB of weights each), so that no call reads its weights
@@ -43,6 +47,8 @@ def main() -> int:
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--time-only", action="store_true",
                     help="time every shape, check none")
+    ap.add_argument("--variant", default=None,
+                    help="time only this backward kernel (wgmma, mma_sync)")
     args = ap.parse_args()
 
     import torch
@@ -93,13 +99,19 @@ def main() -> int:
 
     rows = []
     has_bwd = hasattr(gm, "gmm_bwd")
+    variants = ["wgmma", "mma_sync"] if hasattr(gm, "bwd_variant_for") \
+        else ["mma_sync"]
+    if args.variant:
+        variants = [v for v in variants if v == args.variant]
     for D, F in ((WIDE, NARROW), (NARROW, WIDE)):
-        cases = [("fwd", C) for C in FWD_C]
-        cases += [(part, C) for C in BWD_C for part in ("dx", "dw")
-                  if has_bwd]
-        for part, C in cases:
+        cases = [("fwd", C, None) for C in FWD_C]
+        cases += [(part, C, v) for C in BWD_C for part in ("dx", "dw")
+                  for v in variants if has_bwd]
+        for part, C, variant in cases:
             bufs = [(rand(E, C, D), rand(E, D, F, scale=D ** -0.5),
                      rand(E, C, F)) for _ in range(3)]
+            kw = {"variant": variant} if hasattr(gm, "bwd_variant_for") \
+                and variant else {}
             if part == "fwd":
                 def fn(x, w, dy):
                     return gm.gmm(x, w)
@@ -107,18 +119,20 @@ def main() -> int:
                 def lib(x, w, dy):
                     return torch.bmm(x, w)
             elif part == "dx":
-                def fn(x, w, dy):
-                    return gm.gmm_bwd(x, w, dy, need_dw=False)[0]
+                def fn(x, w, dy, kw=kw):
+                    return gm.gmm_bwd(x, w, dy, need_dw=False, **kw)[0]
 
                 def lib(x, w, dy):
                     return torch.bmm(dy, w.transpose(1, 2))
             else:
-                def fn(x, w, dy):
-                    return gm.gmm_bwd(x, w, dy, need_dx=False)[1]
+                def fn(x, w, dy, kw=kw):
+                    return gm.gmm_bwd(x, w, dy, need_dx=False, **kw)[1]
 
                 def lib(x, w, dy):
                     return torch.bmm(x.transpose(1, 2), dy)
             row = {"part": part, "E": E, "C": C, "D": D, "F": F}
+            if variant:
+                row["variant"] = variant
             if not args.time_only:
                 x, w, dy = bufs[0]
                 got = fn(x, w, dy)
@@ -129,13 +143,22 @@ def main() -> int:
                     want = plain.gmm_bwd_ref(x, w, dy)[part == "dw"]
                     e = plain.grad_err(got, want)
                 row["err"] = e
+                if part != "fwd":
+                    again = fn(x, w, dy)
+                    row["bit_identical"] = bool(torch.equal(got, again))
+                    if not row["bit_identical"]:
+                        raise AssertionError(f"gmm {part} C={C} {D}->{F} "
+                                             f"{variant}: a second call "
+                                             "differs")
                 if e > TOL:
                     raise AssertionError(f"gmm {part} C={C} {D}->{F}: "
                                          f"error {e:.3e} > {TOL}")
             row["device_ms"] = device_ms(fn, bufs)
             row["library_device_ms"] = device_ms(lib, bufs)
             rows.append(row)
-            print(f"{part} C={C} {D}->{F}: device {row['device_ms']:.4f} ms, "
+            print(f"{part} C={C} {D}->{F}"
+                  + (f" {variant}" if variant else "")
+                  + f": device {row['device_ms']:.4f} ms, "
                   f"torch.bmm {row['library_device_ms']:.4f} ms"
                   + (f", err {row['err']:.3e}" if "err" in row else ""),
                   flush=True)

@@ -3,6 +3,7 @@
 mamba2-370m's shapes, for one tree of the port, on one NVIDIA card.
 
     python3 scripts/ssd_times.py [--tree DIR] [--json-out PATH] [--time-only]
+                                 [--variant NAME]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout) and
 builds its kernels there, so that one machine can time two trees, for
@@ -11,7 +12,11 @@ the order parent, change, change, parent.  Shapes (bf16, 32 heads of 64,
 N 128, G 1): the forward at the serving prefill (1 x 3084, an initial
 state) and at training (2 x 3072, none), and, where the tree has
 ``ssd_scan.ssd_bwd``, the backward at training (no final-state
-cotangent) and with an initial state and a final-state cotangent.  Each
+cotangent) and with an initial state and a final-state cotangent, with
+each backward kernel the tree has (``ssd_scan.bwd_variant_for``'s
+``"chunked"`` and ``"sequential"``; a tree without it has one, reported
+as ``"sequential"``), or only the one ``--variant`` names, and the
+chosen kernel's workspace bytes.  Each
 call is first held to the plain version (``plain.scaled_err`` /
 ``plain.grad_err`` at most 2e-2 per output), then timed by CUDA-graph
 replay: 21 calls rotating through three input sets, so that no call
@@ -43,6 +48,9 @@ def main() -> int:
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--time-only", action="store_true",
                     help="time every shape, check none")
+    ap.add_argument("--variant", default=None,
+                    help="time only this backward kernel (chunked, "
+                         "sequential)")
     args = ap.parse_args()
 
     import torch
@@ -105,19 +113,35 @@ def main() -> int:
     def fwd(x, dt, A, Bm, Cm, h0, dy, dhf):
         return ss.ssd(x, dt, A, Bm, Cm, init_state=h0)
 
-    def bwd(x, dt, A, Bm, Cm, h0, dy, dhf):
-        return ss.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhf)
+    has_variants = hasattr(ss, "bwd_variant_for")
+    variants = ["chunked", "sequential"] if has_variants else ["sequential"]
+    if args.variant:
+        variants = [v for v in variants if v == args.variant]
+
+    def bwd_for(variant):
+        kw = {"variant": variant} if has_variants else {}
+
+        def bwd(x, dt, A, Bm, Cm, h0, dy, dhf):
+            return ss.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhf, **kw)
+        return bwd
 
     rows = []
-    for part, B, S, init in CASES:
+    cases = [(part, B, S, init, v) for part, B, S, init in CASES
+             for v in ([None] if part == "fwd" else variants)]
+    for part, B, S, init, variant in cases:
         if part == "bwd" and not hasattr(ss, "ssd_bwd"):
             continue
         bufs = [inputs(B, S, init) for _ in range(3)]
-        fn = fwd if part == "fwd" else bwd
+        fn = fwd if part == "fwd" else bwd_for(variant)
         row = {"part": part, "B": B, "S": S, "H": H, "P": P, "N": N,
                "init_state": init}
         if part == "fwd":
             row["variant"] = ss.variant_for(torch.bfloat16, S, P, N, True)
+        else:
+            row["variant"] = variant
+            ws_kw = {"variant": variant} if has_variants else {}
+            row["workspace_bytes"] = ss.bwd_workspace_bytes(
+                B, S, H, P, N, torch.bfloat16, **ws_kw)
         if not args.time_only:
             a = bufs[0]
             got = fn(*a)
@@ -129,14 +153,24 @@ def main() -> int:
                 e = max(plain.grad_err(g, w) for g, w in zip(got, want)
                         if w is not None)
             row["err"] = e
+            if part == "bwd":
+                again = fn(*a)
+                row["bit_identical"] = all(
+                    g is None or torch.equal(g, h) for g, h in zip(got, again))
+                if not row["bit_identical"]:
+                    raise AssertionError(f"ssd bwd {B}x{S} {variant}: a "
+                                         "second call differs")
+                del again
             if e > TOL:
                 raise AssertionError(f"ssd {part} {B}x{S}: error {e:.3e} > "
                                      f"{TOL}")
             del got, want
         row["device_ms"] = device_ms(fn, bufs)
         rows.append(row)
-        print(f"{part} {B}x{S} (initial state {init}): device "
-              f"{row['device_ms']:.4f} ms"
+        print(f"{part} {B}x{S} {row['variant']} (initial state {init}): "
+              f"device {row['device_ms']:.4f} ms"
+              + (f", workspace {row['workspace_bytes']} bytes"
+                 if "workspace_bytes" in row else "")
               + (f", err {row['err']:.3e}" if "err" in row else ""),
               flush=True)
         del bufs

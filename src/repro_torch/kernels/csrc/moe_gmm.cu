@@ -643,9 +643,22 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out, int E,
 // = 40, D 1536 <-> F 512, C = 256 rows an expert for the Memory-LLM and
 // the prompt) dX does 16.1 GFLOP and moves 104.9 MB (the weights, 62.9
 // MB, dY and dX once): 0.016 ms of tensor-core time against 0.031 ms of
-// bytes, so it is bound by bytes, as the forward at C = 128 is.
+// bytes, so it is bound by bytes, as the forward at C = 128 is; dW moves
+// the same 104.9 MB (x, dY and dW once).
 //
-// Design: one mma.sync kernel template, gmm_bwd_tc<A_T, B_T>, the
+// Design ("wgmma", bf16 with D and F multiples of 8 and 16-byte aligned
+// operands: kernels/moe_gmm.py::bwd_variant_for): gmm_bwd_wgmma, the
+// forward's gmm_wgmma with the backward's storage orders (see the
+// kernel).  Above 128 rows a tile is 256 rows (launch_bwd_wgmma_for): at
+// C <= 256 one row tile covers dX's rows, so each expert's weights (1.6
+// MB) are read from device memory once, where a 64-row tile reads them C
+// / 64 times (four at C = 256, 252 MB a call: more than the 50 MB L2
+// keeps).  The cp.async ring keeps two 64-deep slabs in flight an SM (96
+// KB at 256 x 128), and outputs leave in 16-byte rows.  W is never copied
+// transposed.
+//
+// "mma_sync" (the other bf16 calls): one kernel template,
+// gmm_bwd_tc<A_T, B_T>, the
 // forward's gmm_bf16 with each operand read in its storage order: A (M x
 // K) is stored row-major ([m][k], ldmatrix) or as its transpose ([k][m],
 // ldmatrix.trans), B (K x N) as [k][n] (ldmatrix.trans) or [n][k]
@@ -657,9 +670,7 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out, int E,
 // output is one block's sum in one order (no split of K, no atomics), so
 // two runs are bit-identical.  float32: gmm_bwd_f32<A_T, B_T>, the
 // forward's CUDA-core tile with the same two storage orders (no TF32).
-// A simple kernel first: the wgmma form (the forward's gmm_wgmma with a
-// K-major B for dX and an MN-major A for dW) is later work; PERF.md
-// section 6 has its times beside the forward's.
+// PERF.md section 6 has both variants' times beside torch.bmm's.
 
 namespace {
 
@@ -850,6 +861,231 @@ gmm_bwd_tc(const bf16* __restrict__ a, const bf16* __restrict__ b,
       }
 }
 
+// ---- bfloat16 on wgmma: the backward's "wgmma" variant ------------------
+//
+// gmm_bwd_wgmma<NWG, RB, BN, DW>: out[e] (M x N) = A[e] B[e] over K, with
+// gmm_wgmma's persistent grid and tile order (expert, row tile, column
+// tile), the slab ring of wgmma_sm90.cuh and its 16-byte epilogue.  A tile
+// is BM = 64 NWG RB rows (NWG consumer warpgroups, RB 64-row blocks each,
+// every block one wgmma m64nBNk16 a k-step) by BN columns.  Only the
+// operands' storage orders differ from the forward's:
+//   dX (DW = 0): A = dy[e] (C x F), K-major as the forward's x; B = w[e]
+//     read in place: its D rows of F are the columns of Wᵀ, each a run of
+//     K, so B is K-major (TB = 0): BN rows of 128 bytes a slab.  M = C, N
+//     = D, K = F.
+//   dW (DW = 1): A = x[e]ᵀ from x stored [c][d]: the slab's 64 rows are k
+//     = c and its columns m = d, the MN-major A (TA = 1) of the memcom_xattn
+//     backward's dK, one 64-column chunk a row block; B = dy[e] [c][f],
+//     MN-major (TB = 1) as the forward reads w.  M = D, N = F, K = C.
+// Rows and columns past M, N and K are zero-filled, so a ragged K (C) adds
+// nothing.  Each output is one block's sum in one order.  The ring is as
+// deep as an SM's shared memory holds (at most 8 stages).
+template <int NWG, int RB, int BN>
+struct BwdCfg {
+  static constexpr int NT = 128 * NWG;                 // threads
+  static constexpr int BM = 64 * NWG * RB;             // rows of a tile
+  static constexpr int A_BYTES = NWG * RB * 8192;      // BM x 64
+  static constexpr int B_BYTES = BN * 128;             // 64 x BN
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int FIT = (232448 - 1024) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE;
+  static constexpr int AI = 8 * BM / NT, BI = 8 * BN / NT;  // pieces a thread
+  static_assert(BN % 64 == 0 && 8 * BN % NT == 0 && STAGES >= 3,
+                "whole chunks and pieces, 3 stages");
+};
+
+template <int NWG, int RB, int BN, bool DW>
+__global__ void __launch_bounds__(BwdCfg<NWG, RB, BN>::NT, 1)
+gmm_bwd_wgmma(const bf16* __restrict__ a, const bf16* __restrict__ b,
+              bf16* __restrict__ out, int M, int N, int K, int tiles_m,
+              int tiles_n, int tiles) {
+  namespace wg = wgmma_sm90;
+  using KC = BwdCfg<NWG, RB, BN>;
+  constexpr int NT = KC::NT, BM = KC::BM, STAGES = KC::STAGES;
+  extern __shared__ unsigned char smem_gbw[];
+  const uint32_t raw = wg::smem_addr(smem_gbw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid % 128) / 32;
+  const int grp = tid / 128;
+  const int nk = (K + 63) / 64;
+  const int mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1
+                                      : 0;
+  const int total = mine * nk;
+  const int lda = DW ? M : K, ldb = DW ? N : K;  // row lengths of a and b
+  const size_t a_step = static_cast<size_t>(M) * K;
+  const size_t b_step = static_cast<size_t>(N) * K;
+
+  struct Tile {
+    size_t e;
+    int m0, n0;
+  };
+  auto tile_of = [&](int t) {  // this block's t-th tile
+    const int T = blockIdx.x + t * gridDim.x;
+    const int r = T / tiles_n;
+    return Tile{static_cast<size_t>(r / tiles_m), (r % tiles_m) * BM,
+                (T % tiles_n) * BN};
+  };
+
+  // A slab's 16-byte pieces: piece p = tid + i NT of row p / PR at column
+  // piece p % PR, where a row holds PR pieces (K-major: a row of M or N,
+  // 8 pieces of k; MN-major: a row of k, BM / 8 or BN / 8 pieces).
+  int c_t = 0, c_kt = 0;  // the load cursor: slab c_kt of tile c_t
+  Tile c_tile{0, 0, 0};
+  auto issue = [&](int s) {
+    const int k0 = c_kt * 64;
+    const uint32_t sA = base + s * KC::STAGE, sB = sA + KC::A_BYTES;
+    const bf16* ae = a + c_tile.e * a_step;
+    const bf16* be = b + c_tile.e * b_step;
+#pragma unroll
+    for (int i = 0; i < KC::AI; ++i) {
+      const int p = tid + i * NT;
+      if constexpr (DW) {  // k row k0 + r, m columns m0 + 8 c ..
+        const int r = p / (BM / 8), c = p % (BM / 8), m = c_tile.m0 + 8 * c;
+        const bool ok = k0 + r < K && m < M;
+        wg::cp_async16(sA + (c / 8) * 8192 + wg::sw128(r, c % 8),
+                       ok ? ae + static_cast<size_t>(k0 + r) * lda + m : a,
+                       ok);
+      } else {  // m row m0 + r, k columns k0 + 8 c ..
+        const int r = p / 8, c = p % 8, m = c_tile.m0 + r, k = k0 + 8 * c;
+        const bool ok = m < M && k < K;
+        wg::cp_async16(sA + (r / 64) * 8192 + wg::sw128(r % 64, c),
+                       ok ? ae + static_cast<size_t>(m) * lda + k : a, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KC::BI; ++i) {
+      const int p = tid + i * NT;
+      if constexpr (DW) {  // k row k0 + r, n columns n0 + 8 c ..
+        const int r = p / (BN / 8), c = p % (BN / 8), n = c_tile.n0 + 8 * c;
+        const bool ok = k0 + r < K && n < N;
+        wg::cp_async16(sB + (c / 8) * 8192 + wg::sw128(r, c % 8),
+                       ok ? be + static_cast<size_t>(k0 + r) * ldb + n : b,
+                       ok);
+      } else {  // n row n0 + r (a row of w), k columns k0 + 8 c ..
+        const int r = p / 8, c = p % 8, n = c_tile.n0 + r, k = k0 + 8 * c;
+        const bool ok = n < N && k < K;
+        wg::cp_async16(sB + wg::sw128(r, c),
+                       ok ? be + static_cast<size_t>(n) * ldb + k : b, ok);
+      }
+    }
+    if (++c_kt == nk) {
+      c_kt = 0;
+      if (++c_t < mine) c_tile = tile_of(c_t);
+    }
+  };
+
+  // row block r of this warpgroup: rows (grp RB + r) 64 .. of the tile
+  float acc[RB][BN / 2];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[r][j] = 0.f;
+  auto store = [&](const Tile& tl) {
+    bf16* oe = out + tl.e * M * static_cast<size_t>(N);
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = tl.m0 + (grp * RB + r) * 64 + warp * 16 + lane / 4
+                       + 8 * h;
+#pragma unroll
+        for (int j = 0; j < BN / 32; ++j) {
+          const uint4 v = wg::row8_bf16(acc[r], h, j, lane);
+          const int gn = tl.n0 + 8 * (4 * j + lane % 4);
+          if (gm < M && gn < N)  // N % 8 == 0: the 8 columns are whole
+            *reinterpret_cast<uint4*>(oe + static_cast<size_t>(gm) * N + gn) =
+                v;
+        }
+      }
+  };
+
+  if (mine > 0) c_tile = tile_of(0);
+  wg::ring_prime<STAGES>(total, issue);
+  wg::ring_walk<STAGES>(
+      mine, nk, issue, [](int, int) {},
+      [&](int stage, int) {
+        const uint32_t sA = base + stage * KC::STAGE;
+        const uint32_t sB = sA + KC::A_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const uint32_t chunk = sA + (grp * RB + r) * 8192;
+            if constexpr (DW)
+              wg::mma_ss_n<BN, 1, 1>(acc[r],
+                                     wg::desc(chunk + ks * 2048, 8192, 1024),
+                                     wg::desc(sB + ks * 2048, 8192, 1024), 1);
+            else
+              wg::mma_ss_n<BN, 0>(acc[r], wg::desc(chunk + ks * 32, 16, 1024),
+                                  wg::desc(sB + ks * 32, 16, 1024), 1);
+          }
+      },
+      [&] {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) wg::reg_fence(acc[r]);
+      },
+      [&](int t) {
+        store(tile_of(t));
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int j = 0; j < BN / 2; ++j) acc[r][j] = 0.f;  // the next tile's
+      });
+}
+
+template <int NWG, int RB, int BN, bool DW>
+int launch_bwd_wgmma(const bf16* a, const bf16* b, bf16* out, int E, int M,
+                     int N, int K, int sms, cudaStream_t st) {
+  using KC = BwdCfg<NWG, RB, BN>;
+  const auto kernel = gmm_bwd_wgmma<NWG, RB, BN, DW>;
+  static unsigned ready = 0;
+  int dev = 0;
+  const cudaError_t err =
+      wgmma_sm90::with_smem(kernel, KC::SMEM, ready, &dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles_m = (M + KC::BM - 1) / KC::BM;
+  const long long tiles_n = (N + BN - 1) / BN;
+  const long long tiles = tiles_m * tiles_n * E;
+  if (tiles > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);  // one an SM
+  kernel<<<grid, KC::NT, KC::SMEM, st>>>(a, b, out, M, N, K,
+                                         static_cast<int>(tiles_m),
+                                         static_cast<int>(tiles_n),
+                                         static_cast<int>(tiles));
+  return cudaGetLastError();
+}
+
+// The tile of a product of M rows and N columns on `sms` SMs (one block an
+// SM), from the tiles' device times at granite's training shapes on an
+// H100 (scripts/gmm_bwd_tiles.py, PERF.md section 6): up to 128 rows, as
+// many 64-row warpgroups as cover them, 128 columns wide; above, 256 rows
+// (so that at C = 256 one row tile covers dX's rows and each expert's
+// weights are read once) by 128 columns on four warpgroups, or, for dX
+// where 192-column tiles fill the card in one wave and 128-column ones do
+// not (granite's D = 512: 120 tiles against 160 on 132 SMs), 256 x 192 on
+// two warpgroups of two 64-row blocks each.  Per byte the four-warpgroup
+// tile is the faster one.
+template <bool DW>
+int launch_bwd_wgmma_for(const bf16* a, const bf16* b, bf16* out, int E,
+                         int M, int N, int K, cudaStream_t st) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (M <= 64)
+    return launch_bwd_wgmma<1, 1, 128, DW>(a, b, out, E, M, N, K, sms, st);
+  if (M <= 128)
+    return launch_bwd_wgmma<2, 1, 128, DW>(a, b, out, E, M, N, K, sms, st);
+  const long long rows = static_cast<long long>(E) * ((M + 255) / 256);
+  if (!DW && rows * ((N + 191) / 192) <= sms && rows * ((N + 127) / 128) > sms)
+    return launch_bwd_wgmma<2, 2, 192, DW>(a, b, out, E, M, N, K, sms, st);
+  return launch_bwd_wgmma<4, 1, 128, DW>(a, b, out, E, M, N, K, sms, st);
+}
+
 // One product of the backward: out (E, M, N) = A B per expert.
 template <bool A_T, bool B_T>
 int launch_bwd(const void* a, const void* b, void* out, int E, int M, int N,
@@ -883,14 +1119,35 @@ int launch_bwd(const void* a, const void* b, void* out, int E, int M, int N,
 // The gradient of moe_gmm_fwd: x (E,C,D), w (E,D,F), dy (E,C,F), all
 // contiguous, of one dtype (0 = float32, 1 = bfloat16).  dx (E,C,D) = dy
 // wᵀ is written when dx is not null, dw (E,D,F) = xᵀ dy when dw is not
-// null.  Returns a cudaError_t (0 = launched).
+// null.  variant (bfloat16): 0 = "mma_sync", 1 = "wgmma", which takes D
+// and F multiples of 8 and 16-byte aligned x, w, dy, dx and dw; float32
+// takes 0.  Returns a cudaError_t (0 = launched).
 extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
                            void* dx, void* dw, int E, int C, int D, int F,
-                           int dtype, void* stream) {
+                           int dtype, int variant, void* stream) {
   if (E < 0 || C < 0 || D < 0 || F < 0 || E > 65535)
     return cudaErrorInvalidValue;
   if (E == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != 1 || D % 8 || F % 8 || !aligned16(x) || !aligned16(w) ||
+        !aligned16(dy) || (dx != nullptr && !aligned16(dx)) ||
+        (dw != nullptr && !aligned16(dw)))
+      return cudaErrorInvalidValue;
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* wb = static_cast<const bf16*>(w);
+    const bf16* db = static_cast<const bf16*>(dy);
+    if (dx != nullptr) {  // M = C, N = D, K = F
+      const int err = launch_bwd_wgmma_for<false>(
+          db, wb, static_cast<bf16*>(dx), E, C, D, F, st);
+      if (err != cudaSuccess) return err;
+    }
+    if (dw != nullptr)  // M = D, N = F, K = C
+      return launch_bwd_wgmma_for<true>(xb, db, static_cast<bf16*>(dw), E, D,
+                                        F, C, st);
+    return cudaSuccess;
+  }
+  if (variant != 0) return cudaErrorInvalidValue;
   const size_t cd = static_cast<size_t>(C) * D, cf = static_cast<size_t>(C) * F;
   const size_t df = static_cast<size_t>(D) * F;
   if (dx != nullptr) {  // (C x F) (F x D): A = dy [c][f], B = w [d][f]

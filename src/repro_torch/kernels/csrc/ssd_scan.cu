@@ -523,7 +523,9 @@ __device__ __forceinline__ void split_scaled(uint32_t xv, float s0, float s1,
 }
 
 // ---- phase 1: each chunk's own state ----
-template <int Q, int P, int N>
+// GRAD (the backward's mirror): x is dy, Bm is Cm and seg_j is E_j =
+// e^{cum_j}, so S_c is the chunk's dS_c = Σ_k E_k dy_kᵀ C_k.
+template <int Q, int P, int N, bool GRAD = false>
 __global__ void __launch_bounds__(NT)
 ssd_chunk_states(const bf16* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -565,7 +567,7 @@ ssd_chunk_states(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
     for (int k = 0; k < Q / 32; ++k) {
       const int j = lane + 32 * k;
-      cum[j] = expf(last - cum[j]) * sDt[warp * Q + j];
+      cum[j] = GRAD ? expf(cum[j]) : expf(last - cum[j]) * sDt[warp * Q + j];
     }
     if (lane == 0)
       decay[(static_cast<size_t>(b) * nc + c) * H + h0 + warp] = expf(last);
@@ -632,7 +634,11 @@ ssd_chunk_states(const bf16* __restrict__ x, const float* __restrict__ dt,
 // ---- phase 2: the state entering each chunk, and the final state ----
 // Element e of head (b, h): h_e = h0_e (or 0); per chunk c, the entering
 // state goes out as a bf16 hi/lo pair (two planes of P·N), then h_e = h_e ·
-// e^{cum_Q(c)} + S_c,e.  Four elements a thread.
+// e^{cum_Q(c)} + S_c,e.  Four elements a thread.  hf may be null.
+// REV (the backward's mirror): chunks last to first, h0 is dhf, S_c is
+// dS_c, the pair written for chunk c is G_c, the gradient of the state
+// leaving it, and hf receives dh0 = e^{cum_Q(0)} G_0 + dS_0.
+template <bool REV = false>
 __global__ void __launch_bounds__(PASS_NT)
 ssd_state_pass(const float* __restrict__ states,
                const float* __restrict__ decay, const float* __restrict__ h0,
@@ -651,7 +657,8 @@ ssd_state_pass(const float* __restrict__ states,
 #pragma unroll
     for (int u = 0; u < PASS_U; ++u) {
       if (c0 + u < nc) {
-        const size_t slot = (static_cast<size_t>(b) * nc + c0 + u) * H + h;
+        const int c = REV ? nc - 1 - c0 - u : c0 + u;
+        const size_t slot = (static_cast<size_t>(b) * nc + c) * H + h;
         sc[u] = *reinterpret_cast<const float4*>(states + slot * PN + e);
         d[u] = decay[slot];
       }
@@ -659,7 +666,8 @@ ssd_state_pass(const float* __restrict__ states,
 #pragma unroll
     for (int u = 0; u < PASS_U; ++u) {
       if (c0 + u < nc) {
-        const size_t slot = (static_cast<size_t>(b) * nc + c0 + u) * H + h;
+        const int c = REV ? nc - 1 - c0 - u : c0 + u;
+        const size_t slot = (static_cast<size_t>(b) * nc + c) * H + h;
         uint2 hi, lo;
         split(st.x, st.y, hi.x, lo.x);
         split(st.z, st.w, hi.y, lo.y);
@@ -672,7 +680,7 @@ ssd_state_pass(const float* __restrict__ states,
       }
     }
   }
-  *reinterpret_cast<float4*>(hf + head * PN + e) = st;
+  if (hf != nullptr) *reinterpret_cast<float4*>(hf + head * PN + e) = st;
 }
 
 // ---- phase 3: each chunk's outputs ----
@@ -899,7 +907,7 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int PN = P_ * N_;
   const dim3 pass_grid((PN / 4 + PASS_NT - 1) / PASS_NT, H, B);
-  ssd_state_pass<<<pass_grid, PASS_NT, 0, stream>>>(
+  ssd_state_pass<false><<<pass_grid, PASS_NT, 0, stream>>>(
       st, dc, static_cast<const float*>(h0), hn, static_cast<float*>(hf), nc,
       H, PN);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -932,7 +940,9 @@ extern "C" int ssd_scan_chunked_fwd(const void* x, const void* dt,
                          S, H, G, static_cast<cudaStream_t>(stream));
 }
 
-// ---- the backward (ssd_scan_bwd): float32 and bf16, any P, N <= 128 ------
+// ---- the sequential backward (ssd_scan_bwd): float32 and bf16, any P, --
+// ---- N <= 128: float32 calls, bf16 calls shorter than CHUNKED_MIN_S and
+// ---- the widths the chunked backward (below) does not take ------------
 //
 // Replaces the gradient JAX forms for src/repro/kernels/ssd_scan.py::ssd by
 // differentiating its plain path (ref.py::ssd_ref; the JAX package defines
@@ -986,8 +996,8 @@ extern "C" int ssd_scan_chunked_fwd(const void* x, const void* dt,
 // 989 TFLOP/s); this design adds the
 // checkpoints (written and read once, 0.2 GB there) and the workspaces
 // (4 P tiles x dB and dC partials: 0.8 GB), and walks 2 x 96 dependent
-// chunk steps on the CUDA cores.  A simple kernel first: the chunked,
-// tensor-core form is later work.  PERF.md section 6 has its times.
+// chunk steps on the CUDA cores.  The chunked backward below takes the
+// main path's calls.  PERF.md section 6 has both variants' times.
 
 namespace {
 namespace bwd {
@@ -1449,4 +1459,690 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A,
     return bwd::launch<bf16>(x, dt, A, Bm, Cm, h0, dy, dhf, dx, ddt, dA, dB,
                              dC, dh0, ws, B, S, H, P, G, N, st);
   return cudaErrorInvalidValue;
+}
+
+// ---- the chunked backward (ssd_scan_chunked_bwd): bf16, P 64, N 128 -----
+//
+// The backward of the main path: mamba2-370m's training call (B 2, S 3072,
+// H 32, P 64, G 1, N 128), the contract of plain.ssd_bwd_ref as above.
+// Chunks of Q_ = 128 tokens, built on the forward's phases; six kernels on
+// the caller's stream:
+// 1-2. ssd_chunk_states and ssd_state_pass, the forward's, unchanged: the
+//    state entering each chunk as the forward's bf16 hi/lo pair, bit for
+//    bit the forward's own (the Function keeps only the inputs).
+// 3. ssd_chunk_states<GRAD>, the mirror of phase 1 with dy for x, C for B
+//    and E_k = e^{cum_k} for seg: dS_c = Σ_k E_k dy_kᵀ C_k (P x N), on
+//    mma.sync with dy∘E as a hi/lo pair.
+// 4. ssd_state_pass<REV>, the mirror of phase 2, chunks last to first from
+//    dhf (or 0): G_{c-1} = e^{cum_Q(c)} G_c + dS_c, float32 elementwise;
+//    it writes each chunk's G_c (the gradient of the state leaving it) as
+//    a hi/lo pair and gives dh0.
+// 5. ssd_chunk_grads, grid (chunk, head block, batch row) as phase 3, 8
+//    warps each owning 16 rows i of the chunk, per head of the block (up
+//    to HBG_MAX = 4 of one group, which share the chunk's B and C):
+//      u  = D∘(B Gᵀ) + Mᵀ dy               dx = dt∘u
+//      dB = dt∘(D∘(X G) + Tᵀ C)            dC = (T∘dt_j) B + E∘(dy h_in)
+//    with D_i = e^{cum_Q - cum_i}, E_i = e^{cum_i}, L_ki = e^{cum_k - cum_i}
+//    (k >= i only: every exponent <= 0), M_ki = (C_k·B_i) L_ki and T_ki =
+//    (dy_k·x_i) L_ki, formed a 16 x 16 tile at a time in registers (Mᵀ and
+//    Tᵀ for the rows' columns k >= i, T for j <= i) and fed straight back
+//    into the tensor cores.  The decay term a_t <dh_t, h_{t-1}> is
+//    plain.ssd_bwd_chunked's four sums, none of which cancels another:
+//    c1 = e^{cum_Q} <G, h_in>, the prefix sums of σ_j = D_j dt_j x_j·(G
+//    B_j), the suffix sums of τ_k = E_k dy_k·(h_in C_k), and Σ_{k>=t>j}
+//    Y_kj (Y_kj = M_kj dt_j Z_kj) as the prefix sums of (Σ_{k>j} Y_kj -
+//    Σ_{i<j} Y_ji), the column and row sums of Y within the chunk; all P
+//    rows of a head are in the block, so ddt_t = A dl_t + x_t·u_t is whole
+//    there.  dB and dC are summed over the block's heads in order (into a
+//    float32 workspace that only this block touches), dA over the chunk.
+// 6. ssd_grad_reduce adds dB and dC over the head blocks of a group and dA
+//    over chunks and batch rows, in a fixed order: no atomics anywhere, so
+//    two calls are bit-identical.
+// Rounding.  The float32 operands that enter the tensor cores go as bf16
+// hi/lo pairs (~2^-17 of the value), one product each into a float32 sum:
+// dy∘E (phase 3), G and h_in (the passes' pairs), M and T (in registers).
+// x, dy, B and C are bf16 and enter as they are.  plain.
+// ssd_bwd_chunk_parallel restates these phases and rounding points;
+// tests/test_torch_ssd_bwd_chunked.py holds it to jax.vjp of ref.ssd_ref.
+// What bounds it: the contract moves 83 MB at the training call (x, dy,
+// dx, B, C, dB, dC, dt, ddt once): 0.025 ms at 3.35 TB/s.  This design
+// adds the chunk states, moved eight times in all as float32 states,
+// hi/lo pairs and dS (2 x 24 x 32 x 64 x 128 elements, 16 bytes each
+// pass: 403 MB), x, B and dt read twice, and the float32 dB / dC
+// workspace (50 MB written and read): ~570 MB, 0.17 ms.  Its workspace is
+// ssd_scan_chunked_bwd_workspace's 201 MB at that call (the sequential
+// kernel's: 1.01 GB).  PERF.md section 6 has its times.
+
+namespace {
+namespace chunked {
+
+constexpr int HBG_MAX = 4;  // heads of one group a gradient block takes
+
+template <int Q, int P, int N>
+struct GradCfg {
+  static constexpr int NS = N + 8, PS = P + 8;  // padded bf16 rows
+  static constexpr int NW = NT / 32;
+  static_assert(Q == 16 * NW, "one 16-row strip of the chunk a warp");
+  static_assert(P % 16 == 0 && N % 16 == 0, "whole k16 steps");
+  static constexpr size_t smem =  // C, B; x, dy; G and h_in pairs
+      (static_cast<size_t>(2) * Q * NS + 2 * Q * PS + 4 * P * NS) * 2
+      + (2 * HBG_MAX * Q + 4 * Q + NW * Q + NW) * 4;
+};
+
+__device__ __forceinline__ float2 bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// The sum over the four lanes of a quad (one row of an mma fragment).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+// Exclusive prefix sums over the chunk, lane l holding tokens l·PER ..:
+// each lane in token order, then a Hillis-Steele scan of the lanes' totals.
+template <int PER>
+__device__ __forceinline__ void prefix_excl(const float (&v)[PER],
+                                            float (&out)[PER], int lane) {
+  float run = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    out[k] = run;
+    run += v[k];
+  }
+  float tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(FULL, tot, off);
+    if (lane >= off) tot += o;
+  }
+  float excl = __shfl_up_sync(FULL, tot, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) out[k] += excl;
+}
+// Inclusive suffix sums over the chunk: the mirror of prefix_excl.
+template <int PER>
+__device__ __forceinline__ void suffix_incl(const float (&v)[PER],
+                                            float (&out)[PER], int lane) {
+  float run = 0.f;
+#pragma unroll
+  for (int k = PER - 1; k >= 0; --k) {
+    run += v[k];
+    out[k] = run;
+  }
+  float tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_down_sync(FULL, tot, off);
+    if (lane + off < 32) tot += o;
+  }
+  float excl = __shfl_down_sync(FULL, tot, 1);
+  if (lane == 31) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) out[k] += excl;
+}
+
+// acc[n] (+)= A (16 rows of `a`, k over K) x plane (k = its rows, n = its
+// columns: the operand stored [k][n]) for 16 x (8 NT8) outputs, the plane
+// given as a hi/lo pair.
+template <int K, int NT8>
+__device__ __forceinline__ void mma_rows_kn(float (&acc)[NT8][4],
+                                            const bf16* a, int lda,
+                                            const bf16* hi, const bf16* lo,
+                                            int ldp, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane % 16) * lda + ks * 16 + 8 * (lane / 16));
+#pragma unroll
+    for (int np = 0; np < NT8 / 2; ++np) {
+      const int off = (ks * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * ldp
+                      + np * 16 + 8 * (lane / 16);
+      uint32_t bh[4], bl[4];
+      ldsm_x4_t(bh, hi + off);
+      ldsm_x4_t(bl, lo + off);
+      mma16816(acc[2 * np], af, bh[0], bh[1]);
+      mma16816(acc[2 * np], af, bl[0], bl[1]);
+      mma16816(acc[2 * np + 1], af, bh[2], bh[3]);
+      mma16816(acc[2 * np + 1], af, bl[2], bl[3]);
+    }
+  }
+}
+
+// acc[n] += (hi + lo) (a 16 x 16 A tile as two bf16 fragments) x 16 rows of
+// `b` from row k0 (k = its rows, n = its columns), 8 NT8 columns.
+template <int NT8>
+__device__ __forceinline__ void mma_tile_kn(float (&acc)[NT8][4],
+                                            const uint32_t (&hi)[4],
+                                            const uint32_t (&lo)[4],
+                                            const bf16* b, int ldb, int k0,
+                                            int lane) {
+#pragma unroll
+  for (int np = 0; np < NT8 / 2; ++np) {
+    uint32_t bb[4];
+    ldsm_x4_t(bb, b + (k0 + lane % 8 + 8 * ((lane / 8) % 2)) * ldb + np * 16
+                      + 8 * (lane / 16));
+    mma16816(acc[2 * np], hi, bb[0], bb[1]);
+    mma16816(acc[2 * np], lo, bb[0], bb[1]);
+    mma16816(acc[2 * np + 1], hi, bb[2], bb[3]);
+    mma16816(acc[2 * np + 1], lo, bb[2], bb[3]);
+  }
+}
+
+// t[half] = rows i (16 of `a`) · rows k0 .. k0 + 16 of `b` over K: a 16 x
+// 16 tile of A Bᵀ, both stored row by row.
+template <int K>
+__device__ __forceinline__ void mma_tile_abt(float (&t)[2][4], const bf16* a,
+                                             int lda, const bf16* b, int ldb,
+                                             int k0, int lane) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) t[0][e] = t[1][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    uint32_t af[4], bb[4];
+    ldsm_x4(af, a + (lane % 16) * lda + ks * 16 + 8 * (lane / 16));
+    ldsm_x4(bb, b + (k0 + lane % 8 + 8 * (lane / 16)) * ldb + ks * 16
+                    + 8 * ((lane / 8) % 2));
+    mma16816(t[0], af, bb[0], bb[1]);
+    mma16816(t[1], af, bb[2], bb[3]);
+  }
+}
+
+// A 16 x 16 tile in the accumulator layout as the A fragment of the next
+// product, hi/lo.
+__device__ __forceinline__ void split_tile(const float (&v)[2][4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split(v[0][0], v[0][1], hi[0], lo[0]);
+  split(v[0][2], v[0][3], hi[1], lo[1]);
+  split(v[1][0], v[1][1], hi[2], lo[2]);
+  split(v[1][2], v[1][3], hi[3], lo[3]);
+}
+
+// ---- phase 5: each chunk's gradients ----
+template <int Q, int P, int N>
+__global__ void __launch_bounds__(NT, 1)
+ssd_chunk_grads(const bf16* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const bf16* __restrict__ Bm,
+                const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                const bf16* __restrict__ hin, const bf16* __restrict__ gin,
+                bf16* __restrict__ dx, float* __restrict__ ddt,
+                float* __restrict__ wsB, float* __restrict__ wsC,
+                float* __restrict__ dApart, int S, int H, int G, int hb) {
+  using C_ = GradCfg<Q, P, N>;
+  constexpr int NS = C_::NS, PS = C_::PS, NW = C_::NW;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw);  // [Q][NS]
+  bf16* sB = sC + Q * NS;                        // [Q][NS]
+  bf16* sX = sB + Q * NS;                        // [Q][PS]
+  bf16* sDY = sX + Q * PS;                       // [Q][PS]
+  bf16* sGh = sDY + Q * PS;                      // [P][NS] G: hi, lo
+  bf16* sGl = sGh + P * NS;
+  bf16* sHh = sGl + P * NS;                      // [P][NS] h_in: hi, lo
+  bf16* sHl = sHh + P * NS;
+  float* sDt = reinterpret_cast<float*>(sHl + P * NS);  // [HBG_MAX][Q]
+  float* sCum = sDt + HBG_MAX * Q;                       // [HBG_MAX][Q]
+  float* sSig = sCum + HBG_MAX * Q;  // [Q] σ_i
+  float* sTau = sSig + Q;            // [Q] τ_i
+  float* sQv = sTau + Q;             // [Q] x_i·u_i
+  float* sColY = sQv + Q;            // [Q] Σ_{k>i} Y_ki
+  float* sRowY = sColY + Q;          // [NW][Q] Σ_{i<k} Y_ki over a warp's i
+  float* sRed = sRowY + NW * Q;      // [NW]
+
+  const int c = blockIdx.x, h0 = blockIdx.y * hb, b = blockIdx.z;
+  const int nc = gridDim.x, nhb = gridDim.y, hblk = blockIdx.y;
+  const int g = h0 / (H / G), s0 = c * Q, valid = S - s0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane % 4;
+  const size_t tok0 = static_cast<size_t>(b) * S + s0;
+  const int mt = warp, i0 = 16 * mt;           // this warp's rows
+  const int r0 = i0 + lane / 4, r1 = r0 + 8;  // this lane's rows
+
+  const size_t gb = (tok0 * G + g) * N;
+  load_tile<Q, N>(sC, NS, Cm + gb, static_cast<size_t>(G) * N, valid);
+  load_tile<Q, N>(sB, NS, Bm + gb, static_cast<size_t>(G) * N, valid);
+  wgmma_sm90::cp_async_commit();
+  load_dt<Q>(sDt, dt, b, s0, S, H, h0, hb);
+  __syncthreads();
+  if (warp < hb)
+    chunk_cumsum<Q>(sDt + warp * Q, A[h0 + warp], sCum + warp * Q, lane);
+
+  for (int hh = 0; hh < hb; ++hh) {
+    const int h = h0 + hh;
+    {
+      const size_t xo = (tok0 * H + h) * P;
+      const size_t slot = ((static_cast<size_t>(b) * nc + c) * H + h) * 2 * P * N;
+      load_tile<Q, P>(sX, PS, x + xo, static_cast<size_t>(H) * P, valid);
+      load_tile<Q, P>(sDY, PS, dy + xo, static_cast<size_t>(H) * P, valid);
+      load_tile<2 * P, N>(sGh, NS, gin + slot, N, 2 * P);
+      load_tile<2 * P, N>(sHh, NS, hin + slot, N, 2 * P);
+      wgmma_sm90::cp_async_commit();
+    }
+    wgmma_sm90::cp_async_wait<0>();
+    __syncthreads();
+    const float* cum = sCum + hh * Q;
+    const float* dtv = sDt + hh * Q;
+    const float cQ = cum[Q - 1], cr0 = cum[r0], cr1 = cum[r1];
+    const float dR0 = expf(cQ - cr0), dR1 = expf(cQ - cr1);  // D_i
+    const float eR0 = expf(cr0), eR1 = expf(cr1);            // E_i
+
+    // u = D∘(B Gᵀ), then σ_i = dt_i x_i·u_i from it
+    float au[P / 8][4];
+#pragma unroll
+    for (int n = 0; n < P / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) au[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t af[4];
+      ldsm_x4(af, sB + (i0 + lane % 16) * NS + ks * 16 + 8 * (lane / 16));
+#pragma unroll
+      for (int pp = 0; pp < P / 16; ++pp) {
+        // k = n, n = p: G stored [p][n] as hi and lo planes
+        const int off = (pp * 16 + lane % 8 + 8 * (lane / 16)) * NS
+                        + ks * 16 + 8 * ((lane / 8) % 2);
+        uint32_t bh[4], bl[4];
+        ldsm_x4(bh, sGh + off);
+        ldsm_x4(bl, sGl + off);
+        mma16816(au[2 * pp], af, bh[0], bh[1]);
+        mma16816(au[2 * pp], af, bl[0], bl[1]);
+        mma16816(au[2 * pp + 1], af, bh[2], bh[3]);
+        mma16816(au[2 * pp + 1], af, bl[2], bl[3]);
+      }
+    }
+    {
+      float sg0 = 0.f, sg1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < P / 8; ++n) {
+        au[n][0] *= dR0; au[n][1] *= dR0;
+        au[n][2] *= dR1; au[n][3] *= dR1;
+        const int p = 8 * n + 2 * t4;
+        const float2 x0 = bf2(sX + r0 * PS + p), x1 = bf2(sX + r1 * PS + p);
+        sg0 += x0.x * au[n][0] + x0.y * au[n][1];
+        sg1 += x1.x * au[n][2] + x1.y * au[n][3];
+      }
+      sg0 = quad_sum(sg0);
+      sg1 = quad_sum(sg1);
+      if (t4 == 0) {
+        sSig[r0] = dtv[r0] * sg0;
+        sSig[r1] = dtv[r1] * sg1;
+      }
+    }
+
+    // dB (before dt) = D∘(X G)
+    float ab[N / 8][4];
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ab[n][e] = 0.f;
+    mma_rows_kn<P, N / 8>(ab, sX + i0 * PS, PS, sGh, sGl, NS, lane);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      ab[n][0] *= dR0; ab[n][1] *= dR0;
+      ab[n][2] *= dR1; ab[n][3] *= dR1;
+    }
+
+    // the columns k >= i, a 16-column tile at a time: Mᵀ and Tᵀ, then u +=
+    // Mᵀ dy and dB += Tᵀ C; Y's row and column sums
+    float cy0 = 0.f, cy1 = 0.f;  // Σ_{k>i} Y_ki, rows r0 / r1, my columns
+    for (int kk = mt; kk < Q / 16; ++kk) {
+      float cb[2][4], zt[2][4];
+      mma_tile_abt<N>(cb, sB + i0 * NS, NS, sC, NS, kk * 16, lane);  // B_i·C_k
+      mma_tile_abt<P>(zt, sX + i0 * PS, PS, sDY, PS, kk * 16, lane);  // x_i·dy_k
+      float m[2][4], t[2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float ys0 = 0.f, ys1 = 0.f;  // Y of my two rows, columns +0 / +1
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? r0 : r1;
+          const int k = kk * 16 + 8 * half + 2 * t4 + (e & 1);
+          float mv = 0.f, tv = 0.f, yv = 0.f;
+          if (k >= i) {
+            const float l = wgmma_sm90::ex2((cum[k] - (e < 2 ? cr0 : cr1))
+                                            * LOG2E);
+            mv = cb[half][e] * l;
+            tv = zt[half][e] * l;
+            if (k > i) yv = mv * dtv[i] * zt[half][e];
+          }
+          m[half][e] = mv;
+          t[half][e] = tv;
+          if (e < 2) cy0 += yv; else cy1 += yv;
+          if (e & 1) ys1 += yv; else ys0 += yv;
+        }
+        // the column sums over the warp's 16 rows: the 8 lanes of a column
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          ys0 += __shfl_xor_sync(FULL, ys0, off);
+          ys1 += __shfl_xor_sync(FULL, ys1, off);
+        }
+        if (lane < 4) {
+          float* ry = sRowY + warp * Q + kk * 16 + 8 * half + 2 * t4;
+          ry[0] = ys0;
+          ry[1] = ys1;
+        }
+      }
+      uint32_t hi[4], lo[4];
+      split_tile(m, hi, lo);
+      mma_tile_kn<P / 8>(au, hi, lo, sDY, PS, kk * 16, lane);
+      split_tile(t, hi, lo);
+      mma_tile_kn<N / 8>(ab, hi, lo, sC, NS, kk * 16, lane);
+    }
+    cy0 = quad_sum(cy0);
+    cy1 = quad_sum(cy1);
+    if (t4 == 0) {
+      sColY[r0] = cy0;
+      sColY[r1] = cy1;
+    }
+
+    // dx = dt∘u and x_i·u_i; dB's part of this head into the workspace
+    {
+      float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < P / 8; ++n) {
+        const int p = 8 * n + 2 * t4;
+        const float2 x0 = bf2(sX + r0 * PS + p), x1 = bf2(sX + r1 * PS + p);
+        q0 += x0.x * au[n][0] + x0.y * au[n][1];
+        q1 += x1.x * au[n][2] + x1.y * au[n][3];
+      }
+      q0 = quad_sum(q0);
+      q1 = quad_sum(q1);
+      if (t4 == 0) {
+        sQv[r0] = q0;
+        sQv[r1] = q1;
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r >= valid) continue;
+        const float d = dtv[r];
+        bf16* row = dx + ((tok0 + r) * H + h) * P;
+#pragma unroll
+        for (int n = 0; n < P / 8; ++n)
+          *reinterpret_cast<uint32_t*>(row + 8 * n + 2 * t4) =
+              pack_bf16(d * au[n][2 * half], d * au[n][2 * half + 1]);
+        float* wrow = wsB + ((tok0 + r) * nhb + hblk) * N;
+#pragma unroll
+        for (int n = 0; n < N / 8; ++n) {
+          float2* p2 = reinterpret_cast<float2*>(wrow + 8 * n + 2 * t4);
+          float2 v = make_float2(d * ab[n][2 * half], d * ab[n][2 * half + 1]);
+          if (hh > 0) {
+            const float2 o = *p2;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *p2 = v;
+        }
+      }
+    }
+
+    // dC = E∘(dy h_in) + (T∘dt_j) B over the columns j <= i; τ from the
+    // first term
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ab[n][e] = 0.f;
+    mma_rows_kn<P, N / 8>(ab, sDY + i0 * PS, PS, sHh, sHl, NS, lane);
+    {
+      float ta0 = 0.f, ta1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        ab[n][0] *= eR0; ab[n][1] *= eR0;
+        ab[n][2] *= eR1; ab[n][3] *= eR1;
+        const int col = 8 * n + 2 * t4;
+        const float2 c0 = bf2(sC + r0 * NS + col), c1 = bf2(sC + r1 * NS + col);
+        ta0 += c0.x * ab[n][0] + c0.y * ab[n][1];
+        ta1 += c1.x * ab[n][2] + c1.y * ab[n][3];
+      }
+      ta0 = quad_sum(ta0);
+      ta1 = quad_sum(ta1);
+      if (t4 == 0) {
+        sTau[r0] = ta0;
+        sTau[r1] = ta1;
+      }
+    }
+    for (int jj = 0; jj <= mt; ++jj) {
+      float z[2][4];
+      mma_tile_abt<P>(z, sDY + i0 * PS, PS, sX, PS, jj * 16, lane);  // dy_i·x_j
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? r0 : r1;
+          const int j = jj * 16 + 8 * half + 2 * t4 + (e & 1);
+          z[half][e] = j <= i ? z[half][e]
+                                    * wgmma_sm90::ex2(((e < 2 ? cr0 : cr1)
+                                                       - cum[j]) * LOG2E)
+                                    * dtv[j]
+                              : 0.f;
+        }
+      uint32_t hi[4], lo[4];
+      split_tile(z, hi, lo);
+      mma_tile_kn<N / 8>(ab, hi, lo, sB, NS, jj * 16, lane);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? r1 : r0;
+      if (r >= valid) continue;
+      float* wrow = wsC + ((tok0 + r) * nhb + hblk) * N;
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        float2* p2 = reinterpret_cast<float2*>(wrow + 8 * n + 2 * t4);
+        float2 v = make_float2(ab[n][2 * half], ab[n][2 * half + 1]);
+        if (hh > 0) {
+          const float2 o = *p2;
+          v = make_float2(o.x + v.x, o.y + v.y);
+        }
+        *p2 = v;
+      }
+    }
+
+    // <G, h_in> over the head's state, each warp's part
+    {
+      float gh = 0.f;
+      for (int e = threadIdx.x; e < P * N / 2; e += NT) {
+        const int p = 2 * e / N, n = 2 * e % N;
+        const float2 ga = bf2(sGh + p * NS + n), gl = bf2(sGl + p * NS + n);
+        const float2 ha = bf2(sHh + p * NS + n), hl = bf2(sHl + p * NS + n);
+        gh += (ga.x + gl.x) * (ha.x + hl.x) + (ga.y + gl.y) * (ha.y + hl.y);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) gh += __shfl_xor_sync(FULL, gh, off);
+      if (lane == 0) sRed[warp] = gh;
+    }
+    __syncthreads();
+
+    // a_t <dh_t, h_{t-1}> = c1 + Σ_{j<t} (σ_j + Σ_{k>j} Y_kj - Σ_{i<j} Y_ji)
+    // + Σ_{k>=t} τ_k; ddt and this chunk's part of dA
+    if (warp == 0) {
+      constexpr int PER = Q / 32;
+      float c1 = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) c1 += sRed[w];
+      c1 *= expf(cQ);
+      float v[PER], ta[PER], pre[PER], suf[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int tk = lane * PER + k;
+        float ry = 0.f;
+        for (int w = 0; w <= tk / 16; ++w) ry += sRowY[w * Q + tk];
+        v[k] = sSig[tk] + sColY[tk] - ry;
+        ta[k] = sTau[tk];
+      }
+      prefix_excl<PER>(v, pre, lane);
+      suffix_incl<PER>(ta, suf, lane);
+      const float a_h = A[h];
+      float da = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int tk = lane * PER + k;
+        const float dl = c1 + pre[k] + suf[k];
+        if (tk < valid) ddt[(tok0 + tk) * H + h] = a_h * dl + sQv[tk];
+        da += dtv[tk] * dl;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) da += __shfl_xor_sync(FULL, da, off);
+      if (lane == 0) dApart[(static_cast<size_t>(b) * nc + c) * H + h] = da;
+    }
+    __syncthreads();  // the tiles and the token scratch are free again
+  }
+}
+
+// ---- phase 6: dB and dC over a group's head blocks, dA over the chunks --
+template <int N>
+__global__ void __launch_bounds__(NT)
+ssd_grad_reduce(const float* __restrict__ wsB, const float* __restrict__ wsC,
+                const float* __restrict__ dApart, bf16* __restrict__ dB,
+                bf16* __restrict__ dC, float* __restrict__ dA, int Bsz, int S,
+                int H, int G, int nc, int nhb) {
+  const int per = nhb / G;  // head blocks of a group
+  const size_t n1 = static_cast<size_t>(Bsz) * S * G * N, n2 = n1 + H;
+  for (size_t i = blockIdx.x * static_cast<size_t>(NT) + threadIdx.x; i < n2;
+       i += static_cast<size_t>(gridDim.x) * NT) {
+    if (i < n1) {
+      const size_t n = i % N, r = i / N, gg = r % G, row = r / G;
+      float sb = 0.f, sc = 0.f;
+      for (int j = 0; j < per; ++j) {
+        const size_t off = (row * nhb + gg * per + j) * N + n;
+        sb += wsB[off];
+        sc += wsC[off];
+      }
+      dB[i] = __float2bfloat16_rn(sb);
+      dC[i] = __float2bfloat16_rn(sc);
+    } else {
+      const size_t hh = i - n1;
+      float s = 0.f;
+      for (int bb = 0; bb < Bsz; ++bb)
+        for (int cc = 0; cc < nc; ++cc)
+          s += dApart[(static_cast<size_t>(bb) * nc + cc) * H + hh];
+      dA[hh] = s;
+    }
+  }
+}
+
+// Heads of one group a block takes: the largest power of 2 up to `most`
+// dividing H / G.
+inline int heads_per_block(int H, int G, int most) {
+  const int rep = H / G;
+  int hb = 1;
+  while (hb * 2 <= most && rep % (hb * 2) == 0) hb *= 2;
+  return hb;
+}
+
+// The chunked backward's workspace, in bytes, each piece 256-byte aligned:
+// chunk states / dS float32 (B, nc, H, P, N), decay float32 (B, nc, H),
+// h_in and G pairs bf16 (B, nc, H, 2, P, N) each, dB and dC float32 (B, S,
+// H / hb, N) each, dA float32 (B, nc, H).
+struct BwdWs {
+  size_t states, decay, hin, gin, db, dc, da, total;
+  BwdWs(int B, int S, int H, int G) {
+    const size_t nc = (S + Q_ - 1) / Q_, PN = static_cast<size_t>(P_) * N_;
+    const size_t nhb = H / heads_per_block(H, G, HBG_MAX);
+    auto up = [](size_t v) { return (v + 255) / 256 * 256; };
+    states = 0;
+    decay = states + up(B * nc * H * PN * 4);
+    hin = decay + up(B * nc * H * 4);
+    gin = hin + up(B * nc * H * 2 * PN * 2);
+    db = gin + up(B * nc * H * 2 * PN * 2);
+    dc = db + up(static_cast<size_t>(B) * S * nhb * N_ * 4);
+    da = dc + up(static_cast<size_t>(B) * S * nhb * N_ * 4);
+    total = da + up(B * nc * H * 4);
+  }
+};
+
+int launch_bwd(const void* x, const void* dt, const void* A, const void* Bm,
+               const void* Cm, const void* h0, const void* dy,
+               const void* dhf, void* dx, void* ddt, void* dA, void* dB,
+               void* dC, void* dh0, void* ws, int B, int S, int H, int G,
+               cudaStream_t stream) {
+  constexpr int Q = Q_;
+  using C_ = Cfg<Q, P_, N_>;
+  using GC = GradCfg<Q, P_, N_>;
+  const int hb1 = heads_per_block(H, G, HB1_MAX);
+  const int hbg = heads_per_block(H, G, HBG_MAX);
+  const int nc = (S + Q - 1) / Q, PN = P_ * N_;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(ssd_chunk_states<Q, P_, N_, false>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(C_::states_smem)))
+          != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ssd_chunk_states<Q, P_, N_, true>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(C_::states_smem)))
+          != cudaSuccess ||
+      (err = cudaFuncSetAttribute(ssd_chunk_grads<Q, P_, N_>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(GC::smem))) != cudaSuccess)
+    return err;
+  const BwdWs L(B, S, H, G);
+  unsigned char* w = static_cast<unsigned char*>(ws);
+  float* states = reinterpret_cast<float*>(w + L.states);
+  float* decay = reinterpret_cast<float*>(w + L.decay);
+  bf16* hin = reinterpret_cast<bf16*>(w + L.hin);
+  bf16* gin = reinterpret_cast<bf16*>(w + L.gin);
+  float* wsB = reinterpret_cast<float*>(w + L.db);
+  float* wsC = reinterpret_cast<float*>(w + L.dc);
+  float* dApart = reinterpret_cast<float*>(w + L.da);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* dyb = static_cast<const bf16*>(dy);
+  const bf16* Bb = static_cast<const bf16*>(Bm);
+  const bf16* Cb = static_cast<const bf16*>(Cm);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const dim3 grid1(nc, H / hb1, B);
+  const dim3 pass_grid((PN / 4 + PASS_NT - 1) / PASS_NT, H, B);
+  ssd_chunk_states<Q, P_, N_, false><<<grid1, NT, C_::states_smem, stream>>>(
+      xb, dtf, Af, Bb, states, decay, S, H, G, hb1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_state_pass<false><<<pass_grid, PASS_NT, 0, stream>>>(
+      states, decay, static_cast<const float*>(h0), hin, nullptr, nc, H, PN);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_chunk_states<Q, P_, N_, true><<<grid1, NT, C_::states_smem, stream>>>(
+      dyb, dtf, Af, Cb, states, decay, S, H, G, hb1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_state_pass<true><<<pass_grid, PASS_NT, 0, stream>>>(
+      states, decay, static_cast<const float*>(dhf), gin,
+      static_cast<float*>(dh0), nc, H, PN);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_chunk_grads<Q, P_, N_><<<dim3(nc, H / hbg, B), NT, GC::smem, stream>>>(
+      xb, dtf, Af, Bb, Cb, dyb, hin, gin, static_cast<bf16*>(dx),
+      static_cast<float*>(ddt), wsB, wsC, dApart, S, H, G, hbg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t items = static_cast<size_t>(B) * S * G * N_ + H;
+  const size_t blocks = (items + NT - 1) / NT;
+  ssd_grad_reduce<N_><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                        NT, 0, stream>>>(
+      wsB, wsC, dApart, static_cast<bf16*>(dB), static_cast<bf16*>(dC),
+      static_cast<float*>(dA), B, S, H, G, nc, H / hbg);
+  return cudaGetLastError();
+}
+
+}  // namespace chunked
+}  // namespace
+
+// Bytes of the workspace ssd_scan_chunked_bwd takes.
+extern "C" long long ssd_scan_chunked_bwd_workspace(int B, int S, int H,
+                                                    int G) {
+  if (B < 1 || S < 1 || H < 1 || G < 1 || H % G) return -1;
+  return static_cast<long long>(chunked::BwdWs(B, S, H, G).total);
+}
+
+// The gradient of ssd_scan_chunked_fwd: bf16 x, Bm, Cm, dy and dx, dB, dC
+// (x, Bm, Cm, dy and h0 / dhf, if given, 16-byte aligned); dt, A, h0, dhf
+// and ddt, dA, dh0 float32; all contiguous.  h0 and dhf may be null
+// (zeros); dh0 is written when not null.  P = 64, N = 128.  ws:
+// ssd_scan_chunked_bwd_workspace bytes.  Six kernels on `stream`; returns
+// the first launch error, 0 if none.
+extern "C" int ssd_scan_chunked_bwd(const void* x, const void* dt,
+                                    const void* A, const void* Bm,
+                                    const void* Cm, const void* h0,
+                                    const void* dy, const void* dhf,
+                                    void* dx, void* ddt, void* dA, void* dB,
+                                    void* dC, void* dh0, void* ws, int B,
+                                    int S, int H, int P, int G, int N,
+                                    void* stream) {
+  if (B < 1 || S < 1 || H < 1 || G < 1 || H % G || P != chunked::P_
+      || N != chunked::N_ || B > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  return chunked::launch_bwd(x, dt, A, Bm, Cm, h0, dy, dhf, dx, ddt, dA, dB,
+                             dC, dh0, ws, B, S, H, G,
+                             static_cast<cudaStream_t>(stream));
 }

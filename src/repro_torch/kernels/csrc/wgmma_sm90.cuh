@@ -2,8 +2,9 @@
 // under csrc/: shared-memory matrix descriptors for the 128-byte swizzle,
 // the bf16 wgmma.mma_async m64n64k16 with f32 accumulate (A from shared
 // memory or from registers) and its m64n32k16 / m64n96k16 / m64n128k16 /
-// m64n256k16 forms (A from shared memory, K-major or MN-major), the fences and group waits around
-// them, cp.async into the swizzled layout, the slab ring of the persistent
+// m64n192k16 / m64n256k16 forms (A from shared memory, K-major or
+// MN-major), the fences and group waits around them, cp.async into the
+// swizzled layout, the slab ring of the persistent
 // wgmma kernels (slab_ring), an accumulator row's 16-byte bf16 pieces
 // (row8_bf16) and the once-a-device shared-memory attribute (with_smem).
 //
@@ -216,11 +217,41 @@ __device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t da,
   "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
   "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
+#define WGMMA_D96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+  "%93, %94, %95}"
+#define WGMMA_OUT96(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
+  "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), \
+  "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+  "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), \
+  "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), \
+  "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), \
+  "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
 // The wider forms of mma_ss: d (+)= A B for a 64 x 96 x 16 tile (d: 48
-// floats a thread), a 64 x 128 x 16 tile (64 floats) and a 64 x 256 x 16
-// tile (128 floats), in the accumulator fragment above with n = 0..11,
-// 0..15 or 0..31.  An MN-major B
-// wider than 64 columns is a row of 64-column chunks, lbo bytes apart.
+// floats a thread), a 64 x 128 x 16 tile (64 floats), a 64 x 192 x 16
+// tile (96 floats) and a 64 x 256 x 16 tile (128 floats), in the
+// accumulator fragment above with n = 0..11, 0..15, 0..23 or 0..31.  An
+// MN-major B wider than 64 columns is a row of 64-column chunks, lbo bytes
+// apart.
 // An MN-major A (TA = 1: the 64 rows of M run along a chunk's columns, its
 // rows are K) is one such chunk.
 template <int TB, int TA = 0>
@@ -244,6 +275,16 @@ __device__ __forceinline__ void mma_ss128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 template <int TB, int TA = 0>
+__device__ __forceinline__ void mma_ss192(float (&d)[96], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " WGMMA_D96
+      ", %96, %97, p, 1, 1, %100, %99;\n}\n"
+      : WGMMA_OUT96(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
+}
+template <int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss256(float (&d)[128], uint64_t da,
                                           uint64_t db, int accumulate) {
   asm volatile(
@@ -253,13 +294,15 @@ __device__ __forceinline__ void mma_ss256(float (&d)[128], uint64_t da,
       : WGMMA_OUT128(d)
       : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
-// mma_ss at N = 96, 128 or 256 columns.
+// mma_ss at N = 96, 128, 192 or 256 columns.
 template <int N, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(N == 96 || N == 128 || N == 256, "wgmma N: 96, 128 or 256");
+  static_assert(N == 96 || N == 128 || N == 192 || N == 256,
+                "wgmma N: 96, 128, 192 or 256");
   if constexpr (N == 96) mma_ss96<TB, TA>(d, da, db, accumulate);
   else if constexpr (N == 128) mma_ss128<TB, TA>(d, da, db, accumulate);
+  else if constexpr (N == 192) mma_ss192<TB, TA>(d, da, db, accumulate);
   else mma_ss256<TB, TA>(d, da, db, accumulate);
 }
 template <int N>
@@ -276,6 +319,8 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #undef WGMMA_OUT48
 #undef WGMMA_D64
 #undef WGMMA_OUT64
+#undef WGMMA_D96
+#undef WGMMA_OUT96
 #undef WGMMA_D128
 #undef WGMMA_OUT128
 
@@ -300,8 +345,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The slab ring of the persistent wgmma kernels (moe_gmm.cu's gmm_wgmma,
-// memcom_xattn.cu's xattn_logits_wgmma and xattn_out_wgmma).  A block
+// The slab ring of the persistent wgmma kernels (moe_gmm.cu's gmm_wgmma
+// and gmm_bwd_wgmma, memcom_xattn.cu's xattn_logits_wgmma and
+// xattn_out_wgmma).  A block
 // walks the 64-deep contraction slabs of its `tiles` output tiles, `nk`
 // slabs a tile, as one stream through a ring of STAGES shared-memory
 // stages filled by cp.async: STAGES - 2 slabs load beyond the current one,

@@ -16,11 +16,15 @@ variants.
 
 The backward (``csrc/moe_gmm.cu``'s ``moe_gmm_bwd``: dX = dY Wᵀ reading W
 in place, dW = Xᵀ dY, each a hand-written kernel) is held to
-``plain.gmm_bwd_ref``.  A CUDA call that autograd records (gradients
+``plain.gmm_bwd_ref``.  :func:`bwd_variant_for` picks its kernel:
+``"wgmma"`` (bf16 with whole 16-byte rows: the forward's wgmma tile and
+ring with the backward's storage orders), ``"mma_sync"`` (the other bf16
+calls) or ``"float32"``.  A CUDA call that autograd records (gradients
 enabled, x or w requiring grad) goes through :class:`Gmm`, whose backward
 launches it for the inputs that need a gradient; any other CUDA call is
 the forward launch alone.  ``bwd_launches`` counts backward calls that
-launched, ``bwd_dx_launches`` and ``bwd_dw_launches`` the two products.
+launched, ``bwd_dx_launches`` and ``bwd_dw_launches`` the two products,
+``bwd_wgmma_launches`` the backward calls that went to the wgmma variant.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ rows_launches = 0
 bwd_launches = 0
 bwd_dx_launches = 0
 bwd_dw_launches = 0
+bwd_wgmma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"float32": 0, "mma_sync": 0, "wgmma": 1, "rows": 2}
@@ -178,24 +183,71 @@ def _launch(x, w, variant):
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = build.load("moe_gmm").moe_gmm_bwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def gmm_bwd(x, w, dy, *, need_dx=True, need_dw=True):
+def bwd_takes(variant, dtype, E, C, D, F, aligned) -> bool:
+    """Whether backward kernel ``variant`` computes a call of this shape at
+    all; ``aligned``: x, w and dy start on 16-byte boundaries."""
+    if E > _MAX_GRID:
+        return False
+    if variant == "float32":
+        return dtype == torch.float32 and -(-max(C, D) // 64) <= _MAX_GRID
+    if dtype != torch.bfloat16:
+        return False
+    if variant == "mma_sync":
+        return -(-max(C, D) // 64) <= _MAX_GRID
+    if variant == "wgmma":
+        return aligned and D % 8 == 0 and F % 8 == 0
+    raise ValueError(f"unknown variant {variant!r}")
+
+
+def bwd_variant_for(dtype, C, D, F, aligned) -> str:
+    """The backward kernel a CUDA call goes to: float32 runs on the CUDA
+    cores; a bf16 call whose rows of x, w and dy are whole 16-byte copies
+    (D and F multiples of 8, 16-byte aligned bases) goes to the wgmma
+    kernel, at every C (its tile covers up to 256 rows, so at granite's
+    C = 256 each expert's weights are read once); the other bf16 calls go
+    to mma.sync."""
+    if dtype == torch.float32:
+        return "float32"
+    if bwd_takes("wgmma", dtype, 1, C, D, F, aligned):
+        return "wgmma"
+    return "mma_sync"
+
+
+def gmm_bwd(x, w, dy, *, need_dx=True, need_dw=True, variant=None):
     """The gradient of :func:`gmm`: (dx = dy wᵀ or None, dw = xᵀ dy or
     None).  A CPU tensor goes to ``plain.gmm_bwd_ref``; a CUDA call
-    launches the backward kernels for the products asked for."""
+    launches the backward kernels for the products asked for.
+    ``variant`` forces ``"wgmma"`` or ``"mma_sync"`` instead of
+    :func:`bwd_variant_for`'s choice; a variant that does not take the
+    call raises ``NotImplementedError`` (a CPU call too, which then goes
+    to the plain version)."""
+    if variant is not None:
+        if variant not in ("wgmma", "mma_sync"):
+            raise ValueError(f"unknown variant {variant!r}")
+        E, C, D = x.shape
+        F = w.shape[-1]
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy))
+        if not bwd_takes(variant, x.dtype, E, C, D, F, aligned):
+            raise NotImplementedError(
+                f"the {variant} backward kernel does not take {x.dtype} x "
+                f"{tuple(x.shape)} w {tuple(w.shape)} (aligned: {aligned}):"
+                " wgmma takes bf16 with D and F multiples of 8 and 16-byte "
+                "aligned x, w and dy, mma_sync any bf16 call")
     if not x.is_cuda:
         return plain.gmm_bwd_ref(x, w, dy, need_dx, need_dw)
-    return _bwd_launch(x, w, dy.contiguous(), need_dx, need_dw)
+    return _bwd_launch(x, w, dy.contiguous(), need_dx, need_dw, variant)
 
 
-def _bwd_launch(x, w, dy, need_dx, need_dw):
-    """Check a CUDA backward call and launch the products asked for;
-    returns (dx or None, dw or None)."""
-    global bwd_launches, bwd_dx_launches, bwd_dw_launches
+def _bwd_launch(x, w, dy, need_dx, need_dw, variant=None):
+    """Check a CUDA backward call and launch the products asked for with
+    the kernel :func:`bwd_variant_for` (or ``variant``) picks; returns (dx
+    or None, dw or None)."""
+    global bwd_launches, bwd_dx_launches, bwd_dw_launches, bwd_wgmma_launches
     if not (need_dx or need_dw):
         return None, None
     if w.device != x.device or dy.device != x.device:
@@ -212,7 +264,9 @@ def _bwd_launch(x, w, dy, need_dx, need_dw):
     for name, t in (("x", x), ("w", w), ("dy", dy)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if E > _MAX_GRID or -(-max(C, D) // 64) > _MAX_GRID:
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy))
+    chosen = variant or bwd_variant_for(x.dtype, C, D, F, aligned)
+    if not bwd_takes(chosen, x.dtype, E, C, D, F, aligned):
         raise ValueError(f"E={E}, C={C}, D={D}: the grid takes E <= "
                          f"{_MAX_GRID} and C, D <= 64 * {_MAX_GRID}")
     dx = torch.empty_like(x) if need_dx else None
@@ -222,11 +276,12 @@ def _bwd_launch(x, w, dy, need_dx, need_dw):
         err = _bwd_kernel()(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
                             dx.data_ptr() if need_dx else None,
                             dw.data_ptr() if need_dw else None, E, C, D, F,
-                            _DTYPES[x.dtype], stream)
+                            _DTYPES[x.dtype], _VARIANTS[chosen], stream)
     if err != 0:
-        raise RuntimeError(f"moe_gmm backward kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"moe_gmm backward kernel launch failed "
+                           f"({chosen}): cudaError {err}")
     bwd_launches += 1
     bwd_dx_launches += bool(need_dx)
     bwd_dw_launches += bool(need_dw)
+    bwd_wgmma_launches += chosen == "wgmma"
     return dx, dw

@@ -816,6 +816,123 @@ def ssd_chunk_parallel(x, dt, A, Bm, Cm, *, init_state=None):
     return y.to(x.dtype), h
 
 
+def ssd_bwd_chunk_parallel(x, dt, A, Bm, Cm, init_state, dy, dhf, *,
+                           rounding=True):
+    """The chunked Hopper ``ssd`` backward (``csrc/ssd_scan.cu``,
+    ``ssd_scan_chunked_bwd``) restated on the CPU, for the tests only: the
+    contract of :func:`ssd_bwd_ref`, in the kernels' order, at their chunk
+    length (``ssd_scan.CHUNK_Q``) and with their rounding points.
+
+    1-2. The forward's chunk states and state pass
+         (:func:`ssd_chunk_parallel`'s phases 1 and 2): the state entering
+         each chunk as its hi/lo pair.
+    3-4. Their mirrors: ``dS_c = Σ_k E_k dy_kᵀ C_k`` (dy∘E as a hi/lo
+         pair), then, chunks last to first from dhf, ``G_{c-1} =
+         e^{cum_Q(c)} G_c + dS_c``: G_c (the gradient of the state leaving
+         chunk c) as a hi/lo pair, and dh0.
+    5. Every chunk's gradients at once: ``u = D∘(B Gᵀ) + Mᵀ dy``, ``dx =
+       dt∘u``, ``dB = dt∘(D∘(X G) + Tᵀ C)``, ``dC = (T∘dt_j) B +
+       E∘(dy h_in)`` with ``M_ki = (C_k·B_i) e^{cum_k - cum_i}`` and ``T_ki
+       = (dy_k·x_i) e^{cum_k - cum_i}`` for k >= i (M, T and T∘dt_j as
+       hi/lo pairs), and the decay term ``a_t <dh_t, h_{t-1}>`` as ``c1 +
+       Σ_{j<t} (σ_j + Σ_{k>j} Y_kj - Σ_{i<j} Y_ji) + Σ_{k>=t} τ_k``
+       (``Y_kj = M_kj dt_j Z_kj``), which gives ddt and dA.
+    6. dB and dC summed over each group's heads, dA over chunks and batch
+       rows.
+
+    ``cum`` is :func:`_chunk_cumsum`'s.  Sums in float32 for bf16 inputs,
+    float64 for float64 inputs.  With ``rounding`` (bf16 inputs) the
+    float32 operands of the kernels' products take the value of their
+    hi/lo pair in bf16 (:func:`_terms`); without it, or for other inputs,
+    they enter as they are, so that float64 inputs give
+    :func:`ssd_bwd_ref`'s gradients up to float64 rounding."""
+    from repro_torch.kernels.ssd_scan import CHUNK_Q as Q
+
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    rd = x.dtype if rounding and x.dtype == torch.bfloat16 else None
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def terms(v):
+        return v if rd is None else _terms(v, rd, 2)
+
+    def chunks(t, heads=False):  # (B, S, ...) -> (B, nc, Q, ...), 0 past S
+        t = t.to(ft)
+        if heads:
+            t = t.repeat_interleave(rep, dim=2)
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bsz, pad) + t.shape[2:])], dim=1)
+        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+
+    xc, dtc, bh, ch = chunks(x), chunks(dt), chunks(Bm, True), chunks(Cm, True)
+    dyc = chunks(torch.zeros_like(x) if dy is None else dy)
+    Af = A.to(ft)
+    cum = _chunk_cumsum((dtc * Af).transpose(2, 3)).transpose(2, 3)
+    last = cum[:, :, -1:]  # (B, nc, 1, H)
+    E, D = torch.exp(cum), torch.exp(last - cum)
+    decay = torch.exp(last[:, :, 0])  # (B, nc, H)
+    # 1-2. the forward's phases: the entering states
+    seg = D * dtc
+    states = torch.einsum("bcjhp,bcjhn->bchpn", terms(xc * seg[..., None]), bh)
+    h = (torch.zeros((Bsz, H, P, N), dtype=ft, device=x.device)
+         if init_state is None else init_state.to(ft))
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    h_in = terms(torch.stack(entering, dim=1))
+    # 3-4. their mirrors: the state's gradient leaving each chunk, and dh0
+    dS = torch.einsum("bckhp,bckhn->bchpn", terms(dyc * E[..., None]), ch)
+    g = (torch.zeros((Bsz, H, P, N), dtype=ft, device=x.device)
+         if dhf is None else dhf.to(ft))
+    leaving = [None] * nc
+    for c in reversed(range(nc)):
+        leaving[c] = g
+        g = g * decay[:, c, :, None, None] + dS[:, c]
+    dh0 = g
+    Gc = terms(torch.stack(leaving, dim=1))  # (B, nc, H, P, N)
+    # 5. every chunk's gradients; rows k, columns i of the chunk
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(
+        ~lower[None, None, :, :, None], -torch.inf))  # (B, nc, Qk, Qi, H)
+    M = torch.einsum("bckhn,bcihn->bckih", ch, bh) * L
+    Z = torch.einsum("bckhp,bcihp->bckih", dyc, xc)
+    T = Z * L
+    bg = torch.einsum("bcihn,bchpn->bcihp", bh, Gc) * D[..., None]
+    sig = dtc * (xc * bg).sum(-1)
+    u = bg + torch.einsum("bckih,bckhp->bcihp", terms(M), dyc)
+    dx = dtc[..., None] * u
+    dBh = dtc[..., None] * (
+        torch.einsum("bcihp,bchpn->bcihn", xc, Gc) * D[..., None]
+        + torch.einsum("bckih,bckhn->bcihn", terms(T), ch))
+    eh = torch.einsum("bcihp,bchpn->bcihn", dyc, h_in) * E[..., None]
+    tau = (ch * eh).sum(-1)
+    dCh = eh + torch.einsum("bcijh,bcjhn->bcihn",
+                            terms(T * dtc[:, :, None]), bh)
+    strict = lower.tril(-1)[None, None, :, :, None]
+    Y = torch.where(strict, M * dtc[:, :, None] * Z, 0.0)  # (k, j), k > j
+    v = sig + Y.sum(2) - Y.sum(3)  # σ_j + Σ_{k>j} Y_kj - Σ_{i<j} Y_ji
+    pre = torch.cat([torch.zeros_like(v[:, :, :1]),
+                     torch.cumsum(v, dim=2)[:, :, :-1]], dim=2)
+    suf = torch.flip(torch.cumsum(torch.flip(tau, [2]), dim=2), [2])
+    c1 = decay * (Gc * h_in).sum((-1, -2))  # (B, nc, H)
+    dl = c1[:, :, None] + pre + suf
+    ddt = Af * dl + (xc * u).sum(-1)
+    dA = (dtc * dl).sum((0, 1, 2))
+    # 6. the sums over a group's heads
+    def tokens(t):
+        return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :S]
+
+    dB = tokens(dBh).reshape(Bsz, S, G, rep, N).sum(3)
+    dC = tokens(dCh).reshape(Bsz, S, G, rep, N).sum(3)
+    return (tokens(dx).to(x.dtype), tokens(ddt).to(dt.dtype),
+            dA.to(A.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype),
+            None if init_state is None else dh0.to(init_state.dtype))
+
+
 def ssd_decode_step(state, x, dt, A, Bm, Cm):
     """One token of the SSD recurrence (``jnp_impl.py:426``): state
     (B,H,P,N) float32, x (B,H,P), dt (B,H), A (H,), Bm/Cm (B,G,N) ->

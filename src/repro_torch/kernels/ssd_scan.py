@@ -14,14 +14,20 @@ chunked variant does not take).  ``launches`` counts wrapper calls that
 launched a kernel, ``chunked_launches`` those that went to the chunked
 variant.
 
-The backward (``csrc/ssd_scan.cu``'s ``ssd_scan_bwd``: the states
-recomputed from the initial state in a first walk that keeps each
-32-token chunk's entering state, then the gradients in a second walk,
-chunks last to first, and a fixed-order pass that adds the P tiles'
-partial sums) is held to ``plain.ssd_bwd_ref``.  A CUDA call that
-autograd records goes through :class:`Ssd`; its forward keeps
-:func:`variant_for`'s choice, and any other CUDA call is the forward
-launch alone.  ``bwd_launches`` counts backward calls that launched.
+The backward is held to ``plain.ssd_bwd_ref`` and has two variants,
+which :func:`bwd_variant_for` picks as :func:`variant_for` does:
+``"chunked"`` (``ssd_scan_chunked_bwd``: bf16 at P = 64, N = 128 from
+``CHUNKED_MIN_S`` tokens; the forward's chunk states and state pass
+rerun, their mirrors for the state's gradient, then every chunk's
+gradients on tensor cores and a fixed-order reduce) and ``"sequential"``
+(``ssd_scan_bwd``: the states recomputed in a first walk that keeps each
+32-token chunk's entering state, the gradients in a second walk, chunks
+last to first, on the CUDA cores; float32, shorter calls and other
+shapes).  A CUDA call that autograd records goes through :class:`Ssd`;
+its forward keeps :func:`variant_for`'s choice, and any other CUDA call
+is the forward launch alone.  ``bwd_launches`` counts backward calls that
+launched, ``bwd_chunked_launches`` those that went to the chunked
+variant.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from repro_torch.kernels import build, plain
 launches = 0
 chunked_launches = 0
 bwd_launches = 0
+bwd_chunked_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_MAX = 256  # the sequential kernel's largest d_state (shared memory)
@@ -236,6 +243,28 @@ def _launch(x, dt, A, Bm, Cm, init_state, variant):
     return y, hf
 
 
+def bwd_takes(variant, dtype, P, N, aligned) -> bool:
+    """Whether backward kernel ``variant`` computes a call of this shape
+    at all; ``aligned``: x, Bm, Cm, dy and the initial state and dhf (if
+    given) start on 16-byte boundaries."""
+    if variant == "sequential":
+        return dtype in _DTYPES and N % 4 == 0 and 4 <= N <= BWD_N_MAX
+    if variant == "chunked":
+        return takes("chunked", dtype, P, N, aligned)
+    raise ValueError(f"unknown variant {variant!r}")
+
+
+def bwd_variant_for(dtype, S, P, N, aligned) -> str:
+    """The backward kernel a CUDA call goes to, by :func:`variant_for`'s
+    rule: a bf16 call the chunked variant takes, of at least
+    ``CHUNKED_MIN_S`` tokens, goes to it (mamba2-370m's training call);
+    float32, the other bf16 shapes and shorter calls go to the sequential
+    kernel."""
+    if S >= CHUNKED_MIN_S and bwd_takes("chunked", dtype, P, N, aligned):
+        return "chunked"
+    return "sequential"
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     lib = build.load("ssd_scan")
@@ -249,29 +278,70 @@ def _bwd_kernel():
     return fn, ws
 
 
-def bwd_workspace_bytes(B, S, H, P, N, dtype) -> int:
-    """Bytes of the backward's workspace (the chunks' entering states and
-    the P tiles' partial sums), as ``csrc/ssd_scan.cu`` lays it out."""
+@functools.lru_cache(maxsize=None)
+def _chunked_bwd_kernel():
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_chunked_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ws = lib.ssd_scan_chunked_bwd_workspace
+    ws.argtypes = [ctypes.c_int] * 4
+    ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
+def bwd_workspace_bytes(B, S, H, P, N, dtype, G=1, variant=None) -> int:
+    """Bytes of the workspace of the backward kernel ``variant`` (by
+    default :func:`bwd_variant_for`'s choice for aligned inputs), as
+    ``csrc/ssd_scan.cu`` lays it out: the sequential kernel's 32-token
+    chunks' entering states and its P tiles' partial sums; the chunked
+    variant's chunk states, their hi/lo pairs and the state gradient's,
+    and the head blocks' float32 dB and dC."""
+    variant = variant or bwd_variant_for(dtype, S, P, N, True)
+    if variant == "chunked":
+        return int(_chunked_bwd_kernel()[1](B, S, H, G))
     return int(_bwd_kernel()[1](B, S, H, P, N, _DTYPES[dtype]))
 
 
-def ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, dhf):
+def _bwd_aligned(x, Bm, Cm, init_state, dy, dhf):
+    return _aligned(x, Bm, Cm, init_state) and all(
+        t.data_ptr() % 16 == 0 for t in (dy, dhf) if t is not None)
+
+
+def ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, dhf, *, variant=None):
     """The gradient of :func:`ssd`, the contract of
     :func:`plain.ssd_bwd_ref`: (dx, ddt, dA, dB, dC, dh0 or None).  A CPU
     tensor goes to the plain version; a CUDA call launches the backward
-    kernel."""
+    kernel :func:`bwd_variant_for` picks, or ``variant`` (``"chunked"`` or
+    ``"sequential"``); a variant that does not take the call raises
+    ``NotImplementedError`` (a CPU call too, which then goes to the plain
+    version)."""
+    if variant is not None:
+        P, N = x.shape[-1], Bm.shape[-1]
+        aligned = _bwd_aligned(x, Bm, Cm, init_state, dy, dhf)
+        if not bwd_takes(variant, x.dtype, P, N, aligned):
+            raise NotImplementedError(
+                f"the {variant} backward kernel does not take {x.dtype} x "
+                f"{tuple(x.shape)} Bm {tuple(Bm.shape)} (aligned: "
+                f"{aligned}): chunked takes bf16 at P = {CHUNKED_P}, N = "
+                f"{CHUNKED_N} with 16-byte aligned x, Bm, Cm, dy, "
+                "init_state and dhf; sequential float32 or bf16 with N a "
+                f"multiple of 4 up to {BWD_N_MAX}")
     if not x.is_cuda:
         return plain.ssd_bwd_ref(x, dt, A, Bm, Cm, init_state, dy, dhf)
     return _bwd_launch(x, dt, A, Bm, Cm, init_state, dy.contiguous(),
                        None if dhf is None else dhf.contiguous(),
-                       init_state is not None)
+                       init_state is not None, variant)
 
 
-def _bwd_launch(x, dt, A, Bm, Cm, init_state, dy, dhf, need_dh0):
-    """Check a CUDA backward call and launch the kernel; returns (dx, ddt,
-    dA, dB, dC, dh0), dh0 None without an initial state or unless
+def _bwd_launch(x, dt, A, Bm, Cm, init_state, dy, dhf, need_dh0,
+                variant=None):
+    """Check a CUDA backward call and launch the kernel
+    :func:`bwd_variant_for` (or ``variant``) picks; returns (dx, ddt, dA,
+    dB, dC, dh0), dh0 None without an initial state or unless
     ``need_dh0``."""
-    global bwd_launches
+    global bwd_launches, bwd_chunked_launches
     _check(x, dt, A, Bm, Cm, init_state)
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -285,10 +355,11 @@ def _bwd_launch(x, dt, A, Bm, Cm, init_state, dy, dhf, need_dh0):
                             or not dhf.is_contiguous()):
         raise ValueError(f"dhf {tuple(dhf.shape)} {dhf.dtype}: want float32 "
                          f"{(B, H, P, N)} on x's device, contiguous")
-    if N > BWD_N_MAX:
+    chosen = variant or bwd_variant_for(
+        x.dtype, S, P, N, _bwd_aligned(x, Bm, Cm, init_state, dy, dhf))
+    if chosen == "sequential" and N > BWD_N_MAX:
         raise NotImplementedError(f"d_state N={N}: the backward kernel "
                                   f"takes N up to {BWD_N_MAX}")
-    fn, _ = _bwd_kernel()
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
@@ -296,21 +367,25 @@ def _bwd_launch(x, dt, A, Bm, Cm, init_state, dy, dhf, need_dh0):
     dC = torch.empty_like(Cm)
     dh0 = (torch.empty_like(init_state)
            if init_state is not None and need_dh0 else None)
-    ws = torch.empty(bwd_workspace_bytes(B, S, H, P, N, x.dtype),
+    ws = torch.empty(bwd_workspace_bytes(B, S, H, P, N, x.dtype, G, chosen),
                      dtype=torch.uint8, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), ptr(init_state), dy.data_ptr(), ptr(dhf),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), ptr(dh0), ws.data_ptr(), B, S, H, P, G, N)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                 Cm.data_ptr(), ptr(init_state), dy.data_ptr(), ptr(dhf),
-                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-                 dC.data_ptr(), ptr(dh0), ws.data_ptr(), B, S, H, P, G, N,
-                 _DTYPES[x.dtype], stream)
+        if chosen == "chunked":
+            err = _chunked_bwd_kernel()[0](*args, stream)
+        else:
+            err = _bwd_kernel()[0](*args, _DTYPES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan backward kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"ssd_scan backward kernel launch failed "
+                           f"({chosen}): cudaError {err}")
     bwd_launches += 1
+    bwd_chunked_launches += chosen == "chunked"
     return dx, ddt, dA, dB, dC, dh0

@@ -1372,3 +1372,95 @@ def test_ssd_backward_through_autograd(cuda, rng):
     want = plain.ssd_bwd_ref(x, dt, A, Bm, Cm, h0, dy, None)
     for i, (g, w) in enumerate(zip(got, want)):
         _assert_grad_close(g, w, "bfloat16", f"input {i}")
+
+
+GMM_BWD_VARIANT_CASES = [
+    (40, 256, 512, 1536),   # granite D = 512: dX on the 256 x 192 tile
+    (40, 256, 1536, 512),   # D = 1536: 256 x 128 on four warpgroups
+    (3, 37, 40, 24),        # ragged C: one 64-row warpgroup, K = C = 37
+    (4, 100, 136, 72),      # two warpgroups, ragged rows and columns
+    (2, 300, 64, 136),      # two row tiles, the second ragged
+    (2, 0, 16, 24),         # no rows: dx empty, dw all 0
+]
+
+
+@pytest.mark.parametrize("case", GMM_BWD_VARIANT_CASES)
+@pytest.mark.parametrize("variant", ["wgmma", "mma_sync"])
+def test_gmm_bwd_variants_match_plain(cuda, rng, case, variant):
+    """Each bf16 backward kernel, forced, against ``plain.gmm_bwd_ref``
+    at ragged shapes; a second call gives the same bits; the wgmma
+    counter counts the wgmma calls alone."""
+    E, C, D, F = case
+    x = _rand(rng, E, C, D, dtype="bfloat16")
+    w = _rand(rng, E, D, F, dtype="bfloat16", scale=D ** -0.5)
+    dy = _rand(rng, E, C, F, dtype="bfloat16")
+    want = plain.gmm_bwd_ref(x, w, dy)
+    before = (moe_gmm.bwd_launches, moe_gmm.bwd_wgmma_launches)
+    got = moe_gmm.gmm_bwd(x, w, dy, variant=variant)
+    torch.cuda.synchronize()
+    assert (moe_gmm.bwd_launches, moe_gmm.bwd_wgmma_launches) == (
+        before[0] + 1, before[1] + (variant == "wgmma"))
+    again = moe_gmm.gmm_bwd(x, w, dy, variant=variant)
+    for name, g, a, wn in zip(("dx", "dw"), got, again, want):
+        assert g.dtype == x.dtype and g.shape == wn.shape, name
+        assert torch.equal(g, a), name
+        if wn.numel():
+            _assert_grad_close(g, wn, "bfloat16", name)
+        assert not bool(wn.any()) or bool(g.any()), name
+
+
+SSD_BWD_VARIANT_CASES = [
+    # (B, S, H, P, G, N, initial state, dt·|A| = 25, dhf)
+    (1, 300, 8, 64, 1, 128, True, False, True),    # S not a multiple of 128
+    (2, 257, 4, 64, 2, 128, False, False, False),  # one token past 2 chunks
+    (1, 200, 8, 64, 2, 128, True, True, True),     # dt·|A| = 25 a token
+    (1, 128, 12, 64, 3, 128, True, False, True),   # 4 heads a group, G 3
+    (1, 129, 6, 64, 3, 128, True, False, True),    # 2 heads a group
+]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_VARIANT_CASES)
+@pytest.mark.parametrize("variant", ["chunked", "sequential"])
+def test_ssd_bwd_variants_match_plain(cuda, rng, case, variant):
+    """Each bf16 backward kernel, forced, against ``plain.ssd_bwd_ref``
+    at ragged shapes; a second call gives the same bits; the chunked
+    counter counts the chunked calls alone."""
+    *shape, with_dhf = case
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(rng, tuple(shape), "bfloat16", cuda)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    dy = _rand(rng, B, S, H, P, dtype="bfloat16")
+    dhf = _rand(rng, B, H, P, N) if with_dhf else None
+    before = (ssd_scan.bwd_launches, ssd_scan.bwd_chunked_launches)
+    got = ssd_scan.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhf, variant=variant)
+    torch.cuda.synchronize()
+    assert (ssd_scan.bwd_launches, ssd_scan.bwd_chunked_launches) == (
+        before[0] + 1, before[1] + (variant == "chunked"))
+    again = ssd_scan.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhf, variant=variant)
+    want = plain.ssd_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dhf)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    for name, g, a, wn in zip(names, got, again, want):
+        if wn is None:
+            assert g is None
+            continue
+        assert g.shape == wn.shape and bool(torch.isfinite(g.float()).all())
+        assert torch.equal(g, a), name
+        _assert_grad_close(g, wn, "bfloat16", name)
+
+
+def test_ssd_bwd_chunked_matches_its_restatement(cuda, rng):
+    """The chunked backward against ``plain.ssd_bwd_chunk_parallel`` (its
+    phases and hi/lo rounding points) on the same card inputs: every
+    gradient within the 2e-2 rule, the float32 ones (ddt, dA, dh0) within
+    1e-3 of the restatement's largest value."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(
+        rng, (1, 300, 8, 64, 2, 128, True, False), "bfloat16", cuda)
+    dy = _rand(rng, *x.shape, dtype="bfloat16")
+    dhf = _rand(rng, 1, 8, 64, 128)
+    got = ssd_scan.ssd_bwd(x, dt, A, Bm, Cm, h0, dy, dhf, variant="chunked")
+    want = plain.ssd_bwd_chunk_parallel(x, dt, A, Bm, Cm, h0, dy, dhf)
+    for name, g, wn in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got,
+                           want):
+        _assert_grad_close(g, wn, "bfloat16", name)
+        if g.dtype == torch.float32:
+            assert _err(g, wn) <= 1e-3 * float(wn.abs().max()), name

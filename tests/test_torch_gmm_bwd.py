@@ -4,13 +4,18 @@ the routing of the wrapper's CUDA branch through ``moe_gmm.Gmm``.
 
 The routing runs without a card: the inputs are a tensor subclass whose
 ``is_cuda`` is True, and the forward and backward launches are
-monkeypatched with the plain versions (counting their calls).  The real
+monkeypatched with the plain versions (counting their calls).  The
+backward's dispatch (``bwd_variant_for`` / ``bwd_takes``, forced
+variants) runs likewise, with the ctypes kernel, the device guard and the
+stream swapped for stand-ins that record the variant launched.  The real
 kernels are held to the plain versions on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``).
 
 Tolerance: float32 1e-4 of max(1, the largest gradient) (the frameworks
 sum in different orders).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -202,3 +207,128 @@ def test_phase1_step_makes_the_gmm_backward_calls_chip_smoke_requires(
     assert float(loss_k.detach()) == float(loss_p.detach())
     for a, b in zip(g_k, g_p):
         _close(a, b.numpy())
+
+
+# ---- the backward's dispatch -----------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,C,D,F,aligned,want", [
+    (BF16, 256, 1536, 512, True, "wgmma"),   # granite Phase 1, both ways
+    (BF16, 256, 512, 1536, True, "wgmma"),
+    (BF16, 1536, 1536, 512, True, "wgmma"),  # the source (Phase 2)
+    (BF16, 8, 96, 64, True, "wgmma"),        # granite-moe-smoke
+    (BF16, 37, 40, 24, True, "wgmma"),       # ragged C
+    (BF16, 256, 1536, 500, True, "mma_sync"),  # F not a multiple of 8
+    (BF16, 256, 1532, 512, True, "mma_sync"),  # D not a multiple of 8
+    (BF16, 256, 1536, 512, False, "mma_sync"),  # off 16 bytes
+    (F32, 256, 1536, 512, True, "float32"),
+])
+def test_bwd_variant_for(dtype, C, D, F, aligned, want):
+    assert moe_gmm.bwd_variant_for(dtype, C, D, F, aligned) == want
+    assert moe_gmm.bwd_takes(want, dtype, 40, C, D, F, aligned)
+
+
+@pytest.mark.parametrize("variant,dtype,E,C,D,F,aligned,want", [
+    ("wgmma", BF16, 40, 256, 1536, 512, True, True),
+    ("wgmma", BF16, 40, 0, 1536, 512, True, True),     # no rows
+    ("wgmma", BF16, 40, 256, 1536, 512, False, False),
+    ("wgmma", BF16, 40, 256, 1536, 508, True, False),
+    ("wgmma", F32, 40, 256, 1536, 512, True, False),
+    ("wgmma", BF16, 65536, 8, 64, 64, True, False),    # past the grid's E
+    ("mma_sync", BF16, 3, 13, 19, 7, False, True),
+    ("mma_sync", F32, 3, 13, 19, 7, True, False),
+    ("float32", F32, 3, 13, 19, 7, False, True),
+    ("float32", BF16, 3, 13, 19, 7, True, False),
+])
+def test_bwd_takes(variant, dtype, E, C, D, F, aligned, want):
+    assert moe_gmm.bwd_takes(variant, dtype, E, C, D, F, aligned) is want
+
+
+def test_bwd_takes_an_unknown_variant_raises():
+    with pytest.raises(ValueError):
+        moe_gmm.bwd_takes("rows", BF16, 1, 8, 8, 8, True)
+
+
+def _bf16_triple(rng, E, C, D, F, dtype=BF16):
+    return tuple(torch.as_tensor(rng.standard_normal(s), dtype=F32).to(dtype)
+                 for s in ((E, C, D), (E, D, F), (E, C, F)))
+
+
+@pytest.mark.parametrize("variant,shape,dtype,shift", [
+    ("wgmma", (2, 8, 64, 60), BF16, False),    # F not a multiple of 8
+    ("wgmma", (2, 8, 60, 64), BF16, False),    # D not a multiple of 8
+    ("wgmma", (2, 8, 64, 64), BF16, True),     # dy off a 16-byte boundary
+    ("wgmma", (2, 8, 64, 64), F32, False),     # the bf16 kernels
+    ("mma_sync", (2, 8, 64, 64), F32, False),
+])
+def test_a_forced_backward_variant_raises_on_a_call_it_does_not_take(
+        rng, variant, shape, dtype, shift):
+    x, w, dy = _bf16_triple(rng, *shape, dtype)
+    if shift:  # contiguous, one element past an aligned base
+        flat = torch.zeros(dy.numel() + 1, dtype=dtype)
+        dy = flat[1:].view(dy.shape).copy_(dy)
+        assert dy.data_ptr() % 16
+    with pytest.raises(NotImplementedError):
+        moe_gmm.gmm_bwd(x, w, dy, variant=variant)
+    # unforced, a CPU call goes to the plain version
+    for g, want in zip(moe_gmm.gmm_bwd(x, w, dy),
+                       plain.gmm_bwd_ref(x, w, dy)):
+        assert torch.equal(g, want)
+
+
+def test_a_forced_backward_variant_on_the_cpu_is_the_plain_version(rng):
+    x, w, dy = _bf16_triple(rng, 3, 8, 64, 24)
+    before = (moe_gmm.bwd_launches, moe_gmm.bwd_wgmma_launches)
+    for variant in ("wgmma", "mma_sync"):
+        got = moe_gmm.gmm_bwd(x, w, dy, variant=variant)
+        for g, want in zip(got, plain.gmm_bwd_ref(x, w, dy)):
+            assert torch.equal(g, want)
+    assert (moe_gmm.bwd_launches, moe_gmm.bwd_wgmma_launches) == before
+    with pytest.raises(ValueError):
+        moe_gmm.gmm_bwd(x, w, dy, variant="rows")
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.fixture
+def bwd_kernel(monkeypatch):
+    """The backward's ctypes kernel replaced by a stand-in that records
+    (need dx, need dw, variant code) and launches nothing."""
+    calls = []
+
+    def fn(x, w, dy, dx, dw, E, C, D, F, dtype, variant, stream):
+        calls.append((dx is not None, dw is not None, variant))
+        return 0
+
+    monkeypatch.setattr(moe_gmm, "_bwd_kernel", lambda: fn)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream())
+    return calls
+
+
+@pytest.mark.parametrize("shape,dtype,variant,code,want", [
+    ((2, 8, 64, 64), BF16, None, 1, "wgmma"),
+    ((2, 8, 64, 60), BF16, None, 0, "mma_sync"),
+    ((2, 8, 64, 64), BF16, "mma_sync", 0, "mma_sync"),
+    ((2, 8, 64, 64), F32, None, 0, "float32"),
+])
+def test_the_backward_counters_follow_the_launched_variant(
+        rng, bwd_kernel, shape, dtype, variant, code, want):
+    x, w, dy = (torch.Tensor._make_subclass(_LooksCuda, t)
+                for t in _bf16_triple(rng, *shape, dtype))
+    for need in ((True, False), (False, True), (True, True)):
+        before = (moe_gmm.bwd_launches, moe_gmm.bwd_dx_launches,
+                  moe_gmm.bwd_dw_launches, moe_gmm.bwd_wgmma_launches)
+        dx, dw = moe_gmm.gmm_bwd(x, w, dy, need_dx=need[0],
+                                 need_dw=need[1], variant=variant)
+        assert bwd_kernel[-1] == (*need, code)
+        assert (dx is not None, dw is not None) == need
+        assert (moe_gmm.bwd_launches, moe_gmm.bwd_dx_launches,
+                moe_gmm.bwd_dw_launches, moe_gmm.bwd_wgmma_launches) == (
+            before[0] + 1, before[1] + need[0], before[2] + need[1],
+            before[3] + (want == "wgmma"))
