@@ -34,7 +34,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
       compiler's chunk of 512 source queries at offset 0, 3072 and 5632
       (``mistral_chunk_<offset>``: one causal call over the offset cached
       keys and its own, exactly o + 512 keys; the flash entry's
-      ``compile_chunk``); the fused step's dense decode over 4 slots with
+      ``compile_chunk``); the ICAE step's causal self-attention, batch 2
+      (bf16 only): gemma2-2b's compressor over 3072 + 512 positions and
+      target over 512 + 512 (``icae_compressor``, ``icae_target``),
+      mistral-7b's compressor over 6144 + 768 (``mistral_icae_compressor``;
+      the plain version, 12 GB of float32 logits whole, in slices of a
+      batch row and a KV-head group); the 3072-token source prefill at
+      smollm-360m's 15/5 heads of 64 and stablelm-1.6b's 32/32 heads of 64
+      (``smollm_source_prefill``, ``stablelm_source_prefill``); the fused
+      step's dense decode over 4 slots with
       W = 4 lanes a slot (the speculative verify lanes at k = 3) and W =
       16 (a join chunk), behind lengths of 516-524 (``fused_decode_w4``,
       ``fused_decode_w16``); and probes (bf16 only): decode over caches of 2048 and 8192 positions and over 32 to
@@ -49,8 +57,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
       few-row calls time mostly the host; ``fa.variant_for``'s rule is
       set from these device times);
    b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536 (the
-      compress paths'), and mistral-7b's 1x768 x 6144 x 4096 (bf16 only, a
-      probe: no main path runs it).  Every bf16 shape runs through both
+      compress paths'), and mistral-7b's 1x768 x 6144 x 4096, smollm-360m's
+      D = 960 (15 slabs of 64: the last output tile 192 columns wide) and
+      stablelm-1.6b's 2048 at 1x512 x 3072 (bf16 only).  Every bf16 shape runs through both
       bf16 kernels, the wgmma variant (two launches) and the mma.sync one
       (three), each forced and each held to the plain version; the wgmma
       variant's distance from ``plain.memcom_xattn_tiled`` (its own
@@ -68,8 +77,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
       count the W new rows), block sizes 8
       and 12, a length of 1, lengths on block boundaries, fully-masked
       rows, the mistral-7b width (32/8 heads of 128), granite's (24/8
-      heads of 64), and ``long_table``: the main-path shape in tables of
-      4096 positions.  ``device_ms``: CUDA-graph replay rotating through
+      heads of 64), smollm-360m's (15/5 heads of 64) and stablelm-1.6b's
+      (32/32 heads of 64), and ``long_table``: the main-path shape in
+      tables of 4096 positions.  ``device_ms``: CUDA-graph replay rotating through
       input sets whose K/V rows read add up past 60 MB (14 at ``decode``),
       so that no call finds its rows in the 50 MB L2.  Its bound counts
       each distinct (pool block, offset) position below some slot's
@@ -121,7 +131,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
       the Memory-LLM's 512 causal rows, the 512-token prompt at offset
       512 and against the 512 prefix, both with an lse cotangent), the
       3072-token source (Phase 2), fully-masked rows, granite's and
-      mistral-7b's widths and float32 at head dim 32; ``memcom_xattn`` at
+      mistral-7b's widths and float32 at head dim 32, and the ICAE step's
+      causal self-attention without an lse cotangent (bf16: gemma2-2b's
+      compressor 2x3584 and target 2x1024, mistral-7b's compressor
+      2x6912; the plain backward in 3a's slices where its logits pass 6
+      GB, and no ``plain.attention_bwd_tiled`` there); ``memcom_xattn`` at
       2x512x3072x2304, 1x512x3072x1536 and mistral-7b's 1x768x6144x4096.
       Rows that get no gradient by their positions (queries that see no
       key, keys that no query sees) must be exactly 0.  Every bf16 flash
@@ -245,6 +259,47 @@ Phases, each of which raises (and so exits non-zero) on failure:
       backward call a layer (48), every one through the chunked variant,
       and every forward ``ssd`` call through the chunked variant.  4j and 4k print s/step, tokens/s, peak memory
       and each phase's seconds.
+   n. smollm-360m (32 layers, d_model 960, 15/5 heads of 64) and
+      stablelm-1.6b (24 layers, d_model 2048, 32/32 heads of 64,
+      layernorm), after mamba2-370m's serving: as 4a-b (two 3072-token
+      tasks into m = 512, dense serve of 4 requests, the 12-request paged
+      serve with stops and refills, the first tokens dense = paged), every
+      source prefill and ``memcom_xattn`` call through its wgmma variant,
+      each kernel of the path launched, and their depth-2 check (phase 5).
+   l. ICAE at gemma2-2b's full width (26 layers, m = 512; last, after 4j
+      and 4k): one seeded target, and for icae++, icae and icae+ a
+      compressor copied from it (adapters and ``mem_embed`` from seed 1):
+      the two 3072-token tasks compressed into 2 x 512 soft tokens (every
+      compressor flash call over the 3584 positions through the variant
+      ``fa.variant_for`` picks) and the first-step logits of the 4-12-token
+      prompts behind them (finite, of their shapes); then
+      ``launch.steps.build_icae_train_step`` (AdamW with the reference's
+      ``warmup_constant(2e-3, 30)``, clip 1.0, remat) through the Trainer
+      on batch 2 x 3584 split at 3072, as 4d: icae++ 4 steps with raw
+      checkpoints after steps 2 and 4 and a restart from step 2 that must
+      reproduce steps 3-4 exactly, icae and icae+ 2 steps each; losses
+      finite, every trained tensor's float32 master moved, every frozen
+      tensor (the target, the compressor's untrained ones) bit-identical
+      to its seed's draw, and 52
+      flash backward calls a step (26 in each stack: ``mem_embed`` trains,
+      so the compressor's first layer needs dQ, dK and dV; the soft
+      tokens carry the target's gradient back), each through the variant
+      ``fa.bwd_variant_for`` picks.  Printed: s/step, tokens/s, peak
+      memory, and one profiled icae++ step.
+   m. ICAE++ at mistral-7b's full width (32 layers, m = 768): the same
+      on the first two 6144-token tasks and batch 2 x 6656 split at 6144,
+      3 steps, a checkpoint after step 1 and the restart from it
+      reproducing steps 2-3 exactly; 64 flash backward calls a step; the
+      peak memory printed beside its reckoning (two bf16 copies of 7.25 B
+      parameters, bf16 gradients and float32 AdamW moments and master of
+      the 1.34 B trained ones, remat's saved block inputs).
+      mistral-nemo-12b is CPU-only: its three stacks and memx hold about
+      40.9 B parameters (82 GB in bf16).
+   In 4d, 4j-4m the frozen tensors are held to their seed's draw, made
+   again on the card after the run (no copy is kept through it: 26 GB at
+   mistral-7b's ICAE++), and the restart restores a Trainer from the
+   checkpoint and then calls its step function on the later steps'
+   batches.
    e. mistral-7b (after the training phase, the other models freed; 32
       layers, d_model 4096, 32/8 heads of 128, m = 768; 23.89 B
       parameters over its three stacks and memx, initialised on the card):
@@ -335,8 +390,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    by a forward hook on the target, agree within the same bound; for the
    attention-only models, a self-speculative fused engine's first two
    fused steps (W = 4 verify lanes; then a 16-token join beside them,
-   W = 16), dense and paged: the valid lanes' logits agree within the
-   same bound.  For the
+   W = 16), dense and paged, each step rerun forced to the plain versions
+   on its own inputs (tokens, positions, a copy of the cache it found):
+   the valid lanes' logits agree within the same bound.  For the
    MoE model the plain run replays the kernel run's expert choices (top-k
    ids) so that both take the same discrete routing: a router
    probability that the two runs' bf16 roundings move across the top-k
@@ -352,6 +408,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and forced to the plain versions: each gradient within 2e-2 of the
    plain run's largest magnitude (Phase 2 adds the Source- and
    Memory-LLM and the 3072-token source's flash backward).
+
+   After 4l and 4m: for icae, icae+ and icae++ at gemma2-2b and icae++
+   at mistral-7b, at full width and depth 2, a task's soft tokens and the
+   first-step logits of a prompt behind them, then the loss (gemma2-2b
+   batch 2 x 3584, mistral-7b 1 x 6656) and every trained gradient with
+   each adapter's ``b`` drawn off zero, through the kernels and forced to
+   the plain versions: each within 2e-2 of the plain run's largest
+   magnitude, with 4 flash backward calls (2 layers, 2 stacks).
+   smollm-360m and stablelm-1.6b at depth 2 as the attention-only models
+   above (O^i, logits, paged prefill and decode, the fused steps).
 
    After granite-moe-3b-a800m's and mamba2-370m's training phases (4j,
    4k): their loss and every trained gradient at full width and depth 2
@@ -527,6 +593,58 @@ def main() -> int:
                                  "plain version")
         return e, se
 
+    def head_slices(B, Sq, Skv, Hkv, G, budget=2 ** 31):
+        """(batch row, first KV head, end KV head) slices of a GQA call
+        whose float32 logits stay within ``budget`` bytes."""
+        n = max(1, min(Hkv, budget // (4 * G * Sq * Skv)))
+        return [(b, h, min(h + n, Hkv)) for b in range(B)
+                for h in range(0, Hkv, n)]
+
+    def plain_attention(q, k, v, **kw):
+        """``plain.attention_ref``; a call whose float32 logits pass 6 GB
+        (the ICAE compressor's 2 x 6912 positions at mistral-7b's width,
+        12 GB) is computed in (batch row, KV-head group) slices of at most
+        2 GB each, which attend independently."""
+        B, Sq, Hq, _ = q.shape
+        Skv, Hkv = k.shape[1], k.shape[2]
+        G = Hq // Hkv
+        if B * Hq * Sq * Skv * 4 <= 6 * 2 ** 30:
+            return plain.attention_ref(q, k, v, **kw)
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        for b, h0, h1 in head_slices(B, Sq, Skv, Hkv, G):
+            r = plain.attention_ref(
+                q[b:b + 1, :, h0 * G:h1 * G], k[b:b + 1, :, h0:h1],
+                v[b:b + 1, :, h0:h1], **dict(
+                    kw, q_pos=kw["q_pos"][b:b + 1],
+                    kv_pos=kw["kv_pos"][b:b + 1]))
+            if kw.get("return_lse"):
+                r, lse[b:b + 1, :, h0 * G:h1 * G] = r
+            out[b:b + 1, :, h0 * G:h1 * G] = r
+        return (out, lse) if kw.get("return_lse") else out
+
+    def plain_attention_bwd(q, k, v, out, lse, dout, dlse, **kw):
+        """``plain.attention_bwd_ref`` in the slices of
+        :func:`plain_attention` where its logits pass 6 GB."""
+        B, Sq, Hq, _ = q.shape
+        Skv, Hkv = k.shape[1], k.shape[2]
+        G = Hq // Hkv
+        if B * Hq * Sq * Skv * 4 <= 6 * 2 ** 30:
+            return plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse,
+                                           **kw)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        for b, h0, h1 in head_slices(B, Sq, Skv, Hkv, G):
+            qs, ks = slice(h0 * G, h1 * G), slice(h0, h1)
+            g = plain.attention_bwd_ref(
+                q[b:b + 1, :, qs], k[b:b + 1, :, ks], v[b:b + 1, :, ks],
+                out[b:b + 1, :, qs], lse[b:b + 1, :, qs],
+                dout[b:b + 1, :, qs],
+                None if dlse is None else dlse[b:b + 1, :, qs],
+                **dict(kw, q_pos=kw["q_pos"][b:b + 1],
+                       kv_pos=kw["kv_pos"][b:b + 1]))
+            dq[b:b + 1, :, qs], dk[b:b + 1, :, ks], dv[b:b + 1, :, ks] = g
+        return dq, dk, dv
+
     m = 512            # memory tokens of both models
     T = 3072           # many-shot source tokens
     prompt_len = 12    # the longest ragged prompt
@@ -542,6 +660,12 @@ def main() -> int:
     gemma_heads = (8, 4, 256, 50.0)    # Hq, Hkv, head dim, softcap
     granite_heads = (24, 8, 64, 0.0)
     mistral_heads = (32, 8, 128, 0.0)
+    smollm_heads = (15, 5, 64, 0.0)    # smollm-360m: GQA group 3
+    stablelm_heads = (32, 32, 64, 0.0)  # stablelm-1.6b: MHA
+    # the ICAE step's causal self-attention (batch 2): the compressor over
+    # source + memory, the target over the soft tokens + 512 target tokens
+    icae_gemma = (T + m, m + 512)
+    icae_mistral = 2 * T + 768
     granite_prompt = 16  # a MoE prompt prefills at its power-of-two bucket
     attn_cases = [
         # name, B, Sq, Skv, q_pos, kv_pos, causal, heads
@@ -580,6 +704,20 @@ def main() -> int:
         # only: the kernel row of a model the main paths do not run yet
         ("mistral_source_prefill", 1, 2 * T, 2 * T, arange(0, 2 * T)[None],
          arange(0, 2 * T)[None], True, mistral_heads),
+        # the ICAE baselines' training shapes (bf16 only): gemma2-2b's
+        # compressor and target, mistral-7b's compressor
+        *((name_, 2, S_, S_, arange(0, S_)[None].expand(2, S_).contiguous(),
+           arange(0, S_)[None].expand(2, S_).contiguous(), True, heads_)
+          for name_, S_, heads_ in (
+              ("icae_compressor", icae_gemma[0], gemma_heads),
+              ("icae_target", icae_gemma[1], gemma_heads),
+              ("mistral_icae_compressor", icae_mistral, mistral_heads))),
+        # the 3072-token source prefill at smollm-360m's and stablelm-1.6b's
+        # widths (bf16 only)
+        ("smollm_source_prefill", 1, T, T, arange(0, T)[None],
+         arange(0, T)[None], True, smollm_heads),
+        ("stablelm_source_prefill", 1, T, T, arange(0, T)[None],
+         arange(0, T)[None], True, stablelm_heads),
         # the online compiler's chunk: 512 source queries at an offset,
         # causal over the offset cached keys and their own (one call)
         *((f"mistral_chunk_{off}", 1, 512, off + 512, arange(off, 512)[None],
@@ -609,6 +747,8 @@ def main() -> int:
           for tag, L, heads in (("", 2048, gemma_heads),
                                 ("mistral_", m, mistral_heads))),
     ]
+    # shapes held in bf16 alone: the full-width models run bf16
+    BF16_ONLY = ("mistral", "probe_", "icae_", "smollm_", "stablelm_")
     flash_rows = []
     for name, B, Sq, Skv, q_pos, kv_pos, causal, heads in attn_cases:
         Hq, Hkv, D, cap = heads
@@ -617,7 +757,7 @@ def main() -> int:
         row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
                "causal": causal, "softcap": cap, "variant": dispatched,
                "nsplit": nsplit}
-        dtypes = ((torch.bfloat16,) if name.startswith(("mistral", "probe_"))
+        dtypes = ((torch.bfloat16,) if name.startswith(BF16_ONLY)
                   else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
@@ -626,7 +766,7 @@ def main() -> int:
             v = rand(B, Skv, Hkv, D, dtype=dtype)
             kw = dict(q_pos=q_pos.contiguous(), kv_pos=kv_pos, causal=causal,
                       softcap=cap, return_lse=True)
-            ref, ref_lse = plain.attention_ref(q, k, v, **kw)
+            ref, ref_lse = plain_attention(q, k, v, **kw)
             live = ref_lse > plain.NEG_INF / 2
             lse_tol = 1e-4 * max(1.0, float(ref_lse[live].abs().max())) \
                 if bool(live.any()) else 0.0
@@ -667,7 +807,7 @@ def main() -> int:
                     row[f"device_ms_{var}"] = device_ms(
                         lambda: fa.flash_attention(q, k, v, variant=var, **kw))
                 row["plain_ms"] = cuda_ms(
-                    lambda: plain.attention_ref(q, k, v, **kw), reps=3)
+                    lambda: plain_attention(q, k, v, **kw), reps=3)
                 mask = kv_pos[:, None, :] >= 0
                 if causal:
                     mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
@@ -676,7 +816,7 @@ def main() -> int:
                 pairs = int(mask.sum())
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
                 if name.endswith(("source_prefill", "memory_self",
-                                  "prompt_self")):
+                                  "prompt_self", "_compressor", "_target")):
                     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                         qt, kt, vt, is_causal=True, enable_gqa=True)
                 else:
@@ -709,12 +849,17 @@ def main() -> int:
     mx_rows = []
     for name, B, Mx, Tx, D in (("memory_xattn", 1, m, T, 2304),
                                ("granite_memory_xattn", 1, m, T, 1536),
-                               ("mistral_memory_xattn", 1, 768, 2 * T, 4096)):
+                               ("mistral_memory_xattn", 1, 768, 2 * T, 4096),
+                               # smollm-360m's D = 960 (15 slabs of 64: a
+                               # last 192-column output tile) and
+                               # stablelm-1.6b's 2048
+                               ("smollm_memory_xattn", 1, m, T, 960),
+                               ("stablelm_memory_xattn", 1, m, T, 2048)):
         picked = mx.variant_for(torch.bfloat16, B, Mx, Tx, D, True)
         row = {"shape": name, "q": [B, Mx, D], "kv": [B, Tx, D],
                "variant": picked,
                "nsplit": mx.num_splits(B, Mx, Tx, D)}
-        dtypes = ((torch.bfloat16,) if name.startswith("mistral")
+        dtypes = ((torch.bfloat16,) if name.startswith(BF16_ONLY)
                   else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
@@ -831,6 +976,12 @@ def main() -> int:
         ("mistral_width", slots, 1, 32, 8, 128, 16, main_lens, pm, 50.0,
          max_len),
         ("granite_decode", slots, 1, 24, 8, 64, 16, main_lens, pm, 0.0,
+         max_len),
+        # smollm-360m (15 query heads on 5 KV heads of 64: group 3) and
+        # stablelm-1.6b (MHA, 32 heads of 64)
+        ("smollm_decode", slots, 1, 15, 5, 64, 16, main_lens, pm, 0.0,
+         max_len),
+        ("stablelm_decode", slots, 1, 32, 32, 64, 16, main_lens, pm, 0.0,
          max_len),
         # an engine with max_len 4096 and young slots: splits follow the
         # slots' lengths, not the table's width
@@ -1250,6 +1401,16 @@ def main() -> int:
         ("float32_hd32_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
          arange(0, m)[None].expand(2, m), True, (8, 4, 32, 0.0), True,
          ("float32",)),
+        # the ICAE step: each stack's causal self-attention, no lse
+        # cotangent (gemma2-2b's compressor and target, mistral-7b's
+        # compressor)
+        *((name_, 2, S_, S_, arange(0, S_)[None].expand(2, S_),
+           arange(0, S_)[None].expand(2, S_), True, heads_, False,
+           ("bfloat16",))
+          for name_, S_, heads_ in (
+              ("icae_compressor_bwd", icae_gemma[0], gemma_heads),
+              ("icae_target_bwd", icae_gemma[1], gemma_heads),
+              ("mistral_icae_compressor_bwd", icae_mistral, mistral_heads))),
     ]
     flash_bwd_rows = []
     for (name, B, Sq, Skv, q_pos, kv_pos, causal, heads, with_dlse,
@@ -1266,7 +1427,7 @@ def main() -> int:
             out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
             dlse = (rand(B, Sq, Hq, dtype=torch.float32) if with_dlse
                     else None)
-            want = plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse, **kw)
+            want = plain_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
             # queries that see no key and keys that no query sees
             seen = kv_pos[:, None, :] >= 0
             if causal:
@@ -1290,7 +1451,10 @@ def main() -> int:
                 errs.append(grad_check(
                     "flash_attention_bwd" + (f"[{vn}]" if vn else ""), name,
                     dn, got, want, zero_rows))
-                if vn == "wgmma":
+                # the tiled restatement keeps whole float32 matrices: not
+                # at the ICAE shapes (12 GB a matrix at mistral-7b's)
+                if vn == "wgmma" and not name.startswith(("icae_",
+                                                          "mistral_icae")):
                     tiled = plain.attention_bwd_tiled(
                         *(x.float() for x in (q, k, v, out)), lse,
                         dout.float(), dlse, split_at=fa.bwd_split_at(
@@ -1331,7 +1495,7 @@ def main() -> int:
                 row["ms"] = row[f"ms_{row['variant']}"]
                 row["device_ms"] = row[f"device_ms_{row['variant']}"]
                 del bufs
-                row["plain_ms"] = cuda_ms(lambda: plain.attention_bwd_ref(
+                row["plain_ms"] = cuda_ms(lambda: plain_attention_bwd(
                     q, k, v, out, lse, dout, dlse, **kw), reps=3)
                 if causal and Sq == Skv:
                     sdpa_kw = dict(is_causal=True, enable_gqa=True)
@@ -1845,13 +2009,14 @@ def main() -> int:
             log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
         return out
 
-    def main_path(arch, need, geom, then=None):
+    def main_path(arch, need, geom, then=None, profile=True):
         """Compress -> dense serve, then a paged serve, of ``arch`` at full
         width and depth; ``need`` names the kernels every path must
         launch beside ``flash_attention``; ``geom`` is (m, T, the task
         sources, max_len).  ``then(cfg, target, compressor, prefixes,
         engine, pengine)`` runs further phases on the same models before
-        the profiled runs; what it returns lands under "then"."""
+        the profiled runs (``profile``); what it returns lands under
+        "then"."""
         m, T, sources, max_len = geom
         cfg = get_config(arch)
         tag = f"[{arch}]"
@@ -2045,6 +2210,13 @@ def main() -> int:
 
         after = (then(cfg, target, compressor, prefixes, engine, pengine)
                  if then is not None else None)
+        out = {
+            "task_compress_s": task_s, "compress_s": compress_s,
+            "dense": dense, "paged": paged, "peak_bytes": peak_dense,
+            "params": n_params, "launches_after_compress": after_compress,
+            "launches": launches, "gmm_by_rows": gmm_by_rows, "then": after}
+        if not profile:
+            return out
         # where the time goes: one warm compress and one warm 4-token serve
         # on each layout under the profiler
         breakdown = {phase: profiled(tag, phase, fn) for phase, fn in (
@@ -2069,12 +2241,7 @@ def main() -> int:
             log(f"{tag} profile compress: {kname} "
                 f"{sum(ms for ms, _ in hits):.3f} ms over "
                 f"{sum(n for _, n in hits)} calls")
-        return {
-            "task_compress_s": task_s, "breakdown": breakdown,
-            "compress_s": compress_s, "dense": dense, "paged": paged,
-            "peak_bytes": peak_dense, "params": n_params,
-            "launches_after_compress": after_compress, "launches": launches,
-            "gmm_by_rows": gmm_by_rows, "then": after}
+        return dict(out, breakdown=breakdown)
 
     # ---- 5. kernels vs plain at full width, depth 2 --------------------
     def rel(a, b):
@@ -2218,61 +2385,71 @@ def main() -> int:
                "moe_rows_replayed": [flips, flips_paged]}
         if mlp != "moe":
             out["fused_steps"] = fused_steps_vs_plain(cfg2, target2, kv2, tag,
-                                                      max_len, plain_run)
+                                                      max_len)
         if mlp == "moe":
             out["reclaimed_lanes"] = reclaimed_lanes_twice(cfg2, target2,
                                                            kv2, tag)
         return out
 
-    def fused_steps_vs_plain(cfg2, target2, kv2, tag, max_len, plain_run):
+    def fused_steps_vs_plain(cfg2, target2, kv2, tag, max_len):
         """Two requests on the task through a self-speculative fused engine
         (k = 3) on a virtual clock, dense and paged (blocks of 16): the
         first fused step carries 4 verify lanes (W = 4); the second
         request arrives while the first decodes and joins as one 16-token
-        chunk (W = 16).  Each of those two steps' valid lanes' logits,
-        through the kernels and through the plain versions, agree within
-        the end-to-end bound."""
+        chunk (W = 16).  Each of those two steps is run again, forced to
+        the plain versions, on the same inputs (its tokens, positions and
+        a copy of the cache as the step found it), and their valid lanes'
+        logits agree within the end-to-end bound.  (Two whole serves, one
+        each way, would compare different inputs wherever a greedy draft
+        lies on a near-tie that the two ways' roundings break apart.)"""
         j_rng = np.random.default_rng(26)
         join_toks = j_rng.integers(4, vocab.size, 16).astype(np.int32)
         out = {}
         for layout in ("dense", "paged"):
-            def run():
-                eng = ServingEngine(
-                    cfg2, target2, slots=2, max_len=max_len,
-                    kv_layout=layout, block_size=16, fused_step=True,
-                    fused_chunk_tokens=16, spec_draft="self", spec_k=3,
-                    clock=VirtualClock())
-                eng.add_prefix("task", kv2)
-                steps = []
+            eng = ServingEngine(
+                cfg2, target2, slots=2, max_len=max_len, kv_layout=layout,
+                block_size=16, fused_step=True, fused_chunk_tokens=16,
+                spec_draft="self", spec_k=3, clock=VirtualClock())
+            eng.add_prefix("task", kv2)
+            steps, inner = [], []
 
-                def hook(mod, args, kwargs, res):
-                    lv, toks = kwargs.get("lane_valid"), kwargs["tokens"]
-                    if lv is not None and toks.shape[1] > 1:  # not a draft
-                        v = lv.tolist()
-                        steps.append((toks.shape[1], v, torch.cat(
-                            [res[0][b, :n].float() for b, n in enumerate(v)])))
-
-                h = target2.register_forward_hook(hook, with_kwargs=True)
+            def hook(mod, args, kwargs, res):
+                lv, toks = kwargs.get("lane_valid"), kwargs["tokens"]
+                if inner or lv is None or toks.shape[1] == 1 or len(steps) == 2:
+                    return  # the plain rerun, a draft, or past two steps
+                v = lv.tolist()
+                # the cache as the step found it: the step wrote only the
+                # valid lanes' rows, at [cache_index, + lane_valid)
+                cache = [{k_: t.clone() for k_, t in c.items()}
+                         for c in kwargs["cache"]]
+                inner.append(True)
+                ops.set_default_impl("torch")
                 try:
-                    eng.serve([Request(tokens=prompts[2], max_new=8,
-                                       prefix="task"),
-                               Request(tokens=join_toks, max_new=2,
-                                       prefix="task", arrival_s=0.0015)])
+                    with torch.no_grad():
+                        ref, _ = mod(*args, **dict(kwargs, cache=cache))
                 finally:
-                    h.remove()
-                return steps[:2]
+                    ops.set_default_impl(None)
+                    inner.pop()
+                steps.append((toks.shape[1], v, *(torch.cat(
+                    [x[b, :n].float() for b, n in enumerate(v)])
+                    for x in (res[0], ref))))
 
             set_counts()
-            got = run()
+            h = target2.register_forward_hook(hook, with_kwargs=True)
+            try:
+                eng.serve([Request(tokens=prompts[2], max_new=8,
+                                   prefix="task"),
+                           Request(tokens=join_toks, max_new=2,
+                                   prefix="task", arrival_s=0.0015)])
+            finally:
+                h.remove()
             launches = counts()
-            want = plain_run(run)
-            shapes = [(w, v) for w, v, _ in got]
-            errs = [rel(g[2], w_[2]) for g, w_ in zip(got, want)]
+            shapes = [(w, v) for w, v, _, _ in steps]
+            errs = [rel(k_, p_) for _, _, k_, p_ in steps]
             log(f"{tag} fused steps {layout} (W, valid lanes) {shapes}: "
                 f"valid lanes' logits rel err {[f'{e:.3e}' for e in errs]} "
                 f"(tol {E2E_REL_TOL:g}); launches {launches}")
-            if not (shapes == [(w, v) for w, v, _ in want]
-                    and [w for w, _ in shapes] == [4, 16]
+            if not ([w for w, _ in shapes] == [4, 16]
                     and max(errs) <= E2E_REL_TOL
                     and launches["flash_attention"] > 0
                     and (layout == "dense"
@@ -2517,39 +2694,47 @@ def main() -> int:
         torch.use_deterministic_algorithms(True, warn_only=True)
         torch.cuda.reset_peak_memory_stats()
 
-    def train_and_restart(tag, run, named, steps, tokens, check_step,
-                          count_keys, kernel_pats, init_s):
+    def seed_rebuilt(cfg, named, trained):
+        """The frozen tensors of ``named`` as their seed draws them: every
+        stack of these runs is the seed-0 target or a copy of it, so each
+        frozen name less its stack's prefix names a tensor of
+        ``tfm.init_params(cfg, 0)``, drawn again on the card."""
+        frozen = [n for n in named if n not in trained]
+        if not frozen:
+            return {}
+        ref = dict(tfm.init_params(cfg, 0).named_parameters())
+        return {n: ref[n.split(".", 1)[1]] for n in frozen}
+
+    def train_and_restart(tag, run, cfg, named, steps, tokens, check_step,
+                          count_keys, kernel_pats, init_s, restart_at=2,
+                          profile=True, restart_run=True):
         """``steps`` steps of ``run`` (trainer, step, params, opt,
-        batch_at) with raw checkpoints every 2 steps in ``ckdir``, under
+        batch_at) with raw checkpoints after step ``restart_at`` and the
+        last in ``ckdir``, under
         ``torch.use_deterministic_algorithms(True, warn_only=True)``
         (``start_training``): finite losses, every trained tensor's float32
         master moved, every other tensor of ``named`` bit-identical to its
-        start, ``check_step(i, counts)`` on each step's launch counts; then
-        a second Trainer restored from step 2 must reproduce the losses of
-        the later steps and the trained tensors exactly.  Last, one
-        profiled step: device busy, idle share and the device time of the
-        kernels named by ``kernel_pats``."""
+        seed's draw (``seed_rebuilt``: no copy of the frozen tensors is
+        kept, 26 GB at mistral-7b's ICAE++), ``check_step(i, counts)`` on
+        each step's launch counts; then a second Trainer restored from step
+        ``restart_at`` (None: no restart) must reproduce the losses of the
+        later steps and the trained tensors exactly, through its own
+        ``run`` (``restart_run``) or its step function (``restart_from``).
+        Last (``profile``),
+        one profiled step: device busy, idle share and the device time of
+        the kernels named by ``kernel_pats``."""
         import shutil
         import warnings
 
-        from repro_torch.train import Trainer, TrainerConfig
-
         trained = run.params
-        # the frozen tensors' copy stays on the card (a round trip through
-        # the host took most of the phase at granite's 20 GB of frozen
-        # weights); it raises the peak by exactly its bytes, taken off the
-        # printed peak
-        frozen = {n: p.detach().clone()
-                  for n, p in named.items() if n not in trained}
-        frozen_bytes = sum(t.numel() * t.element_size()
-                           for t in frozen.values())
-        start = {n: p.detach().float().clone() for n, p in trained.items()}
+        n_frozen = sum(n not in trained for n in named)
+        start = {n: p.detach().clone() for n, p in trained.items()}
         n_trained = sum(p.numel() for p in trained.values())
         state_bytes = sum(t.numel() * t.element_size()
                           for key in ("mu", "nu", "master")
                           for t in run.trainer.opt_state[key].values())
         log(f"{tag} init {init_s:.1f}s: {n_trained / 1e6:.1f}M trained "
-            f"parameters, {len(frozen)} frozen tensors, AdamW state "
+            f"parameters, {n_frozen} frozen tensors, AdamW state "
             f"{state_bytes} bytes")
 
         per_step, step_s = [], []
@@ -2572,18 +2757,22 @@ def main() -> int:
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            run.trainer.run()
+            # a checkpoint after step restart_at, then one after the last
+            for leg in ([restart_at] if restart_at else []) + [steps]:
+                run.trainer.tc.num_steps = run.trainer.tc.ckpt_every = leg
+                run.trainer.run()
+                run.trainer.start_step = leg
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = counts()
-        peak = torch.cuda.max_memory_allocated() - frozen_bytes
+        peak = torch.cuda.max_memory_allocated()
         nondet = sorted({str(w.message)[:120] for w in caught
                          if "deterministic" in str(w.message)})
         losses = dict(run.trainer.losses)
         log(f"{tag} losses {losses}; per-step seconds "
             f"{[round(x, 4) for x in step_s]}; whole run with "
-            f"{steps // 2} raw checkpoints {run_s:.2f}s; peak memory "
-            f"{peak} bytes")
+            f"{1 + bool(restart_at)} raw checkpoints {run_s:.2f}s; peak "
+            f"memory {peak} bytes")
         log(f"{tag} launches per step: " + ", ".join(
             f"{k} {[c[k] for c in per_step]}" for k in count_keys))
         if nondet:
@@ -2595,49 +2784,30 @@ def main() -> int:
             raise AssertionError(f"{tag} losses {losses}")
         moved = {n: not torch.equal(
             run.trainer.opt_state["master"].get(n, p.detach().float()),
-            start[n]) for n, p in trained.items()}
-        bf16_moved = sum(not torch.equal(p.detach().float(), start[n])
+            start[n].float()) for n, p in trained.items()}
+        bf16_moved = sum(not torch.equal(p.detach(), start[n])
                          for n, p in trained.items())
         if not all(moved.values()):
             raise AssertionError(f"{tag} trained tensors that did not move: "
                                  f"{[n for n, v in moved.items() if not v]}")
+        del start
+        frozen = seed_rebuilt(cfg, named, trained)
         changed = [n for n, t in frozen.items()
                    if not torch.equal(named[n].detach(), t)]
-        if changed:
+        if changed or len(frozen) != n_frozen:
             raise AssertionError(f"{tag} frozen tensors changed: {changed[:5]}")
         log(f"{tag} all {len(moved)} trained tensors moved (their float32 "
             f"masters; {bf16_moved} also in their bf16 values); all "
-            f"{len(frozen)} frozen tensors bit-identical to their start "
-            f"({frozen_bytes} bytes, copied on the card)")
-        del frozen, start
-        final = {n: p.detach().clone() for n, p in trained.items()}
-        # restart: a second Trainer on the same modules, its optimizer
-        # state fresh, restored from the step-2 checkpoint
-        t0 = time.perf_counter()
-        again = Trainer(
-            run.step, trained, run.opt.init(trained), run.batch_at,
-            str(ckdir), TrainerConfig(
-                num_steps=steps, ckpt_every=2, log_every=1, codec="raw"))
-        restored = again.restore_if_available(step=2)
-        restore_s = time.perf_counter() - t0
-        again.run()
-        torch.cuda.synchronize()
-        restart_s = time.perf_counter() - t0
-        later = list(range(3, steps + 1))
-        same_losses = all(again.losses[s_] == losses[s_] for s_ in later)
-        same_params = all(torch.equal(p, final[n]) for n, p in trained.items())
-        log(f"{tag} restart from step {restored} (restore {restore_s:.2f}s, "
-            f"with its steps {restart_s:.2f}s): "
-            f"losses of steps {later} {[again.losses[s_] for s_ in later]} vs "
-            f"{[losses[s_] for s_ in later]}: identical {same_losses}; "
-            f"trained tensors after step {steps} identical {same_params}")
-        if not (restored == 2 and same_losses and same_params):
-            diffs = {s_: again.losses[s_] - losses[s_] for s_ in later}
-            raise AssertionError(f"{tag} the restart does not reproduce the "
-                                 f"run: loss differences {diffs}")
-        ckpt_bytes = sum(f.stat().st_size
-                         for f in (ckdir / "step_00000002").iterdir())
-        del final, again
+            f"{n_frozen} frozen tensors bit-identical to their seed's draw")
+        del frozen
+        restart = {}
+        opt_state = run.trainer.opt_state
+        if restart_at:
+            restart = restart_from(tag, run, trained, steps, restart_at,
+                                   losses, restart_run)
+            opt_state = restart.pop("opt_state")
+        ckpt_bytes = sum(f.stat().st_size for f in (
+            ckdir / f"step_{restart_at or steps:08d}").iterdir())
         shutil.rmtree(ckdir, ignore_errors=True)
         torch.use_deterministic_algorithms(False)
         step_mean = float(np.mean(step_s[1:]))
@@ -2646,28 +2816,81 @@ def main() -> int:
                "peak_bytes": peak, "launches_per_step": per_step,
                "launches": launches, "trained_params": n_trained,
                "adamw_state_bytes": state_bytes, "ckpt_bytes": ckpt_bytes,
-               "restart_identical": same_losses and same_params,
                "nondeterministic_ops": nondet, "run_s": run_s,
-               "init_s": init_s}
+               "init_s": init_s, **restart}
         log(f"{tag} {card}: {step_mean:.4f} s/step over steps 2-{steps}, "
             f"{out['tokens_per_s']:.1f} tokens/s ({tokens} a step), peak "
             f"memory {peak} bytes, checkpoint {ckpt_bytes} bytes")
         # one profiled step, last: its device busy time, idle share and the
         # kernels' device times
-        b = run.batch_at(steps)
-        prof = profiled(tag, "step", lambda: run.step(
-            trained, run.trainer.opt_state, b))
-        kern = {}
-        for key, pats in kernel_pats.items():
-            hits = [v for k_, v in prof["by_name"].items()
-                    if any(p_ in k_ for p_ in pats)]
-            kern[key] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
-            log(f"{tag} profile step: {key} {kern[key][0]:.3f} ms over "
-                f"{kern[key][1]} kernels")
-        out.update(profile=prof, kernel_device_ms=kern)
+        if profile:
+            b = run.batch_at(steps)
+            prof = profiled(tag, "step", lambda: run.step(trained, opt_state,
+                                                          b))
+            kern = {}
+            for key, pats in kernel_pats.items():
+                hits = [v for k_, v in prof["by_name"].items()
+                        if any(p_ in k_ for p_ in pats)]
+                kern[key] = (sum(ms for ms, _ in hits),
+                             sum(n for _, n in hits))
+                log(f"{tag} profile step: {key} {kern[key][0]:.3f} ms over "
+                    f"{kern[key][1]} kernels")
+            out.update(profile=prof, kernel_device_ms=kern)
+        del opt_state
+        run.trainer.opt_state = None
         for p in trained.values():
             p.requires_grad_(False)
         return out
+
+    def restart_from(tag, run, trained, steps, restart_at, losses,
+                     by_run=True):
+        """A second Trainer on the same modules restored from the step
+        ``restart_at`` checkpoint, then its resume loop (``by_run``:
+        ``Trainer.run``, which also writes a last checkpoint) or, where
+        that checkpoint is dear (19 GB at mistral-7b's ICAE++), its step
+        function on the batches of the steps after it: its losses and the
+        trained tensors must equal the first run's.  It starts from the
+        first run's optimizer state object, whose every entry the restore
+        replaces (one state on the card, not two: mistral-7b's is 16
+        GB)."""
+        from repro_torch.train import Trainer, TrainerConfig
+
+        final = {n: p.detach().clone() for n, p in trained.items()}
+        t0 = time.perf_counter()
+        state, run.trainer.opt_state = run.trainer.opt_state, None
+        again = Trainer(
+            run.step, trained, state, run.batch_at, str(ckdir),
+            TrainerConfig(num_steps=steps, ckpt_every=steps, log_every=1,
+                          codec="raw"))
+        del state
+        restored = again.restore_if_available(step=restart_at)
+        restore_s = time.perf_counter() - t0
+        if by_run:
+            again.run()
+            again_losses = again.losses
+        else:
+            again_losses = {}
+            for i in range(again.start_step, steps):
+                again.params, again.opt_state, m_ = again.train_step(
+                    again.params, again.opt_state, run.batch_at(i))
+                again_losses[i + 1] = float(m_["loss"])
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+        later = list(range(restart_at + 1, steps + 1))
+        same_losses = all(again_losses.get(s_) == losses[s_] for s_ in later)
+        same_params = all(torch.equal(p, final[n]) for n, p in trained.items())
+        log(f"{tag} restart from step {restored} (restore {restore_s:.2f}s, "
+            f"with its steps {restart_s:.2f}s): "
+            f"losses of steps {later} {[again_losses.get(s_) for s_ in later]}"
+            f" vs {[losses[s_] for s_ in later]}: identical {same_losses}; "
+            f"trained tensors after step {steps} identical {same_params}")
+        if not (restored == restart_at and same_losses and same_params):
+            diffs = {s_: again_losses.get(s_, float("nan")) - losses[s_]
+                     for s_ in later}
+            raise AssertionError(f"{tag} the restart does not reproduce the "
+                                 f"run: loss differences {diffs}")
+        return {"restart_identical": True, "restore_s": restore_s,
+                "restart_s": restart_s, "opt_state": again.opt_state}
 
     def memcom_train_path(arch):
         """MemCom Phase 1 at full width and depth through the port's
@@ -2753,7 +2976,7 @@ def main() -> int:
                         gmm_bwd=("gmm_bwd",))
             keys += ["gmm", "gmm_bwd", "gmm_bwd_dx", "gmm_bwd_dw",
                      "gmm_bwd_wgmma"]
-        out = train_and_restart(tag, run, named, steps, batch * seq,
+        out = train_and_restart(tag, run, cfg, named, steps, batch * seq,
                                 check_step, keys, pats, init_s)
         out["target_tokens_per_s"] = batch * (seq - split) / out["s_per_step"]
         out["want_gmm_bwd"] = want_gmm
@@ -2812,7 +3035,7 @@ def main() -> int:
         # the chunked backward reruns the forward's first two phases (their
         # time counts under ssd_fwd) and then its own four kernels
         out = train_and_restart(
-            tag, run, dict(model.named_parameters()), steps, batch * seq,
+            tag, run, cfg, dict(model.named_parameters()), steps, batch * seq,
             check_step, ["ssd", "ssd_chunked", "ssd_bwd", "ssd_bwd_chunked"],
             {"ssd_fwd": ("ssd_chunk_states<128, 64, 128, false>",
                          "ssd_state_pass<false>", "ssd_chunk_outputs"),
@@ -3909,6 +4132,218 @@ def main() -> int:
             raise AssertionError(f"{tag}: the four ways disagree")
         return {"identical": same, "counters": out}
 
+    # ---- 4l, 4m. the ICAE baselines at full width ------------------------
+    from types import SimpleNamespace
+
+    from repro_torch.core import icae
+    from repro_torch.data import PretrainStream
+    from repro_torch.launch import steps as launch_steps
+    from repro_torch.train import Trainer, TrainerConfig
+
+    def icae_soft_and_logits(ic, target, cfg, src, prompt_rows):
+        """The soft tokens of ``src`` (B, T) and, behind soft row i % B,
+        the last-position logits of each prompt (``benchmarks/common.py``'s
+        ``make_icae_predictor``)."""
+        with torch.no_grad():
+            soft = icae.icae_compress(ic, cfg, src)
+            rows = []
+            for i, p_ in enumerate(prompt_rows):
+                q = torch.as_tensor(p_[None], dtype=torch.long, device=dev)
+                emb = F.embedding(q, target.embed.tokens)
+                b = i % soft.shape[0]
+                lg, _ = target(embeds=torch.cat(
+                    [soft[b:b + 1].to(emb.dtype), emb], dim=1))
+                rows.append(lg[0, -1].float())
+        return soft, torch.stack(rows)
+
+    def icae_compress_run(tag, cfg, ic, target, srcs, m_):
+        """Compress the two tasks (one batch of 2) into soft tokens and take
+        the first-step logits of the 4-12-token prompts behind them: finite,
+        of their shapes, and every compressor flash call over source +
+        memory through the variant ``fa.variant_for`` picks."""
+        S = srcs[0].shape[0] + m_
+        src = torch.as_tensor(np.stack(srcs), device=dev)
+        calls = SourcePrefills(S)
+        set_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with calls:
+            soft, logits = icae_soft_and_logits(ic, target, cfg, src, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        pick = fa.variant_for(torch.bfloat16, cfg.hd, S, fa._splits(
+            2, S, S, cfg.num_heads, cfg.num_kv_heads,
+            torch.cuda.current_device()))
+        ok = (tuple(soft.shape) == (2, m_, cfg.d_model)
+              and bool(torch.isfinite(soft).all())
+              and tuple(logits.shape) == (len(prompts), cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()))
+        log(f"{tag} compress 2 x {S - m_} tokens -> 2 x {m_} soft tokens "
+            f"and {len(prompts)} first-step logits: {wall:.3f}s; "
+            f"{calls.calls} flash calls over the {S} compressor positions, "
+            f"{calls.wgmma} through wgmma (the rule picks {pick}); greedy "
+            f"tokens {logits.argmax(-1).tolist()}; launches {c}")
+        if not ok or calls.calls != cfg.num_layers or calls.wgmma != (
+                calls.calls if pick == "wgmma" else 0):
+            raise AssertionError(f"{tag}: bad soft tokens or logits, or "
+                                 "compressor flash calls off the rule")
+        return {"s": wall, "flash_calls": calls.calls,
+                "flash_wgmma": calls.wgmma, "launches": c,
+                "greedy": logits.argmax(-1).tolist()}
+
+    def icae_train_path(arch, geom, runs, restart_run):
+        """The ICAE baselines at full width and depth (4l, 4m): for each
+        (variant, steps, restart step or None, profile?) in ``runs``, a
+        compressor copied from one seeded target (seed 0; adapters and
+        ``mem_embed`` from seed 1), the compress check, then
+        ``build_icae_train_step`` (AdamW with the reference's
+        ``warmup_constant(2e-3, 30)``, clip 1.0, remat) through the Trainer
+        on batch 2 x (T + 512) split at T, by ``train_and_restart``:
+        checkpoints, an exact restart, the frozen tensors (the target and
+        the compressor's untrained ones) checked against their seeds'
+        draw; the restart through ``Trainer.run`` where ``restart_run``.
+        Every step makes one flash backward call a layer in each
+        stack (``mem_embed`` trains, so the compressor's first layer needs
+        dQ, dK and dV; the soft tokens carry the target's gradient back),
+        each through the variant ``fa.bwd_variant_for`` picks."""
+        m_, T_, srcs, _ = geom
+        cfg = get_config(arch)
+        L, G = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
+        batch, seq = 2, T_ + 512
+        t0 = time.perf_counter()
+        target = tfm.init_params(cfg, 0)
+        torch.cuda.synchronize()
+        target_s = time.perf_counter() - t0
+        lengths = (T_ + m_, m_ + seq - T_)  # compressor, target positions
+        want_wg = sum(L for n in lengths if fa.bwd_variant_for(
+            torch.bfloat16, cfg.hd, n * G, n) == "wgmma")
+        stream = PretrainStream(vocab, batch=batch, seq_len=seq,
+                                split_choices=(T_,), seed=0)
+
+        def batch_at(i):
+            b = stream.batch_at(i)
+            return {k: torch.as_tensor(b[k], device=dev)
+                    for k in ("source", "target", "target_mask")}
+
+        out = {}
+        for variant, steps, restart_at, prof in runs:
+            tag = f"[{arch} {variant}]"
+            start_training()
+            t0 = time.perf_counter()
+            ic = icae.init_icae(cfg, target, variant, seed=1)
+            res = {"compress": icae_compress_run(tag, cfg, ic, target, srcs,
+                                                 m_)}
+            step, opt, params = launch_steps.build_icae_train_step(
+                cfg, ic, target)
+            trainer = Trainer(step, params, opt.init(params), batch_at,
+                              str(ckdir), TrainerConfig(
+                                  num_steps=steps, log_every=1, codec="raw"))
+            run = SimpleNamespace(trainer=trainer, step=step, params=params,
+                                  opt=opt, batch_at=batch_at)
+            torch.cuda.synchronize()
+            init_s = target_s + time.perf_counter() - t0
+            named = dict(ic.named_parameters())
+            named.update(("target." + n, p)
+                         for n, p in target.named_parameters())
+
+            def check_step(i, c, tag=tag):
+                if c["flash_attention_bwd"] != 2 * L \
+                        or c["flash_attention_bwd_wgmma"] != want_wg \
+                        or c["memcom_xattn"] or c["memcom_xattn_bwd"]:
+                    raise AssertionError(
+                        f"{tag} step {i + 1}: {c['flash_attention_bwd']} "
+                        f"flash backward calls (want {2 * L}), "
+                        f"{c['flash_attention_bwd_wgmma']} through the wgmma "
+                        f"variant (want {want_wg}); launches {c}")
+
+            res.update(train_and_restart(
+                tag, run, cfg, named, steps, batch * seq, check_step,
+                ["flash_attention", "flash_attention_wgmma",
+                 "flash_attention_bwd", "flash_attention_bwd_wgmma"],
+                {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_bwd_",)},
+                init_s, restart_at=restart_at, profile=prof,
+                restart_run=restart_run))
+            res["flash_bwd_per_step"] = 2 * L
+            res["want_bwd_wgmma"] = want_wg
+            out[variant] = res
+            del ic, run, trainer, step, opt, params, named
+            gc.collect()
+            torch.cuda.empty_cache()
+        del target
+        return out
+
+    def icae_kernel_vs_plain(arch, geom, variants, batch):
+        """At full width and depth 2, for each variant: the soft tokens of a
+        task and the first-step logits of a prompt behind them, then the
+        loss (over ``batch`` rows of T + 512 tokens split at T, remat) and
+        every trained gradient with each adapter's ``b`` drawn off zero
+        (at init every gradient of ``a`` is 0), through the kernels and
+        forced to the plain versions: each within 2e-2 of the plain run's
+        largest magnitude; one flash backward call a layer and stack."""
+        m_, T_, srcs, _ = geom
+        cfg = get_config(arch)
+        cfg2 = cfg.replace(name=f"{arch}-depth2", layout=LayerLayout.uniform(
+            LayerDesc("attn", "dense"), 2))
+        tag = f"[{arch} icae kernel-vs-plain]"
+        target2 = tfm.init_params(cfg2, 0)
+        src = torch.as_tensor(srcs[0][None], device=dev)
+        raw = PretrainStream(vocab, batch=batch, seq_len=T_ + 512,
+                             split_choices=(T_,), seed=0).batch_at(0)
+        data = {k: torch.as_tensor(raw[k], device=dev)
+                for k in ("source", "target", "target_mask")}
+        out = {}
+        for variant in variants:
+            t_ph = time.perf_counter()
+            ic2 = icae.init_icae(cfg2, target2, variant, seed=1)
+            g_b = torch.Generator(device=dev)
+            g_b.manual_seed(29)
+            with torch.no_grad():
+                for ad in ic2.lora.adapters().values():
+                    ad.b.copy_(0.05 * torch.randn(ad.b.shape, generator=g_b,
+                                                  device=dev))
+            trained = icae.set_trainable(ic2)
+
+            def both():
+                soft, logits = icae_soft_and_logits(ic2, target2, cfg2, src,
+                                                    [prompts[2]])
+                loss, _ = icae.icae_loss(ic2, target2, cfg2, data, remat=True)
+                g = torch.autograd.grad(loss, list(trained.values()))
+                return soft, logits, float(loss.detach()), g
+
+            set_counts()
+            soft_k, lg_k, loss_k, g_k = both()
+            torch.cuda.synchronize()
+            c = counts()
+            ops.set_default_impl("torch")
+            try:
+                soft_p, lg_p, loss_p, g_p = both()
+            finally:
+                ops.set_default_impl(None)
+            rels = {n: rel(a, b) for n, a, b in zip(trained, g_k, g_p)}
+            worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
+            r_soft, r_lg = rel(soft_k, soft_p), rel(lg_k, lg_p)
+            log(f"{tag} {variant}, depth 2, bf16: soft tokens rel err "
+                f"{r_soft:.3e}, first-step logits rel err {r_lg:.3e}; loss "
+                f"kernel {loss_k:.6f} plain {loss_p:.6f}; {len(rels)} "
+                f"gradients, worst rel err {worst} (tol {E2E_REL_TOL:g}); "
+                f"flash backward calls {c['flash_attention_bwd']} "
+                f"({c['flash_attention_bwd_wgmma']} wgmma); "
+                f"{time.perf_counter() - t_ph:.1f}s")
+            if not (r_soft <= E2E_REL_TOL and r_lg <= E2E_REL_TOL
+                    and worst[0][1] <= E2E_REL_TOL
+                    and abs(loss_k - loss_p) <= E2E_REL_TOL * abs(loss_p)
+                    and c["flash_attention_bwd"] == 4):
+                raise AssertionError(f"{tag} {variant}: kernel path and "
+                                     "plain path disagree")
+            out[variant] = {"soft_rel_err": r_soft, "logits_rel_err": r_lg,
+                            "loss_kernel": loss_k, "loss_plain": loss_p,
+                            "worst_rel_err": worst, "launches": c}
+            del ic2, trained, g_k, g_p, soft_k, soft_p
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out
+
     paths = {}
     base_geom = (m, T, sources, max_len)
     for arch, need in (("gemma2-2b", ()), ("granite-moe-3b-a800m", ("gmm",))):
@@ -3930,6 +4365,20 @@ def main() -> int:
     report["mamba2-370m"]["kernel_vs_plain"] = mamba_kernel_vs_plain()
     gc.collect()
     torch.cuda.empty_cache()
+    # 4n: the dense smollm-360m and stablelm-1.6b, compress -> dense and
+    # paged serving at full width, then their depth-2 check (phase 5)
+    for arch in ("smollm-360m", "stablelm-1.6b"):
+        t_phase = time.perf_counter()
+        report[arch] = main_path(arch, (), base_geom, profile=False)
+        paths[f"{arch} dense"] = report[arch]["launches"]
+        paths[f"{arch} paged"] = report[arch]["paged"]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[arch]["kernel_vs_plain"] = kernel_vs_plain(arch, base_geom)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[arch]["phase_s"] = time.perf_counter() - t_phase
+        log(f"[{arch}] phases 4n and 5: {report[arch]['phase_s']:.1f}s")
     t_phase = time.perf_counter()
     report["train"] = memcom_train_path("gemma2-2b")
     paths["gemma2-2b train"] = report["train"]["launches"]
@@ -3991,6 +4440,43 @@ def main() -> int:
         report[key]["phase_s"] = time.perf_counter() - t_phase
         log(f"[{key}] training and its depth-2 check: "
             f"{report[key]['phase_s']:.1f}s (training {train_s:.1f}s)")
+
+    # 4l, 4m: the ICAE baselines at full width (gemma2-2b: the three
+    # variants; mistral-7b: icae++, the target and compressor 29 GB of bf16
+    # weights), each with its depth-2 kernel-vs-plain check (phase 5);
+    # mistral-7b's restart runs its steps without Trainer.run's last
+    # checkpoint (19 GB)
+    mgeom = (768, MT, msources[:2], None)
+    for arch, geom, runs, vs_batch, restart_run in (
+            ("gemma2-2b", base_geom, (("icae++", 4, 2, True),
+                                      ("icae", 2, None, False),
+                                      ("icae+", 2, None, False)), 2, True),
+            ("mistral-7b", mgeom, (("icae++", 3, 1, True),), 1, False)):
+        t_phase = time.perf_counter()
+        key = f"{arch} icae"
+        report[key] = icae_train_path(arch, geom, runs, restart_run)
+        for variant, res in report[key].items():
+            paths[f"{arch} {variant} compress"] = res["compress"]["launches"]
+            paths[f"{arch} {variant} train"] = res["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_s = time.perf_counter() - t_phase
+        report[key]["kernel_vs_plain"] = icae_kernel_vs_plain(
+            arch, geom, [r[0] for r in runs], vs_batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[key]["phase_s"] = time.perf_counter() - t_phase
+        log(f"[{key}] training and its depth-2 check: "
+            f"{report[key]['phase_s']:.1f}s (training {train_s:.1f}s)")
+    mcfg = get_config("mistral-7b")
+    icpp = report["mistral-7b icae"]["icae++"]
+    reckoned = (2 * 2 * mcfg.param_count() + icpp["trained_params"] * (2 + 12)
+                + mcfg.num_layers * 2 * (MT + 768) * mcfg.d_model * 2)
+    log(f"[mistral-7b icae++] peak memory {icpp['peak_bytes']} bytes against "
+        f"{reckoned} reckoned (two bf16 copies of the weights, bf16 "
+        f"gradients and float32 AdamW moments and master of the trained "
+        f"tensors, remat's saved block inputs)")
+    icpp["reckoned_bytes"] = reckoned
 
     # ---- result lines ----------------------------------------------------
     def compile_chunk(rows):
@@ -4117,8 +4603,15 @@ def main() -> int:
         out.write_text(json.dumps(report, indent=1))
     log(f"chip_smoke total {report['total_s']:.1f}s")
     log(card)
-    log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shapes"}
-                                for e in entries]}))
+    # each kernel's numbers at its head shape, and under "shapes" those of
+    # every timed shape (the json-out file has each row in full)
+    brief = ("shape", "variant", "ms", "device_ms", "bound_ms", "bound_by",
+             "plain_ms", "library_ms", "library_device_ms")
+    log(json.dumps({"kernels": [
+        {**{k: v for k, v in e.items() if k != "shapes"},
+         "shapes": [{k: r[k] for k in brief if k in r}
+                    for r in e["shapes"] if "ms" in r]}
+        for e in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

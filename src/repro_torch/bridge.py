@@ -10,10 +10,13 @@ entry) per layer, in layer order::
     layer index of prefix entry i          = i
     layer index of period l{j}, repeat r   = len(prefix) + r * len(period) + j
 
-:func:`from_jax_params` / :func:`from_jax_memcom` build port modules from
-the JAX pytrees (numpy leaves, e.g. ``jax.tree.map(np.asarray, params)``),
-:func:`load_params` from a checkpoint of them in the JAX package's format;
-:func:`to_numpy` is their inverse, bit for bit.  :func:`layerwise_to_list`
+:func:`from_jax_params` / :func:`from_jax_memcom` / :func:`from_jax_icae`
+build port modules from the JAX pytrees (numpy leaves, e.g.
+``jax.tree.map(np.asarray, params)``), :func:`load_params` from a
+checkpoint of them in the JAX package's format; :func:`to_numpy` is their
+inverse, bit for bit.  ICAE's adapters sit in a tree laid out as the
+model's (``period/l{j}/attn/wq/{a,b}`` stacked), one adapter a port
+layer.  :func:`layerwise_to_list`
 and :func:`list_to_layerwise` convert layer-wise values (hiddens, O^i,
 prefixes, caches).
 """
@@ -27,6 +30,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.core.icae import ICAE, VARIANTS
+from repro_torch.core.lora import LoRA, init_lora
 from repro_torch.core.memcom import MemCom
 from repro_torch.models.transformer import Transformer, torch_dtype
 
@@ -109,9 +114,14 @@ def _layer_path(cfg: ModelConfig, li: int) -> Tuple[bool, str]:
 
 def jax_path(cfg: ModelConfig, kind: str, name: str) -> str:
     """The JAX parameter path (``repro.utils.pytree.tree_flatten_with_names``
-    form) of port parameter ``name`` of a ``kind`` = "transformer" or
-    "memcom" module.  Layers of one ``period`` entry share a path (the JAX
-    tree stacks them)."""
+    form) of port parameter ``name`` of a ``kind`` = "transformer",
+    "memcom" or "icae" module.  Layers of one ``period`` entry share a
+    path (the JAX tree stacks them)."""
+    if kind == "icae":
+        head, _, rest = name.partition(".")
+        if head in ("compressor", "lora"):
+            return f"{head}/{jax_path(cfg, 'transformer', rest)}"
+        return name.replace(".", "/")
     if kind == "memcom":
         head, _, rest = name.partition(".")
         if head in ("source", "memory_llm"):
@@ -161,6 +171,23 @@ def from_jax_memcom(cfg: ModelConfig, tree, *, device=None,
     kw = dict(device=device, dtype=torch_dtype(cfg, dtype))
     mc = MemCom(cfg, Transformer(cfg, **kw), Transformer(cfg, **kw))
     return _load(mc, _memcom_names(cfg, tree))
+
+
+def from_jax_icae(cfg: ModelConfig, tree, variant: str, *,
+                  device=None) -> ICAE:
+    """A port ICAE of ``variant`` holding the JAX ICAE params ``tree``
+    ({"compressor", "lora", "mem_embed"}) in the config's type; the
+    ``period/l{j}`` adapters are unstacked, one a layer."""
+    device = resolve_device(device)
+    comp = Transformer(cfg, device=device, dtype=torch_dtype(cfg))
+    lora = init_lora(comp, VARIANTS[variant])
+    ic = ICAE(cfg, comp, lora, variant)
+    names = {f"compressor.{n}": a
+             for n, a in _transformer_names(cfg, tree["compressor"]).items()}
+    names.update((f"lora.{n}", a)
+                 for n, a in _transformer_names(cfg, tree["lora"]).items())
+    names["mem_embed"] = np.asarray(tree["mem_embed"])
+    return _load(ic, names)
 
 
 def load_params(cfg: ModelConfig, path: str, *, device=None,
@@ -213,15 +240,29 @@ def _transformer_tree(cfg: ModelConfig, model: Transformer) -> dict:
     return tree
 
 
+def _lora_tree(cfg: ModelConfig, lora: LoRA) -> dict:
+    per_layer = {}
+    for name, p in lora.named_parameters():
+        _, li, rest = name.split(".", 2)
+        per_layer.setdefault(int(li), {})[rest.replace(".", "/")] = _numpy(p)
+    return _stack_layers(cfg, per_layer)
+
+
 def to_numpy(module) -> dict:
-    """The JAX pytree (numpy leaves) of a port Transformer or MemCom —
-    the inverse of :func:`from_jax_params` / :func:`from_jax_memcom`.
-    bfloat16 parameters come back as float32 (exactly)."""
+    """The JAX pytree (numpy leaves) of a port Transformer, MemCom or ICAE
+    — the inverse of :func:`from_jax_params` / :func:`from_jax_memcom` /
+    :func:`from_jax_icae`.  bfloat16 parameters come back as float32
+    (exactly)."""
     cfg = module.cfg
     if isinstance(module, Transformer):
         return _transformer_tree(cfg, module)
+    if isinstance(module, ICAE):
+        return {"compressor": _transformer_tree(cfg, module.compressor),
+                "lora": _lora_tree(cfg, module.lora),
+                "mem_embed": _numpy(module.mem_embed)}
     if not isinstance(module, MemCom):
-        raise TypeError(f"expected Transformer or MemCom, got {type(module)}")
+        raise TypeError(f"expected Transformer, MemCom or ICAE, got "
+                        f"{type(module)}")
     per_layer = {}
     for name, p in module.memx.named_parameters():
         li, rest = name.split(".", 1)

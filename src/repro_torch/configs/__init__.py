@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
 The paper's own two targets, the MoE family's granite-moe-3b-a800m, the
-attention-free mamba2-370m and smollm-135m (the reference's training
-tests run on its smoke config), copied from ``repro/configs``.  Each module
+attention-free mamba2-370m, smollm-135m (the reference's training
+tests run on its smoke config) and the dense smollm-360m, stablelm-1.6b
+and mistral-nemo-12b, copied from ``repro/configs``.  Each module
 exposes ``config()`` (full published config) and ``smoke_config()``
 (reduced same-family config for CPU tests).
 """
@@ -14,7 +15,7 @@ import importlib
 from repro_torch.config import ModelConfig
 
 ARCH_IDS = ("gemma2-2b", "mistral-7b", "granite-moe-3b-a800m", "mamba2-370m",
-            "smollm-135m")
+            "smollm-135m", "smollm-360m", "stablelm-1.6b", "mistral-nemo-12b")
 
 _MODULES = {name: "repro_torch.configs." + name.replace("-", "_").replace(".", "_")
             for name in ARCH_IDS}

@@ -59,6 +59,12 @@ def _pads_chunks(cfg: ModelConfig, device: torch.device) -> bool:
         for d in cfg.layout.descriptors())
 
 
+def _memx(cfg: ModelConfig, *, device, dtype) -> nn.ModuleList:
+    """One uninitialised cross-attention a layer."""
+    return nn.ModuleList(MemXAttn(cfg, device=device, dtype=dtype)
+                         for _ in cfg.layout.descriptors())
+
+
 class MemCom(nn.Module):
     """Source-LLM, Memory-LLM, per-layer ``memx`` and ``mem_tokens``; the
     last two are declared uninitialised on the stacks' device."""
@@ -70,8 +76,7 @@ class MemCom(nn.Module):
             raise ValueError(f"{cfg.name}: set ModelConfig.memcom")
         self.cfg = cfg
         kw = dict(device=source.device, dtype=source.dtype)
-        self.memx = nn.ModuleList(
-            MemXAttn(cfg, **kw) for _ in cfg.layout.descriptors())
+        self.memx = _memx(cfg, **kw)
         make(self, "mem_tokens", (cfg.memcom.num_memory_tokens, cfg.d_model),
              Init("normal", scale=cfg.d_model ** -0.5), **kw)
         self.source = source
@@ -83,6 +88,19 @@ def init_memcom(cfg: ModelConfig, target: Transformer, seed: int = 0) -> MemCom:
     memory tokens are drawn from ``seed``.  Lives on the target's device."""
     mc = MemCom(cfg, copy.deepcopy(target), copy.deepcopy(target))
     return initialize(mc, seed, skip=("source", "memory_llm"))
+
+
+def init_memx(cfg: ModelConfig, seed: int = 0, *, device=None,
+              dtype=None) -> nn.ModuleList:
+    """The per-layer cross-attention ``memx`` alone, drawn from ``seed`` as
+    :func:`init_memcom` draws its ``memx`` (on the card by default)."""
+    from repro_torch import resolve_device
+    from repro_torch.models.transformer import torch_dtype
+
+    holder = nn.Module()
+    holder.memx = _memx(cfg, device=resolve_device(device),
+                        dtype=torch_dtype(cfg, dtype))
+    return initialize(holder, seed).memx
 
 
 def _as_tokens(mc: MemCom, tokens):

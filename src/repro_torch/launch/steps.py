@@ -1,6 +1,7 @@
 """Step builders of the training path (``repro/launch/steps.py``'s
-``build_memcom_train_step`` and ``build_lm_train_step``; the dry-run's
-compile-only builders are not ported).
+``build_memcom_train_step`` and ``build_lm_train_step``, and the ICAE step
+``benchmarks/common.py``'s ``train_compressor(kind="icae")`` jits; the
+dry-run's compile-only builders are not ported).
 
 Each returns ``(step, opt, params)``: ``params`` the flat dict of the
 tensors the step trains (leaves of the live modules, ``requires_grad``
@@ -14,8 +15,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from repro_torch.config import ModelConfig
-from repro_torch.core import memcom
-from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.core import icae, memcom
+from repro_torch.optim import AdamW, warmup_constant, warmup_cosine
 from repro_torch.train import build_train_step
 
 
@@ -36,6 +37,25 @@ def build_memcom_train_step(cfg: ModelConfig, mc: memcom.MemCom, target, *,
 
     def loss_fn(params, batch):
         return memcom.memcom_loss(mc, target, cfg, batch, remat=remat)
+
+    return build_train_step(loss_fn, opt, clip=clip), opt, params
+
+
+def build_icae_train_step(cfg: ModelConfig, ic: icae.ICAE, target, *,
+                          remat: bool = True, clip: float = 1.0,
+                          lr: Optional[Callable] = None):
+    """``icae_loss`` on the variant's trainable parameters (the adapters
+    and ``mem_embed``; for icae++ also the compressor's attention), the
+    target and the compressor's other tensors frozen (no gradient forms
+    for them), global-norm clip at ``clip``, AdamW.  ``lr`` defaults to
+    the reference's ``warmup_constant(2e-3, 30)``."""
+    params = icae.set_trainable(ic)
+    for p in target.parameters():
+        p.requires_grad_(False)
+    opt = AdamW(lr=lr or warmup_constant(2e-3, 30))
+
+    def loss_fn(params, batch):
+        return icae.icae_loss(ic, target, cfg, batch, remat=remat)
 
     return build_train_step(loss_fn, opt, clip=clip), opt, params
 

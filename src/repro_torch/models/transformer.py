@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -95,6 +96,7 @@ class Transformer(nn.Module):
         block_tables=None,  # (B, nb) int32: the cache is a paged pool
         lane_valid=None,  # (B,) int: the fused step's ragged-lane mask
         remat: bool = False,
+        params: Optional[dict] = None,  # {"layers.{i}.<name>": tensor}
     ):
         """Returns (logits_or_hidden, aux) with aux keys "cache",
         "hiddens" (layer inputs H^i), "omega" (Memory-LLM O^i) and
@@ -106,8 +108,17 @@ class Transformer(nn.Module):
         ``torch.utils.checkpoint`` when a graph is being recorded, as the
         JAX package's ``remat`` does: its activations are recomputed in
         the backward pass (so the kernels' forward counters count such a
-        block twice)."""
+        block twice).  ``params`` stands tensors in for block parameters of
+        the same names in this call (the ICAE compressor's LoRA-merged
+        weights): autograd reaches the tensors given, and a block
+        recomputed under ``remat`` reads the same ones."""
         cfg = self.cfg
+        block_params = [{} for _ in self.layers]
+        for name, t in (params or {}).items():
+            head, li, rest = name.split(".", 2)
+            if head != "layers":
+                raise ValueError(f"params: {name} is no block parameter")
+            block_params[int(li)][rest] = t
         if embeds is None:
             h = F.embedding(tokens, self.embed.tokens)
         else:
@@ -140,9 +151,10 @@ class Transformer(nn.Module):
                       cache_index=cache_index, decode=decode, memcom=mem,
                       block_tables=block_tables, lane_valid=lane_valid)
             if remat and torch.is_grad_enabled():
-                h, _, a = checkpoint(block, h, use_reentrant=False, **kw)
+                h, _, a = checkpoint(_run_block, block, block_params[i], h, kw,
+                                     use_reentrant=False)
             else:
-                h, _, a = block(h, **kw)
+                h, _, a = _run_block(block, block_params[i], h, kw)
             if a["moe_loss"] is not None:
                 moe_loss = (a["moe_loss"] if moe_loss is None
                             else moe_loss + a["moe_loss"])
@@ -160,6 +172,14 @@ class Transformer(nn.Module):
             "moe_loss": 0.0 if moe_loss is None else moe_loss,
         }
         return out, aux
+
+
+def _run_block(block: Block, params: dict, h, kw: dict):
+    """``block(h, **kw)``, with ``params`` standing in for its parameters
+    of those names."""
+    if not params:
+        return block(h, **kw)
+    return functional_call(block, params, (h,), kw)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,

@@ -1464,3 +1464,48 @@ def test_ssd_bwd_chunked_matches_its_restatement(cuda, rng):
         _assert_grad_close(g, wn, "bfloat16", name)
         if g.dtype == torch.float32:
             assert _err(g, wn) <= 1e-3 * float(wn.abs().max()), name
+
+
+@pytest.mark.parametrize("variant", ["icae", "icae+", "icae++"])
+def test_icae_step_kernels_against_plain(cuda, variant):
+    """An ICAE training step's loss and every trained gradient on
+    gemma2-2b's smoke config (float32, head dim 24: the float32 flash
+    kernels) under remat, through the kernels and forced to the plain
+    versions: within 1e-4 of the plain run's largest magnitude (the two
+    sum in different orders); one flash backward call a layer in the
+    compressor and one in the target (``mem_embed`` and the soft tokens
+    need gradients).  The bf16 kernels' ICAE step is held to the plain
+    one at full width by ``chip_smoke.py`` (phase 5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import icae
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_smoke_config("gemma2-2b")
+    target = tfm.init_params(cfg, 0, device=cuda)
+    ic = icae.init_icae(cfg, target, variant, seed=1)
+    with torch.no_grad():  # b off zero: at init every gradient of a is 0
+        for ad in ic.lora.adapters().values():
+            ad.b.normal_(0, 0.1)
+    trained = icae.set_trainable(ic)
+    batch = {key: torch.as_tensor(rng_.integers(0, cfg.vocab_size, (2, n)),
+                                  device=cuda)
+             for key, n, rng_ in (("source", 96, np.random.default_rng(4)),
+                                  ("target", 32, np.random.default_rng(5)))}
+
+    def run():
+        loss, _ = icae.icae_loss(ic, target, cfg, batch, remat=True)
+        return (float(loss.detach()),
+                torch.autograd.grad(loss, list(trained.values())))
+
+    before = fa.bwd_launches
+    loss_k, g_k = run()
+    assert fa.bwd_launches - before == 2 * cfg.num_layers
+    ops.set_default_impl("torch")
+    try:
+        loss_p, g_p = run()
+    finally:
+        ops.set_default_impl(None)
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    for name, a, b in zip(trained, g_k, g_p):
+        big = float(b.abs().max())
+        assert big > 0 and _err(a, b) <= 1e-4 * big, name

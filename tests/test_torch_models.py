@@ -1,6 +1,10 @@
 """The port's model against the JAX package's on the smoke configs of the
-paper's two targets, with the parameters carried across by
-``repro_torch.bridge`` and the inputs made with numpy from a seed.
+paper's two targets and of the dense smollm-360m (3 query heads on 1 KV
+head), stablelm-1.6b (layernorm, MHA, untied head) and mistral-nemo-12b
+(head dim given in the config; its smoke config's 4 x 32 equals d_model,
+so the decoupled head dim of the full width, 32 x 128 against 5120, is
+not exercised), with the parameters carried across
+by ``repro_torch.bridge`` and the inputs made with numpy from a seed.
 
 Tolerances: logits 1e-4 (float32 on the CPU; the two frameworks sum in
 different orders), layers 2e-5, parameter round trip bit for bit.
@@ -21,7 +25,8 @@ from repro_torch.configs import get_smoke_config as port_smoke_config
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 
-ARCHS = ["gemma2-2b", "mistral-7b"]
+ARCHS = ["gemma2-2b", "mistral-7b", "smollm-360m", "stablelm-1.6b",
+         "mistral-nemo-12b"]
 torch.set_num_threads(1)  # smoke shapes: threads only contend with xdist
 TOL = 1e-4
 

@@ -57,7 +57,9 @@ assert not bad, bad
                 "launch.train", "configs.smollm_135m", "serving.compiler",
                 "serving.tiers", "data.icl_tasks", "configs.bench_target",
                 "serving.traffic", "serving.telemetry", "serving.slo_watchdog",
-                "serving.profiler", "serving.server"):
+                "serving.profiler", "serving.server", "core.icae",
+                "core.lora", "configs.smollm_360m", "configs.stablelm_1_6b",
+                "configs.mistral_nemo_12b"):
         assert f"repro_torch.{mod}" in mods.split(), mod
 
 

@@ -144,6 +144,21 @@ def test_trainable_mask_and_set_trainable_per_phase(arch):
     assert all(p.requires_grad for p in pmc.parameters())  # phase 2 left on
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_memx_draws_init_memcoms_memx(arch):
+    """``init_memx(cfg, s)`` equals ``init_memcom(cfg, target, s).memx``
+    bit for bit, tensor by tensor."""
+    from repro_torch.models import transformer as tfm
+
+    pcfg = port_smoke_config(arch)
+    target = tfm.init_params(pcfg, 0, device="cpu")
+    want = dict(memcom.init_memcom(pcfg, target, 3).memx.named_parameters())
+    got = dict(memcom.init_memx(pcfg, 3, device="cpu").named_parameters())
+    assert list(got) == list(want) and len(got) > 0
+    for name, t in got.items():
+        assert t.dtype == want[name].dtype and torch.equal(t, want[name]), name
+
+
 def test_phase1_grads_only_on_trainables(rng):
     """Phase 1: the two LLM stacks form no weight gradient at all, memx and
     mem_tokens a non-zero one; the compressor's source pass records
