@@ -48,7 +48,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
       ``fused_decode_w16``); and probes (bf16 only): decode over caches of 2048 and 8192 positions and over 32 to
       72 slots, a prompt of 64 (query, head) rows against a 2048-token
       prefix, and causal self-attention short enough to split the KV
-      axis.  Every bf16 shape runs through both bf16 kernels, the wgmma variant and the
+      axis; deepseek-v2-236b's MLA at Dv != D (``mla_*``, scale 192^-0.5):
+      the non-absorbed source prefill, Memory-LLM (m = 1024), 16-token
+      prompt causal and against the 1024-row prefix (float32 too), all
+      128 heads of (192, 128), and the absorbed decode, 128 query heads on
+      one latent head of (576, 512), one lane and W = 4 a slot; and
+      jamba-1.5-large-398b's attention (64/8 heads of 128): its source
+      prefill and a prompt against its 1024-row prefix.  Every bf16 shape
+      runs through both bf16 kernels (at Dv != D the mma.sync one alone:
+      the wgmma variant needs Dv == D), the wgmma variant and the
       mma.sync one, each forced and each held to the plain version; ``ms``
       is the time of the variant the wrapper picks (``variant``), beside
       ``ms_wgmma`` and ``ms_mma_sync``, and ``device_ms_wgmma`` /
@@ -59,7 +67,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536 (the
       compress paths'), and mistral-7b's 1x768 x 6144 x 4096, smollm-360m's
       D = 960 (15 slabs of 64: the last output tile 192 columns wide) and
-      stablelm-1.6b's 2048 at 1x512 x 3072 (bf16 only).  Every bf16 shape runs through both
+      stablelm-1.6b's 2048 at 1x512 x 3072, and jamba-1.5-large-398b's
+      D = 8192 and deepseek-v2-236b's 5120 at 1x1024 x 3072 (bf16 only).
+      Every bf16 shape runs through both
       bf16 kernels, the wgmma variant (two launches) and the mma.sync one
       (three), each forced and each held to the plain version; the wgmma
       variant's distance from ``plain.memcom_xattn_tiled`` (its own
@@ -78,8 +88,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
       and 12, a length of 1, lengths on block boundaries, fully-masked
       rows, the mistral-7b width (32/8 heads of 128), granite's (24/8
       heads of 64), smollm-360m's (15/5 heads of 64) and stablelm-1.6b's
-      (32/32 heads of 64), and ``long_table``: the main-path shape in
-      tables of 4096 positions.  ``device_ms``: CUDA-graph replay rotating through
+      (32/32 heads of 64), ``long_table``: the main-path shape in
+      tables of 4096 positions, deepseek-v2-236b's absorbed decode
+      (``mla_decode``, ``mla_decode_w4``: q 4xWx128x576 against latent
+      pools of (576, 512), bf16 only, a 1024-row prefix shared by two
+      slots) and jamba-1.5-large-398b's attention (64/8 heads of 128)
+      behind its 1024-row prefix.  ``device_ms``: CUDA-graph replay rotating through
       input sets whose K/V rows read add up past 60 MB (14 at ``decode``),
       so that no call finds its rows in the 50 MB L2.  Its bound counts
       each distinct (pool block, offset) position below some slot's
@@ -88,7 +102,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    d. ``gmm`` (the MoE grouped matmul) at granite's E = 40 experts, C =
       768 / 128 / 8 rows (source prefill / Memory-LLM / prompt and decode)
       in both orientations (1536 -> 512 and 512 -> 1536), and probes at C
-      = 64, 32 and 16 (bf16 only) that set ``gm.variant_for``'s rule.
+      = 64, 32 and 16 (bf16 only) that set ``gm.variant_for``'s rule; and
+      (bf16 only, two buffer sets) jamba-1.5-large-398b's 16 experts of
+      8192 <-> 24576 at C = 480 (its source prefill) and 8, and
+      deepseek-v2-236b's 160 experts of 5120 <-> 1536 at C = 144 and 8,
+      their plain version one expert at a time.
       Every bf16 shape runs through each bf16 kernel that takes it (wgmma,
       rows, mma.sync), forced and held to the plain version; ``ms`` is
       the picked variant's time (``variant``) beside ``ms_<variant>``,
@@ -120,8 +138,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
       (2N + 2P + 4NP per token and head: the chunked form at Q = 1) / 989
       TFLOP/s, bytes of x, y, B, C, dt and the states / 3.35 TB/s),
       printed beside the bytes the chunked design moves (its chunk states
-      cross device memory four times).  No PyTorch call runs the scan, so
-      it has no library time.
+      cross device memory four times).  jamba-1.5-large-398b's Mamba2
+      layer (256 heads of 64, bf16 only): the 3072-token source and the
+      target's 12-token prompt seeded by the handed-off state.  No
+      PyTorch call runs the scan, so it has no library time.
    f. the backward kernels (``fa.flash_attention_bwd``,
       ``mx.memcom_xattn_bwd``) against their plain backward
       (``plain.attention_bwd_ref``, ``plain.memcom_xattn_bwd_ref``) on the
@@ -259,9 +279,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
       backward call a layer (48), every one through the chunked variant,
       and every forward ``ssd`` call through the chunked variant.  4j and 4k print s/step, tokens/s, peak memory
       and each phase's seconds.
+   o. deepseek-v2-236b and jamba-1.5-large-398b at full width, depth 2
+      (deepseek: its dense-FFN MLA prefix layer and one MLA + MoE layer,
+      16.29 B parameters over three stacks and memx; jamba: one Mamba2 +
+      MoE layer and its attention + dense layer, 35.98 B, 72 GB in bf16),
+      after mamba2-370m's serving, each model freed before the next:
+      two 3072-token tasks into m = 1024 (jamba's Mamba2 layer hands the
+      target its final SSM state), a dense serve of 4 requests, the
+      12-request paged serve with stops and refills (first tokens dense =
+      paged), jamba's refilled slot against a fresh engine's tokens
+      (exact), then on the same models the kernel path against the plain
+      one (phase 5's checks: O^i and the handed-off states, first-step
+      logits, a paged engine's prefills and decode step; the MoE top-k
+      replayed; jamba's plain expert products one expert at a time and
+      its plain attention in slices).  Printed: compress s, tok/s, peak
+      memory beside the reckoned bytes, the phase's seconds.
    n. smollm-360m (32 layers, d_model 960, 15/5 heads of 64) and
       stablelm-1.6b (24 layers, d_model 2048, 32/32 heads of 64,
-      layernorm), after mamba2-370m's serving: as 4a-b (two 3072-token
+      layernorm), both cut to depth 8 since PR 30 (to keep the run within
+      its time limit), after 4o: as 4a-b (two 3072-token
       tasks into m = 512, dense serve of 4 requests, the 12-request paged
       serve with stops and refills, the first tokens dense = paged), every
       source prefill and ``memcom_xattn`` call through its wgmma variant,
@@ -286,13 +322,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
       tokens carry the target's gradient back), each through the variant
       ``fa.bwd_variant_for`` picks.  Printed: s/step, tokens/s, peak
       memory, and one profiled icae++ step.
-   m. ICAE++ at mistral-7b's full width (32 layers, m = 768): the same
-      on the first two 6144-token tasks and batch 2 x 6656 split at 6144,
-      3 steps, a checkpoint after step 1 and the restart from it
-      reproducing steps 2-3 exactly; 64 flash backward calls a step; the
-      peak memory printed beside its reckoning (two bf16 copies of 7.25 B
-      parameters, bf16 gradients and float32 AdamW moments and master of
-      the 1.34 B trained ones, remat's saved block inputs).
+   m. ICAE++ at mistral-7b's full width, depth 8 since PR 30 (its 32
+      layers' raw checkpoint, 18.8 GB, took ~80 s to write and restore;
+      m = 768): the same on the first two 6144-token tasks and batch 2 x
+      6656 split at 6144, 3 steps, a checkpoint after step 1 and the
+      restart from it reproducing steps 2-3 exactly; 16 flash backward
+      calls a step (8 a stack); the peak memory printed beside its
+      reckoning (two bf16 copies of the target's parameters, bf16
+      gradients and float32 AdamW moments and master of the trained
+      ones, remat's saved block inputs).
       mistral-nemo-12b is CPU-only: its three stacks and memx hold about
       40.9 B parameters (82 GB in bf16).
    In 4d, 4j-4m the frozen tensors are held to their seed's draw, made
@@ -662,6 +700,18 @@ def main() -> int:
     mistral_heads = (32, 8, 128, 0.0)
     smollm_heads = (15, 5, 64, 0.0)    # smollm-360m: GQA group 3
     stablelm_heads = (32, 32, 64, 0.0)  # stablelm-1.6b: MHA
+    jamba_heads = (64, 8, 128, 0.0)    # jamba-1.5-large-398b's attention
+    # deepseek-v2-236b's MLA: the non-absorbed prefill, keys 128 nope + 64
+    # rope, values 128, 128 heads; the absorbed decode, 128 query heads on
+    # one latent head of 576 (key) / 512 (value); both at scale 192^-0.5
+    mla_scale = 192 ** -0.5
+    mla_heads = (128, 128, 192, 0.0, 128, mla_scale)
+    mla_dec_heads = (128, 1, 576, 0.0, 512, mla_scale)
+    mla_m = 1024        # memory tokens of jamba-1.5-large-398b / deepseek
+    mla_max_len = mla_m + 24 + max_new + 16
+    mla_lengths = lengths + (mla_m - m)
+    mla_decode_kv = arange(0, mla_max_len)[None].expand(
+        slots, mla_max_len).contiguous()
     # the ICAE step's causal self-attention (batch 2): the compressor over
     # source + memory, the target over the soft tokens + 512 target tokens
     icae_gemma = (T + m, m + 512)
@@ -746,26 +796,57 @@ def main() -> int:
            arange(0, L)[None], True, heads)
           for tag, L, heads in (("", 2048, gemma_heads),
                                 ("mistral_", m, mistral_heads))),
+        # deepseek-v2-236b (Dv != D): the MLA source prefill, the Memory-
+        # LLM's m = 1024 rows, a 16-token prompt (its MoE bucket) causal and
+        # against the 1024-row prefix (with lse), and the absorbed decode,
+        # one lane a slot and the fused step's W = 4
+        ("mla_source_prefill", 1, T, T, arange(0, T)[None],
+         arange(0, T)[None], True, mla_heads),
+        ("mla_memory_self", 1, mla_m, mla_m, arange(0, mla_m)[None],
+         arange(0, mla_m)[None], True, mla_heads),
+        ("mla_prompt_self", 1, 16, 16, arange(mla_m, 16)[None],
+         arange(mla_m, 16)[None], True, mla_heads),
+        ("mla_prompt_prefix", 1, 16, mla_m, arange(mla_m, 16)[None],
+         arange(0, mla_m)[None], False, mla_heads),
+        ("mla_decode", slots, 1, mla_max_len, (mla_lengths - 1)[:, None],
+         mla_decode_kv, True, mla_dec_heads),
+        ("mla_fused_decode_w4", slots, 4, mla_max_len,
+         mla_lengths[:, None] + arange(0, 4)[None], mla_decode_kv, True,
+         mla_dec_heads),
+        # jamba-1.5-large-398b's attention layer (64/8 heads of 128): its
+        # source prefill and the prompt against its 1024-row prefix
+        ("jamba_source_prefill", 1, T, T, arange(0, T)[None],
+         arange(0, T)[None], True, jamba_heads),
+        ("jamba_prompt_prefix", 1, prompt_len, mla_m,
+         arange(mla_m, prompt_len)[None], arange(0, mla_m)[None], False,
+         jamba_heads),
     ]
-    # shapes held in bf16 alone: the full-width models run bf16
-    BF16_ONLY = ("mistral", "probe_", "icae_", "smollm_", "stablelm_")
+    # shapes held in bf16 alone: the full-width models run bf16 (the
+    # float32 kernel at (192, 128) is held at the MLA prompt's shape)
+    BF16_ONLY = ("mistral", "probe_", "icae_", "smollm_", "stablelm_",
+                 "jamba_", "mla_source", "mla_memory", "mla_decode",
+                 "mla_fused")
     flash_rows = []
     for name, B, Sq, Skv, q_pos, kv_pos, causal, heads in attn_cases:
-        Hq, Hkv, D, cap = heads
+        Hq, Hkv, D, cap = heads[:4]
+        Dv, scale = heads[4:] if len(heads) > 4 else (D, None)
         nsplit = fa._splits(B, Sq, Skv, Hq, Hkv, torch.cuda.current_device())
-        dispatched = fa.variant_for(torch.bfloat16, D, Skv, nsplit)
+        dispatched = fa.variant_for(torch.bfloat16, D, Skv, nsplit, Dv)
+        # the bf16 kernels that take the shape (the wgmma one: Dv == D)
+        bf16_variants = (("wgmma", "mma_sync") if Dv == D
+                         else ("mma_sync",))
         row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
-               "causal": causal, "softcap": cap, "variant": dispatched,
-               "nsplit": nsplit}
+               "v_width": Dv, "causal": causal, "softcap": cap,
+               "variant": dispatched, "nsplit": nsplit}
         dtypes = ((torch.bfloat16,) if name.startswith(BF16_ONLY)
                   else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
             q = rand(B, Sq, Hq, D, dtype=dtype)
             k = rand(B, Skv, Hkv, D, dtype=dtype)
-            v = rand(B, Skv, Hkv, D, dtype=dtype)
+            v = rand(B, Skv, Hkv, Dv, dtype=dtype)
             kw = dict(q_pos=q_pos.contiguous(), kv_pos=kv_pos, causal=causal,
-                      softcap=cap, return_lse=True)
+                      softcap=cap, scale=scale, return_lse=True)
             ref, ref_lse = plain_attention(q, k, v, **kw)
             live = ref_lse > plain.NEG_INF / 2
             lse_tol = 1e-4 * max(1.0, float(ref_lse[live].abs().max())) \
@@ -775,7 +856,7 @@ def main() -> int:
             # one takes all of them when forced), each held to the plain
             # version; float32 through its one kernel
             variants = ((None,) if dtype is torch.float32
-                        else ("wgmma", "mma_sync"))
+                        else bf16_variants)
             for var in variants:
                 out, lse = fa.flash_attention(q, k, v, variant=var, **kw)
                 torch.cuda.synchronize()
@@ -794,13 +875,13 @@ def main() -> int:
                 row[f"lse_err_{dn}{tag}"] = e_lse
                 del out, lse
             if dtype is torch.bfloat16:
-                # the kernels' entries read the worse of the two variants
+                # the kernels' entries read the worse of the variants
                 for key in ("max_abs_err", "scaled_err", "lse_err"):
-                    row[f"{key}_{dn}"] = max(row[f"{key}_{dn}_wgmma"],
-                                             row[f"{key}_{dn}_mma_sync"])
+                    row[f"{key}_{dn}"] = max(row[f"{key}_{dn}_{var}"]
+                                             for var in bf16_variants)
             if dtype is torch.bfloat16 and name != "masked_rows":
                 row["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
-                for var in ("wgmma", "mma_sync"):
+                for var in bf16_variants:
                     row[f"ms_{var}"] = cuda_ms(lambda: fa.flash_attention(
                         q, k, v, variant=var, **kw))
                     # the kernels' own time (a split call: both kernels)
@@ -815,30 +896,41 @@ def main() -> int:
                     mask = mask.expand(B, Sq, Skv)
                 pairs = int(mask.sum())
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                # SDPA takes Dv != D (its memory-efficient or math backend)
+                # and the explicit scale
                 if name.endswith(("source_prefill", "memory_self",
                                   "prompt_self", "_compressor", "_target")):
                     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                        qt, kt, vt, is_causal=True, enable_gqa=True,
+                        scale=scale)
                 else:
                     am = mask[:, None]
                     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                        qt, kt, vt, attn_mask=am, enable_gqa=True)
+                        qt, kt, vt, attn_mask=am, enable_gqa=True,
+                        scale=scale)
                 row["library_ms"] = cuda_ms(sdpa)
-                flops = 4 * D * Hq * pairs
+                flops = 2 * (D + Dv) * Hq * pairs
                 # q read and out written once, the K/V rows some query
                 # sees read once (decode skips the cache's unwritten tail),
                 # positions read and lse written
                 seen = int(mask.any(dim=1).sum())
-                nbytes = 2 * q.numel() * 2 + seen * Hkv * D * 2 * 2 \
-                    + 4 * (q_pos.numel() + kv_pos.numel() + B * Sq * Hq)
+                nbytes = (B * Sq * Hq * (D + Dv) * 2
+                          + seen * Hkv * (D + Dv) * 2
+                          + 4 * (q_pos.numel() + kv_pos.numel() + B * Sq * Hq))
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
+                row["device_ms"] = row[f"device_ms_{dispatched}"]
+                if Dv == D:
+                    times = (f"wgmma {row['ms_wgmma']:.4f}, mma.sync "
+                             f"{row['ms_mma_sync']:.4f}; device wgmma "
+                             f"{row['device_ms_wgmma']:.4f}, mma.sync "
+                             f"{row['device_ms_mma_sync']:.4f}")
+                else:  # no wgmma variant at Dv != D: the ms keys name it
+                    row["ms_wgmma"] = row["device_ms_wgmma"] = None
+                    times = (f"Dv {Dv}, mma.sync only; device "
+                             f"{row['device_ms_mma_sync']:.4f}")
                 log(f"  {name} bf16: kernel {row['ms']:.4f} ms "
-                    f"({dispatched}, {nsplit} split; wgmma "
-                    f"{row['ms_wgmma']:.4f}, mma.sync "
-                    f"{row['ms_mma_sync']:.4f}; device wgmma "
-                    f"{row['device_ms_wgmma']:.4f}, mma.sync "
-                    f"{row['device_ms_mma_sync']:.4f}), plain "
+                    f"({dispatched}, {nsplit} split; {times}), plain "
                     f"{row['plain_ms']:.4f} ms, sdpa "
                     f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                     f" ms ({row['bound_by']})")
@@ -854,12 +946,18 @@ def main() -> int:
                                # last 192-column output tile) and
                                # stablelm-1.6b's 2048
                                ("smollm_memory_xattn", 1, m, T, 960),
-                               ("stablelm_memory_xattn", 1, m, T, 2048)):
+                               ("stablelm_memory_xattn", 1, m, T, 2048),
+                               # m = 1024 at jamba-1.5-large-398b's and
+                               # deepseek-v2-236b's widths
+                               ("jamba_memory_xattn", 1, mla_m, T, 8192),
+                               ("deepseek_memory_xattn", 1, mla_m, T,
+                                5120)):
         picked = mx.variant_for(torch.bfloat16, B, Mx, Tx, D, True)
         row = {"shape": name, "q": [B, Mx, D], "kv": [B, Tx, D],
                "variant": picked,
                "nsplit": mx.num_splits(B, Mx, Tx, D)}
-        dtypes = ((torch.bfloat16,) if name.startswith(BF16_ONLY)
+        dtypes = ((torch.bfloat16,)
+                  if name.startswith(BF16_ONLY + ("deepseek_",))
                   else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
             dn = str(dtype).split(".")[1]
@@ -938,11 +1036,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         mx_rows.append(row)
 
-    def paged_inputs(B, S, Hq, Hkv, Dh, bs, lengths, share, dtype, table):
+    def paged_inputs(B, S, Hq, Hkv, Dh, bs, lengths, share, dtype, table,
+                     Dv=None):
         """Pools of shuffled blocks; slot b + 2 shares slot b's first
         ``share`` table entries (a task prefix seated in two slots);
         entries past a slot's length name block 0.  The tables hold
-        ``table`` positions (an engine's max_len)."""
+        ``table`` positions (an engine's max_len); the value pool is
+        ``Dv`` wide (default ``Dh``)."""
         nb = -(-table // bs)
         N = 1 + B * nb
         order = torch.randperm(N - 1, generator=gen, device=dev) + 1
@@ -954,7 +1054,7 @@ def main() -> int:
                 tables[b, :share] = tables[b - 2, :share]
         return (rand(B, S, Hq, Dh, dtype=dtype), rand(N, bs, Hkv, Dh,
                                                       dtype=dtype),
-                rand(N, bs, Hkv, Dh, dtype=dtype), tables,
+                rand(N, bs, Hkv, Dv or Dh, dtype=dtype), tables,
                 torch.tensor(lengths, dtype=torch.int32, device=dev))
 
     pm = m // 16  # prefix blocks of a task at block size 16
@@ -986,18 +1086,31 @@ def main() -> int:
         # an engine with max_len 4096 and young slots: splits follow the
         # slots' lengths, not the table's width
         ("long_table", slots, 1, 8, 4, 256, 16, main_lens, pm, 50.0, 4096),
+        # deepseek-v2-236b's absorbed decode (bf16 only: no float32 kernel
+        # at (576, 512)): 128 query heads on one latent head, a 1024-row
+        # prefix shared by two slots, one lane and the fused W = 4
+        *((f"mla_decode{'' if W_ == 1 else f'_w{W_}'}", slots, W_, 128, 1,
+           576, 16, [n + W_ for n in mla_lengths.tolist()], mla_m // 16, 0.0,
+           mla_max_len, 512, mla_scale) for W_ in (1, 4)),
+        # jamba-1.5-large-398b's attention layer behind its 1024-row prefix
+        ("jamba_decode", slots, 1, 64, 8, 128, 16, mla_lengths.tolist(),
+         mla_m // 16, 0.0, mla_max_len),
     ]
     paged_rows = []
-    for name, B, S, hq, hkv, Dh, bs, lens, share, cap, table in paged_cases:
-        row = {"shape": name, "q": [B, S, hq, Dh], "block_size": bs,
-               "lengths": lens, "shared_blocks": share, "softcap": cap,
-               "table": table}
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, B, S, hq, hkv, Dh, bs, lens, share, cap, table, *extra \
+            in paged_cases:
+        Dv, scale = extra if extra else (Dh, None)
+        row = {"shape": name, "q": [B, S, hq, Dh], "v_width": Dv,
+               "block_size": bs, "lengths": lens, "shared_blocks": share,
+               "softcap": cap, "table": table}
+        for dtype in ((torch.bfloat16,) if Dh == 576
+                      else (torch.float32, torch.bfloat16)):
             dn = str(dtype).split(".")[1]
             inputs = paged_inputs(B, S, hq, hkv, Dh, bs, lens, share, dtype,
-                                  table)
+                                  table, Dv)
             q, kp, vp, tables, lengths_t = inputs
-            kw = dict(block_tables=tables, lengths=lengths_t, softcap=cap)
+            kw = dict(block_tables=tables, lengths=lengths_t, softcap=cap,
+                      scale=scale)
             out = pa.paged_flash_decode(q, kp, vp, **kw)
             torch.cuda.synchronize()
             ref = plain.paged_decode_attention_ref(q, kp, vp, **kw)
@@ -1024,9 +1137,10 @@ def main() -> int:
                 for b, n in enumerate(lens):
                     visible.update((tab[b][i // bs], i % bs) for i in range(n))
                     pairs += sum(max(0, n - S + r + 1) for r in range(S))
-                flops = 4 * Dh * hq * pairs
-                nbytes = (len(visible) * hkv * Dh * 2 * 2
-                          + 2 * q.numel() * 2 + 4 * (tables.numel() + B))
+                flops = 2 * (Dh + Dv) * hq * pairs
+                nbytes = (len(visible) * hkv * (Dh + Dv) * 2
+                          + B * S * hq * (Dh + Dv) * 2
+                          + 4 * (tables.numel() + B))
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
                 row["distinct_rows"] = len(visible)
@@ -1035,11 +1149,12 @@ def main() -> int:
                 # 50 MB L2, so that no call finds its rows there
                 sets = -(-60_000_000 // nbytes)
                 bufs = [inputs] + [paged_inputs(B, S, hq, hkv, Dh, bs, lens,
-                                                share, dtype, table)
+                                                share, dtype, table, Dv)
                                    for _ in range(sets - 1)]
                 row["device_ms"] = device_ms(
                     lambda q_, k_, v_, t_, l_: pa.paged_flash_decode(
-                        q_, k_, v_, block_tables=t_, lengths=l_, softcap=cap),
+                        q_, k_, v_, block_tables=t_, lengths=l_, softcap=cap,
+                        scale=scale),
                     2 * sets, bufs)
                 row["device_sets"] = sets
                 row["nsplit"] = pa.num_splits(
@@ -1129,6 +1244,70 @@ def main() -> int:
                 del x, w, ref, bufs
             torch.cuda.empty_cache()
             gmm_rows.append(row)
+    def gmm_by_expert(x, w):
+        """``plain.gmm_ref`` (float32 products, cast to x's type) one
+        expert at a time: at jamba's expert width the whole stack in
+        float32 would take 12.9 GB."""
+        return torch.stack([(x[e].float() @ w[e].float()).to(x.dtype)
+                            for e in range(x.shape[0])])
+
+    # jamba-1.5-large-398b (16 experts of 8192 <-> 24576: 3.2e9 elements a
+    # weight stack, past 2^31) and deepseek-v2-236b (160 experts of 5120
+    # <-> 1536): the source prefill's C and decode's C = 8, bf16 only
+    for tag, E_x, C_src, dm, ff in (("jamba", 16, 480, 8192, 24576),
+                                    ("deepseek", 160, 144, 5120, 1536)):
+        for C in (C_src, 8):
+            for D, Fd in ((dm, ff), (ff, dm)):
+                name = f"{tag}_C{C}_{D}to{Fd}"
+                dispatched = gm.variant_for(torch.bfloat16, C, D, Fd, True)
+                row = {"shape": name, "x": [E_x, C, D], "w": [E_x, D, Fd],
+                       "variant": dispatched}
+                dn = "bfloat16"
+                x = rand(E_x, C, D, dtype=torch.bfloat16)
+                w = rand(E_x, D, Fd, dtype=torch.bfloat16, scale=D ** -0.5)
+                ref = gmm_by_expert(x, w)
+                variants = [v for v in gmm_variants
+                            if gm.takes(v, torch.bfloat16, E_x, C, D, Fd,
+                                        True)]
+                for var in variants:
+                    out = gm.gmm(x, w, variant=var)
+                    torch.cuda.synchronize()
+                    e, se = check("gmm", f"{name}_{var}", dn, out, ref)
+                    row[f"max_abs_err_{dn}_{var}"] = e
+                    row[f"scaled_err_{dn}_{var}"] = se
+                    del out
+                for key in ("max_abs_err", "scaled_err"):
+                    row[f"{key}_{dn}"] = max(row[f"{key}_{dn}_{v}"]
+                                             for v in variants)
+                flops = 2 * E_x * C * D * Fd
+                nbytes = 2 * (x.numel() + w.numel() + E_x * C * Fd)
+                row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+                row["flops"], row["bytes"] = flops, nbytes
+                # two weight sets (past the 50 MB L2 either way)
+                bufs = [(x, w), (rand(E_x, C, D, dtype=torch.bfloat16),
+                                 rand(E_x, D, Fd, dtype=torch.bfloat16,
+                                      scale=D ** -0.5))]
+                row["ms"] = cuda_ms(lambda: gm.gmm(x, w), reps=5)
+                for var in variants:
+                    row[f"device_ms_{var}"] = device_ms(
+                        lambda a, b: gm.gmm(a, b, variant=var), 6, bufs)
+                    row[f"tflops_{var}"] = flops / row[f"device_ms_{var}"] / 1e9
+                row["device_ms"] = row[f"device_ms_{dispatched}"]
+                row["plain_ms"] = cuda_ms(lambda: gmm_by_expert(x, w),
+                                          reps=2, warmup=1)
+                row["library_ms"] = cuda_ms(lambda: torch.bmm(x, w), reps=5)
+                row["library_device_ms"] = device_ms(torch.bmm, 6, bufs)
+                log(f"  {name} bf16: kernel {row['ms']:.4f} ms ({dispatched});"
+                    " device (2 buffer sets) "
+                    + ", ".join(f"{v} {row[f'device_ms_{v}']:.4f} "
+                                f"({row[f'tflops_{v}']:.0f} TFLOP/s)"
+                                for v in variants)
+                    + f"; bmm {row['library_device_ms']:.4f}; plain (by "
+                    f"expert) {row['plain_ms']:.4f} ms; bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                del x, w, ref, bufs
+                torch.cuda.empty_cache()
+                gmm_rows.append(row)
     # torch.bmm under graph capture leaves a cuBLAS workspace (32 MiB on
     # Hopper) held for the capture stream
     torch.cuda.synchronize()
@@ -1190,6 +1369,11 @@ def main() -> int:
         ("probe_S64", 1, 64, 32, 64, 1, 128, True, False),
         ("probe_S128", 1, 128, 32, 64, 1, 128, True, False),
         ("probe_S256", 1, 256, 32, 64, 1, 128, True, False),
+        # jamba-1.5-large-398b's Mamba2 layer (256 heads of 64, G 1, N 128):
+        # the 3072-token source, and the target's 12-token prompt seeded by
+        # the handed-off state (bf16 only)
+        ("jamba_source", 1, T, 256, 64, 1, 128, False, False),
+        ("jamba_prompt_state", 1, prompt_len, 256, 64, 1, 128, True, False),
     ]
     ssd_variants = ("chunked", "sequential")
 
@@ -1208,7 +1392,7 @@ def main() -> int:
                           f"{se_h:.3e}, finite {finite}{extra}")
             return max(e, e_h), max(se, se_h)
 
-        for dtype in ((torch.bfloat16,) if name.startswith("probe")
+        for dtype in ((torch.bfloat16,) if name.startswith(("probe", "jamba"))
                       else (torch.float32, torch.bfloat16)):
             dn = str(dtype).split(".")[1]
             x, dt, A, Bm, Cm, h0 = ssd_inputs(B, S, H, P, G, N, dtype, init,
@@ -2009,16 +2193,24 @@ def main() -> int:
             log(f"    {ms:9.3f} ms  x{n:<5d} {name}")
         return out
 
-    def main_path(arch, need, geom, then=None, profile=True):
+    def cut_depth(cfg, depth):
+        """A uniform layout's config at ``depth`` layers (full width)."""
+        if depth is None:
+            return cfg
+        return cfg.replace(name=f"{cfg.name}-depth{depth}",
+                           layout=LayerLayout(period=cfg.layout.period,
+                                              repeats=depth))
+
+    def main_path(arch, need, geom, then=None, profile=True, depth=None):
         """Compress -> dense serve, then a paged serve, of ``arch`` at full
         width and depth; ``need`` names the kernels every path must
         launch beside ``flash_attention``; ``geom`` is (m, T, the task
         sources, max_len).  ``then(cfg, target, compressor, prefixes,
         engine, pengine)`` runs further phases on the same models before
         the profiled runs (``profile``); what it returns lands under
-        "then"."""
+        "then".  ``depth`` cuts a uniform layout to that many layers."""
         m, T, sources, max_len = geom
-        cfg = get_config(arch)
+        cfg = cut_depth(get_config(arch), depth)
         tag = f"[{arch}]"
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2512,6 +2704,325 @@ def main() -> int:
                                  "reproducible or did not reclaim")
         return {"decode_lanes": steps, "shared_row_lanes": runs[0][2],
                 "identical": same}
+
+    # ---- 4o. deepseek-v2-236b (MLA) and jamba-1.5-large-398b (hybrid) ---
+    def family_cfg(arch):
+        """The full-width config cut to depth 2: deepseek-v2-236b's dense-
+        FFN MLA prefix layer and one MLA + MoE period layer; jamba-1.5-
+        large-398b's Mamba2 + MoE layer (period index 1) and its attention
+        + dense layer (index 4)."""
+        cfg = get_config(arch)
+        if arch == "deepseek-v2-236b":
+            layout = LayerLayout(prefix=cfg.layout.prefix,
+                                 period=cfg.layout.period, repeats=1)
+        else:
+            layout = LayerLayout(period=(cfg.layout.period[1],
+                                         cfg.layout.period[4]), repeats=1)
+        return cfg.replace(name=f"{arch}-depth2", layout=layout)
+
+    def family_path(arch):
+        """Compress two 3072-token tasks into m = 1024 memory slots, serve
+        them dense (4 requests) and paged (12 requests over 4 slots, stops
+        and refills), then hold the kernel path to the plain one on the
+        same models: O^i (and the handed-off SSM states), the first-step
+        logits behind the prefix and a paged engine's prefill and first
+        decode step, the MoE layers replaying the kernel run's top-k.
+        jamba's plain expert products go expert by expert (its whole
+        expert stack in float32 would take 12.9 GB), and a request in a
+        refilled slot must give a fresh engine's tokens exactly."""
+        cfg = family_cfg(arch)
+        tag = f"[{arch}]"
+        hybrid = any(d.mixer == "mamba" for d in cfg.layout.descriptors())
+        need = ("flash_attention", "memcom_xattn", "gmm") + (
+            ("ssd",) if hybrid else ())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_phase = t0 = time.perf_counter()
+        target = tfm.init_params(cfg, 0)
+        compressor = memcom.init_memcom(cfg, target, 1)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p_.numel() for p_ in target.parameters()) + sum(
+            p_.numel() for p_ in compressor.parameters())
+        reckoned = 2 * n_params  # bf16: three stacks and memx
+        weights_peak = torch.cuda.max_memory_allocated()
+        log(f"{tag} depth 2 at full width: {n_params / 1e9:.3f} B parameters "
+            f"over target, source, memory and memx ({reckoned} bytes "
+            f"reckoned in bf16), {weights_peak} bytes allocated at peak, in "
+            f"{init_s:.1f}s")
+        mlen = mla_max_len
+        engine = ServingEngine(cfg, target, slots=slots, max_len=mlen)
+        set_counts()
+        t0 = time.perf_counter()
+        prefixes, task_s = [], []
+        for t, src in enumerate(sources):
+            t1 = time.perf_counter()
+            prefix, _ = memcom.compress(
+                compressor, cfg, torch.as_tensor(src[None], device=dev))
+            kv = materialize_prefix(target, cfg, prefix)
+            engine.add_prefix(f"task{t}", kv)
+            prefixes.append((prefix, kv))
+            torch.cuda.synchronize()
+            task_s.append(time.perf_counter() - t1)
+        compress_s = time.perf_counter() - t0
+        after_compress = counts()
+        mb = cfg.mamba
+        for prefix, kv in prefixes:
+            for e, d in zip(prefix, cfg.layout.descriptors()):
+                x_, want = ((e["ssm"], (1, mb.nheads(cfg.d_model),
+                                        mb.headdim, mb.d_state))
+                            if d.mixer == "mamba"
+                            else (e["h"], (1, mla_m, cfg.d_model)))
+                if tuple(x_.shape) != want or not bool(
+                        torch.isfinite(x_).all()):
+                    raise AssertionError(f"{tag}: a {d.mixer} prefix entry "
+                                         f"{tuple(x_.shape)} is not finite "
+                                         f"{want}")
+            if not all(bool(torch.isfinite(x_).all()) for e in kv
+                       for x_ in e.values()):
+                raise AssertionError(f"{tag}: materialized prefix not finite")
+        reqs = [Request(tokens=p_, max_new=max_new, prefix=f"task{i % 2}")
+                for i, p_ in enumerate(prompts)]
+        before = dict(engine.counters)
+        t0 = time.perf_counter()
+        out = engine.serve(reqs)
+        torch.cuda.synchronize()
+        dense = serve_numbers(engine, reqs, out, time.perf_counter() - t0,
+                              before)
+        launches = counts()
+        tokens = np.stack([out[r.uid] for r in reqs])
+        log(f"{tag} {card}: compress 2x{T} tokens -> m={mla_m}: "
+            f"{compress_s:.3f}s (per task {[round(x, 4) for x in task_s]}); "
+            f"dense serve {slots}x{max_new}: {dense['serve_s']:.3f}s, decode "
+            f"{dense['decode_tok_s']:.1f} tok/s ({dense['decode_step_ms']:.2f}"
+            f" ms a step), TTFT mean {dense['ttft_mean_s']:.4f}s; launches: "
+            f"compress {after_compress}, dense path {launches}")
+        log(f"{tag} tokens {tokens.tolist()}")
+        if tokens.shape != (slots, max_new) or tokens.min() < 0 \
+                or tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"{tag}: bad generated tokens")
+        for key in need:
+            if launches[key] <= 0:
+                raise AssertionError(f"{key} was never launched on {arch}'s "
+                                     "dense path")
+        peak_dense = torch.cuda.max_memory_allocated()
+        # -- paged: 12 requests, every third stopping at its second token --
+        bs = 16
+        pengine = ServingEngine(cfg, target, slots=slots, max_len=mlen,
+                                kv_layout="paged", block_size=bs,
+                                num_blocks=1 + 2 * (mla_m // bs) + slots * 4)
+        for t, (_, kv) in enumerate(prefixes):
+            pengine.add_prefix(f"task{t}", kv)
+        f_rng = np.random.default_rng(30)
+        specs = [dict(tokens=f_rng.integers(4, vocab.size, int(
+            f_rng.integers(4, 13))).astype(np.int32),
+            max_new=int(f_rng.integers(4, 17)), prefix=f"task{i % 2}")
+            for i in range(12)]
+        free_reqs = [Request(**s_) for s_ in specs]
+        free = pengine.serve(free_reqs)
+        dense_reqs = [Request(**s_) for s_ in specs]
+        dense_out = engine.serve(dense_reqs)
+        first_diff = [i for i, (f_, d_) in enumerate(zip(free_reqs,
+                                                         dense_reqs))
+                      if int(free[f_.uid][0]) != int(dense_out[d_.uid][0])]
+        same_streams = sum(np.array_equal(free[f_.uid], dense_out[d_.uid])
+                           for f_, d_ in zip(free_reqs, dense_reqs))
+        log(f"{tag} paged first tokens equal to the dense engine's: "
+            f"{len(specs) - len(first_diff)}/{len(specs)}; whole streams "
+            f"equal: {same_streams}/{len(specs)}")
+        if first_diff:
+            raise AssertionError(f"{tag}: paged and dense first tokens "
+                                 f"differ for requests {first_diff}")
+        preqs = [Request(**s_, stop_token=int(free[f_.uid][1])
+                         if i % 3 == 0 else None)
+                 for i, (s_, f_) in enumerate(zip(specs, free_reqs))]
+        torch.cuda.reset_peak_memory_stats()
+        set_counts()
+        before = dict(pengine.counters)
+        t0 = time.perf_counter()
+        pout = pengine.serve(preqs)
+        torch.cuda.synchronize()
+        paged = serve_numbers(pengine, preqs, pout, time.perf_counter() - t0,
+                              before)
+        paged_launches = counts()
+        paged["peak_bytes"] = torch.cuda.max_memory_allocated()
+        stopped = 0
+        for r in preqs:
+            got = pout[r.uid]
+            early = len(got) < r.max_new
+            stopped += int(early)
+            if not 1 <= len(got) <= r.max_new or (
+                    early and int(got[-1]) != r.stop_token) or \
+                    got.min() < 0 or got.max() >= cfg.vocab_size:
+                raise AssertionError(f"{tag} request {r.uid}: {len(got)} "
+                                     f"tokens for a budget of {r.max_new}")
+        if not stopped:
+            raise AssertionError(f"{tag}: no stop token fired")
+        paged.update(requests=len(preqs), stopped_early=stopped,
+                     streams_equal_to_dense=int(same_streams),
+                     launches=paged_launches)
+        log(f"{tag} paged {card}: served {len(preqs)} requests "
+            f"({paged['tokens']} tokens, {stopped} stopped early) in "
+            f"{paged['serve_s']:.3f}s, decode {paged['decode_tok_s']:.1f} "
+            f"tok/s over {paged['decode_steps']} steps "
+            f"({paged['decode_step_ms']:.2f} ms each); launches "
+            f"{paged_launches}")
+        for key in need[:1] + need[2:] + ("paged_flash_decode",):
+            if paged_launches[key] <= 0:  # no compress on the paged serve
+                raise AssertionError(f"{key} was never launched on {arch}'s "
+                                     "paged path")
+        refill = None
+        if hybrid:  # tasks A, B, A on one prompt over 2 slots: the third
+            # refills a slot whose recurrent state B's request advanced
+            r_toks = prompts[2]
+            eng2 = ServingEngine(cfg, target, slots=2, max_len=mlen)
+            fresh = ServingEngine(cfg, target, slots=2, max_len=mlen)
+            for e_ in (eng2, fresh):
+                for t, (_, kv) in enumerate(prefixes):
+                    e_.add_prefix(f"task{t}", kv)
+            aba = [Request(tokens=r_toks, max_new=6, prefix=f"task{t}")
+                   for t in (0, 1, 0)]
+            got = eng2.serve(aba)
+            alone = next(iter(fresh.serve(
+                [Request(tokens=r_toks, max_new=6, prefix="task0")]).values()))
+            refill = bool(np.array_equal(got[aba[2].uid], alone)
+                          and np.array_equal(got[aba[0].uid], alone))
+            log(f"{tag} a request in a refilled slot (tasks A, B, A) gives a "
+                f"fresh engine's tokens: {refill}")
+            if not refill:
+                raise AssertionError(f"{tag}: a refilled slot kept state")
+            del eng2, fresh
+        serve_s = time.perf_counter() - t_phase
+        # -- kernels vs plain, on the same models --
+        src = torch.as_tensor(sources[0][None], device=dev)
+        prompt = torch.as_tensor(prompts[2][None], dtype=torch.long,
+                                 device=dev)
+
+        def pipeline():
+            prefix, _ = memcom.compress(compressor, cfg, src)
+            kv = materialize_prefix(target, cfg, prefix)
+            with torch.no_grad():
+                logits, _ = target(tokens=prompt, prefix=kv,
+                                   mask_offset=mla_m)
+            return ([e.get("h", e.get("ssm")) for e in prefix],
+                    logits[0, -1])
+
+        real_attn, real_gmm = plain.attention_ref, plain.gmm_ref
+
+        def attn_sliced(q, k, v, **kw):
+            """``plain.attention_ref`` in (batch row, KV-head group) slices
+            whose float32 logits stay within 1 GiB: beside jamba's 72 GB
+            of weights the whole source prefill's (2.4 GB and its
+            temporaries) would not fit."""
+            B, Sq, Hq, _ = q.shape
+            Skv, Hkv = k.shape[1], k.shape[2]
+            G = Hq // Hkv
+            if B * Hq * Sq * Skv * 4 <= 2 ** 30:
+                return real_attn(q, k, v, **kw)
+            out = q.new_empty((*q.shape[:3], v.shape[-1]))
+            lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device)
+            for b, h0, h1 in head_slices(B, Sq, Skv, Hkv, G, 2 ** 30):
+                r = real_attn(
+                    q[b:b + 1, :, h0 * G:h1 * G], k[b:b + 1, :, h0:h1],
+                    v[b:b + 1, :, h0:h1], **dict(
+                        kw, q_pos=kw["q_pos"][b:b + 1],
+                        kv_pos=kw["kv_pos"][b:b + 1]))
+                if kw.get("return_lse"):
+                    r, lse[b:b + 1, :, h0 * G:h1 * G] = r
+                out[b:b + 1, :, h0 * G:h1 * G] = r
+            return (out, lse) if kw.get("return_lse") else out
+
+        def plain_run(fn):
+            """``fn`` through the plain versions on the kernel run's expert
+            choices, the expert products one expert at a time and the
+            attention in slices."""
+            routing.rows = routing.flips = 0
+            ops.set_default_impl("torch")
+            plain.gmm_ref, plain.attention_ref = gmm_by_expert, attn_sliced
+            try:
+                return routing.run("replay", fn)
+            finally:
+                plain.gmm_ref, plain.attention_ref = real_gmm, real_attn
+                ops.set_default_impl(None)
+
+        omega_k, logits_k = routing.run("record", pipeline)
+        omega_p, logits_p = plain_run(pipeline)
+        flips = (routing.flips, routing.rows)
+        errs = [rel(a, b) for a, b in zip(omega_k, omega_p)]
+        rel_logits = rel(logits_k, logits_p)
+        kinds = [d.mixer for d in cfg.layout.descriptors()]
+        log(f"{tag} kernel vs plain, bf16: per layer ({kinds}) O^i / SSM "
+            f"state rel err {[f'{e:.3e}' for e in errs]}, first-step logits "
+            f"rel err {rel_logits:.3e} (tol {E2E_REL_TOL:g}); greedy token "
+            f"kernel {int(logits_k.argmax())} plain {int(logits_p.argmax())};"
+            f" MoE rows whose plain top-k differs (replayed): {flips[0]} of "
+            f"{flips[1]}")
+        if not (max(errs) <= E2E_REL_TOL and rel_logits <= E2E_REL_TOL):
+            raise AssertionError(f"{tag}: kernel path and plain path "
+                                 "disagree end to end")
+        del omega_k, omega_p
+        kv0 = prefixes[0][1]
+
+        def paged_first_step():
+            """Two 2-token requests through a paged ``serve`` (blocks of 12,
+            the prefix's tail block shared and copied on write): the
+            last-position logits of the two prefills and the one decode
+            step."""
+            eng = ServingEngine(cfg, target, slots=2, max_len=mlen,
+                                kv_layout="paged", block_size=12)
+            eng.add_prefix("task", kv0)
+            rows = []
+            hook = target.register_forward_hook(
+                lambda mod, args, out_: rows.append(out_[0][:, -1].float()))
+            try:
+                eng.serve([Request(tokens=t_, max_new=2, prefix="task")
+                           for t_ in (prompts[2], prompts[1])])
+            finally:
+                hook.remove()
+            if len(rows) != 3:
+                raise AssertionError(f"{len(rows)} forward passes, want 2 "
+                                     "prefills and 1 decode step")
+            return torch.cat(rows[:2]), rows[2]
+
+        set_counts()
+        pre_k, step_k = routing.run("record", paged_first_step)
+        torch.cuda.synchronize()
+        e2e_counts = counts()
+        pre_p, step_p = plain_run(paged_first_step)
+        rel_pre, rel_step = rel(pre_k, pre_p), rel(step_k, step_p)
+        log(f"{tag} paged kernel vs plain: prefill logits rel err "
+            f"{rel_pre:.3e}, first decode step logits rel err {rel_step:.3e}"
+            f" (tol {E2E_REL_TOL:g}); launches {e2e_counts}")
+        if not (rel_pre <= E2E_REL_TOL and rel_step <= E2E_REL_TOL
+                and e2e_counts["paged_flash_decode"] > 0
+                and e2e_counts["gmm"] > 0):
+            raise AssertionError(f"{tag}: paged kernel path and plain path "
+                                 "disagree")
+        torch.cuda.synchronize()
+        peak = max(peak_dense, torch.cuda.max_memory_allocated())
+        phase_s = time.perf_counter() - t_phase
+        log(f"{tag} peak memory {peak} bytes against {reckoned} reckoned "
+            f"(three bf16 stacks and memx); phase {phase_s:.1f}s (init "
+            f"{init_s:.1f}s, to the end of serving {serve_s:.1f}s)")
+        del target, compressor, engine, pengine, prefixes, kv0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"params": n_params, "reckoned_bytes": reckoned,
+                "peak_bytes": peak, "weights_peak_bytes": weights_peak,
+                "init_s": init_s, "task_compress_s": task_s,
+                "compress_s": compress_s, "dense": dense, "paged": paged,
+                "launches_after_compress": after_compress,
+                "launches": launches, "refill_exact": refill,
+                "kernel_vs_plain": {
+                    "omega_or_state_rel_err": errs,
+                    "logits_rel_err": rel_logits,
+                    "paged_prefill_rel_err": rel_pre,
+                    "paged_step_rel_err": rel_step,
+                    "moe_rows_replayed": list(flips),
+                    "launches": e2e_counts},
+                "phase_s": phase_s}
 
     # ---- mamba2-370m: many-shot prompts served in full, through ssd ----
     q_rng = np.random.default_rng(14)
@@ -4192,7 +4703,7 @@ def main() -> int:
                 "flash_wgmma": calls.wgmma, "launches": c,
                 "greedy": logits.argmax(-1).tolist()}
 
-    def icae_train_path(arch, geom, runs, restart_run):
+    def icae_train_path(arch, geom, runs, restart_run, depth=None):
         """The ICAE baselines at full width and depth (4l, 4m): for each
         (variant, steps, restart step or None, profile?) in ``runs``, a
         compressor copied from one seeded target (seed 0; adapters and
@@ -4206,9 +4717,10 @@ def main() -> int:
         Every step makes one flash backward call a layer in each
         stack (``mem_embed`` trains, so the compressor's first layer needs
         dQ, dK and dV; the soft tokens carry the target's gradient back),
-        each through the variant ``fa.bwd_variant_for`` picks."""
+        each through the variant ``fa.bwd_variant_for`` picks.  ``depth``
+        cuts the layout to that many layers."""
         m_, T_, srcs, _ = geom
-        cfg = get_config(arch)
+        cfg = cut_depth(get_config(arch), depth)
         L, G = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
         batch, seq = 2, T_ + 512
         t0 = time.perf_counter()
@@ -4365,11 +4877,20 @@ def main() -> int:
     report["mamba2-370m"]["kernel_vs_plain"] = mamba_kernel_vs_plain()
     gc.collect()
     torch.cuda.empty_cache()
+    # 4o: deepseek-v2-236b (MLA, Dv != D in the flash and paged kernels)
+    # and jamba-1.5-large-398b (the hybrid's SSM-state handoff) at full
+    # width, depth 2, each checked against the plain path on its models
+    for arch in ("deepseek-v2-236b", "jamba-1.5-large-398b"):
+        report[arch] = family_path(arch)
+        paths[f"{arch} dense"] = report[arch]["launches"]
+        paths[f"{arch} paged"] = report[arch]["paged"]["launches"]
+        log(f"[{arch}] phase 4o: {report[arch]['phase_s']:.1f}s")
     # 4n: the dense smollm-360m and stablelm-1.6b, compress -> dense and
-    # paged serving at full width, then their depth-2 check (phase 5)
+    # paged serving at full width and (since PR 30) depth 8, then their
+    # depth-2 check (phase 5)
     for arch in ("smollm-360m", "stablelm-1.6b"):
         t_phase = time.perf_counter()
-        report[arch] = main_path(arch, (), base_geom, profile=False)
+        report[arch] = main_path(arch, (), base_geom, profile=False, depth=8)
         paths[f"{arch} dense"] = report[arch]["launches"]
         paths[f"{arch} paged"] = report[arch]["paged"]["launches"]
         gc.collect()
@@ -4442,19 +4963,23 @@ def main() -> int:
             f"{report[key]['phase_s']:.1f}s (training {train_s:.1f}s)")
 
     # 4l, 4m: the ICAE baselines at full width (gemma2-2b: the three
-    # variants; mistral-7b: icae++, the target and compressor 29 GB of bf16
-    # weights), each with its depth-2 kernel-vs-plain check (phase 5);
-    # mistral-7b's restart runs its steps without Trainer.run's last
-    # checkpoint (19 GB)
+    # variants; mistral-7b: icae++ at depth 8 since PR 30, the target and
+    # compressor 7.7 GB of bf16 weights: its 32 layers' checkpoint write
+    # and restore took ~80 s of the run's time limit), each with its depth-2
+    # kernel-vs-plain check (phase 5); mistral-7b's restart runs its steps
+    # without Trainer.run's last checkpoint
     mgeom = (768, MT, msources[:2], None)
-    for arch, geom, runs, vs_batch, restart_run in (
+    icae_m_depth = 8
+    for arch, geom, runs, vs_batch, restart_run, depth in (
             ("gemma2-2b", base_geom, (("icae++", 4, 2, True),
                                       ("icae", 2, None, False),
-                                      ("icae+", 2, None, False)), 2, True),
-            ("mistral-7b", mgeom, (("icae++", 3, 1, True),), 1, False)):
+                                      ("icae+", 2, None, False)), 2, True,
+             None),
+            ("mistral-7b", mgeom, (("icae++", 3, 1, True),), 1, False,
+             icae_m_depth)):
         t_phase = time.perf_counter()
         key = f"{arch} icae"
-        report[key] = icae_train_path(arch, geom, runs, restart_run)
+        report[key] = icae_train_path(arch, geom, runs, restart_run, depth)
         for variant, res in report[key].items():
             paths[f"{arch} {variant} compress"] = res["compress"]["launches"]
             paths[f"{arch} {variant} train"] = res["launches"]
@@ -4468,7 +4993,7 @@ def main() -> int:
         report[key]["phase_s"] = time.perf_counter() - t_phase
         log(f"[{key}] training and its depth-2 check: "
             f"{report[key]['phase_s']:.1f}s (training {train_s:.1f}s)")
-    mcfg = get_config("mistral-7b")
+    mcfg = cut_depth(get_config("mistral-7b"), icae_m_depth)
     icpp = report["mistral-7b icae"]["icae++"]
     reckoned = (2 * 2 * mcfg.param_count() + icpp["trained_params"] * (2 + 12)
                 + mcfg.num_layers * 2 * (MT + 768) * mcfg.d_model * 2)
@@ -4498,7 +5023,7 @@ def main() -> int:
             ("flash_attention:flash_attention", flash_rows, "source_prefill"),
             ("memcom_xattn:memcom_xattn", mx_rows, "memory_xattn"),
             ("paged_attention:paged_flash_decode", paged_rows, "decode"),
-            ("moe_gmm:gmm", gmm_rows, None),
+            ("moe_gmm:gmm", gmm_rows, "C768_512to1536"),
             ("ssd_scan:ssd", ssd_rows, "prefill"),
             ("flash_attention:flash_attention_bwd", flash_bwd_rows,
              "memory_self_bwd"),

@@ -7,7 +7,11 @@ as copies of the target), the per-layer cross-attention ``memx`` and the
 Source-LLM with per-layer capture, then the Memory-LLM over the memory
 tokens with the compression cross-attention, and packages the per-layer
 O^i as the prefix the frozen target consumes; it records no autograd
-graph (serving).  :func:`begin_compress` / :func:`compress_chunk` /
+graph (serving).  In a hybrid stack (Jamba) only the attention / MLA
+layers get a cross-attention and an O^i; a Mamba2 layer hands off the
+Source-LLM's exact final SSM state instead (``{"ssm": state}``), and its
+``memx`` entry is a hole (``None`` in :func:`memx_list`).
+:func:`begin_compress` / :func:`compress_chunk` /
 :func:`finish_compress` (and :func:`compress_chunked`) compute the same
 prefix in slices of the shot set, the Source-LLM's cache carried across
 slices.  On the card a slice of any width gives the one-shot's O^i bit
@@ -59,10 +63,35 @@ def _pads_chunks(cfg: ModelConfig, device: torch.device) -> bool:
         for d in cfg.layout.descriptors())
 
 
+def _chunks_as_decode(cfg: ModelConfig) -> bool:
+    """Whether a compress slice runs as a static-start decode (attention
+    stacks: each layer writes the slice's K/V and makes one unsplit causal
+    call over the cached keys, row for row the one-shot call) or, where a
+    Mamba2 or MLA layer sits in the stack, as the reference's prefill
+    continuation (the recurrence continues from the cached state; an MLA
+    layer attends to its cached latents as a prefix, merged by lse)."""
+    return all(d.mixer == "attn" for d in cfg.layout.descriptors())
+
+
+def _needs_state_handoff(cfg: ModelConfig) -> bool:
+    if cfg.memcom is None or not cfg.memcom.ssm_state_handoff:
+        return False
+    return any(d.mixer == "mamba" for d in cfg.layout.descriptors())
+
+
 def _memx(cfg: ModelConfig, *, device, dtype) -> nn.ModuleList:
-    """One uninitialised cross-attention a layer."""
-    return nn.ModuleList(MemXAttn(cfg, device=device, dtype=dtype)
-                         for _ in cfg.layout.descriptors())
+    """One uninitialised cross-attention for each attention / MLA layer;
+    a Mamba2 layer's entry is an ``nn.Identity`` that holds nothing (the
+    JAX tree's ``None``), so the parameter names keep the layer index."""
+    return nn.ModuleList(
+        MemXAttn(cfg, device=device, dtype=dtype)
+        if d.mixer in ("attn", "mla") else nn.Identity()
+        for d in cfg.layout.descriptors())
+
+
+def memx_list(memx: nn.ModuleList) -> list:
+    """The per-layer cross-attentions with ``None`` at the holes."""
+    return [x if isinstance(x, MemXAttn) else None for x in memx]
 
 
 class MemCom(nn.Module):
@@ -110,16 +139,19 @@ def _as_tokens(mc: MemCom, tokens):
     return tokens
 
 
-def _memory(mc: MemCom, cfg: ModelConfig, hiddens: list, remat=False):
+def _memory(mc: MemCom, cfg: ModelConfig, hiddens: list, source_cache=None,
+            remat=False):
     """The Memory-LLM over the m memory tokens with the per-layer
-    cross-attention into the source hiddens H^i; returns the prefix."""
+    cross-attention into the source hiddens H^i; returns the prefix (the
+    Mamba2 layers' entries are ``source_cache``'s final states)."""
     B = hiddens[0].shape[0]
     m = cfg.memcom.num_memory_tokens
     mem_embeds = mc.mem_tokens[None].expand(B, m, cfg.d_model)
     _, aux_m = mc.memory_llm(
-        embeds=mem_embeds, memcom={"params": list(mc.memx), "src": hiddens},
+        embeds=mem_embeds,
+        memcom={"params": memx_list(mc.memx), "src": hiddens},
         logits=False, remat=remat)
-    return build_prefix(cfg, aux_m["omega"])
+    return build_prefix(cfg, aux_m["omega"], source_cache)
 
 
 def compress_with_grad(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
@@ -127,9 +159,17 @@ def compress_with_grad(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
     """:func:`compress` with autograd on (training): the gradient reaches
     whichever parameters require it."""
     source_tokens = _as_tokens(mc, source_tokens)
+    state_cache = None
+    if _needs_state_handoff(cfg):
+        B = (source_tokens if source_tokens is not None
+             else source_embeds).shape[0]
+        state_cache = _mamba_only_cache(cfg, B, mc)
     _, aux_s = mc.source(tokens=source_tokens, embeds=source_embeds,
-                         capture_hiddens=True, logits=False, remat=remat)
-    return _memory(mc, cfg, aux_s["hiddens"], remat), {"encoder_out": None}
+                         capture_hiddens=True, cache=state_cache,
+                         cache_index=0 if state_cache is not None else None,
+                         logits=False, remat=remat)
+    return (_memory(mc, cfg, aux_s["hiddens"], state_cache, remat),
+            {"encoder_out": None})
 
 
 @torch.no_grad()
@@ -137,8 +177,9 @@ def compress(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
              source_embeds=None):
     """Many-shot tokens (B, T) -> per-layer compressed prefix for the target.
 
-    Returns (prefix, info): ``prefix[i] = {"h": O^i (B, m, D)}``.  Records
-    no autograd graph."""
+    Returns (prefix, info): ``prefix[i] = {"h": O^i (B, m, D)}`` for an
+    attention / MLA layer, ``{"ssm": final source state (B, H, P, N)
+    float32}`` for a Mamba2 layer.  Records no autograd graph."""
     return compress_with_grad(mc, cfg, source_tokens,
                               source_embeds=source_embeds)
 
@@ -179,9 +220,11 @@ def compress_chunk(mc: MemCom, cfg: ModelConfig, state: CompressionState,
     """Run the Source-LLM over one chunk (B, w) of the shot set behind the
     cached [0, offset) context and fold it into ``state``.
 
-    Each attention layer writes the chunk's K/V into the cache and makes
-    one causal call over the cached keys [0, offset + w), unsplit, row for
-    row the call :func:`compress` makes over the whole shot set; on the
+    In an attention stack each layer writes the chunk's K/V into the cache
+    and makes one causal call over the cached keys [0, offset + w),
+    unsplit, row for row the call :func:`compress` makes over the whole
+    shot set (a stack with Mamba2 or MLA layers runs the prefill
+    continuation instead, see :func:`_chunks_as_decode`); on the
     card the slice is padded to a multiple of ``CHUNK_ROWS`` rows (see
     :func:`_pads_chunks`): the chunked O^i are then bitwise those of the
     one-shot compress at any slice width.  (The JAX package runs the
@@ -195,8 +238,9 @@ def compress_chunk(mc: MemCom, cfg: ModelConfig, state: CompressionState,
     if _pads_chunks(cfg, tokens.device):
         tokens = F.pad(tokens, (0, -(-w // CHUNK_ROWS) * CHUNK_ROWS - w))
     _, aux = mc.source(tokens=tokens, capture_hiddens=True,
-                       cache=state.cache, cache_index=offset, decode=True,
-                       logits=False)
+                       cache=state.cache, cache_index=offset,
+                       mask_offset=0 if _chunks_as_decode(cfg) else offset,
+                       decode=_chunks_as_decode(cfg), logits=False)
     hid = aux["hiddens"]
     if tokens.shape[1] != w:
         hid = [h[:, :w] for h in hid]
@@ -211,7 +255,7 @@ def finish_compress(mc: MemCom, cfg: ModelConfig, state: CompressionState):
     if not state.hiddens:
         raise ValueError("no chunks were compressed")
     hiddens = [torch.cat(xs, dim=1) for xs in zip(*state.hiddens)]
-    return _memory(mc, cfg, hiddens), {"encoder_out": None}
+    return _memory(mc, cfg, hiddens, state.cache), {"encoder_out": None}
 
 
 def compress_chunked(mc: MemCom, cfg: ModelConfig, source_tokens, *,
@@ -227,11 +271,34 @@ def compress_chunked(mc: MemCom, cfg: ModelConfig, source_tokens, *,
     return finish_compress(mc, cfg, state)
 
 
-def build_prefix(cfg: ModelConfig, omega: list) -> list:
-    """Assemble the target's per-layer compressed context."""
-    if len(omega) != cfg.num_layers:
-        raise ValueError(f"{len(omega)} O^i for {cfg.num_layers} layers")
-    return [{"h": o} for o in omega]
+def _mamba_only_cache(cfg: ModelConfig, batch: int, mc: MemCom) -> list:
+    """A Source-LLM cache holding only the Mamba2 layers' conv / SSM state
+    (``{}`` for the others: no K/V is allocated for a one-shot compress)."""
+    from repro_torch.models.mamba2 import init_mamba_cache
+
+    kw = dict(dtype=mc.mem_tokens.dtype, device=mc.mem_tokens.device)
+    return [init_mamba_cache(cfg, batch, **kw) if d.mixer == "mamba" else {}
+            for d in cfg.layout.descriptors()]
+
+
+def build_prefix(cfg: ModelConfig, omega: list, source_cache=None) -> list:
+    """Assemble the target's per-layer compressed context: ``{"h": O^i}``
+    for each attention / MLA layer (``omega`` holds one O^i for each, in
+    layer order), ``{"ssm": state}`` from ``source_cache`` for each Mamba2
+    layer (``{}`` without a state handoff)."""
+    descs = cfg.layout.descriptors()
+    n_attn = sum(d.mixer in ("attn", "mla") for d in descs)
+    if len(omega) != n_attn:
+        raise ValueError(f"{len(omega)} O^i for {n_attn} attention layers")
+    out, it = [], iter(omega)
+    for i, d in enumerate(descs):
+        if d.mixer in ("attn", "mla"):
+            out.append({"h": next(it)})
+        elif source_cache is not None:
+            out.append({"ssm": source_cache[i]["ssm"]})
+        else:
+            out.append({})
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,11 @@
 // fully-masked query rows, which get output 0 and lse -1e30 (the `p = where(
 // valid, p, 0)` guard that the Pallas kernel lacks).
 //
-//   q (B,Sq,Hq,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,D), q_pos (B,Sq), kv_pos
-//   (B,Skv) int32  ->  out (B,Sq,Hq,D) in q's type, lse (B,Sq,Hq) float32.
+//   q (B,Sq,Hq,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv), q_pos (B,Sq), kv_pos
+//   (B,Skv) int32  ->  out (B,Sq,Hq,Dv) in q's type, lse (B,Sq,Hq) float32.
+//   (D, Dv): (64,64), (128,128), (256,256); MLA's (192,128) (its prefill,
+//   per-head keys of nope + rope against values of v_head_dim) and
+//   (576,512) (its absorbed decode, one latent head).
 //   A key is visible when kv_pos >= 0 and, under `causal`, kv_pos <= q_pos.
 //   Softcap is applied to the scaled logits before the mask.
 //
@@ -24,11 +27,12 @@
 //   it every bf16 call that flash_fwd_tc would split at most 4 ways:
 //   prefills, the Memory-LLM, prompts, decode over many slots.
 // * flash_fwd_tc (bf16 calls split more ways: decode over few slots, a
-//   short prompt against a long prefix): mma.sync m16n8k16 with f32
-//   accumulate over 32-row tiles, synchronous loads, split KV.
-// * flash_fwd (float32): the CUDA cores, whose ceiling is the 67 TFLOP/s
-//   f32 rate but which matches the float32 reference to 1e-4 (full
-//   tanhf and expf).
+//   short prompt against a long prefix; and every call with Dv != D):
+//   mma.sync m16n8k16 with f32 accumulate over 32-row tiles, synchronous
+//   loads, split KV.
+// * flash_fwd (float32, D and Dv <= 256): the CUDA cores, whose ceiling is
+//   the 67 TFLOP/s f32 rate but which matches the float32 reference to
+//   1e-4 (full tanhf and expf).
 //
 // Design:
 // * The TPU grid walks KV blocks sequentially per (head, q-block).  Here
@@ -85,7 +89,7 @@ using split_kv::store4;
 
 // With nsplit > 1, block z = b * nsplit + split covers kv rows
 // [split * kv_chunk, (split + 1) * kv_chunk) and writes its partial to
-// o_part (nsplit, B*Sq*Hq, D) and lse_part (nsplit, B*Sq*Hq) instead of
+// o_part (nsplit, B*Sq*Hq, Dv) and lse_part (nsplit, B*Sq*Hq) instead of
 // out / lse.
 __global__ void __launch_bounds__(BQ * TPR)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
@@ -93,8 +97,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const int* __restrict__ kv_pos, float* __restrict__ out,
           float* __restrict__ lse, float* __restrict__ o_part,
           float* __restrict__ lse_part, int B, int Sq, int Skv, int Hq,
-          int Hkv, int D, float scale, float softcap, int causal, int nsplit,
-          int kv_chunk) {
+          int Hkv, int D, int Dv, float scale, float softcap, int causal,
+          int nsplit, int kv_chunk) {
   constexpr int NT = BQ * TPR;
   const int G = Hq / Hkv;
   const int rows = Sq * G;
@@ -107,14 +111,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid / TPR;
   const int sub = tid % TPR;
-  const int DP = D + 4;
-  const int D4 = D / 4;
+  const int DP = D + 4, DPV = Dv + 4;
+  const int D4 = D / 4, DV4 = Dv / 4;
 
   extern __shared__ float smem[];
   float* Qs = smem;               // BQ x DP
   float* Ks = Qs + BQ * DP;       // BK x DP
-  float* Vs = Ks + BK * DP;       // BK x DP
-  float* Ps = Vs + BK * DP;       // BQ x PS
+  float* Vs = Ks + BK * DP;       // BK x DPV
+  float* Ps = Vs + BK * DPV;      // BQ x PS
   int* kvp = reinterpret_cast<int*>(Ps + BQ * PS);  // BK
   int* qps = kvp + BK;                              // BQ
 
@@ -163,14 +167,19 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < BK * D4; e += NT) {
       const int c = e / D4, d = (e % D4) * 4;
       const int j = kv0 + c;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (j < kv_end) {
-        const size_t off = ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * D + d;
-        kk = load4(k + off);
-        vv = load4(v + off);
-      }
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < kv_end)
+        kk = load4(k + ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * D + d);
       store4(&Ks[c * DP + d], kk);
-      store4(&Vs[c * DP + d], vv);
+    }
+#pragma unroll 1
+    for (int e = tid; e < BK * DV4; e += NT) {
+      const int c = e / DV4, d = (e % DV4) * 4;
+      const int j = kv0 + c;
+      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < kv_end)
+        vv = load4(v + ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * Dv + d);
+      store4(&Vs[c * DPV + d], vv);
     }
     __syncthreads();
 
@@ -224,8 +233,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = (sub + TPR * j) * 4;
-        if (d < D) {
-          const float4 vv = load4(&Vs[c * DP + d]);
+        if (d < Dv) {
+          const float4 vv = load4(&Vs[c * DPV + d]);
           acc[j].x += p * vv.x; acc[j].y += p * vv.y;
           acc[j].z += p * vv.z; acc[j].w += p * vv.w;
         }
@@ -242,12 +251,12 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = (sub + TPR * j) * 4;
-      if (d < D) {
+      if (d < Dv) {
         float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
         if (any) o = make_float4(acc[j].x / l_run, acc[j].y / l_run,
                                  acc[j].z / l_run, acc[j].w / l_run);
-        if (nsplit == 1) store4(out + row * D + d, o);
-        else store4(o_part + prow * D + d, o);
+        if (nsplit == 1) store4(out + row * Dv + d, o);
+        else store4(o_part + prow * Dv + d, o);
       }
     }
     if (sub == 0) {
@@ -296,14 +305,31 @@ using flash_tiles::warp_span;
 // ---- bfloat16 on the tensor cores ---------------------------------------
 //
 // The same contract and tiling as flash_fwd (64 rows x one KV head per
-// block, 32-row KV tiles, split KV), for bf16 and head_dim HD in {64, 128,
-// 256}: four warps own 16 rows each; S = Q K^T and O += P V run as bf16
+// block, 32-row KV tiles, split KV), for bf16 at the (DK, DV) pairs above:
+// four warps own 16 rows each; S = Q K^T and O += P V run as bf16
 // mma.sync m16n8k16 with f32 accumulators, Q/K/V staged in shared memory
-// with rows padded by 16 bytes (ldmatrix conflict-free), the online
-// softmax kept on the S accumulators, and P handed to the second product
-// in registers as bf16.  At HD = 256 a thread holds 128 f32 of O.
-template <int HD>
-__global__ void __launch_bounds__(128)
+// with rows padded by 16 bytes (ldmatrix conflict-free at every pair's
+// widths), the online softmax kept on the S accumulators, and P handed to
+// the second product in registers as bf16.  A thread holds DV / 2 f32 of
+// O, 128 at DV = 256.  At DV = 512 (MLA's absorbed decode) that would be
+// 256, past the register file: there NCG = 2 warps share each 16-row
+// group, each computes the group's S (the 576-wide products twice; a
+// decode step is bound by bytes) and keeps 256 of the 512 columns of O,
+// so a block runs 8 warps.  Shared memory at (576, 512): Q 74.8 KB, K
+// 37.4 KB, V 33.3 KB a block.
+template <int DK, int DV>
+struct TcCfg {
+  static constexpr int NCG = DV > 256 ? 2 : 1;  // warps sharing a row group
+  static constexpr int NT = 128 * NCG;
+  static constexpr int SPK = DK + 8;   // padded shared rows, bf16 elements
+  static constexpr int SPV = DV + 8;
+  static constexpr int DVW = DV / NCG; // columns of O a warp keeps
+  static constexpr int NO = DVW / 8;   // its n8 tiles
+  static_assert(DK % 16 == 0 && DVW % 16 == 0, "k16 / n16 tiling");
+};
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(TcCfg<DK, DV>::NT)
 flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v,
@@ -313,16 +339,16 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              int Sq, int Skv, int Hq, int Hkv, float scale, float softcap,
              int causal, int nsplit, int kv_chunk) {
   using mma_sm80::bf16;
+  using C = TcCfg<DK, DV>;
   static_assert(BK == 32, "the tile verdict reads one kv position a lane");
-  constexpr int SP = HD + 8;   // padded shared row, bf16 elements
-  constexpr int V8 = HD / 8;   // 16-byte vectors per row
-  constexpr int NO = HD / 8;   // n8 tiles of a row of O
+  constexpr int SPK = C::SPK, SPV = C::SPV, NT = C::NT, NO = C::NO;
+  constexpr int K8 = DK / 8, V8 = DV / 8;  // 16-byte vectors per row
   extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // BQ x SP
-  bf16* Ks = Qs + BQ * SP;                       // BK x SP
-  bf16* Vs = Ks + BK * SP;                       // BK x SP
-  int* kvp = reinterpret_cast<int*>(Vs + BK * SP);  // BK
-  int* qps = kvp + BK;                              // BQ
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // BQ x SPK
+  bf16* Ks = Qs + BQ * SPK;                      // BK x SPK
+  bf16* Vs = Ks + BK * SPK;                      // BK x SPV
+  int* kvp = reinterpret_cast<int*>(Vs + BK * SPV);  // BK
+  int* qps = kvp + BK;                               // BQ
 
   const int G = Hq / Hkv;
   const int rows = Sq * G;
@@ -333,18 +359,20 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const int kv_begin = split * kv_chunk;
   const int kv_end = min(Skv, kv_begin + kv_chunk);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rw = warp % 4;         // the warp's 16-row group
+  const int c0 = (warp / 4) * C::DVW;  // and its first column of O
   const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  for (int e = tid; e < BQ * V8; e += 128) {
-    const int rr = e / V8, d = (e % V8) * 8;
+  for (int e = tid; e < BQ * K8; e += NT) {
+    const int rr = e / K8, d = (e % K8) * 8;
     const int rho = row0 + rr;
     uint4 val = zero;
     if (rho < rows) {
       const int s = rho / G, g = rho % G;
       val = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(b) * Sq + s) * Hq + hk * G + g) * HD + d);
+          q + ((static_cast<size_t>(b) * Sq + s) * Hq + hk * G + g) * DK + d);
     }
-    *reinterpret_cast<uint4*>(Qs + rr * SP + d) = val;
+    *reinterpret_cast<uint4*>(Qs + rr * SPK + d) = val;
   }
   if (tid < BQ) {
     const int rho = row0 + tid;
@@ -354,7 +382,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const QRange qr = warp_qrange(merge(qrange_of(qps[lane], row0 + lane < rows),
                                       qrange_of(qps[lane + 32],
                                                 row0 + lane + 32 < rows)));
-  const int r_lo = warp * 16 + lane / 4;  // this lane's rows: r_lo, r_lo + 8
+  const int r_lo = rw * 16 + lane / 4;  // this lane's rows: r_lo, r_lo + 8
   const int qp[2] = {qps[r_lo], qps[r_lo + 8]};
 
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
@@ -375,17 +403,23 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     if (tile_class(warp_span(span_of(kvp[lane])), qr, causal) == kSkip)
       continue;
 
-    for (int e = tid; e < BK * V8; e += 128) {
+    for (int e = tid; e < BK * K8; e += NT) {
+      const int c = e / K8, d = (e % K8) * 8;
+      const int j = kv0 + c;
+      uint4 kk = zero;
+      if (j < kv_end)
+        kk = *reinterpret_cast<const uint4*>(
+            k + ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * DK + d);
+      *reinterpret_cast<uint4*>(Ks + c * SPK + d) = kk;
+    }
+    for (int e = tid; e < BK * V8; e += NT) {
       const int c = e / V8, d = (e % V8) * 8;
       const int j = kv0 + c;
-      uint4 kk = zero, vv = zero;
-      if (j < kv_end) {
-        const size_t off = ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * HD + d;
-        kk = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(Ks + c * SP + d) = kk;
-      *reinterpret_cast<uint4*>(Vs + c * SP + d) = vv;
+      uint4 vv = zero;
+      if (j < kv_end)
+        vv = *reinterpret_cast<const uint4*>(
+            v + ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * DV + d);
+      *reinterpret_cast<uint4*>(Vs + c * SPV + d) = vv;
     }
     __syncthreads();
 
@@ -396,14 +430,14 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
+    for (int ks = 0; ks < DK / 16; ++ks) {
       uint32_t a[4];
-      mma_sm80::ldsm_x4(a, Qs + (warp * 16 + lane % 16) * SP + ks * 16
+      mma_sm80::ldsm_x4(a, Qs + (rw * 16 + lane % 16) * SPK + ks * 16
                                + (lane / 16) * 8);
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
         uint32_t bb[4];
-        mma_sm80::ldsm_x4(bb, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * SP
+        mma_sm80::ldsm_x4(bb, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * SPK
                                   + ks * 16 + ((lane / 8) % 2) * 8);
         mma_sm80::mma16816(sc[2 * np], a, bb[0], bb[1]);
         mma_sm80::mma16816(sc[2 * np + 1], a, bb[2], bb[3]);
@@ -454,7 +488,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       acc[j][2] *= corr[1]; acc[j][3] *= corr[1];
     }
 
-    // O += P V: P (16 x 32) from the accumulators, two k16 steps
+    // O += P V on this warp's columns: P (16 x 32) from the accumulators,
+    // two k16 steps
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       uint32_t a[4];
@@ -463,10 +498,10 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
       a[2] = mma_sm80::pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
       a[3] = mma_sm80::pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
+      for (int dp = 0; dp < NO / 2; ++dp) {
         uint32_t bb[4];
-        mma_sm80::ldsm_x4_t(bb, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SP
-                                    + dp * 16 + (lane / 16) * 8);
+        mma_sm80::ldsm_x4_t(bb, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * SPV
+                                    + c0 + dp * 16 + (lane / 16) * 8);
         mma_sm80::mma16816(acc[2 * dp], a, bb[0], bb[1]);
         mma_sm80::mma16816(acc[2 * dp + 1], a, bb[2], bb[3]);
       }
@@ -484,14 +519,14 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const float inv = any ? 1.f / l_run[h] : 0.f;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
-      const int d = j * 8 + (lane % 4) * 2;
+      const int d = c0 + j * 8 + (lane % 4) * 2;
       const float x = acc[j][2 * h] * inv, y = acc[j][2 * h + 1] * inv;
       if (nsplit == 1)
-        *reinterpret_cast<uint32_t*>(out + row * HD + d) = mma_sm80::pack_bf16(x, y);
+        *reinterpret_cast<uint32_t*>(out + row * DV + d) = mma_sm80::pack_bf16(x, y);
       else
-        *reinterpret_cast<float2*>(o_part + prow * HD + d) = make_float2(x, y);
+        *reinterpret_cast<float2*>(o_part + prow * DV + d) = make_float2(x, y);
     }
-    if (lane % 4 == 0) {
+    if (lane % 4 == 0 && c0 == 0) {
       const float l = any ? m_run[h] + logf(l_run[h]) : NEG;
       if (nsplit == 1) lse[row] = l;
       else lse_part[prow] = l;
@@ -499,27 +534,33 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-size_t smem_bytes_tc(int HD) {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(BQ + 2 * BK) * (HD + 8)
+template <int DK, int DV>
+size_t smem_bytes_tc() {
+  using C = TcCfg<DK, DV>;
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(
+             (BQ + BK) * C::SPK + BK * C::SPV)
        + sizeof(int) * (BK + BQ);
 }
 
-template <int HD>
+// The split merge's threads: one for 4 columns of the widest row.
+constexpr int combine_threads(int Dv) { return (Dv > DMAX ? Dv : DMAX) / 4; }
+
+template <int DK, int DV>
 int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
               const int* kv_pos, void* out, float* lse, float* ws, int B,
               int Sq, int Skv, int Hq, int Hkv, float scale, float softcap,
               int causal, int nsplit, cudaStream_t stream) {
-  const size_t smem = smem_bytes_tc(HD);
+  const size_t smem = smem_bytes_tc<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tc<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int rows = Sq * (Hq / Hkv);
   const int out_rows = B * Sq * Hq;
   float* o_part = ws;
-  float* lse_part = ws + static_cast<size_t>(nsplit) * out_rows * HD;
+  float* lse_part = ws + static_cast<size_t>(nsplit) * out_rows * DV;
   dim3 grid((rows + BQ - 1) / BQ, Hkv, B * nsplit);
-  flash_fwd_tc<HD><<<grid, 128, smem, stream>>>(
+  flash_fwd_tc<DK, DV><<<grid, TcCfg<DK, DV>::NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), q_pos, kv_pos,
       static_cast<__nv_bfloat16*>(out), lse, o_part, lse_part, B, Sq, Skv, Hq,
@@ -527,8 +568,8 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
       nsplit == 1 ? Skv : kv_chunk_for(Skv, nsplit));
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  combine_splits<__nv_bfloat16><<<out_rows, DMAX / 4, 0, stream>>>(
-      o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse, out_rows, HD,
+  combine_splits<__nv_bfloat16><<<out_rows, combine_threads(DV), 0, stream>>>(
+      o_part, lse_part, static_cast<__nv_bfloat16*>(out), lse, out_rows, DV,
       nsplit);
   return cudaGetLastError();
 }
@@ -931,16 +972,17 @@ wgmma_tile_check(const __nv_bfloat16* __restrict__ a,
       c[(g + 8 * (e / 2)) * N + n * 8 + t2 + e % 2] = d[4 * n + e];
 }
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(BQ + 2 * BK) * (D + 4) + BQ * PS)
+size_t smem_bytes(int D, int Dv) {
+  return sizeof(float) * (static_cast<size_t>(BQ + BK) * (D + 4)
+                          + static_cast<size_t>(BK) * (Dv + 4) + BQ * PS)
        + sizeof(int) * (BK + BQ);
 }
 
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
            const int* kv_pos, void* out, float* lse, float* ws, int B, int Sq,
-           int Skv, int Hq, int Hkv, int D, float scale, float softcap,
-           int causal, int nsplit, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+           int Skv, int Hq, int Hkv, int D, int Dv, float scale,
+           float softcap, int causal, int nsplit, cudaStream_t stream) {
+  const size_t smem = smem_bytes(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -948,17 +990,17 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
   const int rows = Sq * (Hq / Hkv);
   const int out_rows = B * Sq * Hq;
   float* o_part = ws;
-  float* lse_part = ws + static_cast<size_t>(nsplit) * out_rows * D;
+  float* lse_part = ws + static_cast<size_t>(nsplit) * out_rows * Dv;
   dim3 grid((rows + BQ - 1) / BQ, Hkv, B * nsplit);
   flash_fwd<<<grid, BQ * TPR, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), q_pos, kv_pos, static_cast<float*>(out),
-      lse, o_part, lse_part, B, Sq, Skv, Hq, Hkv, D, scale, softcap, causal,
-      nsplit, nsplit == 1 ? Skv : kv_chunk_for(Skv, nsplit));
+      lse, o_part, lse_part, B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap,
+      causal, nsplit, nsplit == 1 ? Skv : kv_chunk_for(Skv, nsplit));
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  combine_splits<float><<<out_rows, DMAX / 4, 0, stream>>>(
-      o_part, lse_part, static_cast<float*>(out), lse, out_rows, D, nsplit);
+  combine_splits<float><<<out_rows, combine_threads(Dv), 0, stream>>>(
+      o_part, lse_part, static_cast<float*>(out), lse, out_rows, Dv, nsplit);
   return cudaGetLastError();
 }
 
@@ -966,38 +1008,46 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
 
 // How many KV splits flash_attention_fwd takes for this problem on a card
 // with `sms` multiprocessors; with n > 1 the caller passes a float32
-// workspace of n * B * Sq * Hq * (D + 1) elements.
+// workspace of n * B * Sq * Hq * (Dv + 1) elements.
 extern "C" int flash_attention_splits(int B, int Sq, int Skv, int Hq, int Hkv,
                                       int sms) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return 1;
   return splits_for(B, Sq, Skv, Hq, Hkv, sms);
 }
 
-// dtype: 0 = float32 (D % 4 == 0, D <= 256), 1 = bfloat16 (D = 64, 128 or
-// 256).  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (D % 4 == 0, D <= 256, and Dv == D or (D, Dv) =
+// (192, 128)), 1 = bfloat16 ((D, Dv) = (64, 64), (128, 128), (256, 256),
+// (192, 128) or (576, 512)).  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const int* q_pos, const int* kv_pos,
                                    void* out, float* lse, float* ws, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int D,
-                                   float scale, float softcap, int causal,
-                                   int nsplit, int dtype, void* stream) {
-  if (D <= 0 || D > DMAX || D % 4 != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      nsplit < 1 || (nsplit > 1 && ws == nullptr))
+                                   int Dv, float scale, float softcap,
+                                   int causal, int nsplit, int dtype,
+                                   void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || nsplit < 1 ||
+      (nsplit > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(q, k, v, q_pos, kv_pos, out, lse, ws, B, Sq, Skv, Hq,
-                         Hkv, D, scale, softcap, causal, nsplit, st);
-  if (dtype == 1 && D == 64)
-    return launch_tc<64>(q, k, v, q_pos, kv_pos, out, lse, ws, B, Sq, Skv, Hq,
-                         Hkv, scale, softcap, causal, nsplit, st);
-  if (dtype == 1 && D == 128)
-    return launch_tc<128>(q, k, v, q_pos, kv_pos, out, lse, ws, B, Sq, Skv,
-                          Hq, Hkv, scale, softcap, causal, nsplit, st);
-  if (dtype == 1 && D == 256)
-    return launch_tc<256>(q, k, v, q_pos, kv_pos, out, lse, ws, B, Sq, Skv,
-                          Hq, Hkv, scale, softcap, causal, nsplit, st);
+  if (dtype == 0) {
+    if (D <= 0 || D > DMAX || D % 4 != 0 ||
+        !(Dv == D || (D == 192 && Dv == 128)))
+      return cudaErrorInvalidValue;
+    return launch(q, k, v, q_pos, kv_pos, out, lse, ws, B, Sq, Skv, Hq, Hkv,
+                  D, Dv, scale, softcap, causal, nsplit, st);
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+#define FLASH_TC(DK, DV)                                                    \
+  if (D == DK && Dv == DV)                                                  \
+    return launch_tc<DK, DV>(q, k, v, q_pos, kv_pos, out, lse, ws, B, Sq,   \
+                             Skv, Hq, Hkv, scale, softcap, causal, nsplit, st);
+  FLASH_TC(64, 64)
+  FLASH_TC(128, 128)
+  FLASH_TC(256, 256)
+  FLASH_TC(192, 128)
+  FLASH_TC(576, 512)
+#undef FLASH_TC
   return cudaErrorInvalidValue;
 }
 

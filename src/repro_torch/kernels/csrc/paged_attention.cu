@@ -5,8 +5,11 @@
 // Pallas TPU kernel).  Contract: jnp_impl.paged_decode_attention_lengths
 // (plain twin: plain.paged_decode_attention_ref).
 //
-//   q (B,S,Hq,D), k_pool / v_pool (N,bs,Hkv,D), tables (B,nb) int32,
-//   lengths (B,) int32  ->  out (B,S,Hq,D) in q's type.
+//   q (B,S,Hq,D), k_pool (N,bs,Hkv,D), v_pool (N,bs,Hkv,Dv), tables (B,nb)
+//   int32, lengths (B,) int32  ->  out (B,S,Hq,Dv) in q's type.  (D, Dv):
+//   (64,64), (128,128), (256,256), (192,128), and (576,512) in bf16 (MLA's
+//   absorbed decode: one latent KV head, the key [ckv | kr], the value
+//   ckv).
 //   Query row r of slot b sits at position lengths[b] - S + r and sees the
 //   positions p <= that one; position p of slot b lives in pool block
 //   tables[b, p / bs] at offset p % bs.  Softcap is applied to the scaled
@@ -27,8 +30,10 @@
 // * One thread block owns one (slot, KV head, split) and takes all G*S
 //   query rows of that KV head together (rows ordered (s, g), q head =
 //   hk*G + g), so each visible K/V row is read once per KV head.  More than
-//   RMAX rows (a wide fused or speculative step) take several row groups
-//   on grid x.
+//   RMAX rows (a wide fused or speculative step, or MLA's group of 128
+//   query heads on its one latent head) take several row groups on grid
+//   x, each reading the slot's K/V rows again (at MLA's decode, 16 row
+//   groups a slot: the repeated reads of a ~1.2 MB slot mostly hit L2).
 // * Split by the slot's own length: the positions below min(lengths[b],
 //   nb * bs) are cut into nsplit chunks of whole TK-position tiles, so no
 //   split walks more than ceil(len / nsplit) positions rounded up to a
@@ -104,31 +109,32 @@ constexpr int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 struct Cfg {
   // bf16 runs both products on the tensor cores (mma.sync m16n8k16, keys
   // or head-dim columns on M, the block's query rows on N), float32 on the
   // CUDA cores
   static constexpr bool TC = std::is_same<T, bf16>::value;
   static constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // per chunk
-  static constexpr int CPR = D / EPC;           // 16-byte chunks a row
+  static constexpr int CPR = D / EPC;           // 16-byte chunks a K row
+  static constexpr int CPRV = DV / EPC;         // ... a V row
   static constexpr int QS = D + (TC ? 8 : 0);   // q row stride (elements)
-  static constexpr int TILE = 2 * TK * D;       // K and V elements a stage
+  static constexpr int TILE = TK * (D + DV);    // K and V elements a stage
   static constexpr int STAGES = clampi(
       RING_BYTES / (TILE * static_cast<int>(sizeof(T))), MIN_STAGES,
       MAX_STAGES);
   static constexpr int KPT = TK * TPK / NT;     // float32: keys a thread scores
   static constexpr int CPT = CPR / TPK;         // float32: chunks a thread a key
-  static constexpr int NG = NT / CPR;           // float32: P V key groups
-  static constexpr int MT = D / 16 / NW;        // bf16: P V column tiles a warp
+  static constexpr int NG = NT / CPRV;          // float32: P V key groups
+  static constexpr int MT = DV / 16 / NW;       // bf16: P V column tiles a warp
   static constexpr size_t RING = static_cast<size_t>(STAGES) * TILE * sizeof(T);
   static constexpr size_t SMEM = RING + RMAX * QS * sizeof(T)
                                  + 2 * RMAX * SP * 4 + RMAX * PS * 2
                                  + 3 * RMAX * 4 + STAGES * TK * 4;
-  static_assert(CPR % TPK == 0 && NT % CPR == 0 && KPT >= 1, "tiling");
+  static_assert(CPR % TPK == 0 && NT % CPRV == 0 && KPT >= 1, "tiling");
   static_assert(SMEM % 16 == 0, "the merge's receive area follows");
   static_assert(!TC || (TK == 32 && NW == 4 && MT >= 1), "bf16 warp tiling");
-  static_assert(static_cast<size_t>(TC ? 1 : NG) * RMAX * D * 4 <= RING,
+  static_assert(static_cast<size_t>(TC ? 1 : NG) * RMAX * DV * 4 <= RING,
                 "the partial output reuses the ring");
 };
 
@@ -174,18 +180,19 @@ __device__ __forceinline__ void cluster_wait() {
 // Block (row group, hk, b * nsplit + split); the nsplit blocks of one
 // (row group, hk, b) form one thread block cluster and merge their
 // partials through distributed shared memory.
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(NT)
 paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
              const T* __restrict__ vp, const int* __restrict__ tables,
              const int* __restrict__ lengths, T* __restrict__ out, int S,
              int Hq, int Hkv, int bs, int nb, float scale, float softcap,
              int nsplit) {
-  using C = Cfg<T, D>;
+  using C = Cfg<T, D, DV>;
   constexpr bool TC = C::TC;
-  constexpr int EPC = C::EPC, CPR = C::CPR, QS = C::QS, STAGES = C::STAGES;
+  constexpr int EPC = C::EPC, CPR = C::CPR, CPRV = C::CPRV, QS = C::QS;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);              // [STAGES][K|V][TK][D]
+  T* ring = reinterpret_cast<T*>(smem);  // [STAGES][K [TK][D] | V [TK][DV]]
   T* Qs = ring + STAGES * C::TILE;                   // [RMAX][QS]
   float* Ss = reinterpret_cast<float*>(Qs + RMAX * QS);  // [2][RMAX][SP]
   bf16* Pb = reinterpret_cast<bf16*>(Ss + 2 * RMAX * SP);  // [RMAX][PS]
@@ -228,9 +235,16 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
       const int row = rw[c];
       const size_t off = row < 0 ? 0
           : (static_cast<size_t>(row) * Hkv + hk) * D + ch * EPC;
-      const int at = c * D + swz<TC>(c, ch) * EPC;
-      cp_async16(smem_addr(kd + at), kp + off, row >= 0);
-      cp_async16(smem_addr(vd + at), vp + off, row >= 0);
+      cp_async16(smem_addr(kd + c * D + swz<TC>(c, ch) * EPC), kp + off,
+                 row >= 0);
+    }
+    for (int e = tid; e < TK * CPRV; e += NT) {
+      const int c = e / CPRV, ch = e % CPRV;
+      const int row = rw[c];
+      const size_t off = row < 0 ? 0
+          : (static_cast<size_t>(row) * Hkv + hk) * DV + ch * EPC;
+      cp_async16(smem_addr(vd + c * DV + swz<TC>(c, ch) * EPC), vp + off,
+                 row >= 0);
     }
   };
 
@@ -266,7 +280,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     for (int e = 0; e < (TC ? 4 : EPC); ++e) acc[i][e] = 0.f;
   const int g4 = lane >> 2, t4 = lane & 3;      // mma fragment coordinates
   const int kj = tid % TPK, key0 = tid / TPK;   // float32 scores
-  const int vg = tid / CPR, vch = tid % CPR;    // float32 P V
+  const int vg = tid / CPRV, vch = tid % CPRV;  // float32 P V
 
   for (int t = 0; t < ntiles; ++t) {
     const int slot = t % STAGES;
@@ -387,7 +401,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
         for (int i = 0; i < C::MT; ++i) {
           uint32_t a[4];
-          ldsm_x4_t(a, Vs + c * D
+          ldsm_x4_t(a, Vs + c * DV
                        + swz<TC>(c, (warp * C::MT + i) * 2 + ((lane >> 3) & 1))
                              * 8);
           mma16816(acc[i], a, b0, b1);
@@ -405,7 +419,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll 4
       for (int c = vg; c < nk; c += C::NG) {
         float vf[EPC];
-        unpack(*reinterpret_cast<const uint4*>(Vs + c * D + vch * EPC), vf);
+        unpack(*reinterpret_cast<const uint4*>(Vs + c * DV + vch * EPC), vf);
 #pragma unroll
         for (int r = 0; r < RMAX; ++r) {
           if (r < nr) {
@@ -431,33 +445,33 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     for (int i = 0; i < C::MT; ++i) {
       const int d = (warp * C::MT + i) * 16 + g4;
       if (r < nr) {
-        red[r * D + d] = acc[i][0];
-        red[r * D + d + 8] = acc[i][2];
+        red[r * DV + d] = acc[i][0];
+        red[r * DV + d + 8] = acc[i][2];
       }
       if (r + 1 < nr) {
-        red[(r + 1) * D + d] = acc[i][1];
-        red[(r + 1) * D + d + 8] = acc[i][3];
+        red[(r + 1) * DV + d] = acc[i][1];
+        red[(r + 1) * DV + d + 8] = acc[i][3];
       }
     }
   } else {  // the key groups' sums meet in the ring, then in red[0]
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
       if (r < nr) {
-        float* dst = red + (vg * RMAX + r) * D + vch * EPC;
+        float* dst = red + (vg * RMAX + r) * DV + vch * EPC;
         store4(dst, make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
       }
     }
     __syncthreads();
-    for (int e = tid; e < nr * (D / 4); e += NT) {
-      const int r = e / (D / 4), d = (e % (D / 4)) * 4;
-      float4 o = *reinterpret_cast<const float4*>(red + r * D + d);
+    for (int e = tid; e < nr * (DV / 4); e += NT) {
+      const int r = e / (DV / 4), d = (e % (DV / 4)) * 4;
+      float4 o = *reinterpret_cast<const float4*>(red + r * DV + d);
 #pragma unroll
       for (int g = 1; g < C::NG; ++g) {
         const float4 x =
-            *reinterpret_cast<const float4*>(red + (g * RMAX + r) * D + d);
+            *reinterpret_cast<const float4*>(red + (g * RMAX + r) * DV + d);
         o.x += x.x; o.y += x.y; o.z += x.z; o.w += x.w;
       }
-      store4(red + r * D + d, o);
+      store4(red + r * DV + d, o);
     }
   }
 
@@ -472,9 +486,9 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   cg::cluster_group cluster = cg::this_cluster();
   float4* recv = reinterpret_cast<float4*>(smem + C::SMEM);
   float* m_recv = reinterpret_cast<float*>(
-      recv + min(RMAX, S * G) * (D / 4) + MAX_SPLITS);  // [MAX_SPLITS][RMAX]
+      recv + min(RMAX, S * G) * (DV / 4) + MAX_SPLITS);  // [MAX_SPLITS][RMAX]
   float* l_recv = m_recv + MAX_SPLITS * RMAX;
-  const int units = nr * (D / 4);
+  const int units = nr * (DV / 4);
   const int slots = (units + nsplit - 1) / nsplit;  // float4s a block owns
   cluster_wait();  // every block of the cluster has started
   for (int e = tid; e < units; e += NT)
@@ -489,7 +503,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   cluster_wait();  // every push into this block has landed
   for (int u = tid; split + u * nsplit < units; u += NT) {
     const int e = split + u * nsplit;
-    const int r = e / (D / 4), d = (e % (D / 4)) * 4;
+    const int r = e / (DV / 4), d = (e % (DV / 4)) * 4;
     float mj[MAX_SPLITS], lj[MAX_SPLITS];  // unrolled: the reads overlap
     float4 x[MAX_SPLITS];
     float M = NEG;
@@ -513,7 +527,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     }
     const float inv = l > 0.f ? 1.f / l : 0.f;
     const int rho = r0 + r, s = rho / G, h = hk * G + rho % G;
-    store4(out + ((static_cast<size_t>(b) * S + s) * Hq + h) * D + d,
+    store4(out + ((static_cast<size_t>(b) * S + s) * Hq + h) * DV + d,
            make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
   }
 }
@@ -521,25 +535,26 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
 // The receive area of the merge: a float4 of every split for each float4
 // of the block's rows' columns that the block owns, and every split's m
 // and l for each row.
-template <int D>
+template <int DV>
 constexpr size_t recv_bytes(int rows) {
-  return (static_cast<size_t>(rows) * (D / 4) + MAX_SPLITS) * 16
+  return (static_cast<size_t>(rows) * (DV / 4) + MAX_SPLITS) * 16
          + 2 * MAX_SPLITS * RMAX * 4;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* kp, const void* vp, const int* tables,
            const int* lengths, void* out, int B, int S, int Hq, int Hkv,
            int bs, int nb, float scale, float softcap, int nsplit,
            cudaStream_t stream) {
-  const size_t smem = Cfg<T, D>::SMEM
-                      + recv_bytes<D>(min(RMAX, S * (Hq / Hkv)));
+  using C = Cfg<T, D, DV>;
+  const size_t smem = C::SMEM + recv_bytes<DV>(min(RMAX, S * (Hq / Hkv)));
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Cfg<T, D>::SMEM + recv_bytes<D>(RMAX)));
+      paged_decode<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::SMEM + recv_bytes<DV>(RMAX)));
   if (err == cudaSuccess && nsplit > 8)  // past the portable cluster size
     err = cudaFuncSetAttribute(
-        paged_decode<T, D>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        paged_decode<T, D, DV>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((S * (Hq / Hkv) + RMAX - 1) / RMAX, Hkv, B * nsplit);
@@ -553,52 +568,57 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables,
   cluster[0].val.clusterDim.z = nsplit;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, paged_decode<T, D>, static_cast<const T*>(q),
-                           static_cast<const T*>(kp), static_cast<const T*>(vp),
-                           tables, lengths, static_cast<T*>(out), S, Hq, Hkv,
-                           bs, nb, scale, softcap, nsplit);
+  err = cudaLaunchKernelEx(&cfg, paged_decode<T, D, DV>,
+                           static_cast<const T*>(q), static_cast<const T*>(kp),
+                           static_cast<const T*>(vp), tables, lengths,
+                           static_cast<T*>(out), S, Hq, Hkv, bs, nb, scale,
+                           softcap, nsplit);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(int D, const void* q, const void* kp, const void* vp,
+int launch_d(int D, int Dv, const void* q, const void* kp, const void* vp,
              const int* tables, const int* lengths, void* out, int B, int S,
              int Hq, int Hkv, int bs, int nb, float scale, float softcap,
              int nsplit, cudaStream_t st) {
-  if (D == 64)
-    return launch<T, 64>(q, kp, vp, tables, lengths, out, B, S, Hq, Hkv, bs,
-                         nb, scale, softcap, nsplit, st);
-  if (D == 128)
-    return launch<T, 128>(q, kp, vp, tables, lengths, out, B, S, Hq, Hkv, bs,
-                          nb, scale, softcap, nsplit, st);
-  if (D == 256)
-    return launch<T, 256>(q, kp, vp, tables, lengths, out, B, S, Hq, Hkv, bs,
-                          nb, scale, softcap, nsplit, st);
+#define PAGED(DK, DV)                                                        \
+  if (D == DK && Dv == DV)                                                   \
+    return launch<T, DK, DV>(q, kp, vp, tables, lengths, out, B, S, Hq, Hkv, \
+                             bs, nb, scale, softcap, nsplit, st);
+  PAGED(64, 64)
+  PAGED(128, 128)
+  PAGED(256, 256)
+  PAGED(192, 128)
+  if constexpr (std::is_same<T, bf16>::value) {
+    PAGED(576, 512)
+  }
+#undef PAGED
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D = 64, 128 or 256; nsplit (1 to
+// dtype: 0 = float32, 1 = bfloat16; (D, Dv) = (64, 64), (128, 128),
+// (256, 256), (192, 128), and (576, 512) in bfloat16; nsplit (1 to
 // MAX_SPLITS) from paged_attention.py::num_splits.  Returns a cudaError_t
 // (0 = launched).
 extern "C" int paged_decode_fwd(const void* q, const void* k_pool,
                                 const void* v_pool, const int* tables,
                                 const int* lengths, void* out, int B, int S,
-                                int Hq, int Hkv, int D, int bs, int nb,
-                                float scale, float softcap, int nsplit,
-                                int dtype, void* stream) {
+                                int Hq, int Hkv, int D, int Dv, int bs,
+                                int nb, float scale, float softcap,
+                                int nsplit, int dtype, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || bs <= 0 || nb <= 0 || nsplit < 1 ||
       nsplit > MAX_SPLITS)
     return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(D, q, k_pool, v_pool, tables, lengths, out, B, S,
-                           Hq, Hkv, bs, nb, scale, softcap, nsplit, st);
+    return launch_d<float>(D, Dv, q, k_pool, v_pool, tables, lengths, out, B,
+                           S, Hq, Hkv, bs, nb, scale, softcap, nsplit, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k_pool, v_pool, tables, lengths, out,
-                                   B, S, Hq, Hkv, bs, nb, scale, softcap,
+    return launch_d<__nv_bfloat16>(D, Dv, q, k_pool, v_pool, tables, lengths,
+                                   out, B, S, Hq, Hkv, bs, nb, scale, softcap,
                                    nsplit, st);
   return cudaErrorInvalidValue;
 }

@@ -27,6 +27,12 @@ backward: a backward kernel that does not build or launch raises.
 ``bwd_launches`` counts backward calls, ``bwd_wgmma_launches`` those that
 went to the wgmma variant.  With no gradient needed the call is the
 plain kernel call, as before.
+
+Head widths: a value width Dv other than the key width D is taken at
+MLA's pairs (``HEAD_DIMS``): (192, 128), its prefill, and (576, 512), its
+absorbed decode (bf16 only); such calls go to the mma.sync variant (bf16)
+or the float32 kernel.  The backward kernels need Dv == D: a CUDA call at
+Dv != D whose inputs need a gradient raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,11 @@ bwd_wgmma_launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 WGMMA_HEAD_DIMS = (64, 128, 256)
+#: (key width, value width) pairs the forward kernels take, by dtype (the
+#: float32 kernel also takes any D % 4 == 0 up to 256 with Dv == D)
+HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128),
+                              (576, 512)),
+             torch.float32: ((192, 128),)}
 WGMMA_MAX_SKV = 1024 * 64    # the kernel's table: 1024 tiles of 64 kv rows
 # Most KV splits for which the wgmma variant still takes a call.  The
 # split count says how far the (query, head) rows alone fall short of
@@ -58,22 +69,24 @@ WGMMA_MAX_SKV = 1024 * 64    # the kernel's table: 1024 tiles of 64 kv rows
 WGMMA_MAX_SPLITS = 4
 
 
-def wgmma_takes(dtype, head_dim, skv) -> bool:
-    """Whether ``flash_fwd_wgmma`` computes a call of this kind at all."""
+def wgmma_takes(dtype, head_dim, skv, dv=None) -> bool:
+    """Whether ``flash_fwd_wgmma`` computes a call of this kind at all
+    (``dv``: the value width, None for ``head_dim``)."""
     return (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
-            and skv <= WGMMA_MAX_SKV)
+            and (dv is None or dv == head_dim) and skv <= WGMMA_MAX_SKV)
 
 
-def variant_for(dtype, head_dim, skv, nsplit) -> str:
+def variant_for(dtype, head_dim, skv, nsplit, dv=None) -> str:
     """The kernel a CUDA call goes to: ``nsplit`` is the KV split count
     the mma.sync variant would take (``flash_attention_splits`` in the
     source).  bf16 calls the wgmma variant takes go to it unless they
     split into more than ``WGMMA_MAX_SPLITS`` (decode and a short prompt
     against a long prefix: few rows over a long walk), which stay on
-    mma.sync; float32 runs on the CUDA cores."""
+    mma.sync, as do calls whose value width ``dv`` differs from the key
+    width; float32 runs on the CUDA cores."""
     if dtype == torch.float32:
         return "float32"
-    if wgmma_takes(dtype, head_dim, skv) and nsplit <= WGMMA_MAX_SPLITS:
+    if wgmma_takes(dtype, head_dim, skv, dv) and nsplit <= WGMMA_MAX_SPLITS:
         return "wgmma"
     return "mma_sync"
 
@@ -240,7 +253,7 @@ def bwd_launch_plan(B, Sq, Skv, Hq, Hkv, causal, split, with_dq=True):
 def _kernel():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -261,7 +274,7 @@ def _splits(B, Sq, Skv, Hq, Hkv, device_index):
     return _kernel()[1](B, Sq, Skv, Hq, Hkv, sms)
 
 
-def _check(q, k, v, q_pos, kv_pos):
+def _check(q, k, v, q_pos, kv_pos, backward=False):
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                     ("kv_pos", kv_pos)):
         if t.device != q.device:
@@ -281,12 +294,18 @@ def _check(q, k, v, q_pos, kv_pos):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
     if Dv != D:
-        raise NotImplementedError(
-            f"Dv={Dv} != D={D}: the CUDA flash kernel needs equal head dims")
-    if q.dtype == torch.bfloat16 and D not in (64, 128, 256):
+        if backward:
+            raise NotImplementedError(
+                f"Dv={Dv} != D={D}: the CUDA flash backward needs equal "
+                "head dims")
+        if (D, Dv) not in HEAD_DIMS[q.dtype]:
+            raise NotImplementedError(
+                f"head dims (D={D}, Dv={Dv}): the {q.dtype} kernel takes "
+                f"Dv != D at {HEAD_DIMS[q.dtype]}")
+    elif q.dtype == torch.bfloat16 and D not in (64, 128, 256):
         raise NotImplementedError(f"head dim {D}: the bf16 kernel takes 64, "
                                   "128 or 256")
-    if D % 4 or D > 256:
+    elif D % 4 or D > 256:
         raise NotImplementedError(f"head dim {D}: the float32 kernel takes "
                                   "D % 4 == 0, D <= 256")
     if Hq % Hkv:
@@ -300,7 +319,8 @@ def _check(q, k, v, q_pos, kv_pos):
 
 def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
                     scale=None, return_lse=False, variant=None):
-    """(B,Sq,Hq,D) x (B,Skv,Hkv,D) -> (B,Sq,Hq,D) [, lse (B,Sq,Hq) f32].
+    """(B,Sq,Hq,D) x (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv) [, lse
+    (B,Sq,Hq) f32].
 
     ``variant`` (CUDA tensors only) forces ``"wgmma"`` or ``"mma_sync"``
     instead of :func:`variant_for`'s choice, so that both bf16 kernels can
@@ -310,13 +330,19 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     its keys in one pass and in order, as it does in a call over the
     whole sequence, so that a chunk of a chunked compress gives the rows
     of the one-shot call bit for bit.  A CUDA call whose q, k or v needs a
-    gradient is recorded for autograd (:class:`FlashAttention`)."""
+    gradient is recorded for autograd (:class:`FlashAttention`); at Dv !=
+    D such a call raises ``NotImplementedError`` (the backward kernels
+    need equal widths)."""
     if not q.is_cuda:
         return plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                    causal=causal, softcap=softcap,
                                    scale=scale, return_lse=return_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                f"Dv={v.shape[-1]} != D={q.shape[-1]}: the CUDA flash "
+                "backward needs equal head dims")
         out, lse = FlashAttention.apply(q, k, v, q_pos, kv_pos, causal,
                                         softcap, scale, variant)
     else:
@@ -351,10 +377,10 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
     global launches, wgmma_launches
     _check(q, k, v, q_pos, kv_pos)
     B, Sq, Hq, D = q.shape
-    _, Skv, Hkv, _ = k.shape
+    _, Skv, Hkv, Dv = v.shape
     if scale is None:
         scale = D ** -0.5
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, Hq, Dv))
     lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
     fn, _, fn_wgmma = _kernel()
     nsplit = _splits(B, Sq, Skv, Hq, Hkv, q.device.index
@@ -362,15 +388,15 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
                      else torch.cuda.current_device())
     if variant == "unsplit":
         nsplit, variant = 1, None
-    chosen = variant_for(q.dtype, D, Skv, nsplit)
+    chosen = variant_for(q.dtype, D, Skv, nsplit, Dv)
     if variant is not None:
         if variant not in ("wgmma", "mma_sync"):
             raise ValueError(f"unknown variant {variant!r}")
-        if variant == "wgmma" and not wgmma_takes(q.dtype, D, Skv):
+        if variant == "wgmma" and not wgmma_takes(q.dtype, D, Skv, Dv):
             raise NotImplementedError(
                 f"the wgmma variant takes bf16 at head dims "
-                f"{WGMMA_HEAD_DIMS} and Skv <= {WGMMA_MAX_SKV}, got "
-                f"{q.dtype}, D={D}, Skv={Skv}")
+                f"{WGMMA_HEAD_DIMS} (Dv == D) and Skv <= {WGMMA_MAX_SKV}, "
+                f"got {q.dtype}, D={D}, Dv={Dv}, Skv={Skv}")
         if variant == "mma_sync" and q.dtype != torch.bfloat16:
             raise NotImplementedError("the mma.sync variant takes bf16")
         chosen = variant
@@ -383,14 +409,14 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
                            Hkv, D, float(scale), float(softcap or 0.0),
                            int(bool(causal)), stream)
         else:
-            # split partials: nsplit x (B*Sq*Hq) rows of D outputs + 1 lse
-            ws = (torch.empty(nsplit * B * Sq * Hq * (D + 1),
+            # split partials: nsplit x (B*Sq*Hq) rows of Dv outputs + 1 lse
+            ws = (torch.empty(nsplit * B * Sq * Hq * (Dv + 1),
                               dtype=torch.float32, device=q.device)
                   if nsplit > 1 else None)
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(),
                      lse.data_ptr(), ws.data_ptr() if ws is not None else None,
-                     B, Sq, Skv, Hq, Hkv, D, float(scale),
+                     B, Sq, Skv, Hq, Hkv, D, Dv, float(scale),
                      float(softcap or 0.0), int(bool(causal)), nsplit,
                      _DTYPES[q.dtype], stream)
     if err != 0:
@@ -459,7 +485,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
                                        q_pos=q_pos, kv_pos=kv_pos,
                                        causal=causal, softcap=softcap,
                                        scale=scale)
-    _check(q, k, v, q_pos, kv_pos)
+    _check(q, k, v, q_pos, kv_pos, backward=True)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if scale is None:

@@ -12,6 +12,11 @@ host's split count, from shapes alone, and :func:`split_plan` the
 positions each split of a slot walks, which the kernel derives from the
 slot's own length (``plain.paged_decode_split_ref`` computes by it on the
 CPU).  ``TK``, ``RMAX`` and ``MAX_SPLITS`` are the source's constants.
+
+Head widths: the kernel takes the (key, value) widths in ``HEAD_DIMS``:
+equal widths of 64, 128 and 256, MLA's (192, 128), and, in bf16 only,
+MLA's absorbed decode at (576, 512) (one latent KV head: the key
+``[ckv | kr]``, the value ``ckv``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TK = 32             # positions per tile (TK in the source)
 RMAX = 8            # query rows per block (RMAX in the source)
 MAX_SPLITS = 16     # one cluster of blocks merges a slot's splits
+#: (key width, value width) pairs the kernel takes, by dtype
+HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128),
+                              (576, 512)),
+             torch.float32: ((64, 64), (128, 128), (256, 256), (192, 128))}
 
 
 def num_splits(B, S, Hq, Hkv, nb, bs, sms):
@@ -65,7 +74,7 @@ def split_plan(length, bs, nb, nsplit):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.load("paged_attention").paged_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -99,12 +108,10 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
         raise ValueError(f"shapes q {tuple(q.shape)} k_pool "
                          f"{tuple(k_pool.shape)} v_pool {tuple(v_pool.shape)} "
                          "do not match")
-    if Dv != D:
+    if (D, Dv) not in HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
-            f"Dv={Dv} != D={D}: the CUDA paged kernel needs equal head dims")
-    if D not in (64, 128, 256):
-        raise NotImplementedError(f"head dim {D}: the paged kernel takes 64, "
-                                  "128 or 256")
+            f"head dims (D={D}, Dv={Dv}): the {q.dtype} paged kernel takes "
+            f"{HEAD_DIMS[q.dtype]}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
@@ -117,7 +124,8 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
 
 def paged_flash_decode(q, k_pool, v_pool, *, block_tables, lengths,
                        softcap=0.0, scale=None):
-    """(B,S,Hq,D) x pools (N,bs,Hkv,D) x tables (B,nb) -> (B,S,Hq,D).
+    """(B,S,Hq,D) x pools (N,bs,Hkv,D) / (N,bs,Hkv,Dv) x tables (B,nb) ->
+    (B,S,Hq,Dv).
 
     Slot ``b`` attends causally within its logical positions ``[0,
     lengths[b])``; logical block ``j`` is pool block ``block_tables[b, j]``.
@@ -129,11 +137,11 @@ def paged_flash_decode(q, k_pool, v_pool, *, block_tables, lengths,
             softcap=softcap, scale=scale)
     _check(q, k_pool, v_pool, block_tables, lengths)
     B, S, Hq, D = q.shape
-    _, bs, Hkv, _ = k_pool.shape
+    _, bs, Hkv, Dv = v_pool.shape
     nb = block_tables.shape[1]
     if scale is None:
         scale = D ** -0.5
-    out = torch.empty_like(q)
+    out = q.new_empty((B, S, Hq, Dv))
     fn = _kernel()
     nsplit = num_splits(B, S, Hq, Hkv, nb, bs, _sms(
         q.device.index if q.device.index is not None
@@ -142,7 +150,7 @@ def paged_flash_decode(q, k_pool, v_pool, *, block_tables, lengths,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, S, Hq, Hkv, D, bs, nb, float(scale),
+                 B, S, Hq, Hkv, D, Dv, bs, nb, float(scale),
                  float(softcap or 0.0), nsplit, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_decode kernel launch failed: "

@@ -1,12 +1,13 @@
-"""Block: sequence mixer (attention or Mamba2) + dense, MoE or no MLP
+"""Block: sequence mixer (attention, MLA or Mamba2) + dense, MoE or no MLP
 (``repro/models/blocks.py``).
 
 ``memcom`` (when given) injects the paper's compression cross-attention
 between the mixer and MLP residual branches and returns ``omega`` — the
 layer's compressed representation O^i handed to the target.  A MoE block
 also returns its load-balance loss.  A block with ``mlp == "none"`` (the
-mixer-only Mamba2 layers) has no ``norm2``.  MLA, enc-dec blocks and the
-hybrid MemCom's SSM-state prefix (``prefix["ssm"]``) are not in the port
+mixer-only Mamba2 layers) has no ``norm2``.  A Mamba2 layer's prefix
+entry ``{"ssm": state}`` (the hybrid MemCom's handoff of the source's
+final SSM state) seeds its recurrence.  Enc-dec blocks are not in the port
 yet.
 """
 
@@ -20,22 +21,25 @@ from repro_torch.config import LayerDesc, ModelConfig
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Norm
 from repro_torch.models.mamba2 import Mamba
+from repro_torch.models.mla import MLA
 from repro_torch.models.moe import MoE
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, desc: LayerDesc, *, device, dtype):
         super().__init__()
-        if desc.mixer not in ("attn", "mamba") \
+        if desc.mixer not in ("attn", "mla", "mamba") \
                 or desc.mlp not in ("dense", "moe", "none") or desc.cross_attn:
             raise NotImplementedError(
-                f"block {desc.tag()}: only attention and Mamba2 mixers with "
-                "a dense, MoE or no MLP are ported yet")
+                f"block {desc.tag()}: only attention, MLA and Mamba2 mixers "
+                "with a dense, MoE or no MLP are ported yet")
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.norm1 = Norm(cfg, **kw)
         if desc.mixer == "mamba":
             self.mamba = Mamba(cfg, **kw)
+        elif desc.mixer == "mla":
+            self.attn = MLA(cfg, **kw)
         else:
             self.attn = Attention(cfg, **kw)
         if desc.mlp != "none":
@@ -52,23 +56,25 @@ class Block(nn.Module):
                 lane_valid=None):
         """Returns (h, cache_or_None, aux) with aux {"omega": O^i or None,
         "moe_loss": float32 scalar, None without a MoE layer}.  ``memcom``
-        is (MemXAttn module, source hiddens (B, T, D)) for this layer.  A
+        is (MemXAttn module, source hiddens (B, T, D)) for this layer, or
+        None (a Mamba2 layer of a hybrid stack has no cross-attention).  A
         Mamba2 layer's cache stays per slot on both layouts (the block
-        tables address only attention K/V).  ``lane_valid`` masks the
-        fused step's ragged lanes in the attention cache writes; a Mamba2
-        layer cannot honour it (its state would advance over the padding
-        lanes), which is why the engine keeps the fused step to
-        attention-only layouts."""
+        tables address only attention K/V and MLA latents).
+        ``lane_valid`` masks the fused step's ragged lanes in the
+        attention and MLA cache writes; a Mamba2 layer cannot honour it
+        (its state would advance over the padding lanes), which is why the
+        engine keeps the fused step to attention/MLA-only layouts."""
         hn = self.norm1(h)
         if hasattr(self, "mamba"):
-            if prefix is not None and "ssm" in prefix:
-                raise NotImplementedError(
-                    "the hybrid MemCom SSM-state prefix is not ported yet")
-            o = self.mamba(hn, cache=cache, decode=decode)
+            init_state = prefix.get("ssm") if prefix is not None else None
+            o = self.mamba(hn, cache=cache, decode=decode,
+                           init_state=init_state)
         else:
+            # an empty dict: a layer the cache does not cover (the
+            # hybrid's one-shot compress keeps only Mamba2 state)
             o, cache = self.attn(
                 hn, positions=positions, mask_offset=mask_offset,
-                prefix=prefix, cache=cache, cache_index=cache_index,
+                prefix=prefix, cache=cache or None, cache_index=cache_index,
                 decode=decode, block_tables=block_tables,
                 lane_valid=lane_valid)
         h = h + o

@@ -58,9 +58,12 @@ class Mamba(nn.Module):
         make(self, "norm", (di,), Init("ones"), **kw)
         make(self, "out_proj", (di, d), **kw)
 
-    def forward(self, x, *, cache=None, decode: bool = False):
+    def forward(self, x, *, cache=None, decode: bool = False,
+                init_state=None):
         """x (B, S, D) -> (B, S, D).  ``cache`` (or None) is updated in
-        place; decode takes S == 1."""
+        place; decode takes S == 1.  ``init_state`` (B, H, P, N) float32
+        seeds the recurrence in place of the cache's state (the hybrid
+        MemCom's handoff of the source context's final state)."""
         cfg = self.cfg
         mb, di, nh, _ = _dims(cfg)
         B, S, _ = x.shape
@@ -92,7 +95,9 @@ class Mamba(nn.Module):
         xh = xs.reshape(B, S, nh, mb.headdim)
         Bg = Bm.reshape(B, S, mb.ngroups, mb.d_state)
         Cg = Cm.reshape(B, S, mb.ngroups, mb.d_state)
-        state0 = cache["ssm"] if cache is not None else None
+        state0 = init_state
+        if state0 is None and cache is not None:
+            state0 = cache["ssm"]  # decode step or chained prefill
         if decode:
             y1, new_ssm = ops.ssd_decode_step(state0, xh[:, 0], dt[:, 0], A,
                                               Bg[:, 0], Cg[:, 0])

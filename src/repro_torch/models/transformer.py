@@ -31,6 +31,7 @@ from repro_torch.models.attention import (init_attn_cache,
 from repro_torch.models.blocks import Block
 from repro_torch.models.layers import Norm, softcap
 from repro_torch.models.mamba2 import init_mamba_cache
+from repro_torch.models.mla import init_mla_cache, init_paged_mla_cache
 from repro_torch.models.param import Init, initialize, make
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -143,7 +144,7 @@ class Transformer(nn.Module):
             if capture_hiddens:
                 hiddens.append(h)
             mem = None
-            if memcom is not None:
+            if memcom is not None and memcom["params"][i] is not None:
                 mem = (memcom["params"][i], memcom["src"][i])
             kw = dict(positions=positions, mask_offset=mask_offset,
                       prefix=prefix[i] if prefix is not None else None,
@@ -195,25 +196,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> list:
     """Per-layer dense caches: (batch, max_len, Hkv, hd) K/V stripes for
-    attention layers, per-slot conv/ssm state for Mamba2 layers."""
+    attention layers, (batch, max_len, kv_lora / rope) latent stripes for
+    MLA layers, per-slot conv/ssm state for Mamba2 layers."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg, dtype)
-    return [init_mamba_cache(cfg, batch, dtype, device)
-            if desc.mixer == "mamba"
-            else init_attn_cache(cfg, batch, max_len, dtype, device)
-            for desc in cfg.layout.descriptors()]
+
+    def one(desc):
+        if desc.mixer == "mamba":
+            return init_mamba_cache(cfg, batch, dtype, device)
+        if desc.mixer == "mla":
+            return init_mla_cache(cfg, batch, max_len, dtype, device)
+        return init_attn_cache(cfg, batch, max_len, dtype, device)
+    return [one(desc) for desc in cfg.layout.descriptors()]
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      slots: int, dtype=None, device=None) -> list:
     """Block-pool cache: one (num_blocks, block_size, Hkv, hd) K/V pool per
-    attention layer, addressed through per-slot block tables; a Mamba2
-    layer's conv/ssm state stays per slot (``slots`` rows), a fixed size
-    that paging would not shrink."""
+    attention layer and one (num_blocks, block_size, kv_lora / rope)
+    latent pool per MLA layer, addressed through per-slot block tables; a
+    Mamba2 layer's conv/ssm state stays per slot (``slots`` rows), a fixed
+    size that paging would not shrink."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg, dtype)
-    return [init_mamba_cache(cfg, slots, dtype, device)
-            if desc.mixer == "mamba"
-            else init_paged_attn_cache(cfg, num_blocks, block_size, dtype,
-                                       device)
-            for desc in cfg.layout.descriptors()]
+
+    def one(desc):
+        if desc.mixer == "mamba":
+            return init_mamba_cache(cfg, slots, dtype, device)
+        if desc.mixer == "mla":
+            return init_paged_mla_cache(cfg, num_blocks, block_size, dtype,
+                                        device)
+        return init_paged_attn_cache(cfg, num_blocks, block_size, dtype,
+                                     device)
+    return [one(desc) for desc in cfg.layout.descriptors()]

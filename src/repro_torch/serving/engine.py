@@ -51,8 +51,10 @@ layouts, and a prefill continues from it.  A slot is *dirty* once a
 prefill or a batched decode step (which advances every slot, idle ones
 included) has run on it since it was seated; a request that names no
 prefix zeroes a dirty slot's state first (``clear_slot_state``), a
-request naming a prefix always re-seats it, and ``score_labels``
-restores slot 0 before its one-shot prefill.  A preempted request
+request naming a prefix always re-seats it (a hybrid prefix's handed-off
+SSM state with it: the dense row's ``ssm`` leaf, or the paged store's
+``state_row`` beside the shared blocks), and ``score_labels`` restores
+slot 0 before its one-shot prefill.  A preempted request
 resumes in a cleared slot by re-prefilling prompt + emitted tokens.
 
 The cache is updated in place: a ``persist=False`` prefill (label
@@ -144,7 +146,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocator,
                                             OutOfBlocksError)
 from repro_torch.serving.compiler import PrefixCompiler, pow2_bucket
-from repro_torch.serving.prefix_store import (PagedPrefixStore,
+from repro_torch.serving.prefix_store import (KV_KEYS, PagedPrefixStore,
                                               PrefixSeatedError, PrefixStore,
                                               clear_slot_state,
                                               copy_paged_block,
@@ -456,6 +458,9 @@ class ServingEngine:
         clear_slot_state(self.cache, slot)
         if self.paged:
             self._seat_blocks(slot, name)
+            state = self.store.state_row(name)
+            if state is not None:  # a handed-off SSM state stays per slot
+                seat_prefix_row(self.cache, state, slot)
         else:
             seat_prefix_row(self.cache, self.store.get(name), slot)
         self.base[slot] = self.store.base_len(name)
@@ -1509,13 +1514,13 @@ class ServingEngine:
     def _slot_view(cache: list, slot: int, persist: bool = True,
                    pooled: bool = False) -> list:
         """The cache a one-slot prefill runs on: per-slot leaves (dense K/V
-        stripes, Mamba2 conv/ssm) cut to the slot's row — views, so the
-        forward's in-place writes land in the slot — and, with ``pooled``,
-        the K/V pools whole (the block table scopes those writes).
-        ``persist=False`` clones the per-slot rows instead, so the slot
-        keeps its state."""
+        and latent stripes, Mamba2 conv/ssm) cut to the slot's row — views,
+        so the forward's in-place writes land in the slot — and, with
+        ``pooled``, the K/V and latent pools whole (the block table scopes
+        those writes).  ``persist=False`` clones the per-slot rows instead,
+        so the slot keeps its state."""
         def leaf(key, x):
-            if pooled and key in ("k", "v"):
+            if pooled and key in KV_KEYS:
                 return x
             row = x[slot:slot + 1]
             return row if persist else row.clone()

@@ -4,29 +4,31 @@
 The compress → serve handoff in three steps:
 
 1. :func:`materialize_prefix` pushes the compressor's per-layer output O^i
-   through the frozen target's K/V projections (RoPE'd at positions
-   0..m-1), giving each layer's compressed KV cache ``{"k", "v"}``.
+   through the frozen target's projections (positions 0..m-1), giving
+   each layer's compressed cache: ``{"k", "v"}`` for an attention layer,
+   the latents ``{"ckv", "kr"}`` for an MLA layer; a Mamba2 layer's
+   handed-off state ``{"ssm"}`` passes through.
 2. :class:`PrefixStore` keeps one materialized prefix per ICL task (dense
-   layout); :class:`PagedPrefixStore` writes it once into ref-counted
-   blocks of the engine's KV pool (paged layout).  Both bound their
-   entries LRU-style (``capacity``), skip the names in ``pinned`` when
-   they evict for room, and hand an evicted entry to ``demote_hook``
-   first (the tiered store, ``serving/tiers.py``, demotes it to host).
+   layout); :class:`PagedPrefixStore` writes its pooled leaves (``k``,
+   ``v``, ``ckv``, ``kr``) once into ref-counted blocks of the engine's
+   pools and keeps the per-slot rest (the ``ssm`` state) beside them
+   (paged layout).  Both bound their entries LRU-style (``capacity``),
+   skip the names in ``pinned`` when they evict for room, and hand an
+   evicted entry to ``demote_hook`` first (the tiered store,
+   ``serving/tiers.py``, demotes it to host).
 3. :func:`seat_prefix_row` copies a stored prefix into *one batch slot* of
-   a dense engine cache (positions [0, m)), so different slots of one
-   decode batch serve different tasks; :func:`write_prefix_to_cache` is
-   the batch-wide variant.  A paged slot is seated by pointing its block
-   table at the prefix's blocks (the engine's ``_seat_blocks``).
+   a dense engine cache (positions [0, m); the state replaces the slot's
+   SSM state), so different slots of one decode batch serve different
+   tasks; :func:`write_prefix_to_cache` is the batch-wide variant.  A
+   paged slot is seated by pointing its block table at the prefix's
+   blocks (the engine's ``_seat_blocks``) and seating the state row.
 
-Caches are per-layer lists of ``{"k", "v"}`` tensors — (slots, max_len,
-Hkv, hd) stripes or (num_blocks, block_size, Hkv, hd) pools — or, for a
-Mamba2 layer, of per-slot ``{"conv", "ssm"}`` state on both layouts, all
-written in place.  :func:`clear_slot_state` zeroes one slot's recurrent
-state before a refill.  The hybrid MemCom's state handoff (a Mamba2
-layer's ``{"ssm"}`` prefix entry, which the reference's
-``materialize_prefix`` passes through and ``seat_prefix_row`` seats)
-waits for a hybrid config in the port: both functions here handle K/V
-entries only.
+Caches are per-layer lists of dicts written in place: ``{"k", "v"}``
+(slots, max_len, Hkv, hd) stripes or (num_blocks, block_size, Hkv, hd)
+pools for attention, ``{"ckv", "kr"}`` stripes or pools for MLA, and
+per-slot ``{"conv", "ssm"}`` state for Mamba2 on both layouts.
+:func:`clear_slot_state` zeroes one slot's recurrent state before a
+refill.
 """
 
 from __future__ import annotations
@@ -39,40 +41,62 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import project_kv
+from repro_torch.models.mla import latent
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving.block_pool import BlockAllocator
+
+#: The leaves that live at cache positions (pooled in the paged layout).
+KV_KEYS = ("k", "v", "ckv", "kr")
 
 
 @torch.no_grad()
 def materialize_prefix(target: Transformer, cfg: ModelConfig, prefix: list) -> list:
-    """Turn per-layer ``{"h": O^i}`` entries into ``{"k", "v"}`` caches."""
+    """Turn per-layer ``{"h": O^i}`` entries into compressed caches:
+    attention -> ``{"k", "v"}``, MLA -> ``{"ckv", "kr"}``; an entry
+    without ``"h"`` (a Mamba2 layer's ``{"ssm"}``) passes through."""
     out = []
-    for block, entry in zip(target.layers, prefix):
+    for block, desc, entry in zip(target.layers, cfg.layout.descriptors(),
+                                  prefix):
+        if "h" not in entry:
+            out.append(entry)
+            continue
         h = entry["h"]
         B, m = h.shape[0], h.shape[1]
         pos = torch.arange(m, dtype=torch.int32, device=h.device).expand(B, m)
-        k, v = project_kv(block.attn, cfg, h, pos)
-        out.append({"k": k, "v": v})
+        if desc.mixer == "mla":
+            ckv, kr = latent(block.attn, cfg, h, pos)
+            out.append({"ckv": ckv, "kr": kr})
+        else:
+            k, v = project_kv(block.attn, cfg, h, pos)
+            out.append({"k": k, "v": v})
     return out
 
 
 def write_prefix_to_cache(cfg: ModelConfig, cache: list, prefix: list) -> list:
     """Seat compressed memory at cache positions [0, m), batch-wide (row b
-    of the materialized prefix lands in slot b).  In place."""
+    of the materialized prefix lands in slot b); a handed-off state
+    replaces the slots' SSM state.  In place."""
     for c, p in zip(cache, prefix):
-        for key in ("k", "v"):
-            m = p[key].shape[1]
-            c[key][:, :m] = p[key].to(c[key].dtype)
+        for key in KV_KEYS:
+            if key in p:
+                m = p[key].shape[1]
+                c[key][:, :m] = p[key].to(c[key].dtype)
+        if "ssm" in p:
+            c["ssm"].copy_(p["ssm"].to(c["ssm"].dtype))
     return cache
 
 
 def seat_prefix_row(cache: list, row: list, slot: int) -> list:
     """Install one task's batch-free prefix row into batch slot ``slot``:
-    KV lands at positions [0, m) of that slot.  In place."""
+    position leaves land at positions [0, m) of that slot, a state
+    replaces the slot's SSM state.  In place."""
     for c, p in zip(cache, row):
-        for key in ("k", "v"):
-            m = p[key].shape[0]
-            c[key][slot, :m] = p[key].to(c[key].dtype)
+        for key in KV_KEYS:
+            if key in p:
+                m = p[key].shape[0]
+                c[key][slot, :m] = p[key].to(c[key].dtype)
+        if "ssm" in p:
+            c["ssm"][slot] = p["ssm"].to(c["ssm"].dtype)
     return cache
 
 
@@ -190,16 +214,23 @@ class PrefixStore:
 
 def write_prefix_row_to_blocks(cache: list, row: list,
                                block_ids: List[int]) -> list:
-    """Scatter a batch-free prefix row's K/V into pool blocks, in place.
-    ``block_ids`` hold logical positions [0, m); every layer writes the
-    *same* block ids into its own pool (one block table resolves every
-    layer)."""
-    device = cache[0]["k"].device
-    ids = torch.as_tensor(block_ids, dtype=torch.int32, device=device)[None]
-    zero = torch.zeros((1,), dtype=torch.int32, device=device)
+    """Scatter a batch-free prefix row's pooled leaves (K/V, MLA latents)
+    into pool blocks, in place.  ``block_ids`` hold logical positions
+    [0, m); every layer writes the *same* block ids into its own pools
+    (one block table resolves every layer).  A state leaf is left for
+    per-slot seating (:func:`seat_prefix_row`)."""
+    ids = zero = None
     for c, p in zip(cache, row):
-        ops.paged_scatter((c["k"], c["v"]), (p["k"][None], p["v"][None]),
-                          ids, zero)
+        keys = [key for key in KV_KEYS if key in p]
+        if not keys:
+            continue
+        if ids is None:
+            device = c[keys[0]].device
+            ids = torch.as_tensor(block_ids, dtype=torch.int32,
+                                  device=device)[None]
+            zero = torch.zeros((1,), dtype=torch.int32, device=device)
+        ops.paged_scatter([c[key] for key in keys],
+                          [p[key][None] for key in keys], ids, zero)
     return cache
 
 
@@ -207,16 +238,16 @@ def copy_paged_block(cache: list, src: int, dst: int) -> list:
     """Copy one physical block across every layer's pools, in place — the
     copy-on-write when a slot must write into a shared partial block."""
     for c in cache:
-        for key in ("k", "v"):
-            c[key][dst] = c[key][src]
+        for key in KV_KEYS:
+            if key in c:
+                c[key][dst] = c[key][src]
     return cache
 
 
 def strip_kv_leaves(row: list) -> Optional[list]:
-    """A prefix row without its block-resident K/V leaves: the per-slot
-    state left to seat, or None when nothing remains (every port row:
-    the hybrid state handoff waits for a hybrid config)."""
-    stripped = [{k: v for k, v in e.items() if k not in ("k", "v")}
+    """A prefix row without its pooled leaves: the per-slot state left to
+    seat (a Mamba2 layer's ``ssm``), or None when nothing remains."""
+    stripped = [{k: v for k, v in e.items() if k not in KV_KEYS}
                 for e in row]
     return stripped if any(stripped) else None
 
@@ -327,6 +358,10 @@ class PagedPrefixStore:
     def base_len(self, name: str) -> int:
         return self._get(name)["base_len"]
 
+    def state_row(self, name: str) -> Optional[list]:
+        """The per-slot leaves to seat beside the blocks (None: none)."""
+        return self._get(name)["state"]
+
     def _get(self, name: str, touch: bool = True) -> dict:
         if name not in self._entries:
             raise KeyError(f"unknown prefix {name!r}; registered: "
@@ -353,5 +388,10 @@ def _new_store_stats() -> Dict[str, int]:
 
 
 def _row_base_len(row: list) -> int:
-    """Memory slots of a batch-free prefix row: the m dim of its K."""
-    return int(row[0]["k"].shape[0]) if row else 0
+    """Memory slots of a batch-free prefix row: the m dim of its first
+    position leaf (0 for a row of states alone)."""
+    for e in row:
+        for key in KV_KEYS:
+            if key in e:
+                return int(e[key].shape[0])
+    return 0

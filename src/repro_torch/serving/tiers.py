@@ -61,7 +61,8 @@ from repro_torch.checkpoint.store import (_leaf_bytes, _leaf_tensor,
                                           packb, unpackb)
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.serving.prefix_store import PagedPrefixStore, _row_base_len
+from repro_torch.serving.prefix_store import (KV_KEYS, PagedPrefixStore,
+                                              _row_base_len)
 
 __all__ = ["TieredPrefixStore", "PromotionJob"]
 
@@ -259,9 +260,9 @@ class TieredPrefixStore:
         cache = self._cache_ref()
         base = int(entry["base_len"])
         ids = torch.as_tensor(list(entry["blocks"]), dtype=torch.int32,
-                              device=cache[0]["k"].device)[None]
+                              device=self.device)[None]
         row = [{key: ops.paged_gather(c[key], ids)[0, :base]
-                for key in ("k", "v") if key in c} if base else {}
+                for key in KV_KEYS if key in c} if base else {}
                for c in cache]
         for layer, extra in zip(row, entry.get("state") or ()):
             layer.update(extra)

@@ -135,6 +135,71 @@ def test_flash_attention_fully_masked_rows(cuda, rng, dtype):
     assert bool((lse[0, :2] == plain.NEG_INF).all())
 
 
+# MLA's (key, value) widths: the non-absorbed prefill (192, 128) with its
+# 128 heads cut to 16, causal and a prompt against a 1024-row prefix; the
+# absorbed decode (576, 512) with 128 query heads on one latent head, one
+# and four lanes a slot behind ragged lengths.  Scale 192 ** -0.5, as MLA
+# passes it.
+DV_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, D, Dv, kind, dtypes)
+    (1, 300, 300, 16, 16, 192, 128, "causal", ("float32", "bfloat16")),
+    (1, 12, 1024, 16, 16, 192, 128, "prefix", ("float32", "bfloat16")),
+    (4, 1, 1100, 128, 1, 576, 512, "decode", ("bfloat16",)),
+    (4, 4, 1100, 128, 1, 576, 512, "decode", ("bfloat16",)),
+    (1, 64, 64, 128, 1, 576, 512, "causal", ("bfloat16",)),
+]
+
+
+@pytest.mark.parametrize("case", DV_CASES)
+def test_flash_attention_dv_pairs_match_plain(cuda, rng, case):
+    B, Sq, Skv, Hq, Hkv, D, Dv, kind, dtypes = case
+    ar = torch.arange(max(Sq, Skv), dtype=torch.int32, device=cuda)
+    kv_pos = ar[:Skv].expand(B, Skv).contiguous()
+    if kind == "decode":  # each slot's last Sq rows behind its length
+        lens = torch.tensor([Skv - 7 * b for b in range(B)], device=cuda)
+        q_pos = (lens[:, None] - Sq + ar[None, :Sq]).to(torch.int32)
+    elif kind == "prefix":
+        q_pos = (Skv + ar[:Sq]).expand(B, Sq).contiguous()
+    else:
+        q_pos = ar[:Sq].expand(B, Sq).contiguous()
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=kind != "prefix",
+              scale=192 ** -0.5, return_lse=True)
+    for dtype in dtypes:
+        q = _rand(rng, B, Sq, Hq, D, dtype=dtype)
+        k = _rand(rng, B, Skv, Hkv, D, dtype=dtype)
+        v = _rand(rng, B, Skv, Hkv, Dv, dtype=dtype)
+        before = fa.launches, fa.wgmma_launches
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.wgmma_launches) == (before[0] + 1, before[1])
+        ref, ref_lse = plain.attention_ref(q, k, v, **kw)
+        assert out.dtype == q.dtype and out.shape == (B, Sq, Hq, Dv)
+        _assert_close(out, ref, dtype)
+        assert _err(lse, ref_lse) <= TOL["float32"] * max(
+            1.0, float(ref_lse.abs().max()))
+        if dtype == "bfloat16":  # the forced mma.sync variant is the same
+            with pytest.raises(NotImplementedError):
+                fa.flash_attention(q, k, v, variant="wgmma", **kw)
+
+
+def test_flash_attention_dv_refuses_a_gradient(cuda, rng):
+    """At Dv != D the backward kernels do not exist: a call that needs a
+    gradient raises before the forward runs."""
+    q = _rand(rng, 1, 8, 4, 192, dtype="bfloat16").requires_grad_()
+    k = _rand(rng, 1, 8, 4, 192, dtype="bfloat16")
+    v = _rand(rng, 1, 8, 4, 128, dtype="bfloat16")
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    before = fa.launches
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q, k, v, q_pos=pos, kv_pos=pos)
+    assert fa.launches == before
+    out, lse = fa.flash_attention(q.detach(), k, v, q_pos=pos, kv_pos=pos,
+                                  return_lse=True)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_bwd(q.detach(), k, v, out, lse, out, q_pos=pos,
+                               kv_pos=pos)
+
+
 @pytest.mark.parametrize("n,mn_major", [(64, False), (64, True),
                                         (128, True), (256, True)])
 def test_wgmma_tile_product_matches_matmul(cuda, rng, n, mn_major):
@@ -409,7 +474,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, rng):
     q = _rand(rng, 1, 4, 2, 32)
     k = _rand(rng, 1, 8, 2, 32)
     pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
-    with pytest.raises(NotImplementedError):  # Dv != D (MLA needs it later)
+    with pytest.raises(NotImplementedError):  # (32, 16): no accepted pair
         fa.flash_attention(q, k, _rand(rng, 1, 8, 2, 16), q_pos=pos[:, :4],
                            kv_pos=pos)
     with pytest.raises(TypeError):
@@ -466,9 +531,10 @@ PAGED_CASES = [
 ]
 
 
-def _paged_inputs(rng, case, dtype, device):
+def _paged_inputs(rng, case, dtype, device, dv=None):
     """Pools of shuffled blocks; slots 0 and 2 share their first blocks
-    (a task prefix); table entries past each length name block 0."""
+    (a task prefix); table entries past each length name block 0.  ``dv``:
+    the value width (default the key width)."""
     B, S, Hq, Hkv, D, bs, lengths, _, table = case
     nb = -(-(table or max(lengths) + bs) // bs)
     N = B * nb + 1
@@ -482,7 +548,7 @@ def _paged_inputs(rng, case, dtype, device):
         tables[2, :shared] = tables[0, :shared]
     q = _rand(rng, B, S, Hq, D, dtype=dtype, device=device)
     k = _rand(rng, N, bs, Hkv, D, dtype=dtype, device=device)
-    v = _rand(rng, N, bs, Hkv, D, dtype=dtype, device=device)
+    v = _rand(rng, N, bs, Hkv, dv or D, dtype=dtype, device=device)
     return (q, k, v, torch.from_numpy(tables).to(device),
             torch.tensor(lengths, dtype=torch.int32, device=device))
 
@@ -503,6 +569,53 @@ def test_paged_flash_decode_matches_plain(cuda, rng, case, dtype):
     dead = lengths[:, None] - S + torch.arange(S, device=cuda)[None] < 0
     if bool(dead.any()):  # rows that see no key give 0
         assert float(out[dead].float().abs().max()) == 0.0
+
+
+# MLA's absorbed paged decode: 128 query heads on one latent head of 576
+# (key) / 512 (value), one and four lanes; and the (192, 128) pair
+PAGED_DV_CASES = [
+    # (case, Dv, dtypes)
+    ((4, 1, 128, 1, 576, 16, [1036, 1039, 1030, 1040], 0.0, None), 512,
+     ("bfloat16",)),
+    ((4, 4, 128, 1, 576, 16, [1040, 1043, 1034, 1044], 0.0, None), 512,
+     ("bfloat16",)),
+    ((3, 2, 16, 16, 192, 16, [100, 37, 64], 0.0, None), 128,
+     ("float32", "bfloat16")),
+]
+
+
+@pytest.mark.parametrize("case,dv,dtypes", PAGED_DV_CASES)
+def test_paged_flash_decode_dv_pairs_match_plain(cuda, rng, case, dv, dtypes):
+    for dtype in dtypes:
+        q, k, v, tables, lengths = _paged_inputs(rng, case, dtype, cuda, dv)
+        kw = dict(block_tables=tables, lengths=lengths, scale=192 ** -0.5)
+        before = pa.launches
+        out = pa.paged_flash_decode(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert pa.launches == before + 1
+        ref = plain.paged_decode_attention_ref(q, k, v, **kw)
+        assert out.dtype == q.dtype and out.shape == (*q.shape[:3], dv)
+        _assert_close(out, ref, dtype)
+    if dtypes == ("bfloat16",):  # no float32 kernel at (576, 512)
+        q, k, v, tables, lengths = _paged_inputs(rng, case, "float32", cuda,
+                                                 dv)
+        with pytest.raises(NotImplementedError):
+            pa.paged_flash_decode(q, k, v, block_tables=tables,
+                                  lengths=lengths)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 9, 16])
+def test_paged_mla_decode_at_any_split_count(cuda, rng, monkeypatch, nsplit):
+    """The cluster merge over 512-wide value rows, some splits empty."""
+    case = (4, 1, 128, 1, 576, 16, [1036, 2, 0, 70], 0.0, 2048)
+    q, k, v, tables, lengths = _paged_inputs(rng, case, "bfloat16", cuda, 512)
+    kw = dict(block_tables=tables, lengths=lengths, scale=192 ** -0.5)
+    monkeypatch.setattr(pa, "num_splits", lambda *shape: nsplit)
+    out = pa.paged_flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, plain.paged_decode_attention_ref(q, k, v, **kw),
+                  "bfloat16")
+    assert float(out[2].float().abs().max()) == 0.0  # an empty slot
 
 
 @pytest.mark.parametrize("nsplit", [1, 2, 5, 8, 9, 16])
@@ -529,7 +642,7 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
     case = (2, 1, 4, 2, 64, 8, [9, 3], 0.0, None)
     q, k, v, tables, lengths = _paged_inputs(rng, case, "float32", cuda)
     kw = dict(block_tables=tables, lengths=lengths)
-    with pytest.raises(NotImplementedError):  # Dv != D (MLA needs it later)
+    with pytest.raises(NotImplementedError):  # (64, 32): no accepted pair
         pa.paged_flash_decode(q, k, v[..., :32].contiguous(), **kw)
     with pytest.raises(NotImplementedError):  # head dims 64/128/256 only
         pa.paged_flash_decode(q[..., :32].contiguous(),

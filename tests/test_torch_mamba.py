@@ -335,16 +335,13 @@ def test_paged_cache_keeps_mamba_state_per_slot():
 
 
 def test_blocks_the_port_lacks_still_raise():
+    """Enc-dec blocks (Whisper's cross-attention) are not ported yet; MLA
+    mixers and the hybrid's ``prefix["ssm"]`` are (tests/test_torch_mla.py,
+    tests/test_torch_hybrid.py)."""
     from repro_torch.config import LayerDesc
     from repro_torch.models.blocks import Block
 
     pcfg = port_smoke_config(ARCH)
-    for desc in (LayerDesc("mla", "dense"),
-                 LayerDesc("attn", "dense", cross_attn=True)):
-        with pytest.raises(NotImplementedError):
-            Block(pcfg, desc, device="cpu", dtype=torch.float32)
-    block = Block(pcfg, LayerDesc("mamba", "none"), device="cpu",
-                  dtype=torch.float32)
-    h = torch.zeros(1, 2, pcfg.d_model)
     with pytest.raises(NotImplementedError):
-        block(h, positions=None, prefix={"ssm": torch.zeros(1)})
+        Block(pcfg, LayerDesc("attn", "dense", cross_attn=True),
+              device="cpu", dtype=torch.float32)
