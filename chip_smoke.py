@@ -52,12 +52,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
       the non-absorbed source prefill, Memory-LLM (m = 1024), 16-token
       prompt causal and against the 1024-row prefix (float32 too), all
       128 heads of (192, 128), and the absorbed decode, 128 query heads on
-      one latent head of (576, 512), one lane and W = 4 a slot; and
+      one latent head of (576, 512), one lane and W = 4 a slot, and
+      probes of a 4- and a 16-token prompt against 4096 prefix rows at
+      (192, 128) (bf16 only); and
       jamba-1.5-large-398b's attention (64/8 heads of 128): its source
       prefill and a prompt against its 1024-row prefix.  Every bf16 shape
-      runs through both bf16 kernels (at Dv != D the mma.sync one alone:
-      the wgmma variant needs Dv == D), the wgmma variant and the
-      mma.sync one, each forced and each held to the plain version; ``ms``
+      runs through both bf16 kernels (at (576, 512) the mma.sync one
+      alone: the wgmma variant takes (192, 128) and Dv == D), the wgmma
+      variant and the mma.sync one, each forced and each held to the
+      plain version; ``ms``
       is the time of the variant the wrapper picks (``variant``), beside
       ``ms_wgmma`` and ``ms_mma_sync``, and ``device_ms_wgmma`` /
       ``device_ms_mma_sync``: 20 calls captured into a CUDA graph and
@@ -155,7 +158,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
       causal self-attention without an lse cotangent (bf16: gemma2-2b's
       compressor 2x3584 and target 2x1024, mistral-7b's compressor
       2x6912; the plain backward in 3a's slices where its logits pass 6
-      GB, and no ``plain.attention_bwd_tiled`` there); ``memcom_xattn`` at
+      GB, and no ``plain.attention_bwd_tiled`` there), and deepseek-v2-
+      236b's Phase-1 shapes at (D, Dv) = (192, 128), 128 heads: the
+      Memory-LLM's 2x1024 causal rows, the 2x512 prompt at offset 1024
+      and against the 1024-row prefix (both with an lse cotangent, float32
+      too) and the 3072-token source (Phase 2; bf16 through the wgmma
+      kernel, the one bf16 backward that takes the pair, float32 through
+      the CUDA cores); ``memcom_xattn`` at
       2x512x3072x2304, 1x512x3072x1536 and mistral-7b's 1x768x6144x4096.
       Rows that get no gradient by their positions (queries that see no
       key, keys that no query sees) must be exactly 0.  Every bf16 flash
@@ -174,8 +183,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
       ``ms_<variant>`` and ``device_ms_<variant>``.  ``ms`` by CUDA
       events, ``device_ms`` by graph replay over three input sets; the
       library time that of ``torch.autograd.grad`` through one
-      ``F.scaled_dot_product_attention`` call (no cap, ``enable_gqa``; one
-      head for ``memcom_xattn``) on the first backend that takes it,
+      ``F.scaled_dot_product_attention`` call (no cap, ``enable_gqa``, the
+      call's scale; one head for ``memcom_xattn``) on the first backend
+      that takes it,
       printed, by CUDA events, and its device time by graph replay over
       the same three sets (forward and backward less the forward alone).
       Bound: five products against the forward's two.
@@ -292,8 +302,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
       one (phase 5's checks: O^i and the handed-off states, first-step
       logits, a paged engine's prefills and decode step; the MoE top-k
       replayed; jamba's plain expert products one expert at a time and
-      its plain attention in slices).  Printed: compress s, tok/s, peak
+      its plain attention in slices), and for deepseek-v2-236b the online
+      compile of task 0 (``memcom.compress_chunked`` at 512-token slices,
+      each MLA layer's chunk a prefill continuation merged by lse through
+      the (192, 128) wgmma forward, and ``PrefixCompiler.step(512)``'s
+      installed latents) against the offline compress, within 2e-2 of
+      the largest magnitude.  Printed: compress s, tok/s, peak
       memory beside the reckoned bytes, the phase's seconds.
+   p. deepseek-v2-236b MemCom Phase 1 at full width, depth 2 (4o's cut,
+      last in the run): as 4d through ``launch/train.py``'s ``build``,
+      batch 2 x 3584 split at 3072 (m = 1024), 4 steps, checkpoints after
+      2 and 4, the restart from 2; every step 5 flash backward calls, all
+      at (192, 128) through the wgmma variant (the Memory-LLM's self-
+      attention and the prompt against the prefix in both layers, the
+      prompt's self-attention in layer 1: layer 0's reads only frozen
+      embeddings), 2 ``memcom_xattn`` backward calls and 3 dX-only
+      ``gmm`` backward calls (the target's one MoE layer; the Memory-
+      LLM's is its last).  Printed: s/step, tokens/s, peak memory beside
+      the reckoned bytes (weights, bf16 gradients and float32 AdamW state
+      of the 215 M trained parameters), one profiled step.
+      jamba-1.5-large-398b's Phase 1 is not run: its reckoning (PERF.md
+      section 4) passes the card's 80 GB.
    n. smollm-360m (32 layers, d_model 960, 15/5 heads of 64) and
       stablelm-1.6b (24 layers, d_model 2048, 32/32 heads of 64,
       layernorm), both cut to depth 8 since PR 30 (to keep the run within
@@ -456,6 +485,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    magnitude, with 4 flash backward calls (2 layers, 2 stacks).
    smollm-360m and stablelm-1.6b at depth 2 as the attention-only models
    above (O^i, logits, paged prefill and decode, the fused steps).
+
+   After 4p: deepseek-v2-236b's Phase-1 and Phase-2 loss and every
+   trained gradient at 4o's depth-2 cut as gemma2-2b's above (top-k
+   replayed; the plain attention in 1 GiB slices and the plain expert
+   products one expert at a time, each recomputed in the backward; the
+   kernel run's gradients wait on the host), every flash backward call
+   through the wgmma variant.
 
    After granite-moe-3b-a800m's and mamba2-370m's training phases (4j,
    4k): their loss and every trained gradient at full width and depth 2
@@ -796,6 +832,10 @@ def main() -> int:
            arange(0, L)[None], True, heads)
           for tag, L, heads in (("", 2048, gemma_heads),
                                 ("mistral_", m, mistral_heads))),
+        # MLA's (192, 128) split further than its main path's 3 ways: a
+        # 4-token and a 16-token prompt against 4096 prefix rows
+        *((f"probe_mla_prefix_{n}x4096", 1, n, 4096, arange(4096, n)[None],
+           arange(0, 4096)[None], False, mla_heads) for n in (4, 16)),
         # deepseek-v2-236b (Dv != D): the MLA source prefill, the Memory-
         # LLM's m = 1024 rows, a 16-token prompt (its MoE bucket) causal and
         # against the 1024-row prefix (with lse), and the absorbed decode,
@@ -827,13 +867,17 @@ def main() -> int:
                  "jamba_", "mla_source", "mla_memory", "mla_decode",
                  "mla_fused")
     flash_rows = []
+    t_phase = time.perf_counter()
     for name, B, Sq, Skv, q_pos, kv_pos, causal, heads in attn_cases:
+        t_row = time.perf_counter()
         Hq, Hkv, D, cap = heads[:4]
         Dv, scale = heads[4:] if len(heads) > 4 else (D, None)
         nsplit = fa._splits(B, Sq, Skv, Hq, Hkv, torch.cuda.current_device())
         dispatched = fa.variant_for(torch.bfloat16, D, Skv, nsplit, Dv)
-        # the bf16 kernels that take the shape (the wgmma one: Dv == D)
-        bf16_variants = (("wgmma", "mma_sync") if Dv == D
+        # the bf16 kernels that take the shape (the wgmma one: not at
+        # (576, 512))
+        bf16_variants = (("wgmma", "mma_sync")
+                         if fa.wgmma_takes(torch.bfloat16, D, Skv, Dv)
                          else ("mma_sync",))
         row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
                "v_width": Dv, "causal": causal, "softcap": cap,
@@ -920,12 +964,12 @@ def main() -> int:
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
                 row["device_ms"] = row[f"device_ms_{dispatched}"]
-                if Dv == D:
+                if "wgmma" in bf16_variants:
                     times = (f"wgmma {row['ms_wgmma']:.4f}, mma.sync "
                              f"{row['ms_mma_sync']:.4f}; device wgmma "
                              f"{row['device_ms_wgmma']:.4f}, mma.sync "
                              f"{row['device_ms_mma_sync']:.4f}")
-                else:  # no wgmma variant at Dv != D: the ms keys name it
+                else:  # no wgmma variant at (576, 512): the ms keys name it
                     row["ms_wgmma"] = row["device_ms_wgmma"] = None
                     times = (f"Dv {Dv}, mma.sync only; device "
                              f"{row['device_ms_mma_sync']:.4f}")
@@ -936,7 +980,12 @@ def main() -> int:
                     f" ms ({row['bound_by']})")
             del q, k, v, ref, ref_lse
         torch.cuda.empty_cache()
+        row["row_s"] = time.perf_counter() - t_row
         flash_rows.append(row)
+    mla_s = sum(r["row_s"] for r in flash_rows if r["shape"].startswith(
+        ("mla_source", "mla_memory", "mla_prompt", "probe_mla")))
+    log(f"flash kernel phase (3a): {time.perf_counter() - t_phase:.1f}s, "
+        f"the (192, 128) rows {mla_s:.1f}s")
 
     mx_rows = []
     for name, B, Mx, Tx, D in (("memory_xattn", 1, m, T, 2304),
@@ -1595,19 +1644,43 @@ def main() -> int:
               ("icae_compressor_bwd", icae_gemma[0], gemma_heads),
               ("icae_target_bwd", icae_gemma[1], gemma_heads),
               ("mistral_icae_compressor_bwd", icae_mistral, mistral_heads))),
+        # deepseek-v2-236b's Phase 1 at (192, 128), 128 heads, scale
+        # 192^-0.5 (bf16 through the wgmma kernel, float32 through the CUDA
+        # cores): the Memory-LLM's 2 x 1024 causal rows, the 512-token
+        # prompt at offset 1024 and against the 1024-row prefix (both with
+        # an lse cotangent), and the 3072-token source (Phase 2)
+        ("mla_memory_self_bwd", 2, mla_m, mla_m,
+         arange(0, mla_m)[None].expand(2, mla_m),
+         arange(0, mla_m)[None].expand(2, mla_m), True, mla_heads, False,
+         ("bfloat16",)),
+        ("mla_prompt_self_bwd", 2, m, m, arange(mla_m, m)[None].expand(2, m),
+         arange(mla_m, m)[None].expand(2, m), True, mla_heads, True,
+         ("float32", "bfloat16")),
+        ("mla_prompt_prefix_bwd", 2, m, mla_m,
+         arange(mla_m, m)[None].expand(2, m),
+         arange(0, mla_m)[None].expand(2, mla_m), False, mla_heads, True,
+         ("float32", "bfloat16")),
+        ("mla_source_bwd", 1, T, T, arange(0, T)[None], arange(0, T)[None],
+         True, mla_heads, False, ("bfloat16",)),
     ]
     flash_bwd_rows = []
     for (name, B, Sq, Skv, q_pos, kv_pos, causal, heads, with_dlse,
          dtypes) in bwd_cases:
-        Hq, Hkv, D, cap = heads
+        t_row = time.perf_counter()
+        Hq, Hkv, D, cap = heads[:4]
+        Dv, scale = heads[4:] if len(heads) > 4 else (D, None)
         q_pos, kv_pos = q_pos.contiguous(), kv_pos.contiguous()
         row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
-               "causal": causal, "softcap": cap, "dlse": with_dlse}
+               "v_width": Dv, "causal": causal, "softcap": cap,
+               "dlse": with_dlse}
         for dn in dtypes:
             dtype = getattr(torch, dn)
-            q, dout = (rand(B, Sq, Hq, D, dtype=dtype) for _ in range(2))
-            k, v = (rand(B, Skv, Hkv, D, dtype=dtype) for _ in range(2))
-            kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap)
+            q = rand(B, Sq, Hq, D, dtype=dtype)
+            dout = rand(B, Sq, Hq, Dv, dtype=dtype)
+            k = rand(B, Skv, Hkv, D, dtype=dtype)
+            v = rand(B, Skv, Hkv, Dv, dtype=dtype)
+            kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap,
+                      scale=scale)
             out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
             dlse = (rand(B, Sq, Hq, dtype=torch.float32) if with_dlse
                     else None)
@@ -1619,10 +1692,13 @@ def main() -> int:
             seen = seen.expand(B, Sq, Skv)
             zero_rows = {"dq": ~seen.any(dim=2), "dk": ~seen.any(dim=1),
                          "dv": ~seen.any(dim=1)}
-            # bf16: both kernels, each forced; the wgmma one also against
-            # its own arithmetic (plain.attention_bwd_tiled) in bf16 steps,
-            # over the rows grad_err holds by their own scale
-            variants = ("wgmma", "mma_sync") if dn == "bfloat16" else (None,)
+            # bf16: both kernels, each forced (at (192, 128) the wgmma one
+            # alone); the wgmma one also against its own arithmetic
+            # (plain.attention_bwd_tiled) in bf16 steps, over the rows
+            # grad_err holds by their own scale
+            variants = ((None,) if dn == "float32"
+                        else ("wgmma", "mma_sync") if Dv == D
+                        else ("wgmma",))
             errs = []
             for vn in variants:
                 before = fa.bwd_wgmma_launches
@@ -1642,7 +1718,8 @@ def main() -> int:
                     tiled = plain.attention_bwd_tiled(
                         *(x.float() for x in (q, k, v, out)), lse,
                         dout.float(), dlse, split_at=fa.bwd_split_at(
-                            B, Sq, Skv, Hq, Hkv, D, causal, sms), **kw)
+                            B, Sq, Skv, Hq, Hkv, D, causal, sms, dv=Dv),
+                        **kw)
                     row["tiled_ulps"] = {
                         g: tiled_ulps(a, b) for g, a, b in zip(
                             ("dq", "dk", "dv"), got, tiled)}
@@ -1656,7 +1733,7 @@ def main() -> int:
             del seen, zero_rows, want
             if dn == "bfloat16" and name != "masked_rows_bwd":
                 row["variant"] = fa.bwd_variant_for(dtype, D, Sq * Hq // Hkv,
-                                                    Skv)
+                                                    Skv, Dv)
                 # three input sets, so that no replayed call finds its
                 # inputs (25 MB at the Memory-LLM's shape) in the 50 MB L2
                 sets = [(q, k, v, dout)] + [
@@ -1685,26 +1762,27 @@ def main() -> int:
                     sdpa_kw = dict(is_causal=True, enable_gqa=True)
                 else:
                     sdpa_kw = dict(enable_gqa=True)
+                if scale is not None:
+                    sdpa_kw["scale"] = scale
                 (row["library_ms"], row["library_device_ms"],
                  row["library_backend"]) = library_bwd(
                     [tuple(x.transpose(1, 2) for x in st) for st in sets],
                     **sdpa_kw)
                 del sets
-                # five products (S, dP, dV, dK, dQ) against the forward's
-                # two; q, k, v, out, dout read once, dq, dk, dv written once
-                flops = 10 * D * Hq * pairs
-                nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                              + q.numel()) + 4 * (2 * lse.numel()
-                                                  + q_pos.numel()
-                                                  + kv_pos.numel())
+                # five products (S, dQ, dK over D; dP, dV over Dv) against
+                # the forward's two; q, k, v, out, dout read once, dq, dk,
+                # dv written once
+                flops = 2 * (3 * D + 2 * Dv) * Hq * pairs
+                nbytes = 2 * (2 * q.numel() + 2 * dout.numel()
+                              + 2 * k.numel() + 2 * v.numel()) + 4 * (
+                    2 * lse.numel() + q_pos.numel() + kv_pos.numel())
                 row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
                 row["flops"], row["bytes"] = flops, nbytes
                 log(f"  {name} bf16: kernel {row['ms']:.4f} ms (device "
-                    f"{row['device_ms']:.4f}; {row['variant']}; wgmma "
-                    f"{row['ms_wgmma']:.4f} ms, device "
-                    f"{row['device_ms_wgmma']:.4f}; mma.sync "
-                    f"{row['ms_mma_sync']:.4f} ms, device "
-                    f"{row['device_ms_mma_sync']:.4f}), plain "
+                    f"{row['device_ms']:.4f}; {row['variant']}; " + "; ".join(
+                        f"{vn} {row[f'ms_{vn}']:.4f} ms, device "
+                        f"{row[f'device_ms_{vn}']:.4f}" for vn in variants)
+                    + f"), plain "
                     f"{row['plain_ms']:.4f} ms, sdpa backward "
                     f"{row['library_ms']} ms (device "
                     f"{row['library_device_ms']}; "
@@ -1712,8 +1790,13 @@ def main() -> int:
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
             del q, k, v, dout, out, lse, dlse
         torch.cuda.empty_cache()
+        row["row_s"] = time.perf_counter() - t_row
         flash_bwd_rows.append(row)
     del bwd_cases
+    mla_s = sum(r["row_s"] for r in flash_bwd_rows
+                if r["shape"].startswith("mla_"))
+    log(f"flash backward rows: {time.perf_counter() - t_phase:.1f}s, the "
+        f"(192, 128) rows {mla_s:.1f}s")
 
     mx_bwd_rows = []
     for name, B, Mx, Tx, D, dtypes in (
@@ -2720,6 +2803,49 @@ def main() -> int:
                                          cfg.layout.period[4]), repeats=1)
         return cfg.replace(name=f"{arch}-depth2", layout=layout)
 
+    def mla_online(cfg, target, compressor, offline, chunk=512):
+        """Task 0 compiled online at depth 2: its O^i through the online
+        compiler's chunking (``memcom.compress_chunked``, ``chunk``-token
+        slices, each MLA layer attending to its cached latents as a prefix
+        merged by lse: two (192, 128) flash calls a layer and slice) and
+        the prefix ``PrefixCompiler`` installs (``step(chunk)`` until done),
+        each against the offline compress (``offline``: its O^i and
+        materialized latents): within 2e-2 of the largest magnitude."""
+        from repro_torch.serving.compiler import PrefixCompiler
+
+        tag = f"[{cfg.name} online]"
+        t0 = time.perf_counter()
+        src = torch.as_tensor(sources[0][None], device=dev)
+        set_counts()
+        omega = memcom.compress_chunked(compressor, cfg, src,
+                                        chunk_size=chunk)[0]
+        torch.cuda.synchronize()
+        c = counts()
+        errs = [rel(a["h"], b["h"]) for a, b in zip(omega, offline[0])]
+        comp = PrefixCompiler(compressor, cfg, target)
+        comp.submit("task0", sources[0])
+        while comp.has_compile_work():
+            comp.step(chunk)
+        kv = comp.job("task0").materialized
+        kv_errs = [max(rel(a[key], b[key]) for key in b)
+                   for a, b in zip(kv, offline[1])]
+        torch.cuda.synchronize()
+        online_s = time.perf_counter() - t0
+        log(f"{tag} O^i of a {chunk}-token chunked compile (prefill "
+            f"continuation, lse merge) vs the offline compress: rel err per "
+            f"layer {[f'{e:.3e}' for e in errs]}; the compiler's installed "
+            f"latents (ckv, kr) {[f'{e:.3e}' for e in kv_errs]} (tol "
+            f"{E2E_REL_TOL:g}); flash calls {c['flash_attention']} "
+            f"({c['flash_attention_wgmma']} wgmma), {comp.stats['chunks']} "
+            f"chunks; {online_s:.1f}s")
+        if not (max(errs) <= E2E_REL_TOL and max(kv_errs) <= E2E_REL_TOL
+                and c["flash_attention_wgmma"] > 0):
+            raise AssertionError(f"{tag}: the online compile disagrees with "
+                                 "the offline compress")
+        return {"omega_rel_err": errs, "latent_rel_err": kv_errs,
+                "launches": c, "chunks": comp.stats["chunks"],
+                "online_s": online_s}
+
     def family_path(arch):
         """Compress two 3072-token tasks into m = 1024 memory slots, serve
         them dense (4 requests) and paged (12 requests over 4 slots, stops
@@ -2893,6 +3019,9 @@ def main() -> int:
             if not refill:
                 raise AssertionError(f"{tag}: a refilled slot kept state")
             del eng2, fresh
+        online = None
+        if cfg.mla is not None:
+            online = mla_online(cfg, target, compressor, prefixes[0])
         serve_s = time.perf_counter() - t_phase
         # -- kernels vs plain, on the same models --
         src = torch.as_tensor(sources[0][None], device=dev)
@@ -3015,7 +3144,7 @@ def main() -> int:
                 "compress_s": compress_s, "dense": dense, "paged": paged,
                 "launches_after_compress": after_compress,
                 "launches": launches, "refill_exact": refill,
-                "kernel_vs_plain": {
+                "online": online, "kernel_vs_plain": {
                     "omega_or_state_rel_err": errs,
                     "logits_rel_err": rel_logits,
                     "paged_prefill_rel_err": rel_pre,
@@ -3403,21 +3532,26 @@ def main() -> int:
         return {"restart_identical": True, "restore_s": restore_s,
                 "restart_s": restart_s, "opt_state": again.opt_state}
 
-    def memcom_train_path(arch):
-        """MemCom Phase 1 at full width and depth through the port's
-        launcher path (``launch.train.build``: Trainer, AdamW with
-        warmup_cosine, clip 1.0): 4 steps of batch 2 x 3584 tokens split at
-        3072 (the source) with a checkpoint after step 2, then a second
-        Trainer restored from it that must reproduce steps 3-4 exactly
-        (``train_and_restart``).  Every step: the flash and memcom_xattn
-        backward calls of the layers, each through the variant its rule
-        picks, and on a MoE model one dX-only gmm backward call for each
-        expert product of the target's MoE layers and of the Memory-LLM's
-        but its last (whose output no loss term reads)."""
+    def memcom_train_path(arch, cfg=None):
+        """MemCom Phase 1 at full width and depth (or ``cfg``'s depth)
+        through the port's launcher path (``launch.train.build``: Trainer,
+        AdamW with warmup_cosine, clip 1.0): 4 steps of batch 2 x 3584
+        tokens split at 3072 (the source) with a checkpoint after step 2,
+        then a second Trainer restored from it that must reproduce steps
+        3-4 exactly (``train_and_restart``).  Every step: the flash and
+        memcom_xattn backward calls of the layers, each through the
+        variant its rule picks (at MLA's (192, 128) the wgmma one, the
+        only bf16 backward that takes the pair), and on a MoE model one
+        dX-only gmm backward call for each expert product of the target's
+        MoE layers and of the Memory-LLM's but its last (whose output no
+        loss term reads).  The peak memory is printed beside its
+        reckoning: the three stacks and memx in bf16, and for each trained
+        parameter its bf16 gradient and float32 AdamW moments and
+        master."""
         from repro_torch.launch import train as launch_train
         from repro_torch.optim import warmup_cosine
 
-        cfg = get_config(arch)
+        cfg = cfg or get_config(arch)
         tag = f"[{arch} train]"
         start_training()
         steps, seq, split, batch = 4, T + m, T, 2
@@ -3434,15 +3568,30 @@ def main() -> int:
         named = dict(run.mc.named_parameters())
         named.update(("target." + n, p)
                      for n, p in run.target.named_parameters())
+        n_all = sum(p.numel() for p in named.values())
+        n_trained = sum(p.numel() for p in run.params.values())
+        reckoned = 2 * n_all + (2 + 12) * n_trained
+        log(f"{tag} {len(cfg.layout.descriptors())} layers: {n_all / 1e9:.3f}"
+            f" B parameters in bf16, {n_trained / 1e6:.1f} M trained (bf16 "
+            f"gradients, float32 AdamW moments and master): {reckoned} "
+            "bytes reckoned before activations")
         L = cfg.num_layers
-        # every call of the step is bf16 over m query rows of each head and
-        # m keys: all go where bwd_variant_for sends them
-        G = cfg.num_heads // cfg.num_kv_heads
-        want_wg = (3 * L - 1 if fa.bwd_variant_for(
-            torch.bfloat16, cfg.hd, m * G, m) == "wgmma" else 0)
+        mm = cfg.memcom.num_memory_tokens   # the Memory-LLM's rows
+        # every call of the step is bf16: the Memory-LLM's mm rows, the
+        # prompt's seq - split rows against themselves and against the mm
+        # prefix rows; all go where bwd_variant_for sends them
+        if cfg.mla is not None:  # per-head keys and values, no GQA fold
+            G, D, Dv = 1, cfg.mla.qk_head_dim, cfg.mla.v_head_dim
+        else:
+            G, D, Dv = cfg.num_heads // cfg.num_kv_heads, cfg.hd, cfg.hd
+        p_rows = seq - split
+        want_wg = (3 * L - 1 if all(
+            fa.bwd_variant_for(torch.bfloat16, D, rows * G, skv, Dv)
+            == "wgmma" for rows, skv in ((mm, mm), (p_rows, p_rows),
+                                         (p_rows, mm))) else 0)
         # and each layer's memory cross-attention over the split's source
         want_xwg = (L if mx.bwd_variant_for(
-            torch.bfloat16, batch, m, split, cfg.d_model, True) == "wgmma"
+            torch.bfloat16, batch, mm, split, cfg.d_model, True) == "wgmma"
             else 0)
         moe_layers = [d.mlp == "moe" for d in cfg.layout.descriptors()]
         want_gmm = 3 * (2 * sum(moe_layers) - int(moe_layers[-1])) \
@@ -3491,6 +3640,9 @@ def main() -> int:
                                 check_step, keys, pats, init_s)
         out["target_tokens_per_s"] = batch * (seq - split) / out["s_per_step"]
         out["want_gmm_bwd"] = want_gmm
+        out["reckoned_bytes"] = reckoned
+        log(f"{tag} peak memory {out['peak_bytes']} bytes against {reckoned}"
+            " reckoned before activations")
         del run, named
         return out
 
@@ -3557,7 +3709,7 @@ def main() -> int:
         del run, model, params, trainer
         return out
 
-    def train_kernel_vs_plain(arch):
+    def train_kernel_vs_plain(arch, cfg2=None):
         """One Phase-1 and one Phase-2 step's loss and gradients at full
         width and depth 2, through the kernels and forced to the plain
         versions: each gradient within 2e-2 of the plain run's largest
@@ -3565,14 +3717,64 @@ def main() -> int:
         the 3072-token source's flash backward, in every layer whose
         output some H^i reads).  On a MoE model the plain run replays the
         kernel run's top-k choices, and the gmm backward must launch dX
-        alone in Phase 1 and dW too in Phase 2 (the experts train)."""
+        alone in Phase 1 and dW too in Phase 2 (the experts train).
+        ``cfg2`` (deepseek-v2-236b's depth-2 cut, 16.3 B parameters) runs
+        the plain attention in slices of at most 1 GiB of float32 logits
+        and the plain expert products one expert at a time, each
+        recomputed in the backward (``torch.utils.checkpoint``: a float32
+        copy of one MoE layer's 160 experts kept for the backward would
+        take 15 GB), and keeps the kernel run's gradients on the host
+        while the plain run makes its own (a Phase-2 set is 21.7 GB)."""
+        from torch.utils.checkpoint import checkpoint
+
         from repro_torch.data import PretrainStream
 
         cfg = get_config(arch)
         is_moe = cfg.moe is not None
-        cfg2 = cfg.replace(name=f"{arch}-depth2", layout=LayerLayout.uniform(
-            LayerDesc("attn", "moe" if is_moe else "dense"), 2))
+        lean = cfg2 is not None
+        cfg2 = cfg2 or cfg.replace(
+            name=f"{arch}-depth2", layout=LayerLayout.uniform(
+                LayerDesc("attn", "moe" if is_moe else "dense"), 2))
+        moe_layers = [d.mlp == "moe" for d in cfg2.layout.descriptors()]
+        # Phase 1: dX of the target's MoE layers and the Memory-LLM's but
+        # its last (three expert products each)
+        want_dx = 3 * (2 * sum(moe_layers) - int(moe_layers[-1]))
         tag = f"[{arch} train kernel-vs-plain]"
+        real_attn, real_gmm = plain.attention_ref, plain.gmm_ref
+
+        def attn_lean(q, k, v, **kw):
+            """``plain.attention_ref`` in (batch row, KV-head group)
+            slices of at most 1 GiB of float32 logits, each a checkpoint
+            (its logits recomputed in the backward, not kept)."""
+            B, Sq, Hq, _ = q.shape
+            Skv, Hkv = k.shape[1], k.shape[2]
+            G = Hq // Hkv
+            rows = {}
+            for b, h0, h1 in head_slices(B, Sq, Skv, Hkv, G, 2 ** 30):
+                def one(q_, k_, v_, qp, kp):
+                    return real_attn(q_, k_, v_, **dict(kw, q_pos=qp,
+                                                        kv_pos=kp))
+                args = (q[b:b + 1, :, h0 * G:h1 * G], k[b:b + 1, :, h0:h1],
+                        v[b:b + 1, :, h0:h1], kw["q_pos"][b:b + 1],
+                        kw["kv_pos"][b:b + 1])
+                r = (checkpoint(one, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else one(*args))
+                rows.setdefault(b, []).append(r if kw.get("return_lse")
+                                              else (r,))
+            parts = [[torch.cat(x, dim=2) for x in zip(*rows[b])]
+                     for b in sorted(rows)]
+            res = [torch.cat(x, dim=0) for x in zip(*parts)]
+            return tuple(res) if kw.get("return_lse") else res[0]
+
+        def gmm_lean(x, w):
+            """``gmm_by_expert``, each expert's product a checkpoint."""
+            def one(a, b):
+                return (a.float() @ b.float()).to(a.dtype)
+            if not torch.is_grad_enabled():
+                return gmm_by_expert(x, w)
+            return torch.stack([checkpoint(one, x[e], w[e],
+                                           use_reentrant=False)
+                                for e in range(x.shape[0])])
         target2 = tfm.init_params(cfg2, 0)
         mc2 = memcom.init_memcom(cfg2, target2, 1)
         raw = PretrainStream(vocab, batch=2, seq_len=T + m,
@@ -3608,21 +3810,28 @@ def main() -> int:
                 fa.flash_attention_bwd = inner_bwd
             torch.cuda.synchronize()
             c = counts()
+            nonzero = sum(float(g.float().abs().max()) > 0 for g in g_k)
+            if lean:
+                g_k = [g.cpu() for g in g_k]
             routing.rows = routing.flips = 0
             ops.set_default_impl("torch")
+            if lean:
+                plain.gmm_ref, plain.attention_ref = gmm_lean, attn_lean
             try:
                 loss_p, g_p = (routing.run("replay", grads) if is_moe
                                else grads())
             finally:
+                plain.gmm_ref, plain.attention_ref = real_gmm, real_attn
                 ops.set_default_impl(None)
-            rels = {n: rel(a, b) for n, a, b in zip(trained, g_k, g_p)}
+            rels = {n: rel(a.to(dev), b) for n, a, b in zip(trained, g_k,
+                                                          g_p)}
             worst = sorted(rels.items(), key=lambda kv: -kv[1])[:3]
-            nonzero = sum(float(g.float().abs().max()) > 0 for g in g_k)
             log(f"{tag} phase {phase}, depth 2, bf16: loss kernel {loss_k:.6f}"
                 f" plain {loss_p:.6f}; {len(rels)} gradients ({nonzero} "
                 f"non-zero), worst rel err {worst} (tol {E2E_REL_TOL:g}); "
                 f"flash backward calls {c['flash_attention_bwd']} "
-                f"({sum(source_bwd)} over the {T}-token source), "
+                f"({sum(source_bwd)} over the {T}-token source, "
+                f"{c['flash_attention_bwd_wgmma']} wgmma), "
                 f"memcom_xattn backward calls {c['memcom_xattn_bwd']}"
                 + (f"; gmm backward calls {c['gmm_bwd']} (dX "
                    f"{c['gmm_bwd_dx']}, dW {c['gmm_bwd_dw']}, wgmma "
@@ -3633,14 +3842,20 @@ def main() -> int:
             # Phase 2: the source's flash backward in every layer but the
             # last, whose attention feeds no captured hidden
             want_src = cfg2.num_layers - 1 if phase == 2 else 0
-            # Phase 1: dX of the target's 2 MoE layers and the Memory-LLM's
-            # first; Phase 2 trains the experts of both compressor stacks
+            # Phase 1: dX alone (want_dx); Phase 2 trains the experts of
+            # both compressor stacks, each MoE layer's but the last's
+            # (whose output no captured hidden reads: deepseek's cut has
+            # its one MoE layer last, so no expert there gets a gradient)
             gmm_ok = not is_moe or (
-                c["gmm_bwd_dx"] == c["gmm_bwd"] == 9 and c["gmm_bwd_dw"] == 0
-                if phase == 1 else c["gmm_bwd_dw"] > 0)
+                c["gmm_bwd_dx"] == c["gmm_bwd"] == want_dx
+                and c["gmm_bwd_dw"] == 0
+                if phase == 1
+                else (c["gmm_bwd_dw"] > 0) == any(moe_layers[:-1]))
             if not (worst[0][1] <= E2E_REL_TOL
                     and abs(loss_k - loss_p) <= E2E_REL_TOL * abs(loss_p)
                     and sum(source_bwd) == want_src
+                    and c["flash_attention_bwd_wgmma"]
+                    == c["flash_attention_bwd"]
                     and c["memcom_xattn_bwd"] == 2 and gmm_ok):
                 raise AssertionError(f"{tag} phase {phase}: kernel path and "
                                      "plain path disagree")
@@ -5002,6 +5217,25 @@ def main() -> int:
         f"gradients and float32 AdamW moments and master of the trained "
         f"tensors, remat's saved block inputs)")
     icpp["reckoned_bytes"] = reckoned
+
+    # 4p: deepseek-v2-236b MemCom Phase 1 at full width, depth 2 (its MLA
+    # at (192, 128) through the wgmma flash backward), then its depth-2
+    # Phase-1 and Phase-2 gradients against the plain path (phase 5)
+    key = "deepseek-v2-236b train"
+    t_phase = time.perf_counter()
+    report[key] = memcom_train_path("deepseek-v2-236b",
+                                    family_cfg("deepseek-v2-236b"))
+    paths[key] = report[key]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t_phase
+    report[key]["kernel_vs_plain"] = train_kernel_vs_plain(
+        "deepseek-v2-236b", family_cfg("deepseek-v2-236b"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    report[key]["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{key}] phases 4p and 5: {report[key]['phase_s']:.1f}s (training "
+        f"{train_s:.1f}s)")
 
     # ---- result lines ----------------------------------------------------
     def compile_chunk(rows):

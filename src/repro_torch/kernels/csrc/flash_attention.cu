@@ -19,7 +19,8 @@
 // source prefill, 0.0293 ms at granite's, 0.313 ms at mistral-7b's
 // 6144-token prompt; at decode (Sq = 1) it streams the KV cache once and
 // is bound by bytes.  Three kernels:
-// * flash_fwd_wgmma (bf16, D = 64/128/256, unsplit): wgmma on both
+// * flash_fwd_wgmma (bf16, (D, Dv) = (64, 64), (128, 128), (256, 256),
+//   (192, 128), unsplit): wgmma on both
 //   products, K/V through a cp.async ring of 64-row tiles, tiles classified
 //   once (skipped / mask-free / masked), softmax in base 2 with
 //   tanh.approx under a cap, heaviest causal blocks first (its own note
@@ -27,7 +28,7 @@
 //   it every bf16 call that flash_fwd_tc would split at most 4 ways:
 //   prefills, the Memory-LLM, prompts, decode over many slots.
 // * flash_fwd_tc (bf16 calls split more ways: decode over few slots, a
-//   short prompt against a long prefix; and every call with Dv != D):
+//   short prompt against a long prefix; and every call at (576, 512)):
 //   mma.sync m16n8k16 with f32 accumulate over 32-row tiles, synchronous
 //   loads, split KV.
 // * flash_fwd (float32, D and Dv <= 256): the CUDA cores, whose ceiling is
@@ -576,15 +577,16 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
 
 // ---- bfloat16 on wgmma --------------------------------------------------
 //
-// flash_fwd_wgmma<HD>: NWG consumer warpgroups (128 threads each)
-// own 64 (query, head-in-group) rows of one KV head apiece, so a block
-// holds 64 * NWG rows and every K/V tile it loads serves all of them; the
-// block walks 64-row KV tiles:
+// flash_fwd_wgmma<DK, DV> (key width DK, value width DV: (64, 64),
+// (128, 128), (256, 256) and MLA's (192, 128)): NWG consumer warpgroups
+// (128 threads each) own 64 (query, head-in-group) rows of one KV head
+// apiece, so a block holds 64 * NWG rows and every K/V tile it loads
+// serves all of them; the block walks 64-row KV tiles:
 // * S = Q K^T is wgmma m64n64k16 with Q and K in shared memory (both
-//   K-major: rows of D), HD/16 k-steps; O += P V takes P from the S
+//   K-major: rows of DK), DK/16 k-steps; O += P V takes P from the S
 //   accumulators in registers (bf16) and V rows as the MN-major B
-//   operand (transpose bit), HD/64 n64 products per k-step.  f32
-//   accumulators: O is HD/2 registers a thread.
+//   operand (transpose bit), DV/64 n64 products per k-step.  f32
+//   accumulators: O is DV/2 registers a thread.
 // * K, V and the tile's kv positions arrive through a ring of STAGES
 //   shared-memory stages filled by cp.async (128B-swizzled, zero-filled
 //   past Skv), one barrier a tile: the load of tile i + STAGES - 1 is in
@@ -600,32 +602,37 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
 //   block is reversed on blockIdx.y, so the causal blocks that see every
 //   KV tile start in the first wave.
 // Each warpgroup runs its tile serially (S, wait, softmax, P V, wait), so
-// an SM needs several in flight: at HD 256 shared memory holds one block
-// an SM, and NWG = 2 doubles the warps there; at HD 64 three one-group
+// an SM needs several in flight: at DK 256 shared memory holds one block
+// an SM, and NWG = 2 doubles the warps there; at DK 64 three one-group
 // blocks fit an SM and do better than one two-group block.  NWG is fixed
-// by HD (1 at HD 64, 2 at 128 and 256), from both counts timed on an
-// H100 (PERF.md section 6).
+// by DK (1 at 64, 2 at 128, 192 and 256), from both counts timed on an
+// H100 (PERF.md section 6).  At (192, 128) a stage (24 KB of K, 16 KB of
+// V) and two warpgroups' Q (48 KB) leave room for three stages in one
+// block an SM (173 KB).
 constexpr int WBK = 64;      // kv rows of a tile, rows of a warpgroup
 constexpr int WMAXT = 1024;  // kv tiles a call may have: Skv <= 65536
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int HD>
+template <int DK, int DV>
 struct WCfg {
-  static constexpr int NWG = HD == 64 ? 1 : 2;   // consumer warpgroups
-  static constexpr int STAGES = HD == 64 ? 3 : 2;
+  static_assert(DK % 64 == 0 && DV % 64 == 0, "64-column chunks");
+  static constexpr int NWG = DK == 64 ? 1 : 2;   // consumer warpgroups
+  // (192, 128): a stage is 41 KB, so a third fits beside 48 KB of Q
+  static constexpr int STAGES = DK == 64 || DK != DV ? 3 : 2;
   static constexpr int NT = 128 * NWG;           // threads
   static constexpr int BM = 64 * NWG;            // rows of a block
-  static constexpr int CH = HD / 64;             // 64-column chunks
-  static constexpr int QW_BYTES = 64 * HD * 2;   // Q of one warpgroup
-  static constexpr int KV_BYTES = WBK * HD * 2;  // K or V of one tile
-  static constexpr int STAGE = 2 * KV_BYTES + 1024;  // + kv positions
+  static constexpr int CV = DV / 64;             // 64-column chunks of O
+  static constexpr int QW_BYTES = 64 * DK * 2;   // Q of one warpgroup
+  static constexpr int K_BYTES = WBK * DK * 2;   // K of one tile
+  static constexpr int V_BYTES = WBK * DV * 2;   // V of one tile
+  static constexpr int STAGE = K_BYTES + V_BYTES + 1024;  // + kv positions
   static constexpr size_t SMEM =
       1024 + NWG * QW_BYTES + STAGES * STAGE + WMAXT;
 };
 
-template <int HD>
-__global__ void __launch_bounds__(WCfg<HD>::NT, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(WCfg<DK, DV>::NT, 1)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
@@ -634,9 +641,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 int Sq, int Skv, int Hq, int Hkv, float scale_log2,
                 float cap_log2, float inv_cap, int capped, int causal) {
   namespace wg = wgmma_sm90;
-  using C = WCfg<HD>;
+  using C = WCfg<DK, DV>;
   constexpr int NWG = C::NWG, STAGES = C::STAGES, NT = C::NT, BM = C::BM;
-  constexpr int P8 = HD / 8;  // 16-byte pieces of a row
+  constexpr int PK = DK / 8, PV = DV / 8;  // 16-byte pieces of a row
   extern __shared__ unsigned char smem_wg[];
   const uint32_t raw = wg::smem_addr(smem_wg);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
@@ -691,14 +698,14 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   // Q, once (it joins the first tile's cp.async group): warpgroup i's 64
   // rows in chunks of 64 rows x 64 columns
 #pragma unroll
-  for (int i = 0; i < BM * P8 / NT; ++i) {
+  for (int i = 0; i < BM * PK / NT; ++i) {
     const int e = tid + NT * i;
-    const int r = e / P8, pc = e % P8;
+    const int r = e / PK, pc = e % PK;
     const int rho = row0 + r;
     const bool ok = rho < rows;
     const __nv_bfloat16* src =
         ok ? q + ((static_cast<size_t>(b) * Sq + rho / G) * Hq + hk * G +
-                  rho % G) * HD + pc * 8
+                  rho % G) * DK + pc * 8
            : q;
     wg::cp_async16(base + (r / 64) * C::QW_BYTES + (pc / 8) * 8192 +
                        wg::sw128(r % 64, pc % 8),
@@ -712,22 +719,38 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   };
   auto issue = [&](int stage, int t) {
     const uint32_t sK = sRing + stage * C::STAGE;
-    const uint32_t sV = sK + C::KV_BYTES;
+    const uint32_t sV = sK + C::K_BYTES;
     const int kv0 = t * WBK;
+    // K (DK columns) and V (DV columns), one loop at equal widths
 #pragma unroll
-    for (int i = 0; i < WBK * P8 / NT; ++i) {
+    for (int i = 0; i < WBK * PK / NT; ++i) {
       const int e = tid + NT * i;
-      const int r = e / P8, pc = e % P8;
+      const int r = e / PK, pc = e % PK;
       const int j = kv0 + r;
       const bool ok = j < Skv;
-      const size_t off =
-          ok ? ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * HD + pc * 8 : 0;
+      const size_t row = ok ? (static_cast<size_t>(b) * Skv + j) * Hkv + hk
+                            : 0;
       const uint32_t o = (pc / 8) * (WBK * 128) + wg::sw128(r, pc % 8);
-      wg::cp_async16(sK + o, k + off, ok);
-      wg::cp_async16(sV + o, v + off, ok);
+      wg::cp_async16(sK + o, k + (ok ? row * DK + pc * 8 : 0), ok);
+      if constexpr (DK == DV)
+        wg::cp_async16(sV + o, v + (ok ? row * DV + pc * 8 : 0), ok);
+    }
+    if constexpr (DK != DV) {
+#pragma unroll
+      for (int i = 0; i < WBK * PV / NT; ++i) {
+        const int e = tid + NT * i;
+        const int r = e / PV, pc = e % PV;
+        const int j = kv0 + r;
+        const bool ok = j < Skv;
+        const size_t off =
+            ok ? ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * DV + pc * 8
+               : 0;
+        wg::cp_async16(sV + (pc / 8) * (WBK * 128) + wg::sw128(r, pc % 8),
+                       v + off, ok);
+      }
     }
     if (tid < WBK) {
-      const uint32_t dst = sV + C::KV_BYTES + 4 * tid;
+      const uint32_t dst = sV + C::V_BYTES + 4 * tid;
       if (kv0 + tid < Skv) wg::cp_async4(dst, kvb + kv0 + tid);
       else *reinterpret_cast<int*>(sm + (dst - base)) = -1;
     }
@@ -743,9 +766,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     wg::cp_async_commit();
   }
 
-  float o[C::CH][32];
+  float o[C::CV][32];
 #pragma unroll
-  for (int c = 0; c < C::CH; ++c)
+  for (int c = 0; c < C::CV; ++c)
 #pragma unroll
     for (int j = 0; j < 32; ++j) o[c][j] = 0.f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
@@ -763,15 +786,15 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     }
     wg::cp_async_commit();
     const uint32_t sK = sRing + (i % STAGES) * C::STAGE;
-    const uint32_t sV = sK + C::KV_BYTES;
-    const int* kvs = reinterpret_cast<const int*>(sm + (sV - base) + C::KV_BYTES);
+    const uint32_t sV = sK + C::K_BYTES;
+    const int* kvs = reinterpret_cast<const int*>(sm + (sV - base) + C::V_BYTES);
 
     float s[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) s[j] = 0.f;
     wg::fence();
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks)
+    for (int ks = 0; ks < DK / 16; ++ks)
       wg::mma_ss<0>(s,
                     wg::desc(sQ + (ks / 4) * 8192 + (ks % 4) * 32, 16, 1024),
                     wg::desc(sK + (ks / 4) * (WBK * 128) + (ks % 4) * 32, 16, 1024),
@@ -819,7 +842,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     }
     if (__any_sync(FULL, moved))  // no row max of the warp moved: corr = 1
 #pragma unroll
-      for (int c = 0; c < C::CH; ++c)
+      for (int c = 0; c < C::CV; ++c)
 #pragma unroll
         for (int j = 0; j < 32; ++j) o[c][j] *= corr[(j / 2) % 2];
 
@@ -833,14 +856,14 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < WBK / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < C::CH; ++c)
+      for (int c = 0; c < C::CV; ++c)
         wg::mma_rs<1>(o[c], a[kk],
                       wg::desc(sV + c * (WBK * 128) + kk * 2048, WBK * 128, 1024),
                       1);
     wg::commit();
     wg::wait<0>();
 #pragma unroll
-    for (int c = 0; c < C::CH; ++c) wg::reg_fence(o[c]);
+    for (int c = 0; c < C::CV; ++c) wg::reg_fence(o[c]);
 #pragma unroll
     for (int kk = 0; kk < WBK / 16; ++kk) wg::reg_fence(a[kk]);
   }
@@ -855,11 +878,11 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     const bool any = l_run[h] > 0.f;
     const float inv = any ? 1.f / l_run[h] : 0.f;
 #pragma unroll
-    for (int c = 0; c < C::CH; ++c)
+    for (int c = 0; c < C::CV; ++c)
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int d = c * 64 + n * 8 + (lane % 4) * 2;
-        *reinterpret_cast<uint32_t*>(out + row * HD + d) = wg::pack_bf16(
+        *reinterpret_cast<uint32_t*>(out + row * DV + d) = wg::pack_bf16(
             o[c][4 * n + 2 * h] * inv, o[c][4 * n + 2 * h + 1] * inv);
       }
     if (lane % 4 == 0)
@@ -867,21 +890,21 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* q_pos,
                  const int* kv_pos, void* out, float* lse, int B, int Sq,
                  int Skv, int Hq, int Hkv, float scale, float softcap,
                  int causal, cudaStream_t stream) {
-  using C = WCfg<HD>;
+  using C = WCfg<DK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return err;
   const int blocks = (Sq * (Hq / Hkv) + C::BM - 1) / C::BM;
   if (blocks > 65535) return cudaErrorInvalidValue;
   const bool capped = softcap != 0.f;
   dim3 grid(Hkv, blocks, B);
-  flash_fwd_wgmma<HD><<<grid, C::NT, C::SMEM, stream>>>(
+  flash_fwd_wgmma<DK, DV><<<grid, C::NT, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), q_pos, kv_pos,
       static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, Hq, Hkv,
@@ -1051,28 +1074,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// The wgmma variant (flash_fwd_wgmma): bfloat16, D = 64, 128 or 256,
-// Skv <= 65536, no KV split.  Returns a cudaError_t (0 = launched).
+// The wgmma variant (flash_fwd_wgmma): bfloat16, (D, Dv) = (64, 64),
+// (128, 128), (256, 256) or (192, 128), Skv <= 65536, no KV split.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const void* v, const int* q_pos,
                                          const int* kv_pos, void* out,
                                          float* lse, int B, int Sq, int Skv,
-                                         int Hq, int Hkv, int D, float scale,
-                                         float softcap, int causal,
-                                         void* stream) {
+                                         int Hq, int Hkv, int D, int Dv,
+                                         float scale, float softcap,
+                                         int causal, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv < 0 || Skv > WMAXT * WBK)
     return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_wgmma<64>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, Hq,
-                            Hkv, scale, softcap, causal, st);
-  if (D == 128)
-    return launch_wgmma<128>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, Hq,
-                             Hkv, scale, softcap, causal, st);
-  if (D == 256)
-    return launch_wgmma<256>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, Hq,
-                             Hkv, scale, softcap, causal, st);
+#define FLASH_WG(DK, DV)                                                    \
+  if (D == DK && Dv == DV)                                                  \
+    return launch_wgmma<DK, DV>(q, k, v, q_pos, kv_pos, out, lse, B, Sq,    \
+                                Skv, Hq, Hkv, scale, softcap, causal, st);
+  FLASH_WG(64, 64)
+  FLASH_WG(128, 128)
+  FLASH_WG(256, 256)
+  FLASH_WG(192, 128)
+#undef FLASH_WG
   return cudaErrorInvalidValue;
 }
 

@@ -29,8 +29,9 @@
 // each own a tile of query rows and walk the KV tiles; tiles with no
 // visible pair (the causal upper triangle, holes) are skipped whole.
 // Three variants:
-// * flash_bwd_wgmma (bf16 at D = 64, 128, 256; kernels/flash_attention.py
-//   ::bwd_variant_for sends it the bf16 calls): all five products on
+// * flash_bwd_wgmma (bf16 at (D, Dv) = (64, 64), (128, 128), (256, 256)
+//   and MLA's (192, 128); kernels/flash_attention.py::bwd_variant_for
+//   sends it the bf16 calls): all five products on
 //   wgmma, the streamed tiles through a cp.async ring, both kinds of block
 //   in one launch, heaviest first (its own note below).  Two launches.
 // * flash_bwd_dkdv_tc / flash_bwd_dq_tc (bf16 at D = 64, 128, 256):
@@ -38,7 +39,8 @@
 //   accumulate (their own note below), synchronous loads.  Three launches.
 // Both round P and dS to bf16 for the second product, as the forward
 // rounds P.
-// * float32: flash_bwd_dkdv / flash_bwd_dq on the CUDA cores, 32 x 32 tiles staged in float32 shared memory (at D =
+// * float32 (Dv == D, or (192, 128)): flash_bwd_dkdv / flash_bwd_dq on
+//   the CUDA cores, 32 x 32 tiles staged in float32 shared memory (at D =
 //   256 the K, V, Q and dO tiles are 4 x 32 x 260 floats, 133 KB: dynamic
 //   shared memory); a thread owns one row and every eighth group of four
 //   columns of the gradient.  Its ceiling is the 67 TFLOP/s float32 rate;
@@ -49,6 +51,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_sm80.cuh"
 #include "tile_class.cuh"
@@ -144,7 +147,7 @@ __device__ void stage_rows(int* qps, float* lses, float* dis,
 // P and dS of one BR x BC tile into shared memory (row stride PSTR).  Thread
 // t owns rows t / 16 and t / 16 + 16, columns t % 16 and t % 16 + 16.
 __device__ void tile_p_ds(const float* Qs, const float* dOs, const float* Ks,
-                          const float* Vs, int D, int DP, const int* qps,
+                          const float* Vs, int D, int Dv, int DP, const int* qps,
                           const float* lses, const float* dis,
                           const int* kvps, int causal, float scale,
                           float softcap, float* Ps, float* dSs) {
@@ -152,13 +155,16 @@ __device__ void tile_p_ds(const float* Qs, const float* dOs, const float* Ks,
   float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   float dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < D; d += 4) {  // S over the key width
     const float4 q0 = ld4(Qs + ii * DP + d), q1 = ld4(Qs + (ii + 16) * DP + d);
-    const float4 o0 = ld4(dOs + ii * DP + d), o1 = ld4(dOs + (ii + 16) * DP + d);
     const float4 k0 = ld4(Ks + jj * DP + d), k1 = ld4(Ks + (jj + 16) * DP + d);
-    const float4 v0 = ld4(Vs + jj * DP + d), v1 = ld4(Vs + (jj + 16) * DP + d);
     s[0][0] += dot4(q0, k0); s[0][1] += dot4(q0, k1);
     s[1][0] += dot4(q1, k0); s[1][1] += dot4(q1, k1);
+  }
+#pragma unroll 2
+  for (int d = 0; d < Dv; d += 4) {  // dP over the value width
+    const float4 o0 = ld4(dOs + ii * DP + d), o1 = ld4(dOs + (ii + 16) * DP + d);
+    const float4 v0 = ld4(Vs + jj * DP + d), v1 = ld4(Vs + (jj + 16) * DP + d);
     dp[0][0] += dot4(o0, v0); dp[0][1] += dot4(o0, v1);
     dp[1][0] += dot4(o1, v0); dp[1][1] += dot4(o1, v1);
   }
@@ -237,7 +243,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ lse, const float* __restrict__ di,
                const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
                float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
-               int Hq, int Hkv, int D, float scale, float softcap,
+               int Hq, int Hkv, int D, int Dv, float scale, float softcap,
                int causal) {
   extern __shared__ __align__(16) float sm_kv[];
   const int DP = D + 4;
@@ -248,7 +254,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int jr = threadIdx.x / 8, dl = threadIdx.x % 8;
 
   stage(Ks, k, b, kv0, Skv, 1, Skv, Hkv, hk, D, DP);
-  stage(Vs, v, b, kv0, Skv, 1, Skv, Hkv, hk, D, DP);
+  stage(Vs, v, b, kv0, Skv, 1, Skv, Hkv, hk, Dv, DP);
   stage_kvpos(m.kvps, kv_pos, b, kv0, Skv);
 
   float4 ak[NC], av[NC];
@@ -264,10 +270,10 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (!tile_live(m.qps, m.kvps, causal)) continue;
     stage(Qs, q, b, row0, rows, G, Sq, Hq, hk, D, DP);
-    stage(dOs, dout, b, row0, rows, G, Sq, Hq, hk, D, DP);
+    stage(dOs, dout, b, row0, rows, G, Sq, Hq, hk, Dv, DP);
     __syncthreads();
-    tile_p_ds(Qs, dOs, Ks, Vs, D, DP, m.qps, m.lses, m.dis, m.kvps, causal,
-              scale, softcap, m.Ps, m.dSs);
+    tile_p_ds(Qs, dOs, Ks, Vs, D, Dv, DP, m.qps, m.lses, m.dis, m.kvps,
+              causal, scale, softcap, m.Ps, m.dSs);
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < BR; ++i) {
@@ -275,26 +281,23 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int d = (c * 8 + dl) * 4;
-        if (d < D) {
-          fma4(av[c], p, ld4(dOs + i * DP + d));
-          fma4(ak[c], ds, ld4(Qs + i * DP + d));
-        }
+        if (d < Dv) fma4(av[c], p, ld4(dOs + i * DP + d));
+        if (d < D) fma4(ak[c], ds, ld4(Qs + i * DP + d));
       }
     }
   }
   const int j = kv0 + jr;
   if (j >= Skv) return;
-  const size_t base = ((static_cast<size_t>(b) * Skv + j) * Hkv + hk) * D;
+  const size_t row = (static_cast<size_t>(b) * Skv + j) * Hkv + hk;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int d = (c * 8 + dl) * 4;
-    if (d >= D) continue;
     const float kx[4] = {ak[c].x, ak[c].y, ak[c].z, ak[c].w};
     const float vx[4] = {av[c].x, av[c].y, av[c].z, av[c].w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      dk[base + d + e] = scale * kx[e];
-      dv[base + d + e] = vx[e];
+      if (d < D) dk[row * D + d + e] = scale * kx[e];
+      if (d < Dv) dv[row * Dv + d + e] = vx[e];
     }
   }
 }
@@ -306,7 +309,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ lse, const float* __restrict__ di,
              const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
              float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, int D,
-             float scale, float softcap, int causal) {
+             int Dv, float scale, float softcap, int causal) {
   extern __shared__ __align__(16) float sm_q[];
   const int DP = D + 4;
   const Smem m = carve(sm_q, DP);
@@ -316,7 +319,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int ir = threadIdx.x / 8, dl = threadIdx.x % 8;
 
   stage(Qs, q, b, row0, rows, G, Sq, Hq, hk, D, DP);
-  stage(dOs, dout, b, row0, rows, G, Sq, Hq, hk, D, DP);
+  stage(dOs, dout, b, row0, rows, G, Sq, Hq, hk, Dv, DP);
   stage_rows(m.qps, m.lses, m.dis, q_pos, lse, di, b, row0, rows, G, Sq, Hq,
              hk);
 
@@ -329,10 +332,10 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (!tile_live(m.qps, m.kvps, causal)) continue;
     stage(Ks, k, b, kv0, Skv, 1, Skv, Hkv, hk, D, DP);
-    stage(Vs, v, b, kv0, Skv, 1, Skv, Hkv, hk, D, DP);
+    stage(Vs, v, b, kv0, Skv, 1, Skv, Hkv, hk, Dv, DP);
     __syncthreads();
-    tile_p_ds(Qs, dOs, Ks, Vs, D, DP, m.qps, m.lses, m.dis, m.kvps, causal,
-              scale, softcap, m.Ps, m.dSs);
+    tile_p_ds(Qs, dOs, Ks, Vs, D, Dv, DP, m.qps, m.lses, m.dis, m.kvps,
+              causal, scale, softcap, m.Ps, m.dSs);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < BC; ++j) {
@@ -730,17 +733,27 @@ int run_tc(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
 //   K and V tiles with their kv positions: S = Q K^T, dP = dO V^T, dS in
 //   registers, dQ += dS K (K read MN-major).
 // Both kinds are the same code with the roles of rows and columns swapped
-// (bwd_walk<HD, KV>).  Every streamed tile is classified once before the
+// (bwd_walk<DK, DV, KV>).  K and Q tiles are DK wide, V and dO tiles DV
+// wide: S (and dQ, dK) run over DK columns, dP (and dV) over DV.  Every streamed tile is classified once before the
 // walk (tile_class.cuh: skipped tiles are neither loaded nor multiplied,
 // mask-free ones read no positions).  Accumulators stay in registers and
 // each block writes its own rows once: no atomics, deterministic.
-// At HD 64 and 128 one warpgroup owns the block: S and dP are m64n64k16,
-// and P and dS pass to the gradient products in registers.  At HD 256 a
+// At D 64 and 128 one warpgroup owns the block: S and dP are m64n64k16,
+// and P and dS pass to the gradient products in registers.  At D 256 a
 // warpgroup cannot hold dK and dV over 256 columns (256 floats a thread),
 // so two share a block's 64 pinned rows: each owns half the gradients'
 // columns and computes S and dP for half the tile's columns (m64n32k16),
 // the exp on its S while its dP runs, and the two hand their halves of P
-// and dS to each other in shared memory (a second barrier a tile).
+// and dS to each other in shared memory (a second barrier a tile).  At
+// (192, 128) one warpgroup would hold 160 gradient floats beside S and
+// dP, so it runs as D 256 does: the gradients' 64-column chunks are dealt
+// to the two groups in order, dK's (or dQ's) three as two and one, dV's
+// two as one each; group 1 repeats dK's last chunk into its unused slot
+// rather than branch around a product (so both run three gradient
+// products a tile in a KV block, two in a Q block; the repeat is 10-12%
+// of a tile's tensor work).  A tile pair's shared memory: pinned K (24 KB) and
+// V (16 KB), two ring stages of Q and dO (41 KB each), P and dS (16 KB):
+// 140 KB, one block an SM.
 // Where the heaviest KV block would outlast the card's mean load (the
 // Memory-LLM's first KV tile walks all 16 query tiles, twice the mean),
 // each KV tile's walk over the query tiles is split between two blocks:
@@ -767,27 +780,56 @@ constexpr int Q_COST = 3;       // ... and a Q block
 // SPLIT_DEN of a block slot's mean load
 constexpr int SPLIT_NUM = 3, SPLIT_DEN = 2;
 
-// blocks of flash_bwd_wgmma<D> resident on an SM (shared memory and
+// blocks of flash_bwd_wgmma<D, Dv> resident on an SM (shared memory and
 // registers allow no more)
 __host__ __device__ constexpr int blocks_per_sm(int D) {
   return D == 64 ? 3 : D == 128 ? 2 : 1;
 }
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+// Warpgroups a block: two where one cannot hold the gradients' columns in
+// registers (dK and dV over 256 columns; at (192, 128) dK's 192 and dV's
+// 128 beside S and dP)
+__host__ __device__ constexpr int bw_groups(int DK, int DV) {
+  return DK == 256 || DK != DV ? 2 : 1;
+}
+// 64-column chunks of dK / dQ (DK wide) a group owns: the chunks are dealt
+// in order, so at (192, 128) group 0 owns two and group 1 one
+__host__ __device__ constexpr int bw_kown(int DK, int DV) {
+  return (DK / 64 + bw_groups(DK, DV) - 1) / bw_groups(DK, DV);
+}
+// ... and of dV (DV wide)
+__host__ __device__ constexpr int bw_vown(int DK, int DV) {
+  return DV / 64 / bw_groups(DK, DV);
+}
+// the float32 accumulators of one half of a split KV walk (its threads'
+// dK and dV registers), as the workspace holds them
+__host__ __device__ constexpr long long bw_half_floats(int DK, int DV) {
+  return (bw_kown(DK, DV) + bw_vown(DK, DV)) * 32LL * 128 * bw_groups(DK, DV);
+}
+
+template <int DK, int DV>
 struct BwCfg {
-  static constexpr int NWG = HD == 256 ? 2 : 1;     // warpgroups a block
+  static_assert(DK % 64 == 0 && DV % 64 == 0 && DV <= DK, "64-column chunks");
+  static constexpr int NWG = bw_groups(DK, DV);     // warpgroups a block
+  static_assert(NWG > 1 || DK == DV, "one group: S and dP in one loop");
+  static_assert((DV / 64) % NWG == 0, "dV's chunks split evenly");
   static constexpr int NT = 128 * NWG;
-  static constexpr int MINB = blocks_per_sm(HD);
-  static constexpr int STAGES = HD == 64 ? 3 : 2;
-  static constexpr int OWN = HD / 64 / NWG;   // 64-column gradient chunks
+  static constexpr int MINB = blocks_per_sm(DK);
+  static constexpr int STAGES = DK == 64 ? 3 : 2;
+  static constexpr int KC = DK / 64;              // dK / dQ chunks
+  static constexpr int KOWN = bw_kown(DK, DV);    // ... a group's
+  static constexpr int VOWN = bw_vown(DK, DV);    // dV chunks a group's
+  static constexpr bool KEVEN = KC % NWG == 0;    // every group owns KOWN
+  static_assert(KOWN >= VOWN, "the gradient loop runs over KOWN chunks");
   static constexpr int NS = WB / NWG;         // S / dP columns, a group's
-  static constexpr int TILE = WB * HD * 2;          // bytes of a 64-row tile
+  static constexpr int TK = WB * DK * 2;      // bytes of a 64-row tile: K, Q
+  static constexpr int TV = WB * DV * 2;      // ... V, dO
   static constexpr int FACTS = 1024;                // a stage's row facts
-  static constexpr int STAGE = 2 * TILE + FACTS;
+  static constexpr int STAGE = TK + TV + FACTS;
   static constexpr int HAND = NWG > 1 ? 2 * WB * WB * 2 : 0;  // P and dS, bf16
   static constexpr size_t SMEM =
-      1024 + 2 * TILE + STAGES * STAGE + HAND + BW_MAXT;
+      1024 + TK + TV + STAGES * STAGE + HAND + BW_MAXT;
 };
 
 // S (S^T) or dP (dP^T) of a group's NS columns: m64n64k16 or m64n32k16
@@ -886,7 +928,40 @@ BwPlan bw_plan(int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal,
   return p;
 }
 
-template <int HD, bool KV>
+// 64 rows of a pair of tensors of PK and PV 16-byte pieces a row (DK and
+// DV columns), rows x0.. (element row row_of(x); rows past n zero-filled),
+// into the 128B-swizzled 64-column chunks at d0 and d1, asynchronously.
+// At equal widths one loop serves both: each element's row offset (a
+// division by the GQA group on the query side) is reckoned once.
+template <int PK, int PV, int NT, typename RowOf>
+__device__ __forceinline__ void load_pair(uint32_t d0,
+                                          const bf16* __restrict__ s0,
+                                          uint32_t d1,
+                                          const bf16* __restrict__ s1,
+                                          int x0, int n, RowOf row_of) {
+  const auto rows = [&](auto P_, uint32_t dst, const bf16* src, bool both) {
+    constexpr int P = decltype(P_)::value;
+#pragma unroll
+    for (int i = 0; i < WB * P / NT; ++i) {
+      const int e = threadIdx.x + NT * i;
+      const int r = e / P, pc = e % P;
+      const bool ok = x0 + r < n;
+      const size_t off = ok ? row_of(x0 + r) * (P * 8) + pc * 8 : 0;
+      const uint32_t o =
+          (pc / 8) * (WB * 128) + wgmma_sm90::sw128(r, pc % 8);
+      wgmma_sm90::cp_async16(dst + o, src + off, ok);
+      if (both) wgmma_sm90::cp_async16(d1 + o, s1 + off, ok);
+    }
+  };
+  if constexpr (PK == PV) {
+    rows(std::integral_constant<int, PK>{}, d0, s0, true);
+  } else {
+    rows(std::integral_constant<int, PK>{}, d0, s0, false);
+    rows(std::integral_constant<int, PV>{}, d1, s1, false);
+  }
+}
+
+template <int DK, int DV, bool KV>
 __device__ __forceinline__ void bwd_walk(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -898,17 +973,19 @@ __device__ __forceinline__ void bwd_walk(
     int* __restrict__ cnt, int merge_id, int part, unsigned char* smem_raw) {
   namespace wg = wgmma_sm90;
   using namespace flash_tiles;
-  using C = BwCfg<HD>;
-  constexpr int NT = C::NT, STAGES = C::STAGES, OWN = C::OWN;
-  constexpr int P8 = HD / 8;  // 16-byte pieces of a row
+  using C = BwCfg<DK, DV>;
+  constexpr int NT = C::NT, STAGES = C::STAGES;
+  constexpr int KOWN = C::KOWN, VOWN = C::VOWN;
+  constexpr int PK = DK / 8, PV = DV / 8;  // 16-byte pieces of a row
   const uint32_t raw = wg::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
   unsigned char* sm = smem_raw + (base - raw);
-  const uint32_t sP0 = base, sP1 = base + C::TILE;  // the pinned pair
-  const uint32_t sRing = base + 2 * C::TILE;
+  // the pinned pair: (K, V) or (Q, dO), DK and DV wide
+  const uint32_t sP0 = base, sP1 = base + C::TK;
+  const uint32_t sRing = base + C::TK + C::TV;
   // two groups: P (P^T) and dS (dS^T) handed over in the A layout
   const uint32_t sPX = sRing + STAGES * C::STAGE, sDX = sPX + WB * WB * 2;
-  unsigned char* cls = sm + 2 * C::TILE + STAGES * C::STAGE + C::HAND;
+  unsigned char* cls = sm + C::TK + C::TV + STAGES * C::STAGE + C::HAND;
 
   const int G = Hq / Hkv, rows = Sq * G;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -930,21 +1007,11 @@ __device__ __forceinline__ void bwd_walk(
     return kv_side ? kvrow(x) : qrow(x);
   };
 
+  const auto pin_row = [&](int x) { return row_of(KV, x); };
+  const auto str_row = [&](int x) { return row_of(!KV, x); };
   // the pinned pair (K, V) or (Q, dO); joins the first tile's group
-  {
-    const bf16* s0 = KV ? k : q;
-    const bf16* s1 = KV ? v : dout;
-#pragma unroll
-    for (int i = 0; i < WB * P8 / NT; ++i) {
-      const int e = tid + NT * i;
-      const int r = e / P8, pc = e % P8;
-      const bool ok = row0 + r < n_pin;
-      const size_t off = ok ? row_of(KV, row0 + r) * HD + pc * 8 : 0;
-      const uint32_t o = (pc / 8) * (WB * 128) + wg::sw128(r, pc % 8);
-      wg::cp_async16(sP0 + o, s0 + off, ok);
-      wg::cp_async16(sP1 + o, s1 + off, ok);
-    }
-  }
+  load_pair<PK, PV, NT>(sP0, KV ? k : q, sP1, KV ? v : dout, row0, n_pin,
+                        pin_row);
 
   // classify every streamed tile against the pinned rows: warp w takes
   // tiles w, w + NT/32, ..., four at a time
@@ -1014,21 +1081,11 @@ __device__ __forceinline__ void bwd_walk(
   // streamed tile t into `stage`: (Q, dO) and per row q position, lse and
   // D_i (KV blocks), or (K, V) and kv positions (Q blocks)
   const auto issue = [&](int stage, int t) {
-    const uint32_t s0 = sRing + stage * C::STAGE, s1 = s0 + C::TILE;
-    const uint32_t sf = s1 + C::TILE;
-    const bf16* g0 = KV ? q : k;
-    const bf16* g1 = KV ? dout : v;
+    const uint32_t s0 = sRing + stage * C::STAGE, s1 = s0 + C::TK;
+    const uint32_t sf = s1 + C::TV;
     const int x0 = t * WB;
-#pragma unroll
-    for (int i = 0; i < WB * P8 / NT; ++i) {
-      const int e = tid + NT * i;
-      const int r = e / P8, pc = e % P8;
-      const bool ok = x0 + r < n_str;
-      const size_t off = ok ? row_of(!KV, x0 + r) * HD + pc * 8 : 0;
-      const uint32_t o = (pc / 8) * (WB * 128) + wg::sw128(r, pc % 8);
-      wg::cp_async16(s0 + o, g0 + off, ok);
-      wg::cp_async16(s1 + o, g1 + off, ok);
-    }
+    load_pair<PK, PV, NT>(s0, KV ? q : k, s1, KV ? dout : v, x0, n_str,
+                          str_row);
     if (tid < WB) {
       const int x = x0 + tid;
       int* fp = reinterpret_cast<int*>(sm + (sf - base));
@@ -1062,12 +1119,20 @@ __device__ __forceinline__ void bwd_walk(
     wg::cp_async_commit();
   }
 
-  // dK (KV) or dQ; dV (KV only): this group's OWN 64-column chunks
-  float ga[OWN][32], gv[OWN][32];
+  // dK (KV) or dQ: this group's KOWN 64-column chunks, grp * KOWN + c
+  // (one past DK, at (192, 128) group 1's second, repeats the last and is
+  // never stored); dV (KV only): its VOWN chunks
+  float ga[KOWN][32], gv[VOWN][32];
 #pragma unroll
-  for (int c = 0; c < OWN; ++c)
+  for (int c = 0; c < KOWN; ++c)
 #pragma unroll
-    for (int j = 0; j < 32; ++j) ga[c][j] = gv[c][j] = 0.f;
+    for (int j = 0; j < 32; ++j) ga[c][j] = 0.f;
+#pragma unroll
+  for (int c = 0; c < VOWN; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) gv[c][j] = 0.f;
+  // whether this group's chunk c of dK / dQ exists (uniform in a group)
+  const auto owns = [&](int c) { return C::KEVEN || grp * KOWN + c < C::KC; };
   const bool capped = softcap != 0.f;
   const float inv_cap = capped ? scale / softcap : 0.f;
 
@@ -1083,17 +1148,17 @@ __device__ __forceinline__ void bwd_walk(
       nxt = next_tile(nxt + 1);
     }
     wg::cp_async_commit();
-    const uint32_t s0 = sRing + (i % STAGES) * C::STAGE, s1 = s0 + C::TILE;
-    const int* fp = reinterpret_cast<const int*>(sm + (s1 + C::TILE - base));
+    const uint32_t s0 = sRing + (i % STAGES) * C::STAGE, s1 = s0 + C::TK;
+    const int* fp = reinterpret_cast<const int*>(sm + (s1 + C::TV - base));
     const float* fl = reinterpret_cast<const float*>(fp + WB);
     const float* fd = fl + WB;
 
     // S (S^T) and dP (dP^T): the pinned rows against this group's NS
-    // rows of the streamed tile.  Two groups a block: S and dP as two
-    // groups of products, the exp on S while dP runs, P and dS handed over
-    // in shared memory.  One group: one group of products, P and dS into
-    // the A fragments in registers (the overlap measured no faster there,
-    // PERF.md section 6).
+    // rows of the streamed tile, over DK and DV columns.  Two groups a
+    // block: S and dP as two groups of products, the exp on S while dP
+    // runs, P and dS handed over in shared memory.  One group (DK == DV):
+    // one group of products, P and dS into the A fragments in registers
+    // (the overlap measured no faster there, PERF.md section 6).
     constexpr int NS = C::NS, NE = NS / 2;  // elements a thread holds
     constexpr bool TWO = C::NWG > 1;
     float x[NE], y[NE];
@@ -1102,7 +1167,7 @@ __device__ __forceinline__ void bwd_walk(
     const uint32_t so = grp * NS * 128;
     wg::fence();
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
+    for (int ks = 0; ks < DK / 16; ++ks) {
       const uint32_t ko = (ks / 4) * (WB * 128) + (ks % 4) * 32;
       mma_first<NS>(x, wg::desc(sP0 + ko, 16, 1024),
                     wg::desc(s0 + ko + so, 16, 1024), ks > 0);
@@ -1113,7 +1178,7 @@ __device__ __forceinline__ void bwd_walk(
     if constexpr (TWO) {
       wg::commit();
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
+      for (int ks = 0; ks < DV / 16; ++ks) {
         const uint32_t ko = (ks / 4) * (WB * 128) + (ks % 4) * 32;
         mma_first<NS>(y, wg::desc(sP1 + ko, 16, 1024),
                       wg::desc(s1 + ko + so, 16, 1024), ks > 0);
@@ -1204,25 +1269,30 @@ __device__ __forceinline__ void bwd_walk(
 #pragma unroll
     for (int kk = 0; kk < WB / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < OWN; ++c) {
-        const uint32_t bo = (grp * OWN + c) * (WB * 128) + kk * 2048;
-        const uint64_t b0 = wg::desc(s0 + bo, WB * 128, 1024);
-        const uint64_t b1 = wg::desc(s1 + bo, WB * 128, 1024);
+      for (int c = 0; c < KOWN; ++c) {  // KOWN >= VOWN
+        // a chunk past DK repeats the last one into a slot that is never
+        // stored: no branch around a wgmma (ptxas serializes every wgmma
+        // of a kernel that has one, C7520)
+        const int ck = owns(c) ? grp * KOWN + c : C::KC - 1;
+        const uint64_t b0 = wg::desc(s0 + ck * (WB * 128) + kk * 2048,
+                                     WB * 128, 1024);
+        const uint64_t b1 = wg::desc(
+            s1 + (grp * VOWN + c) * (WB * 128) + kk * 2048, WB * 128, 1024);
         if constexpr (C::NWG == 1) {
           wg::mma_rs<1>(ga[c], as[kk], b0, 1);
-          if (KV) wg::mma_rs<1>(gv[c], ap[kk], b1, 1);
+          if (KV && c < VOWN) wg::mma_rs<1>(gv[c], ap[kk], b1, 1);
         } else {
           wg::mma_ss<1>(ga[c], wg::desc(sDX + kk * 32, 16, 1024), b0, 1);
-          if (KV)
+          if (KV && c < VOWN)
             wg::mma_ss<1>(gv[c], wg::desc(sPX + kk * 32, 16, 1024), b1, 1);
         }
       }
     wg::commit();
     wg::wait<0>();
 #pragma unroll
-    for (int c = 0; c < OWN; ++c) {
+    for (int c = 0; c < KOWN; ++c) {
       wg::reg_fence(ga[c]);
-      if (KV) wg::reg_fence(gv[c]);
+      if (KV && c < VOWN) wg::reg_fence(gv[c]);
     }
     if constexpr (C::NWG == 1)
 #pragma unroll
@@ -1234,17 +1304,21 @@ __device__ __forceinline__ void bwd_walk(
   wg::cp_async_wait<0>();  // no copy outlives the block
 
   if (KV && ws != nullptr) {  // one half of the tile's walk: merge
-    constexpr int NA = 2 * OWN * 32;  // accumulators a thread holds
+    constexpr int NA = (KOWN + VOWN) * 32;  // accumulators a thread holds
+    static_assert(static_cast<long long>(NA) * NT == bw_half_floats(DK, DV),
+                  "the workspace's half");
     float* mine = ws + static_cast<size_t>(2 * merge_id + part) * NA * NT;
     const float* other =
         ws + static_cast<size_t>(2 * merge_id + 1 - part) * NA * NT;
 #pragma unroll
-    for (int c = 0; c < OWN; ++c)
+    for (int c = 0; c < KOWN; ++c)
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        mine[(c * 32 + j) * NT + tid] = ga[c][j];
-        mine[((OWN + c) * 32 + j) * NT + tid] = gv[c][j];
-      }
+      for (int j = 0; j < 32; ++j) mine[(c * 32 + j) * NT + tid] = ga[c][j];
+#pragma unroll
+    for (int c = 0; c < VOWN; ++c)
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        mine[((KOWN + c) * 32 + j) * NT + tid] = gv[c][j];
     __threadfence();
     __syncthreads();
     __shared__ int first;
@@ -1253,17 +1327,20 @@ __device__ __forceinline__ void bwd_walk(
     if (first) return;  // the other half stores the tile
     __threadfence();
 #pragma unroll
-    for (int c = 0; c < OWN; ++c)
+    for (int c = 0; c < KOWN; ++c)
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < 32; ++j)
         ga[c][j] += __ldcg(other + (c * 32 + j) * NT + tid);
-        gv[c][j] += __ldcg(other + ((OWN + c) * 32 + j) * NT + tid);
-      }
+#pragma unroll
+    for (int c = 0; c < VOWN; ++c)
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        gv[c][j] += __ldcg(other + ((KOWN + c) * 32 + j) * NT + tid);
   }
 
   // every pinned row is written, also one whose tiles were all skipped
 #pragma unroll
-  for (int c = 0; c < OWN; ++c)
+  for (int c = 0; c < KOWN; ++c)
 #pragma unroll
     for (int j = 0; j < 32; ++j) ga[c][j] *= scale;
   bf16* out_a = KV ? dk : dq;
@@ -1271,24 +1348,30 @@ __device__ __forceinline__ void bwd_walk(
   for (int h = 0; h < 2; ++h) {
     const int x = row0 + r_lo + 8 * h;
     const bool ok = x < n_pin;
-    const size_t ro = ok ? row_of(KV, x) * HD : 0;
+    const size_t ro = ok ? row_of(KV, x) : 0;
 #pragma unroll
-    for (int c = 0; c < OWN; ++c)
+    for (int c = 0; c < KOWN; ++c)
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
-        const size_t at = ro + (grp * OWN + c) * 64 + 8 * (4 * jj + lane % 4);
+        const size_t at =
+            ro * DK + (grp * KOWN + c) * 64 + 8 * (4 * jj + lane % 4);
         const uint4 pa = wg::row8_bf16(ga[c], h, jj, lane);  // every lane
-        if (ok) *reinterpret_cast<uint4*>(out_a + at) = pa;
-        if (KV) {
-          const uint4 pv = wg::row8_bf16(gv[c], h, jj, lane);
-          if (ok) *reinterpret_cast<uint4*>(dv + at) = pv;
-        }
+        if (ok && owns(c)) *reinterpret_cast<uint4*>(out_a + at) = pa;
+      }
+#pragma unroll
+    for (int c = 0; c < VOWN && KV; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const size_t at =
+            ro * DV + (grp * VOWN + c) * 64 + 8 * (4 * jj + lane % 4);
+        const uint4 pv = wg::row8_bf16(gv[c], h, jj, lane);  // every lane
+        if (ok) *reinterpret_cast<uint4*>(dv + at) = pv;
       }
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(BwCfg<HD>::NT, BwCfg<HD>::MINB)
+template <int DK, int DV>
+__global__ void __launch_bounds__(BwCfg<DK, DV>::NT, BwCfg<DK, DV>::MINB)
 flash_bwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ di,
@@ -1307,13 +1390,13 @@ flash_bwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (kv) {
     const int t = tile / plan.split, part = tile % plan.split;
     const int m = plan.split > 1 ? plan.mid(t) : plan.nq;
-    bwd_walk<HD, true>(q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, Sq,
+    bwd_walk<DK, DV, true>(q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, Sq,
                        Skv, Hq, Hkv, scale, softcap, causal, t,
                        part ? m : 0, part ? plan.nq : m, hk, b,
                        plan.split > 1 ? ws : nullptr, cnt,
                        (b * Hkv + hk) * plan.nkv + t, part, smem_bw);
   } else {
-    bwd_walk<HD, false>(q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, Sq,
+    bwd_walk<DK, DV, false>(q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, Sq,
                         Skv, Hq, Hkv, scale, softcap, causal, tile, 0,
                         plan.nkv, hk, b, nullptr, nullptr, 0, 0, smem_bw);
   }
@@ -1321,21 +1404,21 @@ flash_bwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // flash_bwd_wgmma's workspace in bytes: each split KV tile's two float32
 // halves of dK and dV, then one int counter a KV tile.
-long long wgmma_workspace(const BwPlan& plan, int B, int Hkv, int D) {
+long long wgmma_workspace(const BwPlan& plan, int B, int Hkv, int D, int Dv) {
   const long long tiles = static_cast<long long>(plan.nkv) * Hkv * B;
-  return tiles * ((plan.split > 1 ? 2LL * 2 * WB * D * 4 : 0) + 4);
+  return tiles * ((plan.split > 1 ? 2 * bw_half_floats(D, Dv) * 4 : 0) + 4);
 }
 
-template <int HD>
+template <int DK, int DV>
 int run_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
               const bf16* dout, const float* lse, const float* dlse,
               const int* q_pos, const int* kv_pos, bf16* dq, bf16* dk,
               bf16* dv, float* di, float* ws, int B, int Sq, int Skv, int Hq,
               int Hkv, float scale, float softcap, int causal, int sms,
               cudaStream_t st) {
-  using C = BwCfg<HD>;
+  using C = BwCfg<DK, DV>;
   const BwPlan plan =
-      bw_plan(B, Sq, Skv, Hq, Hkv, HD, causal, dq != nullptr, sms);
+      bw_plan(B, Sq, Skv, Hq, Hkv, DK, causal, dq != nullptr, sms);
   if (plan.nq > BW_MAXT || plan.nkv > BW_MAXT) return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(plan.slots()) * Hkv * B;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -1343,16 +1426,16 @@ int run_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
   const int ncnt = plan.nkv * Hkv * B;
   int* cnt = reinterpret_cast<int*>(
       reinterpret_cast<char*>(ws)
-      + wgmma_workspace(plan, B, Hkv, HD) - 4LL * ncnt);
+      + wgmma_workspace(plan, B, Hkv, DK, DV) - 4LL * ncnt);
   flash_bwd_dot<bf16><<<static_cast<unsigned>((rows + NT / 32 - 1) / (NT / 32)),
-                        NT, 0, st>>>(out, dout, dlse, di, rows, HD, cnt, ncnt);
+                        NT, 0, st>>>(out, dout, dlse, di, rows, DV, cnt, ncnt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   static unsigned ready = 0;
   int dev;
-  err = wgmma_sm90::with_smem(flash_bwd_wgmma<HD>, C::SMEM, ready, &dev);
+  err = wgmma_sm90::with_smem(flash_bwd_wgmma<DK, DV>, C::SMEM, ready, &dev);
   if (err != cudaSuccess) return err;
-  flash_bwd_wgmma<HD><<<static_cast<unsigned>(blocks), C::NT, C::SMEM, st>>>(
+  flash_bwd_wgmma<DK, DV><<<static_cast<unsigned>(blocks), C::NT, C::SMEM, st>>>(
       q, k, v, dout, lse, di, q_pos, kv_pos, dq, dk, dv, ws, cnt, B, Sq, Skv,
       Hq, Hkv, scale, softcap, causal, plan);
   return cudaGetLastError();
@@ -1363,12 +1446,12 @@ int run(const float* q, const float* k, const float* v, const float* out,
         const float* dout, const float* lse, const float* dlse,
         const int* q_pos, const int* kv_pos, float* dq, float* dk, float* dv,
         float* di, int B, int Sq,
-        int Skv, int Hq, int Hkv, int D, float scale, float softcap,
+        int Skv, int Hq, int Hkv, int D, int Dv, float scale, float softcap,
         int causal, cudaStream_t st) {
   const long long rows = static_cast<long long>(B) * Sq * Hq;
   flash_bwd_dot<float><<<static_cast<unsigned>((rows + NT / 32 - 1)
                                                 / (NT / 32)),
-                         NT, 0, st>>>(out, dout, dlse, di, rows, D);
+                         NT, 0, st>>>(out, dout, dlse, di, rows, Dv);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(D);
@@ -1378,7 +1461,7 @@ int run(const float* q, const float* k, const float* v, const float* out,
   if (err != cudaSuccess) return err;
   const int G = Hq / Hkv;
   flash_bwd_dkdv<NC><<<dim3((Skv + BC - 1) / BC, Hkv, B), NT, smem, st>>>(
-      q, k, v, dout, lse, di, q_pos, kv_pos, dk, dv, Sq, Skv, Hq, Hkv, D,
+      q, k, v, dout, lse, di, q_pos, kv_pos, dk, dv, Sq, Skv, Hq, Hkv, D, Dv,
       scale, softcap, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess || dq == nullptr) return err;
@@ -1387,24 +1470,25 @@ int run(const float* q, const float* k, const float* v, const float* out,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   flash_bwd_dq<NC><<<dim3((Sq * G + BR - 1) / BR, Hkv, B), NT, smem, st>>>(
-      q, k, v, dout, lse, di, q_pos, kv_pos, dq, Sq, Skv, Hq, Hkv, D, scale,
-      softcap, causal);
+      q, k, v, dout, lse, di, q_pos, kv_pos, dq, Sq, Skv, Hq, Hkv, D, Dv,
+      scale, softcap, causal);
   return cudaGetLastError();
 }
 
-// The float32 kernels for a head dim D % 4 == 0 up to 256: NC float4
-// groups of columns a thread.
+// The float32 kernels for a head dim D % 4 == 0 up to 256 (a value width
+// Dv <= D): NC float4 groups of columns a thread.
 int dispatch(const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, const float* dlse,
              const int* q_pos, const int* kv_pos, void* dq, void* dk,
              void* dv, float* di, int B, int Sq, int Skv, int Hq, int Hkv,
-             int D, float scale, float softcap, int causal, cudaStream_t st) {
+             int D, int Dv, float scale, float softcap, int causal,
+             cudaStream_t st) {
   const auto c = [](const void* p) { return static_cast<const float*>(p); };
   const auto m = [](void* p) { return static_cast<float*>(p); };
 #define FLASH_BWD_RUN(NC)                                                   \
   return run<NC>(c(q), c(k), c(v), c(out), c(dout), lse, dlse, q_pos,       \
                  kv_pos, m(dq), m(dk), m(dv), di, B, Sq, Skv, Hq, Hkv, D,   \
-                 scale, softcap, causal, st)
+                 Dv, scale, softcap, causal, st)
   if (D <= 32) FLASH_BWD_RUN(1);
   if (D <= 64) FLASH_BWD_RUN(2);
   if (D <= 128) FLASH_BWD_RUN(4);
@@ -1414,28 +1498,30 @@ int dispatch(const void* q, const void* k, const void* v, const void* out,
 
 }  // namespace
 
-// q/out/dout/dq (B,Sq,Hq,D), k/v/dk/dv (B,Skv,Hkv,D) in one type (dtype 0 =
-// float32, 1 = bfloat16), contiguous; lse (B,Sq,Hq) float32 from the
-// forward; dlse the same shape or null; q_pos (B,Sq) / kv_pos (B,Skv)
-// int32; di a (B,Sq,Hq) float32 scratch.  dq null: dk and dv only.  D % 4
-// == 0 and D <= 256 (float32) or D = 64, 128, 256 (bf16; 16-byte aligned
-// q, k, v, dout), Hq % Hkv == 0.  Returns a cudaError_t (0 = launched).
+// q/dq (B,Sq,Hq,D), out/dout (B,Sq,Hq,Dv), k/dk (B,Skv,Hkv,D), v/dv
+// (B,Skv,Hkv,Dv) in one type (dtype 0 = float32, 1 = bfloat16),
+// contiguous; lse (B,Sq,Hq) float32 from the forward; dlse the same shape
+// or null; q_pos (B,Sq) / kv_pos (B,Skv) int32; di a (B,Sq,Hq) float32
+// scratch.  dq null: dk and dv only.  D % 4 == 0 and D <= 256 with Dv == D
+// or (D, Dv) = (192, 128) (float32), or D = Dv = 64, 128, 256 (bf16, the
+// mma.sync kernels; 16-byte aligned q, k, v, dout), Hq % Hkv == 0.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout,
                                    const float* lse, const float* dlse,
                                    const int* q_pos, const int* kv_pos,
                                    void* dq, void* dk, void* dv, float* di,
                                    int B, int Sq, int Skv, int Hq, int Hkv,
-                                   int D, float scale, float softcap,
+                                   int D, int Dv, float scale, float softcap,
                                    int causal, int dtype, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || D % 4
-      || D > 256)
+      || D > 256 || !(Dv == D || (dtype == 0 && D == 192 && Dv == 128)))
     return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || Skv == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch(q, k, v, out, dout, lse, dlse, q_pos, kv_pos, dq, dk, dv,
-                    di, B, Sq, Skv, Hq, Hkv, D, scale, softcap, causal, st);
+                    di, B, Sq, Skv, Hq, Hkv, D, Dv, scale, softcap, causal, st);
   if (dtype == 1 && (D == 64 || D == 128 || D == 256)) {
     const auto c = [](const void* p) { return static_cast<const bf16*>(p); };
     const auto m = [](void* p) { return static_cast<bf16*>(p); };
@@ -1452,27 +1538,27 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // The bytes of the workspace flash_attention_bwd_wgmma takes for a call
-// (with_q: dq wanted) on a card of `sms` SMs.
+// at head widths (D, Dv) (with_q: dq wanted) on a card of `sms` SMs.
 extern "C" long long flash_attention_bwd_wgmma_workspace(
-    int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int with_q,
-    int sms) {
+    int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv, int causal,
+    int with_q, int sms) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv || sms <= 0)
     return 0;
   return wgmma_workspace(
-      bw_plan(B, Sq, Skv, Hq, Hkv, D, causal, with_q, sms), B, Hkv, D);
+      bw_plan(B, Sq, Skv, Hq, Hkv, D, causal, with_q, sms), B, Hkv, D, Dv);
 }
 
-// The wgmma variant (flash_bwd_wgmma): bfloat16 at D = 64, 128 or 256, at
-// most 1024 64-row tiles of folded query rows (Sq * Hq / Hkv) and of kv
-// rows; arguments as flash_attention_bwd's, sms the card's SM count and
-// ws a 16-byte aligned workspace of flash_attention_bwd_wgmma_workspace
-// bytes.  dq null: the KV blocks alone.  Returns a cudaError_t (0 =
-// launched).
+// The wgmma variant (flash_bwd_wgmma): bfloat16 at (D, Dv) = (64, 64),
+// (128, 128), (256, 256) or (192, 128), at most 1024 64-row tiles of
+// folded query rows (Sq * Hq / Hkv) and of kv rows; arguments as
+// flash_attention_bwd's, sms the card's SM count and ws a 16-byte aligned
+// workspace of flash_attention_bwd_wgmma_workspace bytes.  dq null: the
+// KV blocks alone.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, const float* dlse, const int* q_pos,
     const int* kv_pos, void* dq, void* dk, void* dv, float* di, void* ws,
-    int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+    int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv, float scale,
     float softcap, int causal, int sms, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || Hkv <= 0 || Hq % Hkv || ws == nullptr
       || sms <= 0)
@@ -1481,27 +1567,29 @@ extern "C" int flash_attention_bwd_wgmma(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto c = [](const void* p) { return static_cast<const bf16*>(p); };
   const auto m = [](void* p) { return static_cast<bf16*>(p); };
-#define FLASH_BWD_WG(HD)                                                      \
-  return run_wgmma<HD>(c(q), c(k), c(v), c(out), c(dout), lse, dlse, q_pos,  \
-                       kv_pos, m(dq), m(dk), m(dv), di,                      \
-                       static_cast<float*>(ws), B, Sq, Skv, Hq, Hkv, scale,  \
-                       softcap, causal, sms, st)
-  if (D == 64) FLASH_BWD_WG(64);
-  if (D == 128) FLASH_BWD_WG(128);
-  if (D == 256) FLASH_BWD_WG(256);
+#define FLASH_BWD_WG(DK, DV)                                                  \
+  if (D == DK && Dv == DV)                                                    \
+    return run_wgmma<DK, DV>(c(q), c(k), c(v), c(out), c(dout), lse, dlse,   \
+                             q_pos, kv_pos, m(dq), m(dk), m(dv), di,         \
+                             static_cast<float*>(ws), B, Sq, Skv, Hq, Hkv,   \
+                             scale, softcap, causal, sms, st);
+  FLASH_BWD_WG(64, 64)
+  FLASH_BWD_WG(128, 128)
+  FLASH_BWD_WG(256, 256)
+  FLASH_BWD_WG(192, 128)
 #undef FLASH_BWD_WG
   return cudaErrorInvalidValue;
 }
 
 // flash_bwd_wgmma's block order, from the host's copy of its plan for a
-// call on a card of `sms` SMs: for each slot (a block of either kind over
+// call at head widths (D, Dv) on a card of `sms` SMs: for each slot (a block of either kind over
 // every KV head and batch) in launch order, kind (1: KV, 0: query), tile
 // and part (of a KV tile's walk; 0 for a query tile) into out[3 i],
 // out[3 i + 1], out[3 i + 2] (out holds 3 (2 nkv + nq) ints).  Returns the
 // slot count (0 for shapes the kernel does not take).
 extern "C" int flash_bwd_wgmma_slots(int B, int Sq, int Skv, int Hq, int Hkv,
-                                     int D, int causal, int with_q, int sms,
-                                     int* out) {
+                                     int D, int Dv, int causal, int with_q,
+                                     int sms, int* out) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv || sms <= 0)
     return 0;
   const BwPlan plan = bw_plan(B, Sq, Skv, Hq, Hkv, D, causal, with_q, sms);

@@ -30,9 +30,13 @@ plain kernel call, as before.
 
 Head widths: a value width Dv other than the key width D is taken at
 MLA's pairs (``HEAD_DIMS``): (192, 128), its prefill, and (576, 512), its
-absorbed decode (bf16 only); such calls go to the mma.sync variant (bf16)
-or the float32 kernel.  The backward kernels need Dv == D: a CUDA call at
-Dv != D whose inputs need a gradient raises ``NotImplementedError``.
+absorbed decode (bf16 only).  (192, 128) runs on every kernel of both
+directions (``WGMMA_HEAD_DIMS``, ``BWD_HEAD_DIMS``): the wgmma forward and
+backward in bf16, the mma.sync forward where ``variant_for`` picks it, and
+the float32 ones.  (576, 512) serves only: its forward runs on mma.sync,
+and a CUDA call at it (or at any other pair the backward does not take)
+whose inputs need a gradient raises ``NotImplementedError`` before any
+launch.
 """
 
 from __future__ import annotations
@@ -51,12 +55,16 @@ bwd_wgmma_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-WGMMA_HEAD_DIMS = (64, 128, 256)
+#: (key width, value width) pairs the wgmma kernels take, both directions
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 #: (key width, value width) pairs the forward kernels take, by dtype (the
 #: float32 kernel also takes any D % 4 == 0 up to 256 with Dv == D)
 HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128),
                               (576, 512)),
              torch.float32: ((192, 128),)}
+#: pairs at Dv != D the backward kernels take, in bf16 (the wgmma kernel)
+#: and float32 (the CUDA cores)
+BWD_HEAD_DIMS = ((192, 128),)
 WGMMA_MAX_SKV = 1024 * 64    # the kernel's table: 1024 tiles of 64 kv rows
 # Most KV splits for which the wgmma variant still takes a call.  The
 # split count says how far the (query, head) rows alone fall short of
@@ -65,25 +73,29 @@ WGMMA_MAX_SKV = 1024 * 64    # the kernel's table: 1024 tiles of 64 kv rows
 # the kernels' device times that chip_smoke.py measures for both variants
 # on an H100 (PERF.md section 6): at every measured call of 1-4 splits the
 # wgmma variant is faster or within 0.5 us; at every call of 8 or more it
-# is slower or within 2 us.
+# is slower or within 2 us.  The same rule holds at (192, 128): at MLA's
+# 1- and 3-split calls (its 128 heads split no further, to 4096 prefix
+# rows) the wgmma variant is up to 2.8x faster, and 0.8 us slower only
+# at a 16-row prompt's 0.0075 ms.
 WGMMA_MAX_SPLITS = 4
 
 
 def wgmma_takes(dtype, head_dim, skv, dv=None) -> bool:
     """Whether ``flash_fwd_wgmma`` computes a call of this kind at all
     (``dv``: the value width, None for ``head_dim``)."""
-    return (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
-            and (dv is None or dv == head_dim) and skv <= WGMMA_MAX_SKV)
+    pair = (head_dim, head_dim if dv is None else dv)
+    return (dtype == torch.bfloat16 and pair in WGMMA_HEAD_DIMS
+            and skv <= WGMMA_MAX_SKV)
 
 
 def variant_for(dtype, head_dim, skv, nsplit, dv=None) -> str:
     """The kernel a CUDA call goes to: ``nsplit`` is the KV split count
     the mma.sync variant would take (``flash_attention_splits`` in the
-    source).  bf16 calls the wgmma variant takes go to it unless they
-    split into more than ``WGMMA_MAX_SPLITS`` (decode and a short prompt
-    against a long prefix: few rows over a long walk), which stay on
-    mma.sync, as do calls whose value width ``dv`` differs from the key
-    width; float32 runs on the CUDA cores."""
+    source).  bf16 calls the wgmma variant takes (``dv``: the value
+    width; (576, 512) it does not) go to it unless they split into more
+    than ``WGMMA_MAX_SPLITS`` (decode and a short prompt against a long
+    prefix: few rows over a long walk), which stay on mma.sync; float32
+    runs on the CUDA cores."""
     if dtype == torch.float32:
         return "float32"
     if wgmma_takes(dtype, head_dim, skv, dv) and nsplit <= WGMMA_MAX_SPLITS:
@@ -112,28 +124,34 @@ BWD_TILE = 64             # rows of every tile of the wgmma backward
 BWD_WGMMA_MAX_TILES = 1024  # its table: 1024 tiles of each side
 BWD_KV_COST = 4           # products a KV block runs per tile (S, dP, dV, dK)
 BWD_Q_COST = 3            # ... and a Q block (S, dP, dQ)
-BWD_BLOCKS_PER_SM = {64: 3, 128: 2, 256: 1}  # resident blocks of each width
+# resident blocks of each (key, value) width pair
+BWD_BLOCKS_PER_SM = {(64, 64): 3, (128, 128): 2, (256, 256): 1,
+                     (192, 128): 1}
 # split KV walks when the heaviest weighs more than 3/2 of a block slot's
 # mean load
 BWD_SPLIT_NUM, BWD_SPLIT_DEN = 3, 2
 
 
-def bwd_wgmma_takes(dtype, head_dim, q_rows, skv) -> bool:
+def bwd_wgmma_takes(dtype, head_dim, q_rows, skv, dv=None) -> bool:
     """Whether ``flash_bwd_wgmma`` computes a backward call at all:
-    ``q_rows`` the folded query rows Sq * Hq / Hkv."""
-    return (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
+    ``q_rows`` the folded query rows Sq * Hq / Hkv, ``dv`` the value width
+    (None for ``head_dim``)."""
+    pair = (head_dim, head_dim if dv is None else dv)
+    return (dtype == torch.bfloat16 and pair in WGMMA_HEAD_DIMS
             and -(-q_rows // BWD_TILE) <= BWD_WGMMA_MAX_TILES
             and -(-skv // BWD_TILE) <= BWD_WGMMA_MAX_TILES)
 
 
-def bwd_variant_for(dtype, head_dim, q_rows, skv) -> str:
+def bwd_variant_for(dtype, head_dim, q_rows, skv, dv=None) -> str:
     """The backward kernel a CUDA call goes to: every bf16 call the wgmma
     variant takes (it is faster by CUDA-graph device time at every bf16
     shape chip_smoke.py times on an H100, PERF.md section 6), the
-    mma.sync variant for the rest; float32 on the CUDA cores."""
+    mma.sync variant for the rest (Dv == D only: a bf16 call at (192,
+    128) the wgmma variant does not take raises); float32 on the CUDA
+    cores."""
     if dtype == torch.float32:
         return "float32"
-    if bwd_wgmma_takes(dtype, head_dim, q_rows, skv):
+    if bwd_wgmma_takes(dtype, head_dim, q_rows, skv, dv):
         return "wgmma"
     return "mma_sync"
 
@@ -173,18 +191,19 @@ class _BwdShape:
         return self.nq - self.first_u(BWD_TILE * v) if self.causal else self.nq
 
 
-def bwd_split(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms, with_dq=True):
+def bwd_split(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms, with_dq=True,
+              dv=None):
     """The blocks a KV tile's walk over the query tiles is split between
     (``bw_plan``): two (each sums half; the second to finish adds the
     other's float32 half and stores the tile) where the heaviest KV block
     weighs more than 3/2 of a block slot's mean load (``sms`` times the
-    resident blocks of the width), else one."""
+    resident blocks of the widths (head_dim, dv)), else one."""
     sh = _BwdShape(Sq, Skv, Hq, Hkv, causal)
     total = sum(BWD_KV_COST * sh.vis_kv(t) for t in range(sh.nkv))
     if with_dq:
         total += sum(BWD_Q_COST * sh.vis_q(u) for u in range(sh.nq))
     heavy = BWD_KV_COST * sh.vis_kv(0)
-    slots = sms * BWD_BLOCKS_PER_SM[head_dim]
+    slots = sms * BWD_BLOCKS_PER_SM[head_dim, head_dim if dv is None else dv]
     return 2 if sh.nq >= 2 and (BWD_SPLIT_DEN * heavy * slots
                                 > BWD_SPLIT_NUM * total * Hkv * B) else 1
 
@@ -231,10 +250,10 @@ def bwd_mid(Sq, Skv, Hq, Hkv, causal, t) -> int:
     return sh.nq - sh.vis_kv(t) // 2
 
 
-def bwd_split_at(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms):
+def bwd_split_at(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms, dv=None):
     """Per KV tile, the first query tile of the second half of its walk
     (``plain.attention_bwd_tiled``'s ``split_at``), or None unsplit."""
-    if bwd_split(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms) == 1:
+    if bwd_split(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms, dv=dv) == 1:
         return None
     return [bwd_mid(Sq, Skv, Hq, Hkv, causal, t)
             for t in range(-(-Skv // BWD_TILE))]
@@ -261,7 +280,7 @@ def _kernel():
     splits.argtypes = [ctypes.c_int] * 6
     splits.restype = ctypes.c_int
     wg = lib.flash_attention_fwd_wgmma
-    wg.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    wg.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     wg.restype = ctypes.c_int
@@ -294,10 +313,10 @@ def _check(q, k, v, q_pos, kv_pos, backward=False):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
     if Dv != D:
-        if backward:
+        if backward and (D, Dv) not in BWD_HEAD_DIMS:
             raise NotImplementedError(
-                f"Dv={Dv} != D={D}: the CUDA flash backward needs equal "
-                "head dims")
+                f"head dims (D={D}, Dv={Dv}): the CUDA flash backward takes "
+                f"Dv != D at {BWD_HEAD_DIMS}")
         if (D, Dv) not in HEAD_DIMS[q.dtype]:
             raise NotImplementedError(
                 f"head dims (D={D}, Dv={Dv}): the {q.dtype} kernel takes "
@@ -330,19 +349,17 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     its keys in one pass and in order, as it does in a call over the
     whole sequence, so that a chunk of a chunked compress gives the rows
     of the one-shot call bit for bit.  A CUDA call whose q, k or v needs a
-    gradient is recorded for autograd (:class:`FlashAttention`); at Dv !=
-    D such a call raises ``NotImplementedError`` (the backward kernels
-    need equal widths)."""
+    gradient is recorded for autograd (:class:`FlashAttention`); at a
+    pair (D, Dv) the backward kernels do not take (``BWD_HEAD_DIMS``:
+    (576, 512) among them) such a call raises ``NotImplementedError``
+    before any launch."""
     if not q.is_cuda:
         return plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                    causal=causal, softcap=softcap,
                                    scale=scale, return_lse=return_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(
-                f"Dv={v.shape[-1]} != D={q.shape[-1]}: the CUDA flash "
-                "backward needs equal head dims")
+        _check(q, k, v, q_pos, kv_pos, backward=True)
         out, lse = FlashAttention.apply(q, k, v, q_pos, kv_pos, causal,
                                         softcap, scale, variant)
     else:
@@ -394,8 +411,8 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
             raise ValueError(f"unknown variant {variant!r}")
         if variant == "wgmma" and not wgmma_takes(q.dtype, D, Skv, Dv):
             raise NotImplementedError(
-                f"the wgmma variant takes bf16 at head dims "
-                f"{WGMMA_HEAD_DIMS} (Dv == D) and Skv <= {WGMMA_MAX_SKV}, "
+                f"the wgmma variant takes bf16 at head dims (D, Dv) in "
+                f"{WGMMA_HEAD_DIMS} and Skv <= {WGMMA_MAX_SKV}, "
                 f"got {q.dtype}, D={D}, Dv={Dv}, Skv={Skv}")
         if variant == "mma_sync" and q.dtype != torch.bfloat16:
             raise NotImplementedError("the mma.sync variant takes bf16")
@@ -406,7 +423,7 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
             err = fn_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            q_pos.data_ptr(), kv_pos.data_ptr(),
                            out.data_ptr(), lse.data_ptr(), B, Sq, Skv, Hq,
-                           Hkv, D, float(scale), float(softcap or 0.0),
+                           Hkv, D, Dv, float(scale), float(softcap or 0.0),
                            int(bool(causal)), stream)
         else:
             # split partials: nsplit x (B*Sq*Hq) rows of Dv outputs + 1 lse
@@ -432,17 +449,17 @@ def _forward(q, k, v, q_pos, kv_pos, causal, softcap, scale, variant):
 def _bwd_kernel():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     wg = lib.flash_attention_bwd_wgmma
-    wg.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    wg.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     wg.restype = ctypes.c_int
     ws = lib.flash_attention_bwd_wgmma_workspace
-    ws.argtypes = [ctypes.c_int] * 9
+    ws.argtypes = [ctypes.c_int] * 10
     ws.restype = ctypes.c_longlong
     return fn, wg, ws
 
@@ -453,17 +470,18 @@ def _sms(device_index):
 
 
 def bwd_kernel_slots(B, Sq, Skv, Hq, Hkv, head_dim, causal, sms,
-                     with_dq=True):
+                     with_dq=True, dv=None):
     """``flash_bwd_wgmma``'s slot order as the built library computes it
     (``flash_bwd_wgmma_slots``, the host's copy of the kernel's plan) on a
     card of ``sms`` SMs, in :func:`bwd_plan`'s form; the card tests hold it
     to :func:`bwd_plan` at :func:`bwd_split`'s split."""
     fn = build.load("flash_attention_bwd").flash_bwd_wgmma_slots
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = 2 * -(-Skv // BWD_TILE) + -(-Sq * (Hq // Hkv) // BWD_TILE)
     buf = (ctypes.c_int * (3 * n))()
-    got = fn(B, Sq, Skv, Hq, Hkv, head_dim, int(bool(causal)),
+    got = fn(B, Sq, Skv, Hq, Hkv, head_dim,
+             head_dim if dv is None else dv, int(bool(causal)),
              int(bool(with_dq)), sms, buf)
     return [("kv" if buf[3 * i] else "q", buf[3 * i + 1], buf[3 * i + 2])
             for i in range(got)]
@@ -487,34 +505,37 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
                                        scale=scale)
     _check(q, k, v, q_pos, kv_pos, backward=True)
     B, Sq, Hq, D = q.shape
-    _, Skv, Hkv, _ = k.shape
+    _, Skv, Hkv, Dv = v.shape
     if scale is None:
         scale = D ** -0.5
     out, dout, lse = (t.contiguous() if t.data_ptr() % 16 == 0
                       else t.clone(memory_format=torch.contiguous_format)
                       for t in (out, dout, lse))  # 16-byte rows for the kernel
-    if dout.shape != q.shape or dout.dtype != q.dtype or out.shape != q.shape \
-            or out.dtype != q.dtype or lse.shape != (B, Sq, Hq) \
-            or lse.dtype != torch.float32:
-        raise ValueError("out/dout must match q and lse be (B, Sq, Hq) "
-                         "float32")
+    if dout.shape != (B, Sq, Hq, Dv) or dout.dtype != q.dtype \
+            or out.shape != (B, Sq, Hq, Dv) or out.dtype != q.dtype \
+            or lse.shape != (B, Sq, Hq) or lse.dtype != torch.float32:
+        raise ValueError("out/dout must be (B, Sq, Hq, Dv) in q's type and "
+                         "lse (B, Sq, Hq) float32")
     if dlse is not None:
         dlse = dlse.to(torch.float32).contiguous()
     q_rows = Sq * (Hq // Hkv)
-    chosen = bwd_variant_for(q.dtype, D, q_rows, Skv)
+    chosen = bwd_variant_for(q.dtype, D, q_rows, Skv, Dv)
     if variant is not None:
         if variant not in ("wgmma", "mma_sync"):
             raise ValueError(f"unknown variant {variant!r}")
-        if variant == "wgmma" and not bwd_wgmma_takes(q.dtype, D, q_rows,
-                                                      Skv):
-            raise NotImplementedError(
-                f"the wgmma backward takes bf16 at head dims "
-                f"{WGMMA_HEAD_DIMS} and at most {BWD_WGMMA_MAX_TILES} tiles "
-                f"of {BWD_TILE} rows a side, got {q.dtype}, D={D}, "
-                f"{q_rows} query rows, Skv={Skv}")
         if variant == "mma_sync" and q.dtype != torch.bfloat16:
             raise NotImplementedError("the mma.sync variant takes bf16")
         chosen = variant
+    if chosen == "wgmma" and not bwd_wgmma_takes(q.dtype, D, q_rows, Skv,
+                                                 Dv):
+        raise NotImplementedError(
+            f"the wgmma backward takes bf16 at head dims (D, Dv) in "
+            f"{WGMMA_HEAD_DIMS} and at most {BWD_WGMMA_MAX_TILES} tiles "
+            f"of {BWD_TILE} rows a side, got {q.dtype}, D={D}, Dv={Dv}, "
+            f"{q_rows} query rows, Skv={Skv}")
+    if chosen == "mma_sync" and Dv != D:
+        raise NotImplementedError(
+            f"the mma.sync backward needs Dv == D, got D={D}, Dv={Dv}")
     # every kernel writes every row of its gradients: no zero fill
     dq = torch.empty_like(q) if need_dq else None
     dk = torch.empty_like(k)
@@ -527,7 +548,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
             q_pos.data_ptr(), kv_pos.data_ptr(),
             dq.data_ptr() if dq is not None else None, dk.data_ptr(),
             dv.data_ptr(), di.data_ptr())
-    rest = (B, Sq, Skv, Hq, Hkv, D, float(scale), float(softcap or 0.0),
+    rest = (B, Sq, Skv, Hq, Hkv, D, Dv, float(scale), float(softcap or 0.0),
             int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -535,8 +556,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
             # the split KV tiles' float32 halves and their counters
             sms = _sms(q.device.index if q.device.index is not None
                        else torch.cuda.current_device())
-            ws = torch.empty(fn_ws(B, Sq, Skv, Hq, Hkv, D, int(bool(causal)),
-                                   int(bool(need_dq)), sms),
+            ws = torch.empty(fn_ws(B, Sq, Skv, Hq, Hkv, D, Dv,
+                                   int(bool(causal)), int(bool(need_dq)),
+                                   sms),
                              dtype=torch.uint8, device=q.device)
             err = fn_wgmma(*ptrs, ws.data_ptr(), *rest, sms, stream)
         else:

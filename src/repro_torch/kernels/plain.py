@@ -76,8 +76,8 @@ def attention_bwd_ref(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
     """The gradient of :func:`attention_ref` (with its lse) by explicit
     formulas, not autograd: the yardstick of the backward kernel.
 
-    q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), out/dout (B,Sq,Hq,D), lse/dlse
-    (B,Sq,Hq) float32 (``dlse`` None: no lse cotangent) -> dq, dk, dv in
+    q (B,Sq,Hq,D), k (B,Skv,Hkv,D), v (B,Skv,Hkv,Dv), out/dout
+    (B,Sq,Hq,Dv), lse/dlse (B,Sq,Hq) float32 (``dlse`` None: no lse cotangent) -> dq, dk, dv in
     the inputs' types.  With x = scale q.k and s = cap tanh(x / cap) (s =
     x without a cap), P = exp(s - lse) on the visible pairs (0 elsewhere),
     dP = dO V^T, D_i = rowsum(dO o O) - dlse_i, dS = P o (dP - D_i), dX =
@@ -121,7 +121,8 @@ def attention_bwd_tiled(q, k, v, out, lse, dout, dlse=None, *, q_pos,
                         round_p=True, split_at=None, tile=64):
     """The wgmma flash backward's arithmetic (``flash_bwd_wgmma`` in
     ``csrc/flash_attention_bwd.cu``), restated for the tests; no kernel's
-    CPU path.  Arguments and result as :func:`attention_bwd_ref`.
+    CPU path.  Arguments and result as :func:`attention_bwd_ref` (v, out
+    and dout may be Dv wide, Dv != D).
 
     The query rows of each KV head are G-folded (row rho = s * G + g is
     query s of head hk * G + g) and cut into ``tile``-row tiles, the kv
@@ -186,7 +187,7 @@ def attention_bwd_tiled(q, k, v, out, lse, dout, dlse=None, *, q_pos,
         split_at if split_at is not None else [nq] * nkv)[None, :]
     half = half.repeat_interleave(tile, dim=1).to(q.device)  # (nq, Kp)
     dk = torch.zeros(2, B, Hkv, Kp, D, device=q.device)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros(2, B, Hkv, Kp, v.shape[-1], device=q.device)
     for u in range(nq):  # KV blocks: this query tile against every KV tile
         r = slice(u * tile, (u + 1) * tile)
         p, ds = p_ds(kf @ qf[:, :, r].transpose(-1, -2),

@@ -107,7 +107,14 @@ class Mamba(nn.Module):
                                  chunk=mb.chunk_size)
         y = y + xh * self.D.to(y.dtype)[None, None, :, None]
         y = _gated_norm(y.reshape(B, S, di), z, self.norm, cfg.norm_eps)
-        if cache is not None:
+        if cache is not None and torch.is_grad_enabled() and (
+                new_ssm.requires_grad or new_conv.requires_grad):
+            # training (the hybrid compressor's Phase 2): the handed-off
+            # state is a node of the graph, not written over a tensor that
+            # this pass read
+            cache["conv"] = new_conv.to(cache["conv"].dtype)
+            cache["ssm"] = new_ssm.to(cache["ssm"].dtype)
+        elif cache is not None:
             cache["conv"].copy_(new_conv)
             cache["ssm"].copy_(new_ssm)
         return y @ self.out_proj

@@ -168,26 +168,35 @@ def test_flash_attention_dv_pairs_match_plain(cuda, rng, case):
         q = _rand(rng, B, Sq, Hq, D, dtype=dtype)
         k = _rand(rng, B, Skv, Hkv, D, dtype=dtype)
         v = _rand(rng, B, Skv, Hkv, Dv, dtype=dtype)
-        before = fa.launches, fa.wgmma_launches
-        out, lse = fa.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert (fa.launches, fa.wgmma_launches) == (before[0] + 1, before[1])
         ref, ref_lse = plain.attention_ref(q, k, v, **kw)
-        assert out.dtype == q.dtype and out.shape == (B, Sq, Hq, Dv)
-        _assert_close(out, ref, dtype)
-        assert _err(lse, ref_lse) <= TOL["float32"] * max(
-            1.0, float(ref_lse.abs().max()))
-        if dtype == "bfloat16":  # the forced mma.sync variant is the same
+        # bf16 (192, 128): both kernels, each forced; (576, 512): mma.sync
+        wg = dtype == "bfloat16" and fa.wgmma_takes(torch.bfloat16, D, Skv,
+                                                    Dv)
+        for var in ((None, "wgmma", "mma_sync") if wg else (None,)):
+            before = fa.launches, fa.wgmma_launches
+            out, lse = fa.flash_attention(q, k, v, variant=var, **kw)
+            torch.cuda.synchronize()
+            picked = var or fa.variant_for(
+                q.dtype, D, Skv, fa._splits(B, Sq, Skv, Hq, Hkv, 0), Dv)
+            assert (fa.launches, fa.wgmma_launches) == (
+                before[0] + 1, before[1] + (picked == "wgmma"))
+            assert out.dtype == q.dtype and out.shape == (B, Sq, Hq, Dv)
+            _assert_close(out, ref, dtype)
+            assert _err(lse, ref_lse) <= TOL["float32"] * max(
+                1.0, float(ref_lse.abs().max()))
+        if dtype == "bfloat16" and not wg:
             with pytest.raises(NotImplementedError):
                 fa.flash_attention(q, k, v, variant="wgmma", **kw)
 
 
 def test_flash_attention_dv_refuses_a_gradient(cuda, rng):
-    """At Dv != D the backward kernels do not exist: a call that needs a
-    gradient raises before the forward runs."""
-    q = _rand(rng, 1, 8, 4, 192, dtype="bfloat16").requires_grad_()
-    k = _rand(rng, 1, 8, 4, 192, dtype="bfloat16")
-    v = _rand(rng, 1, 8, 4, 128, dtype="bfloat16")
+    """At (576, 512) (MLA's absorbed decode, which serves only) no backward
+    kernel exists: a call that needs a gradient raises before the forward
+    runs, and the backward raises; at (192, 128) such a call runs both
+    directions on the wgmma kernels."""
+    q = _rand(rng, 1, 8, 16, 576, dtype="bfloat16").requires_grad_()
+    k = _rand(rng, 1, 8, 1, 576, dtype="bfloat16")
+    v = _rand(rng, 1, 8, 1, 512, dtype="bfloat16")
     pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
     before = fa.launches
     with pytest.raises(NotImplementedError):
@@ -198,6 +207,15 @@ def test_flash_attention_dv_refuses_a_gradient(cuda, rng):
     with pytest.raises(NotImplementedError):
         fa.flash_attention_bwd(q.detach(), k, v, out, lse, out, q_pos=pos,
                                kv_pos=pos)
+    q = _rand(rng, 1, 8, 4, 192, dtype="bfloat16").requires_grad_()
+    k = _rand(rng, 1, 8, 4, 192, dtype="bfloat16")
+    v = _rand(rng, 1, 8, 4, 128, dtype="bfloat16")
+    before = fa.wgmma_launches, fa.bwd_wgmma_launches
+    fa.flash_attention(q, k, v, q_pos=pos, kv_pos=pos).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.wgmma_launches, fa.bwd_wgmma_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert q.grad.shape == q.shape and bool(q.grad.isfinite().all())
 
 
 @pytest.mark.parametrize("n,mn_major", [(64, False), (64, True),
@@ -1034,6 +1052,55 @@ def test_flash_attention_bwd_matches_plain(cuda, rng, case, dtype, variant):
         assert float(got[2][holes].abs().max()) == 0.0
 
 
+# MLA's non-absorbed widths (D, Dv) = (192, 128), 16 heads (no GQA fold) or
+# 8 on 4 KV heads, scale 192 ** -0.5: the float32 kernel and the bf16 wgmma
+# one (the only bf16 kernel that takes the pair) against the plain
+# backward, by test_flash_attention_bwd_matches_plain's rule.
+DV_BWD_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, layout, dlse)
+    (1, 512, 512, 16, 16, "causal", False),   # Memory-LLM self
+    (2, 64, 64, 16, 16, "offset", True),      # prompt self, lse cotangent
+    (2, 64, 512, 16, 16, "prefix", True),     # prompt vs the prefix
+    (1, 200, 130, 8, 4, "prefix", True),      # ragged tiles, GQA fold
+    (2, 40, 70, 16, 16, "masked", True),      # rows with no key, holes
+    (1, 1024, 1024, 2, 2, "causal", False),   # split KV walks
+]
+
+
+@pytest.mark.parametrize("case", DV_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_dv_matches_plain(cuda, rng, case, dtype):
+    B, Sq, Skv, Hq, Hkv, layout, with_dlse = case
+    D, Dv, scale = 192, 128, 192 ** -0.5
+    q = _rand(rng, B, Sq, Hq, D, dtype=dtype)
+    dout = _rand(rng, B, Sq, Hq, Dv, dtype=dtype)
+    k = _rand(rng, B, Skv, Hkv, D, dtype=dtype)
+    v = _rand(rng, B, Skv, Hkv, Dv, dtype=dtype)
+    q_pos, kv_pos, causal = _bwd_positions(B, Sq, Skv, layout, cuda)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, scale=scale)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    dlse = (_rand(rng, B, Sq, Hq, dtype="float32") if with_dlse else None)
+    before = (fa.bwd_launches, fa.bwd_wgmma_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
+    torch.cuda.synchronize()
+    assert (fa.bwd_launches, fa.bwd_wgmma_launches) == (
+        before[0] + 1, before[1] + (dtype == "bfloat16"))
+    want = plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _assert_grad_close(g, w, dtype, name)
+    if layout == "masked":
+        assert float(got[0][q_pos < 0].abs().max()) == 0.0
+        assert float(got[1][kv_pos < 0].abs().max()) == 0.0
+        assert float(got[2][kv_pos < 0].abs().max()) == 0.0
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    if dtype == "bfloat16":  # the mma.sync backward needs Dv == D
+        with pytest.raises(NotImplementedError):
+            fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse,
+                                   variant="mma_sync", **kw)
+
+
 # The wgmma backward against its own arithmetic, plain.attention_bwd_tiled
 # on the same bf16 inputs in float32, in bf16 steps (plain.bf16_ulps).  The
 # last rounding of each gradient gives up to 0.5; S and dP, summed in
@@ -1055,14 +1122,21 @@ TILED_BWD_CASES = [
     (2, 40, 70, 8, 4, 256, "masked", 50.0),      # dead rows and holes
     (1, 170, 170, 24, 8, 64, "causal", 0.0),     # G 3, ragged last tile
     (1, 300, 300, 32, 8, 128, "offset", 0.0),    # G 4
+    # MLA's (192, 128): Dv != D (the tenth entry), one and two KV walks
+    (1, 512, 512, 16, 16, 192, "causal", 0.0, 128),
+    (2, 64, 512, 16, 16, 192, "prefix", 0.0, 128),
+    (1, 1024, 1024, 2, 2, 192, "causal", 0.0, 128),  # split KV walks
 ]
 
 
 @pytest.mark.parametrize("case", TILED_BWD_CASES)
 def test_flash_bwd_wgmma_matches_its_tiled_restatement(cuda, rng, case):
-    B, Sq, Skv, Hq, Hkv, D, layout, cap = case
-    q, dout = (_rand(rng, B, Sq, Hq, D, dtype="bfloat16") for _ in range(2))
-    k, v = (_rand(rng, B, Skv, Hkv, D, dtype="bfloat16") for _ in range(2))
+    B, Sq, Skv, Hq, Hkv, D, layout, cap = case[:8]
+    Dv = case[8] if len(case) > 8 else D
+    q = _rand(rng, B, Sq, Hq, D, dtype="bfloat16")
+    dout = _rand(rng, B, Sq, Hq, Dv, dtype="bfloat16")
+    k = _rand(rng, B, Skv, Hkv, D, dtype="bfloat16")
+    v = _rand(rng, B, Skv, Hkv, Dv, dtype="bfloat16")
     q_pos, kv_pos, causal = _bwd_positions(B, Sq, Skv, layout, cuda)
     kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
@@ -1074,7 +1148,8 @@ def test_flash_bwd_wgmma_matches_its_tiled_restatement(cuda, rng, case):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tiled = plain.attention_bwd_tiled(
         *(x.float() for x in (q, k, v, out)), lse, dout.float(), dlse,
-        split_at=fa.bwd_split_at(B, Sq, Skv, Hq, Hkv, D, causal, sms), **kw)
+        split_at=fa.bwd_split_at(B, Sq, Skv, Hq, Hkv, D, causal, sms, dv=Dv),
+        **kw)
     for name, g, t in zip(("dq", "dk", "dv"), got, tiled):
         u = plain.bf16_ulps(g, t)
         assert u <= TILED_BWD_ULPS, (
@@ -1087,7 +1162,9 @@ def test_flash_bwd_wgmma_matches_its_tiled_restatement(cuda, rng, case):
     (1, 3072, 3072, 8, 4, 256, True), (2, 512, 512, 24, 8, 64, True),
     (2, 512, 512, 32, 8, 128, True), (3, 70, 45, 6, 2, 64, True),
     (2, 45, 70, 6, 2, 128, True), (2, 37, 53, 4, 2, 64, False),
-    (1, 1, 700, 8, 1, 256, True), (1, 700, 1, 8, 8, 128, True)])
+    (1, 1, 700, 8, 1, 256, True), (1, 700, 1, 8, 8, 128, True),
+    (2, 1024, 1024, 128, 128, 192, True, 128),
+    (2, 512, 1024, 128, 128, 192, False, 128)])
 @pytest.mark.parametrize("with_dq", [True, False])
 @pytest.mark.parametrize("sms", [132, 16, 1000])
 def test_flash_bwd_wgmma_block_order_is_its_restatement(cuda, shape,
@@ -1095,10 +1172,11 @@ def test_flash_bwd_wgmma_block_order_is_its_restatement(cuda, shape,
     """The kernel's plan (the library's host copy of ``BwPlan``) splits
     KV walks where ``fa.bwd_split`` does and gives the slot order
     ``fa.bwd_plan`` states, on cards of several SM counts."""
-    B, Sq, Skv, Hq, Hkv, D, causal = shape
-    split = fa.bwd_split(B, Sq, Skv, Hq, Hkv, D, causal, sms, with_dq)
+    B, Sq, Skv, Hq, Hkv, D, causal = shape[:7]
+    dv = shape[7] if len(shape) > 7 else None
+    split = fa.bwd_split(B, Sq, Skv, Hq, Hkv, D, causal, sms, with_dq, dv=dv)
     assert fa.bwd_kernel_slots(B, Sq, Skv, Hq, Hkv, D, causal, sms,
-                               with_dq) == \
+                               with_dq, dv=dv) == \
         fa.bwd_plan(Sq, Skv, Hq, Hkv, causal, split, with_dq)
 
 

@@ -70,6 +70,36 @@ def test_variant_for(dtype, hd, skv, nsplit, want):
     assert fa.variant_for(dtype, hd, skv, nsplit) == want
 
 
+# (dtype, key width, value width, Skv, nsplit) -> forward variant, and
+# (folded query rows) -> backward variant: MLA's pairs
+DV_DISPATCH = [
+    (torch.bfloat16, 192, 128, 3072, 1, 6144, "wgmma", "wgmma"),  # source
+    (torch.bfloat16, 192, 128, 1024, 1, 1024, "wgmma", "wgmma"),  # Memory
+    (torch.bfloat16, 192, 128, 1024, 3, 16, "wgmma", "wgmma"),    # prompt
+    (torch.bfloat16, 192, 128, 1100, 17, 4, "mma_sync", "wgmma"),
+    (torch.bfloat16, 192, 128, 65537, 1, 64, "mma_sync", "mma_sync"),
+    (torch.bfloat16, 576, 512, 1100, 17, 128, "mma_sync", "mma_sync"),
+    (torch.bfloat16, 576, 512, 1100, 1, 128, "mma_sync", "mma_sync"),
+    (torch.float32, 192, 128, 1024, 1, 1024, "float32", "float32"),
+]
+
+
+@pytest.mark.parametrize("dtype,D,Dv,skv,nsplit,rows,fwd,bwd", DV_DISPATCH)
+def test_variant_for_value_widths(dtype, D, Dv, skv, nsplit, rows, fwd, bwd):
+    """(192, 128) takes both wgmma kernels (the forward up to
+    ``WGMMA_MAX_SPLITS``), (576, 512) neither; the backward's pick at a
+    pair the wgmma kernel does not take is the mma.sync one, which itself
+    refuses Dv != D (``flash_attention_bwd`` raises before any launch)."""
+    assert fa.variant_for(dtype, D, skv, nsplit, Dv) == fwd
+    assert fa.bwd_variant_for(dtype, D, rows, skv, Dv) == bwd
+    assert fa.wgmma_takes(dtype, D, skv, Dv) == (
+        dtype == torch.bfloat16 and (D, Dv) == (192, 128)
+        and skv <= fa.WGMMA_MAX_SKV)
+    if (D, Dv) in fa.BWD_BLOCKS_PER_SM:
+        assert fa.bwd_split(1, rows, skv, 128, 128, D, True, 132,
+                            dv=Dv) in (1, 2)
+
+
 @pytest.mark.parametrize("variant", [None, "wgmma", "mma_sync"])
 def test_cpu_tensors_go_to_the_plain_version_uncounted(variant):
     rng = np.random.default_rng(0)
@@ -296,5 +326,9 @@ def test_bwd_source_states_the_plan_constants():
     assert (f"constexpr int SPLIT_NUM = {fa.BWD_SPLIT_NUM}, SPLIT_DEN = "
             f"{fa.BWD_SPLIT_DEN};") in src
     per_sm = fa.BWD_BLOCKS_PER_SM
-    assert (f"return D == 64 ? {per_sm[64]} : D == 128 ? {per_sm[128]} : "
-            f"{per_sm[256]};") in src
+    assert (f"return D == 64 ? {per_sm[64, 64]} : D == 128 ? "
+            f"{per_sm[128, 128]} : {per_sm[256, 256]};") in src
+    # the source keys its resident blocks by the key width: (192, 128)
+    # falls to the last case, as D 256 does
+    assert per_sm[192, 128] == per_sm[256, 256]
+    assert set(per_sm) == set(fa.WGMMA_HEAD_DIMS)

@@ -503,8 +503,16 @@ def launches(monkeypatch):
         calls.append(("flash", a[13], a[14], a[19]))
         return 0
 
-    def wgmma(*a):
-        calls.append(("wgmma", a[12], None, 1))
+    def wgmma(*a):  # (7 pointers, B, Sq, Skv, Hq, Hkv, D, Dv, ...)
+        calls.append(("wgmma", a[12], a[13], 1))
+        return 0
+
+    def bwd(*a):  # (13 pointers, B, Sq, Skv, Hq, Hkv, D, Dv, ..., dtype)
+        calls.append(("bwd", a[18], a[19], a[23]))
+        return 0
+
+    def bwd_wgmma(*a):  # (14 pointers, B, Sq, Skv, Hq, Hkv, D, Dv, ...)
+        calls.append(("bwd_wgmma", a[19], a[20], 1))
         return 0
 
     def paged(*a):  # (6 pointers, B, S, Hq, Hkv, D, Dv, ...)
@@ -512,7 +520,10 @@ def launches(monkeypatch):
         return 0
 
     monkeypatch.setattr(fa, "_kernel", lambda: (flash, None, wgmma))
+    monkeypatch.setattr(fa, "_bwd_kernel",
+                        lambda: (bwd, bwd_wgmma, lambda *a: 64))
     monkeypatch.setattr(fa, "_splits", lambda *a: 1)
+    monkeypatch.setattr(fa, "_sms", lambda i: 132)
     monkeypatch.setattr(pa, "_kernel", lambda: paged)
     monkeypatch.setattr(pa, "_sms", lambda i: 132)
     monkeypatch.setattr(torch.cuda, "device", _Guard)
@@ -536,9 +547,11 @@ def _qkv(B, S, L, Hq, Hkv, D, Dv, dtype, grad=False):
     (192, 128, torch.float32, True), (576, 512, torch.float32, False),
     (128, 64, torch.bfloat16, False), (32, 16, torch.float32, False)])
 def test_flash_dv_routing(launches, D, Dv, dtype, ok):
-    """The pairs MLA needs go to the mma.sync / float32 kernel with both
-    widths and give a (.., Dv) output; other pairs raise; a forced wgmma
-    variant raises at Dv != D."""
+    """The pairs MLA needs go to the kernels with both widths and give a
+    (.., Dv) output: bf16 (192, 128) to the wgmma variant (the mma.sync
+    one when forced), (576, 512) to mma.sync (a forced wgmma variant
+    raises there), float32 (192, 128) to the CUDA cores; other pairs
+    raise."""
     q, k, v, q_pos, kv_pos = _qkv(2, 3, 40, 8, 1, D, Dv, dtype)
     if not ok:
         with pytest.raises(NotImplementedError):
@@ -549,32 +562,87 @@ def test_flash_dv_routing(launches, D, Dv, dtype, ok):
     out = fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
     assert tuple(out.shape) == (2, 3, 8, Dv)
     code = 1 if dtype == torch.bfloat16 else 0
-    assert launches == [("flash", D, Dv, code)]
-    assert (fa.launches, fa.wgmma_launches) == (before[0] + 1, before[1])
+    wg = code == 1 and (D, Dv) == (192, 128)
+    assert launches == [("wgmma", D, Dv, 1) if wg else ("flash", D, Dv, code)]
+    assert (fa.launches, fa.wgmma_launches) == (before[0] + 1,
+                                                before[1] + wg)
     assert fa.variant_for(dtype, D, 40, 1, Dv) == (
-        "mma_sync" if code else "float32")
-    if code:
+        "wgmma" if wg else "mma_sync" if code else "float32")
+    if wg:
+        fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                           variant="mma_sync")
+        assert launches[-1] == ("flash", D, Dv, 1)
+    elif code:
         with pytest.raises(NotImplementedError):
             fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                variant="wgmma")
 
 
 def test_flash_dv_refuses_a_gradient(launches):
-    """A call at Dv != D that needs a gradient raises before any launch
-    (the backward kernels need equal widths); so does the backward."""
+    """A gradient-needing bf16 call at (192, 128) (MLA's non-absorbed
+    prefill) goes through ``FlashAttention``: the wgmma forward, then the
+    wgmma backward with both widths; at (576, 512) (the absorbed decode,
+    which serves only) such a call raises before any launch, and so does
+    its backward."""
     q, k, v, q_pos, kv_pos = _qkv(1, 4, 16, 4, 4, 192, 128, torch.bfloat16,
+                                  grad=True)
+    before = fa.bwd_launches, fa.bwd_wgmma_launches
+    out = fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
+    assert tuple(out.shape) == (1, 4, 4, 128) and out.requires_grad
+    assert launches == [("wgmma", 192, 128, 1)]
+    out.float().sum().backward()
+    assert launches[1:] == [("bwd_wgmma", 192, 128, 1)]
+    assert (fa.bwd_launches, fa.bwd_wgmma_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert tuple(q.grad.shape) == (1, 4, 4, 192)
+    del launches[:]
+    q, k, v, q_pos, kv_pos = _qkv(1, 4, 16, 4, 1, 576, 512, torch.bfloat16,
                                   grad=True)
     with pytest.raises(NotImplementedError, match="backward"):
         fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
     assert launches == []
-    out = torch.zeros(1, 4, 4, 128, dtype=torch.bfloat16)
+    out = torch.zeros(1, 4, 4, 512, dtype=torch.bfloat16)
     lse = torch.zeros(1, 4, 4)
     with pytest.raises(NotImplementedError, match="backward"):
         fa.flash_attention_bwd(q.detach(), k, v, _fake(out), _fake(lse),
                                _fake(out), q_pos=q_pos, kv_pos=kv_pos)
+    assert launches == []
     with torch.no_grad():  # without a gradient the forward launches
         fa.flash_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos)
-    assert launches == [("flash", 192, 128, 1)]
+    assert launches == [("flash", 576, 512, 1)]
+
+
+@pytest.mark.parametrize("D,Dv,dtype,want", [
+    (192, 128, torch.bfloat16, ("bwd_wgmma", 192, 128, 1)),
+    (192, 128, torch.float32, ("bwd", 192, 128, 0)),
+    (576, 512, torch.bfloat16, None), (128, 64, torch.bfloat16, None),
+    (256, 128, torch.float32, None)])
+def test_flash_dv_backward_routing(launches, D, Dv, dtype, want):
+    """``flash_attention_bwd`` at Dv != D: (192, 128) launches the bf16
+    wgmma backward or the float32 one with both widths, out and dout
+    checked at (.., Dv); a forced mma.sync variant raises there (it needs
+    Dv == D), as does every other pair, before any launch."""
+    q, k, v, q_pos, kv_pos = _qkv(1, 4, 16, 4, 4, D, Dv, dtype)
+    out = _fake(torch.zeros(1, 4, 4, Dv, dtype=dtype))
+    lse = _fake(torch.zeros(1, 4, 4))
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, scale=D ** -0.5)
+    if want is None:
+        with pytest.raises(NotImplementedError, match="backward"):
+            fa.flash_attention_bwd(q, k, v, out, lse, out, **kw)
+        assert launches == []
+        return
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, out, **kw)
+    assert launches == [want]
+    assert [tuple(t.shape) for t in (dq, dk, dv)] == [
+        (1, 4, 4, D), (1, 16, 4, D), (1, 16, 4, Dv)]
+    with pytest.raises(ValueError):  # out at the key width
+        wide = _fake(torch.zeros(1, 4, 4, D, dtype=dtype))
+        fa.flash_attention_bwd(q, k, v, wide, lse, wide, **kw)
+    if dtype == torch.bfloat16:
+        with pytest.raises(NotImplementedError, match="Dv == D"):
+            fa.flash_attention_bwd(q, k, v, out, lse, out,
+                                   variant="mma_sync", **kw)
+    assert len(launches) == 1
 
 
 @pytest.mark.parametrize("D,Dv,dtype,ok", [
