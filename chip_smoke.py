@@ -56,7 +56,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
       probes of a 4- and a 16-token prompt against 4096 prefix rows at
       (192, 128) (bf16 only); and
       jamba-1.5-large-398b's attention (64/8 heads of 128): its source
-      prefill and a prompt against its 1024-row prefix.  Every bf16 shape
+      prefill and a prompt against its 1024-row prefix; qwen2-vl-2b's
+      12/2 heads of 128 (a GQA group of 6: ``qwen_*``, bf16 only): source
+      prefill, Memory-LLM, prompt causal and against the prefix, decode;
+      whisper-medium's 16 heads of 64 (``whisper_*``, bf16 only): the
+      encoder's 1500 x 1500 self-attention and the cross-attention of the
+      512 memory rows, a 12-token prompt and a decode step over the 1500
+      frames (not causal, every position 0; 1500 = 23 x 64 + 28), and its
+      causal source prefill; and widths no kernel is built for
+      (``width_*``, zero-padded to ``fa.tile_dims``' tile, the row's
+      ``tile``): 16 and 32 causal over 512 rows, MLA smoke's (24, 16)
+      causal and (40, 32) in a decode on one latent head.  Every bf16 shape
       runs through both bf16 kernels (at (576, 512) the mma.sync one
       alone: the wgmma variant takes (192, 128) and Dv == D), the wgmma
       variant and the mma.sync one, each forced and each held to the
@@ -68,7 +78,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
       few-row calls time mostly the host; ``fa.variant_for``'s rule is
       set from these device times);
    b. ``memcom_xattn`` at 1x512 x 3072 at D = 2304 and D = 1536 (the
-      compress paths'), and mistral-7b's 1x768 x 6144 x 4096, smollm-360m's
+      compress paths'; qwen2-vl-2b's too) and whisper-medium's D = 1024
+      (bf16 only), and mistral-7b's 1x768 x 6144 x 4096, smollm-360m's
       D = 960 (15 slabs of 64: the last output tile 192 columns wide) and
       stablelm-1.6b's 2048 at 1x512 x 3072, and jamba-1.5-large-398b's
       D = 8192 and deepseek-v2-236b's 5120 at 1x1024 x 3072 (bf16 only).
@@ -95,8 +106,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
       tables of 4096 positions, deepseek-v2-236b's absorbed decode
       (``mla_decode``, ``mla_decode_w4``: q 4xWx128x576 against latent
       pools of (576, 512), bf16 only, a 1024-row prefix shared by two
-      slots) and jamba-1.5-large-398b's attention (64/8 heads of 128)
-      behind its 1024-row prefix.  ``device_ms``: CUDA-graph replay rotating through
+      slots), jamba-1.5-large-398b's attention (64/8 heads of 128)
+      behind its 1024-row prefix, qwen2-vl-2b's 12/2 heads of 128 (group
+      6) at S = 1 and 3, whisper-medium's decoder self-attention (16 x 64),
+      and widths run at a wider tile (``pa.tile_dims``: the loads past the
+      call's widths skipped, no pool copied): 16, 32 and MLA smoke's
+      (40, 32).  ``device_ms``: CUDA-graph replay rotating through
       input sets whose K/V rows read add up past 60 MB (14 at ``decode``),
       so that no call finds its rows in the 50 MB L2.  Its bound counts
       each distinct (pool block, offset) position below some slot's
@@ -164,7 +179,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
       and against the 1024-row prefix (both with an lse cotangent, float32
       too) and the 3072-token source (Phase 2; bf16 through the wgmma
       kernel, the one bf16 backward that takes the pair, float32 through
-      the CUDA cores); ``memcom_xattn`` at
+      the CUDA cores); whisper-medium's Memory-LLM cross-attention 2 x 512
+      over 1500 frames; and the padded widths 16 and (24, 16), both
+      dtypes, with an lse cotangent; ``memcom_xattn`` at
       2x512x3072x2304, 1x512x3072x1536 and mistral-7b's 1x768x6144x4096.
       Rows that get no gradient by their positions (queries that see no
       key, keys that no query sees) must be exactly 0.  Every bf16 flash
@@ -367,9 +384,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    mistral-7b's ICAE++), and the restart restores a Trainer from the
    checkpoint and then calls its step function on the later steps'
    batches.
-   e. mistral-7b (after the training phase, the other models freed; 32
-      layers, d_model 4096, 32/8 heads of 128, m = 768; 23.89 B
-      parameters over its three stacks and memx, initialised on the card):
+   e. mistral-7b (after the training phase, the other models freed; cut
+      to 16 of its 32 layers to keep the run within its time limit; d_model 4096, 32/8 heads of 128, m = 768; ~12.35 B parameters
+      over its three stacks and memx at that depth, initialised on the
+      card):
       as 4a-b on three 6144-token tasks' first two; then the online
       compiler: O^i of a 512-token chunked compile within
       ``plain.scaled_err`` 2e-2 of the offline compress and bitwise equal
@@ -501,6 +519,40 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the plain run replaying the kernel run's top-k ids; mamba2-370m's
    next-token loss over 2 x 3072 tokens (two ``ssd`` backward calls).
 
+   After 4p:
+   q. qwen2-vl-2b (28 layers, d_model 1536, 12/2 heads of 128, M-RoPE,
+      qkv bias, m = 512; three stacks and memx of ~4.9 B parameters) at
+      full width and depth, as 4a-b (two 3072-token tasks, a dense serve
+      of 4 requests, the 12-request paged serve with stops and refills,
+      the first tokens dense = paged, every source prefill and
+      ``memcom_xattn`` call through its wgmma variant) with the profiled
+      runs, then its depth-2 check (phase 5, the fused steps included).
+   r. whisper-medium (24 decoder and 24 encoder layers, d_model 1024, 16
+      heads of 64, 1500 frames, m = 512; ~2.4 B parameters over three
+      stacks and memx; a slot's cross entries ~147 MB) at full width and
+      depth: (b) the launcher's engine path, which has no frames (as in
+      the JAX package: the one-shot compress's cross blocks fall through
+      to a causal self-attention; the engine's read zero cross entries),
+      as 4a-b; then on the same models (a) the frames path through the
+      JAX package's entry points: ``launch.steps.build_compress_step`` on
+      the two tasks with 1500 seeded frames each, ``write_prefix_to_cache``,
+      a target prefill of a prompt at cache_index = mask_offset = m with
+      the encoder output (filling the cross entries) and 16 greedy steps
+      of ``build_decode_step``, which read them back: every call over the
+      frames (the encoder's 24 layers and each decoder block's cross-
+      attention) launches the flash kernel, the encoder's through the
+      wgmma variant (printed with its split count), logits finite; then
+      (c) the depth-2 check (encoder depth 2 too) of both paths (no fused
+      step: enc-dec refuses it, as the JAX engine does).
+   s. ``launch/serve.py --smoke`` on the card for whisper-medium,
+      qwen2-vl-2b, deepseek-v2-236b and jamba-1.5-large-398b (float32 at
+      the widths no kernel is built for: 16, 32, MLA's (24, 16) and (40,
+      32)), dense and paged (blocks of 4), each run again forced to the
+      plain versions: identical tokens, and the flash (and paged) kernel
+      launched in the kernel run.  4h's trained target also serves paged
+      (its 32-wide heads on the paged kernel's 64-wide tile), kernel and
+      plain: the classic engine's tokens.
+
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
 ``"shapes"``; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -517,6 +569,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace as dc_replace
 from pathlib import Path
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -737,6 +790,9 @@ def main() -> int:
     smollm_heads = (15, 5, 64, 0.0)    # smollm-360m: GQA group 3
     stablelm_heads = (32, 32, 64, 0.0)  # stablelm-1.6b: MHA
     jamba_heads = (64, 8, 128, 0.0)    # jamba-1.5-large-398b's attention
+    qwen_heads = (12, 2, 128, 0.0)     # qwen2-vl-2b: GQA group 6
+    whisper_heads = (16, 16, 64, 0.0)  # whisper-medium: MHA
+    frames = 1500                      # whisper-medium's encoder frames
     # deepseek-v2-236b's MLA: the non-absorbed prefill, keys 128 nope + 64
     # rope, values 128, 128 heads; the absorbed decode, 128 query heads on
     # one latent head of 576 (key) / 512 (value); both at scale 192^-0.5
@@ -860,12 +916,52 @@ def main() -> int:
         ("jamba_prompt_prefix", 1, prompt_len, mla_m,
          arange(mla_m, prompt_len)[None], arange(0, mla_m)[None], False,
          jamba_heads),
+        # qwen2-vl-2b (12/2 x 128, group 6): source prefill, Memory-LLM,
+        # prompt causal and against the prefix, decode
+        ("qwen_source_prefill", 1, T, T, arange(0, T)[None],
+         arange(0, T)[None], True, qwen_heads),
+        ("qwen_memory_self", 1, m, m, arange(0, m)[None], arange(0, m)[None],
+         True, qwen_heads),
+        ("qwen_prompt_self", 1, prompt_len, prompt_len,
+         arange(m, prompt_len)[None], arange(m, prompt_len)[None], True,
+         qwen_heads),
+        ("qwen_prompt_prefix", 1, prompt_len, m, arange(m, prompt_len)[None],
+         arange(0, m)[None], False, qwen_heads),
+        ("qwen_decode", slots, 1, max_len, (lengths - 1)[:, None], decode_kv,
+         True, qwen_heads),
+        # whisper-medium (16 x 64): the encoder over 1500 frames and the
+        # decoder's cross-attention of the 512 memory rows, a prompt and a
+        # decode step over them (not causal, every position 0: 1500 = 23 x
+        # 64 + 28, a ragged last tile), and its causal source prefill
+        ("whisper_encoder", 1, frames, frames, arange(0, frames)[None] * 0,
+         arange(0, frames)[None] * 0, False, whisper_heads),
+        ("whisper_memory_cross", 1, m, frames, arange(0, m)[None] * 0,
+         arange(0, frames)[None] * 0, False, whisper_heads),
+        ("whisper_prompt_cross", 1, prompt_len, frames,
+         arange(0, prompt_len)[None] * 0, arange(0, frames)[None] * 0, False,
+         whisper_heads),
+        ("whisper_decode_cross", slots, 1, frames,
+         arange(0, 1)[None].expand(slots, 1) * 0,
+         arange(0, frames)[None].expand(slots, frames) * 0, False,
+         whisper_heads),
+        ("whisper_source_prefill", 1, T, T, arange(0, T)[None],
+         arange(0, T)[None], True, whisper_heads),
+        # widths no kernel is built for (zero-padded to fa.tile_dims'
+        # tile): the smoke configs' 16 (whisper, jamba) and 32 (qwen2-vl,
+        # the bench target), MLA smoke's (24, 16) causal and (40, 32) in
+        # its absorbed decode (8 query heads on one latent head)
+        *((f"width_{D_}", 1, m, m, arange(0, m)[None], arange(0, m)[None],
+           True, (8, 4, D_, 0.0)) for D_ in (16, 32)),
+        ("width_24_16", 1, m, m, arange(0, m)[None], arange(0, m)[None],
+         True, (8, 8, 24, 0.0, 16, 24 ** -0.5)),
+        ("width_40_32_decode", slots, 1, max_len, (lengths - 1)[:, None],
+         decode_kv, True, (8, 1, 40, 0.0, 32, 24 ** -0.5)),
     ]
     # shapes held in bf16 alone: the full-width models run bf16 (the
     # float32 kernel at (192, 128) is held at the MLA prompt's shape)
     BF16_ONLY = ("mistral", "probe_", "icae_", "smollm_", "stablelm_",
                  "jamba_", "mla_source", "mla_memory", "mla_decode",
-                 "mla_fused")
+                 "mla_fused", "qwen_", "whisper_")
     flash_rows = []
     t_phase = time.perf_counter()
     for name, B, Sq, Skv, q_pos, kv_pos, causal, heads in attn_cases:
@@ -873,15 +969,18 @@ def main() -> int:
         Hq, Hkv, D, cap = heads[:4]
         Dv, scale = heads[4:] if len(heads) > 4 else (D, None)
         nsplit = fa._splits(B, Sq, Skv, Hq, Hkv, torch.cuda.current_device())
-        dispatched = fa.variant_for(torch.bfloat16, D, Skv, nsplit, Dv)
+        tile = fa.tile_dims(torch.bfloat16, D, Dv)  # padded widths' kernel
+        dispatched = fa.variant_for(torch.bfloat16, tile[0], Skv, nsplit,
+                                    tile[1])
         # the bf16 kernels that take the shape (the wgmma one: not at
         # (576, 512))
         bf16_variants = (("wgmma", "mma_sync")
-                         if fa.wgmma_takes(torch.bfloat16, D, Skv, Dv)
+                         if fa.wgmma_takes(torch.bfloat16, tile[0], Skv,
+                                           tile[1])
                          else ("mma_sync",))
         row = {"shape": name, "q": [B, Sq, Hq, D], "kv": [B, Skv, Hkv, D],
                "v_width": Dv, "causal": causal, "softcap": cap,
-               "variant": dispatched, "nsplit": nsplit}
+               "variant": dispatched, "nsplit": nsplit, "tile": list(tile)}
         dtypes = ((torch.bfloat16,) if name.startswith(BF16_ONLY)
                   else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
@@ -943,10 +1042,14 @@ def main() -> int:
                 # SDPA takes Dv != D (its memory-efficient or math backend)
                 # and the explicit scale
                 if name.endswith(("source_prefill", "memory_self",
-                                  "prompt_self", "_compressor", "_target")):
+                                  "prompt_self", "_compressor", "_target")) \
+                        or (causal and Sq == Skv and name.startswith("width")):
                     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                         qt, kt, vt, is_causal=True, enable_gqa=True,
                         scale=scale)
+                elif bool(mask.all()):  # every pair visible: no mask
+                    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                        qt, kt, vt, enable_gqa=True, scale=scale)
                 else:
                     am = mask[:, None]
                     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -974,7 +1077,8 @@ def main() -> int:
                     times = (f"Dv {Dv}, mma.sync only; device "
                              f"{row['device_ms_mma_sync']:.4f}")
                 log(f"  {name} bf16: kernel {row['ms']:.4f} ms "
-                    f"({dispatched}, {nsplit} split; {times}), plain "
+                    f"({dispatched}, {nsplit} split, tile {tile}; {times}), "
+                    f"plain "
                     f"{row['plain_ms']:.4f} ms, sdpa "
                     f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
                     f" ms ({row['bound_by']})")
@@ -990,6 +1094,9 @@ def main() -> int:
     mx_rows = []
     for name, B, Mx, Tx, D in (("memory_xattn", 1, m, T, 2304),
                                ("granite_memory_xattn", 1, m, T, 1536),
+                               # whisper-medium's D = 1024 (qwen2-vl-2b's
+                               # 1536 is granite's shape above)
+                               ("whisper_memory_xattn", 1, m, T, 1024),
                                ("mistral_memory_xattn", 1, 768, 2 * T, 4096),
                                # smollm-360m's D = 960 (15 slabs of 64: a
                                # last 192-column output tile) and
@@ -1144,6 +1251,22 @@ def main() -> int:
         # jamba-1.5-large-398b's attention layer behind its 1024-row prefix
         ("jamba_decode", slots, 1, 64, 8, 128, 16, mla_lengths.tolist(),
          mla_m // 16, 0.0, mla_max_len),
+        # qwen2-vl-2b (12 query heads on 2 KV heads of 128: group 6, one
+        # row group at S = 1, three at S = 3) and whisper-medium's decoder
+        # self-attention (16 x 64)
+        ("qwen_decode", slots, 1, 12, 2, 128, 16, main_lens, pm, 0.0,
+         max_len),
+        ("qwen_decode_s3", slots, 3, 12, 2, 128, 16, main_lens, pm, 0.0,
+         max_len),
+        ("whisper_decode", slots, 1, 16, 16, 64, 16, main_lens, pm, 0.0,
+         max_len),
+        # widths run at a wider tile with the loads past them skipped (no
+        # pool copied): 16 and 32 (smoke configs, the bench target), MLA
+        # smoke's absorbed (40, 32) on one latent head
+        *((f"width_{D_}", slots, 1, 8, 4, D_, 16, main_lens, pm, 0.0,
+           max_len) for D_ in (16, 32)),
+        ("width_40_32", slots, 1, 8, 1, 40, 16, main_lens, pm, 0.0, max_len,
+         32, 24 ** -0.5),
     ]
     paged_rows = []
     for name, B, S, hq, hkv, Dh, bs, lens, share, cap, table, *extra \
@@ -1151,7 +1274,8 @@ def main() -> int:
         Dv, scale = extra if extra else (Dh, None)
         row = {"shape": name, "q": [B, S, hq, Dh], "v_width": Dv,
                "block_size": bs, "lengths": lens, "shared_blocks": share,
-               "softcap": cap, "table": table}
+               "softcap": cap, "table": table,
+               "tile": list(pa.tile_dims(torch.bfloat16, Dh, Dv))}
         for dtype in ((torch.bfloat16,) if Dh == 576
                       else (torch.float32, torch.bfloat16)):
             dn = str(dtype).split(".")[1]
@@ -1662,6 +1786,20 @@ def main() -> int:
          ("float32", "bfloat16")),
         ("mla_source_bwd", 1, T, T, arange(0, T)[None], arange(0, T)[None],
          True, mla_heads, False, ("bfloat16",)),
+        # whisper-medium's Memory-LLM cross-attention over 1500 frames (not
+        # causal, every position 0): the next slice's Phase-1 call
+        ("whisper_memory_cross_bwd", 2, m, frames,
+         arange(0, m)[None].expand(2, m) * 0,
+         arange(0, frames)[None].expand(2, frames) * 0, False,
+         whisper_heads, False, ("bfloat16",)),
+        # widths no kernel is built for, zero-padded to fa.tile_dims' tile
+        ("width_16_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
+         arange(0, m)[None].expand(2, m), True, (8, 4, 16, 0.0), True,
+         ("float32", "bfloat16")),
+        ("width_24_16_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
+         arange(0, m)[None].expand(2, m), True, (8, 8, 24, 0.0, 16,
+                                                 24 ** -0.5), True,
+         ("float32", "bfloat16")),
     ]
     flash_bwd_rows = []
     for (name, B, Sq, Skv, q_pos, kv_pos, causal, heads, with_dlse,
@@ -1696,8 +1834,9 @@ def main() -> int:
             # alone); the wgmma one also against its own arithmetic
             # (plain.attention_bwd_tiled) in bf16 steps, over the rows
             # grad_err holds by their own scale
+            tile = fa.tile_dims(dtype, D, Dv)  # the widths the kernel runs
             variants = ((None,) if dn == "float32"
-                        else ("wgmma", "mma_sync") if Dv == D
+                        else ("wgmma", "mma_sync") if tile[1] == tile[0]
                         else ("wgmma",))
             errs = []
             for vn in variants:
@@ -1713,8 +1852,8 @@ def main() -> int:
                     dn, got, want, zero_rows))
                 # the tiled restatement keeps whole float32 matrices: not
                 # at the ICAE shapes (12 GB a matrix at mistral-7b's)
-                if vn == "wgmma" and not name.startswith(("icae_",
-                                                          "mistral_icae")):
+                if vn == "wgmma" and tile == (D, Dv) and not name.startswith(
+                        ("icae_", "mistral_icae")):
                     tiled = plain.attention_bwd_tiled(
                         *(x.float() for x in (q, k, v, out)), lse,
                         dout.float(), dlse, split_at=fa.bwd_split_at(
@@ -1732,8 +1871,9 @@ def main() -> int:
             pairs = int(seen.sum())
             del seen, zero_rows, want
             if dn == "bfloat16" and name != "masked_rows_bwd":
-                row["variant"] = fa.bwd_variant_for(dtype, D, Sq * Hq // Hkv,
-                                                    Skv, Dv)
+                row["variant"] = fa.bwd_variant_for(
+                    dtype, tile[0], Sq * Hq // Hkv, Skv, tile[1])
+                row["tile"] = list(tile)
                 # three input sets, so that no replayed call finds its
                 # inputs (25 MB at the Memory-LLM's shape) in the 50 MB L2
                 sets = [(q, k, v, dout)] + [
@@ -2563,9 +2703,12 @@ def main() -> int:
         m, _, sources, max_len = geom
         cfg = get_config(arch)
         mlp = cfg.layout.period[0].mlp
+        cross = cfg.layout.period[0].cross_attn
         cfg2 = cfg.replace(name=f"{arch}-depth2",
-                           layout=LayerLayout.uniform(LayerDesc("attn", mlp),
-                                                      2))
+                           layout=LayerLayout.uniform(
+                               LayerDesc("attn", mlp, cross_attn=cross), 2))
+        if cfg.encoder is not None:  # the encoder cut to depth 2 as well
+            cfg2 = cfg2.replace(encoder=dc_replace(cfg.encoder, num_layers=2))
         tag = f"[{arch} kernel-vs-plain]"
         target2 = tfm.init_params(cfg2, 0)
         compressor2 = memcom.init_memcom(cfg2, target2, 1)
@@ -2604,6 +2747,46 @@ def main() -> int:
         if not (rel_omega <= E2E_REL_TOL and rel_logits <= E2E_REL_TOL):
             raise AssertionError(f"{arch}: kernel path and plain path "
                                  "disagree end to end")
+        frames_errs = None
+        if cfg.encoder is not None:
+            # the frames path (4r a): the Source-LLM's encoder output
+            # threaded to the Memory-LLM and to the target's prefill
+            g_fr = torch.Generator(device=dev)
+            g_fr.manual_seed(16)
+            fr = (0.1 * torch.randn((1, cfg.encoder.num_frames, cfg.d_model),
+                                    generator=g_fr, device=dev)).to(
+                target2.dtype)
+
+            def frames_pipeline():
+                prefix, info = memcom.compress(compressor2, cfg2, src,
+                                               encoder_frames=fr)
+                kv = materialize_prefix(target2, cfg2, prefix)
+                with torch.no_grad():
+                    logits, _ = target2(tokens=prompt, prefix=kv,
+                                        mask_offset=m,
+                                        encoder_out=info["encoder_out"])
+                return ([e["h"] for e in prefix], info["encoder_out"],
+                        logits[0, -1])
+
+            set_counts()
+            om_k, enc_k, lg_k = frames_pipeline()
+            torch.cuda.synchronize()
+            fr_counts = counts()
+            ops.set_default_impl("torch")
+            try:
+                om_p, enc_p, lg_p = frames_pipeline()
+            finally:
+                ops.set_default_impl(None)
+            frames_errs = {
+                "omega_rel_err": max(rel(a, b) for a, b in zip(om_k, om_p)),
+                "encoder_out_rel_err": rel(enc_k, enc_p),
+                "logits_rel_err": rel(lg_k, lg_p)}
+            log(f"{tag} frames path, depth 2 (encoder depth 2), bf16: "
+                f"{frames_errs} (tol {E2E_REL_TOL:g}); launches {fr_counts}")
+            if not (max(frames_errs.values()) <= E2E_REL_TOL
+                    and fr_counts["flash_attention"] > 0):
+                raise AssertionError(f"{arch}: the frames path's kernel and "
+                                     "plain runs disagree")
         # a paged engine at a block size that does not divide m (12 at m
         # 512, 10 at 768: 8 positions either way): the shared tail block
         # is copied on write by both prefills, then one decode step reads
@@ -2657,8 +2840,9 @@ def main() -> int:
         out = {"omega_rel_err": rel_omega, "logits_rel_err": rel_logits,
                "paged_prefill_rel_err": rel_pre,
                "paged_step_rel_err": rel_step,
-               "moe_rows_replayed": [flips, flips_paged]}
-        if mlp != "moe":
+               "moe_rows_replayed": [flips, flips_paged],
+               "frames": frames_errs}
+        if mlp != "moe" and not cross:  # enc-dec refuses the fused step
             out["fused_steps"] = fused_steps_vs_plain(cfg2, target2, kv2, tag,
                                                       max_len)
         if mlp == "moe":
@@ -4820,14 +5004,25 @@ def main() -> int:
                  "spec_self": dict(fused_step=True, spec_draft="self",
                                    spec_k=3),
                  "spec_cross": dict(fused_step=True, spec_k=3, spec_draft=(
-                     cfg, tfm.init_params(cfg, 9)))}
+                     cfg, tfm.init_params(cfg, 9))),
+                 # the paged layout (head dim 32: the paged kernel at its
+                 # 64-wide tile), and the same forced to the plain versions
+                 "paged": dict(kv_layout="paged", block_size=16),
+                 "paged_plain": dict(kv_layout="paged", block_size=16)}
         runs, out = {}, {}
         for mode, kw in modes.items():
             eng = ServingEngine(cfg, target, slots=slots, max_len=mlen,
                                 fused_chunk_tokens=16, **kw)
             set_counts()
-            res = eng.serve([Request(**x) for x in specs])
+            ops.set_default_impl("torch" if mode == "paged_plain" else None)
+            try:
+                res = eng.serve([Request(**x) for x in specs])
+            finally:
+                ops.set_default_impl(None)
             paths[f"bench-target {mode}"] = counts()
+            if mode == "paged" and not counts()["paged_flash_decode"]:
+                raise AssertionError(f"{tag}: the paged serve launched no "
+                                     "paged_flash_decode")
             runs[mode] = [res[u].tolist() for u in sorted(res)]
             es = eng.stats()["engine"]
             out[mode] = {k_: es[k_] for k_ in (
@@ -5071,6 +5266,159 @@ def main() -> int:
             torch.cuda.empty_cache()
         return out
 
+    # ---- 4q, 4r, 4s. qwen2-vl-2b, whisper-medium, the smoke launchers --
+    def whisper_frames(cfg, target, compressor, prefixes, engine, pengine):
+        """4r (a): whisper-medium's encoder frames through the JAX
+        package's own entry points (the engine and the launcher take none):
+        ``build_compress_step`` on the two tasks with 1500 seeded frames
+        each, ``write_prefix_to_cache``, a target prefill of the prompt at
+        cache_index = mask_offset = m with the encoder output (which fills
+        the cross entries), and 16 greedy steps of ``build_decode_step``,
+        which read them back.  Every call with the frames as keys (the
+        encoder's self-attention, the decoder blocks' cross-attention)
+        must launch the flash kernel; logits finite."""
+        from repro_torch.launch import steps as lsteps
+        from repro_torch.serving import write_prefix_to_cache
+
+        tag = "[whisper-medium frames]"
+        nf = cfg.encoder.num_frames
+        g_fr = torch.Generator(device=dev)
+        g_fr.manual_seed(15)
+        frames_in = [(0.1 * torch.randn((1, nf, cfg.d_model), generator=g_fr,
+                                        device=dev)).to(target.dtype)
+                     for _ in sources]
+        compress_step = lsteps.build_compress_step(cfg)
+        decode_step = lsteps.build_decode_step(cfg)
+        calls = []  # (query rows, kernel launches, wgmma launches)
+        inner = fa.flash_attention
+
+        def spy(q, k, v, **kw):
+            before = (fa.launches, fa.wgmma_launches)
+            out = inner(q, k, v, **kw)
+            if k.shape[1] == nf:
+                calls.append((q.shape[1], fa.launches - before[0],
+                              fa.wgmma_launches - before[1]))
+            return out
+
+        fa.flash_attention = spy
+        try:
+            set_counts()
+            t0 = time.perf_counter()
+            steps_out = [compress_step(compressor, target, {
+                "source": torch.as_tensor(src[None], device=dev),
+                "frames": fr}) for src, fr in zip(sources, frames_in)]
+            torch.cuda.synchronize()
+            compress_s = time.perf_counter() - t0
+            n_compress = len(calls)
+            streams, finite, cross_set = [], True, True
+            t0 = time.perf_counter()
+            for (kv, enc), p_ in zip(steps_out, prompts[:2]):
+                cache = tfm.init_cache(cfg, 1, max_len, device=dev)
+                write_prefix_to_cache(cfg, cache, kv)
+                with torch.no_grad():
+                    logits, _ = target(
+                        tokens=torch.as_tensor(p_[None], dtype=torch.long,
+                                               device=dev),
+                        cache=cache, cache_index=m, mask_offset=m,
+                        encoder_out=enc)
+                cross_set &= all(bool(c["ck"].ne(0).any()) for c in cache)
+                finite &= bool(torch.isfinite(logits).all())
+                tok = logits[:, -1].argmax(-1)
+                got = [int(tok)]
+                n = m + len(p_)
+                for i in range(max_new - 1):
+                    lg, _ = decode_step(target, cache, {
+                        "tokens": tok[:, None],
+                        "cache_index": torch.tensor([n + i], dtype=torch.int32,
+                                                    device=dev)})
+                    finite &= bool(torch.isfinite(lg).all())
+                    tok = lg[:, -1].argmax(-1)
+                    got.append(int(tok))
+                streams.append(got)
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            launches = counts()
+        finally:
+            fa.flash_attention = inner
+        L = cfg.num_layers
+        # per task: the source encoder's layers, the source's and the
+        # Memory-LLM's cross-attention, the prefill's, and the 15 decode
+        # steps' over the cross cache
+        want = len(sources) * (cfg.encoder.num_layers + 2 * L + L
+                               + L * (max_new - 1))
+        enc_calls = [c for c in calls if c[0] == nf]
+        nsplit = fa._splits(1, nf, nf, cfg.num_heads, cfg.num_kv_heads,
+                            torch.cuda.current_device())
+        out = {
+            "compress_s": compress_s, "serve_s": serve_s, "tokens": streams,
+            "frame_calls": len(calls), "frame_calls_compress": n_compress,
+            "frame_calls_launched": sum(c[1] for c in calls),
+            "encoder_calls": len(enc_calls),
+            "encoder_wgmma": sum(c[2] for c in enc_calls),
+            "encoder_variant": fa.variant_for(torch.bfloat16, cfg.hd, nf,
+                                              nsplit),
+            "encoder_nsplit": nsplit, "launches": launches}
+        log(f"{tag} {card}: build_compress_step over 2 x {T} tokens and "
+            f"{nf} frames {compress_s:.3f}s; prefill + {max_new - 1} "
+            f"build_decode_step steps a task {serve_s:.3f}s; tokens "
+            f"{streams}; calls over the frames {len(calls)} (want {want}, "
+            f"{out['frame_calls_launched']} launched the kernel; "
+            f"{n_compress} in the compress); the encoder's {nf} x {nf} "
+            f"calls: {len(enc_calls)}, {out['encoder_wgmma']} through wgmma "
+            f"({out['encoder_variant']}, {nsplit} split); cross entries "
+            f"written {cross_set}; launches {launches}")
+        if not (len(calls) == want == out["frame_calls_launched"]
+                and finite and cross_set
+                and out["encoder_wgmma"] == len(enc_calls) > 0
+                and all(0 <= t_ < cfg.vocab_size for s_ in streams
+                        for t_ in s_)):
+            raise AssertionError(f"{tag}: the frames path failed its checks")
+        return out
+
+    def smoke_launchers():
+        """4s: ``launch/serve.py --smoke`` on the card at the widths no
+        kernel is built for (float32 smoke configs: whisper-medium 16,
+        jamba 16, qwen2-vl 32, deepseek-v2 MLA (24, 16) and (40, 32)),
+        dense and paged, each run again forced to the plain versions:
+        identical tokens, and every kernel of the path launched in the
+        kernel run."""
+        from repro_torch.launch import serve as launch_serve
+
+        out = {}
+        for arch in ("whisper-medium", "qwen2-vl-2b", "deepseek-v2-236b",
+                     "jamba-1.5-large-398b"):
+            for layout in ("dense", "paged"):
+                argv = ["--arch", arch, "--smoke", "--requests", "4",
+                        "--tasks", "2", "--slots", "2", "--max-new", "6"]
+                if layout == "paged":
+                    argv += ["--kv-layout", "paged", "--block-size", "4"]
+                runs = {}
+                for impl in (None, "torch"):
+                    ops.set_default_impl(impl)
+                    set_counts()
+                    try:
+                        metrics = launch_serve.main(argv)
+                    finally:
+                        ops.set_default_impl(None)
+                    torch.cuda.synchronize()
+                    runs[impl] = (metrics["tokens"], counts())
+                (toks, c), (ptoks, pc) = runs[None], runs["torch"]
+                need = ["flash_attention"] + (["paged_flash_decode"]
+                                              if layout == "paged" else [])
+                ok = (toks == ptoks and all(c[k_] > 0 for k_ in need)
+                      and not any(pc[k_] for k_ in need))
+                key = f"{arch} smoke {layout}"
+                out[key] = {"tokens_equal_plain": toks == ptoks,
+                            "launches": c}
+                paths[key] = c
+                log(f"[{key}] on the card: tokens {toks}; equal to the "
+                    f"plain run's: {toks == ptoks}; launches {c}")
+                if not ok:
+                    raise AssertionError(f"[{key}]: the kernel run and the "
+                                         "plain run disagree, or a kernel "
+                                         "was not launched")
+        return out
+
     paths = {}
     base_geom = (m, T, sources, max_len)
     for arch, need in (("gemma2-2b", ()), ("granite-moe-3b-a800m", ("gmm",))):
@@ -5128,8 +5476,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
     mgeom = (768, MT, msources[:2], 768 + 24 + max_new + 16)
+    # depth 16 of 32, to keep the run within its time limit with 4q-4s
+    # (the whole run took 996 s of its 1200 s on an H100 at full depth)
     report["mistral-7b"] = main_path("mistral-7b", (), mgeom,
-                                     then=mistral_then)
+                                     then=mistral_then, depth=16)
     then = report["mistral-7b"]["then"]
     paths["mistral-7b dense"] = report["mistral-7b"]["launches"]
     paths["mistral-7b paged"] = report["mistral-7b"]["paged"]["launches"]
@@ -5236,6 +5586,31 @@ def main() -> int:
     report[key]["phase_s"] = time.perf_counter() - t_phase
     log(f"[{key}] phases 4p and 5: {report[key]['phase_s']:.1f}s (training "
         f"{train_s:.1f}s)")
+
+    # 4q: qwen2-vl-2b (M-RoPE, 12/2 x 128: a GQA group of 6) and 4r:
+    # whisper-medium (enc-dec, 16 x 64, 1500 frames) at full width and
+    # depth, each then checked against the plain path at depth 2 (phase
+    # 5); whisper's frames path runs on the models of its main path
+    for arch, then in (("qwen2-vl-2b", None),
+                       ("whisper-medium", whisper_frames)):
+        t_phase = time.perf_counter()
+        report[arch] = main_path(arch, (), base_geom, then=then)
+        paths[f"{arch} dense"] = report[arch]["launches"]
+        paths[f"{arch} paged"] = report[arch]["paged"]["launches"]
+        if then is not None:
+            paths[f"{arch} frames"] = report[arch]["then"]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[arch]["kernel_vs_plain"] = kernel_vs_plain(arch, base_geom)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[arch]["phase_s"] = time.perf_counter() - t_phase
+        log(f"[{arch}] phases {'4q' if then is None else '4r'} and 5: "
+            f"{report[arch]['phase_s']:.1f}s")
+    # 4s: the smoke launchers at the padded widths
+    t_phase = time.perf_counter()
+    report["smoke_launchers"] = smoke_launchers()
+    log(f"[smoke launchers] phase 4s: {time.perf_counter() - t_phase:.1f}s")
 
     # ---- result lines ----------------------------------------------------
     def compile_chunk(rows):

@@ -10,6 +10,10 @@ entry) per layer, in layer order::
     layer index of prefix entry i          = i
     layer index of period l{j}, repeat r   = len(prefix) + r * len(period) + j
 
+An enc-dec model's encoder (``encoder/period/l0/...`` stacked
+``encoder.num_layers`` times, and ``encoder/final_norm``) is the port's
+``encoder.layers.{r}`` and ``encoder.final_norm``.
+
 :func:`from_jax_params` / :func:`from_jax_memcom` / :func:`from_jax_icae`
 build port modules from the JAX pytrees (numpy leaves, e.g.
 ``jax.tree.map(np.asarray, params)``), :func:`load_params` from a
@@ -75,6 +79,10 @@ def _transformer_names(cfg: ModelConfig, tree) -> Dict[str, np.ndarray]:
         head, _, rest = path.partition("/")
         if head.startswith("prefix_"):
             out[f"layers.{int(head[7:])}.{rest.replace('/', '.')}"] = arr
+        elif head == "encoder" and rest.startswith("period/"):
+            rest = rest.split("/", 2)[2]  # past "period/l0"
+            for r in range(cfg.encoder.num_layers):
+                out[f"encoder.layers.{r}.{rest.replace('/', '.')}"] = arr[r]
         elif head == "period":
             lj, _, rest = rest.partition("/")
             for r in range(cfg.layout.repeats):
@@ -136,6 +144,9 @@ def jax_path(cfg: ModelConfig, kind: str, name: str) -> str:
     if head == "layers":
         li, _, rest = rest.partition(".")
         return f"{_layer_path(cfg, int(li))[1]}/{rest.replace('.', '/')}"
+    if name.startswith("encoder.layers."):
+        rest = name.split(".", 3)[3]
+        return f"encoder/period/l0/{rest.replace('.', '/')}"
     return name.replace(".", "/")
 
 
@@ -229,13 +240,19 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _transformer_tree(cfg: ModelConfig, model: Transformer) -> dict:
-    tree, per_layer = {}, {}
+    tree, per_layer, encoder = {}, {}, {}
     for name, p in model.named_parameters():
         if name.startswith("layers."):
             _, li, rest = name.split(".", 2)
             per_layer.setdefault(int(li), {})[rest.replace(".", "/")] = _numpy(p)
+        elif name.startswith("encoder.layers."):
+            _, _, r, rest = name.split(".", 3)
+            encoder.setdefault(rest.replace(".", "/"), {})[int(r)] = _numpy(p)
         else:
             _set_path(tree, name.replace(".", "/"), _numpy(p))
+    for path, rows in encoder.items():
+        _set_path(tree, f"encoder/period/l0/{path}",
+                  np.stack([rows[r] for r in range(len(rows))]))
     tree.update(_stack_layers(cfg, per_layer))
     return tree
 

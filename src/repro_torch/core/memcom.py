@@ -21,6 +21,16 @@ multiple of ``CHUNK_ROWS``, at which the card's matmuls compute each row
 as they do in the one-shot's (fewer rows take other GEMM kernels, whose
 sums round otherwise).
 
+Enc-dec (Whisper): ``encoder_frames`` (B, F, D) run the Source-LLM's
+encoder, and its output is what the Source-LLM's, the Memory-LLM's and
+(in ``memcom_loss``) the target's decoder blocks cross-attend to, as the
+JAX package threads it; ``info["encoder_out"]`` returns it.  Without
+frames a cross block falls through as the JAX package's does (see
+:mod:`repro_torch.models.attention`): the one-shot compress runs it as a
+causal self-attention, while a chunked compress, whose Source-LLM cache
+holds zero cross entries, attends to them, so the two prefixes differ
+(as they do in the JAX package).
+
 Training (``memcom_loss``): Phase-1 trains only ``memx`` and
 ``mem_tokens``; Phase-2 also the Source- and Memory-LLM; the target is
 frozen in both.  :func:`set_trainable` turns ``requires_grad`` on for the
@@ -33,7 +43,7 @@ from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field, replace
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -140,9 +150,10 @@ def _as_tokens(mc: MemCom, tokens):
 
 
 def _memory(mc: MemCom, cfg: ModelConfig, hiddens: list, source_cache=None,
-            remat=False):
+            remat=False, encoder_out=None):
     """The Memory-LLM over the m memory tokens with the per-layer
-    cross-attention into the source hiddens H^i; returns the prefix (the
+    cross-attention into the source hiddens H^i (and its enc-dec blocks
+    into the Source-LLM's ``encoder_out``); returns the prefix (the
     Mamba2 layers' entries are ``source_cache``'s final states)."""
     B = hiddens[0].shape[0]
     m = cfg.memcom.num_memory_tokens
@@ -150,12 +161,13 @@ def _memory(mc: MemCom, cfg: ModelConfig, hiddens: list, source_cache=None,
     _, aux_m = mc.memory_llm(
         embeds=mem_embeds,
         memcom={"params": memx_list(mc.memx), "src": hiddens},
-        logits=False, remat=remat)
+        logits=False, remat=remat, encoder_out=encoder_out)
     return build_prefix(cfg, aux_m["omega"], source_cache)
 
 
 def compress_with_grad(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
-                       source_embeds=None, remat: bool = False):
+                       source_embeds=None, encoder_frames=None,
+                       remat: bool = False):
     """:func:`compress` with autograd on (training): the gradient reaches
     whichever parameters require it."""
     source_tokens = _as_tokens(mc, source_tokens)
@@ -167,21 +179,26 @@ def compress_with_grad(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
     _, aux_s = mc.source(tokens=source_tokens, embeds=source_embeds,
                          capture_hiddens=True, cache=state_cache,
                          cache_index=0 if state_cache is not None else None,
-                         logits=False, remat=remat)
-    return (_memory(mc, cfg, aux_s["hiddens"], state_cache, remat),
-            {"encoder_out": None})
+                         logits=False, remat=remat,
+                         encoder_frames=encoder_frames)
+    enc = aux_s["encoder_out"]
+    return (_memory(mc, cfg, aux_s["hiddens"], state_cache, remat, enc),
+            {"encoder_out": enc})
 
 
 @torch.no_grad()
 def compress(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
-             source_embeds=None):
+             source_embeds=None, encoder_frames=None):
     """Many-shot tokens (B, T) -> per-layer compressed prefix for the target.
 
     Returns (prefix, info): ``prefix[i] = {"h": O^i (B, m, D)}`` for an
     attention / MLA layer, ``{"ssm": final source state (B, H, P, N)
-    float32}`` for a Mamba2 layer.  Records no autograd graph."""
+    float32}`` for a Mamba2 layer; ``info["encoder_out"]`` the Source-
+    LLM's encoder output over ``encoder_frames`` (None without).  Records
+    no autograd graph."""
     return compress_with_grad(mc, cfg, source_tokens,
-                              source_embeds=source_embeds)
+                              source_embeds=source_embeds,
+                              encoder_frames=encoder_frames)
 
 
 # ---------------------------------------------------------------------------
@@ -192,26 +209,35 @@ def compress(mc: MemCom, cfg: ModelConfig, source_tokens=None, *,
 @dataclass
 class CompressionState:
     """Carry-over between :func:`compress_chunk` calls: the Source-LLM's
-    per-layer cache and the H^i captured so far (one list per chunk)."""
+    per-layer cache, the H^i captured so far (one list per chunk) and the
+    encoder's output over the frames (enc-dec; None without)."""
 
     cache: list
     offset: int = 0
     hiddens: List[list] = field(default_factory=list)
+    encoder_out: Optional[torch.Tensor] = None
 
 
+@torch.no_grad()
 def begin_compress(cfg: ModelConfig, batch: int, total_len: int, *,
-                   mc: MemCom) -> CompressionState:
+                   mc: MemCom, encoder_frames=None) -> CompressionState:
     """Open a chunked compression over ``total_len`` source tokens: a full
     Source-LLM cache (K/V of attention layers, recurrent state of Mamba2
-    ones) on ``mc``'s device, in its type, with room for the last slice's
-    padding rows where slices are padded."""
+    ones, an enc-dec block's cross entries) on ``mc``'s device, in its
+    type, with room for the last slice's padding rows where slices are
+    padded; with ``encoder_frames`` the Source-LLM's encoder runs once
+    here."""
     from repro_torch.models.transformer import init_cache
 
     device = mc.mem_tokens.device
     if _pads_chunks(cfg, device):
         total_len += CHUNK_ROWS - 1
+    encoder_out = None
+    if cfg.encoder is not None and encoder_frames is not None:
+        encoder_out = mc.source.encoder(encoder_frames)
     return CompressionState(cache=init_cache(
-        cfg, batch, total_len, dtype=mc.mem_tokens.dtype, device=device))
+        cfg, batch, total_len, dtype=mc.mem_tokens.dtype, device=device),
+        encoder_out=encoder_out)
 
 
 @torch.no_grad()
@@ -240,7 +266,8 @@ def compress_chunk(mc: MemCom, cfg: ModelConfig, state: CompressionState,
     _, aux = mc.source(tokens=tokens, capture_hiddens=True,
                        cache=state.cache, cache_index=offset,
                        mask_offset=0 if _chunks_as_decode(cfg) else offset,
-                       decode=_chunks_as_decode(cfg), logits=False)
+                       decode=_chunks_as_decode(cfg), logits=False,
+                       encoder_out=state.encoder_out)
     hid = aux["hiddens"]
     if tokens.shape[1] != w:
         hid = [h[:, :w] for h in hid]
@@ -255,16 +282,18 @@ def finish_compress(mc: MemCom, cfg: ModelConfig, state: CompressionState):
     if not state.hiddens:
         raise ValueError("no chunks were compressed")
     hiddens = [torch.cat(xs, dim=1) for xs in zip(*state.hiddens)]
-    return _memory(mc, cfg, hiddens, state.cache), {"encoder_out": None}
+    return (_memory(mc, cfg, hiddens, state.cache,
+                    encoder_out=state.encoder_out),
+            {"encoder_out": state.encoder_out})
 
 
 def compress_chunked(mc: MemCom, cfg: ModelConfig, source_tokens, *,
-                     chunk_size: int):
+                     chunk_size: int, encoder_frames=None):
     """:func:`compress` computed in ``chunk_size``-token slices with the
     Source-LLM cache carried across slices."""
     source_tokens = _as_tokens(mc, source_tokens)
     B, T = source_tokens.shape
-    state = begin_compress(cfg, B, T, mc=mc)
+    state = begin_compress(cfg, B, T, mc=mc, encoder_frames=encoder_frames)
     for lo in range(0, T, chunk_size):
         state = compress_chunk(mc, cfg, state,
                                source_tokens[:, lo:lo + chunk_size])
@@ -312,13 +341,16 @@ def memcom_loss(mc: MemCom, target: Transformer, cfg: ModelConfig, batch, *,
     the compressor run under autograd.
 
     batch: {"source": (B,T), "target": (B,S), "target_mask": (B,S)}
-    tensors.  Returns (loss, {"ce": ..., "moe": ...})."""
-    prefix, _ = compress_with_grad(mc, cfg, batch.get("source"),
-                                   source_embeds=batch.get("source_embeds"),
-                                   remat=remat)
+    tensors, and "frames" (B, F, D) for an enc-dec model.  Returns (loss,
+    {"ce": ..., "moe": ...})."""
+    prefix, info = compress_with_grad(
+        mc, cfg, batch.get("source"),
+        source_embeds=batch.get("source_embeds"),
+        encoder_frames=batch.get("frames"), remat=remat)
     m = cfg.memcom.num_memory_tokens
     logits, aux = target(tokens=batch["target"], prefix=prefix,
-                         mask_offset=m, remat=remat)
+                         mask_offset=m, remat=remat,
+                         encoder_out=info["encoder_out"])
     loss = next_token_loss(logits, batch["target"], batch.get("target_mask"))
     return loss + aux["moe_loss"], {"ce": loss, "moe": aux["moe_loss"]}
 

@@ -6,10 +6,16 @@
 // (plain twin: plain.paged_decode_attention_ref).
 //
 //   q (B,S,Hq,D), k_pool (N,bs,Hkv,D), v_pool (N,bs,Hkv,Dv), tables (B,nb)
-//   int32, lengths (B,) int32  ->  out (B,S,Hq,Dv) in q's type.  (D, Dv):
-//   (64,64), (128,128), (256,256), (192,128), and (576,512) in bf16 (MLA's
-//   absorbed decode: one latent KV head, the key [ckv | kr], the value
-//   ckv).
+//   int32, lengths (B,) int32  ->  out (B,S,Hq,Dv) in q's type.  The tile
+//   widths (TD, TDv): (64,64), (128,128), (256,256), (192,128), and
+//   (576,512) in bf16 (MLA's absorbed decode: one latent KV head, the key
+//   [ckv | kr], the value ckv).  A call at narrower widths (D, Dv)
+//   (multiples of 8, the Pallas kernel takes any) runs at the tile the
+//   host names (paged_attention.py::tile_dims) with its columns past D and
+//   Dv zero in shared memory: their loads are skipped (cp.async with a
+//   source size of 0 fills zeros), so the zero columns add nothing to the
+//   products, and output columns past Dv are never stored.  The pools are
+//   read in place at their own row widths: no pool is padded or copied.
 //   Query row r of slot b sits at position lengths[b] - S + r and sees the
 //   positions p <= that one; position p of slot b lives in pool block
 //   tables[b, p / bs] at offset p % bs.  Softcap is applied to the scaled
@@ -180,17 +186,21 @@ __device__ __forceinline__ void cluster_wait() {
 // Block (row group, hk, b * nsplit + split); the nsplit blocks of one
 // (row group, hk, b) form one thread block cluster and merge their
 // partials through distributed shared memory.
-template <typename T, int D, int DV>
+// D, DV: the tile widths; with PAD the call's own widths are dk <= D and
+// dvo <= DV (the pools' and q's row widths, out's row width), else D, DV.
+template <typename T, int D, int DV, bool PAD>
 __global__ void __launch_bounds__(NT)
 paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
              const T* __restrict__ vp, const int* __restrict__ tables,
              const int* __restrict__ lengths, T* __restrict__ out, int S,
              int Hq, int Hkv, int bs, int nb, float scale, float softcap,
-             int nsplit) {
+             int nsplit, int dk_arg, int dv_arg) {
   using C = Cfg<T, D, DV>;
   constexpr bool TC = C::TC;
   constexpr int EPC = C::EPC, CPR = C::CPR, CPRV = C::CPRV, QS = C::QS;
   constexpr int STAGES = C::STAGES;
+  const int dk = PAD ? dk_arg : D;     // row widths in global memory
+  const int dvo = PAD ? dv_arg : DV;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);  // [STAGES][K [TK][D] | V [TK][DV]]
   T* Qs = ring + STAGES * C::TILE;                   // [RMAX][QS]
@@ -233,18 +243,18 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     for (int e = tid; e < TK * CPR; e += NT) {
       const int c = e / CPR, ch = e % CPR;
       const int row = rw[c];
-      const size_t off = row < 0 ? 0
-          : (static_cast<size_t>(row) * Hkv + hk) * D + ch * EPC;
-      cp_async16(smem_addr(kd + c * D + swz<TC>(c, ch) * EPC), kp + off,
-                 row >= 0);
+      const bool ok = row >= 0 && (!PAD || ch * EPC < dk);
+      const size_t off = !ok ? 0
+          : (static_cast<size_t>(row) * Hkv + hk) * dk + ch * EPC;
+      cp_async16(smem_addr(kd + c * D + swz<TC>(c, ch) * EPC), kp + off, ok);
     }
     for (int e = tid; e < TK * CPRV; e += NT) {
       const int c = e / CPRV, ch = e % CPRV;
       const int row = rw[c];
-      const size_t off = row < 0 ? 0
-          : (static_cast<size_t>(row) * Hkv + hk) * DV + ch * EPC;
-      cp_async16(smem_addr(vd + c * DV + swz<TC>(c, ch) * EPC), vp + off,
-                 row >= 0);
+      const bool ok = row >= 0 && (!PAD || ch * EPC < dvo);
+      const size_t off = !ok ? 0
+          : (static_cast<size_t>(row) * Hkv + hk) * dvo + ch * EPC;
+      cp_async16(smem_addr(vd + c * DV + swz<TC>(c, ch) * EPC), vp + off, ok);
     }
   };
 
@@ -253,9 +263,12 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   for (int e = tid; e < nr * CPR; e += NT) {  // q joins the first group
     const int r = e / CPR, ch = e % CPR;
     const int rho = r0 + r, s = rho / G, g = rho % G;
+    const bool ok = !PAD || ch * EPC < dk;
     cp_async16(smem_addr(Qs + r * QS + ch * EPC),
-               q + ((static_cast<size_t>(b) * S + s) * Hq + hk * G + g) * D
-                   + ch * EPC, true);
+               q + (ok ? ((static_cast<size_t>(b) * S + s) * Hq + hk * G + g)
+                             * dk + ch * EPC
+                       : 0),
+               ok);
   }
   for (int i = tid; i < RMAX * PS / 2; i += NT)  // rows past nr stay 0
     reinterpret_cast<uint32_t*>(Pb)[i] = 0u;
@@ -488,12 +501,15 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   float* m_recv = reinterpret_cast<float*>(
       recv + min(RMAX, S * G) * (DV / 4) + MAX_SPLITS);  // [MAX_SPLITS][RMAX]
   float* l_recv = m_recv + MAX_SPLITS * RMAX;
-  const int units = nr * (DV / 4);
+  // float4 e of the rows' first dvo columns: row e / (dvo / 4)
+  const int units = nr * (dvo / 4);
   const int slots = (units + nsplit - 1) / nsplit;  // float4s a block owns
   cluster_wait();  // every block of the cluster has started
   for (int e = tid; e < units; e += NT)
     *cluster.map_shared_rank(recv + split * slots + e / nsplit, e % nsplit) =
-        *reinterpret_cast<const float4*>(red + e * 4);
+        *reinterpret_cast<const float4*>(
+            PAD ? red + (e / (dvo / 4)) * DV + (e % (dvo / 4)) * 4
+                : red + e * 4);
   for (int i = tid; i < nsplit * nr; i += NT) {
     const int k = i / nr, r = i % nr;
     *cluster.map_shared_rank(m_recv + split * RMAX + r, k) = m_s[r];
@@ -503,7 +519,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
   cluster_wait();  // every push into this block has landed
   for (int u = tid; split + u * nsplit < units; u += NT) {
     const int e = split + u * nsplit;
-    const int r = e / (DV / 4), d = (e % (DV / 4)) * 4;
+    const int r = e / (dvo / 4), d = (e % (dvo / 4)) * 4;
     float mj[MAX_SPLITS], lj[MAX_SPLITS];  // unrolled: the reads overlap
     float4 x[MAX_SPLITS];
     float M = NEG;
@@ -527,7 +543,7 @@ paged_decode(const T* __restrict__ q, const T* __restrict__ kp,
     }
     const float inv = l > 0.f ? 1.f / l : 0.f;
     const int rho = r0 + r, s = rho / G, h = hk * G + rho % G;
-    store4(out + ((static_cast<size_t>(b) * S + s) * Hq + h) * DV + d,
+    store4(out + ((static_cast<size_t>(b) * S + s) * Hq + h) * dvo + d,
            make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
   }
 }
@@ -541,20 +557,20 @@ constexpr size_t recv_bytes(int rows) {
          + 2 * MAX_SPLITS * RMAX * 4;
 }
 
-template <typename T, int D, int DV>
+template <typename T, int D, int DV, bool PAD>
 int launch(const void* q, const void* kp, const void* vp, const int* tables,
            const int* lengths, void* out, int B, int S, int Hq, int Hkv,
-           int bs, int nb, float scale, float softcap, int nsplit,
-           cudaStream_t stream) {
+           int bs, int nb, float scale, float softcap, int nsplit, int dk,
+           int dv, cudaStream_t stream) {
   using C = Cfg<T, D, DV>;
+  const auto kernel = paged_decode<T, D, DV, PAD>;
   const size_t smem = C::SMEM + recv_bytes<DV>(min(RMAX, S * (Hq / Hkv)));
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::SMEM + recv_bytes<DV>(RMAX)));
   if (err == cudaSuccess && nsplit > 8)  // past the portable cluster size
     err = cudaFuncSetAttribute(
-        paged_decode<T, D, DV>,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((S * (Hq / Hkv) + RMAX - 1) / RMAX, Hkv, B * nsplit);
@@ -568,57 +584,73 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables,
   cluster[0].val.clusterDim.z = nsplit;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, paged_decode<T, D, DV>,
-                           static_cast<const T*>(q), static_cast<const T*>(kp),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                           static_cast<const T*>(kp),
                            static_cast<const T*>(vp), tables, lengths,
                            static_cast<T*>(out), S, Hq, Hkv, bs, nb, scale,
-                           softcap, nsplit);
+                           softcap, nsplit, dk, dv);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// (D, Dv) the call's widths, (tD, tDv) the tile's: equal, or D <= tD and
+// Dv <= tDv, both multiples of 8 (16-byte rows in either type), at one of
+// the four tiles below 576 (the padded instantiations).
 template <typename T>
-int launch_d(int D, int Dv, const void* q, const void* kp, const void* vp,
-             const int* tables, const int* lengths, void* out, int B, int S,
-             int Hq, int Hkv, int bs, int nb, float scale, float softcap,
-             int nsplit, cudaStream_t st) {
-#define PAGED(DK, DV)                                                        \
-  if (D == DK && Dv == DV)                                                   \
-    return launch<T, DK, DV>(q, kp, vp, tables, lengths, out, B, S, Hq, Hkv, \
-                             bs, nb, scale, softcap, nsplit, st);
+int launch_d(int D, int Dv, int tD, int tDv, const void* q, const void* kp,
+             const void* vp, const int* tables, const int* lengths, void* out,
+             int B, int S, int Hq, int Hkv, int bs, int nb, float scale,
+             float softcap, int nsplit, cudaStream_t st) {
+  const bool pad = D != tD || Dv != tDv;
+  if (pad && (D <= 0 || Dv <= 0 || D > tD || Dv > tDv || D % 8 || Dv % 8))
+    return cudaErrorInvalidValue;
+#define PAGED(DK, DV)                                                         \
+  if (tD == DK && tDv == DV)                                                  \
+    return pad ? launch<T, DK, DV, true>(q, kp, vp, tables, lengths, out, B,  \
+                                         S, Hq, Hkv, bs, nb, scale, softcap,  \
+                                         nsplit, D, Dv, st)                   \
+               : launch<T, DK, DV, false>(q, kp, vp, tables, lengths, out, B, \
+                                          S, Hq, Hkv, bs, nb, scale, softcap, \
+                                          nsplit, D, Dv, st);
   PAGED(64, 64)
   PAGED(128, 128)
   PAGED(256, 256)
   PAGED(192, 128)
-  if constexpr (std::is_same<T, bf16>::value) {
-    PAGED(576, 512)
-  }
 #undef PAGED
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (!pad && D == 576 && Dv == 512)
+      return launch<T, 576, 512, false>(q, kp, vp, tables, lengths, out, B, S,
+                                        Hq, Hkv, bs, nb, scale, softcap,
+                                        nsplit, D, Dv, st);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; (D, Dv) = (64, 64), (128, 128),
-// (256, 256), (192, 128), and (576, 512) in bfloat16; nsplit (1 to
-// MAX_SPLITS) from paged_attention.py::num_splits.  Returns a cudaError_t
-// (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; the tile (tD, tDv) = (64, 64), (128,
+// 128), (256, 256), (192, 128), and (576, 512) in bfloat16, from
+// paged_attention.py::tile_dims, and the call's widths (D, Dv) at most the
+// tile's; nsplit (1 to MAX_SPLITS) from paged_attention.py::num_splits.
+// Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_fwd(const void* q, const void* k_pool,
                                 const void* v_pool, const int* tables,
                                 const int* lengths, void* out, int B, int S,
-                                int Hq, int Hkv, int D, int Dv, int bs,
-                                int nb, float scale, float softcap,
-                                int nsplit, int dtype, void* stream) {
+                                int Hq, int Hkv, int D, int Dv, int tD,
+                                int tDv, int bs, int nb, float scale,
+                                float softcap, int nsplit, int dtype,
+                                void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || bs <= 0 || nb <= 0 || nsplit < 1 ||
       nsplit > MAX_SPLITS)
     return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(D, Dv, q, k_pool, v_pool, tables, lengths, out, B,
-                           S, Hq, Hkv, bs, nb, scale, softcap, nsplit, st);
+    return launch_d<float>(D, Dv, tD, tDv, q, k_pool, v_pool, tables, lengths,
+                           out, B, S, Hq, Hkv, bs, nb, scale, softcap, nsplit,
+                           st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, Dv, q, k_pool, v_pool, tables, lengths,
-                                   out, B, S, Hq, Hkv, bs, nb, scale, softcap,
-                                   nsplit, st);
+    return launch_d<__nv_bfloat16>(D, Dv, tD, tDv, q, k_pool, v_pool, tables,
+                                   lengths, out, B, S, Hq, Hkv, bs, nb, scale,
+                                   softcap, nsplit, st);
   return cudaErrorInvalidValue;
 }

@@ -37,6 +37,18 @@ the float32 ones.  (576, 512) serves only: its forward runs on mma.sync,
 and a CUDA call at it (or at any other pair the backward does not take)
 whose inputs need a gradient raises ``NotImplementedError`` before any
 launch.
+
+Other widths (the Pallas kernel takes any): a CUDA call at a pair no
+kernel is built for, of multiples of 8 up to 256, runs at the narrowest
+pair that holds it (:func:`tile_dims`: in bf16 (64, 64), (128, 128),
+(192, 128) or (256, 256); in float32 (m, m) at m = max(D, Dv)).
+:func:`flash_attention` and :func:`flash_attention_bwd` pad q, k and v
+with zero columns to it (a zero column adds nothing to a logit, and the
+scale stays the caller's, ``D ** -0.5`` of the true D by default) and
+return the first Dv output columns.  The padding sits outside
+:class:`FlashAttention`, so autograd carries a gradient through the pad
+and the slice, and the backward kernel sees a pair it takes.  The pairs
+the kernels are built for run as before.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build, plain
 
@@ -65,6 +78,9 @@ HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128),
 #: pairs at Dv != D the backward kernels take, in bf16 (the wgmma kernel)
 #: and float32 (the CUDA cores)
 BWD_HEAD_DIMS = ((192, 128),)
+#: the bf16 pairs a narrower call is padded to (a backward kernel takes each)
+PAD_TILES = ((64, 64), (128, 128), (192, 128), (256, 256))
+MAX_PAD_WIDTH = 256
 WGMMA_MAX_SKV = 1024 * 64    # the kernel's table: 1024 tiles of 64 kv rows
 # Most KV splits for which the wgmma variant still takes a call.  The
 # split count says how far the (query, head) rows alone fall short of
@@ -78,6 +94,49 @@ WGMMA_MAX_SKV = 1024 * 64    # the kernel's table: 1024 tiles of 64 kv rows
 # rows) the wgmma variant is up to 2.8x faster, and 0.8 us slower only
 # at a 16-row prompt's 0.0075 ms.
 WGMMA_MAX_SPLITS = 4
+
+
+def _native(dtype, D, Dv) -> bool:
+    """Whether a forward kernel is built for (D, Dv) in ``dtype``."""
+    if (D, Dv) in HEAD_DIMS.get(dtype, ()):
+        return True
+    return dtype == torch.float32 and D == Dv and D % 4 == 0 and 0 < D <= 256
+
+
+def tile_dims(dtype, D, Dv):
+    """The (key, value) widths a CUDA call at (D, Dv) runs at: its own
+    where a kernel is built for them (``HEAD_DIMS``; float32 also Dv == D
+    at any multiple of 4 up to 256), else, for widths that are multiples
+    of 8 up to ``MAX_PAD_WIDTH``, the narrowest of ``PAD_TILES`` (by D +
+    Dv) that holds both in bf16 and (m, m) at m = max(D, Dv) in float32;
+    None where nothing takes the call.  Another dtype keeps its widths
+    (the kernels refuse it by type)."""
+    if dtype not in _DTYPES or _native(dtype, D, Dv):
+        return D, Dv
+    if min(D, Dv) <= 0 or D % 8 or Dv % 8 or max(D, Dv) > MAX_PAD_WIDTH:
+        return None
+    if dtype == torch.float32:
+        return max(D, Dv), max(D, Dv)
+    return min((t for t in PAD_TILES if t[0] >= D and t[1] >= Dv), key=sum)
+
+
+def _padded(q, k, v, scale):
+    """(tile widths, q, k, v padded with zero columns to them, scale of
+    the true D), or None where the call runs at its own widths; raises
+    ``NotImplementedError`` where no kernel takes the widths."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    tile = tile_dims(q.dtype, D, Dv) if k.shape[-1] == D else (D, Dv)
+    if tile is None:
+        raise NotImplementedError(
+            f"head dims (D={D}, Dv={Dv}): the {q.dtype} forward and "
+            f"backward kernels take "
+            f"{HEAD_DIMS.get(q.dtype)} and pairs of multiples of 8 up to "
+            f"{MAX_PAD_WIDTH}")
+    if tile == (D, Dv):
+        return None
+    tD, tDv = tile
+    return (tile, F.pad(q, (0, tD - D)), F.pad(k, (0, tD - D)),
+            F.pad(v, (0, tDv - Dv)), D ** -0.5 if scale is None else scale)
 
 
 def wgmma_takes(dtype, head_dim, skv, dv=None) -> bool:
@@ -352,11 +411,21 @@ def flash_attention(q, k, v, *, q_pos, kv_pos, causal=True, softcap=0.0,
     gradient is recorded for autograd (:class:`FlashAttention`); at a
     pair (D, Dv) the backward kernels do not take (``BWD_HEAD_DIMS``:
     (576, 512) among them) such a call raises ``NotImplementedError``
-    before any launch."""
+    before any launch.  A pair no kernel is built for runs padded to
+    :func:`tile_dims`' widths (the module's docstring)."""
     if not q.is_cuda:
         return plain.attention_ref(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
                                    causal=causal, softcap=softcap,
                                    scale=scale, return_lse=return_lse)
+    pad = _padded(q, k, v, scale)
+    if pad is not None:
+        _, qp, kp, vp, scale = pad
+        out, lse = flash_attention(qp, kp, vp, q_pos=q_pos, kv_pos=kv_pos,
+                                   causal=causal, softcap=softcap,
+                                   scale=scale, return_lse=True,
+                                   variant=variant)
+        out = out[..., :v.shape[-1]].contiguous()
+        return (out, lse) if return_lse else out
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         _check(q, k, v, q_pos, kv_pos, backward=True)
@@ -496,13 +565,26 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dlse=None, *, q_pos, kv_pos,
     :func:`bwd_variant_for` picks (dq is None when not ``need_dq``) or
     raises.  ``variant`` (CUDA tensors only) forces ``"wgmma"`` or
     ``"mma_sync"``; a variant that does not take the call raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``.  A pair no kernel is built for runs padded
+    to :func:`tile_dims`' widths (out and dout too), its gradients cut
+    back to the call's."""
     global bwd_launches, bwd_wgmma_launches
     if not q.is_cuda:
         return plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse,
                                        q_pos=q_pos, kv_pos=kv_pos,
                                        causal=causal, softcap=softcap,
                                        scale=scale)
+    pad = _padded(q, k, v, scale)
+    if pad is not None:
+        (_, tDv), qp, kp, vp, scale = pad
+        D, Dv = q.shape[-1], v.shape[-1]
+        grads = flash_attention_bwd(
+            qp, kp, vp, F.pad(out, (0, tDv - Dv)), lse,
+            F.pad(dout, (0, tDv - Dv)), dlse, q_pos=q_pos, kv_pos=kv_pos,
+            causal=causal, softcap=softcap, scale=scale, need_dq=need_dq,
+            variant=variant)
+        return tuple(None if g is None else g[..., :w].contiguous()
+                     for g, w in zip(grads, (D, D, Dv)))
     _check(q, k, v, q_pos, kv_pos, backward=True)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dv = v.shape

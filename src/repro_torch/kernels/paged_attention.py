@@ -13,10 +13,15 @@ positions each split of a slot walks, which the kernel derives from the
 slot's own length (``plain.paged_decode_split_ref`` computes by it on the
 CPU).  ``TK``, ``RMAX`` and ``MAX_SPLITS`` are the source's constants.
 
-Head widths: the kernel takes the (key, value) widths in ``HEAD_DIMS``:
-equal widths of 64, 128 and 256, MLA's (192, 128), and, in bf16 only,
-MLA's absorbed decode at (576, 512) (one latent KV head: the key
-``[ckv | kr]``, the value ``ckv``).
+Head widths: the kernel is built at the (key, value) tile widths in
+``HEAD_DIMS``: equal widths of 64, 128 and 256, MLA's (192, 128), and, in
+bf16 only, MLA's absorbed decode at (576, 512) (one latent KV head: the
+key ``[ckv | kr]``, the value ``ckv``).  Any other pair of multiples of 8
+up to 256 (the Pallas kernel takes any width) runs at the narrowest of
+the first four tiles that holds it (:func:`tile_dims`): the kernel reads
+the pools in place at their own widths and fills the tile's further
+columns of K, V and q with zeros in shared memory, and it stores only the
+call's Dv output columns.  No pool is padded or copied.
 """
 
 from __future__ import annotations
@@ -38,6 +43,23 @@ MAX_SPLITS = 16     # one cluster of blocks merges a slot's splits
 HEAD_DIMS = {torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128),
                               (576, 512)),
              torch.float32: ((64, 64), (128, 128), (256, 256), (192, 128))}
+#: the tiles a narrower pair runs at (``launch_d``'s padded instantiations)
+PAD_TILES = ((64, 64), (128, 128), (192, 128), (256, 256))
+MAX_PAD_WIDTH = 256
+
+
+def tile_dims(dtype, D, Dv):
+    """The (key, value) tile widths the kernel runs a call at (D, Dv): the
+    pair itself where it is in ``HEAD_DIMS``, else the narrowest of
+    ``PAD_TILES`` (by D + Dv) that holds both, for widths that are
+    multiples of 8 up to ``MAX_PAD_WIDTH`` (16-byte rows); None where no
+    tile takes the call."""
+    if (D, Dv) in HEAD_DIMS.get(dtype, ()):
+        return D, Dv
+    if dtype not in HEAD_DIMS or min(D, Dv) <= 0 or D % 8 or Dv % 8 \
+            or max(D, Dv) > MAX_PAD_WIDTH:
+        return None
+    return min((t for t in PAD_TILES if t[0] >= D and t[1] >= Dv), key=sum)
 
 
 def num_splits(B, S, Hq, Hkv, nb, bs, sms):
@@ -74,7 +96,7 @@ def split_plan(length, bs, nb, nsplit):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.load("paged_attention").paged_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -108,10 +130,11 @@ def _check(q, k_pool, v_pool, block_tables, lengths):
         raise ValueError(f"shapes q {tuple(q.shape)} k_pool "
                          f"{tuple(k_pool.shape)} v_pool {tuple(v_pool.shape)} "
                          "do not match")
-    if (D, Dv) not in HEAD_DIMS[q.dtype]:
+    if tile_dims(q.dtype, D, Dv) is None:
         raise NotImplementedError(
             f"head dims (D={D}, Dv={Dv}): the {q.dtype} paged kernel takes "
-            f"{HEAD_DIMS[q.dtype]}")
+            f"{HEAD_DIMS[q.dtype]} and pairs of multiples of 8 up to "
+            f"{MAX_PAD_WIDTH}")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
@@ -129,6 +152,7 @@ def paged_flash_decode(q, k_pool, v_pool, *, block_tables, lengths,
 
     Slot ``b`` attends causally within its logical positions ``[0,
     lengths[b])``; logical block ``j`` is pool block ``block_tables[b, j]``.
+    A CUDA call runs at :func:`tile_dims`' tile, on the pools as given.
     """
     global launches
     if not q.is_cuda:
@@ -139,6 +163,7 @@ def paged_flash_decode(q, k_pool, v_pool, *, block_tables, lengths,
     B, S, Hq, D = q.shape
     _, bs, Hkv, Dv = v_pool.shape
     nb = block_tables.shape[1]
+    tD, tDv = tile_dims(q.dtype, D, Dv)
     if scale is None:
         scale = D ** -0.5
     out = q.new_empty((B, S, Hq, Dv))
@@ -150,7 +175,7 @@ def paged_flash_decode(q, k_pool, v_pool, *, block_tables, lengths,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, S, Hq, Hkv, D, Dv, bs, nb, float(scale),
+                 B, S, Hq, Hkv, D, Dv, tD, tDv, bs, nb, float(scale),
                  float(softcap or 0.0), nsplit, _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_decode kernel launch failed: "

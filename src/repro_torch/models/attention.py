@@ -1,6 +1,6 @@
 """GQA attention block (``repro/models/attention.py``): prefill, prefill
 continuation behind a seated cache, MemCom prefix, static and per-slot
-decode.
+decode, and enc-dec cross-attention (Whisper).
 
 MemCom integration: ``prefix`` carries the layer's compressed memory,
 either as hidden states ``{"h": (B, m, D)}`` (K/V derived through this
@@ -11,8 +11,18 @@ see every memory slot (positions ``0..m-1``).
 Caches are updated in place (``cache["k"][...] = ...``): the serving engine
 keeps one (slots, max_len, Hkv, hd) tensor per layer, or one (num_blocks,
 block_size, Hkv, hd) pool per layer addressed through per-slot block
-tables (the paged layout), and never copies it.  Enc-dec cross-attention
-is not in the port yet and raises.
+tables (the paged layout), and never copies it.
+
+Cross-attention (Whisper's decoder, and its encoder's self-attention):
+with ``kv_source`` (B, F, D), or a cache holding the cross entries
+``{"ck", "cv"}`` (B, F, H, hd), the queries are not roped and attend to
+every frame, not causally, all positions 0.  With both, the frames'
+K/V are projected and stored into the cache (prefill); with the cache
+alone they are read from it (decode, and the engine's prefill, which
+has no frames: it reads the zero entries ``init_cross_cache`` made).
+With neither, a cross block falls through to the self-attention path
+with its own weights, causal from position 0, as the JAX package's does
+(its one-shot compress and ``memcom_loss`` without frames).
 """
 
 from __future__ import annotations
@@ -111,13 +121,48 @@ def scatter_rows(cache, new, starts, valid=None):
     return cache
 
 
+def prefix_positions(cfg: ModelConfig, B: int, m: int, device):
+    """The m memory slots' positions 0..m-1: (B, m), or (3, B, m) equal
+    streams under M-RoPE."""
+    pos = torch.arange(m, dtype=torch.int32, device=device).expand(B, m)
+    return pos.expand(3, B, m) if cfg.mrope_sections else pos
+
+
 def _prefix_kv(p: Attention, cfg: ModelConfig, prefix: dict):
     if "k" in prefix:
         return prefix["k"], prefix["v"]
     h = prefix["h"]
-    B, m = h.shape[0], h.shape[1]
-    pos = torch.arange(m, dtype=torch.int32, device=h.device).expand(B, m)
-    return project_kv(p, cfg, h, pos)
+    return project_kv(p, cfg, h,
+                      prefix_positions(cfg, h.shape[0], h.shape[1], h.device))
+
+
+def _cross_attention(p: Attention, cfg: ModelConfig, x, kv_source, cache):
+    """Enc-dec attention: unroped queries over every frame of
+    ``kv_source`` or of the cache's ``ck`` / ``cv``, not causal.  With
+    both, the frames' K/V are written into the cache: in place where the
+    cache holds as many frames, else the entries are rebound to the new
+    ones (the JAX package's cache takes the frames' length)."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = _proj(x, p.wq, p.bq if p.has_bias else None, hd)
+    if kv_source is not None:
+        k = _proj(kv_source, p.wk, p.bk if p.has_bias else None, hd)
+        v = _proj(kv_source, p.wv, p.bv if p.has_bias else None, hd)
+    if cache is not None:
+        if kv_source is not None:
+            for key, t in (("ck", k), ("cv", v)):
+                if cache[key].shape == t.shape:
+                    cache[key].copy_(t)
+                else:
+                    cache[key] = t.to(cache[key].dtype)
+        k, v = cache["ck"], cache["cv"]
+    F = k.shape[1]
+    q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros((B, F), dtype=torch.int32, device=x.device)
+    out = ops.attention(q, k.to(q.dtype), v.to(q.dtype), q_pos=q_pos,
+                        kv_pos=kv_pos, causal=False,
+                        softcap=cfg.attn_logit_softcap, scale=hd ** -0.5)
+    return out.reshape(B, S, -1) @ p.wo, cache
 
 
 def apply_attention(
@@ -152,9 +197,12 @@ def apply_attention(
     dropped (dense) or routed to the trash block (paged).  The read needs
     no mask: lane ``s`` of slot ``b`` queries position ``cache_index[b] +
     s``, and causality hides every row an invalid lane could have
-    written."""
-    if kv_source is not None:
-        raise NotImplementedError("enc-dec cross-attention is not ported yet")
+    written.
+
+    ``kv_source`` (B, F, D), or a cache with ``ck`` / ``cv``, makes the
+    call a cross-attention (the module's docstring)."""
+    if kv_source is not None or (cache is not None and "ck" in cache):
+        return _cross_attention(p, cfg, x, kv_source, cache)
     B, S, _ = x.shape
     softcap = cfg.attn_logit_softcap
     scale = cfg.hd ** -0.5
@@ -253,3 +301,13 @@ def init_paged_attn_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, num_frames: int, dtype,
+                     device) -> dict:
+    """Per-slot cross-attention K/V over the encoder's frames, zero until a
+    prefill with encoder output writes them (both layouts keep them per
+    slot: a fixed size that paging would not shrink)."""
+    shape = (batch, num_frames, cfg.num_heads, cfg.hd)
+    return {"ck": torch.zeros(shape, dtype=dtype, device=device),
+            "cv": torch.zeros(shape, dtype=dtype, device=device)}

@@ -7,8 +7,12 @@ layer's compressed representation O^i handed to the target.  A MoE block
 also returns its load-balance loss.  A block with ``mlp == "none"`` (the
 mixer-only Mamba2 layers) has no ``norm2``.  A Mamba2 layer's prefix
 entry ``{"ssm": state}`` (the hybrid MemCom's handoff of the source's
-final SSM state) seeds its recurrence.  Enc-dec blocks are not in the port
-yet.
+final SSM state) seeds its recurrence.  A decoder block of an enc-dec
+stack (``desc.cross_attn``, Whisper) adds ``norm_x`` and the enc-dec
+cross-attention ``xattn_enc`` between the self-attention and the MemCom
+cross-attention: to ``encoder_out`` where given, else to the cache's
+``ck`` / ``cv`` where it has them, else (neither) the fall-through of
+:mod:`repro_torch.models.attention`.
 """
 
 from __future__ import annotations
@@ -29,10 +33,10 @@ class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, desc: LayerDesc, *, device, dtype):
         super().__init__()
         if desc.mixer not in ("attn", "mla", "mamba") \
-                or desc.mlp not in ("dense", "moe", "none") or desc.cross_attn:
+                or desc.mlp not in ("dense", "moe", "none"):
             raise NotImplementedError(
-                f"block {desc.tag()}: only attention, MLA and Mamba2 mixers "
-                "with a dense, MoE or no MLP are ported yet")
+                f"block {desc.tag()}: the mixers are attention, MLA and "
+                "Mamba2, the MLPs dense, MoE or none")
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.norm1 = Norm(cfg, **kw)
@@ -42,6 +46,9 @@ class Block(nn.Module):
             self.attn = MLA(cfg, **kw)
         else:
             self.attn = Attention(cfg, **kw)
+        if desc.cross_attn:
+            self.norm_x = Norm(cfg, **kw)
+            self.xattn_enc = Attention(cfg, **kw)
         if desc.mlp != "none":
             self.norm2 = Norm(cfg, **kw)
         if desc.mlp == "moe":
@@ -53,7 +60,7 @@ class Block(nn.Module):
                 prefix: Optional[dict] = None, cache: Optional[dict] = None,
                 cache_index=None, decode: bool = False,
                 memcom: Optional[tuple] = None, block_tables=None,
-                lane_valid=None):
+                lane_valid=None, encoder_out=None):
         """Returns (h, cache_or_None, aux) with aux {"omega": O^i or None,
         "moe_loss": float32 scalar, None without a MoE layer}.  ``memcom``
         is (MemXAttn module, source hiddens (B, T, D)) for this layer, or
@@ -63,7 +70,9 @@ class Block(nn.Module):
         ``lane_valid`` masks the fused step's ragged lanes in the
         attention and MLA cache writes; a Mamba2 layer cannot honour it
         (its state would advance over the padding lanes), which is why the
-        engine keeps the fused step to attention/MLA-only layouts."""
+        engine keeps the fused step to attention/MLA-only layouts.  The
+        cross entries ``ck`` / ``cv`` of a decoder block's cache stay per
+        slot on both layouts; the self-attention sees the rest."""
         hn = self.norm1(h)
         if hasattr(self, "mamba"):
             init_state = prefix.get("ssm") if prefix is not None else None
@@ -72,12 +81,25 @@ class Block(nn.Module):
         else:
             # an empty dict: a layer the cache does not cover (the
             # hybrid's one-shot compress keeps only Mamba2 state)
-            o, cache = self.attn(
+            self_cache = cache
+            if cache and "ck" in cache:
+                self_cache = {k: t for k, t in cache.items()
+                              if k not in ("ck", "cv")}
+            o, _ = self.attn(
                 hn, positions=positions, mask_offset=mask_offset,
-                prefix=prefix, cache=cache or None, cache_index=cache_index,
-                decode=decode, block_tables=block_tables,
-                lane_valid=lane_valid)
+                prefix=prefix, cache=self_cache or None,
+                cache_index=cache_index, decode=decode,
+                block_tables=block_tables, lane_valid=lane_valid)
         h = h + o
+        if hasattr(self, "xattn_enc"):
+            cross = None
+            if cache and "ck" in cache:
+                cross = {"ck": cache["ck"], "cv": cache["cv"]}
+            o, cross = self.xattn_enc(self.norm_x(h), positions=positions,
+                                      kv_source=encoder_out, cache=cross)
+            if cross is not None:  # entries rebound to another frame count
+                cache.update(cross)
+            h = h + o
         omega = None
         if memcom is not None:
             memx, src = memcom

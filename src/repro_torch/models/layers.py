@@ -1,4 +1,5 @@
-"""Norms, RoPE and MLPs (``repro/models/layers.py``).
+"""Norms, positional embeddings (RoPE, Qwen2-VL's M-RoPE, Whisper's
+sinusoidal encoder positions) and MLPs (``repro/models/layers.py``).
 
 Traps the JAX originals set, kept here on purpose:
 
@@ -52,19 +53,40 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x, positions, theta: float, mrope_sections=()):
-    """x (B, S, H, Dh); positions (B, S).  Qwen2-VL's 3-D M-RoPE positions
-    are not in this slice of the port."""
-    if positions.dim() != 2:
-        raise NotImplementedError(
-            "3-D (M-RoPE) positions are not ported yet; pass (B, S)")
+    """x (B, S, H, Dh); positions (B, S), or (3, B, S) for M-RoPE
+    (Qwen2-VL): the Dh/2 frequency slots are cut into (temporal, height,
+    width) sections of ``mrope_sections`` slots, and each section takes
+    the angle of its own position stream.  Text tokens carry equal t, h
+    and w positions, which is plain RoPE."""
     Dh = x.shape[-1]
     freqs = rope_freqs(Dh, theta, device=x.device)
-    angles = positions.float()[..., None] * freqs  # (B, S, Dh/2)
+    if positions.dim() == 3:
+        if not mrope_sections:
+            raise ValueError("3-D positions need mrope_sections")
+        sec = torch.repeat_interleave(
+            torch.arange(len(mrope_sections), device=x.device),
+            torch.as_tensor(mrope_sections, device=x.device))
+        if sec.numel() != Dh // 2:
+            raise ValueError(f"mrope sections {mrope_sections} do not sum "
+                             f"to head_dim / 2 = {Dh // 2}")
+        # angle[b, s, f] = positions[sec(f), b, s] * freqs[f]
+        angles = positions.float()[sec].permute(1, 2, 0) * freqs
+    else:
+        angles = positions.float()[..., None] * freqs  # (B, S, Dh/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos_embed(num_pos: int, dim: int, device=None) -> torch.Tensor:
+    """(num_pos, dim) float32: sin of pos / 10000^(2i / dim) in the first
+    half, cos in the second (Whisper's encoder positions)."""
+    pos = torch.arange(num_pos, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000 ** (2 * i / dim))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 class MLP(nn.Module):

@@ -11,6 +11,13 @@ The JAX package stacks the ``period`` layers for ``lax.scan``; here the
 stack is a per-layer ``nn.ModuleList`` in layer order, and every
 layer-wise quantity (hiddens, O^i, prefixes, caches) is a Python list in
 the same order.  :mod:`repro_torch.bridge` converts between the two.
+
+Enc-dec (Whisper): an :class:`Encoder` over precomputed frame embeddings
+(sinusoidal positions, then per layer a layernorm, non-causal self-
+attention and a gelu MLP, and a final norm) whose output the decoder
+blocks cross-attend to; the decoder adds learned positions
+(``embed.pos``).  Qwen2-VL's M-RoPE takes (3, B, S) positions; without
+explicit ones the text positions are broadcast to three equal streams.
 """
 
 from __future__ import annotations
@@ -26,10 +33,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import (init_attn_cache,
+from repro_torch.models.attention import (Attention, init_attn_cache,
+                                          init_cross_cache,
                                           init_paged_attn_cache)
 from repro_torch.models.blocks import Block
-from repro_torch.models.layers import Norm, softcap
+from repro_torch.models.layers import (MLP, Norm, sinusoidal_pos_embed,
+                                       softcap)
 from repro_torch.models.mamba2 import init_mamba_cache
 from repro_torch.models.mla import init_mla_cache, init_paged_mla_cache
 from repro_torch.models.param import Init, initialize, make
@@ -49,6 +58,48 @@ class Embed(nn.Module):
         make(self, "tokens", (cfg.vocab_size, cfg.d_model),
              Init("normal", scale=cfg.d_model ** -0.5), device=device,
              dtype=dtype)
+        if cfg.pos_embed == "learned":
+            make(self, "pos", (cfg.max_seq, cfg.d_model),
+                 Init("normal", scale=0.02), device=device, dtype=dtype)
+
+
+class EncoderLayer(nn.Module):
+    """layernorm -> non-causal self-attention -> layernorm -> gelu MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.norm1 = Norm(cfg, **kw)
+        self.attn = Attention(cfg, **kw)
+        self.norm2 = Norm(cfg, **kw)
+        self.mlp = MLP(cfg, d_ff=cfg.encoder.d_ff, mlp_type="gelu_mlp", **kw)
+
+    def forward(self, h):
+        hn = self.norm1(h)
+        o, _ = self.attn(hn, positions=None, kv_source=hn)
+        h = h + o
+        return h + self.mlp(self.norm2(h))
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder over precomputed frame embeddings (the conv
+    front end is the JAX package's stub too)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, **kw)
+                                    for _ in range(cfg.encoder.num_layers))
+        self.final_norm = Norm(cfg, **kw)
+
+    def forward(self, frames):
+        """frames (B, F, D) -> encoder output (B, F, D)."""
+        F_, D = frames.shape[1], frames.shape[2]
+        h = frames + sinusoidal_pos_embed(F_, D, device=frames.device).to(
+            frames.dtype)[None]
+        for layer in self.layers:
+            h = layer(h)
+        return self.final_norm(h)
 
 
 class Transformer(nn.Module):
@@ -58,14 +109,11 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
         cfg.validate()
-        if cfg.pos_embed not in ("rope", "none") or cfg.encoder is not None \
-                or cfg.mrope_sections:
-            raise NotImplementedError(
-                f"{cfg.name}: learned positions, encoders and M-RoPE are not "
-                "ported yet")
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.embed = Embed(cfg, **kw)
+        if cfg.encoder is not None:
+            self.encoder = Encoder(cfg, **kw)
         self.layers = nn.ModuleList(
             Block(cfg, desc, **kw) for desc in cfg.layout.descriptors())
         self.final_norm = Norm(cfg, **kw)
@@ -98,6 +146,8 @@ class Transformer(nn.Module):
         lane_valid=None,  # (B,) int: the fused step's ragged-lane mask
         remat: bool = False,
         params: Optional[dict] = None,  # {"layers.{i}.<name>": tensor}
+        encoder_frames=None,  # (B, F, D): run the encoder first
+        encoder_out=None,  # (B, F, D): the encoder's output, given
     ):
         """Returns (logits_or_hidden, aux) with aux keys "cache",
         "hiddens" (layer inputs H^i), "omega" (Memory-LLM O^i) and
@@ -112,7 +162,12 @@ class Transformer(nn.Module):
         block twice).  ``params`` stands tensors in for block parameters of
         the same names in this call (the ICAE compressor's LoRA-merged
         weights): autograd reaches the tensors given, and a block
-        recomputed under ``remat`` reads the same ones."""
+        recomputed under ``remat`` reads the same ones.
+
+        Enc-dec: ``encoder_frames`` runs the encoder (unless
+        ``encoder_out`` is given), whose output the decoder blocks
+        cross-attend to and aux["encoder_out"] returns.  ``positions``
+        may be (3, B, S) under M-RoPE."""
         cfg = self.cfg
         block_params = [{} for _ in self.layers]
         for name, t in (params or {}).items():
@@ -129,14 +184,26 @@ class Transformer(nn.Module):
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                                  device=h.device)
         ar = torch.arange(S, dtype=torch.int32, device=h.device)
+        per_slot = (decode and torch.is_tensor(cache_index)
+                    and cache_index.dim() == 1)
+        start = None
+        if per_slot:
+            # continuous batching: each slot decodes at its own length
+            pos2d = cache_index.to(torch.int32)[:, None] + ar[None, :]
+        else:
+            start = int(cache_index if (decode and cache_index is not None)
+                        else mask_offset)
+            pos2d = (start + ar).expand(B, S)
+        if cfg.pos_embed == "learned":
+            h = h + _learned_positions(self.embed.pos, pos2d, start).to(
+                h.dtype)
         if positions is None:
-            if decode and torch.is_tensor(cache_index) and cache_index.dim() == 1:
-                # continuous batching: each slot decodes at its own length
-                positions = cache_index.to(torch.int32)[:, None] + ar[None, :]
-            else:
-                start = cache_index if (decode and cache_index is not None) \
-                    else mask_offset
-                positions = (int(start) + ar).expand(B, S)
+            positions = pos2d
+            if cfg.mrope_sections:
+                positions = positions.expand(3, B, S)
+        if cfg.encoder is not None and encoder_frames is not None \
+                and encoder_out is None:
+            encoder_out = self.encoder(encoder_frames)
 
         hiddens, omegas = [], []
         moe_loss = None
@@ -151,6 +218,8 @@ class Transformer(nn.Module):
                       cache=cache[i] if cache is not None else None,
                       cache_index=cache_index, decode=decode, memcom=mem,
                       block_tables=block_tables, lane_valid=lane_valid)
+            if encoder_out is not None:
+                kw["encoder_out"] = encoder_out
             if remat and torch.is_grad_enabled():
                 h, _, a = checkpoint(_run_block, block, block_params[i], h, kw,
                                      use_reentrant=False)
@@ -171,8 +240,25 @@ class Transformer(nn.Module):
             "hiddens": hiddens if capture_hiddens else None,
             "omega": omegas if memcom is not None else None,
             "moe_loss": 0.0 if moe_loss is None else moe_loss,
+            "encoder_out": encoder_out,
         }
         return out, aux
+
+
+def _learned_positions(table, pos2d, start):
+    """Rows of the learned position table at ``pos2d`` (B, S), as the JAX
+    package reads them: per slot (``start`` None) a gather whose rows past
+    the table are NaN (``jnp.take``'s fill; the index is clamped first, so
+    the card never reads out of range), else the slice from the python
+    int ``start``, clamped so that it fits (``dynamic_slice``)."""
+    n = table.shape[0]
+    if start is None:
+        rows = table[pos2d.clamp(0, n - 1).long()]
+        ok = ((pos2d >= 0) & (pos2d < n))[..., None]
+        return torch.where(ok, rows, torch.full_like(rows, float("nan")))
+    S = pos2d.shape[1]
+    start = min(max(start, 0), n - S)
+    return table[start:start + S][None]
 
 
 def _run_block(block: Block, params: dict, h, kw: dict):
@@ -197,7 +283,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> list:
     """Per-layer dense caches: (batch, max_len, Hkv, hd) K/V stripes for
     attention layers, (batch, max_len, kv_lora / rope) latent stripes for
-    MLA layers, per-slot conv/ssm state for Mamba2 layers."""
+    MLA layers, per-slot conv/ssm state for Mamba2 layers, and a decoder
+    block's (batch, num_frames, H, hd) cross entries ``ck`` / ``cv``."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg, dtype)
 
@@ -207,7 +294,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         if desc.mixer == "mla":
             return init_mla_cache(cfg, batch, max_len, dtype, device)
         return init_attn_cache(cfg, batch, max_len, dtype, device)
-    return [one(desc) for desc in cfg.layout.descriptors()]
+    return [_with_cross(cfg, desc, one(desc), batch, dtype, device)
+            for desc in cfg.layout.descriptors()]
+
+
+def _with_cross(cfg: ModelConfig, desc, c: dict, slots: int, dtype,
+                device) -> dict:
+    """A decoder block's cache gains its per-slot cross entries."""
+    if desc.cross_attn:
+        c.update(init_cross_cache(cfg, slots, cfg.encoder.num_frames, dtype,
+                                  device))
+    return c
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -215,8 +312,9 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     """Block-pool cache: one (num_blocks, block_size, Hkv, hd) K/V pool per
     attention layer and one (num_blocks, block_size, kv_lora / rope)
     latent pool per MLA layer, addressed through per-slot block tables; a
-    Mamba2 layer's conv/ssm state stays per slot (``slots`` rows), a fixed
-    size that paging would not shrink."""
+    Mamba2 layer's conv/ssm state and a decoder block's cross entries stay
+    per slot (``slots`` rows), a fixed size that paging would not
+    shrink."""
     device = resolve_device(device)
     dtype = torch_dtype(cfg, dtype)
 
@@ -228,4 +326,5 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                                         device)
         return init_paged_attn_cache(cfg, num_blocks, block_size, dtype,
                                      device)
-    return [one(desc) for desc in cfg.layout.descriptors()]
+    return [_with_cross(cfg, desc, one(desc), slots, dtype, device)
+            for desc in cfg.layout.descriptors()]

@@ -26,7 +26,9 @@ The compress → serve handoff in three steps:
 Caches are per-layer lists of dicts written in place: ``{"k", "v"}``
 (slots, max_len, Hkv, hd) stripes or (num_blocks, block_size, Hkv, hd)
 pools for attention, ``{"ckv", "kr"}`` stripes or pools for MLA, and
-per-slot ``{"conv", "ssm"}`` state for Mamba2 on both layouts.
+per-slot ``{"conv", "ssm"}`` state for Mamba2 and per-slot cross entries
+``{"ck", "cv"}`` for an enc-dec decoder block on both layouts (a prefix
+holds none; nothing here clears or fills them, as in the JAX package).
 :func:`clear_slot_state` zeroes one slot's recurrent state before a
 refill.
 """
@@ -40,7 +42,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.attention import project_kv
+from repro_torch.models.attention import prefix_positions, project_kv
 from repro_torch.models.mla import latent
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving.block_pool import BlockAllocator
@@ -61,8 +63,7 @@ def materialize_prefix(target: Transformer, cfg: ModelConfig, prefix: list) -> l
             out.append(entry)
             continue
         h = entry["h"]
-        B, m = h.shape[0], h.shape[1]
-        pos = torch.arange(m, dtype=torch.int32, device=h.device).expand(B, m)
+        pos = prefix_positions(cfg, h.shape[0], h.shape[1], h.device)
         if desc.mixer == "mla":
             ckv, kr = latent(block.attn, cfg, h, pos)
             out.append({"ckv": ckv, "kr": kr})

@@ -489,18 +489,22 @@ def test_memcom_xattn_wgmma_at_any_split_count(cuda, rng, monkeypatch,
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda, rng):
-    q = _rand(rng, 1, 4, 2, 32)
-    k = _rand(rng, 1, 8, 2, 32)
+    q = _rand(rng, 1, 4, 2, 36)
+    k = _rand(rng, 1, 8, 2, 36)
     pos = torch.arange(8, dtype=torch.int32, device=cuda)[None]
-    with pytest.raises(NotImplementedError):  # (32, 16): no accepted pair
+    with pytest.raises(NotImplementedError):  # (36, 16): no multiple of 8
         fa.flash_attention(q, k, _rand(rng, 1, 8, 2, 16), q_pos=pos[:, :4],
                            kv_pos=pos)
     with pytest.raises(TypeError):
         fa.flash_attention(q.half(), k.half(), k.half(), q_pos=pos[:, :4],
                            kv_pos=pos)
-    with pytest.raises(NotImplementedError):  # bf16 takes head dims 64/128/256
+    with pytest.raises(NotImplementedError):  # bf16: multiples of 8 only
         qb, kb = q.bfloat16(), k.bfloat16()
         fa.flash_attention(qb, kb, kb, q_pos=pos[:, :4], kv_pos=pos)
+    with pytest.raises(NotImplementedError):  # past 256 (576 pairs with 512)
+        qw = _rand(rng, 1, 4, 2, 264, dtype="bfloat16")
+        kw_ = _rand(rng, 1, 8, 2, 264, dtype="bfloat16")
+        fa.flash_attention(qw, kw_, kw_, q_pos=pos[:, :4], kv_pos=pos)
     with pytest.raises(ValueError):
         fa.flash_attention(q.transpose(1, 2), k, k, q_pos=pos[:, :4],
                            kv_pos=pos)
@@ -660,12 +664,15 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda, rng):
     case = (2, 1, 4, 2, 64, 8, [9, 3], 0.0, None)
     q, k, v, tables, lengths = _paged_inputs(rng, case, "float32", cuda)
     kw = dict(block_tables=tables, lengths=lengths)
-    with pytest.raises(NotImplementedError):  # (64, 32): no accepted pair
-        pa.paged_flash_decode(q, k, v[..., :32].contiguous(), **kw)
-    with pytest.raises(NotImplementedError):  # head dims 64/128/256 only
-        pa.paged_flash_decode(q[..., :32].contiguous(),
-                              k[..., :32].contiguous(),
-                              v[..., :32].contiguous(), **kw)
+    with pytest.raises(NotImplementedError):  # (64, 36): no multiple of 8
+        pa.paged_flash_decode(q, k, v[..., :36].contiguous(), **kw)
+    with pytest.raises(NotImplementedError):  # multiples of 8 only
+        pa.paged_flash_decode(q[..., :36].contiguous(),
+                              k[..., :36].contiguous(),
+                              v[..., :36].contiguous(), **kw)
+    wide = _rand(rng, *k.shape[:3], 264)
+    with pytest.raises(NotImplementedError):  # past 256
+        pa.paged_flash_decode(_rand(rng, *q.shape[:3], 264), wide, wide, **kw)
     with pytest.raises(TypeError):
         pa.paged_flash_decode(q.half(), k.half(), v.half(), **kw)
     with pytest.raises(TypeError):  # int32 tables and lengths
@@ -1700,3 +1707,196 @@ def test_icae_step_kernels_against_plain(cuda, variant):
     for name, a, b in zip(trained, g_k, g_p):
         big = float(b.abs().max())
         assert big > 0 and _err(a, b) <= 1e-4 * big, name
+
+
+# ---------------------------------------------------------------------------
+# Head widths no kernel is built for (the Pallas kernels take any width):
+# the flash wrappers pad q, k, v to fa.tile_dims' tile and slice the output
+# and gradients; the paged kernel runs at pa.tile_dims' tile with its
+# loads past the call's widths skipped and zero-filled.  Each at the
+# configs' widths (16: whisper and jamba smoke; 32: qwen2-vl smoke and
+# the bench target; MLA smoke's (24, 16) and (40, 32)) and a few more,
+# against the plain version on the same inputs.  Then the new models'
+# shapes at full width: qwen2-vl-2b's GQA group of 6 (12 query heads on 2
+# KV heads of 128) and whisper-medium's non-causal calls over 1500 frames
+# (16 heads of 64, every position 0; 1500 = 23 x 64 + 28).
+# ---------------------------------------------------------------------------
+
+WIDTHS = [(16, 16), (32, 32), (24, 16), (40, 32), (8, 8), (48, 48),
+          (96, 96), (136, 64), (200, 200), (64, 256)]
+
+
+@pytest.mark.parametrize("D,Dv", WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_padded_widths_match_plain(cuda, rng, D, Dv, dtype):
+    """Forward (each bf16 kernel forced, causal and against a prefix, with
+    a softcap) and backward (the direct call and autograd through the
+    pad) at widths no kernel is built for; one launch a call, at the
+    tile."""
+    B, Sq, Skv, Hq, Hkv = 2, 70, 150, 6, 2
+    ar = torch.arange(Skv, dtype=torch.int32, device=cuda)
+    kv_pos = ar.expand(B, Skv).contiguous()
+    q_pos = ar[Skv - Sq:].expand(B, Sq).contiguous()
+    q = _rand(rng, B, Sq, Hq, D, dtype=dtype)
+    k = _rand(rng, B, Skv, Hkv, D, dtype=dtype)
+    v = _rand(rng, B, Skv, Hkv, Dv, dtype=dtype)
+    dout = _rand(rng, B, Sq, Hq, Dv, dtype=dtype)
+    dlse = _rand(rng, B, Sq, Hq)
+    variants = (None, "wgmma", "mma_sync") if dtype == "bfloat16" else (None,)
+    for causal, cap in ((True, 0.0), (False, 30.0)):
+        kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, softcap=cap)
+        ref, ref_lse = plain.attention_ref(q, k, v, return_lse=True, **kw)
+        for var in variants:
+            before = fa.launches
+            out, lse = fa.flash_attention(q, k, v, return_lse=True,
+                                          variant=var, **kw)
+            torch.cuda.synchronize()
+            assert fa.launches == before + 1
+            assert out.shape == (B, Sq, Hq, Dv) and out.dtype == q.dtype
+            _assert_close(out, ref, dtype)
+            assert _err(lse, ref_lse) <= TOL["float32"] * max(
+                1.0, float(ref_lse.abs().max()))
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, dlse, **kw)
+        want = plain.attention_bwd_ref(q, k, v, out, lse, dout, dlse, **kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.shape == w.shape
+            _assert_grad_close(g, w, dtype, name)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = fa.bwd_launches
+    out = fa.flash_attention(qg, kg, vg, q_pos=q_pos, kv_pos=kv_pos)
+    (out.float() * dout.float()).sum().backward()
+    assert fa.bwd_launches == before + 1
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = plain.attention_ref(tq, tk, tv, q_pos=q_pos, kv_pos=kv_pos)
+    (ref.float() * dout.float()).sum().backward()
+    for name, a, b in (("dq", qg, tq), ("dk", kg, tk), ("dv", vg, tv)):
+        _assert_grad_close(a.grad, b.grad, dtype, name)
+
+
+PAGED_WIDTH_CASES = [
+    # (B, S, Hq, Hkv, D, block_size, lengths, softcap, table) and Dv
+    ((4, 1, 4, 4, 16, 4, [40, 23, 1, 64], 0.0, None), 16),    # whisper smoke
+    ((3, 2, 4, 2, 32, 4, [30, 9, 2], 0.0, None), 32),        # qwen2-vl smoke
+    ((2, 1, 8, 2, 32, 16, [100, 37], 0.0, 512), 32),          # bench target
+    ((2, 3, 16, 1, 40, 4, [25, 12], 0.0, None), 32),          # MLA smoke
+    ((2, 1, 4, 4, 24, 4, [13, 31], 50.0, None), 16),
+    ((3, 1, 8, 4, 96, 8, [77, 3, 50], 0.0, None), 96),
+    ((2, 2, 6, 3, 136, 16, [200, 65], 0.0, None), 64),
+    ((2, 1, 4, 2, 200, 8, [90, 31], 0.0, None), 200),
+]
+
+
+@pytest.mark.parametrize("case,dv", PAGED_WIDTH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_flash_decode_padded_widths_match_plain(cuda, rng, case, dv,
+                                                      dtype):
+    q, k, v, tables, lengths = _paged_inputs(rng, case, dtype, cuda, dv)
+    kw = dict(block_tables=tables, lengths=lengths, softcap=case[7])
+    k_ptr, v_ptr = k.data_ptr(), v.data_ptr()
+    before = pa.launches
+    out = pa.paged_flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    assert out.shape == (*q.shape[:3], dv) and out.dtype == q.dtype
+    _assert_close(out, plain.paged_decode_attention_ref(q, k, v, **kw), dtype)
+    assert (k.data_ptr(), v.data_ptr()) == (k_ptr, v_ptr)
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 7, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_padded_width_at_any_split_count(cuda, rng, monkeypatch,
+                                               nsplit, dtype):
+    """The cluster merge over the call's 40 value columns of a 64-wide
+    tile (rows owned a float4 at a time: 10 a row), some splits empty."""
+    case = (4, 3, 8, 2, 40, 16, [520, 2, 0, 70], 0.0, 1024)
+    q, k, v, tables, lengths = _paged_inputs(rng, case, dtype, cuda, 40)
+    kw = dict(block_tables=tables, lengths=lengths)
+    monkeypatch.setattr(pa, "num_splits", lambda *shape: nsplit)
+    out = pa.paged_flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, plain.paged_decode_attention_ref(q, k, v, **kw), dtype)
+    assert float(out[2].float().abs().max()) == 0.0  # an empty slot
+
+
+# qwen2-vl-2b: 12 query heads on 2 KV heads of 128 (a GQA group of 6):
+# the 3072-token source prefill, the 512-row Memory-LLM, a 12-token prompt
+# against the 512-row prefix and causal behind it, decode over 4 slots;
+# whisper-medium: 16 heads of 64, the encoder's 1500 x 1500 self-attention
+# (not causal, every position 0), the decoder's cross-attention of 512
+# memory rows and of a 12-token prompt over the 1500 frames, and decode
+# over them (1 row a slot).
+NEW_MODEL_CASES = [
+    # (name, B, Sq, Skv, Hq, Hkv, D, kind)
+    ("qwen_source", 1, 3072, 3072, 12, 2, 128, "causal"),
+    ("qwen_memory", 1, 512, 512, 12, 2, 128, "causal"),
+    ("qwen_prefix", 1, 12, 512, 12, 2, 128, "prefix"),
+    ("qwen_prompt", 1, 12, 12, 12, 2, 128, "offset"),
+    ("qwen_decode", 4, 1, 540, 12, 2, 128, "decode"),
+    ("whisper_encoder", 1, 1500, 1500, 16, 16, 64, "frames"),
+    ("whisper_memory_cross", 1, 512, 1500, 16, 16, 64, "frames"),
+    ("whisper_prompt_cross", 2, 12, 1500, 16, 16, 64, "frames"),
+    ("whisper_decode_cross", 4, 1, 1500, 16, 16, 64, "frames"),
+]
+
+
+def _new_model_positions(B, Sq, Skv, kind, device):
+    ar = torch.arange(max(Sq, Skv), dtype=torch.int32, device=device)
+    if kind == "frames":  # enc-dec: every position 0, nothing masked
+        return (torch.zeros(B, Sq, dtype=torch.int32, device=device),
+                torch.zeros(B, Skv, dtype=torch.int32, device=device), False)
+    kv_pos = ar[:Skv].expand(B, Skv).contiguous()
+    if kind == "decode":
+        lens = torch.tensor([Skv - 5 * b for b in range(B)], device=device)
+        return (lens[:, None] - 1).to(torch.int32), kv_pos, True
+    if kind == "prefix":
+        return (Skv + ar[:Sq]).expand(B, Sq).contiguous(), kv_pos, False
+    if kind == "offset":
+        return ((512 + ar[:Sq]).expand(B, Sq).contiguous(),
+                (512 + ar[:Skv]).expand(B, Skv).contiguous(), True)
+    return ar[:Sq].expand(B, Sq).contiguous(), kv_pos, True
+
+
+@pytest.mark.parametrize("case", NEW_MODEL_CASES, ids=lambda c: c[0])
+def test_flash_attention_new_model_shapes_match_plain(cuda, rng, case):
+    """bf16 through both kernels (each forced) and the picked one, float32
+    through its own; the 1500-frame calls' backward too (the next step's
+    Phase 1 runs it non-causal over 1500 frames at 64)."""
+    name, B, Sq, Skv, Hq, Hkv, D, kind = case
+    q_pos, kv_pos, causal = _new_model_positions(B, Sq, Skv, kind, cuda)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal)
+    for dtype in ("bfloat16", "float32"):
+        q = _rand(rng, B, Sq, Hq, D, dtype=dtype)
+        k = _rand(rng, B, Skv, Hkv, D, dtype=dtype)
+        v = _rand(rng, B, Skv, Hkv, D, dtype=dtype)
+        ref, ref_lse = plain.attention_ref(q, k, v, return_lse=True, **kw)
+        variants = ((None, "wgmma", "mma_sync") if dtype == "bfloat16"
+                    else (None,))
+        for var in variants:
+            out, lse = fa.flash_attention(q, k, v, return_lse=True,
+                                          variant=var, **kw)
+            torch.cuda.synchronize()
+            _assert_close(out, ref, dtype)
+            assert _err(lse, ref_lse) <= TOL["float32"] * max(
+                1.0, float(ref_lse.abs().max()))
+        if kind == "frames" and Sq > 1:
+            dout = _rand(rng, B, Sq, Hq, D, dtype=dtype)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            want = plain.attention_bwd_ref(q, k, v, out, lse, dout, None,
+                                           **kw)
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                _assert_grad_close(g, w, dtype, gname)
+
+
+@pytest.mark.parametrize("S", [1, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_flash_decode_group_of_six(cuda, rng, S, dtype):
+    """qwen2-vl-2b's paged decode: 12 query heads on 2 KV heads of 128, S
+    rows a slot (S * 6 rows a KV head: one row group at S = 1, three at S
+    = 3 and 4, the last part-filled), the main path's blocks of 16 behind a
+    512-row prefix shared by two slots."""
+    case = (4, S, 12, 2, 128, 16, [524, 530, 516, 519], 0.0, None)
+    q, k, v, tables, lengths = _paged_inputs(rng, case, dtype, cuda)
+    kw = dict(block_tables=tables, lengths=lengths, scale=128 ** -0.5)
+    out = pa.paged_flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, plain.paged_decode_attention_ref(q, k, v, **kw), dtype)

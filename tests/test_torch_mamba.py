@@ -335,13 +335,56 @@ def test_paged_cache_keeps_mamba_state_per_slot():
 
 
 def test_blocks_the_port_lacks_still_raise():
-    """Enc-dec blocks (Whisper's cross-attention) are not ported yet; MLA
-    mixers and the hybrid's ``prefix["ssm"]`` are (tests/test_torch_mla.py,
-    tests/test_torch_hybrid.py)."""
+    """The enc-dec block (Whisper's decoder layer, ported since the
+    Mamba2 slice) against ``apply_block`` on whisper-medium-smoke, on each
+    of its cross-attention's three paths: to ``encoder_out``, to the
+    cache's ``ck`` / ``cv`` (here written by the first call), and with
+    neither the fall-through (a causal self-attention with the cross
+    weights); a mixer the port has no module for still raises."""
+    from repro.models.blocks import apply_block
     from repro_torch.config import LayerDesc
     from repro_torch.models.blocks import Block
 
+    arch = "whisper-medium"
+    cfg = get_smoke_config(arch)
+    params = jtfm.init_params(cfg, 0)
+    model = bridge.from_jax_params(port_smoke_config(arch),
+                                   jax.tree.map(np.asarray, params),
+                                   device="cpu")
+    desc = cfg.layout.period[0]
+    jp = jax.tree.map(lambda x: x[0], params["period"]["l0"])
+    block = model.layers[0]
+    rng = np.random.default_rng(12)
+    h = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 7, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(5, dtype=np.int32), (2, 5)).copy()
+    zeros = np.zeros((2, 7, cfg.num_heads, cfg.hd), np.float32)
+    jcache = {"ck": jnp.asarray(zeros), "cv": jnp.asarray(zeros)}
+    pcache = {"ck": torch.zeros(zeros.shape), "cv": torch.zeros(zeros.shape)}
+    want, jnew, _ = apply_block(jp, cfg, desc, jnp.asarray(h),
+                                positions=jnp.asarray(pos),
+                                encoder_out=jnp.asarray(enc), cache=jcache)
+    got, _, _ = block(torch.from_numpy(h), positions=torch.from_numpy(pos),
+                      encoder_out=torch.from_numpy(enc), cache=pcache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    for key in ("ck", "cv"):  # the frames' K/V, written into the cache
+        np.testing.assert_allclose(pcache[key].numpy(),
+                                   np.asarray(jnew[key]), atol=1e-5)
+    want2, _, _ = apply_block(jp, cfg, desc, jnp.asarray(h),
+                              positions=jnp.asarray(pos), cache=jnew)
+    got2, _, _ = block(torch.from_numpy(h), positions=torch.from_numpy(pos),
+                       cache=pcache)
+    np.testing.assert_allclose(got2.numpy(), np.asarray(want2), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got2.numpy(), got.numpy(), atol=1e-5)
+    want3, _, _ = apply_block(jp, cfg, desc, jnp.asarray(h),
+                              positions=jnp.asarray(pos))
+    got3, _, _ = block(torch.from_numpy(h), positions=torch.from_numpy(pos))
+    np.testing.assert_allclose(got3.numpy(), np.asarray(want3), atol=1e-4,
+                               rtol=1e-4)
+    assert float(np.abs(got3.numpy() - got.numpy()).max()) > 1e-3
     pcfg = port_smoke_config(ARCH)
     with pytest.raises(NotImplementedError):
-        Block(pcfg, LayerDesc("attn", "dense", cross_attn=True),
-              device="cpu", dtype=torch.float32)
+        Block(pcfg, LayerDesc("ssm", "dense"), device="cpu",
+              dtype=torch.float32)

@@ -515,8 +515,8 @@ def launches(monkeypatch):
         calls.append(("bwd_wgmma", a[19], a[20], 1))
         return 0
 
-    def paged(*a):  # (6 pointers, B, S, Hq, Hkv, D, Dv, ...)
-        calls.append(("paged", a[10], a[11], a[17]))
+    def paged(*a):  # (6 pointers, B, S, Hq, Hkv, D, Dv, tD, tDv, ...)
+        calls.append(("paged", a[10], a[11], a[19]))
         return 0
 
     monkeypatch.setattr(fa, "_kernel", lambda: (flash, None, wgmma))
@@ -545,13 +545,14 @@ def _qkv(B, S, L, Hq, Hkv, D, Dv, dtype, grad=False):
 @pytest.mark.parametrize("D,Dv,dtype,ok", [
     (192, 128, torch.bfloat16, True), (576, 512, torch.bfloat16, True),
     (192, 128, torch.float32, True), (576, 512, torch.float32, False),
-    (128, 64, torch.bfloat16, False), (32, 16, torch.float32, False)])
+    (264, 128, torch.bfloat16, False), (36, 16, torch.float32, False)])
 def test_flash_dv_routing(launches, D, Dv, dtype, ok):
     """The pairs MLA needs go to the kernels with both widths and give a
     (.., Dv) output: bf16 (192, 128) to the wgmma variant (the mma.sync
     one when forced), (576, 512) to mma.sync (a forced wgmma variant
-    raises there), float32 (192, 128) to the CUDA cores; other pairs
-    raise."""
+    raises there), float32 (192, 128) to the CUDA cores; pairs that no
+    kernel takes, padded or not (past 256, no multiple of 8, (576, 512)
+    in float32), raise."""
     q, k, v, q_pos, kv_pos = _qkv(2, 3, 40, 8, 1, D, Dv, dtype)
     if not ok:
         with pytest.raises(NotImplementedError):
@@ -615,13 +616,14 @@ def test_flash_dv_refuses_a_gradient(launches):
 @pytest.mark.parametrize("D,Dv,dtype,want", [
     (192, 128, torch.bfloat16, ("bwd_wgmma", 192, 128, 1)),
     (192, 128, torch.float32, ("bwd", 192, 128, 0)),
-    (576, 512, torch.bfloat16, None), (128, 64, torch.bfloat16, None),
-    (256, 128, torch.float32, None)])
+    (576, 512, torch.bfloat16, None), (264, 128, torch.bfloat16, None),
+    (256, 132, torch.float32, None)])
 def test_flash_dv_backward_routing(launches, D, Dv, dtype, want):
     """``flash_attention_bwd`` at Dv != D: (192, 128) launches the bf16
     wgmma backward or the float32 one with both widths, out and dout
     checked at (.., Dv); a forced mma.sync variant raises there (it needs
-    Dv == D), as does every other pair, before any launch."""
+    Dv == D), as does every pair no kernel takes, padded or not, before
+    any launch."""
     q, k, v, q_pos, kv_pos = _qkv(1, 4, 16, 4, 4, D, Dv, dtype)
     out = _fake(torch.zeros(1, 4, 4, Dv, dtype=dtype))
     lse = _fake(torch.zeros(1, 4, 4))
@@ -647,7 +649,7 @@ def test_flash_dv_backward_routing(launches, D, Dv, dtype, want):
 
 @pytest.mark.parametrize("D,Dv,dtype,ok", [
     (576, 512, torch.bfloat16, True), (192, 128, torch.float32, True),
-    (576, 512, torch.float32, False), (256, 128, torch.bfloat16, False)])
+    (576, 512, torch.float32, False), (264, 128, torch.bfloat16, False)])
 def test_paged_dv_routing(launches, D, Dv, dtype, ok):
     g = torch.Generator().manual_seed(1)
     q = _fake(torch.randn(2, 1, 16, D, generator=g).to(dtype))

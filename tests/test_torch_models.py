@@ -173,9 +173,13 @@ def test_layers_match(rng):
     _close(layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
                              1e4),
            jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4), 2e-5)
-    with pytest.raises(NotImplementedError):
-        layers.apply_rope(torch.from_numpy(x), torch.from_numpy(
-            np.stack([pos] * 3)), 1e4, (4, 4, 4))
+    # M-RoPE (ported with qwen2-vl-2b): three distinct position streams
+    pos3 = np.stack([pos, rng.integers(0, 50, (2, 5)),
+                     rng.integers(0, 50, (2, 5))]).astype(np.int32)
+    _close(layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos3),
+                             1e4, (4, 4, 4)),
+           jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos3), 1e4,
+                              (4, 4, 4)), 2e-5)
     h = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
     _close(layers.softcap(torch.from_numpy(h * 40), 30.0),
            jlayers.softcap(jnp.asarray(h * 40), 30.0), 2e-5)
