@@ -1786,12 +1786,23 @@ def main() -> int:
          ("float32", "bfloat16")),
         ("mla_source_bwd", 1, T, T, arange(0, T)[None], arange(0, T)[None],
          True, mla_heads, False, ("bfloat16",)),
-        # whisper-medium's Memory-LLM cross-attention over 1500 frames (not
-        # causal, every position 0): the next slice's Phase-1 call
+        # whisper-medium's Phase 1 (4t): the Memory-LLM's cross-attention
+        # over 1500 frames (not causal, every position 0; the 512-row
+        # prompt's is the same call), then whisper's and qwen2-vl-2b's
+        # (4u) self-attention calls as gemma2-2b's above
         ("whisper_memory_cross_bwd", 2, m, frames,
          arange(0, m)[None].expand(2, m) * 0,
          arange(0, frames)[None].expand(2, frames) * 0, False,
          whisper_heads, False, ("bfloat16",)),
+        *((f"{arch_}_{name_}", 2, m, m, arange(q0, m)[None].expand(2, m),
+           arange(k0, m)[None].expand(2, m), causal_, heads_, dlse_,
+           ("bfloat16",))
+          for arch_, heads_ in (("whisper", whisper_heads),
+                                ("qwen", qwen_heads))
+          for name_, q0, k0, causal_, dlse_ in (
+              ("memory_self_bwd", 0, 0, True, False),
+              ("prompt_self_bwd", m, m, True, True),
+              ("prompt_prefix_bwd", m, 0, False, True))),
         # widths no kernel is built for, zero-padded to fa.tile_dims' tile
         ("width_16_bwd", 2, m, m, arange(0, m)[None].expand(2, m),
          arange(0, m)[None].expand(2, m), True, (8, 4, 16, 0.0), True,
@@ -1944,7 +1955,10 @@ def main() -> int:
             ("granite_memory_xattn_bwd", 1, m, T, 1536,
              ("float32", "bfloat16")),
             ("mistral_memory_xattn_bwd", 1, 768, 2 * T, 4096,
-             ("bfloat16",))):
+             ("bfloat16",)),
+            # the Phase-1 steps of 4t and 4u
+            ("whisper_memory_xattn_bwd", 2, m, T, 1024, ("bfloat16",)),
+            ("qwen_memory_xattn_bwd", 2, m, T, 1536, ("bfloat16",))):
         row = {"shape": name, "q": [B, Mx, D], "kv": [B, Tx, D]}
         for dn in dtypes:
             dtype = getattr(torch, dn)
@@ -3462,6 +3476,7 @@ def main() -> int:
         breakdown["prefill"]["ssd_kernels"] = ssd_kernels
         return {"params": n_params, "dense": dense, "paged": paged,
                 "refilled_request": refilled, "prefill_s": prefill_s,
+                "prefill_tokens": int(toks.shape[1]),
                 "state_bytes_per_slot": state_bytes,
                 "gemma2_kv_bytes_3072": gemma_kv, "peak_bytes": peak_dense,
                 "breakdown": breakdown,
@@ -3716,16 +3731,64 @@ def main() -> int:
         return {"restart_identical": True, "restore_s": restore_s,
                 "restart_s": restart_s, "opt_state": again.opt_state}
 
+    def frames_at(cfg, i, batch):
+        """Step ``i``'s encoder frames (batch, num_frames, d_model) in bf16,
+        drawn on the card from seed 1500 + i (the same tensor each time a
+        step's batch is made again, as the restart does)."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(1500 + i)
+        return (0.1 * torch.randn((batch, cfg.encoder.num_frames,
+                                   cfg.d_model), generator=g, device=dev)
+                ).to(torch.bfloat16)
+
+    def frames_train_run(cfg, *, batch, seq, split, steps, lr):
+        """``launch.train.build``'s run (seed-0 target, seed-1 compressor,
+        Phase 1 without remat, a PretrainStream of seed 0 split at
+        ``split``, a Trainer with raw checkpoints every 2 steps) with each
+        step's batch also carrying ``frames_at``'s encoder frames: the
+        launcher itself passes none, as the reference's does."""
+        from types import SimpleNamespace
+
+        from repro_torch.data import PretrainStream
+        from repro_torch.launch import steps as launch_steps
+        from repro_torch.train import Trainer, TrainerConfig
+
+        target = tfm.init_params(cfg, 0)
+        mc = memcom.init_memcom(cfg, target, 1)
+        step, opt, params = launch_steps.build_memcom_train_step(
+            cfg, mc, target, phase=1, remat=False, lr=lr)
+        stream = PretrainStream(vocab, batch=batch, seq_len=seq,
+                                split_choices=(split,), seed=0)
+
+        def batch_at(i):
+            b = stream.batch_at(i)
+            out = {k: torch.as_tensor(b[k]).to(dev)
+                   for k in ("source", "target", "target_mask")}
+            out["frames"] = frames_at(cfg, i, batch)
+            return out
+
+        trainer = Trainer(step, params, opt.init(params), batch_at,
+                          str(ckdir), TrainerConfig(
+                              num_steps=steps, ckpt_every=2, log_every=1,
+                              codec="raw"))
+        return SimpleNamespace(trainer=trainer, mc=mc, target=target,
+                               params=params, opt=opt, step=step,
+                               batch_at=batch_at)
+
     def memcom_train_path(arch, cfg=None):
         """MemCom Phase 1 at full width and depth (or ``cfg``'s depth)
         through the port's launcher path (``launch.train.build``: Trainer,
-        AdamW with warmup_cosine, clip 1.0): 4 steps of batch 2 x 3584
+        AdamW with warmup_cosine, clip 1.0; an enc-dec model through
+        ``frames_train_run``, the same run with encoder frames in every
+        batch): 4 steps of batch 2 x 3584
         tokens split at 3072 (the source) with a checkpoint after step 2,
         then a second Trainer restored from it that must reproduce steps
         3-4 exactly (``train_and_restart``).  Every step: the flash and
         memcom_xattn backward calls of the layers, each through the
         variant its rule picks (at MLA's (192, 128) the wgmma one, the
-        only bf16 backward that takes the pair), and on a MoE model one
+        only bf16 backward that takes the pair; an enc-dec model adds the
+        Memory-LLM's and the prompt's cross-attention over the frames in
+        every layer, non-causal), and on a MoE model one
         dX-only gmm backward call for each expert product of the target's
         MoE layers and of the Memory-LLM's but its last (whose output no
         loss term reads).  The peak memory is printed beside its
@@ -3743,10 +3806,14 @@ def main() -> int:
         # parameter's first updates (lr ~ 4e-7) below its rounding step
         lr = warmup_cosine(2e-4, 2, 20_000)
         t0 = time.perf_counter()
-        run = launch_train.build(cfg, phase=1, batch=batch, seq=seq,
-                                 split=split, steps=steps, ckpt=str(ckdir),
-                                 ckpt_every=2, codec="raw", log_every=1,
-                                 lr=lr)
+        if cfg.encoder is not None:
+            run = frames_train_run(cfg, batch=batch, seq=seq, split=split,
+                                   steps=steps, lr=lr)
+        else:
+            run = launch_train.build(cfg, phase=1, batch=batch, seq=seq,
+                                     split=split, steps=steps,
+                                     ckpt=str(ckdir), ckpt_every=2,
+                                     codec="raw", log_every=1, lr=lr)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         named = dict(run.mc.named_parameters())
@@ -3769,10 +3836,21 @@ def main() -> int:
         else:
             G, D, Dv = cfg.num_heads // cfg.num_kv_heads, cfg.hd, cfg.hd
         p_rows = seq - split
-        want_wg = (3 * L - 1 if all(
+        calls = ((mm, mm), (p_rows, p_rows), (p_rows, mm))
+        # the Memory-LLM's self-attention and the prompt against the prefix
+        # in every layer, the prompt's self-attention in every layer but
+        # the first (whose q, k, v come from the frozen token embeddings
+        # alone, so autograd records no backward); an enc-dec model's
+        # Memory-LLM and prompt also cross-attend to the frames in every
+        # layer (for dq alone: the frozen encoder's output needs none)
+        want_bwd = 3 * L - 1
+        if cfg.encoder is not None:
+            nf = cfg.encoder.num_frames
+            calls += ((mm, nf), (p_rows, nf))
+            want_bwd += 2 * L
+        want_wg = (want_bwd if all(
             fa.bwd_variant_for(torch.bfloat16, D, rows * G, skv, Dv)
-            == "wgmma" for rows, skv in ((mm, mm), (p_rows, p_rows),
-                                         (p_rows, mm))) else 0)
+            == "wgmma" for rows, skv in calls) else 0)
         # and each layer's memory cross-attention over the split's source
         want_xwg = (L if mx.bwd_variant_for(
             torch.bfloat16, batch, mm, split, cfg.d_model, True) == "wgmma"
@@ -3782,11 +3860,7 @@ def main() -> int:
             if any(moe_layers) else 0
 
         def check_step(i, c):
-            # the Memory-LLM's self-attention and the prompt against the
-            # prefix in every layer, the prompt's self-attention in every
-            # layer but the first (whose q, k, v come from the frozen
-            # token embeddings alone, so autograd records no backward)
-            if c["flash_attention_bwd"] != 3 * L - 1 \
+            if c["flash_attention_bwd"] != want_bwd \
                     or c["flash_attention_bwd_wgmma"] != want_wg \
                     or c["memcom_xattn_bwd"] != L \
                     or c["memcom_xattn_bwd_wgmma"] != want_xwg \
@@ -3795,7 +3869,7 @@ def main() -> int:
                     or c["gmm_bwd_wgmma"] != want_gmm:
                 raise AssertionError(
                     f"{tag} step {i + 1}: {c['flash_attention_bwd']} flash "
-                    f"backward calls (want {3 * L - 1}), "
+                    f"backward calls (want {want_bwd}), "
                     f"{c['flash_attention_bwd_wgmma']} through the wgmma "
                     f"variant (want {want_wg}), "
                     f"{c['memcom_xattn_bwd']} memcom_xattn backward calls "
@@ -3823,7 +3897,8 @@ def main() -> int:
         out = train_and_restart(tag, run, cfg, named, steps, batch * seq,
                                 check_step, keys, pats, init_s)
         out["target_tokens_per_s"] = batch * (seq - split) / out["s_per_step"]
-        out["want_gmm_bwd"] = want_gmm
+        out.update(want_gmm_bwd=want_gmm, want_flash_bwd=want_bwd,
+                   batch=batch, seq=seq, split=(split, seq - split))
         out["reckoned_bytes"] = reckoned
         log(f"{tag} peak memory {out['peak_bytes']} bytes against {reckoned}"
             " reckoned before activations")
@@ -3916,9 +3991,14 @@ def main() -> int:
         cfg = get_config(arch)
         is_moe = cfg.moe is not None
         lean = cfg2 is not None
+        cross = cfg.layout.period[0].cross_attn
         cfg2 = cfg2 or cfg.replace(
             name=f"{arch}-depth2", layout=LayerLayout.uniform(
-                LayerDesc("attn", "moe" if is_moe else "dense"), 2))
+                LayerDesc("attn", "moe" if is_moe else "dense",
+                          cross_attn=cross), 2))
+        if cfg2.encoder is not None:
+            # the encoder cut to depth 2 as well; the batch carries frames
+            cfg2 = cfg2.replace(encoder=dc_replace(cfg2.encoder, num_layers=2))
         moe_layers = [d.mlp == "moe" for d in cfg2.layout.descriptors()]
         # Phase 1: dX of the target's MoE layers and the Memory-LLM's but
         # its last (three expert products each)
@@ -3965,6 +4045,8 @@ def main() -> int:
                              split_choices=(T,), seed=0).batch_at(0)
         batch = {k: torch.as_tensor(raw[k], device=dev)
                  for k in ("source", "target", "target_mask")}
+        if cfg2.encoder is not None:
+            batch["frames"] = frames_at(cfg2, 0, 2)
         source_bwd = []
         inner_bwd = fa.flash_attention_bwd
 
@@ -4024,8 +4106,10 @@ def main() -> int:
                    f"{routing.flips} of {routing.rows}" if is_moe else "")
                 + f"; {time.perf_counter() - t_ph:.1f}s")
             # Phase 2: the source's flash backward in every layer but the
-            # last, whose attention feeds no captured hidden
-            want_src = cfg2.num_layers - 1 if phase == 2 else 0
+            # last, whose attention feeds no captured hidden (an enc-dec
+            # layer's self- and cross-attention both)
+            want_src = ((cfg2.num_layers - 1) * (2 if cross else 1)
+                        if phase == 2 else 0)
             # Phase 1: dX alone (want_dx); Phase 2 trains the experts of
             # both compressor stacks, each MoE layer's but the last's
             # (whose output no captured hidden reads: deepseek's cut has
@@ -5611,6 +5695,118 @@ def main() -> int:
     t_phase = time.perf_counter()
     report["smoke_launchers"] = smoke_launchers()
     log(f"[smoke launchers] phase 4s: {time.perf_counter() - t_phase:.1f}s")
+
+    # 4t: whisper-medium MemCom Phase 1 at full width and depth, 1500
+    # frames a sample (the flash backward over the frames at 16 x 64, the
+    # encoder forward only), and 4u: qwen2-vl-2b's (12/2 x 128, a GQA
+    # group of 6), each then its depth-2 Phase-1 and Phase-2 gradients
+    # against the plain path (phase 5)
+    for arch, phase_name in (("whisper-medium", "4t"), ("qwen2-vl-2b", "4u")):
+        key = f"{arch} train"
+        t_phase = time.perf_counter()
+        report[key] = memcom_train_path(arch)
+        paths[key] = report[key]["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_s = time.perf_counter() - t_phase
+        report[key]["kernel_vs_plain"] = train_kernel_vs_plain(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report[key]["phase_s"] = time.perf_counter() - t_phase
+        log(f"[{key}] phases {phase_name} and 5: "
+            f"{report[key]['phase_s']:.1f}s (training {train_s:.1f}s)")
+
+    # ---- 6. each path's share of the card's peak -------------------------
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch import costs, roofline
+
+    def share(path, cfg, objective, batch, seq, seconds, split=None):
+        """The analytic FLOPs and bytes of what ``path`` ran in ``seconds``
+        (``launch/costs.py`` at the shape, split and depth it ran; a
+        compress costed as a prefill, as the reference's dry run maps it;
+        a Phase-1 step by ``memcom_train_cost(phase=1, split=)``) through
+        ``launch/roofline.py``'s ``analyze`` at one card, and the shares
+        of the card's peak that the measured seconds give."""
+        shape = ShapeSpec(path, seq, batch, objective)
+        if objective == "memcom_train":
+            cc = costs.memcom_train_cost(cfg, shape, phase=1, split=split)
+        else:
+            cc = costs.cell_cost(cfg, shape, {"compress": "prefill"}.get(
+                objective, objective))
+        rec = roofline.analyze({
+            "arch": cfg.name, "shape": f"{batch}x{seq}",
+            "objective": objective, "chips": 1,
+            "analytic": {"flops": cc.flops, "hbm_bytes": cc.hbm_bytes,
+                         "model_flops": cc.model_flops},
+            "collectives": {"total": 0.0},
+            "collectives_full": {"total": 0.0}})
+        out = {"path": path, "arch": cfg.name, "objective": objective,
+               "batch": batch, "seq": seq, "split": split,
+               "flops": cc.flops, "model_flops": cc.model_flops,
+               "hbm_bytes": cc.hbm_bytes, "compute_s": rec["compute_s"],
+               "memory_s": rec["memory_s"], "dominant": rec["dominant"],
+               "s": seconds,
+               "hw_flops_share": cc.flops / (seconds * roofline.PEAK_FLOPS),
+               "mfu": cc.model_flops / (seconds * roofline.PEAK_FLOPS),
+               "roofline_share": max(rec["compute_s"], rec["memory_s"])
+               / seconds}
+        return out
+
+    shares = []
+    for key, arch, cfg_ in (
+            ("train", "gemma2-2b", None),
+            ("granite-moe-3b-a800m train", "granite-moe-3b-a800m", None),
+            ("deepseek-v2-236b train", "deepseek-v2-236b",
+             family_cfg("deepseek-v2-236b")),
+            ("whisper-medium train", "whisper-medium", None),
+            ("qwen2-vl-2b train", "qwen2-vl-2b", None)):
+        r = report[key]
+        shares.append(share(f"{arch} Phase-1 step", cfg_ or get_config(arch),
+                            "memcom_train", r["batch"], r["seq"],
+                            r["s_per_step"], split=r["split"]))
+    r = report["mamba2-370m train"]
+    shares.append(share("mamba2-370m LM step", get_config("mamba2-370m"),
+                        "lm_train", 2, T, r["s_per_step"]))
+    # the second task's compress (the first warms the path); whisper's
+    # main path runs no encoder (no frames), so its cost leaves the
+    # encoder out; its frames path's compress runs it
+    for arch, depth, src in (
+            ("gemma2-2b", None, sources), ("granite-moe-3b-a800m", None,
+                                           sources),
+            ("smollm-360m", 8, sources), ("stablelm-1.6b", 8, sources),
+            ("mistral-7b", 16, msources), ("qwen2-vl-2b", None, sources),
+            ("whisper-medium", None, sources),
+            ("deepseek-v2-236b", "family", sources),
+            ("jamba-1.5-large-398b", "family", sources)):
+        cfg_ = (family_cfg(arch) if depth == "family"
+                else cut_depth(get_config(arch), depth))
+        if arch == "whisper-medium":
+            cfg_ = cfg_.replace(encoder=None)
+        shares.append(share(f"{arch} compress", cfg_, "compress", 1,
+                            len(src[1]), report[arch]["task_compress_s"][1]))
+    wf = report["whisper-medium"]["then"]
+    shares.append(share("whisper-medium compress with frames",
+                        get_config("whisper-medium"), "compress", 1,
+                        len(sources[1]), wf["compress_s"] / len(sources)))
+    r = report["mamba2-370m"]
+    shares.append(share("mamba2-370m prefill", get_config("mamba2-370m"),
+                        "prefill", 1, r["prefill_tokens"],
+                        min(r["prefill_s"])))
+    # the dense decode: serve seconds over decode steps, at the slots and
+    # the cache length the serve reached (m + the longest prompt + max_new)
+    d = report["gemma2-2b"]["dense"]
+    shares.append(share("gemma2-2b dense decode step", get_config("gemma2-2b"),
+                        "decode", slots, m + prompt_len + max_new,
+                        d["serve_s"] / d["decode_steps"]))
+    report["shares"] = shares
+    for sh in shares:
+        log("share " + json.dumps(sh))
+    over = [sh["path"] for sh in shares
+            if max(sh["hw_flops_share"], sh["roofline_share"]) > 1.05]
+    if over:
+        raise AssertionError(f"a share of the card's peak above 1.05, which "
+                             f"no card gives (the cost model or the timing "
+                             f"is wrong): {over}")
 
     # ---- result lines ----------------------------------------------------
     def compile_chunk(rows):

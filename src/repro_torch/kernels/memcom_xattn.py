@@ -17,8 +17,9 @@ Every kernel also gives each query row's logsumexp (``return_lse``).
 
 A CUDA call is differentiable: when q, k or v needs a gradient the
 forward runs inside :class:`MemcomXattn` (an ``autograd.Function`` whose
-forward is the same kernel call, keeping out and lse) and its backward
-launches the hand-written backward of ``csrc/memcom_xattn.cu``
+forward is the same kernel on the values centred over T, keeping out and
+lse; see its docstring) and its backward launches the hand-written
+backward of ``csrc/memcom_xattn.cu``
 (:func:`memcom_xattn_bwd`, held to ``plain.memcom_xattn_bwd_ref``), whose
 variant :func:`bwd_variant_for` picks: ``"wgmma"`` (bf16 at D % 64 == 0:
 D_i from out, S and dP on wgmma with P and dS formed in their epilogue
@@ -254,21 +255,41 @@ def memcom_xattn(q, k, v, *, scale=None, variant=None, return_lse=False):
 
 class MemcomXattn(torch.autograd.Function):
     """The CUDA forward kernel with the backward kernel as its gradient;
-    returns (out, lse), lse without a gradient."""
+    returns (out, lse), lse without a gradient.
+
+    Both kernels run on the values centred over T, and the backward on the
+    keys centred over T (its lse moved to match): exact in exact
+    arithmetic, since each row of P sums to 1 (out = P (V - v_mean) +
+    v_mean, dV unchanged) and a row's logits all move by scale q_i .
+    k_mean, which its lse takes back (P, dS unchanged, and dQ = scale dS
+    K too, as each row of dS sums to 0).  In bf16 they keep the rounding
+    errors of the centred quantities: the backward forms D_i =
+    rowsum(dO o O) from the bf16 O, which against raw values carries the
+    rounding of their common part, so that a row of dS sums to an error
+    instead of 0, and dQ takes that error times the keys' common part
+    (the raw residual stream a source hands memx has a large one:
+    whisper-medium's memx gradients landed 2.2e-2 off the plain run's at
+    depth 2 on the card without this)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, variant):
-        out, lse = _forward(q, k, v, scale, variant)
-        ctx.save_for_backward(q, k, v, out, lse)
+        v_mean = v.float().mean(dim=1, keepdim=True)
+        vc = (v.float() - v_mean).to(v.dtype)
+        out_c, lse = _forward(q, k, vc, scale, variant)
+        ctx.save_for_backward(q, k, vc, out_c, lse)
         ctx.mark_non_differentiable(lse)
         ctx.scale = scale
-        return out, lse
+        return (out_c.float() + v_mean).to(v.dtype), lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*memcom_xattn_bwd(q, k, v, out, lse, dout, scale=ctx.scale),
-                None, None)
+        q, k, vc, out_c, lse = ctx.saved_tensors
+        scale = q.shape[-1] ** -0.5 if ctx.scale is None else ctx.scale
+        k_mean = k.float().mean(dim=1, keepdim=True)
+        kc = (k.float() - k_mean).to(k.dtype)
+        lse_c = lse - scale * (q.float() @ k_mean.transpose(1, 2))[..., 0]
+        return (*memcom_xattn_bwd(q, kc, vc, out_c, lse_c, dout,
+                                  scale=ctx.scale), None, None)
 
 
 def _forward(q, k, v, scale, variant):

@@ -3,7 +3,9 @@
 ``build_compress_step``, ``build_prefill_step`` and ``build_decode_step``,
 and the ICAE step ``benchmarks/common.py``'s
 ``train_compressor(kind="icae")`` jits; the dry-run's compile-only
-makers are not ported).
+makers are not ported), and its cell helpers: ``shape_by_name``,
+``cell_is_skipped``, ``input_specs`` (shapes and dtypes; the mesh's
+shardings come with the port's sharding) and ``default_objective``.
 
 Each training maker returns ``(step, opt, params)``: ``params`` the
 flat dict of the tensors the step trains (leaves of the live modules,
@@ -16,14 +18,91 @@ encoder frames reach it, as in the JAX package (the engine takes none).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import SHAPES, ModelConfig, ShapeSpec
+from repro_torch.configs import get_config
 from repro_torch.core import icae, memcom
+from repro_torch.launch import costs
 from repro_torch.optim import AdamW, warmup_constant, warmup_cosine
 from repro_torch.train import build_train_step
+
+
+# Archs whose family makes MemCom inapplicable (train falls back to LM).
+ATTENTION_FREE = ("mamba2-370m",)
+# Sub-quadratic archs that run long_500k.
+SUBQUADRATIC = ("mamba2-370m", "jamba-1.5-large-398b")
+
+
+def shape_by_name(name: str) -> ShapeSpec:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def cell_is_skipped(arch: str, shape_name: str) -> Optional[str]:
+    """Return a skip reason or None (long_500k is sub-quadratic-only)."""
+    shape = shape_by_name(shape_name)
+    if shape.subquadratic_only and arch not in SUBQUADRATIC:
+        return ("full-attention arch: 500k decode needs sub-quadratic "
+                "attention (DESIGN.md §4)")
+    return None
+
+
+def default_objective(arch: str, shape: ShapeSpec) -> str:
+    if shape.kind == "train":
+        return "lm_train" if arch in ATTENTION_FREE else "memcom_train"
+    if shape.kind == "prefill":
+        return "prefill" if arch in ATTENTION_FREE else "compress"
+    return "decode"
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of one model input (no storage)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(arch: str, shape_name: str,
+                objective: Optional[str] = None) -> dict:
+    """Every batch input of one cell as a :class:`TensorSpec`, keyed as
+    the step makers read them: the reference's ``input_specs`` without
+    the mesh argument (its shardings wait for the port's sharding).  An
+    enc-dec model's training and compress / prefill cells carry
+    ``frames`` (B, num_frames, d_model) in the config's dtype."""
+    cfg = get_config(arch)
+    shape = shape_by_name(shape_name)
+    objective = objective or default_objective(arch, shape)
+    B = shape.global_batch
+    i32 = torch.int32
+
+    def tok(n, b=B):
+        return TensorSpec((b, n), i32)
+
+    out: dict = {}
+    if objective == "memcom_train":
+        T, S = costs.train_split(shape)
+        out["source"] = tok(T)
+        out["target"] = tok(S)
+        out["target_mask"] = TensorSpec((B, S), i32)
+    elif objective == "lm_train":
+        out["tokens"] = tok(shape.seq_len)
+    elif objective in ("compress", "prefill"):
+        out["source"] = tok(shape.seq_len)
+    elif objective.startswith("decode"):
+        out["tokens"] = tok(1)
+        out["cache_index"] = TensorSpec((), i32)
+    else:
+        raise ValueError(objective)
+    if cfg.encoder is not None and objective in (
+            "memcom_train", "lm_train", "compress", "prefill"):
+        e = cfg.encoder
+        out["frames"] = TensorSpec((B, e.num_frames, cfg.d_model),
+                                   getattr(torch, cfg.dtype))
+    return out
 
 
 def build_memcom_train_step(cfg: ModelConfig, mc: memcom.MemCom, target, *,

@@ -59,7 +59,8 @@ assert not bad, bad
                 "serving.traffic", "serving.telemetry", "serving.slo_watchdog",
                 "serving.profiler", "serving.server", "core.icae",
                 "core.lora", "configs.smollm_360m", "configs.stablelm_1_6b",
-                "configs.mistral_nemo_12b"):
+                "configs.mistral_nemo_12b", "launch.costs",
+                "launch.roofline"):
         assert f"repro_torch.{mod}" in mods.split(), mod
 
 
