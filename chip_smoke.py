@@ -552,6 +552,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
       launched in the kernel run.  4h's trained target also serves paged
       (its 32-wide heads on the paged kernel's 64-wide tile), kernel and
       plain: the classic engine's tokens.
+   v. tensor-parallel serving (after 4u): gemma2-2b split by head on a
+      ``gloo`` mesh of ranks that share the card (``launch/mesh.py``
+      ``run_ranks``, ``make_serving_mesh(model=n, backend="gloo")``): 2
+      ranks at full width and depth, 4 ranks at depth 2 (2 of the 8 query
+      heads and 1 of the 4 KV heads a rank), 2 ranks at depth 2 in
+      float32.  Each rank compresses both 3072-token tasks with the whole
+      compressor, materializes them through its split target and serves
+      the four prompts dense (task 1 compiled online, 1024-token chunks)
+      and paged (blocks of 16).  Each run is held to the one-rank engine
+      on the same seeded weights: every rank's tokens and first decode
+      step's logits the same, the tokens the one-rank engine's, and the
+      logits within 1e-4 scaled in float32, in bf16 within 0.3 scaled at
+      full depth and 0.05 at depth 2 (twice the one-rank engine's own
+      distance from itself when its prompt calls take the other flash
+      kernel, a fixed rule; printed with the tokens and each request's
+      first differing position).  The three runs' ranks are one spawn
+      of 4; ranks 2 and 3 sit out the 2-way runs.  Each rank prints its launches, and each
+      kernel call's variant and split count at its local heads, held to
+      its plain version; peak memory a rank; the phase's seconds.  Then a
+      1x1 ``nccl`` mesh through ``launch/serve.py --mesh 1``: the
+      launcher's tokens without a mesh.  The ranks' all_reduce goes
+      through the host (gloo), so no time of this phase is a rate of
+      tensor-parallel serving.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
@@ -581,6 +604,269 @@ E2E_REL_TOL = 2e-2
 
 def log(*a):
     print(*a, flush=True)
+
+
+# ---- phase 4v: tensor-parallel serving, one function a rank -------------
+# Module-level, so that the ranks ``run_ranks`` spawns can import it (a
+# spawned child runs this file again as ``__mp_main__``; main() does not
+# run there).
+
+
+class _KernelSpy:
+    """Wraps the flash, paged and memcom_xattn kernels' entry points while
+    a run goes: counts each distinct call (shapes, dtype, static
+    arguments), records the variant and split count the wrapper picks for
+    it at this rank's head counts, and keeps its first inputs, which
+    :meth:`check` runs again through the kernel and the plain version
+    after the run's launch counts have been read."""
+
+    def __init__(self, fa, pa, mx):
+        self.fa, self.pa, self.mx = fa, pa, mx
+        self.rows = {}
+
+    def _note(self, key, make_row, inputs):
+        row = self.rows.get(key)
+        if row is None:
+            row = self.rows[key] = make_row()
+            row["calls"] = 0
+            row["inputs"] = inputs()
+        row["calls"] += 1
+
+    def __enter__(self):
+        import torch
+
+        fa, pa, mx = self.fa, self.pa, self.mx
+        self.inner = (fa.flash_attention, pa.paged_flash_decode,
+                      mx.memcom_xattn)
+        flash, paged, xattn = self.inner
+        dev = torch.cuda.current_device()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+        def clone(*ts):
+            return [t.clone() if torch.is_tensor(t) else t for t in ts]
+
+        def flash_spy(q, k, v, **kw):
+            B, Sq, Hq, D = q.shape
+            Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+            static = tuple(sorted((n, x) for n, x in kw.items()
+                                  if not torch.is_tensor(x)))
+            key = ("flash_attention", tuple(q.shape), tuple(k.shape), Dv,
+                   str(q.dtype), static)
+
+            def row():
+                nsplit = fa._splits(B, Sq, Skv, Hq, Hkv, dev)
+                tile = fa.tile_dims(q.dtype, D, Dv) or (D, Dv)
+                return {"kernel": "flash_attention", "q": list(q.shape),
+                        "kv": list(k.shape), "dtype": str(q.dtype),
+                        "nsplit": nsplit,
+                        "variant": kw.get("variant") or fa.variant_for(
+                            q.dtype, tile[0], Skv, nsplit, tile[1])}
+
+            self._note(key, row, lambda: (clone(q, k, v), {
+                n: (x.clone() if torch.is_tensor(x) else x)
+                for n, x in kw.items()}))
+            return flash(q, k, v, **kw)
+
+        def paged_spy(q, k_pool, v_pool, **kw):
+            B, S, Hq, D = q.shape
+            Hkv = k_pool.shape[2]
+            nb, bs = kw["block_tables"].shape[1], k_pool.shape[1]
+            key = ("paged_flash_decode", tuple(q.shape),
+                   tuple(k_pool.shape), str(q.dtype), kw.get("softcap"))
+
+            def row():
+                return {"kernel": "paged_flash_decode", "q": list(q.shape),
+                        "pool": list(k_pool.shape), "dtype": str(q.dtype),
+                        "nsplit": pa.num_splits(B, S, Hq, Hkv, nb, bs, sms)}
+
+            self._note(key, row, lambda: (clone(q, k_pool, v_pool), {
+                n: (x.clone() if torch.is_tensor(x) else x)
+                for n, x in kw.items()}))
+            return paged(q, k_pool, v_pool, **kw)
+
+        def xattn_spy(q, k, v, **kw):
+            B, M, D = q.shape
+            T = k.shape[1]
+            key = ("memcom_xattn", tuple(q.shape), tuple(k.shape),
+                   str(q.dtype))
+
+            def row():
+                return {"kernel": "memcom_xattn", "q": list(q.shape),
+                        "kv": list(k.shape), "dtype": str(q.dtype),
+                        "variant": mx.variant_for(q.dtype, B, M, T, D, True),
+                        "nsplit": mx.num_splits(B, M, T, D, sms)}
+
+            self._note(key, row, lambda: (clone(q, k, v), dict(kw)))
+            return xattn(q, k, v, **kw)
+
+        fa.flash_attention = flash_spy
+        pa.paged_flash_decode = paged_spy
+        mx.memcom_xattn = xattn_spy
+        return self
+
+    def __exit__(self, *exc):
+        (self.fa.flash_attention, self.pa.paged_flash_decode,
+         self.mx.memcom_xattn) = self.inner
+
+    def check(self, plain, tag, quiet=False):
+        """Each recorded shape through its kernel again and its plain
+        version: max abs error and ``plain.scaled_err`` within the dtype's
+        rule (1e-4 float32, 2e-2 bfloat16)."""
+        import torch
+
+        flash, paged, xattn = self.inner
+        fns = {"flash_attention": (flash, plain.attention_ref),
+               "paged_flash_decode": (paged,
+                                      plain.paged_decode_attention_ref),
+               "memcom_xattn": (xattn, plain.memcom_xattn_ref)}
+        out = []
+        for row in self.rows.values():
+            (args, kw) = row.pop("inputs")
+            kernel, ref_fn = fns[row["kernel"]]
+            kw_ref = {n: x for n, x in kw.items()
+                      if n not in ("variant", "return_lse")}
+            got = kernel(*args, **kw)
+            want = ref_fn(*args, **kw_ref)
+            if isinstance(got, tuple):
+                got = got[0]
+            if isinstance(want, tuple):
+                want = want[0]
+            torch.cuda.synchronize()
+            dn = row["dtype"].split(".")[1]
+            row["max_abs_err"] = float((got.float() - want.float()).abs()
+                                       .max())
+            row["scaled_err"] = plain.scaled_err(got, want)
+            ok = row["max_abs_err"] <= TOL[dn] \
+                and row["scaled_err"] <= REL_TOL[dn]
+            if not quiet:
+                log(f"{tag} {row['kernel']} q {row['q']} "
+                    f"{row.get('kv', row.get('pool'))} {dn}: "
+                    f"{row['calls']} call(s), variant "
+                    f"{row.get('variant', '-')}, nsplit {row['nsplit']}; "
+                    f"kernel vs plain max_abs_err {row['max_abs_err']:.3e}, "
+                    f"scaled {row['scaled_err']:.3e}")
+            if not ok:
+                raise AssertionError(f"{tag} {row['kernel']} at {row['q']} "
+                                     "disagrees with its plain version")
+            out.append(row)
+        self.rows = {}
+        return out
+
+
+def tp_runs(rank, world, specs):
+    """:func:`tp_serve` for each spec in turn, in one spawn (None from a
+    rank that sits out a spec's smaller mesh)."""
+    return [tp_serve(rank, world, spec) for spec in specs]
+
+
+def tp_serve(rank, world, spec):
+    """One rank of phase 4v (or, at ``spec["model"]`` 0, the one-rank
+    engine without a mesh that the ranks are held to): gemma2-2b from
+    seeds at full width (``depth`` cuts the layers), a ``spec["model"]``-
+    way gloo mesh of ranks that share the card; both tasks compressed by
+    the whole compressor and materialized through the split target, a
+    dense engine (task 0 offline, task 1 compiled online from its raw
+    shots) and a paged one (blocks of 16, both offline) serve the
+    prompts; the first decode step's logits of each, every kernel call
+    recorded (variant and split count at the local heads) and held to its
+    plain version after the run.  A rank past the mesh (ranks 2 and 3 of
+    a 2-way spec) makes the mesh with the others and returns None."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import LayerLayout
+    from repro_torch.configs import get_config
+    from repro_torch.core import memcom
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import memcom_xattn as mx
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Request, ServingEngine, materialize_prefix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = (f"[4v {spec['model']}-way rank {rank}]" if spec["model"]
+           else "[4v one rank]")
+    cfg = get_config(spec["arch"])
+    if spec["depth"]:
+        cfg = cfg.replace(name=f"{cfg.name}-depth{spec['depth']}",
+                          layout=LayerLayout(period=cfg.layout.period,
+                                             repeats=spec["depth"]))
+    if spec["dtype"]:
+        cfg = cfg.replace(dtype=spec["dtype"])
+    dev = torch.device("cuda")
+    mesh = (make_serving_mesh(model=spec["model"], device=dev,
+                              backend="gloo") if spec["model"] else None)
+    if mesh is not None and mesh.get_coordinate() is None:
+        return None
+    t0 = time.perf_counter()  # after the wait for ranks still serving
+    torch.cuda.reset_peak_memory_stats()
+    target = tfm.init_params(cfg, 0)
+    compressor = memcom.init_memcom(cfg, target, 1)
+    m, bs = cfg.memcom.num_memory_tokens, 16
+    kw = dict(slots=spec["slots"], max_len=spec["max_len"], mesh=mesh)
+    dense = ServingEngine(cfg, target, compressor=compressor,
+                          compile_token_budget=spec["budget"], **kw)
+    paged = ServingEngine(cfg, target, kv_layout="paged", block_size=bs,
+                          num_blocks=1 + 2 * (m // bs) + spec["slots"] * 4,
+                          **kw)
+    torch.cuda.synchronize()
+    counters = {"flash_attention": fa, "memcom_xattn": mx,
+                "paged_flash_decode": pa}
+    for mod in counters.values():
+        mod.launches = 0
+    fa.wgmma_launches = mx.wgmma_launches = 0
+    logits = {}
+
+    def first_decode(name):
+        def hook(module, args, kwargs, out):
+            if kwargs.get("decode") and name not in logits:
+                logits[name] = out[0][:, -1].float().cpu().numpy()
+        return hook
+
+    spy = _KernelSpy(fa, pa, mx)
+    sources = spec["sources"]
+    with spy:
+        for t, src in enumerate(sources):
+            prefix, _ = memcom.compress(
+                compressor, cfg, torch.as_tensor(src[None], device=dev))
+            kv = materialize_prefix(target, cfg, prefix)
+            paged.add_prefix(f"task{t}", kv)
+            if t == 0:
+                dense.add_prefix("task0", kv)
+        local_kv = int(kv[0]["k"].shape[2])
+        runs = {}
+        for name, eng in (("dense", dense), ("paged", paged)):
+            reqs = [Request(tokens=p, max_new=spec["max_new"], uid=i,
+                            **({"raw_shots": sources[1]}
+                               if name == "dense" and i % 2
+                               else {"prefix": f"task{i % 2}"}))
+                    for i, p in enumerate(spec["prompts"])]
+            handle = target.register_forward_hook(first_decode(name),
+                                                  with_kwargs=True)
+            try:
+                out = eng.serve(reqs)
+            finally:
+                handle.remove()
+            runs[name] = [out[r.uid].tolist() for r in reqs]
+    torch.cuda.synchronize()
+    launches = {key: mod.launches for key, mod in counters.items()}
+    launches["flash_attention_wgmma"] = fa.wgmma_launches
+    launches["memcom_xattn_wgmma"] = mx.wgmma_launches
+    serve_s = time.perf_counter() - t0
+    quiet = rank > 0  # rank 0 speaks for all
+    if not quiet:
+        log(f"{tag} {cfg.name} {cfg.dtype}: {local_kv} of "
+            f"{cfg.num_kv_heads} KV heads on this rank; launches "
+            f"{launches}")
+    shapes = spy.check(plain, tag, quiet)
+    return {"tokens": runs, "logits": logits, "launches": launches,
+            "shapes": shapes, "local_kv_heads": local_kv,
+            "compiled": dense.stats()["compiler"]["jobs"],
+            "mesh": dense.stats().get("mesh"),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "serve_s": serve_s, "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -956,12 +1242,25 @@ def main() -> int:
          True, (8, 8, 24, 0.0, 16, 24 ** -0.5)),
         ("width_40_32_decode", slots, 1, max_len, (lengths - 1)[:, None],
          decode_kv, True, (8, 1, 40, 0.0, 32, 24 ** -0.5)),
+        # the tensor-parallel target's calls (phase 4v) at gemma2-2b's
+        # local heads, 4/2 on 2 ranks and 2/1 on 4: the prompt causal and
+        # against its prefix, and the dense decode (bf16 only)
+        *((f"tp{n}_{tag}", B_, Sq_, Skv_, qp_, kp_, causal_,
+           (8 // n, 4 // n, 256, 50.0))
+          for n in (2, 4) for tag, B_, Sq_, Skv_, qp_, kp_, causal_ in (
+              ("prompt_self", 1, prompt_len, prompt_len,
+               arange(m, prompt_len)[None], arange(m, prompt_len)[None],
+               True),
+              ("prompt_prefix", 1, prompt_len, m,
+               arange(m, prompt_len)[None], arange(0, m)[None], False),
+              ("decode", slots, 1, max_len, (lengths - 1)[:, None],
+               decode_kv, True))),
     ]
     # shapes held in bf16 alone: the full-width models run bf16 (the
     # float32 kernel at (192, 128) is held at the MLA prompt's shape)
     BF16_ONLY = ("mistral", "probe_", "icae_", "smollm_", "stablelm_",
                  "jamba_", "mla_source", "mla_memory", "mla_decode",
-                 "mla_fused", "qwen_", "whisper_")
+                 "mla_fused", "qwen_", "whisper_", "tp")
     flash_rows = []
     t_phase = time.perf_counter()
     for name, B, Sq, Skv, q_pos, kv_pos, causal, heads in attn_cases:
@@ -1267,6 +1566,10 @@ def main() -> int:
            max_len) for D_ in (16, 32)),
         ("width_40_32", slots, 1, 8, 1, 40, 16, main_lens, pm, 0.0, max_len,
          32, 24 ** -0.5),
+        # the tensor-parallel target's paged decode (phase 4v) at
+        # gemma2-2b's local heads: 4/2 on 2 ranks, 2/1 on 4
+        *((f"tp{n}_decode", slots, 1, 8 // n, 4 // n, 256, 16, main_lens, pm,
+           50.0, max_len) for n in (2, 4)),
     ]
     paged_rows = []
     for name, B, S, hq, hkv, Dh, bs, lens, share, cap, table, *extra \
@@ -5715,6 +6018,137 @@ def main() -> int:
         report[key]["phase_s"] = time.perf_counter() - t_phase
         log(f"[{key}] phases {phase_name} and 5: "
             f"{report[key]['phase_s']:.1f}s (training {train_s:.1f}s)")
+
+    # 4v: tensor-parallel serving of gemma2-2b on gloo meshes of ranks
+    # that share the card (a rank's all_reduce goes through the host: no
+    # rate of this phase is a performance figure), each run held to the
+    # one-rank engine on the same seeded weights (docstring, 4v): 2 ranks
+    # at full width and depth, 2 ranks at depth 2 in float32, 4 ranks at
+    # depth 2, and a 1x1 nccl mesh through launch/serve.py's entry
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import run_ranks
+
+    def tp_phase():
+        spec = dict(arch="gemma2-2b", depth=None, dtype=None, model=0,
+                    sources=sources, prompts=prompts, slots=slots,
+                    max_len=max_len, max_new=max_new, budget=1024)
+        zero = {k: 0 for k in counts()}
+        # name, overrides, ranks, and the rule on the first decode step's
+        # logits (plain.scaled_err against the one-rank engine's).  bf16:
+        # twice the largest distance of the one-rank engine from itself
+        # when its prompt calls take the wgmma flash kernel in place of
+        # mma.sync (0.1205 dense / 0.1441 paged at full depth, 0.0233 /
+        # 0.0117 at depth 2; NVIDIA H100 80GB HBM3, 700 W): a split's sums
+        # in another order move the logits as far as a kernel choice does.
+        runs = (("tp2", {}, 2, 0.3),
+                ("tp2_depth2_float32", dict(depth=2, dtype="float32"), 2,
+                 REL_TOL["float32"]),
+                ("tp4_depth2", dict(depth=2), 4, 0.05))
+        refs = {}
+        t1 = time.perf_counter()
+        for name, over, _, _ in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            refs[name] = tp_serve(0, 1, dict(spec, **over))
+        gc.collect()
+        torch.cuda.empty_cache()
+        # every run in one spawn of 4 ranks (a spawn costs ~10 s); ranks 2
+        # and 3 sit out the 2-way runs
+        per_rank = run_ranks(
+            tp_runs, 4, ([dict(spec, model=n, **over)
+                          for _, over, n, _ in runs],),
+            backend="gloo", device="cuda", timeout=600)
+        out = {"seconds_runs": time.perf_counter() - t1}
+        for i, (name, over, n, rule) in enumerate(runs):
+            ref, ranks = refs[name], [res[i] for res in per_rank[:n]]
+            row = {"ranks": n, "depth": over.get("depth"),
+                   "dtype": over.get("dtype", "bfloat16"), "rule": rule,
+                   "ref_tokens": ref["tokens"], "ref_seconds": ref["seconds"],
+                   "rank_seconds": [r["seconds"] for r in ranks],
+                   "peak_bytes": [r["peak_bytes"] for r in ranks],
+                   "local_kv_heads": [r["local_kv_heads"] for r in ranks],
+                   "launches": [r["launches"] for r in ranks],
+                   "shapes": ranks[0]["shapes"]}
+            for layout in ("dense", "paged"):
+                got = ranks[0]["tokens"][layout]
+                want = ref["tokens"][layout]
+                first = [next((i for i, (a, b) in enumerate(zip(g, w))
+                               if a != b), None) for g, w in zip(got, want)]
+                same_ranks = all(
+                    r["tokens"][layout] == got
+                    and np.array_equal(r["logits"][layout],
+                                       ranks[0]["logits"][layout])
+                    for r in ranks)
+                a, b = ranks[0]["logits"][layout], ref["logits"][layout]
+                se = plain.scaled_err(torch.from_numpy(a),
+                                      torch.from_numpy(b))
+                rel_ = float(np.abs(a - b).max() / np.abs(b).max())
+                row[layout] = {"tokens": got, "first_diff": first,
+                               "logits_scaled_err": se, "logits_rel": rel_,
+                               "ranks_agree": same_ranks}
+                log(f"[4v {name}] {layout}: tokens {got}; one-rank engine "
+                    f"{want}; first differing position per request {first}; "
+                    f"first decode step's logits against the one-rank "
+                    f"engine's: scaled err {se:.3e}, {rel_:.3e} of the "
+                    f"largest; rule scaled err <= {rule:.3e} and the same "
+                    f"tokens; every rank's tokens and logits the same: "
+                    f"{same_ranks}")
+                if not same_ranks or se > rule or got != want:
+                    raise AssertionError(f"[4v {name}] {layout}: the ranks "
+                                         "disagree, or their tokens or "
+                                         "logits leave the one-rank "
+                                         "engine's")
+            for r, res in enumerate(ranks):
+                c = res["launches"]
+                paths[f"gemma2-2b {name} rank{r}"] = {**zero, **c}
+                if min(c["flash_attention"], c["memcom_xattn"],
+                       c["paged_flash_decode"]) <= 0 or res["compiled"] != 1:
+                    raise AssertionError(f"[4v {name}] rank {r}: a kernel "
+                                         f"was not launched ({c}) or the "
+                                         "online task was not compiled")
+                log(f"[4v {name}] rank {r}: mesh {res['mesh']}, "
+                    f"{res['local_kv_heads']} KV heads, launches {c}, peak "
+                    f"memory {res['peak_bytes']} bytes, "
+                    f"{res['seconds']:.1f}s in the rank")
+                # its kernel calls (each held to plain in the rank): q, the
+                # keys or pool, variant, split count, calls, scaled error
+                log(f"[4v {name}] rank {r} kernel calls: " + "; ".join(
+                    f"{x['kernel']} {x['q']}/{x.get('kv', x.get('pool'))} "
+                    f"{x.get('variant', '-')} {x['nsplit']} x{x['calls']} "
+                    f"{x['scaled_err']:.1e}" for x in res["shapes"]))
+            out[name] = row
+        # a 1x1 nccl mesh through the launcher's entry
+        t1 = time.perf_counter()
+        argv = ["--arch", "gemma2-2b", "--requests", "4", "--tasks", "2",
+                "--max-new", "8"]
+        runs = {}
+        for name, extra in (("plain", []), ("mesh", ["--mesh", "1"])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            set_counts()
+            metrics = launch_serve.main(argv + extra)
+            torch.cuda.synchronize()
+            runs[name] = (metrics["tokens"], counts())
+        (toks, _), (mtoks, mc_) = runs["plain"], runs["mesh"]
+        paths["gemma2-2b 1x1 nccl mesh"] = mc_
+        log(f"[4v 1x1 nccl] launcher tokens {mtoks}; without a mesh "
+            f"{toks}; equal {mtoks == toks}; launches {mc_}")
+        if mtoks != toks or min(mc_["flash_attention"],
+                                mc_["memcom_xattn"]) <= 0:
+            raise AssertionError("[4v 1x1 nccl] the launcher's 1x1 mesh "
+                                 "left the unsplit tokens or launched no "
+                                 "kernel")
+        out["mesh_1x1"] = {"tokens_equal": True, "launches": mc_,
+                           "phase_s": time.perf_counter() - t1}
+        return out
+
+    t_phase = time.perf_counter()
+    report["tp"] = tp_phase()
+    report["tp"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"[4v] tensor-parallel serving phase: "
+        f"{report['tp']['phase_s']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 6. each path's share of the card's peak -------------------------
     from repro_torch.config import ShapeSpec

@@ -117,7 +117,8 @@ class MemCom(nn.Module):
         kw = dict(device=source.device, dtype=source.dtype)
         self.memx = _memx(cfg, **kw)
         make(self, "mem_tokens", (cfg.memcom.num_memory_tokens, cfg.d_model),
-             Init("normal", scale=cfg.d_model ** -0.5), **kw)
+             Init("normal", scale=cfg.d_model ** -0.5), axes=(None, "embed"),
+             **kw)
         self.source = source
         self.memory_llm = memory_llm
 

@@ -63,8 +63,25 @@ on 127.0.0.1 while the engine runs (0 picks a free port), and
 The device is the card unless ``--device cpu`` is given; without a card
 the launcher raises.  A config without MemCom (the attention-free
 mamba2-370m) exits with a message before any model is built, as the JAX
-launcher does: its entry point is ``ServingEngine`` itself.  Meshes
-(``--mesh``, ``--rules``) are a later slice of the port.
+launcher does: its entry point is ``ServingEngine`` itself.
+
+``--mesh M`` (or ``--mesh DxM``) serves tensor-parallel on a ("data",
+"model") mesh of ``torch.distributed`` ranks: the target's weights split
+by ``--rules`` (baseline, or fsdp, which at data 1 places as baseline
+does; fully sharded weights at data above 1 come with the training
+slice), K/V caches and pools split by head over "model", every kernel on
+the rank's heads, block tables, lengths and the control plane the same on
+every rank.  The launcher starts its ranks itself (``spawn``, a file-store
+rendezvous in a temporary directory) unless ``torchrun`` started them;
+only rank 0 prints, and the report carries ``mesh`` and ``rules``.  A
+data axis above 1 holds whole replicas.  The ranks' backend is ``nccl``
+on the card (one card a rank) and ``gloo`` on the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --smoke --mesh 2 --device cpu
+
+MoE, Mamba2, MLA and enc-dec stacks raise under a model axis above 1 (the
+next slice of the port); a 1x1 mesh runs every family.
 """
 
 from __future__ import annotations
@@ -72,22 +89,53 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time  # reprolint: ignore-file[wall-clock] -- the launcher reports real compress/serve seconds to its operator; nothing replays them
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import memcom
 from repro_torch.data import (ICLTaskSpec, SyntheticVocab,
                               build_manyshot_prompt, make_episode, make_query)
+from repro_torch.launch.mesh import (default_backend, make_serving_mesh,
+                                     one_rank_group, run_ranks)
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import (MetricsRegistry, Request, ServingEngine,
                                  ShedDegrade, SLOWatchdog, TelemetryServer,
                                  Tracer, TrafficConfig, VirtualClock,
                                  default_rules, generate_trace,
                                  materialize_prefix, slo_metrics)
+from repro_torch.sharding import BASELINE_RULES, FSDP_RULES
+
+
+# a spawned --mesh run, and each collective of it, is stopped after this
+_MESH_TIMEOUT_S = 1800.0
+
+
+def _parse_mesh(spec: str):
+    """"M" -> (1, M) model-parallel; "DxM" -> (data, model)."""
+    parts = spec.lower().split("x")
+    if len(parts) == 1:
+        data, model = 1, int(parts[0])
+    elif len(parts) == 2:
+        data, model = int(parts[0]), int(parts[1])
+    else:
+        raise ValueError(f"bad mesh spec {spec!r}: use M or DxM")
+    if data < 1 or model < 1:
+        raise ValueError(f"bad mesh spec {spec!r}: axes must be >= 1")
+    return data, model
+
+
+def _rank_main(rank: int, world: int, argv: list) -> dict:
+    """One spawned rank of ``--mesh``: the launcher again, inside the
+    group; only rank 0 prints."""
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    return main(argv)
 
 
 def _sync(device: torch.device) -> None:
@@ -96,6 +144,7 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(allow_abbrev=False)
     ap.add_argument("--arch", choices=ARCH_IDS, default="gemma2-2b")
     ap.add_argument("--smoke", action="store_true")
@@ -220,6 +269,16 @@ def main(argv=None) -> dict:
                     help="bound the tracer's ring buffer to the last N "
                          "events (the flight recorder: dumped to "
                          "--trace-out on a crash); default keeps all")
+    ap.add_argument("--mesh", default=None, metavar="M|DxM",
+                    help="tensor-parallel serving on a (data, model) mesh "
+                         "of ranks: M = 1xM; the launcher spawns the ranks "
+                         "unless torchrun started them")
+    ap.add_argument("--rules", choices=("baseline", "fsdp"),
+                    default="baseline",
+                    help="weight placement rule set for --mesh (baseline: "
+                         "tensor parallel over model; fsdp: also d_model "
+                         "over data, which needs data 1 until the training "
+                         "slice)")
     args = ap.parse_args(argv)
     if min(args.tasks, args.slots, args.requests, args.priority_classes) < 1:
         ap.error("--tasks, --slots, --requests and --priority-classes must "
@@ -258,6 +317,41 @@ def main(argv=None) -> dict:
     if args.http_linger and args.http_port is None:
         ap.error("--http-linger needs --http-port")
     device = resolve_device(args.device)
+    mesh = rules = None
+    if args.mesh:
+        try:
+            data, model = _parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        if args.rules == "fsdp" and data > 1:
+            raise NotImplementedError(
+                "--rules fsdp at data > 1 shards d_model over the data axis "
+                "(fully sharded weights): that comes with the training-"
+                "sharding slice of the port (ROADMAP Queue 1 step 5)")
+        backend = default_backend(device)
+        if not dist.is_initialized():
+            if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+                dist.init_process_group(backend)  # torchrun's env://
+                try:
+                    return main(argv)
+                finally:
+                    dist.destroy_process_group()
+            if data * model == 1:
+                with one_rank_group(backend, timeout=_MESH_TIMEOUT_S):
+                    return main(argv)
+            return run_ranks(_rank_main, data * model, (argv,),
+                             backend=backend, timeout=_MESH_TIMEOUT_S,
+                             device=device)[0]
+        mesh = make_serving_mesh(model=model, data=data, device=device,
+                                 backend=backend)
+        if mesh.get_coordinate() is None:
+            print(f"[edge] rank {dist.get_rank()}: not on the "
+                  f"{args.mesh} mesh, idle")
+            return {}
+        rules = {"baseline": BASELINE_RULES, "fsdp": FSDP_RULES}[args.rules]
+    # under a mesh every rank serves; rank 0 alone prints, listens and
+    # writes the run's files
+    lead = mesh is None or dist.get_rank() == 0
 
     vocab = SyntheticVocab()
     cfg = (get_smoke_config(args.arch) if args.smoke
@@ -290,7 +384,7 @@ def main(argv=None) -> dict:
         # spans sit on simulated time; --http-port implies one so that
         # GET /debug/trace has a flight recorder to dump
         tracer = Tracer(capacity=args.flight_recorder,
-                        dump_path=args.trace_out)
+                        dump_path=args.trace_out if lead else None)
         print(f"[edge] tracing: flight recorder "
               f"{'unbounded' if args.flight_recorder is None else args.flight_recorder}"
               f" event(s)"
@@ -330,9 +424,12 @@ def main(argv=None) -> dict:
                            fused_chunk_tokens=args.fused_chunk_tokens,
                            spec_draft=spec_draft, spec_k=args.spec_k,
                            tracer=tracer, metrics=registry,
-                           watchdog=watchdog)
+                           watchdog=watchdog, mesh=mesh, rules=rules)
+    if mesh is not None:
+        print(f"[edge] tensor-parallel mesh {data}x{model} (data x model, "
+              f"{dist.get_backend()}), rules={args.rules}")
     http_server = None
-    if args.http_port is not None:
+    if args.http_port is not None and lead:
         http_server = TelemetryServer(engine, port=args.http_port)
         port = http_server.start()
         print(f"[edge] http telemetry on 127.0.0.1:{port} "
@@ -385,7 +482,8 @@ def main(argv=None) -> dict:
                "disk_dir": args.disk_dir,
                "promote_budget": args.promote_budget,
                "fused_step": args.fused_step,
-               "spec_draft": args.spec_draft, "spec_k": args.spec_k}
+               "spec_draft": args.spec_draft, "spec_k": args.spec_k,
+               "mesh": args.mesh, "rules": args.rules if args.mesh else None}
 
     if args.traffic:
         tcfg = TrafficConfig(
@@ -510,20 +608,20 @@ def main(argv=None) -> dict:
         stats = engine.stats()
         print("[stats]", json.dumps(stats, indent=1))
         metrics["stats"] = stats
-    if args.trace_out:
+    if args.trace_out and lead:
         path = tracer.dump(args.trace_out)
         n = len(tracer.events())
         print(f"[edge] trace -> {path} ({n} event(s)"
               + (f", {tracer.dropped} dropped by the flight recorder"
                  if tracer.dropped else "") + ")")
-    if args.metrics_out:
+    if args.metrics_out and lead:
         parent = os.path.dirname(args.metrics_out)
         if parent:
             os.makedirs(parent, exist_ok=True)
         with open(args.metrics_out, "w") as f:
             f.write(engine.metrics.render_prometheus())
         print(f"[edge] prometheus metrics -> {args.metrics_out}")
-    if args.metrics:
+    if args.metrics and lead:
         with open(args.metrics, "w") as f:
             json.dump(metrics, f, indent=1)
         print(f"metrics -> {args.metrics}")

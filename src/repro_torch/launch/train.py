@@ -8,7 +8,9 @@ Without ``--device`` it runs on the card.  Under ``--smoke`` the
 vocabulary shrinks to the synthetic stream's 388 ids, as the reference
 launcher's does; at full width the published vocabulary stays (the
 synthetic ids lie inside it).  The reference's ``--data``/``--model``
-mesh flags wait for the port's sharding.
+mesh flags wait for the training half of the port's sharding (``ctx``,
+``pipeline``, the sharded steps and FSDP: ROADMAP Queue 1 step 5); the
+serving half runs (``launch/serve.py --mesh``).
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="cpu for the plain path on the CPU (default: the "
                          "card).  The reference's --data/--model mesh "
-                         "flags wait for the port's sharding")
+                         "flags wait for the training half of the port's "
+                         "sharding (serve.py --mesh serves split)")
     args = ap.parse_args(argv)
 
     vocab = SyntheticVocab()

@@ -13,6 +13,11 @@ keeps one (slots, max_len, Hkv, hd) tensor per layer, or one (num_blocks,
 block_size, Hkv, hd) pool per layer addressed through per-slot block
 tables (the paged layout), and never copies it.
 
+Under a mesh (:func:`repro_torch.sharding.serving.shard_module`) a layer
+whose heads split holds its rank's query and KV heads: the projections are
+column slices, every kernel runs on the local heads, and the row-split
+``wo`` is summed over the "model" ranks.
+
 Cross-attention (Whisper's decoder, and its encoder's self-attention):
 with ``kv_source`` (B, F, D), or a cache holding the cross entries
 ``{"ck", "cv"}`` (B, F, H, hd), the queries are not roped and attend to
@@ -36,9 +41,12 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.param import Init, make
+from repro_torch.sharding.serving import matmul_reduce
 
 
 class Attention(nn.Module):
+    tp = None  # this rank's ModelShard where the heads split (shard_module)
+
     def __init__(self, cfg: ModelConfig, num_heads: int | None = None, *,
                  device, dtype):
         super().__init__()
@@ -47,18 +55,29 @@ class Attention(nn.Module):
         nh = num_heads or cfg.num_heads
         nkv = num_heads or cfg.num_kv_heads
         kw = dict(device=device, dtype=dtype)
-        make(self, "wq", (d, nh * hd), **kw)
-        make(self, "wk", (d, nkv * hd), **kw)
-        make(self, "wv", (d, nkv * hd), **kw)
-        make(self, "wo", (nh * hd, d), Init(fan_in=nh * hd), **kw)
+        self.head_counts = (nh, nkv)  # the placement rule's (module_specs)
+        make(self, "wq", (d, nh * hd), axes=("embed", "heads"), **kw)
+        make(self, "wk", (d, nkv * hd), axes=("embed", "kv_heads"), **kw)
+        make(self, "wv", (d, nkv * hd), axes=("embed", "kv_heads"), **kw)
+        make(self, "wo", (nh * hd, d), Init(fan_in=nh * hd),
+             axes=("heads", "embed"), **kw)
         self.has_bias = cfg.attn_qkv_bias
         if self.has_bias:
-            make(self, "bq", (nh * hd,), Init("zeros"), **kw)
-            make(self, "bk", (nkv * hd,), Init("zeros"), **kw)
-            make(self, "bv", (nkv * hd,), Init("zeros"), **kw)
+            make(self, "bq", (nh * hd,), Init("zeros"), axes=("heads",),
+                 **kw)
+            make(self, "bk", (nkv * hd,), Init("zeros"),
+                 axes=("kv_heads",), **kw)
+            make(self, "bv", (nkv * hd,), Init("zeros"),
+                 axes=("kv_heads",), **kw)
 
     def forward(self, x, **kw):
         return apply_attention(self, self.cfg, x, **kw)
+
+
+def _out(p: Attention, o):
+    """The output projection of the (local) heads' attention ``o`` (B, S,
+    heads * hd): row-split ``wo`` under a mesh, summed over the ranks."""
+    return matmul_reduce(o, p.wo, p.tp)
 
 
 def _proj(x, w, b, hd):
@@ -162,7 +181,7 @@ def _cross_attention(p: Attention, cfg: ModelConfig, x, kv_source, cache):
     out = ops.attention(q, k.to(q.dtype), v.to(q.dtype), q_pos=q_pos,
                         kv_pos=kv_pos, causal=False,
                         softcap=cfg.attn_logit_softcap, scale=hd ** -0.5)
-    return out.reshape(B, S, -1) @ p.wo, cache
+    return _out(p, out.reshape(B, S, -1)), cache
 
 
 def apply_attention(
@@ -225,7 +244,7 @@ def apply_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 block_tables=block_tables, lengths=cache_index + S,
                 softcap=softcap, scale=scale)
-            return out.reshape(B, S, -1) @ p.wo, cache
+            return _out(p, out.reshape(B, S, -1)), cache
         if torch.is_tensor(cache_index) and cache_index.dim() == 1:
             # per-slot lengths (continuous batching): each slot writes at
             # its own offset and is masked to its own seated region only
@@ -234,7 +253,7 @@ def apply_attention(
             out = ops.decode_attention(
                 q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                 lengths=cache_index + S, softcap=softcap, scale=scale)
-            return out.reshape(B, S, -1) @ p.wo, cache
+            return _out(p, out.reshape(B, S, -1)), cache
         # static start (a chunk of a chunked compress): write the rows,
         # then one causal call over the keys [0, start + S) they can see,
         # unsplit, so that each row walks its keys as in the one-shot call
@@ -249,7 +268,7 @@ def apply_attention(
                             q_pos=kv_pos[:, start:], kv_pos=kv_pos,
                             causal=True, softcap=softcap, scale=scale,
                             variant="unsplit")
-        return out.reshape(B, S, -1) @ p.wo, cache
+        return _out(p, out.reshape(B, S, -1)), cache
 
     # ---------------- train / prefill: full self-attention ----------------
     k, v = project_kv(p, cfg, x, positions)
@@ -286,7 +305,7 @@ def apply_attention(
         else:
             cache["k"][:, start:start + S] = k.to(cache["k"].dtype)
             cache["v"][:, start:start + S] = v.to(cache["v"].dtype)
-    return out.reshape(B, S, -1) @ p.wo, cache
+    return _out(p, out.reshape(B, S, -1)), cache
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.param import Init, make
+from repro_torch.sharding.serving import matmul_reduce
 
 
 class Norm(nn.Module):
@@ -25,9 +26,11 @@ class Norm(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = dim or cfg.d_model
-        make(self, "scale", (d,), Init("ones"), device=device, dtype=dtype)
+        make(self, "scale", (d,), Init("ones"), device=device, dtype=dtype,
+             axes=("embed",))
         if cfg.norm_type == "layernorm":
-            make(self, "bias", (d,), Init("zeros"), device=device, dtype=dtype)
+            make(self, "bias", (d,), Init("zeros"), device=device,
+                 dtype=dtype, axes=("embed",))
 
     def forward(self, x):
         return apply_norm(self, self.cfg, x)
@@ -90,6 +93,8 @@ def sinusoidal_pos_embed(num_pos: int, dim: int, device=None) -> torch.Tensor:
 
 
 class MLP(nn.Module):
+    tp = None  # this rank's ModelShard where ff splits (shard_module)
+
     def __init__(self, cfg: ModelConfig, d_ff: int | None = None,
                  mlp_type: str | None = None, *, device, dtype):
         super().__init__()
@@ -98,14 +103,14 @@ class MLP(nn.Module):
         d, f = cfg.d_model, d_ff or cfg.d_ff
         kw = dict(device=device, dtype=dtype)
         if self.mlp_type == "gelu_mlp":
-            make(self, "wi", (d, f), **kw)
-            make(self, "bi", (f,), Init("zeros"), **kw)
-            make(self, "wo", (f, d), **kw)
-            make(self, "bo", (d,), Init("zeros"), **kw)
+            make(self, "wi", (d, f), axes=("embed", "ff"), **kw)
+            make(self, "bi", (f,), Init("zeros"), axes=("ff",), **kw)
+            make(self, "wo", (f, d), axes=("ff", "embed"), **kw)
+            make(self, "bo", (d,), Init("zeros"), axes=("embed",), **kw)
         else:  # swiglu / geglu
-            make(self, "wg", (d, f), **kw)
-            make(self, "wi", (d, f), **kw)
-            make(self, "wo", (f, d), **kw)
+            make(self, "wg", (d, f), axes=("embed", "ff"), **kw)
+            make(self, "wi", (d, f), axes=("embed", "ff"), **kw)
+            make(self, "wo", (f, d), axes=("ff", "embed"), **kw)
 
     def forward(self, x):
         return apply_mlp(self, self.cfg, x, self.mlp_type)
@@ -116,12 +121,15 @@ def _gelu(x):
 
 
 def apply_mlp(p: MLP, cfg: ModelConfig, x, mlp_type: str | None = None):
+    """Under a mesh ``wg`` / ``wi`` are column slices and ``wo`` a row
+    slice of ff: the product is summed over the "model" ranks, and the
+    bias ``bo`` added once, after the sum."""
     t = mlp_type or cfg.mlp_type
     if t == "gelu_mlp":
         h = _gelu(x @ p.wi + p.bi)
-        return h @ p.wo + p.bo
+        return matmul_reduce(h, p.wo, p.tp) + p.bo
     act = F.silu if t == "swiglu" else _gelu
-    return (act(x @ p.wg) * (x @ p.wi)) @ p.wo
+    return matmul_reduce(act(x @ p.wg) * (x @ p.wi), p.wo, p.tp)
 
 
 def softcap(x, cap: float):

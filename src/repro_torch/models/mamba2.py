@@ -48,15 +48,19 @@ class Mamba(nn.Module):
         kw = dict(device=device, dtype=dtype)
         f32 = dict(device=device, dtype=torch.float32)
         make(self, "in_proj", (d, 2 * di + 2 * mb.ngroups * mb.d_state + nh),
-             **kw)
+             axes=("embed", "mamba_inner"), **kw)
         make(self, "conv_w", (mb.conv_width, conv_dim),
-             Init("normal", scale=mb.conv_width ** -0.5), **kw)
-        make(self, "conv_b", (conv_dim,), Init("zeros"), **kw)
-        make(self, "A_log", (nh,), Init("uniform"), **f32)
-        make(self, "dt_bias", (nh,), Init("zeros"), **f32)
-        make(self, "D", (nh,), Init("ones"), **f32)
-        make(self, "norm", (di,), Init("ones"), **kw)
-        make(self, "out_proj", (di, d), **kw)
+             Init("normal", scale=mb.conv_width ** -0.5),
+             axes=(None, "mamba_inner"), **kw)
+        make(self, "conv_b", (conv_dim,), Init("zeros"),
+             axes=("mamba_inner",), **kw)
+        make(self, "A_log", (nh,), Init("uniform"), axes=("mamba_heads",),
+             **f32)
+        make(self, "dt_bias", (nh,), Init("zeros"), axes=("mamba_heads",),
+             **f32)
+        make(self, "D", (nh,), Init("ones"), axes=("mamba_heads",), **f32)
+        make(self, "norm", (di,), Init("ones"), axes=("mamba_inner",), **kw)
+        make(self, "out_proj", (di, d), axes=("mamba_inner", "embed"), **kw)
 
     def forward(self, x, *, cache=None, decode: bool = False,
                 init_state=None):

@@ -46,15 +46,21 @@ class MLA(nn.Module):
         m = cfg.mla
         d, nh = cfg.d_model, cfg.num_heads
         kw = dict(device=device, dtype=dtype)
-        make(self, "wdq", (d, m.q_lora_rank), **kw)
-        make(self, "q_norm", (m.q_lora_rank,), Init("ones"), **kw)
-        make(self, "wuq", (m.q_lora_rank, nh * m.qk_head_dim), **kw)
-        make(self, "wdkv", (d, m.kv_lora_rank + m.qk_rope_head_dim), **kw)
-        make(self, "kv_norm", (m.kv_lora_rank,), Init("ones"), **kw)
+        make(self, "wdq", (d, m.q_lora_rank), axes=("embed", "mla_lora"),
+             **kw)
+        make(self, "q_norm", (m.q_lora_rank,), Init("ones"),
+             axes=("mla_lora",), **kw)
+        make(self, "wuq", (m.q_lora_rank, nh * m.qk_head_dim),
+             axes=("mla_lora", "heads"), **kw)
+        make(self, "wdkv", (d, m.kv_lora_rank + m.qk_rope_head_dim),
+             axes=("embed", "mla_lora"), **kw)
+        make(self, "kv_norm", (m.kv_lora_rank,), Init("ones"),
+             axes=("mla_lora",), **kw)
         make(self, "wukv", (m.kv_lora_rank,
-                            nh * (m.qk_nope_head_dim + m.v_head_dim)), **kw)
+                            nh * (m.qk_nope_head_dim + m.v_head_dim)),
+             axes=("mla_lora", "heads"), **kw)
         make(self, "wo", (nh * m.v_head_dim, d),
-             Init(fan_in=nh * m.v_head_dim), **kw)
+             Init(fan_in=nh * m.v_head_dim), axes=("heads", "embed"), **kw)
 
     def forward(self, x, **kw):
         return apply_mla(self, self.cfg, x, **kw)

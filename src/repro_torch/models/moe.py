@@ -55,10 +55,13 @@ class MoE(nn.Module):
         m = cfg.moe
         d, E, Fd = cfg.d_model, m.num_experts, m.expert_d_ff
         kw = dict(device=device, dtype=dtype)
-        make(self, "router", (d, E), **kw)
-        make(self, "wg", (E, d, Fd), Init(fan_in=d), **kw)
-        make(self, "wi", (E, d, Fd), Init(fan_in=d), **kw)
-        make(self, "wo", (E, Fd, d), Init(fan_in=Fd), **kw)
+        make(self, "router", (d, E), axes=("embed", "expert"), **kw)
+        make(self, "wg", (E, d, Fd), Init(fan_in=d),
+             axes=("expert", "embed_ep", "ff"), **kw)
+        make(self, "wi", (E, d, Fd), Init(fan_in=d),
+             axes=("expert", "embed_ep", "ff"), **kw)
+        make(self, "wo", (E, Fd, d), Init(fan_in=Fd),
+             axes=("expert", "ff", "embed_ep"), **kw)
         if m.num_shared_experts:
             self.shared = nn.ModuleDict({"mlp": MLP(
                 cfg, d_ff=m.num_shared_experts * m.shared_ff(),

@@ -18,12 +18,18 @@ Parameters are created with ``requires_grad=False``, so that serving and
 compression record no autograd graph; training turns on the phase's
 trainable ones (:func:`repro_torch.core.memcom.set_trainable`, or
 ``requires_grad_`` on a whole model for plain LM training).
+
+Each parameter also records its logical axes (``make(..., axes=)``, the
+JAX ``ParamBuilder``'s), which :func:`param_specs` returns by dotted name
+and :mod:`repro_torch.sharding.rules` maps to a mesh.  The JAX package
+stacks a period's layers and prepends the axis ``"layers"``; the port's
+layers are modules of their own, so their axes carry no such entry.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,15 +41,37 @@ class Init(NamedTuple):
     fan_in: Optional[int] = None
 
 
+Axes = Tuple[Optional[str], ...]
+
+
 def make(module: nn.Module, name: str, shape: Tuple[int, ...],
-         init: Init = Init(), *, device, dtype) -> nn.Parameter:
+         init: Init = Init(), *, device, dtype,
+         axes: Optional[Axes] = None) -> nn.Parameter:
+    if axes is not None and len(axes) != len(shape):
+        raise ValueError(f"{name}: axes {axes} for shape {shape}")
     p = nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                      requires_grad=False)
     module.register_parameter(name, p)
     if not hasattr(module, "_inits"):
         module._inits = {}
+        module._axes = {}
     module._inits[name] = init
+    module._axes[name] = axes if axes is not None else (None,) * len(shape)
     return p
+
+
+def param_specs(root: nn.Module) -> Dict[str, Axes]:
+    """``{dotted parameter name: logical axes}`` of every parameter of
+    ``root`` (the counterpart of ``repro.models.transformer.param_specs``
+    and ``repro.core.memcom.memcom_axes``); a parameter declared without
+    axes has ``None`` for each dimension."""
+    out = {}
+    for mod_name, mod in root.named_modules():
+        recorded = getattr(mod, "_axes", {})
+        for name, p in mod.named_parameters(recurse=False):
+            path = f"{mod_name}.{name}" if mod_name else name
+            out[path] = recorded.get(name, (None,) * p.dim())
+    return out
 
 
 def _path_seed(seed: int, path: str) -> int:

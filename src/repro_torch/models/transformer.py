@@ -42,6 +42,7 @@ from repro_torch.models.layers import (MLP, Norm, sinusoidal_pos_embed,
 from repro_torch.models.mamba2 import init_mamba_cache
 from repro_torch.models.mla import init_mla_cache, init_paged_mla_cache
 from repro_torch.models.param import Init, initialize, make
+from repro_torch.sharding.serving import gather_model, reduce_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -53,14 +54,20 @@ def torch_dtype(cfg: ModelConfig, dtype=None) -> torch.dtype:
 
 
 class Embed(nn.Module):
+    # under a mesh the table may split by vocabulary (shard_module): this
+    # rank holds rows [vocab_start, vocab_start + tokens.shape[0])
+    tp = None
+    vocab_start = 0
+
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
         make(self, "tokens", (cfg.vocab_size, cfg.d_model),
              Init("normal", scale=cfg.d_model ** -0.5), device=device,
-             dtype=dtype)
+             dtype=dtype, axes=("vocab", "embed"))
         if cfg.pos_embed == "learned":
             make(self, "pos", (cfg.max_seq, cfg.d_model),
-                 Init("normal", scale=0.02), device=device, dtype=dtype)
+                 Init("normal", scale=0.02), device=device, dtype=dtype,
+                 axes=(None, "embed"))
 
 
 class EncoderLayer(nn.Module):
@@ -104,7 +111,15 @@ class Encoder(nn.Module):
 
 class Transformer(nn.Module):
     """Parameters are declared uninitialised; :func:`init_params` draws
-    them from a seed and :mod:`repro_torch.bridge` loads JAX ones."""
+    them from a seed and :mod:`repro_torch.bridge` loads JAX ones.
+
+    Under a mesh (:func:`repro_torch.sharding.serving.shard_module`) each
+    rank holds its slice of the split parameters: the embedding looks up
+    the rank's vocabulary range and sums over the ranks, and the logits of
+    a vocabulary-split head (tied or ``lm_head``) are gathered whole
+    before the final softcap, so every rank holds the same logits."""
+
+    tp = None  # this rank's ModelShard where lm_head splits (shard_module)
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
@@ -118,7 +133,8 @@ class Transformer(nn.Module):
             Block(cfg, desc, **kw) for desc in cfg.layout.descriptors())
         self.final_norm = Norm(cfg, **kw)
         if not cfg.tie_embeddings:
-            make(self, "lm_head", (cfg.d_model, cfg.vocab_size), **kw)
+            make(self, "lm_head", (cfg.d_model, cfg.vocab_size),
+                 axes=("embed", "vocab"), **kw)
 
     @property
     def device(self) -> torch.device:
@@ -176,7 +192,7 @@ class Transformer(nn.Module):
                 raise ValueError(f"params: {name} is no block parameter")
             block_params[int(li)][rest] = t
         if embeds is None:
-            h = F.embedding(tokens, self.embed.tokens)
+            h = _embed_lookup(self.embed, tokens)
         else:
             h = embeds
         B, S = h.shape[0], h.shape[1]
@@ -233,8 +249,12 @@ class Transformer(nn.Module):
 
         out = self.final_norm(h)
         if logits:
-            head = self.embed.tokens.t() if cfg.tie_embeddings else self.lm_head
-            out = softcap(out @ head, cfg.final_logit_softcap)
+            if cfg.tie_embeddings:
+                head, tp = self.embed.tokens.t(), self.embed.tp
+            else:
+                head, tp = self.lm_head, self.tp
+            out = softcap(gather_model(out @ head, -1, tp),
+                          cfg.final_logit_softcap)
         aux = {
             "cache": cache,
             "hiddens": hiddens if capture_hiddens else None,
@@ -243,6 +263,18 @@ class Transformer(nn.Module):
             "encoder_out": encoder_out,
         }
         return out, aux
+
+
+def _embed_lookup(embed: Embed, tokens):
+    """Rows of the embedding table; a vocabulary-split table contributes
+    the rows of its own range (zero elsewhere), summed over the ranks."""
+    if embed.tp is None:
+        return F.embedding(tokens, embed.tokens)
+    n = embed.tokens.shape[0]
+    local = tokens - embed.vocab_start
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), embed.tokens)
+    return reduce_model(rows * mine[..., None].to(rows.dtype), embed.tp)
 
 
 def _learned_positions(table, pos2d, start):

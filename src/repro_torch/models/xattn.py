@@ -26,21 +26,22 @@ class MemXAttn(nn.Module):
         d = cfg.d_model
         mc = cfg.memcom
         kw = dict(device=device, dtype=dtype)
+        qkv, out = ("embed", "heads"), ("heads", "embed")
         self.norm = Norm(cfg, **kw)
         # paper: randomly initialised (trained in Phase-1); wo small so the
         # initial perturbation of the memory stream is mild
         if mc.xattn_kind == "mqa":
             H = mc.xattn_heads
             hd = d // H
-            make(self, "wq", (d, H * hd), Init(scale=0.5), **kw)
-            make(self, "wk", (d, hd), Init(scale=0.5), **kw)
-            make(self, "wv", (d, hd), Init(scale=0.5), **kw)
-            make(self, "wo", (H * hd, d), Init(scale=0.1), **kw)
+            make(self, "wq", (d, H * hd), Init(scale=0.5), axes=qkv, **kw)
+            make(self, "wk", (d, hd), Init(scale=0.5), axes=qkv, **kw)
+            make(self, "wv", (d, hd), Init(scale=0.5), axes=qkv, **kw)
+            make(self, "wo", (H * hd, d), Init(scale=0.1), axes=out, **kw)
         else:  # "1head" (H=1) or "mha"
-            make(self, "wq", (d, d), Init(scale=0.5), **kw)
-            make(self, "wk", (d, d), Init(scale=0.5), **kw)
-            make(self, "wv", (d, d), Init(scale=0.5), **kw)
-            make(self, "wo", (d, d), Init(scale=0.1), **kw)
+            make(self, "wq", (d, d), Init(scale=0.5), axes=qkv, **kw)
+            make(self, "wk", (d, d), Init(scale=0.5), axes=qkv, **kw)
+            make(self, "wv", (d, d), Init(scale=0.5), axes=qkv, **kw)
+            make(self, "wo", (d, d), Init(scale=0.1), axes=out, **kw)
 
     def forward(self, mem_h, src_h):
         return apply_memcom_xattn(self, self.cfg, mem_h, src_h)

@@ -21,13 +21,25 @@ bit-reproducible across runs and machines.
 On a real (wall) clock both hooks are absent; the engine detects that
 with ``getattr`` and charging becomes a no-op while waits become short
 sleeps.
+
+Under a mesh every rank runs the engine's loop and must take the same
+decisions (admission, aging, the autotuner, the watchdog), but each
+rank's wall clock reads its own time.  :class:`MeshClock` makes the wall
+clock rank 0's: rank 0 reads it and broadcasts the reading over the
+mesh's ``gloo`` control group, at every read (a handful a loop
+iteration), so that durations within an iteration stay real.  A
+``VirtualClock`` advances by the work charged, the same on every rank,
+and needs no broadcast.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
-__all__ = ["VirtualClock", "DEFAULT_COSTS"]
+import torch
+import torch.distributed as dist
+
+__all__ = ["VirtualClock", "MeshClock", "DEFAULT_COSTS"]
 
 # Rough relative costs (seconds per unit of work).  Absolute values are
 # arbitrary — only the ratios matter for scheduling decisions — but they
@@ -107,3 +119,21 @@ class VirtualClock:
 
     def __repr__(self):  # pragma: no cover - debug aid
         return f"VirtualClock(t={self._t:.6f})"
+
+
+class MeshClock:
+    """A wall clock read on the group's first rank and broadcast to every
+    rank of ``group`` (a ``gloo`` group: the value is a host float64), so
+    that the ranks of a mesh see one time (module docstring)."""
+
+    def __init__(self, base: Callable[[], float], group):
+        self.base = base
+        self.group = group
+        self._src = dist.get_global_rank(group, 0)
+        self._buf = torch.zeros(1, dtype=torch.float64)
+
+    def __call__(self) -> float:
+        if dist.get_rank() == self._src:
+            self._buf[0] = self.base()
+        dist.broadcast(self._buf, src=self._src, group=self.group)
+        return float(self._buf[0])

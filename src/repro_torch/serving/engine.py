@@ -127,12 +127,31 @@ tracing adds no device synchronization and changes no token.  With
 while the mean decode gap of the last ``autotune_interval`` gaps
 overshoots ``target_decode_gap_s`` (or a page alert hints so) and doubled
 back, up to 8x their configured values, while it undershoots half of it.
-Meshes are a later slice of the port.
+Tensor-parallel serving (``mesh=``, ``rules=``; one process per rank of a
+``torch.distributed`` mesh, :func:`repro_torch.launch.mesh.
+make_serving_mesh`).  The target's parameters are cut to this rank's
+slices by their logical-axis rules (:func:`repro_torch.sharding.serving.
+shard_module`; ``BASELINE_RULES`` by default), K/V caches and pools by
+head over "model" (:func:`~repro_torch.sharding.serving.shard_cache`), and
+every kernel runs on the rank's heads; the compressor stays whole on every
+rank, as the JAX engine places only the target.  Block tables, lengths and
+the whole control plane stay plain host values, the same on every rank,
+and every rank must make the same decisions or a collective hangs: tokens
+come from logits every rank holds whole, sampling from ``serve(seed=)``'s
+streams, and a wall clock is read on rank 0 and broadcast
+(:class:`~repro_torch.serving.clock.MeshClock`; a ``VirtualClock`` needs
+none).  After every decode step the ranks compare a hash of the slots'
+lengths and tokens, and raise on a mismatch instead of hanging.  A prefix
+materialized through an unsplit target is cut on ``add_prefix``; one
+made through the split target (the online compiler's) is the rank's
+already.  With tiers each rank keeps its own host rows and its disk shards
+under ``disk_dir/rank<r>``.  A data axis above 1 holds whole replicas.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import time
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional
@@ -145,6 +164,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockAllocator,
                                             OutOfBlocksError)
+from repro_torch.serving.clock import MeshClock
 from repro_torch.serving.compiler import PrefixCompiler, pow2_bucket
 from repro_torch.serving.prefix_store import (KV_KEYS, PagedPrefixStore,
                                               PrefixSeatedError, PrefixStore,
@@ -157,6 +177,10 @@ from repro_torch.serving.scheduler import Request, Scheduler
 from repro_torch.serving.telemetry import (NULL_TRACER, MetricGroup,
                                            MetricsRegistry, Tracer)
 from repro_torch.serving.tiers import TieredPrefixStore
+from repro_torch.sharding.rules import BASELINE_RULES, axis_sizes
+from repro_torch.sharding.serving import (check_agreement, dist_rank,
+                                          model_axis_size, shard_cache,
+                                          shard_module)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -202,7 +226,7 @@ class ServingEngine:
                  spec_draft=None, spec_k: int = 0,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 watchdog=None):
+                 watchdog=None, mesh=None, rules=None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be dense or paged, got "
                              f"{kv_layout!r}")
@@ -239,9 +263,25 @@ class ServingEngine:
             raise ValueError(f"target lives on {target.device}, engine asked "
                              f"for {device}")
         self.device = target.device
+        # tensor-parallel serving: the target's split parameters become
+        # this rank's slices (the caches are cut below); the control plane
+        # stays replicated host values (module docstring)
+        self.mesh = mesh
+        self.rules = None
+        self._control = None
+        if mesh is not None:
+            self.rules = rules if rules is not None else BASELINE_RULES
+            shard_module(target, mesh, self.rules)
+            self._control = getattr(mesh, "control_group", None)
+        elif rules is not None:
+            raise ValueError("rules given without a mesh")
         # injected clock; charge()/advance_to() are duck-typed: absent on a
-        # wall clock, charging is a no-op and waits become short sleeps
+        # wall clock, charging is a no-op and waits become short sleeps.
+        # Under a mesh a wall clock is rank 0's, broadcast at every read
         self.clock = clock if clock is not None else time.perf_counter
+        if self._control is not None and \
+                getattr(self.clock, "charge", None) is None:
+            self.clock = MeshClock(self.clock, self._control)
         charge = getattr(self.clock, "charge", None)
         self._charge = charge if charge is not None else (lambda *_: None)
         # telemetry: a no-op tracer by default and a fresh registry unless
@@ -349,6 +389,8 @@ class ServingEngine:
             self.cache = tfm.init_cache(cfg, slots, max_len, **kw)
             self.store = (prefix_store if prefix_store is not None
                           else PrefixStore(cfg, capacity=prefix_capacity))
+        # K/V stripes and pools cut by head over "model"
+        self.cache = shard_cache(self.cache, mesh, self.rules)
         # online compiler: raw_shots requests compile on the serving path,
         # at most compile_token_budget source tokens per loop iteration
         self.compile_token_budget = compile_token_budget
@@ -369,6 +411,9 @@ class ServingEngine:
         self.promote_layer_budget = promote_layer_budget
         self.tiers: Optional[TieredPrefixStore] = None
         if host_capacity is not None or disk_dir is not None:
+            if disk_dir is not None and self._control is not None:
+                # each rank spills its own slices: one directory a rank
+                disk_dir = os.path.join(disk_dir, f"rank{dist_rank()}")
             self.store = self.tiers = TieredPrefixStore(
                 self.store, host_capacity=host_capacity, disk_dir=disk_dir,
                 cache_ref=lambda: self.cache, device=self.device)
@@ -412,6 +457,9 @@ class ServingEngine:
             self._draft_cache = tfm.init_cache(
                 dcfg, slots, max_len, dtype=self._drafter.dtype,
                 device=self.device)
+            if self._drafter is target:  # the split target drafts
+                self._draft_cache = shard_cache(self._draft_cache, mesh,
+                                                self.rules)
             self._draft_len = np.zeros((slots,), np.int64)
 
     @property
@@ -432,9 +480,29 @@ class ServingEngine:
         """Register row ``batch_index`` of a materialized prefix as task
         ``name``.  In the paged layout this writes the prefix into pool
         blocks once; every slot later seated on it shares that copy."""
+        materialized = self._local(materialized)
         if self.paged:
             return self.store.put(name, materialized, self.cache, batch_index)
         return self.store.put(name, materialized, batch_index)
+
+    def _local(self, materialized: list) -> list:
+        """This rank's heads of a materialized prefix: one made through an
+        unsplit target (its K/V hold every KV head) is cut, one made
+        through the split target passes as it is."""
+        if model_axis_size(self.mesh) <= 1:
+            return materialized
+        whole = any("k" in e and e["k"].shape[-2] == self.cfg.num_kv_heads
+                    for e in materialized)
+        return (shard_cache(materialized, self.mesh, self.rules) if whole
+                else materialized)
+
+    def _agree(self, lengths: np.ndarray, pending: np.ndarray) -> None:
+        """Under a mesh: raise if another rank's slots hold other lengths
+        or tokens after this step (a diverged control plane would hang the
+        next collective instead)."""
+        if self._control is not None:
+            check_agreement(self._control, lengths, pending,
+                            self._dirty.astype(np.int8))
 
     def _release_slot_blocks(self, slot: int) -> None:
         """Drop this slot's references: private blocks return to the free
@@ -473,6 +541,7 @@ class ServingEngine:
         that a named prefix displaced gets it back."""
         if self.cfg.memcom is None:
             raise ValueError(f"{self.cfg.name} has no MemCom config")
+        materialized = self._local(materialized)
         self.base_len = self.cfg.memcom.num_memory_tokens
         if self.paged:
             for b in range(self.slots):
@@ -950,6 +1019,7 @@ class ServingEngine:
                 if promoting:
                     self._promote_step(self.promote_layer_budget)
                     c["promote_steps_interleaved"] += 1
+                self._agree(lengths, pending)
                 self._end_iteration(wd, wd_steps0 if wd is not None else 0,
                                     wd_toks0 if wd is not None else 0)
                 continue
@@ -1119,6 +1189,7 @@ class ServingEngine:
             if promoting:
                 self._promote_step(self.promote_layer_budget)
                 c["promote_steps_interleaved"] += 1
+            self._agree(lengths, pending)
             self._end_iteration(wd, wd_steps0 if wd is not None else 0,
                                 wd_toks0 if wd is not None else 0)
         self._refresh_gauges()
@@ -1472,6 +1543,8 @@ class ServingEngine:
             }
         if self.tiers is not None:
             out["prefix_tiers"] = self.tiers.tier_snapshot()
+        if self.mesh is not None:
+            out["mesh"] = axis_sizes(self.mesh)
         if self.paged:
             out["pool"] = {
                 "num_blocks": self.alloc.num_blocks,

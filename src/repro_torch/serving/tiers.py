@@ -1,5 +1,5 @@
 """Tiered prefix cache: HBM ↔ pinned host ↔ disk for compressed prefixes
-(``repro/serving/tiers.py``, one device).
+(``repro/serving/tiers.py``).
 
 A task's many-shots compress once into a small per-layer prefix that
 every request for the task reuses; an HBM store that simply drops an
@@ -41,7 +41,15 @@ evicted prefix forces a recompile on the task's next request.
 Tiers are exclusive (a name lives in one) and moves are bit-exact: the
 row that comes back up is byte-identical to the one that went down.  The
 class fronts the HBM store: residency checks and the seat-path lookups
-delegate to it.  Sharded promotion is a later slice of the port.
+delegate to it.
+
+Under a mesh each rank fronts its own store: its rows are its slices (K/V
+of its heads, O^i whole), demoted to its own host tier and spilled under
+its own directory (the engine passes ``disk_dir/rank<r>``: two ranks
+would otherwise write one file), so a promoted leaf lands as the rank's
+slice directly, with no gather and no second copy.  The byte counter
+``promote_bytes`` counts the rank's bytes, not the whole row's; the
+other counters (entries, chunks, promotions) are the same on every rank.
 """
 
 from __future__ import annotations
