@@ -575,6 +575,47 @@ Phases, each of which raises (and so exits non-zero) on failure:
       launcher's tokens without a mesh.  The ranks' all_reduce goes
       through the host (gloo), so no time of this phase is a rate of
       tensor-parallel serving.
+   w. sharded MemCom training (after 4v): ranks spawned once by
+      ``run_ranks`` over gloo share the card, bf16 unless named, each run
+      (``dp_train``) held to the one-rank run (``launch.train.build``
+      without a mesh, the same seeds, batches and rate), which runs in
+      this process first and is freed before the spawn: (a) gemma2-2b
+      Phase 1 at full width, 6 of its 26 layers, on data 2 (FSDP: every
+      rank holds half of each d_model, its AdamW state too), two steps at
+      the launcher's schedule on the global batch 2 x 3584 split at 3072;
+      its one-rank run also forms step 1's gradients as two batch-1
+      halves weighted by their target positions (the ranks' local shapes
+      and kernel variants), and the ranks' and the halves' distances from
+      the batch-2 run are printed; (b) data 2 x model 2 at full width,
+      depth 2, at a constant rate of 1e-4 (each step moves a trained
+      entry 2 to 50 times the rule), in float32 (loss and gradient norm
+      within 1e-4 relative; every trained gradient, AdamW's mu and nu,
+      and the trained tensors where the gradient is at least 1e-3 of its
+      largest in both steps, within 1e-4 of their largest magnitude;
+      AdamW's count equal) and in bf16; (c) a restart from (a)'s step-1
+      checkpoint (gathered to rank 0, the one-rank format) on the same
+      mesh, whose step 2 must give the loss and trained slices bit for
+      bit, and on one rank (within 2e-2); (d) granite-moe-3b-a800m Phase
+      1 at full width, depth 2, data 2, against one rank with
+      ``dispatch_groups=2``.  bf16 runs hold the losses and gradient
+      norms to 2e-2 relative and print every trained gradient's distance
+      (of its largest magnitude, and row by row by ``plain.grad_err``).
+      Every rank's step must launch the flash backward 3L - 1 times and
+      ``memcom_xattn`` forward and backward L times (granite: 3 (2L - 1)
+      dX-only ``gmm`` backward calls), in bf16 each through its wgmma
+      kernel; each forward kernel call's variant and split count at the
+      rank's local shapes is printed and held to its plain version.  (e)
+      ``pipeline_apply`` on 2 ranks over CUDA tensors at the JAX test's
+      sizes (R 8, B 8, S 4, D 16, M 4): the output within 1e-5, the
+      stages' gradients summed within 1e-4 of the sequential layers.  (f)
+      ``launch/train.py --arch gemma2-2b --data 1 --model 1 --steps 2``
+      through nccl: step 2's loss bit for bit that of ``build(...)``
+      without a mesh; zlib's rate on its raw checkpoint is printed.
+      Printed: each rank's peak memory, launches and kernel variants, and
+      the phase's seconds; the ranks' collectives go through the host
+      (gloo), so no time of this phase is a rate of sharded training.
+      (a)'s depth is the run's one cut to keep within its time limit: at
+      full depth 4w took 332 s on an H100 of gathers through gloo.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at its costliest main-path shape, with every shape's numbers under
@@ -867,6 +908,593 @@ def tp_serve(rank, world, spec):
             "mesh": dense.stats().get("mesh"),
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "serve_s": serve_s, "seconds": time.perf_counter() - t0}
+
+
+# ---- phase 4w: sharded MemCom training, one function a rank ----------------
+
+
+def _dp_cfg(spec):
+    """The run's config: the arch at full width, ``depth`` layers, the
+    dtype and, for a one-rank reference of a MoE model, the JAX MoE's
+    dispatch groups under the ranks' placement."""
+    import dataclasses
+
+    from repro_torch.config import LayerLayout
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    if spec["depth"]:
+        cfg = cfg.replace(name=f"{cfg.name}-depth{spec['depth']}",
+                          layout=LayerLayout(period=cfg.layout.period,
+                                             repeats=spec["depth"]))
+    if spec["dtype"]:
+        cfg = cfg.replace(dtype=spec["dtype"])
+    if spec.get("groups") and not spec["data"]:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, dispatch_groups=spec["groups"]))
+    return cfg
+
+
+#: 4w(b) float32: a trained entry whose gradient is below this fraction of
+#: its tensor's largest in either step is left out of the tensors' rule:
+#: its Adam update is set by eps and the normalisation acting on the
+#: gradient's rounding, not by the gradient
+ADAM_NOISE = 1e-3
+#: 4w(b)'s constant rate: each step moves a trained entry by about this
+#: much, 2 to 50 times the 1e-4 rule (the launcher's schedule gives 4e-7
+#: in the first step, below the rule, so a skipped update would pass)
+DP_LR = 1e-4
+
+
+def _halves_witness(grads_of, params, batch):
+    """The gradients of ``batch`` on one rank run as batch-1 pieces, each
+    weighted by its share of the batch's target positions and summed in
+    float32: the loss the data ranks form, at their local shapes."""
+    import torch
+
+    n = batch["target_mask"][:, 1:].float().sum(dim=1)
+    total = float(n.sum())
+    acc = {}
+    for h in range(n.shape[0]):
+        piece = {k: v[h:h + 1] for k, v in batch.items()}
+        _, _, g = grads_of(params, piece)
+        for name, t in g.items():
+            t = t.float() * (float(n[h]) / total)
+            acc[name] = t if name not in acc else acc[name] + t
+    return {name: t.to(params[name].dtype).cpu() for name, t in acc.items()}
+
+
+def dp_train_runs(rank, world, specs, pipe):
+    """:func:`dp_train` for each spec in turn, in one spawn (None from a
+    rank that sits out a spec's smaller mesh), then :func:`dp_pipeline`
+    over the first ``pipe["stages"]`` ranks (None from the others)."""
+    out = [dp_train(rank, world, spec) for spec in specs]
+    return out + [dp_pipeline(rank, world, pipe)]
+
+
+def dp_train(rank, world, spec):
+    """One rank of phase 4w (or, at ``spec["data"]`` 0, the one-rank run
+    without a mesh that the ranks are held to): MemCom Phase 1 from seeds
+    through ``launch.train.build`` (seed-0 target, seed-1 compressor,
+    ``spec["lr"]`` or the launcher's schedule, clip 1.0),
+    ``spec["steps"]`` steps on the global batch of ``batch`` x ``seq``
+    tokens split at ``split``, each rank reading its data shard, on a
+    ``data`` x ``model`` gloo mesh of ranks that share the card.  Every
+    forward kernel call is recorded (variant and split count at the
+    rank's local shapes) and held to its plain version after the run; the
+    launches of every kernel are counted.  The one-rank run writes its
+    losses, gradient norms, each step's gradients (in float32 also the
+    trained tensors and AdamW's mu, nu and count after the steps; with
+    ``spec["witness"]`` step 1's gradients formed as batch-1 halves,
+    :func:`_halves_witness`) to ``spec["ref"]``; a rank run reads them
+    and holds its own, gathered whole on rank 0, to them: float32 to 1e-4
+    (relative for the loss and the norm; each gradient, mu and nu to 1e-4
+    of its largest magnitude, as phase 5 holds gradients, each trained
+    tensor so where its gradient sets the update, ``ADAM_NOISE``; count
+    equal), bf16 the loss and the norm to 2e-2 relative; every
+    gradient's distance is printed both ways (of its largest magnitude,
+    and ``plain.grad_err`` row by row), and the witness's.  With
+    ``spec["ckpt"]`` the run checkpoints step 1 (mesh-independent, raw)
+    and a second Trainer on the same mesh restores it and must give step
+    2's loss and trained slices bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import memcom_xattn as mx
+    from repro_torch.kernels import moe_gmm as gm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import plain
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.sharding.ctx import act_sharding
+    from repro_torch.train import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = _dp_cfg(spec)
+    mesh = (make_serving_mesh(model=spec["model"], data=spec["data"],
+                              device=dev, backend="gloo")
+            if spec["data"] else None)
+    if mesh is not None and mesh.get_coordinate() is None:
+        return None
+    lead = mesh is None or rank == 0
+    tag = (f"[4w {spec['name']} {spec['data']}x{spec['model']} rank {rank}]"
+           if mesh is not None else f"[4w {spec['name']} one rank]")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()  # after the wait for ranks still training
+    steps = spec["steps"]
+    run = launch_train.build(
+        cfg, phase=1, batch=spec["batch"], seq=spec["seq"],
+        split=spec["split"], steps=steps, ckpt=spec["ckpt_dir"],
+        ckpt_every=1, codec="raw", log_every=1, device=dev, mesh=mesh,
+        lr=spec["lr"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pl = run.step.placement
+    seen = []
+    inner = run.step.grads
+    witness = None
+    if mesh is None and spec["witness"]:
+        witness = _halves_witness(inner, run.params, run.batch_at(0))
+
+    def keep(params, batch):
+        out = inner(params, batch)
+        seen.append(out[2])
+        return out
+
+    run.step.grads = keep
+    names = {"flash_attention": (fa, "launches"),
+             "flash_attention_wgmma": (fa, "wgmma_launches"),
+             "flash_attention_bwd": (fa, "bwd_launches"),
+             "flash_attention_bwd_wgmma": (fa, "bwd_wgmma_launches"),
+             "memcom_xattn": (mx, "launches"),
+             "memcom_xattn_wgmma": (mx, "wgmma_launches"),
+             "memcom_xattn_bwd": (mx, "bwd_launches"),
+             "memcom_xattn_bwd_wgmma": (mx, "bwd_wgmma_launches"),
+             "paged_flash_decode": (pa, "launches"),
+             "gmm": (gm, "launches"), "gmm_wgmma": (gm, "wgmma_launches"),
+             "gmm_rows": (gm, "rows_launches"),
+             "gmm_bwd": (gm, "bwd_launches"),
+             "gmm_bwd_dx": (gm, "bwd_dx_launches"),
+             "gmm_bwd_dw": (gm, "bwd_dw_launches"),
+             "gmm_bwd_wgmma": (gm, "bwd_wgmma_launches")}
+    for mod, attr in names.values():
+        setattr(mod, attr, 0)
+    spy = _KernelSpy(fa, pa, mx)
+    params, state = run.params, run.trainer.opt_state
+    losses, norms, step_s = [], [], []
+    ckpt_s = 0.0
+    with spy, act_sharding(run.act):
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, state, m = run.step(params, state, run.batch_at(i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            step_s.append(time.perf_counter() - t1)
+            if spec["ckpt"] and i == 0:  # step 1, mesh-independent
+                t1 = time.perf_counter()
+                run.trainer.params, run.trainer.opt_state = params, state
+                run.trainer._save(1)
+                ckpt_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in names.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out = {"losses": losses, "grad_norms": norms, "launches": launches,
+           "peak_bytes": peak, "init_s": init_s, "step_s": step_s,
+           "ckpt_s": ckpt_s, "run_s": run_s,
+           "local": {n: list(p.shape) for n, p in list(params.items())[:2]}}
+    with torch.no_grad():
+        out["shapes"] = spy.check(plain, tag, quiet=not lead)
+    if lead:
+        log(f"{tag} init {init_s:.1f}s, steps {[round(x, 3) for x in step_s]}"
+            f"s, step-1 checkpoint {ckpt_s:.1f}s, peak memory {peak} bytes")
+    if mesh is None:  # the reference the ranks are held to
+        f32 = cfg.dtype == "float32"
+        host = (lambda tree: {n: t.detach().cpu() for n, t in tree.items()})
+        torch.save({"losses": losses, "grad_norms": norms,
+                    "grads": [host(gs) for gs in seen],
+                    "params": host(params) if f32 else None,
+                    "mu": host(state["mu"]) if f32 else None,
+                    "nu": host(state["nu"]) if f32 else None,
+                    "count": int(state["count"]),
+                    "witness": witness}, spec["ref"])
+        del seen
+        return out
+    # the ranks against the one-rank run, on rank 0
+    f32 = cfg.dtype == "float32"
+    rule = REL_TOL[cfg.dtype]
+    ref = torch.load(spec["ref"], mmap=True) if lead else None
+
+    def of_largest(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max().clamp(min=1e-30))
+
+    errs, rows = [], []
+    # with the witness, step 1's gradients against one rank's batch run as
+    # two batch-1 halves (the ranks' local shapes and kernel variants)
+    halves = ref.get("witness") if lead else None
+    wit = {"ranks_vs_halves": [], "halves_vs_batch": []}
+    for i, gs in enumerate(seen):
+        for n, g in gs.items():
+            whole = pl.whole(g, n)
+            if lead:
+                got, want = whole.to(dev), ref["grads"][i][n].to(dev)
+                errs.append((of_largest(got, want), i + 1, n))
+                rows.append((plain.grad_err(got, want), i + 1, n))
+                if halves is not None and i == 0:
+                    h = halves[n].to(dev)
+                    wit["ranks_vs_halves"].append(
+                        (of_largest(got, h), plain.grad_err(got, h), n))
+                    wit["halves_vs_batch"].append(
+                        (of_largest(h, want), plain.grad_err(h, want), n))
+    del seen
+    perrs, serrs, kept = [], [], [0, 0]
+    if f32:  # the trained tensors where the gradient sets the update
+        for n, p in params.items():
+            whole = pl.whole(p, n)
+            if lead:
+                got, want = whole.to(dev), ref["params"][n].to(dev)
+                keep = None
+                for gs in ref["grads"]:
+                    g = gs[n].to(dev).abs()
+                    k = g >= ADAM_NOISE * g.max()
+                    keep = k if keep is None else keep & k
+                kept[0] += int(keep.sum())
+                kept[1] += keep.numel()
+                perrs.append((float((got - want).abs()[keep].max()
+                                    / want.abs().max().clamp(min=1e-30)),
+                              n, of_largest(got, want)))
+        for kind in ("mu", "nu"):  # AdamW's state, whole
+            for n, t in state[kind].items():
+                whole = pl.whole(t, n)
+                if lead:
+                    serrs.append((of_largest(whole.to(dev),
+                                             ref[kind][n].to(dev)), kind, n))
+    count = int(state["count"])
+    if spec["ckpt"]:  # the same mesh restores step 1: step 2 bit for bit
+        final = {n: p.detach().clone() for n, p in params.items()}
+        t1 = time.perf_counter()
+        again = Trainer(run.step, params, state, run.batch_at,
+                        spec["ckpt_dir"], TrainerConfig(
+                            num_steps=steps, log_every=1, codec="raw"),
+                        placement=pl)
+        del state
+        restored = again.restore_if_available(1)
+        run.step.grads = inner
+        with act_sharding(run.act):
+            again.params, again.opt_state, m = again.train_step(
+                again.params, again.opt_state, run.batch_at(1))
+        same_loss = float(m["loss"]) == losses[1]
+        same = all(torch.equal(p, final[n]) for n, p in again.params.items())
+        out["restart"] = {"restored": restored, "loss": float(m["loss"]),
+                          "same_loss": same_loss, "same_params": same,
+                          "s": time.perf_counter() - t1}
+        del final, again
+        if lead:
+            log(f"{tag} restart on the same mesh from step {restored}: step "
+                f"2's loss {float(m['loss'])!r} against {losses[1]!r}, "
+                f"identical {same_loss}; trained slices identical {same}")
+        if not (restored == 1 and same_loss and same):
+            raise AssertionError(f"{tag} the restart on the same mesh does "
+                                 "not reproduce step 2")
+    if not lead:
+        return out
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses + norms,
+                                                 ref["losses"]
+                                                 + ref["grad_norms"])]
+    worst = sorted(errs, reverse=True)[:4]
+    worst_rows = sorted(rows, reverse=True)[:4]
+    out.update(ref_losses=ref["losses"], ref_grad_norms=ref["grad_norms"],
+               rel_err=max(rel), grad_err_max=worst[0][0],
+               grad_errs=sorted(errs, reverse=True),
+               grad_row_err_max=worst_rows[0][0],
+               grad_row_errs=sorted(rows, reverse=True),
+               param_err_max=max((e for e, _, _ in perrs), default=None),
+               param_err_all=max((a for _, _, a in perrs), default=None),
+               param_kept=kept, count=count, ref_count=ref["count"],
+               state_err_max=max((e for e, _, _ in serrs), default=None),
+               rule=rule)
+    log(f"{tag} {cfg.name} {cfg.dtype}: losses {losses} against one rank's "
+        f"{ref['losses']}; grad norms {norms} against {ref['grad_norms']}; "
+        f"largest relative difference {max(rel):.3e} (rule {rule:g})")
+    log(f"{tag} every trained gradient against one rank's ({len(errs)} "
+        f"over {len(ref['grads'])} steps), max abs difference of its "
+        "largest magnitude: largest "
+        + ", ".join(f"{e:.3e} (step {s} {n})" for e, s, n in worst)
+        + "; row by row (plain.grad_err): largest "
+        + ", ".join(f"{e:.3e} (step {s} {n})" for e, s, n in worst_rows))
+    if f32:
+        ws = sorted(serrs, reverse=True)[:3]
+        log(f"{tag} after {steps} steps at lr {spec['lr']}: the trained "
+            f"tensors' largest max abs difference of the largest magnitude "
+            f"{out['param_err_max']:.3e} over the {kept[0]} of {kept[1]} "
+            f"entries whose gradient is at least {ADAM_NOISE:g} of its "
+            f"largest in both steps ({out['param_err_all']:.3e} over all); "
+            f"AdamW's mu and nu: largest "
+            + ", ".join(f"{e:.3e} ({k} {n})" for e, k, n in ws)
+            + f"; count {count} against {ref['count']}")
+    if halves is not None:
+        for key, what in (("ranks_vs_halves", "the ranks against one "
+                           "rank's two batch-1 halves"),
+                          ("halves_vs_batch", "the two batch-1 halves "
+                           "against one rank's batch of 2")):
+            top = sorted(wit[key], reverse=True)
+            out[key] = {"max": top[0][0],
+                        "rows_max": max(r for _, r, _ in wit[key]),
+                        "worst": top[:3]}
+            log(f"{tag} step-1 gradients, {what}: largest "
+                + ", ".join(f"{e:.3e} ({n})" for e, _, n in top[:3])
+                + f" of the largest magnitude; row by row "
+                f"{out[key]['rows_max']:.3e}")
+    bad = max(rel) > rule or (f32 and (
+        worst[0][0] > rule or out["param_err_max"] > rule
+        or out["state_err_max"] > rule or count != ref["count"]))
+    if bad or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} the ranks leave the one-rank run")
+    return out
+
+
+def dp_pipeline(rank, world, spec):
+    """One stage of ``sharding.pipeline.pipeline_apply`` over a ("pod",)
+    mesh of the first ``spec["stages"]`` ranks on the card (gloo, each
+    hop staged through the host): the output and this stage's gradients
+    of sum(y ** 2); None from a rank past the mesh."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.sharding.pipeline import (pipeline_apply, stage_scan,
+                                               stage_slice)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = DeviceMesh("cuda", torch.arange(spec["stages"]),
+                      mesh_dim_names=("pod",))
+    if mesh.get_coordinate() is None:
+        return None
+    t0 = time.perf_counter()
+    params = {k: torch.tensor(v, device=dev, requires_grad=True)
+              for k, v in spec["params"].items()}
+    h0 = torch.tensor(spec["h0"], device=dev)
+    stage_fn = stage_scan(lambda lp, h: torch.tanh(h @ lp["w"] + lp["b"]))
+    y = pipeline_apply(stage_fn, stage_slice(params, mesh), h0, mesh=mesh,
+                       axis="pod", microbatches=spec["microbatches"])
+    grads = torch.autograd.grad((y ** 2).sum(), list(params.values()))
+    return {"y": y.detach().cpu().numpy(), "stage": mesh.get_local_rank("pod"),
+            "device": str(y.device), "s": time.perf_counter() - t0,
+            "grads": {k: g.cpu().numpy() for k, g in zip(params, grads)}}
+
+
+def run_4w(paths, counts, set_counts, ckdir, T, m):
+    """Phase 4w (docstring): the one-rank runs in this process, each freed
+    before the next, then one spawn of 4 ranks for (a), (b) and (d), the
+    one-rank restart (c), the 2-stage pipeline (e) and the launcher's 1x1
+    nccl mesh (f).  Each rank's launches go into ``paths`` (the kernels
+    line's counts); ``counts`` / ``set_counts`` read and zero this
+    process's kernel counters.  The ranks' collectives go through the host
+    (gloo): no time of this phase is a rate of sharded training."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import run_ranks
+
+    dev = torch.device("cuda")
+    zero = {k: 0 for k in counts()}
+    ckdir.mkdir(parents=True, exist_ok=True)
+    base = dict(arch="gemma2-2b", depth=None, dtype=None, steps=2,
+                batch=2, seq=T + m, split=T, ckpt=False, groups=None,
+                lr=None, witness=False)
+    # (a) at 6 of its 26 layers, full width: at full depth its two steps,
+    # checkpoint and restart took ~165 s on an H100 of host gathers (gloo)
+    runs = [dict(base, name="a", depth=6, data=2, model=1, ckpt=True,
+                 witness=True),
+            dict(base, name="b_float32", depth=2, dtype="float32",
+                 data=2, model=2, lr=DP_LR),
+            dict(base, name="b_bf16", depth=2, data=2, model=2, lr=DP_LR),
+            dict(base, name="d", arch="granite-moe-3b-a800m", depth=2,
+                 data=2, model=1, groups=2)]
+    for r in runs:
+        r["ref"] = str(ckdir / f"dp_ref_{r['name']}.pt")
+        r["ckpt_dir"] = str(ckdir / f"dp_{r['name']}")
+    out = {}
+    t1 = time.perf_counter()
+    for r in runs:  # the one-rank runs, each freed before the next
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = dp_train(0, 1, dict(r, data=0, model=0, ckpt=False))
+        out[r["name"]] = {"ref": {k: ref[k] for k in (
+            "losses", "grad_norms", "peak_bytes", "init_s", "step_s")}}
+        log(f"[4w {r['name']} one rank] losses {ref['losses']}, grad "
+            f"norms {ref['grad_norms']}, peak {ref['peak_bytes']} bytes,"
+            f" init {ref['init_s']:.1f}s, steps "
+            f"{[round(x, 3) for x in ref['step_s']]}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["refs_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    # every rank run in one spawn of 4 ranks (ranks 2 and 3 sit out the
+    # 2-rank runs), then (e) pipeline_apply over ranks 0 and 1 at the JAX
+    # test's sizes
+    R, B_, S_, D_, M_ = 8, 8, 4, 16, 4
+    rng = np.random.default_rng(0)
+    pp = {"w": (rng.standard_normal((R, D_, D_)) * 0.2).astype(np.float32),
+          "b": (rng.standard_normal((R, D_)) * 0.1).astype(np.float32)}
+    h0 = rng.standard_normal((B_, S_, D_)).astype(np.float32)
+    per_rank = run_ranks(dp_train_runs, 4, (runs, dict(
+        params=pp, h0=h0, microbatches=M_, stages=2)), backend="gloo",
+        device="cuda", timeout=1200)
+    stages = [res[-1] for res in per_rank[:2]]
+    per_rank = [res[:-1] for res in per_rank]
+    out["ranks_s"] = time.perf_counter() - t1
+    for i, r in enumerate(runs):
+        n = r["data"] * r["model"]
+        ranks = [res[i] for res in per_rank[:n]]
+        cfg_ = _dp_cfg(r)
+        L = cfg_.num_layers
+        moe = cfg_.moe is not None
+        want_gmm = 3 * (2 * L - 1) if moe else 0
+        row = dict(out[r["name"]], mesh=f"{r['data']}x{r['model']}",
+                   dtype=cfg_.dtype, depth=r["depth"],
+                   losses=ranks[0]["losses"],
+                   grad_norms=ranks[0]["grad_norms"],
+                   rel_err=ranks[0]["rel_err"],
+                   grad_err_max=ranks[0]["grad_err_max"],
+                   grad_errs=ranks[0]["grad_errs"],
+                   param_err_max=ranks[0]["param_err_max"],
+                   param_err_all=ranks[0]["param_err_all"],
+                   param_kept=ranks[0]["param_kept"],
+                   state_err_max=ranks[0]["state_err_max"],
+                   count=ranks[0]["count"], lr=r["lr"],
+                   ranks_vs_halves=ranks[0].get("ranks_vs_halves"),
+                   halves_vs_batch=ranks[0].get("halves_vs_batch"),
+                   rule=ranks[0]["rule"],
+                   peak_bytes=[x["peak_bytes"] for x in ranks],
+                   launches=[x["launches"] for x in ranks],
+                   init_s=[x["init_s"] for x in ranks],
+                   step_s=[x["step_s"] for x in ranks],
+                   ckpt_s=ranks[0]["ckpt_s"],
+                   restart=ranks[0].get("restart"),
+                   shapes=[x["shapes"] for x in ranks])
+        for k, res in enumerate(ranks):
+            c = res["launches"]
+            paths[f"{cfg_.name} 4w {r['name']} rank{k}"] = {**zero, **c}
+            log(f"[4w {r['name']} rank {k}] {row['mesh']} {cfg_.dtype}: "
+                f"launches {c}; peak memory {res['peak_bytes']} bytes; "
+                f"init {res['init_s']:.1f}s, steps "
+                f"{[round(x, 3) for x in res['step_s']]}s; local "
+                f"{res['local']}")
+            log(f"[4w {r['name']} rank {k}] kernel calls: " + "; ".join(
+                f"{x['kernel']} {x['q']}/{x.get('kv')} "
+                f"{x.get('variant', '-')} {x['nsplit']} x{x['calls']} "
+                f"{x['scaled_err']:.1e}" for x in res["shapes"]))
+            steps = r["steps"]
+            ok = (c["flash_attention_bwd"] == steps * (3 * L - 1)
+                  and c["memcom_xattn_bwd"] == steps * L
+                  and c["memcom_xattn"] == steps * L
+                  and c["flash_attention"] > 0
+                  and c["gmm_bwd"] == steps * want_gmm
+                  and (not moe or c["gmm"] > 0))
+            if cfg_.dtype == "bfloat16":  # every call to its wgmma kernel
+                ok = ok and c["memcom_xattn_wgmma"] == c["memcom_xattn"] \
+                    and c["memcom_xattn_bwd_wgmma"] == steps * L \
+                    and c["flash_attention_bwd_wgmma"] \
+                    == c["flash_attention_bwd"] \
+                    and c["gmm_bwd_wgmma"] == c["gmm_bwd"]
+            if not ok:
+                raise AssertionError(f"[4w {r['name']}] rank {k}: a "
+                                     "kernel's launches are not the "
+                                     f"step's ({c})")
+        out[r["name"]] = row
+    # (c) one rank restores run a's step-1 checkpoint and trains step 2
+    t1 = time.perf_counter()
+    a = runs[0]
+    cfg_ = _dp_cfg(a)
+    run = launch_train.build(
+        cfg_, phase=1, batch=a["batch"], seq=a["seq"], split=a["split"],
+        steps=2, ckpt=a["ckpt_dir"], codec="raw")
+    restored = run.trainer.restore_if_available(1)
+    _, _, mtr = run.step(run.params, run.trainer.opt_state,
+                         run.batch_at(1))
+    loss2, want2 = float(mtr["loss"]), out["a"]["losses"][1]
+    rel2 = abs(loss2 - want2) / abs(want2)
+    out["restart_one_rank"] = {"restored": restored, "loss": loss2,
+                               "ranks_loss": want2, "rel": rel2,
+                               "s": time.perf_counter() - t1}
+    log(f"[4w c] one rank restored run a's step-{restored} checkpoint "
+        f"(written by the 2x1 mesh): step 2's loss {loss2!r} against the "
+        f"ranks' {want2!r}, relative {rel2:.3e} (rule 2e-2)")
+    del run, mtr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if restored != 1 or rel2 > REL_TOL["bfloat16"]:
+        raise AssertionError("[4w c] the one-rank restart leaves the "
+                             "ranks' step 2")
+    for r in runs:
+        shutil.rmtree(r["ckpt_dir"], ignore_errors=True)
+        Path(r["ref"]).unlink(missing_ok=True)
+    # (e) the pipeline's two stages against the sequential layers
+    wt = {k: torch.tensor(v, device=dev, requires_grad=True)
+          for k, v in pp.items()}
+    h = torch.tensor(h0, device=dev)
+    for i in range(R):
+        h = torch.tanh(h @ wt["w"][i] + wt["b"][i])
+    gseq = torch.autograd.grad((h ** 2).sum(), list(wt.values()))
+    y_err = max(float(np.abs(s["y"] - h.detach().cpu().numpy()).max())
+                for s in stages)
+    g_err = max(float(np.abs(sum(s["grads"][k] for s in stages)
+                             - g.cpu().numpy()).max())
+                for k, g in zip(wt, gseq))
+    out["pipeline"] = {"stages": len(stages), "y_err": y_err,
+                       "grad_err": g_err,
+                       "devices": [s["device"] for s in stages],
+                       "s": sum(s["s"] for s in stages) / len(stages)}
+    log(f"[4w e] pipeline_apply over 2 stages on {stages[0]['device']}:"
+        f" output max abs err {y_err:.2e} (rule 1e-5), the stages' "
+        f"gradients summed {g_err:.2e} (rule 1e-4) against the "
+        "sequential layers")
+    if y_err > 1e-5 or g_err > 1e-4:
+        raise AssertionError("[4w e] the pipeline leaves the sequential "
+                             "layers")
+    # (f) launch/train.py on a 1x1 nccl mesh against build(...)
+    t1 = time.perf_counter()
+    fdir = ckdir / "dp_launcher"
+    set_counts()
+    last = launch_train.main(
+        ["--arch", "gemma2-2b", "--data", "1", "--model", "1", "--steps",
+         "2", "--ckpt", str(fdir)])
+    torch.cuda.synchronize()
+    fl = counts()
+    paths["gemma2-2b 4w launcher 1x1 nccl"] = fl
+    # the launcher writes raw shards (launch/train.py's CKPT_CODEC): zlib's
+    # rate on 64 MB of the checkpoint, and its time on the whole of it
+    from repro_torch.checkpoint import compress_bytes
+
+    shards = sorted(p_ for p_ in fdir.rglob("*") if p_.is_file())
+    ck_bytes = sum(p_.stat().st_size for p_ in shards)
+    with open(max(shards, key=lambda p_: p_.stat().st_size), "rb") as fh:
+        piece = fh.read(64 << 20)
+    t2 = time.perf_counter()
+    compress_bytes(piece, "zlib")
+    zlib_rate = len(piece) / (time.perf_counter() - t2)
+    out["launcher_ckpt"] = {"bytes": ck_bytes, "zlib_bytes_per_s": zlib_rate,
+                            "zlib_s_reckoned": ck_bytes / zlib_rate}
+    log(f"[4w f] the launcher's checkpoint: {ck_bytes} bytes raw; zlib "
+        f"compresses {zlib_rate / 1e6:.1f} MB/s of it, "
+        f"{ck_bytes / zlib_rate:.1f}s for the whole")
+    shutil.rmtree(fdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = launch_train.build(get_config("gemma2-2b"), ckpt=str(fdir),
+                             steps=2)
+    state = run.trainer.opt_state
+    for i in range(2):
+        _, state, mb = run.step(run.params, state, run.batch_at(i))
+    plain_loss = float(mb["loss"])
+    del run, state, mb
+    shutil.rmtree(fdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = last["loss"] == plain_loss
+    out["launcher_1x1"] = {"loss": last["loss"], "build_loss": plain_loss,
+                           "identical": same, "launches": fl,
+                           "s": time.perf_counter() - t1}
+    log(f"[4w f] launch/train.py --data 1 --model 1 through nccl: step "
+        f"2's loss {last['loss']!r}, build(...)'s {plain_loss!r}, "
+        f"identical {same}; launches {fl}")
+    if not same or min(fl["flash_attention"], fl["memcom_xattn"],
+                       fl["flash_attention_bwd"],
+                       fl["memcom_xattn_bwd"]) <= 0:
+        raise AssertionError("[4w f] the launcher's 1x1 mesh leaves "
+                             "build(...) or launched no kernel")
+    return out
 
 
 def main() -> int:
@@ -1255,6 +1883,10 @@ def main() -> int:
                arange(m, prompt_len)[None], arange(0, m)[None], False),
               ("decode", slots, 1, max_len, (lengths - 1)[:, None],
                decode_kv, True))),
+        # the sharded training step's (phase 4w) Memory-LLM at batch 1
+        # and 4/2 heads (data 2 x model 2)
+        ("tp2_memory_self", 1, m, m, arange(0, m)[None], arange(0, m)[None],
+         True, (4, 2, 256, 50.0)),
     ]
     # shapes held in bf16 alone: the full-width models run bf16 (the
     # float32 kernel at (192, 128) is held at the MLA prompt's shape)
@@ -2114,6 +2746,17 @@ def main() -> int:
          arange(0, m)[None].expand(2, m), True, (8, 8, 24, 0.0, 16,
                                                  24 ** -0.5), True,
          ("float32", "bfloat16")),
+        # the sharded Phase-1 step (4w) at a rank's local shapes: batch 1
+        # at data 2 (the Memory-LLM's self-attention, 8/4 heads), and
+        # batch 1 at 4/2 heads at data 2 x model 2 (its three calls)
+        ("dp_memory_self_bwd", 1, m, m, arange(0, m)[None],
+         arange(0, m)[None], True, gemma_heads, False, ("bfloat16",)),
+        *((f"tp2_{name_}", 1, m, m, arange(q0, m)[None], arange(k0, m)[None],
+           causal_, (4, 2, 256, 50.0), dlse_, ("bfloat16",))
+          for name_, q0, k0, causal_, dlse_ in (
+              ("memory_self_bwd", 0, 0, True, False),
+              ("prompt_self_bwd", m, m, True, True),
+              ("prompt_prefix_bwd", m, 0, False, True))),
     ]
     flash_bwd_rows = []
     for (name, B, Sq, Skv, q_pos, kv_pos, causal, heads, with_dlse,
@@ -2261,7 +2904,9 @@ def main() -> int:
              ("bfloat16",)),
             # the Phase-1 steps of 4t and 4u
             ("whisper_memory_xattn_bwd", 2, m, T, 1024, ("bfloat16",)),
-            ("qwen_memory_xattn_bwd", 2, m, T, 1536, ("bfloat16",))):
+            ("qwen_memory_xattn_bwd", 2, m, T, 1536, ("bfloat16",)),
+            # a rank's call in the sharded Phase-1 step (4w): batch 1
+            ("dp_memory_xattn_bwd", 1, m, T, 2304, ("bfloat16",))):
         row = {"shape": name, "q": [B, Mx, D], "kv": [B, Tx, D]}
         for dn in dtypes:
             dtype = getattr(torch, dn)
@@ -6147,6 +6792,18 @@ def main() -> int:
     report["tp"]["phase_s"] = time.perf_counter() - t_phase
     log(f"[4v] tensor-parallel serving phase: "
         f"{report['tp']['phase_s']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4w: sharded MemCom training (data-parallel and fully sharded, with
+    # tensor parallelism) on gloo meshes of ranks that share the card
+    # (docstring, 4w); its ranks' launches are recorded in ``paths``
+    t_phase = time.perf_counter()
+    report["dp"] = run_4w(paths, counts, set_counts, ckdir, T, m)
+    report["dp"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"[4w] sharded training phase: {report['dp']['phase_s']:.1f}s "
+        f"(one-rank runs {report['dp']['refs_s']:.1f}s, the ranks "
+        f"{report['dp']['ranks_s']:.1f}s)")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -53,6 +53,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.param import Init, initialize, make
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.xattn import MemXAttn
+from repro_torch.sharding.collectives import sum_over, unsharded
+from repro_torch.sharding.ctx import data_group
 
 
 #: On the card a compress slice of w tokens runs ceil(w / CHUNK_ROWS) *
@@ -109,12 +111,12 @@ class MemCom(nn.Module):
     last two are declared uninitialised on the stacks' device."""
 
     def __init__(self, cfg: ModelConfig, source: Transformer,
-                 memory_llm: Transformer):
+                 memory_llm: Transformer, device=None):
         super().__init__()
         if cfg.memcom is None:
             raise ValueError(f"{cfg.name}: set ModelConfig.memcom")
         self.cfg = cfg
-        kw = dict(device=source.device, dtype=source.dtype)
+        kw = dict(device=device or source.device, dtype=source.dtype)
         self.memx = _memx(cfg, **kw)
         make(self, "mem_tokens", (cfg.memcom.num_memory_tokens, cfg.d_model),
              Init("normal", scale=cfg.d_model ** -0.5), axes=(None, "embed"),
@@ -123,11 +125,24 @@ class MemCom(nn.Module):
         self.memory_llm = memory_llm
 
 
-def init_memcom(cfg: ModelConfig, target: Transformer, seed: int = 0) -> MemCom:
+def init_memcom(cfg: ModelConfig, target: Transformer, seed: int = 0, *,
+                mesh=None, rules=None) -> MemCom:
     """Source and Memory-LLM are copies of ``target``; ``memx`` and the
-    memory tokens are drawn from ``seed``.  Lives on the target's device."""
-    mc = MemCom(cfg, copy.deepcopy(target), copy.deepcopy(target))
-    return initialize(mc, seed, skip=("source", "memory_llm"))
+    memory tokens are drawn from ``seed``.  Lives on the target's device.
+    With ``mesh`` (``target`` placed on it by ``init_params(...,
+    mesh=)``), ``memx`` and the memory tokens are drawn one at a time and
+    cut to this rank's slices by ``rules`` (the stacks are the target's
+    slices already)."""
+    if mesh is None:
+        mc = MemCom(cfg, copy.deepcopy(target), copy.deepcopy(target))
+        return initialize(mc, seed, skip=("source", "memory_llm"))
+    from repro_torch.sharding.rules import FSDP_RULES
+    from repro_torch.sharding.serving import shard_module
+
+    mc = MemCom(cfg, copy.deepcopy(target), copy.deepcopy(target),
+                device="meta")
+    return shard_module(mc, mesh, rules or FSDP_RULES, seed=seed,
+                        device=target.device)
 
 
 def init_memx(cfg: ModelConfig, seed: int = 0, *, device=None,
@@ -158,7 +173,8 @@ def _memory(mc: MemCom, cfg: ModelConfig, hiddens: list, source_cache=None,
     Mamba2 layers' entries are ``source_cache``'s final states)."""
     B = hiddens[0].shape[0]
     m = cfg.memcom.num_memory_tokens
-    mem_embeds = mc.mem_tokens[None].expand(B, m, cfg.d_model)
+    with unsharded(mc):  # fully sharded memory tokens, gathered whole
+        mem_embeds = mc.mem_tokens[None].expand(B, m, cfg.d_model)
     _, aux_m = mc.memory_llm(
         embeds=mem_embeds,
         memcom={"params": memx_list(mc.memx), "src": hiddens},
@@ -360,13 +376,25 @@ def next_token_loss(logits, tokens, mask=None):
     """Mean negative log-likelihood of tokens[:, 1:] under logits[:, :-1]
     in float32, weighted by ``mask[:, 1:]``.  The pick of each target's
     log-probability is ``nll_loss`` (its backward writes one element a
-    row, deterministic on the card)."""
+    row, deterministic on the card).
+
+    Under a placement whose batch is split over data ranks
+    (``sharding.ctx.data_group``) each rank holds a batch shard: the
+    numerator and the mask count are summed over the data ranks, so every
+    rank returns the global mean (the mean of the ranks' means would
+    weigh the ranks' masks wrongly), and the numerator's backward is the
+    identity, so each rank's gradient is its own share of the global one,
+    which the parameters' data reduction sums."""
     lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].long()
     ll = -F.nll_loss(lp.reshape(-1, lp.shape[-1]), tgt.reshape(-1),
                      reduction="none").reshape(tgt.shape)
     w = (mask[:, 1:].float() if mask is not None else torch.ones_like(ll))
-    return -(ll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    group = data_group()
+    if group is None:
+        return -(ll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    num = sum_over(-(ll * w).sum(), group)
+    return num / torch.clamp(sum_over(w.sum().detach(), group), min=1.0)
 
 
 def _trainable_path(path: str, phase: int) -> bool:

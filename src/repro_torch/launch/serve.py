@@ -68,8 +68,9 @@ launcher does: its entry point is ``ServingEngine`` itself.
 ``--mesh M`` (or ``--mesh DxM``) serves tensor-parallel on a ("data",
 "model") mesh of ``torch.distributed`` ranks: the target's weights split
 by ``--rules`` (baseline, or fsdp, which at data 1 places as baseline
-does; fully sharded weights at data above 1 come with the training
-slice), K/V caches and pools split by head over "model", every kernel on
+does and at data above 1 also cuts d_model over the data ranks, each
+weight gathered whole for the call that reads it), K/V caches and pools
+split by head over "model", every kernel on
 the rank's heads, block tables, lengths and the control plane the same on
 every rank.  The launcher starts its ranks itself (``spawn``, a file-store
 rendezvous in a temporary directory) unless ``torchrun`` started them;
@@ -277,8 +278,7 @@ def main(argv=None) -> dict:
                     default="baseline",
                     help="weight placement rule set for --mesh (baseline: "
                          "tensor parallel over model; fsdp: also d_model "
-                         "over data, which needs data 1 until the training "
-                         "slice)")
+                         "over data, gathered for each call)")
     args = ap.parse_args(argv)
     if min(args.tasks, args.slots, args.requests, args.priority_classes) < 1:
         ap.error("--tasks, --slots, --requests and --priority-classes must "
@@ -323,11 +323,6 @@ def main(argv=None) -> dict:
             data, model = _parse_mesh(args.mesh)
         except ValueError as e:
             ap.error(str(e))
-        if args.rules == "fsdp" and data > 1:
-            raise NotImplementedError(
-                "--rules fsdp at data > 1 shards d_model over the data axis "
-                "(fully sharded weights): that comes with the training-"
-                "sharding slice of the port (ROADMAP Queue 1 step 5)")
         backend = default_backend(device)
         if not dist.is_initialized():
             if "RANK" in os.environ and "WORLD_SIZE" in os.environ:

@@ -16,7 +16,10 @@ tables (the paged layout), and never copies it.
 Under a mesh (:func:`repro_torch.sharding.serving.shard_module`) a layer
 whose heads split holds its rank's query and KV heads: the projections are
 column slices, every kernel runs on the local heads, and the row-split
-``wo`` is summed over the "model" ranks.
+``wo`` is summed over the "model" ranks.  Every replicated input of the
+projections (the layer input, a prefix's hidden states, an encoder's
+frames) enters through ``copy_to_model``, whose backward sums the input
+gradient over the ranks.
 
 Cross-attention (Whisper's decoder, and its encoder's self-attention):
 with ``kv_source`` (B, F, D), or a cache holding the cross entries
@@ -41,7 +44,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.param import Init, make
-from repro_torch.sharding.serving import matmul_reduce
+from repro_torch.sharding.collectives import copy_to_model, matmul_reduce
 
 
 class Attention(nn.Module):
@@ -150,7 +153,7 @@ def prefix_positions(cfg: ModelConfig, B: int, m: int, device):
 def _prefix_kv(p: Attention, cfg: ModelConfig, prefix: dict):
     if "k" in prefix:
         return prefix["k"], prefix["v"]
-    h = prefix["h"]
+    h = copy_to_model(prefix["h"], p.tp)
     return project_kv(p, cfg, h,
                       prefix_positions(cfg, h.shape[0], h.shape[1], h.device))
 
@@ -163,8 +166,10 @@ def _cross_attention(p: Attention, cfg: ModelConfig, x, kv_source, cache):
     ones (the JAX package's cache takes the frames' length)."""
     B, S, _ = x.shape
     hd = cfg.hd
+    x = copy_to_model(x, p.tp)
     q = _proj(x, p.wq, p.bq if p.has_bias else None, hd)
     if kv_source is not None:
+        kv_source = copy_to_model(kv_source, p.tp)
         k = _proj(kv_source, p.wk, p.bk if p.has_bias else None, hd)
         v = _proj(kv_source, p.wv, p.bv if p.has_bias else None, hd)
     if cache is not None:
@@ -225,6 +230,7 @@ def apply_attention(
     B, S, _ = x.shape
     softcap = cfg.attn_logit_softcap
     scale = cfg.hd ** -0.5
+    x = copy_to_model(x, p.tp)
     q = project_q(p, cfg, x, positions)
 
     # ---------------- decode: read/write KV cache ----------------

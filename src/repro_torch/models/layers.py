@@ -17,7 +17,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.param import Init, make
-from repro_torch.sharding.serving import matmul_reduce
+from repro_torch.sharding.collectives import copy_to_model, matmul_reduce
 
 
 class Norm(nn.Module):
@@ -123,8 +123,10 @@ def _gelu(x):
 def apply_mlp(p: MLP, cfg: ModelConfig, x, mlp_type: str | None = None):
     """Under a mesh ``wg`` / ``wi`` are column slices and ``wo`` a row
     slice of ff: the product is summed over the "model" ranks, and the
-    bias ``bo`` added once, after the sum."""
+    bias ``bo`` added once, after the sum; ``x`` enters through
+    ``copy_to_model``."""
     t = mlp_type or cfg.mlp_type
+    x = copy_to_model(x, p.tp)
     if t == "gelu_mlp":
         h = _gelu(x @ p.wi + p.bi)
         return matmul_reduce(h, p.wo, p.tp) + p.bo

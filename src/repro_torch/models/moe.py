@@ -13,9 +13,13 @@ Dispatch groups (``MoEConfig.dispatch_groups`` G > 1): the sort, cumsum and
 scatter run within G independent token groups with a per-group capacity;
 the (G, E, C, D) buffers are folded into (E, G*C, D) for one ``gmm``
 launch.  The JAX package derives G from its installed residual sharding
-(``sharding/ctx.py::moe_dispatch_plan``); the port has no sharding
-context, so its plan is "no plan" — the reference's ``(x, None)`` on one
-host — and G is the config's.
+(``sharding/ctx.py::moe_dispatch_plan``), and so does the port
+(:func:`repro_torch.sharding.ctx.moe_dispatch_plan`): off-mesh the plan
+is ``(x, None)`` and G is the config's; with the batch over n data ranks
+the JAX MoE dispatches in n batch groups, of which each rank holds one,
+so a rank dispatches its own tokens as one group (the capacity of N / n
+tokens), and the load-balance statistics ``me`` and ``ce`` are summed
+over the data ranks, so the aux loss stays the global one.
 
 Parity traps kept on purpose:
 
@@ -41,6 +45,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import MLP
 from repro_torch.models.param import Init, make
+from repro_torch.sharding.collectives import sum_over
+from repro_torch.sharding.ctx import data_group, moe_dispatch_plan
 
 
 class MoE(nn.Module):
@@ -142,7 +148,18 @@ def apply_moe(p: MoE, cfg: ModelConfig, x):
     B, S, D = x.shape
     E, k = m.num_experts, m.top_k
     N = B * S
-    G = m.dispatch_groups  # no sharding plan (module docstring)
+    x, plan = moe_dispatch_plan(x, E)
+    group = data_group()
+    if plan is not None:
+        G, n_data = 1, plan  # this rank's batch group (module docstring)
+    elif group is not None:
+        raise NotImplementedError(
+            "a MoE over a batch split across data ranks without the "
+            "dispatch plan (moe_plan_disabled, or experts that do not "
+            "divide the model axis) dispatches the global batch as one "
+            "group: not ported (ROADMAP Queue 1 step 5.2)")
+    else:
+        G, n_data = m.dispatch_groups, 1
     if G <= 0 or N % G:
         G = 1
     xf = x.reshape(N, D)
@@ -153,10 +170,13 @@ def apply_moe(p: MoE, cfg: ModelConfig, x):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch-style, global)
-    me = probs.mean(dim=0)  # (E,)
+    if plan is None:
+        me = probs.mean(dim=0)  # (E,)
+    else:
+        me = sum_over(probs.sum(dim=0), group) / (N * n_data)
     ce = torch.zeros((E,), dtype=torch.float32, device=x.device)
     ce.index_add_(0, ids.reshape(-1), torch.ones(N * k, device=x.device))
-    ce = ce / (N * k)
+    ce = sum_over(ce, group if plan is not None else None) / (N * n_data * k)
     aux = m.aux_loss_weight * E * torch.sum(me * ce)
 
     Ng = N // G

@@ -79,6 +79,29 @@ def _path_seed(seed: int, path: str) -> int:
     return int.from_bytes(digest[:8], "little") & (2**63 - 1)
 
 
+def draw(init: Init, shape: Tuple[int, ...], path: str, seed: int,
+         device) -> torch.Tensor:
+    """The float32 values :func:`initialize` gives a parameter of
+    ``shape`` at dotted ``path`` (cast to the parameter's type where it
+    is stored)."""
+    if init.kind == "ones":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if init.kind == "zeros":
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(_path_seed(seed, path))
+    kw = dict(generator=g, device=device, dtype=torch.float32)
+    if init.kind == "uniform":
+        return (2 * torch.rand(shape, **kw) - 1).mul_(init.scale)
+    if init.kind == "normal":
+        return torch.randn(shape, **kw).mul_(init.scale)
+    if init.kind == "fanin":
+        fi = init.fan_in if init.fan_in is not None else (
+            shape[-2] if len(shape) >= 2 else shape[-1])
+        return torch.randn(shape, **kw).mul_(init.scale * fi ** -0.5)
+    raise ValueError(f"{path}: unknown init {init.kind!r}")
+
+
 @torch.no_grad()
 def initialize(root: nn.Module, seed: int,
                skip: Tuple[str, ...] = ()) -> nn.Module:
@@ -96,18 +119,5 @@ def initialize(root: nn.Module, seed: int,
                 p.zero_()
                 continue
             path = f"{mod_name}.{name}" if mod_name else name
-            g = torch.Generator(device=p.device)
-            g.manual_seed(_path_seed(seed, path))
-            kw = dict(generator=g, device=p.device, dtype=torch.float32)
-            if init.kind == "uniform":
-                x = (2 * torch.rand(p.shape, **kw) - 1).mul_(init.scale)
-            elif init.kind == "normal":
-                x = torch.randn(p.shape, **kw).mul_(init.scale)
-            elif init.kind == "fanin":
-                fi = init.fan_in if init.fan_in is not None else (
-                    p.shape[-2] if p.dim() >= 2 else p.shape[-1])
-                x = torch.randn(p.shape, **kw).mul_(init.scale * fi ** -0.5)
-            else:
-                raise ValueError(f"{path}: unknown init {init.kind!r}")
-            p.copy_(x)
+            p.copy_(draw(init, tuple(p.shape), path, seed, p.device))
     return root

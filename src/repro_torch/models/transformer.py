@@ -42,7 +42,8 @@ from repro_torch.models.layers import (MLP, Norm, sinusoidal_pos_embed,
 from repro_torch.models.mamba2 import init_mamba_cache
 from repro_torch.models.mla import init_mla_cache, init_paged_mla_cache
 from repro_torch.models.param import Init, initialize, make
-from repro_torch.sharding.serving import gather_model, reduce_model
+from repro_torch.sharding.collectives import (copy_to_model, gather_model,
+                                              reduce_model)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -253,8 +254,8 @@ class Transformer(nn.Module):
                 head, tp = self.embed.tokens.t(), self.embed.tp
             else:
                 head, tp = self.lm_head, self.tp
-            out = softcap(gather_model(out @ head, -1, tp),
-                          cfg.final_logit_softcap)
+            out = softcap(gather_model(copy_to_model(out, tp) @ head, -1,
+                                       tp), cfg.final_logit_softcap)
         aux = {
             "cache": cache,
             "hiddens": hiddens if capture_hiddens else None,
@@ -302,13 +303,25 @@ def _run_block(block: Block, params: dict, h, kw: dict):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None,
-                dtype=None) -> Transformer:
+                dtype=None, mesh=None, rules=None) -> Transformer:
     """A Transformer with every parameter drawn from ``seed`` (shapes and
     scales of ``repro/models/param.py``), on ``device`` (default: the
-    card)."""
+    card).  With ``mesh`` the model is declared on the meta device and
+    each parameter drawn whole, cut to this rank's slice by ``rules``
+    (default ``FSDP_RULES``) and the whole freed before the next one
+    (``sharding.serving.shard_module``): the same values as the unplaced
+    model's, and never the whole model on one rank."""
     device = resolve_device(device)
-    model = Transformer(cfg, device=device, dtype=torch_dtype(cfg, dtype))
-    return initialize(model, seed)
+    if mesh is None:
+        model = Transformer(cfg, device=device,
+                            dtype=torch_dtype(cfg, dtype))
+        return initialize(model, seed)
+    from repro_torch.sharding.rules import FSDP_RULES
+    from repro_torch.sharding.serving import shard_module
+
+    model = Transformer(cfg, device="meta", dtype=torch_dtype(cfg, dtype))
+    return shard_module(model, mesh, rules or FSDP_RULES, seed=seed,
+                        device=device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,

@@ -20,6 +20,11 @@ from repro_torch.models.param import Init, make
 
 
 class MemXAttn(nn.Module):
+    # the placement rule's head counts (sharding.rules.module_specs): the
+    # cross-attention never splits over "model" (the paper's single head
+    # cannot; the mha / mqa split is not ported), so it replicates there
+    head_counts = (1, 1)
+
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
         self.cfg = cfg

@@ -4,22 +4,44 @@
 ``compress_grads_bf16`` rounds gradients through bf16 (the cast that halves
 all-reduce bytes); ``ErrorFeedbackInt8`` quantizes to int8 with a
 per-tensor scale and carries the residual into the next step's gradient.
+
+Under a mesh a rank holds slices of the gradients: ``groups`` names, for
+each leaf, the process groups over whose ranks its slices are distinct
+(the data group for a fully sharded leaf, the "model" group for a split
+one, both, or none for a replicated leaf); the squares are summed over
+those ranks, so every rank gets the global norm and a replicated leaf
+counts once.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor],
+                groups: Optional[Mapping[str, tuple]] = None
+                ) -> torch.Tensor:
     sq = [torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    if not groups:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    buckets: dict = {}  # the leaves' insertion order: the same on every rank
+    for name, s in zip(tree, sq):
+        buckets.setdefault(tuple(groups.get(name, ())), []).append(s)
+    total = None
+    for key, parts in buckets.items():
+        part = torch.sum(torch.stack(parts))
+        for g in key:
+            dist.all_reduce(part, group=g)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        groups: Optional[Mapping[str, tuple]] = None):
+    norm = global_norm(grads, groups)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {n: (g.to(torch.float32) * scale).to(g.dtype)
             for n, g in grads.items()}, norm

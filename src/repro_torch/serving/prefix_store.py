@@ -46,6 +46,7 @@ from repro_torch.models.attention import prefix_positions, project_kv
 from repro_torch.models.mla import latent
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving.block_pool import BlockAllocator
+from repro_torch.sharding.collectives import unsharded
 
 #: The leaves that live at cache positions (pooled in the paged layout).
 KV_KEYS = ("k", "v", "ckv", "kr")
@@ -64,12 +65,13 @@ def materialize_prefix(target: Transformer, cfg: ModelConfig, prefix: list) -> l
             continue
         h = entry["h"]
         pos = prefix_positions(cfg, h.shape[0], h.shape[1], h.device)
-        if desc.mixer == "mla":
-            ckv, kr = latent(block.attn, cfg, h, pos)
-            out.append({"ckv": ckv, "kr": kr})
-        else:
-            k, v = project_kv(block.attn, cfg, h, pos)
-            out.append({"k": k, "v": v})
+        with unsharded(block.attn):  # read outside a call of the layer
+            if desc.mixer == "mla":
+                ckv, kr = latent(block.attn, cfg, h, pos)
+                out.append({"ckv": ckv, "kr": kr})
+            else:
+                k, v = project_kv(block.attn, cfg, h, pos)
+                out.append({"k": k, "v": v})
     return out
 
 

@@ -69,6 +69,9 @@ class PartitionSpec(tuple):
             e[0] if isinstance(e, tuple) and len(e) == 1 else e
             for e in entries))
 
+    def __getnewargs__(self):  # copy / pickle rebuild it entry by entry
+        return tuple(self)
+
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"
 

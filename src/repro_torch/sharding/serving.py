@@ -1,28 +1,28 @@
-"""Mesh placement for the serving stack (``repro/sharding/serving.py``):
-the target's parameters, the engine's caches and pools, prefixes, and the
-collectives the placement implies.
+"""Mesh placement (``repro/sharding/serving.py``): the parameters of a
+model placed on a ("data", "model") mesh of ranks, the serving engine's
+caches and pools, prefixes, and the agreement check of the ranks'
+control planes.
 
-The whole serving design keeps one invariant: **attention splits by
-head**.  ``k`` / ``v`` (dense ``(slots, L, Hkv, hd)``, paged ``(N, bs,
-Hkv, hd)``, a prefix's ``(B, m, Hkv, hd)``) split their head axis over the
-mesh's "model" axis and replicate the rest, so block tables, per-slot
-lengths and the whole control plane stay plain host values, the same on
-every rank.  ``h`` (the compressor's O^i) replicates.
+The serving design keeps one invariant: **attention splits by head**.
+``k`` / ``v`` (dense ``(slots, L, Hkv, hd)``, paged ``(N, bs, Hkv, hd)``,
+a prefix's ``(B, m, Hkv, hd)``) split their head axis over the mesh's
+"model" axis and replicate the rest, so block tables, per-slot lengths
+and the whole control plane stay plain host values, the same on every
+rank.  ``h`` (the compressor's O^i) replicates.
 
 The JAX package places arrays from one controller and lets GSPMD insert
 the collectives; its Pallas decode kernels run per shard under
 ``shard_map``.  The port runs one process per rank: each rank holds only
-its slice of every split parameter and cache leaf (:func:`shard_module`,
+its slice of every placed parameter and cache leaf (:func:`shard_module`,
 :func:`shard_cache`), and the model calls the collective its placement
-implies: :func:`matmul_reduce` (a product that contracts a split
-dimension, attention's and the MLP's ``wo``, summed over the "model"
-group in float32), :func:`reduce_model` (the vocabulary-split embedding
-lookup), :func:`gather_model`
-(the vocabulary-split logits, before the final softcap).  Each kernel
-gets plain local tensors, which is what ``shard_map_heads`` gives the
-Pallas kernels, so ``constrain_cache``, ``constrain_heads`` and
-``shard_map_heads`` have no counterpart here.  Collectives carry no
-gradient: this placement serves; training's sharding is a later slice.
+implies (:mod:`repro_torch.sharding.collectives`, re-exported here:
+``matmul_reduce``, ``reduce_model``, ``gather_model``, and for training
+``copy_to_model`` and the fully sharded parameters' gathers).  Each
+kernel gets plain local tensors, which is what ``shard_map_heads`` gives
+the Pallas kernels, so ``constrain_cache``, ``constrain_heads`` and
+``shard_map_heads`` have no counterpart here.  Under ``FSDP_RULES`` at a
+data axis above 1 every data rank serves the same requests (replicas) and
+gathers each fully sharded weight whole for the call that reads it.
 """
 
 from __future__ import annotations
@@ -33,16 +33,23 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch import nn
 
+from repro_torch.sharding.collectives import (DataShard, ModelShard,
+                                              copy_to_model, gather_model,
+                                              gather_param, matmul_reduce,
+                                              reduce_model, unshard_hooks,
+                                              unsharded)
 from repro_torch.sharding.rules import (BASELINE_RULES, PartitionSpec,
                                         Placement, Rules, axis_sizes,
                                         module_specs, spec_for)
 
 __all__ = [
-    "BASELINE_RULES", "ModelShard", "cache_shardings", "check_agreement",
-    "dist_rank", "gather_model", "leaf_sharding", "leaf_spec",
-    "matmul_reduce", "model_axis_size", "model_shard", "reduce_model",
-    "shard_cache", "shard_module",
+    "BASELINE_RULES", "DataShard", "ModelShard", "cache_shardings",
+    "check_agreement", "copy_to_model", "dist_rank", "gather_model",
+    "gather_param", "leaf_sharding", "leaf_spec", "matmul_reduce",
+    "model_axis_size", "model_shard", "placed_specs", "reduce_model",
+    "shard_cache", "shard_module", "unsharded",
 ]
 
 #: trailing logical dims per cache / prefix leaf key; the leading dims
@@ -61,22 +68,6 @@ _TRAILING = {
 }
 
 
-class ModelShard:
-    """What a rank of the "model" axis needs to run its slice: the
-    axis's process group, its extent and the rank's index on it.  A deep
-    copy of a model keeps the same record (a process group does not
-    copy)."""
-
-    def __init__(self, group, size: int, rank: int):
-        self.group, self.size, self.rank = group, size, rank
-
-    def __deepcopy__(self, memo):
-        return self
-
-    def __repr__(self):
-        return f"ModelShard(rank {self.rank} of {self.size})"
-
-
 def model_axis_size(mesh) -> int:
     """Extent of the tensor-parallel axis (1 with no mesh or no axis)."""
     if mesh is None:
@@ -92,55 +83,6 @@ def model_shard(mesh) -> Optional[ModelShard]:
         return None
     return ModelShard(mesh.get_group("model"), n,
                       mesh.get_local_rank("model"))
-
-
-def reduce_model(x: torch.Tensor, shard: Optional[ModelShard]):
-    """Sum ``x`` over the ranks of the "model" axis in float32, returned
-    in ``x``'s type (the vocabulary-split embedding's rows: one rank's
-    row and zeros, an exact sum); the identity without a shard."""
-    if shard is None:
-        return x
-    y = x.to(torch.float32, copy=True).contiguous()
-    dist.all_reduce(y, group=shard.group)
-    return y.to(x.dtype)
-
-
-def matmul_reduce(x: torch.Tensor, w: torch.Tensor,
-                  shard: Optional[ModelShard]):
-    """``x @ w`` where ``w`` is a row slice of the whole weight and ``x``
-    the matching column slice of the activations: each rank's partial
-    product is formed in float32 (on the card ``torch.mm(...,
-    out_dtype=float32)`` where this PyTorch has it, else a float32
-    product), summed over the "model" ranks in float32 and rounded once to
-    ``x``'s type, as the unsplit bf16 product rounds its float32
-    accumulator once.  Rounding each partial to bf16 before the sum would
-    add a rounding a layer.  The plain ``x @ w`` without a shard."""
-    if shard is None:
-        return x @ w
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    y = None
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        try:
-            y = torch.mm(x2, w, out_dtype=torch.float32)
-        except (TypeError, RuntimeError):  # a PyTorch without out_dtype
-            y = None
-    if y is None:
-        y = x2.float() @ w.float()
-    dist.all_reduce(y, group=shard.group)
-    return y.to(x.dtype).reshape(*lead, w.shape[-1])
-
-
-def gather_model(x: torch.Tensor, dim: int, shard: Optional[ModelShard]):
-    """Concatenate the ranks' slices of ``x`` along ``dim`` in rank order
-    (the list form of ``all_gather``, which gloo takes for CUDA tensors
-    too); the identity without a shard."""
-    if shard is None:
-        return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(shard.size)]
-    dist.all_gather(parts, x, group=shard.group)
-    return torch.cat(parts, dim=dim)
 
 
 def dist_rank() -> int:
@@ -165,26 +107,36 @@ def check_agreement(group, *arrays: np.ndarray) -> None:
                            f"hashes {seen} (this rank {dist_rank()})")
 
 
+def _cut(spec: PartitionSpec, mesh):
+    """``[(dim, axes, extent, this rank's index)]`` of the dimensions
+    ``spec`` places on mesh axes of extent above 1."""
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    out = []
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = tuple(a for a in axes if sizes[a] > 1)
+        if not axes:
+            continue
+        n, idx = 1, 0
+        for a in axes:  # row-major over the axes, as a mesh lays them out
+            idx = idx * sizes[a] + coord[a]
+            n *= sizes[a]
+        out.append((d, axes, n, idx))
+    return out
+
+
 def _local(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     """This rank's slice of a whole tensor placed by ``spec``: each
-    dimension on "model" cut to the rank's equal part.  Entries on the
-    data axes must be of extent 1 (fully sharded weights come with the
-    training slice)."""
-    sizes = axis_sizes(mesh)
-    for d, entry in enumerate(spec):
-        axes = (entry,) if isinstance(entry, str) else (entry or ())
-        for a in axes:
-            if a != "model" and sizes[a] > 1:
-                raise NotImplementedError(
-                    f"a dimension placed on {a!r} (extent {sizes[a]}): "
-                    "fully sharded weights (FSDP) come with the training-"
-                    "sharding slice (ROADMAP Queue 1 step 5)")
-        if "model" in axes and sizes["model"] > 1:
-            n = sizes["model"]
-            part = x.shape[d] // n
-            x = x.narrow(d, mesh.get_local_rank("model") * part,
-                         part).clone(memory_format=torch.contiguous_format)
-    return x
+    dimension on mesh axes cut to the rank's equal part ("model" and the
+    data axes alike)."""
+    cut = _cut(spec, mesh)
+    if not cut:
+        return x
+    for d, _axes, n, idx in cut:
+        part = x.shape[d] // n
+        x = x.narrow(d, idx * part, part)
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _unported(cfg) -> Optional[str]:
@@ -201,18 +153,65 @@ def _unported(cfg) -> Optional[str]:
     return None
 
 
+def _unit_of(model, owner_name: str) -> Optional[str]:
+    """The module whose calls gather a fully sharded parameter of
+    ``owner_name``: its shallowest ancestor below ``model`` (itself
+    included) that defines ``forward`` (a transformer block, a ``memx``
+    layer, a final norm), else ``model`` where it defines one (the
+    embedding table's stack); None where no call encloses the reads (a
+    MemCom's memory tokens: ``collectives.unsharded``)."""
+    parts = owner_name.split(".") if owner_name else []
+    for i in range(1, len(parts) + 1):
+        name = ".".join(parts[:i])
+        if type(model.get_submodule(name)).forward is not nn.Module.forward:
+            return name
+    if type(model).forward is not nn.Module.forward:
+        return ""
+    return None
+
+
+def _draw(owner, pname: str, path: str, seed: int, device, dtype):
+    """A parameter declared on the meta device, drawn whole from ``seed``
+    on ``device`` as :func:`repro_torch.models.param.initialize` draws
+    it."""
+    from repro_torch.models.param import draw
+
+    shape = tuple(owner._parameters[pname].shape)
+    return draw(owner._inits[pname], shape, path, seed, device).to(dtype)
+
+
 @torch.no_grad()
-def shard_module(model, mesh, rules: Rules = BASELINE_RULES):
-    """Replace each split parameter of ``model`` (a Transformer) in place
-    with this rank's slice: the counterpart of ``jax.device_put(params,
-    logical_to_shardings(...))``.  Each module whose parameters split
-    records the rank's :class:`ModelShard` as ``tp`` (attention: its
-    local heads; the MLP: its local ff width; the embedding: its
-    vocabulary range from ``vocab_start``; the model itself: a split
-    ``lm_head``), which its forward reads to reduce or gather.  Returns
+def shard_module(model, mesh, rules: Rules = BASELINE_RULES, *,
+                 seed: Optional[int] = None, device=None):
+    """Replace each placed parameter of ``model`` in place with this
+    rank's slice: the counterpart of ``jax.device_put(params,
+    logical_to_shardings(...))``.
+
+    * A dimension on "model" (heads, ff, vocabulary): each module whose
+      parameters split records the rank's :class:`ModelShard` as ``tp``
+      (attention: its local heads; the MLP: its local ff width; the
+      embedding: its vocabulary range from ``vocab_start``; the model
+      itself: a split ``lm_head``), which its forward reads to reduce or
+      gather.
+    * A dimension on the data axes (``FSDP_RULES``' "embed"): the module
+      records the cut in ``_fsdp``, and the module whose calls enclose its
+      reads (:func:`_unit_of`: the block, the ``memx`` layer, the stack
+      for its embedding table) gets the hooks that gather the parameter
+      whole for each call (``collectives.unshard_hooks``); autograd
+      reduce-scatters its gradient.  A MemCom's memory tokens, read
+      outside any call, are gathered where ``core.memcom`` reads them
+      (``collectives.unsharded``).
+
+    Each parameter's spec is kept on its module (``_specs``, read by
+    :func:`placed_specs`).  Parameters declared on the meta device
+    (``init_params(..., mesh=)``) are drawn whole from ``seed`` on
+    ``device`` one at a time and cut at once, so a rank never holds more
+    than one whole parameter.  Submodules placed already (a MemCom's
+    stacks, copies of a placed target) are left as they are.  Returns
     ``model``; a model placed on this mesh and rule set already is
-    returned as it is (two engines may share one target).  Raises for a family whose tensor-parallel placement is
-    not ported yet, where the model axis is above 1."""
+    returned as it is (two engines may share one target).  Raises for a
+    family whose tensor-parallel placement is not ported yet, where the
+    model axis is above 1."""
     if mesh.get_coordinate() is None:
         raise ValueError(f"rank {dist_rank()} is not on the mesh "
                          f"{axis_sizes(mesh)}")
@@ -228,27 +227,69 @@ def shard_module(model, mesh, rules: Rules = BASELINE_RULES):
     what = _unported(cfg) if (cfg is not None and n > 1) else None
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving of {what} is the next "
-            "slice of the port (ROADMAP Queue 1 step 5); a 1x1 mesh runs "
-            "it unsplit")
+            f"{cfg.name}: tensor parallelism of {what} is not ported yet "
+            "(ROADMAP Queue 1 step 5.2); a model axis of 1 runs it, split "
+            "over the data axes or whole")
+    done = tuple(f"{name}." for name, mod in model.named_modules()
+                 if name and getattr(mod, "_placement_key", None) is not None)
     shard = model_shard(mesh)
     specs = module_specs(model, mesh, rules)
     split_owners = {}
     for name, spec in specs.items():
+        if name.startswith(done):
+            continue
         owner_name, _, pname = name.rpartition(".")
         owner = model.get_submodule(owner_name)
-        p = getattr(owner, pname)
-        new = _local(p.data, spec, mesh)
-        if new.shape != p.shape:
-            setattr(owner, pname, torch.nn.Parameter(
-                new, requires_grad=p.requires_grad))
-            split_owners[owner_name] = (owner, pname, spec)
-    for owner_name, (owner, pname, spec) in split_owners.items():
+        p = owner._parameters[pname]
+        whole = p.data
+        if p.is_meta:
+            whole = _draw(owner, pname, name, seed, device, p.dtype)
+        cut = _cut(spec, mesh)
+        new = _local(whole, spec, mesh)
+        if new is not p.data:
+            owner._parameters[pname] = torch.nn.Parameter(
+                new, requires_grad=p.requires_grad)
+        if not hasattr(owner, "_specs"):
+            owner._specs = {}
+        owner._specs[pname] = spec
+        for d, axes, size, idx in cut:
+            if "model" in axes:
+                split_owners[owner_name] = (owner, pname)
+            else:
+                if len(axes) != 1:
+                    raise NotImplementedError(
+                        f"{name}: a dimension over the data axes {axes}; "
+                        "the port's data groups span one axis (ROADMAP "
+                        "Queue 1 step 5.3)")
+                if not hasattr(owner, "_fsdp"):
+                    owner._fsdp = {}
+                owner._fsdp[pname] = DataShard(
+                    d, mesh.get_group(axes[0]), size, idx)
+                unit = _unit_of(model, owner_name)
+                if unit is not None:
+                    unshard_hooks(model.get_submodule(unit),
+                                  owner_name[len(unit):].lstrip("."))
+        del whole
+    for owner_name, (owner, pname) in split_owners.items():
         owner.tp = shard
         if pname == "tokens":  # the vocabulary-split embedding table
-            owner.vocab_start = shard.rank * owner.tokens.shape[0]
+            owner.vocab_start = shard.rank * owner._parameters[
+                "tokens"].shape[0]
     model._placement_key = key
     return model
+
+
+def placed_specs(model) -> dict:
+    """``{dotted parameter name: PartitionSpec}`` of a model placed by
+    :func:`shard_module` (a parameter it did not place reads as
+    replicated)."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        specs = getattr(mod, "_specs", {})
+        for pname, p in mod.named_parameters(recurse=False):
+            path = f"{mod_name}.{pname}" if mod_name else pname
+            out[path] = specs.get(pname, PartitionSpec())
+    return out
 
 
 def leaf_spec(key: Optional[str], ndim: int, shape: Tuple[int, ...],

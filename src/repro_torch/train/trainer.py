@@ -13,6 +13,17 @@
   slower than ``watchdog_factor`` times the EWMA is counted.
 * metrics: JSONL, one line per logged step; ``losses`` keeps every
   step's loss.
+
+Under a mesh (``placement``, a :class:`~repro_torch.sharding.training.
+TrainPlacement`) every rank runs the loop on its slices, and the
+decisions that stop or shape it must agree on every rank, or a rank that
+stops alone hangs the rest: rank 0 reads the PREEMPTED flag and its own
+step time for the watchdog, and broadcasts both over the mesh's gloo
+control group each step.  Checkpoints stay mesh-independent: the slices
+are gathered to rank 0, which alone writes (the one-rank format, so a
+checkpoint written on any mesh restores on any other); on restore rank 0
+names the step and every rank reads the whole tensors and keeps its
+slices.
 """
 
 from __future__ import annotations
@@ -48,7 +59,9 @@ def _to_like(live, loaded):
 class Trainer:
     def __init__(self, train_step: Callable, params: dict, opt_state: dict,
                  batch_at: Callable[[int], dict], ckpt_root: str,
-                 tc: TrainerConfig):
+                 tc: TrainerConfig, placement=None):
+        self.placement = placement
+        self.lead = placement is None or placement.lead
         self.train_step = train_step
         self.params = params
         self.opt_state = opt_state
@@ -64,16 +77,42 @@ class Trainer:
     def _tree(self):
         return {"params": self.params, "opt": self.opt_state}
 
+    def _whole_tree(self):
+        """The checkpoint's tree: the live one, or under a mesh the whole
+        tensors gathered to rank 0 (None on the other ranks)."""
+        pl = self.placement
+        if pl is None:
+            return self._tree()
+        params = {n: pl.whole(t, n) for n, t in self.params.items()}
+        opt = {kind: {n: pl.whole(t, n)
+                      for n, t in self.opt_state[kind].items()}
+               for kind in ("mu", "nu", "master")}
+        opt["count"] = pl.whole(self.opt_state["count"], "count")
+        return {"params": params, "opt": opt} if self.lead else None
+
+    def _local(self, tree):
+        """Rank 0's whole tensors cut to this rank's slices."""
+        pl = self.placement
+        if pl is None:
+            return tree
+        return {"params": {n: pl.local(t, n)
+                           for n, t in tree["params"].items()},
+                "opt": {kind: ({n: pl.local(t, n) for n, t in v.items()}
+                               if isinstance(v, dict) else v)
+                        for kind, v in tree["opt"].items()}}
+
     @torch.no_grad()
     def restore_if_available(self, step: Optional[int] = None) -> int:
         """Restore checkpoint ``step`` (None: the latest, if any); returns
-        the step restored (0: none)."""
+        the step restored (0: none).  Under a mesh rank 0 names the step."""
         if step is None:
-            step, tree, _meta = self.mgr.restore_latest(self._tree())
+            step = self.mgr.latest_step() if self.lead else None
+            if self.placement is not None:
+                step = int(self.placement.broadcast([step or 0])[0]) or None
             if step is None:
                 return 0
-        else:
-            tree, _meta = self.mgr.restore(step, self._tree())
+        tree, _meta = self.mgr.restore(step, self._tree())
+        tree = self._local(tree)
         for name, p in self.params.items():
             p.copy_(tree["params"][name])
         self.opt_state = _to_like(self.opt_state, tree["opt"])
@@ -81,19 +120,34 @@ class Trainer:
         return step
 
     def _save(self, step: int):
-        self.mgr.save(step, self._tree(),
-                      meta={"straggler_events": self.straggler_events})
+        tree = self._whole_tree()
+        if self.lead:
+            self.mgr.save(step, tree,
+                          meta={"straggler_events": self.straggler_events})
+        if self.placement is not None:
+            self.placement.barrier()  # the step is on disk for every rank
+
+    def _decide(self, preempted: bool, slow: bool):
+        """(preempted, slow) as rank 0 sees them, on every rank."""
+        if self.placement is None:
+            return preempted, slow
+        p, s = self.placement.broadcast([float(preempted), float(slow)])
+        return bool(p), bool(s)
 
     def run(self) -> dict:
         tc = self.tc
-        metrics_f = open(tc.metrics_path, "a") if tc.metrics_path else None
+        metrics_f = (open(tc.metrics_path, "a")
+                     if tc.metrics_path and self.lead else None)
         last = {}
         step = self.start_step
         try:
             while step < tc.num_steps:
-                if self.mgr.preempted():
+                preempted, _ = self._decide(
+                    self.lead and self.mgr.preempted(), False)
+                if preempted:
                     self._save(step)
-                    self.mgr.clear_preemption()
+                    if self.lead:
+                        self.mgr.clear_preemption()
                     return {"preempted_at": step, **last}
                 batch = self.batch_at(step)
                 t0 = time.monotonic()
@@ -101,11 +155,13 @@ class Trainer:
                     self.params, self.opt_state, batch)
                 loss = float(m["loss"])  # waits for the step's device work
                 dt = time.monotonic() - t0
-                if self._ewma is None:
-                    self._ewma = dt
-                elif dt > tc.watchdog_factor * self._ewma:
+                slow = (self._ewma is not None
+                        and dt > tc.watchdog_factor * self._ewma)
+                _, slow = self._decide(False, slow)
+                if slow:
                     self.straggler_events += 1
-                self._ewma = 0.9 * self._ewma + 0.1 * dt
+                self._ewma = dt if self._ewma is None else (
+                    0.9 * self._ewma + 0.1 * dt)
                 step += 1
                 self.losses[step] = loss
                 if step % tc.log_every == 0 or step == tc.num_steps:

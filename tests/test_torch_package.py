@@ -17,6 +17,7 @@ import repro_torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import memcom
 from repro_torch.launch import serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import Request, ServingEngine
 
@@ -60,7 +61,9 @@ assert not bad, bad
                 "serving.profiler", "serving.server", "core.icae",
                 "core.lora", "configs.smollm_360m", "configs.stablelm_1_6b",
                 "configs.mistral_nemo_12b", "launch.costs",
-                "launch.roofline"):
+                "launch.roofline", "launch.mesh", "sharding.rules",
+                "sharding.serving", "sharding.collectives", "sharding.ctx",
+                "sharding.pipeline", "sharding.training"):
         assert f"repro_torch.{mod}" in mods.split(), mod
 
 
@@ -80,6 +83,9 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         tfm.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1"])
+    for mesh in ([], ["--data", "2"], ["--data", "1", "--model", "2"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_train.main(["--smoke", "--steps", "1", *mesh])
     assert memcom.init_memcom(cfg, target, 1).mem_tokens.device.type == "cpu"
 
 

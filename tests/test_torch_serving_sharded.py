@@ -21,8 +21,10 @@ float32), parameters carried across by ``repro_torch.bridge``:
 * the placement rule counted in heads: smollm-135m-smoke's 3/3 heads on 2
   ranks and qwen2-vl-2b-smoke's 4/2 on 4 replicate attention and give
   the unsplit engine's tokens;
-* a 2x2 mesh (two replicas of a 2-way split), fsdp rules at data 1 and 2,
-  a 1x1 mesh, the launcher's ``--mesh 2``;
+* a 2x2 mesh (two replicas of a 2-way split), fsdp rules at data 1, at
+  2x1 (dense and paged) and at 2x2 (d_model cut over the data ranks and
+  gathered for each call), a 1x1 mesh, the launcher's ``--mesh 2`` and
+  ``--mesh 2x1 --rules fsdp``;
 * what raises: too many ranks, nccl past the cards, rules without a mesh,
   MoE / Mamba2 / MLA under a model axis above 1, diverged control planes,
   a hung collective.
@@ -262,10 +264,25 @@ def test_fsdp_rules_at_data_1_place_as_baseline(ref, four):
         assert r["fsdp_data1"] == ref["want"]["offline_dense"]
 
 
-def test_fsdp_rules_at_data_2_raise(four):
+def test_fsdp_rules_at_data_2_raise(ref, four):
+    """Fully sharded weights at 2x2 serve (they raised before training's
+    sharding came): the JAX engine's tokens, each rank holding a quarter
+    of the first wq (d_model over data, heads over model)."""
+    cfg = ref["cfg"]
     for r in four:
-        assert r["fsdp_data2"].startswith("NotImplementedError")
-        assert "training" in r["fsdp_data2"]
+        assert r["fsdp_data2"] == ref["want"]["offline_dense"]
+        assert r["fsdp_data2_wq"] == (cfg.d_model // 2,
+                                      cfg.num_heads * cfg.hd // 2)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_fsdp_rules_at_2x1_match_jax(ref, two, layout):
+    cfg = ref["cfg"]
+    for r in two:
+        got = r["fsdp_2x1"]
+        assert got[layout] == ref["want"][f"offline_{layout}"]
+        assert got[f"wq_{layout}"] == (cfg.d_model // 2,
+                                       cfg.num_heads * cfg.hd)
 
 
 def test_data_axis_holds_replicas(ref, four):
@@ -322,10 +339,19 @@ def test_launcher_mesh_2_gives_the_unsplit_tokens(tmp_path):
     assert runs["plain"]["mesh"] is None
 
 
-def test_launcher_fsdp_at_data_2_raises():
-    with pytest.raises(NotImplementedError, match="training"):
+def test_launcher_fsdp_at_data_2_raises(tmp_path):
+    """``--mesh 2x1 --rules fsdp`` (it raised before training's sharding
+    came) gives the one-rank launcher's tokens."""
+    runs = {}
+    for name, extra in (("plain", []),
+                        ("fsdp", ["--mesh", "2x1", "--rules", "fsdp"])):
+        out = tmp_path / f"{name}.json"
         launch_serve.main(["--arch", "smollm-135m", "--smoke", "--device",
-                           "cpu", "--mesh", "2x1", "--rules", "fsdp"])
+                           "cpu", "--requests", "4", "--max-new", "4",
+                           "--metrics", str(out), *extra])
+        runs[name] = json.loads(out.read_text())
+    assert runs["fsdp"]["tokens"] == runs["plain"]["tokens"]
+    assert runs["fsdp"]["mesh"] == "2x1" and runs["fsdp"]["rules"] == "fsdp"
 
 
 @pytest.mark.parametrize("spec", ["2x2x2", "0", "ax2"])

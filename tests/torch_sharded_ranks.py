@@ -167,12 +167,31 @@ def two_ranks(rank, world, spec):
             slots=1, max_len=16, device="cpu", mesh=mesh))
         for arch in ("granite-moe-3b-a800m", "mamba2-370m",
                      "deepseek-v2-236b")}
+    res["fsdp_2x1"] = _fsdp_2x1(cfg, spec)
     res["too_many_ranks"] = _raises(
         lambda: make_serving_mesh(model=4, device="cpu"))
     res["diverged"] = _raises(lambda: check_agreement(
         mesh.control_group, np.array([rank])))
     res["agreed"] = _raises(lambda: check_agreement(
         mesh.control_group, np.array([7, 8])))
+    return res
+
+
+def _fsdp_2x1(cfg, spec):
+    """``FSDP_RULES`` at data 2: each rank holds half of every d_model
+    (gathered for each call) and serves the same requests, dense and
+    paged."""
+    mesh = make_serving_mesh(model=1, data=2, device="cpu")
+    res = {}
+    for layout in ("dense", "paged"):
+        target = _target(cfg, spec["params"])
+        eng = ServingEngine(cfg, target, slots=SLOTS, max_len=64,
+                            device="cpu", mesh=mesh, rules=FSDP_RULES,
+                            **_layout(layout))
+        eng.add_prefix("task", _kv(spec["jkv"]))
+        res[layout] = _serve(eng, _offline_reqs(spec["prompts"]))
+        res[f"wq_{layout}"] = tuple(
+            target.layers[0].attn.wq.shape)
     return res
 
 
@@ -215,8 +234,9 @@ def _tiers(cfg, spec, mesh, rank):
 
 def four_ranks(rank, world, spec):
     """The 4-rank scenarios: 1x4 dense and paged (baseline and fsdp rules),
-    a 2x2 mesh (two replicas of a 2-way split), fsdp at data 2 raising, and
-    qwen2-vl-2b-smoke's 4/2 heads replicating attention."""
+    a 2x2 mesh (two replicas of a 2-way split), fsdp at 2x2 (d_model cut
+    over data, heads over model), and qwen2-vl-2b-smoke's 4/2 heads
+    replicating attention."""
     torch.set_num_threads(1)
     cfg = parity_config()
     res = {}
@@ -240,9 +260,13 @@ def four_ranks(rank, world, spec):
     eng.add_prefix("task", _kv(spec["jkv"]))
     res["mesh_2x2"] = _serve(eng, _offline_reqs(spec["prompts"]))
     res["shapes_2x2"] = _shapes(eng)
-    res["fsdp_data2"] = _raises(lambda: ServingEngine(
-        cfg, _target(cfg, spec["params"]), slots=SLOTS, max_len=64,
-        device="cpu", mesh=mesh22, rules=FSDP_RULES))
+    eng = ServingEngine(cfg, _target(cfg, spec["params"]), slots=SLOTS,
+                        max_len=64, device="cpu", mesh=mesh22,
+                        rules=FSDP_RULES)
+    eng.add_prefix("task", _kv(spec["jkv"]))
+    res["fsdp_data2"] = _serve(eng, _offline_reqs(spec["prompts"]))
+    res["fsdp_data2_wq"] = tuple(
+        eng.target.layers[0].attn.wq.shape)
     return res
 
 
